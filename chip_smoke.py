@@ -8,9 +8,9 @@ Run from the repository root, with no arguments:
 Phases, in order; any failed check exits non-zero before the last line:
   1. card       the nvidia-smi name and power-limit line;
   2. build      nvcc builds every kernel of erd_tpu_torch/csrc/, in parallel;
-  3. kernels    each kernel against its plain PyTorch version on the card at
-                serving shapes (NMS keep masks exactly equal; the decode
-                within 1e-4 * stride + 1e-5 * |box| px), then timed;
+  3. kernels    each serving kernel against its plain PyTorch version on the
+                card at serving shapes (NMS keep masks exactly equal; the
+                decode within 1e-4 * stride + 1e-5 * |box| px), then timed;
   4. reference  the full-width float32 network on the card against the same
                 network on the CPU, on a small input;
   5. serve      4 requests through init_detector / inference_detector of the
@@ -18,11 +18,28 @@ Phases, in order; any failed check exits non-zero before the last line:
                 random weights, gfl_cls bias 0) on both canvases; every
                 kernel of the path must have launched; the same head outputs
                 post-processed on the CPU must give the same detections;
-  6. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  6. train kernels  the training kernels against their plain versions at
+                B = 2 and at the train step's B = 16, N = 22400 (ATSS and
+                the ERS lists exactly, ERS masks exactly away from the
+                threshold, the fused losses within stated tolerances,
+                forward and backward; the decode without clip and the NMS on
+                the ERS teacher rows at K = 1024 and 4481), then timed at
+                B = 16;
+  7. train reference  the full-width float32 ERD loss dict and student
+                gradients on the card (kernels) and on the CPU (plain
+                versions), on a small input; then two controls, a 1 % error
+                planted in the GFL or the distillation kernel's backward,
+                each of which must fail the same limits;
+  8. train      build_trainer + fit of the ERD stage-2 GFL-R50 step (bf16,
+                fp32 master weights) at batch 16, 800x1344: 2 warm-up and 5
+                timed steps; every kernel of the path must have launched,
+                losses finite, frozen stages and the teacher unchanged;
+                stage times and the device idle share of one step;
+  9. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
-TF32 is off for both cuDNN and matmuls: the served model computes in bf16,
-and the float32 reference compares full-precision float32 on both devices.
-The script imports neither JAX nor erd_tpu.
+TF32 is off for both cuDNN and matmuls: the served and trained models
+compute in bf16, and the float32 references compare full-precision float32
+on both devices. The script imports neither JAX nor erd_tpu.
 """
 from __future__ import annotations
 
@@ -43,6 +60,15 @@ PEAK_FP32_PER_S = 67e12
 # the four requests: (H, W) of seeded random RGB images
 REQUESTS = [(480, 640), (640, 480), (427, 640), (800, 1333)]
 NUM_CLASSES = 80
+OLD_CLASSES = 40
+# the training step: batch, canvas, warm-up and timed steps
+TRAIN_BATCH = 16
+TRAIN_CANVAS = (800, 1344)
+TRAIN_IMAGE = (800, 1333)  # (H, W) of each image inside the canvas
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+MAX_GT = 16
+# the card the new phases run on (a rehearsal on the CPU sets 'cpu')
+DEV = 'cuda'
 
 
 class CheckFailed(Exception):
@@ -370,6 +396,673 @@ def phase_serve(np, torch, card):
     return launches
 
 
+def bound_of(nbytes, ops):
+    """(bound ms, 'bytes' or 'operations') at the H100 peaks above."""
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return 1e3 * max(tb, to), 'bytes' if tb >= to else 'operations'
+
+
+def time_pair(torch, fn, plain_fn, names, n=10):
+    """(kernel ms, call ms, source, plain ms): device time of the named
+    kernels per call (profiler, or events when it shows none), the call's
+    event time, and the plain version's event time."""
+    call_ms = events_ms(torch, fn, n)
+    dev_ms = kernel_ms(torch, fn, names, n)
+    plain_ms = events_ms(torch, plain_fn, max(2, n // 3))
+    return (dev_ms or call_ms, call_ms,
+            'profiler' if dev_ms else 'events', plain_ms)
+
+
+def synthetic_gt(np, torch, rs, b, img_hw, device=None):
+    """1-12 random gt boxes per image in MAX_GT padded slots, inside the
+    (H, W) image, labels of the 40 new classes (0..39)."""
+    h, w = img_hw
+    boxes = np.zeros((b, MAX_GT, 4), np.float32)
+    labels = np.zeros((b, MAX_GT), np.int64)
+    mask = np.zeros((b, MAX_GT), bool)
+    for i in range(b):
+        g = rs.randint(1, 13)
+        wh = rs.uniform(16, min(h, w) / 2, (g, 2))
+        x1 = rs.uniform(0, w - wh[:, 0])
+        y1 = rs.uniform(0, h - wh[:, 1])
+        boxes[i, :g] = np.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], -1)
+        labels[i, :g] = rs.randint(0, NUM_CLASSES - OLD_CLASSES, g)
+        mask[i, :g] = True
+    from erd_tpu_torch.structures import GTInstances
+    device = device or DEV
+    return GTInstances(bboxes=torch.from_numpy(boxes).to(device),
+                       labels=torch.from_numpy(labels).to(device),
+                       mask=torch.from_numpy(mask).to(device))
+
+
+def train_case(np, torch, rs, ctx, b):
+    """Head outputs and targets of one batch, as the train step hands them
+    to the kernels: teacher logits are bf16 values in float32, with a few
+    confident rows per image."""
+    from erd_tpu_torch.models.heads.gfl_head import gfl_targets
+    n = ctx.num_anchors
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rs.randn(*shape) * scale + shift).astype(
+            np.float32)).to(DEV)
+    t_cls = randn(b, n, OLD_CLASSES, scale=1.5, shift=-4.0)
+    t_reg = randn(b, n, 68, scale=2.0)
+    hot = torch.from_numpy(rs.rand(b, n) < 0.01).to(DEV)
+    t_cls = torch.where(hot[..., None], t_cls + 6.0, t_cls).bfloat16().float()
+    t_reg = torch.where(hot[..., None], t_reg + 3.0, t_reg).bfloat16().float()
+    gt = synthetic_gt(np, torch, rs, b, TRAIN_IMAGE)
+    img_shape = torch.tensor([list(map(float, TRAIN_IMAGE))] * b, device=DEV)
+    targets = gfl_targets(ctx, gt, img_shape, NUM_CLASSES - OLD_CLASSES)
+    return dict(gt=gt, img_shape=img_shape, targets=targets, t_cls=t_cls,
+                t_reg=t_reg, s_cls=randn(b, n, NUM_CLASSES, scale=2.0,
+                                         shift=-3.0),
+                s_reg=randn(b, n, 68, scale=2.0))
+
+
+def phase_train_kernels(np, torch):
+    """The training kernels against their plain versions at B = 2 and at
+    the train step's B = 16, then timed at B = 16."""
+    import erd_tpu_torch.ops.nms as nms_module
+    from erd_tpu_torch.models.detectors.gfl_erd import _kept_dense
+    from erd_tpu_torch.models.heads.gfl_head import AnchorContext
+    from erd_tpu_torch.ops import (integral_decode, integral_decode_plain,
+                                   nms_sorted_keep, nms_sorted_keep_plain)
+    from erd_tpu_torch.ops.erd_distill import (erd_distill_plain,
+                                               fused_erd_distill)
+    from erd_tpu_torch.ops.ers_select import (ers_select, ers_select_plain,
+                                              ers_threshold)
+    from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss, gfl_loss_plain
+    from erd_tpu_torch.task import atss_assign, atss_assign_plain, valid_flags
+
+    rs = np.random.RandomState(5)
+    ctx = AnchorContext.build(TRAIN_CANVAS)
+    n = ctx.num_anchors
+    cap = n // 5 + 1
+    fast_k = 1024  # the config's ERDConfig.ers_nms_fast_k
+    anchors = ctx.device_anchors(DEV)
+    centers, strides = ctx.device_tensors(DEV)
+    unit = torch.ones(n, device=DEV)
+    nla = ctx.num_level_anchors
+    rows = []
+
+    def atss_args(case):
+        pad = torch.ceil(case['img_shape'] / 32) * 32
+        vf = valid_flags(ctx.featmap_sizes, ctx.strides, pad)
+        gt = case['gt']
+        return (anchors, nla, gt.bboxes, gt.labels, gt.mask, vf)
+
+    def gfl_args(case):
+        t = case['targets']
+        return (t.labels, t.label_weights, t.bbox_targets, t.pos_mask,
+                t.num_pos, centers, strides)
+
+    def gfl_step(fn, case, cls, reg):
+        losses = fn(cls[..., OLD_CLASSES:], reg, *gfl_args(case))
+        sum(losses).backward()
+        return losses
+
+    def ers_nms(case, k):
+        """The ERS masks, the first k reg candidates, the rows the NMS kept
+        as erd_distill_losses makes them, and the arguments the NMS kernel
+        was handed there (the teacher's decoded rows, sorted and shifted
+        by class)."""
+        cm, ri, rm, count = ers_select(case['t_cls'], case['t_reg'], cap)
+        ri, rm = ri[:, :k].contiguous(), rm[:, :k].contiguous()
+        seen = []
+        kernel = nms_module.nms_sorted_keep
+
+        def capture(*args):
+            seen.append(args)
+            return kernel(*args)
+        # the wrapper counts its launch under the module name it is bound
+        # to, which is now this function (check launches are not counted)
+        capture.launches = 0
+        nms_module.nms_sorted_keep = capture
+        try:
+            kept = _kept_dense(centers, unit, case['t_cls'], case['t_reg'],
+                               ri, rm, 0.005, 16)
+        finally:
+            nms_module.nms_sorted_keep = kernel
+        check(len(seen) == 1, 'the distillation NMS ran other than once')
+        return cm, ri, kept, count, seen[0]
+
+    def distill_step(fn, case, s_cls, s_reg, cm, kept):
+        l_cls, l_reg = fn(s_cls, s_reg, case['t_cls'], case['t_reg'], cm,
+                          kept)
+        (l_cls.sum() + l_reg.sum()).backward()
+        return l_cls, l_reg
+
+    def with_grad(case):
+        return (case['s_cls'].clone().requires_grad_(True),
+                case['s_reg'].clone().requires_grad_(True))
+
+    def grad_ratio(grads):
+        """Largest |kernel - plain| / (1e-4*|plain| + 1e-5*max|plain|)."""
+        return max(float(((g - w).abs() / (1e-4 * w.abs() + 1e-5 * float(
+            w.abs().max()))).max()) for g, w in zip(*grads))
+
+    def check_case(case):
+        """Every training kernel against its plain version on one batch;
+        returns the largest errors of the decode and the fused losses."""
+        b = case['t_cls'].shape[0]
+        got = atss_assign(*atss_args(case))
+        want = atss_assign_plain(*atss_args(case))
+        diff = sum(int((getattr(got, f) != getattr(want, f)).sum())
+                   for f in ('pos_mask', 'gt_idx', 'labels', 'max_overlaps'))
+        log(f'train kernels: atss B={b} N={n} G={MAX_GT} positives='
+            f'{int(got.pos_mask.sum())} mismatches={diff} (exact)')
+        check(diff == 0, f'ATSS kernel disagrees with plain at B={b}')
+        check(int(got.pos_mask.sum()) > 0, 'ATSS check found no positive')
+
+        got = ers_select(case['t_cls'], case['t_reg'], cap)
+        want = ers_select_plain(case['t_cls'], case['t_reg'], cap)
+        check(torch.equal(got[1], want[1]),
+              f'ERS reg list differs from plain at B={b}')
+        flips = 0
+        crit_cls = torch.sigmoid(case['t_cls']).amax(-1)
+        crit_reg = case['t_reg'].amax(-1)
+        for g, w, crit, full in (
+                (got[0], want[0], crit_cls, crit_cls),
+                (got[2], want[2], torch.gather(crit_reg, 1, want[1]),
+                 crit_reg)):
+            thr = ers_threshold(full)[:, None]
+            near = (crit - thr).abs() <= 1e-6 * thr.abs()
+            check(torch.equal(g & ~near, w & ~near),
+                  f'ERS mask differs from plain away from the threshold at '
+                  f'B={b}')
+            flips += int((g != w).sum())
+        log(f'train kernels: ers_select B={b} N={n} cap={cap} cls rows '
+            f'{int(got[0].sum())}, largest reg count {int(got[3].max())}; '
+            f'lists exact, mask flips within 1e-6*|thr| of the threshold: '
+            f'{flips}')
+        check(bool((got[3] > 0).all()), 'ERS check selected nothing')
+
+        dec_err = 0.0
+        for k in (fast_k, cap):
+            _, ri, kept, _, nargs = ers_nms(case, k)
+            dec = integral_decode(case['t_reg'], ri, centers, unit, None)
+            dec_want = integral_decode_plain(case['t_reg'], ri, centers,
+                                             unit, None)
+            err = (dec - dec_want).abs()
+            dec_err = max(dec_err, float(err.max()))
+            check(bool((err <= 1e-4 + 1e-5 * dec_want.abs()).all()),
+                  f'no-clip decode disagrees with plain at B={b} K={k}')
+            check(k == fast_k or bool((dec_want < 0).any()),
+                  'no-clip decode check clipped nothing')
+            mism = int((nms_sorted_keep(*nargs) !=
+                        nms_sorted_keep_plain(*nargs)).sum())
+            log(f'train kernels: ERS teacher rows B={b} K={k}: no-clip '
+                f'unit-stride decode max_abs_err={float(err.max()):.3e} '
+                f'(tolerance 1e-4 + 1e-5*|box|); NMS iou=0.005 kept '
+                f'{int(kept.sum())}, mismatches={mism} (exact)')
+            check(mism == 0, f'NMS kernel disagrees with plain at B={b} '
+                  f'K={k}')
+
+        outs, grads = [], []
+        for fn in (fused_gfl_loss, gfl_loss_plain):
+            cls, reg = with_grad(case)
+            outs.append(torch.stack(gfl_step(fn, case, cls, reg)).detach())
+            grads.append((cls.grad, reg.grad))
+        del cls, reg
+        gfl_err = float((outs[0] - outs[1]).abs().max())
+        gfl_gerr = grad_ratio(grads)
+        log(f'train kernels: gfl_loss B={b} losses {outs[0].tolist()} vs '
+            f'plain {outs[1].tolist()}; max_abs_err={gfl_err:.3e} '
+            f'(tolerance rtol 1e-4); gradient error / tolerance '
+            f'(1e-4*|g|+1e-5*max|g|) = {gfl_gerr:.3f}')
+        check(bool(((outs[0] - outs[1]).abs() <=
+                    1e-4 * outs[1].abs()).all()),
+              f'GFL loss kernel disagrees with plain at B={b}')
+        check(gfl_gerr <= 1.0, f'GFL loss backward disagrees with plain at '
+              f'B={b}')
+
+        # the masks of the fast branch, which the path takes while every
+        # image's reg count fits in fast_k (it does on this data)
+        cm, _, kept, _, _ = ers_nms(case, fast_k)
+        outs, grads = [], []
+        for fn in (fused_erd_distill, erd_distill_plain):
+            sc, sr = with_grad(case)
+            outs.append(torch.stack(distill_step(fn, case, sc, sr, cm,
+                                                 kept)).detach())
+            grads.append((sc.grad, sr.grad))
+        del sc, sr
+        dis_err = float((outs[0] - outs[1]).abs().max())
+        dis_gerr = grad_ratio(grads)
+        log(f'train kernels: erd_distill B={b} rows cls {int(cm.sum())} '
+            f'kept {int(kept.sum())}; summed losses '
+            f'{outs[0].sum(-1).tolist()}; max_abs_err={dis_err:.3e} '
+            f'(tolerance rtol 1e-4); gradient error / tolerance = '
+            f'{dis_gerr:.3f}')
+        check(bool(((outs[0] - outs[1]).abs() <=
+                    1e-4 * outs[1].abs()).all()),
+              f'distillation kernel disagrees with plain at B={b}')
+        check(dis_gerr <= 1.0, f'distillation backward disagrees with plain '
+              f'at B={b}')
+        check(bool((outs[0] > 0).all()), 'distillation check is zero')
+        return dict(decode=dec_err, gfl=gfl_err, distill=dis_err)
+
+    # ---- checks at B = 2 and at the train step's B = 16
+    errs = {}
+    for b in (2, TRAIN_BATCH):
+        case = train_case(np, torch, rs, ctx, b)
+        for key, err in check_case(case).items():
+            errs[key] = max(errs.get(key, 0.0), err)
+    big = case
+
+    # ---- timing at B = 16
+    b = TRAIN_BATCH
+    a_args = atss_args(big)
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: atss_assign(*a_args),
+        lambda: atss_assign_plain(*a_args),
+        ['atss_candidates_kernel', 'atss_resolve_kernel'])
+    n_gt = int(big['gt'].mask.sum())
+    nbytes = n * 16 + b * MAX_GT * 25 + b * n * (1 + 1 + 8 + 4 + 8)
+    ops = n_gt * n * 7.0  # per (gt, anchor): centre distance (2 sub, 2 mul,
+    # add, sqrt) and the compare of the per-level selection
+    bms, by = bound_of(nbytes, ops)
+    rows.append(dict(name='atss', route='cuda',
+                     source='erd_tpu_torch/csrc/atss.cu',
+                     replaces='erd_tpu/task/atss.py:46', max_abs_err=0.0,
+                     ms=ms, call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: ers_select(big['t_cls'], big['t_reg'], cap),
+        lambda: ers_select_plain(big['t_cls'], big['t_reg'], cap),
+        ['ers_criteria_kernel', 'ers_stats_kernel', 'ers_rank_kernel'])
+    nbytes = b * n * (OLD_CLASSES + 68) * 4 + b * n + b * cap * 9 + b * 4
+    ops = b * n * (OLD_CLASSES * 4.0 + 68 + 6)  # sigmoids, maxima, moments
+    bms, by = bound_of(nbytes, ops)
+    rows.append(dict(name='ers_select', route='cuda',
+                     source='erd_tpu_torch/csrc/ers_select.cu',
+                     replaces='erd_tpu/models/detectors/gfl_erd.py:96',
+                     max_abs_err=0.0, ms=ms, call_ms=call_ms, ms_from=src,
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None))
+
+    cls, reg = with_grad(big)
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: gfl_step(fused_gfl_loss, big, cls, reg),
+        lambda: gfl_step(gfl_loss_plain, big, cls, reg),
+        ['_gfl_loss_kernel', '_gfl_reduce_kernel'])
+    m = b * n
+    # forward reads 40 class + 68 distribution logits, targets and masks of
+    # every row; backward reads them again and writes both gradients
+    nbytes = m * (2 * (40 * 4 + 68 * 4 + 8 + 4 + 16 + 1) + 40 * 4 + 68 * 4) \
+        + n * 12
+    ops = m * 3300.0  # forward ~1300, backward ~2000 per row (softmaxes,
+    # sigmoids, logs, GIoU and its gradient)
+    bms, by = bound_of(nbytes, ops)
+    rows.append(dict(name='gfl_loss', route='triton',
+                     source='erd_tpu_torch/ops/gfl_loss.py',
+                     replaces='erd_tpu/models/heads/gfl_head.py:211',
+                     max_abs_err=errs['gfl'], ms=ms, call_ms=call_ms,
+                     ms_from=src, ms_per='forward + backward',
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None))
+    del cls, reg
+
+    cm, _, kept, count, _ = ers_nms(big, fast_k)
+    sc, sr = with_grad(big)
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: distill_step(fused_erd_distill, big, sc, sr, cm,
+                                    kept),
+        lambda: distill_step(erd_distill_plain, big, sc, sr, cm, kept),
+        ['_distill_kernel', '_distill_reduce_kernel'])
+    n_cm, n_kp = int(cm.sum()), int(kept.sum())
+    n_s = int((cm | kept).sum())
+    reads = m * 2 + n_s * 160 + n_cm * 160 + n_kp * 68 * 4 * 2
+    nbytes = 2 * reads + m * (40 + 68) * 4 + b * 8
+    ops = 2 * (n_kp * 4 * 17 * 16.0 + n_cm * 40 * 3.0 + n_s * 40 * 4.0)
+    bms, by = bound_of(nbytes, ops)
+    rows.append(dict(name='erd_distill', route='triton',
+                     source='erd_tpu_torch/ops/erd_distill.py',
+                     replaces='erd_tpu/models/detectors/gfl_erd.py:178',
+                     max_abs_err=errs['distill'], ms=ms, call_ms=call_ms,
+                     ms_from=src, ms_per='forward + backward',
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None))
+    log(f'train kernels: B={b} ERS rows cls {n_cm}, kept {n_kp}, largest '
+        f'reg count {int(count.max())}')
+    del sc, sr
+
+    # the decode and NMS on the ERS teacher rows at both branches' sizes
+    # (their rows of the JSON line come from the serving phase; these are
+    # the same kernels on the train path)
+    extra = {}
+    for k in (fast_k, cap):
+        _, ri, _, _, nargs = ers_nms(big, k)
+        dec_ms = events_ms(torch, lambda: integral_decode(
+            big['t_reg'], ri, centers, unit, None), 20)
+        nms_ms = events_ms(torch, lambda: nms_sorted_keep(*nargs), 5)
+        extra[k] = (dec_ms, nms_ms)
+        log(f'train kernels: B={b} K={k}: decode {dec_ms:.4f} ms, NMS '
+            f'{nms_ms:.4f} ms per call (events)')
+    del big, case
+    torch.cuda.empty_cache()
+    log('train kernels: library_ms is null for all four: no single PyTorch '
+        'call computes ATSS, the ERS selection, the fused GFL loss or the '
+        'fused distillation')
+    return rows, extra, errs['decode']
+
+
+def phase_train_reference(np, torch):
+    """Full-width float32 ERD loss and student gradients, card (kernels)
+    vs CPU (plain versions), on a small input; then two controls, each with
+    a 1 % error planted in one kernel's backward, which must fail."""
+    import copy
+
+    import erd_tpu_torch.models.detectors.gfl_erd as gfl_erd_module
+    import erd_tpu_torch.models.heads.gfl_head as gfl_head_module
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.structures import ImageMeta, stack_to
+    cfg = Config.fromfile(ERD_CONFIG)
+    cfg.model.compute_dtype = 'float32'
+    det = build_detector(cfg.model)
+    teacher = det.init_teacher(seed=11, device='cpu')
+    student = det.init_student_from_teacher(12, teacher, device='cpu')
+    gen = torch.Generator().manual_seed(14)
+    with torch.no_grad():  # diverge the student's head from the teacher
+        for conv in (student.bbox_head.gfl_cls, student.bbox_head.gfl_reg):
+            conv.weight.add_(0.01 * torch.randn(conv.weight.shape,
+                                                generator=gen))
+    rs = np.random.RandomState(13)
+    h, w = 128, 192
+    images = torch.from_numpy(rs.randint(0, 256, (2, h, w, 3), np.uint8))
+    gt = synthetic_gt(np, torch, rs, 2, (h, w), device='cpu')
+    names = [k for k, p in student.named_parameters() if p.requires_grad]
+    parts = {'supervised': ('loss_cls', 'loss_bbox', 'loss_dfl'),
+             'distillation': ('loss_dist_cls', 'loss_dist_bbox')}
+
+    def run(dev):
+        """Loss dict and, per part of the loss, the student's gradients."""
+        s = copy.deepcopy(student).to(dev)
+        t = copy.deepcopy(teacher).to(dev)
+        batch = dict(images=images.to(dev), meta=stack_to(
+            [ImageMeta.make((h, w), (h, w), (1.0, 1.0))] * 2, dev),
+            gt=type(gt)(**{k: v.to(dev) for k, v in vars(gt).items()}))
+        losses = det.loss(s, batch, teacher=t)
+        params = dict(s.named_parameters())
+        grads = {}
+        for i, (part, keys) in enumerate(parts.items()):
+            gs = torch.autograd.grad(
+                sum(losses[k] for k in keys), [params[k] for k in names],
+                retain_graph=i + 1 < len(parts), allow_unused=True)
+            grads[part] = {k: (torch.zeros_like(params[k]) if g is None
+                               else g).cpu() for k, g in zip(names, gs)}
+        return ({k: float(v.detach()) for k, v in losses.items()}, grads)
+
+    def ratio(a, b, keys):
+        """||a - b|| / ||b|| over the named tensors together."""
+        diff = torch.cat([(a[k] - b[k]).flatten() for k in keys])
+        ref = torch.cat([b[k].flatten() for k in keys])
+        return float(diff.norm() / ref.norm().clamp(min=1e-30))
+
+    l_cpu, g_cpu = run('cpu')
+    total_cpu = {k: sum(g_cpu[p][k] for p in parts) for k in names}
+
+    def errors(l_dev, g_dev):
+        """Every metric of the gate beside its limit."""
+        total = {k: sum(g_dev[p][k] for p in parts) for k in names}
+        per_tensor = sorted(((ratio(total, total_cpu, [k]),
+                              float(total_cpu[k].norm()), k)
+                             for k in names), reverse=True)
+        return per_tensor, [
+            ('loss', max(abs(l_dev[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
+                         for k in l_cpu), 1e-3),
+            ('whole gradient', ratio(total, total_cpu, names), 1e-3),
+            *((f'{p} gradient', ratio(g_dev[p], g_cpu[p], names), 1e-3)
+              for p in parts),
+            ('per tensor', per_tensor[0][0], 1e-2)]
+
+    def describe(metrics):
+        return ', '.join(f'{name} {v:.2e} (limit {lim:g})'
+                         for name, v, lim in metrics)
+
+    l_gpu, g_gpu = run(DEV)
+    per_tensor, metrics = errors(l_gpu, g_gpu)
+    log(f'train reference: float32 ERD loss card {l_gpu}')
+    log(f'train reference: float32 ERD loss CPU  {l_cpu}')
+    log(f'train reference: card vs CPU, ||diff|| / ||g|| over all '
+        f'{len(names)} trainable tensors: {describe(metrics)}; median ||g|| '
+        f'of a tensor {sorted(e[1] for e in per_tensor)[len(names) // 2]:.3e}'
+        f'; worst tensors:')
+    for rel, norm, k in per_tensor[:5]:
+        log(f'train reference:   {k}: ||diff||/||g|| {rel:.2e}, ||g|| '
+            f'{norm:.3e}')
+    check(all(np.isfinite(v) for v in l_gpu.values()), 'non-finite loss')
+    check(l_cpu['loss_dist_cls'] > 0 and l_cpu['loss_dist_bbox'] > 0,
+          'train reference: distillation is zero')
+    check(all(np.isfinite(v) and v <= lim for _, v, lim in metrics),
+          'the ERD loss or the student gradients on the card disagree with '
+          'the CPU')
+
+    class PlantedError(torch.autograd.Function):
+        """Identity forward; the backward scales the gradient by 1.01."""
+
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * 1.01
+
+    def planted(fn):
+        return lambda *a, **kw: tuple(PlantedError.apply(o)
+                                      for o in fn(*a, **kw))
+
+    for module, name in ((gfl_head_module, 'fused_gfl_loss'),
+                         (gfl_erd_module, 'fused_erd_distill')):
+        kernel = getattr(module, name)
+        setattr(module, name, planted(kernel))
+        try:
+            _, metrics = errors(*run(DEV))
+        finally:
+            setattr(module, name, kernel)
+        tripped = [m for m, v, lim in metrics if not v <= lim]
+        log(f'train reference: control, {name} backward x 1.01: '
+            f'{describe(metrics)}; over the limit: {tripped}')
+        check(tripped, f'the gate passes a 1 % error in the {name} backward')
+
+
+class SyntheticLoader:
+    """erd_tpu's loader protocol over seeded random batches made on the
+    card: uint8 images 800x1344 (the image 800x1333 inside the canvas),
+    1-12 gt boxes in MAX_GT padded slots."""
+
+    def __init__(self, np, torch, steps, seed=21):
+        self.np, self.torch, self.steps, self.seed = np, torch, steps, seed
+        self.cfg = type('LoaderConfig', (), {'batch_size': TRAIN_BATCH})()
+
+    def steps_per_epoch(self, epoch):
+        return self.steps
+
+    def epoch(self, epoch):
+        from erd_tpu_torch.structures import ImageMeta, stack_to
+        np, torch = self.np, self.torch
+        rs = np.random.RandomState(self.seed + epoch)
+        gen = torch.Generator(device=DEV).manual_seed(self.seed + epoch)
+        meta = stack_to([ImageMeta.make(TRAIN_IMAGE, TRAIN_IMAGE,
+                                        (1.0, 1.0))] * TRAIN_BATCH, DEV)
+        for _ in range(self.steps):
+            images = torch.randint(0, 256, (TRAIN_BATCH,) + TRAIN_CANVAS +
+                                   (3,), dtype=torch.uint8, device=DEV,
+                                   generator=gen)
+            yield dict(images=images, meta=meta, gt=synthetic_gt(
+                np, torch, rs, TRAIN_BATCH, TRAIN_IMAGE))
+
+
+def phase_train(np, torch, card):
+    """build_trainer + fit of the ERD stage-2 GFL-R50 step at bs 16."""
+    from erd_tpu_torch.apis import build_detector, build_trainer
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.engine import Hook, batch_to, resnet_frozen_paths
+    from erd_tpu_torch.models.detectors.gfl_erd import erd_distill_losses
+    from erd_tpu_torch.models.heads.gfl_head import (flatten_levels,
+                                                     gfl_loss, gfl_targets)
+    from erd_tpu_torch.ops import integral_decode, nms_sorted_keep
+    from erd_tpu_torch.ops.erd_distill import fused_erd_distill
+    from erd_tpu_torch.ops.ers_select import ers_select
+    from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss
+    from erd_tpu_torch.task import atss_assign
+
+    cfg = Config.fromfile(ERD_CONFIG)
+    det = build_detector(cfg.model)
+    check(type(det).__name__ == 'ERDDetector' and det.depth == 50 and
+          det.num_classes == NUM_CLASSES and
+          det.erd.ori_num_classes == OLD_CLASSES and
+          det.compute_dtype == torch.bfloat16 and det.reg_max == 16,
+          'not the ERD stage-2 GFL-R50 bf16 model')
+    teacher = det.init_teacher(seed=1, device=DEV)
+    student = det.init_student_from_teacher(2, teacher, device=DEV)
+    frozen = resnet_frozen_paths(cfg.model.get('frozen_stages', 1))
+    start = {k: v.clone() for k, v in student.state_dict().items()}
+    teacher_start = {k: v.clone() for k, v in teacher.state_dict().items()}
+
+    class StepTimer(Hook):
+        def __init__(self):
+            self.t, self.losses = [], []
+
+        def before_train(self, trainer):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+
+        def after_iter(self, trainer, step, losses):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+            self.losses.append(losses)
+
+    timer = StepTimer()
+    cfg.train_cfg.epochs = 1
+    loader = SyntheticLoader(np, torch, TRAIN_WARMUP + TRAIN_TIMED)
+    trainer = build_trainer(cfg, det, loader, teacher=teacher, device=DEV)
+    trainer.hooks.append(timer)
+    counters = {'atss': atss_assign, 'gfl_loss': fused_gfl_loss,
+                'ers_select': ers_select, 'erd_distill': fused_erd_distill,
+                'nms_keep': nms_sorted_keep,
+                'integral_decode': integral_decode}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    trainer.fit(student)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'train: launches on the train path {launches}')
+    for name, count in launches.items():
+        check(count > 0, f'kernel {name} was not launched by the train path')
+
+    steps = [t1 - t0 for t0, t1 in zip(timer.t, timer.t[1:])]
+    timed = steps[TRAIN_WARMUP:]
+    ips = TRAIN_BATCH * len(timed) / sum(timed)
+    for i, (dt, losses) in enumerate(zip(steps, timer.losses)):
+        log(f'train: step {i} {1e3 * dt:.1f} ms lr '
+            f'{trainer.current_lr(i):.3e} ' +
+            ' '.join(f'{k} {v:.5f}' for k, v in losses.items()))
+        check(all(np.isfinite(v) for v in losses.values()),
+              f'train: non-finite loss at step {i}')
+        # step 0: the student widened from its teacher computes the
+        # teacher's outputs on the old classes, so both terms are 0; from
+        # the first update on they must not be
+        check(i == 0 or (losses['loss_dist_cls'] > 0 and
+                         losses['loss_dist_bbox'] > 0),
+              f'train: distillation is zero at step {i}')
+
+    state = student.state_dict()
+    trainable = {n for n, p in student.named_parameters() if p.requires_grad}
+    moved = {k for k, v in state.items() if not torch.equal(v, start[k])}
+    check(not any(k.startswith(frozen) for k in moved),
+          'train: a frozen-stage parameter changed')
+    check(not any(k.startswith(frozen) for k in trainable),
+          'train: a frozen-stage parameter is trainable')
+    check(all(torch.equal(v, teacher_start[k])
+              for k, v in teacher.state_dict().items()),
+          'train: the teacher changed')
+    weights = {k for k in trainable if state[k].dim() > 1}
+    check(weights <= moved, 'train: a trainable weight did not move: ' +
+          ', '.join(sorted(weights - moved)[:5]))
+    log(f'train: {len(moved & trainable)}/{len(trainable)} trainable '
+        f'tensors moved (every one of 2+ dims must; a norm scale may move '
+        f'less than one float32 ulp at warm-up lr), 0 frozen or teacher '
+        f'tensors changed')
+    log(f'train: bs {TRAIN_BATCH} {TRAIN_CANVAS[0]}x{TRAIN_CANVAS[1]} bf16, '
+        f'{len(timed)} timed steps ' +
+        ' '.join(f'{1e3 * t:.1f}' for t in timed) +
+        f' ms; {ips:.2f} img/s; peak memory {peak / 2**20:.0f} MiB; '
+        f'card {card}')
+
+    # stage times of one step, each ended by a synchronize
+    batch = batch_to(next(iter(loader.epoch(1))), DEV)
+    erd = det.erd
+    stages = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        stages.append((name, time.perf_counter()))
+
+    opt = trainer.optimizer
+    opt.zero_grad(set_to_none=True)
+    mark('start')
+    images = batch['images']
+    ctx = det.anchor_context(images.shape[1:3])
+    t_cls_lvl, t_reg_lvl = det.teacher.forward_raw(teacher, images)
+    t_cls = flatten_levels(t_cls_lvl).float()
+    t_reg = flatten_levels(t_reg_lvl).float()
+    mark('teacher forward')
+    s_cls_lvl, s_reg_lvl = det.forward_train(student, images)
+    s_cls = flatten_levels(s_cls_lvl).float()
+    s_reg = flatten_levels(s_reg_lvl).float()
+    mark('student forward')
+    targets = gfl_targets(ctx, batch['gt'], batch['meta'].img_shape,
+                          NUM_CLASSES - OLD_CLASSES)
+    mark('targets (ATSS)')
+    losses = gfl_loss(ctx, s_cls[..., OLD_CLASSES:], s_reg, targets,
+                      det.train_cfg)
+    mark('GFL loss')
+    l_cls, l_reg = erd_distill_losses(ctx.device_anchors(DEV), s_cls,
+                                      s_reg, t_cls, t_reg, erd)
+    total = sum(losses.values()) + l_cls.sum() + l_reg.sum()
+    mark('distillation (ERS, decode, NMS, L2 + KD)')
+    total.backward()
+    mark('backward')
+    opt.step()
+    mark('optimizer')
+    branch = erd_distill_losses.last_branch
+    log(f'train: largest ERS reg selection of the step '
+        f'{branch["selected"]}: the NMS ran on K = {branch["nms_k"]} '
+        f'candidates per image')
+    log('train: stage ms of one step: ' + ', '.join(
+        f'{name} {1e3 * (t - stages[i][1]):.2f}'
+        for i, (name, t) in enumerate(stages[1:])) +
+        f'; total {1e3 * (stages[-1][1] - stages[0][1]):.2f}')
+    del t_cls, t_reg, s_cls, s_reg, losses, total, l_cls, l_reg
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(student, batch, 100)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, 'self_device_time_total', None)
+        if dev is None:
+            dev = getattr(ev, 'self_cuda_time_total', 0.0)
+        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in rows)
+    log(f'train profile: one step, wall {wall_ms:.1f} ms (profiled), device '
+        f'kernels {busy:.1f} ms, device idle share '
+        f'{max(0.0, 1 - busy / wall_ms):.3f}')
+    for dev, count, key in sorted(rows, reverse=True)[:15]:
+        log(f'train profile:   {dev:9.3f} ms  x{count:<5d} {key[:90]}')
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -385,6 +1078,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    # Triton's cache inside the checkout's ignored build directory
+    os.environ.setdefault('TRITON_CACHE_DIR', os.path.join(
+        ROOT, 'erd_tpu_torch', 'csrc', 'build', 'triton'))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -406,9 +1102,25 @@ def main() -> int:
 
         kernels = phase_kernels(np, torch)
         phase_reference(np, torch)
-        launches = phase_serve(np, torch, card)
+        serve_launches = phase_serve(np, torch, card)
+        train_rows, train_extra, no_clip_err = phase_train_kernels(np,
+                                                                   torch)
+        phase_train_reference(np, torch)
+        train_launches = phase_train(np, torch, card)
+        for row in kernels:  # nms_keep and integral_decode: both paths
+            by_path = {'serve': serve_launches[row['name']],
+                       'train': train_launches[row['name']]}
+            row['launches'] = sum(by_path.values())
+            row['launches_by_path'] = by_path
+            idx = 1 if row['name'] == 'nms_keep' else 0
+            row['train_ms_by_k'] = {k: v[idx] for k, v in train_extra.items()}
+            if row['name'] == 'integral_decode':
+                row['train_no_clip_max_abs_err'] = no_clip_err
+        for row in train_rows:
+            row['launches'] = train_launches[row['name']]
+            row['launches_by_path'] = {'train': row['launches']}
+        kernels += train_rows
         for row in kernels:
-            row['launches'] = launches[row['name']]
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line
         traceback.print_exc()

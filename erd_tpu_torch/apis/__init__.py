@@ -1,4 +1,5 @@
-from .build import build_detector
+from .build import build_detector, build_trainer
 from .inference import inference_detector, init_detector
 
-__all__ = ['build_detector', 'inference_detector', 'init_detector']
+__all__ = ['build_detector', 'build_trainer', 'inference_detector',
+           'init_detector']

@@ -1,11 +1,14 @@
-"""Config dicts -> detectors; the counterpart of erd_tpu/apis/build.py for
-the ``GFL`` and ``GFLIncrementERD`` model types."""
+"""Config dicts -> detectors and trainers; the counterpart of
+erd_tpu/apis/build.py for the ``GFL`` and ``GFLIncrementERD`` model types
+and SGD training."""
 from __future__ import annotations
 
 import torch
 
 from ..config import Config
-from ..models import ERDConfig, ERDDetector, GFLDetector, GFLTestConfig
+from ..engine import Trainer, TrainerConfig
+from ..models import (ERDConfig, ERDDetector, GFLDetector, GFLTestConfig,
+                      GFLTrainConfig)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 # erd_tpu model options whose code paths the port does not have yet
@@ -31,11 +34,15 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         min_bbox_size=test.get('min_bbox_size', 0.0),
         pre_nms_total=test.get('pre_nms_total', 2000),
         nms_type=test.get('nms_type', 'nms'))
+    train = model_cfg.get('train_cfg', {})
     common = dict(
         num_classes=model_cfg.get('num_classes', 80),
         depth=model_cfg.get('depth', 50),
         reg_max=model_cfg.get('reg_max', 16),
         compute_dtype=_DTYPES[model_cfg.get('compute_dtype', 'float32')],
+        frozen_stages=model_cfg.get('frozen_stages', 1),
+        train_cfg=GFLTrainConfig(
+            assigner_topk=train.get('assigner_topk', 9)),
         test_cfg=test_cfg)
     if mtype == 'GFL':
         return GFLDetector(**common)
@@ -55,3 +62,60 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
             ers_reg_cap=erd.get('ers_reg_cap', 0),
             num_devices=num_devices),
         **common)
+
+
+def _normalized_optim(cfg: Config) -> dict:
+    """The repo-native ``optim`` section with the reference-style
+    ``optim_wrapper`` overlay (optimizer type, lr, momentum, weight decay,
+    clip_grad) merged into one flat dict."""
+    optim = dict(cfg.get('optim', {}))
+    inner = cfg.get('optim_wrapper', {}).get('optimizer', {})
+    for k in ('type', 'lr', 'momentum', 'weight_decay'):
+        if k in inner:
+            optim[k] = inner[k]
+    clip = cfg.get('optim_wrapper', {}).get('clip_grad')
+    if clip:
+        optim['grad_clip'] = clip.get('max_norm')
+    return optim
+
+
+def build_trainer(cfg: Config, detector, train_loader, teacher=None,
+                  device=None) -> Trainer:
+    """A Trainer for ``detector`` from the config's ``optim``,
+    ``train_cfg`` and ``auto_scale_lr``; the networks' ``frozen_stages``
+    come from the detector.
+
+    ``teacher`` is the frozen ERD teacher network. The device is ``cuda``
+    unless the caller names one. The port has SGD with warmup + multi-step
+    decay over steps; other optimizers and schedules, epoch-based warmup,
+    gradient clipping, validation, checkpoints and custom hooks are not
+    ported yet and raise.
+    """
+    optim = _normalized_optim(cfg)
+    if optim.get('type', 'SGD').lower() != 'sgd' or \
+            optim.get('schedule', 'multistep') != 'multistep':
+        raise NotImplementedError(
+            'only SGD with warmup + multi-step decay is ported (ROADMAP.md, '
+            'section 1)')
+    for key, default in (('grad_clip', None), ('backbone_lr_mult', 1.0),
+                         ('warmup_epochs', 0)):
+        if optim.get(key, default) != default:
+            raise NotImplementedError(f'optim.{key} is not ported yet')
+    if cfg.get('custom_hooks'):
+        raise NotImplementedError('custom_hooks are not ported yet')
+    train_cfg = cfg.get('train_cfg', {})
+    scale = cfg.get('auto_scale_lr', {})
+    base_batch = scale.get('base_batch_size', 16) if \
+        scale.get('enable', True) else train_loader.cfg.batch_size
+    tc = TrainerConfig(
+        epochs=train_cfg.get('epochs', 12),
+        base_lr=optim.get('lr', 0.01),
+        momentum=optim.get('momentum', 0.9),
+        weight_decay=optim.get('weight_decay', 1e-4),
+        warmup_iters=optim.get('warmup_iters', 500),
+        warmup_factor=optim.get('warmup_factor', 0.001),
+        milestones_epochs=tuple(optim.get('milestones_epochs', (8, 11))),
+        gamma=optim.get('gamma', 0.1),
+        auto_scale_base_batch=base_batch,
+        log_interval=cfg.get('log_interval', 50))
+    return Trainer(detector, train_loader, tc, teacher=teacher, device=device)

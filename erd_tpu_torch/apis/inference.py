@@ -17,18 +17,8 @@ from ..data.transforms import DetPipeline, imread_rgb
 from ..evaluation.coco_eval import DetectionResult
 from ..models.weight_import import load_torch_checkpoint_file
 from ..structures import stack_to
+from ..utils import resolve_device
 from .build import build_detector
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names a device; never a silent CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'CUDA is not available; pass device="cpu" to run the port '
-                'on the CPU')
-        return torch.device('cuda')
-    return torch.device(device)
 
 
 def init_detector(config: Union[str, Config],
@@ -42,6 +32,7 @@ def init_detector(config: Union[str, Config],
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     det = build_detector(cfg.model)
+    # built and loaded on the CPU, then moved to the device once
     net = det.init(seed=seed, device='cpu')
     if checkpoint:
         load_torch_checkpoint_file(net, checkpoint)

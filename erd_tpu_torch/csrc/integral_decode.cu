@@ -15,6 +15,9 @@
 // d = E * stride, v = centre -/+ d (x for sides 0 and 2, y for 1 and 3) and
 // clips v to [0, W] or [0, H] of that image's img_shape: the reference's
 // order of operations, (E * stride) first, then centre +/- distance.
+// Without an img_shape nothing is clipped: the ERD distillation decodes its
+// teacher boxes with unit strides and no clip (erd_tpu/models/detectors/
+// gfl_erd.py:147-148), and the same kernel serves it.
 //
 // Bound on this card: bytes. A candidate moves 4 * 17 * 4 B of logits, its
 // row index, its anchor centre and stride, and 16 B of box: about 310 B, so
@@ -59,16 +62,19 @@ __global__ void integral_decode_kernel(const float* __restrict__ reg,
   const int axis = side & 1;  // 0: x, 1: y
   const float c = centers[row * 2 + axis];
   float v = side < 2 ? __fsub_rn(c, d) : __fadd_rn(c, d);
-  // img_shape is (H, W): x sides clip to W, y sides to H
-  const float hi = img_shape[b * 2 + (axis ? 0 : 1)];
-  v = fminf(fmaxf(v, 0.f), hi);
+  // img_shape is (H, W): x sides clip to W, y sides to H; none, no clip
+  if (img_shape != nullptr) {
+    const float hi = img_shape[b * 2 + (axis ? 0 : 1)];
+    v = fminf(fmaxf(v, 0.f), hi);
+  }
   out[t] = v;
 }
 
 }  // namespace
 
 // reg (B, N, 4 * bins) fp32; rows (B, K) int64 in [0, N); centers (N, 2)
-// fp32; strides (N,) fp32; img_shape (B, 2) fp32 (H, W); out (B, K, 4) fp32.
+// fp32; strides (N,) fp32; img_shape (B, 2) fp32 (H, W), or null for no
+// clip; out (B, K, 4) fp32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int erd_integral_decode(const void* reg, const void* rows,
                                    const void* centers, const void* strides,

@@ -1,5 +1,5 @@
 from .detectors import ERDConfig, ERDDetector, GFLDetector, GFLNet
-from .heads import GFLTestConfig
+from .heads import GFLTestConfig, GFLTrainConfig
 
 __all__ = ['ERDConfig', 'ERDDetector', 'GFLDetector', 'GFLNet',
-           'GFLTestConfig']
+           'GFLTestConfig', 'GFLTrainConfig']

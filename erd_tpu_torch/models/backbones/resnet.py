@@ -69,7 +69,12 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    def __init__(self, depth: int = 50):
+    """``frozen_stages`` >= 0 freezes the stem, and >= s also layer1..s
+    (``requires_grad=False``, the reference's ``_freeze_stages``): autograd
+    then computes no gradient below the last frozen stage, as erd_tpu's
+    stop_gradient at that boundary does."""
+
+    def __init__(self, depth: int = 50, frozen_stages: int = -1):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise ValueError(f'ResNet depth {depth} is not ported '
@@ -92,6 +97,11 @@ class ResNet(nn.Module):
             self.add_module(f'layer{stage + 1}', nn.Sequential(*blocks))
             self.out_channels.append(in_ch)
             planes *= 2
+        frozen = [self.conv1, self.bn1] if frozen_stages >= 0 else []
+        frozen += [getattr(self, f'layer{s}')
+                   for s in range(1, frozen_stages + 1)]
+        for module in frozen:
+            module.requires_grad_(False)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

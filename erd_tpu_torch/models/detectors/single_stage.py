@@ -1,10 +1,12 @@
 """Single-stage GFL detector; the counterpart of
-erd_tpu/models/detectors/single_stage.py (serving modes).
+erd_tpu/models/detectors/single_stage.py.
 
 As in erd_tpu, the detector is configuration plus functions and the weights
 live apart: ``GFLNet`` is the nn.Module holding them (erd_tpu's
 ``variables``), and ``GFLDetector.forward_raw(net, images)`` /
-``predict(net, batch)`` take it as their first argument.
+``predict(net, batch)`` / ``loss(net, batch)`` take it as their first
+argument. ``forward_raw`` and ``predict`` serve without autograd;
+``forward_train`` and ``loss`` record the graph for training.
 """
 from __future__ import annotations
 
@@ -15,9 +17,11 @@ import torch
 from torch import nn
 
 from ...task import AnchorGenerator
+from ...utils import resolve_device
 from ..backbones.resnet import ResNet
 from ..heads.gfl_head import (AnchorContext, GFLHeadNet, GFLTestConfig,
-                              gfl_predict)
+                              GFLTrainConfig, flatten_levels, gfl_loss,
+                              gfl_predict, gfl_targets)
 from ..layers import Conv2d, bias_init_prob
 from ..necks.fpn import FPN
 from ..preprocessor import Preprocessor
@@ -28,9 +32,9 @@ class GFLNet(nn.Module):
 
     def __init__(self, num_classes: int, depth: int = 50,
                  neck_out: int = 256, stacked_convs: int = 4,
-                 reg_max: int = 16):
+                 reg_max: int = 16, frozen_stages: int = -1):
         super().__init__()
-        self.backbone = ResNet(depth)
+        self.backbone = ResNet(depth, frozen_stages=frozen_stages)
         self.neck = FPN(in_channels=self.backbone.out_channels,
                         out_channels=neck_out, num_outs=5, start_level=1)
         self.bbox_head = GFLHeadNet(num_classes, in_channels=neck_out,
@@ -69,8 +73,11 @@ class GFLDetector:
     depth: int = 50
     reg_max: int = 16
     compute_dtype: torch.dtype = torch.float32
+    # stem + layer1 frozen: the reference 1x recipe
+    frozen_stages: int = 1
     preprocessor: Preprocessor = field(default_factory=Preprocessor)
     anchor_generator: AnchorGenerator = field(default_factory=AnchorGenerator)
+    train_cfg: GFLTrainConfig = field(default_factory=GFLTrainConfig)
     test_cfg: GFLTestConfig = field(default_factory=GFLTestConfig)
 
     def __post_init__(self):
@@ -88,19 +95,42 @@ class GFLDetector:
 
     def build_net(self) -> GFLNet:
         return GFLNet(self.num_classes, depth=self.depth,
-                      reg_max=self.reg_max)
+                      reg_max=self.reg_max, frozen_stages=self.frozen_stages)
 
-    def init(self, seed: int = 0, device='cpu') -> GFLNet:
-        """A seeded random network on ``device``, in eval mode."""
+    def init(self, seed: int = 0, device=None) -> GFLNet:
+        """A seeded random network on ``device`` (``cuda`` unless the
+        caller names one; raises without CUDA), in eval mode. The weights
+        are drawn on the CPU, so a seed gives the same network anywhere."""
         net = self.build_net()
         net.init_weights(torch.Generator().manual_seed(seed))
-        return net.to(device).eval()
+        return net.to(resolve_device(device)).eval()
 
     @torch.no_grad()
     def forward_raw(self, net: GFLNet, images: torch.Tensor):
         """Per-level (cls_scores, bbox_preds), NHWC, from (B, H, W, 3)
-        uint8 canvases."""
+        uint8 canvases; no autograd graph (serving)."""
         return net(self.preprocessor(images))
+
+    def forward_train(self, net: GFLNet, images: torch.Tensor):
+        """``forward_raw`` recording the autograd graph (erd_tpu's
+        differentiable ``forward_raw``)."""
+        return net(self.preprocessor(images))
+
+    def loss(self, net: GFLNet, batch):
+        """GFL training losses. batch: dict(images (B, H, W, 3) uint8,
+        gt: GTInstances and meta: ImageMeta of (B, ...) tensors), all on
+        the network's device. Returns dict(loss_cls, loss_bbox, loss_dfl)
+        of 0-dim tensors."""
+        images = batch['images']
+        ctx = self.anchor_context(images.shape[1:3])
+        cls_lvl, reg_lvl = self.forward_train(net, images)
+        targets = gfl_targets(ctx, batch['gt'], batch['meta'].img_shape,
+                              self.num_classes,
+                              topk=self.train_cfg.assigner_topk,
+                              pad_divisor=self.train_cfg.pad_divisor)
+        return gfl_loss(ctx, flatten_levels(cls_lvl).float(),
+                        flatten_levels(reg_lvl).float(), targets,
+                        self.train_cfg, reg_max=self.reg_max)
 
     @torch.no_grad()
     def predict(self, net: GFLNet, batch, rescale=True):

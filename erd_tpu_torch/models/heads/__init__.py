@@ -1,5 +1,7 @@
-from .gfl_head import (AnchorContext, GFLHeadNet, GFLTestConfig,
-                       flatten_levels, gfl_predict)
+from .gfl_head import (AnchorContext, GFLHeadNet, GFLTargets, GFLTestConfig,
+                       GFLTrainConfig, flatten_levels, gfl_loss, gfl_predict,
+                       gfl_targets)
 
-__all__ = ['AnchorContext', 'GFLHeadNet', 'GFLTestConfig', 'flatten_levels',
-           'gfl_predict']
+__all__ = ['AnchorContext', 'GFLHeadNet', 'GFLTargets', 'GFLTestConfig',
+           'GFLTrainConfig', 'flatten_levels', 'gfl_loss', 'gfl_predict',
+           'gfl_targets']

@@ -1,5 +1,5 @@
-"""GFL dense head: network module and predict post-processing; the
-counterpart of erd_tpu/models/heads/gfl_head.py (serving part).
+"""GFL dense head: network module, training targets and loss, and predict
+post-processing; the counterpart of erd_tpu/models/heads/gfl_head.py.
 
 The network computes NCHW and returns NHWC level maps, erd_tpu's layout:
 ``gfl_predict`` flattens each level as (B, H*W, C), so anchor index
@@ -16,8 +16,10 @@ from torch import nn
 
 from ...ops import (cap_candidates, filter_scores_and_topk, integral_decode,
                     nms_select_cfg)
-from ...structures import DetResults, ImageMeta, scale_boxes
-from ...task import AnchorGenerator, featmap_sizes_for
+from ...ops.gfl_loss import fused_gfl_loss
+from ...structures import DetResults, GTInstances, ImageMeta, scale_boxes
+from ...task import (AnchorGenerator, atss_assign, featmap_sizes_for,
+                     valid_flags)
 from ..layers import Conv2d, ConvModule, Scale
 
 
@@ -90,6 +92,14 @@ class AnchorContext:
     def num_anchors(self):
         return int(self.anchors.shape[0])
 
+    def device_anchors(self, device):
+        """(N, 4) float32 anchors on ``device``, uploaded once per device."""
+        key = ('anchors', str(device))
+        if key not in self._device_cache:
+            self._device_cache[key] = torch.as_tensor(self.anchors,
+                                                      device=device)
+        return self._device_cache[key]
+
     def device_tensors(self, device):
         """(centers (N, 2), stride_per_anchor (N,)) float32 on ``device``,
         uploaded once per device."""
@@ -101,6 +111,16 @@ class AnchorContext:
                 torch.as_tensor(centers, device=device),
                 torch.as_tensor(self.stride_per_anchor, device=device))
         return self._device_cache[key]
+
+
+@dataclass(frozen=True)
+class GFLTrainConfig:
+    assigner_topk: int = 9
+    qfl_weight: float = 1.0
+    qfl_beta: float = 2.0
+    bbox_weight: float = 2.0
+    dfl_weight: float = 0.25
+    pad_divisor: int = 32
 
 
 @dataclass(frozen=True)
@@ -120,6 +140,60 @@ def flatten_levels(level_maps: Sequence[torch.Tensor]) -> torch.Tensor:
     """[(B, H, W, C)] -> (B, sum HW, C), contiguous."""
     b, c = level_maps[0].shape[0], level_maps[0].shape[-1]
     return torch.cat([m.reshape(b, -1, c) for m in level_maps], dim=1)
+
+
+@dataclass
+class GFLTargets:
+    """Per-anchor training targets of a batch."""
+    labels: torch.Tensor         # (B, N) int64, num_classes = background
+    label_weights: torch.Tensor  # (B, N) float32
+    bbox_targets: torch.Tensor   # (B, N, 4) float32
+    pos_mask: torch.Tensor       # (B, N) bool
+    num_pos: torch.Tensor        # () float32, positives of the batch
+
+
+def gfl_targets(ctx: AnchorContext, gt: GTInstances, img_shapes, num_classes,
+                topk=9, pad_divisor=32) -> GFLTargets:
+    """ATSS targets for a padded batch.
+
+    gt: GTInstances of (B, G, ...) tensors; img_shapes: (B, 2) float32
+    (H, W) of each image inside the canvas. Anchors outside the image's
+    pad-to-divisor shape are invalid: never positive, label weight 0.
+    """
+    device = gt.bboxes.device
+    pad_shape = torch.ceil(img_shapes / pad_divisor) * pad_divisor
+    vf = valid_flags(ctx.featmap_sizes, ctx.strides, pad_shape)
+    res = atss_assign(ctx.device_anchors(device), ctx.num_level_anchors,
+                      gt.bboxes, gt.labels, gt.mask, vf, topk=topk)
+    pos = res.pos_mask
+    labels = torch.where(pos, res.labels,
+                         torch.full_like(res.labels, num_classes))
+    boxes = torch.gather(gt.bboxes, 1, res.gt_idx[..., None].expand(
+        -1, -1, 4))
+    bbox_targets = torch.where(pos[..., None], boxes,
+                               torch.zeros_like(boxes))
+    return GFLTargets(labels=labels, label_weights=vf.float(),
+                      bbox_targets=bbox_targets, pos_mask=pos,
+                      num_pos=pos.sum().float())
+
+
+def gfl_loss(ctx: AnchorContext, cls_scores, bbox_preds, targets: GFLTargets,
+             cfg: GFLTrainConfig = GFLTrainConfig(), reg_max=16):
+    """GFL loss over the concatenated anchor axis.
+
+    cls_scores (B, N, C) float32 logits (may be a class slice of a wider
+    map); bbox_preds (B, N, 4*(reg_max+1)) float32. Returns dict(loss_cls,
+    loss_bbox, loss_dfl) through the fused loss (Triton kernel on the card,
+    the plain version on the CPU).
+    """
+    centers, strides = ctx.device_tensors(cls_scores.device)
+    loss_cls, loss_bbox, loss_dfl = fused_gfl_loss(
+        cls_scores, bbox_preds, targets.labels, targets.label_weights,
+        targets.bbox_targets, targets.pos_mask, targets.num_pos, centers,
+        strides, qfl_weight=cfg.qfl_weight, qfl_beta=cfg.qfl_beta,
+        bbox_weight=cfg.bbox_weight, dfl_weight=cfg.dfl_weight,
+        reg_max=reg_max)
+    return dict(loss_cls=loss_cls, loss_bbox=loss_bbox, loss_dfl=loss_dfl)
 
 
 def gfl_predict(ctx: AnchorContext, cls_scores_lvl, bbox_preds_lvl,

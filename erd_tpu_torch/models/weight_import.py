@@ -5,7 +5,8 @@ The port's modules carry the mmdet state-dict names, so an mmdet GFL
 checkpoint loads with a plain ``load_state_dict`` and the port's
 ``state_dict`` reads back into erd_tpu with its ``load_mmdet_state_dict``.
 ``params_from_jax`` converts erd_tpu's variables (as nested numpy dicts)
-into the port's ``state_dict``.
+into the port's ``state_dict``; ``widen_cls_head`` starts an ERD student
+from its teacher's ``state_dict``.
 """
 from __future__ import annotations
 
@@ -118,3 +119,30 @@ def load_torch_checkpoint_file(net: nn.Module, path: str):
              for k, v in state.items()
              if not k.endswith('num_batches_tracked')}
     return net.load_state_dict(state, strict=True)
+
+
+def widen_cls_head(teacher_state: Mapping[str, torch.Tensor],
+                   student_state: Mapping[str, torch.Tensor],
+                   ori_num_classes: int) -> Dict[str, torch.Tensor]:
+    """Start the student as the teacher, with fresh rows for new classes.
+
+    Every entry of the student's ``state_dict`` is copied from the
+    teacher's, except ``bbox_head.gfl_cls.{weight,bias}``, whose output
+    channels [ori_num_classes:) keep the student's values (the reference's
+    _load_checkpoint_for_new_model, gfl_increment_erd.py:83-88).
+    """
+    out = {}
+    for key, s in student_state.items():
+        t = teacher_state[key]
+        if key in ('bbox_head.gfl_cls.weight', 'bbox_head.gfl_cls.bias'):
+            if t.shape[0] != ori_num_classes or \
+                    t.shape[1:] != s.shape[1:]:
+                raise ValueError(f'{key}: teacher {tuple(t.shape)} does not '
+                                 f'widen to {tuple(s.shape)}')
+            out[key] = torch.cat([t.to(s.device), s[ori_num_classes:]])
+        else:
+            if t.shape != s.shape:
+                raise ValueError(f'{key}: teacher {tuple(t.shape)} vs '
+                                 f'student {tuple(s.shape)}')
+            out[key] = t.detach().clone().to(s.device)
+    return out

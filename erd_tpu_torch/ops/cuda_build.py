@@ -6,8 +6,12 @@ use, named after a hash of its source and flags so that an edited source is
 rebuilt, and loaded with ``ctypes``. Nothing here runs at import time.
 
 Flags: no ``--use_fast_math``, and ``-fmad=false`` so that nvcc never
-contracts a multiply and an add into one FMA: the NMS kernel must round
-every IoU exactly as the plain version does.
+contracts a multiply and an add into one FMA: the NMS and ATSS kernels must
+round every IoU and distance exactly as the plain versions do.
+
+The Triton kernels (``ops/gfl_loss.py``, ``ops/erd_distill.py``) import
+Triton through ``import_triton``, which points Triton's cache at
+``csrc/build/triton`` unless ``TRITON_CACHE_DIR`` names another place.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ BUILD_DIR = CSRC / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
-SOURCES = ('nms', 'integral_decode')
+SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each build made by this process
@@ -86,6 +90,15 @@ def load(name: str) -> ctypes.CDLL:
         lib.erd_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def import_triton():
+    """``(triton, triton.language)``, with Triton's cache under
+    ``csrc/build/triton`` unless ``TRITON_CACHE_DIR`` is set."""
+    os.environ.setdefault('TRITON_CACHE_DIR', str(BUILD_DIR / 'triton'))
+    import triton
+    import triton.language as tl
+    return triton, tl
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

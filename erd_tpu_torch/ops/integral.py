@@ -5,7 +5,8 @@ decode ``integral_decode`` (kernel ``csrc/integral_decode.cu``).
 {0..reg_max} of each box side, as erd_tpu/ops/integral.py does.
 ``integral_decode`` fuses what ``gfl_predict`` does with it for the top-k
 candidate rows: integral, times the row's level stride, decode from the
-anchor centre, clip to the image.
+anchor centre, clip to the image. The ERD distillation decodes its teacher
+candidates with the same kernel, with unit strides and no clip.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ def integral_decode(reg, rows, centers, strides, img_shape, reg_max=16):
         rows: (B, K) int64 anchor rows in [0, N) to decode.
         centers: (N, 2) fp32 anchor centres.
         strides: (N,) fp32 level stride of each anchor.
-        img_shape: (B, 2) fp32 per-image (H, W) to clip into.
+        img_shape: (B, 2) fp32 per-image (H, W) to clip into, or None for
+            no clip.
     Returns (B, K, 4) fp32 xyxy boxes.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
@@ -55,7 +57,7 @@ def integral_decode(reg, rows, centers, strides, img_shape, reg_max=16):
     if rows.dim() != 2 or rows.shape[0] != b:
         raise ValueError(f'rows must be (B, K), got {tuple(rows.shape)}')
     if tuple(centers.shape) != (n, 2) or tuple(strides.shape) != (n,) or \
-            tuple(img_shape.shape) != (b, 2):
+            (img_shape is not None and tuple(img_shape.shape) != (b, 2)):
         raise ValueError('centers (N, 2), strides (N,), img_shape (B, 2) '
                          'expected')
     if reg.device.type == 'cpu':
@@ -63,11 +65,12 @@ def integral_decode(reg, rows, centers, strides, img_shape, reg_max=16):
                                      reg_max)
     if reg.device.type != 'cuda':
         raise RuntimeError(f'integral_decode: no kernel for {reg.device}')
-    tensors = (reg, rows, centers, strides, img_shape)
+    floats = (reg, centers, strides) + (
+        () if img_shape is None else (img_shape,))
+    tensors = floats + (rows,)
     if any(t.device != reg.device for t in tensors):
         raise ValueError('integral_decode: all tensors must be on one device')
-    if any(t.dtype != torch.float32 for t in (reg, centers, strides,
-                                             img_shape)):
+    if any(t.dtype != torch.float32 for t in floats):
         raise TypeError('integral_decode: reg, centers, strides and '
                         'img_shape must be float32')
     if rows.dtype != torch.int64:
@@ -84,7 +87,9 @@ def integral_decode(reg, rows, centers, strides, img_shape, reg_max=16):
     with torch.cuda.device(reg.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(reg.data_ptr(), rows.data_ptr(), centers.data_ptr(),
-                 strides.data_ptr(), img_shape.data_ptr(), out.data_ptr(),
+                 strides.data_ptr(),
+                 None if img_shape is None else img_shape.data_ptr(),
+                 out.data_ptr(),
                  b, n, k, reg_max + 1, stream)
     cuda_build.check(lib, err, 'integral_decode')
     integral_decode.launches += 1

@@ -60,3 +60,23 @@ def cap_candidates(scores, valid, k, *arrays):
     out = [torch.where(new_valid, top, torch.zeros_like(top)), new_valid]
     out.extend(take_rows(a, idx) for a in arrays)
     return tuple(out)
+
+
+def topk_mask_select(criterion, cap, threshold):
+    """Select entries with ``criterion > threshold``, capped at ``cap``:
+    the top-``cap`` entries along the last dim (ties lowest index first)
+    and a mask of those above ``threshold``, which broadcasts against the
+    leading dims. Returns (idx (..., cap) int64, mask (..., cap) bool)."""
+    top_vals, top_idx = topk_stable(criterion, min(cap, criterion.shape[-1]))
+    return top_idx, top_vals > threshold
+
+
+def masked_mean_std(x, mask, ddof=1, eps=1e-12):
+    """Mean and sample std over the masked entries of the last dim
+    (torch ``.std()`` uses ddof 1); std = sqrt(max(var, eps))."""
+    mask = mask.to(x.dtype)
+    cnt = mask.sum(dim=-1).clamp(min=1.0)
+    mean = (x * mask).sum(dim=-1) / cnt
+    var = ((x - mean[..., None]).square() * mask).sum(dim=-1) / \
+        (cnt - ddof).clamp(min=1.0)
+    return mean, var.clamp(min=eps).sqrt()

@@ -1,7 +1,7 @@
-from .boxes import (bbox_area, bbox_center, bbox_overlaps, distance2bbox,
+from .boxes import (bbox2distance, bbox_area, bbox_center, bbox_overlaps, distance2bbox,
                     scale_boxes)
 from .det_sample import DetResults, GTInstances, ImageMeta, stack_to
 
-__all__ = ['bbox_area', 'bbox_center', 'bbox_overlaps', 'distance2bbox',
+__all__ = ['bbox2distance', 'bbox_area', 'bbox_center', 'bbox_overlaps', 'distance2bbox',
            'scale_boxes', 'DetResults', 'GTInstances', 'ImageMeta',
            'stack_to']

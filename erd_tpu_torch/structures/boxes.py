@@ -43,8 +43,23 @@ def bbox_area(boxes):
     return w * h
 
 
-def bbox_overlaps(bboxes1, bboxes2, is_aligned=False, eps=1e-6):
-    """Pairwise (..., m, n) or aligned (..., m) IoU."""
+def bbox2distance(points, bbox, max_dis=None, eps=0.1):
+    """Encode xyxy boxes as (l, t, r, b) distances from points, clamped to
+    [0, max_dis - eps] when ``max_dis`` is given."""
+    dist = torch.stack([points[..., 0] - bbox[..., 0],
+                        points[..., 1] - bbox[..., 1],
+                        bbox[..., 2] - points[..., 0],
+                        bbox[..., 3] - points[..., 1]], dim=-1)
+    if max_dis is not None:
+        dist = dist.clamp(0, max_dis - eps)
+    return dist
+
+
+def bbox_overlaps(bboxes1, bboxes2, mode='iou', is_aligned=False, eps=1e-6):
+    """Pairwise (..., m, n) or aligned (..., m) IoU, or GIoU with
+    ``mode='giou'``."""
+    if mode not in ('iou', 'giou'):
+        raise ValueError(f'unknown mode {mode!r}')
     area1 = bbox_area(bboxes1)
     area2 = bbox_area(bboxes2)
     if not is_aligned:
@@ -59,7 +74,14 @@ def bbox_overlaps(bboxes1, bboxes2, is_aligned=False, eps=1e-6):
     wh = (rb - lt).clamp(min=0)
     overlap = wh[..., 0] * wh[..., 1]
     union = (area1 + area2 - overlap).clamp(min=eps)
-    return overlap / union
+    ious = overlap / union
+    if mode == 'iou':
+        return ious
+    enc_lt = torch.minimum(b1[..., :2], b2[..., :2])
+    enc_rb = torch.maximum(b1[..., 2:], b2[..., 2:])
+    enc_wh = (enc_rb - enc_lt).clamp(min=0)
+    enc_area = (enc_wh[..., 0] * enc_wh[..., 1]).clamp(min=eps)
+    return ious - (enc_area - union) / enc_area
 
 
 def bbox_center(boxes):

@@ -1,3 +1,5 @@
-from .anchors import AnchorGenerator, featmap_sizes_for
+from .anchors import AnchorGenerator, featmap_sizes_for, valid_flags
+from .atss import AssignResult, atss_assign, atss_assign_plain
 
-__all__ = ['AnchorGenerator', 'featmap_sizes_for']
+__all__ = ['AnchorGenerator', 'featmap_sizes_for', 'valid_flags',
+           'AssignResult', 'atss_assign', 'atss_assign_plain']

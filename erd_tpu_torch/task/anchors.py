@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -69,3 +70,20 @@ def featmap_sizes_for(image_shape: Tuple[int, int],
     """Feature sizes of a stride-s conv stack: ceil(dim / stride)."""
     h, w = image_shape
     return [(int(math.ceil(h / s)), int(math.ceil(w / s))) for s in strides]
+
+
+def valid_flags(featmap_sizes, strides, pad_shape):
+    """Per-image anchor valid flags from (B, 2) float pad shapes (H, W),
+    one anchor per cell: a cell is valid when its row < ceil(H / stride)
+    and its column < ceil(W / stride) (the counterpart of erd_tpu's
+    ``valid_flags_jax``). Returns (B, N) bool."""
+    ph, pw = pad_shape[..., 0:1], pad_shape[..., 1:2]
+    flags = []
+    for (h, w), stride in zip(featmap_sizes, strides):
+        vy = torch.arange(h, device=pad_shape.device) < torch.ceil(
+            ph / stride)
+        vx = torch.arange(w, device=pad_shape.device) < torch.ceil(
+            pw / stride)
+        flags.append((vy[..., :, None] & vx[..., None, :]).reshape(
+            *pad_shape.shape[:-1], h * w))
+    return torch.cat(flags, dim=-1)

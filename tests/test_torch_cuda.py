@@ -14,10 +14,16 @@ import torch
 from erd_tpu_torch.apis import inference_detector, init_detector
 from erd_tpu_torch.config import Config
 from erd_tpu_torch.data import DetPipeline, ImageRecord
-from erd_tpu_torch.models.heads.gfl_head import AnchorContext
+from erd_tpu_torch.models.heads.gfl_head import AnchorContext, gfl_targets
 from erd_tpu_torch.ops import (integral_decode, integral_decode_plain,
                                nms_sorted_keep, nms_sorted_keep_plain)
-from erd_tpu_torch.structures import stack_to
+from erd_tpu_torch.ops.erd_distill import erd_distill_plain, \
+    fused_erd_distill
+from erd_tpu_torch.ops.ers_select import ers_select, ers_select_plain, \
+    ers_threshold
+from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss, gfl_loss_plain
+from erd_tpu_torch.structures import GTInstances, stack_to
+from erd_tpu_torch.task import atss_assign, atss_assign_plain, valid_flags
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +127,156 @@ def test_serving_on_cuda_uses_kernels_and_matches_cpu(cuda):
                                atol=1e-6)
     torch.testing.assert_close(got.bboxes.cpu(), want.bboxes, rtol=0,
                                atol=1e-3)
+
+
+TRAIN_SHAPE = (800, 1344)
+
+
+def train_gt(rs, b, g_max=16):
+    """1-12 random gt boxes per image in 16 padded slots, 40 labels."""
+    boxes = np.zeros((b, g_max, 4), np.float32)
+    labels = np.zeros((b, g_max), np.int64)
+    mask = np.zeros((b, g_max), bool)
+    for i in range(b):
+        g = rs.randint(1, 13)
+        xy = rs.uniform(0, 1100, (g, 2))
+        wh = rs.uniform(16, 500, (g, 2))
+        boxes[i, :g] = np.concatenate(
+            [xy, np.minimum(xy + wh, [1333, 800])], -1)
+        labels[i, :g] = rs.randint(0, 40, g)
+        mask[i, :g] = True
+    return GTInstances(bboxes=torch.from_numpy(boxes),
+                       labels=torch.from_numpy(labels),
+                       mask=torch.from_numpy(mask))
+
+
+def to(gt, device):
+    return GTInstances(bboxes=gt.bboxes.to(device),
+                       labels=gt.labels.to(device), mask=gt.mask.to(device))
+
+
+def test_atss_kernel_matches_plain(cuda):
+    ctx = AnchorContext.build(TRAIN_SHAPE)
+    gt = to(train_gt(np.random.RandomState(0), 2), cuda)
+    pad = torch.tensor([[800.0, 1344.0], [768.0, 1024.0]], device=cuda)
+    vf = valid_flags(ctx.featmap_sizes, ctx.strides, pad)
+    args = (ctx.device_anchors(cuda), ctx.num_level_anchors, gt.bboxes,
+            gt.labels, gt.mask, vf)
+    before = atss_assign.launches
+    got = atss_assign(*args)
+    torch.cuda.synchronize()
+    assert atss_assign.launches == before + 1
+    want = atss_assign_plain(*args)
+    assert got.pos_mask.sum() > 0
+    for name in ('pos_mask', 'gt_idx', 'labels', 'max_overlaps'):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize('levels', [0, 8])
+def test_ers_select_kernel_matches_plain(cuda, levels):
+    """Lists exactly; a mask entry may differ only where its criterion lies
+    within 1e-6 * |thr| of the threshold (sums in another order). bf16
+    criteria, or (levels 8) criteria on a grid of 1/8 so that thousands
+    tie at the cap boundary."""
+    rs = np.random.RandomState(1)
+    n = AnchorContext.build(TRAIN_SHAPE).num_anchors
+    t_cls = torch.from_numpy((rs.randn(2, n, 40) * 2 - 4).astype(
+        np.float32)).to(cuda).bfloat16().float()
+    t_reg = torch.from_numpy((rs.randn(2, n, 68) * 2).astype(
+        np.float32)).to(cuda).bfloat16().float()
+    if levels:
+        t_reg = torch.round(t_reg * levels) / levels
+    cap = n // 5 + 1
+    got = ers_select(t_cls, t_reg, cap)
+    torch.cuda.synchronize()
+    want = ers_select_plain(t_cls, t_reg, cap)
+    assert torch.equal(got[1], want[1])
+    crits = (torch.sigmoid(t_cls).amax(-1), t_reg.amax(-1))
+    for g, w, crit, near_idx in ((got[0], want[0], crits[0], None),
+                                 (got[2], want[2], crits[1], want[1])):
+        thr = ers_threshold(crit)[:, None]
+        c = crit if near_idx is None else torch.gather(crit, 1, near_idx)
+        near = (c - thr).abs() <= 1e-6 * thr.abs()
+        assert torch.equal(g & ~near, w & ~near)
+    assert 0 < int(got[3].max()) and (got[3] == got[2].sum(-1)).all()
+
+
+def test_decode_kernel_without_clip(cuda):
+    rs = np.random.RandomState(2)
+    ctx = AnchorContext.build(TRAIN_SHAPE)
+    centers, _ = ctx.device_tensors(cuda)
+    n = ctx.num_anchors
+    reg = torch.from_numpy((rs.randn(2, n, 68) * 3).astype(
+        np.float32)).to(cuda)
+    rows = torch.from_numpy(rs.randint(0, n, (2, 4481))).to(cuda)
+    unit = torch.ones(n, device=cuda)
+    got = integral_decode(reg, rows, centers, unit, None)
+    torch.cuda.synchronize()
+    want = integral_decode_plain(reg, rows, centers, unit, None)
+    assert (want < 0).any()  # nothing was clipped
+    assert torch.all((got - want).abs() <= 1e-4 + 1e-5 * want.abs())
+
+
+def gfl_case(rs, cuda, b=2):
+    ctx = AnchorContext.build(TRAIN_SHAPE)
+    n = ctx.num_anchors
+    gt = to(train_gt(rs, b), cuda)
+    shapes = torch.tensor([[800.0, 1333.0], [750.0, 1000.0]],
+                          device=cuda)[:b]
+    t = gfl_targets(ctx, gt, shapes, 40)
+    cls = torch.from_numpy((rs.randn(b, n, 80) * 2 - 2).astype(
+        np.float32)).to(cuda)
+    reg = torch.from_numpy((rs.randn(b, n, 68) * 2).astype(
+        np.float32)).to(cuda)
+    centers, strides = ctx.device_tensors(cuda)
+    return (cls, reg, t.labels, t.label_weights, t.bbox_targets, t.pos_mask,
+            t.num_pos, centers, strides)
+
+
+def test_gfl_loss_kernel_matches_plain(cuda):
+    """Values rtol 1e-4, gradients within 1e-4 relative + 1e-5 * max|g|
+    (float32; partial sums in another order)."""
+    args = gfl_case(np.random.RandomState(3), cuda)
+    outs, grads = [], []
+    for fn in (fused_gfl_loss, gfl_loss_plain):
+        cls = args[0].clone().requires_grad_(True)
+        reg = args[1].clone().requires_grad_(True)
+        losses = fn(cls[..., 40:], reg, *args[2:])
+        sum(losses).backward()
+        outs.append(torch.stack(losses))
+        grads.append((cls.grad, reg.grad))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=0)
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()))
+    assert grads[0][0][..., :40].abs().max() == 0
+
+
+def test_erd_distill_kernel_matches_plain(cuda):
+    """Per-image values rtol 1e-4, gradients within 1e-4 relative +
+    1e-5 * max|g|."""
+    rs = np.random.RandomState(4)
+    n = AnchorContext.build(TRAIN_SHAPE).num_anchors
+    s_cls = torch.from_numpy(rs.randn(2, n, 80).astype(np.float32)).to(cuda)
+    s_reg = torch.from_numpy((rs.randn(2, n, 68) * 2).astype(
+        np.float32)).to(cuda)
+    t_cls = torch.from_numpy((rs.randn(2, n, 40) - 3).astype(
+        np.float32)).to(cuda)
+    t_reg = torch.from_numpy((rs.randn(2, n, 68) * 2).astype(
+        np.float32)).to(cuda)
+    cm = torch.from_numpy(rs.rand(2, n) < 0.03).to(cuda)
+    kept = torch.from_numpy(rs.rand(2, n) < 0.02).to(cuda)
+    outs, grads = [], []
+    for fn in (fused_erd_distill, erd_distill_plain):
+        sc = s_cls.clone().requires_grad_(True)
+        sr = s_reg.clone().requires_grad_(True)
+        l_cls, l_reg = fn(sc, sr, t_cls, t_reg, cm, kept)
+        (l_cls.sum() + 3 * l_reg.sum()).backward()
+        outs.append(torch.stack([l_cls, l_reg]))
+        grads.append((sc.grad, sr.grad))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=0)
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()))

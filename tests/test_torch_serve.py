@@ -25,6 +25,10 @@ from erd_tpu_torch.models import ERDDetector, GFLTestConfig
 from erd_tpu_torch.models.weight_import import params_from_jax
 from erd_tpu_torch.ops import (cuda_build, integral_decode, nms_select_cfg,
                                nms_sorted_keep)
+from erd_tpu_torch.ops.erd_distill import fused_erd_distill
+from erd_tpu_torch.ops.ers_select import ers_select
+from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss
+from erd_tpu_torch.task import atss_assign
 
 torch.set_num_threads(2)
 
@@ -99,13 +103,36 @@ def test_kernel_wrappers_never_fall_back():
                         torch.empty(10, 2, device=meta),
                         torch.empty(10, device=meta),
                         torch.empty(1, 2, device=meta))
+    b, n, g = 2, 10, 3
+    rows = torch.empty(b, n, device=meta)
+    mask = torch.empty(b, n, dtype=torch.bool, device=meta)
+    with pytest.raises(RuntimeError, match='no kernel'):
+        atss_assign(torch.empty(n, 4, device=meta), [6, 4],
+                    torch.empty(b, g, 4, device=meta),
+                    torch.empty(b, g, dtype=torch.long, device=meta),
+                    torch.empty(b, g, dtype=torch.bool, device=meta), mask)
+    with pytest.raises(RuntimeError, match='no kernel'):
+        ers_select(torch.empty(b, n, 4, device=meta),
+                   torch.empty(b, n, 68, device=meta), 3)
+    with pytest.raises(RuntimeError, match='no kernel'):
+        fused_gfl_loss(torch.empty(b, n, 4, device=meta),
+                       torch.empty(b, n, 68, device=meta),
+                       torch.empty(b, n, dtype=torch.long, device=meta),
+                       rows, torch.empty(b, n, 4, device=meta), mask,
+                       torch.empty((), device=meta),
+                       torch.empty(n, 2, device=meta),
+                       torch.empty(n, device=meta))
+    with pytest.raises(RuntimeError, match='no kernel'):
+        fused_erd_distill(torch.empty(b, n, 8, device=meta),
+                          torch.empty(b, n, 68, device=meta),
+                          torch.empty(b, n, 4, device=meta),
+                          torch.empty(b, n, 68, device=meta), mask, mask)
 
 
 def test_unported_training_and_soft_nms_raise():
+    """Soft-NMS is not ported yet; the ERD loss is."""
     det = build_detector(small_cfg(Config).model)
     assert isinstance(det, ERDDetector) and det.erd.ori_num_classes == 40
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        det.loss()
     boxes = torch.zeros(1, 5, 4)
     scores = torch.ones(1, 5)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
