@@ -35,7 +35,21 @@ Phases, in order; any failed check exits non-zero before the last line:
                 timed steps; every kernel of the path must have launched,
                 losses finite, frozen stages and the teacher unchanged;
                 stage times and the device idle share of one step;
-  9. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  9. frcnn kernels  one 800x1333 request of Faster R-CNN R50-FPN (80
+                classes, bf16) with its kernel calls captured: RoIAlign on
+                the 1000 real proposals plus edge-case boxes, full-width
+                P2-P5 (within 1e-6 * max|feat|, levels equal on card and
+                CPU); soft-NMS at K = 2000, 100 steps (linear bit-exact,
+                gaussian within 1e-6 relative); the NMS on the RPN call
+                (K = 4819, IoU 0.7) and the R-CNN call (K = 2000, IoU 0.5),
+                masks exactly; then each timed;
+ 10. frcnn serve  for the hard-NMS and the soft-NMS config: init_detector /
+                inference_detector on the same 4 requests (seeded fc_cls
+                weights so that at least 2000 candidates reach the final
+                NMS), every kernel of the path launched, stage times, the
+                idle share of one request; the float32 network card vs CPU
+                and the same head outputs post-processed on card and CPU;
+ 11. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 TF32 is off for both cuDNN and matmuls: the served and trained models
 compute in bf16, and the float32 references compare full-precision float32
@@ -54,6 +68,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ERD_CONFIG = os.path.join(
     ROOT, 'configs', 'gfl_increment',
     'gfl_r50_fpn_1x_coco_first_40_incre_last_40_cats.py')
+FRCNN_CONFIGS = {
+    'nms': os.path.join(ROOT, 'configs', 'faster_rcnn',
+                        'faster_rcnn_r50_fpn_1x_coco.py'),
+    'soft_nms': os.path.join(ROOT, 'configs', 'faster_rcnn',
+                             'faster_rcnn_r50_fpn_soft_nms_1x_coco.py')}
+# seeded fc_cls of the Faster R-CNN serve cell (see arrange_fc_cls): about
+# five classes of each RoI pass score_thr, so that the NMS sees 2000
+FC_CLS_SEED, FC_CLS_STD, FC_CLS_BOOSTED, FC_CLS_BOOST = 7, 0.5, 8, 2.5
+ROI_STRIDES = (4, 8, 16, 32)
 # published H100 SXM peaks (NVIDIA data sheet), used for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -126,7 +149,7 @@ def kernel_ms(torch, fn, names, n):
     return total_us / n / 1e3 if total_us > 0 else None
 
 
-def profile_request(torch, fn):
+def profile_request(torch, fn, tag='profile'):
     """Device busy share and the top kernels of one warm request."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -143,11 +166,11 @@ def profile_request(torch, fn):
         if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((dev / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
-    log(f'profile: one 800x1333 request, wall {wall_ms:.2f} ms (profiled), '
+    log(f'{tag}: one 800x1333 request, wall {wall_ms:.2f} ms (profiled), '
         f'device kernels {busy:.2f} ms, device idle share '
         f'{max(0.0, 1 - busy / wall_ms):.3f}')
     for dev, count, key in sorted(rows, reverse=True)[:10]:
-        log(f'profile:   {dev:8.3f} ms  x{count:<4d} {key[:90]}')
+        log(f'{tag}:   {dev:8.3f} ms  x{count:<4d} {key[:90]}')
 
 
 def nms_case(np, torch, rs, b, k, num_labels=NUM_CLASSES):
@@ -509,20 +532,12 @@ def phase_train_kernels(np, torch):
         cm, ri, rm, count = ers_select(case['t_cls'], case['t_reg'], cap)
         ri, rm = ri[:, :k].contiguous(), rm[:, :k].contiguous()
         seen = []
-        kernel = nms_module.nms_sorted_keep
-
-        def capture(*args):
-            seen.append(args)
-            return kernel(*args)
-        # the wrapper counts its launch under the module name it is bound
-        # to, which is now this function (check launches are not counted)
-        capture.launches = 0
-        nms_module.nms_sorted_keep = capture
+        restore = capture(nms_module, 'nms_sorted_keep', seen)
         try:
             kept = _kept_dense(centers, unit, case['t_cls'], case['t_reg'],
                                ri, rm, 0.005, 16)
         finally:
-            nms_module.nms_sorted_keep = kernel
+            restore()
         check(len(seen) == 1, 'the distillation NMS ran other than once')
         return cm, ri, kept, count, seen[0]
 
@@ -1063,6 +1078,385 @@ def phase_train(np, torch, card):
     return launches
 
 
+def frcnn_request(np, torch, hw):
+    """One seeded RGB image of (H, W) through the test pipeline: (batch on
+    the card, the image, the record)."""
+    from erd_tpu_torch.data import DetPipeline, ImageRecord
+    from erd_tpu_torch.structures import stack_to
+    rs = np.random.RandomState(3)
+    img = [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS][
+        REQUESTS.index(hw)]
+    rec = ImageRecord(0, '', hw[1], hw[0], np.zeros((0, 4), np.float32),
+                      np.zeros((0,), np.int32), np.zeros((0,), bool))
+    canvas, _, meta = DetPipeline()(rec, image=img)
+    return dict(images=torch.from_numpy(canvas[None]).to(DEV),
+                meta=stack_to([meta], DEV)), img
+
+
+def arrange_fc_cls(torch, det, net, batch):
+    """Seeded fc_cls weights: N(0, 1) scaled so that the class logits of
+    one request's RoIs have std FC_CLS_STD, and a bias of FC_CLS_BOOST on
+    FC_CLS_BOOSTED seeded classes (0 elsewhere and on the background).
+    Each RoI then has several classes above score_thr, with distinct
+    scores; with the init's N(0, 0.01) every class scores ~1/81 <
+    score_thr and no candidate would reach the NMS."""
+    fc = net.roi_head.bbox_head.fc_cls
+    seen = []
+    hook = fc.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+    det.predict(net, batch)
+    hook.remove()
+    gen = torch.Generator().manual_seed(FC_CLS_SEED)
+    w = torch.randn(fc.weight.shape, generator=gen).to(fc.weight.device)
+    boosted = torch.randperm(NUM_CLASSES, generator=gen)[:FC_CLS_BOOSTED]
+    std = float((seen[0].float() @ w.T).std())
+    with torch.no_grad():
+        fc.weight.copy_(w * (FC_CLS_STD / std))
+        fc.bias.zero_()
+        fc.bias[boosted.to(fc.bias.device)] = FC_CLS_BOOST
+
+
+def capture(module, name, calls):
+    """Replace ``module.name`` by a wrapper that records its arguments and
+    calls the function. The function counts its launch on the module
+    attribute it is bound to, now the wrapper, so captured calls are kept
+    out of the main path's counts. Returns the restore function."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        calls.append(args)
+        return fn(*args)
+    wrapper.launches = 0
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, fn)
+
+
+def roi_align_bytes(torch, feats, rois, levels):
+    """Bytes RoIAlign must read from the maps for these RoIs: the distinct
+    pixels its in-range samples touch, times the channels and the element
+    size."""
+    from erd_tpu_torch.ops.roi_align import _sample_axis
+    total = 0
+    c, esize = feats[0].shape[1], feats[0].element_size()
+    for lvl, (f, stride) in enumerate(zip(feats, ROI_STRIDES)):
+        r = rois[0][levels[0] == lvl]
+        h, w = f.shape[2:]
+        lo = r * (1.0 / stride) - 0.5
+        size = (lo[:, 2:] - lo[:, :2]).clamp(min=1e-6) / torch.full_like(
+            lo[:, :2], 7)
+        in_y, y0, y1, _ = _sample_axis(lo[:, 1], size[:, 1], h, 7, 2)
+        in_x, x0, x1, _ = _sample_axis(lo[:, 0], size[:, 0], w, 7, 2)
+        hit = torch.zeros(h * w, dtype=torch.bool, device=f.device)
+        ok = in_y[:, :, None] & in_x[:, None, :]
+        for ya in (y0, y1):
+            for xa in (x0, x1):
+                hit[(ya[:, :, None] * w + xa[:, None, :])[ok]] = True
+        total += int(hit.sum()) * c * esize
+    return total
+
+
+def phase_frcnn_kernels(np, torch):
+    """RoIAlign, soft-NMS and the NMS at Faster R-CNN's sizes, on the
+    arguments one 800x1333 request hands them, against their plain
+    versions; then timed."""
+    import importlib
+
+    from erd_tpu_torch.apis import build_detector, init_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.ops import (map_roi_levels, nms_sorted_keep,
+                                   nms_sorted_keep_plain, roi_align,
+                                   roi_align_plain, soft_nms,
+                                   soft_nms_plain)
+    nms_module = importlib.import_module('erd_tpu_torch.ops.nms')
+    roi_module = importlib.import_module('erd_tpu_torch.ops.roi_align')
+
+    det, net, _ = init_detector(FRCNN_CONFIGS['nms'], device=DEV)
+    check(type(det).__name__ == 'FasterRCNNDetector' and det.depth == 50 and
+          det.num_classes == NUM_CLASSES and
+          det.compute_dtype == torch.bfloat16,
+          'not the Faster R-CNN R50 bf16 model')
+    batch, _ = frcnn_request(np, torch, REQUESTS[-1])
+    arrange_fc_cls(torch, det, net, batch)
+    roi_calls, nms_calls, soft_calls = [], [], []
+    restore = [capture(roi_module, 'roi_align', roi_calls),
+               capture(nms_module, 'nms_sorted_keep', nms_calls)]
+    try:
+        det.predict(net, batch)
+        det.test_cfg = build_detector(Config.fromfile(
+            FRCNN_CONFIGS['soft_nms']).model).test_cfg
+        restore.append(capture(nms_module, 'soft_nms', soft_calls))
+        det.predict(net, batch)
+    finally:
+        for undo in restore:
+            undo()
+    torch.cuda.synchronize()
+    check(len(roi_calls) == 2 and len(nms_calls) == 3 and
+          len(soft_calls) == 1, 'unexpected kernel calls of one request')
+    rows, nms_by_k = [], {}
+
+    # -- RoIAlign: the 1000 proposals, the last 10 slots replaced by edge
+    # cases (off-image, degenerate, zero, last row / column) and boxes of
+    # levels 2 and 3, which random weights' proposals hardly reach
+    feats, rois, _, strides = roi_calls[0][:4]
+    rois = rois.clone()
+    h, w = batch['images'].shape[1:3]
+    rois[0, -10:] = torch.tensor([
+        [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [10, 10, 10, 10],
+        [0, 0, 0, 0], [30, 5, 29, 60], [w - 8, h - 8, w + 4, h + 4],
+        [w - 4, 0, w, h], [0, h - 4, w, h], [-9, -9, 600, 500],
+        [100, 100, 400, 400]], device=DEV)
+    levels = map_roi_levels(rois, 4).contiguous()
+    cpu_levels = map_roi_levels(rois.cpu(), 4)
+    check(torch.equal(levels.cpu(), cpu_levels),
+          'RoI levels differ between card and CPU')
+    got = roi_align(feats, rois, levels, strides)
+    torch.cuda.synchronize()
+    want = roi_align_plain(feats, rois, levels, strides)
+    feat_max = max(float(f.float().abs().max()) for f in feats)
+    roi_err = float((got - want).abs().max())
+    per_level = torch.bincount(levels.flatten().long(), minlength=4)
+    log(f'frcnn kernels: roi_align R={rois.shape[1]} C={feats[0].shape[1]} '
+        f'{feats[0].dtype} levels {per_level.tolist()} sizes '
+        f'{[tuple(f.shape[2:]) for f in feats]}: max_abs_err={roi_err:.3e} '
+        f'(limit 1e-6*max|feat| = {1e-6 * feat_max:.3e})')
+    check(roi_err <= 1e-6 * feat_max, 'RoIAlign kernel disagrees with plain')
+    check(bool((per_level > 0).all()), 'RoIAlign check missed a level')
+    args = (feats, rois, levels, strides)
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: roi_align(*args), lambda: roi_align_plain(*args),
+        ['roi_align_kernel'], n=20)
+    r, c = rois.shape[1], feats[0].shape[1]
+    nbytes = roi_align_bytes(torch, feats, rois, levels) + \
+        r * c * 49 * 4 + r * (16 + 4)
+    ops = r * c * 49 * 48.0  # per output: 4 samples x (8 mul, 3 add) + 3
+    # adds + 1 divide (the sample coordinates are per RoI and bin)
+    bms, by = bound_of(nbytes, ops)
+    rows.append(dict(name='roi_align', route='cuda',
+                     source='erd_tpu_torch/csrc/roi_align.cu',
+                     replaces='erd_tpu/ops/roi_align.py:92',
+                     max_abs_err=roi_err, ms=ms, call_ms=call_ms,
+                     ms_from=src, plain_ms=plain_ms, bound_ms=bms,
+                     bound_by=by, library_ms=None))
+
+    # -- soft-NMS on the captured call, linear (the config) and gaussian
+    sboxes, scores, steps = soft_calls[0][:3]
+    k = sboxes.shape[1]
+    check(k == 2000 and steps == 100, f'soft-NMS call at K={k}, '
+          f'{steps} steps, expected 2000 and 100')
+    for method in ('linear', 'gaussian'):
+        gi, gs = soft_nms(sboxes, scores, steps, 0.5, 0.5, 1e-3, method)
+        torch.cuda.synchronize()
+        wi, ws = soft_nms_plain(sboxes, scores, steps, 0.5, 0.5, 1e-3,
+                                method)
+        # compared up to the first step whose selection differs (none, or
+        # a tie of two decayed scores to 1e-6, for the gaussian decay)
+        same = (gi == wi)[0]
+        first = steps if bool(same.all()) else int((~same).int().argmax())
+        upto = slice(0, min(first + 1, steps))
+        live = ws[0, upto] > float('-inf')
+        rel = float(((gs[0, upto] - ws[0, upto]).abs() /
+                     ws[0, upto].abs())[live].max())
+        log(f'frcnn kernels: soft_nms {method} K={k} steps={steps} kept '
+            f'{int((ws >= 1e-3).sum())}: selections equal over '
+            f'{first} of {steps} steps, scores bit-equal '
+            f'{torch.equal(gs, ws)}, max rel err {rel:.2e}')
+        if method == 'linear':
+            check(first == steps and torch.equal(gs, ws),
+                  'linear soft-NMS kernel is not bit-exact with plain')
+        else:
+            check(rel <= 1e-6, 'gaussian soft-NMS scores differ > 1e-6 '
+                  'relative, or selections differ without a tie')
+    sargs = (sboxes, scores, steps, 0.5, 0.5, 1e-3, 'linear')
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: soft_nms(*sargs), lambda: soft_nms_plain(*sargs),
+        ['soft_nms_kernel'], n=20)
+    nbytes = k * (16 + 4) + steps * (8 + 4)
+    ops = steps * k * 21.0  # per step and candidate: argmax compare; IoU
+    # (2 min, 2 max, 2 sub, 2 max0, mul, add, sub, max, div); decay compare,
+    # sub, mul; min-score compare
+    bms, by = bound_of(nbytes, ops)
+    rows.append(dict(name='soft_nms', route='cuda',
+                     source='erd_tpu_torch/csrc/soft_nms.cu',
+                     replaces='erd_tpu/ops/nms.py:170', max_abs_err=0.0,
+                     ms=ms, call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+
+    # -- the NMS kernel on the RPN call and the R-CNN call
+    for nargs, want_k, want_thr in ((nms_calls[0], 4819, 0.7),
+                                    (nms_calls[1], 2000, 0.5)):
+        kk, thr = nargs[0].shape[1], nargs[3]
+        check(kk == want_k and abs(thr - want_thr) < 1e-9,
+              f'NMS call at K={kk}, IoU {thr}; expected {want_k}, {want_thr}')
+        got = nms_sorted_keep(*nargs)
+        torch.cuda.synchronize()
+        mism = int((got != nms_sorted_keep_plain(*nargs)).sum())
+        call_ms = events_ms(torch, lambda: nms_sorted_keep(*nargs), 20)
+        dev_ms = kernel_ms(torch, lambda: nms_sorted_keep(*nargs),
+                           ['nms_mask_kernel', 'nms_reduce_kernel'], 20)
+        nms_by_k[kk] = dict(iou=thr, ms=dev_ms or call_ms, call_ms=call_ms,
+                            valid=int(nargs[1].sum()), kept=int(got.sum()))
+        log(f'frcnn kernels: nms K={kk} iou={thr} valid '
+            f'{int(nargs[1].sum())} kept {int(got.sum())} mismatches={mism} '
+            f'(exact); {nms_by_k[kk]["ms"]:.4f} ms device, {call_ms:.4f} ms '
+            f'per call')
+        check(mism == 0, f'NMS kernel disagrees with plain at K={kk}')
+    log('frcnn kernels: library_ms is null for both: no single PyTorch call '
+        'computes multi-level RoIAlign or soft-NMS (no torchvision)')
+    del roi_calls, nms_calls, soft_calls, feats, got, want, net
+    torch.cuda.empty_cache()
+    return rows, nms_by_k
+
+
+def phase_frcnn_reference(np, torch):
+    """Full-width float32 Faster R-CNN network (backbone, FPN, RPN, the
+    head on zero RoIs), card vs CPU, on one small input."""
+    import copy
+
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    cfg = Config.fromfile(FRCNN_CONFIGS['nms'])
+    cfg.model.compute_dtype = 'float32'
+    det = build_detector(cfg.model)
+    net_cpu = det.init(seed=1, device='cpu')
+    net_gpu = copy.deepcopy(net_cpu).to(DEV)
+    img = np.random.RandomState(2).randint(0, 256, (1, 128, 192, 3),
+                                           np.uint8)
+    (w_cls, w_reg), w_head = det.forward_raw(net_cpu, torch.from_numpy(img))
+    (g_cls, g_reg), g_head = det.forward_raw(net_gpu,
+                                             torch.from_numpy(img).to(DEV))
+    worst = 0.0
+    for g, w in zip(g_cls + g_reg + list(g_head), w_cls + w_reg +
+                    list(w_head)):
+        check(tuple(g.shape) == tuple(w.shape), 'reference shape mismatch')
+        worst = max(worst, float((g.cpu() - w).abs().max() / w.abs().max()))
+    log(f'frcnn reference: float32 network card vs CPU, max |diff| / max '
+        f'|out| = {worst:.2e} (tolerance 1e-3)')
+    check(worst <= 1e-3, 'float32 Faster R-CNN on the card disagrees with '
+          'the CPU')
+
+
+def phase_frcnn_serve(np, torch, card):
+    """init_detector / inference_detector of both Faster R-CNN configs on
+    the 4 requests; stage times, idle share, card-vs-CPU post-processing."""
+    from erd_tpu_torch.apis import inference_detector, init_detector
+    from erd_tpu_torch.data import DetPipeline, ImageRecord
+    from erd_tpu_torch.ops import nms_sorted_keep, roi_align, soft_nms
+    from erd_tpu_torch.structures import stack_to
+
+    phase_frcnn_reference(np, torch)
+    rs = np.random.RandomState(3)
+    images = [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS]
+    counters = {'roi_align': roi_align, 'nms_keep': nms_sorted_keep,
+                'soft_nms': soft_nms}
+    launches = {k: 0 for k in counters}
+    for kind, path in FRCNN_CONFIGS.items():
+        tag = f'frcnn serve {kind}'
+        det, net, _ = init_detector(path, device=DEV)
+        check(type(det).__name__ == 'FasterRCNNDetector' and
+              det.test_cfg.nms_type == kind and
+              det.compute_dtype == torch.bfloat16,
+              f'{path} is not the Faster R-CNN bf16 model with {kind}')
+        batch, _ = frcnn_request(np, torch, REQUESTS[-1])
+        arrange_fc_cls(torch, det, net, batch)
+        inference_detector(det, net, images)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        results, latency = [], []
+        for img in images:
+            t0 = time.perf_counter()
+            results.append(inference_detector(det, net, img))
+            torch.cuda.synchronize()
+            latency.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f'{tag}: launches on the main path {counts}')
+        for name, count in counts.items():
+            want = len(images) * (2 if name == 'nms_keep' and kind == 'nms'
+                                  else 1)
+            if name == 'soft_nms' and kind == 'nms':
+                want = 0
+            check(count == want, f'{tag}: kernel {name} launched {count} '
+                  f'times, expected {want}')
+            launches[name] += count
+
+        pipe = DetPipeline()
+        for i, (img, res) in enumerate(zip(images, results)):
+            h, w = img.shape[:2]
+            n = len(res.scores)
+            check(0 < n <= 100, f'{tag} request {i}: {n} detections')
+            check(np.isfinite(res.bboxes).all() and
+                  np.isfinite(res.scores).all(),
+                  f'{tag} request {i}: non-finite output')
+            slack = 1e-3 * max(h, w)
+            check((res.bboxes >= -slack).all() and
+                  (res.bboxes[:, [0, 2]] <= w + slack).all() and
+                  (res.bboxes[:, [1, 3]] <= h + slack).all(),
+                  f'{tag} request {i}: boxes outside the image')
+            check(((res.labels >= 0) & (res.labels < NUM_CLASSES)).all(),
+                  f'{tag} request {i}: labels out of range')
+            rec = ImageRecord(i, '', w, h, np.zeros((0, 4), np.float32),
+                              np.zeros((0,), np.int32), np.zeros((0,), bool))
+            marks = [time.perf_counter()]
+
+            def mark():
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            canvas, _, meta = pipe(rec, image=img)
+            images_dev = torch.from_numpy(canvas[None]).to(DEV)
+            meta_dev = stack_to([meta], DEV)
+            mark()
+            feats, rpn_cls, rpn_reg = det.feats_and_rpn(net, images_dev)
+            mark()
+            ctx = det.anchor_context(images_dev.shape[1:3])
+            rois, _, roi_mask = det.proposals(ctx, rpn_cls, rpn_reg,
+                                              meta_dev)
+            mark()
+            roi_feats = det.roi_feats(feats, rois)
+            mark()
+            cls, reg = det.roi_forward(net, roi_feats)
+            mark()
+            gpu = det.postprocess(cls, reg, rois, roi_mask, meta_dev)
+            mark()
+            names = ('host pipeline + upload', 'network', 'RPN proposals',
+                     'RoIAlign', 'head', 'post-processing')
+            log(f'{tag}: request {i} stages ms: ' + ', '.join(
+                f'{name} {1e3 * (t1 - t0):.2f}' for name, t0, t1 in
+                zip(names, marks, marks[1:])))
+            cpu = det.postprocess(cls.cpu(), reg.cpu(), rois.cpu(),
+                                  roi_mask.cpu(), stack_to([meta], 'cpu'))
+            cand = int(gpu.num_candidates[0])
+            box_err = float((gpu.bboxes.cpu() - cpu.bboxes).abs().max())
+            score_err = float((gpu.scores.cpu() - cpu.scores).abs().max())
+            log(f'{tag}: request {i} image {h}x{w} canvas {canvas.shape[0]}x'
+                f'{canvas.shape[1]} proposals {int(roi_mask.sum())} '
+                f'candidates_into_nms={cand} detections={n} card_vs_cpu '
+                f'max_box_err={box_err:.2e}px max_score_err={score_err:.2e}')
+            check(cand >= 2000, f'{tag} request {i}: {cand} candidates '
+                  f'reached the NMS, fewer than 2000')
+            check(cand == int(cpu.num_candidates[0]),
+                  f'{tag} request {i}: candidate count differs on the CPU')
+            check(torch.equal(gpu.mask.cpu(), cpu.mask) and
+                  torch.equal(gpu.labels.cpu(), cpu.labels),
+                  f'{tag} request {i}: card and CPU detections differ')
+            check(box_err <= 1e-2 and score_err <= 1e-6,
+                  f'{tag} request {i}: card and CPU boxes/scores differ')
+            check(int(gpu.mask.sum()) == n,
+                  f'{tag} request {i}: predict and inference_detector '
+                  f'disagree')
+            del feats, roi_feats
+        profile_request(torch, lambda: inference_detector(det, net,
+                                                          images[-1]), tag)
+        total = sum(latency)
+        log(f'{tag}: warm per-request latency ms ' +
+            ' '.join(f'{1e3 * t:.2f}' for t in latency) +
+            f'; {len(latency) / total:.2f} img/s; peak memory '
+            f'{peak / 2**20:.1f} MiB; card {card}')
+        del det, net
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1107,9 +1501,14 @@ def main() -> int:
                                                                    torch)
         phase_train_reference(np, torch)
         train_launches = phase_train(np, torch, card)
+        frcnn_rows, frcnn_nms = phase_frcnn_kernels(np, torch)
+        frcnn_launches = phase_frcnn_serve(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
+            if row['name'] == 'nms_keep':
+                by_path['frcnn serve'] = frcnn_launches['nms_keep']
+                row['frcnn_ms_by_k'] = frcnn_nms
             row['launches'] = sum(by_path.values())
             row['launches_by_path'] = by_path
             idx = 1 if row['name'] == 'nms_keep' else 0
@@ -1119,7 +1518,10 @@ def main() -> int:
         for row in train_rows:
             row['launches'] = train_launches[row['name']]
             row['launches_by_path'] = {'train': row['launches']}
-        kernels += train_rows
+        for row in frcnn_rows:
+            row['launches'] = frcnn_launches[row['name']]
+            row['launches_by_path'] = {'frcnn serve': row['launches']}
+        kernels += train_rows + frcnn_rows
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

@@ -1,27 +1,29 @@
 """Config dicts -> detectors and trainers; the counterpart of
-erd_tpu/apis/build.py for the ``GFL`` and ``GFLIncrementERD`` model types
-and SGD training."""
+erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD`` and
+``FasterRCNN`` model types and SGD training."""
 from __future__ import annotations
 
 import torch
 
 from ..config import Config
 from ..engine import Trainer, TrainerConfig
-from ..models import (ERDConfig, ERDDetector, GFLDetector, GFLTestConfig,
-                      GFLTrainConfig)
+from ..models import (ERDConfig, ERDDetector, FasterRCNNDetector,
+                      GFLDetector, GFLTestConfig, GFLTrainConfig)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+_PORTED = ('GFL', 'GFLIncrementERD', 'FasterRCNN')
 # erd_tpu model options whose code paths the port does not have yet
 _NOT_PORTED = ('backbone', 'neck', 'dcn_stages', 'context_block_stages',
-               'gen_attention_stages')
+               'gen_attention_stages', 'head_norm', 'conv_ws', 'bbox_head',
+               'loss_cls')
 
 
 def build_detector(model_cfg: Config, num_devices: int = 1):
     mtype = model_cfg.get('type', 'GFL')
-    if mtype not in ('GFL', 'GFLIncrementERD'):
+    if mtype not in _PORTED:
         raise NotImplementedError(
             f'detector type {mtype!r} is not ported yet (ROADMAP.md, '
-            f'section 1, item 13)')
+            f'section 1, item 8: the zoo)')
     for key in _NOT_PORTED:
         if model_cfg.get(key):
             raise NotImplementedError(f'model.{key} is not ported yet')
@@ -29,21 +31,29 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
     test_cfg = GFLTestConfig(
         score_thr=test.get('score_thr', 0.05),
         nms_pre=test.get('nms_pre', 1000),
-        iou_threshold=test.get('nms_iou_threshold', 0.6),
+        iou_threshold=test.get('nms_iou_threshold',
+                               0.5 if mtype == 'FasterRCNN' else 0.6),
         max_per_img=test.get('max_per_img', 100),
         min_bbox_size=test.get('min_bbox_size', 0.0),
         pre_nms_total=test.get('pre_nms_total', 2000),
-        nms_type=test.get('nms_type', 'nms'))
+        nms_type=test.get('nms_type', 'nms'),
+        soft_nms_method=test.get('soft_nms_method', 'linear'),
+        soft_nms_sigma=test.get('soft_nms_sigma', 0.5),
+        soft_nms_min_score=test.get('soft_nms_min_score', 1e-3))
     train = model_cfg.get('train_cfg', {})
-    common = dict(
+    base = dict(
         num_classes=model_cfg.get('num_classes', 80),
         depth=model_cfg.get('depth', 50),
-        reg_max=model_cfg.get('reg_max', 16),
         compute_dtype=_DTYPES[model_cfg.get('compute_dtype', 'float32')],
         frozen_stages=model_cfg.get('frozen_stages', 1),
+        test_cfg=test_cfg)
+    if mtype == 'FasterRCNN':  # serving only: loss raises (ROADMAP §1.1)
+        return FasterRCNNDetector(**base)
+    common = dict(
+        reg_max=model_cfg.get('reg_max', 16),
         train_cfg=GFLTrainConfig(
             assigner_topk=train.get('assigner_topk', 9)),
-        test_cfg=test_cfg)
+        **base)
     if mtype == 'GFL':
         return GFLDetector(**common)
     erd = model_cfg.get('erd', {})

@@ -2,7 +2,9 @@
 
 ``init_detector`` builds the detector from a config and its network on a
 device (``cuda`` unless the caller names one); ``inference_detector`` runs
-the host test pipeline and the device predict path per image.
+the host test pipeline and the device predict path per image. Both work for
+any detector with ``init(seed, device)`` and ``predict(net, batch)``: the
+GFL / ERD detectors and Faster R-CNN.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ def init_detector(config: Union[str, Config],
     """Returns (detector, net, cfg); ``net`` holds the weights.
 
     Weights are random from ``seed`` unless ``checkpoint`` names an mmdet
-    GFL ``.pth``. ``device`` defaults to ``cuda`` and raises without it.
+    ``.pth`` of the config's model. ``device`` defaults to ``cuda`` and
+    raises without it.
     """
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config

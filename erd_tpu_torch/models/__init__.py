@@ -1,5 +1,6 @@
-from .detectors import ERDConfig, ERDDetector, GFLDetector, GFLNet
+from .detectors import (ERDConfig, ERDDetector, FasterRCNNDetector,
+                        FasterRCNNNet, GFLDetector, GFLNet)
 from .heads import GFLTestConfig, GFLTrainConfig
 
-__all__ = ['ERDConfig', 'ERDDetector', 'GFLDetector', 'GFLNet',
-           'GFLTestConfig', 'GFLTrainConfig']
+__all__ = ['ERDConfig', 'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
+           'GFLDetector', 'GFLNet', 'GFLTestConfig', 'GFLTrainConfig']

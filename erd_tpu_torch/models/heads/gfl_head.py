@@ -132,8 +132,12 @@ class GFLTestConfig:
     min_bbox_size: float = 0.0
     # global cap on candidates entering NMS after the level concat
     pre_nms_total: int = 2000
-    # 'nms' (greedy hard NMS); 'soft_nms' is not ported yet and raises
+    # 'nms' (greedy hard NMS) or 'soft_nms' (the soft-NMS scan; the
+    # reference's test_cfg nms=dict(type='soft_nms', ...))
     nms_type: str = 'nms'
+    soft_nms_method: str = 'linear'  # 'linear' | 'gaussian'
+    soft_nms_sigma: float = 0.5
+    soft_nms_min_score: float = 1e-3
 
 
 def flatten_levels(level_maps: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -30,6 +30,26 @@ class Conv2d(nn.Conv2d):
                                   _cast(self.bias, x))
 
 
+class Linear(nn.Linear):
+    """nn.Linear whose parameters are rounded to ``param_dtype`` and then
+    computed in the input's dtype.
+
+    erd_tpu casts every parameter to the compute dtype at apply time, and
+    flax's Dense promotes a float32 input against bf16 parameters to
+    float32: the R-CNN head of a bf16 model runs float32 products of
+    bf16-rounded weights. ``param_dtype`` float32 is a plain linear layer.
+    """
+
+    def __init__(self, in_features, out_features,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.param_dtype = param_dtype
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(self.param_dtype).to(x.dtype),
+                        self.bias.to(self.param_dtype).to(x.dtype))
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with stored statistics (reference norm_eval=True).
 

@@ -6,8 +6,9 @@ use, named after a hash of its source and flags so that an edited source is
 rebuilt, and loaded with ``ctypes``. Nothing here runs at import time.
 
 Flags: no ``--use_fast_math``, and ``-fmad=false`` so that nvcc never
-contracts a multiply and an add into one FMA: the NMS and ATSS kernels must
-round every IoU and distance exactly as the plain versions do.
+contracts a multiply and an add into one FMA: the NMS, soft-NMS, ATSS and
+RoIAlign kernels must round every IoU, distance and sample exactly as the
+plain versions do.
 
 The Triton kernels (``ops/gfl_loss.py``, ``ops/erd_distill.py``) import
 Triton through ``import_triton``, which points Triton's cache at
@@ -28,7 +29,8 @@ BUILD_DIR = CSRC / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
-SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select')
+SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select', 'roi_align',
+           'soft_nms')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each build made by this process

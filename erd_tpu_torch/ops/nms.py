@@ -11,6 +11,11 @@ iou(i, j) > thr. For CUDA tensors that is the kernel ``csrc/nms.cu``; for CPU
 tensors it is the plain version below, the reference's suppression matrix
 and Jacobi fixpoint. Both round every IoU as the reference does, so keep
 masks are bit-identical.
+
+``soft_nms_select`` is the soft-NMS scan of erd_tpu's ``soft_nms_select``:
+the wrapper masks and class-shifts, and ``soft_nms`` runs the steps, the
+kernel ``csrc/soft_nms.cu`` for CUDA tensors and ``soft_nms_plain`` for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -208,18 +213,169 @@ def nms_select(boxes, scores, labels, iou_threshold, max_out,
     return out_boxes, out_scores, out_labels, out_mask
 
 
-def soft_nms_select(*args, **kwargs):
-    """Soft-NMS is not ported yet (ROADMAP, kernel queue: soft-NMS)."""
-    raise NotImplementedError(
-        'soft_nms_select is not ported yet: see ROADMAP.md, section 2, '
-        'kernel row "soft-NMS and set-NMS"')
+_SOFT_METHODS = ('linear', 'gaussian')
+
+
+def soft_nms_plain(sboxes, scores, steps, iou_threshold, sigma, min_score,
+                   method):
+    """Plain PyTorch version of the soft-NMS kernel (same arguments): the
+    reference's scan, batched over images."""
+    x1, y1, x2, y2 = sboxes.unbind(-1)
+    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    cur = scores.clone()
+    neg_inf = torch.full_like(cur, NEG_INF)
+    idx, sel = [], []
+    for _ in range(steps):
+        i = torch.argmax(cur, dim=-1, keepdim=True)  # first maximum
+        idx.append(i)
+        sel.append(torch.gather(cur, -1, i))
+
+        def at(v):
+            return torch.gather(v, -1, i)
+        iw = (torch.minimum(at(x2), x2) - torch.maximum(at(x1), x1)).clamp(
+            min=0)
+        ih = (torch.minimum(at(y2), y2) - torch.maximum(at(y1), y1)).clamp(
+            min=0)
+        overlap = iw * ih
+        iou = overlap / (at(area) + area - overlap).clamp(min=1e-6)
+        if method == 'gaussian':
+            # a tensor divisor: IEEE division on the card too
+            w = torch.exp(-(iou * iou) / torch.full_like(iou, sigma))
+        else:
+            w = torch.where(iou > iou_threshold, 1.0 - iou,
+                            torch.ones_like(iou))
+        nxt = torch.where(cur > NEG_INF, cur * w, cur)
+        nxt = torch.where(nxt < min_score, neg_inf, nxt)
+        cur = nxt.scatter(-1, i, NEG_INF)
+    return torch.cat(idx, dim=-1), torch.cat(sel, dim=-1)
+
+
+def soft_nms(sboxes, scores, steps, iou_threshold=0.3, sigma=0.5,
+             min_score=1e-3, method='linear'):
+    """The first ``steps`` selections of the soft-NMS scan.
+
+    Args:
+        sboxes: (B, K, 4) fp32 xyxy, class-shifted for class-aware soft-NMS.
+        scores: (B, K) fp32 scores, -inf for entries that take no part.
+        steps: number of scan steps, at most K.
+        method: 'linear' (w = 1 - iou where iou > iou_threshold) or
+            'gaussian' (w = exp(-iou^2 / sigma)).
+    Returns (idx (B, steps) int64, score (B, steps) fp32): the selected
+    entry of each step and its decayed score at selection.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    launch for the batch, counted in ``soft_nms.launches``).
+    """
+    if method not in _SOFT_METHODS:
+        raise ValueError(f'soft-NMS method must be one of {_SOFT_METHODS}')
+    if sboxes.dim() != 3 or sboxes.shape[-1] != 4:
+        raise ValueError(f'sboxes must be (B, K, 4), got '
+                         f'{tuple(sboxes.shape)}')
+    b, k = sboxes.shape[:2]
+    if tuple(scores.shape) != (b, k):
+        raise ValueError('scores must be (B, K)')
+    if not 0 <= steps <= k:
+        raise ValueError(f'steps must lie in [0, K={k}], got {steps}')
+    if sboxes.device.type == 'cpu':
+        return soft_nms_plain(sboxes, scores, steps, iou_threshold, sigma,
+                              min_score, method)
+    if sboxes.device.type != 'cuda':
+        raise RuntimeError(f'soft_nms: no kernel for {sboxes.device}')
+    if scores.device != sboxes.device:
+        raise ValueError('soft_nms: all tensors must be on one device')
+    if sboxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError('soft_nms: sboxes and scores must be float32')
+    if not (sboxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError('soft_nms: tensors must be contiguous')
+    lib = cuda_build.load('soft_nms')
+    lib.erd_soft_nms_max_k.restype = ctypes.c_int
+    with torch.cuda.device(sboxes.device):
+        max_k = lib.erd_soft_nms_max_k()
+        if k > max_k:
+            raise ValueError(
+                f'soft_nms: K={k} candidates exceed the {max_k} that one '
+                f'thread block holds in shared memory; cap the candidates '
+                f'(pre_nms_total) at {max_k} or fewer')
+        idx = torch.empty((b, steps), dtype=torch.int64, device=sboxes.device)
+        sel = torch.empty((b, steps), dtype=torch.float32,
+                          device=sboxes.device)
+        fn = lib.erd_soft_nms
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+            [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(sboxes.data_ptr(), scores.data_ptr(), idx.data_ptr(),
+                 sel.data_ptr(), b, k, steps, float(iou_threshold),
+                 float(sigma), float(min_score), int(method == 'gaussian'),
+                 stream)
+    cuda_build.check(lib, err, 'soft_nms')
+    soft_nms.launches += 1
+    return idx, sel
+
+
+soft_nms.launches = 0
+
+
+@_batched
+def soft_nms_select(boxes, scores, labels, max_out, iou_threshold=0.3,
+                    sigma=0.5, min_score=1e-3, method='linear',
+                    valid_mask=None, class_agnostic=False):
+    """Soft-NMS (Bodla et al. 2017) as erd_tpu's fixed-shape scan.
+
+    ``min(max_out, K)`` steps; each takes the highest current score, emits
+    it, and decays the others by w(iou) (see ``soft_nms``); scores that fall
+    below ``min_score`` drop out. Classes are kept apart by the coordinate
+    offset of ``batched_nms_mask`` unless ``class_agnostic``.
+
+    Returns (boxes (..., max_out, 4), scores, labels, mask): decayed scores
+    in selection order, empty slots zeroed.
+    """
+    cur = scores.to(torch.float32)
+    if valid_mask is not None:
+        cur = torch.where(valid_mask, cur, torch.full_like(cur, NEG_INF))
+    if class_agnostic:
+        shifted = boxes
+    else:
+        finite = torch.where(torch.isfinite(boxes), boxes,
+                             torch.zeros_like(boxes))
+        max_coord = finite.amax(dim=(-2, -1), keepdim=True)[..., 0]
+        shifted = boxes + (labels.to(boxes.dtype) * (max_coord + 1))[..., None]
+    k = min(max_out, boxes.shape[-2])
+    sel_idx, sel_scores = soft_nms(
+        shifted.contiguous(), cur.contiguous(), k, iou_threshold, sigma,
+        min_score, method)
+    out_mask = sel_scores >= min_score
+    out_boxes = torch.where(out_mask[..., None], take_rows(boxes, sel_idx),
+                            torch.zeros((), dtype=boxes.dtype,
+                                        device=boxes.device))
+    out_scores = torch.where(out_mask, sel_scores,
+                             torch.zeros_like(sel_scores))
+    out_labels = torch.where(out_mask, take_rows(labels, sel_idx),
+                             torch.zeros_like(sel_idx, dtype=labels.dtype))
+    if k < max_out:
+        pad = max_out - k
+        lead = out_scores.shape[:-1]
+        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros(
+            lead + (pad, 4))], dim=-2)
+        out_scores = torch.cat([out_scores, out_scores.new_zeros(
+            lead + (pad,))], dim=-1)
+        out_labels = torch.cat([out_labels, out_labels.new_zeros(
+            lead + (pad,))], dim=-1)
+        out_mask = torch.cat([out_mask, out_mask.new_zeros(lead + (pad,))],
+                             dim=-1)
+    return out_boxes, out_scores, out_labels, out_mask
 
 
 def nms_select_cfg(boxes, scores, labels, cfg, valid_mask=None,
                    class_agnostic=False):
-    """Dispatch hard vs soft NMS from a GFLTestConfig-like ``cfg``."""
+    """Dispatch hard vs soft NMS from a GFLTestConfig-like ``cfg``
+    (``nms_type``, ``iou_threshold``, ``soft_nms_*``, ``max_per_img``)."""
     if getattr(cfg, 'nms_type', 'nms') == 'soft_nms':
-        return soft_nms_select(boxes, scores, labels, cfg.max_per_img)
+        return soft_nms_select(
+            boxes, scores, labels, cfg.max_per_img,
+            iou_threshold=cfg.iou_threshold, sigma=cfg.soft_nms_sigma,
+            min_score=cfg.soft_nms_min_score, method=cfg.soft_nms_method,
+            valid_mask=valid_mask, class_agnostic=class_agnostic)
     return nms_select(boxes, scores, labels, cfg.iou_threshold,
                       cfg.max_per_img, valid_mask=valid_mask,
                       class_agnostic=class_agnostic)

@@ -1,9 +1,11 @@
 """Anchor generation (host-side numpy, static per canvas shape).
 
-The port's own copy of erd_tpu/task/anchors.py for the GFL configuration:
-one square anchor of size ``octave_base_scale * stride`` per cell, centred at
-``center_offset * stride`` and shifted onto the stride grid, row-major
-(index ``h * W + w``) within each level.
+The port's own copy of erd_tpu/task/anchors.py: ``len(ratios) *
+scales_per_octave`` anchors of base size ``octave_base_scale * stride`` per
+cell (one square anchor for GFL; ratios 0.5, 1, 2 for the RPN), centred at
+``center_offset * stride`` and shifted onto the stride grid. Anchors are
+cell-major (index ``(h * W + w) * A + a``), and within a cell ratio-major:
+anchor ``a`` is ratio ``a // scales_per_octave``.
 """
 from __future__ import annotations
 

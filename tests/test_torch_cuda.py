@@ -16,7 +16,9 @@ from erd_tpu_torch.config import Config
 from erd_tpu_torch.data import DetPipeline, ImageRecord
 from erd_tpu_torch.models.heads.gfl_head import AnchorContext, gfl_targets
 from erd_tpu_torch.ops import (integral_decode, integral_decode_plain,
-                               nms_sorted_keep, nms_sorted_keep_plain)
+                               map_roi_levels, nms_sorted_keep,
+                               nms_sorted_keep_plain, roi_align,
+                               roi_align_plain, soft_nms, soft_nms_plain)
 from erd_tpu_torch.ops.erd_distill import erd_distill_plain, \
     fused_erd_distill
 from erd_tpu_torch.ops.ers_select import ers_select, ers_select_plain, \
@@ -280,3 +282,108 @@ def test_erd_distill_kernel_matches_plain(cuda):
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, rtol=1e-4,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+FRCNN_SOFT_CFG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    'configs/faster_rcnn/faster_rcnn_r50_fpn_soft_nms_1x_coco.py')
+ROI_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]  # P2-P5, 800x1344
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_roi_align_kernel_matches_plain(cuda, dtype):
+    """1000 RoIs on full-width P2-P5 maps, with off-image, degenerate and
+    last-row/column boxes: within 1e-6 * max|feat| (the same arithmetic,
+    each op rounded alike)."""
+    rs = np.random.RandomState(5)
+    feats = [torch.from_numpy(rs.randn(1, 256, h, w).astype(
+        np.float32)).to(cuda).to(dtype) for h, w in ROI_LEVELS]
+    xy = rs.uniform(-30, [1344, 800], (1000, 2))
+    wh = np.exp(rs.uniform(np.log(2), np.log(900), (1000, 2)))
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[:5] = [[0, 0, 0, 0], [1300, 760, 1344, 800], [-60, -40, -2, -1],
+                [10, 10, 10, 10], [0, 792, 1344, 800]]
+    rois = torch.from_numpy(rois)[None].to(cuda)
+    levels = map_roi_levels(rois, 4)
+    assert len(torch.unique(levels)) == 4
+    before = roi_align.launches
+    got = roi_align(feats, rois, levels)
+    torch.cuda.synchronize()
+    assert roi_align.launches == before + 1
+    want = roi_align_plain(feats, rois, levels, (4, 8, 16, 32))
+    limit = 1e-6 * max(float(f.float().abs().max()) for f in feats)
+    assert float((got - want).abs().max()) <= limit
+
+
+def soft_nms_case_cuda(rs, cuda, b=2, k=2000):
+    boxes, scores = [], []
+    for _ in range(b):
+        c = rs.uniform(50, 1300, (8, 2))[rs.randint(8, size=k)] + \
+            rs.normal(0, 15, (k, 2))
+        wh = rs.uniform(16, 120, (k, 2))
+        bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+        labels = rs.randint(0, 80, k)
+        boxes.append(bx + (labels * (bx.max() + 1)).astype(
+            np.float32)[:, None])
+        s = rs.uniform(0.05, 1, k).astype(np.float32)
+        s[rs.rand(k) < 0.1] = -np.inf
+        scores.append(s)
+    return (torch.from_numpy(np.stack(boxes)).to(cuda),
+            torch.from_numpy(np.stack(scores)).to(cuda))
+
+
+@pytest.mark.parametrize('method', ['linear', 'gaussian'])
+def test_soft_nms_kernel_matches_plain(cuda, method):
+    """K = 2000, 100 steps: linear bit-exact; gaussian selections equal and
+    scores within 1e-6 relative (the card's expf in both, summed decays)."""
+    boxes, scores = soft_nms_case_cuda(np.random.RandomState(6), cuda)
+    before = soft_nms.launches
+    got = soft_nms(boxes, scores, 100, 0.5, 0.5, 1e-3, method)
+    torch.cuda.synchronize()
+    assert soft_nms.launches == before + 1
+    want = soft_nms_plain(boxes, scores, 100, 0.5, 0.5, 1e-3, method)
+    assert torch.equal(got[0], want[0])
+    if method == 'linear':
+        assert torch.equal(got[1], want[1])
+    else:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    cpu = soft_nms(boxes.cpu(), scores.cpu(), 100, 0.5, 0.5, 1e-3, method)
+    assert torch.equal(cpu[0], want[0].cpu())
+
+
+def test_faster_rcnn_serving_on_cuda_uses_kernels(cuda):
+    """bf16 ResNet-18 Faster R-CNN with soft-NMS on the card: the RoIAlign,
+    NMS and soft-NMS kernels launch, and the same head outputs
+    post-processed on the card and on the CPU agree."""
+    cfg = Config.fromfile(FRCNN_SOFT_CFG)
+    cfg.model.depth = 18
+    det, net, _ = init_detector(cfg, device=cuda)
+    with torch.no_grad():  # spread the class scores: detections, not bg
+        w = net.roi_head.bbox_head.fc_cls.weight
+        w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(
+            0)).to(cuda) * 0.05)
+    img = np.random.RandomState(1).randint(0, 256, (256, 320, 3), np.uint8)
+    counts = [f.launches for f in (roi_align, nms_sorted_keep, soft_nms)]
+    res = inference_detector(det, net, img, scale=(320, 256))
+    after = [f.launches for f in (roi_align, nms_sorted_keep, soft_nms)]
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1]
+    assert 0 < len(res.scores) <= 100
+
+    rec = ImageRecord(0, '', 320, 256, np.zeros((0, 4), np.float32),
+                      np.zeros((0,), np.int32), np.zeros((0,), bool))
+    canvas, _, meta = DetPipeline(scale=(320, 256))(rec, image=img)
+    images = torch.from_numpy(canvas[None]).to(cuda)
+    feats, rpn_cls, rpn_reg = det.feats_and_rpn(net, images)
+    meta_gpu = stack_to([meta], cuda)
+    ctx = det.anchor_context(images.shape[1:3])
+    rois, _, roi_mask = det.proposals(ctx, rpn_cls, rpn_reg, meta_gpu)
+    cls, reg = det.roi_forward(net, det.roi_feats(feats, rois))
+    got = det.postprocess(cls, reg, rois, roi_mask, meta_gpu)
+    want = det.postprocess(cls.cpu(), reg.cpu(), rois.cpu(), roi_mask.cpu(),
+                           stack_to([meta], 'cpu'))
+    assert torch.equal(got.mask.cpu(), want.mask)
+    assert torch.equal(got.labels.cpu(), want.labels)
+    torch.testing.assert_close(got.scores.cpu(), want.scores, rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(got.bboxes.cpu(), want.bboxes, rtol=0,
+                               atol=1e-2)

@@ -24,7 +24,7 @@ from erd_tpu_torch.data.transforms import resize_image
 from erd_tpu_torch.models import ERDDetector, GFLTestConfig
 from erd_tpu_torch.models.weight_import import params_from_jax
 from erd_tpu_torch.ops import (cuda_build, integral_decode, nms_select_cfg,
-                               nms_sorted_keep)
+                               nms_sorted_keep, roi_align, soft_nms)
 from erd_tpu_torch.ops.erd_distill import fused_erd_distill
 from erd_tpu_torch.ops.ers_select import ers_select
 from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss
@@ -127,17 +127,38 @@ def test_kernel_wrappers_never_fall_back():
                           torch.empty(b, n, 68, device=meta),
                           torch.empty(b, n, 4, device=meta),
                           torch.empty(b, n, 68, device=meta), mask, mask)
+    with pytest.raises(RuntimeError, match='no kernel'):
+        roi_align([torch.empty(b, 8, 6, 5, device=meta)],
+                  torch.empty(b, n, 4, device=meta),
+                  torch.empty(b, n, dtype=torch.int32, device=meta), (4,))
+    with pytest.raises(RuntimeError, match='no kernel'):
+        soft_nms(torch.empty(b, n, 4, device=meta),
+                 torch.empty(b, n, device=meta), 3)
 
 
 def test_unported_training_and_soft_nms_raise():
-    """Soft-NMS is not ported yet; the ERD loss is."""
+    """Both once raised here; the ERD loss and soft-NMS are ported now.
+    The ERD config builds the ERD detector, and soft-NMS through
+    ``nms_select_cfg`` matches erd_tpu's (selections exactly, linear decay
+    scores to 1e-6)."""
+    from erd_tpu.ops.nms import soft_nms_select as j_soft_nms_select
     det = build_detector(small_cfg(Config).model)
     assert isinstance(det, ERDDetector) and det.erd.ori_num_classes == 40
-    boxes = torch.zeros(1, 5, 4)
-    scores = torch.ones(1, 5)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        nms_select_cfg(boxes, scores, torch.zeros(1, 5, dtype=torch.long),
-                       GFLTestConfig(nms_type='soft_nms'))
+    rs = np.random.RandomState(1)
+    xy = rs.uniform(0, 200, (80, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(20, 80, (80, 2))],
+                           -1).astype(np.float32)
+    scores = rs.uniform(0.1, 1.0, 80).astype(np.float32)
+    labels = rs.randint(0, 3, 80)
+    want = j_soft_nms_select(boxes, scores, labels, 40, iou_threshold=0.6)
+    got = nms_select_cfg(torch.from_numpy(boxes), torch.from_numpy(scores),
+                         torch.from_numpy(labels),
+                         GFLTestConfig(nms_type='soft_nms', max_per_img=40))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-6, atol=0)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
