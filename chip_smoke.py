@@ -49,7 +49,27 @@ Phases, in order; any failed check exits non-zero before the last line:
                 NMS), every kernel of the path launched, stage times, the
                 idle share of one request; the float32 network card vs CPU
                 and the same head outputs post-processed on card and CPU;
- 11. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 11. detr kernels  one 800x1333 request each of DINO-4scale R50 and
+                Deformable DETR R50 (80 classes, bf16, sampling weights
+                arranged by arrange_sampling) with their 12 multi-scale
+                deformable-attention calls captured (6 encoder calls at Q =
+                22323 tokens; 6 decoder calls at Q = 900, or at Q = 300 with
+                decoder_0's bf16 attention weights): the kernel within
+                1e-6 * max|value| of its plain version on each; at least
+                50 % of the samples with a fractional bilinear weight and
+                1 % with a corner outside its map; then timed at the three
+                call shapes, each bound from the distinct value rows its
+                corners touch;
+ 12. detr reference  both float32 DETR networks card vs CPU on a small
+                input: the encoder memory, then the decoder from the card's
+                query selection, within 1e-3 * max|out|;
+ 13. detr serve  DINO-4scale R50 (900 queries, 300 detections) and
+                Deformable DETR R50 (300 queries, 100 detections):
+                init_detector / inference_detector on the same 4 requests,
+                12 kernel launches per request, every detection finite and
+                inside its image, stage times, the idle share of one
+                request, card-vs-CPU post-processing;
+ 14. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 TF32 is off for both cuDNN and matmuls: the served and trained models
 compute in bf16, and the float32 references compare full-precision float32
@@ -73,6 +93,14 @@ FRCNN_CONFIGS = {
                         'faster_rcnn_r50_fpn_1x_coco.py'),
     'soft_nms': os.path.join(ROOT, 'configs', 'faster_rcnn',
                              'faster_rcnn_r50_fpn_soft_nms_1x_coco.py')}
+DETR_CONFIGS = {
+    'dino': os.path.join(ROOT, 'configs', 'dino',
+                         'dino-4scale_r50_12e_coco.py'),
+    'deformable_detr': os.path.join(ROOT, 'configs', 'deformable_detr',
+                                    'deformable_detr_r50_50e_coco.py')}
+# seed of the DETR cells' sampling weights (arrange_sampling): erd_tpu's
+# zero init would leave every sample on a cell centre
+DETR_ARRANGE_SEED = 11
 # seeded fc_cls of the Faster R-CNN serve cell (see arrange_fc_cls): about
 # five classes of each RoI pass score_thr, so that the NMS sees 2000
 FC_CLS_SEED, FC_CLS_STD, FC_CLS_BOOSTED, FC_CLS_BOOST = 7, 0.5, 8, 2.5
@@ -167,8 +195,8 @@ def profile_request(torch, fn, tag='profile'):
             rows.append((dev / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     log(f'{tag}: one 800x1333 request, wall {wall_ms:.2f} ms (profiled), '
-        f'device kernels {busy:.2f} ms, device idle share '
-        f'{max(0.0, 1 - busy / wall_ms):.3f}')
+        f'device kernels {busy:.2f} ms in {sum(r[1] for r in rows)} '
+        f'launches, device idle share {max(0.0, 1 - busy / wall_ms):.3f}')
     for dev, count, key in sorted(rows, reverse=True)[:10]:
         log(f'{tag}:   {dev:8.3f} ms  x{count:<4d} {key[:90]}')
 
@@ -1078,7 +1106,7 @@ def phase_train(np, torch, card):
     return launches
 
 
-def frcnn_request(np, torch, hw):
+def request_batch(np, torch, hw):
     """One seeded RGB image of (H, W) through the test pipeline: (batch on
     the card, the image, the record)."""
     from erd_tpu_torch.data import DetPipeline, ImageRecord
@@ -1174,7 +1202,7 @@ def phase_frcnn_kernels(np, torch):
           det.num_classes == NUM_CLASSES and
           det.compute_dtype == torch.bfloat16,
           'not the Faster R-CNN R50 bf16 model')
-    batch, _ = frcnn_request(np, torch, REQUESTS[-1])
+    batch, _ = request_batch(np, torch, REQUESTS[-1])
     arrange_fc_cls(torch, det, net, batch)
     roi_calls, nms_calls, soft_calls = [], [], []
     restore = [capture(roi_module, 'roi_align', roi_calls),
@@ -1355,7 +1383,7 @@ def phase_frcnn_serve(np, torch, card):
               det.test_cfg.nms_type == kind and
               det.compute_dtype == torch.bfloat16,
               f'{path} is not the Faster R-CNN bf16 model with {kind}')
-        batch, _ = frcnn_request(np, torch, REQUESTS[-1])
+        batch, _ = request_batch(np, torch, REQUESTS[-1])
         arrange_fc_cls(torch, det, net, batch)
         inference_detector(det, net, images)  # warm-up
         torch.cuda.synchronize()
@@ -1457,6 +1485,331 @@ def phase_frcnn_serve(np, torch, card):
     return launches
 
 
+def check_detr_model(torch, det, kind):
+    want = {'dino': ('DINODetector', 900, 300),
+            'deformable_detr': ('DeformableDETRDetector', 300, 100)}[kind]
+    check(type(det).__name__ == want[0] and det.depth == 50 and
+          det.num_classes == NUM_CLASSES and
+          (det.num_queries, det.max_per_img) == want[1:] and
+          det.compute_dtype == torch.bfloat16,
+          f'not the {kind} R50 bf16 model with {want[1]} queries and '
+          f'{want[2]} detections')
+
+
+def sample_stats(torch, shapes, locs):
+    """(samples, with a fractional bilinear weight, with a corner outside
+    its map) of one sampling call, in the kernel's coordinates."""
+    total = frac = out = 0
+    for lvl, (h, w) in enumerate(shapes):
+        loc = locs[:, :, :, lvl]
+        xs = loc[..., 0] * w - 0.5
+        ys = loc[..., 1] * h - 0.5
+        x0, y0 = torch.floor(xs), torch.floor(ys)
+        total += xs.numel()
+        frac += int(((xs != x0) | (ys != y0)).sum())
+        out += int(((x0 < 0) | (x0 + 1 > w - 1) | (y0 < 0) |
+                    (y0 + 1 > h - 1)).sum())
+    return total, frac, out
+
+
+def deform_attn_cost(torch, shapes, values, locs, weights):
+    """(bytes, operations) of one sampling call. Bytes: the distinct
+    (batch, token, head) value rows that its in-range corners touch, hd
+    floats each (at most the whole value tensor; a decoder call touches
+    fewer), the locations and weights read once, the output written once.
+    Operations: per sample 4 corner terms (2 multiplies each), 3 adds, the
+    weight's multiply and add per channel, and ~10 operations of
+    coordinates."""
+    from erd_tpu_torch.ops.ms_deform_attn import make_level_start_index
+    b, q, heads, levels, points, _ = locs.shape
+    n_tok, hd = values.shape[1], values.shape[3]
+    starts = make_level_start_index(shapes)
+    dev = locs.device
+    hit = torch.zeros(b * n_tok * heads, dtype=torch.bool, device=dev)
+    bidx = torch.arange(b, device=dev)[:, None, None, None]
+    hidx = torch.arange(heads, device=dev)[None, None, :, None]
+    for lvl, (h, w) in enumerate(shapes):
+        loc = locs[:, :, :, lvl]  # (B, Q, heads, K, 2)
+        x0 = torch.floor(loc[..., 0] * w - 0.5).long()
+        y0 = torch.floor(loc[..., 1] * h - 0.5).long()
+        for yy in (y0, y0 + 1):
+            for xx in (x0, x0 + 1):
+                ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                row = (bidx * n_tok + int(starts[lvl]) + yy * w + xx) * \
+                    heads + hidx
+                hit[row[ok]] = True
+    samples = b * q * heads * levels * points
+    nbytes = (int(hit.sum()) * hd * values.element_size() +
+              locs.numel() * locs.element_size() +
+              weights.numel() * weights.element_size() + b * q * heads * hd * 4)
+    return nbytes, samples * (13.0 * hd + 10)
+
+
+def phase_detr_kernels(np, torch):
+    """The sampling kernel on every call of one 800x1333 request of each
+    DETR config (6 encoder calls at Q = 22323 tokens; 6 decoder calls at
+    Q = 900 for DINO, at Q = 300 with point references and decoder_0's bf16
+    weights for Deformable DETR), with arranged sampling weights, against
+    its plain version; then timed at the three call shapes."""
+    import importlib
+
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.models.heads import arrange_sampling
+    from erd_tpu_torch.ops import ms_deform_attn, ms_deform_attn_plain
+    head_module = importlib.import_module(
+        'erd_tpu_torch.models.heads.deformable_detr_head')
+
+    batch, _ = request_batch(np, torch, REQUESTS[-1])
+    worst, stats, timed_calls = 0.0, {}, {}
+    for kind, path in DETR_CONFIGS.items():
+        det, net, _ = init_detector(path, device=DEV)
+        check_detr_model(torch, det, kind)
+        arrange_sampling(net, DETR_ARRANGE_SEED)
+        calls = []
+        restore = capture(head_module, 'ms_deform_attn', calls)
+        try:
+            det.predict(net, batch)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        n_tok = calls[0][0].shape[1]
+        qs = [c[2].shape[1] for c in calls]
+        check(qs == [n_tok] * 6 + [min(det.num_queries, n_tok)] * 6,
+              f'{kind}: sampling calls of one request at Q = {qs}')
+        bf16 = [i for i, c in enumerate(calls)
+                if c[3].dtype == torch.bfloat16]
+        log(f'detr kernels: {kind}: calls with bf16 attention weights '
+            f'{bf16}')
+        if kind == 'deformable_detr':
+            check(bf16 == [6], 'deformable_detr: decoder_0 should carry bf16 '
+                  'attention weights, the other calls float32')
+        for i, args in enumerate(calls):
+            got = ms_deform_attn(*args)
+            torch.cuda.synchronize()
+            want = ms_deform_attn_plain(*args)
+            err = float((got - want).abs().max())
+            limit = 1e-6 * float(args[0].abs().max())
+            part = 'encoder' if i < 6 else 'decoder'
+            counts = stats.setdefault(f'{kind} {part}', [0, 0, 0])
+            for j, v in enumerate(sample_stats(torch, args[1], args[2])):
+                counts[j] += v
+            log(f'detr kernels: {kind} ms_deform_attn {part} call {i % 6} '
+                f'Q={qs[i]} levels {args[1]} weights {args[3].dtype}: '
+                f'max_abs_err={err:.3e} (limit 1e-6*max|v| = {limit:.3e})')
+            check(err <= limit, f'{kind}: sampling kernel disagrees with '
+                  f'plain on call {i}')
+            worst = max(worst, err)
+        if kind == 'dino':
+            timed_calls['encoder'] = calls[0]
+        timed_calls[f'{kind} decoder'] = calls[6]
+        del det, net, calls
+        torch.cuda.empty_cache()
+    total = [sum(v[j] for v in stats.values()) for j in range(3)]
+    for part, (n, frac, out) in list(stats.items()) + [('all', total)]:
+        log(f'detr kernels: {part} samples {n}: fractional bilinear weight '
+            f'{frac / n:.4f}, a corner outside its map {out / n:.4f}')
+    check(total[1] >= 0.5 * total[0], 'fewer than 50 % of the samples have '
+          'a fractional bilinear weight: the interpolation goes unchecked')
+    check(total[2] >= 0.01 * total[0], 'fewer than 1 % of the samples reach '
+          'outside their map: the zero padding goes unchecked')
+
+    timed = {}
+    for name, args in timed_calls.items():
+        ms, call_ms, src, plain_ms = time_pair(
+            torch, lambda: ms_deform_attn(*args),
+            lambda: ms_deform_attn_plain(*args), ['ms_deform_attn_kernel'],
+            n=20)
+        values, shapes, locs, weights = args
+        nbytes, ops = deform_attn_cost(torch, shapes, values, locs, weights)
+        bms, by = bound_of(nbytes, ops)
+        timed[name] = dict(q=args[2].shape[1], ms=ms, call_ms=call_ms,
+                           ms_from=src, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, bound_bytes=nbytes)
+        log(f'detr kernels: ms_deform_attn {name} Q={args[2].shape[1]}: '
+            f'{ms:.4f} ms device ({src}), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes '
+            f'of distinct value rows, locations, weights and output)')
+    log('detr kernels: library_ms is null: no single PyTorch call computes '
+        'multi-scale deformable attention (F.grid_sample interpolates one '
+        'level and does not weight and sum the points)')
+    enc = timed.pop('encoder')
+    row = dict(name='ms_deform_attn', route='cuda',
+               source='erd_tpu_torch/csrc/ms_deform_attn.cu',
+               replaces='erd_tpu/ops/ms_deform_attn.py:18',
+               max_abs_err=worst, ms=enc['ms'], call_ms=enc['call_ms'],
+               ms_from=enc['ms_from'], ms_at=f'encoder call Q={enc["q"]}',
+               plain_ms=enc['plain_ms'], bound_ms=enc['bound_ms'],
+               bound_by=enc['bound_by'], library_ms=None,
+               decoder_calls=timed,
+               sample_share={'fractional': total[1] / total[0],
+                             'outside': total[2] / total[0]})
+    del timed_calls
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def phase_detr_reference(np, torch):
+    """Both float32 DETR networks (the sampling weights arranged), card vs
+    CPU, on one small input: the encoder memory, then the decoder outputs
+    with the card's query selection fed to both sides."""
+    import copy
+
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.models.heads import arrange_sampling
+    from erd_tpu_torch.ops.misc import take_rows
+    img = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (1, 128, 192, 3), np.uint8))
+    for kind, path in DETR_CONFIGS.items():
+        cfg = Config.fromfile(path)
+        cfg.model.compute_dtype = 'float32'
+        det = build_detector(cfg.model)
+        net_cpu = det.init(seed=1, device='cpu')
+        arrange_sampling(net_cpu, DETR_ARRANGE_SEED)
+        net_dev = copy.deepcopy(net_cpu).to(DEV)
+        out = {}
+        for name, net in (('card', net_dev), ('cpu', net_cpu)):
+            head = net.bbox_head
+            with torch.no_grad():
+                feats = det.extract_feat(net, img.to(next(
+                    net.parameters()).device))
+                memory, shapes = head.encode(feats)
+                if kind == 'dino':
+                    enc_cls, enc_boxes = head.proposals(memory, shapes)
+                    if name == 'card':
+                        idx = head.select(enc_cls)
+                    idx = idx.to(memory.device)
+                    dec = head.decode(memory, shapes, idx,
+                                      take_rows(enc_boxes, idx))
+                else:
+                    dec = head.decode(memory, shapes)
+            out[name] = [memory] + list(dec)
+        rel = [float((g.cpu() - w).abs().max() / w.abs().max())
+               for g, w in zip(out['card'], out['cpu'])]
+        log(f'detr reference: {kind} float32 card vs CPU, max |diff| / max '
+            f'|out|: encoder memory {rel[0]:.2e}, decoder classes '
+            f'{rel[1]:.2e}, boxes {rel[2]:.2e} (tolerance 1e-3; tokens '
+            f'{memory.shape[1]})')
+        check(max(rel) <= 1e-3, f'float32 {kind} on the card disagrees with '
+              f'the CPU')
+
+
+def phase_detr_serve(np, torch, card):
+    """init_detector / inference_detector of DINO and Deformable DETR on the
+    4 requests, with arranged sampling weights: 12 kernel launches per
+    request, every detection finite and inside its image, stage times, the
+    idle share of one request, card-vs-CPU post-processing."""
+    from erd_tpu_torch.apis import inference_detector, init_detector
+    from erd_tpu_torch.data import DetPipeline, ImageRecord
+    from erd_tpu_torch.models.heads import arrange_sampling
+    from erd_tpu_torch.ops import ms_deform_attn
+    from erd_tpu_torch.ops.misc import take_rows
+    from erd_tpu_torch.structures import stack_to
+
+    rs = np.random.RandomState(3)
+    images = [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS]
+    launches = 0
+    for kind, path in DETR_CONFIGS.items():
+        tag = f'detr serve {kind}'
+        det, net, _ = init_detector(path, device=DEV)
+        check_detr_model(torch, det, kind)
+        arrange_sampling(net, DETR_ARRANGE_SEED)
+        inference_detector(det, net, images)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms_deform_attn.launches = 0
+        results, latency = [], []
+        for img in images:
+            t0 = time.perf_counter()
+            results.append(inference_detector(det, net, img))
+            torch.cuda.synchronize()
+            latency.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        count = ms_deform_attn.launches
+        log(f'{tag}: launches on the main path {{"ms_deform_attn": {count}}}')
+        check(count == 12 * len(images), f'{tag}: the sampling kernel '
+              f'launched {count} times, expected 12 per request')
+        launches += count
+
+        head = net.bbox_head
+        pipe = DetPipeline()
+        for i, (img, res) in enumerate(zip(images, results)):
+            h, w = img.shape[:2]
+            n = len(res.scores)
+            check(n == det.max_per_img, f'{tag} request {i}: {n} detections,'
+                  f' expected {det.max_per_img}')
+            check(np.isfinite(res.bboxes).all() and
+                  np.isfinite(res.scores).all(),
+                  f'{tag} request {i}: non-finite output')
+            slack = 1e-3 * max(h, w)
+            check((res.bboxes >= -slack).all() and
+                  (res.bboxes[:, [0, 2]] <= w + slack).all() and
+                  (res.bboxes[:, [1, 3]] <= h + slack).all(),
+                  f'{tag} request {i}: boxes outside the image')
+            check(((res.labels >= 0) & (res.labels < NUM_CLASSES)).all(),
+                  f'{tag} request {i}: labels out of range')
+            rec = ImageRecord(i, '', w, h, np.zeros((0, 4), np.float32),
+                              np.zeros((0,), np.int32), np.zeros((0,), bool))
+            marks = [time.perf_counter()]
+
+            def mark():
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            with torch.no_grad():
+                canvas, _, meta = pipe(rec, image=img)
+                images_dev = torch.from_numpy(canvas[None]).to(DEV)
+                meta_dev = stack_to([meta], DEV)
+                mark()
+                feats = det.extract_feat(net, images_dev)
+                mark()
+                memory, shapes = head.encode(feats)
+                mark()
+                if kind == 'dino':
+                    enc_cls, enc_boxes = head.proposals(memory, shapes)
+                    idx = head.select(enc_cls)
+                    init_ref = take_rows(enc_boxes, idx)
+                    mark()
+                    all_cls, all_boxes = head.decode(memory, shapes, idx,
+                                                     init_ref)
+                else:
+                    mark()  # no query selection: learned queries
+                    all_cls, all_boxes = head.decode(memory, shapes)
+                mark()
+                gpu = det.postprocess(all_cls, all_boxes, canvas.shape[:2],
+                                      meta_dev)
+                mark()
+            names = ('host pipeline + upload', 'backbone + neck', 'encoder',
+                     'query selection', 'decoder', 'post-processing')
+            log(f'{tag}: request {i} stages ms: ' + ', '.join(
+                f'{name} {1e3 * (t1 - t0):.2f}' for name, t0, t1 in
+                zip(names, marks, marks[1:])))
+            cpu = det.postprocess(all_cls.cpu(), all_boxes.cpu(),
+                                  canvas.shape[:2], stack_to([meta], 'cpu'))
+            box_err = float((gpu.bboxes.cpu() - cpu.bboxes).abs().max())
+            score_err = float((gpu.scores.cpu() - cpu.scores).abs().max())
+            log(f'{tag}: request {i} image {h}x{w} canvas {canvas.shape[0]}x'
+                f'{canvas.shape[1]} tokens {memory.shape[1]} detections={n} '
+                f'card_vs_cpu max_box_err={box_err:.2e}px '
+                f'max_score_err={score_err:.2e}')
+            check(torch.equal(gpu.labels.cpu(), cpu.labels) and
+                  box_err <= 1e-2 and score_err <= 1e-6,
+                  f'{tag} request {i}: card and CPU post-processing differ')
+            check(int(gpu.mask.sum()) == n,
+                  f'{tag} request {i}: predict and inference_detector '
+                  f'disagree')
+            del feats, memory
+        profile_request(torch, lambda: inference_detector(det, net,
+                                                          images[-1]), tag)
+        total = sum(latency)
+        log(f'{tag}: warm per-request latency ms ' +
+            ' '.join(f'{1e3 * t:.2f}' for t in latency) +
+            f'; {len(latency) / total:.2f} img/s; peak memory '
+            f'{peak / 2**20:.1f} MiB; card {card}')
+        del det, net, head
+        torch.cuda.empty_cache()
+    return {'ms_deform_attn': launches}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1503,6 +1856,9 @@ def main() -> int:
         train_launches = phase_train(np, torch, card)
         frcnn_rows, frcnn_nms = phase_frcnn_kernels(np, torch)
         frcnn_launches = phase_frcnn_serve(np, torch, card)
+        detr_rows = phase_detr_kernels(np, torch)
+        phase_detr_reference(np, torch)
+        detr_launches = phase_detr_serve(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -1521,7 +1877,10 @@ def main() -> int:
         for row in frcnn_rows:
             row['launches'] = frcnn_launches[row['name']]
             row['launches_by_path'] = {'frcnn serve': row['launches']}
-        kernels += train_rows + frcnn_rows
+        for row in detr_rows:
+            row['launches'] = detr_launches[row['name']]
+            row['launches_by_path'] = {'detr serve': row['launches']}
+        kernels += train_rows + frcnn_rows + detr_rows
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

@@ -1,17 +1,18 @@
 """Config dicts -> detectors and trainers; the counterpart of
-erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD`` and
-``FasterRCNN`` model types and SGD training."""
+erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``FasterRCNN``,
+``DeformableDETR`` and ``DINO`` model types and SGD training."""
 from __future__ import annotations
 
 import torch
 
 from ..config import Config
 from ..engine import Trainer, TrainerConfig
-from ..models import (ERDConfig, ERDDetector, FasterRCNNDetector,
-                      GFLDetector, GFLTestConfig, GFLTrainConfig)
+from ..models import (DeformableDETRDetector, DINODetector, ERDConfig,
+                      ERDDetector, FasterRCNNDetector, GFLDetector,
+                      GFLTestConfig, GFLTrainConfig)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
-_PORTED = ('GFL', 'GFLIncrementERD', 'FasterRCNN')
+_PORTED = ('GFL', 'GFLIncrementERD', 'FasterRCNN', 'DeformableDETR', 'DINO')
 # erd_tpu model options whose code paths the port does not have yet
 _NOT_PORTED = ('backbone', 'neck', 'dcn_stages', 'context_block_stages',
                'gen_attention_stages', 'head_norm', 'conv_ws', 'bbox_head',
@@ -23,11 +24,19 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
     if mtype not in _PORTED:
         raise NotImplementedError(
             f'detector type {mtype!r} is not ported yet (ROADMAP.md, '
-            f'section 1, item 8: the zoo)')
+            f'section 1, item 9: the zoo)')
     for key in _NOT_PORTED:
         if model_cfg.get(key):
             raise NotImplementedError(f'model.{key} is not ported yet')
     test = model_cfg.get('test_cfg', {})
+    if mtype in ('DeformableDETR', 'DINO'):  # serving only: loss raises
+        cls = DINODetector if mtype == 'DINO' else DeformableDETRDetector
+        return cls(
+            num_classes=model_cfg.get('num_classes', 80),
+            depth=model_cfg.get('depth', 50),
+            compute_dtype=_DTYPES[model_cfg.get('compute_dtype', 'float32')],
+            num_queries=model_cfg.get('num_queries', cls.num_queries),
+            max_per_img=test.get('max_per_img', cls.max_per_img))
     test_cfg = GFLTestConfig(
         score_thr=test.get('score_thr', 0.05),
         nms_pre=test.get('nms_pre', 1000),

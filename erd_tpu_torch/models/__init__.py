@@ -1,6 +1,8 @@
-from .detectors import (ERDConfig, ERDDetector, FasterRCNNDetector,
+from .detectors import (DeformableDETRDetector, DETRNet, DINODetector,
+                        ERDConfig, ERDDetector, FasterRCNNDetector,
                         FasterRCNNNet, GFLDetector, GFLNet)
 from .heads import GFLTestConfig, GFLTrainConfig
 
-__all__ = ['ERDConfig', 'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
+__all__ = ['DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
+           'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
            'GFLDetector', 'GFLNet', 'GFLTestConfig', 'GFLTrainConfig']

@@ -1,6 +1,9 @@
+from .deformable_detr import DeformableDETRDetector, DETRNet
+from .dino import DINODetector
 from .faster_rcnn import FasterRCNNDetector, FasterRCNNNet
 from .gfl_erd import ERDConfig, ERDDetector
 from .single_stage import GFLDetector, GFLNet
 
-__all__ = ['ERDConfig', 'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
+__all__ = ['DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
+           'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
            'GFLDetector', 'GFLNet']

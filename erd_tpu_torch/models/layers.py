@@ -32,12 +32,13 @@ class Conv2d(nn.Conv2d):
 
 class Linear(nn.Linear):
     """nn.Linear whose parameters are rounded to ``param_dtype`` and then
-    computed in the input's dtype.
+    computed in the promoted dtype of the input and ``param_dtype``.
 
     erd_tpu casts every parameter to the compute dtype at apply time, and
     flax's Dense promotes a float32 input against bf16 parameters to
-    float32: the R-CNN head of a bf16 model runs float32 products of
-    bf16-rounded weights. ``param_dtype`` float32 is a plain linear layer.
+    float32: the R-CNN and DETR heads of a bf16 model run float32 products
+    of bf16-rounded weights, and a bf16 input stays bf16. ``param_dtype``
+    float32 is a plain linear layer.
     """
 
     def __init__(self, in_features, out_features,
@@ -46,8 +47,81 @@ class Linear(nn.Linear):
         self.param_dtype = param_dtype
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(self.param_dtype).to(x.dtype),
-                        self.bias.to(self.param_dtype).to(x.dtype))
+        dtype = torch.promote_types(x.dtype, self.param_dtype)
+        return F.linear(x.to(dtype),
+                        self.weight.to(self.param_dtype).to(dtype),
+                        self.bias.to(self.param_dtype).to(dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax.linen.LayerNorm over the last dim: epsilon 1e-6 (flax's
+    default; torch's is 1e-5), statistics in float32 with flax's fast
+    variance max(0, E[x^2] - E[x]^2), and the result in the promoted dtype
+    of the input and ``param_dtype``."""
+
+    def __init__(self, features: int, eps: float = 1e-6,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.param_dtype = param_dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        var = ((x32 * x32).mean(-1, keepdim=True) - mu * mu).clamp(min=0)
+        mul = torch.rsqrt(var + self.eps) * \
+            self.weight.to(self.param_dtype).float()
+        y = (x32 - mu) * mul + self.bias.to(self.param_dtype).float()
+        return y.to(torch.promote_types(x.dtype, self.param_dtype))
+
+
+def softmax(x, dim: int = -1):
+    """jax.nn.softmax's formula, exp(x - max) / sum, each op in x's dtype
+    (bf16 in erd_tpu's bf16 query paths)."""
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True)
+
+
+class MultiheadAttention(nn.Module):
+    """flax.linen.MultiHeadDotProductAttention (0.12) without dropout.
+
+    ``query``, ``key`` and ``value`` project (C -> heads x hd), ``out``
+    (heads x hd -> C), each a ``Linear`` in its input's promoted dtype; q,
+    k and v are promoted to one dtype, the query is divided by sqrt(hd)
+    before the product, a mask (True = attend, broadcast to (B, heads, Q,
+    K)) fills with that dtype's finfo.min, and the softmax is
+    jax.nn.softmax's. Plain ``torch.matmul``: XLA computed it outside any
+    TPU formulation.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = Linear(embed_dim, embed_dim, param_dtype)
+        self.key = Linear(embed_dim, embed_dim, param_dtype)
+        self.value = Linear(embed_dim, embed_dim, param_dtype)
+        self.out = Linear(embed_dim, embed_dim, param_dtype)
+
+    def forward(self, inputs_q, inputs_k, inputs_v, mask=None):
+        b, nq, c = inputs_q.shape
+        hd = c // self.num_heads
+        q, k, v = (proj(x).reshape(b, x.shape[1], self.num_heads, hd)
+                   .transpose(1, 2)
+                   for proj, x in ((self.query, inputs_q),
+                                   (self.key, inputs_k),
+                                   (self.value, inputs_v)))
+        dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                    v.dtype)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        depth = torch.sqrt(torch.full((), float(hd), device=q.device))
+        w = torch.matmul(q / depth.to(dtype), k.transpose(-1, -2))
+        if mask is not None:
+            w = torch.where(mask, w, torch.finfo(dtype).min)
+        y = torch.matmul(softmax(w), v).transpose(1, 2).reshape(b, nq, c)
+        return self.out(y)
 
 
 class FrozenBatchNorm(nn.Module):

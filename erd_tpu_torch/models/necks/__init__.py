@@ -1,3 +1,4 @@
+from .channel_mapper import ChannelMapper
 from .fpn import FPN
 
-__all__ = ['FPN']
+__all__ = ['ChannelMapper', 'FPN']

@@ -1,9 +1,12 @@
-"""Weight import into the port's GFL and Faster R-CNN networks; the
-counterpart of erd_tpu/models/weight_import.py.
+"""Weight import into the port's GFL, Faster R-CNN and DETR-family
+networks; the counterpart of erd_tpu/models/weight_import.py.
 
-The port's modules carry the mmdet state-dict names, so an mmdet checkpoint
-loads with a plain ``load_state_dict``, and the port's GFL ``state_dict``
-reads back into erd_tpu with its ``load_mmdet_state_dict``.
+The port's GFL and Faster R-CNN modules carry the mmdet state-dict names,
+so an mmdet checkpoint loads with a plain ``load_state_dict``, and the
+port's GFL ``state_dict`` reads back into erd_tpu with its
+``load_mmdet_state_dict``. erd_tpu's Deformable DETR and DINO are not
+mmdet's architecture (no sine positional encoding, one shared ``fc_cls``,
+...): their port keeps erd_tpu's scope names and loads no mmdet file.
 ``params_from_jax`` converts erd_tpu's variables (as nested numpy dicts)
 into the port's ``state_dict``; ``widen_cls_head`` starts an ERD student
 from its teacher's ``state_dict``.
@@ -77,6 +80,30 @@ def _rcnn_module(scope: str, mod: Tuple[str, ...]) -> str:
     raise KeyError(f'unmapped {scope} module {"/".join(mod)}')
 
 
+def _detr_neck_module(mod: Tuple[str, ...]) -> str:
+    """ChannelMapper scopes (``conv_i``, ``gn_i``, ``extra_conv_k``,
+    ``extra_gn_k``) keep their names."""
+    if len(mod) == 1 and re.fullmatch(r'(extra_)?(conv|gn)_\d+', mod[0]):
+        return f'neck.{mod[0]}'
+    raise KeyError(f'unmapped neck module {"/".join(mod)}')
+
+
+def _detr_head_value(mod: Tuple[str, ...], leaf: str, v: np.ndarray):
+    """A DETR head leaf as the port's tensor: dense kernels (I, O) ->
+    (O, I); DenseGeneral kernels (C, heads, hd) -> (heads*hd, C) and the
+    attention ``out`` kernel (heads, hd, C) -> (C, heads*hd); (heads, hd)
+    biases flattened. Embeddings are copied as they are."""
+    if leaf == 'kernel' and v.ndim == 3:
+        if mod[-1] == 'out':
+            return v.reshape(-1, v.shape[-1]).T
+        return v.reshape(v.shape[0], -1).T
+    if leaf == 'kernel':
+        return v.T
+    if leaf == 'bias' and v.ndim == 2:
+        return v.reshape(-1)
+    return v
+
+
 def _shared_fc0_rows(kernel: np.ndarray, roi_size: int = 7) -> np.ndarray:
     """erd_tpu's first fc kernel (roi*roi*C, O), rows in (h, w, c) order,
     -> the (O, C*roi*roi) weight of mmdet's channel-major flatten."""
@@ -89,7 +116,7 @@ def _shared_fc0_rows(kernel: np.ndarray, roi_size: int = 7) -> np.ndarray:
 def _leaf(leaf: str, module: str, collection: str) -> str:
     if collection == 'batch_stats':
         return {'mean': 'running_mean', 'var': 'running_var'}[leaf]
-    if leaf == 'kernel':
+    if leaf in ('kernel', 'embedding'):
         return 'weight'
     if leaf == 'scale':  # norm gamma, or the per-level Scale parameter
         return 'scale' if '.scales.' in module else 'weight'
@@ -97,16 +124,19 @@ def _leaf(leaf: str, module: str, collection: str) -> str:
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """erd_tpu GFL or Faster R-CNN variables {'params', 'batch_stats'}
-    (nested numpy dicts) -> the port's GFLNet or FasterRCNNNet
+    """erd_tpu GFL, Faster R-CNN, Deformable DETR or DINO variables
+    {'params', 'batch_stats'} (nested numpy dicts) -> the port's network's
     ``state_dict``.
 
     Conv kernels go from (kh, kw, I, O) to (O, I, kh, kw), dense kernels
     from (I, O) to (O, I); the R-CNN head's first fc also reorders its
     input rows from erd_tpu's (7, 7, C) flatten to mmdet's (C, 7, 7). GN/BN
     ``scale`` becomes ``weight``; frozen-BN ``mean``/``var`` become
-    ``running_mean``/``running_var``. The weights go one way: erd_tpu has
-    no importer of Faster R-CNN state dicts.
+    ``running_mean``/``running_var``. In the DETR heads, module paths are
+    erd_tpu's scopes, DenseGeneral kernels are flattened over their
+    (heads, hd) axes, and the level and query embeddings keep their names.
+    The weights go one way: erd_tpu has no importer of Faster R-CNN or
+    DETR state dicts.
     """
     params = variables['params']
     neck = params.get('neck', {})
@@ -114,12 +144,23 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     start_level = min((int(k[len('lateral_'):]) for k in neck
                        if k.startswith('lateral_')), default=0)
     two_stage = 'rpn_head' in params
+    detr = 'level_embed_0' in params.get('bbox_head', {})
     out = {}
     for collection in ('params', 'batch_stats'):
         for path, value in _flatten(variables.get(collection, {})):
             scope, mod, leaf = path[0], path[1:-1], path[-1]
+            v = np.asarray(value, np.float32)
+            if detr and scope == 'bbox_head':
+                module = '.'.join(('bbox_head',) + mod)
+                v = _detr_head_value(mod, leaf, v)
+                key = f'{module}.{_leaf(leaf, module, collection)}' \
+                    if mod else f'{module}.{leaf}'
+                out[key] = torch.from_numpy(np.array(v, order='C'))
+                continue
             if scope == 'backbone':
                 module = _backbone_module(mod)
+            elif scope == 'neck' and detr:
+                module = _detr_neck_module(mod)
             elif scope == 'neck':
                 module = _neck_module(mod, n_fpn, start_level)
             elif two_stage and scope in ('rpn_head', 'bbox_head'):
@@ -128,7 +169,6 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 module = _head_module(mod)
             else:
                 raise KeyError(f'unmapped scope {"/".join(path)}')
-            v = np.asarray(value, np.float32)
             if leaf == 'kernel' and v.ndim == 4:
                 v = np.transpose(v, (3, 2, 0, 1))
             elif leaf == 'kernel' and module.endswith('shared_fcs.0'):
@@ -141,13 +181,21 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_torch_checkpoint_file(net: nn.Module, path: str):
-    """Load an mmdet ``.pth`` into ``net`` (GFL or Faster R-CNN) in place.
+    """Load an mmdet ``.pth`` into ``net`` (GFL or Faster R-CNN) in place;
+    raises for the DETR family, whose port follows erd_tpu's architecture
+    and not mmdet's.
 
     The file is unpickled (``weights_only=False``, as mmdet checkpoints
     carry metadata objects): load only trusted checkpoints. ``module.``
     prefixes and BN ``num_batches_tracked`` counters are dropped.
     Returns the result of ``load_state_dict``.
     """
+    from .detectors.deformable_detr import DETRNet
+    if isinstance(net, DETRNet):
+        raise NotImplementedError(
+            "erd_tpu's Deformable DETR and DINO are not mmdet's architecture "
+            '(no sine positional encoding, one shared fc_cls, no padding '
+            'mask): no mmdet checkpoint loads into them; use params_from_jax')
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
     state = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
     state = {(k[7:] if k.startswith('module.') else k): v

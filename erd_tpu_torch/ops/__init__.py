@@ -4,6 +4,8 @@ from .misc import (cap_candidates, filter_scores_and_topk, masked_mean_std,
 from .nms import (batched_nms_mask, nms_mask, nms_select, nms_select_cfg,
                   nms_sorted_keep, nms_sorted_keep_plain, soft_nms,
                   soft_nms_plain, soft_nms_select)
+from .ms_deform_attn import (make_level_start_index, ms_deform_attn,
+                             ms_deform_attn_plain)
 from .roi_align import (map_roi_levels, multilevel_roi_align, roi_align,
                         roi_align_level, roi_align_plain)
 
@@ -12,5 +14,6 @@ __all__ = ['integral', 'integral_decode', 'integral_decode_plain',
            'topk_mask_select', 'batched_nms_mask',
            'nms_mask', 'nms_select', 'nms_select_cfg', 'nms_sorted_keep',
            'nms_sorted_keep_plain', 'soft_nms', 'soft_nms_plain',
-           'soft_nms_select', 'map_roi_levels', 'multilevel_roi_align',
+           'soft_nms_select', 'make_level_start_index', 'ms_deform_attn',
+           'ms_deform_attn_plain', 'map_roi_levels', 'multilevel_roi_align',
            'roi_align', 'roi_align_level', 'roi_align_plain']

@@ -98,3 +98,16 @@ def scale_boxes(boxes, scale_factor):
     while s.dim() < boxes.dim():
         s = s.unsqueeze(-2)
     return boxes * s
+
+
+def cxcywh_to_xyxy(b):
+    """(..., 4) centre-size boxes -> corners (erd_tpu's detr_head.py)."""
+    cx, cy, w, h = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xyxy_to_cxcywh(b):
+    """(..., 4) corners -> centre-size boxes (erd_tpu's detr_head.py)."""
+    return torch.stack([(b[..., 0] + b[..., 2]) / 2,
+                        (b[..., 1] + b[..., 3]) / 2,
+                        b[..., 2] - b[..., 0], b[..., 3] - b[..., 1]], -1)

@@ -5,6 +5,7 @@ imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import copy
 import os
 
 import numpy as np
@@ -14,9 +15,11 @@ import torch
 from erd_tpu_torch.apis import inference_detector, init_detector
 from erd_tpu_torch.config import Config
 from erd_tpu_torch.data import DetPipeline, ImageRecord
+from erd_tpu_torch.models.heads import arrange_sampling
 from erd_tpu_torch.models.heads.gfl_head import AnchorContext, gfl_targets
 from erd_tpu_torch.ops import (integral_decode, integral_decode_plain,
-                               map_roi_levels, nms_sorted_keep,
+                               map_roi_levels, ms_deform_attn,
+                               ms_deform_attn_plain, nms_sorted_keep,
                                nms_sorted_keep_plain, roi_align,
                                roi_align_plain, soft_nms, soft_nms_plain)
 from erd_tpu_torch.ops.erd_distill import erd_distill_plain, \
@@ -24,6 +27,7 @@ from erd_tpu_torch.ops.erd_distill import erd_distill_plain, \
 from erd_tpu_torch.ops.ers_select import ers_select, ers_select_plain, \
     ers_threshold
 from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss, gfl_loss_plain
+from erd_tpu_torch.ops.misc import take_rows
 from erd_tpu_torch.structures import GTInstances, stack_to
 from erd_tpu_torch.task import atss_assign, atss_assign_plain, valid_flags
 
@@ -387,3 +391,80 @@ def test_faster_rcnn_serving_on_cuda_uses_kernels(cuda):
                                atol=1e-6)
     torch.testing.assert_close(got.bboxes.cpu(), want.bboxes, rtol=0,
                                atol=1e-2)
+
+
+# the DETR levels of an 800x1344 canvas (strides 8-64) and of its portrait
+DETR_LEVELS = {'landscape': [(100, 168), (50, 84), (25, 42), (13, 21)],
+               'portrait': [(168, 100), (84, 50), (42, 25), (21, 13)]}
+DINO_CFG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'configs/dino/dino-4scale_r50_12e_coco.py')
+
+
+@pytest.mark.parametrize('canvas,q', [('landscape', 'tokens'),
+                                      ('landscape', 900),
+                                      ('portrait', 'tokens'),
+                                      ('portrait', 300)])
+def test_ms_deform_attn_kernel_matches_plain(cuda, canvas, q):
+    """The encoder's call (Q = every token, 22323) and the decoder's (900
+    or 300 queries) on both canvases, locations reaching 10 % past the map:
+    within 1e-6 * max|v| (the same arithmetic, each op rounded alike); bf16
+    weights are widened exactly; other dtypes and head widths raise."""
+    shapes = DETR_LEVELS[canvas]
+    n = sum(h * w for h, w in shapes)
+    q = n if q == 'tokens' else q
+    rs = np.random.RandomState(q)
+    values = torch.from_numpy(rs.randn(1, n, 8, 32).astype(np.float32))
+    locs = torch.from_numpy(rs.uniform(-0.1, 1.1, (1, q, 8, 4, 4, 2)).astype(
+        np.float32))
+    w = torch.from_numpy(rs.rand(1, q, 8, 16).astype(np.float32)).softmax(-1)
+    args = [t.to(cuda) for t in (values, locs, w.reshape(1, q, 8, 4, 4))]
+    before = ms_deform_attn.launches
+    got = ms_deform_attn(args[0], shapes, *args[1:])
+    torch.cuda.synchronize()
+    assert ms_deform_attn.launches == before + 1
+    want = ms_deform_attn_plain(args[0], shapes, *args[1:])
+    limit = 1e-6 * float(values.abs().max())
+    assert float((got - want).abs().max()) <= limit
+    wb = args[2].bfloat16()
+    assert float((ms_deform_attn(args[0], shapes, args[1], wb) -
+                  ms_deform_attn_plain(args[0], shapes, args[1],
+                                       wb.float())).abs().max()) <= limit
+    with pytest.raises(TypeError):
+        ms_deform_attn(args[0].double(), shapes, *args[1:])
+    with pytest.raises(TypeError):
+        ms_deform_attn(args[0], shapes, args[1].half(), args[2])
+    with pytest.raises(ValueError, match='head_dim'):
+        ms_deform_attn(args[0][..., :16].contiguous(), shapes, *args[1:])
+
+
+def test_dino_serving_on_cuda_uses_kernel(cuda):
+    """bf16 ResNet-18 DINO with arranged sampling weights on the card: the
+    sampling kernel launches 12 times per request (6 encoder and 6 decoder
+    layers); the head (float32 products of bf16 weights) on the card
+    agrees with the CPU's within 1e-3 * max|out|, the decoder run from the
+    card's query selection on both."""
+    cfg = Config.fromfile(DINO_CFG)
+    cfg.model.depth = 18
+    det, net, _ = init_detector(cfg, device=cuda)
+    arrange_sampling(net, seed=0)
+    img = np.random.RandomState(1).randint(0, 256, (256, 320, 3), np.uint8)
+    before = ms_deform_attn.launches
+    res = inference_detector(det, net, img, scale=(320, 256))
+    assert ms_deform_attn.launches - before == 12
+    assert len(res.scores) == 300 and np.isfinite(res.bboxes).all()
+
+    images = torch.from_numpy(img[None]).to(cuda)
+    feats = det.extract_feat(net, images)
+    head, head_cpu = net.bbox_head, copy.deepcopy(net.bbox_head).cpu()
+    with torch.no_grad():
+        memory, shapes = head.encode(feats)
+        enc_cls, enc_boxes = head.proposals(memory, shapes)
+        idx = head.select(enc_cls)
+        got = head.decode(memory, shapes, idx, take_rows(enc_boxes, idx))
+        mem_cpu, _ = head_cpu.encode([f.cpu() for f in feats])
+        _, boxes_cpu = head_cpu.proposals(mem_cpu, shapes)
+        want = head_cpu.decode(mem_cpu, shapes, idx.cpu(),
+                               take_rows(boxes_cpu, idx.cpu()))
+    for g, w in zip((memory,) + got, (mem_cpu,) + want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-3 * float(w.abs().max()))

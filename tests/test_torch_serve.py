@@ -23,8 +23,9 @@ from erd_tpu_torch.config import Config
 from erd_tpu_torch.data.transforms import resize_image
 from erd_tpu_torch.models import ERDDetector, GFLTestConfig
 from erd_tpu_torch.models.weight_import import params_from_jax
-from erd_tpu_torch.ops import (cuda_build, integral_decode, nms_select_cfg,
-                               nms_sorted_keep, roi_align, soft_nms)
+from erd_tpu_torch.ops import (cuda_build, integral_decode, ms_deform_attn,
+                               nms_select_cfg, nms_sorted_keep, roi_align,
+                               soft_nms)
 from erd_tpu_torch.ops.erd_distill import fused_erd_distill
 from erd_tpu_torch.ops.ers_select import ers_select
 from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss
@@ -134,6 +135,10 @@ def test_kernel_wrappers_never_fall_back():
     with pytest.raises(RuntimeError, match='no kernel'):
         soft_nms(torch.empty(b, n, 4, device=meta),
                  torch.empty(b, n, device=meta), 3)
+    with pytest.raises(RuntimeError, match='no kernel'):
+        ms_deform_attn(torch.empty(b, 8, 8, 32, device=meta), [(2, 4)],
+                       torch.empty(b, n, 8, 1, 4, 2, device=meta),
+                       torch.empty(b, n, 8, 1, 4, device=meta))
 
 
 def test_unported_training_and_soft_nms_raise():
