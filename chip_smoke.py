@@ -69,7 +69,27 @@ Phases, in order; any failed check exits non-zero before the last line:
                 12 kernel launches per request, every detection finite and
                 inside its image, stage times, the idle share of one
                 request, card-vs-CPU post-processing;
- 14. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 14. dcn kernels  one 800x1333 request each of GFL R101-DCN (DCNv1 in
+                C3-C5, 30 deformable im2col calls) and VFNet R50-mdconv (13
+                DCNv2 calls in the backbone, 10 star-DCN calls in the head),
+                80 classes, bf16, conv_offset arranged by arrange_offsets:
+                the kernel within 1e-6 * max|x| of its plain version on
+                every call; at least 50 % of the samples of each part with a
+                fractional bilinear weight, 1 % with a corner outside its
+                map, the DCNv2 masks not all equal; then each distinct call
+                shape timed, with the float32 GEMM that follows it, the
+                float32 conv_offset convolution that precedes it, and
+                F.grid_sample computing the same columns (library_ms,
+                within 1e-3 * max|x| of the kernel's);
+ 15. dcn reference  both float32 networks card vs CPU on a small input,
+                within 1e-3 * max|out|;
+ 16. dcn serve  init_detector / inference_detector of both configs on the
+                same 4 requests: 30 / 23 im2col launches per request, plus
+                the NMS (and GFL's decode) kernels; every detection finite
+                and inside its image; stage times (backbone, neck, head,
+                post-processing), peak memory, the idle share of one
+                request; card-vs-CPU post-processing;
+ 17. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 TF32 is off for both cuDNN and matmuls: the served and trained models
 compute in bf16, and the float32 references compare full-precision float32
@@ -101,6 +121,17 @@ DETR_CONFIGS = {
 # seed of the DETR cells' sampling weights (arrange_sampling): erd_tpu's
 # zero init would leave every sample on a cell centre
 DETR_ARRANGE_SEED = 11
+DCN_CONFIGS = {
+    'gfl_r101_dcn': os.path.join(ROOT, 'configs', 'gfl',
+                                 'gfl_r101_dconv_c3-c5_fpn_ms2x_coco.py'),
+    'vfnet_r50_mdconv': os.path.join(
+        ROOT, 'configs', 'vfnet', 'vfnet_r50_mdconv_c3_c5_fpn_ms2x_coco.py')}
+# deformable im2col calls of one request: R101's 4 + 23 + 3 DCNv1 blocks;
+# R50's 4 + 6 + 3 DCNv2 blocks and VFNet's 2 star convs on each of 5 levels
+DCN_CALLS = {'gfl_r101_dcn': 30, 'vfnet_r50_mdconv': 23}
+# seed of the DCN cells' conv_offset weights (arrange_offsets): erd_tpu's
+# zero init would sample integer pixels only, with mask 0.5
+DCN_ARRANGE_SEED = 13
 # seeded fc_cls of the Faster R-CNN serve cell (see arrange_fc_cls): about
 # five classes of each RoI pass score_thr, so that the NMS sees 2000
 FC_CLS_SEED, FC_CLS_STD, FC_CLS_BOOSTED, FC_CLS_BOOST = 7, 0.5, 8, 2.5
@@ -199,6 +230,120 @@ def profile_request(torch, fn, tag='profile'):
         f'launches, device idle share {max(0.0, 1 - busy / wall_ms):.3f}')
     for dev, count, key in sorted(rows, reverse=True)[:10]:
         log(f'{tag}:   {dev:8.3f} ms  x{count:<4d} {key[:90]}')
+
+
+def request_images(np):
+    """The seeded RGB images of REQUESTS, uint8 (H, W, 3)."""
+    rs = np.random.RandomState(3)
+    return [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS]
+
+
+def serve_requests(np, torch, det, net, images, counters, want, tag, card,
+                   num_ok=lambda n: 0 < n <= 100):
+    """The serving path as a user drives it: a warm-up over all the images
+    (cuDNN, kernel loads), every launch count of ``counters`` set to 0, the
+    images one request at a time through inference_detector, the counts
+    read. Checks each kernel's launches against ``want`` and every
+    detection: finite, inside its image, its label in range, its count
+    accepted by ``num_ok``. Then profiles one 800x1333 request and logs the
+    latencies, img/s and peak memory. Returns (results, launch counts)."""
+    from erd_tpu_torch.apis import inference_detector
+    inference_detector(det, net, images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    results, latency = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        results.append(inference_detector(det, net, img))
+        torch.cuda.synchronize()
+        latency.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    log(f'{tag}: launches on the main path {counts}')
+    for name, count in counts.items():
+        check(count == want[name], f'{tag}: kernel {name} launched {count} '
+              f'times, expected {want[name]}')
+    for i, (img, res) in enumerate(zip(images, results)):
+        h, w = img.shape[:2]
+        n = len(res.scores)
+        check(num_ok(n), f'{tag} request {i}: {n} detections')
+        check(np.isfinite(res.bboxes).all() and np.isfinite(res.scores).all(),
+              f'{tag} request {i}: non-finite output')
+        slack = 1e-3 * max(h, w)
+        check((res.bboxes >= -slack).all() and
+              (res.bboxes[:, [0, 2]] <= w + slack).all() and
+              (res.bboxes[:, [1, 3]] <= h + slack).all(),
+              f'{tag} request {i}: boxes outside the image')
+        check(((res.labels >= 0) & (res.labels < NUM_CLASSES)).all(),
+              f'{tag} request {i}: labels out of range')
+    profile_request(torch, lambda: inference_detector(det, net, images[-1]),
+                    tag)
+    log(f'{tag}: warm per-request latency ms ' +
+        ' '.join(f'{1e3 * t:.2f}' for t in latency) +
+        f'; {len(latency) / sum(latency):.2f} img/s; peak memory '
+        f'{peak / 2**20:.1f} MiB; card {card}')
+    return results, counts
+
+
+class ServedRequest:
+    """One served request taken apart by stage, each stage ended by a
+    synchronize. The first stage, the host pipeline and the upload, runs on
+    construction; the caller runs the others on ``images`` / ``meta_dev``
+    and calls ``mark()`` after each."""
+
+    def __init__(self, np, torch, pipe, i, img):
+        from erd_tpu_torch.data import ImageRecord
+        from erd_tpu_torch.structures import stack_to
+        self.torch, self.i = torch, i
+        self.h, self.w = img.shape[:2]
+        self.marks = [time.perf_counter()]
+        rec = ImageRecord(i, '', self.w, self.h, np.zeros((0, 4), np.float32),
+                          np.zeros((0,), np.int32), np.zeros((0,), bool))
+        self.canvas, _, meta = pipe(rec, image=img)
+        self.images = torch.from_numpy(self.canvas[None]).to(DEV)
+        self.meta_dev = stack_to([meta], DEV)
+        self.meta_cpu = stack_to([meta], 'cpu')
+        self.mark()
+
+    def mark(self):
+        self.torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+
+    def log_stages(self, tag, names):
+        names = ('host pipeline + upload',) + tuple(names)
+        log(f'{tag}: request {self.i} stages ms: ' + ', '.join(
+            f'{name} {1e3 * (t1 - t0):.2f}' for name, t0, t1 in
+            zip(names, self.marks, self.marks[1:])))
+
+    def compare(self, tag, gpu, cpu, n, extra='', min_candidates=None):
+        """The same head outputs through the card's post-processing
+        (kernels) and the CPU's (plain versions): equal keep masks and
+        labels, boxes within 1e-2 px, scores within 1e-6, as many kept on
+        the card as inference_detector returned (``n``); with
+        ``min_candidates``, at least that many candidates into the NMS, as
+        many on the CPU."""
+        torch = self.torch
+        box_err = float((gpu.bboxes.cpu() - cpu.bboxes).abs().max())
+        score_err = float((gpu.scores.cpu() - cpu.scores).abs().max())
+        at = f'{tag} request {self.i}'
+        if min_candidates is not None:
+            cand = int(gpu.num_candidates[0])
+            extra += f'candidates_into_nms={cand} '
+            check(cand >= min_candidates and
+                  cand == int(cpu.num_candidates[0]),
+                  f'{at}: {cand} candidates reached the NMS (at least '
+                  f'{min_candidates} expected), or another count on the CPU')
+        log(f'{at} image {self.h}x{self.w} canvas {self.canvas.shape[0]}x'
+            f'{self.canvas.shape[1]} {extra}detections={n} card_vs_cpu '
+            f'max_box_err={box_err:.2e}px max_score_err={score_err:.2e}')
+        check(torch.equal(gpu.mask.cpu(), cpu.mask) and
+              torch.equal(gpu.labels.cpu(), cpu.labels) and
+              box_err <= 1e-2 and score_err <= 1e-6,
+              f'{at}: card and CPU post-processing differ')
+        check(int(gpu.mask.sum()) == n,
+              f'{at}: predict and inference_detector disagree')
 
 
 def nms_case(np, torch, rs, b, k, num_labels=NUM_CLASSES):
@@ -350,10 +495,9 @@ def phase_reference(np, torch):
 
 
 def phase_serve(np, torch, card):
-    from erd_tpu_torch.apis import inference_detector, init_detector
-    from erd_tpu_torch.data import DetPipeline, ImageRecord
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.data import DetPipeline
     from erd_tpu_torch.ops import integral_decode, nms_sorted_keep
-    from erd_tpu_torch.structures import stack_to
 
     det, net, cfg = init_detector(ERD_CONFIG, device='cuda')
     check(type(det).__name__ == 'ERDDetector', 'not the ERD detector')
@@ -361,89 +505,25 @@ def phase_serve(np, torch, card):
           det.compute_dtype == torch.bfloat16, 'not the GFL-R50 bf16 model')
     with torch.no_grad():
         net.bbox_head.gfl_cls.bias.zero_()  # scores near 0.5: full NMS
-    rs = np.random.RandomState(3)
-    images = [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS]
-
-    inference_detector(det, net, images)  # warm-up (cuDNN, kernel loads)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    nms_sorted_keep.launches = 0
-    integral_decode.launches = 0
-    results, latency = [], []
-    for img in images:
-        t0 = time.perf_counter()
-        results.append(inference_detector(det, net, img))
-        torch.cuda.synchronize()
-        latency.append(time.perf_counter() - t0)
-    launches = {'nms_keep': nms_sorted_keep.launches,
-                'integral_decode': integral_decode.launches}
-    peak = torch.cuda.max_memory_allocated()
-    log(f'serve: launches on the main path {launches}')
-    for name, count in launches.items():
-        check(count > 0, f'kernel {name} was not launched by the main path')
+    images = request_images(np)
+    counters = {'nms_keep': nms_sorted_keep,
+                'integral_decode': integral_decode}
+    results, launches = serve_requests(
+        np, torch, det, net, images, counters,
+        {k: len(images) for k in counters}, 'serve', card)
 
     pipe = DetPipeline()
     for i, (img, res) in enumerate(zip(images, results)):
-        h, w = img.shape[:2]
-        n = len(res.scores)
-        check(0 < n <= 100, f'request {i}: {n} detections')
-        check(np.isfinite(res.bboxes).all() and np.isfinite(
-            res.scores).all(), f'request {i}: non-finite output')
-        slack = 1e-3 * max(h, w)
-        check((res.bboxes >= -slack).all() and
-              (res.bboxes[:, [0, 2]] <= w + slack).all() and
-              (res.bboxes[:, [1, 3]] <= h + slack).all(),
-              f'request {i}: boxes outside the image')
-        check(((res.labels >= 0) & (res.labels < NUM_CLASSES)).all(),
-              f'request {i}: labels out of range')
-        # the same head outputs through the card's and the CPU's
-        # post-processing (kernels vs plain versions)
-        rec = ImageRecord(i, '', w, h, np.zeros((0, 4), np.float32),
-                          np.zeros((0,), np.int32), np.zeros((0,), bool))
-        # stage times of the same request, each ended by a synchronize
-        t0 = time.perf_counter()
-        canvas, _, meta = pipe(rec, image=img)
-        batch_images = torch.from_numpy(canvas[None]).cuda()
-        meta_gpu = stack_to([meta], 'cuda')
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ctx = det.anchor_context(batch_images.shape[1:3])
-        cls, reg = det.forward_raw(net, batch_images)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        gpu = det.postprocess(ctx, cls, reg, meta_gpu)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        log(f'serve: request {i} stages ms: host pipeline + upload '
-            f'{1e3 * (t1 - t0):.2f}, network {1e3 * (t2 - t1):.2f}, '
-            f'post-processing {1e3 * (t3 - t2):.2f}')
+        req = ServedRequest(np, torch, pipe, i, img)
+        ctx = det.anchor_context(req.images.shape[1:3])
+        cls, reg = det.forward_raw(net, req.images)
+        req.mark()
+        gpu = det.postprocess(ctx, cls, reg, req.meta_dev)
+        req.mark()
+        req.log_stages('serve', ('network', 'post-processing'))
         cpu = det.postprocess(ctx, [c.cpu() for c in cls],
-                              [r.cpu() for r in reg],
-                              stack_to([meta], 'cpu'))
-        cand = int(gpu.num_candidates[0])
-        box_err = float((gpu.bboxes.cpu() - cpu.bboxes).abs().max())
-        score_err = float((gpu.scores.cpu() - cpu.scores).abs().max())
-        log(f'serve: request {i} image {h}x{w} canvas {canvas.shape[0]}x'
-            f'{canvas.shape[1]} candidates_into_nms={cand} detections={n} '
-            f'card_vs_cpu max_box_err={box_err:.2e}px '
-            f'max_score_err={score_err:.2e}')
-        check(cand > 0, f'request {i}: no candidates entered NMS')
-        check(cand == int(cpu.num_candidates[0]),
-              f'request {i}: candidate count differs on the CPU')
-        check(torch.equal(gpu.mask.cpu(), cpu.mask) and
-              torch.equal(gpu.labels.cpu(), cpu.labels),
-              f'request {i}: card and CPU detections differ')
-        check(box_err <= 1e-2 and score_err <= 1e-6,
-              f'request {i}: card and CPU boxes/scores differ')
-        check(int(gpu.mask.sum()) == n,
-              f'request {i}: predict and inference_detector disagree')
-
-    profile_request(torch, lambda: inference_detector(det, net, images[-1]))
-    total = sum(latency)
-    log('serve: warm per-request latency ms ' +
-        ' '.join(f'{1e3 * t:.2f}' for t in latency) +
-        f'; {len(latency) / total:.2f} img/s; peak memory '
-        f'{peak / 2**20:.1f} MiB; card {card}')
+                              [r.cpu() for r in reg], req.meta_cpu)
+        req.compare('serve', gpu, cpu, len(res.scores), min_candidates=1)
     return launches
 
 
@@ -1111,9 +1191,7 @@ def request_batch(np, torch, hw):
     the card, the image, the record)."""
     from erd_tpu_torch.data import DetPipeline, ImageRecord
     from erd_tpu_torch.structures import stack_to
-    rs = np.random.RandomState(3)
-    img = [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS][
-        REQUESTS.index(hw)]
+    img = request_images(np)[REQUESTS.index(hw)]
     rec = ImageRecord(0, '', hw[1], hw[0], np.zeros((0, 4), np.float32),
                       np.zeros((0,), np.int32), np.zeros((0,), bool))
     canvas, _, meta = DetPipeline()(rec, image=img)
@@ -1365,14 +1443,12 @@ def phase_frcnn_reference(np, torch):
 def phase_frcnn_serve(np, torch, card):
     """init_detector / inference_detector of both Faster R-CNN configs on
     the 4 requests; stage times, idle share, card-vs-CPU post-processing."""
-    from erd_tpu_torch.apis import inference_detector, init_detector
-    from erd_tpu_torch.data import DetPipeline, ImageRecord
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.data import DetPipeline
     from erd_tpu_torch.ops import nms_sorted_keep, roi_align, soft_nms
-    from erd_tpu_torch.structures import stack_to
 
     phase_frcnn_reference(np, torch)
-    rs = np.random.RandomState(3)
-    images = [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS]
+    images = request_images(np)
     counters = {'roi_align': roi_align, 'nms_keep': nms_sorted_keep,
                 'soft_nms': soft_nms}
     launches = {k: 0 for k in counters}
@@ -1385,101 +1461,38 @@ def phase_frcnn_serve(np, torch, card):
               f'{path} is not the Faster R-CNN bf16 model with {kind}')
         batch, _ = request_batch(np, torch, REQUESTS[-1])
         arrange_fc_cls(torch, det, net, batch)
-        inference_detector(det, net, images)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        results, latency = [], []
-        for img in images:
-            t0 = time.perf_counter()
-            results.append(inference_detector(det, net, img))
-            torch.cuda.synchronize()
-            latency.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated()
-        counts = {k: fn.launches for k, fn in counters.items()}
-        log(f'{tag}: launches on the main path {counts}')
+        hard = kind == 'nms'  # the RPN's NMS, and the final one if hard
+        want = {'roi_align': len(images),
+                'nms_keep': len(images) * (2 if hard else 1),
+                'soft_nms': 0 if hard else len(images)}
+        results, counts = serve_requests(np, torch, det, net, images,
+                                         counters, want, tag, card)
         for name, count in counts.items():
-            want = len(images) * (2 if name == 'nms_keep' and kind == 'nms'
-                                  else 1)
-            if name == 'soft_nms' and kind == 'nms':
-                want = 0
-            check(count == want, f'{tag}: kernel {name} launched {count} '
-                  f'times, expected {want}')
             launches[name] += count
 
         pipe = DetPipeline()
         for i, (img, res) in enumerate(zip(images, results)):
-            h, w = img.shape[:2]
-            n = len(res.scores)
-            check(0 < n <= 100, f'{tag} request {i}: {n} detections')
-            check(np.isfinite(res.bboxes).all() and
-                  np.isfinite(res.scores).all(),
-                  f'{tag} request {i}: non-finite output')
-            slack = 1e-3 * max(h, w)
-            check((res.bboxes >= -slack).all() and
-                  (res.bboxes[:, [0, 2]] <= w + slack).all() and
-                  (res.bboxes[:, [1, 3]] <= h + slack).all(),
-                  f'{tag} request {i}: boxes outside the image')
-            check(((res.labels >= 0) & (res.labels < NUM_CLASSES)).all(),
-                  f'{tag} request {i}: labels out of range')
-            rec = ImageRecord(i, '', w, h, np.zeros((0, 4), np.float32),
-                              np.zeros((0,), np.int32), np.zeros((0,), bool))
-            marks = [time.perf_counter()]
-
-            def mark():
-                torch.cuda.synchronize()
-                marks.append(time.perf_counter())
-            canvas, _, meta = pipe(rec, image=img)
-            images_dev = torch.from_numpy(canvas[None]).to(DEV)
-            meta_dev = stack_to([meta], DEV)
-            mark()
-            feats, rpn_cls, rpn_reg = det.feats_and_rpn(net, images_dev)
-            mark()
-            ctx = det.anchor_context(images_dev.shape[1:3])
+            req = ServedRequest(np, torch, pipe, i, img)
+            feats, rpn_cls, rpn_reg = det.feats_and_rpn(net, req.images)
+            req.mark()
+            ctx = det.anchor_context(req.images.shape[1:3])
             rois, _, roi_mask = det.proposals(ctx, rpn_cls, rpn_reg,
-                                              meta_dev)
-            mark()
+                                              req.meta_dev)
+            req.mark()
             roi_feats = det.roi_feats(feats, rois)
-            mark()
+            req.mark()
             cls, reg = det.roi_forward(net, roi_feats)
-            mark()
-            gpu = det.postprocess(cls, reg, rois, roi_mask, meta_dev)
-            mark()
-            names = ('host pipeline + upload', 'network', 'RPN proposals',
-                     'RoIAlign', 'head', 'post-processing')
-            log(f'{tag}: request {i} stages ms: ' + ', '.join(
-                f'{name} {1e3 * (t1 - t0):.2f}' for name, t0, t1 in
-                zip(names, marks, marks[1:])))
+            req.mark()
+            gpu = det.postprocess(cls, reg, rois, roi_mask, req.meta_dev)
+            req.mark()
+            req.log_stages(tag, ('network', 'RPN proposals', 'RoIAlign',
+                                 'head', 'post-processing'))
             cpu = det.postprocess(cls.cpu(), reg.cpu(), rois.cpu(),
-                                  roi_mask.cpu(), stack_to([meta], 'cpu'))
-            cand = int(gpu.num_candidates[0])
-            box_err = float((gpu.bboxes.cpu() - cpu.bboxes).abs().max())
-            score_err = float((gpu.scores.cpu() - cpu.scores).abs().max())
-            log(f'{tag}: request {i} image {h}x{w} canvas {canvas.shape[0]}x'
-                f'{canvas.shape[1]} proposals {int(roi_mask.sum())} '
-                f'candidates_into_nms={cand} detections={n} card_vs_cpu '
-                f'max_box_err={box_err:.2e}px max_score_err={score_err:.2e}')
-            check(cand >= 2000, f'{tag} request {i}: {cand} candidates '
-                  f'reached the NMS, fewer than 2000')
-            check(cand == int(cpu.num_candidates[0]),
-                  f'{tag} request {i}: candidate count differs on the CPU')
-            check(torch.equal(gpu.mask.cpu(), cpu.mask) and
-                  torch.equal(gpu.labels.cpu(), cpu.labels),
-                  f'{tag} request {i}: card and CPU detections differ')
-            check(box_err <= 1e-2 and score_err <= 1e-6,
-                  f'{tag} request {i}: card and CPU boxes/scores differ')
-            check(int(gpu.mask.sum()) == n,
-                  f'{tag} request {i}: predict and inference_detector '
-                  f'disagree')
+                                  roi_mask.cpu(), req.meta_cpu)
+            req.compare(tag, gpu, cpu, len(res.scores),
+                        f'proposals {int(roi_mask.sum())} ',
+                        min_candidates=2000)
             del feats, roi_feats
-        profile_request(torch, lambda: inference_detector(det, net,
-                                                          images[-1]), tag)
-        total = sum(latency)
-        log(f'{tag}: warm per-request latency ms ' +
-            ' '.join(f'{1e3 * t:.2f}' for t in latency) +
-            f'; {len(latency) / total:.2f} img/s; peak memory '
-            f'{peak / 2**20:.1f} MiB; card {card}')
         del det, net
         torch.cuda.empty_cache()
     return launches
@@ -1699,115 +1712,382 @@ def phase_detr_serve(np, torch, card):
     4 requests, with arranged sampling weights: 12 kernel launches per
     request, every detection finite and inside its image, stage times, the
     idle share of one request, card-vs-CPU post-processing."""
-    from erd_tpu_torch.apis import inference_detector, init_detector
-    from erd_tpu_torch.data import DetPipeline, ImageRecord
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.data import DetPipeline
     from erd_tpu_torch.models.heads import arrange_sampling
     from erd_tpu_torch.ops import ms_deform_attn
     from erd_tpu_torch.ops.misc import take_rows
-    from erd_tpu_torch.structures import stack_to
 
-    rs = np.random.RandomState(3)
-    images = [rs.randint(0, 256, (h, w, 3), np.uint8) for h, w in REQUESTS]
+    images = request_images(np)
     launches = 0
     for kind, path in DETR_CONFIGS.items():
         tag = f'detr serve {kind}'
         det, net, _ = init_detector(path, device=DEV)
         check_detr_model(torch, det, kind)
         arrange_sampling(net, DETR_ARRANGE_SEED)
-        inference_detector(det, net, images)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ms_deform_attn.launches = 0
-        results, latency = [], []
-        for img in images:
-            t0 = time.perf_counter()
-            results.append(inference_detector(det, net, img))
-            torch.cuda.synchronize()
-            latency.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated()
-        count = ms_deform_attn.launches
-        log(f'{tag}: launches on the main path {{"ms_deform_attn": {count}}}')
-        check(count == 12 * len(images), f'{tag}: the sampling kernel '
-              f'launched {count} times, expected 12 per request')
-        launches += count
+        results, counts = serve_requests(
+            np, torch, det, net, images, {'ms_deform_attn': ms_deform_attn},
+            {'ms_deform_attn': 12 * len(images)}, tag, card,
+            num_ok=lambda n: n == det.max_per_img)
+        launches += counts['ms_deform_attn']
 
         head = net.bbox_head
         pipe = DetPipeline()
         for i, (img, res) in enumerate(zip(images, results)):
-            h, w = img.shape[:2]
-            n = len(res.scores)
-            check(n == det.max_per_img, f'{tag} request {i}: {n} detections,'
-                  f' expected {det.max_per_img}')
-            check(np.isfinite(res.bboxes).all() and
-                  np.isfinite(res.scores).all(),
-                  f'{tag} request {i}: non-finite output')
-            slack = 1e-3 * max(h, w)
-            check((res.bboxes >= -slack).all() and
-                  (res.bboxes[:, [0, 2]] <= w + slack).all() and
-                  (res.bboxes[:, [1, 3]] <= h + slack).all(),
-                  f'{tag} request {i}: boxes outside the image')
-            check(((res.labels >= 0) & (res.labels < NUM_CLASSES)).all(),
-                  f'{tag} request {i}: labels out of range')
-            rec = ImageRecord(i, '', w, h, np.zeros((0, 4), np.float32),
-                              np.zeros((0,), np.int32), np.zeros((0,), bool))
-            marks = [time.perf_counter()]
-
-            def mark():
-                torch.cuda.synchronize()
-                marks.append(time.perf_counter())
             with torch.no_grad():
-                canvas, _, meta = pipe(rec, image=img)
-                images_dev = torch.from_numpy(canvas[None]).to(DEV)
-                meta_dev = stack_to([meta], DEV)
-                mark()
-                feats = det.extract_feat(net, images_dev)
-                mark()
+                req = ServedRequest(np, torch, pipe, i, img)
+                feats = det.extract_feat(net, req.images)
+                req.mark()
                 memory, shapes = head.encode(feats)
-                mark()
+                req.mark()
                 if kind == 'dino':
                     enc_cls, enc_boxes = head.proposals(memory, shapes)
                     idx = head.select(enc_cls)
                     init_ref = take_rows(enc_boxes, idx)
-                    mark()
+                    req.mark()
                     all_cls, all_boxes = head.decode(memory, shapes, idx,
                                                      init_ref)
                 else:
-                    mark()  # no query selection: learned queries
+                    req.mark()  # no query selection: learned queries
                     all_cls, all_boxes = head.decode(memory, shapes)
-                mark()
-                gpu = det.postprocess(all_cls, all_boxes, canvas.shape[:2],
-                                      meta_dev)
-                mark()
-            names = ('host pipeline + upload', 'backbone + neck', 'encoder',
-                     'query selection', 'decoder', 'post-processing')
-            log(f'{tag}: request {i} stages ms: ' + ', '.join(
-                f'{name} {1e3 * (t1 - t0):.2f}' for name, t0, t1 in
-                zip(names, marks, marks[1:])))
+                req.mark()
+                gpu = det.postprocess(all_cls, all_boxes,
+                                      req.canvas.shape[:2], req.meta_dev)
+                req.mark()
+            req.log_stages(tag, ('backbone + neck', 'encoder',
+                                 'query selection', 'decoder',
+                                 'post-processing'))
             cpu = det.postprocess(all_cls.cpu(), all_boxes.cpu(),
-                                  canvas.shape[:2], stack_to([meta], 'cpu'))
-            box_err = float((gpu.bboxes.cpu() - cpu.bboxes).abs().max())
-            score_err = float((gpu.scores.cpu() - cpu.scores).abs().max())
-            log(f'{tag}: request {i} image {h}x{w} canvas {canvas.shape[0]}x'
-                f'{canvas.shape[1]} tokens {memory.shape[1]} detections={n} '
-                f'card_vs_cpu max_box_err={box_err:.2e}px '
-                f'max_score_err={score_err:.2e}')
-            check(torch.equal(gpu.labels.cpu(), cpu.labels) and
-                  box_err <= 1e-2 and score_err <= 1e-6,
-                  f'{tag} request {i}: card and CPU post-processing differ')
-            check(int(gpu.mask.sum()) == n,
-                  f'{tag} request {i}: predict and inference_detector '
-                  f'disagree')
+                                  req.canvas.shape[:2], req.meta_cpu)
+            req.compare(tag, gpu, cpu, len(res.scores),
+                        f'tokens {memory.shape[1]} ')
             del feats, memory
-        profile_request(torch, lambda: inference_detector(det, net,
-                                                          images[-1]), tag)
-        total = sum(latency)
-        log(f'{tag}: warm per-request latency ms ' +
-            ' '.join(f'{1e3 * t:.2f}' for t in latency) +
-            f'; {len(latency) / total:.2f} img/s; peak memory '
-            f'{peak / 2**20:.1f} MiB; card {card}')
         del det, net, head
         torch.cuda.empty_cache()
     return {'ms_deform_attn': launches}
+
+
+def check_dcn_model(torch, det, kind):
+    want = {'gfl_r101_dcn': ('GFLDetector', 101, False),
+            'vfnet_r50_mdconv': ('VFNetDetector', 50, True)}[kind]
+    check(type(det).__name__ == want[0] and det.depth == want[1] and
+          det.dcn_modulated == want[2] and
+          tuple(det.dcn_stages) == (False, True, True, True) and
+          det.num_classes == NUM_CLASSES and
+          det.compute_dtype == torch.bfloat16,
+          f'not the {kind} bf16 model with DCN in C3-C5')
+
+
+def dcn_net(torch, path, kind):
+    """init_detector of a DCN config on the card, conv_offset arranged and
+    the class bias zeroed (scores near 0.5: the NMS sees its 2000)."""
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.ops import arrange_offsets
+    det, net, _ = init_detector(path, device=DEV)
+    check_dcn_model(torch, det, kind)
+    arrange_offsets(net, DCN_ARRANGE_SEED)
+    cls = net.bbox_head.gfl_cls if kind == 'gfl_r101_dcn' else \
+        net.bbox_head.vfnet_cls
+    with torch.no_grad():
+        cls.bias.zero_()
+    return det, net
+
+
+def dcn_sample_stats(torch, args):
+    """(samples, with a fractional bilinear weight, with a corner outside
+    its map) of one deformable im2col call, in the kernel's coordinates."""
+    from erd_tpu_torch.ops.deform_conv import _base_grid
+    x, offset, _, k, stride, pad, dil, dg = args
+    b, _, h, w = x.shape
+    ho, wo = offset.shape[2:]
+    by, bx = _base_grid(ho, wo, k, stride, pad, dil, x.device)
+    off = offset.reshape(b, dg, k * k, 2, ho, wo)
+    ys, xs = by + off[:, :, :, 0], bx + off[:, :, :, 1]
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    frac = int(((ys != y0) | (xs != x0)).sum())
+    out = int(((y0 < 0) | (y0 + 1 > h - 1) | (x0 < 0) |
+               (x0 + 1 > w - 1)).sum())
+    return ys.numel(), frac, out
+
+
+def dcn_cost(args):
+    """(bytes, operations) of one deformable im2col call. Bytes: the map,
+    the offsets and masks read once, the float32 columns written once.
+    Operations: per column element 4 corner terms (2 multiplies each) and
+    3 adds, and the mask's multiply; per sample ~12 of coordinates."""
+    x, offset, mask, k, _, _, _, _ = args
+    b, cin = x.shape[:2]
+    hw = offset.shape[2] * offset.shape[3]
+    cols = b * cin * k * k * hw
+    nbytes = (x.numel() * x.element_size() + offset.numel() * 4 +
+              (0 if mask is None else mask.numel() * 4) + cols * 4)
+    samples = offset.numel() // 2
+    return nbytes, cols * (11.0 + (mask is not None)) + samples * 12.0
+
+
+def grid_sample_im2col(torch, args):
+    """One deformable im2col call as F.grid_sample computes it, for
+    library_ms; returns the call, which gives the kernel's columns.
+    Bilinear sampling with padding_mode 'zeros' drops each corner outside
+    the map on its own, erd_tpu's rule. The grid holds the sample positions
+    normalised for align_corners=False, one row per (kernel point, output
+    row), the deform groups folded into the batch; a DCNv2 mask multiplies
+    the samples. The map is widened to float32 beforehand (grid_sample
+    samples in the grid's dtype)."""
+    import torch.nn.functional as F
+
+    from erd_tpu_torch.ops.deform_conv import _base_grid
+    x, offset, mask, k, stride, pad, dil, dg = args
+    b, cin, h, w = x.shape
+    ho, wo = offset.shape[2:]
+    kk = k * k
+    by, bx = _base_grid(ho, wo, k, stride, pad, dil, x.device)
+    off = offset.reshape(b * dg, kk, 2, ho, wo)
+    ys, xs = by + off[:, :, 0], bx + off[:, :, 1]  # (B*dg, K*K, Ho, Wo)
+    grid = torch.stack([(2 * xs + 1) / w - 1, (2 * ys + 1) / h - 1],
+                       -1).reshape(b * dg, kk * ho, wo, 2)
+    xf = x.float().reshape(b * dg, cin // dg, h, w)
+    m = None if mask is None else mask.reshape(b * dg, 1, kk * ho, wo)
+
+    def call():
+        out = F.grid_sample(xf, grid, mode='bilinear', padding_mode='zeros',
+                            align_corners=False)
+        return (out if m is None else out * m).reshape(b, cin * kk, ho * wo)
+    return call
+
+
+def phase_dcn_kernels(np, torch):
+    """The deformable im2col kernel on every call of one 800x1333 request of
+    each DCN config, with arranged conv_offset weights, against its plain
+    version; then every distinct call shape timed with its GEMM."""
+    import importlib
+
+    from erd_tpu_torch.ops import (ModulatedDeformConv, deform_im2col,
+                                   deform_im2col_plain)
+    dcn_module = importlib.import_module('erd_tpu_torch.ops.deform_conv')
+    batch, _ = request_batch(np, torch, REQUESTS[-1])
+    worst, stats, shapes = 0.0, {}, {}
+    for kind, path in DCN_CONFIGS.items():
+        det, net = dcn_net(torch, path, kind)
+        calls = []
+        restore = capture(dcn_module, 'deform_im2col', calls)
+        try:
+            det.predict(net, batch)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        check(len(calls) == DCN_CALLS[kind], f'{kind}: {len(calls)} '
+              f'deformable im2col calls in one request, expected '
+              f'{DCN_CALLS[kind]}')
+        n_backbone = 30 if kind == 'gfl_r101_dcn' else 13
+        # the backbone's deformable convs, in call order
+        mods = [m for m in net.modules() if isinstance(m, ModulatedDeformConv)]
+        check(len(mods) == n_backbone, f'{kind}: {len(mods)} deformable '
+              f'convs in the backbone')
+        for i, args in enumerate(calls):
+            x, offset, mask = args[:3]
+            part = f'{kind} {"backbone" if i < n_backbone else "head"}'
+            check((mask is not None) == (kind == 'vfnet_r50_mdconv' and
+                                         i < n_backbone),
+                  f'{part} call {i}: a mask where none belongs, or none')
+            if mask is not None:
+                check(float(mask.std()) > 0, f'{part} call {i}: the DCNv2 '
+                      f'masks are all equal: the modulation goes unchecked')
+            got = deform_im2col(*args)
+            torch.cuda.synchronize()
+            want = deform_im2col_plain(*args)
+            err = float((got - want).abs().max())
+            limit = 1e-6 * float(x.float().abs().max())
+            counts = stats.setdefault(part, [0, 0, 0])
+            for j, v in enumerate(dcn_sample_stats(torch, args)):
+                counts[j] += v
+            log(f'dcn kernels: {kind} call {i} x {tuple(x.shape)} {x.dtype} '
+                f'stride {args[4]} mask {mask is not None}: max_abs_err='
+                f'{err:.3e} (limit 1e-6*max|x| = {limit:.3e})')
+            check(err <= limit, f'{kind}: deformable im2col kernel disagrees '
+                  f'with plain on call {i}')
+            worst = max(worst, err)
+            key = (kind, tuple(x.shape), args[4], mask is not None)
+            if key in shapes:
+                shapes[key][1] += 1
+            else:
+                shapes[key] = [args, 1, mods[i] if i < n_backbone else None]
+            del got, want
+        del det, net, calls
+        torch.cuda.empty_cache()
+    for part, (n, frac, out) in stats.items():
+        log(f'dcn kernels: {part} samples {n}: fractional bilinear weight '
+            f'{frac / n:.4f}, a corner outside its map {out / n:.4f}')
+        check(frac >= 0.5 * n, f'{part}: fewer than 50 % of the samples have '
+              f'a fractional bilinear weight')
+        check(out >= 0.01 * n, f'{part}: fewer than 1 % of the samples reach '
+              f'outside their map')
+
+    timed, totals = [], {}
+    for (kind, xshape, stride, has_mask), (args, count, mod) in \
+            shapes.items():
+        ms, call_ms, src, plain_ms = time_pair(
+            torch, lambda: deform_im2col(*args),
+            lambda: deform_im2col_plain(*args), ['deform_im2col_kernel'],
+            n=10)
+        cols = deform_im2col(*args)
+        library = grid_sample_im2col(torch, args)
+        # grid_sample's normalised grid rounds the positions: ~1e-4 relative
+        library_err = float((library() - cols).abs().max())
+        library_limit = 1e-3 * float(args[0].float().abs().max())
+        check(library_err <= library_limit, f'{kind} x {xshape}: '
+              f'F.grid_sample gives other columns ({library_err:.3e} > '
+              f'{library_limit:.3e}): not the same function')
+        library_ms = events_ms(torch, library, 10)
+        cin = xshape[1]  # conv2 and the head's dconvs keep their width
+        weight = torch.randn(cin, cols.shape[1], device=DEV)
+        gemm_ms = events_ms(torch, lambda: torch.matmul(weight, cols), 10)
+        # the float32 conv_offset convolution (cuDNN, TF32 off) that made
+        # the backbone calls' offsets and masks
+        with torch.no_grad():
+            offset_ms = events_ms(torch, lambda: mod.offsets(args[0]), 10) \
+                if mod is not None else 0.0
+        gemm_flop = 2.0 * cin * cols.numel()
+        nbytes, ops = dcn_cost(args)
+        bms, by = bound_of(nbytes, ops)
+        out_hw = tuple(args[1].shape[2:])
+        timed.append(dict(config=kind, x=list(xshape), out_hw=list(out_hw),
+                          stride=stride, mask=has_mask, calls=count, ms=ms,
+                          call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                          library_ms=library_ms,
+                          library_max_abs_err=library_err, gemm_ms=gemm_ms,
+                          gemm_tflops=gemm_flop / gemm_ms / 1e9,
+                          conv_offset_ms=offset_ms))
+        tot = totals.setdefault(kind, [0.0, 0.0, 0.0, 0.0])
+        tot[0] += count * ms
+        tot[1] += count * gemm_ms
+        tot[2] += count * gemm_flop
+        tot[3] += count * offset_ms
+        log(f'dcn kernels: {kind} x {xshape} -> {out_hw} stride {stride} '
+            f'mask {has_mask} (x{count} a request): {ms:.4f} ms device '
+            f'({src}), {call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, '
+            f'bound {bms:.4f} ms ({by}; {nbytes} bytes); F.grid_sample '
+            f'{library_ms:.4f} ms (max_abs_err {library_err:.3e}); GEMM '
+            f'{gemm_ms:.4f} ms ({gemm_flop / gemm_ms / 1e9:.1f} TFLOP/s '
+            f'float32); conv_offset {offset_ms:.4f} ms')
+        del cols, weight, library
+    for kind, (k_ms, g_ms, flop, o_ms) in totals.items():
+        log(f'dcn kernels: {kind} per request: im2col {k_ms:.3f} ms, GEMMs '
+            f'{g_ms:.3f} ms ({flop / 1e9:.1f} GFLOP), float32 conv_offset '
+            f'{o_ms:.3f} ms (events, call time)')
+    log('dcn kernels: library_ms is F.grid_sample (bilinear, zeros padding, '
+        'align_corners=False) on the float32 map and a grid prepared '
+        'beforehand, times the mask for DCNv2')
+    big = max(timed, key=lambda t: t['bound_bytes'])
+    row = dict(name='deform_im2col', route='cuda',
+               source='erd_tpu_torch/csrc/deform_conv.cu',
+               replaces='erd_tpu/ops/deform_conv.py:55',
+               max_abs_err=worst, ms=big['ms'], call_ms=big['call_ms'],
+               ms_from=big['ms_from'],
+               ms_at=f'{big["config"]} x {big["x"]} stride {big["stride"]}',
+               plain_ms=big['plain_ms'], bound_ms=big['bound_ms'],
+               bound_by=big['bound_by'], library_ms=big['library_ms'],
+               gemm_ms=big['gemm_ms'], shapes=timed,
+               per_request={k: {'im2col_ms': v[0], 'gemm_ms': v[1],
+                                'gemm_gflop': v[2] / 1e9,
+                                'conv_offset_ms': v[3]}
+                            for k, v in totals.items()},
+               sample_share={p: {'fractional': v[1] / v[0],
+                                 'outside': v[2] / v[0]}
+                             for p, v in stats.items()})
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def phase_dcn_reference(np, torch):
+    """Both float32 DCN networks (conv_offset arranged), card vs CPU, on one
+    small input: every head output within 1e-3 * max|out|."""
+    import copy
+
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.ops import arrange_offsets
+    img = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (1, 128, 192, 3), np.uint8))
+    for kind, path in DCN_CONFIGS.items():
+        cfg = Config.fromfile(path)
+        cfg.model.compute_dtype = 'float32'
+        det = build_detector(cfg.model)
+        net_cpu = det.init(seed=1, device='cpu')
+        arrange_offsets(net_cpu, DCN_ARRANGE_SEED)
+        net_dev = copy.deepcopy(net_cpu).to(DEV)
+        want = det.forward_raw(net_cpu, img)
+        got = det.forward_raw(net_dev, img.to(DEV))
+        worst = 0.0
+        for g_l, w_l in zip(got, want):
+            for g, w in zip(g_l, w_l):
+                check(tuple(g.shape) == tuple(w.shape),
+                      'reference shape mismatch')
+                worst = max(worst, float((g.cpu() - w).abs().max() /
+                                         w.abs().max()))
+        log(f'dcn reference: {kind} float32 card vs CPU, max |diff| / max '
+            f'|out| = {worst:.2e} (tolerance 1e-3)')
+        check(worst <= 1e-3, f'float32 {kind} on the card disagrees with the '
+              f'CPU')
+
+
+def phase_dcn_serve(np, torch, card):
+    """init_detector / inference_detector of both DCN configs on the 4
+    requests: the im2col launches per request, every detection finite and
+    inside its image, stage times, peak memory, the idle share of one
+    request, card-vs-CPU post-processing."""
+    from erd_tpu_torch.data import DetPipeline
+    from erd_tpu_torch.ops import deform_im2col, integral_decode, \
+        nms_sorted_keep
+
+    phase_dcn_reference(np, torch)
+    images = request_images(np)
+    counters = {'deform_im2col': deform_im2col, 'nms_keep': nms_sorted_keep,
+                'integral_decode': integral_decode}
+    launches = {k: 0 for k in counters}
+    by_config = {}
+    for kind, path in DCN_CONFIGS.items():
+        tag = f'dcn serve {kind}'
+        det, net = dcn_net(torch, path, kind)
+        gfl = kind == 'gfl_r101_dcn'
+        want = {'deform_im2col': DCN_CALLS[kind] * len(images),
+                'nms_keep': len(images),
+                'integral_decode': len(images) if gfl else 0}
+        results, counts = serve_requests(np, torch, det, net, images,
+                                         counters, want, tag, card)
+        for name, count in counts.items():
+            launches[name] += count
+        by_config[kind] = counts['deform_im2col']
+
+        pipe = DetPipeline()
+        for i, (img, res) in enumerate(zip(images, results)):
+            with torch.no_grad():
+                req = ServedRequest(np, torch, pipe, i, img)
+                feats = net.backbone(det.preprocessor(req.images))
+                req.mark()
+                feats = net.neck(feats)
+                req.mark()
+                outs = net.bbox_head(feats)
+                req.mark()
+                if gfl:
+                    ctx = det.anchor_context(req.images.shape[1:3])
+                    heads = outs
+                else:
+                    ctx = det.context(req.images.shape[1:3])
+                    heads = (outs[0], outs[2])  # classes, refined boxes
+                gpu = det.postprocess(ctx, *heads, req.meta_dev)
+                req.mark()
+            req.log_stages(tag, ('normalise + backbone', 'neck', 'head',
+                                 'post-processing'))
+            cpu = det.postprocess(ctx, *[[t.cpu() for t in lvl]
+                                         for lvl in heads], req.meta_cpu)
+            req.compare(tag, gpu, cpu, len(res.scores), min_candidates=1)
+            del feats, outs, heads
+        del det, net
+        torch.cuda.empty_cache()
+    launches['deform_im2col_by_config'] = by_config
+    return launches
 
 
 def main() -> int:
@@ -1859,9 +2139,12 @@ def main() -> int:
         detr_rows = phase_detr_kernels(np, torch)
         phase_detr_reference(np, torch)
         detr_launches = phase_detr_serve(np, torch, card)
+        dcn_rows = phase_dcn_kernels(np, torch)
+        dcn_launches = phase_dcn_serve(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
+            by_path['dcn serve'] = dcn_launches[row['name']]
             if row['name'] == 'nms_keep':
                 by_path['frcnn serve'] = frcnn_launches['nms_keep']
                 row['frcnn_ms_by_k'] = frcnn_nms
@@ -1880,7 +2163,12 @@ def main() -> int:
         for row in detr_rows:
             row['launches'] = detr_launches[row['name']]
             row['launches_by_path'] = {'detr serve': row['launches']}
-        kernels += train_rows + frcnn_rows + detr_rows
+        for row in dcn_rows:
+            by_config = dcn_launches['deform_im2col_by_config']
+            row['launches'] = dcn_launches['deform_im2col']
+            row['launches_by_path'] = {f'{k} serve': v
+                                       for k, v in by_config.items()}
+        kernels += train_rows + frcnn_rows + detr_rows + dcn_rows
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

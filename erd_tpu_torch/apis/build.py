@@ -1,6 +1,7 @@
 """Config dicts -> detectors and trainers; the counterpart of
-erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``FasterRCNN``,
-``DeformableDETR`` and ``DINO`` model types and SGD training."""
+erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
+``FasterRCNN``, ``DeformableDETR`` and ``DINO`` model types and SGD
+training."""
 from __future__ import annotations
 
 import torch
@@ -9,14 +10,17 @@ from ..config import Config
 from ..engine import Trainer, TrainerConfig
 from ..models import (DeformableDETRDetector, DINODetector, ERDConfig,
                       ERDDetector, FasterRCNNDetector, GFLDetector,
-                      GFLTestConfig, GFLTrainConfig)
+                      GFLTestConfig, GFLTrainConfig, VFNetDetector)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
-_PORTED = ('GFL', 'GFLIncrementERD', 'FasterRCNN', 'DeformableDETR', 'DINO')
+_PORTED = ('GFL', 'GFLIncrementERD', 'VFNet', 'FasterRCNN', 'DeformableDETR',
+           'DINO')
 # erd_tpu model options whose code paths the port does not have yet
-_NOT_PORTED = ('backbone', 'neck', 'dcn_stages', 'context_block_stages',
+_NOT_PORTED = ('backbone', 'neck', 'context_block_stages',
                'gen_attention_stages', 'head_norm', 'conv_ws', 'bbox_head',
                'loss_cls')
+# the model types whose port takes the backbone's DCN stages
+_DCN = ('GFL', 'GFLIncrementERD', 'VFNet')
 
 
 def build_detector(model_cfg: Config, num_devices: int = 1):
@@ -24,10 +28,20 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
     if mtype not in _PORTED:
         raise NotImplementedError(
             f'detector type {mtype!r} is not ported yet (ROADMAP.md, '
-            f'section 1, item 9: the zoo)')
+            f'section 1, item 11: the zoo)')
     for key in _NOT_PORTED:
         if model_cfg.get(key):
-            raise NotImplementedError(f'model.{key} is not ported yet')
+            raise NotImplementedError(
+                f'model.{key} is not ported yet (ROADMAP.md, section 1)')
+    dcn = {}
+    if model_cfg.get('dcn_stages'):
+        if mtype not in _DCN:
+            raise NotImplementedError(
+                f'model.dcn_stages of {mtype} is not ported yet (ROADMAP.md, '
+                f'section 1)')
+        # DCNv2 (modulated) unless the config asks for DCNv1
+        dcn = dict(dcn_stages=tuple(bool(s) for s in model_cfg.dcn_stages),
+                   dcn_modulated=bool(model_cfg.get('dcn_modulated', True)))
     test = model_cfg.get('test_cfg', {})
     if mtype in ('DeformableDETR', 'DINO'):  # serving only: loss raises
         cls = DINODetector if mtype == 'DINO' else DeformableDETRDetector
@@ -41,7 +55,8 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         score_thr=test.get('score_thr', 0.05),
         nms_pre=test.get('nms_pre', 1000),
         iou_threshold=test.get('nms_iou_threshold',
-                               0.5 if mtype == 'FasterRCNN' else 0.6),
+                               0.5 if mtype in ('FasterRCNN', 'VFNet')
+                               else 0.6),
         max_per_img=test.get('max_per_img', 100),
         min_bbox_size=test.get('min_bbox_size', 0.0),
         pre_nms_total=test.get('pre_nms_total', 2000),
@@ -58,11 +73,15 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         test_cfg=test_cfg)
     if mtype == 'FasterRCNN':  # serving only: loss raises (ROADMAP §1.1)
         return FasterRCNNDetector(**base)
+    if mtype == 'VFNet':  # serving only: loss raises; erd_tpu's VFNet
+        # takes no frozen_stages
+        base.pop('frozen_stages')
+        return VFNetDetector(**base, **dcn)
     common = dict(
         reg_max=model_cfg.get('reg_max', 16),
         train_cfg=GFLTrainConfig(
             assigner_topk=train.get('assigner_topk', 9)),
-        **base)
+        **base, **dcn)
     if mtype == 'GFL':
         return GFLDetector(**common)
     erd = model_cfg.get('erd', {})

@@ -1,8 +1,10 @@
 from .detectors import (DeformableDETRDetector, DETRNet, DINODetector,
                         ERDConfig, ERDDetector, FasterRCNNDetector,
-                        FasterRCNNNet, GFLDetector, GFLNet)
+                        FasterRCNNNet, GFLDetector, GFLNet, VFNetDetector,
+                        VFNetNet)
 from .heads import GFLTestConfig, GFLTrainConfig
 
 __all__ = ['DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
            'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
-           'GFLDetector', 'GFLNet', 'GFLTestConfig', 'GFLTrainConfig']
+           'GFLDetector', 'GFLNet', 'GFLTestConfig', 'GFLTrainConfig',
+           'VFNetDetector', 'VFNetNet']

@@ -3,7 +3,8 @@ from .dino import DINODetector
 from .faster_rcnn import FasterRCNNDetector, FasterRCNNNet
 from .gfl_erd import ERDConfig, ERDDetector
 from .single_stage import GFLDetector, GFLNet
+from .vfnet import VFNetDetector, VFNetNet
 
 __all__ = ['DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
            'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
-           'GFLDetector', 'GFLNet']
+           'GFLDetector', 'GFLNet', 'VFNetDetector', 'VFNetNet']

@@ -112,6 +112,7 @@ class ERDDetector(GFLDetector):
             num_classes=self.erd.ori_num_classes, depth=self.depth,
             reg_max=self.reg_max, compute_dtype=self.compute_dtype,
             frozen_stages=self.frozen_stages,
+            dcn_stages=self.dcn_stages, dcn_modulated=self.dcn_modulated,
             preprocessor=self.preprocessor,
             anchor_generator=self.anchor_generator,
             train_cfg=self.train_cfg, test_cfg=self.test_cfg)

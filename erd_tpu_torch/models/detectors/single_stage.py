@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ...ops.deform_conv import ModulatedDeformConv
 from ...task import AnchorGenerator
 from ...utils import resolve_device
 from ..backbones.resnet import ResNet
@@ -28,13 +29,18 @@ from ..preprocessor import Preprocessor
 
 
 class GFLNet(nn.Module):
-    """backbone -> neck -> bbox_head; module names are mmdet's."""
+    """backbone -> neck -> bbox_head; module names are mmdet's.
+    ``dcn_stages`` / ``dcn_modulated``: the backbone's deformable stages."""
 
     def __init__(self, num_classes: int, depth: int = 50,
                  neck_out: int = 256, stacked_convs: int = 4,
-                 reg_max: int = 16, frozen_stages: int = -1):
+                 reg_max: int = 16, frozen_stages: int = -1,
+                 dcn_stages=(False, False, False, False),
+                 dcn_modulated: bool = True):
         super().__init__()
-        self.backbone = ResNet(depth, frozen_stages=frozen_stages)
+        self.backbone = ResNet(depth, frozen_stages=frozen_stages,
+                               dcn_stages=dcn_stages,
+                               dcn_modulated=dcn_modulated)
         self.neck = FPN(in_channels=self.backbone.out_channels,
                         out_channels=neck_out, num_outs=5, start_level=1)
         self.bbox_head = GFLHeadNet(num_classes, in_channels=neck_out,
@@ -48,8 +54,9 @@ class GFLNet(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """Seeded random init: lecun-normal convs with zero bias, as
-        erd_tpu's flax defaults; the head's convs N(0, 0.01); the gfl_cls
-        bias at the 0.01 prior."""
+        erd_tpu's flax defaults; deformable convs as erd_tpu's (zero
+        ``conv_offset``, he-normal weight); the head's convs N(0, 0.01); the
+        gfl_cls bias at the 0.01 prior."""
         for m in self.modules():
             if isinstance(m, Conv2d):
                 fan_in = m.weight[0].numel()
@@ -58,6 +65,8 @@ class GFLNet(nn.Module):
                                fan_in ** -0.5)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, ModulatedDeformConv):
+                m.init_weights(generator)
         head = self.bbox_head
         for conv in [c.conv for c in list(head.cls_convs) +
                      list(head.reg_convs)] + [head.gfl_cls, head.gfl_reg]:
@@ -75,6 +84,9 @@ class GFLDetector:
     compute_dtype: torch.dtype = torch.float32
     # stem + layer1 frozen: the reference 1x recipe
     frozen_stages: int = 1
+    # deformable 3x3 per backbone stage; DCNv2 (modulated) or DCNv1
+    dcn_stages: Tuple[bool, ...] = (False, False, False, False)
+    dcn_modulated: bool = True
     preprocessor: Preprocessor = field(default_factory=Preprocessor)
     anchor_generator: AnchorGenerator = field(default_factory=AnchorGenerator)
     train_cfg: GFLTrainConfig = field(default_factory=GFLTrainConfig)
@@ -95,7 +107,9 @@ class GFLDetector:
 
     def build_net(self) -> GFLNet:
         return GFLNet(self.num_classes, depth=self.depth,
-                      reg_max=self.reg_max, frozen_stages=self.frozen_stages)
+                      reg_max=self.reg_max, frozen_stages=self.frozen_stages,
+                      dcn_stages=tuple(self.dcn_stages),
+                      dcn_modulated=self.dcn_modulated)
 
     def init(self, seed: int = 0, device=None) -> GFLNet:
         """A seeded random network on ``device`` (``cuda`` unless the

@@ -7,6 +7,8 @@ from .gfl_head import (AnchorContext, GFLHeadNet, GFLTargets, GFLTestConfig,
                        gfl_targets)
 from .rpn_head import (ProposalConfig, RPNHeadNet, rpn_anchor_generator,
                        rpn_proposals)
+from .vfnet_head import (VFNetContext, VFNetHeadNet, decode_levels,
+                         star_offsets, vfnet_predict)
 
 __all__ = ['AnchorContext', 'DINOHead', 'DeformableDETRHead',
            'DeformableEncoderHead', 'GFLHeadNet', 'GFLTargets',
@@ -14,4 +16,5 @@ __all__ = ['AnchorContext', 'DINOHead', 'DeformableDETRHead',
            'arrange_sampling', 'flatten_levels', 'gfl_loss', 'gfl_predict',
            'gfl_targets', 'ProposalConfig', 'RPNHeadNet',
            'Shared2FCBBoxHead', 'rcnn_predict', 'rpn_anchor_generator',
-           'rpn_proposals']
+           'rpn_proposals', 'VFNetContext', 'VFNetHeadNet', 'decode_levels',
+           'star_offsets', 'vfnet_predict']

@@ -1,12 +1,13 @@
-"""Weight import into the port's GFL, Faster R-CNN and DETR-family
+"""Weight import into the port's GFL, VFNet, Faster R-CNN and DETR-family
 networks; the counterpart of erd_tpu/models/weight_import.py.
 
-The port's GFL and Faster R-CNN modules carry the mmdet state-dict names,
-so an mmdet checkpoint loads with a plain ``load_state_dict``, and the
-port's GFL ``state_dict`` reads back into erd_tpu with its
-``load_mmdet_state_dict``. erd_tpu's Deformable DETR and DINO are not
-mmdet's architecture (no sine positional encoding, one shared ``fc_cls``,
-...): their port keeps erd_tpu's scope names and loads no mmdet file.
+The port's GFL, VFNet and Faster R-CNN modules carry the mmdet state-dict
+names, so an mmdet checkpoint loads with a plain ``load_state_dict`` (not a
+DCNv2 one: see ``load_torch_checkpoint_file``), and the port's GFL
+``state_dict`` reads back into erd_tpu with its ``load_mmdet_state_dict``.
+erd_tpu's Deformable DETR and DINO are not mmdet's architecture (no sine
+positional encoding, one shared ``fc_cls``, ...): their port keeps
+erd_tpu's scope names and loads no mmdet file.
 ``params_from_jax`` converts erd_tpu's variables (as nested numpy dicts)
 into the port's ``state_dict``; ``widen_cls_head`` starts an ERD student
 from its teacher's ``state_dict``.
@@ -35,10 +36,11 @@ def _backbone_module(mod: Tuple[str, ...]) -> str:
     if mod == ('stem_bn',):
         return 'backbone.bn1'
     m = re.fullmatch(r'layer(\d)_block(\d+)', mod[0])
-    if m is None or len(mod) != 2:
+    dcn_offset = mod[1:] == ('conv2', 'conv_offset')
+    if m is None or not (len(mod) == 2 or dcn_offset):
         raise KeyError(f'unmapped backbone module {"/".join(mod)}')
     sub = {'downsample_conv': 'downsample.0',
-           'downsample_bn': 'downsample.1'}.get(mod[1], mod[1])
+           'downsample_bn': 'downsample.1'}.get(mod[1], '.'.join(mod[1:]))
     return f'backbone.layer{m.group(1)}.{m.group(2)}.{sub}'
 
 
@@ -66,6 +68,24 @@ def _head_module(mod: Tuple[str, ...]) -> str:
     if m:
         return f'bbox_head.scales.{m.group(1)}'
     raise KeyError(f'unmapped head module {"/".join(mod)}')
+
+
+def _vfnet_head_module(mod: Tuple[str, ...], leaf: str) -> str:
+    """VFNet head scopes -> mmdet's names; the two deformable kernels are
+    bare parameters of the head (module path ())."""
+    if not mod:
+        m = re.fullmatch(r'(reg_refine|cls)_dconv_kernel', leaf)
+        if m:
+            return f'bbox_head.vfnet_{m.group(1)}_dconv'
+    elif mod[0] in ('vfnet_reg_conv', 'vfnet_reg', 'vfnet_reg_refine',
+                    'vfnet_cls'):
+        return '.'.join(('bbox_head',) + mod)
+    else:
+        m = re.fullmatch(r'scale(_refine)?_(\d+)', mod[0])
+        if m:
+            return f'bbox_head.scales{m.group(1) or ""}.{m.group(2)}'
+        return _head_module(mod)
+    raise KeyError(f'unmapped head parameter {"/".join(mod + (leaf,))}')
 
 
 def _rcnn_module(scope: str, mod: Tuple[str, ...]) -> str:
@@ -116,15 +136,16 @@ def _shared_fc0_rows(kernel: np.ndarray, roi_size: int = 7) -> np.ndarray:
 def _leaf(leaf: str, module: str, collection: str) -> str:
     if collection == 'batch_stats':
         return {'mean': 'running_mean', 'var': 'running_var'}[leaf]
-    if leaf in ('kernel', 'embedding'):
+    if leaf in ('kernel', 'embedding') or leaf.endswith('_dconv_kernel'):
         return 'weight'
     if leaf == 'scale':  # norm gamma, or the per-level Scale parameter
-        return 'scale' if '.scales.' in module else 'weight'
+        return 'scale' if re.search(r'\.scales(_refine)?\.', module) \
+            else 'weight'
     return leaf
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """erd_tpu GFL, Faster R-CNN, Deformable DETR or DINO variables
+    """erd_tpu GFL, VFNet, Faster R-CNN, Deformable DETR or DINO variables
     {'params', 'batch_stats'} (nested numpy dicts) -> the port's network's
     ``state_dict``.
 
@@ -135,8 +156,10 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``running_mean``/``running_var``. In the DETR heads, module paths are
     erd_tpu's scopes, DenseGeneral kernels are flattened over their
     (heads, hd) axes, and the level and query embeddings keep their names.
-    The weights go one way: erd_tpu has no importer of Faster R-CNN or
-    DETR state dicts.
+    A deformable conv's ``conv_offset`` keeps erd_tpu's channel order, and
+    VFNet's bare ``*_dconv_kernel`` parameters become the weights of
+    ``vfnet_*_dconv``. The weights go one way: erd_tpu has no importer of
+    Faster R-CNN, VFNet or DETR state dicts.
     """
     params = variables['params']
     neck = params.get('neck', {})
@@ -145,6 +168,7 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                        if k.startswith('lateral_')), default=0)
     two_stage = 'rpn_head' in params
     detr = 'level_embed_0' in params.get('bbox_head', {})
+    vfnet = 'vfnet_cls' in params.get('bbox_head', {})
     out = {}
     for collection in ('params', 'batch_stats'):
         for path, value in _flatten(variables.get(collection, {})):
@@ -165,11 +189,13 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 module = _neck_module(mod, n_fpn, start_level)
             elif two_stage and scope in ('rpn_head', 'bbox_head'):
                 module = _rcnn_module(scope, mod)
+            elif vfnet and scope == 'bbox_head':
+                module = _vfnet_head_module(mod, leaf)
             elif scope == 'bbox_head':
                 module = _head_module(mod)
             else:
                 raise KeyError(f'unmapped scope {"/".join(path)}')
-            if leaf == 'kernel' and v.ndim == 4:
+            if v.ndim == 4:  # conv kernels, the bare dconv ones too
                 v = np.transpose(v, (3, 2, 0, 1))
             elif leaf == 'kernel' and module.endswith('shared_fcs.0'):
                 v = _shared_fc0_rows(v)
@@ -181,9 +207,10 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_torch_checkpoint_file(net: nn.Module, path: str):
-    """Load an mmdet ``.pth`` into ``net`` (GFL or Faster R-CNN) in place;
-    raises for the DETR family, whose port follows erd_tpu's architecture
-    and not mmdet's.
+    """Load an mmdet ``.pth`` into ``net`` (GFL, VFNet or Faster R-CNN) in
+    place; raises for the DETR family, whose port follows erd_tpu's
+    architecture and not mmdet's, and for a network with modulated
+    deformable convs (DCNv2), whose ``conv_offset`` layout is not mmcv's.
 
     The file is unpickled (``weights_only=False``, as mmdet checkpoints
     carry metadata objects): load only trusted checkpoints. ``module.``
@@ -196,6 +223,16 @@ def load_torch_checkpoint_file(net: nn.Module, path: str):
             "erd_tpu's Deformable DETR and DINO are not mmdet's architecture "
             '(no sine positional encoding, one shared fc_cls, no padding '
             'mask): no mmdet checkpoint loads into them; use params_from_jax')
+    from ..ops.deform_conv import ModulatedDeformConv
+    if any(isinstance(m, ModulatedDeformConv) and m.modulated
+           for m in net.modules()):
+        raise NotImplementedError(
+            "modulated deformable convs (DCNv2) do not load from an mmdet "
+            "checkpoint: mmcv's ModulatedDeformConv2dPack orders conv_offset's"
+            " output channels as [all (dy, dx) pairs | all masks], while "
+            "erd_tpu, and the port after it, interleave (dy, dx, mask) per "
+            "kernel point, and erd_tpu's importer has no conv_offset mapping "
+            "(ROADMAP.md, section 3); use params_from_jax")
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
     state = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
     state = {(k[7:] if k.startswith('module.') else k): v

@@ -1,3 +1,6 @@
+from .deform_conv import (DeformConv2d, ModulatedDeformConv,
+                          arrange_offsets, deform_conv2d, deform_im2col,
+                          deform_im2col_plain)
 from .integral import integral, integral_decode, integral_decode_plain
 from .misc import (cap_candidates, filter_scores_and_topk, masked_mean_std,
                    topk_mask_select)
@@ -9,7 +12,9 @@ from .ms_deform_attn import (make_level_start_index, ms_deform_attn,
 from .roi_align import (map_roi_levels, multilevel_roi_align, roi_align,
                         roi_align_level, roi_align_plain)
 
-__all__ = ['integral', 'integral_decode', 'integral_decode_plain',
+__all__ = ['DeformConv2d', 'ModulatedDeformConv', 'arrange_offsets',
+           'deform_conv2d', 'deform_im2col', 'deform_im2col_plain',
+           'integral', 'integral_decode', 'integral_decode_plain',
            'cap_candidates', 'filter_scores_and_topk', 'masked_mean_std',
            'topk_mask_select', 'batched_nms_mask',
            'nms_mask', 'nms_select', 'nms_select_cfg', 'nms_sorted_keep',

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from erd_tpu_torch.apis import inference_detector, init_detector
+from erd_tpu_torch.apis import (build_detector, inference_detector,
+                                init_detector)
 from erd_tpu_torch.config import Config
 from erd_tpu_torch.data import DetPipeline, ImageRecord
 from erd_tpu_torch.models.heads import arrange_sampling
 from erd_tpu_torch.models.heads.gfl_head import AnchorContext, gfl_targets
-from erd_tpu_torch.ops import (integral_decode, integral_decode_plain,
+from erd_tpu_torch.ops import (arrange_offsets, deform_im2col,
+                               deform_im2col_plain, integral_decode,
+                               integral_decode_plain,
                                map_roi_levels, ms_deform_attn,
                                ms_deform_attn_plain, nms_sorted_keep,
                                nms_sorted_keep_plain, roi_align,
@@ -36,6 +39,9 @@ pytestmark = pytest.mark.cuda
 ERD_CFG = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     'configs/gfl_increment/gfl_r50_fpn_1x_coco_first_40_incre_last_40_cats.py')
+VFNET_CFG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    'configs/vfnet/vfnet_r50_mdconv_c3_c5_fpn_ms2x_coco.py')
 
 
 @pytest.fixture
@@ -468,3 +474,92 @@ def test_dino_serving_on_cuda_uses_kernel(cuda):
     for g, w in zip((memory,) + got, (mem_cpu,) + want):
         torch.testing.assert_close(g.cpu(), w, rtol=0,
                                    atol=1e-3 * float(w.abs().max()))
+
+
+def dcn_case(rs, cuda, dtype, b, cin, h, w, dg, stride, scale, border):
+    """A map, offsets (scaled normal, or aimed exactly at rows / columns
+    -1, 0, H-1 and H with ``border``) and masks for deform_im2col."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.from_numpy(rs.randn(b, cin, h, w).astype(np.float32))
+    off = rs.randn(b, dg, 9, 2, ho, wo) * scale
+    if border:
+        ky, kx = np.divmod(np.arange(9), 3)
+        oy = np.arange(ho)[:, None] * stride - 1 + ky[:, None, None]
+        ox = np.arange(wo)[None, :] * stride - 1 + kx[:, None, None]
+        ty = rs.choice([-1, 0, h - 1, h], (b, dg, 9, ho, wo))
+        tx = rs.choice([-1, 0, w - 1, w], (b, dg, 9, ho, wo))
+        off = np.stack([ty - oy, tx - ox], 3)
+    offset = torch.from_numpy(off.reshape(b, -1, ho, wo).astype(np.float32))
+    mask = torch.from_numpy(rs.rand(b, dg * 9, ho, wo).astype(np.float32))
+    return x.to(cuda).to(dtype), offset.to(cuda), mask.to(cuda)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('dg,stride,use_mask,border', [
+    (1, 1, True, False), (1, 2, False, False), (2, 1, False, False),
+    (2, 2, True, False), (1, 1, True, True), (2, 2, False, True)])
+def test_deform_im2col_kernel_matches_plain(cuda, dtype, dg, stride,
+                                            use_mask, border):
+    """The kernel against its plain version on a layer4-sized map (Cin 128,
+    25 x 42), with fractional or border-exact offsets: within 1e-6 * max|x|
+    (the same arithmetic, each op rounded alike: 0.0 expected)."""
+    rs = np.random.RandomState(dg * 100 + stride * 10 + int(border))
+    x, offset, mask = dcn_case(rs, cuda, dtype, 2, 128, 25, 42, dg, stride,
+                               2.5, border)
+    mask = mask if use_mask else None
+    args = (x, offset, mask, 3, stride, 1, 1, dg)
+    before = deform_im2col.launches
+    got = deform_im2col(*args)
+    torch.cuda.synchronize()
+    assert deform_im2col.launches == before + 1
+    want = deform_im2col_plain(*args)
+    assert got.shape == want.shape == (2, 128 * 9, offset.shape[2] *
+                                       offset.shape[3])
+    assert float((got - want).abs().max()) <= \
+        1e-6 * float(x.float().abs().max())
+
+
+def test_deform_im2col_never_reaches_plain_on_cuda(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel or raises; the plain version is
+    never called for it."""
+    import erd_tpu_torch.ops.deform_conv as dcn_module
+
+    def refuse(*args):
+        raise AssertionError('the plain version ran on a CUDA tensor')
+    monkeypatch.setattr(dcn_module, 'deform_im2col_plain', refuse)
+    x, offset, mask = dcn_case(np.random.RandomState(0), cuda,
+                               torch.float32, 1, 16, 9, 10, 1, 1, 1.0, False)
+    dcn_module.deform_im2col(x, offset, mask, 3, 1, 1, 1, 1)
+    with pytest.raises(ValueError, match='contiguous'):
+        dcn_module.deform_im2col(x.transpose(2, 3), offset, None, 3, 1, 1, 1,
+                                 1)
+
+
+def test_dcn_serving_on_cuda_uses_kernel(cuda):
+    """bf16 VFNet R50 with DCNv2 C3-C5 (the mdconv config) at a small canvas
+    on the card, conv_offset arranged: 13 backbone and 10 head launches per
+    request; the float32 network on the card agrees with the CPU's within
+    1e-3 * max|out|."""
+    cfg = Config.fromfile(VFNET_CFG)
+    det, net, _ = init_detector(cfg, device=cuda)
+    arrange_offsets(net, seed=0)
+    with torch.no_grad():
+        net.bbox_head.vfnet_cls.bias.zero_()
+    img = np.random.RandomState(1).randint(0, 256, (256, 320, 3), np.uint8)
+    before = deform_im2col.launches
+    res = inference_detector(det, net, img, scale=(320, 256))
+    assert deform_im2col.launches - before == 23
+    assert 0 < len(res.scores) <= 100 and np.isfinite(res.bboxes).all()
+
+    cfg.model.compute_dtype = 'float32'
+    det32 = build_detector(cfg.model)
+    net_cpu = det32.init(seed=2, device='cpu')
+    arrange_offsets(net_cpu, seed=0)
+    net_dev = copy.deepcopy(net_cpu).to(cuda)
+    images = torch.from_numpy(img[None])
+    want = det32.forward_raw(net_cpu, images)
+    got = det32.forward_raw(net_dev, images.to(cuda))
+    for g_l, w_l in zip(got, want):
+        for g, w in zip(g_l, w_l):
+            torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                       atol=1e-3 * float(w.abs().max()))

@@ -523,5 +523,5 @@ def test_faster_rcnn_loss_and_other_two_stage_types_raise(frcnn):
     with pytest.raises(NotImplementedError, match='ROADMAP.md, section 1'):
         det.loss(net, {})
     for mtype in ('MaskRCNN', 'CascadeRCNN'):
-        with pytest.raises(NotImplementedError, match='item 9'):
+        with pytest.raises(NotImplementedError, match='item 11'):
             build_detector(Config(type=mtype))
