@@ -6,8 +6,13 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases, in order; any failed check exits non-zero before the last line:
-  1. card       the nvidia-smi name and power-limit line;
+  1. card       the nvidia-smi name and power-limit line, and torch's default
+                float32 precision settings, which the script leaves as they
+                are;
   2. build      nvcc builds every kernel of erd_tpu_torch/csrc/, in parallel;
+     tf32       in those defaults, the port's float32 conv_offset on a GFL
+                R101-DCN layer3 input (256 x 50 x 84) card vs CPU within
+                1e-5 * max|out|; the same conv forced into TF32 must miss it;
   3. kernels    each serving kernel against its plain PyTorch version on the
                 card at serving shapes (NMS keep masks exactly equal; the
                 decode within 1e-4 * stride + 1e-5 * |box| px), then timed;
@@ -27,7 +32,10 @@ Phases, in order; any failed check exits non-zero before the last line:
                 B = 16;
   7. train reference  the full-width float32 ERD loss dict and student
                 gradients on the card (kernels) and on the CPU (plain
-                versions), on a small input; then two controls, a 1 % error
+                versions), on a small input; the same gradients in float64
+                on the card (with the loss's kernels, and with their plain
+                versions), against which the worst tensors of each float32
+                side are logged (no gate); then two controls, a 1 % error
                 planted in the GFL or the distillation kernel's backward,
                 each of which must fail the same limits;
   8. train      build_trainer + fit of the ERD stage-2 GFL-R50 step (bf16,
@@ -89,11 +97,34 @@ Phases, in order; any failed check exits non-zero before the last line:
                 and inside its image; stage times (backbone, neck, head,
                 post-processing), peak memory, the idle share of one
                 request; card-vs-CPU post-processing;
- 17. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 17. carafe kernels  one 800x1333 request of FPN-CARAFE Faster R-CNN R50 (80
+                classes, bf16, content encoders arranged by arrange_carafe)
+                with its 3 CARAFE calls captured (25x42, 50x84 and 100x168,
+                256 channels): the mean largest tap weight >= 0.2 and the
+                four sub-pixel kernels of a source pixel different; the
+                kernel within one bf16 ulp of its plain version, and within
+                1e-5 * max|x| on the float32 map; each call shape timed;
+ 18. set-NMS kernels  the set-NMS call of one CrowdDet R50 request (1 class,
+                K = 2000, all valid): the keep mask exactly the plain
+                version's and not the row-1 NMS's on the same boxes; timed;
+ 19. soft-NMS large K  K = 12000 candidates, above one block's shared memory
+                (the device-memory variant), 100 steps: linear bit-exact,
+                gaussian within 1e-6 relative; timed;
+ 20. carafe/crowddet reference  both float32 networks card vs CPU on a small
+                input, within 1e-3 * max|out|;
+ 21. carafe serve, crowddet serve  init_detector / inference_detector on the
+                same 4 requests: per request 3 CARAFE, 2 NMS and 1 RoIAlign
+                launches (FPN-CARAFE, fc_cls seeded), or 1 NMS, 1 set-NMS and
+                1 RoIAlign (CrowdDet); every detection finite and inside its
+                image, 2000 candidates into the final NMS, stage times (the
+                neck apart), peak memory, the idle share of one request,
+                card-vs-CPU post-processing;
+ 22. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
-TF32 is off for both cuDNN and matmuls: the served and trained models
-compute in bf16, and the float32 references compare full-precision float32
-on both devices. The script imports neither JAX nor erd_tpu.
+The script sets no global precision flag: the port convolves float32 in
+full float32 itself (erd_tpu_torch.utils.conv_fp32_precision), torch's
+float32 matmuls default to full float32, and the served and trained models
+compute in bf16. The script imports neither JAX nor erd_tpu.
 """
 from __future__ import annotations
 
@@ -132,6 +163,14 @@ DCN_CALLS = {'gfl_r101_dcn': 30, 'vfnet_r50_mdconv': 23}
 # seed of the DCN cells' conv_offset weights (arrange_offsets): erd_tpu's
 # zero init would sample integer pixels only, with mask 0.5
 DCN_ARRANGE_SEED = 13
+CARAFE_CONFIGS = {
+    'carafe': os.path.join(ROOT, 'configs', 'carafe',
+                           'faster_rcnn_r50_fpn_carafe_1x_coco.py'),
+    'crowddet': os.path.join(ROOT, 'configs', 'crowddet',
+                             'crowddet-rcnn_r50_fpn_8xb2-30e_crowdhuman.py')}
+# seed of the FPN_CARAFE cell's content encoders (arrange_carafe): erd_tpu's
+# N(0, 0.001) init weights every tap ~1/25
+CARAFE_ARRANGE_SEED = 17
 # seeded fc_cls of the Faster R-CNN serve cell (see arrange_fc_cls): about
 # five classes of each RoI pass score_thr, so that the NMS sees 2000
 FC_CLS_SEED, FC_CLS_STD, FC_CLS_BOOSTED, FC_CLS_BOOST = 7, 0.5, 8, 2.5
@@ -899,14 +938,14 @@ def phase_train_reference(np, torch):
     parts = {'supervised': ('loss_cls', 'loss_bbox', 'loss_dfl'),
              'distillation': ('loss_dist_cls', 'loss_dist_bbox')}
 
-    def run(dev):
+    def run(dev, d=det, dtype=torch.float32):
         """Loss dict and, per part of the loss, the student's gradients."""
-        s = copy.deepcopy(student).to(dev)
-        t = copy.deepcopy(teacher).to(dev)
+        s = copy.deepcopy(student).to(dev, dtype)
+        t = copy.deepcopy(teacher).to(dev, dtype)
         batch = dict(images=images.to(dev), meta=stack_to(
             [ImageMeta.make((h, w), (h, w), (1.0, 1.0))] * 2, dev),
             gt=type(gt)(**{k: v.to(dev) for k, v in vars(gt).items()}))
-        losses = det.loss(s, batch, teacher=t)
+        losses = d.loss(s, batch, teacher=t)
         params = dict(s.named_parameters())
         grads = {}
         for i, (part, keys) in enumerate(parts.items()):
@@ -914,7 +953,8 @@ def phase_train_reference(np, torch):
                 sum(losses[k] for k in keys), [params[k] for k in names],
                 retain_graph=i + 1 < len(parts), allow_unused=True)
             grads[part] = {k: (torch.zeros_like(params[k]) if g is None
-                               else g).cpu() for k, g in zip(names, gs)}
+                               else g).double().cpu()
+                           for k, g in zip(names, gs)}
         return ({k: float(v.detach()) for k, v in losses.items()}, grads)
 
     def ratio(a, b, keys):
@@ -961,6 +1001,8 @@ def phase_train_reference(np, torch):
     check(all(np.isfinite(v) and v <= lim for _, v, lim in metrics),
           'the ERD loss or the student gradients on the card disagree with '
           'the CPU')
+    grad_bisect(torch, det, run, ratio, names, parts, per_tensor, g_gpu,
+                total_cpu)
 
     class PlantedError(torch.autograd.Function):
         """Identity forward; the backward scales the gradient by 1.01."""
@@ -989,6 +1031,81 @@ def phase_train_reference(np, torch):
         log(f'train reference: control, {name} backward x 1.01: '
             f'{describe(metrics)}; over the limit: {tripped}')
         check(tripped, f'the gate passes a 1 % error in the {name} backward')
+
+
+def plain_stand_ins(torch):
+    """Context: the ERD loss's kernel wrappers replaced by their plain
+    versions where the loss looks them up (on CUDA tensors too)."""
+    import contextlib
+    import importlib
+    swaps = [('erd_tpu_torch.models.heads.gfl_head', 'atss_assign',
+              'erd_tpu_torch.task.atss', 'atss_assign_plain'),
+             ('erd_tpu_torch.models.heads.gfl_head', 'fused_gfl_loss',
+              'erd_tpu_torch.ops.gfl_loss', 'gfl_loss_plain'),
+             ('erd_tpu_torch.models.detectors.gfl_erd', 'integral_decode',
+              'erd_tpu_torch.ops.integral', 'integral_decode_plain'),
+             ('erd_tpu_torch.models.detectors.gfl_erd', 'ers_select',
+              'erd_tpu_torch.ops.ers_select', 'ers_select_plain'),
+             ('erd_tpu_torch.models.detectors.gfl_erd', 'fused_erd_distill',
+              'erd_tpu_torch.ops.erd_distill', 'erd_distill_plain'),
+             ('erd_tpu_torch.ops.nms', 'nms_sorted_keep',
+              'erd_tpu_torch.ops.nms', 'nms_sorted_keep_plain')]
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = []
+        try:
+            for mod, name, pmod, pname in swaps:
+                m = importlib.import_module(mod)
+                saved.append((m, name, getattr(m, name)))
+                setattr(m, name, getattr(importlib.import_module(pmod),
+                                         pname))
+            yield
+        finally:
+            for m, name, fn in saved:
+                setattr(m, name, fn)
+    return ctx()
+
+
+def grad_bisect(torch, det, run, ratio, names, parts, per_tensor, g_gpu,
+                total_cpu):
+    """ROADMAP section 3.2: the student gradients of the train reference in
+    float64 on the card (network, FPN and head in float64; the ERD loss on
+    their outputs rounded to float32, as the port casts them), once with
+    the loss's kernels and once with their plain versions. For the tensors
+    where card and CPU float32 differ most, and for backbone.layer3.1, which
+    float32 side is nearer float64. Informational: no gate."""
+    import dataclasses
+    det64 = dataclasses.replace(det, compute_dtype=torch.float64)
+    l64, g64 = run(DEV, det64, torch.float64)
+    with plain_stand_ins(torch):
+        l64p, g64p = run(DEV, det64, torch.float64)
+    log(f'train bisect: float64 ERD loss card, kernels {l64}')
+    log(f'train bisect: float64 ERD loss card, plain   {l64p}')
+
+    def total(g):
+        return {k: sum(g[p][k] for p in parts) for k in names}
+    t_gpu, t64, t64p = total(g_gpu), total(g64), total(g64p)
+    keys = [k for _, _, k in per_tensor[:6]]
+    keys += [k for k in names if k.startswith('backbone.layer3.1.') and
+             k not in keys]
+    log(f'train bisect: whole gradient ||x - f64|| / ||f64||: card f32 '
+        f'{ratio(t_gpu, t64, names):.2e}, CPU f32 '
+        f'{ratio(total_cpu, t64, names):.2e}; f64 kernels vs f64 plain '
+        f'{ratio(t64p, t64, names):.2e}; card f32 vs CPU f32 '
+        f'{ratio(t_gpu, total_cpu, names):.2e}')
+    rows = []
+    for k in keys:
+        card, cpu = ratio(t_gpu, t64, [k]), ratio(total_cpu, t64, [k])
+        rows.append(dict(tensor=k, card_f32_vs_f64=card, cpu_f32_vs_f64=cpu,
+                         card_vs_cpu=ratio(t_gpu, total_cpu, [k]),
+                         f64_kernels_vs_plain=ratio(t64p, t64, [k])))
+        log(f'train bisect:   {k}: card f32 vs f64 {card:.2e}, CPU f32 vs '
+            f'f64 {cpu:.2e}, card vs CPU {rows[-1]["card_vs_cpu"]:.2e}, '
+            f'f64 kernels vs plain {rows[-1]["f64_kernels_vs_plain"]:.2e}; '
+            f'nearer: {"card" if card < cpu else "CPU"} by '
+            f'{max(card, cpu) / max(min(card, cpu), 1e-30):.1f}x')
+    return rows
 
 
 class SyntheticLoader:
@@ -2090,6 +2207,401 @@ def phase_dcn_serve(np, torch, card):
     return launches
 
 
+def tf32_settings(torch):
+    """torch's float32 precision settings that reach cuDNN and cuBLAS."""
+    cudnn = torch.backends.cudnn
+    conv = getattr(cudnn, 'conv', None)
+    return dict(cudnn_allow_tf32=cudnn.allow_tf32,
+                cudnn_conv_fp32_precision=getattr(conv, 'fp32_precision',
+                                                  'absent'),
+                matmul_precision=torch.get_float32_matmul_precision(),
+                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
+def phase_tf32(np, torch):
+    """In torch's default settings (cuDNN may convolve float32 in TF32),
+    the port's ModulatedDeformConv.offsets on a GFL R101-DCN layer3 input
+    (256 x 50 x 84) agrees with the CPU within 1e-5 * max|out|, and a
+    float32 Conv2d's input and weight gradients on it within 1e-5 and
+    1e-4 * max|grad| (the weight gradient sums 4200 pixels, in another
+    order on each side); the same convolution forced into TF32 (the
+    controls) must miss each of those limits; the settings are the same
+    before and after."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from erd_tpu_torch.ops import ModulatedDeformConv
+    from erd_tpu_torch.utils import conv_fp32_precision
+    gen = torch.Generator().manual_seed(0)
+    m = ModulatedDeformConv(256, 256, modulated=False)
+    with torch.no_grad():  # lecun-normal offsets: the conv, not its bias
+        m.conv_offset.weight.copy_(torch.randn(
+            m.conv_offset.weight.shape, generator=gen) / 48.0)
+        m.conv_offset.bias.zero_()
+    x = torch.randn(1, 256, 50, 84, generator=gen)
+    before = tf32_settings(torch)
+    with torch.no_grad():
+        want, _ = m.offsets(x)
+        m = m.to(DEV)
+        got, _ = m.offsets(x.to(DEV))
+        c = m.conv_offset
+        with conv_fp32_precision('tf32'):
+            tf32 = F.conv2d(x.to(DEV), c.weight, c.bias, 1, 1)
+    torch.cuda.synchronize()
+    limit = 1e-5 * float(want.abs().max())
+    err = float((got.cpu() - want).abs().max())
+    tf32_err = float((tf32.cpu() - want).abs().max())
+    log(f'tf32: offsets card vs CPU in torch defaults max_abs_err={err:.3e}, '
+        f'the raw conv in TF32 (control) {tf32_err:.3e}; limit 1e-5*max|out| '
+        f'= {limit:.3e}; settings after {tf32_settings(torch)}')
+    check(err <= limit, 'the float32 conv_offset on the card misses 1e-5 * '
+          'max|out|: TF32 reaches the port')
+    check(tf32_err > limit, 'TF32 control passed the limit: the check cannot '
+          'see TF32')
+    check(tf32_settings(torch) == before, 'the precision settings changed')
+
+    # the backward: a float32 layers.Conv2d's input and weight gradients
+    from erd_tpu_torch.models.layers import Conv2d
+    conv = Conv2d(256, 256, 3)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) / 48)
+    r = torch.randn(1, 256, 50, 84, generator=gen)
+
+    def grads(dev, tf32=False):
+        """The port's Conv2d in torch's defaults, or the raw conv, forward
+        and backward, in TF32."""
+        c = copy.deepcopy(conv).to(dev)
+        xd = x.to(dev).detach().requires_grad_(True)
+        if tf32:
+            with conv_fp32_precision('tf32'):
+                out = F.conv2d(xd, c.weight, c.bias, 1, 1)
+                (out * r.to(dev)).sum().backward()
+        else:
+            (c(xd) * r.to(dev)).sum().backward()
+        return [xd.grad.cpu(), c.weight.grad.cpu()]
+    want_g = grads('cpu')
+    rel = [float((g - w).abs().max() / w.abs().max())
+           for g, w in zip(grads(DEV), want_g)]
+    rel_tf32 = [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(grads(DEV, tf32=True), want_g)]
+    torch.cuda.synchronize()
+    limits = (1e-5, 1e-4)
+    log(f'tf32: a float32 Conv2d backward card vs CPU, max|diff| / max|grad| '
+        f'of the input and weight gradients {rel[0]:.2e} {rel[1]:.2e}; in '
+        f'TF32 (control) {rel_tf32[0]:.2e} {rel_tf32[1]:.2e}; limits '
+        f'{limits[0]:.0e} {limits[1]:.0e}')
+    check(all(e <= lim for e, lim in zip(rel, limits)), 'the float32 conv '
+          'backward on the card misses its limits: TF32 reaches the port\'s '
+          'gradients')
+    check(all(e > lim for e, lim in zip(rel_tf32, limits)),
+          'TF32 backward control passed a limit')
+    return dict(max_abs_err=err, tf32_control_err=tf32_err, limit=limit,
+                backward_rel_err=max(rel), backward_tf32_rel_err=max(rel_tf32))
+
+
+def bf16_ulps(torch, a, b):
+    """Elementwise distance of two bf16 tensors in bf16 ulps."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7fff), i)
+    return (key(a) - key(b)).abs()
+
+
+def carafe_net(np, torch, kind):
+    """init_detector of the CARAFE or CrowdDet config on the card; the
+    CARAFE net with arranged content encoders and seeded fc_cls weights
+    (at least 2000 candidates into the final NMS)."""
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.ops import arrange_carafe
+    det, net, _ = init_detector(CARAFE_CONFIGS[kind], device=DEV)
+    want = {'carafe': ('FasterRCNNDetector', 'FPNCARAFE', NUM_CLASSES),
+            'crowddet': ('CrowdDetDetector', 'FPN', 1)}[kind]
+    check(type(det).__name__ == want[0] and det.depth == 50 and
+          det.num_classes == want[2] and det.compute_dtype == torch.bfloat16
+          and type(net.neck).__name__ == want[1],
+          f'not the {kind} R50 bf16 model with the {want[1]} neck')
+    if kind == 'carafe':
+        arrange_carafe(net, CARAFE_ARRANGE_SEED)
+        batch, _ = request_batch(np, torch, REQUESTS[-1])
+        arrange_fc_cls(torch, det, net, batch)
+    return det, net
+
+
+def phase_carafe_kernels(np, torch):
+    """The CARAFE kernel on the 3 calls of one 800x1333 request of the
+    FPN_CARAFE config (content encoders arranged), against its plain
+    version in bf16 (one bf16 ulp) and on the float32 map (1e-5 *
+    max|x|); then each call shape timed."""
+    import importlib
+
+    from erd_tpu_torch.ops import carafe, carafe_plain, carafe_weights
+    carafe_module = importlib.import_module('erd_tpu_torch.ops.carafe')
+    det, net = carafe_net(np, torch, 'carafe')
+    batch, _ = request_batch(np, torch, REQUESTS[-1])
+    calls = []
+    restore = capture(carafe_module, 'carafe', calls)
+    try:
+        det.predict(net, batch)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    sizes = [tuple(a[0].shape[2:]) for a in calls]
+    check(sizes == [(25, 42), (50, 84), (100, 168)],
+          f'CARAFE calls of one request at {sizes}')
+    worst, worst32, shapes = 0, 0.0, []
+    for i, (x, logits) in enumerate(a[:2] for a in calls):
+        check(x.dtype == torch.bfloat16 and x.shape[1] == 256 and
+              logits.dtype == torch.bfloat16, f'CARAFE call {i}: not bf16 '
+              f'256 channels')
+        w = carafe_weights(logits)
+        peak = float(w.amax(1).mean())
+        sub = w.view(w.shape[0], 25, x.shape[2], 2, x.shape[3], 2)
+        differ = min(float((sub[:, :, :, a0, :, b0] != sub[:, :, :, a1, :, b1])
+                           .any(1).float().mean())
+                     for a0, b0, a1, b1 in ((0, 0, 0, 1), (0, 0, 1, 0),
+                                            (0, 0, 1, 1), (0, 1, 1, 0),
+                                            (0, 1, 1, 1), (1, 0, 1, 1)))
+        got = carafe(x, logits)
+        torch.cuda.synchronize()
+        plain = carafe_plain(x, logits)
+        ulps = int(bf16_ulps(torch, got, plain).max())
+        exact = torch.equal(got, plain)
+        x32, l32 = x.float(), logits.float()
+        err32 = float((carafe(x32, l32) - carafe_plain(x32, l32)).abs().max())
+        limit = 1e-5 * float(x32.abs().max())
+        log(f'carafe kernels: call {i} {tuple(x.shape)} -> {tuple(got.shape)}'
+            f': mean largest tap weight {peak:.3f} (>= 0.2), sub-pixel '
+            f'kernels differ at {differ:.4f} of the source pixels; bf16 '
+            f'{ulps} ulp (limit 1; bit-equal {exact}); float32 max_abs_err='
+            f'{err32:.3e} (limit 1e-5*max|x| = {limit:.3e})')
+        check(peak >= 0.2, f'CARAFE call {i}: near-uniform taps')
+        check(differ >= 0.99, f'CARAFE call {i}: sub-pixel kernels equal')
+        check(ulps <= 1, f'CARAFE call {i}: bf16 kernel off by {ulps} ulp')
+        check(err32 <= limit, f'CARAFE call {i}: float32 kernel disagrees')
+        worst, worst32 = max(worst, ulps), max(worst32, err32)
+        ms, call_ms, src, plain_ms = time_pair(
+            torch, lambda: carafe(x, logits), lambda: carafe_plain(x, logits),
+            ['carafe_kernel'], n=20)
+        b, c, h, w_ = x.shape
+        outs = b * c * 4 * h * w_
+        nbytes = 2 * (x.numel() + logits.numel() + outs)
+        ops = outs * 49.0 + b * 4 * h * w_ * 125.0  # per output element 25
+        # multiplies and 24 adds; per output pixel the softmax: 25 each of
+        # max, subtract, exp, add, divide
+        bms, by = bound_of(nbytes, ops)
+        shapes.append(dict(x=list(x.shape), ms=ms, call_ms=call_ms,
+                           ms_from=src, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, bound_bytes=nbytes))
+        log(f'carafe kernels: {tuple(x.shape)}: {ms:.4f} ms device ({src}), '
+            f'{call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, bound '
+            f'{bms:.4f} ms ({by}; {nbytes} bytes, {ops / 1e9:.3f} GOP)')
+    log('carafe kernels: library_ms is null: no single PyTorch call computes '
+        'the shuffle, the softmax and the 5x5 reassembly')
+    big = shapes[-1]
+    del calls, net
+    torch.cuda.empty_cache()
+    return dict(name='carafe', route='cuda',
+                source='erd_tpu_torch/csrc/carafe.cu',
+                replaces='erd_tpu/ops/carafe.py:23', max_abs_err=worst32,
+                max_bf16_ulps=worst, ms=big['ms'], call_ms=big['call_ms'],
+                ms_from=big['ms_from'], ms_at=f'x {big["x"]}',
+                plain_ms=big['plain_ms'], bound_ms=big['bound_ms'],
+                bound_by=big['bound_by'], library_ms=None, shapes=shapes,
+                per_request_ms=sum(t['ms'] for t in shapes))
+
+
+def phase_set_nms_kernels(np, torch):
+    """Set-NMS on the call of one 800x1333 CrowdDet request (K = 2000, all
+    valid): the keep mask exactly the plain version's and not the plain
+    NMS's; then timed."""
+    import importlib
+
+    from erd_tpu_torch.ops import (nms_sorted_keep, set_nms_sorted_keep,
+                                   set_nms_sorted_keep_plain)
+    nms_module = importlib.import_module('erd_tpu_torch.ops.nms')
+    det, net = carafe_net(np, torch, 'crowddet')
+    batch, _ = request_batch(np, torch, REQUESTS[-1])
+    calls = []
+    restore = capture(nms_module, 'set_nms_sorted_keep', calls)
+    try:
+        det.predict(net, batch)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f'{len(calls)} set-NMS calls in one request')
+    args = calls[0]
+    sboxes, svalid, sgroup, order, thr = args
+    k = sboxes.shape[1]
+    check(k == 2000 and bool(svalid.all()) and abs(thr - 0.5) < 1e-9,
+          f'set-NMS call at K={k}, {int(svalid.sum())} valid, IoU {thr}')
+    got = set_nms_sorted_keep(*args)
+    torch.cuda.synchronize()
+    mism = int((got != set_nms_sorted_keep_plain(*args)).sum())
+    plain_nms = nms_sorted_keep(sboxes, svalid, order, thr)
+    groups = int(sgroup.unique().numel())
+    log(f'set-NMS kernels: K={k} iou={thr} groups {groups}'
+        f' kept {int(got.sum())} mismatches={mism} (exact); the row-1 NMS on '
+        f'the same boxes keeps {int(plain_nms.sum())}')
+    check(mism == 0, 'set-NMS kernel disagrees with plain')
+    check(not torch.equal(got, plain_nms), 'set-NMS keeps what NMS keeps: '
+          'the group test did not act')
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: set_nms_sorted_keep(*args),
+        lambda: set_nms_sorted_keep_plain(*args),
+        ['nms_mask_kernel', 'nms_reduce_kernel'], n=20)
+    pairs = k * (k - 1) / 2.0
+    ops = 15.0 * pairs + 3.0 * k  # per pair the NMS's 14 and the group
+    # compare; per box its area
+    nbytes = k * (16 + 1 + 8 + 8) + k * 1
+    bms, by = bound_of(nbytes, ops)
+    log(f'set-NMS kernels: {ms:.4f} ms device ({src}), {call_ms:.4f} ms per '
+        f'call, plain {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}); '
+        f'library_ms is null: no PyTorch call computes set-NMS')
+    del calls, net
+    torch.cuda.empty_cache()
+    return dict(name='set_nms_keep', route='cuda',
+                source='erd_tpu_torch/csrc/nms.cu',
+                replaces='erd_tpu/ops/nms.py:107', max_abs_err=0.0, ms=ms,
+                call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None,
+                kept=int(got.sum()), nms_kept=int(plain_nms.sum()))
+
+
+def phase_soft_nms_large_k(np, torch):
+    """Soft-NMS at K = 12000, above one block's shared memory (the
+    device-memory variant), 100 steps: linear bit-exact, gaussian within
+    1e-6 relative; then timed."""
+    from erd_tpu_torch.ops import soft_nms, soft_nms_plain
+    rs = np.random.RandomState(21)
+    k, steps = 12000, 100
+    centres = rs.uniform(50, 1300, (40, 2))
+    c = centres[rs.randint(40, size=k)] + rs.normal(0, 15, (k, 2))
+    wh = rs.uniform(16, 120, (k, 2))
+    bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    bx = bx + (rs.randint(0, 80, k) * (bx.max() + 1)).astype(
+        np.float32)[:, None]
+    sc = rs.uniform(0.05, 1, k).astype(np.float32)
+    sc[rs.rand(k) < 0.1] = -np.inf
+    sboxes = torch.from_numpy(bx)[None].to(DEV)
+    scores = torch.from_numpy(sc)[None].to(DEV)
+    for method in ('linear', 'gaussian'):
+        gi, gs = soft_nms(sboxes, scores, steps, 0.5, 0.5, 1e-3, method)
+        torch.cuda.synchronize()
+        wi, ws = soft_nms_plain(sboxes, scores, steps, 0.5, 0.5, 1e-3,
+                                method)
+        live = ws[0] > float('-inf')
+        rel = float(((gs[0] - ws[0]).abs() / ws[0].abs())[live].max())
+        log(f'soft-NMS large K: {method} K={k} steps={steps}: selections '
+            f'equal {torch.equal(gi, wi)}, scores bit-equal '
+            f'{torch.equal(gs, ws)}, max rel err {rel:.2e}')
+        if method == 'linear':
+            check(torch.equal(gi, wi) and torch.equal(gs, ws),
+                  'large-K linear soft-NMS is not bit-exact with plain')
+        else:
+            check(torch.equal(gi, wi) and rel <= 1e-6,
+                  'large-K gaussian soft-NMS differs from plain')
+    args = (sboxes, scores, steps, 0.5, 0.5, 1e-3, 'linear')
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: soft_nms(*args), lambda: soft_nms_plain(*args),
+        ['soft_nms_global_kernel'], n=10)
+    bms, by = bound_of(k * (16 + 4) + steps * 12, steps * k * 21.0)
+    log(f'soft-NMS large K: {ms:.4f} ms device ({src}), {call_ms:.4f} ms per '
+        f'call, plain {plain_ms:.3f} ms, bound {bms:.5f} ms ({by})')
+    return dict(k=k, steps=steps, ms=ms, call_ms=call_ms, ms_from=src,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def phase_carafe_crowddet_reference(np, torch):
+    """Both float32 networks (FPN_CARAFE Faster R-CNN with arranged
+    content encoders, CrowdDet), card vs CPU, on one small input: RPN
+    outputs and the head on zero RoIs within 1e-3 * max|out|."""
+    import copy
+
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.ops import arrange_carafe
+    img = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (1, 128, 192, 3), np.uint8))
+    for kind, path in CARAFE_CONFIGS.items():
+        cfg = Config.fromfile(path)
+        cfg.model.compute_dtype = 'float32'
+        det = build_detector(cfg.model)
+        net_cpu = det.init(seed=1, device='cpu')
+        arrange_carafe(net_cpu, CARAFE_ARRANGE_SEED)
+        net_dev = copy.deepcopy(net_cpu).to(DEV)
+        (w_cls, w_reg), w_head = det.forward_raw(net_cpu, img)
+        (g_cls, g_reg), g_head = det.forward_raw(net_dev, img.to(DEV))
+        worst = 0.0
+        for g, w in zip(g_cls + g_reg + list(g_head),
+                        w_cls + w_reg + list(w_head)):
+            check(tuple(g.shape) == tuple(w.shape), 'reference shape mismatch')
+            worst = max(worst, float((g.cpu() - w).abs().max() /
+                                     w.abs().max()))
+        log(f'carafe/crowddet reference: {kind} float32 card vs CPU, max '
+            f'|diff| / max |out| = {worst:.2e} (tolerance 1e-3)')
+        check(worst <= 1e-3, f'float32 {kind} on the card disagrees with the '
+              f'CPU')
+
+
+def phase_carafe_crowddet_serve(np, torch, card):
+    """init_detector / inference_detector of the FPN_CARAFE and the CrowdDet
+    config on the 4 requests: exact launches per request, every detection
+    finite and inside its image, stage times (the neck apart), peak memory,
+    the idle share of one request, card-vs-CPU post-processing."""
+    from erd_tpu_torch.data import DetPipeline
+    from erd_tpu_torch.ops import (carafe, nms_sorted_keep, roi_align,
+                                   set_nms_sorted_keep)
+
+    phase_carafe_crowddet_reference(np, torch)
+    images = request_images(np)
+    counters = {'carafe': carafe, 'nms_keep': nms_sorted_keep,
+                'set_nms_keep': set_nms_sorted_keep, 'roi_align': roi_align}
+    per_request = {'carafe': dict(carafe=3, nms_keep=2, set_nms_keep=0,
+                                  roi_align=1),
+                   'crowddet': dict(carafe=0, nms_keep=1, set_nms_keep=1,
+                                    roi_align=1)}
+    launches = {}
+    for kind in CARAFE_CONFIGS:
+        tag = f'{kind} serve'
+        det, net = carafe_net(np, torch, kind)
+        want = {k: v * len(images) for k, v in per_request[kind].items()}
+        results, counts = serve_requests(np, torch, det, net, images,
+                                         counters, want, tag, card)
+        launches[tag] = counts
+        pipe = DetPipeline()
+        for i, (img, res) in enumerate(zip(images, results)):
+            with torch.no_grad():
+                req = ServedRequest(np, torch, pipe, i, img)
+                feats = net.backbone(det.preprocessor(req.images))
+                req.mark()
+                feats = net.neck(feats)
+                req.mark()
+                rpn_cls, rpn_reg = net.rpn_head(feats)
+                ctx = det.anchor_context(req.images.shape[1:3])
+                rois, _, roi_mask = det.proposals(ctx, rpn_cls, rpn_reg,
+                                                  req.meta_dev)
+                req.mark()
+                roi_feats = det.roi_feats(feats, rois)
+                req.mark()
+                cls, reg = det.roi_forward(net, roi_feats)
+                req.mark()
+                gpu = det.postprocess(cls, reg, rois, roi_mask, req.meta_dev)
+                req.mark()
+            req.log_stages(tag, ('normalise + backbone', 'neck',
+                                 'RPN + proposals', 'RoIAlign', 'head',
+                                 'post-processing'))
+            cpu = det.postprocess(cls.cpu(), reg.cpu(), rois.cpu(),
+                                  roi_mask.cpu(), req.meta_cpu)
+            req.compare(tag, gpu, cpu, len(res.scores),
+                        f'proposals {int(roi_mask.sum())} ',
+                        min_candidates=2000)
+            del feats, roi_feats
+        del det, net
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2108,15 +2620,14 @@ def main() -> int:
     # Triton's cache inside the checkout's ignored build directory
     os.environ.setdefault('TRITON_CACHE_DIR', os.path.join(
         ROOT, 'erd_tpu_torch', 'csrc', 'build', 'triton'))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         from erd_tpu_torch.ops import cuda_build
         card = card_line()
         print(card, flush=True)
         log(f'card: {torch.cuda.get_device_name(0)}; torch '
-            f'{torch.__version__}, CUDA {torch.version.cuda}; '
-            f'cudnn.allow_tf32=False, matmul.allow_tf32=False')
+            f'{torch.__version__}, CUDA {torch.version.cuda}; torch\'s '
+            f'default precision settings, left as they are: '
+            f'{tf32_settings(torch)}')
 
         t0 = time.perf_counter()
         cuda_build.build()
@@ -2127,6 +2638,7 @@ def main() -> int:
                 if 'registers' in line or 'spill' in line:
                     log(f'build: {name}: {line.strip()}')
 
+        tf32 = phase_tf32(np, torch)
         kernels = phase_kernels(np, torch)
         phase_reference(np, torch)
         serve_launches = phase_serve(np, torch, card)
@@ -2141,6 +2653,10 @@ def main() -> int:
         detr_launches = phase_detr_serve(np, torch, card)
         dcn_rows = phase_dcn_kernels(np, torch)
         dcn_launches = phase_dcn_serve(np, torch, card)
+        carafe_row = phase_carafe_kernels(np, torch)
+        set_nms_row = phase_set_nms_kernels(np, torch)
+        soft_large_k = phase_soft_nms_large_k(np, torch)
+        cc_launches = phase_carafe_crowddet_serve(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -2148,6 +2664,8 @@ def main() -> int:
             if row['name'] == 'nms_keep':
                 by_path['frcnn serve'] = frcnn_launches['nms_keep']
                 row['frcnn_ms_by_k'] = frcnn_nms
+                for path, counts in cc_launches.items():
+                    by_path[path] = counts['nms_keep']
             row['launches'] = sum(by_path.values())
             row['launches_by_path'] = by_path
             idx = 1 if row['name'] == 'nms_keep' else 0
@@ -2158,17 +2676,31 @@ def main() -> int:
             row['launches'] = train_launches[row['name']]
             row['launches_by_path'] = {'train': row['launches']}
         for row in frcnn_rows:
-            row['launches'] = frcnn_launches[row['name']]
-            row['launches_by_path'] = {'frcnn serve': row['launches']}
+            by_path = {'frcnn serve': frcnn_launches[row['name']]}
+            if row['name'] == 'roi_align':
+                for path, counts in cc_launches.items():
+                    by_path[path] = counts['roi_align']
+            if row['name'] == 'soft_nms':
+                row['large_k'] = soft_large_k
+            row['launches'] = sum(by_path.values())
+            row['launches_by_path'] = by_path
+        for row, name in ((carafe_row, 'carafe'),
+                          (set_nms_row, 'set_nms_keep')):
+            row['launches_by_path'] = {path: counts[name] for path, counts
+                                       in cc_launches.items()
+                                       if counts[name]}
+            row['launches'] = sum(row['launches_by_path'].values())
         for row in detr_rows:
             row['launches'] = detr_launches[row['name']]
             row['launches_by_path'] = {'detr serve': row['launches']}
-        for row in dcn_rows:
+        for row in dcn_rows:  # conv_offset's float32 precision check too
+            row['tf32_check'] = tf32
             by_config = dcn_launches['deform_im2col_by_config']
             row['launches'] = dcn_launches['deform_im2col']
             row['launches_by_path'] = {f'{k} serve': v
                                        for k, v in by_config.items()}
-        kernels += train_rows + frcnn_rows + detr_rows + dcn_rows
+        kernels += train_rows + frcnn_rows + detr_rows + dcn_rows + \
+            [carafe_row, set_nms_row]
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

@@ -1,38 +1,53 @@
 """Config dicts -> detectors and trainers; the counterpart of
 erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
-``FasterRCNN``, ``DeformableDETR`` and ``DINO`` model types and SGD
-training."""
+``FasterRCNN`` (with the FPN or the FPN_CARAFE neck), ``CrowdDet``,
+``DeformableDETR`` and ``DINO`` model types and SGD training."""
 from __future__ import annotations
 
 import torch
 
 from ..config import Config
 from ..engine import Trainer, TrainerConfig
-from ..models import (DeformableDETRDetector, DINODetector, ERDConfig,
-                      ERDDetector, FasterRCNNDetector, GFLDetector,
-                      GFLTestConfig, GFLTrainConfig, VFNetDetector)
+from ..models import (CrowdDetDetector, DeformableDETRDetector,
+                      DINODetector, ERDConfig, ERDDetector,
+                      FasterRCNNDetector, GFLDetector, GFLTestConfig,
+                      GFLTrainConfig, VFNetDetector)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
-_PORTED = ('GFL', 'GFLIncrementERD', 'VFNet', 'FasterRCNN', 'DeformableDETR',
-           'DINO')
+_PORTED = ('GFL', 'GFLIncrementERD', 'VFNet', 'FasterRCNN', 'CrowdDet',
+           'DeformableDETR', 'DINO')
 # erd_tpu model options whose code paths the port does not have yet
-_NOT_PORTED = ('backbone', 'neck', 'context_block_stages',
-               'gen_attention_stages', 'head_norm', 'conv_ws', 'bbox_head',
-               'loss_cls')
+_NOT_PORTED = ('backbone', 'context_block_stages', 'gen_attention_stages',
+               'head_norm', 'conv_ws', 'bbox_head', 'loss_cls')
+ZOO_ITEM = 'ROADMAP.md, section 1: "Zoo, after the main path"'
 # the model types whose port takes the backbone's DCN stages
 _DCN = ('GFL', 'GFLIncrementERD', 'VFNet')
+
+
+def _neck_spec(mtype: str, spec):
+    """The one neck swap the port has: FPN_CARAFE on FasterRCNN, as a dict
+    or a one-element chain; None without a neck. Anything else raises."""
+    if not spec:
+        return None
+    chain = list(spec) if isinstance(spec, (list, tuple)) else [spec]
+    if mtype != 'FasterRCNN' or len(chain) != 1 or \
+            chain[0].get('type') != 'FPN_CARAFE':
+        raise NotImplementedError(
+            f'model.neck {spec} of {mtype} is not ported yet: the port has '
+            f'FPN_CARAFE on FasterRCNN only ({ZOO_ITEM})')
+    return dict(chain[0])
 
 
 def build_detector(model_cfg: Config, num_devices: int = 1):
     mtype = model_cfg.get('type', 'GFL')
     if mtype not in _PORTED:
         raise NotImplementedError(
-            f'detector type {mtype!r} is not ported yet (ROADMAP.md, '
-            f'section 1, item 11: the zoo)')
+            f'detector type {mtype!r} is not ported yet ({ZOO_ITEM})')
     for key in _NOT_PORTED:
         if model_cfg.get(key):
             raise NotImplementedError(
                 f'model.{key} is not ported yet (ROADMAP.md, section 1)')
+    neck = _neck_spec(mtype, model_cfg.get('neck'))
     dcn = {}
     if model_cfg.get('dcn_stages'):
         if mtype not in _DCN:
@@ -55,8 +70,8 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         score_thr=test.get('score_thr', 0.05),
         nms_pre=test.get('nms_pre', 1000),
         iou_threshold=test.get('nms_iou_threshold',
-                               0.5 if mtype in ('FasterRCNN', 'VFNet')
-                               else 0.6),
+                               0.6 if mtype in ('GFL', 'GFLIncrementERD')
+                               else 0.5),
         max_per_img=test.get('max_per_img', 100),
         min_bbox_size=test.get('min_bbox_size', 0.0),
         pre_nms_total=test.get('pre_nms_total', 2000),
@@ -71,8 +86,10 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         compute_dtype=_DTYPES[model_cfg.get('compute_dtype', 'float32')],
         frozen_stages=model_cfg.get('frozen_stages', 1),
         test_cfg=test_cfg)
-    if mtype == 'FasterRCNN':  # serving only: loss raises (ROADMAP §1.1)
-        return FasterRCNNDetector(**base)
+    if mtype == 'FasterRCNN':  # serving only: loss raises
+        return FasterRCNNDetector(neck=neck, **base)
+    if mtype == 'CrowdDet':  # serving only: loss raises
+        return CrowdDetDetector(**base)
     if mtype == 'VFNet':  # serving only: loss raises; erd_tpu's VFNet
         # takes no frozen_stages
         base.pop('frozen_stages')

@@ -1,7 +1,12 @@
-// Greedy class-aware NMS keep mask, hand-written for Hopper (sm_90a).
+// Greedy class-aware NMS keep mask, and CrowdDet's set-NMS, hand-written
+// for Hopper (sm_90a).
 //
 // Replaces: erd_tpu/ops/nms.py `_suppress_matrix` + `_greedy_fixpoint`
-// (reached through `nms_mask`, `batched_nms_mask`, `nms_select`). On the TPU
+// (reached through `nms_mask`, `batched_nms_mask`, `nms_select`), and
+// `set_nms_mask` (:107), the same recursion with
+// sup[i, j] &= group[i] != group[j]: two boxes of one group (the two
+// instances that one CrowdDet proposal predicts) never suppress each other.
+// On the TPU
 // the greedy recursion
 //     alive[j] = valid[j] && !exists i < j: sup[i, j] && alive[i]
 // was solved as a Jacobi fixpoint of (K)x(K, K) 0/1 products on the MXU over
@@ -10,8 +15,10 @@
 //   1. nms_mask_kernel, grid (ceil(K/64), ceil(K/64), B), 64 threads: each
 //      block stages 64 column boxes in shared memory; thread r writes the
 //      64-bit word of row i = 64 * blockIdx.y + r for that column block:
-//      bit j set <=> j > i && valid[i] && iou(i, j) > thr. Blocks below the
-//      diagonal are never read and exit at once.
+//      bit j set <=> j > i && valid[i] && iou(i, j) > thr, and for set-NMS
+//      && group[i] != group[j] (the column block's groups are staged beside
+//      its boxes; a null `group` is plain NMS). Blocks below the diagonal
+//      are never read and exit at once.
 //   2. nms_reduce_kernel, one block per image: walks the sorted rows in
 //      tiles of 64. The block stages the tile's mask words right of the
 //      diagonal in shared memory; one thread resolves the tile's 64 rows
@@ -21,9 +28,10 @@
 //      its share of the later `removed` words, and the tile's keep bits are
 //      scattered back to the caller's original order through `order`.
 // The caller (erd_tpu_torch/ops/nms.py) does the stable descending sort, the
-// gather and the class offset. K is a runtime argument (2000 at predict,
-// 4481 in the ERD distillation NMS; up to about 28,000, where one tile of
-// mask words fills the 227 KB of shared memory).
+// gather and the class offset (set-NMS is class-agnostic). K is a runtime
+// argument (2000 at predict and in CrowdDet's set-NMS, 4481 in the ERD
+// distillation NMS; up to about 28,000, where one tile of mask words fills
+// the 227 KB of shared memory).
 //
 // Exactness: the IoU is computed op for op as the reference does, every op
 // rounded on its own (__fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn, and
@@ -54,7 +62,8 @@ __device__ __forceinline__ float box_area(float4 b) {
 }
 
 __global__ void nms_mask_kernel(const float4* __restrict__ boxes,
-                                const uint8_t* __restrict__ valid, int k,
+                                const uint8_t* __restrict__ valid,
+                                const int64_t* __restrict__ group, int k,
                                 int words, float thr,
                                 unsigned long long* __restrict__ mask) {
   const int row_block = blockIdx.y;
@@ -69,10 +78,13 @@ __global__ void nms_mask_kernel(const float4* __restrict__ boxes,
 
   __shared__ float4 col_box[kTile];
   __shared__ float col_area[kTile];
+  __shared__ int64_t col_group[kTile];
+  const int64_t* gb = group == nullptr ? nullptr : group + b * k;
   if (threadIdx.x < cols) {
     const float4 c = bb[col_start + threadIdx.x];
     col_box[threadIdx.x] = c;
     col_area[threadIdx.x] = box_area(c);
+    if (gb != nullptr) col_group[threadIdx.x] = gb[col_start + threadIdx.x];
   }
   __syncthreads();
   if (threadIdx.x >= rows) return;
@@ -82,6 +94,7 @@ __global__ void nms_mask_kernel(const float4* __restrict__ boxes,
   if (valid[b * k + i]) {
     const float4 r = bb[i];
     const float ra = box_area(r);
+    const int64_t rg = gb != nullptr ? gb[i] : 0;
     const int j0 = (row_block == col_block) ? threadIdx.x + 1 : 0;
     for (int j = j0; j < cols; ++j) {
       const float4 c = col_box[j];
@@ -91,7 +104,8 @@ __global__ void nms_mask_kernel(const float4* __restrict__ boxes,
           fmaxf(__fsub_rn(fminf(r.w, c.w), fmaxf(r.y, c.y)), 0.f);
       const float ov = __fmul_rn(iw, ih);
       const float uni = fmaxf(__fsub_rn(__fadd_rn(ra, col_area[j]), ov), 1e-6f);
-      if (__fdiv_rn(ov, uni) > thr) bits |= 1ULL << j;
+      if (__fdiv_rn(ov, uni) > thr && (gb == nullptr || col_group[j] != rg))
+        bits |= 1ULL << j;
     }
   }
   mask[(b * k + i) * words + col_block] = bits;
@@ -154,19 +168,22 @@ __global__ void nms_reduce_kernel(const unsigned long long* __restrict__ mask,
 }  // namespace
 
 // boxes (B, K, 4) fp32 sorted and class-shifted; valid (B, K) uint8 sorted;
+// group null (NMS) or (B, K) int64 sorted group ids (set-NMS);
 // order (B, K) int64, order[b, i] = original index of sorted entry i;
 // mask (B, K, ceil(K/64)) uint64 scratch; keep (B, K) uint8 out, original
 // order. Returns cudaGetLastError() after the two launches.
 extern "C" int erd_nms_keep(const void* boxes, const void* valid,
-                            const void* order, void* mask, void* keep,
-                            int batch, int k, float thr, void* stream) {
+                            const void* group, const void* order, void* mask,
+                            void* keep, int batch, int k, float thr,
+                            void* stream) {
   if (batch <= 0 || k <= 0) return 0;
   const int words = (k + kTile - 1) / kTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(words, words, batch);
   nms_mask_kernel<<<grid, kTile, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      k, words, thr, static_cast<unsigned long long*>(mask));
+      static_cast<const int64_t*>(group), k, words, thr,
+      static_cast<unsigned long long*>(mask));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = sizeof(unsigned long long) * (words + kTile * words);

@@ -1,10 +1,12 @@
-from .detectors import (DeformableDETRDetector, DETRNet, DINODetector,
+from .detectors import (CrowdDetDetector, CrowdDetNet,
+                        DeformableDETRDetector, DETRNet, DINODetector,
                         ERDConfig, ERDDetector, FasterRCNNDetector,
                         FasterRCNNNet, GFLDetector, GFLNet, VFNetDetector,
                         VFNetNet)
 from .heads import GFLTestConfig, GFLTrainConfig
 
-__all__ = ['DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
+__all__ = ['CrowdDetDetector', 'CrowdDetNet', 'DeformableDETRDetector',
+           'DETRNet', 'DINODetector', 'ERDConfig',
            'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
            'GFLDetector', 'GFLNet', 'GFLTestConfig', 'GFLTrainConfig',
            'VFNetDetector', 'VFNetNet']

@@ -1,3 +1,4 @@
+from .crowddet import CrowdDetDetector, CrowdDetNet, MultiInstanceBBoxHead
 from .deformable_detr import DeformableDETRDetector, DETRNet
 from .dino import DINODetector
 from .faster_rcnn import FasterRCNNDetector, FasterRCNNNet
@@ -5,6 +6,7 @@ from .gfl_erd import ERDConfig, ERDDetector
 from .single_stage import GFLDetector, GFLNet
 from .vfnet import VFNetDetector, VFNetNet
 
-__all__ = ['DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
+__all__ = ['CrowdDetDetector', 'CrowdDetNet', 'MultiInstanceBBoxHead',
+           'DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
            'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
            'GFLDetector', 'GFLNet', 'VFNetDetector', 'VFNetNet']

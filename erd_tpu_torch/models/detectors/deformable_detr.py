@@ -24,8 +24,8 @@ from ..layers import Conv2d, Linear
 from ..necks.channel_mapper import ChannelMapper
 from ..preprocessor import Preprocessor
 
-NOT_TRAINED_YET = ('{} training is not ported yet (ROADMAP.md, section 1, '
-                   'item 2)')
+NOT_TRAINED_YET = ('{} training is not ported yet (ROADMAP.md, section 1: '
+                   '"DINO and Deformable DETR training")')
 
 
 class DETRNet(nn.Module):

@@ -2,21 +2,22 @@
 erd_tpu/models/detectors/faster_rcnn.py.
 
 ResNet (frozen BN) -> FPN P2-P6 (``start_level=0``, P6 by a stride-2
-subsample) -> RPN -> 1000 padded proposals per image -> RoIAlign 7x7 on
-P2-P5 (kernel ``csrc/roi_align.cu``) -> Shared2FC bbox head -> per-class
-decode, top-2000 and hard or soft NMS. As in erd_tpu, the detector is
-configuration plus functions and ``FasterRCNNNet`` holds the weights.
-Training is not ported yet: ``loss`` raises.
+subsample), or FPN_CARAFE (``neck=dict(type='FPN_CARAFE', ...)``) -> RPN ->
+1000 padded proposals per image -> RoIAlign 7x7 on P2-P5 (kernel
+``csrc/roi_align.cu``) -> Shared2FC bbox head -> per-class decode, top-2000
+and hard or soft NMS. As in erd_tpu, the detector is configuration plus
+functions and ``FasterRCNNNet`` holds the weights. Training is not ported
+yet: ``loss`` raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ...ops import multilevel_roi_align
+from ...ops import CARAFEPack, multilevel_roi_align
 from ...structures import DetResults
 from ...task import DeltaXYWHBBoxCoder
 from ...utils import resolve_device
@@ -26,34 +27,48 @@ from ..heads.gfl_head import AnchorContext, GFLTestConfig
 from ..heads.rpn_head import (ProposalConfig, RPNHeadNet,
                               rpn_anchor_generator, rpn_proposals)
 from ..layers import Conv2d, Linear
-from ..necks.fpn import FPN
+from ..necks import FPN, FPNCARAFE
 from ..preprocessor import Preprocessor
 
 ROI_STRIDES = (4, 8, 16, 32)  # the levels RoIAlign samples: P2-P5
+TRAINING_ITEM = ('training is not ported yet (ROADMAP.md, section 1: '
+                 '"Faster R-CNN training")')
+
+
+def build_neck(in_channels, neck: Optional[dict] = None) -> nn.Module:
+    """The default FPN (P2-P6, max-pool P6), or an FPN_CARAFE spec."""
+    if neck is None:
+        return FPN(in_channels=in_channels, out_channels=256, num_outs=5,
+                   start_level=0, add_extra_convs='')
+    kw = dict(neck)
+    if kw.pop('type', None) != 'FPN_CARAFE':
+        raise NotImplementedError(f'neck {neck} is not ported yet')
+    return FPNCARAFE(in_channels=in_channels, **kw)
 
 
 class RoIHead(nn.Module):
     """Holds ``bbox_head`` under mmdet's ``roi_head.bbox_head`` names."""
 
-    def __init__(self, num_classes: int, param_dtype: torch.dtype):
+    def __init__(self, num_classes: int, param_dtype: torch.dtype,
+                 head=Shared2FCBBoxHead):
         super().__init__()
-        self.bbox_head = Shared2FCBBoxHead(num_classes,
-                                           param_dtype=param_dtype)
+        self.bbox_head = head(num_classes, param_dtype=param_dtype)
 
 
 class FasterRCNNNet(nn.Module):
-    """backbone -> neck -> rpn_head, and roi_head.bbox_head; mmdet names."""
+    """backbone -> neck -> rpn_head, and roi_head.bbox_head; mmdet names.
+    ``neck`` is None (FPN) or an FPN_CARAFE spec; ``bbox_head`` the head's
+    class."""
 
     def __init__(self, num_classes: int, depth: int = 50,
                  frozen_stages: int = -1,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32,
+                 neck: Optional[dict] = None, bbox_head=Shared2FCBBoxHead):
         super().__init__()
         self.backbone = ResNet(depth, frozen_stages=frozen_stages)
-        self.neck = FPN(in_channels=self.backbone.out_channels,
-                        out_channels=256, num_outs=5, start_level=0,
-                        add_extra_convs='')
+        self.neck = build_neck(self.backbone.out_channels, neck)
         self.rpn_head = RPNHeadNet()
-        self.roi_head = RoIHead(num_classes, param_dtype)
+        self.roi_head = RoIHead(num_classes, param_dtype, bbox_head)
 
     def extract_feat(self, x):
         return self.neck(self.backbone(x))
@@ -70,7 +85,8 @@ class FasterRCNNNet(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """Seeded random init as erd_tpu's flax defaults: lecun-normal
         convs and fcs with zero biases; RPN convs N(0, 0.01), fc_cls
-        N(0, 0.01), fc_reg N(0, 0.001)."""
+        N(0, 0.01), fc_reg N(0, 0.001), CARAFE content encoders
+        N(0, 0.001)."""
         def normal(p, std):
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
@@ -82,6 +98,12 @@ class FasterRCNNNet(nn.Module):
         rpn = self.rpn_head
         for conv in (rpn.rpn_conv, rpn.rpn_cls, rpn.rpn_reg):
             normal(conv.weight, 0.01)
+        for m in self.modules():
+            if isinstance(m, CARAFEPack):
+                normal(m.content_encoder.weight, 0.001)
+        self.init_head(normal)
+
+    def init_head(self, normal):
         normal(self.roi_head.bbox_head.fc_cls.weight, 0.01)
         normal(self.roi_head.bbox_head.fc_reg.weight, 0.001)
 
@@ -94,6 +116,8 @@ class FasterRCNNDetector:
     compute_dtype: torch.dtype = torch.float32
     # stem + layer1 frozen (the 1x recipe); serving does not read it
     frozen_stages: int = 1
+    # None (FPN) or an FPN_CARAFE spec dict
+    neck: Optional[dict] = None
     preprocessor: Preprocessor = field(default_factory=Preprocessor)
     proposal_cfg_test: ProposalConfig = field(
         default_factory=lambda: ProposalConfig(nms_pre=1000,
@@ -121,7 +145,7 @@ class FasterRCNNDetector:
     def build_net(self) -> FasterRCNNNet:
         return FasterRCNNNet(self.num_classes, depth=self.depth,
                              frozen_stages=self.frozen_stages,
-                             param_dtype=self.compute_dtype)
+                             param_dtype=self.compute_dtype, neck=self.neck)
 
     def init(self, seed: int = 0, device=None) -> FasterRCNNNet:
         """A seeded random network on ``device`` (``cuda`` unless the
@@ -198,6 +222,4 @@ class FasterRCNNDetector:
                                 rescale=rescale)
 
     def loss(self, net, batch):
-        raise NotImplementedError(
-            'Faster R-CNN training is not ported yet (ROADMAP.md, section '
-            '1, item 1)')
+        raise NotImplementedError(f'Faster R-CNN {TRAINING_ITEM}')

@@ -13,21 +13,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import conv2d_ieee
+
 
 def _cast(p: Optional[torch.Tensor], x: torch.Tensor):
     return None if p is None else p.to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in the input's dtype, torch padding k // 2."""
+    """nn.Conv2d computing in the input's dtype, torch padding k // 2; a
+    float32 input convolves in full float32 (no TF32), forward and
+    backward, as erd_tpu's do."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, bias=True):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=kernel_size // 2, bias=bias)
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  _cast(self.bias, x))
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x)
+        if x.dtype != torch.float32:
+            return self._conv_forward(x, w, b)
+        return conv2d_ieee(x, w, b, self.stride, self.padding)
 
 
 class Linear(nn.Linear):

@@ -55,6 +55,9 @@ def _neck_module(mod: Tuple[str, ...], n_fpn: int, start_level: int) -> str:
     m = re.fullmatch(r'extra_conv_(\d+)', name)
     if m:
         return f'neck.fpn_convs.{n_fpn + int(m.group(1))}.conv'
+    m = re.fullmatch(r'carafe_(\d+)', name)
+    if m and len(mod) == 2:  # FPN_CARAFE: the CARAFEPack upsampling lateral i
+        return f'neck.upsample_modules.{int(m.group(1)) - 1}.{mod[1]}'
     raise KeyError(f'unmapped neck module {"/".join(mod)}')
 
 
@@ -97,6 +100,9 @@ def _rcnn_module(scope: str, mod: Tuple[str, ...]) -> str:
         return f'roi_head.bbox_head.shared_fcs.{m.group(1)}'
     if scope == 'bbox_head' and mod[0] in ('fc_cls', 'fc_reg'):
         return f'roi_head.bbox_head.{mod[0]}'
+    m = re.fullmatch(r'(fc_cls|fc_reg)_(\d+)', mod[0])
+    if scope == 'bbox_head' and m:  # CrowdDet's instance k
+        return f'roi_head.bbox_head.{m.group(1)}.{m.group(2)}'
     raise KeyError(f'unmapped {scope} module {"/".join(mod)}')
 
 
@@ -145,9 +151,9 @@ def _leaf(leaf: str, module: str, collection: str) -> str:
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """erd_tpu GFL, VFNet, Faster R-CNN, Deformable DETR or DINO variables
-    {'params', 'batch_stats'} (nested numpy dicts) -> the port's network's
-    ``state_dict``.
+    """erd_tpu GFL, VFNet, Faster R-CNN (FPN or FPN_CARAFE), CrowdDet,
+    Deformable DETR or DINO variables {'params', 'batch_stats'} (nested
+    numpy dicts) -> the port's network's ``state_dict``.
 
     Conv kernels go from (kh, kw, I, O) to (O, I, kh, kw), dense kernels
     from (I, O) to (O, I); the R-CNN head's first fc also reorders its
@@ -158,11 +164,19 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     (heads, hd) axes, and the level and query embeddings keep their names.
     A deformable conv's ``conv_offset`` keeps erd_tpu's channel order, and
     VFNet's bare ``*_dconv_kernel`` parameters become the weights of
-    ``vfnet_*_dconv``. The weights go one way: erd_tpu has no importer of
-    Faster R-CNN, VFNet or DETR state dicts.
+    ``vfnet_*_dconv``. FPN_CARAFE's ``neck/chain0`` scopes map to
+    ``neck.lateral_convs.i``, ``neck.upsample_modules.{i-1}`` (``carafe_i``,
+    its ``content_encoder`` rows in erd_tpu's order) and
+    ``neck.fpn_convs.j``; CrowdDet's ``fc_cls_k`` / ``fc_reg_k`` to
+    ``roi_head.bbox_head.fc_cls.k`` / ``fc_reg.k``. The weights go one
+    way: erd_tpu has no importer of Faster R-CNN, VFNet or DETR state
+    dicts.
     """
     params = variables['params']
     neck = params.get('neck', {})
+    # a swapped neck (FPN_CARAFE) sits under erd_tpu's NeckChain scope
+    chain = 'chain0' in neck
+    neck = neck.get('chain0', neck)
     n_fpn = sum(1 for k in neck if k.startswith('fpn_conv_'))
     start_level = min((int(k[len('lateral_'):]) for k in neck
                        if k.startswith('lateral_')), default=0)
@@ -186,7 +200,8 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             elif scope == 'neck' and detr:
                 module = _detr_neck_module(mod)
             elif scope == 'neck':
-                module = _neck_module(mod, n_fpn, start_level)
+                module = _neck_module(mod[1:] if chain else mod, n_fpn,
+                                      start_level)
             elif two_stage and scope in ('rpn_head', 'bbox_head'):
                 module = _rcnn_module(scope, mod)
             elif vfnet and scope == 'bbox_head':
@@ -207,10 +222,12 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_torch_checkpoint_file(net: nn.Module, path: str):
-    """Load an mmdet ``.pth`` into ``net`` (GFL, VFNet or Faster R-CNN) in
-    place; raises for the DETR family, whose port follows erd_tpu's
-    architecture and not mmdet's, and for a network with modulated
-    deformable convs (DCNv2), whose ``conv_offset`` layout is not mmcv's.
+    """Load an mmdet ``.pth`` into ``net`` (GFL, VFNet, Faster R-CNN or
+    CrowdDet) in place; raises for the DETR family, whose port follows
+    erd_tpu's architecture and not mmdet's, for a network with modulated
+    deformable convs (DCNv2), whose ``conv_offset`` layout is not mmcv's,
+    and for an FPN_CARAFE neck, whose ``content_encoder`` rows are not in
+    mmcv's order.
 
     The file is unpickled (``weights_only=False``, as mmdet checkpoints
     carry metadata objects): load only trusted checkpoints. ``module.``
@@ -233,6 +250,15 @@ def load_torch_checkpoint_file(net: nn.Module, path: str):
             "erd_tpu, and the port after it, interleave (dy, dx, mask) per "
             "kernel point, and erd_tpu's importer has no conv_offset mapping "
             "(ROADMAP.md, section 3); use params_from_jax")
+    from ..ops.carafe import CARAFEPack
+    if any(isinstance(m, CARAFEPack) for m in net.modules()):
+        raise NotImplementedError(
+            "an FPN_CARAFE neck does not load from an mmdet checkpoint: "
+            "mmcv's CARAFEPack pixel-shuffles content_encoder's output "
+            "channels in the order k * up^2 + a * up + b (tap k of sub-pixel "
+            "(a, b)), while erd_tpu, and the port after it, read them as "
+            "(a * up + b) * k_up^2 + k, and erd_tpu's importer has no "
+            "CARAFE mapping (ROADMAP.md, section 3); use params_from_jax")
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
     state = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
     state = {(k[7:] if k.startswith('module.') else k): v

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import conv2d_ieee
 from . import cuda_build
 
 # channels of one deform group that one kernel thread gathers
@@ -251,8 +252,8 @@ class ModulatedDeformConv(nn.Module):
         """(offset (B, 18, Ho, Wo), mask (B, 9, Ho, Wo) or None) from
         ``conv_offset``, both float32."""
         c = self.conv_offset
-        off = F.conv2d(x.float(), c.weight.to(x.dtype).float(),
-                       c.bias.to(x.dtype).float(), c.stride, c.padding)
+        off = conv2d_ieee(x.float(), c.weight.to(x.dtype).float(),
+                          c.bias.to(x.dtype).float(), c.stride, c.padding)
         if not self.modulated:
             return off, None
         b, _, ho, wo = off.shape

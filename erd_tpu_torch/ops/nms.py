@@ -10,7 +10,9 @@ over the sorted boxes, with sup[i, j] = j > i and valid[i] and
 iou(i, j) > thr. For CUDA tensors that is the kernel ``csrc/nms.cu``; for CPU
 tensors it is the plain version below, the reference's suppression matrix
 and Jacobi fixpoint. Both round every IoU as the reference does, so keep
-masks are bit-identical.
+masks are bit-identical. ``set_nms_mask`` (CrowdDet) adds
+sup[i, j] &= group[i] != group[j] and runs the same kernel with its group
+test, through ``set_nms_sorted_keep``.
 
 ``soft_nms_select`` is the soft-NMS scan of erd_tpu's ``soft_nms_select``:
 the wrapper masks and class-shifts, and ``soft_nms`` runs the steps, the
@@ -70,6 +72,62 @@ def nms_sorted_keep_plain(sboxes, svalid, order, iou_threshold):
     return keep.scatter(-1, order, alive)
 
 
+def set_nms_sorted_keep_plain(sboxes, svalid, sgroup, order, iou_threshold):
+    """Plain PyTorch version of the set-NMS kernel (same arguments):
+    erd_tpu's suppression matrix masked where the groups are equal."""
+    sup = _suppress_matrix(sboxes, svalid, iou_threshold) & \
+        (sgroup[..., :, None] != sgroup[..., None, :])
+    alive = _greedy_fixpoint(sup, svalid)
+    return torch.zeros_like(svalid).scatter(-1, order, alive)
+
+
+def _check_sorted(what, sboxes, svalid, order, sgroup=None):
+    """Shapes of the sorted-NMS arguments; on the card, also their device,
+    dtypes and contiguity."""
+    if sboxes.dim() != 3 or sboxes.shape[-1] != 4:
+        raise ValueError(f'{what}: sboxes must be (B, K, 4), got '
+                         f'{tuple(sboxes.shape)}')
+    b, k = sboxes.shape[:2]
+    rest = [svalid, order] + ([] if sgroup is None else [sgroup])
+    if any(tuple(t.shape) != (b, k) for t in rest):
+        raise ValueError(f'{what}: svalid, order (and sgroup) must be (B, K)')
+    if sboxes.device.type == 'cpu':
+        return
+    if sboxes.device.type != 'cuda':
+        raise RuntimeError(f'{what}: no kernel for {sboxes.device}')
+    if any(t.device != sboxes.device for t in rest):
+        raise ValueError(f'{what}: all tensors must be on one device')
+    if sboxes.dtype != torch.float32 or svalid.dtype != torch.bool or \
+            order.dtype != torch.int64 or \
+            (sgroup is not None and sgroup.dtype != torch.int64):
+        raise TypeError(f'{what}: sboxes float32, svalid bool, order (and '
+                        f'sgroup) int64 expected')
+    if not all(t.is_contiguous() for t in [sboxes] + rest):
+        raise ValueError(f'{what}: tensors must be contiguous')
+
+
+def _nms_kernel(what, sboxes, svalid, sgroup, order, iou_threshold):
+    """One launch of csrc/nms.cu (the bitmask and the reduce kernel); a
+    null group is plain NMS."""
+    b, k = sboxes.shape[:2]
+    words = (k + 63) // 64
+    mask = torch.empty((b, k, words), dtype=torch.int64, device=sboxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=sboxes.device)
+    lib = cuda_build.load('nms')
+    fn = lib.erd_nms_keep
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(sboxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(sboxes.data_ptr(), svalid.data_ptr(),
+                 None if sgroup is None else sgroup.data_ptr(),
+                 order.data_ptr(), mask.data_ptr(), keep.data_ptr(), b, k,
+                 float(iou_threshold), stream)
+    cuda_build.check(lib, err, what)
+    return keep
+
+
 def nms_sorted_keep(sboxes, svalid, order, iou_threshold):
     """Greedy-NMS keep mask of score-sorted boxes, in the original order.
 
@@ -85,44 +143,38 @@ def nms_sorted_keep(sboxes, svalid, order, iou_threshold):
     call = the bitmask and the reduce launch, counted in
     ``nms_sorted_keep.launches``).
     """
-    if sboxes.dim() != 3 or sboxes.shape[-1] != 4:
-        raise ValueError(f'sboxes must be (B, K, 4), got '
-                         f'{tuple(sboxes.shape)}')
-    b, k = sboxes.shape[:2]
-    if tuple(svalid.shape) != (b, k) or tuple(order.shape) != (b, k):
-        raise ValueError('svalid and order must be (B, K)')
+    _check_sorted('nms_sorted_keep', sboxes, svalid, order)
     if sboxes.device.type == 'cpu':
         return nms_sorted_keep_plain(sboxes, svalid, order, iou_threshold)
-    if sboxes.device.type != 'cuda':
-        raise RuntimeError(f'nms_sorted_keep: no kernel for {sboxes.device}')
-    if svalid.device != sboxes.device or order.device != sboxes.device:
-        raise ValueError('nms_sorted_keep: all tensors must be on one device')
-    if sboxes.dtype != torch.float32 or svalid.dtype != torch.bool or \
-            order.dtype != torch.int64:
-        raise TypeError('nms_sorted_keep: sboxes float32, svalid bool, '
-                        'order int64 expected')
-    if not (sboxes.is_contiguous() and svalid.is_contiguous() and
-            order.is_contiguous()):
-        raise ValueError('nms_sorted_keep: tensors must be contiguous')
-    words = (k + 63) // 64
-    mask = torch.empty((b, k, words), dtype=torch.int64, device=sboxes.device)
-    keep = torch.empty((b, k), dtype=torch.bool, device=sboxes.device)
-    lib = cuda_build.load('nms')
-    fn = lib.erd_nms_keep
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(sboxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(sboxes.data_ptr(), svalid.data_ptr(), order.data_ptr(),
-                 mask.data_ptr(), keep.data_ptr(), b, k,
-                 float(iou_threshold), stream)
-    cuda_build.check(lib, err, 'nms_sorted_keep')
+    keep = _nms_kernel('nms_sorted_keep', sboxes, svalid, None, order,
+                       iou_threshold)
     nms_sorted_keep.launches += 1
     return keep
 
 
 nms_sorted_keep.launches = 0
+
+
+def set_nms_sorted_keep(sboxes, svalid, sgroup, order, iou_threshold):
+    """Set-NMS keep mask of score-sorted boxes, in the original order:
+    ``nms_sorted_keep`` with ``sgroup`` (B, K) int64, the sorted group ids;
+    two boxes of one group never suppress each other.
+
+    CPU tensors take the plain version; CUDA tensors launch the NMS kernel
+    with its group test (counted in ``set_nms_sorted_keep.launches``, not in
+    ``nms_sorted_keep.launches``).
+    """
+    _check_sorted('set_nms_sorted_keep', sboxes, svalid, order, sgroup)
+    if sboxes.device.type == 'cpu':
+        return set_nms_sorted_keep_plain(sboxes, svalid, sgroup, order,
+                                         iou_threshold)
+    keep = _nms_kernel('set_nms_sorted_keep', sboxes, svalid, sgroup, order,
+                       iou_threshold)
+    set_nms_sorted_keep.launches += 1
+    return keep
+
+
+set_nms_sorted_keep.launches = 0
 
 
 def _batched(fn):
@@ -158,6 +210,28 @@ def nms_mask(boxes, scores, iou_threshold, valid_mask=None):
     svalid = sorted_scores > NEG_INF
     return nms_sorted_keep(sboxes, svalid.contiguous(), order.contiguous(),
                            iou_threshold)
+
+
+@_batched
+def set_nms_mask(boxes, scores, group_ids, iou_threshold, valid_mask=None):
+    """Set-NMS (CrowdDet) keep mask over the input order: class-agnostic
+    greedy NMS after a stable descending sort, except that two boxes with
+    the same ``group_ids`` entry never suppress each other.
+
+    boxes (..., K, 4) xyxy; scores (..., K); group_ids (..., K) int;
+    invalid entries (score -inf or ``valid_mask`` False) are never kept and
+    never suppress others.
+    """
+    if valid_mask is not None:
+        scores = torch.where(valid_mask, scores,
+                             torch.full_like(scores, NEG_INF))
+    sorted_scores, order = torch.sort(scores, dim=-1, descending=True,
+                                      stable=True)
+    sboxes = take_rows(boxes, order).contiguous()
+    sgroup = torch.gather(group_ids.to(torch.int64), -1, order)
+    return set_nms_sorted_keep(sboxes, (sorted_scores > NEG_INF).contiguous(),
+                               sgroup.contiguous(), order.contiguous(),
+                               iou_threshold)
 
 
 @_batched
@@ -264,7 +338,9 @@ def soft_nms(sboxes, scores, steps, iou_threshold=0.3, sigma=0.5,
     entry of each step and its decayed score at selection.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    launch for the batch, counted in ``soft_nms.launches``).
+    launch for the batch, counted in ``soft_nms.launches``), which holds
+    up to ``erd_soft_nms_max_k()`` candidates in shared memory and any
+    larger K in a device-memory scratch.
     """
     if method not in _SOFT_METHODS:
         raise ValueError(f'soft-NMS method must be one of {_SOFT_METHODS}')
@@ -290,24 +366,23 @@ def soft_nms(sboxes, scores, steps, iou_threshold=0.3, sigma=0.5,
     lib = cuda_build.load('soft_nms')
     lib.erd_soft_nms_max_k.restype = ctypes.c_int
     with torch.cuda.device(sboxes.device):
-        max_k = lib.erd_soft_nms_max_k()
-        if k > max_k:
-            raise ValueError(
-                f'soft_nms: K={k} candidates exceed the {max_k} that one '
-                f'thread block holds in shared memory; cap the candidates '
-                f'(pre_nms_total) at {max_k} or fewer')
+        # above one block's shared memory, the scores and areas go to a
+        # (B, 2, K) scratch in device memory
+        scratch = None if k <= lib.erd_soft_nms_max_k() else torch.empty(
+            (b, 2, k), dtype=torch.float32, device=sboxes.device)
         idx = torch.empty((b, steps), dtype=torch.int64, device=sboxes.device)
         sel = torch.empty((b, steps), dtype=torch.float32,
                           device=sboxes.device)
         fn = lib.erd_soft_nms
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
             [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(sboxes.data_ptr(), scores.data_ptr(), idx.data_ptr(),
-                 sel.data_ptr(), b, k, steps, float(iou_threshold),
-                 float(sigma), float(min_score), int(method == 'gaussian'),
-                 stream)
+        err = fn(sboxes.data_ptr(), scores.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 idx.data_ptr(), sel.data_ptr(), b, k, steps,
+                 float(iou_threshold), float(sigma), float(min_score),
+                 int(method == 'gaussian'), stream)
     cuda_build.check(lib, err, 'soft_nms')
     soft_nms.launches += 1
     return idx, sel

@@ -18,13 +18,16 @@ from erd_tpu_torch.config import Config
 from erd_tpu_torch.data import DetPipeline, ImageRecord
 from erd_tpu_torch.models.heads import arrange_sampling
 from erd_tpu_torch.models.heads.gfl_head import AnchorContext, gfl_targets
-from erd_tpu_torch.ops import (arrange_offsets, deform_im2col,
+from erd_tpu_torch.ops import (ModulatedDeformConv, arrange_offsets,
+                               carafe, carafe_plain, deform_im2col,
                                deform_im2col_plain, integral_decode,
                                integral_decode_plain,
                                map_roi_levels, ms_deform_attn,
                                ms_deform_attn_plain, nms_sorted_keep,
                                nms_sorted_keep_plain, roi_align,
-                               roi_align_plain, soft_nms, soft_nms_plain)
+                               roi_align_plain, set_nms_sorted_keep,
+                               set_nms_sorted_keep_plain, soft_nms,
+                               soft_nms_plain)
 from erd_tpu_torch.ops.erd_distill import erd_distill_plain, \
     fused_erd_distill
 from erd_tpu_torch.ops.ers_select import ers_select, ers_select_plain, \
@@ -33,6 +36,7 @@ from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss, gfl_loss_plain
 from erd_tpu_torch.ops.misc import take_rows
 from erd_tpu_torch.structures import GTInstances, stack_to
 from erd_tpu_torch.task import atss_assign, atss_assign_plain, valid_flags
+from erd_tpu_torch.utils import conv_fp32_precision
 
 pytestmark = pytest.mark.cuda
 
@@ -46,10 +50,10 @@ VFNET_CFG = os.path.join(
 
 @pytest.fixture
 def cuda():
+    """The card, in torch's default precision settings: the port sets the
+    precision of its own float32 convolutions."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device('cuda')
 
 
@@ -563,3 +567,193 @@ def test_dcn_serving_on_cuda_uses_kernel(cuda):
         for g, w in zip(g_l, w_l):
             torch.testing.assert_close(g.cpu(), w, rtol=0,
                                        atol=1e-3 * float(w.abs().max()))
+
+
+def test_soft_nms_kernel_above_shared_memory(cuda):
+    """K = 12000, above the ~9600 candidates one block holds in shared
+    memory: the device-memory variant, 100 steps, linear bit-exact and
+    gaussian within 1e-6 relative (the card's expf in both)."""
+    boxes, scores = soft_nms_case_cuda(np.random.RandomState(7), cuda, b=2,
+                                       k=12000)
+    for method in ('linear', 'gaussian'):
+        before = soft_nms.launches
+        got = soft_nms(boxes, scores, 100, 0.5, 0.5, 1e-3, method)
+        torch.cuda.synchronize()
+        assert soft_nms.launches == before + 1
+        want = soft_nms_plain(boxes, scores, 100, 0.5, 0.5, 1e-3, method)
+        assert torch.equal(got[0], want[0])
+        if method == 'linear':
+            assert torch.equal(got[1], want[1])
+        else:
+            torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in bf16 ulps."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7fff), i)
+    return (key(a) - key(b)).abs()
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(1, 256, 25, 42), (2, 40, 7, 9)])
+def test_carafe_kernel_matches_plain(cuda, dtype, shape):
+    """The top FPN-CARAFE step of an 800x1344 canvas, and odd sizes with a
+    partial channel chunk; peaked logits. float32 within 1e-5 * max|x|
+    (the card's expf and torch's exp may differ by an ulp); bf16 within one
+    bf16 ulp (a float32 sum an ulp apart can round to the neighbouring bf16
+    value) or, near zero where the taps cancel, within 1e-5 * max|x|."""
+    rs = np.random.RandomState(shape[1])
+    b, c, h, w = shape
+    x = torch.from_numpy(rs.randn(b, c, h, w).astype(np.float32)).to(
+        cuda).to(dtype)
+    logits = torch.from_numpy((rs.randn(b, 100, h, w) * 2).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = carafe.launches
+    got = carafe(x, logits)
+    torch.cuda.synchronize()
+    assert carafe.launches == before + 1
+    want = carafe_plain(x, logits)
+    assert got.dtype == dtype and got.shape == (b, c, 2 * h, 2 * w)
+    if dtype == torch.bfloat16:
+        near = (got.float() - want.float()).abs() <= \
+            1e-5 * float(x.float().abs().max())
+        assert bool(((bf16_ulps(got, want) <= 1) | near).all())
+    else:
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(x.abs().max())
+    assert torch.equal(carafe(x.cpu(), logits.cpu()), carafe_plain(
+        x.cpu(), logits.cpu()))
+
+
+def test_set_nms_kernel_matches_plain(cuda):
+    """K = 2000 candidates in pairs of near-equal boxes (CrowdDet's two
+    instances of a proposal), tied scores, invalid entries: the keep mask
+    exactly the plain version's, and not the plain NMS's."""
+    rs = np.random.RandomState(8)
+    k = 2000
+    c = rs.uniform(50, 1300, (6, 2))[rs.randint(6, size=k // 2)] + \
+        rs.normal(0, 10, (k // 2, 2))
+    wh = rs.uniform(16, 120, (k // 2, 2))
+    boxes = np.repeat(np.concatenate([c - wh / 2, c + wh / 2], -1), 2, 0) + \
+        rs.normal(0, 1.5, (k, 4))
+    scores = np.where(rs.rand(k) > 0.1, rs.randint(0, 50, k) / 50, -np.inf)
+    order = np.argsort(-scores, kind='stable')
+    args = [torch.from_numpy(np.ascontiguousarray(a))[None].to(cuda)
+            for a in (boxes[order].astype(np.float32),
+                      scores[order] > -np.inf, (np.arange(k) // 2)[order],
+                      order)]
+    before = (set_nms_sorted_keep.launches, nms_sorted_keep.launches)
+    got = set_nms_sorted_keep(*args, 0.5)
+    torch.cuda.synchronize()
+    assert (set_nms_sorted_keep.launches, nms_sorted_keep.launches) == \
+        (before[0] + 1, before[1])
+    assert torch.equal(got, set_nms_sorted_keep_plain(*args, 0.5))
+    plain = nms_sorted_keep(args[0], args[1], args[3], 0.5)
+    assert int(got.sum()) > int(plain.sum())
+
+
+def test_tf32_is_off_for_the_ports_float32_conv_backward(cuda):
+    """In torch's defaults, the gradients of a float32 layers.Conv2d (input
+    and weight; 256 -> 256 channels, 3x3, 50 x 84) agree card vs CPU within
+    1e-5 and 1e-4 * max|grad|: autograd runs its backward in full float32
+    too (the weight gradient sums 4200 pixels, in another order on each
+    side: 1.0e-5 on an H100). The same convolution's backward run in TF32
+    (10 mantissa bits) misses both limits."""
+    from erd_tpu_torch.models.layers import Conv2d
+    gen = torch.Generator().manual_seed(1)
+    m = Conv2d(256, 256, 3)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / 48.0)
+    x = torch.randn(1, 256, 50, 84, generator=gen)
+    r = torch.randn(1, 256, 50, 84, generator=gen)
+
+    def grads(mod, dev, tf32=False):
+        mod = copy.deepcopy(mod).to(dev)
+        xd = x.to(dev).detach().requires_grad_(True)
+        if tf32:
+            with conv_fp32_precision('tf32'):
+                out = torch.nn.functional.conv2d(xd, mod.weight, mod.bias,
+                                                 1, 1)
+                (out * r.to(dev)).sum().backward()
+        else:
+            (mod(xd) * r.to(dev)).sum().backward()
+        return xd.grad.cpu(), mod.weight.grad.cpu()
+
+    want = grads(m, 'cpu')
+    limits = (1e-5, 1e-4)
+    for g, w, lim in zip(grads(m, cuda), want, limits):
+        assert float((g - w).abs().max()) <= lim * float(w.abs().max())
+    for g, w, lim in zip(grads(m, cuda, tf32=True), want, limits):
+        assert float((g - w).abs().max()) > lim * float(w.abs().max())
+
+
+def test_tf32_is_off_for_the_ports_float32_convs(cuda):
+    """In torch's defaults (cuDNN may convolve float32 in TF32), the port's
+    ModulatedDeformConv.offsets on a GFL R101-DCN layer3 input (256 x 50 x
+    84 at 800x1344) agrees with the CPU within 1e-5 * max|out|; the same
+    conv forced into TF32 misses that limit (TF32 keeps 10 mantissa bits:
+    about 1e-4 * max|out| here), and the setting comes back afterwards."""
+    gen = torch.Generator().manual_seed(0)
+    m = ModulatedDeformConv(256, 256, modulated=False)
+    with torch.no_grad():
+        m.conv_offset.weight.copy_(torch.randn(
+            m.conv_offset.weight.shape, generator=gen) / 48.0)
+        m.conv_offset.bias.zero_()
+    x = torch.randn(1, 256, 50, 84, generator=gen)
+    saved = torch.backends.cudnn.conv.fp32_precision \
+        if hasattr(torch.backends.cudnn, 'conv') else None
+    m.requires_grad_(False)
+    want, _ = m.offsets(x)
+    got, _ = m.to(cuda).offsets(x.to(cuda))
+    limit = 1e-5 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= limit
+    c = m.conv_offset
+    with conv_fp32_precision('tf32'):
+        tf32 = torch.nn.functional.conv2d(x.to(cuda), c.weight, c.bias, 1, 1)
+    assert float((tf32.cpu() - want).abs().max()) > limit
+    if saved is not None:
+        assert torch.backends.cudnn.conv.fp32_precision == saved
+
+
+@pytest.mark.parametrize('kind', ['carafe', 'crowddet'])
+def test_carafe_and_crowddet_serving_on_cuda_use_kernels(cuda, kind):
+    """bf16 ResNet-18 FPN-CARAFE Faster R-CNN or CrowdDet on the card at a
+    small canvas: per request 3 CARAFE, 2 NMS and 1 RoIAlign launches, or
+    1 NMS, 1 set-NMS and 1 RoIAlign; then the same head outputs
+    post-processed on the card and on the CPU agree."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'configs', {
+            'carafe': 'carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py',
+            'crowddet': 'crowddet/crowddet-rcnn_r50_fpn_8xb2-30e_'
+                        'crowdhuman.py'}[kind])
+    cfg = Config.fromfile(path)
+    cfg.model.depth = 18
+    det, net, _ = init_detector(cfg, device=cuda)
+    fns = (carafe, nms_sorted_keep, set_nms_sorted_keep, roi_align)
+    img = np.random.RandomState(2).randint(0, 256, (256, 320, 3), np.uint8)
+    counts = [f.launches for f in fns]
+    res = inference_detector(det, net, img, scale=(320, 256))
+    got = [f.launches - c for f, c in zip(fns, counts)]
+    assert got == ([3, 2, 0, 1] if kind == 'carafe' else [0, 1, 1, 1])
+    assert len(res.scores) <= 100 and np.isfinite(res.bboxes).all()
+
+    rec = ImageRecord(0, '', 320, 256, np.zeros((0, 4), np.float32),
+                      np.zeros((0,), np.int32), np.zeros((0,), bool))
+    canvas, _, meta = DetPipeline(scale=(320, 256))(rec, image=img)
+    images = torch.from_numpy(canvas[None]).to(cuda)
+    feats, rpn_cls, rpn_reg = det.feats_and_rpn(net, images)
+    meta_gpu = stack_to([meta], cuda)
+    rois, _, roi_mask = det.proposals(det.anchor_context(images.shape[1:3]),
+                                      rpn_cls, rpn_reg, meta_gpu)
+    cls, reg = det.roi_forward(net, det.roi_feats(feats, rois))
+    got = det.postprocess(cls, reg, rois, roi_mask, meta_gpu)
+    want = det.postprocess(cls.cpu(), reg.cpu(), rois.cpu(), roi_mask.cpu(),
+                           stack_to([meta], 'cpu'))
+    assert torch.equal(got.mask.cpu(), want.mask)
+    assert torch.equal(got.labels.cpu(), want.labels)
+    torch.testing.assert_close(got.scores.cpu(), want.scores, rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(got.bboxes.cpu(), want.bboxes, rtol=0,
+                               atol=1e-2)

@@ -475,7 +475,8 @@ def test_detr_configs_build_and_unported_paths_raise(kind, tmp_path):
     assert type(det) is want[0]
     assert (det.num_queries, det.max_per_img) == want[1:]
     assert det.compute_dtype == torch.bfloat16 and det.depth == 50
-    with pytest.raises(NotImplementedError, match='section 1, item 2'):
+    with pytest.raises(NotImplementedError,
+                       match='"DINO and Deformable DETR training"'):
         det.loss(None, {})
     small = type(det)(num_classes=NUM_CLASSES, depth=18, num_queries=4)
     net = small.init(seed=0, device='cpu')

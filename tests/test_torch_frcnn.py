@@ -520,8 +520,10 @@ def test_faster_rcnn_loss_and_other_two_stage_types_raise(frcnn):
     from erd_tpu_torch.apis import build_detector
     from erd_tpu_torch.config import Config
     _, _, det, net = frcnn
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, section 1'):
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md, section 1: "Faster R-CNN training"'):
         det.loss(net, {})
     for mtype in ('MaskRCNN', 'CascadeRCNN'):
-        with pytest.raises(NotImplementedError, match='item 11'):
+        with pytest.raises(NotImplementedError,
+                           match='"Zoo, after the main path"'):
             build_detector(Config(type=mtype))
