@@ -119,7 +119,41 @@ Phases, in order; any failed check exits non-zero before the last line:
                 image, 2000 candidates into the final NMS, stage times (the
                 neck apart), peak memory, the idle share of one request,
                 card-vs-CPU post-processing;
- 22. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 22. frcnn train kernels  one bs-16, 800x1344 bf16 training step each of
+                Faster R-CNN R50 and FPN-CARAFE Faster R-CNN with their
+                kernel calls captured: the RoIAlign backward kernel on the
+                step's output gradient (512 RoIs an image, full-width
+                P2-P5, the last 15 slots of each image edge cases; RoIs on
+                all four levels, >= 1 % of the samples off their map),
+                float32 buffers within 1e-5 * max|plain| (atomics reorder
+                the sums), rounded to bf16 or float32 maps within one bf16
+                ulp; the NMS on the RPN call at K = 8819 exactly; the CARAFE
+                backward kernel on the 3 calls of the FPN-CARAFE step (dx
+                and dlogits; float32 within 1e-5 * max|plain|, bf16 within
+                one ulp); each timed beside its bound (RoIAlign's bytes
+                count the gradients it writes in the maps' dtype, CARAFE's
+                dw products count at the bf16 tensor-core rate);
+ 23. frcnn train reference  for Faster R-CNN, FPN-CARAFE and CrowdDet,
+                full width in float32 on a small input, with the same
+                sampler draws and the CPU's proposals: the card's own
+                proposals equal the CPU's but for adjacent swaps of boxes
+                whose scores are within 1e-4, in at most 0.5 % of the
+                slots; the loss dict and the parameter gradients on the
+                card (kernels) against the CPU (plain versions): losses
+                rtol 1e-3, ||diff|| / ||g|| <= 1e-3 over all tensors and
+                over each of (RPN loss, R-CNN loss) x (backbone + neck,
+                heads), 1e-2 per tensor; then a 1 % error planted in the
+                RoIAlign backward and one in the CARAFE backward, on
+                FPN-CARAFE, must each fail those limits;
+ 24. frcnn train  build_trainer + fit of each of the three configs at
+                batch 16, 800x1344, bf16: 2 warm-up and 5 timed steps, per
+                step 1 RoIAlign, 1 RoIAlign backward and 1 NMS launch (and
+                3 CARAFE and 3 CARAFE backward for FPN-CARAFE), finite
+                losses, frozen stages unchanged and every trainable weight
+                moved; img/s, peak memory, the stage times of one
+                train_step (a synchronize after each stage) and the idle
+                share of one profiled step;
+ 25. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The script sets no global precision flag: the port convolves float32 in
 full float32 itself (erd_tpu_torch.utils.conv_fp32_precision), torch's
@@ -128,6 +162,7 @@ compute in bf16. The script imports neither JAX nor erd_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -178,6 +213,7 @@ ROI_STRIDES = (4, 8, 16, 32)
 # published H100 SXM peaks (NVIDIA data sheet), used for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12  # dense, on the tensor cores
 # the four requests: (H, W) of seeded random RGB images
 REQUESTS = [(480, 640), (640, 480), (427, 640), (800, 1333)]
 NUM_CLASSES = 80
@@ -566,9 +602,12 @@ def phase_serve(np, torch, card):
     return launches
 
 
-def bound_of(nbytes, ops):
-    """(bound ms, 'bytes' or 'operations') at the H100 peaks above."""
-    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+def bound_of(nbytes, ops, bf16_ops=0.0):
+    """(bound ms, 'bytes' or 'operations') at the H100 peaks above: the
+    larger of the bytes' time, the float32 operations' time and the time of
+    the bf16 x bf16 products (``bf16_ops``) at the tensor-core rate."""
+    tb = nbytes / PEAK_BYTES_PER_S
+    to = max(ops / PEAK_FP32_PER_S, bf16_ops / PEAK_BF16_PER_S)
     return 1e3 * max(tb, to), 'bytes' if tb >= to else 'operations'
 
 
@@ -583,9 +622,11 @@ def time_pair(torch, fn, plain_fn, names, n=10):
             'profiler' if dev_ms else 'events', plain_ms)
 
 
-def synthetic_gt(np, torch, rs, b, img_hw, device=None):
+def synthetic_gt(np, torch, rs, b, img_hw, device=None,
+                 num_labels=NUM_CLASSES - OLD_CLASSES):
     """1-12 random gt boxes per image in MAX_GT padded slots, inside the
-    (H, W) image, labels of the 40 new classes (0..39)."""
+    (H, W) image, labels in 0..num_labels-1 (default: the 40 new classes
+    of the ERD step)."""
     h, w = img_hw
     boxes = np.zeros((b, MAX_GT, 4), np.float32)
     labels = np.zeros((b, MAX_GT), np.int64)
@@ -596,7 +637,7 @@ def synthetic_gt(np, torch, rs, b, img_hw, device=None):
         x1 = rs.uniform(0, w - wh[:, 0])
         y1 = rs.uniform(0, h - wh[:, 1])
         boxes[i, :g] = np.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], -1)
-        labels[i, :g] = rs.randint(0, NUM_CLASSES - OLD_CLASSES, g)
+        labels[i, :g] = rs.randint(0, num_labels, g)
         mask[i, :g] = True
     from erd_tpu_torch.structures import GTInstances
     device = device or DEV
@@ -1111,10 +1152,13 @@ def grad_bisect(torch, det, run, ratio, names, parts, per_tensor, g_gpu,
 class SyntheticLoader:
     """erd_tpu's loader protocol over seeded random batches made on the
     card: uint8 images 800x1344 (the image 800x1333 inside the canvas),
-    1-12 gt boxes in MAX_GT padded slots."""
+    1-12 gt boxes in MAX_GT padded slots with labels below ``num_labels``,
+    distinct img_ids."""
 
-    def __init__(self, np, torch, steps, seed=21):
+    def __init__(self, np, torch, steps, seed=21,
+                 num_labels=NUM_CLASSES - OLD_CLASSES):
         self.np, self.torch, self.steps, self.seed = np, torch, steps, seed
+        self.num_labels = num_labels
         self.cfg = type('LoaderConfig', (), {'batch_size': TRAIN_BATCH})()
 
     def steps_per_epoch(self, epoch):
@@ -1125,14 +1169,17 @@ class SyntheticLoader:
         np, torch = self.np, self.torch
         rs = np.random.RandomState(self.seed + epoch)
         gen = torch.Generator(device=DEV).manual_seed(self.seed + epoch)
-        meta = stack_to([ImageMeta.make(TRAIN_IMAGE, TRAIN_IMAGE,
-                                        (1.0, 1.0))] * TRAIN_BATCH, DEV)
-        for _ in range(self.steps):
+        for step in range(self.steps):
+            meta = stack_to([ImageMeta.make(
+                TRAIN_IMAGE, TRAIN_IMAGE, (1.0, 1.0),
+                img_id=(epoch * self.steps + step) * TRAIN_BATCH + i)
+                for i in range(TRAIN_BATCH)], DEV)
             images = torch.randint(0, 256, (TRAIN_BATCH,) + TRAIN_CANVAS +
                                    (3,), dtype=torch.uint8, device=DEV,
                                    generator=gen)
             yield dict(images=images, meta=meta, gt=synthetic_gt(
-                np, torch, rs, TRAIN_BATCH, TRAIN_IMAGE))
+                np, torch, rs, TRAIN_BATCH, TRAIN_IMAGE,
+                num_labels=self.num_labels))
 
 
 def phase_train(np, torch, card):
@@ -2602,6 +2649,628 @@ def phase_carafe_crowddet_serve(np, torch, card):
     return launches
 
 
+TWO_STAGE_TRAIN = {'frcnn': FRCNN_CONFIGS['nms'],
+                   'carafe': CARAFE_CONFIGS['carafe'],
+                   'crowddet': CARAFE_CONFIGS['crowddet']}
+# the RPN NMS of a training step at 800x1344: nms_pre 2000 on each of
+# P2-P5, and P6's 13 x 21 x 3 = 819 anchors
+TRAIN_RPN_K = 8819
+# card vs CPU training proposals in float32 (frcnn train reference): the
+# share of slots that may differ, each only as an adjacent swap of boxes
+# whose card scores are this close (the network tolerance of the CPU tests)
+PROPOSAL_MOVED_SHARE, PROPOSAL_SCORE_RTOL = 0.005, 1e-4
+
+
+def proposal_swaps(got, want):
+    """(slots that differ, slots that are no adjacent near-tie swap) of the
+    proposals ``got`` = (boxes, scores, mask) against ``want``'s: a slot
+    differs where its box is more than 1e-2 px off; it is a swap where the
+    box sits in a neighbouring slot of ``got`` whose score is within
+    PROPOSAL_SCORE_RTOL. Slots whose masks differ count as no swap."""
+    boxes, scores, mask = got
+    off = ((boxes - want[0]).abs().amax(-1) > 1e-2).nonzero().tolist()
+    bad = int((mask != want[2]).sum())
+    for i, k in off:
+        j = int((boxes[i] - want[0][i, k]).abs().amax(-1).argmin())
+        bad += not (abs(j - k) == 1 and float(
+            (boxes[i, j] - want[0][i, k]).abs().max()) <= 1e-2 and
+            abs(float(scores[i, j] - scores[i, k])) <=
+            PROPOSAL_SCORE_RTOL * float(scores[i, k]))
+    return len(off), bad
+
+
+def level_sizes(strides, canvas=None):
+    """(H, W) of the levels of ``strides`` on the train canvas."""
+    h, w = canvas or TRAIN_CANVAS
+    return [(-(-h // s), -(-w // s)) for s in strides]
+# kernel launches of one training step, per config
+TRAIN_STEP_LAUNCHES = {
+    'frcnn': dict(roi_align=1, roi_align_backward=1, nms_keep=1, carafe=0,
+                  carafe_backward=0),
+    'carafe': dict(roi_align=1, roi_align_backward=1, nms_keep=1, carafe=3,
+                   carafe_backward=3),
+    'crowddet': dict(roi_align=1, roi_align_backward=1, nms_keep=1,
+                     carafe=0, carafe_backward=0)}
+
+
+def train_net(torch, kind, device=None, dtype=None, seed=31):
+    """The config, its detector and a seeded network (content encoders
+    arranged for FPN-CARAFE), on ``device`` (the card by default)."""
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.ops import arrange_carafe
+    cfg = Config.fromfile(TWO_STAGE_TRAIN[kind])
+    if dtype:
+        cfg.model.compute_dtype = dtype
+    det = build_detector(cfg.model)
+    want = {'frcnn': ('FasterRCNNDetector', None, NUM_CLASSES),
+            'carafe': ('FasterRCNNDetector', 'FPN_CARAFE', NUM_CLASSES),
+            'crowddet': ('CrowdDetDetector', None, 1)}[kind]
+    check(type(det).__name__ == want[0] and det.depth == 50 and
+          (det.neck or {}).get('type') == want[1] and
+          det.num_classes == want[2] and det.frozen_stages == 1,
+          f'not the {kind} R50 model')
+    net = det.init(seed=seed, device=device or DEV)
+    if kind == 'carafe':
+        arrange_carafe(net, CARAFE_ARRANGE_SEED)
+    return cfg, det, net
+
+
+def roi_sample_stats(torch, rois, levels, shapes, strides=ROI_STRIDES):
+    """(samples, samples off their map) of RoIAlign's bins, over every RoI
+    on its level."""
+    from erd_tpu_torch.ops.roi_align import _sample_axis
+    total = inside = 0
+    for lvl, ((h, w), stride) in enumerate(zip(shapes, strides)):
+        r = rois[levels == lvl]
+        lo = r * (1.0 / stride) - 0.5
+        size = (lo[:, 2:] - lo[:, :2]).clamp(min=1e-6) / torch.full_like(
+            lo[:, :2], 7)
+        in_y = _sample_axis(lo[:, 1], size[:, 1], h, 7, 2)[0]
+        in_x = _sample_axis(lo[:, 0], size[:, 0], w, 7, 2)[0]
+        total += r.shape[0] * 196
+        inside += int((in_y[:, :, None] & in_x[:, None, :]).sum())
+    return total, total - inside
+
+
+def train_step_calls(np, torch, kind, names):
+    """One bs-16, 800x1344 loss + backward of ``kind`` (bf16) with the
+    calls of the named kernel wrappers captured: {name: [args, ...]}."""
+    import importlib
+
+    from erd_tpu_torch.engine import batch_to
+    modules = {'roi_align': 'roi_align', 'roi_align_backward': 'roi_align',
+               'nms_sorted_keep': 'nms', 'carafe': 'carafe',
+               'carafe_backward': 'carafe'}
+    _, det, net = train_net(torch, kind)
+    batch = batch_to(next(iter(SyntheticLoader(
+        np, torch, 1, seed=41, num_labels=det.num_classes).epoch(0))), DEV)
+    calls = {n: [] for n in names}
+    restore = [capture(importlib.import_module(
+        f'erd_tpu_torch.ops.{modules[n]}'), n, calls[n]) for n in names]
+    try:
+        losses = det.loss(net, batch)
+        sum(losses.values()).backward()
+    finally:
+        for undo in restore:
+            undo()
+    torch.cuda.synchronize()
+    log(f'frcnn train kernels: one {kind} step captured: ' + ', '.join(
+        f'{n} x{len(c)}' for n, c in calls.items()) + '; losses ' + ' '.join(
+        f'{k} {float(v):.4f}' for k, v in losses.items()))
+    del net, losses
+    return calls
+
+
+def phase_frcnn_train_kernels(np, torch):
+    """RoIAlign's backward kernel (A) and the NMS on one bs-16, 800x1344
+    Faster R-CNN step's calls, CARAFE's backward kernel (B) on one
+    FPN-CARAFE step's, each against its plain version; then timed."""
+    from erd_tpu_torch.ops import (carafe_backward, carafe_backward_plain,
+                                   map_roi_levels, nms_sorted_keep,
+                                   nms_sorted_keep_plain, roi_align_backward,
+                                   roi_align_backward_plain)
+    rows = []
+    calls = train_step_calls(np, torch, 'frcnn', (
+        'roi_align', 'roi_align_backward', 'nms_sorted_keep'))
+    check([len(calls[n]) for n in calls] == [1, 1, 1],
+          'unexpected kernel calls of one Faster R-CNN step')
+
+    # -- kernel A on the captured output gradient, the last 15 RoI slots of
+    # every image replaced by edge cases: 6 off the image, 6 on its edges
+    # or degenerate, one sized for each of levels 1-3
+    grad, rois, levels, shapes, strides, dtype = calls['roi_align_backward'][
+        0][:6]
+    b, r, c = grad.shape[:3]
+    check((b, r, c) == (TRAIN_BATCH, 512, 256) and dtype == torch.bfloat16
+          and [tuple(s) for s in shapes] == level_sizes(ROI_STRIDES),
+          f'RoIAlign backward call at {tuple(grad.shape)}, {dtype}, '
+          f'{shapes}')
+    h, w = TRAIN_CANVAS
+    edge = torch.tensor([
+        [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [-300, -200, -10, -5],
+        [w + 10, h + 10, w + 400, h + 300], [-900, -900, -100, -100],
+        [w + 100, -50, w + 900, h], [10, 10, 10, 10], [0, 0, 0, 0],
+        [w - 8, h - 8, w + 4, h + 4], [w - 4, 0, w, h], [0, h - 4, w, h],
+        [-9, -9, 600, 500], [100, 100, 250, 260], [200, 100, 560, 500],
+        [-100, -100, 900, 800]], dtype=torch.float32, device=DEV)
+    rois = rois.clone()
+    rois[:, -len(edge):] = edge
+    grad = grad.clone()
+    grad[:, -len(edge):] = torch.randn(
+        (b, len(edge), c, 7, 7), device=DEV,
+        generator=torch.Generator(device=DEV).manual_seed(3)) * grad.std()
+    levels = map_roi_levels(rois, 4).contiguous()
+    check(torch.equal(levels.cpu(), map_roi_levels(rois.cpu(), 4)),
+          'RoI levels differ between card and CPU')
+    per_level = torch.bincount(levels.flatten().long(), minlength=4)
+    n_samples, n_off = roi_sample_stats(torch, rois, levels, shapes)
+    want = roi_align_backward_plain(grad, rois, levels, shapes, strides)
+    err, err_bf16 = 0.0, 0
+    for dt in (torch.float32, torch.bfloat16):
+        got = roi_align_backward(grad, rois, levels, shapes, strides, dt)
+        torch.cuda.synchronize()
+        for lvl, (g, wt) in enumerate(zip(got, want)):
+            limit = 1e-5 * float(wt.abs().max())
+            diff = (g.float() - wt).abs()
+            if dt == torch.float32:
+                err = max(err, float(diff.max()))
+                check(float(diff.max()) <= limit, f'RoIAlign backward kernel '
+                      f'disagrees with plain on level {lvl}')
+            else:
+                ulps = bf16_ulps(torch, g, wt.to(dt))
+                err_bf16 = max(err_bf16, int(ulps[diff > limit].max())
+                               if bool((diff > limit).any()) else 0)
+                check(bool(((ulps <= 1) | (diff <= limit)).all()),
+                      f'RoIAlign backward kernel, bf16 maps, level {lvl}: '
+                      f'more than one bf16 ulp from plain')
+    log(f'frcnn train kernels: roi_align_backward R={r} x {b} C={c} levels '
+        f'{per_level.tolist()}, {n_off}/{n_samples} samples off their map '
+        f'({n_off / n_samples:.2%}): float32 max_abs_err={err:.3e} (limit '
+        f'1e-5*max|plain|; atomics reorder the float32 sums), bf16 maps '
+        f'within one ulp (worst beyond 1e-5*max: {err_bf16} ulp)')
+    check(bool((per_level > 0).all()), 'RoIAlign backward missed a level')
+    check(n_off >= 0.01 * n_samples, 'fewer than 1 % of the samples off '
+          'their map')
+    args = (grad, rois, levels, shapes, strides, torch.bfloat16)
+    ms, call_ms, src, plain_ms = time_pair(
+        torch, lambda: roi_align_backward(*args),
+        lambda: roi_align_backward_plain(*args[:5]),
+        ['roi_align_backward_kernel'], n=10)
+    n_in = n_samples - n_off
+    # the float32 output gradient, RoIs and levels read; the level
+    # gradients written in the maps' dtype (the float32 buffers they are
+    # summed in are the kernel's scratch, not the function's output)
+    out_size = torch.empty((), dtype=args[5]).element_size()
+    nbytes = grad.numel() * 4 + rois.numel() * 4 + levels.numel() * 4 + \
+        sum(b * c * hh * ww * out_size for hh, ww in shapes)
+    ops = n_in * c * 12.0  # per in-range sample and channel: 4 weights,
+    # 4 products with g and 4 atomic adds
+    bms, by = bound_of(nbytes, ops)
+    log(f'frcnn train kernels: roi_align_backward {ms:.4f} ms device ({src})'
+        f', {call_ms:.4f} ms per call (zeroing, kernel, bf16 rounding), '
+        f'plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes,'
+        f' {ops / 1e9:.3f} GOP); library_ms null: no single PyTorch call '
+        f'computes it')
+    rows.append(dict(name='roi_align_backward', route='cuda',
+                     source='erd_tpu_torch/csrc/roi_align.cu',
+                     replaces='erd_tpu/ops/roi_align.py:92',
+                     max_abs_err=err, ms=ms, call_ms=call_ms, ms_from=src,
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None, deterministic=False,
+                     samples_off_map=n_off / n_samples))
+
+    # -- the NMS on the RPN call, K = 8819
+    nargs = calls['nms_sorted_keep'][0]
+    k, thr = nargs[0].shape[1], nargs[3]
+    check(k == TRAIN_RPN_K and abs(thr - 0.7) < 1e-9,
+          f'RPN NMS call at K={k}, IoU {thr}')
+    got = nms_sorted_keep(*nargs)
+    torch.cuda.synchronize()
+    mism = int((got != nms_sorted_keep_plain(*nargs)).sum())
+    call_ms = events_ms(torch, lambda: nms_sorted_keep(*nargs), 10)
+    dev_ms = kernel_ms(torch, lambda: nms_sorted_keep(*nargs),
+                       ['nms_mask_kernel', 'nms_reduce_kernel'], 10)
+    rpn_nms = dict(k=k, iou=thr, batch=b, ms=dev_ms or call_ms,
+                   call_ms=call_ms, valid=int(nargs[1].sum()),
+                   kept=int(got.sum()), mismatches=mism)
+    log(f'frcnn train kernels: nms K={k} x {b} iou={thr} valid '
+        f'{rpn_nms["valid"]} kept {rpn_nms["kept"]} mismatches={mism} '
+        f'(exact); {rpn_nms["ms"]:.4f} ms device, {call_ms:.4f} ms per call')
+    check(mism == 0, f'NMS kernel disagrees with plain at K={k}')
+    del calls, grad, rois, want, got, args
+
+    # -- kernel B on the 3 backward calls of one FPN-CARAFE step
+    calls = train_step_calls(np, torch, 'carafe',
+                             ('carafe', 'carafe_backward'))
+    sizes = [tuple(a[0].shape[2:]) for a in calls['carafe_backward']]
+    check(sorted(sizes) == level_sizes((32, 16, 8)) and
+          len(calls['carafe']) == 3,
+          f'CARAFE backward calls of one step at {sizes}')
+    shapes_out, worst, worst_ulps = [], 0.0, 0
+    for x, logits, g in sorted((a[:3] for a in calls['carafe_backward']),
+                               key=lambda a: a[0].shape[2]):
+        check(x.dtype == torch.bfloat16 and g.dtype == torch.bfloat16 and
+              x.shape[0] == TRAIN_BATCH and x.shape[1] == 256,
+              f'CARAFE backward call {tuple(x.shape)}: not bs 16 bf16')
+        got = carafe_backward(x, logits, g)
+        torch.cuda.synchronize()
+        want = carafe_backward_plain(x, logits, g)
+        x32, l32, g32 = x.float(), logits.float(), g.float()
+        got32 = carafe_backward(x32, l32, g32)
+        want32 = carafe_backward_plain(x32, l32, g32)
+        for part, gb, wb, g32_, w32 in zip(('dx', 'dlogits'), got, want,
+                                          got32, want32):
+            limit = 1e-5 * float(w32.abs().max())
+            e32 = float((g32_ - w32).abs().max())
+            diff = (gb.float() - wb.float()).abs()
+            ulps = bf16_ulps(torch, gb, wb)
+            far = diff > 1e-5 * float(wb.float().abs().max())
+            worst_ulps = max(worst_ulps, int(ulps[far].max()) if
+                             bool(far.any()) else 0)
+            worst = max(worst, e32)
+            log(f'frcnn train kernels: carafe_backward {tuple(x.shape)} '
+                f'{part}: float32 max_abs_err={e32:.3e} (limit 1e-5*max'
+                f'|plain| = {limit:.3e}), bf16 worst {int(ulps.max())} ulp '
+                f'({int(far.sum())} elements beyond 1e-5*max|plain|, at most '
+                f'{worst_ulps} ulp)')
+            check(e32 <= limit, f'CARAFE backward kernel disagrees with '
+                  f'plain ({part}, float32)')
+            check(bool(((ulps <= 1) | ~far).all()), f'CARAFE backward '
+                  f'kernel, bf16 {part}: more than one ulp from plain')
+        ms, call_ms, src, plain_ms = time_pair(
+            torch, lambda: carafe_backward(x, logits, g),
+            lambda: carafe_backward_plain(x, logits, g),
+            ['carafe_backward_logits_kernel', 'carafe_backward_x_kernel'],
+            n=10)
+        bb, cc, hh, ww = x.shape
+        nbytes = 2 * (2 * x.numel() + 2 * logits.numel() + g.numel())
+        # dx: 100 multiply-adds per channel and source pixel, float32
+        # softmax weights times the gradient; per output pixel the softmax
+        # (125) and its backward (100), float32; dw: 25 multiply-adds of
+        # bf16 x bf16 per channel and output pixel, summed in float32 (a
+        # bf16 tensor-core product)
+        ops = bb * cc * hh * ww * 200.0 + bb * 4 * hh * ww * 225.0
+        bf16_ops = bb * cc * 4 * hh * ww * 50.0
+        bms, by = bound_of(nbytes, ops, bf16_ops)
+        shapes_out.append(dict(x=list(x.shape), ms=ms, call_ms=call_ms,
+                               ms_from=src, plain_ms=plain_ms, bound_ms=bms,
+                               bound_by=by, bound_bytes=nbytes, ops=ops,
+                               bf16_ops=bf16_ops))
+        log(f'frcnn train kernels: carafe_backward {tuple(x.shape)}: '
+            f'{ms:.4f} ms device ({src}), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, '
+            f'{ops / 1e9:.3f} GOP float32, {bf16_ops / 1e9:.3f} GOP bf16)')
+    log('frcnn train kernels: library_ms is null for both backward kernels: '
+        'no single PyTorch call computes them')
+    big = shapes_out[-1]
+    rows.append(dict(name='carafe_backward', route='cuda',
+                     source='erd_tpu_torch/csrc/carafe.cu',
+                     replaces='erd_tpu/ops/carafe.py:23', max_abs_err=worst,
+                     max_bf16_ulps=worst_ulps, ms=big['ms'],
+                     call_ms=big['call_ms'], ms_from=big['ms_from'],
+                     ms_at=f'x {big["x"]}', plain_ms=big['plain_ms'],
+                     bound_ms=big['bound_ms'], bound_by=big['bound_by'],
+                     library_ms=None, deterministic=True,
+                     shapes=shapes_out,
+                     per_step_ms=sum(t['ms'] for t in shapes_out)))
+    del calls
+    torch.cuda.empty_cache()
+    return rows, rpn_nms
+
+
+def phase_frcnn_train_reference(np, torch):
+    """For each two-stage config, full width in float32 on a small input:
+    the loss dict and the parameter gradients on the card (kernels) against
+    the CPU (plain versions), with the same sampler draws; then two
+    controls on FPN-CARAFE, a 1 % error planted in the RoIAlign or the
+    CARAFE backward kernel, which must each fail the same limits."""
+    import copy
+    import importlib
+
+    from erd_tpu_torch.structures import ImageMeta, stack_to
+    roi_module = importlib.import_module('erd_tpu_torch.ops.roi_align')
+    carafe_module = importlib.import_module('erd_tpu_torch.ops.carafe')
+    frcnn_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.faster_rcnn')
+    proposals_fn = frcnn_module.rpn_proposals
+    h, w = 128, 192
+
+    def describe(metrics):
+        return ', '.join(f'{name} {v:.2e} (limit {lim:g})'
+                         for name, v, lim in metrics)
+
+    def ratio(a, b, keys):
+        diff = torch.cat([(a[k] - b[k]).flatten() for k in keys])
+        ref = torch.cat([b[k].flatten() for k in keys])
+        return float(diff.norm() / ref.norm().clamp(min=1e-30))
+
+    for kind in TWO_STAGE_TRAIN:
+        _, det, net_cpu = train_net(torch, kind, device='cpu',
+                                    dtype='float32', seed=7)
+        rs = np.random.RandomState(17)
+        images = torch.from_numpy(rs.randint(0, 256, (2, h, w, 3),
+                                             np.uint8))
+        gt = synthetic_gt(np, torch, rs, 2, (h, w), device='cpu',
+                          num_labels=det.num_classes)
+        metas = [ImageMeta.make((h, w), (h, w), (1.0, 1.0), img_id=i)
+                 for i in (1, 2)]
+        ctx = det.anchor_context((h, w))
+        draws = det.train_draws(torch.tensor([1, 2]), 2, ctx.num_anchors,
+                                det.proposal_cfg_train.max_per_img + MAX_GT,
+                                'cpu')
+        names = [k for k, p in net_cpu.named_parameters() if p.requires_grad]
+        low = [k for k in names if k.startswith(('backbone.', 'neck.'))]
+        high = [k for k in names if k not in low]
+
+        cpu_proposals, moved = [], []
+
+        def proposals(*args):
+            """The CPU run's proposals, recorded; the card runs compute
+            their own, hold them against the CPU's and go on with the CPU's,
+            so that both sample the same RoIs. Masks must be equal and boxes
+            within 1e-2 px, but for adjacent slots whose boxes are swapped
+            where the card's scores are within PROPOSAL_SCORE_RTOL: a
+            near-tie whose order float noise decides, which would otherwise
+            change single samples. Records (slots that differ, slots that
+            are no such swap)."""
+            out = proposals_fn(*args)
+            if not cpu_proposals:
+                cpu_proposals.append(out)
+                return out
+            want = [t.to(out[0].device) for t in cpu_proposals[0]]
+            moved.append(proposal_swaps(out, want))
+            return tuple(want)
+
+        def run(dev):
+            net = copy.deepcopy(net_cpu).to(dev)
+            batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
+                         gt=type(gt)(**{k: v.to(dev)
+                                        for k, v in vars(gt).items()}))
+            frcnn_module.rpn_proposals = proposals
+            try:
+                losses = det.loss(net, batch,
+                                  draws=[d.to(dev) for d in draws])
+            finally:
+                frcnn_module.rpn_proposals = proposals_fn
+            params = dict(net.named_parameters())
+            parts = {'rpn': [k for k in losses if k.startswith('loss_rpn')]}
+            parts['rcnn'] = [k for k in losses if k not in parts['rpn']]
+            grads = {}
+            for i, (part, keys) in enumerate(parts.items()):
+                gs = torch.autograd.grad(
+                    sum(losses[k] for k in keys), [params[k] for k in names],
+                    retain_graph=i == 0, allow_unused=True)
+                grads[part] = {k: (torch.zeros_like(params[k]) if g is None
+                                   else g).double().cpu()
+                               for k, g in zip(names, gs)}
+            return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+        l_cpu, g_cpu = run('cpu')
+        t_cpu = {k: g_cpu['rpn'][k] + g_cpu['rcnn'][k] for k in names}
+
+        def errors(l_dev, g_dev):
+            total = {k: g_dev['rpn'][k] + g_dev['rcnn'][k] for k in names}
+            per_tensor = sorted(((ratio(total, t_cpu, [k]), k)
+                                 for k in names), reverse=True)
+            metrics = [('loss', max(abs(l_dev[k] - l_cpu[k]) /
+                                    max(abs(l_cpu[k]), 1e-12)
+                                    for k in l_cpu), 1e-3),
+                       ('whole gradient', ratio(total, t_cpu, names), 1e-3)]
+            for part in ('rpn', 'rcnn'):
+                for scope, keys in (('backbone+neck', low), ('heads', high)):
+                    if any(float(g_cpu[part][k].norm()) > 0 for k in keys):
+                        metrics.append((f'{part} gradient, {scope}',
+                                        ratio(g_dev[part], g_cpu[part], keys),
+                                        1e-3))
+            metrics.append(('per tensor', per_tensor[0][0], 1e-2))
+            return per_tensor, metrics
+
+        l_gpu, g_gpu = run(DEV)
+        per_tensor, metrics = errors(l_gpu, g_gpu)
+        log(f'frcnn train reference: {kind} float32 loss card {l_gpu}')
+        log(f'frcnn train reference: {kind} float32 loss CPU  {l_cpu}')
+        slots = cpu_proposals[0][2].numel()
+        log(f'frcnn train reference: {kind} card vs CPU over {len(names)} '
+            f'trainable tensors, on the CPU\'s proposals ({moved[0][0]} of '
+            f'{slots} proposal slots differ on the card, {moved[0][1]} of '
+            f'them not an adjacent near-tie swap): {describe(metrics)}; '
+            f'worst tensors: ' +
+            ', '.join(f'{k} {v:.2e}' for v, k in per_tensor[:3]))
+        check(moved[0][1] == 0 and
+              moved[0][0] <= PROPOSAL_MOVED_SHARE * slots,
+              f'{kind}: the card\'s training proposals differ from the '
+              f'CPU\'s beyond adjacent near-tie swaps in '
+              f'{PROPOSAL_MOVED_SHARE:.1%} of the slots')
+        check(all(np.isfinite(v) for v in l_gpu.values()),
+              f'{kind}: non-finite loss')
+        check(all(np.isfinite(v) and v <= lim for _, v, lim in metrics),
+              f'the {kind} loss or gradients on the card disagree with the '
+              f'CPU')
+        if kind != 'carafe':
+            continue
+
+        def planted(fn, kind):
+            """``fn`` with each gradient it returns scaled by 1.01; the
+            wrapper takes the launch count the kernel adds to its name."""
+            def wrapper(*args):
+                return kind(g * 1.01 for g in fn(*args))
+            wrapper.launches = 0
+            return wrapper
+
+        for module, name, kind in (
+                (roi_module, 'roi_align_backward', list),
+                (carafe_module, 'carafe_backward', tuple)):
+            kernel = getattr(module, name)
+            setattr(module, name, planted(kernel, kind))
+            try:
+                _, metrics = errors(*run(DEV))
+            finally:
+                setattr(module, name, kernel)
+            tripped = [m for m, v, lim in metrics if not v <= lim]
+            log(f'frcnn train reference: control, {name} x 1.01: '
+                f'{describe(metrics)}; over the limit: {tripped}')
+            check(tripped, f'the gate passes a 1 % error in {name}')
+
+
+@contextlib.contextmanager
+def train_stage_marks(torch, det, net, optimizer):
+    """Within the block, every stage of a two-stage training step that
+    ``Trainer.train_step`` runs ends with a synchronize and appends (name,
+    time) to the list it yields, after a ('start', time) mark: hooks on the
+    neck and the RPN head, the loss's own calls wrapped where they are looked
+    up, and the optimizer's step hooks."""
+    import importlib
+    frcnn = importlib.import_module(
+        'erd_tpu_torch.models.detectors.faster_rcnn')
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def marked(fn, name):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            mark(name)
+            return out
+        return wrapper
+
+    calls = {'rpn_loss': 'RPN loss',
+             'rpn_proposals': f'proposals (NMS K={TRAIN_RPN_K})',
+             'rcnn_sample': 'assign + sample'}
+    saved = {n: getattr(frcnn, n) for n in calls}
+    handles = [
+        net.neck.register_forward_hook(
+            lambda *_: mark('backbone + neck')),
+        net.rpn_head.register_forward_hook(lambda *_: mark('RPN head')),
+        optimizer.register_step_pre_hook(lambda *_: mark('backward')),
+        optimizer.register_step_post_hook(lambda *_: mark('optimizer'))]
+    for n, name in calls.items():
+        setattr(frcnn, n, marked(saved[n], name))
+    det.rcnn_losses = marked(det.rcnn_losses,
+                             'RoIAlign + R-CNN head + loss')
+    try:
+        mark('start')
+        yield marks
+    finally:
+        del det.rcnn_losses
+        for n, fn in saved.items():
+            setattr(frcnn, n, fn)
+        for h in handles:
+            h.remove()
+
+
+def phase_frcnn_train(np, torch, card):
+    """build_trainer + fit of each two-stage config at bs 16, 800x1344,
+    bf16: 2 warm-up and 5 timed steps, the launches of every kernel of the
+    path, finite losses, frozen stages unchanged; stage times and the idle
+    share of one profiled step."""
+    from erd_tpu_torch.apis import build_trainer
+    from erd_tpu_torch.engine import Hook, batch_to, resnet_frozen_paths
+    from erd_tpu_torch.ops import (carafe, carafe_backward, nms_sorted_keep,
+                                   roi_align, roi_align_backward)
+
+    class StepTimer(Hook):
+        def __init__(self):
+            self.t, self.losses = [], []
+
+        def before_train(self, trainer):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+
+        def after_iter(self, trainer, step, losses):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+            self.losses.append(losses)
+
+    counters = {'roi_align': roi_align,
+                'roi_align_backward': roi_align_backward,
+                'nms_keep': nms_sorted_keep, 'carafe': carafe,
+                'carafe_backward': carafe_backward}
+    launches = {}
+    for kind in TWO_STAGE_TRAIN:
+        tag = f'{kind} train'
+        cfg, det, net = train_net(torch, kind)
+        check(det.compute_dtype == torch.bfloat16, f'{tag}: not bf16')
+        frozen = resnet_frozen_paths(cfg.model.get('frozen_stages', 1))
+        start = {k: v.clone() for k, v in net.state_dict().items()}
+        timer = StepTimer()
+        cfg.train_cfg.epochs = 1
+        steps = TRAIN_WARMUP + TRAIN_TIMED
+        loader = SyntheticLoader(np, torch, steps, seed=51,
+                                 num_labels=det.num_classes)
+        trainer = build_trainer(cfg, det, loader, device=DEV)
+        trainer.hooks.append(timer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        trainer.fit(net)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        launches[tag] = counts
+        log(f'{tag}: launches on the train path {counts}')
+        want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES[kind].items()}
+        check(counts == want, f'{tag}: launches {counts}, expected {want}')
+        step_s = [t1 - t0 for t0, t1 in zip(timer.t, timer.t[1:])]
+        timed = step_s[TRAIN_WARMUP:]
+        for i, (dt, losses) in enumerate(zip(step_s, timer.losses)):
+            log(f'{tag}: step {i} {1e3 * dt:.1f} ms lr '
+                f'{trainer.current_lr(i):.3e} ' +
+                ' '.join(f'{k} {v:.5f}' for k, v in losses.items()))
+            check(all(np.isfinite(v) for v in losses.values()),
+                  f'{tag}: non-finite loss at step {i}')
+        state = net.state_dict()
+        trainable = {n for n, p in net.named_parameters() if p.requires_grad}
+        moved = {k for k, v in state.items() if not torch.equal(v, start[k])}
+        check(not any(k.startswith(frozen) for k in moved | trainable),
+              f'{tag}: a frozen-stage parameter changed or is trainable')
+        weights = {k for k in trainable if state[k].dim() > 1}
+        check(weights <= moved, f'{tag}: a trainable weight did not move: ' +
+              ', '.join(sorted(weights - moved)[:5]))
+        log(f'{tag}: bs {TRAIN_BATCH} {TRAIN_CANVAS[0]}x{TRAIN_CANVAS[1]} '
+            f'bf16, {len(timed)} timed steps ' +
+            ' '.join(f'{1e3 * t:.1f}' for t in timed) +
+            f' ms; {TRAIN_BATCH * len(timed) / sum(timed):.2f} img/s; peak '
+            f'memory {peak / 2**20:.0f} MiB; {len(moved & trainable)}/'
+            f'{len(trainable)} trainable tensors moved, 0 frozen; card {card}')
+
+        # stage times of one step of the trainer's own train_step, each
+        # stage ended by a synchronize
+        batch = batch_to(next(iter(loader.epoch(1))), DEV)
+        with train_stage_marks(torch, det, net, trainer.optimizer) as marks:
+            trainer.train_step(net, batch, 100)
+        log(f'{tag}: stage ms of one step: ' + ', '.join(
+            f'{name} {1e3 * (t - marks[i][1]):.2f}'
+            for i, (name, t) in enumerate(marks[1:])) +
+            f'; total {1e3 * (marks[-1][1] - marks[0][1]):.2f}')
+
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(net, batch, 100)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows = []
+        for ev in prof.key_averages():
+            dev = getattr(ev, 'self_device_time_total', None)
+            if dev is None:
+                dev = getattr(ev, 'self_cuda_time_total', 0.0)
+            if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+                rows.append((dev / 1e3, ev.count, ev.key))
+        busy = sum(x[0] for x in rows)
+        log(f'{tag} profile: one step, wall {wall_ms:.1f} ms (profiled), '
+            f'device kernels {busy:.1f} ms, device idle share '
+            f'{max(0.0, 1 - busy / wall_ms):.3f}')
+        for dev, count, key in sorted(rows, reverse=True)[:12]:
+            log(f'{tag} profile:   {dev:9.3f} ms  x{count:<5d} {key[:90]}')
+        del net, trainer, batch
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2657,6 +3326,9 @@ def main() -> int:
         set_nms_row = phase_set_nms_kernels(np, torch)
         soft_large_k = phase_soft_nms_large_k(np, torch)
         cc_launches = phase_carafe_crowddet_serve(np, torch, card)
+        train2_rows, rpn_nms = phase_frcnn_train_kernels(np, torch)
+        phase_frcnn_train_reference(np, torch)
+        train2_launches = phase_frcnn_train(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -2664,7 +3336,9 @@ def main() -> int:
             if row['name'] == 'nms_keep':
                 by_path['frcnn serve'] = frcnn_launches['nms_keep']
                 row['frcnn_ms_by_k'] = frcnn_nms
-                for path, counts in cc_launches.items():
+                row['frcnn_train_rpn'] = rpn_nms
+                for path, counts in list(cc_launches.items()) + \
+                        list(train2_launches.items()):
                     by_path[path] = counts['nms_keep']
             row['launches'] = sum(by_path.values())
             row['launches_by_path'] = by_path
@@ -2678,7 +3352,8 @@ def main() -> int:
         for row in frcnn_rows:
             by_path = {'frcnn serve': frcnn_launches[row['name']]}
             if row['name'] == 'roi_align':
-                for path, counts in cc_launches.items():
+                for path, counts in list(cc_launches.items()) + \
+                        list(train2_launches.items()):
                     by_path[path] = counts['roi_align']
             if row['name'] == 'soft_nms':
                 row['large_k'] = soft_large_k
@@ -2686,9 +3361,15 @@ def main() -> int:
             row['launches_by_path'] = by_path
         for row, name in ((carafe_row, 'carafe'),
                           (set_nms_row, 'set_nms_keep')):
-            row['launches_by_path'] = {path: counts[name] for path, counts
-                                       in cc_launches.items()
-                                       if counts[name]}
+            row['launches_by_path'] = {
+                path: counts[name] for path, counts in
+                list(cc_launches.items()) + list(train2_launches.items())
+                if counts.get(name)}
+            row['launches'] = sum(row['launches_by_path'].values())
+        for row in train2_rows:  # the backward kernels: the train paths
+            row['launches_by_path'] = {path: counts[row['name']] for path,
+                                       counts in train2_launches.items()
+                                       if counts[row['name']]}
             row['launches'] = sum(row['launches_by_path'].values())
         for row in detr_rows:
             row['launches'] = detr_launches[row['name']]
@@ -2700,7 +3381,7 @@ def main() -> int:
             row['launches_by_path'] = {f'{k} serve': v
                                        for k, v in by_config.items()}
         kernels += train_rows + frcnn_rows + detr_rows + dcn_rows + \
-            [carafe_row, set_nms_row]
+            [carafe_row, set_nms_row] + train2_rows
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

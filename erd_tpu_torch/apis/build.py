@@ -1,7 +1,8 @@
 """Config dicts -> detectors and trainers; the counterpart of
 erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
 ``FasterRCNN`` (with the FPN or the FPN_CARAFE neck), ``CrowdDet``,
-``DeformableDETR`` and ``DINO`` model types and SGD training."""
+``DeformableDETR`` and ``DINO`` model types, and SGD training of ``GFL``,
+``GFLIncrementERD``, ``FasterRCNN`` and ``CrowdDet``."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +23,9 @@ _NOT_PORTED = ('backbone', 'context_block_stages', 'gen_attention_stages',
 ZOO_ITEM = 'ROADMAP.md, section 1: "Zoo, after the main path"'
 # the model types whose port takes the backbone's DCN stages
 _DCN = ('GFL', 'GFLIncrementERD', 'VFNet')
+# detectors the port serves but does not train yet, with their ROADMAP item
+_UNTRAINED = ((VFNetDetector, 'DCN training'),
+              (DeformableDETRDetector, 'DINO and Deformable DETR training'))
 
 
 def _neck_spec(mtype: str, spec):
@@ -86,9 +90,15 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         compute_dtype=_DTYPES[model_cfg.get('compute_dtype', 'float32')],
         frozen_stages=model_cfg.get('frozen_stages', 1),
         test_cfg=test_cfg)
-    if mtype == 'FasterRCNN':  # serving only: loss raises
+    if mtype in ('FasterRCNN', 'CrowdDet'):
+        sampler = train.get('rcnn_sampler', 'random')
+        if sampler != 'random':
+            raise NotImplementedError(
+                f'model.train_cfg.rcnn_sampler={sampler!r} is not ported '
+                f'yet: the port samples RoIs at random ({ZOO_ITEM})')
+    if mtype == 'FasterRCNN':  # erd_tpu's train configs: the defaults
         return FasterRCNNDetector(neck=neck, **base)
-    if mtype == 'CrowdDet':  # serving only: loss raises
+    if mtype == 'CrowdDet':
         return CrowdDetDetector(**base)
     if mtype == 'VFNet':  # serving only: loss raises; erd_tpu's VFNet
         # takes no frozen_stages
@@ -140,12 +150,21 @@ def build_trainer(cfg: Config, detector, train_loader, teacher=None,
     ``train_cfg`` and ``auto_scale_lr``; the networks' ``frozen_stages``
     come from the detector.
 
-    ``teacher`` is the frozen ERD teacher network. The device is ``cuda``
-    unless the caller names one. The port has SGD with warmup + multi-step
-    decay over steps; other optimizers and schedules, epoch-based warmup,
-    gradient clipping, validation, checkpoints and custom hooks are not
-    ported yet and raise.
+    ``teacher`` is the frozen ERD teacher network; the other detectors
+    take none. The device is ``cuda`` unless the caller names one. The port
+    has SGD with warmup + multi-step decay over steps; other optimizers and
+    schedules, epoch-based warmup, gradient clipping, validation,
+    checkpoints and custom hooks are not ported yet and raise, as do the
+    detectors whose training is not ported (VFNet, the DETR family).
     """
+    for cls, item in _UNTRAINED:
+        if isinstance(detector, cls):
+            raise NotImplementedError(
+                f'{type(detector).__name__} training is not ported yet '
+                f'(ROADMAP.md, section 1: "{item}")')
+    if teacher is not None and not isinstance(detector, ERDDetector):
+        raise ValueError(f'a teacher is ERD distillation\'s: '
+                         f'{type(detector).__name__} trains without one')
     optim = _normalized_optim(cfg)
     if optim.get('type', 'SGD').lower() != 'sgd' or \
             optim.get('schedule', 'multistep') != 'multistep':

@@ -30,6 +30,22 @@
 // under the RoIs (bf16, at most the 46 MB of P2-P5 at 800x1344), mostly
 // served from L2 since neighbouring bins and channels share cache lines.
 // The arithmetic (~60 flops per output) is far below the fp32 peak.
+//
+// Backward (`erd_roi_align_backward`): the transpose of the same gathers,
+// which erd_tpu got by autodiff (a scatter-add of each sample's four
+// corners into the level map, 0 * g for the RoIs of other levels). One
+// thread per (roi, channel, bin), in the forward's layout, recomputes its
+// bin's sample positions with the forward's arithmetic and adds
+// (g / s^2) * w_corner for each corner of each in-range sample into a
+// zeroed float32 buffer of its RoI's level with atomicAdd. The order of
+// those float32 additions changes from run to run, so the result is not
+// deterministic: kernel and plain version (index_add_) agree to float32
+// rounding of reordered sums, not to the bit. The caller rounds each
+// buffer once to the map's dtype.
+// Bound: bytes. It reads the (B, R, C, 7, 7) float32 output gradient
+// (0.41 GB at B = 16, R = 512, C = 256) and writes the float32 P2-P5
+// buffers (1.46 GB at 800x1344); the 16 atomic adds of a bin mostly land
+// in L2, where neighbouring bins of one channel share pixels.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -130,6 +146,67 @@ __global__ void roi_align_kernel(Levels lv, const float* __restrict__ rois,
   out[t] = __fdiv_rn(acc, static_cast<float>(s * s));
 }
 
+
+__global__ void roi_align_backward_kernel(
+    const float* __restrict__ grad, const float* __restrict__ rois,
+    const int* __restrict__ levels, Levels lv, int r, int c, int out_size,
+    int s, long long total) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (t >= total) return;
+  const int pw = static_cast<int>(t % out_size);
+  const int ph = static_cast<int>((t / out_size) % out_size);
+  const long long nc = t / (out_size * out_size);  // roi * c + channel
+  const int ch = static_cast<int>(nc % c);
+  const long long n = nc / c;  // b * r + roi
+  const long long b = n / r;
+  const int lvl = levels[n];
+  const int h = lv.h[lvl], w = lv.w[lvl];
+  const float scale = lv.scale[lvl];
+  // the level's float32 gradient buffer, written through a const slot
+  float* f = static_cast<float*>(const_cast<void*>(lv.feat[lvl])) +
+             (static_cast<size_t>(b) * c + ch) * h * w;
+
+  const float* roi = rois + n * 4;
+  const float x1 = __fsub_rn(__fmul_rn(roi[0], scale), 0.5f);
+  const float y1 = __fsub_rn(__fmul_rn(roi[1], scale), 0.5f);
+  const float x2 = __fsub_rn(__fmul_rn(roi[2], scale), 0.5f);
+  const float y2 = __fsub_rn(__fmul_rn(roi[3], scale), 0.5f);
+  const float fout = static_cast<float>(out_size);
+  const float bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, x1), 1e-6f), fout);
+  const float bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, y1), 1e-6f), fout);
+  const float fs = static_cast<float>(s);
+  const float g = __fdiv_rn(grad[t], static_cast<float>(s * s));
+  if (g == 0.f) return;
+
+  const auto sub = [fs](int i) {
+    return __fdiv_rn(__fadd_rn(static_cast<float>(i), 0.5f), fs);
+  };
+  for (int iy = 0; iy < s; ++iy) {
+    const float gy = __fadd_rn(static_cast<float>(ph), sub(iy));
+    int y0 = 0, y1i = 0;
+    float ly = 0.f;
+    if (!axis_sample(__fadd_rn(y1, __fmul_rn(bin_h, gy)), h, &y0, &y1i, &ly))
+      continue;
+    const float hy = __fsub_rn(1.f, ly);
+    for (int ix = 0; ix < s; ++ix) {
+      const float gx = __fadd_rn(static_cast<float>(pw), sub(ix));
+      int x0 = 0, x1i = 0;
+      float lx = 0.f;
+      if (!axis_sample(__fadd_rn(x1, __fmul_rn(bin_w, gx)), w, &x0, &x1i,
+                       &lx))
+        continue;
+      const float hx = __fsub_rn(1.f, lx);
+      const size_t r0 = static_cast<size_t>(y0) * w;
+      const size_t r1 = static_cast<size_t>(y1i) * w;
+      atomicAdd(f + r0 + x0, __fmul_rn(g, __fmul_rn(hy, hx)));
+      atomicAdd(f + r0 + x1i, __fmul_rn(g, __fmul_rn(hy, lx)));
+      atomicAdd(f + r1 + x0, __fmul_rn(g, __fmul_rn(ly, hx)));
+      atomicAdd(f + r1 + x1i, __fmul_rn(g, __fmul_rn(ly, lx)));
+    }
+  }
+}
+
 }  // namespace
 
 // f0..f3: per-level (B, C, H_l, W_l) maps, fp32 or bf16 (is_bf16), unused
@@ -161,6 +238,32 @@ extern "C" int erd_roi_align(const void* f0, const void* f1, const void* f2,
         lv, static_cast<const float*>(rois), static_cast<const int*>(levels),
         r, c, out_size, sampling_ratio, total, static_cast<float*>(out));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad (B, R, C, out_size, out_size) fp32; rois (B, R, 4) fp32; levels
+// (B, R) int32; g0..g3: per-level (B, C, H_l, W_l) fp32 buffers, zeroed by
+// the caller, unused levels null with h = w = 0. Returns cudaGetLastError()
+// after the launch.
+extern "C" int erd_roi_align_backward(
+    const void* grad, const void* rois, const void* levels, void* g0,
+    void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1, int h2,
+    int w2, int h3, int w3, float s0, float s1, float s2, float s3,
+    int batch, int r, int c, int out_size, int sampling_ratio,
+    void* stream) {
+  const long long total =
+      static_cast<long long>(batch) * r * c * out_size * out_size;
+  if (total <= 0) return 0;
+  Levels lv = {{g0, g1, g2, g3}, {h0, h1, h2, h3}, {w0, w1, w2, w3},
+               {s0, s1, s2, s3}};
+  const int threads = 256;
+  const unsigned blocks =
+      static_cast<unsigned>((total + threads - 1) / threads);
+  roi_align_backward_kernel<<<blocks, threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(grad), static_cast<const float*>(rois),
+      static_cast<const int*>(levels), lv, r, c, out_size, sampling_ratio,
+      total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""CrowdDet serving; the counterpart of erd_tpu/models/detectors/crowddet.py.
+"""CrowdDet serving and training; the counterpart of
+erd_tpu/models/detectors/crowddet.py.
 
 Faster R-CNN R50-FPN up to the RoI features (the plain FPN, whatever the
 config's neck, as erd_tpu's ``CrowdDetNet``), then a multiple-instance bbox
@@ -17,12 +18,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...losses import cross_entropy_int, smooth_l1_loss
 from ...ops import cap_candidates, set_nms_mask
 from ...ops.misc import NEG_INF, take_rows, topk_stable
-from ...structures import DetResults, scale_boxes
-from ..heads.bbox_head import softmax
+from ...structures import DetResults, bbox_overlaps, scale_boxes
+from ..heads.bbox_head import RoISamples, softmax
 from ..layers import Linear
-from .faster_rcnn import TRAINING_ITEM, FasterRCNNDetector, FasterRCNNNet
+from .faster_rcnn import FasterRCNNDetector, FasterRCNNNet
 
 K_INST = 2
 
@@ -86,10 +88,10 @@ class CrowdDetDetector(FasterRCNNDetector):
                            frozen_stages=self.frozen_stages,
                            param_dtype=self.compute_dtype)
 
-    @torch.no_grad()
-    def roi_forward(self, net: CrowdDetNet, roi_feats):
+    def head_outputs(self, net: CrowdDetNet, roi_feats):
         """The head on (B, R, C, 7, 7) features -> float32 (cls (B, R,
-        K_INST, C+1), reg (B, R, K_INST, 4))."""
+        K_INST, C+1), reg (B, R, K_INST, 4)), recording the autograd
+        graph."""
         b, r = roi_feats.shape[:2]
         cls, reg = net.roi_head.bbox_head(roi_feats.flatten(0, 1))
         return (cls.float().reshape(b, r, K_INST, -1),
@@ -129,5 +131,40 @@ class CrowdDetDetector(FasterRCNNDetector):
                           labels=take_rows(fl, idx), mask=ok,
                           num_candidates=vmask.sum(dim=-1))
 
-    def loss(self, net, batch):
-        raise NotImplementedError(f'CrowdDet {TRAINING_ITEM}')
+    def rcnn_losses(self, net, feats, samples: RoISamples, gt):
+        """erd_tpu's EMD loss: dict(loss_emd), the mean over the valid
+        samples of min(loss of pairing (0 -> gt 0, 1 -> gt 1), loss of
+        pairing (0 -> gt 1, 1 -> gt 0)). A slot whose gt overlaps its RoI
+        by less than 0.5 classifies background and regresses nothing."""
+        cls2, reg2 = self.head_outputs(net, self.roi_feats(feats,
+                                                           samples.rois))
+        b, s = samples.rois.shape[:2]
+        iou = bbox_overlaps(samples.rois, gt.bboxes)  # (B, S, G)
+        iou = torch.where(gt.mask[:, None, :], iou,
+                          torch.full_like(iou, -1.0))
+        iou2, gti2 = topk_stable(iou, min(K_INST, iou.shape[-1]))
+        slot_boxes = take_rows(gt.bboxes, gti2.flatten(1)).view(b, s, -1, 4)
+        slot_labels = torch.gather(gt.labels.long(), 1,
+                                   gti2.flatten(1)).view(b, s, -1)
+        slot_on = iou2 >= 0.5
+
+        def inst_loss(k, slot):
+            lab = torch.where(slot_on[..., slot], slot_labels[..., slot],
+                              torch.full_like(slot_labels[..., slot],
+                                              self.num_classes))
+            ce = cross_entropy_int(cls2[:, :, k], lab)
+            deltas = self.rcnn_coder.encode(samples.rois,
+                                            slot_boxes[:, :, slot])
+            deltas = torch.nan_to_num(deltas, nan=0.0, posinf=0.0,
+                                      neginf=0.0)
+            sl1 = smooth_l1_loss(reg2[:, :, k], deltas, beta=1.0,
+                                 reduction='none').sum(-1)
+            return ce + torch.where(slot_on[..., slot], sl1,
+                                    torch.zeros_like(sl1))
+
+        loss_a = inst_loss(0, 0) + inst_loss(1, 1)
+        loss_b = inst_loss(0, 1) + inst_loss(1, 0)
+        emd = torch.minimum(loss_a, loss_b)
+        valid = samples.valid.float()
+        return dict(loss_emd=(emd * valid).sum() / valid.sum().clamp(
+            min=1.0))

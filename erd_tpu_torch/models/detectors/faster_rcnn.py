@@ -1,4 +1,4 @@
-"""Faster R-CNN (R50-FPN) serving; the counterpart of
+"""Faster R-CNN (R50-FPN) serving and training; the counterpart of
 erd_tpu/models/detectors/faster_rcnn.py.
 
 ResNet (frozen BN) -> FPN P2-P6 (``start_level=0``, P6 by a stride-2
@@ -6,8 +6,15 @@ subsample), or FPN_CARAFE (``neck=dict(type='FPN_CARAFE', ...)``) -> RPN ->
 1000 padded proposals per image -> RoIAlign 7x7 on P2-P5 (kernel
 ``csrc/roi_align.cu``) -> Shared2FC bbox head -> per-class decode, top-2000
 and hard or soft NMS. As in erd_tpu, the detector is configuration plus
-functions and ``FasterRCNNNet`` holds the weights. Training is not ported
-yet: ``loss`` raises.
+functions and ``FasterRCNNNet`` holds the weights.
+
+``loss``: the RPN loss; proposals (2000 per level before the NMS, 1000
+kept) from the detached RPN outputs; the gt boxes joined to them, assigned
+and sampled (512 RoIs an image); RoIAlign of the samples with gradients
+into the FPN maps (the backward kernel of ``csrc/roi_align.cu``); the R-CNN
+CE and L1. The samplers' uniform draws come from a ``torch.Generator``
+seeded with the batch's ``img_id`` sum (erd_tpu folds the same sum into its
+PRNG key; the streams differ), or from the caller.
 """
 from __future__ import annotations
 
@@ -22,17 +29,17 @@ from ...structures import DetResults
 from ...task import DeltaXYWHBBoxCoder
 from ...utils import resolve_device
 from ..backbones.resnet import ResNet
-from ..heads.bbox_head import Shared2FCBBoxHead, rcnn_predict
+from ..heads.bbox_head import (RCNNTrainConfig, RoISamples,
+                               Shared2FCBBoxHead, rcnn_loss, rcnn_predict,
+                               rcnn_sample)
 from ..heads.gfl_head import AnchorContext, GFLTestConfig
-from ..heads.rpn_head import (ProposalConfig, RPNHeadNet,
-                              rpn_anchor_generator, rpn_proposals)
+from ..heads.rpn_head import (ProposalConfig, RPNHeadNet, RPNTrainConfig,
+                              rpn_anchor_generator, rpn_loss, rpn_proposals)
 from ..layers import Conv2d, Linear
 from ..necks import FPN, FPNCARAFE
 from ..preprocessor import Preprocessor
 
 ROI_STRIDES = (4, 8, 16, 32)  # the levels RoIAlign samples: P2-P5
-TRAINING_ITEM = ('training is not ported yet (ROADMAP.md, section 1: '
-                 '"Faster R-CNN training")')
 
 
 def build_neck(in_channels, neck: Optional[dict] = None) -> nn.Module:
@@ -110,15 +117,20 @@ class FasterRCNNNet(nn.Module):
 
 @dataclass
 class FasterRCNNDetector:
-    """Config + functions of Faster R-CNN serving."""
+    """Config + functions of Faster R-CNN."""
     num_classes: int = 80
     depth: int = 50
     compute_dtype: torch.dtype = torch.float32
-    # stem + layer1 frozen (the 1x recipe); serving does not read it
+    # stem + layer1 frozen (the 1x recipe): requires_grad=False in the net
     frozen_stages: int = 1
     # None (FPN) or an FPN_CARAFE spec dict
     neck: Optional[dict] = None
     preprocessor: Preprocessor = field(default_factory=Preprocessor)
+    rpn_train_cfg: RPNTrainConfig = field(default_factory=RPNTrainConfig)
+    rcnn_train_cfg: RCNNTrainConfig = field(default_factory=RCNNTrainConfig)
+    proposal_cfg_train: ProposalConfig = field(
+        default_factory=lambda: ProposalConfig(nms_pre=2000,
+                                               max_per_img=1000))
     proposal_cfg_test: ProposalConfig = field(
         default_factory=lambda: ProposalConfig(nms_pre=1000,
                                                max_per_img=1000))
@@ -182,13 +194,17 @@ class FasterRCNNDetector:
         return multilevel_roi_align(feats[:len(ROI_STRIDES)], rois,
                                     ROI_STRIDES)
 
-    @torch.no_grad()
-    def roi_forward(self, net: FasterRCNNNet, roi_feats):
+    def head_outputs(self, net: FasterRCNNNet, roi_feats):
         """bbox head on (B, R, C, 7, 7) features -> float32 (cls (B, R,
-        C+1), reg (B, R, 4C))."""
+        C+1), reg (B, R, 4C)), recording the autograd graph."""
         b, r = roi_feats.shape[:2]
         cls, reg = net.roi_head.bbox_head(roi_feats.flatten(0, 1))
         return cls.float().reshape(b, r, -1), reg.float().reshape(b, r, -1)
+
+    @torch.no_grad()
+    def roi_forward(self, net: FasterRCNNNet, roi_feats):
+        """``head_outputs`` without autograd (serving)."""
+        return self.head_outputs(net, roi_feats)
 
     def postprocess(self, cls_logits, reg_preds, rois, roi_mask, meta,
                     rescale=True) -> DetResults:
@@ -221,5 +237,57 @@ class FasterRCNNDetector:
         return self.postprocess(cls, reg, rois, roi_mask, meta,
                                 rescale=rescale)
 
-    def loss(self, net, batch):
-        raise NotImplementedError(f'Faster R-CNN {TRAINING_ITEM}')
+    def train_draws(self, img_id, b, n_anchors, n_candidates, device):
+        """The samplers' uniform keys: RPN positive and negative (B,
+        n_anchors), R-CNN positive and negative (B, n_candidates), from a
+        ``torch.Generator`` on ``device`` seeded with ``img_id.sum()``."""
+        gen = torch.Generator(device=device).manual_seed(int(img_id.sum()))
+        return tuple(torch.rand((b, n), generator=gen, device=device)
+                     for n in (n_anchors, n_anchors, n_candidates,
+                               n_candidates))
+
+    def loss(self, net: FasterRCNNNet, batch, draws=None):
+        """Training losses. batch: dict(images (B, H, W, 3) uint8, gt:
+        GTInstances and meta: ImageMeta of (B, ...) tensors), all on the
+        network's device. ``draws``: the four uniform key tensors of
+        ``train_draws`` to use instead of its generator's. Returns
+        dict(loss_rpn_cls, loss_rpn_bbox, loss_cls, loss_bbox) of 0-dim
+        tensors."""
+        images = batch['images']
+        feats = net.extract_feat(self.preprocessor(images))
+        rpn_cls, rpn_reg = net.rpn_head(feats)
+        return self.loss_from_feats(net, images.shape[1:3], feats, rpn_cls,
+                                    rpn_reg, batch['gt'], batch['meta'],
+                                    draws)
+
+    def loss_from_feats(self, net, canvas_shape, feats, rpn_cls, rpn_reg,
+                        gt, meta, draws=None):
+        """``loss`` after the network's first stage, for (H, W) canvases:
+        FPN levels NCHW, RPN outputs per level NHWC."""
+        ctx = self.anchor_context(canvas_shape)
+        b = feats[0].shape[0]
+        cls_flat = torch.cat([m.reshape(b, -1) for m in rpn_cls], 1).float()
+        reg_flat = torch.cat([m.reshape(b, -1, 4) for m in rpn_reg], 1)
+        if draws is None:
+            draws = self.train_draws(
+                meta.img_id, b, ctx.num_anchors,
+                gt.mask.shape[1] + self.proposal_cfg_train.max_per_img,
+                cls_flat.device)
+        losses = rpn_loss(ctx, cls_flat, reg_flat, gt, meta.img_shape,
+                          draws[0], draws[1], self.rpn_coder,
+                          self.rpn_train_cfg)
+        with torch.no_grad():
+            rois, _, roi_mask = rpn_proposals(
+                ctx, [c.float() for c in rpn_cls], rpn_reg, meta.img_shape,
+                self.rpn_coder, self.proposal_cfg_train)
+        samples = rcnn_sample(rois, roi_mask, gt, self.num_classes,
+                              self.rcnn_coder, draws[2], draws[3],
+                              self.rcnn_train_cfg)
+        losses.update(self.rcnn_losses(net, feats, samples, gt))
+        return losses
+
+    def rcnn_losses(self, net, feats, samples: RoISamples, gt):
+        """The R-CNN stage's losses on the sampled RoIs."""
+        cls, reg = self.head_outputs(net, self.roi_feats(feats,
+                                                         samples.rois))
+        return rcnn_loss(cls, reg, samples, self.rcnn_train_cfg)

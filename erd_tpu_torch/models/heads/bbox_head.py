@@ -5,19 +5,26 @@ flatten (C, 7, 7) -> fc1024 -> fc1024 -> {``fc_cls`` over C + 1 classes,
 background last; ``fc_reg`` class-specific 4C deltas, stds (0.1, 0.1, 0.2,
 0.2)}. mmdet flattens the RoI features channel-major, erd_tpu (7, 7, C);
 ``weight_import.params_from_jax`` permutes ``shared_fcs.0``'s input rows,
-so the port loads mmdet checkpoints by name. Training (MaxIoU assignment,
-random sampling, the CE + L1 loss) is not ported yet.
+so the port loads mmdet checkpoints by name. Training: the gt boxes join
+the proposals as candidates, MaxIoU assignment (0.5 / 0.5, no low-quality
+matches), 512 samples at a positive fraction 0.25 (``rcnn_sample``), then
+the CE over C + 1 classes and the L1 of the deltas at the target label,
+both divided by the count of valid samples (``rcnn_loss``), batched over B.
+erd_tpu's OHEM sampler is not ported (``build_detector`` raises for it).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...losses import cross_entropy_int, l1_loss
 from ...ops import nms_select_cfg
 from ...ops.misc import NEG_INF, take_rows, topk_stable
 from ...structures import DetResults, scale_boxes
-from ...task import DeltaXYWHBBoxCoder
+from ...task import DeltaXYWHBBoxCoder, max_iou_assign, random_sample
 from ..layers import Linear
 from .gfl_head import GFLTestConfig
 
@@ -46,6 +53,83 @@ class Shared2FCBBoxHead(nn.Module):
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x)
+
+
+@dataclass(frozen=True)
+class RCNNTrainConfig:
+    pos_iou_thr: float = 0.5
+    neg_iou_thr: float = 0.5
+    min_pos_iou: float = 0.5
+    num_samples: int = 512
+    pos_fraction: float = 0.25
+    cls_weight: float = 1.0
+    bbox_weight: float = 1.0
+
+
+@dataclass
+class RoISamples:
+    """Per-image fixed-size sampled RoIs and their targets, all (B, S,
+    ...)."""
+    rois: torch.Tensor    # (B, S, 4)
+    labels: torch.Tensor  # (B, S) int64, num_classes = background
+    deltas: torch.Tensor  # (B, S, 4) encoded targets (positives only)
+    is_pos: torch.Tensor  # (B, S) bool
+    valid: torch.Tensor   # (B, S) bool
+    gt_idx: torch.Tensor  # (B, S) int64 assigned gt (positives only)
+
+
+def rcnn_sample(proposals, prop_mask, gt, num_classes, coder,
+                pos_keys, neg_keys, cfg: RCNNTrainConfig) -> RoISamples:
+    """erd_tpu's ``rcnn_assign_single`` + ``rcnn_sample_single`` on a batch,
+    with its ``add_gt_as_proposals`` (the gt boxes join ahead of the
+    proposals as candidates).
+
+    proposals (B, R, 4) and prop_mask (B, R) from ``rpn_proposals``; gt a
+    GTInstances of (B, G, ...); pos_keys, neg_keys (B, G + R) uniform
+    draws."""
+    cand = torch.cat([gt.bboxes, proposals], 1)
+    cand_mask = torch.cat([gt.mask, prop_mask], 1)
+    res = max_iou_assign(cand, gt.bboxes, gt.labels, gt.mask,
+                         pos_iou_thr=cfg.pos_iou_thr,
+                         neg_iou_thr=cfg.neg_iou_thr,
+                         min_pos_iou=cfg.min_pos_iou,
+                         match_low_quality=False, valid_flags=cand_mask)
+    pos_mask = res.pos_mask & cand_mask
+    neg_mask = ~res.pos_mask & (res.labels != -2) & cand_mask
+    sample = random_sample(pos_mask, neg_mask, pos_keys, neg_keys,
+                           num=cfg.num_samples,
+                           pos_fraction=cfg.pos_fraction)
+    rois = take_rows(cand, sample.idx)
+    gt_idx = torch.gather(res.gt_idx, 1, sample.idx)
+    is_pos = sample.is_pos & sample.valid
+    labels = torch.where(is_pos, torch.gather(res.labels, 1, sample.idx),
+                         torch.full_like(gt_idx, num_classes))
+    deltas = coder.encode(rois, take_rows(gt.bboxes, gt_idx))
+    deltas = torch.nan_to_num(deltas, nan=0.0, posinf=0.0, neginf=0.0)
+    return RoISamples(rois=rois, labels=labels, deltas=deltas, is_pos=is_pos,
+                      valid=sample.valid, gt_idx=gt_idx)
+
+
+def rcnn_loss(cls_logits, reg_preds, samples: RoISamples,
+              cfg: RCNNTrainConfig = RCNNTrainConfig()):
+    """cls_logits (B, S, C+1) and reg_preds (B, S, 4C) float32 -> dict(
+    loss_cls, loss_bbox): the CE over the valid samples and the L1 of the
+    deltas at the target label over the positives, both divided by the
+    count of valid samples (mmdet's avg_factor, the sampled RoIs)."""
+    labels = samples.labels.reshape(-1)
+    valid = samples.valid.reshape(-1).float()
+    is_pos = samples.is_pos.reshape(-1).float()
+    n_valid = valid.sum().clamp(min=1.0)
+    cls_logits = cls_logits.reshape(labels.shape[0], -1)
+    ce = cross_entropy_int(cls_logits, labels)
+    loss_cls = cfg.cls_weight * (ce * valid).sum() / n_valid
+    reg = reg_preds.reshape(labels.shape[0], -1, 4)
+    safe = labels.clamp(0, reg.shape[1] - 1)
+    at_label = torch.take_along_dim(reg, safe[:, None, None], 1)[:, 0]
+    l1 = l1_loss(at_label, samples.deltas.reshape(-1, 4),
+                 reduction='none').sum(-1)
+    loss_bbox = cfg.bbox_weight * (l1 * is_pos).sum() / n_valid
+    return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
 
 
 def softmax(x, dim=-1):

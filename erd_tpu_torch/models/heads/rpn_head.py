@@ -17,9 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...losses import binary_cross_entropy_with_logits, l1_loss
 from ...ops import nms_select
 from ...ops.misc import take_rows, topk_stable
-from ...task import AnchorGenerator, DeltaXYWHBBoxCoder
+from ...task import (AnchorGenerator, DeltaXYWHBBoxCoder, max_iou_assign,
+                     random_sample, valid_flags)
 from ..layers import Conv2d
 from .gfl_head import AnchorContext
 
@@ -50,6 +52,59 @@ class RPNHeadNet(nn.Module):
             outs_cls.append(self.rpn_cls(y).permute(0, 2, 3, 1))
             outs_reg.append(self.rpn_reg(y).float().permute(0, 2, 3, 1))
         return outs_cls, outs_reg
+
+
+@dataclass(frozen=True)
+class RPNTrainConfig:
+    pos_iou_thr: float = 0.7
+    neg_iou_thr: float = 0.3
+    min_pos_iou: float = 0.3
+    num_samples: int = 256
+    pos_fraction: float = 0.5
+    cls_weight: float = 1.0
+    bbox_weight: float = 1.0
+    pad_divisor: int = 32
+
+
+def rpn_loss(ctx: AnchorContext, cls_flat, reg_flat, gt, img_shapes,
+             pos_keys, neg_keys, coder: DeltaXYWHBBoxCoder,
+             cfg: RPNTrainConfig = RPNTrainConfig(), num_base_anchors=3):
+    """erd_tpu's ``rpn_loss`` on a batch.
+
+    Args:
+        cls_flat: (B, N) float32 objectness logits; reg_flat (B, N, 4)
+            float32 deltas, anchors in ``ctx`` order.
+        gt: GTInstances of (B, G, ...) tensors; img_shapes (B, 2) (H, W).
+        pos_keys, neg_keys: (B, N) uniform draws of the sampler.
+    Returns dict(loss_rpn_cls, loss_rpn_bbox) of 0-dim tensors.
+    """
+    anchors = ctx.device_anchors(cls_flat.device)
+    pad_shape = torch.ceil(img_shapes / cfg.pad_divisor) * cfg.pad_divisor
+    vf = valid_flags(ctx.featmap_sizes, ctx.strides, pad_shape)
+    vf = vf.repeat_interleave(num_base_anchors, dim=-1)
+    res = max_iou_assign(anchors, gt.bboxes, torch.zeros_like(gt.labels),
+                         gt.mask, pos_iou_thr=cfg.pos_iou_thr,
+                         neg_iou_thr=cfg.neg_iou_thr,
+                         min_pos_iou=cfg.min_pos_iou, match_low_quality=True,
+                         valid_flags=vf)
+    neg_mask = ~res.pos_mask & (res.labels != -2) & vf
+    sample = random_sample(res.pos_mask & vf, neg_mask, pos_keys, neg_keys,
+                           num=cfg.num_samples,
+                           pos_fraction=cfg.pos_fraction)
+    sel_w = sample.valid.float()
+    n_sampled = sel_w.sum(-1).clamp(min=1.0)
+    bce = binary_cross_entropy_with_logits(
+        torch.gather(cls_flat, 1, sample.idx), sample.is_pos.float())
+    loss_cls = (bce * sel_w).sum(-1) / n_sampled
+    pos_w = (sample.is_pos & sample.valid).float()
+    target = coder.encode(anchors[sample.idx], take_rows(
+        gt.bboxes, torch.gather(res.gt_idx, 1, sample.idx)))
+    target = torch.nan_to_num(target, nan=0.0, posinf=0.0, neginf=0.0)
+    l1 = l1_loss(take_rows(reg_flat, sample.idx), target,
+                 reduction='none').sum(-1)
+    loss_bbox = (l1 * pos_w).sum(-1) / n_sampled
+    return dict(loss_rpn_cls=cfg.cls_weight * loss_cls.mean(),
+                loss_rpn_bbox=cfg.bbox_weight * loss_bbox.mean())
 
 
 @dataclass(frozen=True)

@@ -26,6 +26,10 @@ import torch
 
 from . import cuda_build
 
+NOT_TRAINED_YET = ('multi-scale deformable attention has no backward yet: '
+                   'DETR training is not ported (ROADMAP.md, section 1: '
+                   '"DINO and Deformable DETR training")')
+
 MAX_LEVELS = 4
 KERNEL_HEAD_DIM = 32  # one lane of a warp per channel
 
@@ -119,9 +123,13 @@ def ms_deform_attn(values, spatial_shapes: Sequence[Tuple[int, int]],
     Returns (B, Q, heads, hd) float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Serving only: raises when an input needs a gradient.
     """
     b, n, heads, q, levels, points = _check(values, spatial_shapes,
                                             locations, weights)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (values, locations, weights)):
+        raise NotImplementedError(NOT_TRAINED_YET)
     if values.device.type == 'cpu':
         return ms_deform_attn_plain(values, spatial_shapes, locations,
                                     weights)

@@ -12,7 +12,10 @@ finest-scale rule). erd_tpu computes all levels and selects with a one-hot
 sum, which gives the same numbers, since x * 1 + 0 + 0 + 0 == x. The level
 map is computed once, in torch, by ``multilevel_roi_align``, and the same
 (B, R) tensor goes to the kernel (``csrc/roi_align.cu``, CUDA tensors) or to
-the plain version below (CPU tensors).
+the plain version below (CPU tensors). ``roi_align`` is an autograd
+Function: its gradient in the maps is ``roi_align_backward``, the backward
+kernel of the same file or its plain version, a scatter-add of every
+sample's four bilinear corners.
 
 Layout: features are the port's NCHW level maps; the output is (B, R, C,
 out, out), the order mmdet's bbox head flattens (erd_tpu's is (R, out, out,
@@ -59,10 +62,17 @@ def _sample_axis(lo, bin_size, size, out_size, s):
     return inside, i0, i1, p - i0.to(torch.float32)
 
 
+def acc_dtype(dtype):
+    """The plain versions' accumulation dtype: float32, or float64 for
+    float64 inputs (finite-difference checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def roi_align_level(feat, rois, spatial_scale, out_size=7, sampling_ratio=2):
     """Plain RoIAlign of one level: feat (C, H, W), rois (R, 4) xyxy in
-    image coordinates -> (R, C, out, out) float32."""
-    feat = feat.float()
+    image coordinates -> (R, C, out, out) float32 (float64 for a float64
+    map)."""
+    feat = feat.to(acc_dtype(feat.dtype))
     c, h, w = feat.shape
     r, s = rois.shape[0], sampling_ratio
     x1 = rois[:, 0] * spatial_scale - 0.5
@@ -88,7 +98,8 @@ def roi_align_level(feat, rois, spatial_scale, out_size=7, sampling_ratio=2):
     inside = (in_y[:, :, None] & in_x[:, None, :])[..., None]
     val = torch.where(inside, val, torch.zeros((), device=val.device))
     val = val.reshape(r, out_size, s, out_size, s, c)
-    acc = torch.zeros((r, out_size, out_size, c), device=val.device)
+    acc = torch.zeros((r, out_size, out_size, c), dtype=val.dtype,
+                      device=val.device)
     for iy in range(s):  # the kernel's summation order
         for ix in range(s):
             acc = acc + val[:, :, iy, :, ix]
@@ -100,8 +111,8 @@ def roi_align_plain(feats, rois, levels, strides, out_size=7,
     """Plain PyTorch version of the RoIAlign kernel (same arguments)."""
     b, r = levels.shape
     c = feats[0].shape[1]
-    out = torch.zeros((b, r, c, out_size, out_size), dtype=torch.float32,
-                      device=rois.device)
+    out = torch.zeros((b, r, c, out_size, out_size),
+                      dtype=acc_dtype(feats[0].dtype), device=rois.device)
     for i in range(b):
         for lvl, (feat, stride) in enumerate(zip(feats, strides)):
             sel = torch.nonzero(levels[i] == lvl).flatten()
@@ -112,21 +123,7 @@ def roi_align_plain(feats, rois, levels, strides, out_size=7,
     return out
 
 
-def roi_align(feats: Sequence[torch.Tensor], rois, levels,
-              strides=(4, 8, 16, 32), out_size=7, sampling_ratio=2):
-    """RoIAlign of every RoI on its own level.
-
-    Args:
-        feats: per-level (B, C, H_l, W_l) float32 or bfloat16 maps (at most
-            4 levels), all of one dtype.
-        rois: (B, R, 4) float32 xyxy in image coordinates.
-        levels: (B, R) int32 level of each RoI, in [0, len(feats)).
-        strides: the levels' strides (spatial scale 1 / stride).
-    Returns (B, R, C, out_size, out_size) float32.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    launch for the batch, counted in ``roi_align.launches``).
-    """
+def _check(feats, rois, levels, strides):
     nl = len(feats)
     if not 1 <= nl <= 4 or len(strides) < nl:
         raise ValueError('roi_align takes 1 to 4 levels, each with a stride')
@@ -136,30 +133,46 @@ def roi_align(feats: Sequence[torch.Tensor], rois, levels,
         raise ValueError('rois must be (B, R, 4) and levels (B, R)')
     if any(f.dim() != 4 or tuple(f.shape[:2]) != (b, c) for f in feats):
         raise ValueError('feats must be (B, C, H, W) maps of one B and C')
-    if rois.device.type == 'cpu':
-        return roi_align_plain(feats, rois, levels, strides, out_size,
-                               sampling_ratio)
+
+
+def _check_cuda(what, tensors, rois, levels):
+    """The kernels' argument rules: one CUDA device, float32 rois, int32
+    levels, contiguous tensors."""
     if rois.device.type != 'cuda':
-        raise RuntimeError(f'roi_align: no kernel for {rois.device}')
+        raise RuntimeError(f'{what}: no kernel for {rois.device}')
+    if rois.dtype != torch.float32 or levels.dtype != torch.int32:
+        raise TypeError(f'{what}: rois float32 and levels int32 expected')
+    tensors = list(tensors) + [rois, levels]
+    if any(t.device != rois.device for t in tensors):
+        raise ValueError(f'{what}: all tensors must be on one device')
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f'{what}: tensors must be contiguous')
+
+
+def _level_args(shapes, strides):
+    """(H_l, W_l) pairs and 1 / stride scales of 4 level slots."""
+    nl = len(shapes)
+    hw = []
+    for i in range(4):
+        hw += list(shapes[i]) if i < nl else [0, 0]
+    return hw, [1.0 / s for s in strides[:nl]] + [0.0] * (4 - nl)
+
+
+def _roi_align_kernel(feats, rois, levels, strides, out_size,
+                      sampling_ratio):
+    """Launch ``erd_roi_align`` (CUDA tensors); counted in
+    ``roi_align.launches``."""
     dtype = feats[0].dtype
     if dtype not in (torch.float32, torch.bfloat16) or \
             any(f.dtype != dtype for f in feats):
         raise TypeError('roi_align: feats must all be float32 or bfloat16')
-    if rois.dtype != torch.float32 or levels.dtype != torch.int32:
-        raise TypeError('roi_align: rois float32 and levels int32 expected')
-    tensors = list(feats) + [rois, levels]
-    if any(t.device != rois.device for t in tensors):
-        raise ValueError('roi_align: all tensors must be on one device')
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError('roi_align: tensors must be contiguous')
-    r = rois.shape[1]
+    _check_cuda('roi_align', feats, rois, levels)
+    b, c = feats[0].shape[:2]
+    r, nl = rois.shape[1], len(feats)
     out = torch.empty((b, r, c, out_size, out_size), dtype=torch.float32,
                       device=rois.device)
     ptrs = [f.data_ptr() for f in feats] + [None] * (4 - nl)
-    hw = []
-    for i in range(4):
-        hw += list(feats[i].shape[2:]) if i < nl else [0, 0]
-    scales = [1.0 / s for s in strides[:nl]] + [0.0] * (4 - nl)
+    hw, scales = _level_args([f.shape[2:] for f in feats], strides)
     lib = cuda_build.load('roi_align')
     fn = lib.erd_roi_align
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
@@ -176,7 +189,157 @@ def roi_align(feats: Sequence[torch.Tensor], rois, levels,
     return out
 
 
+class _RoIAlign(torch.autograd.Function):
+    """RoIAlign with its gradient into the level maps; the RoIs and levels
+    take none (erd_tpu samples detached proposals and gt boxes). The
+    backward is ``roi_align_backward``: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, strides, out_size, sampling_ratio,
+                *feats):
+        ctx.save_for_backward(rois, levels)
+        ctx.args = ([tuple(f.shape[2:]) for f in feats], feats[0].dtype,
+                    strides, out_size, sampling_ratio)
+        if rois.device.type == 'cpu':
+            return roi_align_plain(feats, rois, levels, strides, out_size,
+                                   sampling_ratio)
+        return _roi_align_kernel(feats, rois, levels, strides, out_size,
+                                 sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, levels = ctx.saved_tensors
+        shapes, dtype, strides, out_size, sampling_ratio = ctx.args
+        grads = roi_align_backward(grad.contiguous(), rois, levels, shapes,
+                                   strides, dtype, out_size, sampling_ratio)
+        return (None,) * 5 + tuple(grads)
+
+
+def roi_align(feats: Sequence[torch.Tensor], rois, levels,
+              strides=(4, 8, 16, 32), out_size=7, sampling_ratio=2):
+    """RoIAlign of every RoI on its own level.
+
+    Args:
+        feats: per-level (B, C, H_l, W_l) float32 or bfloat16 maps (at most
+            4 levels), all of one dtype.
+        rois: (B, R, 4) float32 xyxy in image coordinates.
+        levels: (B, R) int32 level of each RoI, in [0, len(feats)).
+        strides: the levels' strides (spatial scale 1 / stride).
+    Returns (B, R, C, out_size, out_size) float32, differentiable in the
+    maps (``roi_align_backward``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    launch for the batch, counted in ``roi_align.launches``).
+    """
+    _check(feats, rois, levels, strides)
+    if rois.device.type not in ('cpu', 'cuda'):
+        raise RuntimeError(f'roi_align: no kernel for {rois.device}')
+    return _RoIAlign.apply(rois, levels, tuple(strides), out_size,
+                           sampling_ratio, *feats)
+
+
 roi_align.launches = 0
+
+
+def roi_align_backward_plain(grad, rois, levels, shapes, strides,
+                             out_size=7, sampling_ratio=2):
+    """Plain PyTorch version of the backward kernel: grad (B, R, C, out,
+    out) float32 -> per-level (B, C, H_l, W_l) float32 gradients (float64
+    for a float64 grad). Each
+    sample's four bilinear corners get grad / s^2 times their weight, added
+    with ``index_add_`` into the level's flattened (B * H * W, C) pixel
+    rows; samples outside [-1, H] x [-1, W] and RoIs of other levels add
+    nothing (the transpose of erd_tpu's gathers, mask and one-hot)."""
+    b, r, c = grad.shape[:3]
+    s, dev = sampling_ratio, grad.device
+    g = _div(grad.to(acc_dtype(grad.dtype)), s * s).permute(0, 1, 3, 4, 2)
+    g = g.repeat_interleave(s, 2).repeat_interleave(s, 3)  # (B, R, S, S, C)
+    out = []
+    for lvl, ((h, w), stride) in enumerate(zip(shapes, strides)):
+        rows = torch.zeros((b * h * w, c), dtype=g.dtype, device=dev)
+        for i in range(b):
+            sel = torch.nonzero(levels[i] == lvl).flatten()
+            if not sel.numel():
+                continue
+            scale = 1.0 / stride
+            box = rois[i, sel] * scale - 0.5
+            size = _div((box[:, 2:] - box[:, :2]).clamp(min=1e-6), out_size)
+            in_y, y0, y1, ly = _sample_axis(box[:, 1], size[:, 1], h,
+                                            out_size, s)
+            in_x, x0, x1, lx = _sample_axis(box[:, 0], size[:, 0], w,
+                                            out_size, s)
+            inside = (in_y[:, :, None] & in_x[:, None, :])[..., None]
+            gi = torch.where(inside, g[i, sel],
+                             torch.zeros((), device=dev))
+            hy, hx = (1 - ly)[:, :, None], (1 - lx)[:, None, :]
+            ly, lx = ly[:, :, None], lx[:, None, :]
+            base = i * h * w
+            for yi, xi, wt in ((y0, x0, hy * hx), (y0, x1, hy * lx),
+                               (y1, x0, ly * hx), (y1, x1, ly * lx)):
+                idx = base + yi[:, :, None] * w + xi[:, None, :]
+                rows.index_add_(0, idx.flatten(),
+                                (gi * wt[..., None]).reshape(-1, c))
+        out.append(rows.view(b, h, w, c).permute(0, 3, 1, 2).contiguous())
+    return out
+
+
+def roi_align_backward(grad, rois, levels, shapes, strides=(4, 8, 16, 32),
+                       dtype=torch.float32, out_size=7, sampling_ratio=2):
+    """Gradient of ``roi_align`` in its maps.
+
+    Args:
+        grad: (B, R, C, out, out) float32, the gradient of the output.
+        rois, levels: as ``roi_align`` took them.
+        shapes: the levels' (H_l, W_l).
+        dtype: the maps' dtype, float32 or bfloat16.
+    Returns per-level (B, C, H_l, W_l) gradients in ``dtype``: float32 sums,
+    each rounded once to ``dtype`` (the transpose of erd_tpu's
+    ``astype(float32)`` of the maps).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    ``erd_roi_align_backward`` into zeroed float32 buffers (one launch for
+    the batch, counted in ``roi_align_backward.launches``).
+    """
+    nl = len(shapes)
+    if not 1 <= nl <= 4 or len(strides) < nl:
+        raise ValueError('roi_align_backward takes 1 to 4 levels, each with '
+                         'a stride')
+    b, r = levels.shape
+    if grad.dim() != 5 or tuple(grad.shape[:2]) != (b, r) or \
+            tuple(grad.shape[3:]) != (out_size, out_size) or \
+            tuple(rois.shape) != (b, r, 4):
+        raise ValueError('roi_align_backward: grad must be (B, R, C, out, '
+                         'out), rois (B, R, 4) and levels (B, R)')
+    if rois.device.type == 'cpu':
+        return [g.to(dtype) for g in roi_align_backward_plain(
+            grad, rois, levels, shapes, strides, out_size, sampling_ratio)]
+    if grad.dtype != torch.float32 or \
+            dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError('roi_align_backward: float32 grad, float32 or '
+                        'bfloat16 maps expected')
+    _check_cuda('roi_align_backward', [grad], rois, levels)
+    c = grad.shape[2]
+    bufs = [torch.zeros((b, c, h, w), dtype=torch.float32,
+                        device=rois.device) for h, w in shapes]
+    ptrs = [t.data_ptr() for t in bufs] + [None] * (4 - nl)
+    hw, scales = _level_args(shapes, strides)
+    lib = cuda_build.load('roi_align')
+    fn = lib.erd_roi_align_backward
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
+                   [ctypes.c_float] * 4 + [ctypes.c_int] * 5 +
+                   [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(rois.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(grad.data_ptr(), rois.data_ptr(), levels.data_ptr(), *ptrs,
+                 *hw, *scales, b, r, c, out_size, sampling_ratio, stream)
+    cuda_build.check(lib, err, 'roi_align_backward')
+    roi_align_backward.launches += 1
+    return [t.to(dtype) for t in bufs]
+
+
+roi_align_backward.launches = 0
 
 
 def multilevel_roi_align(feats: Sequence[torch.Tensor], rois,

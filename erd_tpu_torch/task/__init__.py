@@ -1,7 +1,10 @@
 from .anchors import AnchorGenerator, featmap_sizes_for, valid_flags
 from .atss import AssignResult, atss_assign, atss_assign_plain
 from .coder import DeltaXYWHBBoxCoder
+from .max_iou import max_iou_assign
+from .samplers import SampleResult, random_sample
 
 __all__ = ['AnchorGenerator', 'featmap_sizes_for', 'valid_flags',
            'AssignResult', 'atss_assign', 'atss_assign_plain',
-           'DeltaXYWHBBoxCoder']
+           'DeltaXYWHBBoxCoder', 'max_iou_assign', 'SampleResult',
+           'random_sample']

@@ -526,8 +526,11 @@ def test_build_detector_accepts_and_raises():
     assert crowd.test_cfg.pre_nms_total == 2000
     assert build_detector(Config(type='CrowdDet')).test_cfg.iou_threshold \
         == 0.5
-    with pytest.raises(NotImplementedError, match='Faster R-CNN training'):
-        crowd.loss(None, {})
+    # the loss is ported (tests/test_torch_carafe_crowddet_train.py); the
+    # OHEM sampler is not
+    with pytest.raises(NotImplementedError, match='rcnn_sampler'):
+        build_detector(Config(type='CrowdDet',
+                              train_cfg=dict(rcnn_sampler='ohem')))
     carafe_neck = dict(type='FPN_CARAFE', out_channels=256, num_outs=5,
                        start_level=0)
     for model in (dict(type='GFL', neck=carafe_neck),

@@ -23,7 +23,8 @@ from erd_tpu_torch.ops import (ModulatedDeformConv, arrange_offsets,
                                deform_im2col_plain, integral_decode,
                                integral_decode_plain,
                                map_roi_levels, ms_deform_attn,
-                               ms_deform_attn_plain, nms_sorted_keep,
+                               ms_deform_attn_plain, multilevel_roi_align,
+                               nms_sorted_keep,
                                nms_sorted_keep_plain, roi_align,
                                roi_align_plain, set_nms_sorted_keep,
                                set_nms_sorted_keep_plain, soft_nms,
@@ -757,3 +758,194 @@ def test_carafe_and_crowddet_serving_on_cuda_use_kernels(cuda, kind):
                                atol=1e-6)
     torch.testing.assert_close(got.bboxes.cpu(), want.bboxes, rtol=0,
                                atol=1e-2)
+
+
+# ----------------------------------------------- training (backward kernels)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype):
+    """512 RoIs an image, 2 images, on P2-P5 of a 400x672 canvas (64
+    channels), with off-image, degenerate and last-row/column boxes. The
+    float32 buffers agree within 1e-5 * max|g| (atomics add in an order
+    that changes from run to run); rounded to the maps' dtype, within one
+    bf16 ulp of the plain version's rounding or 1e-5 * max|g|."""
+    from erd_tpu_torch.ops import roi_align_backward, roi_align_backward_plain
+    rs = np.random.RandomState(15)
+    shapes = [(100, 168), (50, 84), (25, 42), (13, 21)]
+    b, r, c = 2, 512, 64
+    xy = rs.uniform(-30, [672, 400], (b, r, 2))
+    wh = np.exp(rs.uniform(np.log(2), np.log(600), (b, r, 2)))
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[:, :5] = [[0, 0, 0, 0], [640, 380, 672, 400], [-60, -40, -2, -1],
+                   [10, 10, 10, 10], [0, 396, 672, 400]]
+    rois = torch.from_numpy(rois).to(cuda)
+    levels = map_roi_levels(rois, 4)
+    assert len(torch.unique(levels)) == 4
+    grad = torch.from_numpy(rs.randn(b, r, c, 7, 7).astype(np.float32)).to(
+        cuda)
+    before = roi_align_backward.launches
+    got32 = roi_align_backward(grad, rois, levels, shapes)
+    got = roi_align_backward(grad, rois, levels, shapes, dtype=dtype)
+    torch.cuda.synchronize()
+    assert roi_align_backward.launches == before + 2
+    want = roi_align_backward_plain(grad, rois, levels, shapes,
+                                    (4, 8, 16, 32))
+    for g32, g, w in zip(got32, got, want):
+        limit = 1e-5 * float(w.abs().max())
+        assert g.dtype == dtype and g.shape == (b, c) + tuple(w.shape[2:])
+        assert float((g32 - w).abs().max()) <= limit
+        near = (g.float() - w).abs() <= limit
+        if dtype == torch.bfloat16:
+            assert bool(((bf16_ulps(g, w.to(dtype)) <= 1) | near).all())
+        else:
+            assert bool(near.all())
+
+
+def test_roi_align_autograd_on_cuda_uses_the_backward_kernel(cuda):
+    feats = [torch.randn(1, 8, h, w, device=cuda, requires_grad=True)
+             for h, w in ((20, 24), (10, 12), (5, 6), (3, 3))]
+    rois = torch.tensor([[[4.0, 4.0, 60.0, 50.0], [0, 0, 96, 80],
+                          [10, 20, 30, 40]]], device=cuda)
+    counts = (roi_align.launches, roi_align_backward_launches())
+    out = multilevel_roi_align(feats, rois)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert (roi_align.launches, roi_align_backward_launches()) == \
+        (counts[0] + 1, counts[1] + 1)
+    assert all(f.grad is not None for f in feats)
+
+
+def roi_align_backward_launches():
+    from erd_tpu_torch.ops import roi_align_backward
+    return roi_align_backward.launches
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(2, 256, 25, 42), (2, 40, 7, 9)])
+def test_carafe_backward_kernel_matches_plain(cuda, dtype, shape):
+    """The top FPN-CARAFE step of an 800x1344 canvas at batch 2, and odd
+    sizes with a partial channel chunk; peaked logits. dx and dlogits
+    within 1e-5 * max|plain| in float32 (sums over taps and channels in
+    another order); in bf16 within one bf16 ulp or 1e-5 * max|plain|."""
+    from erd_tpu_torch.ops import carafe_backward, carafe_backward_plain
+    rs = np.random.RandomState(shape[1] + 1)
+    b, c, h, w = shape
+    x = torch.from_numpy(rs.randn(b, c, h, w).astype(np.float32)).to(
+        cuda).to(dtype)
+    logits = torch.from_numpy((rs.randn(b, 100, h, w) * 2).astype(
+        np.float32)).to(cuda).to(dtype)
+    g = torch.from_numpy(rs.randn(b, c, 2 * h, 2 * w).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = carafe_backward.launches
+    dx, dl = carafe_backward(x, logits, g)
+    torch.cuda.synchronize()
+    assert carafe_backward.launches == before + 1
+    wx, wl = carafe_backward_plain(x, logits, g)
+    for got, want in ((dx, wx), (dl, wl)):
+        assert got.dtype == dtype and got.shape == want.shape
+        near = (got.float() - want.float()).abs() <= \
+            1e-5 * float(want.float().abs().max())
+        if dtype == torch.bfloat16:
+            assert bool(((bf16_ulps(got, want) <= 1) | near).all())
+        else:
+            assert bool(near.all())
+
+
+def test_carafe_autograd_on_cuda_uses_the_backward_kernel(cuda):
+    from erd_tpu_torch.ops import carafe_backward
+    x = torch.randn(1, 16, 5, 6, device=cuda, requires_grad=True)
+    lg = torch.randn(1, 100, 5, 6, device=cuda, requires_grad=True)
+    counts = (carafe.launches, carafe_backward.launches)
+    carafe(x, lg).square().sum().backward()
+    assert (carafe.launches, carafe_backward.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    assert x.grad is not None and lg.grad is not None
+
+
+def test_backward_functions_pass_gradcheck_on_the_plain_path():
+    """Finite differences in float64 of both autograd Functions on the
+    plain path (CPU tensors, the kernels' reference), at a tiny size."""
+    gen = torch.Generator().manual_seed(0)
+    fs = [torch.randn(1, 2, h, w, generator=gen, dtype=torch.float64)
+          .requires_grad_() for h, w in ((5, 6), (3, 3))]
+    rois = torch.tensor([[[1.0, 2.0, 13.0, 15.0], [-3.0, 10.0, 25.0, 22.0],
+                          [2.0, 1.0, 30.0, 20.0]]])
+    levels = torch.tensor([[0, 0, 1]], dtype=torch.int32)
+    assert torch.autograd.gradcheck(
+        lambda *f: roi_align(list(f), rois, levels, (4, 8)), tuple(fs))
+    x = torch.randn(1, 2, 2, 3, generator=gen, dtype=torch.float64)
+    lg = torch.randn(1, 100, 2, 3, generator=gen, dtype=torch.float64)
+    assert torch.autograd.gradcheck(
+        carafe, (x.requires_grad_(), lg.requires_grad_()))
+
+
+def test_ms_deform_attn_refuses_gradients_on_cuda(cuda):
+    """The deformable-attention backward is not ported: a CUDA input that
+    needs a gradient raises, under no_grad the kernel runs."""
+    values = torch.randn(1, 6, 8, 32, device=cuda)
+    locs = torch.rand(1, 3, 8, 1, 4, 2, device=cuda)
+    weights = torch.rand(1, 3, 8, 1, 4, device=cuda)
+    with pytest.raises(NotImplementedError, match='DINO and Deformable'):
+        ms_deform_attn(values.requires_grad_(), [(2, 3)], locs, weights)
+    with torch.no_grad():
+        out = ms_deform_attn(values, [(2, 3)], locs, weights)
+    assert out.shape == (1, 3, 8, 32)
+
+
+@pytest.mark.parametrize('kind', ['frcnn', 'carafe', 'crowddet'])
+def test_two_stage_training_on_cuda_uses_kernels(cuda, kind):
+    """Two fit steps of each config at depth 18, bf16, batch 2, 256x320 on
+    the card: finite losses, the forward and backward kernels of the path
+    launched every step (RoIAlign, the RPN NMS; CARAFE for FPN-CARAFE),
+    the frozen stages unchanged."""
+    from erd_tpu_torch.apis import build_trainer
+    from erd_tpu_torch.engine import Hook, resnet_frozen_paths
+    from erd_tpu_torch.ops import carafe_backward, roi_align_backward
+    from erd_tpu_torch.structures import GTInstances, ImageMeta
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.fromfile(os.path.join(root, 'configs', {
+        'frcnn': 'faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py',
+        'carafe': 'carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py',
+        'crowddet': 'crowddet/crowddet-rcnn_r50_fpn_8xb2-30e_'
+                    'crowdhuman.py'}[kind]))
+    cfg.model.depth = 18
+    cfg.train_cfg.epochs = 1
+    det = build_detector(cfg.model)
+    net = det.init(seed=0, device=cuda)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    rs = np.random.RandomState(4)
+    gt = stack_to([GTInstances.pad(np.array([[20, 30, 120, 150],
+                                             [150, 40, 300, 200]],
+                                            np.float32), [0, 0], 4)] * 2,
+                  cuda)
+    batch = dict(images=torch.from_numpy(rs.randint(
+        0, 256, (2, 256, 320, 3), np.uint8)).to(cuda), gt=gt,
+        meta=stack_to([ImageMeta.make((256, 320), (256, 320), (1.0, 1.0),
+                                      img_id=i) for i in range(2)], cuda))
+
+    class Loader:
+        cfg = type('LoaderConfig', (), {'batch_size': 2})()
+
+        def steps_per_epoch(self, epoch):
+            return 2
+
+        def epoch(self, epoch):
+            yield batch
+            yield batch
+    fns = (roi_align, roi_align_backward, nms_sorted_keep, carafe,
+           carafe_backward)
+    counts = [f.launches for f in fns]
+    class Record(Hook):
+        def after_iter(self, trainer, step, step_losses):
+            losses.append(step_losses)
+    trainer = build_trainer(cfg, det, Loader(), device=cuda)
+    losses = []
+    trainer.hooks.append(Record())
+    trainer.fit(net)
+    got = [f.launches - c for f, c in zip(fns, counts)]
+    steps = 2 if kind == 'carafe' else 0
+    assert got == [2, 2, 2, 3 * steps, 3 * steps], got
+    assert all(np.isfinite(v) for l in losses for v in l.values())
+    frozen = resnet_frozen_paths(1)
+    for k, v in net.state_dict().items():
+        if k.startswith(frozen):
+            assert torch.equal(v, start[k]), k

@@ -517,12 +517,16 @@ def test_state_dict_has_mmdet_names(frcnn):
 
 
 def test_faster_rcnn_loss_and_other_two_stage_types_raise(frcnn):
+    """The loss is ported (tests/test_torch_frcnn_train.py); its OHEM
+    sampler, which erd_tpu also offers, and the other two-stage types still
+    raise."""
     from erd_tpu_torch.apis import build_detector
     from erd_tpu_torch.config import Config
     _, _, det, net = frcnn
     with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md, section 1: "Faster R-CNN training"'):
-        det.loss(net, {})
+                       match='"Zoo, after the main path"'):
+        build_detector(Config(type='FasterRCNN',
+                              train_cfg=dict(rcnn_sampler='ohem')))
     for mtype in ('MaskRCNN', 'CascadeRCNN'):
         with pytest.raises(NotImplementedError,
                            match='"Zoo, after the main path"'):
