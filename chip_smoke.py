@@ -153,7 +153,32 @@ Phases, in order; any failed check exits non-zero before the last line:
                 moved; img/s, peak memory, the stage times of one
                 train_step (a synchronize after each stage) and the idle
                 share of one profiled step;
- 25. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 25. detr train kernels  one bs-16, 800x1344 bf16 training step each of
+                DINO-4scale R50 and Deformable DETR R50 (sampling weights
+                arranged) with the 12 calls of the sampling backward kernel
+                captured: each held against its plain version (values,
+                locations and weights within 1e-5 * max|plain|; atomics
+                reorder the value sums), >= 50 % of the samples fractional
+                and >= 1 % off their map; the encoder call and both decoder
+                call shapes timed by CUDA events less the value gradient's
+                zeroing, beside their byte bounds;
+ 26. detr train reference  both DETR configs in float32 at full width on a
+                small input, card (kernels) vs CPU (plain), the card taking
+                the CPU's Hungarian matches and denoising draws (how many
+                of its own matches differ is logged): losses rtol 1e-3,
+                ||diff|| / ||g|| <= 1e-3 overall and over backbone + neck,
+                transformer and heads, 3e-3 over the sampling offsets, 1e-2
+                per tensor; a 1 % error planted in the backward kernel's
+                value gradient, and one in its location gradient, must each
+                fail those limits;
+ 27. detr train  build_trainer + fit of both DETR configs at batch 16,
+                800x1344, bf16: 2 warm-up and 5 timed steps, exactly 12
+                sampling and 12 sampling-backward launches per step, finite
+                losses, frozen stages unchanged, every trainable weight
+                moved; img/s, peak memory, the stage times of one
+                train_step (the host's Hungarian matching apart) and the
+                idle share of one profiled step;
+ 28. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The script sets no global precision flag: the port convolves float32 in
 full float32 itself (erd_tpu_torch.utils.conv_fp32_precision), torch's
@@ -305,6 +330,51 @@ def profile_request(torch, fn, tag='profile'):
         f'launches, device idle share {max(0.0, 1 - busy / wall_ms):.3f}')
     for dev, count, key in sorted(rows, reverse=True)[:10]:
         log(f'{tag}:   {dev:8.3f} ms  x{count:<4d} {key[:90]}')
+
+
+def step_timer(torch):
+    """A trainer hook recording the host time, after a synchronize, before
+    training and after every step (``t``), and each step's losses."""
+    from erd_tpu_torch.engine import Hook
+
+    class StepTimer(Hook):
+        def __init__(self):
+            self.t, self.losses = [], []
+
+        def before_train(self, trainer):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+
+        def after_iter(self, trainer, step, losses):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+            self.losses.append(losses)
+    return StepTimer()
+
+
+def profile_train_step(torch, fn, tag, top=12):
+    """The device idle share and the top kernels of one profiled training
+    step ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, 'self_device_time_total', None)
+        if dev is None:
+            dev = getattr(ev, 'self_cuda_time_total', 0.0)
+        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev / 1e3, ev.count, ev.key))
+    busy = sum(x[0] for x in rows)
+    log(f'{tag} profile: one step, wall {wall_ms:.1f} ms (profiled), '
+        f'device kernels {busy:.1f} ms, device idle share '
+        f'{max(0.0, 1 - busy / wall_ms):.3f}')
+    for dev, count, key in sorted(rows, reverse=True)[:top]:
+        log(f'{tag} profile:   {dev:9.3f} ms  x{count:<5d} {key[:90]}')
 
 
 def request_images(np):
@@ -1186,7 +1256,7 @@ def phase_train(np, torch, card):
     """build_trainer + fit of the ERD stage-2 GFL-R50 step at bs 16."""
     from erd_tpu_torch.apis import build_detector, build_trainer
     from erd_tpu_torch.config import Config
-    from erd_tpu_torch.engine import Hook, batch_to, resnet_frozen_paths
+    from erd_tpu_torch.engine import batch_to, resnet_frozen_paths
     from erd_tpu_torch.models.detectors.gfl_erd import erd_distill_losses
     from erd_tpu_torch.models.heads.gfl_head import (flatten_levels,
                                                      gfl_loss, gfl_targets)
@@ -1209,20 +1279,7 @@ def phase_train(np, torch, card):
     start = {k: v.clone() for k, v in student.state_dict().items()}
     teacher_start = {k: v.clone() for k, v in teacher.state_dict().items()}
 
-    class StepTimer(Hook):
-        def __init__(self):
-            self.t, self.losses = [], []
-
-        def before_train(self, trainer):
-            torch.cuda.synchronize()
-            self.t.append(time.perf_counter())
-
-        def after_iter(self, trainer, step, losses):
-            torch.cuda.synchronize()
-            self.t.append(time.perf_counter())
-            self.losses.append(losses)
-
-    timer = StepTimer()
+    timer = step_timer(torch)
     cfg.train_cfg.epochs = 1
     loader = SyntheticLoader(np, torch, TRAIN_WARMUP + TRAIN_TIMED)
     trainer = build_trainer(cfg, det, loader, teacher=teacher, device=DEV)
@@ -1327,26 +1384,8 @@ def phase_train(np, torch, card):
         f'; total {1e3 * (stages[-1][1] - stages[0][1]):.2f}')
     del t_cls, t_reg, s_cls, s_reg, losses, total, l_cls, l_reg
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(student, batch, 100)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, 'self_device_time_total', None)
-        if dev is None:
-            dev = getattr(ev, 'self_cuda_time_total', 0.0)
-        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev / 1e3, ev.count, ev.key))
-    busy = sum(r[0] for r in rows)
-    log(f'train profile: one step, wall {wall_ms:.1f} ms (profiled), device '
-        f'kernels {busy:.1f} ms, device idle share '
-        f'{max(0.0, 1 - busy / wall_ms):.3f}')
-    for dev, count, key in sorted(rows, reverse=True)[:15]:
-        log(f'train profile:   {dev:9.3f} ms  x{count:<5d} {key[:90]}')
+    profile_train_step(torch, lambda: trainer.train_step(student, batch, 100),
+                       'train', top=15)
     return launches
 
 
@@ -3167,22 +3206,9 @@ def phase_frcnn_train(np, torch, card):
     path, finite losses, frozen stages unchanged; stage times and the idle
     share of one profiled step."""
     from erd_tpu_torch.apis import build_trainer
-    from erd_tpu_torch.engine import Hook, batch_to, resnet_frozen_paths
+    from erd_tpu_torch.engine import batch_to, resnet_frozen_paths
     from erd_tpu_torch.ops import (carafe, carafe_backward, nms_sorted_keep,
                                    roi_align, roi_align_backward)
-
-    class StepTimer(Hook):
-        def __init__(self):
-            self.t, self.losses = [], []
-
-        def before_train(self, trainer):
-            torch.cuda.synchronize()
-            self.t.append(time.perf_counter())
-
-        def after_iter(self, trainer, step, losses):
-            torch.cuda.synchronize()
-            self.t.append(time.perf_counter())
-            self.losses.append(losses)
 
     counters = {'roi_align': roi_align,
                 'roi_align_backward': roi_align_backward,
@@ -3195,7 +3221,7 @@ def phase_frcnn_train(np, torch, card):
         check(det.compute_dtype == torch.bfloat16, f'{tag}: not bf16')
         frozen = resnet_frozen_paths(cfg.model.get('frozen_stages', 1))
         start = {k: v.clone() for k, v in net.state_dict().items()}
-        timer = StepTimer()
+        timer = step_timer(torch)
         cfg.train_cfg.epochs = 1
         steps = TRAIN_WARMUP + TRAIN_TIMED
         loader = SyntheticLoader(np, torch, steps, seed=51,
@@ -3246,26 +3272,488 @@ def phase_frcnn_train(np, torch, card):
             for i, (name, t) in enumerate(marks[1:])) +
             f'; total {1e3 * (marks[-1][1] - marks[0][1]):.2f}')
 
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.train_step(net, batch, 100)
+        profile_train_step(torch, lambda: trainer.train_step(net, batch, 100),
+                           tag)
+        del net, trainer, batch
+        torch.cuda.empty_cache()
+    return launches
+
+
+# the sampling calls of one DETR training step: 6 encoder + 6 decoder
+DETR_STEP_CALLS = 12
+
+
+def detr_train_net(torch, kind, device=None, dtype=None, seed=37):
+    """A DETR config's detector and a seeded network (sampling weights
+    arranged), on ``device`` (the card by default)."""
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.models.heads import arrange_sampling
+    cfg = Config.fromfile(DETR_CONFIGS[kind])
+    if dtype:
+        cfg.model.compute_dtype = dtype
+    det = build_detector(cfg.model)
+    want = {'dino': ('DINODetector', 900), 'deformable_detr': (
+        'DeformableDETRDetector', 300)}[kind]
+    check(type(det).__name__ == want[0] and det.depth == 50 and
+          det.num_classes == NUM_CLASSES and det.num_queries == want[1] and
+          det.frozen_stages == 1, f'not the {kind} R50 model')
+    net = det.init(seed=seed, device=device or DEV)
+    arrange_sampling(net, DETR_ARRANGE_SEED)
+    return cfg, det, net
+
+
+def deform_attn_backward_cost(torch, shapes, values, locs, weights):
+    """(bytes, operations) of one sampling backward call. Bytes: the
+    distinct value rows its in-range corners read (as the forward's), the
+    output gradient, the locations and the weights read once; the value
+    gradient (the whole tensor), the location and the weight gradients
+    written once. Operations: per sample ~26 per channel (4 coefficient
+    products, 4 corner terms, 2 differences and the 3 channel products of
+    the gradients, the 3 reductions, 4 scaled scatter adds) and ~20 of
+    coordinates."""
+    nbytes, _ = deform_attn_cost(torch, shapes, values, locs, weights)
+    b, q, heads = locs.shape[:3]
+    # deform_attn_cost counted the forward's output write; the backward
+    # reads the output gradient of the same size instead
+    nbytes += values.numel() * 4 + locs.numel() * 4 + weights.numel() * \
+        weights.element_size()
+    samples = locs.numel() // 2
+    return nbytes, samples * (26.0 * values.shape[3] + 20)
+
+
+def phase_detr_train_kernels(np, torch):
+    """The sampling backward kernel on the 12 calls of one bs-16, 800x1344
+    bf16 training step of each DETR config (sampling weights arranged),
+    against its plain version; then timed at the encoder's and the
+    decoders' call shapes."""
+    import importlib
+
+    from erd_tpu_torch.engine import batch_to
+    from erd_tpu_torch.ops import (ms_deform_attn_backward,
+                                   ms_deform_attn_backward_plain)
+    ops_module = importlib.import_module('erd_tpu_torch.ops.ms_deform_attn')
+    stats, timed_calls = {}, {}
+    worst_abs, worst = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    for kind in DETR_CONFIGS:
+        _, det, net = detr_train_net(torch, kind)
+        batch = batch_to(next(iter(SyntheticLoader(
+            np, torch, 1, seed=41, num_labels=NUM_CLASSES).epoch(0))), DEV)
+        calls = []
+        restore = capture(ops_module, 'ms_deform_attn_backward', calls)
+        try:
+            losses = det.loss(net, batch)
+            sum(losses.values()).backward()
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        del net, losses
+        calls = [tuple(a.detach() if torch.is_tensor(a) else a for a in c)
+                 for c in calls]
+        torch.cuda.empty_cache()
+        n_tok = calls[0][0].shape[1]
+        t = min(det.num_queries, n_tok) if kind == 'dino' else \
+            det.num_queries
+        if kind == 'dino':  # the denoising queries ahead of the matching
+            t += 2 * MAX_GT * det.train_cfg.dn_groups
+        qs = sorted(c[2].shape[1] for c in calls)
+        check(len(calls) == DETR_STEP_CALLS and
+              qs == sorted([t] * 6 + [n_tok] * 6) and
+              [c[2].shape[1] for c in calls[6:]] == [n_tok] * 6 and
+              all(c[0].shape[0] == TRAIN_BATCH for c in calls),
+              f'{kind}: sampling backward calls of one step at Q = {qs}')
+        for i, args in enumerate(calls):
+            values, shapes, locs, weights, grad = args
+            part = 'encoder' if i >= 6 else 'decoder'
+            counts = stats.setdefault(f'{kind} {part}', [0, 0, 0])
+            for j, v in enumerate(sample_stats(torch, shapes, locs)):
+                counts[j] += v
+            got = ms_deform_attn_backward(values, shapes, locs,
+                                          weights.float(), grad)
             torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        rows = []
-        for ev in prof.key_averages():
-            dev = getattr(ev, 'self_device_time_total', None)
-            if dev is None:
-                dev = getattr(ev, 'self_cuda_time_total', 0.0)
-            if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-                rows.append((dev / 1e3, ev.count, ev.key))
-        busy = sum(x[0] for x in rows)
-        log(f'{tag} profile: one step, wall {wall_ms:.1f} ms (profiled), '
-            f'device kernels {busy:.1f} ms, device idle share '
-            f'{max(0.0, 1 - busy / wall_ms):.3f}')
-        for dev, count, key in sorted(rows, reverse=True)[:12]:
-            log(f'{tag} profile:   {dev:9.3f} ms  x{count:<5d} {key[:90]}')
+            want = ms_deform_attn_backward_plain(values, shapes, locs,
+                                                 weights.float(), grad)
+            errs = []
+            for j, (name, g, w) in enumerate(zip(
+                    ('values', 'locations', 'weights'), got, want)):
+                err = float((g - w).abs().max())
+                limit = 1e-5 * float(w.abs().max())
+                errs.append(f'{name} {err:.3e} (limit {limit:.3e})')
+                check(err <= limit, f'{kind}: sampling backward kernel '
+                      f'disagrees with plain on call {i} ({name})')
+                worst_abs[j] = max(worst_abs[j], err)
+                worst[j] = max(worst[j], err / float(w.abs().max()))
+            if weights.dtype == torch.bfloat16:  # rounded once, exactly
+                gw = ms_deform_attn_backward(*args)[2]
+                check(gw.dtype == torch.bfloat16 and
+                      torch.equal(gw, got[2].bfloat16()), f'{kind}: the '
+                      f'bf16 weight gradient is not the float32 one rounded')
+            log(f'detr train kernels: {kind} ms_deform_attn_backward call '
+                f'{i} ({part}) Q={locs.shape[1]} x {locs.shape[0]} weights '
+                f'{weights.dtype}: max_abs_err ' + ', '.join(errs) +
+                ' (limits 1e-5*max|plain|; atomics reorder the value sums)')
+            del got, want
+        # backward order: the decoder's 6 calls, then the encoder's
+        timed_calls.setdefault('encoder', calls[6])
+        timed_calls[f'{kind} decoder'] = calls[0]
+        del calls, batch
+        torch.cuda.empty_cache()
+    total = [sum(v[j] for v in stats.values()) for j in range(3)]
+    for part, (n, frac, out) in list(stats.items()) + [('all', total)]:
+        log(f'detr train kernels: {part} samples {n}: fractional bilinear '
+            f'weight {frac / n:.4f}, a corner outside its map {out / n:.4f}')
+    check(total[1] >= 0.5 * total[0], 'fewer than 50 % of the samples have '
+          'a fractional bilinear weight: the interpolation goes unchecked')
+    check(total[2] >= 0.01 * total[0], 'fewer than 1 % of the samples reach '
+          'outside their map: the zero padding goes unchecked')
+
+    # the kernel's ms: CUDA events around the call less the zeroing of its
+    # value gradient, timed alone; the profiler's per-kernel sum read
+    # 5.2 ms for a 13 ms encoder call in one run (records dropped), so it
+    # is logged beside, not used
+    timed = {}
+    for name, args in timed_calls.items():
+        prof_ms, call_ms, _, plain_ms = time_pair(
+            torch, lambda: ms_deform_attn_backward(*args),
+            lambda: ms_deform_attn_backward_plain(*args),
+            ['ms_deform_attn_backward_kernel'], n=10)
+        values, shapes, locs, weights, _ = args
+        zero_ms = events_ms(torch, lambda: torch.zeros(
+            values.shape, dtype=torch.float32, device=DEV), 10)
+        ms = call_ms - zero_ms
+        nbytes, ops = deform_attn_backward_cost(torch, shapes, values, locs,
+                                                weights)
+        bms, by = bound_of(nbytes, ops)
+        timed[name] = dict(q=locs.shape[1], ms=ms, call_ms=call_ms,
+                           zero_ms=zero_ms, profiler_ms=prof_ms,
+                           ms_from='events less zeroing', plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                           ops=ops, ratio=ms / bms)
+        log(f'detr train kernels: ms_deform_attn_backward {name} '
+            f'Q={locs.shape[1]} x {locs.shape[0]}: {ms:.4f} ms ({call_ms:.4f}'
+            f' ms per call by events, less {zero_ms:.4f} ms of the value '
+            f'gradient\'s zeroing; the profiler read {prof_ms:.4f}), plain '
+            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, '
+            f'{ops / 1e9:.3f} GOP), {ms / bms:.1f}x the bound')
+    log('detr train kernels: library_ms is null: no single PyTorch call '
+        'forms these gradients (F.grid_sample\'s backward interpolates one '
+        'level per call and neither weights nor sums the points)')
+    enc = timed.pop('encoder')
+    row = dict(name='ms_deform_attn_backward', route='cuda',
+               source='erd_tpu_torch/csrc/ms_deform_attn.cu',
+               replaces='erd_tpu/ops/ms_deform_attn.py:18',
+               max_abs_err=max(worst_abs),
+               max_abs_err_by_part=dict(zip(
+                   ('values', 'locations', 'weights'), worst_abs)),
+               max_err_over_max_plain_by_part=dict(zip(
+                   ('values', 'locations', 'weights'), worst)),
+               ms=enc['ms'], call_ms=enc['call_ms'], ms_from=enc['ms_from'],
+               ms_at=f'encoder call Q={enc["q"]} x {TRAIN_BATCH}',
+               plain_ms=enc['plain_ms'], bound_ms=enc['bound_ms'],
+               bound_by=enc['bound_by'], library_ms=None,
+               deterministic=False, decoder_calls=timed,
+               sample_share={'fractional': total[1] / total[0],
+                             'outside': total[2] / total[0]})
+    del timed_calls
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_detr_train_reference(np, torch):
+    """Both DETR configs in float32 at full width on a small input: the
+    loss dict and the parameter gradients on the card (kernels) against
+    the CPU (plain versions), the card taking the CPU's matches and
+    denoising draws: losses rtol 1e-3, ||diff|| / ||g|| <= 1e-3 over all
+    tensors and over each of backbone + neck, transformer and heads, 3e-3
+    over the sampling offsets, 1e-2 per tensor; then a 1 % error planted in the
+    sampling backward kernel's value gradient, and one in its location
+    gradient, must each fail the same limits."""
+    import copy
+    import importlib
+
+    from erd_tpu_torch.structures import ImageMeta, stack_to
+    ops_module = importlib.import_module('erd_tpu_torch.ops.ms_deform_attn')
+    head_module = importlib.import_module(
+        'erd_tpu_torch.models.heads.deformable_detr_head')
+    match_fn = head_module.hungarian_match
+    import scipy
+    log(f'detr train reference: scipy {scipy.__version__} solves the '
+        f'Hungarian matching on the host')
+    h, w = 128, 192
+
+    def ratio(a, b, keys):
+        diff = torch.cat([(a[k] - b[k]).flatten() for k in keys])
+        ref = torch.cat([b[k].flatten() for k in keys])
+        return float(diff.norm() / ref.norm().clamp(min=1e-30))
+
+    for kind in DETR_CONFIGS:
+        _, det, net_cpu = detr_train_net(torch, kind, device='cpu',
+                                         dtype='float32', seed=7)
+        rs = np.random.RandomState(19)
+        images = torch.from_numpy(rs.randint(0, 256, (2, h, w, 3),
+                                             np.uint8))
+        gt = synthetic_gt(np, torch, rs, 2, (h, w), device='cpu',
+                          num_labels=det.num_classes)
+        metas = [ImageMeta.make((h, w), (h, w), (1.0, 1.0), img_id=i)
+                 for i in (1, 2)]
+        kw = {}
+        if kind == 'dino':
+            kw['draws'] = det.dn_draws(torch.tensor([1, 2]), 2,
+                                       2 * MAX_GT * det.train_cfg.dn_groups,
+                                       'cpu')
+        names = [k for k, p in net_cpu.named_parameters() if p.requires_grad]
+        parts = {'backbone + neck': [k for k in names if k.startswith(
+            ('backbone.', 'neck.'))],
+            'transformer': [k for k in names if k.startswith((
+                'bbox_head.encoder_', 'bbox_head.decoder_',
+                'bbox_head.level_embed_'))]}
+        parts['heads'] = [k for k in names if not any(
+            k in v for v in parts.values())]
+        # the tensors the location gradient alone feeds: a 1 % error there
+        # reads 1e-2 on them, but only ~3e-4 on the whole transformer; the
+        # card's float32 reads up to 8.5e-4 on one of them (limit 3e-3)
+        parts['sampling offsets'] = [k for k in names
+                                     if '.sampling_offsets.' in k]
+
+        def run(dev, matches=None, record=None):
+            net = copy.deepcopy(net_cpu).to(dev)
+            batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
+                         gt=type(gt)(**{k: v.to(dev)
+                                        for k, v in vars(gt).items()}))
+            args = {k: [d.to(dev) for d in v] for k, v in kw.items()}
+            if record is not None:
+                def recording(*a):
+                    record.append(match_fn(*a))
+                    return record[-1]
+                head_module.hungarian_match = recording
+            try:
+                losses = det.loss(net, batch, matches=matches, **args)
+            finally:
+                head_module.hungarian_match = match_fn
+            if record is not None:
+                return None
+            params = dict(net.named_parameters())
+            gs = torch.autograd.grad(sum(losses.values()),
+                                     [params[k] for k in names],
+                                     allow_unused=True)
+            grads = {k: (torch.zeros_like(params[k]) if g is None else g)
+                     .double().cpu() for k, g in zip(names, gs)}
+            return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+        cpu_matches, card_matches = [], []
+        with torch.no_grad():
+            run('cpu', record=cpu_matches)
+            run(DEV, record=card_matches)
+        moved = sum(int((a.cpu() != b).sum())
+                    for a, b in zip(card_matches, cpu_matches))
+        slots = sum(int(m.numel()) for m in cpu_matches)
+        l_cpu, g_cpu = run('cpu', matches=cpu_matches)
+
+        # per tensor: ||diff|| / (||g|| + 1e-6 * the largest ||g||); the
+        # second term covers the attention key biases, whose gradient is 0
+        # but for rounding (the softmax ignores a shift common to all keys)
+        floor = 1e-6 * max(float(g_cpu[k].norm()) for k in names)
+
+        def errors(l_dev, g_dev):
+            per_tensor = sorted(((float((g_dev[k] - g_cpu[k]).norm()) /
+                                  (float(g_cpu[k].norm()) + floor), k)
+                                 for k in names), reverse=True)
+            metrics = [('loss', max(abs(l_dev[k] - l_cpu[k]) /
+                                    max(abs(l_cpu[k]), 1e-12)
+                                    for k in l_cpu), 1e-3),
+                       ('whole gradient', ratio(g_dev, g_cpu, names), 1e-3)]
+            metrics += [(f'{part} gradient', ratio(g_dev, g_cpu, keys),
+                         3e-3 if part == 'sampling offsets' else 1e-3)
+                        for part, keys in parts.items()]
+            metrics.append(('per tensor', per_tensor[0][0], 1e-2))
+            return per_tensor, metrics
+
+        def describe(metrics):
+            return ', '.join(f'{name} {v:.2e} (limit {lim:g})'
+                             for name, v, lim in metrics)
+
+        l_gpu, g_gpu = run(DEV, matches=[m.to(DEV) for m in cpu_matches])
+        per_tensor, metrics = errors(l_gpu, g_gpu)
+        log(f'detr train reference: {kind} float32 {h}x{w} x 2, '
+            f'{len(cpu_matches)} Hungarian calls: the card\'s own matches '
+            f'differ from the CPU\'s in {moved} of {slots} query slots; the '
+            f'card then takes the CPU\'s')
+        log(f'detr train reference: {kind} loss card vs CPU: ' + ', '.join(
+            f'{k} {l_gpu[k]:.5f}/{l_cpu[k]:.5f}' for k in l_cpu))
+        log(f'detr train reference: {kind} card vs CPU over {len(names)} '
+            f'trainable tensors: {describe(metrics)}; worst tensors: ' +
+            ', '.join(f'{k} {v:.2e}' for v, k in per_tensor[:3]))
+        check(all(np.isfinite(v) for v in l_gpu.values()),
+              f'{kind}: non-finite loss')
+        check(all(np.isfinite(v) and v <= lim for _, v, lim in metrics),
+              f'the {kind} loss or gradients on the card disagree with the '
+              f'CPU')
+
+        kernel = ops_module.ms_deform_attn_backward
+        for part in (0, 1):
+            def planted(*args, part=part):
+                grads = list(kernel(*args))
+                grads[part] = grads[part] * 1.01
+                return tuple(grads)
+            planted.launches = 0
+            ops_module.ms_deform_attn_backward = planted
+            try:
+                _, metrics = errors(*run(DEV, matches=[
+                    m.to(DEV) for m in cpu_matches]))
+            finally:
+                ops_module.ms_deform_attn_backward = kernel
+            tripped = [m for m, v, lim in metrics if not v <= lim]
+            name = ('values', 'locations')[part]
+            log(f'detr train reference: control, {kind} d {name} x 1.01: '
+                f'{describe(metrics)}; over the limit: {tripped}')
+            check(tripped, f'the gate passes a 1 % error in the sampling '
+                  f'backward\'s {name} gradient')
+        del net_cpu
+
+
+@contextlib.contextmanager
+def detr_stage_marks(torch, det, net, optimizer):
+    """Within the block, the stages of a DETR training step that
+    ``Trainer.train_step`` runs each end with a synchronize and append
+    (name, time) to the first list it yields, after a ('start', time) mark:
+    a hook on the neck, the head's encode and decode and the detector's
+    loss wrapped on their instances (DINO's query selection falls in
+    'decoder'), the optimizer's step hooks. The second list gathers the
+    host time of each Hungarian match, which the loss stage includes."""
+    import importlib
+    head_module = importlib.import_module(
+        'erd_tpu_torch.models.heads.deformable_detr_head')
+    marks, matching = [], []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def marked(fn, name):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            mark(name)
+            return out
+        return wrapper
+
+    match_fn = head_module.hungarian_match
+
+    def timed_match(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = match_fn(*args)
+        matching.append(time.perf_counter() - t0)
+        return out
+
+    head = net.bbox_head
+    handles = [
+        net.neck.register_forward_hook(lambda *_: mark('backbone + neck')),
+        optimizer.register_step_pre_hook(lambda *_: mark('backward')),
+        optimizer.register_step_post_hook(lambda *_: mark('optimizer'))]
+    head.encode = marked(head.encode, 'encoder')
+    head.decode = marked(head.decode, 'decoder')
+    det.loss = marked(det.loss, 'losses')
+    head_module.hungarian_match = timed_match
+    try:
+        mark('start')
+        yield marks, matching
+    finally:
+        head_module.hungarian_match = match_fn
+        del head.encode, head.decode, det.loss
+        for h in handles:
+            h.remove()
+
+
+def phase_detr_train(np, torch, card):
+    """build_trainer + fit of each DETR config at bs 16, 800x1344, bf16:
+    2 warm-up and 5 timed steps, 12 sampling and 12 sampling-backward
+    launches per step, finite losses, frozen stages unchanged, every
+    trainable weight moved or its updates below its float32 resolution;
+    img/s, peak memory, the stage times of one train_step and the idle
+    share of one profiled step."""
+    from erd_tpu_torch.apis import build_trainer
+    from erd_tpu_torch.engine import batch_to, resnet_frozen_paths
+    from erd_tpu_torch.ops import ms_deform_attn, ms_deform_attn_backward
+
+    counters = {'ms_deform_attn': ms_deform_attn,
+                'ms_deform_attn_backward': ms_deform_attn_backward}
+    launches = {}
+    for kind in DETR_CONFIGS:
+        tag = f'detr train {kind}'
+        cfg, det, net = detr_train_net(torch, kind)
+        check(det.compute_dtype == torch.bfloat16, f'{tag}: not bf16')
+        frozen = resnet_frozen_paths(det.frozen_stages)
+        start = {k: v.clone() for k, v in net.state_dict().items()}
+        timer = step_timer(torch)
+        cfg.train_cfg.epochs = 1
+        steps = TRAIN_WARMUP + TRAIN_TIMED
+        loader = SyntheticLoader(np, torch, steps, seed=53,
+                                 num_labels=NUM_CLASSES)
+        trainer = build_trainer(cfg, det, loader, device=DEV)
+        trainer.hooks.append(timer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        trainer.fit(net)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        launches[tag] = counts
+        log(f'{tag}: launches on the train path {counts}')
+        want = {k: DETR_STEP_CALLS * steps for k in counters}
+        check(counts == want, f'{tag}: launches {counts}, expected {want}')
+        step_s = [t1 - t0 for t0, t1 in zip(timer.t, timer.t[1:])]
+        timed = step_s[TRAIN_WARMUP:]
+        for i, (dt, losses) in enumerate(zip(step_s, timer.losses)):
+            log(f'{tag}: step {i} {1e3 * dt:.1f} ms lr '
+                f'{trainer.current_lr(i):.3e} total '
+                f'{sum(losses.values()):.4f} ' +
+                ' '.join(f'{k} {v:.4f}' for k, v in losses.items()
+                         if '_aux' not in k))
+            check(all(np.isfinite(v) for v in losses.values()),
+                  f'{tag}: non-finite loss at step {i}')
+        state = net.state_dict()
+        trainable = {n for n, p in net.named_parameters() if p.requires_grad}
+        moved = {k for k, v in state.items() if not torch.equal(v, start[k])}
+        check(not any(k.startswith(frozen) for k in moved | trainable),
+              f'{tag}: a frozen-stage parameter changed or is trainable')
+        # a weight that did not move must have taken a gradient whose
+        # updates lie below its float32 resolution: DINO's regression MLP
+        # under its zero-initialised fc_reg at the warmup's lr ~1e-7
+        params = dict(net.named_parameters())
+        still = {k for k in trainable if state[k].dim() > 1} - moved
+        for k in sorted(still):
+            buf = trainer.optimizer.state[params[k]].get('momentum_buffer')
+            step = 0.0 if buf is None else \
+                trainer.current_lr(steps - 1) * float(buf.abs().max())
+            ulp = float(params[k].detach().abs().max()) * 2.0 ** -24
+            log(f'{tag}: {k} did not move: largest last update {step:.2e}, '
+                f'half an ulp of its largest entry {ulp:.2e}')
+            check(0 < step < ulp, f'{tag}: the trainable weight {k} did not '
+                  f'move, and not for want of float32 resolution')
+        log(f'{tag}: bs {TRAIN_BATCH} {TRAIN_CANVAS[0]}x{TRAIN_CANVAS[1]} '
+            f'bf16, {len(timed)} timed steps ' +
+            ' '.join(f'{1e3 * t:.1f}' for t in timed) +
+            f' ms; {TRAIN_BATCH * len(timed) / sum(timed):.2f} img/s; peak '
+            f'memory {peak / 2**20:.0f} MiB; {len(moved & trainable)}/'
+            f'{len(trainable)} trainable tensors moved, 0 frozen; card {card}')
+
+        batch = batch_to(next(iter(loader.epoch(1))), DEV)
+        with detr_stage_marks(torch, det, net, trainer.optimizer) as (
+                marks, matching):
+            trainer.train_step(net, batch, 100)
+        stages = {name: 1e3 * (t - marks[i][1])
+                  for i, (name, t) in enumerate(marks[1:])}
+        stages['losses'] -= 1e3 * sum(matching)
+        log(f'{tag}: stage ms of one step: ' + ', '.join(
+            f'{k} {v:.2f}' for k, v in list(stages.items())[:3]) +
+            f', matching (host, {len(matching)} calls) '
+            f'{1e3 * sum(matching):.2f}, ' + ', '.join(
+                f'{k} {v:.2f}' for k, v in list(stages.items())[3:]) +
+            f'; total {1e3 * (marks[-1][1] - marks[0][1]):.2f}')
+
+        profile_train_step(torch, lambda: trainer.train_step(net, batch, 100),
+                           tag)
         del net, trainer, batch
         torch.cuda.empty_cache()
     return launches
@@ -3329,6 +3817,9 @@ def main() -> int:
         train2_rows, rpn_nms = phase_frcnn_train_kernels(np, torch)
         phase_frcnn_train_reference(np, torch)
         train2_launches = phase_frcnn_train(np, torch, card)
+        detr_train_row = phase_detr_train_kernels(np, torch)
+        phase_detr_train_reference(np, torch)
+        detr_train_launches = phase_detr_train(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -3371,9 +3862,13 @@ def main() -> int:
                                        counts in train2_launches.items()
                                        if counts[row['name']]}
             row['launches'] = sum(row['launches_by_path'].values())
-        for row in detr_rows:
-            row['launches'] = detr_launches[row['name']]
-            row['launches_by_path'] = {'detr serve': row['launches']}
+        for row in detr_rows + [detr_train_row]:
+            by_path = {path: counts[row['name']] for path, counts in
+                       detr_train_launches.items()}
+            if row['name'] in detr_launches:
+                by_path['detr serve'] = detr_launches[row['name']]
+            row['launches'] = sum(by_path.values())
+            row['launches_by_path'] = by_path
         for row in dcn_rows:  # conv_offset's float32 precision check too
             row['tf32_check'] = tf32
             by_config = dcn_launches['deform_im2col_by_config']
@@ -3381,7 +3876,7 @@ def main() -> int:
             row['launches_by_path'] = {f'{k} serve': v
                                        for k, v in by_config.items()}
         kernels += train_rows + frcnn_rows + detr_rows + dcn_rows + \
-            [carafe_row, set_nms_row] + train2_rows
+            [carafe_row, set_nms_row] + train2_rows + [detr_train_row]
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

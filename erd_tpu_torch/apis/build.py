@@ -1,8 +1,8 @@
 """Config dicts -> detectors and trainers; the counterpart of
 erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
 ``FasterRCNN`` (with the FPN or the FPN_CARAFE neck), ``CrowdDet``,
-``DeformableDETR`` and ``DINO`` model types, and SGD training of ``GFL``,
-``GFLIncrementERD``, ``FasterRCNN`` and ``CrowdDet``."""
+``DeformableDETR`` and ``DINO`` model types, and SGD training of all but
+``VFNet``."""
 from __future__ import annotations
 
 import torch
@@ -24,8 +24,7 @@ ZOO_ITEM = 'ROADMAP.md, section 1: "Zoo, after the main path"'
 # the model types whose port takes the backbone's DCN stages
 _DCN = ('GFL', 'GFLIncrementERD', 'VFNet')
 # detectors the port serves but does not train yet, with their ROADMAP item
-_UNTRAINED = ((VFNetDetector, 'DCN training'),
-              (DeformableDETRDetector, 'DINO and Deformable DETR training'))
+_UNTRAINED = ((VFNetDetector, 'DCN training'),)
 
 
 def _neck_spec(mtype: str, spec):
@@ -62,14 +61,15 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         dcn = dict(dcn_stages=tuple(bool(s) for s in model_cfg.dcn_stages),
                    dcn_modulated=bool(model_cfg.get('dcn_modulated', True)))
     test = model_cfg.get('test_cfg', {})
-    if mtype in ('DeformableDETR', 'DINO'):  # serving only: loss raises
+    if mtype in ('DeformableDETR', 'DINO'):  # erd_tpu's train configs
         cls = DINODetector if mtype == 'DINO' else DeformableDETRDetector
         return cls(
             num_classes=model_cfg.get('num_classes', 80),
             depth=model_cfg.get('depth', 50),
             compute_dtype=_DTYPES[model_cfg.get('compute_dtype', 'float32')],
             num_queries=model_cfg.get('num_queries', cls.num_queries),
-            max_per_img=test.get('max_per_img', cls.max_per_img))
+            max_per_img=test.get('max_per_img', cls.max_per_img),
+            frozen_stages=model_cfg.get('frozen_stages', 1))
     test_cfg = GFLTestConfig(
         score_thr=test.get('score_thr', 0.05),
         nms_pre=test.get('nms_pre', 1000),
@@ -154,8 +154,10 @@ def build_trainer(cfg: Config, detector, train_loader, teacher=None,
     take none. The device is ``cuda`` unless the caller names one. The port
     has SGD with warmup + multi-step decay over steps; other optimizers and
     schedules, epoch-based warmup, gradient clipping, validation,
-    checkpoints and custom hooks are not ported yet and raise, as do the
-    detectors whose training is not ported (VFNet, the DETR family).
+    checkpoints and custom hooks are not ported yet and raise, as does
+    VFNet, whose training (the deformable convolution's backward) is not
+    ported. The DETR configs name no optimizer, so they train with SGD as
+    erd_tpu's trainer does.
     """
     for cls, item in _UNTRAINED:
         if isinstance(detector, cls):

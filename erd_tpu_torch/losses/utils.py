@@ -39,9 +39,13 @@ def weight_reduce_loss(loss, weight=None, reduction='mean', avg_factor=None):
 
 
 def binary_cross_entropy_with_logits(pred, target):
-    """Numerically stable element-wise BCE on logits (no reduction)."""
-    return (pred.clamp(min=0) - pred * target +
-            torch.log1p(torch.exp(-pred.abs())))
+    """Numerically stable element-wise BCE on logits (no reduction). At a
+    logit of exactly 0 the gradient is erd_tpu's: its ``maximum(pred, 0)``
+    splits one half to each side (a clamp would pass all of it) and its
+    ``abs`` takes the positive side (torch's abs gives 0)."""
+    abs_pred = torch.where(pred >= 0, pred, -pred)
+    return (torch.maximum(pred, torch.zeros_like(pred)) - pred * target +
+            torch.log1p(torch.exp(-abs_pred)))
 
 
 def cross_entropy_int(logits, labels, dim=-1):

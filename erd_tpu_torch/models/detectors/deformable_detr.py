@@ -1,15 +1,16 @@
-"""Deformable DETR R50 serving; the counterpart of erd_tpu/models/detectors/
-deformable_detr.py.
+"""Deformable DETR R50 serving and training; the counterpart of
+erd_tpu/models/detectors/deformable_detr.py.
 
 ResNet (frozen BN) C3-C5 -> ChannelMapper (1x1 convs + GN, one extra 3x3/2
 level on the raw C5) -> float32 maps -> ``DeformableDETRHead`` -> NMS-free
-prediction: the sigmoid top-k over queries x classes. As in erd_tpu, the
-detector is configuration plus functions and the network holds the
-weights. Training is not ported yet: ``loss`` raises.
+prediction: the sigmoid top-k over queries x classes; ``loss`` is the
+Hungarian set loss of every decoder layer. As in erd_tpu, the detector is
+configuration plus functions and the network holds the weights.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -19,23 +20,22 @@ from ...structures import DetResults, cxcywh_to_xyxy, scale_boxes
 from ...utils import resolve_device
 from ..backbones.resnet import ResNet
 from ..heads.deformable_detr_head import (DeformableDETRHead,
-                                          deform_attn_modules)
+                                          DeformableDETRTrainConfig,
+                                          deform_attn_modules,
+                                          deformable_detr_loss)
 from ..layers import Conv2d, Linear
 from ..necks.channel_mapper import ChannelMapper
 from ..preprocessor import Preprocessor
 
-NOT_TRAINED_YET = ('{} training is not ported yet (ROADMAP.md, section 1: '
-                   '"DINO and Deformable DETR training")')
-
 
 class DETRNet(nn.Module):
     """backbone -> neck -> bbox_head under erd_tpu's scope names; the head
-    is Deformable DETR's or DINO's."""
+    is Deformable DETR's or DINO's. ``frozen_stages`` as ResNet's."""
 
     def __init__(self, bbox_head: nn.Module, depth: int = 50,
-                 embed_dim: int = 256):
+                 embed_dim: int = 256, frozen_stages: int = -1):
         super().__init__()
-        self.backbone = ResNet(depth)
+        self.backbone = ResNet(depth, frozen_stages=frozen_stages)
         self.neck = ChannelMapper(self.backbone.out_channels[1:], embed_dim,
                                   kernel_size=1, num_outs=4)
         self.bbox_head = bbox_head
@@ -45,8 +45,8 @@ class DETRNet(nn.Module):
         runs on float32 maps (erd_tpu's astype(float32))."""
         return [f.float() for f in self.neck(self.backbone(x)[1:])]
 
-    def forward(self, x):
-        return self.bbox_head(self.extract_feat(x))
+    def forward(self, x, *head_args):
+        return self.bbox_head(self.extract_feat(x), *head_args)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -110,13 +110,17 @@ def detr_predict(all_cls, all_boxes, canvas_hw, meta, num_classes: int,
 
 @dataclass
 class DeformableDETRDetector:
-    """Config + functions of Deformable DETR serving."""
+    """Config + functions of Deformable DETR serving and training."""
     num_classes: int = 80
     depth: int = 50
     num_queries: int = 300
     compute_dtype: torch.dtype = torch.float32
     max_per_img: int = 100
+    # stem + layer1 frozen, erd_tpu's trainer default
+    frozen_stages: int = 1
     preprocessor: Preprocessor = field(default_factory=Preprocessor)
+    train_cfg: DeformableDETRTrainConfig = field(
+        default_factory=DeformableDETRTrainConfig)
 
     def __post_init__(self):
         if self.preprocessor.compute_dtype != self.compute_dtype:
@@ -126,7 +130,8 @@ class DeformableDETRDetector:
     def build_net(self) -> DETRNet:
         return DETRNet(DeformableDETRHead(
             self.num_classes, num_queries=self.num_queries,
-            param_dtype=self.compute_dtype), self.depth)
+            param_dtype=self.compute_dtype), self.depth,
+            frozen_stages=self.frozen_stages)
 
     def init(self, seed: int = 0, device=None) -> DETRNet:
         """A seeded random network on ``device`` (``cuda`` unless the
@@ -162,5 +167,16 @@ class DeformableDETRDetector:
         return self.postprocess(all_cls, all_boxes, images.shape[1:3],
                                 batch['meta'], rescale)
 
-    def loss(self, net, batch):
-        raise NotImplementedError(NOT_TRAINED_YET.format('Deformable DETR'))
+    def loss(self, net: DETRNet, batch, matches: Optional[Sequence] = None):
+        """Training losses. batch: dict(images (B, H, W, 3) uint8, gt:
+        GTInstances, meta: ImageMeta of (B, ...) tensors) on the network's
+        device. The decoder outputs are cast to float32 before the loss.
+        ``matches``: one (B, Q) assignment per decoder layer to use
+        instead of the Hungarian solver's. Returns dict(loss_cls,
+        loss_bbox, loss_giou and their ``_aux{i}``) of 0-dim tensors."""
+        images = batch['images']
+        all_cls, all_boxes = net(self.preprocessor(images))
+        return deformable_detr_loss(all_cls.float(), all_boxes.float(),
+                                    batch['gt'], images.shape[1:3],
+                                    self.num_classes, self.train_cfg,
+                                    matches)

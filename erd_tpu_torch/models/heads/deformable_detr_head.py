@@ -1,5 +1,5 @@
-"""Deformable DETR head: deformable encoder and decoder; the counterpart of
-erd_tpu/models/heads/deformable_detr_head.py (serving).
+"""Deformable DETR head: deformable encoder and decoder, and its set loss;
+the counterpart of erd_tpu/models/heads/deformable_detr_head.py.
 
 erd_tpu's DETR family, not mmdet's: no padding mask and no valid ratios,
 level embeddings only in the encoder (no sine positional encoding), one
@@ -15,18 +15,28 @@ the promoted dtype of its input, as erd_tpu's ``cast_compute_params`` with
 flax's promotion does; so in a bf16 model the float32 maps keep the head
 in float32, while the bf16 ``query_embed`` puts decoder_0's self-attention,
 norm1 and cross-attention projections in bf16.
+
+``deformable_detr_loss`` is erd_tpu's: per decoder layer, a Hungarian
+match (``task.hungarian_match``, on the host) of a focal class cost and the
+L1 and GIoU box costs, then the sigmoid focal loss and the L1 and GIoU
+losses of the matched queries (``_aux{i}`` for all but the last layer).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...losses import giou_loss, sigmoid_focal_loss
 from ...ops import ms_deform_attn
+from ...ops.misc import take_rows
+from ...structures import bbox_overlaps, cxcywh_to_xyxy, xyxy_to_cxcywh
+from ...task import hungarian_match
 from ..layers import LayerNorm, Linear, MultiheadAttention, softmax
 
 Shapes = List[Tuple[int, int]]
@@ -262,3 +272,101 @@ def arrange_sampling(net: nn.Module, seed: int) -> None:
                 lin.weight.copy_(torch.from_numpy(w.astype(np.float32)))
                 lin.bias.copy_(torch.zeros_like(lin.bias) if bias is None
                                else torch.from_numpy(bias.astype(np.float32)))
+
+
+@dataclass(frozen=True)
+class DeformableDETRTrainConfig:
+    cls_cost: float = 2.0
+    l1_cost: float = 5.0
+    giou_cost: float = 2.0
+    cls_loss_weight: float = 2.0
+    l1_loss_weight: float = 5.0
+    giou_loss_weight: float = 2.0
+
+
+def normalized_gt(gt, canvas_hw):
+    """(xyxy, cxcywh) gt boxes divided by the canvas, and the positive
+    count max(#gt, 1) of the batch."""
+    ch, cw = canvas_hw
+    norm = torch.tensor([cw, ch, cw, ch], dtype=torch.float32,
+                        device=gt.bboxes.device)
+    xyxy = gt.bboxes / norm
+    return xyxy, xyxy_to_cxcywh(xyxy), gt.mask.sum().float().clamp(min=1.0)
+
+
+@torch.no_grad()
+def match_cost(cls, boxes, gt_xyxy_n, gt_cxcywh_n, gt_labels, cfg):
+    """(B, Q, G) matching cost: the focal class cost (mmdet's
+    FocalLossCost, alpha 0.25, gamma 2) at each gt's label, the L1 distance
+    of the cxcywh boxes and -GIoU, weighted by ``cfg``."""
+    prob = torch.sigmoid(cls)
+    alpha, gamma = 0.25, 2.0
+    pos_cost = alpha * torch.pow(1 - prob, gamma) * \
+        (-torch.log(prob.clamp(min=1e-8)))
+    neg_cost = (1 - alpha) * torch.pow(prob, gamma) * \
+        (-torch.log((1 - prob).clamp(min=1e-8)))
+    q = boxes.shape[1]
+    cost_cls = torch.gather(pos_cost - neg_cost, 2,
+                            gt_labels.long()[:, None, :].expand(-1, q, -1))
+    cost_l1 = (boxes[:, :, None, :] - gt_cxcywh_n[:, None, :, :]).abs().sum(-1)
+    giou = bbox_overlaps(cxcywh_to_xyxy(boxes), gt_xyxy_n, mode='giou')
+    return cfg.cls_cost * cost_cls + cfg.l1_cost * cost_l1 + \
+        cfg.giou_cost * (-giou)
+
+
+def matched_losses(cls, boxes, match, gt_xyxy_n, gt_cxcywh_n, gt_labels,
+                   num_classes, num_pos, cfg):
+    """(focal, L1, GIoU) losses of one layer's queries under ``match`` (B,
+    Q) gt index or -1: unmatched queries are background and carry no box
+    loss."""
+    matched = match >= 0
+    safe = match.clamp(min=0)
+    labels = torch.where(matched, torch.gather(gt_labels.long(), 1, safe),
+                         num_classes)
+    loss_cls = cfg.cls_loss_weight * sigmoid_focal_loss(
+        cls.reshape(-1, num_classes), labels.reshape(-1),
+        avg_factor=num_pos)
+    l1 = (boxes - take_rows(gt_cxcywh_n, safe)).abs().sum(-1)
+    loss_bbox = cfg.l1_loss_weight * (l1 * matched).sum() / num_pos
+    lg = giou_loss(cxcywh_to_xyxy(boxes).reshape(-1, 4),
+                   take_rows(gt_xyxy_n, safe).reshape(-1, 4),
+                   reduction='none')
+    loss_giou = cfg.giou_loss_weight * \
+        (lg * matched.reshape(-1)).sum() / num_pos
+    return loss_cls, loss_bbox, loss_giou
+
+
+def match_layer(cls, boxes, gt_xyxy_n, gt_cxcywh_n, gt, cfg, given=None):
+    """One Hungarian match of a layer's outputs, or ``given`` (B, Q) from
+    the caller."""
+    if given is not None:
+        return given.to(device=cls.device, dtype=torch.int64)
+    return hungarian_match(match_cost(cls, boxes, gt_xyxy_n, gt_cxcywh_n,
+                                      gt.labels, cfg), gt.mask)
+
+
+def deformable_detr_loss(all_cls, all_boxes, gt, canvas_hw, num_classes,
+                         cfg=DeformableDETRTrainConfig(),
+                         matches: Optional[Sequence] = None):
+    """Sigmoid-focal set losses with Hungarian matching, per decoder layer.
+
+    all_cls (layers, B, Q, classes) and all_boxes (layers, B, Q, 4)
+    float32; gt: GTInstances in canvas pixels. ``matches``: one (B, Q)
+    assignment per layer to use instead of the Hungarian solver's.
+    Returns dict(loss_cls, loss_bbox, loss_giou and their ``_aux{i}``) of
+    0-dim tensors."""
+    gt_xyxy_n, gt_cxcywh_n, num_pos = normalized_gt(gt, canvas_hw)
+    n_layers = all_cls.shape[0]
+    losses = {}
+    for lyr in range(n_layers):
+        cls, boxes = all_cls[lyr], all_boxes[lyr]
+        match = match_layer(cls, boxes, gt_xyxy_n, gt_cxcywh_n, gt, cfg,
+                            None if matches is None else matches[lyr])
+        lc, lb, lg = matched_losses(cls, boxes, match, gt_xyxy_n,
+                                    gt_cxcywh_n, gt.labels, num_classes,
+                                    num_pos, cfg)
+        sfx = '' if lyr == n_layers - 1 else f'_aux{lyr}'
+        losses[f'loss_cls{sfx}'] = lc
+        losses[f'loss_bbox{sfx}'] = lb
+        losses[f'loss_giou{sfx}'] = lg
+    return losses

@@ -11,6 +11,8 @@ from .nms import (batched_nms_mask, nms_mask, nms_select, nms_select_cfg,
                   set_nms_sorted_keep, set_nms_sorted_keep_plain, soft_nms,
                   soft_nms_plain, soft_nms_select)
 from .ms_deform_attn import (make_level_start_index, ms_deform_attn,
+                             ms_deform_attn_backward,
+                             ms_deform_attn_backward_plain,
                              ms_deform_attn_plain)
 from .roi_align import (map_roi_levels, multilevel_roi_align, roi_align,
                         roi_align_backward, roi_align_backward_plain,
@@ -27,6 +29,7 @@ __all__ = ['CARAFEPack', 'arrange_carafe', 'carafe', 'carafe_backward',
            'nms_sorted_keep_plain', 'set_nms_mask', 'set_nms_sorted_keep',
            'set_nms_sorted_keep_plain', 'soft_nms', 'soft_nms_plain',
            'soft_nms_select', 'make_level_start_index', 'ms_deform_attn',
+           'ms_deform_attn_backward', 'ms_deform_attn_backward_plain',
            'ms_deform_attn_plain', 'map_roi_levels', 'multilevel_roi_align',
            'roi_align', 'roi_align_backward', 'roi_align_backward_plain',
            'roi_align_level', 'roi_align_plain']

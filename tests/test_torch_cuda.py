@@ -862,8 +862,9 @@ def test_carafe_autograd_on_cuda_uses_the_backward_kernel(cuda):
 
 
 def test_backward_functions_pass_gradcheck_on_the_plain_path():
-    """Finite differences in float64 of both autograd Functions on the
-    plain path (CPU tensors, the kernels' reference), at a tiny size."""
+    """Finite differences in float64 of the RoIAlign, CARAFE and
+    deformable-attention autograd Functions on the plain path (CPU
+    tensors, the kernels' reference), at a tiny size."""
     gen = torch.Generator().manual_seed(0)
     fs = [torch.randn(1, 2, h, w, generator=gen, dtype=torch.float64)
           .requires_grad_() for h, w in ((5, 6), (3, 3))]
@@ -876,19 +877,46 @@ def test_backward_functions_pass_gradcheck_on_the_plain_path():
     lg = torch.randn(1, 100, 2, 3, generator=gen, dtype=torch.float64)
     assert torch.autograd.gradcheck(
         carafe, (x.requires_grad_(), lg.requires_grad_()))
+    shapes = [(3, 4), (2, 2)]
+    v = torch.randn(1, 16, 2, 3, generator=gen, dtype=torch.float64)
+    lc = torch.rand(1, 3, 2, 2, 2, 2, generator=gen,
+                    dtype=torch.float64) * 1.4 - 0.2
+    w = torch.rand(1, 3, 2, 2, 2, generator=gen, dtype=torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: ms_deform_attn(a, shapes, b, c),
+        (v.requires_grad_(), lc.requires_grad_(), w.requires_grad_()))
 
 
 def test_ms_deform_attn_refuses_gradients_on_cuda(cuda):
-    """The deformable-attention backward is not ported: a CUDA input that
-    needs a gradient raises, under no_grad the kernel runs."""
-    values = torch.randn(1, 6, 8, 32, device=cuda)
-    locs = torch.rand(1, 3, 8, 1, 4, 2, device=cuda)
-    weights = torch.rand(1, 3, 8, 1, 4, device=cuda)
-    with pytest.raises(NotImplementedError, match='DINO and Deformable'):
-        ms_deform_attn(values.requires_grad_(), [(2, 3)], locs, weights)
+    """The name is from before the backward was ported: now a CUDA input
+    that needs a gradient runs the forward kernel, and autograd launches
+    the backward kernel once, whose gradients agree with the plain
+    version's (values within 1e-5 * max|plain|: float32 atomics reorder
+    the sums); under no_grad only the forward kernel runs."""
+    from erd_tpu_torch.ops import (ms_deform_attn_backward,
+                                   ms_deform_attn_backward_plain)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shapes = [(3, 5), (2, 3)]
+    values = torch.randn(2, 21, 8, 32, device=cuda, generator=gen)
+    locs = torch.rand(2, 7, 8, 2, 4, 2, device=cuda, generator=gen) * 1.4 \
+        - 0.2
+    weights = torch.rand(2, 7, 8, 2, 4, device=cuda, generator=gen)
+    g = torch.randn(2, 7, 8, 32, device=cuda, generator=gen)
+    counts = (ms_deform_attn.launches, ms_deform_attn_backward.launches)
     with torch.no_grad():
-        out = ms_deform_attn(values, [(2, 3)], locs, weights)
-    assert out.shape == (1, 3, 8, 32)
+        out = ms_deform_attn(values, shapes, locs, weights)
+    assert out.shape == (2, 7, 8, 32)
+    leaves = [t.clone().requires_grad_() for t in (values, locs, weights)]
+    out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    assert out.grad_fn is not None
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (ms_deform_attn.launches, ms_deform_attn_backward.launches) == \
+        (counts[0] + 2, counts[1] + 1)
+    want = ms_deform_attn_backward_plain(values, shapes, locs, weights, g)
+    for leaf, w in zip(leaves, want):
+        assert float((leaf.grad - w).abs().max()) <= \
+            1e-5 * float(w.abs().max())
 
 
 @pytest.mark.parametrize('kind', ['frcnn', 'carafe', 'crowddet'])

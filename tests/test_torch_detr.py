@@ -63,7 +63,8 @@ from erd_tpu_torch.models.weight_import import (load_torch_checkpoint_file,
 from erd_tpu_torch.ops import (make_level_start_index, ms_deform_attn,
                                ms_deform_attn_plain)
 from erd_tpu_torch.ops.misc import topk_stable
-from erd_tpu_torch.structures import (ImageMeta, cxcywh_to_xyxy, stack_to,
+from erd_tpu_torch.structures import (GTInstances, ImageMeta,
+                                      cxcywh_to_xyxy, stack_to,
                                       xyxy_to_cxcywh)
 
 torch.set_num_threads(2)
@@ -475,11 +476,25 @@ def test_detr_configs_build_and_unported_paths_raise(kind, tmp_path):
     assert type(det) is want[0]
     assert (det.num_queries, det.max_per_img) == want[1:]
     assert det.compute_dtype == torch.bfloat16 and det.depth == 50
-    with pytest.raises(NotImplementedError,
-                       match='"DINO and Deformable DETR training"'):
-        det.loss(None, {})
+    assert det.frozen_stages == 1
     small = type(det)(num_classes=NUM_CLASSES, depth=18, num_queries=4)
     net = small.init(seed=0, device='cpu')
+    # training is ported: the loss gives erd_tpu's keys
+    gt = stack_to([GTInstances.pad(np.array([[8, 8, 40, 30]], np.float32),
+                                   [1], 2)], 'cpu')
+    batch = dict(images=torch.zeros((1,) + CANVAS + (3,), dtype=torch.uint8),
+                 gt=gt, meta=stack_to([ImageMeta.make(CANVAS, CANVAS,
+                                                      (1.0, 1.0))], 'cpu'))
+    with torch.no_grad():
+        losses = small.loss(net, batch)
+    sfx = ['', *(f'_aux{i}' for i in range(5))]
+    want = {f'loss_{n}{s}' for n in ('cls', 'bbox', 'giou') for s in sfx}
+    if kind == 'dino':
+        want |= {f'loss_dn_{n}{s}' for n in ('cls', 'bbox', 'giou')
+                 for s in sfx} | {f'loss_enc_{n}' for n in ('cls', 'bbox',
+                                                            'giou')}
+    assert set(losses) == want
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
     path = tmp_path / 'mmdet.pth'
     torch.save({'state_dict': net.state_dict()}, path)
     with pytest.raises(NotImplementedError, match='not mmdet'):

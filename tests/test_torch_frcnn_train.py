@@ -764,9 +764,9 @@ def test_fit_two_steps_from_the_faster_rcnn_config():
 # ------------------------ wrappers, build_detector and build_trainer rules
 @pytest.mark.parametrize('op', ['roi_align', 'carafe', 'ms_deform_attn'])
 def test_kernel_wrappers_keep_or_refuse_gradients(op):
-    """On the CPU path: roi_align and carafe return outputs with a
-    grad_fn when an input needs a gradient; ms_deform_attn, whose backward
-    is not ported, raises then (and not under no_grad)."""
+    """On the CPU path: roi_align, carafe and ms_deform_attn return
+    outputs with a grad_fn when an input needs a gradient (the name is
+    from before ms_deform_attn's backward was ported, when it raised)."""
     rs = np.random.RandomState(8)
     if op == 'roi_align':
         feats, rois = roi_case(rs)
@@ -787,15 +787,18 @@ def test_kernel_wrappers_keep_or_refuse_gradients(op):
         args = ([(2, 3)], torch.rand(1, 3, 2, 1, 2, 2),
                 torch.rand(1, 3, 2, 1, 2))
         with torch.no_grad():
-            ms_deform_attn(values.requires_grad_(), *args)
-        with pytest.raises(NotImplementedError,
-                           match='"DINO and Deformable DETR training"'):
-            ms_deform_attn(values, *args)
+            assert ms_deform_attn(values.requires_grad_(),
+                                  *args).grad_fn is None
+        out = ms_deform_attn(values, *args)
+        assert out.grad_fn is not None
+        out.sum().backward()
+        assert values.grad is not None and values.grad.abs().max() > 0
 
 
 def test_build_detector_and_trainer_train_rules():
     """The two-stage configs build with erd_tpu's train configs; the OHEM
-    sampler, training VFNet or DETR and a teacher outside ERD raise."""
+    sampler, training VFNet and a teacher outside ERD raise; DINO and
+    Deformable DETR build trainers."""
     for kind in CONFIGS:
         det = build_detector(Config.fromfile(CONFIGS[kind]).model)
         assert det.rpn_train_cfg == RPNTrainConfig()
@@ -817,7 +820,11 @@ def test_build_detector_and_trainer_train_rules():
     with pytest.raises(ValueError, match='without one'):
         build_trainer(small_cfg(Config, 'frcnn'), det, loader,
                       teacher=det.init(seed=0, device='cpu'), device='cpu')
-    for det in (VFNetDetector(), build_detector(Config(type='DINO'))):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            build_trainer(small_cfg(Config, 'frcnn'), det, loader,
-                          device='cpu')
+    with pytest.raises(NotImplementedError, match='"DCN training"'):
+        build_trainer(small_cfg(Config, 'frcnn'), VFNetDetector(), loader,
+                      device='cpu')
+    for mtype in ('DINO', 'DeformableDETR'):
+        trainer = build_trainer(small_cfg(Config, 'frcnn'),
+                                build_detector(Config(type=mtype)), loader,
+                                device='cpu')
+        assert trainer.det.frozen_stages == 1
