@@ -178,7 +178,39 @@ Phases, in order; any failed check exits non-zero before the last line:
                 moved; img/s, peak memory, the stage times of one
                 train_step (the host's Hungarian matching apart) and the
                 idle share of one profiled step;
- 28. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 28. dcn train kernels  one bs-16, 800x1344 bf16 training step each of
+                GFL R101-DCN and VFNet R50-mdconv (conv_offset arranged by
+                arrange_offsets, seed 13) with the 30 / 23 calls of the
+                deformable im2col backward kernel captured: each held
+                against its plain version (map, offset and mask gradients
+                within 1e-5 * max|plain|, atomics reorder the map sums; the
+                map gradient rounded to the bf16 map within one bf16 ulp
+                where it differs by more than that),
+                >= 50 % of the samples of each part fractional and >= 1 %
+                off their map; each distinct call shape timed by CUDA
+                events less the map gradient's zeroing, beside its byte
+                bound and the autograd backward of F.grid_sample (with the
+                mask's product for DCNv2), whose gradients are held against
+                the plain ones first (1e-3 * max|plain|; the offsets' away
+                from integer positions);
+ 29. dcn train reference  both DCN configs in float32 at full width on a
+                small input, card (kernels) vs CPU (plain): losses rtol
+                1e-3, ||diff|| / ||g|| <= 1e-3 overall and over the DCN
+                blocks' conv_offset, the rest of backbone + neck, the head
+                and (VFNet) the offsets of the head's star convs, 1e-2 per
+                tensor; a 1 % error planted in the backward kernel's map
+                gradient, and one in its offset gradient, on every call
+                and (VFNet) on the head's calls alone, must each fail those
+                limits;
+ 30. dcn train  build_trainer + fit of both DCN configs at batch 16,
+                800x1344, bf16: 2 warm-up and 5 timed steps, per step
+                exactly 30 / 23 im2col and 30 / 23 im2col-backward
+                launches, one ATSS launch and (GFL) the fused loss's two,
+                finite losses, the stem and layer1 unchanged, every
+                trainable weight moved (each conv_offset included); img/s,
+                peak memory, the stage times of one train_step and the idle
+                share of one profiled step;
+ 31. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The script sets no global precision flag: the port convolves float32 in
 full float32 itself (erd_tpu_torch.utils.conv_fp32_precision), torch's
@@ -2028,17 +2060,15 @@ def dcn_cost(args):
     return nbytes, cols * (11.0 + (mask is not None)) + samples * 12.0
 
 
-def grid_sample_im2col(torch, args):
-    """One deformable im2col call as F.grid_sample computes it, for
-    library_ms; returns the call, which gives the kernel's columns.
+def grid_sample_inputs(torch, args):
+    """One deformable im2col call's operands as F.grid_sample takes them:
+    (the map widened to float32, (B*dg, Cin/dg, H, W); the grid, (B*dg,
+    K*K*Ho, Wo, 2); the DCNv2 mask, (B*dg, 1, K*K*Ho, Wo), or None).
     Bilinear sampling with padding_mode 'zeros' drops each corner outside
     the map on its own, erd_tpu's rule. The grid holds the sample positions
     normalised for align_corners=False, one row per (kernel point, output
-    row), the deform groups folded into the batch; a DCNv2 mask multiplies
-    the samples. The map is widened to float32 beforehand (grid_sample
-    samples in the grid's dtype)."""
-    import torch.nn.functional as F
-
+    row), the deform groups folded into the batch. The map is widened
+    because grid_sample samples in the grid's dtype."""
     from erd_tpu_torch.ops.deform_conv import _base_grid
     x, offset, mask, k, stride, pad, dil, dg = args
     b, cin, h, w = x.shape
@@ -2051,12 +2081,76 @@ def grid_sample_im2col(torch, args):
                        -1).reshape(b * dg, kk * ho, wo, 2)
     xf = x.float().reshape(b * dg, cin // dg, h, w)
     m = None if mask is None else mask.reshape(b * dg, 1, kk * ho, wo)
+    return xf, grid, m
+
+
+def grid_sample_im2col(torch, args):
+    """One deformable im2col call as F.grid_sample computes it, for
+    library_ms (operands of grid_sample_inputs, prepared beforehand; a
+    DCNv2 mask multiplies the samples); returns the call, which gives the
+    kernel's columns."""
+    import torch.nn.functional as F
+    x, offset, _, k = args[:4]
+    b, cin = x.shape[:2]
+    kk, hw = k * k, offset.shape[2] * offset.shape[3]
+    xf, grid, m = grid_sample_inputs(torch, args)
 
     def call():
         out = F.grid_sample(xf, grid, mode='bilinear', padding_mode='zeros',
                             align_corners=False)
-        return (out if m is None else out * m).reshape(b, cin * kk, ho * wo)
+        return (out if m is None else out * m).reshape(b, cin * kk, hw)
     return call
+
+
+def grid_sample_im2col_backward(torch, args):
+    """The backward of grid_sample_im2col's call, for row 8b's library_ms:
+    autograd of F.grid_sample (one aten.grid_sampler_2d_backward, which
+    gives the map and the grid gradients together) and, for DCNv2, of the
+    mask's product, on the forward's saved tensors. ``args`` are the backward
+    kernel's (x, offset, mask, grad, geometry). Returns (call, port):
+    call() runs the backward; port(its result) gives the kernel's (d x
+    float32, d offset, d mask or None), the grid gradient scaled back to
+    pixels (d offset = d grid * 2 / size, (dy, dx) from the grid's (x, y))."""
+    import torch.nn.functional as F
+    x, offset, mask, grad = args[:4]
+    geo = args[4:9]
+    b, _, h, w = x.shape
+    ho, wo = offset.shape[2:]
+    kk, dg = geo[0] * geo[0], geo[4]
+    xf, grid, m = grid_sample_inputs(torch, (x, offset, mask) + geo)
+    leaves = [t.detach().requires_grad_() for t in (xf, grid, m)
+              if t is not None]
+    out = F.grid_sample(leaves[0], leaves[1], mode='bilinear',
+                        padding_mode='zeros', align_corners=False)
+    if m is not None:
+        out = out * leaves[2]
+    g = grad.reshape(out.shape)
+
+    def call():
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    def port(res):
+        dgrid = res[1].reshape(b * dg, kk, ho, wo, 2)
+        doff = torch.stack([dgrid[..., 1] * (2.0 / h),
+                            dgrid[..., 0] * (2.0 / w)], 2)
+        return (res[0].reshape(x.shape), doff.reshape(offset.shape),
+                None if m is None else res[2].reshape(mask.shape))
+    return call, port
+
+
+def near_integer(torch, args, eps=1e-3):
+    """Per offset channel of one deformable im2col call: whether its sample
+    coordinate (y for dy, x for dx) lies within ``eps`` pixels of an
+    integer, where one rounding of the position can move floor and with it
+    the one-sided derivative of the bilinear weights."""
+    from erd_tpu_torch.ops.deform_conv import _base_grid
+    x, offset, _, k, stride, pad, dil, dg = args
+    b = x.shape[0]
+    ho, wo = offset.shape[2:]
+    by, bx = _base_grid(ho, wo, k, stride, pad, dil, x.device)
+    off = offset.reshape(b, dg, k * k, 2, ho, wo)
+    pos = torch.stack([by + off[:, :, :, 0], bx + off[:, :, :, 1]], 3)
+    return ((pos - pos.round()).abs() < eps).reshape(offset.shape)
 
 
 def phase_dcn_kernels(np, torch):
@@ -2998,12 +3092,260 @@ def phase_frcnn_train_kernels(np, torch):
     return rows, rpn_nms
 
 
+@contextlib.contextmanager
+def patched(owner, attr, make):
+    """Within the block ``owner.attr`` (a module's function or an
+    instance's method) is ``make(the original)``."""
+    had = attr in vars(owner)
+    fn = getattr(owner, attr)
+    setattr(owner, attr, make(fn))
+    try:
+        yield
+    finally:
+        if had:
+            setattr(owner, attr, fn)
+        else:
+            delattr(owner, attr)
+
+
+def planted(index=None, when=None):
+    """A control for reference_gate: makes, from a backward kernel's
+    wrapper, one whose gradient at ``index`` (every one for None) is scaled
+    by 1.01 on the calls whose arguments ``when`` accepts (all for None).
+    The new wrapper takes the launch count the kernel adds to its name."""
+    def make(fn):
+        def wrapper(*args):
+            out = fn(*args)
+            if when is not None and not when(args):
+                return out
+            return type(out)(g if g is None or index not in (None, i)
+                             else g * 1.01 for i, g in enumerate(out))
+        wrapper.launches = 0
+        return wrapper
+    return make
+
+
+def reference_gate(np, torch, tag, run, names, parts, controls=(),
+                   floor=1e-6):
+    """The gate of a train reference. ``run(dev)`` gives (losses {name:
+    float}, gradients {group: {key: float64 CPU tensor}}) of one float32
+    loss and backward; the CPU run (plain versions) comes first, then the
+    card's (kernels). Limits: each loss within rtol 1e-3; ||diff|| / ||g||
+    <= 1e-3 over the parameters ``names`` (their gradients summed over the
+    groups), and within its limit over each part (label, group or None for
+    the sum, keys, limit) whose CPU gradient is not 0; per parameter
+    ||diff|| / (||g|| + ``floor`` * the largest ||g||) <= 1e-2, the second
+    term for a tensor whose gradient is 0 but for rounding. Then each
+    control (label, module, attribute, planted(...)) replaces that kernel
+    wrapper for one more card run, which must fail these limits."""
+    def total(grads):
+        return {k: sum(g[k] for g in grads.values())
+                for k in next(iter(grads.values()))}
+
+    def ratio(a, b, keys):
+        diff = torch.cat([(a[k] - b[k]).flatten() for k in keys])
+        ref = torch.cat([b[k].flatten() for k in keys])
+        return float(diff.norm() / ref.norm().clamp(min=1e-30))
+
+    l_cpu, g_cpu = run('cpu')
+    t_cpu = total(g_cpu)
+    scale = floor * max(float(t_cpu[k].norm()) for k in names)
+    live = [(label, group, keys, lim) for label, group, keys, lim in parts
+            if any(float((t_cpu if group is None else g_cpu[group])[k]
+                         .norm()) > 0 for k in keys)]
+
+    def errors(l_dev, g_dev):
+        t_dev = total(g_dev)
+        per_tensor = sorted(((float((t_dev[k] - t_cpu[k]).norm()) / max(
+            float(t_cpu[k].norm()) + scale, 1e-30), k) for k in names),
+            reverse=True)
+        metrics = [('loss', max(abs(l_dev[k] - l_cpu[k]) /
+                                max(abs(l_cpu[k]), 1e-12) for k in l_cpu),
+                    1e-3),
+                   ('whole gradient', ratio(t_dev, t_cpu, names), 1e-3)]
+        metrics += [(label, ratio(t_dev, t_cpu, keys) if group is None else
+                     ratio(g_dev[group], g_cpu[group], keys), lim)
+                    for label, group, keys, lim in live]
+        metrics.append(('per tensor', per_tensor[0][0], 1e-2))
+        return per_tensor, metrics
+
+    def describe(metrics):
+        return ', '.join(f'{name} {v:.2e} (limit {lim:g})'
+                         for name, v, lim in metrics)
+
+    l_gpu, g_gpu = run(DEV)
+    per_tensor, metrics = errors(l_gpu, g_gpu)
+    log(f'{tag} loss card vs CPU: ' + ', '.join(
+        f'{k} {l_gpu[k]:.5f}/{l_cpu[k]:.5f}' for k in l_cpu))
+    log(f'{tag} card vs CPU over {len(names)} trainable tensors: '
+        f'{describe(metrics)}; worst tensors: ' +
+        ', '.join(f'{k} {v:.2e}' for v, k in per_tensor[:3]))
+    check(all(np.isfinite(v) for v in l_gpu.values()),
+          f'{tag}: non-finite loss')
+    check(all(np.isfinite(v) and v <= lim for _, v, lim in metrics),
+          f'{tag}: the loss or gradients on the card disagree with the CPU')
+    for label, module, attr, make in controls:
+        with patched(module, attr, make):
+            _, metrics = errors(*run(DEV))
+        tripped = [m for m, v, lim in metrics if not v <= lim]
+        log(f'{tag} control, {label}: {describe(metrics)}; over the limit: '
+            f'{tripped}')
+        check(tripped, f'{tag}: the gate passes the control {label}')
+
+
+@contextlib.contextmanager
+def stage_marks(torch, optimizer, hooks=(), wrapped=()):
+    """Within the block, every stage of a training step that
+    ``Trainer.train_step`` runs ends with a synchronize and appends (name,
+    time) to the list it yields, after a ('start', time) mark: a forward
+    hook on each (module, name) of ``hooks``, each (owner, attribute, name)
+    of ``wrapped`` marked when its call returns, and the optimizer's step
+    hooks ('backward', 'optimizer')."""
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def marked(name):
+        def make(fn):
+            def wrapper(*args, **kw):
+                out = fn(*args, **kw)
+                mark(name)
+                return out
+            return wrapper
+        return make
+
+    handles = [m.register_forward_hook(lambda *_, name=name: mark(name))
+               for m, name in hooks]
+    handles += [optimizer.register_step_pre_hook(lambda *_: mark('backward')),
+                optimizer.register_step_post_hook(
+                    lambda *_: mark('optimizer'))]
+    try:
+        with contextlib.ExitStack() as stack:
+            for owner, attr, name in wrapped:
+                stack.enter_context(patched(owner, attr, marked(name)))
+            mark('start')
+            yield marks
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def fit_and_check(np, torch, card, tag, cfg, det, net, counters, per_step,
+                  seed, unmoved=None, must_move=None):
+    """build_trainer + fit of ``net`` on TRAIN_WARMUP + TRAIN_TIMED
+    synthetic bs-16, 800x1344 batches (``seed``), every launch count of
+    ``counters`` set to 0 just before fit and read just after. Checks: bf16;
+    each count ``per_step`` times the steps; every loss finite; the frozen
+    stages unchanged and not trainable; every trainable weight moved, or
+    excused by ``unmoved(trainer, net, name, steps)``; some of them named
+    with ``must_move``. Logs the steps, img/s and peak memory. Returns
+    (trainer, loader, the launch counts)."""
+    from erd_tpu_torch.apis import build_trainer
+    from erd_tpu_torch.engine import resnet_frozen_paths
+    check(det.compute_dtype == torch.bfloat16, f'{tag}: not bf16')
+    frozen = resnet_frozen_paths(det.frozen_stages)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    timer = step_timer(torch)
+    cfg.train_cfg.epochs = 1
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    loader = SyntheticLoader(np, torch, steps, seed=seed,
+                             num_labels=det.num_classes)
+    trainer = build_trainer(cfg, det, loader, device=DEV)
+    trainer.hooks.append(timer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    trainer.fit(net)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'{tag}: launches on the train path {counts}')
+    want = {k: v * steps for k, v in per_step.items()}
+    check(counts == want, f'{tag}: launches {counts}, expected {want}')
+    step_s = [t1 - t0 for t0, t1 in zip(timer.t, timer.t[1:])]
+    timed = step_s[TRAIN_WARMUP:]
+    for i, (dt, losses) in enumerate(zip(step_s, timer.losses)):
+        log(f'{tag}: step {i} {1e3 * dt:.1f} ms lr '
+            f'{trainer.current_lr(i):.3e} total {sum(losses.values()):.5f} '
+            + ' '.join(f'{k} {v:.5f}' for k, v in losses.items()
+                       if '_aux' not in k))
+        check(all(np.isfinite(v) for v in losses.values()),
+              f'{tag}: non-finite loss at step {i}')
+    state = net.state_dict()
+    trainable = {n for n, p in net.named_parameters() if p.requires_grad}
+    moved = {k for k, v in state.items() if not torch.equal(v, start[k])}
+    check(not any(k.startswith(frozen) for k in moved | trainable),
+          f'{tag}: a frozen-stage parameter changed or is trainable')
+    weights = {k for k in trainable if state[k].dim() > 1}
+    still = sorted(k for k in weights - moved
+                   if unmoved is None or not unmoved(trainer, net, k, steps))
+    check(not still, f'{tag}: a trainable weight did not move: ' +
+          ', '.join(still[:5]))
+    named = ''
+    if must_move:
+        n = sum(must_move in k for k in weights & moved)
+        check(n, f'{tag}: no {must_move} weight among the trainable ones')
+        named = f' ({n} {must_move.strip(".")} weights)'
+    log(f'{tag}: bs {TRAIN_BATCH} {TRAIN_CANVAS[0]}x{TRAIN_CANVAS[1]} bf16, '
+        f'{len(timed)} timed steps ' + ' '.join(f'{1e3 * t:.1f}'
+                                                for t in timed) +
+        f' ms; {TRAIN_BATCH * len(timed) / sum(timed):.2f} img/s; peak '
+        f'memory {peak / 2**20:.0f} MiB; {len(moved & trainable)}/'
+        f'{len(trainable)} trainable tensors moved{named}, 0 frozen; card '
+        f'{card}')
+    return trainer, loader, counts
+
+
+def step_breakdown(torch, tag, trainer, net, loader, hooks=(), wrapped=(),
+                   host=None):
+    """The stage ms of one step of the trainer's own train_step, each stage
+    ended by a synchronize (stage_marks), then the device idle share of one
+    profiled step. ``host`` (owner, attribute, label, stage): the host time
+    of that function's calls, logged as ``label`` and taken out of
+    ``stage``, which holds them."""
+    from erd_tpu_torch.engine import batch_to
+    batch = batch_to(next(iter(loader.epoch(1))), DEV)
+    spent = []
+
+    def timed(fn):
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            spent.append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        if host:
+            stack.enter_context(patched(host[0], host[1], timed))
+        marks = stack.enter_context(stage_marks(torch, trainer.optimizer,
+                                                hooks, wrapped))
+        trainer.train_step(net, batch, 100)
+    stages = [(name, 1e3 * (t - marks[i][1]))
+              for i, (name, t) in enumerate(marks[1:])]
+    if host:
+        at = [name for name, _ in stages].index(host[3])
+        stages[at] = (host[3], stages[at][1] - 1e3 * sum(spent))
+        stages.insert(at, (f'{host[2]} (host, {len(spent)} calls)',
+                           1e3 * sum(spent)))
+    log(f'{tag}: stage ms of one step: ' + ', '.join(
+        f'{name} {ms:.2f}' for name, ms in stages) +
+        f'; total {1e3 * (marks[-1][1] - marks[0][1]):.2f}')
+    profile_train_step(torch, lambda: trainer.train_step(net, batch, 100),
+                       tag)
+
+
 def phase_frcnn_train_reference(np, torch):
     """For each two-stage config, full width in float32 on a small input:
     the loss dict and the parameter gradients on the card (kernels) against
-    the CPU (plain versions), with the same sampler draws; then two
-    controls on FPN-CARAFE, a 1 % error planted in the RoIAlign or the
-    CARAFE backward kernel, which must each fail the same limits."""
+    the CPU (plain versions), with the same sampler draws (reference_gate,
+    per tensor without a floor; the RPN's and the R-CNN's gradients apart
+    over backbone + neck and over the heads); then two controls on
+    FPN-CARAFE, a 1 % error planted in the RoIAlign or the CARAFE backward
+    kernel, which must each fail the same limits."""
     import copy
     import importlib
 
@@ -3014,15 +3356,6 @@ def phase_frcnn_train_reference(np, torch):
         'erd_tpu_torch.models.detectors.faster_rcnn')
     proposals_fn = frcnn_module.rpn_proposals
     h, w = 128, 192
-
-    def describe(metrics):
-        return ', '.join(f'{name} {v:.2e} (limit {lim:g})'
-                         for name, v, lim in metrics)
-
-    def ratio(a, b, keys):
-        diff = torch.cat([(a[k] - b[k]).flatten() for k in keys])
-        ref = torch.cat([b[k].flatten() for k in keys])
-        return float(diff.norm() / ref.norm().clamp(min=1e-30))
 
     for kind in TWO_STAGE_TRAIN:
         _, det, net_cpu = train_net(torch, kind, device='cpu',
@@ -3066,12 +3399,9 @@ def phase_frcnn_train_reference(np, torch):
             batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
                          gt=type(gt)(**{k: v.to(dev)
                                         for k, v in vars(gt).items()}))
-            frcnn_module.rpn_proposals = proposals
-            try:
+            with patched(frcnn_module, 'rpn_proposals', lambda _: proposals):
                 losses = det.loss(net, batch,
                                   draws=[d.to(dev) for d in draws])
-            finally:
-                frcnn_module.rpn_proposals = proposals_fn
             params = dict(net.named_parameters())
             parts = {'rpn': [k for k in losses if k.startswith('loss_rpn')]}
             parts['rcnn'] = [k for k in losses if k not in parts['rpn']]
@@ -3085,131 +3415,37 @@ def phase_frcnn_train_reference(np, torch):
                                for k, g in zip(names, gs)}
             return {k: float(v.detach()) for k, v in losses.items()}, grads
 
-        l_cpu, g_cpu = run('cpu')
-        t_cpu = {k: g_cpu['rpn'][k] + g_cpu['rcnn'][k] for k in names}
-
-        def errors(l_dev, g_dev):
-            total = {k: g_dev['rpn'][k] + g_dev['rcnn'][k] for k in names}
-            per_tensor = sorted(((ratio(total, t_cpu, [k]), k)
-                                 for k in names), reverse=True)
-            metrics = [('loss', max(abs(l_dev[k] - l_cpu[k]) /
-                                    max(abs(l_cpu[k]), 1e-12)
-                                    for k in l_cpu), 1e-3),
-                       ('whole gradient', ratio(total, t_cpu, names), 1e-3)]
-            for part in ('rpn', 'rcnn'):
-                for scope, keys in (('backbone+neck', low), ('heads', high)):
-                    if any(float(g_cpu[part][k].norm()) > 0 for k in keys):
-                        metrics.append((f'{part} gradient, {scope}',
-                                        ratio(g_dev[part], g_cpu[part], keys),
-                                        1e-3))
-            metrics.append(('per tensor', per_tensor[0][0], 1e-2))
-            return per_tensor, metrics
-
-        l_gpu, g_gpu = run(DEV)
-        per_tensor, metrics = errors(l_gpu, g_gpu)
-        log(f'frcnn train reference: {kind} float32 loss card {l_gpu}')
-        log(f'frcnn train reference: {kind} float32 loss CPU  {l_cpu}')
+        parts = [(f'{group} gradient, {scope}', group, keys, 1e-3)
+                 for group in ('rpn', 'rcnn')
+                 for scope, keys in (('backbone+neck', low), ('heads', high))]
+        controls = [(f'{name} x 1.01', module, name, planted())
+                    for module, name in ((roi_module, 'roi_align_backward'),
+                                         (carafe_module, 'carafe_backward'))
+                    ] if kind == 'carafe' else []
+        reference_gate(np, torch, f'frcnn train reference: {kind} float32 '
+                       f'{h}x{w} x 2', run, names, parts, controls, floor=0)
         slots = cpu_proposals[0][2].numel()
-        log(f'frcnn train reference: {kind} card vs CPU over {len(names)} '
-            f'trainable tensors, on the CPU\'s proposals ({moved[0][0]} of '
-            f'{slots} proposal slots differ on the card, {moved[0][1]} of '
-            f'them not an adjacent near-tie swap): {describe(metrics)}; '
-            f'worst tensors: ' +
-            ', '.join(f'{k} {v:.2e}' for v, k in per_tensor[:3]))
+        log(f'frcnn train reference: {kind} card on the CPU\'s proposals: '
+            f'{moved[0][0]} of {slots} proposal slots differ on the card, '
+            f'{moved[0][1]} of them not an adjacent near-tie swap')
         check(moved[0][1] == 0 and
               moved[0][0] <= PROPOSAL_MOVED_SHARE * slots,
               f'{kind}: the card\'s training proposals differ from the '
               f'CPU\'s beyond adjacent near-tie swaps in '
               f'{PROPOSAL_MOVED_SHARE:.1%} of the slots')
-        check(all(np.isfinite(v) for v in l_gpu.values()),
-              f'{kind}: non-finite loss')
-        check(all(np.isfinite(v) and v <= lim for _, v, lim in metrics),
-              f'the {kind} loss or gradients on the card disagree with the '
-              f'CPU')
-        if kind != 'carafe':
-            continue
-
-        def planted(fn, kind):
-            """``fn`` with each gradient it returns scaled by 1.01; the
-            wrapper takes the launch count the kernel adds to its name."""
-            def wrapper(*args):
-                return kind(g * 1.01 for g in fn(*args))
-            wrapper.launches = 0
-            return wrapper
-
-        for module, name, kind in (
-                (roi_module, 'roi_align_backward', list),
-                (carafe_module, 'carafe_backward', tuple)):
-            kernel = getattr(module, name)
-            setattr(module, name, planted(kernel, kind))
-            try:
-                _, metrics = errors(*run(DEV))
-            finally:
-                setattr(module, name, kernel)
-            tripped = [m for m, v, lim in metrics if not v <= lim]
-            log(f'frcnn train reference: control, {name} x 1.01: '
-                f'{describe(metrics)}; over the limit: {tripped}')
-            check(tripped, f'the gate passes a 1 % error in {name}')
-
-
-@contextlib.contextmanager
-def train_stage_marks(torch, det, net, optimizer):
-    """Within the block, every stage of a two-stage training step that
-    ``Trainer.train_step`` runs ends with a synchronize and appends (name,
-    time) to the list it yields, after a ('start', time) mark: hooks on the
-    neck and the RPN head, the loss's own calls wrapped where they are looked
-    up, and the optimizer's step hooks."""
-    import importlib
-    frcnn = importlib.import_module(
-        'erd_tpu_torch.models.detectors.faster_rcnn')
-    marks = []
-
-    def mark(name):
-        torch.cuda.synchronize()
-        marks.append((name, time.perf_counter()))
-
-    def marked(fn, name):
-        def wrapper(*args, **kw):
-            out = fn(*args, **kw)
-            mark(name)
-            return out
-        return wrapper
-
-    calls = {'rpn_loss': 'RPN loss',
-             'rpn_proposals': f'proposals (NMS K={TRAIN_RPN_K})',
-             'rcnn_sample': 'assign + sample'}
-    saved = {n: getattr(frcnn, n) for n in calls}
-    handles = [
-        net.neck.register_forward_hook(
-            lambda *_: mark('backbone + neck')),
-        net.rpn_head.register_forward_hook(lambda *_: mark('RPN head')),
-        optimizer.register_step_pre_hook(lambda *_: mark('backward')),
-        optimizer.register_step_post_hook(lambda *_: mark('optimizer'))]
-    for n, name in calls.items():
-        setattr(frcnn, n, marked(saved[n], name))
-    det.rcnn_losses = marked(det.rcnn_losses,
-                             'RoIAlign + R-CNN head + loss')
-    try:
-        mark('start')
-        yield marks
-    finally:
-        del det.rcnn_losses
-        for n, fn in saved.items():
-            setattr(frcnn, n, fn)
-        for h in handles:
-            h.remove()
 
 
 def phase_frcnn_train(np, torch, card):
     """build_trainer + fit of each two-stage config at bs 16, 800x1344,
-    bf16: 2 warm-up and 5 timed steps, the launches of every kernel of the
-    path, finite losses, frozen stages unchanged; stage times and the idle
-    share of one profiled step."""
-    from erd_tpu_torch.apis import build_trainer
-    from erd_tpu_torch.engine import batch_to, resnet_frozen_paths
+    bf16 (fit_and_check): 2 warm-up and 5 timed steps, the launches of
+    every kernel of the path, finite losses, frozen stages unchanged; stage
+    times and the idle share of one profiled step."""
+    import importlib
+
     from erd_tpu_torch.ops import (carafe, carafe_backward, nms_sorted_keep,
                                    roi_align, roi_align_backward)
-
+    frcnn = importlib.import_module(
+        'erd_tpu_torch.models.detectors.faster_rcnn')
     counters = {'roi_align': roi_align,
                 'roi_align_backward': roi_align_backward,
                 'nms_keep': nms_sorted_keep, 'carafe': carafe,
@@ -3218,63 +3454,18 @@ def phase_frcnn_train(np, torch, card):
     for kind in TWO_STAGE_TRAIN:
         tag = f'{kind} train'
         cfg, det, net = train_net(torch, kind)
-        check(det.compute_dtype == torch.bfloat16, f'{tag}: not bf16')
-        frozen = resnet_frozen_paths(cfg.model.get('frozen_stages', 1))
-        start = {k: v.clone() for k, v in net.state_dict().items()}
-        timer = step_timer(torch)
-        cfg.train_cfg.epochs = 1
-        steps = TRAIN_WARMUP + TRAIN_TIMED
-        loader = SyntheticLoader(np, torch, steps, seed=51,
-                                 num_labels=det.num_classes)
-        trainer = build_trainer(cfg, det, loader, device=DEV)
-        trainer.hooks.append(timer)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        trainer.fit(net)
-        counts = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
-        launches[tag] = counts
-        log(f'{tag}: launches on the train path {counts}')
-        want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES[kind].items()}
-        check(counts == want, f'{tag}: launches {counts}, expected {want}')
-        step_s = [t1 - t0 for t0, t1 in zip(timer.t, timer.t[1:])]
-        timed = step_s[TRAIN_WARMUP:]
-        for i, (dt, losses) in enumerate(zip(step_s, timer.losses)):
-            log(f'{tag}: step {i} {1e3 * dt:.1f} ms lr '
-                f'{trainer.current_lr(i):.3e} ' +
-                ' '.join(f'{k} {v:.5f}' for k, v in losses.items()))
-            check(all(np.isfinite(v) for v in losses.values()),
-                  f'{tag}: non-finite loss at step {i}')
-        state = net.state_dict()
-        trainable = {n for n, p in net.named_parameters() if p.requires_grad}
-        moved = {k for k, v in state.items() if not torch.equal(v, start[k])}
-        check(not any(k.startswith(frozen) for k in moved | trainable),
-              f'{tag}: a frozen-stage parameter changed or is trainable')
-        weights = {k for k in trainable if state[k].dim() > 1}
-        check(weights <= moved, f'{tag}: a trainable weight did not move: ' +
-              ', '.join(sorted(weights - moved)[:5]))
-        log(f'{tag}: bs {TRAIN_BATCH} {TRAIN_CANVAS[0]}x{TRAIN_CANVAS[1]} '
-            f'bf16, {len(timed)} timed steps ' +
-            ' '.join(f'{1e3 * t:.1f}' for t in timed) +
-            f' ms; {TRAIN_BATCH * len(timed) / sum(timed):.2f} img/s; peak '
-            f'memory {peak / 2**20:.0f} MiB; {len(moved & trainable)}/'
-            f'{len(trainable)} trainable tensors moved, 0 frozen; card {card}')
-
-        # stage times of one step of the trainer's own train_step, each
-        # stage ended by a synchronize
-        batch = batch_to(next(iter(loader.epoch(1))), DEV)
-        with train_stage_marks(torch, det, net, trainer.optimizer) as marks:
-            trainer.train_step(net, batch, 100)
-        log(f'{tag}: stage ms of one step: ' + ', '.join(
-            f'{name} {1e3 * (t - marks[i][1]):.2f}'
-            for i, (name, t) in enumerate(marks[1:])) +
-            f'; total {1e3 * (marks[-1][1] - marks[0][1]):.2f}')
-
-        profile_train_step(torch, lambda: trainer.train_step(net, batch, 100),
-                           tag)
-        del net, trainer, batch
+        trainer, loader, launches[tag] = fit_and_check(
+            np, torch, card, tag, cfg, det, net, counters,
+            TRAIN_STEP_LAUNCHES[kind], seed=51)
+        step_breakdown(
+            torch, tag, trainer, net, loader,
+            hooks=[(net.neck, 'backbone + neck'), (net.rpn_head, 'RPN head')],
+            wrapped=[(frcnn, 'rpn_loss', 'RPN loss'),
+                     (frcnn, 'rpn_proposals',
+                      f'proposals (NMS K={TRAIN_RPN_K})'),
+                     (frcnn, 'rcnn_sample', 'assign + sample'),
+                     (det, 'rcnn_losses', 'RoIAlign + R-CNN head + loss')])
+        del net, trainer
         torch.cuda.empty_cache()
     return launches
 
@@ -3463,11 +3654,11 @@ def phase_detr_train_reference(np, torch):
     """Both DETR configs in float32 at full width on a small input: the
     loss dict and the parameter gradients on the card (kernels) against
     the CPU (plain versions), the card taking the CPU's matches and
-    denoising draws: losses rtol 1e-3, ||diff|| / ||g|| <= 1e-3 over all
-    tensors and over each of backbone + neck, transformer and heads, 3e-3
-    over the sampling offsets, 1e-2 per tensor; then a 1 % error planted in the
-    sampling backward kernel's value gradient, and one in its location
-    gradient, must each fail the same limits."""
+    denoising draws (reference_gate): losses rtol 1e-3, ||diff|| / ||g|| <=
+    1e-3 over all tensors and over each of backbone + neck, transformer and
+    heads, 3e-3 over the sampling offsets, 1e-2 per tensor; then a 1 % error
+    planted in the sampling backward kernel's value gradient, and one in its
+    location gradient, must each fail the same limits."""
     import copy
     import importlib
 
@@ -3480,11 +3671,6 @@ def phase_detr_train_reference(np, torch):
     log(f'detr train reference: scipy {scipy.__version__} solves the '
         f'Hungarian matching on the host')
     h, w = 128, 192
-
-    def ratio(a, b, keys):
-        diff = torch.cat([(a[k] - b[k]).flatten() for k in keys])
-        ref = torch.cat([b[k].flatten() for k in keys])
-        return float(diff.norm() / ref.norm().clamp(min=1e-30))
 
     for kind in DETR_CONFIGS:
         _, det, net_cpu = detr_train_net(torch, kind, device='cpu',
@@ -3538,7 +3724,8 @@ def phase_detr_train_reference(np, torch):
                                      allow_unused=True)
             grads = {k: (torch.zeros_like(params[k]) if g is None else g)
                      .double().cpu() for k, g in zip(names, gs)}
-            return {k: float(v.detach()) for k, v in losses.items()}, grads
+            return ({k: float(v.detach()) for k, v in losses.items()},
+                    {'all': grads})
 
         cpu_matches, card_matches = [], []
         with torch.no_grad():
@@ -3547,214 +3734,436 @@ def phase_detr_train_reference(np, torch):
         moved = sum(int((a.cpu() != b).sum())
                     for a, b in zip(card_matches, cpu_matches))
         slots = sum(int(m.numel()) for m in cpu_matches)
-        l_cpu, g_cpu = run('cpu', matches=cpu_matches)
 
-        # per tensor: ||diff|| / (||g|| + 1e-6 * the largest ||g||); the
-        # second term covers the attention key biases, whose gradient is 0
-        # but for rounding (the softmax ignores a shift common to all keys)
-        floor = 1e-6 * max(float(g_cpu[k].norm()) for k in names)
-
-        def errors(l_dev, g_dev):
-            per_tensor = sorted(((float((g_dev[k] - g_cpu[k]).norm()) /
-                                  (float(g_cpu[k].norm()) + floor), k)
-                                 for k in names), reverse=True)
-            metrics = [('loss', max(abs(l_dev[k] - l_cpu[k]) /
-                                    max(abs(l_cpu[k]), 1e-12)
-                                    for k in l_cpu), 1e-3),
-                       ('whole gradient', ratio(g_dev, g_cpu, names), 1e-3)]
-            metrics += [(f'{part} gradient', ratio(g_dev, g_cpu, keys),
-                         3e-3 if part == 'sampling offsets' else 1e-3)
-                        for part, keys in parts.items()]
-            metrics.append(('per tensor', per_tensor[0][0], 1e-2))
-            return per_tensor, metrics
-
-        def describe(metrics):
-            return ', '.join(f'{name} {v:.2e} (limit {lim:g})'
-                             for name, v, lim in metrics)
-
-        l_gpu, g_gpu = run(DEV, matches=[m.to(DEV) for m in cpu_matches])
-        per_tensor, metrics = errors(l_gpu, g_gpu)
+        parts = [(f'{part} gradient', None, keys,
+                  3e-3 if part == 'sampling offsets' else 1e-3)
+                 for part, keys in parts.items()]
+        controls = [(f'd {name} x 1.01', ops_module,
+                     'ms_deform_attn_backward', planted(index))
+                    for index, name in enumerate(('values', 'locations'))]
         log(f'detr train reference: {kind} float32 {h}x{w} x 2, '
             f'{len(cpu_matches)} Hungarian calls: the card\'s own matches '
             f'differ from the CPU\'s in {moved} of {slots} query slots; the '
             f'card then takes the CPU\'s')
-        log(f'detr train reference: {kind} loss card vs CPU: ' + ', '.join(
-            f'{k} {l_gpu[k]:.5f}/{l_cpu[k]:.5f}' for k in l_cpu))
-        log(f'detr train reference: {kind} card vs CPU over {len(names)} '
-            f'trainable tensors: {describe(metrics)}; worst tensors: ' +
-            ', '.join(f'{k} {v:.2e}' for v, k in per_tensor[:3]))
-        check(all(np.isfinite(v) for v in l_gpu.values()),
-              f'{kind}: non-finite loss')
-        check(all(np.isfinite(v) and v <= lim for _, v, lim in metrics),
-              f'the {kind} loss or gradients on the card disagree with the '
-              f'CPU')
-
-        kernel = ops_module.ms_deform_attn_backward
-        for part in (0, 1):
-            def planted(*args, part=part):
-                grads = list(kernel(*args))
-                grads[part] = grads[part] * 1.01
-                return tuple(grads)
-            planted.launches = 0
-            ops_module.ms_deform_attn_backward = planted
-            try:
-                _, metrics = errors(*run(DEV, matches=[
-                    m.to(DEV) for m in cpu_matches]))
-            finally:
-                ops_module.ms_deform_attn_backward = kernel
-            tripped = [m for m, v, lim in metrics if not v <= lim]
-            name = ('values', 'locations')[part]
-            log(f'detr train reference: control, {kind} d {name} x 1.01: '
-                f'{describe(metrics)}; over the limit: {tripped}')
-            check(tripped, f'the gate passes a 1 % error in the sampling '
-                  f'backward\'s {name} gradient')
+        # per tensor, the floor covers the attention key biases, whose
+        # gradient is 0 but for rounding (the softmax ignores a shift common
+        # to all keys)
+        reference_gate(np, torch, f'detr train reference: {kind}',
+                       lambda dev: run(dev, matches=[
+                           m.to(dev) for m in cpu_matches]),
+                       names, parts, controls)
         del net_cpu
 
 
-@contextlib.contextmanager
-def detr_stage_marks(torch, det, net, optimizer):
-    """Within the block, the stages of a DETR training step that
-    ``Trainer.train_step`` runs each end with a synchronize and append
-    (name, time) to the first list it yields, after a ('start', time) mark:
-    a hook on the neck, the head's encode and decode and the detector's
-    loss wrapped on their instances (DINO's query selection falls in
-    'decoder'), the optimizer's step hooks. The second list gathers the
-    host time of each Hungarian match, which the loss stage includes."""
+def phase_detr_train(np, torch, card):
+    """build_trainer + fit of each DETR config at bs 16, 800x1344, bf16
+    (fit_and_check): 2 warm-up and 5 timed steps, 12 sampling and 12
+    sampling-backward launches per step, finite losses, frozen stages
+    unchanged, every trainable weight moved or its updates below its
+    float32 resolution; img/s, peak memory, the stage times of one
+    train_step (DINO's query selection in 'decoder', the host's Hungarian
+    matching apart) and the idle share of one profiled step."""
     import importlib
+
+    from erd_tpu_torch.ops import ms_deform_attn, ms_deform_attn_backward
     head_module = importlib.import_module(
         'erd_tpu_torch.models.heads.deformable_detr_head')
-    marks, matching = [], []
-
-    def mark(name):
-        torch.cuda.synchronize()
-        marks.append((name, time.perf_counter()))
-
-    def marked(fn, name):
-        def wrapper(*args, **kw):
-            out = fn(*args, **kw)
-            mark(name)
-            return out
-        return wrapper
-
-    match_fn = head_module.hungarian_match
-
-    def timed_match(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = match_fn(*args)
-        matching.append(time.perf_counter() - t0)
-        return out
-
-    head = net.bbox_head
-    handles = [
-        net.neck.register_forward_hook(lambda *_: mark('backbone + neck')),
-        optimizer.register_step_pre_hook(lambda *_: mark('backward')),
-        optimizer.register_step_post_hook(lambda *_: mark('optimizer'))]
-    head.encode = marked(head.encode, 'encoder')
-    head.decode = marked(head.decode, 'decoder')
-    det.loss = marked(det.loss, 'losses')
-    head_module.hungarian_match = timed_match
-    try:
-        mark('start')
-        yield marks, matching
-    finally:
-        head_module.hungarian_match = match_fn
-        del head.encode, head.decode, det.loss
-        for h in handles:
-            h.remove()
-
-
-def phase_detr_train(np, torch, card):
-    """build_trainer + fit of each DETR config at bs 16, 800x1344, bf16:
-    2 warm-up and 5 timed steps, 12 sampling and 12 sampling-backward
-    launches per step, finite losses, frozen stages unchanged, every
-    trainable weight moved or its updates below its float32 resolution;
-    img/s, peak memory, the stage times of one train_step and the idle
-    share of one profiled step."""
-    from erd_tpu_torch.apis import build_trainer
-    from erd_tpu_torch.engine import batch_to, resnet_frozen_paths
-    from erd_tpu_torch.ops import ms_deform_attn, ms_deform_attn_backward
-
     counters = {'ms_deform_attn': ms_deform_attn,
                 'ms_deform_attn_backward': ms_deform_attn_backward}
     launches = {}
     for kind in DETR_CONFIGS:
         tag = f'detr train {kind}'
         cfg, det, net = detr_train_net(torch, kind)
-        check(det.compute_dtype == torch.bfloat16, f'{tag}: not bf16')
-        frozen = resnet_frozen_paths(det.frozen_stages)
-        start = {k: v.clone() for k, v in net.state_dict().items()}
-        timer = step_timer(torch)
-        cfg.train_cfg.epochs = 1
-        steps = TRAIN_WARMUP + TRAIN_TIMED
-        loader = SyntheticLoader(np, torch, steps, seed=53,
-                                 num_labels=NUM_CLASSES)
-        trainer = build_trainer(cfg, det, loader, device=DEV)
-        trainer.hooks.append(timer)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        trainer.fit(net)
-        counts = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
-        launches[tag] = counts
-        log(f'{tag}: launches on the train path {counts}')
-        want = {k: DETR_STEP_CALLS * steps for k in counters}
-        check(counts == want, f'{tag}: launches {counts}, expected {want}')
-        step_s = [t1 - t0 for t0, t1 in zip(timer.t, timer.t[1:])]
-        timed = step_s[TRAIN_WARMUP:]
-        for i, (dt, losses) in enumerate(zip(step_s, timer.losses)):
-            log(f'{tag}: step {i} {1e3 * dt:.1f} ms lr '
-                f'{trainer.current_lr(i):.3e} total '
-                f'{sum(losses.values()):.4f} ' +
-                ' '.join(f'{k} {v:.4f}' for k, v in losses.items()
-                         if '_aux' not in k))
-            check(all(np.isfinite(v) for v in losses.values()),
-                  f'{tag}: non-finite loss at step {i}')
-        state = net.state_dict()
-        trainable = {n for n, p in net.named_parameters() if p.requires_grad}
-        moved = {k for k, v in state.items() if not torch.equal(v, start[k])}
-        check(not any(k.startswith(frozen) for k in moved | trainable),
-              f'{tag}: a frozen-stage parameter changed or is trainable')
-        # a weight that did not move must have taken a gradient whose
-        # updates lie below its float32 resolution: DINO's regression MLP
-        # under its zero-initialised fc_reg at the warmup's lr ~1e-7
-        params = dict(net.named_parameters())
-        still = {k for k in trainable if state[k].dim() > 1} - moved
-        for k in sorted(still):
-            buf = trainer.optimizer.state[params[k]].get('momentum_buffer')
+
+        def unmoved(trainer, net, k, steps, tag=tag):
+            """A weight that did not move must have taken a gradient whose
+            updates lie below its float32 resolution: DINO's regression MLP
+            under its zero-initialised fc_reg at the warmup's lr ~1e-7."""
+            param = dict(net.named_parameters())[k]
+            buf = trainer.optimizer.state[param].get('momentum_buffer')
             step = 0.0 if buf is None else \
                 trainer.current_lr(steps - 1) * float(buf.abs().max())
-            ulp = float(params[k].detach().abs().max()) * 2.0 ** -24
+            ulp = float(param.detach().abs().max()) * 2.0 ** -24
             log(f'{tag}: {k} did not move: largest last update {step:.2e}, '
                 f'half an ulp of its largest entry {ulp:.2e}')
-            check(0 < step < ulp, f'{tag}: the trainable weight {k} did not '
-                  f'move, and not for want of float32 resolution')
-        log(f'{tag}: bs {TRAIN_BATCH} {TRAIN_CANVAS[0]}x{TRAIN_CANVAS[1]} '
-            f'bf16, {len(timed)} timed steps ' +
-            ' '.join(f'{1e3 * t:.1f}' for t in timed) +
-            f' ms; {TRAIN_BATCH * len(timed) / sum(timed):.2f} img/s; peak '
-            f'memory {peak / 2**20:.0f} MiB; {len(moved & trainable)}/'
-            f'{len(trainable)} trainable tensors moved, 0 frozen; card {card}')
+            return 0 < step < ulp
 
-        batch = batch_to(next(iter(loader.epoch(1))), DEV)
-        with detr_stage_marks(torch, det, net, trainer.optimizer) as (
-                marks, matching):
-            trainer.train_step(net, batch, 100)
-        stages = {name: 1e3 * (t - marks[i][1])
-                  for i, (name, t) in enumerate(marks[1:])}
-        stages['losses'] -= 1e3 * sum(matching)
-        log(f'{tag}: stage ms of one step: ' + ', '.join(
-            f'{k} {v:.2f}' for k, v in list(stages.items())[:3]) +
-            f', matching (host, {len(matching)} calls) '
-            f'{1e3 * sum(matching):.2f}, ' + ', '.join(
-                f'{k} {v:.2f}' for k, v in list(stages.items())[3:]) +
-            f'; total {1e3 * (marks[-1][1] - marks[0][1]):.2f}')
+        trainer, loader, launches[tag] = fit_and_check(
+            np, torch, card, tag, cfg, det, net, counters,
+            dict.fromkeys(counters, DETR_STEP_CALLS), seed=53,
+            unmoved=unmoved)
+        head = net.bbox_head
+        step_breakdown(
+            torch, tag, trainer, net, loader,
+            hooks=[(net.neck, 'backbone + neck')],
+            wrapped=[(head, 'encode', 'encoder'), (head, 'decode', 'decoder'),
+                     (det, 'loss', 'losses')],
+            host=(head_module, 'hungarian_match', 'matching', 'losses'))
+        del net, trainer, head
+        torch.cuda.empty_cache()
+    return launches
 
-        profile_train_step(torch, lambda: trainer.train_step(net, batch, 100),
-                           tag)
-        del net, trainer, batch
+
+def dcn_train_net(torch, kind, device=None, dtype=None, seed=43):
+    """A DCN config's detector and a seeded network (conv_offset arranged
+    by arrange_offsets, as in dcn kernels), on ``device`` (the card by
+    default); the config's bf16 unless ``dtype`` names another."""
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.ops import arrange_offsets
+    cfg = Config.fromfile(DCN_CONFIGS[kind])
+    if dtype:
+        cfg.model.compute_dtype = dtype
+    det = build_detector(cfg.model)
+    if not dtype:
+        check_dcn_model(torch, det, kind)
+    check(det.frozen_stages == 1, f'{kind}: the stem and layer1 are not '
+          f'frozen')
+    net = det.init(seed=seed, device=device or DEV)
+    arrange_offsets(net, DCN_ARRANGE_SEED)
+    return cfg, det, net
+
+
+def deform_backward_cost(args):
+    """(bytes, operations) of one deformable im2col backward call. Bytes:
+    the column gradient, the map, the offsets and masks read once; the map
+    gradient (in the map's dtype), the offset and mask gradients written
+    once. Operations: per column element 7 for the map gradient's 4 corner
+    products, 14 for the offset sums and 13 for the mask's (DCNv2); per
+    sample ~16 of coordinates and the final scaling."""
+    x, offset, mask, grad = args[:4]
+    cols, samples = grad.numel(), offset.numel() // 2
+    maps = x.numel() * x.element_size()
+    nbytes = grad.numel() * 4 + 2 * maps + 2 * offset.numel() * 4 + \
+        (0 if mask is None else 2 * mask.numel() * 4)
+    return nbytes, cols * (21.0 + 13.0 * (mask is not None)) + samples * 16.0
+
+
+def phase_dcn_train_kernels(np, torch):
+    """The deformable im2col backward kernel on every call of one bs-16,
+    800x1344 bf16 training step of each DCN config (conv_offset arranged),
+    against its plain version; then each distinct call shape timed."""
+    import importlib
+
+    from erd_tpu_torch.engine import batch_to
+    from erd_tpu_torch.ops import (deform_im2col_backward,
+                                   deform_im2col_backward_plain)
+    dcn_module = importlib.import_module('erd_tpu_torch.ops.deform_conv')
+    stats, shapes = {}, {}
+    names = ('x', 'offset', 'mask')
+    worst_abs, worst_rel = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    worst_ulps = 0
+    for kind in DCN_CONFIGS:
+        _, det, net = dcn_train_net(torch, kind)
+        batch = batch_to(next(iter(SyntheticLoader(
+            np, torch, 1, seed=41, num_labels=NUM_CLASSES).epoch(0))), DEV)
+        calls = []
+        restore = capture(dcn_module, 'deform_im2col_backward', calls)
+        try:
+            losses = det.loss(net, batch)
+            sum(losses.values()).backward()
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        log(f'dcn train kernels: one {kind} step captured: '
+            f'{len(calls)} backward calls; losses ' + ' '.join(
+                f'{k} {float(v.detach()):.4f}' for k, v in losses.items()))
+        del net, losses, batch
+        calls = [tuple(a.detach() if torch.is_tensor(a) else a for a in c)
+                 for c in calls]
+        torch.cuda.empty_cache()
+        check(len(calls) == DCN_CALLS[kind] and
+              all(c[0].shape[0] == TRAIN_BATCH and c[9] and c[10]
+                  for c in calls), f'{kind}: {len(calls)} backward calls of '
+              f'one step, expected {DCN_CALLS[kind]} at bs {TRAIN_BATCH} '
+              f'asking for every gradient')
+        for i, args in enumerate(calls):
+            x, offset, mask, grad = args[:4]
+            geo = args[4:9]
+            # VFNet's backbone convs are DCNv2, its head's star convs DCNv1
+            part = f'{kind} ' + ('head' if kind == 'vfnet_r50_mdconv' and
+                                 mask is None else 'backbone')
+            counts = stats.setdefault(part, [0, 0, 0])
+            for j, v in enumerate(dcn_sample_stats(
+                    torch, (x, offset, mask) + geo)):
+                counts[j] += v
+            # the map gradient does not depend on the map's values: with a
+            # float32 copy of the map the kernel returns its float32 sums
+            got32 = deform_im2col_backward(x.float(), offset, mask, grad,
+                                           *geo)
+            got = deform_im2col_backward(x, offset, mask, grad, *geo)
+            torch.cuda.synchronize()
+            want = deform_im2col_backward_plain(x, offset, mask, grad, *geo)
+            errs = []
+            for name, g, w in zip(names, (got32[0],) + got[1:], want):
+                if w is None:
+                    check(g is None, f'{part} call {i}: a {name} gradient '
+                          f'where none belongs')
+                    continue
+                err = float((g - w).abs().max())
+                limit = 1e-5 * float(w.abs().max())
+                errs.append(f'{name} {err:.3e} (limit {limit:.3e})')
+                check(err <= limit, f'{part}: deformable im2col backward '
+                      f'kernel disagrees with plain on call {i} ({name})')
+                worst_abs[name] = max(worst_abs[name], err)
+                worst_rel[name] = max(worst_rel[name], err / max(
+                    float(w.abs().max()), 1e-30))
+            check(got[0].dtype == x.dtype, f'{part} call {i}: the map '
+                  f'gradient is not in the map\'s dtype')
+            if x.dtype == torch.bfloat16:
+                # one ulp, where the sums differ by more than the float32
+                # limit: below it a sum that cancels to near 0 can round to
+                # bf16 values many of their tiny ulps apart
+                ulps = bf16_ulps(torch, got[0], want[0].bfloat16())
+                far = (got[0].float() - want[0]).abs() > \
+                    1e-5 * float(want[0].abs().max())
+                n_ulps = int(ulps[far].max()) if bool(far.any()) else 0
+                errs.append(f'bf16 map gradient {n_ulps} ulp beyond '
+                            f'1e-5*max|plain| (limit 1)')
+                check(n_ulps <= 1, f'{part}: the bf16 map gradient of call '
+                      f'{i} is more than one ulp from the plain one rounded')
+                worst_ulps = max(worst_ulps, n_ulps)
+            log(f'dcn train kernels: {part} call {i} x {tuple(x.shape)} '
+                f'{x.dtype} stride {geo[1]} mask {mask is not None}: '
+                f'max_abs_err ' + ', '.join(errs) + ' (atomics reorder the '
+                f'map sums)')
+            key = (kind, tuple(x.shape), geo[1], mask is not None)
+            if key in shapes:
+                shapes[key][1] += 1
+            else:
+                shapes[key] = [args[:9], 1]
+            del got32, got, want
+        del calls
+        torch.cuda.empty_cache()
+    for part, (n, frac, out) in stats.items():
+        log(f'dcn train kernels: {part} samples {n}: fractional bilinear '
+            f'weight {frac / n:.4f}, a corner outside its map {out / n:.4f}')
+        check(frac >= 0.5 * n, f'{part}: fewer than 50 % of the samples have '
+              f'a fractional bilinear weight')
+        check(out >= 0.01 * n, f'{part}: fewer than 1 % of the samples reach '
+              f'outside their map')
+
+    # the kernel's ms: CUDA events around the call less the zeroing of its
+    # float32 map gradient, timed alone
+    timed, per_step = [], {}
+    for (kind, xshape, stride, has_mask), (args, count) in shapes.items():
+        call_ms = events_ms(torch, lambda: deform_im2col_backward(*args), 5)
+        zero_ms = events_ms(torch, lambda: torch.zeros(
+            xshape, dtype=torch.float32, device=DEV), 5)
+        plain_ms = events_ms(torch, lambda: deform_im2col_backward_plain(
+            *args), 1)
+        ms = call_ms - zero_ms
+        want = deform_im2col_backward_plain(*args)
+        library, port = grid_sample_im2col_backward(torch, args)
+        library_ms = events_ms(torch, library, 5)
+        # the library computes the same function: its gradients against
+        # the plain ones. grid_sample's normalised grid rounds the
+        # positions (~1e-4 relative, as in dcn kernels); the offsets'
+        # gradients are held where the sample is not within 1e-3 px of an
+        # integer in that coordinate, where the rounding can move floor
+        near = near_integer(torch, (args[0], args[1], args[2]) + args[4:9])
+        library_errs = {}
+        for name, g, w in zip(names, port(library()), want):
+            if w is None:
+                continue
+            if name == 'offset':
+                g, w = g[~near], w[~near]
+            err = float((g - w).abs().max())
+            limit = 1e-3 * float(w.abs().max())
+            library_errs[name] = err
+            check(err <= limit, f'{kind} x {xshape}: the grid_sample '
+                  f'backward gives another {name} gradient ({err:.3e} > '
+                  f'{limit:.3e}): not the same function')
+        del want, library, port
+        nbytes, ops = deform_backward_cost(args)
+        bms, by = bound_of(nbytes, ops)
+        out_hw = list(args[1].shape[2:])
+        timed.append(dict(config=kind, x=list(xshape), out_hw=out_hw,
+                          stride=stride, mask=has_mask, calls=count, ms=ms,
+                          call_ms=call_ms, zero_ms=zero_ms,
+                          ms_from='events less zeroing', plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                          ops=ops, ratio=ms / bms, library_ms=library_ms,
+                          library_max_abs_err=library_errs,
+                          library_offsets_skipped=float(near.float().mean())))
+        per_step[kind] = per_step.get(kind, 0.0) + count * call_ms
+        log(f'dcn train kernels: deform_im2col_backward {kind} x {xshape} '
+            f'-> {tuple(out_hw)} stride {stride} mask {has_mask} (x{count} '
+            f'a step): {ms:.4f} ms ({call_ms:.4f} ms per call by events, '
+            f'less {zero_ms:.4f} ms of the map gradient\'s zeroing), plain '
+            f'{plain_ms:.2f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, '
+            f'{ops / 1e9:.3f} GOP), {ms / bms:.1f}x the bound; grid_sample '
+            f'backward {library_ms:.4f} ms (max_abs_err ' + ', '.join(
+                f'{k} {v:.3e}' for k, v in library_errs.items()) +
+            f'; offsets within 1e-3 px of an integer left out: '
+            f'{float(near.float().mean()):.4f})')
+    for kind, total in per_step.items():
+        log(f'dcn train kernels: {kind} backward calls of one step '
+            f'{total:.2f} ms (events, call time)')
+    log('dcn train kernels: library_ms is the autograd backward of '
+        'F.grid_sample (bilinear, zeros padding, align_corners=False) on the '
+        'float32 map and a grid prepared beforehand, times the mask for '
+        'DCNv2: aten.grid_sampler_2d_backward gives the map and grid '
+        'gradients, the mask product\'s backward the mask\'s; call time by '
+        'events, its own zeroing included')
+    big = max(timed, key=lambda t: t['bound_bytes'])
+    total = [sum(v[j] for v in stats.values()) for j in range(3)]
+    row = dict(name='deform_im2col_backward', route='cuda',
+               source='erd_tpu_torch/csrc/deform_conv.cu',
+               replaces='erd_tpu/ops/deform_conv.py:28',
+               max_abs_err=max(worst_abs.values()),
+               max_abs_err_by_part=worst_abs,
+               max_err_over_max_plain_by_part=worst_rel,
+               max_bf16_ulps=worst_ulps,
+               ms=big['ms'], call_ms=big['call_ms'], ms_from=big['ms_from'],
+               ms_at=f'{big["config"]} x {big["x"]} stride {big["stride"]}',
+               plain_ms=big['plain_ms'], bound_ms=big['bound_ms'],
+               bound_by=big['bound_by'], library_ms=big['library_ms'],
+               deterministic=False, shapes=timed, per_step_ms=per_step,
+               sample_share={'fractional': total[1] / total[0],
+                             'outside': total[2] / total[0]})
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dcn_train_reference(np, torch):
+    """Both DCN configs in float32 at full width on a small input: the loss
+    dict and the parameter gradients on the card (kernels) against the CPU
+    (plain versions), reference_gate: losses rtol 1e-3, ||diff|| / ||g|| <=
+    1e-3 over all tensors and over each of the DCN blocks' conv_offset, the
+    rest of backbone + neck, and the head, and for VFNet over the gradient
+    of the offsets its head's star convs take (the path into vfnet_reg,
+    scaled by 0.1, where an error reads ~1e-2 but only ~3e-4 on the head's
+    parameters); 1e-2 per tensor. Then a 1 % error planted in the backward
+    kernel's map gradient, and one in its offset gradient, on every call
+    and, for VFNet, on the head's calls alone, must each fail those
+    limits."""
+    import copy
+    import importlib
+
+    from erd_tpu_torch.models.heads.vfnet_head import \
+        STRIDES as VFNET_STRIDES
+    from erd_tpu_torch.structures import ImageMeta, stack_to
+    dcn_module = importlib.import_module('erd_tpu_torch.ops.deform_conv')
+    h, w = 128, 192
+
+    for kind in DCN_CONFIGS:
+        _, det, net_cpu = dcn_train_net(torch, kind, device='cpu',
+                                        dtype='float32', seed=7)
+        rs = np.random.RandomState(23)
+        images = torch.from_numpy(rs.randint(0, 256, (2, h, w, 3),
+                                             np.uint8))
+        gt = synthetic_gt(np, torch, rs, 2, (h, w), device='cpu',
+                          num_labels=det.num_classes)
+        metas = [ImageMeta.make((h, w), (h, w), (1.0, 1.0), img_id=i)
+                 for i in (1, 2)]
+        names = [k for k, p in net_cpu.named_parameters() if p.requires_grad]
+        parts = {'conv_offset': [k for k in names if '.conv_offset.' in k],
+                 'backbone + neck': [k for k in names if k.startswith(
+                     ('backbone.', 'neck.')) and '.conv_offset.' not in k],
+                 'head': [k for k in names if k.startswith('bbox_head.')]}
+        check(sum(map(len, parts.values())) == len(names) and
+              len(parts['conv_offset']) == 2 * (30 if kind == 'gfl_r101_dcn'
+                                                else 13),
+              f'{kind}: the gradient parts do not cover the parameters')
+        # VFNet's head calls are its DCNv1 ones (the backbone's are DCNv2),
+        # two on each level
+        star = kind == 'vfnet_r50_mdconv'
+        head_calls = 2 * len(VFNET_STRIDES) if star else 0
+        parts = [(f'{part} gradient', None, keys, 1e-3)
+                 for part, keys in parts.items()]
+        if star:
+            parts.append(('head star-offset gradient', None,
+                          [f'star offsets {i}' for i in range(head_calls)],
+                          1e-3))
+
+        def run(dev):
+            """Losses and gradients: the parameters', and the gradient of
+            each head call's offsets (through a view of its own, as the
+            two star convs of a level share one offset tensor)."""
+            net = copy.deepcopy(net_cpu).to(dev)
+            batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
+                         gt=type(gt)(**{k: v.to(dev)
+                                        for k, v in vars(gt).items()}))
+            grads = {}
+
+            def hooked(fn):
+                def im2col(x, offset, mask, *geo):
+                    if star and mask is None:
+                        offset = offset.view_as(offset)
+                        key = f'star offsets {len(grads)}'
+                        grads[key] = None
+                        offset.register_hook(lambda g, key=key: grads.update(
+                            {key: g.double().cpu()}))
+                    return fn(x, offset, mask, *geo)
+                im2col.launches = 0  # the kernel counts on its name
+                return im2col
+            with patched(dcn_module, 'deform_im2col', hooked):
+                losses = det.loss(net, batch)
+            params = dict(net.named_parameters())
+            gs = torch.autograd.grad(sum(losses.values()),
+                                     [params[k] for k in names],
+                                     allow_unused=True)
+            check(len(grads) == head_calls and all(
+                g is not None for g in grads.values()),
+                f'{kind}: {len(grads)} head calls with an offset gradient, '
+                f'expected {head_calls}')
+            grads.update({k: (torch.zeros_like(params[k]) if g is None
+                              else g).double().cpu()
+                          for k, g in zip(names, gs)})
+            return ({k: float(v.detach()) for k, v in losses.items()},
+                    {'all': grads})
+
+        def head(args):
+            return args[2] is None
+
+        controls = [(f'd {name} x 1.01{where}', dcn_module,
+                     'deform_im2col_backward', planted(index, when))
+                    for where, when in [('', None)] + (
+                        [(' in the head\'s calls', head)] if star else [])
+                    for index, name in enumerate(('map', 'offset'))]
+        reference_gate(np, torch, f'dcn train reference: {kind} float32 '
+                       f'{h}x{w} x 2', run, names, parts, controls)
+        del net_cpu
+
+
+# kernel launches of one DCN training step: the im2col and its backward on
+# every deformable conv, one ATSS call, and GFL's fused loss (forward and
+# backward)
+DCN_TRAIN_STEP_LAUNCHES = {
+    'gfl_r101_dcn': dict(deform_im2col=30, deform_im2col_backward=30,
+                         atss=1, gfl_loss=2),
+    'vfnet_r50_mdconv': dict(deform_im2col=23, deform_im2col_backward=23,
+                             atss=1, gfl_loss=0)}
+
+
+def phase_dcn_train(np, torch, card):
+    """build_trainer + fit of each DCN config at bs 16, 800x1344, bf16
+    (fit_and_check): 2 warm-up and 5 timed steps, exactly the launches of
+    DCN_TRAIN_STEP_LAUNCHES per step, finite losses, the stem and layer1
+    unchanged, every trainable weight moved (each conv_offset included);
+    img/s, peak memory, the stage times of one train_step and the idle
+    share of one profiled step."""
+    from erd_tpu_torch.ops import deform_im2col, deform_im2col_backward
+    from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss
+    from erd_tpu_torch.task import atss_assign
+
+    counters = {'deform_im2col': deform_im2col,
+                'deform_im2col_backward': deform_im2col_backward,
+                'atss': atss_assign, 'gfl_loss': fused_gfl_loss}
+    launches = {}
+    for kind in DCN_CONFIGS:
+        tag = f'dcn train {kind}'
+        cfg, det, net = dcn_train_net(torch, kind)
+        trainer, loader, launches[tag] = fit_and_check(
+            np, torch, card, tag, cfg, det, net, counters,
+            DCN_TRAIN_STEP_LAUNCHES[kind], seed=57, must_move='.conv_offset.')
+        step_breakdown(
+            torch, tag, trainer, net, loader,
+            hooks=[(net.backbone, 'backbone'), (net.neck, 'neck'),
+                   (net.bbox_head, 'head')],
+            wrapped=[(det, 'loss', 'targets + losses')])
+        del net, trainer
         torch.cuda.empty_cache()
     return launches
 
@@ -3820,6 +4229,9 @@ def main() -> int:
         detr_train_row = phase_detr_train_kernels(np, torch)
         phase_detr_train_reference(np, torch)
         detr_train_launches = phase_detr_train(np, torch, card)
+        dcn_train_row = phase_dcn_train_kernels(np, torch)
+        phase_dcn_train_reference(np, torch)
+        dcn_train_launches = phase_dcn_train(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -3837,9 +4249,13 @@ def main() -> int:
             row['train_ms_by_k'] = {k: v[idx] for k, v in train_extra.items()}
             if row['name'] == 'integral_decode':
                 row['train_no_clip_max_abs_err'] = no_clip_err
-        for row in train_rows:
-            row['launches'] = train_launches[row['name']]
-            row['launches_by_path'] = {'train': row['launches']}
+        for row in train_rows:  # ATSS and the GFL loss: the DCN steps too
+            by_path = {'train': train_launches[row['name']]}
+            for path, counts in dcn_train_launches.items():
+                if counts.get(row['name']):
+                    by_path[path] = counts[row['name']]
+            row['launches'] = sum(by_path.values())
+            row['launches_by_path'] = by_path
         for row in frcnn_rows:
             by_path = {'frcnn serve': frcnn_launches[row['name']]}
             if row['name'] == 'roi_align':
@@ -3872,11 +4288,19 @@ def main() -> int:
         for row in dcn_rows:  # conv_offset's float32 precision check too
             row['tf32_check'] = tf32
             by_config = dcn_launches['deform_im2col_by_config']
-            row['launches'] = dcn_launches['deform_im2col']
             row['launches_by_path'] = {f'{k} serve': v
                                        for k, v in by_config.items()}
+            for path, counts in dcn_train_launches.items():
+                row['launches_by_path'][path] = counts['deform_im2col']
+            row['launches'] = sum(row['launches_by_path'].values())
+        dcn_train_row['launches_by_path'] = {
+            path: counts['deform_im2col_backward']
+            for path, counts in dcn_train_launches.items()}
+        dcn_train_row['launches'] = sum(
+            dcn_train_row['launches_by_path'].values())
         kernels += train_rows + frcnn_rows + detr_rows + dcn_rows + \
-            [carafe_row, set_nms_row] + train2_rows + [detr_train_row]
+            [carafe_row, set_nms_row] + train2_rows + [detr_train_row,
+                                                       dcn_train_row]
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

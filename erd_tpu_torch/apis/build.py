@@ -1,8 +1,7 @@
 """Config dicts -> detectors and trainers; the counterpart of
 erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
 ``FasterRCNN`` (with the FPN or the FPN_CARAFE neck), ``CrowdDet``,
-``DeformableDETR`` and ``DINO`` model types, and SGD training of all but
-``VFNet``."""
+``DeformableDETR`` and ``DINO`` model types, and SGD training of each."""
 from __future__ import annotations
 
 import torch
@@ -23,8 +22,6 @@ _NOT_PORTED = ('backbone', 'context_block_stages', 'gen_attention_stages',
 ZOO_ITEM = 'ROADMAP.md, section 1: "Zoo, after the main path"'
 # the model types whose port takes the backbone's DCN stages
 _DCN = ('GFL', 'GFLIncrementERD', 'VFNet')
-# detectors the port serves but does not train yet, with their ROADMAP item
-_UNTRAINED = ((VFNetDetector, 'DCN training'),)
 
 
 def _neck_spec(mtype: str, spec):
@@ -100,9 +97,7 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         return FasterRCNNDetector(neck=neck, **base)
     if mtype == 'CrowdDet':
         return CrowdDetDetector(**base)
-    if mtype == 'VFNet':  # serving only: loss raises; erd_tpu's VFNet
-        # takes no frozen_stages
-        base.pop('frozen_stages')
+    if mtype == 'VFNet':
         return VFNetDetector(**base, **dcn)
     common = dict(
         reg_max=model_cfg.get('reg_max', 16),
@@ -154,16 +149,10 @@ def build_trainer(cfg: Config, detector, train_loader, teacher=None,
     take none. The device is ``cuda`` unless the caller names one. The port
     has SGD with warmup + multi-step decay over steps; other optimizers and
     schedules, epoch-based warmup, gradient clipping, validation,
-    checkpoints and custom hooks are not ported yet and raise, as does
-    VFNet, whose training (the deformable convolution's backward) is not
-    ported. The DETR configs name no optimizer, so they train with SGD as
-    erd_tpu's trainer does.
+    checkpoints and custom hooks are not ported yet and raise. The DETR
+    configs name no optimizer, so they train with SGD as erd_tpu's trainer
+    does.
     """
-    for cls, item in _UNTRAINED:
-        if isinstance(detector, cls):
-            raise NotImplementedError(
-                f'{type(detector).__name__} training is not ported yet '
-                f'(ROADMAP.md, section 1: "{item}")')
     if teacher is not None and not isinstance(detector, ERDDetector):
         raise ValueError(f'a teacher is ERD distillation\'s: '
                          f'{type(detector).__name__} trains without one')

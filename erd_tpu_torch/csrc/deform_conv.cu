@@ -1,21 +1,23 @@
-// Deformable im2col (DCNv1 / DCNv2 bilinear gather), hand-written for
-// Hopper (sm_90a).
+// Deformable im2col (DCNv1 / DCNv2 bilinear gather) and its backward,
+// hand-written for Hopper (sm_90a).
 //
 // Replaces: the gather half of erd_tpu/ops/deform_conv.py `deform_conv2d`
 // (`_bilinear_zero` and the per-deform-group patch loop), as
 // `ModulatedDeformConv` (the ResNet DCN plugin) and the VFNet head's star
-// deformable convolutions call it. On the TPU, XLA lowered the four corner
+// deformable convolutions call it, and its autodiff in training (the
+// transpose of those gathers). On the TPU, XLA lowered the four corner
 // reads of every (output pixel, kernel point) to dynamic gathers of whole
-// channel rows and handed the (Ho*Wo, K*K*Cin) patches to one MXU GEMM.
-// Here the columns go to device memory and the GEMM stays torch.matmul.
+// channel rows and handed the (Ho*Wo, K*K*Cin) patches to one MXU GEMM;
+// jax.grad turned the gathers into scatter-adds. Here the columns go to
+// device memory and the GEMM (forward and backward) stays torch.matmul.
 //
-// Thread layout: one thread per (image, deform group, channel chunk, kernel
-// point, output pixel), the output pixel fastest. A thread computes its
-// sample location, the four corner indices with their in-map flags and the
-// bilinear fractions once (and reads its mask value), then loops over the
-// chunk's channels (16 of the group's): four reads of the NCHW map (bf16
-// maps widened in registers) and one float32 write of the columns
-// (B, Cin*K*K, Ho*Wo), row c*K*K + k. Neighbouring threads take
+// Forward thread layout: one thread per (image, deform group, channel
+// chunk, kernel point, output pixel), the output pixel fastest. A thread
+// computes its sample location, the four corner indices with their in-map
+// flags and the bilinear fractions once (and reads its mask value), then
+// loops over the chunk's channels (16 of the group's): four reads of the
+// NCHW map (bf16 maps widened in registers) and one float32 write of the
+// columns (B, Cin*K*K, Ho*Wo), row c*K*K + k. Neighbouring threads take
 // neighbouring output pixels, so the column writes are coalesced and the
 // corner reads of a warp fall on one or two rows of the plane. Splitting
 // the channels into chunks keeps enough threads in flight on the small
@@ -28,12 +30,44 @@
 // lies outside the map reads 0 (erd_tpu's per-corner rule). Kernel and
 // plain version agree to the bit.
 //
-// Bound on this card: bytes. The call must read the map (B*Cin*H*W
-// elements) and the offsets and masks, and write the columns, K*K = 9
-// times the output map's size in float32: at the VFNet head's P3 call
-// (bf16 256 x 100 x 168 at 800x1344) 8.6 MB read and 155 MB written,
+// Forward bound on this card: bytes. The call must read the map
+// (B*Cin*H*W elements) and the offsets and masks, and write the columns,
+// K*K = 9 times the output map's size in float32: at the VFNet head's P3
+// call (bf16 256 x 100 x 168 at 800x1344) 8.6 MB read and 155 MB written,
 // 0.049 ms at 3.35 TB/s. The corner reads (4 per column element) are
 // served mostly from L2.
+//
+// Backward (erd_deform_im2col_backward): one thread per (image, deform
+// group, kernel point, output pixel), the output pixel fastest, looping
+// over all the group's channels, so that the column gradient is read once
+// and the offset and mask gradients are each written once, with no
+// atomics. The sample is recomputed as in the forward. Per channel, with
+// the column gradient G and the mask m (1 for DCNv1):
+//   - d x: ((G*m)*(1-wx))*(1-wy), ((G*m)*wx)*(1-wy), ((G*m)*(1-wx))*wy
+//     and ((G*m)*wx)*wy, float32 atomicAdd into the on-map corners of a
+//     zeroed float32 (B, Cin, H, W) buffer, which the wrapper rounds once
+//     to the map's dtype. Atomics add in no fixed order: the map gradient
+//     is NOT deterministic (a few float32 ulps from run to run);
+//   - d dy, d dx: m * sum_c G*((v10-v00)*(1-wx) + (v11-v01)*wx) and
+//     m * sum_c G*((v01-v00)*(1-wy) + (v11-v10)*wy), the corner values 0
+//     off the map (erd_tpu's per-corner rule under autodiff; floor's
+//     derivative is 0);
+//   - d mask: sum_c G * sample.
+// A warp's lanes take neighbouring pixels of one kernel point and channel,
+// so the column-gradient reads are coalesced and each corner's 32
+// atomics fall on one or two rows of the plane (mostly distinct
+// addresses). erd_tpu rounds a bf16 map's per-corner contributions to
+// bf16 before its bf16 scatter-add; this kernel sums in float32 and rounds
+// once, so on bf16 maps the two differ by bf16 rounding.
+//
+// Backward bound on this card: bytes. The call must read the column
+// gradient (B*Cin*K*K*Ho*Wo float32), the map, the offsets and masks, and
+// write the map gradient in the map's dtype and the offset and mask
+// gradients: at the VFNet head's P3 call at bs 16 (bf16 256 x 100 x 168)
+// 2.48 GB of column gradient and 0.16 GB more read, 0.16 GB written,
+// 0.83 ms at 3.35 TB/s; at an R101 layer3 call (bf16 256 x 50 x 84,
+// bs 16) 0.21 ms. Its up to 4 float32 atomic adds per column element
+// (2.5e9 at the P3 call) are what the card has to show.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,6 +145,96 @@ __global__ void deform_im2col_kernel(const T* __restrict__ x,
   }
 }
 
+template <typename T>
+__global__ void deform_im2col_backward_kernel(
+    const T* __restrict__ x, const float* __restrict__ offset,
+    const float* __restrict__ mask, const float* __restrict__ grad, int cin,
+    int h, int w, int ho, int wo, int k, int stride, int pad, int dil,
+    int dg, long long total, float* __restrict__ grad_x,
+    float* __restrict__ grad_offset, float* __restrict__ grad_mask) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (t >= total) return;
+  const int hw = ho * wo;
+  const int kk = k * k;
+  const int pix = static_cast<int>(t % hw);
+  long long r = t / hw;
+  const int kidx = static_cast<int>(r % kk);
+  r /= kk;
+  const int g = static_cast<int>(r % dg);
+  const long long n = r / dg;
+
+  const int oy = pix / wo, ox = pix % wo;
+  const int ky = kidx / k, kx = kidx % k;
+  const long long point = (n * dg + g) * kk + kidx;  // (image, group, k)
+  const float dy = offset[(point * 2) * hw + pix];
+  const float dx = offset[(point * 2 + 1) * hw + pix];
+  const float ys = __fadd_rn(static_cast<float>(oy * stride - pad + ky * dil),
+                             dy);
+  const float xs = __fadd_rn(static_cast<float>(ox * stride - pad + kx * dil),
+                             dx);
+  const float y0f = floorf(ys);
+  const float x0f = floorf(xs);
+  const float wy = __fsub_rn(ys, y0f);
+  const float wx = __fsub_rn(xs, x0f);
+  const float hy = __fsub_rn(1.f, wy);
+  const float hx = __fsub_rn(1.f, wx);
+  const int y0 = static_cast<int>(y0f);
+  const int x0 = static_cast<int>(x0f);
+  const bool iny0 = y0 >= 0 && y0 < h, iny1 = y0 + 1 >= 0 && y0 + 1 < h;
+  const bool inx0 = x0 >= 0 && x0 < w, inx1 = x0 + 1 >= 0 && x0 + 1 < w;
+  const bool ok00 = iny0 && inx0, ok01 = iny0 && inx1;
+  const bool ok10 = iny1 && inx0, ok11 = iny1 && inx1;
+  const long long i00 = static_cast<long long>(y0) * w + x0;  // may be < 0
+  const float m = mask != nullptr ? mask[point * hw + pix] : 1.f;
+
+  const int cpg = cin / dg;
+  float sy = 0.f, sx = 0.f, sm = 0.f;
+  for (int c = 0; c < cpg; ++c) {
+    const size_t plane = (static_cast<size_t>(n) * cin + g * cpg + c) *
+                         static_cast<size_t>(h) * w;
+    const float gc =
+        grad[((static_cast<size_t>(n) * cin + g * cpg + c) * kk + kidx) *
+                 hw + pix];
+    if (grad_x != nullptr) {
+      const float a = mask != nullptr ? __fmul_rn(gc, m) : gc;
+      const float ahx = __fmul_rn(a, hx), awx = __fmul_rn(a, wx);
+      float* p = grad_x + plane;
+      if (ok00) atomicAdd(p + i00, __fmul_rn(ahx, hy));
+      if (ok01) atomicAdd(p + i00 + 1, __fmul_rn(awx, hy));
+      if (ok10) atomicAdd(p + i00 + w, __fmul_rn(ahx, wy));
+      if (ok11) atomicAdd(p + i00 + w + 1, __fmul_rn(awx, wy));
+    }
+    if (grad_offset != nullptr) {
+      const T* xp = x + plane;
+      const float v00 = ok00 ? widen(xp, i00) : 0.f;
+      const float v01 = ok01 ? widen(xp, i00 + 1) : 0.f;
+      const float v10 = ok10 ? widen(xp, i00 + w) : 0.f;
+      const float v11 = ok11 ? widen(xp, i00 + w + 1) : 0.f;
+      const float ty = __fadd_rn(__fmul_rn(__fsub_rn(v10, v00), hx),
+                                 __fmul_rn(__fsub_rn(v11, v01), wx));
+      const float tx = __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), hy),
+                                 __fmul_rn(__fsub_rn(v11, v10), wy));
+      sy = __fadd_rn(sy, __fmul_rn(gc, ty));
+      sx = __fadd_rn(sx, __fmul_rn(gc, tx));
+      if (mask != nullptr) {
+        float v = __fmul_rn(__fmul_rn(v00, hy), hx);
+        v = __fadd_rn(v, __fmul_rn(__fmul_rn(v01, hy), wx));
+        v = __fadd_rn(v, __fmul_rn(__fmul_rn(v10, wy), hx));
+        v = __fadd_rn(v, __fmul_rn(__fmul_rn(v11, wy), wx));
+        sm = __fadd_rn(sm, __fmul_rn(gc, v));
+      }
+    }
+  }
+  if (grad_offset != nullptr) {
+    grad_offset[(point * 2) * hw + pix] =
+        mask != nullptr ? __fmul_rn(sy, m) : sy;
+    grad_offset[(point * 2 + 1) * hw + pix] =
+        mask != nullptr ? __fmul_rn(sx, m) : sx;
+    if (grad_mask != nullptr) grad_mask[point * hw + pix] = sm;
+  }
+}
+
 }  // namespace
 
 // x (B, cin, h, w) float32 or bf16 (is_bf16); offset (B, dg*k*k*2, ho, wo)
@@ -144,6 +268,45 @@ extern "C" int erd_deform_im2col(const void* x, const void* offset,
     deform_im2col_kernel<float><<<blocks, threads, 0, st>>>(
         static_cast<const float*>(x), off, msk, cin, h, w, ho, wo, k, stride,
         pad, dil, dg, chunk, n_chunks, total, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradients of erd_deform_im2col for the column gradient `grad`
+// (B, cin*k*k, ho*wo) float32, arguments otherwise as there. grad_x null,
+// or a ZEROED float32 (B, cin, h, w) buffer the map gradient is added to;
+// grad_offset null, or float32 (B, dg*k*k*2, ho, wo); grad_mask null (no
+// mask, or offsets not asked for), or float32 (B, dg*k*k, ho, wo). Returns
+// cudaGetLastError() after the launch.
+extern "C" int erd_deform_im2col_backward(
+    const void* x, const void* offset, const void* mask, const void* grad,
+    void* grad_x, void* grad_offset, void* grad_mask, int batch, int cin,
+    int h, int w, int ho, int wo, int k, int stride, int pad, int dil,
+    int dg, int is_bf16, void* stream) {
+  if (dg < 1 || cin % dg != 0 || k < 1 ||
+      (grad_mask != nullptr && (mask == nullptr || grad_offset == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(batch) * dg * k * k * ho *
+                          wo;
+  if (total <= 0 || (grad_x == nullptr && grad_offset == nullptr)) return 0;
+  const int threads = 256;
+  const unsigned blocks =
+      static_cast<unsigned>((total + threads - 1) / threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* off = static_cast<const float*>(offset);
+  const float* msk = static_cast<const float*>(mask);
+  const float* g = static_cast<const float*>(grad);
+  float* gx = static_cast<float*>(grad_x);
+  float* goff = static_cast<float*>(grad_offset);
+  float* gm = static_cast<float*>(grad_mask);
+  if (is_bf16) {
+    deform_im2col_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), off, msk, g, cin, h, w, ho, wo,
+        k, stride, pad, dil, dg, total, gx, goff, gm);
+  } else {
+    deform_im2col_backward_kernel<float><<<blocks, threads, 0, st>>>(
+        static_cast<const float*>(x), off, msk, g, cin, h, w, ho, wo, k,
+        stride, pad, dil, dg, total, gx, goff, gm);
   }
   return static_cast<int>(cudaGetLastError());
 }

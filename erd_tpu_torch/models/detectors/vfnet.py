@@ -1,11 +1,10 @@
-"""VarifocalNet (VFNet) serving; the counterpart of
-erd_tpu/models/detectors/vfnet.py.
+"""VarifocalNet (VFNet); the counterpart of erd_tpu/models/detectors/vfnet.py.
 
 ResNet (frozen BN; DCNv2 stages in the mdconv recipes) -> FPN (on_output
 extras, ReLU before the second) -> the star-DCN VFNet head -> refined boxes
-at the grid points -> ``vfnet_predict``. As in erd_tpu, the detector is
-configuration plus functions and the network holds the weights. Training is
-not ported yet: ``loss`` raises.
+at the grid points -> ``vfnet_predict`` in serving, or both boxes and the
+logits -> ``vfnet_loss`` in training. As in erd_tpu, the detector is
+configuration plus functions and the network holds the weights.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ from ...utils import resolve_device
 from ..backbones.resnet import ResNet
 from ..heads.gfl_head import GFLTestConfig
 from ..heads.vfnet_head import (VFNetContext, VFNetHeadNet, decode_levels,
-                                vfnet_predict)
+                                vfnet_loss, vfnet_predict)
 from ..layers import Conv2d, bias_init_prob
 from ..necks.fpn import FPN
 from ..preprocessor import Preprocessor
@@ -30,10 +29,12 @@ class VFNetNet(nn.Module):
     """backbone -> neck -> bbox_head; module names are mmdet's."""
 
     def __init__(self, num_classes: int, depth: int = 50,
+                 frozen_stages: int = -1,
                  dcn_stages=(False, False, False, False),
                  dcn_modulated: bool = True):
         super().__init__()
-        self.backbone = ResNet(depth, dcn_stages=dcn_stages,
+        self.backbone = ResNet(depth, frozen_stages=frozen_stages,
+                               dcn_stages=dcn_stages,
                                dcn_modulated=dcn_modulated)
         self.neck = FPN(in_channels=self.backbone.out_channels,
                         out_channels=256, num_outs=5, start_level=1,
@@ -71,10 +72,12 @@ class VFNetNet(nn.Module):
 
 @dataclass
 class VFNetDetector:
-    """Config + functions of VFNet serving."""
+    """Config + functions of VFNet."""
     num_classes: int = 80
     depth: int = 50
     compute_dtype: torch.dtype = torch.float32
+    # stem + layer1 frozen, as erd_tpu's trainer freezes every model
+    frozen_stages: int = 1
     dcn_stages: Tuple[bool, ...] = (False, False, False, False)
     dcn_modulated: bool = True  # VFNet ships mdconv (DCNv2) variants only
     preprocessor: Preprocessor = field(default_factory=Preprocessor)
@@ -94,7 +97,7 @@ class VFNetDetector:
         return self._ctx_cache[key]
 
     def build_net(self) -> VFNetNet:
-        return VFNetNet(self.num_classes, self.depth,
+        return VFNetNet(self.num_classes, self.depth, self.frozen_stages,
                         tuple(self.dcn_stages), self.dcn_modulated)
 
     def init(self, seed: int = 0, device=None) -> VFNetNet:
@@ -126,7 +129,18 @@ class VFNetDetector:
         return self.postprocess(self.context(images.shape[1:3]), cls_lvl,
                                 ref_lvl, batch['meta'], rescale)
 
-    def loss(self, net, batch):
-        raise NotImplementedError(
-            'VFNet training is not ported yet (ROADMAP.md, section 1: DCN '
-            'training, the deformable gather\'s backward)')
+    def loss(self, net: VFNetNet, batch):
+        """VFNet training losses. batch: dict(images (B, H, W, 3) uint8,
+        gt: GTInstances of (B, ...) tensors), on the network's device.
+        Returns dict(loss_cls, loss_bbox, loss_bbox_rf) of 0-dim tensors."""
+        images = batch['images']
+        ctx = self.context(images.shape[1:3])
+        cls_lvl, ini_lvl, ref_lvl = net(self.preprocessor(images))
+        b = images.shape[0]
+
+        def flat(levels, width):
+            return torch.cat([m.reshape(b, -1, width) for m in levels], 1)
+        return vfnet_loss(ctx, flat(cls_lvl, self.num_classes),
+                          flat(decode_levels(ctx, ini_lvl), 4),
+                          flat(decode_levels(ctx, ref_lvl), 4), batch['gt'],
+                          self.num_classes)

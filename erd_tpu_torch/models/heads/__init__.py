@@ -8,7 +8,7 @@ from .gfl_head import (AnchorContext, GFLHeadNet, GFLTargets, GFLTestConfig,
 from .rpn_head import (ProposalConfig, RPNHeadNet, rpn_anchor_generator,
                        rpn_proposals)
 from .vfnet_head import (VFNetContext, VFNetHeadNet, decode_levels,
-                         star_offsets, vfnet_predict)
+                         star_offsets, vfnet_loss, vfnet_predict)
 
 __all__ = ['AnchorContext', 'DINOHead', 'DeformableDETRHead',
            'DeformableEncoderHead', 'GFLHeadNet', 'GFLTargets',
@@ -17,4 +17,4 @@ __all__ = ['AnchorContext', 'DINOHead', 'DeformableDETRHead',
            'gfl_targets', 'ProposalConfig', 'RPNHeadNet',
            'Shared2FCBBoxHead', 'rcnn_predict', 'rpn_anchor_generator',
            'rpn_proposals', 'VFNetContext', 'VFNetHeadNet', 'decode_levels',
-           'star_offsets', 'vfnet_predict']
+           'star_offsets', 'vfnet_loss', 'vfnet_predict']

@@ -1,6 +1,7 @@
 """VarifocalNet (VFNet) head: IoU-aware classification with star-shaped
 deformable refinement; the counterpart of erd_tpu/models/heads/vfnet_head.py
-(serving: the network, the point grid, decoding and ``vfnet_predict``).
+(the network, the point grid and its ATSS anchors, decoding,
+``vfnet_loss`` and ``vfnet_predict``).
 
 Per level: initial distances exp(scale(conv)) * reg_denom; the star offsets
 put the 9 points of a 3x3 deformable convolution on the predicted box's
@@ -25,19 +26,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...losses import giou_loss, varifocal_loss
 from ...ops import cap_candidates, filter_scores_and_topk, nms_select
 from ...ops.deform_conv import DeformConv2d
 from ...ops.misc import take_rows
 from ...structures import DetResults, distance2bbox, scale_boxes
+from ...structures.boxes import bbox_overlaps
+from ...task.atss import atss_assign
 from ..layers import Conv2d, ConvModule, Scale
 from .gfl_head import GFLTestConfig
 
 STRIDES = (8, 16, 32, 64, 128)
 REG_DENOMS = (64, 128, 256, 512, 1024)
 # erd_tpu's VFNetHeadNet default: the share of the star offsets' gradient
-# that reaches the box branch; in serving it only sets the rounding of
-# star_offsets' first line, which erd_tpu's matches
+# that reaches the box branch (``vfnet_reg``); the rest is detached
 GRADIENT_MUL = 0.1
+# ATSS of the loss: anchors are squares of OCTAVE_BASE_SCALE strides at
+# each point, ATSS_TOPK candidates per level and gt
+OCTAVE_BASE_SCALE, ATSS_TOPK = 8, 9
 
 # 3x3 kernel-relative base grid, row-major (ky, kx) in {-1, 0, 1}, (y, x)
 _BASE = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], indexing='ij'),
@@ -115,16 +121,20 @@ class VFNetHeadNet(nn.Module):
 
 @dataclass(frozen=True)
 class VFNetContext:
-    """The point grid of one canvas shape (erd_tpu's VFNetContext)."""
+    """The point grid of one canvas shape (erd_tpu's VFNetContext): the
+    points, their strides and the ATSS anchors of the loss, squares of
+    OCTAVE_BASE_SCALE strides centred on the points."""
     image_shape: Tuple[int, int]
     num_level_points: Tuple[int, ...]
     points: np.ndarray   # (N, 2)
+    strides: np.ndarray  # (N,)
+    anchors: np.ndarray  # (N, 4)
     _device_cache: Dict = field(default_factory=dict, compare=False,
                                 repr=False)
 
     @staticmethod
     def build(image_shape):
-        pts, counts = [], []
+        pts, strides, anchors, counts = [], [], [], []
         for s in STRIDES:
             h = math.ceil(image_shape[0] / s)
             w = math.ceil(image_shape[1] / s)
@@ -134,18 +144,30 @@ class VFNetContext:
             gx, gy = np.meshgrid(xs, ys)
             p = np.stack([gx.reshape(-1), gy.reshape(-1)], -1)
             pts.append(p)
+            strides.append(np.full(len(p), s, np.float32))
+            half = OCTAVE_BASE_SCALE * s / 2.0
+            anchors.append(np.concatenate([p - half, p + half], -1))
             counts.append(len(p))
         return VFNetContext(image_shape=tuple(image_shape),
                             num_level_points=tuple(counts),
-                            points=np.concatenate(pts))
+                            points=np.concatenate(pts),
+                            strides=np.concatenate(strides),
+                            anchors=np.concatenate(anchors))
+
+    def _on(self, name, device):
+        key = (name, str(device))
+        if key not in self._device_cache:
+            self._device_cache[key] = torch.as_tensor(getattr(self, name),
+                                                      device=device)
+        return self._device_cache[key]
 
     def device_points(self, device):
         """(N, 2) float32 points on ``device``, uploaded once per device."""
-        key = str(device)
-        if key not in self._device_cache:
-            self._device_cache[key] = torch.as_tensor(self.points,
-                                                      device=device)
-        return self._device_cache[key]
+        return self._on('points', device)
+
+    def device_anchors(self, device):
+        """(N, 4) float32 ATSS anchors on ``device``, uploaded once."""
+        return self._on('anchors', device)
 
 
 def decode_levels(ctx: VFNetContext, dist_lvl):
@@ -160,6 +182,48 @@ def decode_levels(ctx: VFNetContext, dist_lvl):
         out.append(distance2bbox(pts[None], d))
         start += n_l
     return out
+
+
+def vfnet_loss(ctx: VFNetContext, cls_scores, bbox_ini, bbox_refine, gt,
+               num_classes: int):
+    """VFNet's losses of a batch (erd_tpu's ``vfnet_loss``).
+
+    Args:
+        cls_scores: (B, N, C) logits; bbox_ini, bbox_refine: (B, N, 4)
+            decoded xyxy boxes of the initial and the refined distances,
+            all float32 (or float64).
+        gt: GTInstances of (B, G) padded boxes, labels and masks.
+    ATSS assigns the anchors (every anchor valid) to the gt; each positive
+    point's initial and refined box take a GIoU loss weighted by their own
+    detached IoU with the target (clipped at 0), over the batch's summed
+    IoU (weights 1.5 and 2.0); the classification is the varifocal loss
+    against the one-hot target scaled by the refined box's IoU, over
+    max(num_pos, 1). Returns dict(loss_cls, loss_bbox, loss_bbox_rf).
+    """
+    b, n = cls_scores.shape[:2]
+    dev = cls_scores.device
+    res = atss_assign(ctx.device_anchors(dev), ctx.num_level_points,
+                      gt.bboxes, gt.labels, gt.mask,
+                      torch.ones((b, n), dtype=torch.bool, device=dev),
+                      topk=ATSS_TOPK)
+    pos = res.pos_mask
+    tgt = torch.gather(gt.bboxes, 1, res.gt_idx[..., None].expand(b, n, 4))
+    zero = torch.zeros((), dtype=bbox_ini.dtype, device=dev)
+
+    def iou(boxes):
+        ov = bbox_overlaps(boxes.detach(), tgt, is_aligned=True)
+        return torch.where(pos, ov, zero).clamp(min=0.0)
+    iou_ini, iou_rf = iou(bbox_ini), iou(bbox_refine)
+    l_ini = (giou_loss(bbox_ini, tgt, reduction='none') * iou_ini).sum()
+    l_rf = (giou_loss(bbox_refine, tgt, reduction='none') * iou_rf).sum()
+    labels = torch.where(pos, res.labels, torch.zeros_like(res.labels))
+    onehot = torch.nn.functional.one_hot(labels, num_classes).to(iou_rf.dtype)
+    target = onehot * iou_rf[..., None] * pos[..., None]
+    l_cls = varifocal_loss(cls_scores, target, reduction='sum')
+    num_pos = pos.sum().to(cls_scores.dtype).clamp(min=1.0)
+    return {'loss_cls': l_cls / num_pos,
+            'loss_bbox': 1.5 * l_ini / iou_ini.sum().clamp(min=1.0),
+            'loss_bbox_rf': 2.0 * l_rf / iou_rf.sum().clamp(min=1.0)}
 
 
 def vfnet_predict(ctx: VFNetContext, cls_lvl, box_lvl, meta,

@@ -2,7 +2,8 @@ from .carafe import (CARAFEPack, arrange_carafe, carafe, carafe_backward,
                      carafe_backward_plain, carafe_plain, carafe_weights)
 from .deform_conv import (DeformConv2d, ModulatedDeformConv,
                           arrange_offsets, deform_conv2d, deform_im2col,
-                          deform_im2col_plain)
+                          deform_im2col_backward,
+                          deform_im2col_backward_plain, deform_im2col_plain)
 from .integral import integral, integral_decode, integral_decode_plain
 from .misc import (cap_candidates, filter_scores_and_topk, masked_mean_std,
                    topk_mask_select)
@@ -22,6 +23,7 @@ __all__ = ['CARAFEPack', 'arrange_carafe', 'carafe', 'carafe_backward',
            'carafe_backward_plain', 'carafe_plain', 'carafe_weights',
            'DeformConv2d', 'ModulatedDeformConv',
            'arrange_offsets', 'deform_conv2d', 'deform_im2col',
+           'deform_im2col_backward', 'deform_im2col_backward_plain',
            'deform_im2col_plain', 'integral', 'integral_decode',
            'integral_decode_plain', 'cap_candidates', 'filter_scores_and_topk',
            'masked_mean_std', 'topk_mask_select', 'batched_nms_mask',

@@ -6,21 +6,31 @@ followed by one large matrix product with the weight. The gather is the
 kernel ``csrc/deform_conv.cu`` (CUDA tensors; one launch per call, counted
 in ``deform_im2col.launches``) or the plain version below (CPU tensors).
 The product is ``torch.matmul`` in float32, as erd_tpu left its ``jnp.dot``
-to XLA; a grouped convolution is one batched product.
+to XLA; a grouped convolution is one batched product, and its weight
+gradient is that product's autograd.
+
+``deform_im2col`` is an autograd Function: its gradients in the map, the
+offsets and the masks are ``deform_im2col_backward``, the backward kernel
+of the same file (``erd_deform_im2col_backward``, counted in
+``deform_im2col_backward.launches``) or its plain version, the transpose of
+erd_tpu's gathers written out.
 
 Sampling rules of erd_tpu's ``_bilinear_zero``: kernel point k of output
 pixel (i, j) samples at ``(i * stride - padding + ky * dilation + dy,
 j * stride - padding + kx * dilation + dx)``; each of the four corners
 counts only if its own integer index lies inside the map (0 otherwise); the
 corners are weighted ``v00*(1-wy)*(1-wx) + v01*(1-wy)*wx + v10*wy*(1-wx) +
-v11*wy*wx``, left to right, and a DCNv2 mask multiplies the sum.
+v11*wy*wx``, left to right, and a DCNv2 mask multiplies the sum. floor's
+derivative is 0, so the offsets' gradient is that of the fractions alone.
 
 Layouts (NCHW, mmcv's): ``offset`` is (B, dg*K*K*2, Ho, Wo) with channels
 ordered (deform group, kernel point, (dy, dx)), ``mask`` (B, dg*K*K, Ho,
 Wo), both float32. The columns are (B, Cin*K*K, Ho*Wo) float32, row
 ``c * K*K + k``: channel-major, so ``weight (Cout, Cin*K*K) @ columns`` is
 the NCHW output. erd_tpu flattens its patches (K*K, Cin) instead; the sums
-of the product then run in another order.
+of the product then run in another order. float64 inputs of
+``deform_im2col`` on the CPU give float64 columns and gradients
+(finite-difference checks).
 """
 from __future__ import annotations
 
@@ -28,16 +38,14 @@ import ctypes
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..utils import conv2d_ieee
 from . import cuda_build
+from .roi_align import acc_dtype
 
-# channels of one deform group that one kernel thread gathers
+# channels of one deform group that one forward kernel thread gathers
 CHANNELS_PER_THREAD = 16
-NOT_TRAINED_YET = ('deformable convolution has no backward yet: DCN '
-                   'training is not ported (ROADMAP.md, section 1)')
 # arrange_offsets: conv_offset kernel std times fan_in^-1/2, and bias std
 ARRANGE_WEIGHT_STD, ARRANGE_BIAS_STD = 0.02, 1.5
 
@@ -54,6 +62,36 @@ def _base_grid(ho, wo, k, stride, padding, dilation, device):
     return by[:, :, None], bx[:, None, :]
 
 
+def _samples(offset, kernel_size, stride, padding, dilation, deform_groups,
+             acc):
+    """Per (image, group, 1, K*K*Ho*Wo) sample: the top-left corner's
+    integer row and column, and the fractions wy, wx (in ``acc``)."""
+    b, _, ho, wo = offset.shape
+    kk, dg = kernel_size * kernel_size, deform_groups
+    by, bx = _base_grid(ho, wo, kernel_size, stride, padding, dilation,
+                        offset.device)
+    off = offset.to(acc).reshape(b, dg, kk, 2, ho, wo)
+    ys = by.to(acc) + off[:, :, :, 0]  # (B, dg, K*K, Ho, Wo)
+    xs = bx.to(acc) + off[:, :, :, 1]
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    shape = (b, dg, 1, kk * ho * wo)
+    return (y0.to(torch.int64).reshape(shape),
+            x0.to(torch.int64).reshape(shape),
+            (ys - y0).reshape(shape), (xs - x0).reshape(shape))
+
+
+def _corner(planes, h, w, yy, xx):
+    """The corner (yy, xx) of every sample, read from ``planes`` (B, dg,
+    cpg, H*W) and 0 where it lies off the map; with its flat index and
+    whether it lies on the map."""
+    ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+    idx = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+    v = torch.gather(planes, 3, idx.expand(*planes.shape[:3], idx.shape[-1]))
+    return torch.where(ok, v, torch.zeros((), dtype=v.dtype,
+                                          device=v.device)), idx, ok
+
+
 def deform_im2col_plain(x, offset, mask, kernel_size, stride, padding,
                         dilation, deform_groups):
     """Plain PyTorch version of the kernel, erd_tpu's arithmetic op for op
@@ -61,32 +99,16 @@ def deform_im2col_plain(x, offset, mask, kernel_size, stride, padding,
     b, cin, h, w = x.shape
     ho, wo = offset.shape[2:]
     kk, dg = kernel_size * kernel_size, deform_groups
-    cpg = cin // dg
-    by, bx = _base_grid(ho, wo, kernel_size, stride, padding, dilation,
-                        x.device)
-    off = offset.reshape(b, dg, kk, 2, ho, wo)
-    ys = by + off[:, :, :, 0]  # (B, dg, K*K, Ho, Wo)
-    xs = bx + off[:, :, :, 1]
-    y0 = torch.floor(ys)
-    x0 = torch.floor(xs)
-    wy = (ys - y0).reshape(b, dg, 1, kk * ho * wo)
-    wx = (xs - x0).reshape(b, dg, 1, kk * ho * wo)
-    y0i = y0.to(torch.int64).reshape(b, dg, 1, kk * ho * wo)
-    x0i = x0.to(torch.int64).reshape(b, dg, 1, kk * ho * wo)
-    planes = x.reshape(b, dg, cpg, h * w)
-
-    def corner(yy, xx):  # (B, dg, cpg, K*K*Ho*Wo) float32, 0 off the map
-        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-        idx = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
-        v = torch.gather(planes, 3, idx.expand(b, dg, cpg, idx.shape[-1]))
-        return torch.where(ok, v.float(), torch.zeros((), device=x.device))
-
-    samp = (corner(y0i, x0i) * (1 - wy) * (1 - wx) +
-            corner(y0i, x0i + 1) * (1 - wy) * wx +
-            corner(y0i + 1, x0i) * wy * (1 - wx) +
-            corner(y0i + 1, x0i + 1) * wy * wx)
+    acc = acc_dtype(torch.promote_types(x.dtype, offset.dtype))
+    y0, x0, wy, wx = _samples(offset, kernel_size, stride, padding, dilation,
+                              dg, acc)
+    planes = x.to(acc).reshape(b, dg, cin // dg, h * w)
+    samp = (_corner(planes, h, w, y0, x0)[0] * (1 - wy) * (1 - wx) +
+            _corner(planes, h, w, y0, x0 + 1)[0] * (1 - wy) * wx +
+            _corner(planes, h, w, y0 + 1, x0)[0] * wy * (1 - wx) +
+            _corner(planes, h, w, y0 + 1, x0 + 1)[0] * wy * wx)
     if mask is not None:
-        samp = samp * mask.reshape(b, dg, 1, kk * ho * wo)
+        samp = samp * mask.to(acc).reshape(b, dg, 1, kk * ho * wo)
     return samp.reshape(b, cin * kk, ho * wo)
 
 
@@ -106,40 +128,23 @@ def _check(x, offset, mask, kernel_size, deform_groups):
                          f'match the offset')
 
 
-def deform_im2col(x, offset, mask, kernel_size: int = 3, stride: int = 1,
-                  padding: int = 1, dilation: int = 1,
-                  deform_groups: int = 1):
-    """Deformable im2col.
-
-    Args:
-        x: (B, Cin, H, W) float32 or bfloat16.
-        offset: (B, dg*K*K*2, Ho, Wo) float32 (dy, dx) per deform group and
-            kernel point.
-        mask: None (DCNv1) or (B, dg*K*K, Ho, Wo) float32 modulation,
-            already through the sigmoid.
-    Returns (B, Cin*K*K, Ho*Wo) float32 columns, row ``c * K*K + k``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    Serving only: raises when an input needs a gradient.
-    """
-    _check(x, offset, mask, kernel_size, deform_groups)
-    tensors = [t for t in (x, offset, mask) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(NOT_TRAINED_YET)
-    if x.device.type == 'cpu':
-        return deform_im2col_plain(x, offset, mask, kernel_size, stride,
-                                   padding, dilation, deform_groups)
-    if x.device.type != 'cuda':
-        raise RuntimeError(f'deform_im2col: no kernel for {x.device}')
+def _check_cuda(what, x, offset, mask, extra=()):
+    """The kernels' input rules: float32 or bf16 maps; float32 offsets,
+    masks and gradients; one device; contiguous."""
+    tensors = [t for t in (x, offset, mask) + tuple(extra) if t is not None]
     if x.dtype not in (torch.float32, torch.bfloat16) or \
-            offset.dtype != torch.float32 or \
-            (mask is not None and mask.dtype != torch.float32):
-        raise TypeError('deform_im2col: x float32 or bfloat16, offset and '
-                        'mask float32 expected')
+            any(t.dtype != torch.float32 for t in tensors[1:]):
+        raise TypeError(f'{what}: x float32 or bfloat16, offset, mask and '
+                        f'gradients float32 expected')
     if any(t.device != x.device for t in tensors):
-        raise ValueError('deform_im2col: all tensors must be on one device')
+        raise ValueError(f'{what}: all tensors must be on one device')
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError('deform_im2col: tensors must be contiguous')
+        raise ValueError(f'{what}: tensors must be contiguous')
+
+
+def _forward_kernel(x, offset, mask, kernel_size, stride, padding, dilation,
+                    deform_groups):
+    _check_cuda('deform_im2col', x, offset, mask)
     b, cin, h, w = x.shape
     ho, wo = offset.shape[2:]
     kk = kernel_size * kernel_size
@@ -162,7 +167,184 @@ def deform_im2col(x, offset, mask, kernel_size: int = 3, stride: int = 1,
     return cols
 
 
+class _DeformIm2col(torch.autograd.Function):
+    """The deformable im2col with its gradients in the map, the offsets
+    and the masks (``deform_im2col_backward``), computing only those that
+    autograd asks for; the samples are recomputed, not stored."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, geometry):
+        ctx.save_for_backward(x, offset, mask)
+        ctx.geometry = geometry
+        if x.device.type == 'cpu':
+            return deform_im2col_plain(x, offset, mask, *geometry)
+        return _forward_kernel(x, offset, mask, *geometry)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, offset, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gx, goff, gmask = deform_im2col_backward(
+            x, offset, mask, grad.contiguous(), *ctx.geometry, need[0],
+            need[1] or need[2])
+        return (gx, goff if need[1] else None, gmask if need[2] else None,
+                None)
+
+
+def deform_im2col(x, offset, mask, kernel_size: int = 3, stride: int = 1,
+                  padding: int = 1, dilation: int = 1,
+                  deform_groups: int = 1):
+    """Deformable im2col.
+
+    Args:
+        x: (B, Cin, H, W) float32 or bfloat16.
+        offset: (B, dg*K*K*2, Ho, Wo) float32 (dy, dx) per deform group and
+            kernel point.
+        mask: None (DCNv1) or (B, dg*K*K, Ho, Wo) float32 modulation,
+            already through the sigmoid.
+    Returns (B, Cin*K*K, Ho*Wo) float32 columns, row ``c * K*K + k``,
+    differentiable in x, the offsets and the masks
+    (``deform_im2col_backward``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    _check(x, offset, mask, kernel_size, deform_groups)
+    if x.device.type not in ('cpu', 'cuda'):
+        raise RuntimeError(f'deform_im2col: no kernel for {x.device}')
+    return _DeformIm2col.apply(x, offset, mask, (
+        int(kernel_size), int(stride), int(padding), int(dilation),
+        int(deform_groups)))
+
+
 deform_im2col.launches = 0
+
+
+def deform_im2col_backward_plain(x, offset, mask, grad, kernel_size, stride,
+                                 padding, dilation, deform_groups,
+                                 need_x=True, need_offset=True):
+    """Plain PyTorch version of the backward kernel: the gradients (x (B,
+    Cin, H, W), offset (B, dg*K*K*2, Ho, Wo), mask (B, dg*K*K, Ho, Wo) or
+    None for DCNv1) of ``deform_im2col_plain`` for the column gradient
+    ``grad`` (B, Cin*K*K, Ho*Wo), in float32 (float64 for float64 inputs);
+    None for a gradient not asked for.
+
+    Per sample, with a channel's column gradient G, the mask m (1 for
+    DCNv1), the fractions wy, wx, hy = 1 - wy, hx = 1 - wx and the corner
+    values v (0 off the map): each on-map corner of x gets ((G*m)*hx)*hy,
+    ((G*m)*wx)*hy, ((G*m)*hx)*wy or ((G*m)*wx)*wy (``index_add_``); dy gets
+    m * sum_c G*((v10 - v00)*hx + (v11 - v01)*wx), dx m * sum_c G*((v01 -
+    v00)*hy + (v11 - v10)*wy), the mask sum_c G * sample. One image at a
+    time, so that the temporaries stay an image's size."""
+    b, cin, h, w = x.shape
+    ho, wo = offset.shape[2:]
+    kk, dg = kernel_size * kernel_size, deform_groups
+    cpg, n = cin // dg, kk * ho * wo
+    acc = acc_dtype(torch.promote_types(x.dtype, offset.dtype))
+    gx = torch.zeros((b, dg, cpg, h * w), dtype=acc, device=x.device) \
+        if need_x else None
+    goff = torch.zeros((b, dg, kk, 2, ho * wo), dtype=acc,
+                       device=x.device) if need_offset else None
+    gmask = torch.zeros((b, dg, n), dtype=acc, device=x.device) \
+        if need_offset and mask is not None else None
+    for i in range(b):
+        y0, x0, wy, wx = _samples(offset[i:i + 1], kernel_size, stride,
+                                  padding, dilation, dg, acc)
+        hy, hx = 1 - wy, 1 - wx
+        planes = x[i:i + 1].to(acc).reshape(1, dg, cpg, h * w)
+        g = grad[i:i + 1].to(acc).reshape(1, dg, cpg, n)
+        m = None if mask is None else \
+            mask[i:i + 1].to(acc).reshape(1, dg, 1, n)
+        gm = g if m is None else g * m
+        corners = {}
+        for dy, cy in ((0, hy), (1, wy)):
+            for dx, cx in ((0, hx), (1, wx)):
+                v, idx, ok = _corner(planes, h, w, y0 + dy, x0 + dx)
+                corners[dy, dx] = v
+                if need_x:
+                    contrib = gm * cx * cy
+                    for j in range(dg):
+                        on = ok[0, j, 0]
+                        gx[i, j].index_add_(1, idx[0, j, 0][on],
+                                            contrib[0, j][:, on])
+        if not need_offset:
+            continue
+        v00, v01 = corners[0, 0], corners[0, 1]
+        v10, v11 = corners[1, 0], corners[1, 1]
+        sy = (g * ((v10 - v00) * hx + (v11 - v01) * wx)).sum(2)
+        sx = (g * ((v01 - v00) * hy + (v11 - v10) * wy)).sum(2)
+        if m is not None:
+            sy, sx = sy * m[:, :, 0], sx * m[:, :, 0]
+            samp = v00 * hy * hx + v01 * hy * wx + v10 * wy * hx + \
+                v11 * wy * wx
+            gmask[i] = (g * samp).sum(2)[0]
+        goff[i, :, :, 0] = sy[0].reshape(dg, kk, ho * wo)
+        goff[i, :, :, 1] = sx[0].reshape(dg, kk, ho * wo)
+    return (None if gx is None else gx.reshape(b, cin, h, w),
+            None if goff is None else goff.reshape(b, dg * kk * 2, ho, wo),
+            None if gmask is None else gmask.reshape(b, dg * kk, ho, wo))
+
+
+def deform_im2col_backward(x, offset, mask, grad, kernel_size: int = 3,
+                           stride: int = 1, padding: int = 1,
+                           dilation: int = 1, deform_groups: int = 1,
+                           need_x: bool = True, need_offset: bool = True):
+    """Gradients of ``deform_im2col`` for the column gradient ``grad`` (B,
+    Cin*K*K, Ho*Wo) float32: (d x in x's dtype, d offset float32, d mask
+    float32, or None for DCNv1). ``need_x`` / ``need_offset`` False skip
+    the map's, or the offsets' and masks' gradients (None in their place).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    ``erd_deform_im2col_backward`` (one launch per call, counted in
+    ``deform_im2col_backward.launches``), whose map gradient is float32
+    atomics into a zeroed buffer rounded once to x's dtype (not
+    deterministic), or raise.
+    """
+    _check(x, offset, mask, kernel_size, deform_groups)
+    b, cin = x.shape[:2]
+    ho, wo = offset.shape[2:]
+    kk = kernel_size * kernel_size
+    if tuple(grad.shape) != (b, cin * kk, ho * wo):
+        raise ValueError('deform_im2col_backward: grad must be (B, Cin*K*K, '
+                         'Ho*Wo)')
+    if x.device.type == 'cpu':
+        gx, goff, gmask = deform_im2col_backward_plain(
+            x, offset, mask, grad, kernel_size, stride, padding, dilation,
+            deform_groups, need_x, need_offset)
+        return (None if gx is None else gx.to(x.dtype), goff, gmask)
+    if x.device.type != 'cuda':
+        raise RuntimeError(f'deform_im2col_backward: no kernel for '
+                           f'{x.device}')
+    _check_cuda('deform_im2col_backward', x, offset, mask, (grad,))
+    if not (need_x or need_offset):
+        return None, None, None
+    h, w = x.shape[2:]
+    dev = x.device
+    gx = torch.zeros((b, cin, h, w), dtype=torch.float32, device=dev) \
+        if need_x else None
+    goff = torch.empty(offset.shape, dtype=torch.float32, device=dev) \
+        if need_offset else None
+    gmask = torch.empty(mask.shape, dtype=torch.float32, device=dev) \
+        if need_offset and mask is not None else None
+    lib = cuda_build.load('deform_conv')
+    fn = lib.erd_deform_im2col_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), offset.data_ptr(), ptr(mask), grad.data_ptr(),
+                 ptr(gx), ptr(goff), ptr(gmask), b, cin, h, w, ho, wo,
+                 kernel_size, stride, padding, dilation, deform_groups,
+                 int(x.dtype == torch.bfloat16), stream)
+    cuda_build.check(lib, err, 'deform_im2col_backward')
+    deform_im2col_backward.launches += 1
+    return (None if gx is None else gx.to(x.dtype), goff, gmask)
+
+
+deform_im2col_backward.launches = 0
 
 
 def deform_conv2d(x, offset, weight, mask=None, stride: int = 1,

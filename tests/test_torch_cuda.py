@@ -977,3 +977,136 @@ def test_two_stage_training_on_cuda_uses_kernels(cuda, kind):
     for k, v in net.state_dict().items():
         if k.startswith(frozen):
             assert torch.equal(v, start[k]), k
+
+
+def bf16_ulp_distance(a, b):
+    """Elementwise distance of two bf16 tensors in bf16 ulps."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7fff), i)
+    return (key(a) - key(b)).abs()
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('dg,stride,use_mask,border', [
+    (1, 1, True, False), (1, 2, False, False), (2, 1, False, True),
+    (2, 2, True, False)])
+def test_deform_im2col_backward_kernel_matches_plain(cuda, dtype, dg, stride,
+                                                     use_mask, border):
+    """The backward kernel against its plain version on a layer4-sized map
+    (Cin 128, 25 x 42), fractional or border-exact offsets: the offset and
+    mask gradients within 1e-5 * max|plain| (channel sums in another
+    order), the map gradient within 1e-5 * max|plain| in float32 (float32
+    atomics add in no fixed order), and when it is rounded to a bf16 map
+    within one bf16 ulp or 1e-5 * max|plain|."""
+    from erd_tpu_torch.ops import (deform_im2col_backward,
+                                   deform_im2col_backward_plain)
+    rs = np.random.RandomState(dg * 100 + stride * 10 + int(border) + 7)
+    x, offset, mask = dcn_case(rs, cuda, dtype, 2, 128, 25, 42, dg, stride,
+                               2.5, border)
+    mask = mask if use_mask else None
+    g = torch.from_numpy(rs.randn(2, 128 * 9, offset.shape[2] *
+                                  offset.shape[3]).astype(np.float32)).to(cuda)
+    args = (x, offset, mask, g, 3, stride, 1, 1, dg)
+    before = deform_im2col_backward.launches
+    got = deform_im2col_backward(*args)
+    torch.cuda.synchronize()
+    assert deform_im2col_backward.launches == before + 1
+    want = deform_im2col_backward_plain(*args)
+    assert got[0].dtype == dtype and (got[2] is None) == (mask is None)
+    for name, a, w in zip(('offset', 'mask'), got[1:], want[1:]):
+        if w is not None:
+            assert float((a - w).abs().max()) <= \
+                1e-5 * float(w.abs().max()), name
+    diff = (got[0].float() - want[0]).abs()
+    far = diff > 1e-5 * float(want[0].abs().max())
+    if dtype == torch.float32:
+        assert not bool(far.any())
+    else:  # near 0 a cancelling sum may round to bf16 values ulps apart
+        ulps = bf16_ulp_distance(got[0], want[0].bfloat16())
+        assert bool(((ulps <= 1) | ~far).all())
+
+
+def test_deform_im2col_backward_never_reaches_plain_on_cuda(cuda,
+                                                            monkeypatch):
+    """On CUDA tensors autograd launches the forward and the backward
+    kernel once each and never calls a plain version; wrong dtypes and
+    mixed devices raise."""
+    import erd_tpu_torch.ops.deform_conv as dcn_module
+
+    def refuse(*args, **kw):
+        raise AssertionError('a plain version ran on a CUDA tensor')
+    monkeypatch.setattr(dcn_module, 'deform_im2col_plain', refuse)
+    monkeypatch.setattr(dcn_module, 'deform_im2col_backward_plain', refuse)
+    x, offset, mask = dcn_case(np.random.RandomState(0), cuda,
+                               torch.bfloat16, 1, 16, 9, 10, 1, 1, 1.0, False)
+    leaves = [t.clone().requires_grad_() for t in (x, offset, mask)]
+    counts = (dcn_module.deform_im2col.launches,
+              dcn_module.deform_im2col_backward.launches)
+    cols = dcn_module.deform_im2col(*leaves, 3, 1, 1, 1, 1)
+    cols.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (dcn_module.deform_im2col.launches,
+            dcn_module.deform_im2col_backward.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    assert leaves[0].grad.dtype == torch.bfloat16
+    assert all(t.grad is not None for t in leaves)
+    g = torch.ones_like(cols)
+    with pytest.raises(TypeError, match='float32'):
+        dcn_module.deform_im2col_backward(x, offset.double(), mask, g)
+    with pytest.raises(ValueError, match='one device'):
+        dcn_module.deform_im2col_backward(x, offset, mask, g.cpu())
+
+
+def test_vfnet_training_on_cuda_uses_kernels(cuda):
+    """Two fit steps of VFNet R50-mdconv (bf16, batch 2, 256x320,
+    conv_offset arranged) on the card: 23 im2col and 23 im2col backward
+    launches a step, finite losses, the frozen stages unchanged and every
+    conv_offset moved."""
+    from erd_tpu_torch.apis import build_trainer
+    from erd_tpu_torch.engine import Hook, resnet_frozen_paths
+    from erd_tpu_torch.ops import deform_im2col_backward
+    from erd_tpu_torch.structures import ImageMeta
+    cfg = Config.fromfile(VFNET_CFG)
+    cfg.train_cfg.epochs = 1
+    det = build_detector(cfg.model)
+    net = det.init(seed=0, device=cuda)
+    arrange_offsets(net, seed=0)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    rs = np.random.RandomState(4)
+    gt = stack_to([GTInstances.pad(np.array([[20, 30, 120, 150],
+                                             [150, 40, 300, 200]],
+                                            np.float32), [0, 3], 4)] * 2,
+                  cuda)
+    batch = dict(images=torch.from_numpy(rs.randint(
+        0, 256, (2, 256, 320, 3), np.uint8)).to(cuda), gt=gt,
+        meta=stack_to([ImageMeta.make((256, 320), (256, 320), (1.0, 1.0),
+                                      img_id=i) for i in range(2)], cuda))
+
+    class Loader:
+        cfg = type('LoaderConfig', (), {'batch_size': 2})()
+
+        def steps_per_epoch(self, epoch):
+            return 2
+
+        def epoch(self, epoch):
+            yield batch
+            yield batch
+
+    class Record(Hook):
+        def after_iter(self, trainer, step, step_losses):
+            losses.append(step_losses)
+    counts = (deform_im2col.launches, deform_im2col_backward.launches)
+    trainer = build_trainer(cfg, det, Loader(), device=cuda)
+    losses = []
+    trainer.hooks.append(Record())
+    trainer.fit(net)
+    assert (deform_im2col.launches - counts[0],
+            deform_im2col_backward.launches - counts[1]) == (46, 46)
+    assert all(np.isfinite(v) for l in losses for v in l.values())
+    frozen = resnet_frozen_paths(1)
+    for k, v in net.state_dict().items():
+        moved = not torch.equal(v, start[k])
+        assert not (k.startswith(frozen) and moved), k
+        if '.conv_offset.weight' in k:
+            assert moved, k

@@ -56,7 +56,7 @@ from erd_tpu_torch.models.weight_import import (load_torch_checkpoint_file,
                                                  params_from_jax)
 from erd_tpu_torch.ops import (ModulatedDeformConv, deform_conv2d,
                                deform_im2col, deform_im2col_plain)
-from erd_tpu_torch.structures import ImageMeta, stack_to
+from erd_tpu_torch.structures import GTInstances, ImageMeta, stack_to
 
 torch.set_num_threads(2)
 
@@ -529,13 +529,26 @@ def test_builds_and_unported_paths():
         build_detector(Config.fromfile(os.path.join(
             ROOT, 'configs/dcnv2/faster_rcnn_r50_mdconv_c3-c5_fpn_1x_coco.py'
         )).model)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, section 1'):
-        vf.loss(None, {})
-    # serving only: a deformable conv that would need a gradient raises
+    # the name is from before DCN training was ported, when VFNet's loss
+    # and a deformable conv that needed a gradient raised: now the loss is
+    # a dict of tensors with a graph, and the conv's output has a grad_fn
+    cfg = small_cfg(Config, VFNET_CFG)
+    vf = build_detector(cfg.model)
+    assert vf.frozen_stages == 1
+    rs = np.random.RandomState(12)
+    _, batch = image_batch(rs, b=2)
+    batch['gt'] = stack_to([GTInstances.pad(np.array(
+        [[8, 6, 50, 40]], np.float32), [1], 2)] * 2, 'cpu')
+    losses = vf.loss(vf.init(seed=0, device='cpu'), batch)
+    assert set(losses) == {'loss_cls', 'loss_bbox', 'loss_bbox_rf'}
+    assert all(v.grad_fn is not None for v in losses.values())
     m = ModulatedDeformConv(4, 4)
     m.init_weights(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match='no backward'):
-        m(torch.randn(1, 4, 5, 5, requires_grad=True))
+    x = torch.randn(1, 4, 5, 5, requires_grad=True)
+    out = m(x)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert x.grad is not None and m.conv_offset.weight.grad is not None
     with pytest.raises(RuntimeError, match='no kernel'):
         meta = torch.device('meta')
         deform_im2col(torch.empty(1, 4, 5, 5, device=meta),

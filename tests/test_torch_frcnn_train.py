@@ -70,9 +70,9 @@ from erd_tpu_torch.models.heads.bbox_head import (RCNNTrainConfig,
                                                   rcnn_loss, rcnn_sample)
 from erd_tpu_torch.models.heads.rpn_head import RPNTrainConfig, rpn_loss
 from erd_tpu_torch.models.weight_import import params_from_jax
-from erd_tpu_torch.ops import (CARAFEPack, carafe, map_roi_levels,
-                               ms_deform_attn, multilevel_roi_align,
-                               roi_align)
+from erd_tpu_torch.ops import (CARAFEPack, carafe, deform_im2col,
+                               map_roi_levels, ms_deform_attn,
+                               multilevel_roi_align, roi_align)
 from erd_tpu_torch.ops.roi_align import roi_align_backward_plain
 from erd_tpu_torch.structures import GTInstances, ImageMeta, stack_to
 from erd_tpu_torch.task import DeltaXYWHBBoxCoder, max_iou_assign
@@ -762,11 +762,13 @@ def test_fit_two_steps_from_the_faster_rcnn_config():
 
 
 # ------------------------ wrappers, build_detector and build_trainer rules
-@pytest.mark.parametrize('op', ['roi_align', 'carafe', 'ms_deform_attn'])
+@pytest.mark.parametrize('op', ['roi_align', 'carafe', 'ms_deform_attn',
+                                'deform_im2col'])
 def test_kernel_wrappers_keep_or_refuse_gradients(op):
-    """On the CPU path: roi_align, carafe and ms_deform_attn return
-    outputs with a grad_fn when an input needs a gradient (the name is
-    from before ms_deform_attn's backward was ported, when it raised)."""
+    """On the CPU path: roi_align, carafe, ms_deform_attn and
+    deform_im2col return outputs with a grad_fn when an input needs a
+    gradient (the name is from before the backwards of ms_deform_attn and
+    deform_im2col were ported, when they raised)."""
     rs = np.random.RandomState(8)
     if op == 'roi_align':
         feats, rois = roi_case(rs)
@@ -782,7 +784,7 @@ def test_kernel_wrappers_keep_or_refuse_gradients(op):
         assert x.grad is not None and x.grad.abs().max() > 0
         pack = CARAFEPack(4)
         assert pack(x).grad_fn is not None
-    else:
+    elif op == 'ms_deform_attn':
         values = torch.randn(1, 6, 2, 4)
         args = ([(2, 3)], torch.rand(1, 3, 2, 1, 2, 2),
                 torch.rand(1, 3, 2, 1, 2))
@@ -793,12 +795,21 @@ def test_kernel_wrappers_keep_or_refuse_gradients(op):
         assert out.grad_fn is not None
         out.sum().backward()
         assert values.grad is not None and values.grad.abs().max() > 0
+    else:
+        x = torch.randn(1, 4, 5, 6, requires_grad=True)
+        offset = (torch.randn(1, 18, 5, 6) * 1.5).requires_grad_()
+        with torch.no_grad():
+            assert deform_im2col(x, offset, None).grad_fn is None
+        out = deform_im2col(x, offset, torch.rand(1, 9, 5, 6))
+        assert out.grad_fn is not None
+        out.sum().backward()
+        assert x.grad.abs().max() > 0 and offset.grad.abs().max() > 0
 
 
 def test_build_detector_and_trainer_train_rules():
     """The two-stage configs build with erd_tpu's train configs; the OHEM
-    sampler, training VFNet and a teacher outside ERD raise; DINO and
-    Deformable DETR build trainers."""
+    sampler and a teacher outside ERD raise; VFNet, DINO and Deformable
+    DETR build trainers."""
     for kind in CONFIGS:
         det = build_detector(Config.fromfile(CONFIGS[kind]).model)
         assert det.rpn_train_cfg == RPNTrainConfig()
@@ -820,9 +831,12 @@ def test_build_detector_and_trainer_train_rules():
     with pytest.raises(ValueError, match='without one'):
         build_trainer(small_cfg(Config, 'frcnn'), det, loader,
                       teacher=det.init(seed=0, device='cpu'), device='cpu')
-    with pytest.raises(NotImplementedError, match='"DCN training"'):
-        build_trainer(small_cfg(Config, 'frcnn'), VFNetDetector(), loader,
-                      device='cpu')
+    # VFNet trains since DCN training was ported, freezing the stem and
+    # layer1 as erd_tpu's trainer does
+    trainer = build_trainer(small_cfg(Config, 'frcnn'), build_detector(
+        Config(type='VFNet', depth=18)), loader, device='cpu')
+    assert isinstance(trainer.det, VFNetDetector)
+    assert trainer.det.frozen_stages == 1
     for mtype in ('DINO', 'DeformableDETR'):
         trainer = build_trainer(small_cfg(Config, 'frcnn'),
                                 build_detector(Config(type=mtype)), loader,
