@@ -210,12 +210,55 @@ Phases, in order; any failed check exits non-zero before the last line:
                 trainable weight moved (each conv_offset included); img/s,
                 peak memory, the stage times of one train_step and the idle
                 share of one profiled step;
- 31. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 31. mask kernels  one 800x1333 request each of Mask R-CNN R50 and
+                PointRend R50 (80 classes, bf16, fc_cls seeded so that the
+                100 detection slots are real) with their kernel calls
+                captured: RoIAlign at out 14 on the 100 detections (the
+                last 10 edge cases) within 1e-6 * max|feat| of its plain
+                version; every point_sample call (2 coarse calls on the
+                (100, 80, 14, 14) float32 logits, 2 fine calls on the bf16
+                P2 map at 19600 points) within 1e-6 * max|map|, >= 50 % of
+                the samples with a fractional weight and >= 1 % with a
+                corner off the map over the request; each call shape timed
+                beside its byte bound and F.grid_sample on the widened map
+                (held to plain within 1e-5 * max|map| first);
+ 32. corner kernels  one 768x1024 request of CornerNet HG-104 (80 classes,
+                float32, heads arranged by arrange_corner_heads) with its 4
+                corner_pool calls (the last stack's) captured, each
+                bit-equal to its plain version in float32 and bf16, each
+                direction timed beside its byte bound and torch.cummax; its
+                soft-NMS call at K = 10000 (the device-memory variant),
+                gaussian within 1e-6 relative, timed;
+ 33. mask/cornernet reference  Mask R-CNN's and PointRend's float32
+                networks (RPN outputs, the bbox head, the mask heads on
+                seeded RoI and point features) and CornerNet HG-104's
+                outputs of both stacks on a 128x256 input, card vs CPU,
+                within 1e-3 * max|out|;
+ 34. mask serve, pointrend serve  init_detector / inference_detector on
+                the 4 requests: per request 2 NMS and 2 RoIAlign launches
+                (+ 4 point_sample for PointRend); every detection finite and
+                inside its image, stage times (PointRend's coarse head and
+                its two subdivision steps apart), peak memory, the idle
+                share of one request, card-vs-CPU post-processing; the mask
+                branch on the CPU from the card's features and detections:
+                masks within 1e-3, PointRend's refined cells equal but at
+                near-ties (the first step's within 1e-5 * max|logit| of the
+                k-th uncertainty, at most 1 % of the selections a step) and
+                its masks within 1e-3 but at the cells those move;
+ 35. cornernet serve  init_detector / inference_detector of CornerNet
+                HG-104 at scale=(1024, 768) on the 4 requests: per request
+                4 corner_pool launches and 1 soft-NMS (K = 10000); every
+                detection finite, not inverted and inside the canvas grown
+                by the corner offsets' reach (erd_tpu does not clip), stage
+                times, peak memory, the idle share of one request,
+                card-vs-CPU decode and soft-NMS of the same outputs;
+ 36. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The script sets no global precision flag: the port convolves float32 in
 full float32 itself (erd_tpu_torch.utils.conv_fp32_precision), torch's
 float32 matmuls default to full float32, and the served and trained models
-compute in bf16. The script imports neither JAX nor erd_tpu.
+compute in bf16 (CornerNet in float32, as erd_tpu runs it). The script
+imports neither JAX nor erd_tpu.
 """
 from __future__ import annotations
 
@@ -263,6 +306,21 @@ CARAFE_CONFIGS = {
 # seed of the FPN_CARAFE cell's content encoders (arrange_carafe): erd_tpu's
 # N(0, 0.001) init weights every tap ~1/25
 CARAFE_ARRANGE_SEED = 17
+MASK_CONFIGS = {
+    'mask_rcnn': os.path.join(ROOT, 'configs', 'mask_rcnn',
+                              'mask_rcnn_r50_fpn_1x_coco.py'),
+    'point_rend': os.path.join(ROOT, 'configs', 'point_rend',
+                               'point-rend_r50-caffe_fpn_ms-1x_coco.py')}
+CORNERNET_CONFIG = os.path.join(
+    ROOT, 'configs', 'cornernet',
+    'cornernet_hourglass104_8xb6-210e-mstest_coco.py')
+# HG-104 needs canvas sides that are multiples of 128: 768x1024 / 1024x768
+CORNERNET_SCALE = (1024, 768)
+# the CornerNet cell's arranged heads (arrange_corner_heads): one seeded
+# class with heatmap logits mostly in [-0.5, 0.5], the other classes at -4;
+# embeddings mostly in [-0.3, 0.3]
+CORNER_ARRANGE_SEED, CORNER_CLASSES, CORNER_HEAT_SPAN = 19, 1, 1.0
+CORNER_HEAT_LOW, CORNER_HEAT_REST, CORNER_EMB_SPAN = -0.5, -4.0, 0.6
 # seeded fc_cls of the Faster R-CNN serve cell (see arrange_fc_cls): about
 # five classes of each RoI pass score_thr, so that the NMS sees 2000
 FC_CLS_SEED, FC_CLS_STD, FC_CLS_BOOSTED, FC_CLS_BOOST = 7, 0.5, 8, 2.5
@@ -416,16 +474,18 @@ def request_images(np):
 
 
 def serve_requests(np, torch, det, net, images, counters, want, tag, card,
-                   num_ok=lambda n: 0 < n <= 100):
+                   num_ok=lambda n: 0 < n <= 100, scale=(1333, 800),
+                   inside=True):
     """The serving path as a user drives it: a warm-up over all the images
     (cuDNN, kernel loads), every launch count of ``counters`` set to 0, the
-    images one request at a time through inference_detector, the counts
-    read. Checks each kernel's launches against ``want`` and every
-    detection: finite, inside its image, its label in range, its count
+    images one request at a time through inference_detector (at ``scale``),
+    the counts read. Checks each kernel's launches against ``want`` and
+    every detection: finite, inside its image (unless not ``inside``: the
+    caller checks the boxes' extent), its label in range, its count
     accepted by ``num_ok``. Then profiles one 800x1333 request and logs the
     latencies, img/s and peak memory. Returns (results, launch counts)."""
     from erd_tpu_torch.apis import inference_detector
-    inference_detector(det, net, images)
+    inference_detector(det, net, images, scale=scale)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -433,7 +493,7 @@ def serve_requests(np, torch, det, net, images, counters, want, tag, card,
     results, latency = [], []
     for img in images:
         t0 = time.perf_counter()
-        results.append(inference_detector(det, net, img))
+        results.append(inference_detector(det, net, img, scale=scale))
         torch.cuda.synchronize()
         latency.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
@@ -449,14 +509,14 @@ def serve_requests(np, torch, det, net, images, counters, want, tag, card,
         check(np.isfinite(res.bboxes).all() and np.isfinite(res.scores).all(),
               f'{tag} request {i}: non-finite output')
         slack = 1e-3 * max(h, w)
-        check((res.bboxes >= -slack).all() and
-              (res.bboxes[:, [0, 2]] <= w + slack).all() and
-              (res.bboxes[:, [1, 3]] <= h + slack).all(),
+        check(not inside or ((res.bboxes >= -slack).all() and
+                             (res.bboxes[:, [0, 2]] <= w + slack).all() and
+                             (res.bboxes[:, [1, 3]] <= h + slack).all()),
               f'{tag} request {i}: boxes outside the image')
         check(((res.labels >= 0) & (res.labels < NUM_CLASSES)).all(),
               f'{tag} request {i}: labels out of range')
-    profile_request(torch, lambda: inference_detector(det, net, images[-1]),
-                    tag)
+    profile_request(torch, lambda: inference_detector(
+        det, net, images[-1], scale=scale), tag)
     log(f'{tag}: warm per-request latency ms ' +
         ' '.join(f'{1e3 * t:.2f}' for t in latency) +
         f'; {len(latency) / sum(latency):.2f} img/s; peak memory '
@@ -722,6 +782,39 @@ def time_pair(torch, fn, plain_fn, names, n=10):
     plain_ms = events_ms(torch, plain_fn, max(2, n // 3))
     return (dev_ms or call_ms, call_ms,
             'profiler' if dev_ms else 'events', plain_ms)
+
+
+def graph_ms(torch, fn, n=20):
+    """Per-call device time of ``fn`` (CUDA events around replays of a
+    CUDA graph of n calls): no host launch overhead, and no profiler
+    records that can go missing, for kernels shorter than a launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up (lazy loads, allocator) off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * n)
+
+
+def time_graph(torch, fn, plain_fn, n=20):
+    """(kernel ms, call ms, source, plain ms) as time_pair's, the kernel's
+    device time from graph_ms."""
+    call_ms = events_ms(torch, fn, n)
+    plain_ms = events_ms(torch, plain_fn, max(2, n // 3))
+    return graph_ms(torch, fn, n), call_ms, 'graph', plain_ms
 
 
 def synthetic_gt(np, torch, rs, b, img_hw, device=None,
@@ -1421,15 +1514,15 @@ def phase_train(np, torch, card):
     return launches
 
 
-def request_batch(np, torch, hw):
-    """One seeded RGB image of (H, W) through the test pipeline: (batch on
-    the card, the image, the record)."""
+def request_batch(np, torch, hw, scale=(1333, 800)):
+    """One seeded RGB image of (H, W) through the test pipeline at
+    ``scale``: (batch on the card, the image)."""
     from erd_tpu_torch.data import DetPipeline, ImageRecord
     from erd_tpu_torch.structures import stack_to
     img = request_images(np)[REQUESTS.index(hw)]
     rec = ImageRecord(0, '', hw[1], hw[0], np.zeros((0, 4), np.float32),
                       np.zeros((0,), np.int32), np.zeros((0,), bool))
-    canvas, _, meta = DetPipeline()(rec, image=img)
+    canvas, _, meta = DetPipeline(scale=scale)(rec, image=img)
     return dict(images=torch.from_numpy(canvas[None]).to(DEV),
                 meta=stack_to([meta], DEV)), img
 
@@ -1471,7 +1564,7 @@ def capture(module, name, calls):
     return lambda: setattr(module, name, fn)
 
 
-def roi_align_bytes(torch, feats, rois, levels):
+def roi_align_bytes(torch, feats, rois, levels, out_size=7):
     """Bytes RoIAlign must read from the maps for these RoIs: the distinct
     pixels its in-range samples touch, times the channels and the element
     size."""
@@ -1483,9 +1576,9 @@ def roi_align_bytes(torch, feats, rois, levels):
         h, w = f.shape[2:]
         lo = r * (1.0 / stride) - 0.5
         size = (lo[:, 2:] - lo[:, :2]).clamp(min=1e-6) / torch.full_like(
-            lo[:, :2], 7)
-        in_y, y0, y1, _ = _sample_axis(lo[:, 1], size[:, 1], h, 7, 2)
-        in_x, x0, x1, _ = _sample_axis(lo[:, 0], size[:, 0], w, 7, 2)
+            lo[:, :2], out_size)
+        in_y, y0, y1, _ = _sample_axis(lo[:, 1], size[:, 1], h, out_size, 2)
+        in_x, x0, x1, _ = _sample_axis(lo[:, 0], size[:, 0], w, out_size, 2)
         hit = torch.zeros(h * w, dtype=torch.bool, device=f.device)
         ok = in_y[:, :, None] & in_x[:, None, :]
         for ya in (y0, y1):
@@ -4168,6 +4261,669 @@ def phase_dcn_train(np, torch, card):
     return launches
 
 
+# ------------------------------- Mask R-CNN, PointRend, CornerNet (serving)
+def mask_net(np, torch, kind):
+    """init_detector of the Mask R-CNN or PointRend config on the card,
+    with seeded fc_cls weights (arrange_fc_cls, so that the 100 detection
+    slots of a request are real); (detector, network, the 800x1333
+    request's batch)."""
+    from erd_tpu_torch.apis import init_detector
+    det, net, _ = init_detector(MASK_CONFIGS[kind], device=DEV)
+    want = {'mask_rcnn': 'MaskRCNNDetector',
+            'point_rend': 'PointRendDetector'}[kind]
+    check(type(det).__name__ == want and det.depth == 50 and
+          det.num_classes == NUM_CLASSES and
+          det.compute_dtype == torch.bfloat16,
+          f'{MASK_CONFIGS[kind]} is not the {want} R50 bf16 model')
+    batch, _ = request_batch(np, torch, REQUESTS[-1])
+    arrange_fc_cls(torch, det, net, batch)
+    return det, net, batch
+
+
+def point_sample_stats(torch, maps, pts):
+    """(samples, with a fractional weight, with a corner off the map,
+    distinct map pixels the in-range corners touch) of one call."""
+    n, _, h, w = maps.shape
+    xs = pts[..., 0] * w - 0.5
+    ys = pts[..., 1] * h - 0.5
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    frac = (xs != x0) | (ys != y0)
+    off = (x0 < 0) | (x0 > w - 2) | (y0 < 0) | (y0 > h - 2)
+    hit = torch.zeros(n * h * w, dtype=torch.bool, device=maps.device)
+    img = torch.arange(n, device=maps.device)[:, None]
+    for yy in (y0, y0 + 1):
+        for xx in (x0, x0 + 1):
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            hit[((img * h + yy.long()) * w + xx.long())[ok]] = True
+    return pts.shape[0] * pts.shape[1], int(frac.sum()), int(off.sum()), \
+        int(hit.sum())
+
+
+def grid_sample_points(torch, maps, pts):
+    """mmcv's point_sample: F.grid_sample of the maps at 2 * p - 1,
+    align_corners=False, zero padding -> (N, K, C)."""
+    import torch.nn.functional as F
+    out = F.grid_sample(maps, (pts * 2 - 1)[:, :, None, :], mode='bilinear',
+                        padding_mode='zeros', align_corners=False)
+    return out[..., 0].transpose(1, 2)
+
+
+def phase_mask_kernels(np, torch):
+    """One 800x1333 request each of Mask R-CNN and PointRend R50 (bf16,
+    fc_cls seeded) with their kernel calls captured: RoIAlign at out 14 on
+    the 100 detections (the last 10 replaced by edge cases) against its
+    plain version (1e-6 * max|feat|); every point_sample call (2 coarse and
+    2 fine) within 1e-6 * max|map| of its plain version, >= 50 % of the
+    samples with a fractional weight and >= 1 % with a corner off the map
+    over the request's calls; then each call shape timed beside its bound
+    and F.grid_sample (held to plain within 1e-5 * max|map| first)."""
+    import importlib
+
+    from erd_tpu_torch.ops import (map_roi_levels, point_sample,
+                                   point_sample_plain, roi_align,
+                                   roi_align_plain)
+    roi_module = importlib.import_module('erd_tpu_torch.ops.roi_align')
+    pr_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.point_rend')
+    roi14, ps_calls = None, []
+    for kind in MASK_CONFIGS:
+        det, net, batch = mask_net(np, torch, kind)
+        roi_calls, calls = [], []
+        restore = [capture(roi_module, 'roi_align', roi_calls),
+                   capture(pr_module, 'point_sample', calls)]
+        try:
+            res, masks = det.predict(net, batch)
+        finally:
+            for undo in restore:
+                undo()
+        torch.cuda.synchronize()
+        n_ps = 2 * det.subdivision_steps if kind == 'point_rend' else 0
+        check(len(roi_calls) == 2 and len(calls) == n_ps,
+              f'{kind}: {len(roi_calls)} RoIAlign and {len(calls)} '
+              f'point_sample calls in one request, expected 2 and {n_ps}')
+        check(int(res.mask.sum()) == 100, f'{kind}: '
+              f'{int(res.mask.sum())} of the 100 detection slots filled')
+        ps_calls += calls
+        if kind != 'mask_rcnn':
+            continue
+        # -- RoIAlign at out 14 on the detections, 10 edge cases
+        feats, rois, _, strides, out_size = roi_calls[1][:5]
+        check(out_size == 14 and rois.shape[1] == 100 and
+              feats[0].dtype == torch.bfloat16,
+              f'mask RoIAlign call out {out_size}, R={rois.shape[1]}')
+        rois = rois.clone()
+        h, w = batch['images'].shape[1:3]
+        rois[0, -10:] = torch.tensor([
+            [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [10, 10, 10, 10],
+            [0, 0, 0, 0], [30, 5, 29, 60], [w - 8, h - 8, w + 4, h + 4],
+            [w - 4, 0, w, h], [0, h - 4, w, h], [-9, -9, 600, 500],
+            [100, 100, 400, 400]], device=DEV)
+        levels = map_roi_levels(rois, 4).contiguous()
+        check(torch.equal(levels.cpu(), map_roi_levels(rois.cpu(), 4)),
+              'RoI levels differ between card and CPU')
+        args = (feats, rois, levels, strides, 14)
+        got = roi_align(*args)
+        torch.cuda.synchronize()
+        want = roi_align_plain(*args)
+        feat_max = max(float(f.float().abs().max()) for f in feats)
+        err = float((got - want).abs().max())
+        per_level = torch.bincount(levels.flatten().long(), minlength=4)
+        log(f'mask kernels: roi_align out 14, R={rois.shape[1]} C='
+            f'{feats[0].shape[1]} {feats[0].dtype} levels '
+            f'{per_level.tolist()}: max_abs_err={err:.3e} (limit '
+            f'1e-6*max|feat| = {1e-6 * feat_max:.3e})')
+        check(err <= 1e-6 * feat_max, 'RoIAlign (out 14) kernel disagrees '
+              'with plain')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: roi_align(*args), lambda: roi_align_plain(*args))
+        r, c = rois.shape[1], feats[0].shape[1]
+        bms, by = bound_of(roi_align_bytes(torch, feats, rois, levels, 14) +
+                           r * c * 196 * 4 + r * 20, r * c * 196 * 48.0)
+        roi14 = dict(r=r, out_size=14, max_abs_err=err, ms=ms,
+                     call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by, library_ms=None)
+        log(f'mask kernels: roi_align out 14 {ms:.4f} ms device ({src}), '
+            f'{call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, bound '
+            f'{bms:.5f} ms ({by})')
+        del feats, roi_calls, got, want
+        del det, net
+        torch.cuda.empty_cache()
+
+    # -- point_sample: every call of the PointRend request
+    tot = frac = off = 0
+    shapes = {}
+    for i, (maps, pts) in enumerate(ps_calls):
+        got = point_sample(maps, pts)
+        torch.cuda.synchronize()
+        want = point_sample_plain(maps, pts)
+        map_max = float(maps.float().abs().max())
+        err = float((got - want).abs().max())
+        n, f, o, touched = point_sample_stats(torch, maps, pts)
+        tot, frac, off = tot + n, frac + f, off + o
+        form = 'coarse' if maps.dtype == torch.float32 else 'fine'
+        log(f'mask kernels: point_sample call {i} ({form}) maps '
+            f'{tuple(maps.shape)} {maps.dtype} strides {maps.stride()}, '
+            f'points {tuple(pts.shape)}: max_abs_err={err:.3e} (limit '
+            f'1e-6*max|map| = {1e-6 * map_max:.3e}); {f / n:.3f} '
+            f'fractional, {o / n:.4f} off the map')
+        check(err <= 1e-6 * map_max, f'point_sample kernel disagrees with '
+              f'plain on call {i}')
+        shapes.setdefault((form, tuple(maps.shape), tuple(pts.shape)),
+                          (maps, pts, touched, err))
+    log(f'mask kernels: point_sample over the request: {tot} samples, '
+        f'{frac / tot:.3f} fractional, {off / tot:.4f} with a corner off '
+        f'the map (limits 0.5, 0.01)')
+    check(frac >= 0.5 * tot and off >= 0.01 * tot,
+          'point_sample check: too few fractional or off-map samples')
+    timed = []
+    for (form, _, _), (maps, pts, touched, err) in shapes.items():
+        n, k = pts.shape[:2]
+        c = maps.shape[1]
+        maps32 = maps.float()
+        lib = grid_sample_points(torch, maps32, pts)
+        want = point_sample_plain(maps, pts)
+        lib_err = float((lib - want).abs().max())
+        check(lib_err <= 1e-5 * float(maps32.abs().max()),
+              f'F.grid_sample disagrees with plain ({form}: {lib_err:.2e})')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: point_sample(maps, pts),
+            lambda: point_sample_plain(maps, pts))
+        library_ms = graph_ms(torch, lambda: grid_sample_points(
+            torch, maps32, pts))
+        nbytes = touched * c * maps.element_size() + n * k * c * 4 + \
+            n * k * 8
+        bms, by = bound_of(nbytes, n * k * c * 11.0)  # 8 mul, 3 add
+        timed.append(dict(form=form, maps=list(maps.shape),
+                          dtype=str(maps.dtype), points=list(pts.shape),
+                          ms=ms, call_ms=call_ms, ms_from=src,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          bytes=nbytes, library_ms=library_ms,
+                          library_err=lib_err, max_abs_err=err))
+        log(f'mask kernels: point_sample {form} {tuple(maps.shape)} x '
+            f'{tuple(pts.shape)}: {ms:.4f} ms device ({src}), {call_ms:.4f} '
+            f'ms per call, plain {plain_ms:.3f} ms, F.grid_sample (float32 '
+            f'map) {library_ms:.4f} ms (err vs plain {lib_err:.1e}), bound '
+            f'{bms:.5f} ms ({by}, {nbytes / 1e6:.1f} MB)')
+    fine = next(t for t in timed if t['form'] == 'fine')
+    row = dict(name='point_sample', route='cuda',
+               source='erd_tpu_torch/csrc/point_sample.cu',
+               replaces='erd_tpu/ops/sampling.py:41',
+               max_abs_err=max(t['max_abs_err'] for t in timed),
+               ms=fine['ms'], call_ms=fine['call_ms'],
+               ms_from=fine['ms_from'], plain_ms=fine['plain_ms'],
+               bound_ms=fine['bound_ms'], bound_by=fine['bound_by'],
+               library_ms=fine['library_ms'], by_shape=timed,
+               fractional_share=frac / tot, off_map_share=off / tot)
+    del ps_calls, shapes
+    torch.cuda.empty_cache()
+    return row, roi14
+
+
+def arrange_corner_heads(torch, det, net, batches):
+    """Seeded weights for the last stack's heatmap and embedding 1x1 convs
+    (``out`` of ``{tl,br}_{heat,emb}_1``). CORNER_CLASSES seeded classes,
+    the same for both corner types (one: with more, each corner type's
+    top corners fall in one class of its own on some requests), get N(0,
+    1) weights scaled and shifted
+    so that, between the 1 % and 99 % quantiles of the maps of ``batches``
+    (the requests), their logits span CORNER_HEAT_SPAN (seeded within +-10
+    %, so that their peaks do not tie) from CORNER_HEAT_LOW; the other
+    classes get weight 0 and the bias CORNER_HEAT_REST (scores below
+    score_thr). The embeddings get N(0, 1) weights spanning CORNER_EMB_SPAN
+    around 0 the same way. erd_tpu's init (N(0, 0.01) on the ReLU'd
+    features, heat bias at prior 0.1) puts one or two classes on top of
+    each corner type and the two embeddings ~0.5 apart, so that no pair
+    passes the class and embedding tests; a feature-driven class logit
+    shifts between the requests by more than any fixed boost over the
+    other classes."""
+    import torch.nn.functional as F
+    i = net.num_stacks - 1
+    convs = {name: getattr(net, f'{name}_{i}').out
+             for name in ('tl_heat', 'br_heat', 'tl_emb', 'br_emb')}
+    seen = {name: [] for name in convs}
+    hooks = [conv.register_forward_pre_hook(
+        lambda m, a, name=name: seen[name].append(a[0]))
+        for name, conv in convs.items()]
+    for batch in batches:
+        det.predict(net, batch)
+    for hook in hooks:
+        hook.remove()
+    gen = torch.Generator().manual_seed(CORNER_ARRANGE_SEED)
+    live = torch.zeros(det.num_classes, dtype=torch.bool)
+    live[torch.randperm(det.num_classes, generator=gen)[
+        :CORNER_CLASSES]] = True
+    for name, conv in convs.items():
+        w = torch.randn(conv.weight.shape, generator=gen).to(
+            conv.weight.device)
+        y = torch.cat([F.conv2d(x, w).transpose(0, 1).flatten(1)
+                       for x in seen[name]], 1)
+        # the 1 % and 99 % quantiles: the extremes sit on the borders
+        lo, hi = torch.quantile(y[:, ::7], torch.tensor(
+            [0.01, 0.99], device=y.device), dim=1)
+        if name.endswith('heat'):
+            span = CORNER_HEAT_SPAN * (0.9 + 0.2 * torch.rand(
+                y.shape[0], generator=gen)).to(y.device)
+            scale = torch.where(live.to(y.device), span / (hi - lo), 0.0)
+            bias = torch.where(live.to(y.device), CORNER_HEAT_LOW -
+                               lo * scale, CORNER_HEAT_REST)
+        else:
+            scale = CORNER_EMB_SPAN / (hi - lo)
+            bias = -CORNER_EMB_SPAN / 2 - lo * scale
+        with torch.no_grad():
+            conv.weight.copy_(w * scale[:, None, None, None])
+            conv.bias.copy_(bias)
+
+
+def corner_pair_stats(torch, det, out):
+    """How many of the top-k corner pairs of one image pass each of the
+    decode's tests: (same class, geometry, embedding, all three)."""
+    from erd_tpu_torch.models.detectors.cornernet import topk_corners
+    from erd_tpu_torch.ops import local_maximum
+    tl, br = ([t[0] for t in topk_corners(
+        local_maximum(torch.sigmoid(out[f'{c}_heat'][:1].float())),
+        out[f'{c}_emb'][:1].float(), out[f'{c}_off'][:1].float(),
+        det.corner_topk)] for c in ('tl', 'br'))
+    same = tl[1][:, None] == br[1][None]
+    geom = (br[2][None] > tl[2][:, None]) & (br[3][None] > tl[3][:, None])
+    emb = (tl[4][:, None] - br[4][None]).abs() <= det.distance_threshold
+    return tuple(int(m.sum()) for m in (same, geom, emb, same & geom & emb))
+
+
+def cornernet_net(np, torch):
+    """init_detector of the CornerNet config on the card, the last stack's
+    heatmap and embedding heads arranged on the 4 requests
+    (arrange_corner_heads); (detector, network, the 800x1333 request's
+    batch at 768x1024)."""
+    from erd_tpu_torch.apis import init_detector
+    det, net, _ = init_detector(CORNERNET_CONFIG, device=DEV)
+    check(type(det).__name__ == 'CornerNetDetector' and
+          det.num_classes == NUM_CLASSES and det.num_stacks == 2 and
+          tuple(det.stage_channels) == (256, 256, 384, 384, 384, 512) and
+          det.preprocessor.compute_dtype == torch.float32,
+          f'{CORNERNET_CONFIG} is not the float32 HG-104 CornerNet')
+    batches = [request_batch(np, torch, hw, CORNERNET_SCALE)[0]
+               for hw in REQUESTS]
+    arrange_corner_heads(torch, det, net, batches)
+    stats = []
+    for batch in batches:
+        with torch.no_grad():
+            out = net.last_stack(det.preprocessor(batch['images']))
+        stats.append(corner_pair_stats(torch, det, out))
+    log(f'cornernet: arranged heads; each request\'s top-{det.corner_topk} '
+        f'corner pairs passing (same class, geometry, embedding, all): '
+        f'{stats}')
+    batch = batches[-1]
+    check(tuple(batch['images'].shape[1:3]) == (768, 1024),
+          f'CornerNet canvas {tuple(batch["images"].shape[1:3])}')
+    return det, net, batch
+
+
+def phase_cornernet_kernels(np, torch):
+    """One 768x1024 request of CornerNet HG-104 (float32, seeded, heads
+    arranged) with its kernel calls captured: every corner_pool call (the last stack's 4)
+    bit-equal to its plain version in float32 and bf16, each direction
+    timed beside its bound and torch.cummax; the soft-NMS call at K =
+    10000 (the device-memory variant), gaussian within 1e-6 relative,
+    timed."""
+    import importlib
+
+    from erd_tpu_torch.ops import (corner_pool, corner_pool_plain, soft_nms,
+                                   soft_nms_plain)
+    from erd_tpu_torch.ops.extra_nms import DIRECTIONS
+    cn_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.cornernet')
+    nms_module = importlib.import_module('erd_tpu_torch.ops.nms')
+    det, net, batch = cornernet_net(np, torch)
+    pool_calls, soft_calls = [], []
+    restore = [capture(cn_module, 'corner_pool', pool_calls),
+               capture(nms_module, 'soft_nms', soft_calls)]
+    try:
+        res = det.predict(net, batch)
+    finally:
+        for undo in restore:
+            undo()
+    torch.cuda.synchronize()
+    check(len(pool_calls) == 4 and len(soft_calls) == 1,
+          f'{len(pool_calls)} corner_pool and {len(soft_calls)} soft-NMS '
+          f'calls in one request, expected 4 and 1')
+    check(sorted(d for _, d in pool_calls) == sorted(DIRECTIONS),
+          'the corner_pool calls do not cover the four directions')
+    for x, direction in pool_calls:
+        for dtype in (torch.float32, torch.bfloat16):
+            xx = x.to(dtype)
+            got = corner_pool(xx, direction)
+            torch.cuda.synchronize()
+            same = torch.equal(got, corner_pool_plain(xx, direction))
+            log(f'corner kernels: corner_pool {direction} '
+                f'{tuple(xx.shape)} {dtype}: bit-equal {same}')
+            check(same, f'corner_pool {direction} {dtype} differs from '
+                  f'plain')
+    timed = []
+    for x, direction in pool_calls:
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: corner_pool(x, direction),
+            lambda: corner_pool_plain(x, direction))
+        # torch.cummax, with erd_tpu's flips for top and left: the plain
+        # version's own calls, their device time as the library yardstick
+        library_ms = graph_ms(torch, lambda: corner_pool_plain(x, direction))
+        bms, by = bound_of(2 * x.numel() * x.element_size(),
+                           float(x.numel()))
+        timed.append(dict(direction=direction, shape=list(x.shape), ms=ms,
+                          call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=library_ms))
+        log(f'corner kernels: corner_pool {direction} {tuple(x.shape)} '
+            f'float32: {ms:.4f} ms device ({src}), {call_ms:.4f} ms per '
+            f'call, plain {plain_ms:.4f} ms, torch.cummax {library_ms:.4f} '
+            f'ms, bound {bms:.5f} ms ({by})')
+    worst = max(timed, key=lambda t: t['ms'])
+    row = dict(name='corner_pool', route='cuda',
+               source='erd_tpu_torch/csrc/corner_pool.cu',
+               replaces='erd_tpu/ops/extra_nms.py:63', max_abs_err=0.0,
+               ms=worst['ms'], call_ms=worst['call_ms'],
+               ms_from=worst['ms_from'], plain_ms=worst['plain_ms'],
+               bound_ms=worst['bound_ms'], bound_by=worst['bound_by'],
+               library_ms=worst['library_ms'], slowest=worst['direction'],
+               by_direction=timed)
+
+    # -- soft-NMS at K = 10000 (the device-memory variant), gaussian
+    sboxes, scores, steps, thr, sigma, min_score, method = soft_calls[0][:7]
+    k = sboxes.shape[1]
+    valid = int((scores > float('-inf')).sum())
+    check(k == 10000 and steps == 100 and method == 'gaussian' and
+          valid > 0, f'CornerNet soft-NMS call K={k} ({valid} valid), '
+          f'{steps} steps, {method}')
+    gi, gs = soft_nms(*soft_calls[0][:7])
+    torch.cuda.synchronize()
+    wi, ws = soft_nms_plain(*soft_calls[0][:7])
+    same = (gi == wi)[0]
+    first = steps if bool(same.all()) else int((~same).int().argmax())
+    upto = slice(0, min(first + 1, steps))
+    live = ws[0, upto] > float('-inf')
+    rel = float(((gs[0, upto] - ws[0, upto]).abs() /
+                 ws[0, upto].abs())[live].max()) if bool(live.any()) else 0.0
+    log(f'corner kernels: soft_nms gaussian K={k} ({valid} valid) '
+        f'steps={steps} kept {int((ws >= min_score).sum())}: selections '
+        f'equal over {first} of {steps} steps, max rel err {rel:.2e} '
+        f'(limit 1e-6)')
+    check(rel <= 1e-6, 'gaussian soft-NMS at K = 10000 differs from plain '
+          'beyond 1e-6 relative, or selections differ without a tie')
+    sargs = soft_calls[0][:7]
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: soft_nms(*sargs), lambda: soft_nms_plain(*sargs),
+        n=10)
+    bms, by = bound_of(k * 20 + steps * 12, steps * k * 21.0)
+    soft = dict(k=k, valid=valid, steps=steps, method=method, ms=ms,
+                call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, max_rel_err=rel)
+    log(f'corner kernels: soft_nms K={k} {ms:.4f} ms device ({src}), '
+        f'{call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, bound '
+        f'{bms:.5f} ms ({by}); {int(res.mask.sum())} detections')
+    del pool_calls, soft_calls, net
+    torch.cuda.empty_cache()
+    return row, soft
+
+
+def phase_mask_cornernet_reference(np, torch):
+    """The three float32 networks card vs CPU on small inputs, within
+    1e-3 * max|out|: Mask R-CNN's and PointRend's RPN outputs, bbox head
+    and mask heads (on seeded RoI and point features); CornerNet HG-104's
+    outputs of both stacks on a 128x256 input (sides multiples of 128)."""
+    import copy
+
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    rs = np.random.RandomState(5)
+    roi_feats = torch.from_numpy(rs.randn(8, 256, 14, 14).astype(np.float32))
+    fine = torch.from_numpy(rs.randn(8, 196, 256).astype(np.float32))
+    coarse_pts = torch.from_numpy(rs.randn(8, 196, NUM_CLASSES).astype(
+        np.float32))
+    for kind, path in list(MASK_CONFIGS.items()) + [
+            ('cornernet', CORNERNET_CONFIG)]:
+        cfg = Config.fromfile(path)
+        cfg.model.compute_dtype = 'float32'
+        det = build_detector(cfg.model)
+        net_cpu = det.init(seed=1, device='cpu')
+        net_gpu = copy.deepcopy(net_cpu).to(DEV)
+        hw = (128, 256) if kind == 'cornernet' else (128, 192)
+        img = torch.from_numpy(np.random.RandomState(2).randint(
+            0, 256, (1, *hw, 3), np.uint8))
+
+        def outputs(net):
+            dev = next(net.parameters()).device
+            raw = det.forward_raw(net, img.to(dev))
+            if kind == 'cornernet':
+                return [o[key] for o in raw for key in sorted(o)]
+            (rpn_cls, rpn_reg), head = raw
+            with torch.no_grad():
+                if kind == 'mask_rcnn':
+                    extra = [net.roi_head.mask_head(roi_feats.to(dev))]
+                else:
+                    extra = [net.roi_head.mask_head(roi_feats.to(dev)),
+                             net.roi_head.point_head(fine.to(dev),
+                                                     coarse_pts.to(dev))]
+            return list(rpn_cls) + list(rpn_reg) + list(head) + extra
+        worst = 0.0
+        for g, w in zip(outputs(net_gpu), outputs(net_cpu)):
+            check(tuple(g.shape) == tuple(w.shape), 'reference shape '
+                  'mismatch')
+            worst = max(worst, float((g.cpu() - w).abs().max() /
+                                     w.abs().max()))
+        log(f'{kind} reference: float32 network card vs CPU, max |diff| / '
+            f'max |out| = {worst:.2e} (tolerance 1e-3)')
+        check(worst <= 1e-3, f'float32 {kind} on the card disagrees with '
+              f'the CPU')
+        del net_cpu, net_gpu
+    torch.cuda.empty_cache()
+
+
+def refined_diff(torch, idx_a, idx_b, cells):
+    """Cells of a step refined on one side only, counted once per pair."""
+    def mask(idx):
+        return torch.zeros(idx.shape[0], cells, dtype=torch.bool).scatter(
+            1, idx, True)
+    return int((mask(idx_a) ^ mask(idx_b)).sum()) // 2
+
+
+def selection_gap(torch, logits, idx_a, idx_b):
+    """The largest distance, relative to max|logit|, from the k-th
+    uncertainty of ``logits``' x2 upsample of the cells that only one of
+    two selections of k cells refines (0 where they agree)."""
+    from erd_tpu_torch.models.detectors.point_rend import upsample2x
+    unc = -upsample2x(logits).abs().reshape(logits.shape[0], -1)
+    kk = idx_a.shape[1]
+    kth = torch.sort(unc, -1, descending=True).values[:, kk - 1:kk]
+    a = torch.zeros_like(unc, dtype=torch.bool).scatter(1, idx_a, True)
+    b = torch.zeros_like(unc, dtype=torch.bool).scatter(1, idx_b, True)
+    diff = a ^ b
+    if not bool(diff.any()):
+        return 0.0
+    return float(((unc - kth).abs())[diff].max() / logits.abs().max())
+
+
+def phase_mask_serve(np, torch, card):
+    """init_detector / inference_detector of Mask R-CNN and PointRend on
+    the 4 requests: per request 2 NMS and 2 RoIAlign launches (+ 4
+    point_sample for PointRend); every detection finite and inside its
+    image, stage times (PointRend's subdivision steps apart), peak memory,
+    the idle share of one request; card-vs-CPU post-processing of the same
+    head outputs, and the mask branch on the CPU from the card's features
+    and detections: masks within 1e-3; PointRend's refined cells equal but
+    at near-ties (the first step's within 1e-5 * max|logit| of the k-th
+    uncertainty; at most 1 % of the selections per step), its masks within
+    1e-3 but at the cells those near-ties move."""
+    import copy
+
+    from erd_tpu_torch.data import DetPipeline
+    from erd_tpu_torch.models.detectors.mask_rcnn import pick_class
+    from erd_tpu_torch.ops import nms_sorted_keep, point_sample, roi_align
+    from erd_tpu_torch.structures import DetResults
+
+    images = request_images(np)
+    counters = {'nms_keep': nms_sorted_keep, 'roi_align': roi_align,
+                'point_sample': point_sample}
+    launches = {}
+    for kind in MASK_CONFIGS:
+        tag = {'mask_rcnn': 'mask serve', 'point_rend': 'pointrend serve'}[
+            kind]
+        det, net, _ = mask_net(np, torch, kind)
+        net_cpu = copy.deepcopy(net).cpu()
+        steps = getattr(det, 'subdivision_steps', 0)
+        per = dict(nms_keep=2, roi_align=2, point_sample=2 * steps)
+        want = {k: v * len(images) for k, v in per.items()}
+        results, counts = serve_requests(np, torch, det, net, images,
+                                         counters, want, tag, card)
+        launches[tag] = counts
+        pipe = DetPipeline()
+        for i, (img, res) in enumerate(zip(images, results)):
+            with torch.no_grad():
+                req = ServedRequest(np, torch, pipe, i, img)
+                feats, rpn_cls, rpn_reg = det.feats_and_rpn(net, req.images)
+                req.mark()
+                ctx = det.anchor_context(req.images.shape[1:3])
+                rois, _, roi_mask = det.proposals(ctx, rpn_cls, rpn_reg,
+                                                  req.meta_dev)
+                req.mark()
+                roi_feats = det.roi_feats(feats, rois)
+                req.mark()
+                cls, reg = det.roi_forward(net, roi_feats)
+                req.mark()
+                gpu = det.postprocess(cls, reg, rois, roi_mask, req.meta_dev)
+                req.mark()
+                stages = ('network', 'RPN proposals', 'RoIAlign', 'head',
+                          'post-processing')
+                if kind == 'mask_rcnn':
+                    masks = det.mask_predict(net, feats, gpu, req.meta_dev)
+                    req.mark()
+                    stages += ('mask branch (RoIAlign 14 + head)',)
+                else:
+                    mrois = det.mask_rois(gpu, req.meta_dev)
+                    coarse = det.coarse_logits(net, feats, mrois)
+                    labels = gpu.labels.reshape(-1)
+                    logits = coarse_cls = pick_class(coarse, labels)
+                    req.mark()
+                    stages += ('coarse mask (RoIAlign 14 + head)',)
+                    idxs = []
+                    for step in range(steps):
+                        logits, idx = det.subdivide(net, feats[0], mrois,
+                                                    coarse, logits, labels)
+                        idxs.append(idx)
+                        req.mark()
+                        stages += (f'subdivision step {step + 1}',)
+                    masks = torch.sigmoid(logits).reshape(
+                        *mrois.shape[:2], *logits.shape[1:])
+            req.log_stages(tag, stages)
+            cpu = det.postprocess(cls.cpu(), reg.cpu(), rois.cpu(),
+                                  roi_mask.cpu(), req.meta_cpu)
+            req.compare(tag, gpu, cpu, len(res.scores),
+                        f'proposals {int(roi_mask.sum())} ',
+                        min_candidates=2000)
+            size = 14 << steps if steps else det.mask_size
+            check(tuple(masks.shape) == (1, 100, size, size) and
+                  bool(torch.isfinite(masks).all()) and
+                  bool(((masks >= 0) & (masks <= 1)).all()),
+                  f'{tag} request {i}: masks not finite (1, 100, {size}, '
+                  f'{size}) probabilities')
+            # the mask branch on the CPU from the card's features and boxes
+            res_cpu = DetResults(*(t.cpu() for t in (
+                gpu.bboxes, gpu.scores, gpu.labels, gpu.mask)))
+            feats_cpu = [f.cpu() for f in feats]
+            note = ''
+            if kind == 'mask_rcnn':
+                masks_cpu = det.mask_predict(net_cpu, feats_cpu, res_cpu,
+                                             req.meta_cpu)
+                allowed, note = 0, ''
+            else:
+                rois_cpu = det.mask_rois(res_cpu, req.meta_cpu)
+                logits_cpu, idxs_cpu = det.refine(net_cpu, feats_cpu,
+                                                  rois_cpu, res_cpu.labels)
+                masks_cpu = torch.sigmoid(logits_cpu).reshape(masks.shape)
+                gap = selection_gap(torch, coarse_cls.cpu(), idxs[0].cpu(),
+                                    idxs_cpu[0])
+                differ = [refined_diff(torch, a.cpu(), b, (28 << s) ** 2)
+                          for s, (a, b) in enumerate(zip(idxs, idxs_cpu))]
+                total = idxs[0].numel()
+                # a cell refined on one side only moves its own final cell,
+                # or (an earlier step's) the 4x4 cells its upsample feeds
+                allowed = sum(2 * d * 16 ** (steps - 1 - s)
+                              for s, d in enumerate(differ))
+                note = (f'refined cells differing per step {differ} of '
+                        f'{total} (step 1\'s within {gap:.1e} * max|logit| '
+                        f'of the k-th uncertainty), ')
+                check(gap <= 1e-5 and max(differ) <= 0.01 * total,
+                      f'{tag} request {i}: refined cells differ card vs '
+                      f'CPU beyond near-ties')
+            diff = (masks.cpu() - masks_cpu).abs()
+            beyond = int((diff > 1e-3).sum())
+            log(f'{tag} request {i}: masks {tuple(masks.shape[2:])} card vs '
+                f'CPU: {note}max |diff| {float(diff.max()):.2e}, cells '
+                f'beyond 1e-3: {beyond} (allowed {allowed})')
+            check(beyond <= allowed, f'{tag} request {i}: masks differ card '
+                  f'vs CPU beyond 1e-3 at {beyond} cells')
+            del feats, roi_feats, feats_cpu
+        del det, net, net_cpu
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_cornernet_serve(np, torch, card):
+    """init_detector / inference_detector of CornerNet HG-104 on the 4
+    requests at scale (1024, 768): per request 4 corner_pool launches (the
+    last stack's) and 1 soft-NMS (K = 10000); every detection finite, not
+    inverted and inside the canvas's extent in its image grown by the
+    reach of the corner offsets (erd_tpu decodes corners over the whole
+    canvas, adds the offsets and does not clip), stage times, peak memory,
+    the idle share of one request; card-vs-CPU decode and soft-NMS of the
+    same network outputs."""
+    from erd_tpu_torch.data import DetPipeline
+    from erd_tpu_torch.ops import corner_pool, soft_nms
+
+    images = request_images(np)
+    det, net, _ = cornernet_net(np, torch)
+    counters = {'corner_pool': corner_pool, 'soft_nms': soft_nms}
+    want = {'corner_pool': 4 * len(images), 'soft_nms': len(images)}
+    tag = 'cornernet serve'
+    results, counts = serve_requests(
+        np, torch, det, net, images, counters, want, tag, card,
+        scale=CORNERNET_SCALE, inside=False)
+    pipe = DetPipeline(scale=CORNERNET_SCALE)
+    for i, (img, res) in enumerate(zip(images, results)):
+        with torch.no_grad():
+            req = ServedRequest(np, torch, pipe, i, img)
+            for feat in net.backbone.stacks(det.preprocessor(req.images)):
+                pass
+            req.mark()
+            out = net.heads(net.num_stacks - 1, feat)
+            req.mark()
+            dec = det.decode(out, req.images.shape[1:3], req.meta_dev)
+            req.mark()
+            gpu = det.nms(*dec)
+            req.mark()
+        req.log_stages(tag, ('hourglass (2 stacks)', 'last stack corner '
+                             'pools + heads', 'decode (top-k, pairs)',
+                             'soft-NMS'))
+        cpu = det.nms(*det.decode({k: v.cpu() for k, v in out.items()},
+                                  req.images.shape[1:3], req.meta_cpu))
+        req.compare(tag, gpu, cpu, len(res.scores),
+                    f'pairs over score_thr {int(gpu.num_candidates[0])} ')
+        # the canvas in the image's frame, grown by the offsets' reach
+        sx, sy = (float(v) for v in req.meta_cpu.scale_factor[0])
+        reach = 4 * float(torch.cat([out['tl_off'], out['br_off']]).abs()
+                          .max()) + 1e-3
+        ch, cw = req.images.shape[1:3]
+        box = gpu.bboxes[0][gpu.mask[0]].cpu()
+        check(bool((box[:, 2] > box[:, 0]).all() and
+                   (box[:, 3] > box[:, 1]).all() and
+                   (box[:, 0::2] >= -reach / sx).all() and
+                   (box[:, 1::2] >= -reach / sy).all() and
+                   (box[:, 0::2] <= (cw + reach) / sx).all() and
+                   (box[:, 1::2] <= (ch + reach) / sy).all()),
+              f'{tag} request {i}: boxes inverted or outside the canvas')
+        del feat, out
+    del det, net
+    torch.cuda.empty_cache()
+    return {tag: counts}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4232,6 +4988,11 @@ def main() -> int:
         dcn_train_row = phase_dcn_train_kernels(np, torch)
         phase_dcn_train_reference(np, torch)
         dcn_train_launches = phase_dcn_train(np, torch, card)
+        point_sample_row, roi14 = phase_mask_kernels(np, torch)
+        corner_pool_row, soft_k10000 = phase_cornernet_kernels(np, torch)
+        phase_mask_cornernet_reference(np, torch)
+        mask_launches = phase_mask_serve(np, torch, card)
+        cn_launches = phase_cornernet_serve(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -4241,7 +5002,8 @@ def main() -> int:
                 row['frcnn_ms_by_k'] = frcnn_nms
                 row['frcnn_train_rpn'] = rpn_nms
                 for path, counts in list(cc_launches.items()) + \
-                        list(train2_launches.items()):
+                        list(train2_launches.items()) + \
+                        list(mask_launches.items()):
                     by_path[path] = counts['nms_keep']
             row['launches'] = sum(by_path.values())
             row['launches_by_path'] = by_path
@@ -4260,10 +5022,15 @@ def main() -> int:
             by_path = {'frcnn serve': frcnn_launches[row['name']]}
             if row['name'] == 'roi_align':
                 for path, counts in list(cc_launches.items()) + \
-                        list(train2_launches.items()):
+                        list(train2_launches.items()) + \
+                        list(mask_launches.items()):
                     by_path[path] = counts['roi_align']
+                row['mask_out14'] = roi14
             if row['name'] == 'soft_nms':
                 row['large_k'] = soft_large_k
+                row['cornernet_k10000'] = soft_k10000
+                by_path['cornernet serve'] = \
+                    cn_launches['cornernet serve']['soft_nms']
             row['launches'] = sum(by_path.values())
             row['launches_by_path'] = by_path
         for row, name in ((carafe_row, 'carafe'),
@@ -4298,9 +5065,17 @@ def main() -> int:
             for path, counts in dcn_train_launches.items()}
         dcn_train_row['launches'] = sum(
             dcn_train_row['launches_by_path'].values())
+        point_sample_row['launches_by_path'] = {
+            'pointrend serve': mask_launches['pointrend serve'][
+                'point_sample']}
+        corner_pool_row['launches_by_path'] = {
+            'cornernet serve': cn_launches['cornernet serve']['corner_pool']}
+        for row in (point_sample_row, corner_pool_row):
+            row['launches'] = sum(row['launches_by_path'].values())
         kernels += train_rows + frcnn_rows + detr_rows + dcn_rows + \
-            [carafe_row, set_nms_row] + train2_rows + [detr_train_row,
-                                                       dcn_train_row]
+            [carafe_row, set_nms_row] + train2_rows + [
+                detr_train_row, dcn_train_row, point_sample_row,
+                corner_pool_row]
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

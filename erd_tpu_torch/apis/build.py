@@ -1,22 +1,25 @@
 """Config dicts -> detectors and trainers; the counterpart of
 erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
 ``FasterRCNN`` (with the FPN or the FPN_CARAFE neck), ``CrowdDet``,
-``DeformableDETR`` and ``DINO`` model types, and SGD training of each."""
+``DeformableDETR`` and ``DINO`` model types, and SGD training of each; and
+for serving the ``MaskRCNN``, ``PointRend`` and ``CornerNet`` types."""
 from __future__ import annotations
 
 import torch
 
 from ..config import Config
 from ..engine import Trainer, TrainerConfig
-from ..models import (CrowdDetDetector, DeformableDETRDetector,
-                      DINODetector, ERDConfig, ERDDetector,
-                      FasterRCNNDetector, GFLDetector, GFLTestConfig,
-                      GFLTrainConfig, VFNetDetector)
+from ..models import (CornerNetDetector, CrowdDetDetector,
+                      DeformableDETRDetector, DINODetector, ERDConfig,
+                      ERDDetector, FasterRCNNDetector, GFLDetector,
+                      GFLTestConfig, GFLTrainConfig, MaskRCNNDetector,
+                      PointRendDetector, VFNetDetector)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 _PORTED = ('GFL', 'GFLIncrementERD', 'VFNet', 'FasterRCNN', 'CrowdDet',
-           'DeformableDETR', 'DINO')
-# erd_tpu model options whose code paths the port does not have yet
+           'DeformableDETR', 'DINO', 'MaskRCNN', 'PointRend', 'CornerNet')
+# erd_tpu model options whose code paths the port does not have yet (GN and
+# WS heads, Shared4Conv1FC, Mask R-CNN's seesaw loss, backbone swaps, ...)
 _NOT_PORTED = ('backbone', 'context_block_stages', 'gen_attention_stages',
                'head_norm', 'conv_ws', 'bbox_head', 'loss_cls')
 ZOO_ITEM = 'ROADMAP.md, section 1: "Zoo, after the main path"'
@@ -46,7 +49,7 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
     for key in _NOT_PORTED:
         if model_cfg.get(key):
             raise NotImplementedError(
-                f'model.{key} is not ported yet (ROADMAP.md, section 1)')
+                f'model.{key} of {mtype} is not ported yet ({ZOO_ITEM})')
     neck = _neck_spec(mtype, model_cfg.get('neck'))
     dcn = {}
     if model_cfg.get('dcn_stages'):
@@ -58,6 +61,18 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         dcn = dict(dcn_stages=tuple(bool(s) for s in model_cfg.dcn_stages),
                    dcn_modulated=bool(model_cfg.get('dcn_modulated', True)))
     test = model_cfg.get('test_cfg', {})
+    if mtype == 'CornerNet':
+        # float32 whatever compute_dtype says: erd_tpu's CornerNet network
+        # never reads it (models/detectors/cornernet.py)
+        return CornerNetDetector(
+            num_classes=model_cfg.get('num_classes', 80),
+            corner_topk=test.get('corner_topk', 100),
+            distance_threshold=test.get('distance_threshold', 0.5),
+            score_thr=test.get('score_thr', 0.05),
+            max_per_img=test.get('max_per_img', 100),
+            nms_iou=test.get('nms_iou_threshold', 0.5),
+            nms_type=test.get('nms_type', 'soft_nms'),
+            soft_nms_sigma=test.get('soft_nms_sigma', 0.5))
     if mtype in ('DeformableDETR', 'DINO'):  # erd_tpu's train configs
         cls = DINODetector if mtype == 'DINO' else DeformableDETRDetector
         return cls(
@@ -97,6 +112,10 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
         return FasterRCNNDetector(neck=neck, **base)
     if mtype == 'CrowdDet':
         return CrowdDetDetector(**base)
+    if mtype == 'MaskRCNN':
+        return MaskRCNNDetector(**base)
+    if mtype == 'PointRend':
+        return PointRendDetector(**base)
     if mtype == 'VFNet':
         return VFNetDetector(**base, **dcn)
     common = dict(

@@ -4,7 +4,11 @@
 device (``cuda`` unless the caller names one); ``inference_detector`` runs
 the host test pipeline and the device predict path per image. Both work for
 any detector with ``init(seed, device)`` and ``predict(net, batch)``: the
-GFL / ERD detectors, Faster R-CNN, Deformable DETR and DINO.
+GFL / ERD detectors, Faster R-CNN, Mask R-CNN, PointRend, CornerNet,
+Deformable DETR and DINO. Where ``predict`` returns (DetResults, masks), as
+Mask R-CNN's and PointRend's do, ``inference_detector`` returns the boxes;
+the masks come from ``predict``, as in erd_tpu's evaluation loop (erd_tpu's
+own ``inference_detector`` fails on the tuple).
 """
 from __future__ import annotations
 
@@ -64,6 +68,8 @@ def inference_detector(detector, net,
         batch = dict(images=torch.from_numpy(canvas[None]).to(device),
                      meta=stack_to([meta], device))
         res = detector.predict(net, batch)
+        if isinstance(res, tuple):  # (DetResults, masks) of the mask models
+            res = res[0]
         m = res.mask[0].cpu().numpy()
         results.append(DetectionResult(
             img_id=i, bboxes=res.bboxes[0].cpu().numpy()[m],

@@ -1,12 +1,16 @@
-from .detectors import (CrowdDetDetector, CrowdDetNet,
+from .detectors import (CornerNetDetector, CornerNetNet,
+                        CrowdDetDetector, CrowdDetNet,
                         DeformableDETRDetector, DETRNet, DINODetector,
                         ERDConfig, ERDDetector, FasterRCNNDetector,
-                        FasterRCNNNet, GFLDetector, GFLNet, VFNetDetector,
-                        VFNetNet)
+                        FasterRCNNNet, GFLDetector, GFLNet,
+                        MaskRCNNDetector, MaskRCNNNet, PointRendDetector,
+                        PointRendNet, VFNetDetector, VFNetNet)
 from .heads import GFLTestConfig, GFLTrainConfig
 
-__all__ = ['CrowdDetDetector', 'CrowdDetNet', 'DeformableDETRDetector',
+__all__ = ['CornerNetDetector', 'CornerNetNet', 'CrowdDetDetector',
+           'CrowdDetNet', 'DeformableDETRDetector',
            'DETRNet', 'DINODetector', 'ERDConfig',
            'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
            'GFLDetector', 'GFLNet', 'GFLTestConfig', 'GFLTrainConfig',
-           'VFNetDetector', 'VFNetNet']
+           'MaskRCNNDetector', 'MaskRCNNNet', 'PointRendDetector',
+           'PointRendNet', 'VFNetDetector', 'VFNetNet']

@@ -1,3 +1,4 @@
+from .hourglass import HourglassNet
 from .resnet import ResNet
 
-__all__ = ['ResNet']
+__all__ = ['HourglassNet', 'ResNet']

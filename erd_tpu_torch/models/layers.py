@@ -23,14 +23,26 @@ def _cast(p: Optional[torch.Tensor], x: torch.Tensor):
 class Conv2d(nn.Conv2d):
     """nn.Conv2d computing in the input's dtype, torch padding k // 2; a
     float32 input convolves in full float32 (no TF32), forward and
-    backward, as erd_tpu's do."""
+    backward, as erd_tpu's do.
 
-    def __init__(self, in_ch, out_ch, kernel_size, stride=1, bias=True):
+    With ``param_dtype``, the parameters are rounded to it and the conv
+    runs in the promoted dtype of the input and ``param_dtype``, as
+    ``Linear`` does: the mask heads of a bf16 model convolve their float32
+    RoI features with bf16-rounded weights in float32.
+    """
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, bias=True,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=kernel_size // 2, bias=bias)
+        self.param_dtype = param_dtype
 
     def forward(self, x):
-        w, b = self.weight.to(x.dtype), _cast(self.bias, x)
+        w, b = self.weight, self.bias
+        if self.param_dtype is not None:
+            x = x.to(torch.promote_types(x.dtype, self.param_dtype))
+            w, b = w.to(self.param_dtype), _cast(b, w.to(self.param_dtype))
+        w, b = w.to(x.dtype), _cast(b, x)
         if x.dtype != torch.float32:
             return self._conv_forward(x, w, b)
         return conv2d_ieee(x, w, b, self.stride, self.padding)
@@ -183,10 +195,11 @@ class ConvModule(nn.Module):
     """
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1,
-                 gn: bool = True, act: bool = True):
+                 gn: bool = True, act: bool = True,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                           bias=not gn)
+                           bias=not gn, param_dtype=param_dtype)
         self.gn = GroupNorm(32, out_ch, eps=1e-5) if gn else None
         self.act = act
 

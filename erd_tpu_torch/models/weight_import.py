@@ -1,5 +1,6 @@
-"""Weight import into the port's GFL, VFNet, Faster R-CNN and DETR-family
-networks; the counterpart of erd_tpu/models/weight_import.py.
+"""Weight import into the port's GFL, VFNet, Faster R-CNN (and its mask
+variants), DETR-family and CornerNet networks; the counterpart of
+erd_tpu/models/weight_import.py.
 
 The port's GFL, VFNet and Faster R-CNN modules carry the mmdet state-dict
 names, so an mmdet checkpoint loads with a plain ``load_state_dict`` (not a
@@ -106,6 +107,22 @@ def _rcnn_module(scope: str, mod: Tuple[str, ...]) -> str:
     raise KeyError(f'unmapped {scope} module {"/".join(mod)}')
 
 
+def _mask_module(scope: str, mod: Tuple[str, ...]) -> str:
+    """Mask R-CNN's ``mask_head`` (``conv_i``, ``upsample``,
+    ``conv_logits``) and PointRend's ``coarse_mask_head`` (``conv{i}``,
+    ``fc{i}``, ``fc_logits``) and ``point_head`` (``fc{i}``,
+    ``fc_logits``) scopes."""
+    head = 'point_head' if scope == 'point_head' else 'mask_head'
+    m = re.fullmatch(r'(conv|fc)_?(\d+)', mod[0])
+    if m and scope == 'mask_head':
+        return f'roi_head.mask_head.convs.{m.group(2)}.conv'
+    if m:
+        return f'roi_head.{head}.{m.group(1)}s.{m.group(2)}'
+    if mod[0] in ('upsample', 'conv_logits', 'fc_logits'):
+        return f'roi_head.{head}.{mod[0]}'
+    raise KeyError(f'unmapped {scope} module {"/".join(mod)}')
+
+
 def _detr_neck_module(mod: Tuple[str, ...]) -> str:
     """ChannelMapper scopes (``conv_i``, ``gn_i``, ``extra_conv_k``,
     ``extra_gn_k``) keep their names."""
@@ -139,6 +156,13 @@ def _shared_fc0_rows(kernel: np.ndarray, roi_size: int = 7) -> np.ndarray:
     return np.transpose(k, (3, 2, 0, 1)).reshape(out, c * roi_size ** 2)
 
 
+def _conv_transpose_weight(kernel: np.ndarray) -> np.ndarray:
+    """flax's ConvTranspose kernel (kh, kw, I, O), applied without a flip
+    (output (2i + a, 2j + b) takes tap (1 - a, 1 - b)), -> torch's
+    ConvTranspose2d weight (I, O, kh, kw), which takes tap (a, b)."""
+    return np.transpose(kernel[::-1, ::-1], (2, 3, 0, 1))
+
+
 def _leaf(leaf: str, module: str, collection: str) -> str:
     if collection == 'batch_stats':
         return {'mean': 'running_mean', 'var': 'running_var'}[leaf]
@@ -151,9 +175,10 @@ def _leaf(leaf: str, module: str, collection: str) -> str:
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """erd_tpu GFL, VFNet, Faster R-CNN (FPN or FPN_CARAFE), CrowdDet,
-    Deformable DETR or DINO variables {'params', 'batch_stats'} (nested
-    numpy dicts) -> the port's network's ``state_dict``.
+    """erd_tpu GFL, VFNet, Faster R-CNN (FPN or FPN_CARAFE), Mask R-CNN,
+    PointRend, CrowdDet, Deformable DETR, DINO or CornerNet variables
+    {'params', 'batch_stats'} (nested numpy dicts) -> the port's network's
+    ``state_dict``.
 
     Conv kernels go from (kh, kw, I, O) to (O, I, kh, kw), dense kernels
     from (I, O) to (O, I); the R-CNN head's first fc also reorders its
@@ -168,8 +193,15 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``neck.lateral_convs.i``, ``neck.upsample_modules.{i-1}`` (``carafe_i``,
     its ``content_encoder`` rows in erd_tpu's order) and
     ``neck.fpn_convs.j``; CrowdDet's ``fc_cls_k`` / ``fc_reg_k`` to
-    ``roi_head.bbox_head.fc_cls.k`` / ``fc_reg.k``. The weights go one
-    way: erd_tpu has no importer of Faster R-CNN, VFNet or DETR state
+    ``roi_head.bbox_head.fc_cls.k`` / ``fc_reg.k``. Mask R-CNN's
+    ``mask_head`` maps to mmdet's ``roi_head.mask_head`` names (the
+    ``upsample`` kernel's taps flipped into torch's ConvTranspose2d
+    layout); PointRend's ``coarse_mask_head`` to ``roi_head.mask_head``
+    (``convs``, ``fcs`` with ``fc0``'s rows from (14, 14, C) to (C, 14,
+    14), ``fc_logits``) and ``point_head`` to ``roi_head.point_head``.
+    CornerNet's scopes keep their names, its BN ``batch_stats`` becoming
+    the running statistics. The weights go one way: erd_tpu has no
+    importer of Faster R-CNN, VFNet, DETR, mask-head or CornerNet state
     dicts.
     """
     params = variables['params']
@@ -181,6 +213,7 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     start_level = min((int(k[len('lateral_'):]) for k in neck
                        if k.startswith('lateral_')), default=0)
     two_stage = 'rpn_head' in params
+    cornernet = 'tl_pool_0' in params
     detr = 'level_embed_0' in params.get('bbox_head', {})
     vfnet = 'vfnet_cls' in params.get('bbox_head', {})
     out = {}
@@ -195,7 +228,9 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                     if mod else f'{module}.{leaf}'
                 out[key] = torch.from_numpy(np.array(v, order='C'))
                 continue
-            if scope == 'backbone':
+            if cornernet:  # the port keeps erd_tpu's scope names
+                module = '.'.join((scope,) + mod)
+            elif scope == 'backbone':
                 module = _backbone_module(mod)
             elif scope == 'neck' and detr:
                 module = _detr_neck_module(mod)
@@ -204,16 +239,23 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                                       start_level)
             elif two_stage and scope in ('rpn_head', 'bbox_head'):
                 module = _rcnn_module(scope, mod)
+            elif two_stage and scope in ('mask_head', 'coarse_mask_head',
+                                         'point_head'):
+                module = _mask_module(scope, mod)
             elif vfnet and scope == 'bbox_head':
                 module = _vfnet_head_module(mod, leaf)
             elif scope == 'bbox_head':
                 module = _head_module(mod)
             else:
                 raise KeyError(f'unmapped scope {"/".join(path)}')
-            if v.ndim == 4:  # conv kernels, the bare dconv ones too
+            if v.ndim == 4 and module.endswith('mask_head.upsample'):
+                v = _conv_transpose_weight(v)
+            elif v.ndim == 4:  # conv kernels, the bare dconv ones too
                 v = np.transpose(v, (3, 2, 0, 1))
             elif leaf == 'kernel' and module.endswith('shared_fcs.0'):
                 v = _shared_fc0_rows(v)
+            elif leaf == 'kernel' and module.endswith('mask_head.fcs.0'):
+                v = _shared_fc0_rows(v, 14)  # PointRend's coarse head
             elif leaf == 'kernel' and v.ndim == 2:
                 v = v.T
             key = f'{module}.{_leaf(leaf, module, collection)}'
@@ -222,9 +264,10 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_torch_checkpoint_file(net: nn.Module, path: str):
-    """Load an mmdet ``.pth`` into ``net`` (GFL, VFNet, Faster R-CNN or
-    CrowdDet) in place; raises for the DETR family, whose port follows
-    erd_tpu's architecture and not mmdet's, for a network with modulated
+    """Load an mmdet ``.pth`` into ``net`` (GFL, VFNet, Faster R-CNN, Mask
+    R-CNN or CrowdDet) in place; raises for the DETR family, PointRend and
+    CornerNet, whose port follows erd_tpu's architecture and not mmdet's,
+    for a network with modulated
     deformable convs (DCNv2), whose ``conv_offset`` layout is not mmcv's,
     and for an FPN_CARAFE neck, whose ``content_encoder`` rows are not in
     mmcv's order.
@@ -234,7 +277,15 @@ def load_torch_checkpoint_file(net: nn.Module, path: str):
     prefixes and BN ``num_batches_tracked`` counters are dropped.
     Returns the result of ``load_state_dict``.
     """
+    from .detectors.cornernet import CornerNetNet
     from .detectors.deformable_detr import DETRNet
+    from .detectors.point_rend import PointRendNet
+    if isinstance(net, (CornerNetNet, PointRendNet)):
+        raise NotImplementedError(
+            f"{type(net).__name__} keeps erd_tpu's architecture and scope "
+            "names (PointRend's coarse head has no downsampling conv, "
+            "CornerNet's modules are erd_tpu's scopes): no mmdet checkpoint "
+            "loads into it; use params_from_jax")
     if isinstance(net, DETRNet):
         raise NotImplementedError(
             "erd_tpu's Deformable DETR and DINO are not mmdet's architecture "

@@ -9,8 +9,9 @@ Flags: no ``--use_fast_math``, and ``-fmad=false`` so that nvcc never
 contracts a multiply and an add into one FMA: the NMS, soft-NMS, ATSS and
 RoIAlign kernels must round every IoU, distance and sample exactly as the
 plain versions do, the deformable-attention and deformable-im2col kernels
-must round every bilinear sample as their plain versions do, and the CARAFE
-kernel every product and sum of its reassembly.
+must round every bilinear sample as their plain versions do, the CARAFE
+kernel every product and sum of its reassembly, and the point-sample kernel
+every product and sum of its bilinear weights.
 
 The Triton kernels (``ops/gfl_loss.py``, ``ops/erd_distill.py``) import
 Triton through ``import_triton``, which points Triton's cache at
@@ -32,7 +33,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
 SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select', 'roi_align',
-           'soft_nms', 'ms_deform_attn', 'deform_conv', 'carafe')
+           'soft_nms', 'ms_deform_attn', 'deform_conv', 'carafe',
+           'point_sample', 'corner_pool')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each build made by this process

@@ -1110,3 +1110,149 @@ def test_vfnet_training_on_cuda_uses_kernels(cuda):
         assert not (k.startswith(frozen) and moved), k
         if '.conv_offset.weight' in k:
             assert moved, k
+
+
+# ------------------------- Mask R-CNN, PointRend, CornerNet (serving)
+def point_sample_case(rs, device, dtype, form):
+    """PointRend's two call forms at small sizes: per-RoI 14x14 coarse
+    logits (channels-last, as the coarse head's view) at their own
+    points, or one P2 map per image at all its RoIs' points; the edges 0
+    and 1 put two corners of a sample off the map."""
+    from erd_tpu_torch.models.detectors.point_rend import cell_centres
+    if form == 'coarse':
+        maps = torch.from_numpy(rs.randn(30, 14, 14, 80).astype(
+            np.float32) * 3).permute(0, 3, 1, 2)
+        pts = cell_centres(torch.from_numpy(rs.randint(0, 784, (30, 196))),
+                           28)
+        pts[:, :4] = torch.tensor([[0., 0.], [1., 1.], [0., 1.], [1., 0.]])
+    else:
+        maps = torch.from_numpy(rs.randn(2, 256, 50, 84).astype(np.float32))
+        pts = torch.from_numpy(rs.uniform(-0.02, 1.02, (2, 1960, 2)).astype(
+            np.float32))
+    return maps.to(device=device, dtype=dtype), pts.to(device)
+
+
+@pytest.mark.parametrize('form', ['coarse', 'fine'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_point_sample_kernel_matches_plain(cuda, form, dtype):
+    from erd_tpu_torch.ops import point_sample, point_sample_plain
+    maps, pts = point_sample_case(np.random.RandomState(0), cuda, dtype,
+                                  form)
+    before = point_sample.launches
+    got = point_sample(maps, pts)
+    torch.cuda.synchronize()
+    assert point_sample.launches - before == 1
+    want = point_sample_plain(maps, pts)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= \
+        1e-6 * float(maps.float().abs().max())
+    # NCHW memory reads the same as channels-last
+    assert torch.equal(point_sample(maps.contiguous(), pts), got)
+
+
+@pytest.mark.parametrize('direction', ['top', 'bottom', 'left', 'right'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(1, 128, 192, 256), (2, 3, 37, 19),
+                                   (1, 2, 1, 5)])
+def test_corner_pool_kernel_matches_plain_exactly(cuda, direction, dtype,
+                                                  shape):
+    from erd_tpu_torch.ops import corner_pool, corner_pool_plain
+    x = torch.from_numpy(np.random.RandomState(1).randn(*shape).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    before = corner_pool.launches
+    got = corner_pool(x, direction)
+    torch.cuda.synchronize()
+    assert corner_pool.launches - before == 1
+    assert got.dtype == dtype
+    assert torch.equal(got, corner_pool_plain(x, direction))
+
+
+def test_point_sample_and_corner_pool_never_reach_plain_on_cuda(
+        cuda, monkeypatch):
+    """CUDA tensors launch the kernels or raise: align_corners=True and a
+    gradient have no kernel yet."""
+    import erd_tpu_torch.ops.extra_nms as pool_module
+    import erd_tpu_torch.ops.sampling as sampling_module
+
+    def refuse(*args):
+        raise AssertionError('the plain version ran on a CUDA tensor')
+    monkeypatch.setattr(sampling_module, 'point_sample_plain', refuse)
+    monkeypatch.setattr(pool_module, 'corner_pool_plain', refuse)
+    maps, pts = point_sample_case(np.random.RandomState(2), cuda,
+                                  torch.float32, 'fine')
+    sampling_module.point_sample(maps, pts)
+    pool_module.corner_pool(maps, 'left')
+    with pytest.raises(NotImplementedError, match='align_corners'):
+        sampling_module.point_sample(maps, pts, align_corners=True)
+    with pytest.raises(NotImplementedError, match='backward'):
+        sampling_module.point_sample(maps.requires_grad_(), pts)
+    with pytest.raises(NotImplementedError, match='backward'):
+        pool_module.corner_pool(maps, 'top')
+
+
+@pytest.mark.parametrize('kind', ['mask_rcnn', 'point_rend'])
+def test_mask_serving_on_cuda_uses_kernels(cuda, kind):
+    """bf16 ResNet-18 Mask R-CNN or PointRend on the card at a small
+    canvas: per request 2 NMS and 2 RoIAlign launches (+ 4 point_sample
+    for PointRend); masks in [0, 1] of 28x28 or 56x56."""
+    from erd_tpu_torch.ops import point_sample
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'configs', {
+            'mask_rcnn': 'mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py',
+            'point_rend': 'point_rend/point-rend_r50-caffe_fpn_ms-1x_coco.py'
+        }[kind])
+    cfg = Config.fromfile(path)
+    cfg.model.depth = 18
+    det, net, _ = init_detector(cfg, device=cuda)
+    fns = (nms_sorted_keep, roi_align, point_sample)
+    img = np.random.RandomState(3).randint(0, 256, (256, 320, 3), np.uint8)
+    counts = [f.launches for f in fns]
+    res = inference_detector(det, net, img, scale=(320, 256))
+    got = [f.launches - c for f, c in zip(fns, counts)]
+    assert got == [2, 2, 4 if kind == 'point_rend' else 0]
+    assert np.isfinite(res.bboxes).all()
+    rec = ImageRecord(0, '', 320, 256, np.zeros((0, 4), np.float32),
+                      np.zeros((0,), np.int32), np.zeros((0,), bool))
+    canvas, _, meta = DetPipeline(scale=(320, 256))(rec, image=img)
+    _, masks = det.predict(net, dict(
+        images=torch.from_numpy(canvas[None]).to(cuda),
+        meta=stack_to([meta], cuda)))
+    assert masks.shape[2:] == ((56, 56) if kind == 'point_rend' else
+                               (28, 28))
+    assert bool(((masks >= 0) & (masks <= 1)).all())
+
+
+def test_cornernet_serving_on_cuda_uses_kernels(cuda):
+    """A small float32 CornerNet on the card: 4 corner_pool launches (the
+    last stack's) and 1 soft-NMS launch a request; the same network
+    outputs decoded on the card and on the CPU agree."""
+    from erd_tpu_torch.models import CornerNetDetector
+    from erd_tpu_torch.ops import corner_pool
+    det = CornerNetDetector(num_classes=4, stage_channels=(16, 16, 24),
+                            stage_blocks=(1, 1, 1), downsample_times=2,
+                            corner_topk=20)
+    net = det.init(seed=0, device=cuda)
+    img = np.random.RandomState(4).randint(0, 256, (90, 120, 3), np.uint8)
+    counts = (corner_pool.launches, soft_nms.launches)
+    res = inference_detector(det, net, img, scale=(128, 96))
+    assert (corner_pool.launches - counts[0],
+            soft_nms.launches - counts[1]) == (4, 1)
+    assert np.isfinite(res.bboxes).all()
+    rec = ImageRecord(0, '', 120, 90, np.zeros((0, 4), np.float32),
+                      np.zeros((0,), np.int32), np.zeros((0,), bool))
+    canvas, _, meta = DetPipeline(scale=(128, 96))(rec, image=img)
+    with torch.no_grad():
+        out = net.last_stack(det.preprocessor(
+            torch.from_numpy(canvas[None]).to(cuda)))
+    # on a 1/64 grid: equal outputs tie on both devices, and the sigmoids'
+    # last-bit differences cannot reorder the corners
+    out = {k: torch.round(v * 64) / 64 for k, v in out.items()}
+    got = det.nms(*det.decode(out, canvas.shape[:2], stack_to([meta], cuda)))
+    want = det.nms(*det.decode({k: v.cpu() for k, v in out.items()},
+                               canvas.shape[:2], stack_to([meta], 'cpu')))
+    assert torch.equal(got.mask.cpu(), want.mask)
+    assert torch.equal(got.labels.cpu(), want.labels)
+    torch.testing.assert_close(got.scores.cpu(), want.scores, rtol=1e-6,
+                               atol=0)
+    torch.testing.assert_close(got.bboxes.cpu(), want.bboxes, rtol=0,
+                               atol=1e-4)
