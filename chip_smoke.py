@@ -252,13 +252,64 @@ Phases, in order; any failed check exits non-zero before the last line:
                 by the corner offsets' reach (erd_tpu does not clip), stage
                 times, peak memory, the idle share of one request,
                 card-vs-CPU decode and soft-NMS of the same outputs;
- 36. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 36. mask/corner train kernels  the slice's training kernels on the real
+                calls of one step: the mask targets of a bs-16, 800x1344
+                bf16 Mask R-CNN step (28x28, 512 RoIs an image, 56x56
+                synthetic gt crops) and of a PointRend step (14x14), equal
+                to the plain version; the point-sample backward on the
+                PointRend step's two calls (the coarse float32 logits, the
+                bf16 channels-last P2; float32 sums within 1e-5 *
+                max|plain|, the bf16 map's gradient within one ulp); the
+                corner-pool backward on the 8 calls of a CornerNet HG-104
+                step (bs 6, 768x1024, float32), bit-equal to the plain
+                version (erd_tpu's scan-tree split of ties); the corner
+                targets of that step (heat within 1e-6, the exact-1 peaks,
+                offsets and weights equal); each timed by CUDA-graph
+                replays beside its byte bound, its plain version and the
+                library call where one computes the function
+                (F.grid_sample with border padding for the targets,
+                F.grid_sample's backward for the point-sample backward);
+ 37. mask/corner train reference  Mask R-CNN and PointRend R50 (2 images
+                128x192, gt crops, 64 sampled RoIs an image) and CornerNet
+                at HG-104's width and 5 levels, one stack of one block a
+                level (2 images 256x256), in float32, card
+                (kernels) vs CPU (plain), on the CPU's proposals and
+                PointRend importance picks (those of the card that differ
+                must be near-ties, at most 0.1 % of them): losses rtol
+                1e-3, ||diff|| / ||g|| <= 1e-3 overall and over each loss
+                part's backbone (+ neck) and heads gradients, 1e-2 per
+                tensor; but 3e-3 for the mask losses over backbone + neck,
+                where the card's float32 is 1.9e-3 off a float64 CPU run
+                (logged; ROADMAP.md 3.10), and for CornerNet: its backbone
+                parts at 3x the CPU's own float32 error against float64 on
+                the step (train-mode BN magnifies float32 noise), its
+                heads parts at 3e-3, the convs before its pools at 7e-3,
+                its whole-gradient and per-tensor limits over the pools and
+                heads; CornerNet's BN running statistics after the step
+                within 1e-3 of each tensor's largest value; a 1 % error
+                planted in the point-sample backward (PointRend) and in the
+                corner-pool backward (CornerNet) must each fail those
+                limits;
+ 38. mask_rcnn train, pointrend train, cornernet train  build_trainer + fit
+                of Mask R-CNN and PointRend R50 (bs 16, 800x1344, bf16,
+                gt crops) and CornerNet HG-104 (bs 6, 768x1024, float32,
+                Adam): 2 warm-up and 5 timed steps, exact launches of every
+                kernel of the path a step (2 RoIAlign, 2 RoIAlign backward,
+                1 NMS, 1 mask target (+ 4 point_sample, 2 point-sample
+                backward) / 8 corner_pool, 8 corner-pool backward, 1 corner
+                target), finite losses, frozen stages unchanged (ResNet's
+                stem and layer1; the hourglass's stem_conv, as erd_tpu's
+                frozen_stages prefix has it), every trainable weight and
+                every CornerNet BN running statistic moved; img/s, peak
+                memory, the stage times of one train_step and the idle
+                share of one profiled step;
+ 39. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The script sets no global precision flag: the port convolves float32 in
 full float32 itself (erd_tpu_torch.utils.conv_fp32_precision), torch's
 float32 matmuls default to full float32, and the served and trained models
-compute in bf16 (CornerNet in float32, as erd_tpu runs it). The script
-imports neither JAX nor erd_tpu.
+compute in bf16 (CornerNet in float32, as erd_tpu runs and trains it).
+The script imports neither JAX nor erd_tpu.
 """
 from __future__ import annotations
 
@@ -1180,7 +1231,8 @@ def phase_train_reference(np, torch):
         t = copy.deepcopy(teacher).to(dev, dtype)
         batch = dict(images=images.to(dev), meta=stack_to(
             [ImageMeta.make((h, w), (h, w), (1.0, 1.0))] * 2, dev),
-            gt=type(gt)(**{k: v.to(dev) for k, v in vars(gt).items()}))
+            gt=type(gt)(**{k: None if v is None else v.to(dev)
+                           for k, v in vars(gt).items()}))
         losses = d.loss(s, batch, teacher=t)
         params = dict(s.named_parameters())
         grads = {}
@@ -1346,35 +1398,61 @@ def grad_bisect(torch, det, run, ratio, names, parts, per_tensor, g_gpu,
 
 class SyntheticLoader:
     """erd_tpu's loader protocol over seeded random batches made on the
-    card: uint8 images 800x1344 (the image 800x1333 inside the canvas),
-    1-12 gt boxes in MAX_GT padded slots with labels below ``num_labels``,
-    distinct img_ids."""
+    card: uint8 images 800x1344 (the image 800x1333 inside the canvas), or
+    ``batch`` images of ``canvas`` with ``image`` inside, 1-12 gt boxes in
+    MAX_GT padded slots with labels below ``num_labels``, distinct img_ids;
+    with ``masks`` also 56x56 box-normalised gt crops (``gt_crops``)."""
 
     def __init__(self, np, torch, steps, seed=21,
-                 num_labels=NUM_CLASSES - OLD_CLASSES):
+                 num_labels=NUM_CLASSES - OLD_CLASSES, batch=TRAIN_BATCH,
+                 canvas=TRAIN_CANVAS, image=TRAIN_IMAGE, masks=False):
         self.np, self.torch, self.steps, self.seed = np, torch, steps, seed
-        self.num_labels = num_labels
-        self.cfg = type('LoaderConfig', (), {'batch_size': TRAIN_BATCH})()
+        self.num_labels, self.masks = num_labels, masks
+        self.canvas, self.image = canvas, image
+        self.cfg = type('LoaderConfig', (), {'batch_size': batch})()
 
     def steps_per_epoch(self, epoch):
         return self.steps
 
     def epoch(self, epoch):
+        import dataclasses
+
         from erd_tpu_torch.structures import ImageMeta, stack_to
         np, torch = self.np, self.torch
+        b = self.cfg.batch_size
         rs = np.random.RandomState(self.seed + epoch)
         gen = torch.Generator(device=DEV).manual_seed(self.seed + epoch)
         for step in range(self.steps):
             meta = stack_to([ImageMeta.make(
-                TRAIN_IMAGE, TRAIN_IMAGE, (1.0, 1.0),
-                img_id=(epoch * self.steps + step) * TRAIN_BATCH + i)
-                for i in range(TRAIN_BATCH)], DEV)
-            images = torch.randint(0, 256, (TRAIN_BATCH,) + TRAIN_CANVAS +
-                                   (3,), dtype=torch.uint8, device=DEV,
+                self.image, self.image, (1.0, 1.0),
+                img_id=(epoch * self.steps + step) * b + i)
+                for i in range(b)], DEV)
+            images = torch.randint(0, 256, (b,) + tuple(self.canvas) + (3,),
+                                   dtype=torch.uint8, device=DEV,
                                    generator=gen)
-            yield dict(images=images, meta=meta, gt=synthetic_gt(
-                np, torch, rs, TRAIN_BATCH, TRAIN_IMAGE,
-                num_labels=self.num_labels))
+            gt = synthetic_gt(np, torch, rs, b, self.image,
+                              num_labels=self.num_labels)
+            if self.masks:
+                gt = dataclasses.replace(gt, masks=gt_crops(torch, gen, b))
+            yield dict(images=images, meta=meta, gt=gt)
+
+
+def gt_crops(torch, gen, b, res=56, device=None):
+    """(b, MAX_GT, res, res) uint8 box-normalised gt crops made on the
+    card (or ``device``, the generator's): a seeded ellipse in each slot,
+    3 % of its cells flipped, as rasterised polygons look."""
+    device = device or DEV
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((b, MAX_GT, 1, 1), device=device,
+                                           generator=gen)
+    yy = torch.arange(res, device=device, dtype=torch.float32)[:, None] + 0.5
+    xx = torch.arange(res, device=device, dtype=torch.float32)[None, :] + 0.5
+    inside = ((yy - uniform(18, 38)) / uniform(10, 28)) ** 2 + \
+        ((xx - uniform(18, 38)) / uniform(10, 28)) ** 2 <= 1.0
+    noise = torch.rand((b, MAX_GT, res, res), device=device,
+                       generator=gen) < 0.03
+    return (inside ^ noise).to(torch.uint8)
 
 
 def phase_train(np, torch, card):
@@ -3211,6 +3289,8 @@ def planted(index=None, when=None):
             out = fn(*args)
             if when is not None and not when(args):
                 return out
+            if hasattr(out, 'dim'):  # a backward that gives one tensor
+                return out * 1.01
             return type(out)(g if g is None or index not in (None, i)
                              else g * 1.01 for i, g in enumerate(out))
         wrapper.launches = 0
@@ -3326,25 +3406,33 @@ def stage_marks(torch, optimizer, hooks=(), wrapped=()):
 
 
 def fit_and_check(np, torch, card, tag, cfg, det, net, counters, per_step,
-                  seed, unmoved=None, must_move=None):
+                  seed, unmoved=None, must_move=None, loader=None,
+                  dtype=None, frozen=None):
     """build_trainer + fit of ``net`` on TRAIN_WARMUP + TRAIN_TIMED
-    synthetic bs-16, 800x1344 batches (``seed``), every launch count of
-    ``counters`` set to 0 just before fit and read just after. Checks: bf16;
-    each count ``per_step`` times the steps; every loss finite; the frozen
-    stages unchanged and not trainable; every trainable weight moved, or
-    excused by ``unmoved(trainer, net, name, steps)``; some of them named
-    with ``must_move``. Logs the steps, img/s and peak memory. Returns
-    (trainer, loader, the launch counts)."""
+    synthetic batches (``loader``, by default bs-16, 800x1344 with
+    ``seed``), every launch count of ``counters`` set to 0 just before fit
+    and read just after. Checks: the compute dtype (bf16 unless ``dtype``);
+    each count ``per_step`` times the steps; every loss finite; the
+    parameters of the frozen stages (``frozen`` prefixes, by default the
+    ResNet's of ``det.frozen_stages``) unchanged and not trainable; every
+    trainable weight moved, or excused by ``unmoved(trainer, net, name,
+    steps)``; some of them named with ``must_move``; every BN running
+    statistic moved where the network has train-mode BN. Logs the steps,
+    img/s and peak memory. Returns (trainer, loader, the launch counts)."""
     from erd_tpu_torch.apis import build_trainer
     from erd_tpu_torch.engine import resnet_frozen_paths
-    check(det.compute_dtype == torch.bfloat16, f'{tag}: not bf16')
-    frozen = resnet_frozen_paths(det.frozen_stages)
+    dtype = dtype or torch.bfloat16
+    check(getattr(det, 'compute_dtype', torch.float32) == dtype,
+          f'{tag}: not {dtype}')
+    if frozen is None:
+        frozen = resnet_frozen_paths(det.frozen_stages)
     start = {k: v.clone() for k, v in net.state_dict().items()}
     timer = step_timer(torch)
     cfg.train_cfg.epochs = 1
     steps = TRAIN_WARMUP + TRAIN_TIMED
-    loader = SyntheticLoader(np, torch, steps, seed=seed,
-                             num_labels=det.num_classes)
+    loader = loader or SyntheticLoader(np, torch, steps, seed=seed,
+                                       num_labels=det.num_classes)
+    batch = loader.cfg.batch_size
     trainer = build_trainer(cfg, det, loader, device=DEV)
     trainer.hooks.append(timer)
     torch.cuda.synchronize()
@@ -3369,7 +3457,11 @@ def fit_and_check(np, torch, card, tag, cfg, det, net, counters, per_step,
     state = net.state_dict()
     trainable = {n for n, p in net.named_parameters() if p.requires_grad}
     moved = {k for k, v in state.items() if not torch.equal(v, start[k])}
-    check(not any(k.startswith(frozen) for k in moved | trainable),
+    # train-mode BN (CornerNet) moves the frozen stem's running statistics
+    stats = [k for k in state if k.endswith(('running_mean', 'running_var'))
+             and det.__class__.__name__ == 'CornerNetDetector']
+    changed = moved - set(stats)
+    check(not any(k.startswith(frozen) for k in changed | trainable),
           f'{tag}: a frozen-stage parameter changed or is trainable')
     weights = {k for k in trainable if state[k].dim() > 1}
     still = sorted(k for k in weights - moved
@@ -3381,13 +3473,18 @@ def fit_and_check(np, torch, card, tag, cfg, det, net, counters, per_step,
         n = sum(must_move in k for k in weights & moved)
         check(n, f'{tag}: no {must_move} weight among the trainable ones')
         named = f' ({n} {must_move.strip(".")} weights)'
-    log(f'{tag}: bs {TRAIN_BATCH} {TRAIN_CANVAS[0]}x{TRAIN_CANVAS[1]} bf16, '
-        f'{len(timed)} timed steps ' + ' '.join(f'{1e3 * t:.1f}'
-                                                for t in timed) +
-        f' ms; {TRAIN_BATCH * len(timed) / sum(timed):.2f} img/s; peak '
+    if stats:
+        check(set(stats) <= moved, f'{tag}: a BN running statistic did not '
+              f'move')
+        named += f', {len(stats)} BN running statistics moved'
+    canvas = 'x'.join(map(str, loader.canvas))
+    dname = {torch.bfloat16: 'bf16', torch.float32: 'float32'}[dtype]
+    log(f'{tag}: bs {batch} {canvas} {dname}, {len(timed)} timed steps ' +
+        ' '.join(f'{1e3 * t:.1f}' for t in timed) +
+        f' ms; {batch * len(timed) / sum(timed):.2f} img/s; peak '
         f'memory {peak / 2**20:.0f} MiB; {len(moved & trainable)}/'
-        f'{len(trainable)} trainable tensors moved{named}, 0 frozen; card '
-        f'{card}')
+        f'{len(trainable)} trainable tensors moved{named}, 0 frozen '
+        f'changed; card {card}')
     return trainer, loader, counts
 
 
@@ -3490,7 +3587,7 @@ def phase_frcnn_train_reference(np, torch):
         def run(dev):
             net = copy.deepcopy(net_cpu).to(dev)
             batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
-                         gt=type(gt)(**{k: v.to(dev)
+                         gt=type(gt)(**{k: None if v is None else v.to(dev)
                                         for k, v in vars(gt).items()}))
             with patched(frcnn_module, 'rpn_proposals', lambda _: proposals):
                 losses = det.loss(net, batch,
@@ -3797,7 +3894,7 @@ def phase_detr_train_reference(np, torch):
         def run(dev, matches=None, record=None):
             net = copy.deepcopy(net_cpu).to(dev)
             batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
-                         gt=type(gt)(**{k: v.to(dev)
+                         gt=type(gt)(**{k: None if v is None else v.to(dev)
                                         for k, v in vars(gt).items()}))
             args = {k: [d.to(dev) for d in v] for k, v in kw.items()}
             if record is not None:
@@ -4176,7 +4273,7 @@ def phase_dcn_train_reference(np, torch):
             two star convs of a level share one offset tensor)."""
             net = copy.deepcopy(net_cpu).to(dev)
             batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
-                         gt=type(gt)(**{k: v.to(dev)
+                         gt=type(gt)(**{k: None if v is None else v.to(dev)
                                         for k, v in vars(gt).items()}))
             grads = {}
 
@@ -4924,6 +5021,700 @@ def phase_cornernet_serve(np, torch, card):
     return {tag: counts}
 
 
+# --------------------- Mask R-CNN, PointRend, CornerNet (training)
+MASK_TRAIN_STEP_LAUNCHES = {
+    'mask_rcnn': dict(roi_align=2, roi_align_backward=2, nms_keep=1,
+                      crop_resize_mask=1, point_sample=0,
+                      point_sample_backward=0),
+    'point_rend': dict(roi_align=2, roi_align_backward=2, nms_keep=1,
+                       crop_resize_mask=1, point_sample=4,
+                       point_sample_backward=2)}
+CORNERNET_STEP_LAUNCHES = dict(corner_pool=8, corner_pool_backward=8,
+                               render_corner_targets=1)
+# the CornerNet cell: the config's per-card batch of 6 at 768x1024 (HG-104
+# needs sides that are multiples of 128); float32 as erd_tpu trains it
+CORNERNET_TRAIN_BATCH, CORNERNET_TRAIN_CANVAS = 6, (768, 1024)
+# PointRend's importance picks of a card run that may differ from the
+# CPU's at near-ties of the uncertainty (1e-5 of the largest)
+PICK_TIE_RTOL, PICK_MOVED_SHARE = 1e-5, 1e-3
+
+
+def mask_train_net(torch, kind, device=None, dtype=None, seed=53):
+    """The config, its detector and a seeded network of Mask R-CNN,
+    PointRend or CornerNet HG-104 (full width and depth) for training."""
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    path = CORNERNET_CONFIG if kind == 'cornernet' else MASK_CONFIGS[kind]
+    cfg = Config.fromfile(path)
+    if dtype and kind != 'cornernet':
+        cfg.model.compute_dtype = dtype
+    det = build_detector(cfg.model)
+    want = {'mask_rcnn': 'MaskRCNNDetector',
+            'point_rend': 'PointRendDetector',
+            'cornernet': 'CornerNetDetector'}[kind]
+    check(type(det).__name__ == want and det.num_classes == NUM_CLASSES and
+          (kind == 'cornernet' or (det.depth == 50 and
+                                   det.frozen_stages == 1 and
+                                   det.rcnn_train_cfg.num_samples == 512)),
+          f'{path} is not the {want} training model')
+    return cfg, det, det.init(seed=seed, device=device or DEV)
+
+
+def mask_train_loader(np, torch, kind, steps, seed):
+    """The train cells' batches: bs 16 800x1344 with gt crops, or
+    CornerNet's bs 6 at 768x1024 (80 classes)."""
+    if kind == 'cornernet':
+        return SyntheticLoader(np, torch, steps, seed=seed,
+                               num_labels=NUM_CLASSES,
+                               batch=CORNERNET_TRAIN_BATCH,
+                               canvas=CORNERNET_TRAIN_CANVAS,
+                               image=CORNERNET_TRAIN_CANVAS)
+    return SyntheticLoader(np, torch, steps, seed=seed,
+                           num_labels=NUM_CLASSES, masks=True)
+
+
+def mask_train_step_calls(np, torch, kind, names):
+    """One training step (loss + backward) of ``kind`` on its train batch
+    with the calls of the named kernel wrappers captured: {name: [args,
+    ...]}."""
+    import importlib
+    modules = {'crop_resize_mask': 'models.detectors.mask_rcnn',
+               'point_sample': 'models.detectors.point_rend',
+               'point_sample_backward': 'ops.sampling',
+               'corner_pool_backward': 'ops.extra_nms',
+               'render_corner_targets': 'models.detectors.cornernet'}
+    _, det, net = mask_train_net(torch, kind)
+    batch = next(iter(mask_train_loader(np, torch, kind, 1, 61).epoch(0)))
+    calls = {n: [] for n in names}
+    restore = [capture(importlib.import_module(
+        f'erd_tpu_torch.{modules[n]}'), n, calls[n]) for n in names]
+    try:
+        losses = det.loss(net, batch)
+        sum(losses.values()).backward()
+    finally:
+        for undo in restore:
+            undo()
+    torch.cuda.synchronize()
+    log(f'mask/corner train kernels: one {kind} step captured: ' +
+        ', '.join(f'{n} x{len(c)}' for n, c in calls.items()) +
+        '; losses ' + ' '.join(f'{k} {float(v.detach()):.4f}'
+                               for k, v in losses.items()))
+    del net, losses
+    return calls
+
+
+def crop_resize_library(torch, masks, boxes, idx, rois, out_size):
+    """The targets as one F.grid_sample computes them (border padding),
+    times the in-box mask: for row 14's library_ms. It is erd_tpu's
+    function but in the first half cell of each axis, where erd_tpu clips
+    the lower corner index to 0 before adding 1 and so blends rows 0 and 1
+    instead of taking row 0. Returns (the call, the (B * S, out, out)
+    cells in that band)."""
+    import torch.nn.functional as F
+    b, s = idx.shape
+    r = masks.shape[-1]
+    crop = torch.gather(masks, 1, idx[..., None, None].expand(
+        b, s, r, r)).float().reshape(b * s, 1, r, r)
+    box = torch.gather(boxes, 1, idx[..., None].expand(b, s, 4))
+    t = (torch.arange(out_size, device=DEV, dtype=torch.float32) + 0.5) / \
+        out_size
+
+    def norm(lo, hi, glo, ghi):  # the cell centres in the crop's [-1, 1]
+        pos = lo[..., None] + t * (hi - lo)[..., None]
+        ext = (ghi - glo).clamp(min=1e-3)[..., None]
+        return (pos - glo[..., None]) / ext * 2 - 1
+    gy = norm(rois[..., 1], rois[..., 3], box[..., 1], box[..., 3])
+    gx = norm(rois[..., 0], rois[..., 2], box[..., 0], box[..., 2])
+    grid = torch.stack(torch.broadcast_tensors(
+        gx[..., None, :], gy[..., :, None]), -1).reshape(
+        b * s, out_size, out_size, 2)
+    inside = ((gy.abs() <= 1)[..., :, None] &
+              (gx.abs() <= 1)[..., None, :]).reshape(b * s, 1, out_size,
+                                                      out_size)
+    edge = 1.0 / r
+
+    def first_half(g):
+        return (g > -1) & (g < -1 + edge)
+    band = (first_half(gy)[..., :, None] | first_half(gx)[..., None, :])
+
+    def call():
+        return F.grid_sample(crop, grid, mode='bilinear',
+                             padding_mode='border',
+                             align_corners=False) * inside
+    return call, band.reshape(b * s, out_size, out_size)
+
+
+def phase_mask_train_kernels(np, torch):
+    """The new training kernels on the real calls of one step: the mask
+    targets of a bs-16, 800x1344 Mask R-CNN step (28x28) and of a
+    PointRend step (14x14), equal to the plain version; the point-sample
+    backward on both of the PointRend step's calls (coarse float32 logits,
+    bf16 P2; float32 sums within 1e-5 * max|plain|, the bf16 map's
+    gradient within one ulp); the corner-pool backward on the 8 calls of a
+    CornerNet HG-104 step (bs 6, 768x1024, float32) bit-equal to the plain
+    version; the corner targets of that step (heat within 1e-6, the exact-1
+    peaks, offsets, weights equal). Each then timed by CUDA-graph replays
+    beside its byte bound, its plain version and, where one PyTorch call
+    computes the function, that call."""
+    from erd_tpu_torch.data.masks import (crop_resize_mask,
+                                          crop_resize_mask_plain)
+    from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
+                                             corner_pool_backward_plain)
+    from erd_tpu_torch.ops.gaussian import (corner_scalars,
+                                            render_corner_targets,
+                                            render_corner_targets_plain)
+    from erd_tpu_torch.ops.sampling import (point_sample_backward,
+                                            point_sample_backward_plain)
+    rows = []
+    # -- row 14: the mask targets of both mask models' steps
+    shapes = []
+    for kind, out_size in (('mask_rcnn', 28), ('point_rend', 14)):
+        names = ('crop_resize_mask', 'point_sample', 'point_sample_backward'
+                 ) if kind == 'point_rend' else ('crop_resize_mask',)
+        calls = mask_train_step_calls(np, torch, kind, names)
+        check(len(calls['crop_resize_mask']) == 1,
+              f'{kind}: {len(calls["crop_resize_mask"])} mask-target calls')
+        args = calls['crop_resize_mask'][0]
+        masks, boxes, idx, rois, size = args
+        check(size == out_size and tuple(idx.shape) == (TRAIN_BATCH, 512)
+              and masks.dtype == torch.uint8 and masks.shape[-1] == 56,
+              f'{kind} mask targets at {size}, {tuple(idx.shape)}')
+        got = crop_resize_mask(*args)
+        torch.cuda.synchronize()
+        want = crop_resize_mask_plain(*args)
+        err = float((got - want).abs().max())
+        lib, band = crop_resize_library(torch, *args)
+        lib_diff = (lib()[:, 0] - want.flatten(0, 1)).abs()
+        lib_err = float(lib_diff[~band].max())
+        fg = float((want > 0).float().mean())
+        log(f'mask/corner train kernels: crop_resize_mask {kind} '
+            f'{tuple(want.shape)}: max_abs_err={err:.3e} (limit 1e-6), '
+            f'{fg:.1%} of the cells > 0; F.grid_sample (border) x in-box '
+            f'mask within {lib_err:.3e} of plain outside the first half '
+            f'cell of each axis ({float(band.float().mean()):.1%} of the '
+            f'cells, where erd_tpu blends rows 0 and 1: up to '
+            f'{float(lib_diff[band].max()):.3f} there)')
+        # grid_sample maps [-1, 1] back to crop pixels in its own rounding,
+        # which moves a cell's weights by up to ~1e-4 (1.35e-4 measured)
+        check(lib_err <= 1e-3, f'{kind}: F.grid_sample does not give the '
+              f'targets outside the edge band')
+        check(err <= 1e-6, f'mask-target kernel disagrees with plain '
+              f'({kind})')
+        check(0.02 < fg < 0.98, f'{kind}: degenerate mask targets')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: crop_resize_mask(*args),
+            lambda: crop_resize_mask_plain(*args))
+        library_ms = graph_ms(torch, lib)
+        nbytes = masks.numel() + boxes.numel() * 4 + idx.numel() * 8 + \
+            rois.numel() * 4 + want.numel() * 4
+        bms, by = bound_of(nbytes, want.numel() * 30.0)
+        log(f'mask/corner train kernels: crop_resize_mask {kind}: {ms:.4f} '
+            f'ms device ({src}), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes), '
+            f'F.grid_sample {library_ms:.4f} ms')
+        shapes.append(dict(kind=kind, out=list(want.shape), ms=ms,
+                           call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, library_ms=library_ms,
+                           max_abs_err=err))
+        if kind == 'point_rend':
+            ps_calls = calls
+    big = shapes[0]
+    rows.append(dict(name='crop_resize_mask', route='cuda',
+                     source='erd_tpu_torch/csrc/mask_target.cu',
+                     replaces='erd_tpu/data/masks.py:46',
+                     max_abs_err=max(t['max_abs_err'] for t in shapes),
+                     ms=big['ms'], call_ms=big['call_ms'],
+                     ms_from=big['ms_from'], ms_at=f'out {big["out"]}',
+                     plain_ms=big['plain_ms'], bound_ms=big['bound_ms'],
+                     bound_by=big['bound_by'],
+                     library_ms=big['library_ms'], deterministic=True,
+                     shapes=shapes))
+
+    # -- row 13a-b: the point-sample backward on PointRend's two calls
+    check(len(ps_calls['point_sample']) == 4 and
+          len(ps_calls['point_sample_backward']) == 2,
+          'PointRend step: not 4 point_sample and 2 backward calls')
+    shapes, worst, worst_ulps = [], 0.0, 0
+    for args in ps_calls['point_sample_backward']:
+        grad, pts, shape, strides, dtype = args[:5]
+        got = point_sample_backward(*args)
+        torch.cuda.synchronize()
+        want = point_sample_backward_plain(grad, pts, shape)
+        diff = (got.float() - want).abs()
+        limit = 1e-5 * float(want.abs().max())
+        if dtype == torch.float32:
+            err = float(diff.max())
+            check(err <= limit, f'point-sample backward kernel disagrees '
+                  f'with plain at {shape}')
+            worst = max(worst, err)
+        else:
+            got32 = point_sample_backward(grad, pts, shape, strides,
+                                          torch.float32)
+            err = float((got32 - want).abs().max())
+            check(err <= limit, f'point-sample backward kernel (float32 '
+                  f'buffer) disagrees with plain at {shape}')
+            worst = max(worst, err)
+            ulps = bf16_ulps(torch, got, want.to(dtype))
+            far = diff > limit
+            worst_ulps = max(worst_ulps, int(ulps[far].max()) if
+                             bool(far.any()) else 0)
+            check(bool(((ulps <= 1) | ~far).all()), 'point-sample backward '
+                  'kernel, bf16 P2: more than one ulp from plain')
+        n, k, c = grad.shape
+        h, w = shape[2:]
+        xs, ys = pts[..., 0] * w - 0.5, pts[..., 1] * h - 0.5
+        off = float(((xs < 0) | (xs > w - 1) | (ys < 0) |
+                     (ys > h - 1)).float().mean())
+        log(f'mask/corner train kernels: point_sample_backward {shape} '
+            f'{dtype}, {n * k} points: max_abs_err={err:.3e} (limit '
+            f'{limit:.3e}, 1e-5*max|plain|; atomics reorder the sums), '
+            f'{off:.2%} of the points with a corner off the map, strides '
+            f'{tuple(got.stride())}')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: point_sample_backward(*args),
+            lambda: point_sample_backward_plain(grad, pts, shape), n=10)
+        maps = torch.zeros(shape, device=DEV, dtype=torch.float32)
+        leaf = maps.requires_grad_()
+        gs_out = grid_sample_points(torch, leaf, pts)
+
+        def library():
+            return torch.autograd.grad(gs_out, leaf, grad,
+                                       retain_graph=True)[0]
+        lib_err = float((library() - want).abs().max())
+        library_ms = events_ms(torch, library, 5)
+        out_bytes = torch.empty((), dtype=dtype).element_size()
+        nbytes = grad.numel() * 4 + pts.numel() * 4 + \
+            n * c * h * w * out_bytes
+        bms, by = bound_of(nbytes, n * k * c * 12.0)
+        log(f'mask/corner train kernels: point_sample_backward {shape}: '
+            f'{ms:.4f} ms device ({src}; the zeroed float32 buffer and the '
+            f'rounding included), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes); '
+            f'F.grid_sample\'s backward on the widened float32 map '
+            f'{library_ms:.4f} ms (events; within {lib_err:.3e} of plain)')
+        shapes.append(dict(maps=list(shape), dtype=str(dtype), points=n * k,
+                           ms=ms, call_ms=call_ms, ms_from=src,
+                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           library_ms=library_ms, max_abs_err=err))
+        del maps, leaf, gs_out
+    fine = max(shapes, key=lambda t: t['maps'][2])
+    rows.append(dict(name='point_sample_backward', route='cuda',
+                     source='erd_tpu_torch/csrc/point_sample.cu',
+                     replaces='erd_tpu/ops/sampling.py:41', max_abs_err=worst,
+                     max_bf16_ulps=worst_ulps, ms=fine['ms'],
+                     call_ms=fine['call_ms'], ms_from=fine['ms_from'],
+                     ms_at=f'maps {fine["maps"]}', plain_ms=fine['plain_ms'],
+                     bound_ms=fine['bound_ms'], bound_by=fine['bound_by'],
+                     library_ms=fine['library_ms'], deterministic=False,
+                     shapes=shapes))
+    del ps_calls
+    torch.cuda.empty_cache()
+
+    # -- rows 12a-b and 15: one CornerNet step
+    calls = mask_train_step_calls(np, torch, 'cornernet',
+                                  ('corner_pool_backward',
+                                   'render_corner_targets'))
+    check(len(calls['corner_pool_backward']) == 8 and
+          len(calls['render_corner_targets']) == 1,
+          'CornerNet step: not 8 corner-pool backward and 1 target call')
+    shapes, ties = {}, []
+    for x, g, direction in calls['corner_pool_backward']:
+        check(tuple(x.shape) == (CORNERNET_TRAIN_BATCH, 128, 192, 256) and
+              x.dtype == torch.float32, f'corner pool backward at '
+              f'{tuple(x.shape)} {x.dtype}')
+        got = corner_pool_backward(x, g, direction)
+        torch.cuda.synchronize()
+        check(torch.equal(got, corner_pool_backward_plain(x, g, direction)),
+              f'corner-pool backward kernel differs from plain ({direction})')
+        ties.append(float((x == 0).float().mean()))
+        if direction in shapes:
+            continue
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: corner_pool_backward(x, g, direction),
+            lambda: corner_pool_backward_plain(x, g, direction), n=10)
+        dim = 2 if direction in ('top', 'bottom') else 3
+        leaf = x.detach().requires_grad_()
+        flip = direction in ('top', 'left')
+        cm = torch.cummax(leaf.flip(dim) if flip else leaf, dim).values
+        cummax_ms = events_ms(torch, lambda: torch.autograd.grad(
+            cm, leaf, g.flip(dim) if flip else g, retain_graph=True)[0], 5)
+        nbytes = 3 * x.numel() * 4
+        bms, by = bound_of(nbytes, x.numel() * 8.0)
+        shapes[direction] = dict(ms=ms, call_ms=call_ms, ms_from=src,
+                                 plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by, cummax_backward_ms=cummax_ms)
+        log(f'mask/corner train kernels: corner_pool_backward {direction} '
+            f'{tuple(x.shape)}: equal to plain; {ms:.4f} ms device ({src}), '
+            f'{call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, bound '
+            f'{bms:.4f} ms ({by}; {nbytes} bytes); torch.cummax\'s backward '
+            f'{cummax_ms:.4f} ms (another function on ties: not the '
+            f'library time)')
+        del leaf, cm
+    log(f'mask/corner train kernels: corner_pool_backward: all 8 calls '
+        f'bit-equal to plain; {min(ties):.1%}-{max(ties):.1%} of the '
+        f'pools\' inputs are exact zeros (ReLU), where ties share the '
+        f'gradient by the scan tree')
+    top = shapes['top']
+    rows.append(dict(name='corner_pool_backward', route='cuda',
+                     source='erd_tpu_torch/csrc/corner_pool.cu',
+                     replaces='erd_tpu/ops/extra_nms.py:63', max_abs_err=0.0,
+                     ms=top['ms'], call_ms=top['call_ms'],
+                     ms_from=top['ms_from'],
+                     ms_at=f'top (B, 128, 192, 256) B={CORNERNET_TRAIN_BATCH}',
+                     plain_ms=top['plain_ms'], bound_ms=top['bound_ms'],
+                     bound_by=top['bound_by'], library_ms=None,
+                     deterministic=True, directions=shapes))
+
+    args = calls['render_corner_targets'][0]
+    boxes, labels, mask, feat_hw, num_classes, ratio = args
+    got = render_corner_targets(*args)
+    torch.cuda.synchronize()
+    want = render_corner_targets_plain(corner_scalars(*args), feat_hw,
+                                       num_classes)
+    err, peaks = 0.0, []
+    for c in ('tl', 'br'):
+        err = max(err, float((got[f'{c}_heat'] - want[f'{c}_heat']).abs()
+                             .max()))
+        peaks.append((int((got[f'{c}_heat'] == 1).sum()),
+                      int((want[f'{c}_heat'] == 1).sum())))
+        for k in ('off', 'w'):
+            check(torch.equal(got[f'{c}_{k}'], want[f'{c}_{k}']),
+                  f'corner-target kernel: {c}_{k} differs from plain')
+    log(f'mask/corner train kernels: render_corner_targets B={boxes.shape[0]}'
+        f' G={boxes.shape[1]} ({int(mask.sum())} valid) {num_classes} '
+        f'classes {tuple(feat_hw)}: heat max_abs_err={err:.3e} (limit '
+        f'1e-6), exact-1 peaks card/plain {peaks}, offsets and weights '
+        f'equal')
+    check(err <= 1e-6 and all(a == b > 0 for a, b in peaks),
+          'corner-target kernel disagrees with plain')
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: render_corner_targets(*args),
+        lambda: render_corner_targets_plain(corner_scalars(*args), feat_hw,
+                                            num_classes), n=10)
+    b, (fh, fw) = boxes.shape[0], feat_hw
+    nbytes = 2 * b * (num_classes + 3) * fh * fw * 4 + boxes.numel() * 4 + \
+        labels.numel() * 8 + mask.numel()
+    sc = corner_scalars(*args)
+    inside = float(((2 * sc['radius'] + 1) ** 2 * sc['valid']).sum()) * 2
+    bms, by = bound_of(nbytes, inside * 20.0)
+    log(f'mask/corner train kernels: render_corner_targets: {ms:.4f} ms '
+        f'device ({src}), {call_ms:.4f} ms per call, plain {plain_ms:.3f} '
+        f'ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, {inside:.0f} '
+        f'gaussian cells); library_ms null: no single PyTorch call renders '
+        f'the targets')
+    rows.append(dict(name='render_corner_targets', route='cuda',
+                     source='erd_tpu_torch/csrc/corner_targets.cu',
+                     replaces='erd_tpu/ops/gaussian.py:107', max_abs_err=err,
+                     ms=ms, call_ms=call_ms, ms_from=src,
+                     ms_at=f'B={b} {num_classes}x{fh}x{fw}',
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None, deterministic=True, peaks=peaks))
+    del calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+def picks_held(torch, module, recorded, moved):
+    """For a reference run: PointRend's importance picks (the top-k of
+    ``module.topk_stable`` at the 147 of 588) of the first run are
+    recorded; later runs compute their own, count those that differ (each
+    must be a near-tie within PICK_TIE_RTOL of the largest uncertainty) and
+    go on with the first run's, so that every run trains on the same
+    points. Returns the patch's ``make``."""
+    def make(topk):
+        def wrapper(values, k):
+            top, idx = topk(values, k)
+            if values.shape[-1] != 588:
+                return top, idx
+            if not recorded:
+                recorded.append(idx)
+                return top, idx
+            want = recorded[0].to(idx.device)
+            off = idx != want
+            theirs = torch.gather(values, 1, want)
+            scale = values.abs().amax(-1, keepdim=True)
+            near = ((top - theirs).abs() <= PICK_TIE_RTOL * scale)
+            moved.append((int(off.sum()), int((off & ~near).sum()),
+                          want.numel()))
+            return theirs, want
+        return wrapper
+    return make
+
+
+def phase_mask_train_reference(np, torch):
+    """Mask R-CNN and PointRend R50 (float32, 2 images 128x192 with gt
+    crops, 64 sampled RoIs an image to keep the CPU's mask heads short) and
+    CornerNet at HG-104's width and 5 levels but one stack of one block a
+    level (float32, 2 images 256x256): the loss dict and the parameter
+    gradients on the card (kernels) against the CPU (plain versions), with
+    the same sampler and point draws, the CPU's proposals and PointRend
+    importance picks (reference_gate; the gradients apart per loss part
+    over backbone + neck and the heads; CornerNet's backbone parts at 3x
+    the CPU's own float32 error against float64); CornerNet's updated BN
+    running statistics card vs CPU within 1e-3 of each tensor's largest
+    value; then a 1 % error planted in the point-sample backward
+    (PointRend) and in the corner-pool backward (CornerNet) must each fail
+    the limits."""
+    import copy
+    import dataclasses
+    import importlib
+
+    from erd_tpu_torch.structures import ImageMeta, stack_to
+    sampling = importlib.import_module('erd_tpu_torch.ops.sampling')
+    pools = importlib.import_module('erd_tpu_torch.ops.extra_nms')
+    frcnn_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.faster_rcnn')
+    pr_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.point_rend')
+    proposals_fn = frcnn_module.rpn_proposals
+    for kind in ('mask_rcnn', 'point_rend', 'cornernet'):
+        _, det, net_cpu = mask_train_net(torch, kind, device='cpu',
+                                         dtype='float32', seed=9)
+        if kind == 'cornernet':
+            # full width and all 5 levels, one stack of one block a level:
+            # the 2-stack HG-104's train-mode BN backward leaves float32
+            # ~10 % off float64 in the backbone (on either device)
+            det = dataclasses.replace(det, num_stacks=1,
+                                      stage_blocks=(1,) * 6)
+            net_cpu = det.init(seed=9, device='cpu')
+        h, w = (256, 256) if kind == 'cornernet' else (128, 192)
+        rs = np.random.RandomState(19)
+        gen = torch.Generator(device='cpu').manual_seed(19)
+        images = torch.from_numpy(rs.randint(0, 256, (2, h, w, 3),
+                                             np.uint8))
+        gt = synthetic_gt(np, torch, rs, 2, (h, w), device='cpu',
+                          num_labels=NUM_CLASSES)
+        gt = dataclasses.replace(gt, masks=gt_crops(torch, gen, 2,
+                                                    device='cpu'))
+        metas = [ImageMeta.make((h, w), (h, w), (1.0, 1.0), img_id=i)
+                 for i in (1, 2)]
+        names = [k for k, p in net_cpu.named_parameters() if p.requires_grad]
+        if kind == 'cornernet':
+            low = [k for k in names if k.startswith('backbone.')]
+            groups = {'heatmap': ['loss_heatmap'],
+                      'embedding': ['loss_pull', 'loss_push'],
+                      'offset': ['loss_offset']}
+            draws = None
+        else:
+            det.rcnn_train_cfg = dataclasses.replace(det.rcnn_train_cfg,
+                                                     num_samples=64)
+            low = [k for k in names if k.startswith(('backbone.', 'neck.'))]
+            groups = {'rpn': ['loss_rpn_cls', 'loss_rpn_bbox'],
+                      'rcnn': ['loss_cls', 'loss_bbox'],
+                      'mask': ['loss_mask'] + (
+                          ['loss_point'] if kind == 'point_rend' else [])}
+            ctx = det.anchor_context((h, w))
+            draws = det.train_draws(torch.tensor([1, 2]), 2,
+                                    ctx.num_anchors,
+                                    det.proposal_cfg_train.max_per_img +
+                                    MAX_GT, 'cpu')
+        high = [k for k in names if k not in low]
+        cpu_proposals, moved, picks, pick_moved, stats = [], [], [], [], []
+
+        def proposals(*args):
+            out = proposals_fn(*args)
+            if not cpu_proposals:
+                cpu_proposals.append(out)
+                return out
+            want = [t.to(out[0].device) for t in cpu_proposals[0]]
+            moved.append(proposal_swaps(out, want))
+            return tuple(want)
+
+        seen = {}
+
+        def run(dev, dtype=torch.float32):
+            net = copy.deepcopy(net_cpu).to(dev, dtype)
+            batch = dict(images=images.to(dev), meta=stack_to(metas, dev),
+                         gt=type(gt)(**{k: None if v is None else v.to(dev)
+                                        for k, v in vars(gt).items()}))
+            with contextlib.ExitStack() as stack:
+                if dtype != torch.float32:  # the float64 CPU run
+                    pre = det.preprocessor
+                    stack.enter_context(patched(
+                        det, 'preprocessor',
+                        lambda _: lambda im: pre(im).to(dtype)))
+                if kind == 'cornernet':
+                    losses = det.loss(net, batch)
+                else:
+                    stack.enter_context(patched(
+                        frcnn_module, 'rpn_proposals', lambda _: proposals))
+                    stack.enter_context(patched(
+                        pr_module, 'topk_stable',
+                        picks_held(torch, pr_module, picks, pick_moved)))
+                    losses = det.loss(net, batch,
+                                      draws=[d.to(dev) for d in draws])
+            stats.append({k: v.double().cpu() for k, v in
+                          net.state_dict().items() if 'running_' in k})
+            params = dict(net.named_parameters())
+            grads = {}
+            for i, (part, keys) in enumerate(groups.items()):
+                gs = torch.autograd.grad(
+                    sum(losses[k] for k in keys), [params[k] for k in names],
+                    retain_graph=i < len(groups) - 1, allow_unused=True)
+                grads[part] = {k: (torch.zeros_like(params[k]) if g is None
+                                   else g).double().cpu()
+                               for k, g in zip(names, gs)}
+            seen.setdefault((dev, dtype), grads)
+            return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+        # the mask losses' gradient over backbone + neck: 3e-3; the float64
+        # CPU run below puts the card's float32 1.9e-3 from it and the
+        # CPU's 1.3e-4 (ROADMAP.md section 3, 3.10)
+        limits = {('mask', 'low'): 3e-3}
+        if kind == 'cornernet':
+            # the backbone parts at 3x the CPU's own float32 error against
+            # float64 on this step (at least 1e-3): train-mode BN stacked
+            # ~30 deep magnifies float32 noise
+            floor32 = run('cpu')[1]
+            floor64 = run('cpu', torch.float64)[1]
+            seen.clear()
+            stats.clear()
+            for group in groups:
+                diff = torch.cat([(floor32[group][k] - floor64[group][k])
+                                  .flatten() for k in low])
+                ref = torch.cat([floor64[group][k].flatten() for k in low])
+                limits[(group, 'low')] = max(
+                    1e-3, 3 * float(diff.norm() / ref.norm()))
+            log(f'mask/corner train reference: cornernet CPU float32 '
+                f'against float64, backbone gradients x 3: ' + ', '.join(
+                    f'{g} {limits[(g, "low")]:.2e}' for g in groups))
+            # the card's float32 pools and heads sit 1-2e-3 off the CPU
+            # (ROADMAP 3.10); the convs in front of the pools, whose whole
+            # gradient is the pool backward's output, 4.8e-3 (a 1 % error
+            # there reads 1.1e-2), at 7e-3
+            limits.update({(g, 'high'): 3e-3 for g in groups})
+        parts = [(f'{group} gradient, {scope}', group, keys,
+                  limits.get((group, tag), 1e-3))
+                 for group in groups
+                 for scope, keys, tag in (('backbone' + (
+                     '' if kind == 'cornernet' else '+neck'), low, 'low'),
+                                          ('heads', high, 'high'))]
+        if kind == 'cornernet':
+            parts.append(('gradient of the convs before the pools', None,
+                          [k for k in high if 'direction' in k], 7e-3))
+        controls = {
+            'point_rend': [('point_sample_backward x 1.01', sampling,
+                            'point_sample_backward', planted())],
+            'cornernet': [('corner_pool_backward x 1.01', pools,
+                           'corner_pool_backward', planted())]}.get(kind, [])
+        # CornerNet: the whole-gradient and per-tensor limits over the
+        # pools and heads; its backbone enters through the parts
+        reference_gate(np, torch, f'mask/corner train reference: {kind} '
+                       f'float32 {h}x{w} x 2', run,
+                       high if kind == 'cornernet' else names, parts,
+                       controls, floor=0)
+        if kind == 'mask_rcnn':
+            run('cpu', torch.float64)
+
+            def part_ratio(dev, dtype):
+                got, want = seen[(dev, dtype)]['mask'], \
+                    seen[('cpu', torch.float64)]['mask']
+                diff = torch.cat([(got[k] - want[k]).flatten() for k in low])
+                ref = torch.cat([want[k].flatten() for k in low])
+                return float(diff.norm() / ref.norm())
+            log(f'mask/corner train reference: mask_rcnn mask gradient over '
+                f'backbone + neck against a float64 CPU run (plain): card '
+                f'{part_ratio(DEV, torch.float32):.2e}, CPU float32 '
+                f'{part_ratio("cpu", torch.float32):.2e} (no gate)')
+        if kind == 'cornernet':
+            worst = max(float((stats[1][k] - stats[0][k]).abs().max() /
+                              stats[0][k].abs().max()) for k in stats[0])
+            log(f'mask/corner train reference: cornernet BN running '
+                f'statistics card vs CPU after the step: {len(stats[0])} '
+                f'tensors, worst max|diff| / max|value| {worst:.2e} (limit '
+                f'1e-3)')
+            check(worst <= 1e-3, 'CornerNet BN running statistics differ '
+                  'between card and CPU')
+        else:
+            slots = cpu_proposals[0][2].numel()
+            log(f'mask/corner train reference: {kind} card on the CPU\'s '
+                f'proposals: {moved[0][0]} of {slots} proposal slots differ '
+                f'on the card, {moved[0][1]} of them not an adjacent '
+                f'near-tie swap')
+            check(moved[0][1] == 0 and
+                  moved[0][0] <= PROPOSAL_MOVED_SHARE * slots,
+                  f'{kind}: the card\'s training proposals differ from the '
+                  f'CPU\'s')
+            if kind == 'point_rend':
+                n_off, n_far, total = pick_moved[0]
+                log(f'mask/corner train reference: point_rend card on the '
+                    f'CPU\'s importance picks: {n_off} of {total} picks '
+                    f'differ on the card, {n_far} of them beyond a near-tie '
+                    f'({PICK_TIE_RTOL:g} of the largest uncertainty)')
+                check(n_far == 0 and n_off <= PICK_MOVED_SHARE * total,
+                      'point_rend: the card\'s importance picks differ from '
+                      'the CPU\'s')
+        del net_cpu
+    torch.cuda.empty_cache()
+
+
+def phase_mask_train(np, torch, card):
+    """build_trainer + fit of Mask R-CNN and PointRend R50 (bs 16,
+    800x1344, bf16, gt crops) and CornerNet HG-104 (bs 6, 768x1024,
+    float32, Adam) (fit_and_check): 2 warm-up and 5 timed steps, the
+    launches of every kernel of each path, finite losses, the frozen stages
+    unchanged (ResNet's stem and layer1; the hourglass's stem_conv), every
+    trainable weight and (CornerNet) every BN running statistic moved; the
+    stage times and the idle share of one profiled step."""
+    import importlib
+
+    from erd_tpu_torch.data.masks import crop_resize_mask
+    from erd_tpu_torch.ops import (corner_pool, nms_sorted_keep,
+                                   point_sample, roi_align,
+                                   roi_align_backward)
+    from erd_tpu_torch.ops.extra_nms import corner_pool_backward
+    from erd_tpu_torch.ops.gaussian import render_corner_targets
+    from erd_tpu_torch.ops.sampling import point_sample_backward
+    frcnn = importlib.import_module(
+        'erd_tpu_torch.models.detectors.faster_rcnn')
+    launches = {}
+    for kind in ('mask_rcnn', 'point_rend', 'cornernet'):
+        tag = {'mask_rcnn': 'mask_rcnn train', 'point_rend': 'pointrend '
+               'train', 'cornernet': 'cornernet train'}[kind]
+        cfg, det, net = mask_train_net(torch, kind)
+        loader = mask_train_loader(np, torch, kind,
+                                   TRAIN_WARMUP + TRAIN_TIMED, 71)
+        if kind == 'cornernet':
+            counters = {'corner_pool': corner_pool,
+                        'corner_pool_backward': corner_pool_backward,
+                        'render_corner_targets': render_corner_targets}
+            check(cfg.optim_wrapper.optimizer.type == 'Adam',
+                  'CornerNet config does not train with Adam')
+            trainer, loader, launches[tag] = fit_and_check(
+                np, torch, card, tag, cfg, det, net, counters,
+                CORNERNET_STEP_LAUNCHES, seed=71, loader=loader,
+                dtype=torch.float32, frozen=('backbone.stem_conv.',))
+            check(type(trainer.optimizer).__name__ == 'Adam',
+                  'CornerNet trained without Adam')
+            step_breakdown(torch, tag, trainer, net, loader,
+                           hooks=[(net.backbone, 'hourglass (2 stacks)'),
+                                  (net, 'corner pools + heads')],
+                           wrapped=[(det, 'targets', 'corner targets')])
+        else:
+            counters = {'roi_align': roi_align,
+                        'roi_align_backward': roi_align_backward,
+                        'nms_keep': nms_sorted_keep,
+                        'crop_resize_mask': crop_resize_mask,
+                        'point_sample': point_sample,
+                        'point_sample_backward': point_sample_backward}
+            trainer, loader, launches[tag] = fit_and_check(
+                np, torch, card, tag, cfg, det, net, counters,
+                MASK_TRAIN_STEP_LAUNCHES[kind], seed=71, loader=loader)
+            step_breakdown(
+                torch, tag, trainer, net, loader,
+                hooks=[(net.neck, 'backbone + neck'),
+                       (net.rpn_head, 'RPN head')],
+                wrapped=[(frcnn, 'rpn_loss', 'RPN loss'),
+                         (frcnn, 'rpn_proposals',
+                          f'proposals (NMS K={TRAIN_RPN_K})'),
+                         (frcnn, 'rcnn_sample', 'assign + sample'),
+                         (det, 'rcnn_losses', 'RoIAlign 7 + 14, R-CNN and '
+                          'mask heads, targets, losses')])
+        del net, trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4993,6 +5784,9 @@ def main() -> int:
         phase_mask_cornernet_reference(np, torch)
         mask_launches = phase_mask_serve(np, torch, card)
         cn_launches = phase_cornernet_serve(np, torch, card)
+        mask_train_rows = phase_mask_train_kernels(np, torch)
+        phase_mask_train_reference(np, torch)
+        mask_train_launches = phase_mask_train(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -5003,8 +5797,10 @@ def main() -> int:
                 row['frcnn_train_rpn'] = rpn_nms
                 for path, counts in list(cc_launches.items()) + \
                         list(train2_launches.items()) + \
-                        list(mask_launches.items()):
-                    by_path[path] = counts['nms_keep']
+                        list(mask_launches.items()) + \
+                        list(mask_train_launches.items()):
+                    if 'nms_keep' in counts:
+                        by_path[path] = counts['nms_keep']
             row['launches'] = sum(by_path.values())
             row['launches_by_path'] = by_path
             idx = 1 if row['name'] == 'nms_keep' else 0
@@ -5023,8 +5819,10 @@ def main() -> int:
             if row['name'] == 'roi_align':
                 for path, counts in list(cc_launches.items()) + \
                         list(train2_launches.items()) + \
-                        list(mask_launches.items()):
-                    by_path[path] = counts['roi_align']
+                        list(mask_launches.items()) + \
+                        list(mask_train_launches.items()):
+                    if 'roi_align' in counts:
+                        by_path[path] = counts['roi_align']
                 row['mask_out14'] = roi14
             if row['name'] == 'soft_nms':
                 row['large_k'] = soft_large_k
@@ -5041,9 +5839,11 @@ def main() -> int:
                 if counts.get(name)}
             row['launches'] = sum(row['launches_by_path'].values())
         for row in train2_rows:  # the backward kernels: the train paths
-            row['launches_by_path'] = {path: counts[row['name']] for path,
-                                       counts in train2_launches.items()
-                                       if counts[row['name']]}
+            row['launches_by_path'] = {
+                path: counts[row['name']] for path, counts in
+                list(train2_launches.items()) +
+                list(mask_train_launches.items())
+                if counts.get(row['name'])}
             row['launches'] = sum(row['launches_by_path'].values())
         for row in detr_rows + [detr_train_row]:
             by_path = {path: counts[row['name']] for path, counts in
@@ -5067,15 +5867,23 @@ def main() -> int:
             dcn_train_row['launches_by_path'].values())
         point_sample_row['launches_by_path'] = {
             'pointrend serve': mask_launches['pointrend serve'][
+                'point_sample'],
+            'pointrend train': mask_train_launches['pointrend train'][
                 'point_sample']}
         corner_pool_row['launches_by_path'] = {
-            'cornernet serve': cn_launches['cornernet serve']['corner_pool']}
-        for row in (point_sample_row, corner_pool_row):
+            'cornernet serve': cn_launches['cornernet serve']['corner_pool'],
+            'cornernet train': mask_train_launches['cornernet train'][
+                'corner_pool']}
+        for row in mask_train_rows:  # the slice-11 kernels: train paths
+            row['launches_by_path'] = {
+                path: counts[row['name']] for path, counts in
+                mask_train_launches.items() if counts.get(row['name'])}
+        for row in [point_sample_row, corner_pool_row] + mask_train_rows:
             row['launches'] = sum(row['launches_by_path'].values())
         kernels += train_rows + frcnn_rows + detr_rows + dcn_rows + \
             [carafe_row, set_nms_row] + train2_rows + [
                 detr_train_row, dcn_train_row, point_sample_row,
-                corner_pool_row]
+                corner_pool_row] + mask_train_rows
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

@@ -1,8 +1,9 @@
 """Config dicts -> detectors and trainers; the counterpart of
 erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
 ``FasterRCNN`` (with the FPN or the FPN_CARAFE neck), ``CrowdDet``,
-``DeformableDETR`` and ``DINO`` model types, and SGD training of each; and
-for serving the ``MaskRCNN``, ``PointRend`` and ``CornerNet`` types."""
+``DeformableDETR``, ``DINO``, ``MaskRCNN``, ``PointRend`` and ``CornerNet``
+model types, serving and training each (SGD, or Adam for CornerNet's
+recipe)."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +19,9 @@ from ..models import (CornerNetDetector, CrowdDetDetector,
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 _PORTED = ('GFL', 'GFLIncrementERD', 'VFNet', 'FasterRCNN', 'CrowdDet',
            'DeformableDETR', 'DINO', 'MaskRCNN', 'PointRend', 'CornerNet')
+# the optimizers the port trains with: erd_tpu's SGD, and its Adam (AdamW
+# with a zero decay)
+_OPTIMIZERS = ('sgd', 'adam')
 # erd_tpu model options whose code paths the port does not have yet (GN and
 # WS heads, Shared4Conv1FC, Mask R-CNN's seesaw loss, backbone swaps, ...)
 _NOT_PORTED = ('backbone', 'context_block_stages', 'gen_attention_stages',
@@ -72,7 +76,8 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
             max_per_img=test.get('max_per_img', 100),
             nms_iou=test.get('nms_iou_threshold', 0.5),
             nms_type=test.get('nms_type', 'soft_nms'),
-            soft_nms_sigma=test.get('soft_nms_sigma', 0.5))
+            soft_nms_sigma=test.get('soft_nms_sigma', 0.5),
+            frozen_stages=model_cfg.get('frozen_stages', 1))
     if mtype in ('DeformableDETR', 'DINO'):  # erd_tpu's train configs
         cls = DINODetector if mtype == 'DINO' else DeformableDETRDetector
         return cls(
@@ -166,8 +171,10 @@ def build_trainer(cfg: Config, detector, train_loader, teacher=None,
 
     ``teacher`` is the frozen ERD teacher network; the other detectors
     take none. The device is ``cuda`` unless the caller names one. The port
-    has SGD with warmup + multi-step decay over steps; other optimizers and
-    schedules, epoch-based warmup, gradient clipping, validation,
+    has SGD, and Adam without weight decay (CornerNet's ``type='Adam'``, or
+    ``AdamW`` with a zero decay), each with warmup + multi-step decay over
+    steps; AdamW with a decay, other schedules, epoch-based warmup,
+    gradient clipping, a backbone learning-rate multiplier, validation,
     checkpoints and custom hooks are not ported yet and raise. The DETR
     configs name no optimizer, so they train with SGD as erd_tpu's trainer
     does.
@@ -176,15 +183,21 @@ def build_trainer(cfg: Config, detector, train_loader, teacher=None,
         raise ValueError(f'a teacher is ERD distillation\'s: '
                          f'{type(detector).__name__} trains without one')
     optim = _normalized_optim(cfg)
-    if optim.get('type', 'SGD').lower() != 'sgd' or \
+    opt = optim.get('type', 'SGD').lower()
+    if opt == 'adamw' and optim.get('weight_decay', 1e-4) == 0:
+        opt = 'adam'  # erd_tpu's AdamW with a zero decay is its Adam
+    if opt not in _OPTIMIZERS or \
             optim.get('schedule', 'multistep') != 'multistep':
         raise NotImplementedError(
-            'only SGD with warmup + multi-step decay is ported (ROADMAP.md, '
-            'section 1)')
+            f'optimizer {optim.get("type")!r} with schedule '
+            f'{optim.get("schedule", "multistep")!r} is not ported yet: the '
+            f'port has SGD and Adam with warmup + multi-step decay '
+            f'({ZOO_ITEM})')
     for key, default in (('grad_clip', None), ('backbone_lr_mult', 1.0),
                          ('warmup_epochs', 0)):
         if optim.get(key, default) != default:
-            raise NotImplementedError(f'optim.{key} is not ported yet')
+            raise NotImplementedError(f'optim.{key} is not ported yet '
+                                      f'({ZOO_ITEM})')
     if cfg.get('custom_hooks'):
         raise NotImplementedError('custom_hooks are not ported yet')
     train_cfg = cfg.get('train_cfg', {})
@@ -201,5 +214,6 @@ def build_trainer(cfg: Config, detector, train_loader, teacher=None,
         milestones_epochs=tuple(optim.get('milestones_epochs', (8, 11))),
         gamma=optim.get('gamma', 0.1),
         auto_scale_base_batch=base_batch,
-        log_interval=cfg.get('log_interval', 50))
+        log_interval=cfg.get('log_interval', 50),
+        optimizer='Adam' if opt == 'adam' else 'SGD')
     return Trainer(detector, train_loader, tc, teacher=teacher, device=device)

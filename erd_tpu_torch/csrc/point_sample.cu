@@ -83,6 +83,45 @@ __global__ void point_sample_kernel(const T* __restrict__ maps,
   }
 }
 
+__global__ void point_sample_backward_kernel(
+    const float* __restrict__ grad, const float* __restrict__ points, int c,
+    int h, int w, int k, long long n_points, long long sn, long long sc,
+    long long sy, long long sx, float* __restrict__ out) {
+  const long long p = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (p >= n_points) return;
+  const long long img = p / k;
+  const float xs = __fsub_rn(__fmul_rn(points[2 * p], static_cast<float>(w)),
+                             0.5f);
+  const float ys = __fsub_rn(
+      __fmul_rn(points[2 * p + 1], static_cast<float>(h)), 0.5f);
+  const float x0f = floorf(xs), y0f = floorf(ys);
+  const float wx = __fsub_rn(xs, x0f), wy = __fsub_rn(ys, y0f);
+  const float hx = __fsub_rn(1.f, wx), hy = __fsub_rn(1.f, wy);
+  const bool oy0 = y0f >= 0.f && y0f < static_cast<float>(h);
+  const bool oy1 = y0f >= -1.f && y0f < static_cast<float>(h - 1);
+  const bool ox0 = x0f >= 0.f && x0f < static_cast<float>(w);
+  const bool ox1 = x0f >= -1.f && x0f < static_cast<float>(w - 1);
+  if (!(oy0 || oy1) || !(ox0 || ox1)) return;  // every corner off the map
+  const long long y0 = static_cast<long long>(y0f);
+  const long long x0 = static_cast<long long>(x0f);
+  const long long o00 = y0 * sy + x0 * sx;
+  const long long o01 = o00 + sx, o10 = o00 + sy, o11 = o00 + sy + sx;
+  const bool ok00 = oy0 && ox0, ok01 = oy0 && ox1;
+  const bool ok10 = oy1 && ox0, ok11 = oy1 && ox1;
+  float* base = out + img * sn;
+  const float* src = grad + p * c;
+  for (int ch = lane; ch < c; ch += 32) {
+    const float g = src[ch];
+    float* m = base + ch * sc;
+    if (ok00) atomicAdd(m + o00, __fmul_rn(__fmul_rn(g, hx), hy));
+    if (ok01) atomicAdd(m + o01, __fmul_rn(__fmul_rn(g, wx), hy));
+    if (ok10) atomicAdd(m + o10, __fmul_rn(__fmul_rn(g, hx), wy));
+    if (ok11) atomicAdd(m + o11, __fmul_rn(__fmul_rn(g, wx), wy));
+  }
+}
+
 }  // namespace
 
 // maps (n, c, h, w) float32 or bf16 (is_bf16) with element strides sn, sc,
@@ -110,6 +149,28 @@ extern "C" int erd_point_sample(const void* maps, const void* points,
         static_cast<const float*>(maps), pts, c, h, w, k, n_points, sn, sc,
         sy, sx, o);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad (n, k, c) float32; points (n, k, 2) float32; out (n, c, h, w)
+// float32 with element strides sn, sc, sy, sx, zeroed by the caller; the
+// corners' weighted gradients are added into it. Returns cudaGetLastError()
+// after the launch.
+extern "C" int erd_point_sample_backward(const void* grad, const void* points,
+                                         void* out, int n, int c, int h,
+                                         int w, int k, long long sn,
+                                         long long sc, long long sy,
+                                         long long sx, void* stream) {
+  const long long n_points = static_cast<long long>(n) * k;
+  if (n_points <= 0 || c <= 0) return 0;
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  const unsigned blocks =
+      static_cast<unsigned>((n_points * 32 + threads - 1) / threads);
+  point_sample_backward_kernel<<<blocks, threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(grad), static_cast<const float*>(points), c,
+      h, w, k, n_points, sn, sc, sy, sx, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

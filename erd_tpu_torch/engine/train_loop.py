@@ -2,13 +2,14 @@
 (``TrainerConfig``, ``Trainer``) on one device.
 
 Each iteration: the schedule's learning rate, the detector's loss (with the
-frozen teacher for ERD), one backward, one SGD step, then every hook with
-the host loss scalars.
+frozen teacher for ERD), one backward, one SGD or Adam step, then every hook
+with the host loss scalars.
 
 The loader protocol is erd_tpu's: ``loader.cfg.batch_size``,
 ``loader.steps_per_epoch(epoch)`` and ``loader.epoch(epoch)`` yielding
 ``dict(images (B, H, W, 3) uint8, gt: GTInstances, meta: ImageMeta)`` of
-numpy arrays or tensors; the trainer moves each batch to its device.
+numpy arrays or tensors (``gt.masks`` too, where the loader gives them);
+the trainer moves each batch to its device.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 from ..utils import resolve_device
 from .hooks import CheckInvalidLossHook, Hook, LoggerHook
-from .optim import sgd_optimizer
+from .optim import adam_optimizer, sgd_optimizer
 from .schedules import auto_scale_lr, warmup_multistep
 
 log = logging.getLogger('erd_tpu_torch')
@@ -39,6 +40,7 @@ class TrainerConfig:
     gamma: float = 0.1
     auto_scale_base_batch: int = 16
     log_interval: int = 50
+    optimizer: str = 'SGD'  # or 'Adam' (no weight decay)
 
 
 def _to(value, device):
@@ -62,7 +64,7 @@ def batch_to(batch, device):
 
 
 class Trainer:
-    """Drives ``detector.loss`` with SGD; epoch-based.
+    """Drives ``detector.loss`` with SGD or Adam; epoch-based.
 
     ``teacher`` is the frozen ERD teacher network (None for plain GFL
     training). The device is ``cuda`` unless the caller names one; without
@@ -100,8 +102,8 @@ class Trainer:
         return float(self.schedule(step))
 
     def train_step(self, net, batch, step):
-        """One SGD step on a batch already on the device; returns the
-        host loss scalars."""
+        """One optimizer step on a batch already on the device; returns
+        the host loss scalars."""
         for group in self.optimizer.param_groups:
             group['lr'] = self.current_lr(step)
         self.optimizer.zero_grad(set_to_none=True)
@@ -120,9 +122,12 @@ class Trainer:
         net = net.to(self.device)
         if self.teacher is not None:
             self.teacher = self.teacher.to(self.device).requires_grad_(False)
-        self.optimizer = sgd_optimizer(net, self.current_lr(0),
-                                       self.cfg.momentum,
-                                       self.cfg.weight_decay)
+        if self.cfg.optimizer.lower() == 'adam':
+            self.optimizer = adam_optimizer(net, self.current_lr(0))
+        else:
+            self.optimizer = sgd_optimizer(net, self.current_lr(0),
+                                           self.cfg.momentum,
+                                           self.cfg.weight_decay)
         for h in self.hooks:
             h.before_train(self)
         step = 0

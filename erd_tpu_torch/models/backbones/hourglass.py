@@ -1,5 +1,5 @@
 """HourglassNet backbone (CornerNet), NCHW, float32; the counterpart of
-erd_tpu/models/backbones/hourglass.py (serving: BN in eval mode).
+erd_tpu/models/backbones/hourglass.py.
 
 Stem: a 7x7/2 conv-BN-ReLU to 128 channels and a stride-2 BasicBlock to
 256; then ``num_stacks`` recursive hourglass modules (``downsample_times``
@@ -11,8 +11,11 @@ per stack.
 
 Modules carry erd_tpu's scope names (``stem_conv.conv``, ``stem_conv.bn``,
 ``hourglass0.low2.low2.up1.block0.conv1``, ...), so ``params_from_jax``
-maps a path by joining it. BN uses the running statistics (eps 1e-5);
-erd_tpu's float32 network, so every conv runs in full float32. A canvas's
+maps a path by joining it. ``BatchNorm`` is flax's ``BatchNorm(momentum=0.9,
+epsilon=1e-5)``: in eval mode it reads the running statistics; in train
+mode (``module.train()``, as CornerNet's loss runs it) it normalises by the
+batch statistics and updates the running ones in place. erd_tpu's float32
+network, so every conv runs in full float32. A canvas's
 sides must be multiples of 4 * 2^downsample_times (128 for HG-104): the
 nearest x2 upsample of each level must meet the level above it.
 """
@@ -20,20 +23,54 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..layers import Conv2d, FrozenBatchNorm
 
 
+class BatchNorm(FrozenBatchNorm):
+    """flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW maps.
+
+    Eval mode: the running statistics (``FrozenBatchNorm``'s arithmetic).
+    Train mode: the batch mean and biased variance over (N, H, W), y = (x -
+    mean) * (rsqrt(var + eps) * weight) + bias with gradients through both
+    statistics, and the running statistics updated in place as 0.9 * old +
+    0.1 * batch with the biased variance (``torch.nn.BatchNorm2d`` would
+    store the unbiased one). The variance is the mean of the squared
+    deviations: flax writes the same statistic as max(0, E[x^2] - E[x]^2),
+    but its XLA-compiled gradient lands within 2e-5 of this form's, while
+    autograd of E[x^2] - E[x]^2 in float32 cancels and drifts ~1e-4 from
+    both (tests/test_torch_cornernet_train.py)."""
+
+    momentum = 0.9
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        centred = xf - mean[:, None, None]
+        var = (centred * centred).mean((0, 2, 3))
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(
+                (1 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_(
+                (1 - self.momentum) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = centred * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias, padding k // 2) -> BN (running statistics) ->
-    optional ReLU; erd_tpu's ``_ConvBN``."""
+    """Conv (no bias, padding k // 2) -> BN -> optional ReLU; erd_tpu's
+    ``_ConvBN``."""
 
     def __init__(self, in_ch, out_ch, kernel=3, stride=1, act=True):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, kernel, stride=stride, bias=False)
-        self.bn = FrozenBatchNorm(out_ch)
+        self.bn = BatchNorm(out_ch)
         self.act = act
 
     def forward(self, x):

@@ -1,4 +1,4 @@
-"""CornerNet (HourglassNet-104) serving; the counterpart of
+"""CornerNet (HourglassNet-104) serving and training; the counterpart of
 erd_tpu/models/detectors/cornernet.py.
 
 HourglassNet (2 stacks, stride 4) -> per stack two ``BiCornerPool``s
@@ -22,11 +22,24 @@ float32), and so does the port, with full-float32 convolutions. Modules
 carry erd_tpu's scope names (``backbone``, ``tl_pool_1``, ``br_heat_1``,
 ...). The canvas sides must be multiples of 4 * 2^downsample_times (128
 for HG-104): ``inference_detector(..., scale=(1024, 768))`` gives 768x1024
-and 1024x768 canvases. Training (train-mode BN, the corner targets and
-losses) is not ported yet.
+and 1024x768 canvases.
+
+``loss`` runs the network in train mode, as erd_tpu's ``loss_and_state``
+does: every BN of the hourglass and the corner pools normalises by its
+batch statistics and updates its running statistics in place (flax's
+momentum 0.9, biased variance). The targets come from
+``render_corner_targets`` (kernel ``csrc/corner_targets.cu``); summed over
+both stacks: the gaussian focal loss of each heatmap over its count of
+exact-1 peaks (halved over the two corners), the pull / push of the
+embeddings at the gt corners (0.1 each), and the smooth-L1 of the offsets
+at the corner pixels over their count. The corner pools' gradient is
+erd_tpu's (``corner_pool_backward``, 8 launches a step). As in erd_tpu's
+trainer (``frozen_stages`` 1, whose ``stem_conv`` prefix names the
+hourglass's stem), ``backbone.stem_conv`` is not trained.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Sequence, Tuple
 
@@ -34,9 +47,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...losses import (associative_embedding_loss, gaussian_focal_loss,
+                       smooth_l1_loss)
 from ...ops import corner_pool, local_maximum, nms_select, soft_nms_select
+from ...ops.gaussian import render_corner_targets
 from ...ops.misc import topk_stable
-from ...ops.sampling import TRAIN_ITEM
 from ...structures import DetResults
 from ...utils import resolve_device
 from ..backbones.hourglass import ConvBN, HourglassNet
@@ -45,6 +60,7 @@ from ..preprocessor import Preprocessor
 
 HEADS = ('heat', 'emb', 'off')
 POOL_CHANNELS = 128
+AE_WEIGHT = 0.10  # the pull and the push weight of the embedding loss
 
 
 class BiCornerPool(nn.Module):
@@ -155,7 +171,7 @@ def topk_corners(scores, emb, off, k):
 
 @dataclass
 class CornerNetDetector:
-    """Config + functions of CornerNet (serving)."""
+    """Config + functions of CornerNet."""
     num_classes: int = 80
     num_stacks: int = 2
     stage_channels: Tuple[int, ...] = (256, 256, 384, 384, 384, 512)
@@ -169,12 +185,18 @@ class CornerNetDetector:
     # the published recipe tests with gaussian soft-NMS; 'nms' is greedy
     nms_type: str = 'soft_nms'
     soft_nms_sigma: float = 0.5
+    # erd_tpu's trainer freezes the params under backbone/ whose name starts
+    # with 'stem_conv' for frozen_stages >= 0 (its ResNet rule)
+    frozen_stages: int = 1
     preprocessor: Preprocessor = field(default_factory=Preprocessor)
 
     def build_net(self) -> CornerNetNet:
-        return CornerNetNet(self.num_classes, self.num_stacks,
-                            self.stage_channels, self.stage_blocks,
-                            self.downsample_times)
+        net = CornerNetNet(self.num_classes, self.num_stacks,
+                           self.stage_channels, self.stage_blocks,
+                           self.downsample_times)
+        if self.frozen_stages >= 0:
+            net.backbone.stem_conv.requires_grad_(False)
+        return net
 
     def init(self, seed: int = 0, device=None) -> CornerNetNet:
         """A seeded random network on ``device`` (``cuda`` unless the
@@ -244,6 +266,66 @@ class CornerNetDetector:
         return self.nms(*self.decode(out, images.shape[1:3], batch['meta'],
                                      rescale))
 
-    def loss(self, net, batch):
-        raise NotImplementedError(f'CornerNet training is not ported yet '
-                                  f'({TRAIN_ITEM})')
+    def targets(self, gt, canvas_shape, feat_hw):
+        """``render_corner_targets`` of a batch's gt on (H, W) canvases."""
+        ih, iw = canvas_shape
+        fh, fw = feat_hw
+        return render_corner_targets(gt.bboxes, gt.labels, gt.mask,
+                                     (fh, fw), self.num_classes,
+                                     (fw / iw, fh / ih))
+
+    def loss(self, net: CornerNetNet, batch):
+        """Training losses: dict(loss_heatmap, loss_pull, loss_push,
+        loss_offset) of 0-dim tensors, summed over the stacks. The network
+        runs in train mode and its BN running statistics update in place.
+        batch: dict(images (B, H, W, 3) uint8, gt: GTInstances of (B, G,
+        ...)), on the network's device."""
+        images = batch['images']
+        with train_mode(net):
+            outs = net(self.preprocessor(images))
+        gt = batch['gt']
+        tgt = self.targets(gt, images.shape[1:3],
+                           outs[0]['tl_heat'].shape[-2:])
+        avg = {c: (tgt[f'{c}_heat'] == 1.0).sum().float().clamp(min=1.0)
+               for c in ('tl', 'br')}
+        avg_off = (tgt['tl_w'].sum() + tgt['br_w'].sum()).clamp(min=1.0)
+        losses = dict(loss_heatmap=0.0, loss_pull=0.0, loss_push=0.0,
+                      loss_offset=0.0)
+        for out in outs:
+            heat = sum(gaussian_focal_loss(
+                torch.sigmoid(out[f'{c}_heat'].float()), tgt[f'{c}_heat'],
+                alpha=2.0, gamma=4.0, reduction='none').sum() / avg[c]
+                for c in ('tl', 'br'))
+            losses['loss_heatmap'] = losses['loss_heatmap'] + heat / 2.0
+            emb = [corner_values(out[f'{c}_emb'].float(), tgt[f'{c}_xy'])
+                   for c in ('tl', 'br')]
+            pull, push = associative_embedding_loss(*emb, gt.mask,
+                                                    AE_WEIGHT, AE_WEIGHT)
+            losses['loss_pull'] = losses['loss_pull'] + pull.mean()
+            losses['loss_push'] = losses['loss_push'] + push.mean()
+            off = sum((smooth_l1_loss(out[f'{c}_off'].float(),
+                                      tgt[f'{c}_off'], beta=1.0,
+                                      reduction='none') *
+                       tgt[f'{c}_w']).sum() for c in ('tl', 'br'))
+            losses['loss_offset'] = losses['loss_offset'] + off / avg_off
+        return losses
+
+
+@contextlib.contextmanager
+def train_mode(net: nn.Module):
+    """``net`` in train mode within the block, then back in its mode."""
+    was = net.training
+    net.train()
+    try:
+        yield net
+    finally:
+        net.train(was)
+
+
+def corner_values(emb, xy):
+    """(B, 1, H, W) maps at (B, G, 2) (x, y) pixels -> (B, G); pixels
+    clipped onto the map, as XLA's gather clips them."""
+    b, _, h, w = emb.shape
+    x = xy[..., 0].long().clamp(0, w - 1)
+    y = xy[..., 1].long().clamp(0, h - 1)
+    return torch.gather(emb.flatten(1), 1, y * w + x)

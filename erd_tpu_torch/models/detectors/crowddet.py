@@ -8,7 +8,9 @@ classifier and 4 class-agnostic deltas off a shared 2FC trunk. ``predict``
 flattens both instances of every proposal, tags each with its proposal id
 and runs set-NMS (``ops.set_nms_mask``, the NMS kernel with its group
 test): the two instances of one proposal never suppress each other.
-Training (the EMD loss) is not ported yet: ``loss`` raises.
+``loss`` is Faster R-CNN's RPN loss and RoI sampling, then the EMD loss:
+the lesser of the two pairings of an RoI's two instances with its two
+best-overlapping gts.
 """
 from __future__ import annotations
 
@@ -131,7 +133,7 @@ class CrowdDetDetector(FasterRCNNDetector):
                           labels=take_rows(fl, idx), mask=ok,
                           num_candidates=vmask.sum(dim=-1))
 
-    def rcnn_losses(self, net, feats, samples: RoISamples, gt):
+    def rcnn_losses(self, net, feats, samples: RoISamples, gt, draws=None):
         """erd_tpu's EMD loss: dict(loss_emd), the mean over the valid
         samples of min(loss of pairing (0 -> gt 0, 1 -> gt 1), loss of
         pairing (0 -> gt 1, 1 -> gt 0)). A slot whose gt overlaps its RoI

@@ -283,11 +283,12 @@ class FasterRCNNDetector:
         samples = rcnn_sample(rois, roi_mask, gt, self.num_classes,
                               self.rcnn_coder, draws[2], draws[3],
                               self.rcnn_train_cfg)
-        losses.update(self.rcnn_losses(net, feats, samples, gt))
+        losses.update(self.rcnn_losses(net, feats, samples, gt, draws))
         return losses
 
-    def rcnn_losses(self, net, feats, samples: RoISamples, gt):
-        """The R-CNN stage's losses on the sampled RoIs."""
+    def rcnn_losses(self, net, feats, samples: RoISamples, gt, draws=None):
+        """The R-CNN stage's losses on the sampled RoIs (``draws``: all of
+        ``train_draws``' tensors, for heads that draw points)."""
         cls, reg = self.head_outputs(net, self.roi_feats(feats,
                                                          samples.rois))
         return rcnn_loss(cls, reg, samples, self.rcnn_train_cfg)

@@ -1,4 +1,4 @@
-"""Mask R-CNN (R50-FPN) serving; the counterpart of
+"""Mask R-CNN (R50-FPN) serving and training; the counterpart of
 erd_tpu/models/detectors/mask_rcnn.py.
 
 Faster R-CNN's detections, then the mask branch on them: the boxes scaled
@@ -7,8 +7,15 @@ back into the canvas (``scale_boxes``), RoIAlign 14x14 of P2-P5 (the kernel
 ``FCNMaskHead`` in float32 on weights rounded to the compute dtype, the
 detected class's channel and a sigmoid: ``predict`` returns (DetResults,
 masks (B, 100, 28, 28) probabilities), as erd_tpu's does. Pasting the masks
-into the image happens on the host, outside the detector. The mask loss
-comes with training (``loss`` raises).
+into the image happens on the host, outside the detector.
+
+``loss``: Faster R-CNN's RPN and R-CNN losses on the same sampler draws,
+then the mask branch on all 512 sampled RoIs of each image: RoIAlign 14x14
+with gradients into P2-P5 (the backward kernel of ``csrc/roi_align.cu``),
+the FCN head, and ``mask_loss`` against the 28x28 targets that
+``crop_resize_mask`` (kernel ``csrc/mask_target.cu``) resamples from each
+RoI's assigned gt crop (``GTInstances.masks``); only the positives count.
+A batch without gt masks raises, as erd_tpu's assert does.
 """
 from __future__ import annotations
 
@@ -16,10 +23,11 @@ from dataclasses import dataclass
 
 import torch
 
+from ...data.masks import crop_resize_mask
 from ...ops import multilevel_roi_align
-from ...ops.sampling import TRAIN_ITEM
 from ...structures import DetResults, scale_boxes
-from ..heads.mask_head import FCNMaskHead
+from ..heads.bbox_head import RoISamples
+from ..heads.mask_head import FCNMaskHead, mask_loss, pick_class
 from .faster_rcnn import ROI_STRIDES, FasterRCNNDetector, FasterRCNNNet
 
 
@@ -42,17 +50,9 @@ class MaskRCNNNet(FasterRCNNNet):
         normal(up, (4 * up.shape[0]) ** -0.5)
 
 
-def pick_class(logits, labels):
-    """(R, C, H, W) logits, (R,) labels -> (R, H, W) of each RoI's class
-    (labels clipped into range, as erd_tpu's)."""
-    r, c = logits.shape[:2]
-    idx = labels.reshape(-1).long().clamp(0, c - 1)
-    return logits[torch.arange(r, device=logits.device), idx]
-
-
 @dataclass
 class MaskRCNNDetector(FasterRCNNDetector):
-    """Config + functions of Mask R-CNN (serving)."""
+    """Config + functions of Mask R-CNN."""
     mask_size: int = 28
 
     def build_net(self) -> MaskRCNNNet:
@@ -92,6 +92,22 @@ class MaskRCNNDetector(FasterRCNNDetector):
                                          rpn_reg, meta, rescale=rescale)
         return res, self.mask_predict(net, feats, res, meta, rescale)
 
-    def loss(self, net, batch, draws=None):
-        raise NotImplementedError(f'the mask loss is not ported yet '
-                                  f'({TRAIN_ITEM})')
+    def mask_targets(self, samples: RoISamples, gt, out_size):
+        """(B * S, out, out) targets of the sampled RoIs from their gts'
+        crops."""
+        if gt.masks is None:
+            raise ValueError(f'{type(self).__name__} training needs gt masks '
+                             f'(GTInstances.masks; a dataset with_mask=True)')
+        return crop_resize_mask(gt.masks, gt.bboxes, samples.gt_idx,
+                                samples.rois, out_size).flatten(0, 1)
+
+    def rcnn_losses(self, net, feats, samples: RoISamples, gt, draws=None):
+        """Faster R-CNN's R-CNN losses, then ``loss_mask`` on the sampled
+        RoIs."""
+        losses = super().rcnn_losses(net, feats, samples, gt)
+        targets = self.mask_targets(samples, gt, self.mask_size)
+        roi14 = self.mask_feats(feats, samples.rois).flatten(0, 1)
+        logits = net.roi_head.mask_head(roi14).float()
+        losses['loss_mask'] = mask_loss(logits, targets, samples.labels,
+                                        samples.is_pos)
+        return losses

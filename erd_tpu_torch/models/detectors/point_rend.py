@@ -1,4 +1,4 @@
-"""PointRend (R50-FPN) serving; the counterpart of
+"""PointRend (R50-FPN) serving and training; the counterpart of
 erd_tpu/models/detectors/point_rend.py.
 
 Faster R-CNN's detections; RoIAlign 14x14 of P2-P5 on them (canvas frame);
@@ -15,8 +15,18 @@ returns (DetResults, masks (B, 100, 56, 56) probabilities), as erd_tpu's.
 Both ``point_sample`` calls of a step are the kernel ``csrc/point_sample.cu``
 on CUDA tensors: 2 steps, 4 launches a request. erd_tpu runs
 ``extract_feat`` a second time after Faster R-CNN's predict; the port
-reuses the features, which are the same. The point loss comes with
-training.
+reuses the features, which are the same.
+
+``loss``: Faster R-CNN's RPN and R-CNN losses on the same sampler draws;
+``loss_mask``, the BCE of the coarse head's 14x14 target-class logits on
+all 512 sampled RoIs of each image against ``crop_resize_mask``'s 14x14
+targets; ``loss_point``, the BCE of the point head at 196
+points an RoI against the targets sampled there and thresholded at 0.5:
+147 of them the most uncertain (-|coarse logit|, ties lowest index first)
+of 588 uniform draws, 49 more uniform draws. Four ``point_sample`` calls a
+step (uncertainty and targets without a gradient, the coarse logits and
+P2 with one: the backward kernel of ``csrc/point_sample.cu``). The two
+uniform draws come after the samplers' four in ``draws``.
 """
 from __future__ import annotations
 
@@ -26,13 +36,17 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import point_sample
-from ...ops.misc import topk_stable
+from ...ops.misc import take_rows, topk_stable
 from ...ops.roi_align import _div
-from ...ops.sampling import TRAIN_ITEM
 from ...structures import DetResults
-from ..heads.mask_head import CoarseMaskHead, MaskPointHead
-from .faster_rcnn import ROI_STRIDES, FasterRCNNNet
-from .mask_rcnn import MaskRCNNDetector, pick_class
+from ..heads.bbox_head import RoISamples
+from ..heads.mask_head import CoarseMaskHead, MaskPointHead, pick_class
+from .faster_rcnn import FasterRCNNDetector, ROI_STRIDES, FasterRCNNNet
+from .mask_rcnn import MaskRCNNDetector
+
+# PointRend's training points an RoI: NUM_POINTS, of which IMPORTANT are
+# the most uncertain of NUM_POINTS * OVERSAMPLE uniform draws
+NUM_POINTS, OVERSAMPLE, IMPORTANT = 196, 3, 147
 
 
 class PointRendNet(FasterRCNNNet):
@@ -85,7 +99,7 @@ def fine_points(rois, rel, p2_hw):
 
 @dataclass
 class PointRendDetector(MaskRCNNDetector):
-    """Config + functions of PointRend (serving)."""
+    """Config + functions of PointRend."""
     subdivision_steps: int = 2
     subdivision_points: int = 196
 
@@ -143,6 +157,64 @@ class PointRendDetector(MaskRCNNDetector):
         return torch.sigmoid(logits).reshape(*rois.shape[:2],
                                              *logits.shape[1:])
 
-    def loss(self, net, batch, draws=None):
-        raise NotImplementedError(f'the point loss is not ported yet '
-                                  f'({TRAIN_ITEM})')
+    def train_draws(self, img_id, b, n_anchors, n_candidates, device):
+        """Faster R-CNN's four sampler draws, then the point draws: (B * S,
+        588, 2) and (B * S, 49, 2) uniform in [0, 1), S = the sampled RoIs
+        an image."""
+        draws = super().train_draws(img_id, b, n_anchors, n_candidates,
+                                    device)
+        gen = torch.Generator(device=device).manual_seed(
+            int(img_id.sum()) + 99)
+        r = b * self.rcnn_train_cfg.num_samples
+        return draws + tuple(
+            torch.rand((r, n, 2), generator=gen, device=device)
+            for n in (NUM_POINTS * OVERSAMPLE, NUM_POINTS - IMPORTANT))
+
+    def rcnn_losses(self, net, feats, samples: RoISamples, gt, draws=None):
+        """Faster R-CNN's R-CNN losses, then ``loss_mask`` (coarse) and
+        ``loss_point`` on the sampled RoIs; ``draws[4:6]`` the two uniform
+        point draws (``train_draws``)."""
+        if draws is None or len(draws) != 6:
+            raise ValueError('PointRend: draws must hold the four sampler '
+                             'draws and the two point draws (train_draws)')
+        rnd, rnd2 = draws[4], draws[5]
+        # the coarse and point losses take the place of Mask R-CNN's
+        losses = FasterRCNNDetector.rcnn_losses(self, net, feats, samples,
+                                                gt)
+        b, s = samples.rois.shape[:2]
+        labels = samples.labels.reshape(-1)
+        pos = samples.is_pos.reshape(-1).float()
+        n_pos = pos.sum().clamp(min=1.0)
+        coarse = net.roi_head.mask_head(
+            self.mask_feats(feats, samples.rois).flatten(0, 1)).float()
+        coarse_at = pick_class(coarse, labels)                  # (R, 14, 14)
+        mt14 = self.mask_targets(samples, gt, coarse.shape[-1])
+        losses['loss_mask'] = (bce_softplus(coarse_at, mt14).mean((1, 2)) *
+                               pos).sum() / n_pos
+
+        with torch.no_grad():
+            unc = -point_sample(coarse_at[:, None], rnd)[..., 0].abs()
+        _, imp = topk_stable(unc, IMPORTANT)
+        pts = torch.cat([take_rows(rnd, imp), rnd2], 1)         # (R, K, 2)
+        k = pts.shape[1]
+        coarse_pts = point_sample(coarse, pts)                  # (R, K, C)
+        p2 = feats[0]
+        fine = point_sample(p2, fine_points(
+            samples.rois, pts.reshape(b, s, k, 2), p2.shape[-2:]))
+        plog = net.roi_head.point_head(fine.reshape(b * s, k, -1),
+                                       coarse_pts).float()
+        pt_at = torch.gather(plog, 2, labels.long().clamp(
+            0, plog.shape[-1] - 1)[:, None, None].expand(-1, k, 1))[..., 0]
+        with torch.no_grad():
+            tgt = (point_sample(mt14[:, None], pts)[..., 0] > 0.5).float()
+        losses['loss_point'] = (bce_softplus(pt_at, tgt).mean(-1) *
+                                pos).sum() / n_pos
+        return losses
+
+
+def bce_softplus(logits, targets):
+    """erd_tpu's PointRend BCE: softplus(-x) * t + softplus(x) * (1 - t),
+    softplus as ``jax.nn.softplus`` (logaddexp(x, 0))."""
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    return torch.logaddexp(-logits, zero) * targets + \
+        torch.logaddexp(logits, zero) * (1 - targets)

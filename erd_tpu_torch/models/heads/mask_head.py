@@ -1,4 +1,4 @@
-"""Mask heads (serving); the counterparts of erd_tpu/models/heads/
+"""Mask heads and the mask loss; the counterparts of erd_tpu/models/heads/
 mask_head.py ``FCNMaskHead`` and of point_rend.py's ``CoarseMaskHead`` and
 ``MaskPointHead``.
 
@@ -13,7 +13,8 @@ float32 convolutions run in full float32 (no TF32).
 flipped (flax's ``transpose_kernel=False``), so output pixel (2i + a, 2j +
 b) takes tap (1 - a, 1 - b) of it; ``weight_import.params_from_jax`` flips
 the taps into torch's ``ConvTranspose2d`` layout (I, O, 2, 2), where it
-takes tap (a, b). The mask loss comes with training.
+takes tap (a, b). ``mask_loss`` is erd_tpu's ``mask_loss``: the BCE of each
+positive RoI's target-class logits against its targets.
 """
 from __future__ import annotations
 
@@ -21,14 +22,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...utils import conv_fp32_precision
+from ...losses import binary_cross_entropy_with_logits
+from ...utils import conv_transpose2d_ieee
 from ..layers import Conv2d, ConvModule, Linear
+
+
+def pick_class(logits, labels):
+    """(R, C, H, W) logits, (R,) labels -> (R, H, W) of each RoI's class
+    (labels clipped into range, as erd_tpu's)."""
+    r, c = logits.shape[:2]
+    idx = labels.reshape(-1).long().clamp(0, c - 1)
+    return logits[torch.arange(r, device=logits.device), idx]
+
+
+def mask_loss(mask_logits, mask_targets, labels, is_pos):
+    """BCE on the target-class channel of the positive RoIs: mask_logits
+    (R, C, S, S) float32, mask_targets (R, S, S) in [0, 1], labels (R,),
+    is_pos (R,). Each RoI's mean over its S x S cells, summed over the
+    positives and divided by max(#positives, 1)."""
+    bce = binary_cross_entropy_with_logits(pick_class(mask_logits, labels),
+                                           mask_targets)
+    pos = is_pos.reshape(-1).to(bce.dtype)
+    return (bce.mean((1, 2)) * pos).sum() / pos.sum().clamp(min=1.0)
 
 
 class ConvTranspose2x2(nn.ConvTranspose2d):
     """The 2x2 stride-2 transposed conv of the mask head, weights rounded
     to ``param_dtype``, computed in the promoted dtype (full float32 for a
-    float32 input)."""
+    float32 input, forward and backward)."""
 
     def __init__(self, in_ch, out_ch, param_dtype=torch.float32):
         super().__init__(in_ch, out_ch, 2, stride=2)
@@ -38,8 +59,7 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
         dtype = torch.promote_types(x.dtype, self.param_dtype)
         w = self.weight.to(self.param_dtype).to(dtype)
         b = self.bias.to(self.param_dtype).to(dtype)
-        with conv_fp32_precision('ieee'):
-            return F.conv_transpose2d(x.to(dtype), w, b, stride=2)
+        return conv_transpose2d_ieee(x.to(dtype), w, b, stride=(2, 2))
 
 
 class FCNMaskHead(nn.Module):

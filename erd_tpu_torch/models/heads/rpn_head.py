@@ -1,11 +1,13 @@
-"""RPN head: objectness and deltas, and proposal generation; the
-counterpart of erd_tpu/models/heads/rpn_head.py (serving).
+"""RPN head: objectness and deltas, proposal generation and the RPN loss;
+the counterpart of erd_tpu/models/heads/rpn_head.py.
 
 Anchors: scale 8, ratios 0.5 / 1 / 2 on strides 4-64. Proposals per image:
 a stable top-``nms_pre`` per level by sigmoid score, delta decode clipped to
 the image, the ``min_bbox_size`` filter, then NMS with the level as the
-class (mmdet 3.x) into ``max_per_img`` padded slots, all fixed-shape. The
-training loss (MaxIoU assignment, random sampling) is not ported yet.
+class (mmdet 3.x) into ``max_per_img`` padded slots, all fixed-shape.
+``rpn_loss``: MaxIoU assignment of the anchors, random sampling of 256 an
+image on the caller's uniform draws, the objectness BCE and the L1 of the
+deltas.
 """
 from __future__ import annotations
 

@@ -263,6 +263,26 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def batch_stats_to_jax(net: nn.Module) -> Dict:
+    """CornerNet's BN running statistics -> erd_tpu's nested
+    ``batch_stats`` ({scope: {...: {'bn': {'mean', 'var'}}}} of numpy
+    float32): the inverse of ``params_from_jax``'s ``batch_stats`` branch
+    for the hourglass and the corner pools, whose module paths are
+    erd_tpu's scopes. Holds the running statistics that train-mode BN
+    updated against erd_tpu's ``new_state['batch_stats']``."""
+    names = {'running_mean': 'mean', 'running_var': 'var'}
+    out: Dict = {}
+    for key, value in net.state_dict().items():
+        *path, leaf = key.split('.')
+        if leaf not in names:
+            continue
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[names[leaf]] = value.detach().cpu().float().numpy()
+    return out
+
+
 def load_torch_checkpoint_file(net: nn.Module, path: str):
     """Load an mmdet ``.pth`` into ``net`` (GFL, VFNet, Faster R-CNN, Mask
     R-CNN or CrowdDet) in place; raises for the DETR family, PointRend and

@@ -10,8 +10,11 @@ contracts a multiply and an add into one FMA: the NMS, soft-NMS, ATSS and
 RoIAlign kernels must round every IoU, distance and sample exactly as the
 plain versions do, the deformable-attention and deformable-im2col kernels
 must round every bilinear sample as their plain versions do, the CARAFE
-kernel every product and sum of its reassembly, and the point-sample kernel
-every product and sum of its bilinear weights.
+kernel every product and sum of its reassembly, the point-sample kernel
+every product and sum of its bilinear weights, the mask-target kernel
+every step from an RoI's cell to a crop's corners (a floor near an integer
+must land where erd_tpu's does), and the corner-target kernel each
+gaussian's exponent.
 
 The Triton kernels (``ops/gfl_loss.py``, ``ops/erd_distill.py``) import
 Triton through ``import_triton``, which points Triton's cache at
@@ -34,7 +37,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-Xptxas', '-v')
 SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select', 'roi_align',
            'soft_nms', 'ms_deform_attn', 'deform_conv', 'carafe',
-           'point_sample', 'corner_pool')
+           'point_sample', 'corner_pool', 'mask_target', 'corner_targets')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each build made by this process

@@ -1,22 +1,27 @@
-"""Bilinear point sampling; the counterpart of ``point_sample`` in
-erd_tpu/ops/sampling.py.
+"""Bilinear point sampling and its gradient; the counterpart of
+``point_sample`` in erd_tpu/ops/sampling.py.
 
 ``point_sample`` samples maps at normalised [0, 1] point coordinates (x, y)
 with grid_sample's ``align_corners=False`` convention (pixel centres at
 (i + 0.5) / size) and zero padding per corner: each of the four bilinear
 corners outside the map contributes 0, the others their weighted value, as
 erd_tpu's ``_grid_sample_bilinear`` does. One call takes a batch of maps and
-a batch of point sets, which covers both of PointRend's calls: the coarse
-call (one 14x14 logit map per RoI, its own points) and the fine call (one
-P2 map per image, the points of all of that image's RoIs).
+a batch of point sets, which covers every PointRend call: the coarse calls
+(one 14x14 logit map per RoI, its own points) and the fine call (one P2 map
+per image, the points of all of that image's RoIs).
 
 Maps are the port's NCHW tensors, read through their strides (NCHW or
 channels-last memory alike); the output is (N, K, C) float32, the samples of
-the widened map, as erd_tpu samples ``astype(float32)`` maps. CPU tensors
-take ``point_sample_plain``; CUDA tensors launch the kernel
-``csrc/point_sample.cu`` (one launch per call, counted in
-``point_sample.launches``). ``align_corners=True`` has no kernel: no model
-path uses it, and it raises on CUDA tensors.
+the widened map, as erd_tpu samples ``astype(float32)`` maps. The function
+is differentiable in the maps (``point_sample_backward``: the four corners'
+weighted gradients added into a float32 buffer with the map's strides,
+rounded once to the map's dtype); the points get no gradient (erd_tpu's
+points are uniform draws and top-k picks on detached RoIs), and points that
+require one raise while grad is on. CPU tensors take the plain versions;
+CUDA tensors launch the kernels of ``csrc/point_sample.cu`` (one launch per
+call each way, counted in ``point_sample.launches`` and
+``point_sample_backward.launches``). ``align_corners=True`` has no kernel:
+no model path uses it, and it raises on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -26,10 +31,6 @@ import torch
 
 from . import cuda_build
 from .roi_align import acc_dtype
-
-TRAIN_ITEM = ('ROADMAP.md, section 1: the training of Mask R-CNN, PointRend '
-              'and CornerNet')
-
 
 def _sample_coords(points, h, w, align_corners):
     """erd_tpu's unnormalised pixel coordinates (xs, ys) of (N, K, 2)
@@ -94,34 +95,138 @@ def _point_sample_kernel(maps, points):
     return out
 
 
+class _PointSample(torch.autograd.Function):
+    """``point_sample`` with its gradient in the maps (the points take
+    none): the plain versions for CPU tensors, the kernels for CUDA
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, points, align_corners, maps):
+        ctx.save_for_backward(points)
+        ctx.args = (tuple(maps.shape), maps.stride(), maps.dtype,
+                    align_corners)
+        if maps.device.type == 'cpu':
+            return point_sample_plain(maps, points, align_corners)
+        return _point_sample_kernel(maps, points)
+
+    @staticmethod
+    def backward(ctx, grad):
+        points, = ctx.saved_tensors
+        shape, strides, dtype, align_corners = ctx.args
+        return None, None, point_sample_backward(
+            grad.contiguous(), points, shape, strides, dtype, align_corners)
+
+
 def point_sample(maps, points, align_corners=False):
     """Bilinear samples of ``maps`` at ``points``.
 
     Args:
         maps: (N, C, H, W) float32 or bfloat16, any strides.
-        points: (N, K, 2) float32, (x, y) in [0, 1] of the map's extent.
-    Returns (N, K, C) float32.
+        points: (N, K, 2) float32, (x, y) in [0, 1] of the map's extent; no
+            gradient.
+    Returns (N, K, C) float32, differentiable in ``maps``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which has no backward yet and raises where autograd would need one.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     if maps.dim() != 4 or points.dim() != 3 or points.shape[-1] != 2 or \
             points.shape[0] != maps.shape[0]:
         raise ValueError(f'point_sample: maps (N, C, H, W) and points (N, K, '
                          f'2) expected, got {tuple(maps.shape)} and '
                          f'{tuple(points.shape)}')
-    if maps.device.type == 'cpu':
-        return point_sample_plain(maps, points, align_corners)
-    if maps.device.type != 'cuda':
+    if maps.device.type not in ('cpu', 'cuda'):
         raise RuntimeError(f'point_sample: no kernel for {maps.device}')
-    if align_corners:
+    if maps.device.type == 'cuda' and align_corners:
         raise NotImplementedError('point_sample: align_corners=True has no '
                                   'kernel (no model path uses it)')
-    if torch.is_grad_enabled() and (maps.requires_grad or
-                                    points.requires_grad):
-        raise NotImplementedError(f'point_sample has no backward kernel yet '
-                                  f'({TRAIN_ITEM})')
-    return _point_sample_kernel(maps, points)
+    if torch.is_grad_enabled() and points.requires_grad:
+        raise ValueError('point_sample: the points take no gradient; detach '
+                         'them')
+    return _PointSample.apply(points, align_corners, maps)
 
 
 point_sample.launches = 0
+
+
+def point_sample_backward_plain(grad, points, shape, align_corners=False):
+    """Plain PyTorch version of the backward kernel: grad (N, K, C) float32
+    -> (N, C, H, W) float32 (float64 for a float64 grad), the transpose of
+    ``point_sample_plain``'s four corner gathers: each corner on the map
+    gets (g * its x weight) * its y weight, added with ``index_add_`` into
+    the map's (N * H * W, C) pixel rows."""
+    n, c, h, w = shape
+    k = points.shape[1]
+    g = grad.to(acc_dtype(grad.dtype))
+    xs, ys = _sample_coords(points.to(g.dtype), h, w, align_corners)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy, wx = (ys - y0)[..., None], (xs - x0)[..., None]
+    y0, x0 = y0.long(), x0.long()
+    rows = torch.zeros((n * h * w, c), dtype=g.dtype, device=g.device)
+    base = (torch.arange(n, device=g.device) * (h * w))[:, None]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    for yy, xx, gy, gx in ((y0, x0, 1 - wy, 1 - wx), (y0, x0 + 1, 1 - wy, wx),
+                           (y0 + 1, x0, wy, 1 - wx), (y0 + 1, x0 + 1, wy, wx)):
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        idx = base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+        rows.index_add_(0, idx.flatten(), torch.where(
+            ok[..., None], g * gx * gy, zero).reshape(n * k, c))
+    return rows.view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+def point_sample_backward(grad, points, shape, strides=None,
+                          dtype=torch.float32, align_corners=False):
+    """Gradient of ``point_sample`` in its maps.
+
+    Args:
+        grad: (N, K, C) float32, the gradient of the samples.
+        points: the (N, K, 2) points of the forward call.
+        shape, strides: the maps' (N, C, H, W) and element strides (None:
+            contiguous).
+        dtype: the maps' dtype, float32 or bfloat16.
+    Returns (N, C, H, W) in ``dtype`` with the maps' strides: float32 sums,
+    each rounded once to ``dtype`` (the transpose of erd_tpu's
+    ``astype(float32)``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    ``erd_point_sample_backward`` into a zeroed float32 buffer (one launch a
+    call, counted in ``point_sample_backward.launches``); atomics add the
+    corners, so the sums' order varies from run to run.
+    """
+    n, c, h, w = shape
+    if grad.dim() != 3 or tuple(grad.shape) != (n, points.shape[1], c) or \
+            points.shape[0] != n:
+        raise ValueError(f'point_sample_backward: grad (N, K, C) and points '
+                         f'(N, K, 2) of maps {tuple(shape)} expected, got '
+                         f'{tuple(grad.shape)} and {tuple(points.shape)}')
+    if strides is None:
+        strides = torch.empty(shape, device='meta').stride()
+    if grad.device.type == 'cpu':
+        out = point_sample_backward_plain(grad, points, shape, align_corners)
+        return torch.empty_strided(shape, strides, dtype=dtype).copy_(out)
+    if grad.device.type != 'cuda':
+        raise RuntimeError(f'point_sample_backward: no kernel for '
+                           f'{grad.device}')
+    if align_corners:
+        raise NotImplementedError('point_sample_backward: align_corners=True '
+                                  'has no kernel (no model path uses it)')
+    if grad.dtype != torch.float32 or points.dtype != torch.float32 or \
+            dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError('point_sample_backward: float32 grad and points, '
+                        'float32 or bfloat16 maps expected')
+    grad, points = grad.contiguous(), points.contiguous()
+    buf = torch.empty_strided(shape, strides, dtype=torch.float32,
+                              device=grad.device).zero_()
+    lib = cuda_build.load('point_sample')
+    fn = lib.erd_point_sample_backward
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
+                   [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(grad.data_ptr(), points.data_ptr(), buf.data_ptr(), n, c, h,
+                 w, points.shape[1], *buf.stride(), stream)
+    cuda_build.check(lib, err, 'point_sample_backward')
+    point_sample_backward.launches += 1
+    return buf if dtype == torch.float32 else buf.to(dtype)
+
+
+point_sample_backward.launches = 0

@@ -29,13 +29,16 @@ def stack_to(items: Sequence[Any], device) -> Any:
 @dataclass
 class GTInstances:
     """Padded ground truth: bboxes (MAX_GT, 4), labels (MAX_GT,),
-    mask (MAX_GT,) validity."""
+    mask (MAX_GT,) validity, and optional masks (MAX_GT, R, R) uint8
+    instance-mask crops normalised to their gt boxes (R = 56, made by the
+    data pipeline; Mask R-CNN and PointRend train on them)."""
     bboxes: Any
     labels: Any
     mask: Any
+    masks: Any = None
 
     @staticmethod
-    def pad(bboxes, labels, max_gt, ignore=None):
+    def pad(bboxes, labels, max_gt, ignore=None, masks=None):
         n = min(len(bboxes), max_gt)
         out_b = np.zeros((max_gt, 4), np.float32)
         out_l = np.zeros((max_gt,), np.int32)
@@ -45,7 +48,14 @@ class GTInstances:
         out_m[:n] = True
         if ignore is not None:
             out_m[:n] &= ~np.asarray(ignore, bool)[:n]
-        return GTInstances(bboxes=out_b, labels=out_l, mask=out_m)
+        out_masks = None
+        if masks is not None:
+            r = masks[0].shape[0] if len(masks) else 56
+            out_masks = np.zeros((max_gt, r, r), np.uint8)
+            for i, mk in enumerate(masks[:max_gt]):
+                out_masks[i] = mk
+        return GTInstances(bboxes=out_b, labels=out_l, mask=out_m,
+                           masks=out_masks)
 
 
 @dataclass

@@ -41,35 +41,46 @@ def conv_fp32_precision(precision: str = 'ieee'):
 
 
 class _IEEEConv2d(torch.autograd.Function):
-    """A 2-D convolution whose forward and backward (cuDNN's data and weight
-    gradients) both run under ``conv_fp32_precision('ieee')``: autograd
-    runs a plain convolution's backward outside any context the forward
-    was called in."""
+    """A 2-D convolution, or transposed convolution, whose forward and
+    backward (cuDNN's data and weight gradients) both run under
+    ``conv_fp32_precision('ieee')``: autograd runs a plain convolution's
+    backward outside any context the forward was called in."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding):
+    def forward(ctx, x, weight, bias, stride, padding, transposed):
         ctx.save_for_backward(x, weight)
-        ctx.conv = (stride, padding, bias is not None)
+        ctx.conv = (stride, padding, bias is not None, transposed)
+        conv = F.conv_transpose2d if transposed else F.conv2d
         with conv_fp32_precision('ieee'):
-            return F.conv2d(x, weight, bias, stride, padding)
+            return conv(x, weight, bias, stride, padding)
 
     @staticmethod
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
-        stride, padding, has_bias = ctx.conv
+        stride, padding, has_bias, transposed = ctx.conv
         need = ctx.needs_input_grad
+        out_ch = weight.shape[1] if transposed else weight.shape[0]
         with conv_fp32_precision('ieee'):
             gx, gw, gb = torch.ops.aten.convolution_backward(
-                grad, x, weight, [weight.shape[0]] if has_bias else None,
-                stride, padding, (1, 1), False, (0, 0), 1,
+                grad, x, weight, [out_ch] if has_bias else None,
+                stride, padding, (1, 1), transposed, (0, 0), 1,
                 (need[0], need[1], has_bias and need[2]))
-        return gx, gw, gb, None, None
+        return gx, gw, gb, None, None, None
 
 
 def conv2d_ieee(x, weight, bias=None, stride=(1, 1), padding=(0, 0)):
     """F.conv2d (dilation 1, one group) in full float32, forward and
     backward; for float32 tensors, where cuDNN may otherwise use TF32."""
-    return _IEEEConv2d.apply(x, weight, bias, tuple(stride), tuple(padding))
+    return _IEEEConv2d.apply(x, weight, bias, tuple(stride), tuple(padding),
+                             False)
+
+
+def conv_transpose2d_ieee(x, weight, bias=None, stride=(1, 1),
+                          padding=(0, 0)):
+    """F.conv_transpose2d (no output padding, dilation 1, one group) in
+    full float32, forward and backward."""
+    return _IEEEConv2d.apply(x, weight, bias, tuple(stride), tuple(padding),
+                             True)
 
 
 def resolve_device(device=None) -> torch.device:

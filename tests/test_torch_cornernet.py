@@ -37,7 +37,7 @@ from erd_tpu_torch.models.backbones import HourglassNet
 from erd_tpu_torch.models.weight_import import (load_torch_checkpoint_file,
                                                  params_from_jax)
 from erd_tpu_torch.ops import corner_pool, corner_pool_plain, local_maximum
-from erd_tpu_torch.structures import ImageMeta, stack_to
+from erd_tpu_torch.structures import GTInstances, ImageMeta, stack_to
 
 torch.set_num_threads(2)
 
@@ -237,9 +237,11 @@ def test_cornernet_predict_matches_jax(cornernet):
 # --------------------------------------------------------- build_detector
 def test_build_detector_serves_the_config_in_float32():
     """The HG-104 config builds a float32 CornerNet with erd_tpu's test
-    keys (its bf16 compute_dtype is not read, as in erd_tpu);
-    build_detector's raise paths; inference_detector on a 96x128 canvas,
-    whose sides are multiples of the small hourglass's 4 * 2^2."""
+    keys (its bf16 compute_dtype is not read, as in erd_tpu) and erd_tpu's
+    frozen_stages; build_detector's raise paths; the small network's loss
+    runs in train mode and leaves it in eval mode; inference_detector on a
+    96x128 canvas, whose sides are multiples of the small hourglass's
+    4 * 2^2."""
     cfg = Config.fromfile(CONFIG)
     det = build_detector(cfg.model)
     assert type(det) is CornerNetDetector
@@ -250,6 +252,7 @@ def test_build_detector_serves_the_config_in_float32():
     assert (det.stage_channels, det.stage_blocks, det.num_stacks) == \
         ((256, 256, 384, 384, 384, 512), (2, 2, 2, 2, 2, 4), 2)
     assert det.preprocessor.compute_dtype == torch.float32
+    assert det.frozen_stages == 1
     for key, value in (('neck', dict(type='FPN')), ('dcn_stages',
                                                      (0, 1, 1, 1))):
         with pytest.raises(NotImplementedError, match='not ported yet'):
@@ -258,8 +261,16 @@ def test_build_detector_serves_the_config_in_float32():
         build_detector(Config(type='CentripetalNet'))
     small = CornerNetDetector(**SMALL)
     net = small.init(seed=0, device='cpu')
-    with pytest.raises(NotImplementedError, match='CornerNet training'):
-        small.loss(net, {})
+    gt = GTInstances.pad([[8, 8, 60, 50]], [2], 3)
+    batch = dict(images=torch.zeros((1, 64, 96, 3), dtype=torch.uint8),
+                 gt=stack_to([gt], 'cpu'))
+    before = net.backbone.stem_conv.bn.running_mean.clone()
+    losses = small.loss(net, batch)
+    assert set(losses) == {'loss_heatmap', 'loss_pull', 'loss_push',
+                           'loss_offset'}
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert not net.training and not torch.equal(
+        before, net.backbone.stem_conv.bn.running_mean)
     with pytest.raises(NotImplementedError, match='params_from_jax'):
         load_torch_checkpoint_file(net, 'unused.pth')
     img = np.random.RandomState(8).randint(0, 256, (90, 120, 3), np.uint8)

@@ -690,6 +690,39 @@ def test_tf32_is_off_for_the_ports_float32_conv_backward(cuda):
         assert float((g - w).abs().max()) > lim * float(w.abs().max())
 
 
+def test_tf32_is_off_for_the_mask_heads_transposed_conv_backward(cuda):
+    """The mask head's 2x2 transposed conv (256 -> 256 channels on 8192 /
+    16 RoIs of 14x14, float32): its input and weight gradients card vs CPU
+    within 1e-5 and 1e-4 * max|grad|, as the float32 Conv2d's; the same
+    transposed conv's backward run in TF32 misses both limits."""
+    from erd_tpu_torch.models.heads.mask_head import ConvTranspose2x2
+    gen = torch.Generator().manual_seed(2)
+    m = ConvTranspose2x2(256, 256)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / 32.0)
+    x = torch.randn(512, 256, 14, 14, generator=gen)
+    r = torch.randn(512, 256, 28, 28, generator=gen)
+
+    def grads(mod, dev, tf32=False):
+        mod = copy.deepcopy(mod).to(dev)
+        xd = x.to(dev).detach().requires_grad_(True)
+        if tf32:
+            with conv_fp32_precision('tf32'):
+                out = torch.nn.functional.conv_transpose2d(
+                    xd, mod.weight, mod.bias, stride=2)
+                (out * r.to(dev)).sum().backward()
+        else:
+            (mod(xd) * r.to(dev)).sum().backward()
+        return xd.grad.cpu(), mod.weight.grad.cpu()
+
+    want = grads(m, 'cpu')
+    limits = (1e-5, 1e-4)
+    for g, w, lim in zip(grads(m, cuda), want, limits):
+        assert float((g - w).abs().max()) <= lim * float(w.abs().max())
+    for g, w, lim in zip(grads(m, cuda, tf32=True), want, limits):
+        assert float((g - w).abs().max()) > lim * float(w.abs().max())
+
+
 def test_tf32_is_off_for_the_ports_float32_convs(cuda):
     """In torch's defaults (cuDNN may convolve float32 in TF32), the port's
     ModulatedDeformConv.offsets on a GFL R101-DCN layer3 input (256 x 50 x
@@ -1169,25 +1202,150 @@ def test_corner_pool_kernel_matches_plain_exactly(cuda, direction, dtype,
 
 def test_point_sample_and_corner_pool_never_reach_plain_on_cuda(
         cuda, monkeypatch):
-    """CUDA tensors launch the kernels or raise: align_corners=True and a
-    gradient have no kernel yet."""
+    """CUDA tensors launch the kernels, forward and backward, or raise:
+    align_corners=True has no kernel, and points take no gradient."""
     import erd_tpu_torch.ops.extra_nms as pool_module
     import erd_tpu_torch.ops.sampling as sampling_module
 
     def refuse(*args):
         raise AssertionError('the plain version ran on a CUDA tensor')
-    monkeypatch.setattr(sampling_module, 'point_sample_plain', refuse)
-    monkeypatch.setattr(pool_module, 'corner_pool_plain', refuse)
+    for name in ('point_sample_plain', 'point_sample_backward_plain'):
+        monkeypatch.setattr(sampling_module, name, refuse)
+    for name in ('corner_pool_plain', 'corner_pool_backward_plain'):
+        monkeypatch.setattr(pool_module, name, refuse)
     maps, pts = point_sample_case(np.random.RandomState(2), cuda,
                                   torch.float32, 'fine')
     sampling_module.point_sample(maps, pts)
     pool_module.corner_pool(maps, 'left')
     with pytest.raises(NotImplementedError, match='align_corners'):
         sampling_module.point_sample(maps, pts, align_corners=True)
-    with pytest.raises(NotImplementedError, match='backward'):
-        sampling_module.point_sample(maps.requires_grad_(), pts)
-    with pytest.raises(NotImplementedError, match='backward'):
-        pool_module.corner_pool(maps, 'top')
+    with pytest.raises(ValueError, match='no gradient'):
+        sampling_module.point_sample(maps, pts.clone().requires_grad_())
+    counts = (sampling_module.point_sample_backward.launches,
+              pool_module.corner_pool_backward.launches)
+    leaf = maps.clone().requires_grad_()
+    (sampling_module.point_sample(leaf, pts).sum() +
+     pool_module.corner_pool(leaf, 'top').sum()).backward()
+    torch.cuda.synchronize()
+    assert (sampling_module.point_sample_backward.launches - counts[0],
+            pool_module.corner_pool_backward.launches - counts[1]) == (1, 1)
+    assert leaf.grad.shape == maps.shape and bool(leaf.grad.isfinite().all())
+
+
+def test_point_sample_backward_kernel_matches_plain(cuda):
+    """The backward kernel on both PointRend call forms with gradients:
+    coarse float32 channels-last logits (float32 sums within 1e-5 *
+    max|plain|; atomics reorder them) and a bf16 P2 (rounded once, within
+    one bf16 ulp of the rounded plain sums); the buffer keeps the map's
+    strides."""
+    from erd_tpu_torch.ops.sampling import (point_sample_backward,
+                                            point_sample_backward_plain)
+    rs = np.random.RandomState(5)
+    for form, dtype in (('coarse', torch.float32), ('fine', torch.bfloat16),
+                        ('fine', torch.float32)):
+        maps, pts = point_sample_case(rs, cuda, dtype, form)
+        if form == 'fine':
+            maps = maps.contiguous(memory_format=torch.channels_last)
+        g = torch.randn((*pts.shape[:2], maps.shape[1]), device=cuda)
+        before = point_sample_backward.launches
+        got = point_sample_backward(g, pts, tuple(maps.shape), maps.stride(),
+                                    dtype)
+        torch.cuda.synchronize()
+        assert point_sample_backward.launches - before == 1
+        assert got.dtype == dtype and got.stride() == maps.stride()
+        want = point_sample_backward_plain(g, pts, tuple(maps.shape))
+        diff = (got.float() - want).abs()
+        limit = 1e-5 * float(want.abs().max())
+        if dtype == torch.float32:
+            assert float(diff.max()) <= limit, (form, float(diff.max()))
+        else:
+            assert bool(((bf16_ulps(got, want.to(dtype)) <= 1) |
+                         (diff <= limit)).all())
+
+
+@pytest.mark.parametrize('direction', ['top', 'bottom', 'left', 'right'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(1, 128, 192, 256), (2, 3, 37, 19),
+                                   (1, 2, 1, 5), (1, 2, 8, 8)])
+def test_corner_pool_backward_kernel_matches_plain_exactly(cuda, direction,
+                                                           dtype, shape):
+    """The scan-tree backward on random maps with ReLU'd ties (a third of
+    the values 0, runs of equal values): bit-equal to the plain version's
+    autograd through the same recursion, odd and even ray lengths."""
+    from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
+                                             corner_pool_backward_plain)
+    rs = np.random.RandomState(6)
+    x = np.maximum(rs.randn(*shape), -0.4) + 0.4
+    x[..., ::3] = np.round(x[..., ::3] * 2) / 2
+    x = torch.from_numpy(x.astype(np.float32)).to(device=cuda, dtype=dtype)
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        device=cuda, dtype=dtype)
+    before = corner_pool_backward.launches
+    got = corner_pool_backward(x, g, direction)
+    torch.cuda.synchronize()
+    assert corner_pool_backward.launches - before == 1
+    assert got.dtype == dtype
+    assert torch.equal(got, corner_pool_backward_plain(x, g, direction))
+
+
+@pytest.mark.parametrize('out_size', [28, 14])
+def test_crop_resize_mask_kernel_matches_plain_exactly(cuda, out_size):
+    """Mask targets of 512 RoIs an image, some outside or beyond their gt
+    box, degenerate gt boxes among them: equal to the plain version."""
+    from erd_tpu_torch.data.masks import (crop_resize_mask,
+                                          crop_resize_mask_plain)
+    rs = np.random.RandomState(7)
+    b, g, s = 2, 16, 512
+    xy = rs.uniform(0, 700, (b, g, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(0, 300, (b, g, 2))], -1)
+    boxes[0, 0] = [50, 50, 50, 50]
+    masks = (rs.rand(b, g, 56, 56) < 0.5).astype(np.uint8)
+    idx = rs.randint(0, g, (b, s))
+    gt_xy = boxes[np.arange(b)[:, None], idx, :2]
+    rois = np.concatenate([gt_xy - 40 + rs.uniform(0, 80, (b, s, 2))] * 2,
+                          -1)
+    rois[..., 2:] += rs.uniform(0, 400, (b, s, 2))
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        masks, boxes.astype(np.float32), idx, rois.astype(np.float32))]
+    before = crop_resize_mask.launches
+    got = crop_resize_mask(*args, out_size)
+    torch.cuda.synchronize()
+    assert crop_resize_mask.launches - before == 1
+    want = crop_resize_mask_plain(*args, out_size)
+    assert torch.equal(got, want)
+    assert 0.05 < float((want > 0).float().mean()) < 0.95
+
+
+def test_render_corner_targets_kernel_matches_plain(cuda):
+    """Corner targets of a batch of 6 images at 192x256, 80 classes, 16 gt
+    slots (some invalid, two sharing a corner pixel): heat within 1e-6,
+    the exact-1 peaks, offsets, weights and corner pixels equal."""
+    from erd_tpu_torch.ops.gaussian import (corner_scalars,
+                                            render_corner_targets,
+                                            render_corner_targets_plain)
+    rs = np.random.RandomState(8)
+    b, g = 6, 16
+    xy = rs.uniform(0, 900, (b, g, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(8, 500, (b, g, 2))], -1)
+    boxes[0, 1] = boxes[0, 0] + [1, 1, -1, -1]
+    labels = rs.randint(0, 80, (b, g))
+    valid = rs.rand(b, g) < 0.8
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        boxes.astype(np.float32), labels, valid)]
+    ratio = (256 / 1024, 192 / 768)
+    before = render_corner_targets.launches
+    got = render_corner_targets(*args, (192, 256), 80, ratio)
+    torch.cuda.synchronize()
+    assert render_corner_targets.launches - before == 1
+    want = render_corner_targets_plain(
+        corner_scalars(*args, (192, 256), 80, ratio), (192, 256), 80)
+    for c in ('tl', 'br'):
+        assert float((got[f'{c}_heat'] - want[f'{c}_heat']).abs().max()) \
+            <= 1e-6
+        assert int((got[f'{c}_heat'] == 1).sum()) == \
+            int((want[f'{c}_heat'] == 1).sum()) > 0
+        for k in ('off', 'w'):
+            assert torch.equal(got[f'{c}_{k}'], want[f'{c}_{k}'])
 
 
 @pytest.mark.parametrize('kind', ['mask_rcnn', 'point_rend'])
@@ -1256,3 +1414,81 @@ def test_cornernet_serving_on_cuda_uses_kernels(cuda):
                                atol=0)
     torch.testing.assert_close(got.bboxes.cpu(), want.bboxes, rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize('kind', ['mask_rcnn', 'point_rend', 'cornernet'])
+def test_mask_and_corner_training_on_cuda_uses_kernels(cuda, kind):
+    """Two fit steps on the card (ResNet-18 bf16 Mask R-CNN / PointRend at
+    256x320 with gt masks, or the small float32 CornerNet at 128x256):
+    finite losses, the launches of every new kernel each step (the mask
+    targets, the point-sample backward twice, the corner-pool backward 8
+    times, the corner targets), every trainable weight moved."""
+    from erd_tpu_torch.apis import build_trainer
+    from erd_tpu_torch.data.masks import crop_resize_mask
+    from erd_tpu_torch.engine import Hook
+    from erd_tpu_torch.models import CornerNetDetector
+    from erd_tpu_torch.ops import corner_pool, point_sample
+    from erd_tpu_torch.ops.extra_nms import corner_pool_backward
+    from erd_tpu_torch.ops.gaussian import render_corner_targets
+    from erd_tpu_torch.ops.sampling import point_sample_backward
+    from erd_tpu_torch.structures import ImageMeta
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rs = np.random.RandomState(9)
+    boxes = np.array([[20, 30, 120, 150], [150, 40, 300, 200]], np.float32)
+    masks = [(rs.rand(56, 56) < 0.6).astype(np.uint8) for _ in range(2)]
+    if kind == 'cornernet':
+        cfg = Config.fromfile(os.path.join(
+            root, 'configs', 'cornernet',
+            'cornernet_hourglass104_8xb6-210e-mstest_coco.py'))
+        det = CornerNetDetector(num_classes=4, stage_channels=(16, 16, 24),
+                                stage_blocks=(1, 1, 1), downsample_times=2)
+        hw = (128, 256)
+    else:
+        cfg = Config.fromfile(os.path.join(root, 'configs', {
+            'mask_rcnn': 'mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py',
+            'point_rend': 'point_rend/point-rend_r50-caffe_fpn_ms-1x_coco.py'
+        }[kind]))
+        cfg.model.depth = 18
+        det = build_detector(cfg.model)
+        hw = (256, 320)
+    cfg.train_cfg.epochs = 1
+    net = det.init(seed=0, device=cuda)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    batch = dict(
+        images=torch.from_numpy(rs.randint(0, 256, (2, *hw, 3),
+                                           np.uint8)).to(cuda),
+        gt=stack_to([GTInstances.pad(boxes, [0, 1], 4, masks=masks)] * 2,
+                    cuda),
+        meta=stack_to([ImageMeta.make(hw, hw, (1.0, 1.0), img_id=i)
+                       for i in range(2)], cuda))
+
+    class Loader:
+        cfg = type('LoaderConfig', (), {'batch_size': 2})()
+
+        def steps_per_epoch(self, epoch):
+            return 2
+
+        def epoch(self, epoch):
+            yield batch
+            yield batch
+
+    class Record(Hook):
+        def after_iter(self, trainer, step, step_losses):
+            losses.append(step_losses)
+    fns = (crop_resize_mask, point_sample, point_sample_backward,
+           corner_pool, corner_pool_backward, render_corner_targets)
+    counts = [f.launches for f in fns]
+    losses = []
+    trainer = build_trainer(cfg, det, Loader(), device=cuda)
+    trainer.hooks.append(Record())
+    trainer.fit(net)
+    got = [f.launches - c for f, c in zip(fns, counts)]
+    want = {'mask_rcnn': [2, 0, 0, 0, 0, 0],
+            'point_rend': [2, 8, 4, 0, 0, 0],
+            'cornernet': [0, 0, 0, 16, 16, 2]}[kind]
+    assert got == want, got
+    assert all(np.isfinite(v) for step in losses for v in step.values())
+    trainable = {k for k, p in net.named_parameters() if p.requires_grad}
+    for k, v in net.state_dict().items():
+        if k in trainable and v.dim() > 1:
+            assert not torch.equal(v, start[k]), k

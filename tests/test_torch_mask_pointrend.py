@@ -326,8 +326,9 @@ def test_inference_detector_serves_mask_configs():
 
 def test_build_detector_and_loader_rules(point_rend):
     """GN / WS heads and Mask R-CNN's seesaw loss raise with the zoo item,
-    as does a swapped neck; mask training raises; PointRend loads no mmdet
-    checkpoint."""
+    as does a swapped neck; PointRend's loss takes the two point draws
+    after the samplers' four, and points that require a gradient raise;
+    PointRend loads no mmdet checkpoint."""
     for key, value in (('loss_cls', 'seesaw'), ('head_norm', 'GN'),
                        ('conv_ws', True)):
         with pytest.raises(NotImplementedError,
@@ -337,8 +338,14 @@ def test_build_detector_and_loader_rules(point_rend):
         build_detector(Config(type='PointRend',
                               neck=dict(type='FPN_CARAFE')))
     det, net = point_rend[2:]
-    with pytest.raises(NotImplementedError, match='point loss'):
-        det.loss(net, {})
+    draws = det.train_draws(torch.tensor([1, 2]), 2, 30, 40, 'cpu')
+    assert [tuple(d.shape) for d in draws[4:]] == [(1024, 588, 2),
+                                                   (1024, 49, 2)]
+    with pytest.raises(ValueError, match='two point draws'):
+        det.rcnn_losses(net, None, None, None, draws[:4])
+    maps = torch.zeros((1, 2, 4, 4), requires_grad=True)
+    with pytest.raises(ValueError, match='no gradient'):
+        point_sample(maps, torch.rand((1, 3, 2), requires_grad=True))
     with pytest.raises(NotImplementedError, match='params_from_jax'):
         load_torch_checkpoint_file(net, 'unused.pth')
 

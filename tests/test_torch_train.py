@@ -67,10 +67,11 @@ def numpy_batch():
           for b, lab in GTS]
     meta = [ImageMeta.make(SHAPE, SHAPE, (1.0, 1.0), img_id=i)
             for i in range(2)]
-    def stack(items):
+    def stack(items):  # optional fields left unset (gt masks) stay out
         return {f.name: np.stack([np.asarray(getattr(x, f.name))
                                   for x in items])
-                for f in dataclasses.fields(items[0])}
+                for f in dataclasses.fields(items[0])
+                if getattr(items[0], f.name) is not None}
     return images, stack(gt), stack(meta)
 
 
