@@ -280,7 +280,10 @@ Phases, in order; any failed check exits non-zero before the last line:
                 part's backbone (+ neck) and heads gradients, 1e-2 per
                 tensor; but 3e-3 for the mask losses over backbone + neck,
                 where the card's float32 is 1.9e-3 off a float64 CPU run
-                (logged; ROADMAP.md 3.10), and for CornerNet: its backbone
+                (logged; ROADMAP.md 3.10, whose bisect is
+                erd_tpu_torch/tools/bisect_fp32_conv.py; CornerNet's pools
+                and heads parts against float64 are logged too), and for
+                CornerNet: its backbone
                 parts at 3x the CPU's own float32 error against float64 on
                 the step (train-mode BN magnifies float32 noise), its
                 heads parts at 3e-3, the convs before its pools at 7e-3,
@@ -303,7 +306,34 @@ Phases, in order; any failed check exits non-zero before the last line:
                 every CornerNet BN running statistic moved; img/s, peak
                 memory, the stage times of one train_step and the idle
                 share of one profiled step;
- 39. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+ 39. solo kernels  rows 12b-d and 13b: the matrix-decay kernel on the
+                real call of one 800x1333 SOLOv2 R50 request (bf16, heads
+                arranged by arrange_solo_heads: ~300 of 3872 cells over
+                score_thr, the other nms_pre slots scored 0; the (1, 500,
+                500) mask IoU) within 1e-6 relative of its plain version,
+                and its box form at K = 2000 (80 classes, tied scores and
+                IoUs), gaussian and linear; fast NMS and nms_match's
+                leader at K = 2000, IoU 0.5, equal to plain; the masked
+                conv (3x3, 256 -> 256, float32, 100 x 168, 5 / 25 / 100 %
+                of positions) with its masked-out positions exactly 0 and
+                the rest within 1e-5 * max|plain|; each timed by CUDA-graph
+                replays beside its bound, its plain version and, for the
+                masked conv, the dense cuDNN IEEE conv times the mask;
+ 40. solo reference  SOLOv2 R50 in float32, heads arranged, one 800x1333
+                request: the network card vs CPU within 1e-3 * max|out|,
+                then the card's decode (kernels) against the CPU's (plain):
+                detections matched by label and box, at most 2 % unmatched
+                (near-tie flips), matched scores within 1e-3 relative,
+                their binarised crops at IoU >= 0.99, flips logged; a 1 %
+                error planted in the matrix decay must fail that gate;
+ 41. solo serve  init_detector / inference_detector of SOLOv2 R50 (bf16,
+                heads arranged) on the 4 requests: one matrix_decay call
+                (two launches) per request, detections finite and inside
+                the canvas in their image's frame, stage times (backbone +
+                neck, heads, dynamic conv, decode), peak memory, the idle
+                share of one request, each request's card decode against
+                the CPU's (the gate of 40);
+ 42. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The script sets no global precision flag: the port convolves float32 in
 full float32 itself (erd_tpu_torch.utils.conv_fp32_precision), torch's
@@ -5441,7 +5471,8 @@ def picks_held(torch, module, recorded, moved):
     return make
 
 
-def phase_mask_train_reference(np, torch):
+def phase_mask_train_reference(np, torch,
+                               kinds=('mask_rcnn', 'point_rend', 'cornernet')):
     """Mask R-CNN and PointRend R50 (float32, 2 images 128x192 with gt
     crops, 64 sampled RoIs an image to keep the CPU's mask heads short) and
     CornerNet at HG-104's width and 5 levels but one stack of one block a
@@ -5454,7 +5485,9 @@ def phase_mask_train_reference(np, torch):
     running statistics card vs CPU within 1e-3 of each tensor's largest
     value; then a 1 % error planted in the point-sample backward
     (PointRend) and in the corner-pool backward (CornerNet) must each fail
-    the limits."""
+    the limits. Returns Mask R-CNN's mask gradient over backbone + neck
+    against a float64 CPU run, {'card': ||diff|| / ||ref||, 'cpu': ...}
+    (ROADMAP.md 3.10), when ``kinds`` holds it."""
     import copy
     import dataclasses
     import importlib
@@ -5467,7 +5500,8 @@ def phase_mask_train_reference(np, torch):
     pr_module = importlib.import_module(
         'erd_tpu_torch.models.detectors.point_rend')
     proposals_fn = frcnn_module.rpn_proposals
-    for kind in ('mask_rcnn', 'point_rend', 'cornernet'):
+    mask_off64 = {}
+    for kind in kinds:
         _, det, net_cpu = mask_train_net(torch, kind, device='cpu',
                                          dtype='float32', seed=9)
         if kind == 'cornernet':
@@ -5612,11 +5646,25 @@ def phase_mask_train_reference(np, torch):
                 diff = torch.cat([(got[k] - want[k]).flatten() for k in low])
                 ref = torch.cat([want[k].flatten() for k in low])
                 return float(diff.norm() / ref.norm())
+            mask_off64 = {'card': part_ratio(DEV, torch.float32),
+                          'cpu': part_ratio('cpu', torch.float32)}
             log(f'mask/corner train reference: mask_rcnn mask gradient over '
                 f'backbone + neck against a float64 CPU run (plain): card '
-                f'{part_ratio(DEV, torch.float32):.2e}, CPU float32 '
-                f'{part_ratio("cpu", torch.float32):.2e} (no gate)')
+                f'{mask_off64["card"]:.2e}, CPU float32 '
+                f'{mask_off64["cpu"]:.2e} (no gate)')
         if kind == 'cornernet':
+            # the pools and heads parts against float64, as Mask R-CNN's
+            # mask part above (ROADMAP.md section 3, 3.10)
+            def off64(dev, group):
+                got = seen[(dev, torch.float32)][group]
+                diff = torch.cat([(got[k] - floor64[group][k]).flatten()
+                                  for k in high])
+                ref = torch.cat([floor64[group][k].flatten() for k in high])
+                return float(diff.norm() / ref.norm())
+            log('mask/corner train reference: cornernet pools + heads '
+                'gradients against a float64 CPU run (plain): ' + ', '.join(
+                    f'{g} card {off64(DEV, g):.2e} CPU {off64("cpu", g):.2e}'
+                    for g in groups) + ' (no gate)')
             worst = max(float((stats[1][k] - stats[0][k]).abs().max() /
                               stats[0][k].abs().max()) for k in stats[0])
             log(f'mask/corner train reference: cornernet BN running '
@@ -5646,6 +5694,7 @@ def phase_mask_train_reference(np, torch):
                       'the CPU\'s')
         del net_cpu
     torch.cuda.empty_cache()
+    return mask_off64
 
 
 def phase_mask_train(np, torch, card):
@@ -5713,6 +5762,457 @@ def phase_mask_train(np, torch, card):
         del net, trainer
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------- SOLOv2 R50
+SOLO_CONFIG = os.path.join(ROOT, 'configs', 'solov2',
+                           'solov2_r50_fpn_1x_coco.py')
+# the SOLOv2 cell's arranged heads (arrange_solo_heads): about SOLO_PASSING
+# cells of a request over score_thr (the other nms_pre slots score 0), the
+# dynamic masks' logits at std SOLO_LOGIT_STD
+SOLO_SEED, SOLO_PASSING, SOLO_LOGIT_STD = 23, 300, 3.0
+SOLO_REFERENCE_HW = (800, 1333)
+# card vs CPU decode of one request: matched detections (label and box)
+# within SOLO_SCORE_RTOL, their binarised crops at IoU >= SOLO_MASK_IOU;
+# at most SOLO_UNMATCHED of the detections unmatched (near-tie flips)
+SOLO_SCORE_RTOL, SOLO_MASK_IOU, SOLO_UNMATCHED = 1e-3, 0.99, 0.02
+
+
+def solo_cls_logits(torch, cls_lvl):
+    return torch.cat([c.reshape(c.shape[0], -1, c.shape[-1])
+                      for c in cls_lvl], 1)
+
+
+def arrange_solo_heads(torch, det, net, batch):
+    """Shift conv_cls's bias so that about SOLO_PASSING cells of the
+    request score over score_thr, and scale conv_kernel so that the top
+    cells' mask logits have std SOLO_LOGIT_STD. erd_tpu's init scores
+    every cell near its 0.01 prior (none passes score_thr = 0.1) and its
+    mask logits sit near 0, so neither the decay nor the masks would see
+    real work."""
+    import math
+
+    from erd_tpu_torch.ops.misc import take_rows
+    head = net.mask_head
+    with torch.no_grad():
+        k, c, m = det.forward_raw(net, batch['images'])
+        top = solo_cls_logits(torch, c).amax(-1).flatten().sort(
+            descending=True).values
+        thr = math.log(det.score_thr / (1 - det.score_thr))
+        head.conv_cls.bias.add_(thr + 0.01 - float(top[SOLO_PASSING - 1]))
+        score, _, idx, _ = det.dynamic_masks(k, c, m)
+        kernels = torch.cat([x.reshape(x.shape[0], -1, x.shape[-1])
+                             for x in k], 1)
+        logits = torch.matmul(take_rows(kernels, idx[:, :64]),
+                              m.flatten(2))
+        head.conv_kernel.weight.mul_(SOLO_LOGIT_STD / float(logits.std()))
+        head.conv_kernel.bias.mul_(SOLO_LOGIT_STD / float(logits.std()))
+        _, c, _ = det.forward_raw(net, batch['images'])
+        passing = int((torch.sigmoid(solo_cls_logits(torch, c)).amax(-1) >
+                       det.score_thr).sum())
+    return passing
+
+
+def solo_net(np, torch, dtype=None, hw=(800, 1333)):
+    """init_detector of the SOLOv2 config on the card (its bf16, or
+    ``dtype``), heads arranged on the (H, W) request: (detector, network,
+    the request's batch, cells passing score_thr)."""
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.config import Config
+    cfg = Config.fromfile(SOLO_CONFIG)
+    if dtype is not None:
+        cfg.model.compute_dtype = dtype
+    det, net, _ = init_detector(cfg, seed=SOLO_SEED, device=DEV)
+    check(type(det).__name__ == 'SOLOV2Detector' and det.depth == 50 and
+          det.num_classes == NUM_CLASSES and det.nms_pre == 500,
+          f'{SOLO_CONFIG} is not SOLOv2 R50 with nms_pre 500')
+    batch, _ = request_batch(np, torch, hw)
+    passing = arrange_solo_heads(torch, det, net, batch)
+    return det, net, batch, passing
+
+
+def solo_compare(torch, tag, a, b, gate=True):
+    """Card (``a``) vs CPU (``b``) SOLOv2 results, each (DetResults,
+    crops): detections matched by label and box (within 1e-3 px) per
+    image. Returns (stats, passed): unmatched detections on either side,
+    the matched scores' worst relative difference, their binarised crops'
+    smallest IoU and the crop pixels that flip; with ``gate``, checks
+    them against SOLO_UNMATCHED, SOLO_SCORE_RTOL and SOLO_MASK_IOU."""
+    (ra, ca), (rb, cb) = a, b
+    ra = {f: getattr(ra, f).cpu() for f in ('bboxes', 'scores', 'labels',
+                                            'mask')}
+    ca = ca.cpu()
+    n = unmatched = flipped = 0
+    worst_rel, worst_iou = 0.0, 1.0
+    for i in range(rb.mask.shape[0]):
+        ib = torch.nonzero(rb.mask[i]).flatten().tolist()
+        ia = torch.nonzero(ra['mask'][i]).flatten().tolist()
+        n += max(len(ia), len(ib))
+        free = set(ia)
+        for j in ib:
+            hit = next((k for k in ia if k in free and
+                        int(ra['labels'][i, k]) == int(rb.labels[i, j]) and
+                        float((ra['bboxes'][i, k] - rb.bboxes[i, j]).abs()
+                              .max()) <= 1e-3), None)
+            if hit is None:
+                unmatched += 1
+                continue
+            free.discard(hit)
+            worst_rel = max(worst_rel, abs(float(ra['scores'][i, hit]) /
+                                           float(rb.scores[i, j]) - 1))
+            ma, mb = ca[i, hit] > 0.5, cb[i, j] > 0.5
+            union = int((ma | mb).sum())
+            worst_iou = min(worst_iou, int((ma & mb).sum()) / union
+                            if union else 1.0)
+            flipped += int((ma ^ mb).sum())
+        unmatched += len(free)
+    stats = dict(detections=n, unmatched=unmatched,
+                 max_score_rel=worst_rel, min_mask_iou=worst_iou,
+                 crop_pixels_flipped=flipped)
+    passed = (n > 0 and unmatched <= SOLO_UNMATCHED * n and
+              worst_rel <= SOLO_SCORE_RTOL and worst_iou >= SOLO_MASK_IOU)
+    log(f'{tag}: card vs CPU {stats} (limits: unmatched <= '
+        f'{SOLO_UNMATCHED:g} of the detections, scores rtol '
+        f'{SOLO_SCORE_RTOL:g}, mask IoU >= {SOLO_MASK_IOU:g})')
+    if gate:
+        check(passed, f'{tag}: card and CPU SOLOv2 results differ')
+    return stats, passed
+
+
+def random_nms_inputs(np, torch, rs, k, num_labels):
+    """Clustered boxes on a 1/4-pixel grid over ``num_labels`` classes,
+    10 % exact duplicates (tied IoUs), scores on a 1/16 grid (ties), 10 %
+    invalid: (boxes (1, K, 4), scores, labels, valid) on the card."""
+    centres = rs.uniform(50, 1300, (8, 2))
+    c = centres[rs.randint(8, size=k)] + rs.normal(0, 12, (k, 2))
+    wh = rs.uniform(16, 120, (k, 2))
+    boxes = np.round(np.concatenate([c - wh / 2, c + wh / 2], -1) * 4) / 4
+    dup = rs.rand(k) < 0.1
+    boxes[dup] = boxes[rs.randint(k, size=int(dup.sum()))]
+    out = (boxes.astype(np.float32), (rs.randint(0, 16, k) / 16).astype(
+        np.float32), rs.randint(0, num_labels, k), rs.rand(k) > 0.1)
+    return [torch.from_numpy(a[None]).to(DEV) for a in out]
+
+
+def kernel_row(name, source, replaces, ms, call_ms, src, plain_ms, bms, by,
+               library_ms, err, **extra):
+    return dict(name=name, route='cuda', source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, call_ms=call_ms, ms_from=src,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=library_ms, **extra)
+
+
+def phase_solo_kernels(np, torch):
+    """Rows 12b-d and 13b: the matrix-decay kernel on the real call of one
+    800x1333 SOLOv2 R50 request (bf16, heads arranged: (1, 500) scores, most
+    of them 0, and the (1, 500, 500) mask IoU) within 1e-6 relative of its
+    plain version; the box form at K = 2000 (80 classes, tied scores and
+    IoUs), gaussian and linear, within 1e-6 relative; fast NMS and
+    nms_match's leader at K = 2000, 80 classes, IoU 0.5, keep masks and
+    leaders equal; the masked conv (3x3, 256 -> 256, float32, 1 x 100 x
+    168, masks of 5, 25 and 100 % density) with its masked-out positions
+    exactly 0 and the rest within 1e-5 * max|plain|; each timed by CUDA
+    graph replays beside its bound, its plain version and the library call
+    where one computes the function (13b: the dense cuDNN IEEE conv times
+    the mask)."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from erd_tpu_torch.ops import (fast_nms_keep, masked_conv2d,
+                                   masked_conv2d_plain, matrix_decay,
+                                   matrix_decay_plain, matrix_nms,
+                                   matrix_nms_plain, nms_mask,
+                                   nms_match_leader)
+    from erd_tpu_torch.ops.extra_nms import (fast_nms_keep_plain,
+                                             nms_match_leader_plain)
+    from erd_tpu_torch.ops.misc import take_rows
+    from erd_tpu_torch.ops.sampling import masked_conv_positions
+    from erd_tpu_torch.utils import conv_fp32_precision
+    solo_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.solov2')
+    det, net, batch, passing = solo_net(np, torch)
+    calls = []
+    restore = capture(solo_module, 'matrix_decay', calls)
+    try:
+        res, crops = det.predict(net, batch)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f'{len(calls)} matrix_decay calls in one SOLOv2 '
+          f'request, expected 1')
+    args = calls[0]
+    scores, iou = args[0], args[1]
+    n = scores.shape[-1]
+    zero = int((scores == 0).sum())
+    got = matrix_decay(*args)
+    torch.cuda.synchronize()
+    want = matrix_decay_plain(*args)
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30))[
+        want != 0].max()) if bool((want != 0).any()) else 0.0
+    exact_zero = bool(torch.equal(got == 0, want == 0))
+    decayed = int((want < scores).sum())
+    log(f'solo kernels: matrix_decay on the request\'s call: N={n}, '
+        f'{passing} cells over score_thr, {zero} slots scored 0, {decayed} '
+        f'decayed; max rel err {rel:.2e} (limit 1e-6), zeros equal '
+        f'{exact_zero}; {int(res.mask.sum())} detections')
+    check(rel <= 1e-6 and exact_zero and decayed > 0,
+          'matrix_decay differs from plain on the SOLOv2 call')
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: matrix_decay(*args), lambda: matrix_decay_plain(*args))
+    # a pair: the comp pass (2 compares, a max) and the decay (3 products,
+    # a difference, an exp, a min); the IoU read once
+    bms, by = bound_of(iou.numel() * 4 + n * 16, n * n * 9.0)
+    decay_row = kernel_row(
+        'matrix_decay', 'erd_tpu_torch/csrc/extra_nms.cu',
+        'erd_tpu/ops/extra_nms.py:17', ms, call_ms, src, plain_ms, bms, by,
+        None, float((got - want).abs().max()), max_rel_err=rel,
+        inline_in='erd_tpu/models/detectors/solov2.py:399-410', n=n,
+        zero_slots=zero)
+    log(f'solo kernels: matrix_decay N={n} {ms:.4f} ms device ({src}), '
+        f'{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound '
+        f'{bms:.6f} ms ({by})')
+
+    rs = np.random.RandomState(31)
+    k = 2000
+    boxes, sc, labels, valid = random_nms_inputs(np, torch, rs, k,
+                                                 NUM_CLASSES)
+    box_form = {}
+    for kernel in ('gaussian', 'linear'):
+        got = matrix_nms(boxes, sc, labels, valid, kernel=kernel)
+        torch.cuda.synchronize()
+        want = matrix_nms_plain(boxes, sc, labels, valid, kernel=kernel)
+        live = want != 0
+        rel = float(((got - want).abs() / want.abs())[live].max())
+        check(rel <= 1e-6 and torch.equal(got == 0, want == 0),
+              f'matrix_nms {kernel} at K = {k} differs from plain')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: matrix_nms(boxes, sc, labels, valid,
+                                      kernel=kernel),
+            lambda: matrix_nms_plain(boxes, sc, labels, valid,
+                                     kernel=kernel))
+        # a pair: an IoU (~14 operations) in each pass, plus the decay
+        bms, by = bound_of(k * 32, k * k * (2 * 14 + 9.0))
+        box_form[kernel] = dict(k=k, max_rel_err=rel, ms=ms, call_ms=call_ms,
+                                ms_from=src, plain_ms=plain_ms, bound_ms=bms,
+                                bound_by=by)
+        log(f'solo kernels: matrix_nms box form K={k} {kernel}: max rel err '
+            f'{rel:.2e}, {int((want < sc).sum())} decayed; {ms:.4f} ms '
+            f'device ({src}), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.4f} ms, bound {bms:.6f} ms ({by})')
+    decay_row['box_form'] = box_form
+
+    # -- 12c fast NMS at K = 2000
+    thr = 0.5
+    s = torch.where(valid, sc, torch.full_like(sc, float('-inf')))
+    neg, order = torch.sort(-s, dim=-1, stable=True)
+    fargs = (take_rows(boxes, order).contiguous(),
+             torch.gather(labels, 1, order).contiguous(),
+             (neg < float('inf')).contiguous(), order.contiguous(), thr)
+    got = fast_nms_keep(*fargs)
+    torch.cuda.synchronize()
+    want = fast_nms_keep_plain(*fargs)
+    same = bool(torch.equal(got, want))
+    check(same and 0 < int(want.sum()) < k, 'fast NMS differs from plain')
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: fast_nms_keep(*fargs),
+        lambda: fast_nms_keep_plain(*fargs))
+    counts = torch.bincount(labels[0], minlength=NUM_CLASSES).double()
+    pairs = float((counts * (counts - 1) / 2).sum())
+    bms, by = bound_of(k * (16 + 8 + 1 + 8 + 1), pairs * 15.0)
+    fast_row = kernel_row(
+        'fast_nms_keep', 'erd_tpu_torch/csrc/extra_nms.cu',
+        'erd_tpu/ops/extra_nms.py:44', ms, call_ms, src, plain_ms, bms, by,
+        None, 0.0, k=k, kept=int(want.sum()), same_class_pairs=pairs)
+    log(f'solo kernels: fast_nms K={k} IoU {thr}: keep masks equal {same} '
+        f'({int(want.sum())} kept); {ms:.4f} ms device ({src}), '
+        f'{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound '
+        f'{bms:.6f} ms ({by})')
+
+    # -- 12d nms_match's leader at K = 2000 (class-agnostic, as mmcv's)
+    keep = nms_mask(boxes, sc, thr, valid_mask=valid)
+    margs = (boxes, sc, keep, valid, thr)
+    got = nms_match_leader(*margs)
+    torch.cuda.synchronize()
+    want = nms_match_leader_plain(*margs)
+    same = bool(torch.equal(got, want))
+    check(same and int((want >= 0).sum()) > 0, 'nms_match leaders differ '
+          'from plain')
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: nms_match_leader(*margs),
+        lambda: nms_match_leader_plain(*margs))
+    kept = int(keep.sum())
+    bms, by = bound_of(k * (16 + 4 + 1 + 1 + 8), k * kept * 15.0)
+    match_row = kernel_row(
+        'nms_match_leader', 'erd_tpu_torch/csrc/extra_nms.cu',
+        'erd_tpu/ops/extra_nms.py:84', ms, call_ms, src, plain_ms, bms, by,
+        None, 0.0, k=k, kept=kept,
+        groups=int(torch.unique(want[want >= 0]).numel()))
+    log(f'solo kernels: nms_match K={k} IoU {thr}: leaders equal {same} '
+        f'({kept} kept, {int((want < 0).sum())} without a leader); '
+        f'{ms:.4f} ms device ({src}), {call_ms:.4f} ms per call, plain '
+        f'{plain_ms:.4f} ms, bound {bms:.6f} ms ({by})')
+
+    # -- 13b masked conv, 3x3 256 -> 256 on a P3 map
+    gen = torch.Generator().manual_seed(37)
+    x = torch.randn(1, 256, 100, 168, generator=gen).to(DEV)
+    w = (torch.randn(256, 256, 3, 3, generator=gen) / 48).to(DEV)
+    b = torch.randn(256, generator=gen).to(DEV)
+    wt = w.permute(1, 2, 3, 0).contiguous()
+    by_density = []
+    for density in (0.05, 0.25, 1.0):
+        mask = (torch.rand(1, 100, 168, generator=gen) < density).to(DEV)
+        got = masked_conv2d(x, mask, w, b)
+        torch.cuda.synchronize()
+        want = masked_conv2d_plain(x, mask, w, b)
+        off = ~mask[:, None].expand_as(got)
+        zeros = bool((got[off] == 0).all())
+        err = float((got - want).abs().max())
+        lim = 1e-5 * float(want.abs().max())
+        log(f'solo kernels: masked_conv2d density {density:g}: masked-out '
+            f'positions 0 {zeros}, max abs err {err:.3e} (limit '
+            f'{lim:.3e})')
+        check(zeros and err <= lim, 'masked_conv2d differs from plain')
+        pos = torch.nonzero(mask.reshape(-1)).reshape(-1)
+        maskv = mask.reshape(-1)[pos].float()
+        ms = graph_ms(torch, lambda: masked_conv_positions(
+            x, wt, b, maskv, pos, 1, (100, 168)))
+        call_ms = events_ms(torch, lambda: masked_conv2d(x, mask, w, b), 10)
+        plain_ms = events_ms(torch, lambda: masked_conv2d_plain(
+            x, mask, w, b), 5)
+
+        def library():
+            with conv_fp32_precision('ieee'):
+                return F.conv2d(x, w, b, 1, 1) * mask[:, None]
+        library_ms = graph_ms(torch, library)
+        p = pos.numel()
+        bms, by = bound_of(x.numel() * 4 + w.numel() * 4 + b.numel() * 4 +
+                           mask.numel() + 256 * mask.numel() * 4,
+                           2.0 * p * 256 * 256 * 9)
+        by_density.append(dict(density=density, positions=p, ms=ms,
+                               call_ms=call_ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=bms,
+                               bound_by=by, max_abs_err=err))
+        log(f'solo kernels: masked_conv2d density {density:g} ({p} '
+            f'positions): {ms:.4f} ms device (graph), {call_ms:.4f} ms per '
+            f'call, plain {plain_ms:.4f} ms, dense cuDNN IEEE conv x mask '
+            f'{library_ms:.4f} ms, bound {bms:.5f} ms ({by})')
+    head = by_density[1]
+    conv_row = kernel_row(
+        'masked_conv2d', 'erd_tpu_torch/csrc/masked_conv.cu',
+        'erd_tpu/ops/sampling.py:57', head['ms'], head['call_ms'], 'graph',
+        head['plain_ms'], head['bound_ms'], head['bound_by'],
+        head['library_ms'], max(d['max_abs_err'] for d in by_density),
+        by_density=by_density)
+    del net, calls, args
+    torch.cuda.empty_cache()
+    return [decay_row, fast_row, match_row, conv_row]
+
+
+def phase_solo_reference(np, torch):
+    """SOLOv2 R50 in float32 at full width, heads arranged, on one
+    SOLO_REFERENCE_HW request: the network's outputs card vs CPU within
+    1e-3 * max|out|, then each side's decode (the card's kernels, the
+    CPU's plain versions) through solo_compare's gate; a 1 % error planted
+    in the card's matrix decay must fail that gate."""
+    import copy
+    import importlib
+
+    solo_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.solov2')
+    det, net_gpu, batch, passing = solo_net(np, torch, dtype='float32',
+                                            hw=SOLO_REFERENCE_HW)
+    net_cpu = copy.deepcopy(net_gpu).cpu()
+    meta_gpu = batch['meta']
+    meta_cpu = type(meta_gpu)(**{f: t.cpu()
+                                 for f, t in vars(meta_gpu).items()})
+    t0 = time.perf_counter()
+    out_cpu = det.forward_raw(net_cpu, batch['images'].cpu())
+    cpu_s = time.perf_counter() - t0
+    out_gpu = det.forward_raw(net_gpu, batch['images'])
+    worst = 0.0
+    for g, w in zip(list(out_gpu[0]) + list(out_gpu[1]) + [out_gpu[2]],
+                    list(out_cpu[0]) + list(out_cpu[1]) + [out_cpu[2]]):
+        check(tuple(g.shape) == tuple(w.shape), 'solo reference shapes')
+        worst = max(worst, float((g.cpu() - w).abs().max() / w.abs().max()))
+    h = batch['images'].shape[1]
+    log(f'solo reference: float32 network {tuple(batch["images"].shape)} '
+        f'card vs CPU max |diff| / max |out| = {worst:.2e} (tolerance '
+        f'1e-3); {passing} cells over score_thr; CPU forward {cpu_s:.1f} s')
+    check(worst <= 1e-3, 'float32 SOLOv2 on the card disagrees with the CPU')
+    res_cpu = det.decode(*out_cpu, h, meta_cpu)
+    res_gpu = det.decode(*out_gpu, h, meta_gpu)
+    stats, _ = solo_compare(torch, 'solo reference', res_gpu, res_cpu)
+    with patched(solo_module, 'matrix_decay',
+                 lambda fn: lambda *a: fn(*a) * 1.01):
+        res_bad = det.decode(*out_gpu, h, meta_gpu)
+    _, passed = solo_compare(torch, 'solo reference control, decay x 1.01',
+                             res_bad, res_cpu, gate=False)
+    check(not passed, 'solo reference: the gate passes a 1 % error in the '
+          'matrix decay')
+    del net_cpu, net_gpu, out_gpu
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_solo_serve(np, torch, card):
+    """init_detector / inference_detector of SOLOv2 R50 (bf16, heads
+    arranged) on the 4 requests: two matrix_decay launches per request (one
+    call, the decode's only kernel; the rest is cuDNN, cuBLAS and torch
+    ops); every
+    detection finite, its label in range and its box inside the canvas in
+    the image's frame (erd_tpu takes boxes from the masks' extents over
+    the whole canvas and does not clip); stage times (backbone + neck,
+    heads, dynamic conv, decode), peak memory, the idle share of one
+    request; the card's decode of each request's outputs against the
+    CPU's (solo_compare)."""
+    from erd_tpu_torch.data import DetPipeline
+    from erd_tpu_torch.ops import matrix_decay
+    images = request_images(np)
+    det, net, _, passing = solo_net(np, torch)
+    tag = 'solo serve'
+    results, counts = serve_requests(
+        np, torch, det, net, images, {'matrix_decay': matrix_decay},
+        {'matrix_decay': 2 * len(images)}, tag, card, inside=False)
+    pipe = DetPipeline(scale=(1333, 800))
+    for i, (img, res) in enumerate(zip(images, results)):
+        with torch.no_grad():
+            req = ServedRequest(np, torch, pipe, i, img)
+            x = det.preprocessor(req.images)
+            feats = net.neck(net.backbone(x))
+            req.mark()
+            mfeat = net.mask_feature_head(feats[:4]).float()
+            k, c = net.mask_head(feats)
+            req.mark()
+            cand = det.dynamic_masks(k, c, mfeat)
+            req.mark()
+            h = req.images.shape[1]
+            gpu = det.select(*cand, mfeat.shape[-2:], h / mfeat.shape[-2],
+                             req.meta_dev)
+            req.mark()
+        req.log_stages(tag, ('backbone + neck', 'mask feature head + head',
+                             'dynamic conv (top-k, 500 masks)',
+                             'decode (maskness, mask IoU, matrix NMS, '
+                             'boxes, crops)'))
+        cpu = det.decode([t.cpu() for t in k], [t.cpu() for t in c],
+                         mfeat.cpu(), h, req.meta_cpu)
+        solo_compare(torch, f'{tag} request {i}', gpu, cpu)
+        ch, cw = req.images.shape[1:3]
+        sx, sy = (float(v) for v in req.meta_cpu.scale_factor[0])
+        box = res.bboxes
+        check(len(res.scores) == int(gpu[0].mask.sum()) and
+              (box[:, 2] > box[:, 0]).all() and (box[:, 3] > box[:, 1]).all()
+              and (box[:, 0::2] >= -1e-3).all() and
+              (box[:, 1::2] >= -1e-3).all() and
+              (box[:, 0::2] <= cw / sx + 1e-3).all() and
+              (box[:, 1::2] <= ch / sy + 1e-3).all(),
+              f'{tag} request {i}: boxes inverted or outside the canvas, or '
+              f'predict and inference_detector disagree')
+        del feats, mfeat, cand
+    log(f'{tag}: {passing} cells over score_thr on the 800x1333 request')
+    del det, net
+    torch.cuda.empty_cache()
+    return {tag: counts}
 
 
 def main() -> int:
@@ -5787,6 +6287,9 @@ def main() -> int:
         mask_train_rows = phase_mask_train_kernels(np, torch)
         phase_mask_train_reference(np, torch)
         mask_train_launches = phase_mask_train(np, torch, card)
+        solo_rows = phase_solo_kernels(np, torch)
+        solo_reference = phase_solo_reference(np, torch)
+        solo_launches = phase_solo_serve(np, torch, card)
         for row in kernels:  # nms_keep and integral_decode: both paths
             by_path = {'serve': serve_launches[row['name']],
                        'train': train_launches[row['name']]}
@@ -5880,10 +6383,18 @@ def main() -> int:
                 mask_train_launches.items() if counts.get(row['name'])}
         for row in [point_sample_row, corner_pool_row] + mask_train_rows:
             row['launches'] = sum(row['launches_by_path'].values())
+        # 12b on SOLOv2's path; 12c, 12d and 13b have no model caller (ops)
+        solo_rows[0]['launches_by_path'] = {
+            'solo serve': solo_launches['solo serve']['matrix_decay']}
+        solo_rows[0]['reference'] = solo_reference
+        for row in solo_rows[1:]:
+            row['launches_by_path'] = {}
+        for row in solo_rows:
+            row['launches'] = sum(row['launches_by_path'].values())
         kernels += train_rows + frcnn_rows + detr_rows + dcn_rows + \
             [carafe_row, set_nms_row] + train2_rows + [
                 detr_train_row, dcn_train_row, point_sample_row,
-                corner_pool_row] + mask_train_rows
+                corner_pool_row] + mask_train_rows + solo_rows
         for row in kernels:
             row['card'] = card
     except Exception:  # report any failure, exit non-zero, no result line

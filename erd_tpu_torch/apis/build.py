@@ -3,7 +3,7 @@ erd_tpu/apis/build.py for the ``GFL``, ``GFLIncrementERD``, ``VFNet``,
 ``FasterRCNN`` (with the FPN or the FPN_CARAFE neck), ``CrowdDet``,
 ``DeformableDETR``, ``DINO``, ``MaskRCNN``, ``PointRend`` and ``CornerNet``
 model types, serving and training each (SGD, or Adam for CornerNet's
-recipe)."""
+recipe), and ``SOLOv2``, serving only."""
 from __future__ import annotations
 
 import torch
@@ -14,11 +14,13 @@ from ..models import (CornerNetDetector, CrowdDetDetector,
                       DeformableDETRDetector, DINODetector, ERDConfig,
                       ERDDetector, FasterRCNNDetector, GFLDetector,
                       GFLTestConfig, GFLTrainConfig, MaskRCNNDetector,
-                      PointRendDetector, VFNetDetector)
+                      PointRendDetector, SOLOV2Detector, VFNetDetector)
+from ..models.detectors.solov2 import TRAIN_ITEM as SOLOV2_TRAIN_ITEM
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 _PORTED = ('GFL', 'GFLIncrementERD', 'VFNet', 'FasterRCNN', 'CrowdDet',
-           'DeformableDETR', 'DINO', 'MaskRCNN', 'PointRend', 'CornerNet')
+           'DeformableDETR', 'DINO', 'MaskRCNN', 'PointRend', 'CornerNet',
+           'SOLOv2')
 # the optimizers the port trains with: erd_tpu's SGD, and its Adam (AdamW
 # with a zero decay)
 _OPTIMIZERS = ('sgd', 'adam')
@@ -78,6 +80,17 @@ def build_detector(model_cfg: Config, num_devices: int = 1):
             nms_type=test.get('nms_type', 'soft_nms'),
             soft_nms_sigma=test.get('soft_nms_sigma', 0.5),
             frozen_stages=model_cfg.get('frozen_stages', 1))
+    if mtype == 'SOLOv2':  # erd_tpu/apis/build.py reads these
+        return SOLOV2Detector(
+            num_classes=model_cfg.get('num_classes', 80),
+            depth=model_cfg.get('depth', 50),
+            compute_dtype=_DTYPES[model_cfg.get('compute_dtype', 'float32')],
+            frozen_stages=model_cfg.get('frozen_stages', 1),
+            nms_pre=test.get('nms_pre', 500),
+            score_thr=test.get('score_thr', 0.1),
+            mask_thr=test.get('mask_thr', 0.5),
+            filter_thr=test.get('filter_thr', 0.05),
+            max_per_img=test.get('max_per_img', 100))
     if mtype in ('DeformableDETR', 'DINO'):  # erd_tpu's train configs
         cls = DINODetector if mtype == 'DINO' else DeformableDETRDetector
         return cls(
@@ -179,6 +192,10 @@ def build_trainer(cfg: Config, detector, train_loader, teacher=None,
     configs name no optimizer, so they train with SGD as erd_tpu's trainer
     does.
     """
+    if isinstance(detector, SOLOV2Detector):
+        raise NotImplementedError(f'SOLOv2 training is not ported yet '
+                                  f'({SOLOV2_TRAIN_ITEM}): the port serves '
+                                  f'SOLOv2')
     if teacher is not None and not isinstance(detector, ERDDetector):
         raise ValueError(f'a teacher is ERD distillation\'s: '
                          f'{type(detector).__name__} trains without one')

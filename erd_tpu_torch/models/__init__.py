@@ -4,7 +4,8 @@ from .detectors import (CornerNetDetector, CornerNetNet,
                         ERDConfig, ERDDetector, FasterRCNNDetector,
                         FasterRCNNNet, GFLDetector, GFLNet,
                         MaskRCNNDetector, MaskRCNNNet, PointRendDetector,
-                        PointRendNet, VFNetDetector, VFNetNet)
+                        PointRendNet, SOLOV2Detector, SOLOV2Net,
+                        VFNetDetector, VFNetNet)
 from .heads import GFLTestConfig, GFLTrainConfig
 
 __all__ = ['CornerNetDetector', 'CornerNetNet', 'CrowdDetDetector',
@@ -13,4 +14,5 @@ __all__ = ['CornerNetDetector', 'CornerNetNet', 'CrowdDetDetector',
            'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
            'GFLDetector', 'GFLNet', 'GFLTestConfig', 'GFLTrainConfig',
            'MaskRCNNDetector', 'MaskRCNNNet', 'PointRendDetector',
-           'PointRendNet', 'VFNetDetector', 'VFNetNet']
+           'PointRendNet', 'SOLOV2Detector', 'SOLOV2Net', 'VFNetDetector',
+           'VFNetNet']

@@ -7,6 +7,7 @@ from .gfl_erd import ERDConfig, ERDDetector
 from .mask_rcnn import MaskRCNNDetector, MaskRCNNNet
 from .point_rend import PointRendDetector, PointRendNet
 from .single_stage import GFLDetector, GFLNet
+from .solov2 import SOLOV2Detector, SOLOV2Net
 from .vfnet import VFNetDetector, VFNetNet
 
 __all__ = ['CornerNetDetector', 'CornerNetNet', 'CrowdDetDetector',
@@ -14,4 +15,5 @@ __all__ = ['CornerNetDetector', 'CornerNetNet', 'CrowdDetDetector',
            'DeformableDETRDetector', 'DETRNet', 'DINODetector', 'ERDConfig',
            'ERDDetector', 'FasterRCNNDetector', 'FasterRCNNNet',
            'GFLDetector', 'GFLNet', 'MaskRCNNDetector', 'MaskRCNNNet',
-           'PointRendDetector', 'PointRendNet', 'VFNetDetector', 'VFNetNet']
+           'PointRendDetector', 'PointRendNet', 'SOLOV2Detector', 'SOLOV2Net',
+           'VFNetDetector', 'VFNetNet']

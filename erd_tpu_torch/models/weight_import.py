@@ -1,5 +1,5 @@
 """Weight import into the port's GFL, VFNet, Faster R-CNN (and its mask
-variants), DETR-family and CornerNet networks; the counterpart of
+variants), DETR-family, CornerNet and SOLOv2 networks; the counterpart of
 erd_tpu/models/weight_import.py.
 
 The port's GFL, VFNet and Faster R-CNN modules carry the mmdet state-dict
@@ -176,7 +176,8 @@ def _leaf(leaf: str, module: str, collection: str) -> str:
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """erd_tpu GFL, VFNet, Faster R-CNN (FPN or FPN_CARAFE), Mask R-CNN,
-    PointRend, CrowdDet, Deformable DETR, DINO or CornerNet variables
+    PointRend, CrowdDet, Deformable DETR, DINO, CornerNet or SOLOv2
+    variables
     {'params', 'batch_stats'} (nested numpy dicts) -> the port's network's
     ``state_dict``.
 
@@ -200,9 +201,11 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     (``convs``, ``fcs`` with ``fc0``'s rows from (14, 14, C) to (C, 14,
     14), ``fc_logits``) and ``point_head`` to ``roi_head.point_head``.
     CornerNet's scopes keep their names, its BN ``batch_stats`` becoming
-    the running statistics. The weights go one way: erd_tpu has no
-    importer of Faster R-CNN, VFNet, DETR, mask-head or CornerNet state
-    dicts.
+    the running statistics; so do SOLOv2's ``mask_feature_head`` and
+    ``mask_head`` (a SOLOv2 tree, told by its ``mask_feature_head``, never
+    takes Mask R-CNN's ``mask_head`` mapping). The weights go one way:
+    erd_tpu has no importer of Faster R-CNN, VFNet, DETR, mask-head,
+    CornerNet or SOLOv2 state dicts.
     """
     params = variables['params']
     neck = params.get('neck', {})
@@ -214,6 +217,7 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                        if k.startswith('lateral_')), default=0)
     two_stage = 'rpn_head' in params
     cornernet = 'tl_pool_0' in params
+    solo = 'mask_feature_head' in params
     detr = 'level_embed_0' in params.get('bbox_head', {})
     vfnet = 'vfnet_cls' in params.get('bbox_head', {})
     out = {}
@@ -228,7 +232,9 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                     if mod else f'{module}.{leaf}'
                 out[key] = torch.from_numpy(np.array(v, order='C'))
                 continue
-            if cornernet:  # the port keeps erd_tpu's scope names
+            if cornernet or (solo and scope in ('mask_feature_head',
+                                                'mask_head')):
+                # the port keeps erd_tpu's scope names
                 module = '.'.join((scope,) + mod)
             elif scope == 'backbone':
                 module = _backbone_module(mod)
@@ -285,8 +291,9 @@ def batch_stats_to_jax(net: nn.Module) -> Dict:
 
 def load_torch_checkpoint_file(net: nn.Module, path: str):
     """Load an mmdet ``.pth`` into ``net`` (GFL, VFNet, Faster R-CNN, Mask
-    R-CNN or CrowdDet) in place; raises for the DETR family, PointRend and
-    CornerNet, whose port follows erd_tpu's architecture and not mmdet's,
+    R-CNN or CrowdDet) in place; raises for the DETR family, PointRend,
+    CornerNet and SOLOv2, whose port follows erd_tpu's architecture and not
+    mmdet's,
     for a network with modulated
     deformable convs (DCNv2), whose ``conv_offset`` layout is not mmcv's,
     and for an FPN_CARAFE neck, whose ``content_encoder`` rows are not in
@@ -300,12 +307,13 @@ def load_torch_checkpoint_file(net: nn.Module, path: str):
     from .detectors.cornernet import CornerNetNet
     from .detectors.deformable_detr import DETRNet
     from .detectors.point_rend import PointRendNet
-    if isinstance(net, (CornerNetNet, PointRendNet)):
+    from .detectors.solov2 import SOLOV2Net
+    if isinstance(net, (CornerNetNet, PointRendNet, SOLOV2Net)):
         raise NotImplementedError(
             f"{type(net).__name__} keeps erd_tpu's architecture and scope "
             "names (PointRend's coarse head has no downsampling conv, "
-            "CornerNet's modules are erd_tpu's scopes): no mmdet checkpoint "
-            "loads into it; use params_from_jax")
+            "CornerNet's and SOLOv2's head modules are erd_tpu's scopes): no "
+            "mmdet checkpoint loads into it; use params_from_jax")
     if isinstance(net, DETRNet):
         raise NotImplementedError(
             "erd_tpu's Deformable DETR and DINO are not mmdet's architecture "

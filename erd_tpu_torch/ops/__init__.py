@@ -4,7 +4,10 @@ from .deform_conv import (DeformConv2d, ModulatedDeformConv,
                           arrange_offsets, deform_conv2d, deform_im2col,
                           deform_im2col_backward,
                           deform_im2col_backward_plain, deform_im2col_plain)
-from .extra_nms import corner_pool, corner_pool_plain
+from .extra_nms import (corner_pool, corner_pool_plain, fast_nms,
+                        fast_nms_keep, fast_nms_keep_plain, matrix_decay,
+                        matrix_decay_plain, matrix_nms, matrix_nms_plain,
+                        nms_match, nms_match_leader, nms_match_leader_plain)
 from .gaussian import local_maximum
 from .integral import integral, integral_decode, integral_decode_plain
 from .misc import (cap_candidates, filter_scores_and_topk, masked_mean_std,
@@ -20,7 +23,8 @@ from .ms_deform_attn import (make_level_start_index, ms_deform_attn,
 from .roi_align import (map_roi_levels, multilevel_roi_align, roi_align,
                         roi_align_backward, roi_align_backward_plain,
                         roi_align_level, roi_align_plain)
-from .sampling import point_sample, point_sample_plain
+from .sampling import (masked_conv2d, masked_conv2d_plain, point_sample,
+                       point_sample_plain)
 
 __all__ = ['CARAFEPack', 'arrange_carafe', 'carafe', 'carafe_backward',
            'carafe_backward_plain', 'carafe_plain', 'carafe_weights',
@@ -28,6 +32,9 @@ __all__ = ['CARAFEPack', 'arrange_carafe', 'carafe', 'carafe_backward',
            'arrange_offsets', 'deform_conv2d', 'deform_im2col',
            'deform_im2col_backward', 'deform_im2col_backward_plain',
            'deform_im2col_plain', 'corner_pool', 'corner_pool_plain',
+           'fast_nms', 'fast_nms_keep', 'fast_nms_keep_plain', 'matrix_decay',
+           'matrix_decay_plain', 'matrix_nms', 'matrix_nms_plain',
+           'nms_match', 'nms_match_leader', 'nms_match_leader_plain',
            'local_maximum', 'integral', 'integral_decode',
            'integral_decode_plain', 'cap_candidates', 'filter_scores_and_topk',
            'masked_mean_std', 'topk_mask_select', 'batched_nms_mask',
@@ -38,5 +45,5 @@ __all__ = ['CARAFEPack', 'arrange_carafe', 'carafe', 'carafe_backward',
            'ms_deform_attn_backward', 'ms_deform_attn_backward_plain',
            'ms_deform_attn_plain', 'map_roi_levels', 'multilevel_roi_align',
            'roi_align', 'roi_align_backward', 'roi_align_backward_plain',
-           'roi_align_level', 'roi_align_plain', 'point_sample',
-           'point_sample_plain']
+           'roi_align_level', 'roi_align_plain', 'masked_conv2d',
+           'masked_conv2d_plain', 'point_sample', 'point_sample_plain']

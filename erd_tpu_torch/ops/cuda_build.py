@@ -13,8 +13,9 @@ must round every bilinear sample as their plain versions do, the CARAFE
 kernel every product and sum of its reassembly, the point-sample kernel
 every product and sum of its bilinear weights, the mask-target kernel
 every step from an RoI's cell to a crop's corners (a floor near an integer
-must land where erd_tpu's does), and the corner-target kernel each
-gaussian's exponent.
+must land where erd_tpu's does), the corner-target kernel each
+gaussian's exponent, and the matrix-NMS, fast-NMS and nms_match kernels
+every IoU and decay term. (The masked-conv kernel chains explicit FMAs.)
 
 The Triton kernels (``ops/gfl_loss.py``, ``ops/erd_distill.py``) import
 Triton through ``import_triton``, which points Triton's cache at
@@ -37,7 +38,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-Xptxas', '-v')
 SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select', 'roi_align',
            'soft_nms', 'ms_deform_attn', 'deform_conv', 'carafe',
-           'point_sample', 'corner_pool', 'mask_target', 'corner_targets')
+           'point_sample', 'corner_pool', 'mask_target', 'corner_targets',
+           'extra_nms', 'masked_conv')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each build made by this process

@@ -1,5 +1,6 @@
-"""Bilinear point sampling and its gradient; the counterpart of
-``point_sample`` in erd_tpu/ops/sampling.py.
+"""Bilinear point sampling and its gradient, and the masked convolution;
+the counterparts of ``point_sample`` and ``masked_conv2d`` in
+erd_tpu/ops/sampling.py.
 
 ``point_sample`` samples maps at normalised [0, 1] point coordinates (x, y)
 with grid_sample's ``align_corners=False`` convention (pixel centres at
@@ -22,6 +23,15 @@ CUDA tensors launch the kernels of ``csrc/point_sample.cu`` (one launch per
 call each way, counted in ``point_sample.launches`` and
 ``point_sample_backward.launches``). ``align_corners=True`` has no kernel:
 no model path uses it, and it raises on CUDA tensors.
+
+``masked_conv2d`` is mmcv's MaskedConv2d as erd_tpu states it: a float32
+K x K convolution (symmetric padding (K - 1) // 2, any stride) plus bias,
+times a mask at output resolution, on NCHW maps with an OIHW weight. CPU
+tensors take ``masked_conv2d_plain`` (the dense IEEE float32 convolution
+times the mask); CUDA tensors launch the kernel ``csrc/masked_conv.cu``,
+which computes only the masked positions (one launch a call, counted in
+``masked_conv2d.launches``). It takes no gradient: no model path trains
+through it.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import ctypes
 
 import torch
 
+from ..utils import conv2d_ieee
 from . import cuda_build
 from .roi_align import acc_dtype
 
@@ -230,3 +241,98 @@ def point_sample_backward(grad, points, shape, strides=None,
 
 
 point_sample_backward.launches = 0
+
+
+def _masked_conv_args(x, mask, weight, bias, stride):
+    """(padding, (Ho, Wo)) of a masked conv, or raise on the shapes."""
+    if x.dim() != 4 or weight.dim() != 4 or \
+            weight.shape[1] != x.shape[1] or \
+            weight.shape[2] != weight.shape[3]:
+        raise ValueError(f'masked_conv2d: x (B, Cin, H, W) and a square '
+                         f'weight (Co, Cin, K, K) expected, got '
+                         f'{tuple(x.shape)} and {tuple(weight.shape)}')
+    k = weight.shape[-1]
+    pad = (k - 1) // 2
+    out_hw = tuple((n + 2 * pad - k) // stride + 1 for n in x.shape[2:])
+    if tuple(mask.shape) != (x.shape[0],) + out_hw:
+        raise ValueError(f'masked_conv2d: mask {tuple(mask.shape)} for an '
+                         f'output of {(x.shape[0],) + out_hw}')
+    if bias is not None and tuple(bias.shape) != (weight.shape[0],):
+        raise ValueError(f'masked_conv2d: bias {tuple(bias.shape)} for '
+                         f'{weight.shape[0]} output channels')
+    return pad, out_hw
+
+
+def masked_conv2d_plain(x, mask, weight, bias=None, stride=1):
+    """Plain PyTorch version of the kernel: the dense float32 convolution
+    (full float32, as ``conv2d_ieee``) plus bias, times the mask, as
+    erd_tpu computes it."""
+    pad, _ = _masked_conv_args(x, mask, weight, bias, stride)
+    out = conv2d_ieee(x.float(), weight.float(),
+                      None if bias is None else bias.float(),
+                      (stride, stride), (pad, pad))
+    return out * mask[:, None].to(out.dtype)
+
+
+def masked_conv2d(x, mask, weight, bias=None, stride=1):
+    """Masked convolution.
+
+    Args:
+        x: (B, Cin, H, W), computed in float32.
+        mask: (B, Ho, Wo), bool or float; zero marks an output position
+            left out (it reads 0).
+        weight: (Co, Cin, K, K); bias: (Co,) or None.
+        stride: the convolution's stride.
+    Returns (B, Co, Ho, Wo) float32: (conv(x) + bias) * mask.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the positions where the mask is nonzero (one launch, counted in
+    ``masked_conv2d.launches``).
+    """
+    _, (ho, wo) = _masked_conv_args(x, mask, weight, bias, stride)
+    if x.device.type == 'cpu':
+        return masked_conv2d_plain(x, mask, weight, bias, stride)
+    if x.device.type != 'cuda' or any(
+            t is not None and t.device != x.device
+            for t in (mask, weight, bias)):
+        raise RuntimeError(f'masked_conv2d: no kernel for {x.device}, or '
+                           f'tensors on more than one device')
+    flat = mask.reshape(-1)
+    pos = torch.nonzero(flat).reshape(-1)
+    return masked_conv_positions(
+        x.float().contiguous(), weight.float().permute(1, 2, 3, 0)
+        .contiguous(), None if bias is None else bias.float().contiguous(),
+        flat[pos].float().contiguous(), pos, stride, (ho, wo))
+
+
+def masked_conv_positions(x, wt, bias, maskv, pos, stride, out_hw):
+    """Launch ``erd_masked_conv2d`` on compacted positions (CUDA tensors;
+    the launch that ``masked_conv2d`` counts): x (B, Cin, H, W) float32,
+    wt (Cin, K, K, Co) float32, bias (Co,) or None, maskv (P,) float32 the
+    mask's values at pos (P,) int64, flat indices into (B, Ho, Wo); returns
+    the zeroed (B, Co, Ho, Wo) float32 output with those positions
+    filled. No host synchronisation (CUDA-graph capturable)."""
+    if x.device.type != 'cuda':
+        raise RuntimeError(f'masked_conv_positions: no kernel for '
+                           f'{x.device}')
+    b, cin, h, w = x.shape
+    k, co = wt.shape[1], wt.shape[-1]
+    ho, wo = out_hw
+    out = torch.zeros((b, co, ho, wo), dtype=torch.float32, device=x.device)
+    lib = cuda_build.load('masked_conv')
+    fn = lib.erd_masked_conv2d
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), wt.data_ptr(),
+                 None if bias is None else bias.data_ptr(), maskv.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), pos.numel(), cin, h, w, co,
+                 k, stride, (k - 1) // 2, ho, wo, stream)
+    cuda_build.check(lib, err, 'masked_conv2d')
+    masked_conv2d.launches += 1
+    return out
+
+
+masked_conv2d.launches = 0

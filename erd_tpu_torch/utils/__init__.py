@@ -40,6 +40,27 @@ def conv_fp32_precision(precision: str = 'ieee'):
             cudnn.allow_tf32 = saved
 
 
+@contextmanager
+def matmul_fp32_precision(precision: str = 'ieee'):
+    """cuBLAS's float32 matmul precision inside the block, ``'ieee'`` or
+    ``'tf32'``; the previous setting comes back on exit. torch >= 2.9 reads
+    ``cuda.matmul.fp32_precision``, older versions ``cuda.matmul
+    .allow_tf32``; only the one that is read is set."""
+    if precision not in ('ieee', 'tf32'):
+        raise ValueError(f"precision must be 'ieee' or 'tf32', got "
+                         f'{precision!r}')
+    matmul = torch.backends.cuda.matmul
+    name = 'fp32_precision' if hasattr(matmul, 'fp32_precision') \
+        else 'allow_tf32'
+    saved = getattr(matmul, name)
+    setattr(matmul, name, precision if name == 'fp32_precision'
+            else precision == 'tf32')
+    try:
+        yield
+    finally:
+        setattr(matmul, name, saved)
+
+
 class _IEEEConv2d(torch.autograd.Function):
     """A 2-D convolution, or transposed convolution, whose forward and
     backward (cuDNN's data and weight gradients) both run under

@@ -1492,3 +1492,143 @@ def test_mask_and_corner_training_on_cuda_uses_kernels(cuda, kind):
     for k, v in net.state_dict().items():
         if k in trainable and v.dim() > 1:
             assert not torch.equal(v, start[k]), k
+
+
+def extra_nms_case(rs, n, num_labels):
+    """Clustered boxes over many labels on a 1/4-pixel grid, exact
+    duplicates (tied IoUs), scores on a 1/16 grid (ties), 10 % invalid."""
+    centres = rs.uniform(50, 1300, (8, 2))
+    c = centres[rs.randint(8, size=n)] + rs.normal(0, 12, (n, 2))
+    wh = rs.uniform(16, 120, (n, 2))
+    boxes = np.round(np.concatenate([c - wh / 2, c + wh / 2], -1) * 4) / 4
+    dup = rs.rand(n) < 0.1
+    boxes[dup] = boxes[rs.randint(n, size=int(dup.sum()))]
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy((rs.randint(0, 16, n) / 16).astype(np.float32)),
+            torch.from_numpy(rs.randint(0, num_labels, n)),
+            torch.from_numpy(rs.rand(n) > 0.1))
+
+
+def test_extra_nms_kernels_match_plain(cuda):
+    """Matrix NMS (box form at K = 2000 and SOLOv2's mask-IoU form at N =
+    500, both kernels) within 1e-6 relative of the plain versions; fast NMS
+    and nms_match at K = 2000, 80 classes, exactly; two counted launches
+    per matrix NMS call (comp, then the decay), one per fast NMS and
+    nms_match call."""
+    from erd_tpu_torch.ops import (fast_nms, fast_nms_keep, matrix_decay,
+                                   matrix_decay_plain, matrix_nms,
+                                   matrix_nms_plain, nms_match,
+                                   nms_match_leader)
+    from erd_tpu_torch.ops.extra_nms import fast_nms_keep_plain
+    rs = np.random.RandomState(21)
+    cases = [extra_nms_case(rs, 2000, 80) for _ in range(2)]
+    boxes, scores, labels, valid = (torch.stack(t) for t in zip(*cases))
+    for kernel in ('gaussian', 'linear'):
+        before = matrix_nms.launches
+        got = matrix_nms(boxes.to(cuda), scores.to(cuda), labels.to(cuda),
+                         valid.to(cuda), kernel=kernel)
+        torch.cuda.synchronize()
+        assert matrix_nms.launches == before + 2
+        want = matrix_nms_plain(boxes, scores, labels, valid, kernel=kernel)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-6, atol=0)
+    masks = torch.from_numpy(rs.rand(2, 500, 40, 50) < 0.3).float()
+    masks[:, 250:] = 0
+    inter = masks.flatten(2) @ masks.flatten(2).transpose(1, 2)
+    area = masks.flatten(2).sum(-1)
+    miou = inter / (area[:, :, None] + area[:, None, :] - inter).clamp(min=1)
+    s = scores[:, :500].clone()
+    s[:, 300:] = 0
+    before = matrix_decay.launches
+    got = matrix_decay(s.to(cuda), miou.to(cuda), labels[:, :500].to(cuda))
+    torch.cuda.synchronize()
+    assert matrix_decay.launches == before + 2
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        matrix_decay_plain(s, miou, labels[:, :500]).numpy(), rtol=1e-6,
+        atol=0)
+    before = fast_nms_keep.launches
+    got = fast_nms(boxes.to(cuda), scores.to(cuda), labels.to(cuda), 0.5,
+                   valid.to(cuda))
+    assert fast_nms_keep.launches == before + 1
+    sc = torch.where(valid, scores, torch.full_like(scores, float('-inf')))
+    neg, order = torch.sort(-sc, dim=-1, stable=True)
+    want = fast_nms_keep_plain(take_rows(boxes, order),
+                               torch.gather(labels, 1, order),
+                               neg < float('inf'), order, 0.5)
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < want.numel()
+    before = nms_match_leader.launches
+    keep, leader = nms_match(boxes.to(cuda), scores.to(cuda), 0.5,
+                             valid.to(cuda))
+    assert nms_match_leader.launches == before + 1
+    want_keep, want_leader = nms_match(boxes, scores, 0.5, valid)
+    assert torch.equal(keep.cpu(), want_keep)
+    assert torch.equal(leader.cpu(), want_leader)
+
+
+@pytest.mark.parametrize('k,stride,bias', [(3, 1, True), (1, 1, False),
+                                           (5, 2, True), (3, 2, False)])
+def test_masked_conv2d_kernel_matches_plain(cuda, k, stride, bias):
+    """The masked-conv kernel against the dense IEEE float32 conv times the
+    mask: masked-out positions exactly 0, the rest within 1e-5 *
+    max|out| (another summation order); one launch a call."""
+    from erd_tpu_torch.ops import masked_conv2d, masked_conv2d_plain
+    gen = torch.Generator().manual_seed(k * 10 + stride)
+    x = torch.randn(2, 64, 25, 42, generator=gen)
+    w = torch.randn(48, 64, k, k, generator=gen) / (8 * k)
+    b = torch.randn(48, generator=gen) if bias else None
+    ho, wo = (25 - 1) // stride + 1, (42 - 1) // stride + 1
+    mask = torch.rand(2, ho, wo, generator=gen) < 0.25
+    before = masked_conv2d.launches
+    got = masked_conv2d(x.to(cuda), mask.to(cuda), w.to(cuda),
+                        None if b is None else b.to(cuda), stride)
+    torch.cuda.synchronize()
+    assert masked_conv2d.launches == before + 1
+    want = masked_conv2d_plain(x, mask, w, b, stride)
+    got = got.cpu()
+    assert torch.equal(got[~mask[:, None].expand_as(got)],
+                       torch.zeros(int((~mask).sum()) * 48))
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_solov2_serving_on_cuda_runs_the_matrix_decay_kernel(cuda):
+    """SOLOv2 (ResNet-18, float32, conv_cls bias -4.5 and weights x 4,
+    conv_kernel x 3) through inference_detector on the card: one
+    matrix_decay call (two launches) a request; the card's decode of its own network
+    outputs against the CPU's decode of the same outputs: labels and masks
+    equal, scores within 1e-5 relative."""
+    from erd_tpu_torch.ops import matrix_decay
+    from erd_tpu_torch.structures import ImageMeta
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.fromfile(os.path.join(root, 'configs', 'solov2',
+                                       'solov2_r50_fpn_1x_coco.py'))
+    cfg.model.depth = 18
+    cfg.model.compute_dtype = 'float32'
+    det, net, _ = init_detector(cfg, device=cuda)
+    with torch.no_grad():
+        head = net.mask_head
+        head.conv_cls.bias.fill_(-4.5)
+        head.conv_cls.weight.mul_(4.0)
+        head.conv_kernel.weight.mul_(3.0)
+    rs = np.random.RandomState(6)
+    imgs = [rs.randint(0, 256, (240, 320, 3), np.uint8) for _ in range(2)]
+    before = matrix_decay.launches
+    inference_detector(det, net, imgs, scale=(320, 256))
+    assert matrix_decay.launches == before + 4
+    canvas = torch.from_numpy(np.stack([np.pad(
+        i, ((0, 16), (0, 0), (0, 0))) for i in imgs])).to(cuda)
+    meta = stack_to([ImageMeta.make((240, 320), (240, 320), (1.0, 1.0))] * 2,
+                    cuda)
+    with torch.no_grad():
+        k, c, m = det.forward_raw(net, canvas)
+    gpu, gcrops = det.decode(k, c, m, canvas.shape[1], meta)
+    cpu, ccrops = det.decode([t.cpu() for t in k], [t.cpu() for t in c],
+                             m.cpu(), canvas.shape[1],
+                             stack_to([ImageMeta.make((240, 320), (240, 320),
+                                                      (1.0, 1.0))] * 2,
+                                      'cpu'))
+    assert int(gpu.mask.sum()) > 0
+    assert torch.equal(gpu.mask.cpu(), cpu.mask)
+    assert torch.equal(gpu.labels.cpu(), cpu.labels)
+    np.testing.assert_allclose(gpu.scores.cpu().numpy(), cpu.scores.numpy(),
+                               rtol=1e-5, atol=1e-7)
