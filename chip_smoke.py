@@ -225,8 +225,12 @@ Phases, in order; any failed check exits non-zero before the last line:
  32. corner kernels  one 768x1024 request of CornerNet HG-104 (80 classes,
                 float32, heads arranged by arrange_corner_heads) with its 4
                 corner_pool calls (the last stack's) captured, each
-                bit-equal to its plain version in float32 and bf16, each
-                direction timed beside its byte bound and torch.cummax; its
+                bit-equal to its plain version in float32 and bf16, and
+                with NaNs planted equal NaN for NaN (fault 3.11), each
+                direction timed on the request's channels-last map (read
+                where it lies) beside its byte bound and torch.cummax on
+                that map, the NCHW kernel on the map made NCHW equal to
+                plain and timed too; its
                 soft-NMS call at K = 10000 (the device-memory variant),
                 gaussian within 1e-6 relative, timed;
  33. mask/cornernet reference  Mask R-CNN's and PointRend's float32
@@ -262,7 +266,10 @@ Phases, in order; any failed check exits non-zero before the last line:
                 max|plain|, the bf16 map's gradient within one ulp); the
                 corner-pool backward on the 8 calls of a CornerNet HG-104
                 step (bs 6, 768x1024, float32), bit-equal to the plain
-                version (erd_tpu's scan-tree split of ties); the corner
+                version (erd_tpu's scan-tree split of ties), and with NaNs
+                planted the forward and backward kernels equal to plain
+                (fault 3.11); the corner_pool forward timed on that step's
+                x of each direction (joins the corner_pool row); the corner
                 targets of that step (heat within 1e-6, the exact-1 peaks,
                 offsets and weights equal); each timed by CUDA-graph
                 replays beside its byte bound, its plain version and the
@@ -314,11 +321,14 @@ Phases, in order; any failed check exits non-zero before the last line:
                 and its box form at K = 2000 (80 classes, tied scores and
                 IoUs), gaussian and linear; fast NMS and nms_match's
                 leader at K = 2000, IoU 0.5, equal to plain; the masked
-                conv (3x3, 256 -> 256, float32, 100 x 168, 5 / 25 / 100 %
-                of positions) with its masked-out positions exactly 0 and
-                the rest within 1e-5 * max|plain|; each timed by CUDA-graph
+                conv (3x3, 256 -> 256, float32, 100 x 168, 5 / 25 / 49.4
+                / 50 / 99.4 / 100 % of positions: each side of two tile
+                choices) with its masked-out positions exactly 0, the rest
+                within 1e-5 * max|plain| and bit-repeatable, the tile
+                masked_conv_tile picks recorded; each timed by CUDA-graph
                 replays beside its bound, its plain version and, for the
-                masked conv, the dense cuDNN IEEE conv times the mask;
+                masked conv, the call and the dense cuDNN IEEE conv times
+                the mask;
  40. solo reference  SOLOv2 R50 in float32, heads arranged, one 800x1333
                 request: the network card vs CPU within 1e-3 * max|out|,
                 then the card's decode (kernels) against the CPU's (plain):
@@ -4687,11 +4697,13 @@ def cornernet_net(np, torch):
 
 def phase_cornernet_kernels(np, torch):
     """One 768x1024 request of CornerNet HG-104 (float32, seeded, heads
-    arranged) with its kernel calls captured: every corner_pool call (the last stack's 4)
-    bit-equal to its plain version in float32 and bf16, each direction
-    timed beside its bound and torch.cummax; the soft-NMS call at K =
-    10000 (the device-memory variant), gaussian within 1e-6 relative,
-    timed."""
+    arranged) with its kernel calls captured: every corner_pool call (the
+    last stack's 4) bit-equal to its plain version in float32 and bf16,
+    and with NaNs planted (fault 3.11) equal NaN for NaN, each direction
+    timed by time_corner_pool (the train step's calls are timed by
+    phase_mask_train_kernels, which holds them, and join this row); the
+    soft-NMS call at K = 10000 (the device-memory variant),
+    gaussian within 1e-6 relative, timed."""
     import importlib
 
     from erd_tpu_torch.ops import (corner_pool, corner_pool_plain, soft_nms,
@@ -4725,23 +4737,9 @@ def phase_cornernet_kernels(np, torch):
                 f'{tuple(xx.shape)} {dtype}: bit-equal {same}')
             check(same, f'corner_pool {direction} {dtype} differs from '
                   f'plain')
-    timed = []
-    for x, direction in pool_calls:
-        ms, call_ms, src, plain_ms = time_graph(
-            torch, lambda: corner_pool(x, direction),
-            lambda: corner_pool_plain(x, direction))
-        # torch.cummax, with erd_tpu's flips for top and left: the plain
-        # version's own calls, their device time as the library yardstick
-        library_ms = graph_ms(torch, lambda: corner_pool_plain(x, direction))
-        bms, by = bound_of(2 * x.numel() * x.element_size(),
-                           float(x.numel()))
-        timed.append(dict(direction=direction, shape=list(x.shape), ms=ms,
-                          call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by, library_ms=library_ms))
-        log(f'corner kernels: corner_pool {direction} {tuple(x.shape)} '
-            f'float32: {ms:.4f} ms device ({src}), {call_ms:.4f} ms per '
-            f'call, plain {plain_ms:.4f} ms, torch.cummax {library_ms:.4f} '
-            f'ms, bound {bms:.5f} ms ({by})')
+    nan_rays_check(torch, pool_calls, 'corner kernels')
+    timed = [time_corner_pool(torch, x, direction, 'corner kernels')
+             for x, direction in pool_calls]
     worst = max(timed, key=lambda t: t['ms'])
     row = dict(name='corner_pool', route='cuda',
                source='erd_tpu_torch/csrc/corner_pool.cu',
@@ -4788,6 +4786,93 @@ def phase_cornernet_kernels(np, torch):
     del pool_calls, soft_calls, net
     torch.cuda.empty_cache()
     return row, soft
+
+
+def time_corner_pool(torch, x, direction, tag):
+    """One corner_pool call timed by graph replays on x as the path gives
+    it (channels-last on the card: the kernel reads it where it lies)
+    beside its byte bound, the plain version and torch.cummax on that same
+    x (with erd_tpu's flips for top and left: the plain version's own
+    calls, their device time the library yardstick); and the NCHW kernel
+    on x made NCHW beforehand, equal to plain and timed (nchw_ms)."""
+    from erd_tpu_torch.ops import corner_pool, corner_pool_plain
+    ms = graph_ms(torch, lambda: corner_pool(x, direction))
+    call_ms = events_ms(torch, lambda: corner_pool(x, direction), 20)
+    plain_ms = events_ms(torch, lambda: corner_pool_plain(x, direction), 6)
+    library_ms = graph_ms(torch, lambda: corner_pool_plain(x, direction))
+    xc = x.contiguous()
+    check(torch.equal(corner_pool(xc, direction),
+                      corner_pool_plain(xc, direction)),
+          f'corner_pool {direction} on the NCHW map differs from plain')
+    nchw_ms = graph_ms(torch, lambda: corner_pool(xc, direction))
+    layout = 'NCHW' if x.is_contiguous() else 'channels-last' \
+        if x.is_contiguous(memory_format=torch.channels_last) else 'strided'
+    bms, by = bound_of(2 * x.numel() * x.element_size(), float(x.numel()))
+    log(f'{tag}: corner_pool {direction} {tuple(x.shape)} {x.dtype} '
+        f'{layout}: {ms:.4f} ms device (graph), {call_ms:.4f} ms per call, '
+        f'plain {plain_ms:.4f} ms, torch.cummax {library_ms:.4f} ms, bound '
+        f'{bms:.5f} ms ({by}); the NCHW kernel on the map made NCHW '
+        f'{nchw_ms:.4f} ms')
+    return dict(direction=direction, shape=list(x.shape), layout=layout,
+                ms=ms, call_ms=call_ms, ms_from='graph', plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms,
+                nchw_ms=nchw_ms)
+
+
+def with_nans(torch, x, seed):
+    """x with 1 % of its values NaN (seeded), a whole first column and a
+    whole last row of the first plane NaN, and the ray [1, nan, 0.5, 2, 2,
+    0] at the start of the first plane's last column and last row: fault
+    3.11's cases, on a real call's values."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    x = x.clone()
+    x[torch.rand(x.shape, generator=gen, device=x.device) < 0.01] = \
+        float('nan')
+    x[0, 0, :, 0] = float('nan')
+    ray = torch.tensor([1, float('nan'), 0.5, 2, 2, 0], device=x.device)
+    x[0, 0, :6, -1] = ray
+    x[0, 0, -1, :6] = ray
+    return x
+
+
+def same_with_nan(a, b):
+    """Equal values, NaN where the other has NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def nan_rays_check(torch, calls, tag, grads=None):
+    """Fault 3.11 on the card: on each call's x with NaNs planted
+    (``with_nans``), the forward kernel equal to its plain version NaN for
+    NaN, in float32 and bf16; with ``grads``, the backward kernel bit-equal
+    to its plain version (JAX's _balanced_eq rule: no gradient through a
+    NaN output)."""
+    from erd_tpu_torch.ops import corner_pool, corner_pool_plain
+    from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
+                                             corner_pool_backward_plain)
+    for i, (x, direction) in enumerate(calls):
+        xn = with_nans(torch, x, 61 + i)
+        for dtype in (torch.float32, torch.bfloat16):
+            xx = xn.to(dtype)
+            got = corner_pool(xx, direction)
+            torch.cuda.synchronize()
+            want = corner_pool_plain(xx, direction)
+            check(same_with_nan(got, want) and bool(want.isnan().any()),
+                  f'corner_pool {direction} {dtype} with NaNs differs from '
+                  f'plain')
+            if grads is None:
+                continue
+            g = grads[i].to(dtype)
+            gk = corner_pool_backward(xx, g, direction)
+            torch.cuda.synchronize()
+            gp = corner_pool_backward_plain(xx, g, direction)
+            check(torch.equal(gk, gp) and bool(gp.isfinite().all()),
+                  f'corner_pool_backward {direction} {dtype} with NaNs '
+                  f'differs from plain')
+        log(f'{tag}: corner_pool {direction} {tuple(x.shape)} with '
+            f'{float(xn.isnan().float().mean()):.2%} NaN: '
+            f'{"forward and backward" if grads is not None else "forward"} '
+            f'equal to plain in float32 and bf16 (NaN carried as '
+            f'lax.cummax carries it)')
 
 
 def phase_mask_cornernet_reference(np, torch):
@@ -5182,10 +5267,13 @@ def phase_mask_train_kernels(np, torch):
     bf16 P2; float32 sums within 1e-5 * max|plain|, the bf16 map's
     gradient within one ulp); the corner-pool backward on the 8 calls of a
     CornerNet HG-104 step (bs 6, 768x1024, float32) bit-equal to the plain
-    version; the corner targets of that step (heat within 1e-6, the exact-1
-    peaks, offsets, weights equal). Each then timed by CUDA-graph replays
-    beside its byte bound, its plain version and, where one PyTorch call
-    computes the function, that call."""
+    version, and with NaNs planted (fault 3.11) the forward and backward
+    kernels equal to their plain versions; the corner targets of that step
+    (heat within 1e-6, the exact-1 peaks, offsets, weights equal). Each
+    then timed by CUDA-graph replays beside its byte bound, its plain
+    version and, where one PyTorch call computes the function, that call;
+    the corner_pool forward too, on that step's x of each direction (for
+    the corner_pool row)."""
     from erd_tpu_torch.data.masks import (crop_resize_mask,
                                           crop_resize_mask_plain)
     from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
@@ -5384,6 +5472,16 @@ def phase_mask_train_kernels(np, torch):
         f'bit-equal to plain; {min(ties):.1%}-{max(ties):.1%} of the '
         f'pools\' inputs are exact zeros (ReLU), where ties share the '
         f'gradient by the scan tree')
+    # fault 3.11 and the forward at the train shape, one call a direction
+    firsts = {}
+    for x, g, direction in calls['corner_pool_backward']:
+        firsts.setdefault(direction, (x, g))
+    nan_rays_check(torch, [(x, d) for d, (x, _) in firsts.items()],
+                   'mask/corner train kernels',
+                   grads=[g for x, g in firsts.values()])
+    train_forward = [time_corner_pool(torch, x, d,
+                                      'mask/corner train kernels')
+                     for d, (x, _) in firsts.items()]
     top = shapes['top']
     rows.append(dict(name='corner_pool_backward', route='cuda',
                      source='erd_tpu_torch/csrc/corner_pool.cu',
@@ -5393,7 +5491,8 @@ def phase_mask_train_kernels(np, torch):
                      ms_at=f'top (B, 128, 192, 256) B={CORNERNET_TRAIN_BATCH}',
                      plain_ms=top['plain_ms'], bound_ms=top['bound_ms'],
                      bound_by=top['bound_by'], library_ms=None,
-                     deterministic=True, directions=shapes))
+                     deterministic=True, directions=shapes,
+                     forward_by_direction=train_forward))
 
     args = calls['render_corner_targets'][0]
     boxes, labels, mask, feat_hw, num_classes, ratio = args
@@ -5910,8 +6009,9 @@ def phase_solo_kernels(np, torch):
     IoUs), gaussian and linear, within 1e-6 relative; fast NMS and
     nms_match's leader at K = 2000, 80 classes, IoU 0.5, keep masks and
     leaders equal; the masked conv (3x3, 256 -> 256, float32, 1 x 100 x
-    168, masks of 5, 25 and 100 % density) with its masked-out positions
-    exactly 0 and the rest within 1e-5 * max|plain|; each timed by CUDA
+    168, masks of 840, 4200, 8300, 8400, 16700 and 16800 positions) with
+    its masked-out positions exactly 0 and the rest within 1e-5 *
+    max|plain|, a second call bit-equal; each timed by CUDA
     graph replays beside its bound, its plain version and the library call
     where one computes the function (13b: the dense cuDNN IEEE conv times
     the mask)."""
@@ -5927,7 +6027,9 @@ def phase_solo_kernels(np, torch):
     from erd_tpu_torch.ops.extra_nms import (fast_nms_keep_plain,
                                              nms_match_leader_plain)
     from erd_tpu_torch.ops.misc import take_rows
-    from erd_tpu_torch.ops.sampling import masked_conv_positions
+    from erd_tpu_torch.ops.sampling import (MASKED_CONV_TILES,
+                                            masked_conv_positions,
+                                            masked_conv_tile)
     from erd_tpu_torch.utils import conv_fp32_precision
     solo_module = importlib.import_module(
         'erd_tpu_torch.models.detectors.solov2')
@@ -6058,25 +6160,34 @@ def phase_solo_kernels(np, torch):
     x = torch.randn(1, 256, 100, 168, generator=gen).to(DEV)
     w = (torch.randn(256, 256, 3, 3, generator=gen) / 48).to(DEV)
     b = torch.randn(256, generator=gen).to(DEV)
-    wt = w.permute(1, 2, 3, 0).contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     by_density = []
-    for density in (0.05, 0.25, 1.0):
-        mask = (torch.rand(1, 100, 168, generator=gen) < density).to(DEV)
+    # 5, 25, 50 and 100 % of the map, and just under the tile choices at 50
+    # and 100 % (masked_conv_tile's cost model; 132 SMs)
+    for p in (840, 4200, 8300, 8400, 16700, 16800):
+        flat = torch.zeros(100 * 168, dtype=torch.bool)
+        flat[torch.randperm(100 * 168, generator=gen)[:p]] = True
+        mask = flat.reshape(1, 100, 168).to(DEV)
+        density = p / (100 * 168)
         got = masked_conv2d(x, mask, w, b)
+        again = masked_conv2d(x, mask, w, b)
         torch.cuda.synchronize()
         want = masked_conv2d_plain(x, mask, w, b)
         off = ~mask[:, None].expand_as(got)
         zeros = bool((got[off] == 0).all())
         err = float((got - want).abs().max())
         lim = 1e-5 * float(want.abs().max())
-        log(f'solo kernels: masked_conv2d density {density:g}: masked-out '
-            f'positions 0 {zeros}, max abs err {err:.3e} (limit '
-            f'{lim:.3e})')
-        check(zeros and err <= lim, 'masked_conv2d differs from plain')
+        tile = masked_conv_tile(p, 256, sms)
+        log(f'solo kernels: masked_conv2d density {density:.4g} ({p} '
+            f'positions, tile {tile} {MASKED_CONV_TILES[tile]}): masked-out '
+            f'positions 0 {zeros}, max abs err {err:.3e} (limit {lim:.3e}), '
+            f'a second call bit-equal {torch.equal(got, again)}')
+        check(zeros and err <= lim and torch.equal(got, again),
+              'masked_conv2d differs from plain, or from itself')
         pos = torch.nonzero(mask.reshape(-1)).reshape(-1)
         maskv = mask.reshape(-1)[pos].float()
         ms = graph_ms(torch, lambda: masked_conv_positions(
-            x, wt, b, maskv, pos, 1, (100, 168)))
+            x, w, b, maskv, pos, 1, (100, 168)))
         call_ms = events_ms(torch, lambda: masked_conv2d(x, mask, w, b), 10)
         plain_ms = events_ms(torch, lambda: masked_conv2d_plain(
             x, mask, w, b), 5)
@@ -6085,17 +6196,18 @@ def phase_solo_kernels(np, torch):
             with conv_fp32_precision('ieee'):
                 return F.conv2d(x, w, b, 1, 1) * mask[:, None]
         library_ms = graph_ms(torch, library)
-        p = pos.numel()
         bms, by = bound_of(x.numel() * 4 + w.numel() * 4 + b.numel() * 4 +
                            mask.numel() + 256 * mask.numel() * 4,
                            2.0 * p * 256 * 256 * 9)
-        by_density.append(dict(density=density, positions=p, ms=ms,
+        by_density.append(dict(density=density, positions=p, tile=tile,
+                               tile_shape=MASKED_CONV_TILES[tile], ms=ms,
                                call_ms=call_ms, plain_ms=plain_ms,
                                library_ms=library_ms, bound_ms=bms,
                                bound_by=by, max_abs_err=err))
-        log(f'solo kernels: masked_conv2d density {density:g} ({p} '
-            f'positions): {ms:.4f} ms device (graph), {call_ms:.4f} ms per '
-            f'call, plain {plain_ms:.4f} ms, dense cuDNN IEEE conv x mask '
+        log(f'solo kernels: masked_conv2d density {density:.4g} ({p} '
+            f'positions): {ms:.4f} ms device (graph; tile {tile}, with the '
+            f'weight copy and zeroing), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.4f} ms, dense cuDNN IEEE conv x mask '
             f'{library_ms:.4f} ms, bound {bms:.5f} ms ({by})')
     head = by_density[1]
     conv_row = kernel_row(
@@ -6373,6 +6485,10 @@ def main() -> int:
                 'point_sample'],
             'pointrend train': mask_train_launches['pointrend train'][
                 'point_sample']}
+        corner_pool_row['train_by_direction'] = next(
+            row for row in mask_train_rows
+            if row['name'] == 'corner_pool_backward').pop(
+                'forward_by_direction')
         corner_pool_row['launches_by_path'] = {
             'cornernet serve': cn_launches['cornernet serve']['corner_pool'],
             'cornernet train': mask_train_launches['cornernet train'][

@@ -8,11 +8,13 @@ CPU tensors.
 row or column, itself included. ``top`` takes everything below it (the scan
 runs upward), ``bottom`` everything above it, ``left`` everything to its
 right and ``right`` everything to its left, as mmcv's TopPool etc. and
-erd_tpu's flipped ``lax.cummax``. Maps are the port's NCHW tensors; the
-output has the input's dtype (a max is exact). CPU tensors take
-``corner_pool_plain`` (``torch.cummax``); CUDA tensors launch the kernel
-``csrc/corner_pool.cu`` (one launch per call, counted in
-``corner_pool.launches``).
+erd_tpu's flipped ``lax.cummax``. Maps are (B, C, H, W), and the output
+has the input's dtype (a max is exact). The output is NCHW: a
+channels-last map (the hourglass's, on the card) is read where it lies by
+a kernel of its own, as a channels-last output slowed the convs after the
+pools. CPU tensors take ``corner_pool_plain``
+(``torch.cummax``); CUDA tensors launch the kernel ``csrc/corner_pool.cu``
+(one launch per call, counted in ``corner_pool.launches``).
 
 The gradient (``corner_pool_backward``) is erd_tpu's: JAX differentiates
 ``cummax`` through ``lax.associative_scan`` with ``lax.max`` as the combine,
@@ -20,10 +22,13 @@ and ``lax.max`` gives half of the tangent to each of two tied operands, so a
 tied run of a ray shares its outputs' gradients by the scan's tree, not by
 position (``torch.cummax``'s own backward sends each output's gradient to
 one index: a different function wherever a ReLU'd input ties). The plain
-version replays JAX's recursion with ``torch.maximum`` (whose backward also
-splits a tie 0.5 / 0.5) and takes its vector-Jacobian product; the kernel
-walks the same tree. ``top`` and ``left`` run the tree over the flipped
-ray, as erd_tpu's ``flip(cummax(flip(x)))`` does.
+version replays JAX's recursion with ``balanced_max`` (``torch.maximum``
+with ``lax.max``'s derivative: 1 to the operand equal to the output, 0.5 to
+each of two, 0 to both where the output is NaN) and takes its
+vector-Jacobian product; the kernel walks the same tree. ``top`` and
+``left`` run the tree over the flipped ray, as erd_tpu's
+``flip(cummax(flip(x)))`` does. A NaN is carried forward by both passes,
+as ``lax.cummax`` and ``torch.cummax`` carry it.
 
 ``matrix_decay(scores, iou, labels)`` is SOLOv2's mask-IoU decay
 (erd_tpu/models/detectors/solov2.py:399-410) on a precomputed (N, N) IoU,
@@ -90,20 +95,25 @@ def _check(x, direction):
 
 
 def _corner_pool_kernel(x, direction):
-    """Launch ``erd_corner_pool`` (CUDA tensors); counted in
-    ``corner_pool.launches``."""
+    """Launch ``erd_corner_pool`` (CUDA tensors) on x made NCHW, or
+    ``erd_corner_pool_nhwc`` on a channels-last x where it lies; the output
+    is NCHW. Counted in ``corner_pool.launches``."""
     dim, backward = _direction(direction)
-    x = x.contiguous()
+    nhwc = not x.is_contiguous() and x.is_contiguous(
+        memory_format=torch.channels_last)
+    if not nhwc:
+        x = x.contiguous()
     b, c, h, w = x.shape
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    sizes = (b, c, h, w) if nhwc else (b * c, h, w)
     lib = cuda_build.load('corner_pool')
-    fn = lib.erd_corner_pool
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
+    fn = lib.erd_corner_pool_nhwc if nhwc else lib.erd_corner_pool
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * (
+        len(sizes) + 3) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), b * c, h, w, int(dim == 3),
+        err = fn(x.data_ptr(), out.data_ptr(), *sizes, int(dim == 3),
                  int(backward), int(x.dtype == torch.bfloat16), stream)
     cuda_build.check(lib, err, 'corner_pool')
     corner_pool.launches += 1
@@ -142,12 +152,42 @@ def corner_pool(x, direction):
 corner_pool.launches = 0
 
 
+class _BalancedMax(torch.autograd.Function):
+    """``torch.maximum`` (NaN wins) with JAX's ``_balanced_eq`` rule for
+    ``lax.max``: an operand gets the tangent times 1 where it equals the
+    output, 0.5 where the other operand equals it too, else 0 (a NaN output
+    equals nothing, so neither operand gets any). torch's own rule sends
+    the whole gradient of a NaN to both operands."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.maximum(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b, out = ctx.saved_tensors
+
+        def share(x, y):
+            hit, both = x == out, y == out
+            return torch.where(hit, torch.where(both, 0.5, 1.0), 0.0).to(
+                grad.dtype)
+        return grad * share(a, b), grad * share(b, a)
+
+
+def balanced_max(a, b):
+    """``torch.maximum(a, b)`` whose gradient is ``lax.max``'s."""
+    return _BalancedMax.apply(a, b)
+
+
 def scan_max(x, dim: int):
     """JAX's ``associative_scan(lax.max, x, axis=dim)`` in torch (dim >= 0):
     adjacent pairs combined, the half-length scan by recursion, the even
     outputs combined from the odd ones, the two interleaved
-    (jax/_src/lax/control_flow/loops.py). Its values are ``torch.cummax``'s;
-    its autograd is JAX's tree of tie splits."""
+    (jax/_src/lax/control_flow/loops.py). Its values are ``torch.cummax``'s,
+    NaN included; its autograd (``balanced_max``) is JAX's tree of tie
+    splits."""
     n = x.shape[dim]
     if n < 2:
         return x
@@ -155,9 +195,9 @@ def scan_max(x, dim: int):
     def sl(t, start, stop=None, step=1):
         return t[(slice(None),) * dim + (slice(start, stop, step),)]
 
-    odd = scan_max(torch.maximum(sl(x, 0, n - 1, 2), sl(x, 1, n, 2)), dim)
-    even = torch.maximum(sl(odd, 0, -1) if n % 2 == 0 else odd,
-                         sl(x, 2, None, 2))
+    odd = scan_max(balanced_max(sl(x, 0, n - 1, 2), sl(x, 1, n, 2)), dim)
+    even = balanced_max(sl(odd, 0, -1) if n % 2 == 0 else odd,
+                        sl(x, 2, None, 2))
     even = torch.cat([sl(x, 0, 1), even], dim)
     m = odd.shape[dim]
     out = torch.stack([sl(even, 0, m), odd], dim + 1).flatten(dim, dim + 1)

@@ -29,9 +29,10 @@ K x K convolution (symmetric padding (K - 1) // 2, any stride) plus bias,
 times a mask at output resolution, on NCHW maps with an OIHW weight. CPU
 tensors take ``masked_conv2d_plain`` (the dense IEEE float32 convolution
 times the mask); CUDA tensors launch the kernel ``csrc/masked_conv.cu``,
-which computes only the masked positions (one launch a call, counted in
-``masked_conv2d.launches``). It takes no gradient: no model path trains
-through it.
+an implicit GEMM over only the masked positions (one launch a call with at
+least one position, counted in ``masked_conv2d.launches``;
+``masked_conv_tile`` picks its tile). It takes no gradient: no model path
+trains through it.
 """
 from __future__ import annotations
 
@@ -300,36 +301,76 @@ def masked_conv2d(x, mask, weight, bias=None, stride=1):
     flat = mask.reshape(-1)
     pos = torch.nonzero(flat).reshape(-1)
     return masked_conv_positions(
-        x.float().contiguous(), weight.float().permute(1, 2, 3, 0)
-        .contiguous(), None if bias is None else bias.float().contiguous(),
+        x.float().contiguous(), weight.float().contiguous(),
+        None if bias is None else bias.float().contiguous(),
         flat[pos].float().contiguous(), pos, stride, (ho, wo))
 
 
-def masked_conv_positions(x, wt, bias, maskv, pos, stride, out_hw):
+# the masked-conv kernel's tiles: (positions, channels) a block
+MASKED_CONV_TILES = {1: (128, 128), 2: (64, 64), 3: (128, 256)}
+# a tile's launch takes about a + b * n ms, n its blocks on the busiest SM:
+# (a, b) fitted to a 3x3, 256 -> 256 conv at 19 values of P on an H100
+# (erd_tpu_torch/tools/masked_conv_tiles.py); every tile's time scales
+# alike with Cin * K^2
+MASKED_CONV_TILE_COST = {1: (0.060, 0.242), 2: (0.057, 0.081),
+                         3: (0.021, 0.477)}
+
+
+def masked_conv_tile(p, co, sm_count):
+    """The kernel's tile for P masked positions and Co output channels on
+    a card of ``sm_count`` SMs: the one whose launch
+    MASKED_CONV_TILE_COST puts shortest (128 x 256 only for Co > 128)."""
+    def cost(tile):
+        bm, bn = MASKED_CONV_TILES[tile]
+        blocks = -(-p // bm) * -(-co // bn)
+        a, b = MASKED_CONV_TILE_COST[tile]
+        return a + b * max(1, -(-blocks // sm_count))
+    return min((1, 2, 3) if co > 128 else (1, 2), key=cost)
+
+
+def masked_conv_positions(x, weight, bias, maskv, pos, stride, out_hw,
+                          tile=None):
     """Launch ``erd_masked_conv2d`` on compacted positions (CUDA tensors;
     the launch that ``masked_conv2d`` counts): x (B, Cin, H, W) float32,
-    wt (Cin, K, K, Co) float32, bias (Co,) or None, maskv (P,) float32 the
-    mask's values at pos (P,) int64, flat indices into (B, Ho, Wo); returns
-    the zeroed (B, Co, Ho, Wo) float32 output with those positions
-    filled. No host synchronisation (CUDA-graph capturable)."""
+    weight (Co, Cin, K, K) float32 (OIHW, contiguous), bias (Co,) or None,
+    maskv (P,) float32 the mask's values at pos (P,) int64, flat indices
+    into (B, Ho, Wo); ``tile`` a key of MASKED_CONV_TILES, or None for
+    ``masked_conv_tile``'s. Returns the (B, Co, Ho, Wo) float32 output:
+    those positions filled, every other one zero. No host synchronisation (P is
+    pos's shape; CUDA-graph capturable)."""
     if x.device.type != 'cuda':
         raise RuntimeError(f'masked_conv_positions: no kernel for '
                            f'{x.device}')
     b, cin, h, w = x.shape
-    k, co = wt.shape[1], wt.shape[-1]
+    co, k = weight.shape[0], weight.shape[-1]
     ho, wo = out_hw
-    out = torch.zeros((b, co, ho, wo), dtype=torch.float32, device=x.device)
+    p = pos.numel()
+    if tile is None:
+        tile = masked_conv_tile(p, co, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+    if tile not in MASKED_CONV_TILES:
+        raise ValueError(f'masked_conv_positions: tile {tile} is not one '
+                         f'of {tuple(MASKED_CONV_TILES)}')
+    # the kernel writes every masked position; zero the rest (no memset
+    # where every position is masked)
+    out = (torch.empty if p == b * ho * wo else torch.zeros)(
+        (b, co, ho, wo), dtype=torch.float32, device=x.device)
+    if p == 0 or co == 0:
+        return out
+    # (Co, K, K, Cin): the kernel reduces tap-major, and reads each tap's
+    # run of input channels with 16-byte loads
+    w_ohwi = weight.permute(0, 2, 3, 1).contiguous()
     lib = cuda_build.load('masked_conv')
     fn = lib.erd_masked_conv2d
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), wt.data_ptr(),
+        err = fn(x.data_ptr(), w_ohwi.data_ptr(),
                  None if bias is None else bias.data_ptr(), maskv.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), pos.numel(), cin, h, w, co,
-                 k, stride, (k - 1) // 2, ho, wo, stream)
+                 pos.data_ptr(), out.data_ptr(), p, cin, h, w, co, k, stride,
+                 (k - 1) // 2, ho, wo, tile, stream)
     cuda_build.check(lib, err, 'masked_conv2d')
     masked_conv2d.launches += 1
     return out

@@ -15,8 +15,13 @@ parts from a float64 run. Run from the repository root:
 2. chip_smoke.py's Mask R-CNN train reference step (float32, 2 images
    128x192): the card's mask gradient over backbone + neck against a
    float64 CPU run, as the port runs it, with RoIAlign's backward kernel
-   replaced by its plain version, with cuDNN off, and with every 3x3
-   unit-stride float32 conv on the ``direct`` route.
+   replaced by its plain version, with cuDNN off, with every 3x3
+   unit-stride float32 conv on the ``direct`` route, and with cuDNN off
+   for one group of modules at a time (MODULE_GROUPS: each ResNet stage,
+   the FPN's laterals and outputs, the RPN head, the mask head's four
+   convs, its transposed conv and its 1x1 logits), forward and backward;
+   for each, the share of the gap between the card and the CPU's own
+   float32 error that the switch removes.
 
 Prints a line per measurement and, last, one JSON object of them all. A
 diagnosis, not a check: every route is float32 at IEEE precision, and only
@@ -186,6 +191,95 @@ def direct_3x3(original):
     return Route
 
 
+# the Mask R-CNN modules switched off cuDNN one group at a time: module
+# names as the port's net has them
+MODULE_GROUPS = {
+    'backbone.layer1': ('backbone.layer1',),
+    'backbone.layer2': ('backbone.layer2',),
+    'backbone.layer3': ('backbone.layer3',),
+    'backbone.layer4': ('backbone.layer4',),
+    'FPN laterals': ('neck.lateral_convs',),
+    'FPN outputs': ('neck.fpn_convs',),
+    'RPN head': ('rpn_head',),
+    'mask head 4 convs': ('roi_head.mask_head.convs',),
+    'mask head transposed conv': ('roi_head.mask_head.upsample',),
+    'mask head logits': ('roi_head.mask_head.conv_logits',)}
+
+
+class Scope:
+    """How deep the forward passes of the switched modules are nested now
+    (``depth``), and how many convs took the no-cuDNN route (``convs``)."""
+    depth = 0
+    convs = 0
+
+
+def tag_modules(net):
+    """Give every module of ``net`` its qualified name (``_scope_name``),
+    which survives deepcopy and ``.to``."""
+    for name, module in net.named_modules():
+        module._scope_name = name
+    return net
+
+
+def _in(module, prefixes):
+    name = getattr(module, '_scope_name', None)
+    return name is not None and any(
+        name == p or name.startswith(p + '.') for p in prefixes)
+
+
+@contextlib.contextmanager
+def switched(prefixes):
+    """While a tagged module named by (or under) one of ``prefixes`` runs
+    its forward, Scope.depth > 0 (global module hooks)."""
+    from torch.nn.modules.module import (register_module_forward_hook,
+                                         register_module_forward_pre_hook)
+
+    def enter(module, args):
+        if _in(module, prefixes):
+            Scope.depth += 1
+
+    def leave(module, args, out):
+        if _in(module, prefixes):
+            Scope.depth -= 1
+    hooks = [register_module_forward_pre_hook(enter),
+             register_module_forward_hook(leave)]
+    Scope.depth = 0
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def no_cudnn_in_scope(original, on_cpu=False):
+    """A stand-in for ``erd_tpu_torch.utils._IEEEConv2d`` that runs a
+    float32 conv on the card (on any device with ``on_cpu``) with cuDNN
+    off, forward and backward, while Scope.depth > 0; every other conv
+    takes ``original``."""
+    class NoCudnn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            with torch.backends.cudnn.flags(enabled=False):
+                return original.forward(ctx, *args)
+
+        @staticmethod
+        def backward(ctx, grad):
+            with torch.backends.cudnn.flags(enabled=False):
+                return original.backward(ctx, grad)
+
+    class Route:
+        @staticmethod
+        def apply(x, weight, bias, stride, padding, transposed):
+            if Scope.depth > 0 and (x.is_cuda or on_cpu) and \
+                    x.dtype == torch.float32:
+                Scope.convs += 1
+                return NoCudnn.apply(x, weight, bias, stride, padding,
+                                     transposed)
+            return original.apply(x, weight, bias, stride, padding,
+                                  transposed)
+    return Route
+
+
 def step_errors():
     """The Mask R-CNN train reference's card-vs-float64 ratio under each
     variant (chip_smoke.phase_mask_train_reference, its gates included)."""
@@ -202,6 +296,21 @@ def step_errors():
                 grad, rois, levels, shapes, strides, out_size,
                 sampling_ratio)]
         return stand_in
+    def tagged(make):
+        def make_tagged(*args, **kw):
+            cfg, det, net = make(*args, **kw)
+            return cfg, det, tag_modules(net)
+        return make_tagged
+
+    @contextlib.contextmanager
+    def module_group(prefixes):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(smoke.patched(smoke, 'mask_train_net',
+                                              tagged))
+            stack.enter_context(smoke.patched(utils, '_IEEEConv2d',
+                                              no_cudnn_in_scope))
+            stack.enter_context(switched(prefixes))
+            yield
     variants = {
         'as the port runs it': contextlib.nullcontext,
         'RoIAlign backward plain': lambda: smoke.patched(
@@ -209,15 +318,31 @@ def step_errors():
         'cuDNN off': lambda: torch.backends.cudnn.flags(enabled=False),
         '3x3 convs direct': lambda: smoke.patched(utils, '_IEEEConv2d',
                                                   direct_3x3)}
-    out = {}
+    variants.update({f'cuDNN off in {group}': (
+        lambda prefixes=prefixes: module_group(prefixes))
+        for group, prefixes in MODULE_GROUPS.items()})
+    out, cpu = {}, []
     for label, ctx in variants.items():
+        Scope.convs = 0
         with ctx():
             off64 = smoke.phase_mask_train_reference(np, torch,
                                                      kinds=('mask_rcnn',))
+        if label.startswith('cuDNN off in') and Scope.convs == 0:
+            raise RuntimeError(f'bisect: {label} matched no conv of the '
+                               f'net')
         out[label] = off64['card']
+        cpu.append(off64['cpu'])
+        gap = out['as the port runs it'] - off64['cpu']
+        removed = (out['as the port runs it'] - out[label]) / gap \
+            if gap > 0 else float('nan')
         print(f'bisect: mask_rcnn step, {label}: the card\'s mask gradient '
               f'over backbone + neck against float64 {out[label]:.2e} (CPU '
-              f'float32 {off64["cpu"]:.2e})', flush=True)
+              f'float32 {off64["cpu"]:.2e}); removes {removed:.1%} of the '
+              f'gap to the CPU' + (f'; {Scope.convs} conv calls without '
+                                   f'cuDNN' if label.startswith(
+                                       'cuDNN off in') else ''), flush=True)
+    out['cpu float32, least'] = min(cpu)
+    out['cpu float32, most'] = max(cpu)
     return out
 
 

@@ -114,6 +114,57 @@ def test_corner_pool_plain_matches_jax_exactly(direction, hw):
         corner_pool(nchw(x), 'up')
 
 
+# the NaN rule of lax.cummax (fault 3.11): a NaN and every element after it
+# in scan order read NaN
+NAN_RAY = [1, np.nan, 0.5, 2, 2, 0]
+
+
+def nan_rays(case, direction):
+    """NHWC maps with NaNs in their rays: ``repro`` one ray along the
+    direction's axis holding NAN_RAY; ``scattered`` ReLU'd noise (runs of
+    tied zeros) with 8 % NaNs, a ray that is all NaN, rays with a NaN first
+    and last, and bare zeros after a NaN."""
+    along_h = direction in ('top', 'bottom')
+    if case == 'repro':
+        x = np.asarray(NAN_RAY, np.float32)
+        return x.reshape((1, 6, 1, 1) if along_h else (1, 1, 6, 1))
+    rs = np.random.RandomState(5)
+    x = np.maximum(rs.randn(2, 9, 11, 3), 0).astype(np.float32)
+    x[rs.rand(*x.shape) < 0.08] = np.nan
+    if along_h:
+        x[0, :, 2, 0] = np.nan
+        x[1, 0, 3, 1] = x[1, -1, 4, 1] = np.nan
+        x[1, 4:, 5, 2] = 0
+    else:
+        x[0, 2, :, 0] = np.nan
+        x[1, 3, 0, 1] = x[1, 4, -1, 1] = np.nan
+        x[1, 5, 4:, 2] = 0
+    return x
+
+
+@pytest.mark.parametrize('direction', ['top', 'bottom', 'left', 'right'])
+@pytest.mark.parametrize('case', ['repro', 'scattered'])
+def test_corner_pool_carries_nan_as_jax(direction, case):
+    """Fault 3.11: the forward carries a NaN along the ray as erd_tpu's
+    lax.cummax does, in float32 and bf16."""
+    x = nan_rays(case, direction)
+    want = np.asarray(j_corner_pool(jnp.asarray(x), direction))
+    assert np.isnan(want).any() and not np.isnan(want).all()
+    got = corner_pool(nchw(x), direction).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == 'repro':
+        ray = got.reshape(-1)
+        expect = {'bottom': [1] + [np.nan] * 5, 'right': [1] + [np.nan] * 5,
+                  'top': [np.nan, np.nan, 2, 2, 2, 0],
+                  'left': [np.nan, np.nan, 2, 2, 2, 0]}[direction]
+        np.testing.assert_array_equal(ray, np.asarray(expect, np.float32))
+    xb = nchw(x).bfloat16()
+    np.testing.assert_array_equal(
+        corner_pool_plain(xb, direction).float().permute(0, 2, 3, 1)
+        .numpy(), np.asarray(j_corner_pool(jnp.asarray(
+            xb.float().permute(0, 2, 3, 1).numpy()), direction)))
+
+
 def test_local_maximum_matches_jax():
     """3x3 window max padded with -inf; plateaus of equal values all
     stay."""

@@ -72,7 +72,8 @@ from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
 from erd_tpu_torch.ops.gaussian import (gaussian_radius,
                                         render_corner_targets)
 from erd_tpu_torch.structures import GTInstances
-from tests.test_torch_cornernet import SMALL, nchw, perturbed, to_numpy
+from tests.test_torch_cornernet import (SMALL, nan_rays, nchw, perturbed,
+                                        to_numpy)
 from tests.test_torch_train import OneBatchLoader, Recorder
 
 torch.set_num_threads(2)
@@ -136,6 +137,33 @@ def test_corner_pool_backward_matches_jax_grad(direction, case):
             cummax, = torch.autograd.grad(
                 (corner_pool_plain(a, direction) * nchw(g)).sum(), a)
         assert not torch.allclose(cummax, got)
+
+
+@pytest.mark.parametrize('direction', DIRECTIONS)
+@pytest.mark.parametrize('case', ['repro', 'scattered', 'scattered_ones'])
+def test_corner_pool_backward_with_nan_matches_jax_grad(direction, case):
+    """Fault 3.11: where a combine's output is NaN, lax.max's _balanced_eq
+    sends no gradient to either operand (torch.maximum's rule sends all of
+    it to both); the plain version, and the Function through it, give
+    jax.grad's gradient (the repro's values given)."""
+    x = nan_rays(case.replace('_ones', ''), direction)
+    rs = np.random.RandomState(2)
+    g = (np.arange(1, 7, dtype=np.float32).reshape(x.shape)
+         if case == 'repro' else np.ones_like(x) if case.endswith('ones')
+         else rs.randn(*x.shape).astype(np.float32))
+    want = np.asarray(jax.jit(jax.grad(lambda a: (j_corner_pool(
+        a, direction) * g).sum()))(jnp.asarray(x)))
+    assert np.isfinite(want).all()
+    got = corner_pool_backward_plain(nchw(x), nchw(g), direction)
+    rel_close(nhwc(got), want, 1e-6)
+    if case == 'repro':
+        expect = {'bottom': [1, 0, 0, 0, 0, 0], 'right': [1, 0, 0, 0, 0, 0],
+                  'top': [0, 0, 0, 3.5, 8.5, 6],
+                  'left': [0, 0, 0, 3.5, 8.5, 6]}[direction]
+        assert got.flatten().tolist() == expect
+    tx = nchw(x).requires_grad_()
+    corner_pool(tx, direction).backward(nchw(g))
+    assert torch.equal(tx.grad, got)
 
 
 def test_corner_pool_backward_tie_shares_and_gradcheck():

@@ -1186,18 +1186,104 @@ def test_point_sample_kernel_matches_plain(cuda, form, dtype):
 @pytest.mark.parametrize('direction', ['top', 'bottom', 'left', 'right'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [(1, 128, 192, 256), (2, 3, 37, 19),
-                                   (1, 2, 1, 5)])
+                                   (1, 2, 1, 5), (1, 3, 1, 1), (1, 2, 31, 33),
+                                   (1, 2, 33, 31), (2, 2, 128, 128),
+                                   (1, 2, 257, 300), (1, 2, 300, 257),
+                                   (1, 2, 5, 264), (1, 2, 520, 8)])
 def test_corner_pool_kernel_matches_plain_exactly(cuda, direction, dtype,
                                                   shape):
+    """Rays below, at and above a warp's 32 V elements (V = 8 along W, 4
+    float32 or 8 bf16 columns along H), odd and vector-width sides, the
+    scalar path (W not a multiple of V) and more than one pass of rows;
+    random values, then ReLU'd ones (runs of tied zeros)."""
     from erd_tpu_torch.ops import corner_pool, corner_pool_plain
-    x = torch.from_numpy(np.random.RandomState(1).randn(*shape).astype(
-        np.float32)).to(device=cuda, dtype=dtype)
-    before = corner_pool.launches
-    got = corner_pool(x, direction)
-    torch.cuda.synchronize()
-    assert corner_pool.launches - before == 1
-    assert got.dtype == dtype
-    assert torch.equal(got, corner_pool_plain(x, direction))
+    base = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    for values in (base, np.maximum(base, 0)):
+        x = torch.from_numpy(values).to(device=cuda, dtype=dtype)
+        before = corner_pool.launches
+        got = corner_pool(x, direction)
+        torch.cuda.synchronize()
+        assert corner_pool.launches - before == 1
+        assert got.dtype == dtype
+        assert torch.equal(got, corner_pool_plain(x, direction))
+
+
+def same_with_nan(a, b):
+    """Equal values, NaN where the other has NaN."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan()))
+                                       .all())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(1, 1, 6, 6), (2, 3, 37, 19),
+                                   (1, 4, 192, 256), (1, 2, 300, 257)])
+def test_corner_pool_kernels_carry_nan_as_plain(cuda, dtype, shape):
+    """Fault 3.11 on the card: the forward kernel carries a NaN along the
+    ray as torch.cummax does, and the backward kernel sends no gradient
+    through a combine whose output is NaN, as the plain version (JAX's
+    _balanced_eq rule) does; every direction, the CPU tests' repro ray
+    among the rays."""
+    from erd_tpu_torch.ops import corner_pool, corner_pool_plain
+    from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
+                                             corner_pool_backward_plain)
+    rs = np.random.RandomState(9)
+    x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+    x[rs.rand(*shape) < 0.03] = np.nan
+    x[0, 0, :, 0] = np.nan
+    x[0, 0, :6, -1] = [1, np.nan, 0.5, 2, 2, 0]
+    x[0, 0, -1, :6] = [1, np.nan, 0.5, 2, 2, 0]
+    x = torch.from_numpy(x).to(device=cuda, dtype=dtype)
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        device=cuda, dtype=dtype)
+    for direction in ('top', 'bottom', 'left', 'right'):
+        got = corner_pool(x, direction)
+        torch.cuda.synchronize()
+        want = corner_pool_plain(x, direction)
+        assert bool(want.isnan().any()) and same_with_nan(got, want)
+        gx = corner_pool_backward(x, g, direction)
+        torch.cuda.synchronize()
+        gw = corner_pool_backward_plain(x, g, direction)
+        assert bool(gw.isfinite().all()) and torch.equal(gx, gw)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(1, 128, 24, 40), (2, 3, 37, 19),
+                                   (1, 8, 1, 33), (2, 64, 33, 1),
+                                   (1, 33, 31, 257), (1, 1, 300, 5),
+                                   (2, 40, 65, 9), (1, 128, 192, 256)])
+def test_corner_pool_kernel_takes_channels_last_maps(cuda, dtype, shape):
+    """A channels-last map (the hourglass's layout on the card) is read
+    where it lies (erd_corner_pool_nhwc: tiles of 32 channels, 8 rays and
+    32 elements a pass, each cut ragged here): one launch, an NCHW output
+    equal to plain NaN for NaN (ReLU'd values with NaNs planted), every
+    direction."""
+    from erd_tpu_torch.ops import corner_pool, corner_pool_plain
+    rs = np.random.RandomState(8)
+    x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+    x[rs.rand(*shape) < 0.02] = np.nan
+    x = torch.from_numpy(x).to(device=cuda, dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+    for direction in ('top', 'bottom', 'left', 'right'):
+        before = corner_pool.launches
+        got = corner_pool(x, direction)
+        torch.cuda.synchronize()
+        assert corner_pool.launches - before == 1
+        assert got.is_contiguous()
+        assert same_with_nan(got, corner_pool_plain(x, direction))
+
+
+def test_corner_pool_kernel_takes_rows_off_16_bytes(cuda):
+    """A contiguous map whose data starts 4 bytes past a 16-byte boundary
+    takes the scalar path, equal to plain."""
+    from erd_tpu_torch.ops import corner_pool, corner_pool_plain
+    shape = (1, 3, 40, 64)
+    flat = torch.randn(int(np.prod(shape)) + 1, device=cuda)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    for direction in ('top', 'bottom', 'left', 'right'):
+        got = corner_pool(x, direction)
+        torch.cuda.synchronize()
+        assert torch.equal(got, corner_pool_plain(x, direction))
 
 
 def test_point_sample_and_corner_pool_never_reach_plain_on_cuda(
@@ -1589,6 +1675,66 @@ def test_masked_conv2d_kernel_matches_plain(cuda, k, stride, bias):
     assert torch.equal(got[~mask[:, None].expand_as(got)],
                        torch.zeros(int((~mask).sum()) * 48))
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize('case', ['cin3_co200', 'k3_co256', 'k5s2_co130',
+                                  'k1_dense', 'empty', 'k3_co256_full',
+                                  'k1_co96_full', 'k3_co256_p8300',
+                                  'k3_co256_p16700'])
+@pytest.mark.parametrize('tile', [1, 2, 3])
+def test_masked_conv_tiles_match_plain(cuda, case, tile):
+    """Each tile (128 x 128, 64 x 64, 128 x 256) against the dense IEEE
+    float32 conv times the mask, ragged in P, Co and Cin K^2 (27 and 70:
+    scalar weight loads), at densities 0.3-1 and 0 (no position: no launch,
+    all zeros); masked-out positions exactly 0, the rest within 1e-5 *
+    max|plain|, the same bits on a second call; masked_conv2d picks
+    masked_conv_tile's tile, which is each of the three on some case (on
+    132 SMs: 64 x 64 on the small maps, 128 x 128 on the two full 100 x 90
+    maps and at 49.4 % of 100 x 168, 128 x 256 at 99.4 %: just under two
+    changes of choice)."""
+    from erd_tpu_torch.ops import masked_conv2d, masked_conv2d_plain
+    from erd_tpu_torch.ops.sampling import (masked_conv_positions,
+                                            masked_conv_tile)
+    seed, b, cin, h, w, co, k, stride, density = {
+        'cin3_co200': (1, 2, 3, 37, 53, 200, 3, 1, 0.3),
+        'k3_co256': (2, 1, 256, 50, 84, 256, 3, 1, 0.5),
+        'k5s2_co130': (3, 2, 20, 33, 41, 130, 5, 2, 0.7),
+        'k1_dense': (4, 1, 70, 20, 30, 64, 1, 1, 1.0),
+        'empty': (5, 1, 16, 12, 12, 24, 3, 1, 0.0),
+        'k3_co256_full': (6, 2, 16, 100, 90, 256, 3, 1, 1.0),
+        'k1_co96_full': (7, 2, 8, 100, 90, 96, 1, 1, 1.0),
+        'k3_co256_p8300': (8, 1, 16, 100, 168, 256, 3, 1, 0.494),
+        'k3_co256_p16700': (9, 1, 16, 100, 168, 256, 3, 1, 0.994)}[case]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, cin, h, w, generator=gen)
+    wt = torch.randn(co, cin, k, k, generator=gen) / (cin * k * k) ** 0.5
+    bias = torch.randn(co, generator=gen)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    mask = torch.rand(b, ho, wo, generator=gen) < density
+    want = masked_conv2d_plain(x, mask, wt, bias, stride)
+    xc, wc, bc, mc = (t.to(cuda) for t in (x, wt, bias, mask))
+    flat = mc.reshape(-1)
+    pos = torch.nonzero(flat).reshape(-1)
+    maskv = flat[pos].float()
+    before = masked_conv2d.launches
+    got = masked_conv_positions(xc, wc, bc, maskv, pos, stride, (ho, wo),
+                                tile)
+    again = masked_conv_positions(xc, wc, bc, maskv, pos, stride, (ho, wo),
+                                  tile)
+    torch.cuda.synchronize()
+    p = pos.numel()
+    assert masked_conv2d.launches - before == (2 if p else 0)
+    assert torch.equal(got, again)
+    got = got.cpu()
+    off = ~mask[:, None].expand_as(got)
+    assert bool((got[off] == 0).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    auto = masked_conv2d(xc, mc, wc, bc, stride).cpu()
+    chosen = masked_conv_tile(p, co, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    if chosen == tile:
+        assert torch.equal(auto, got)
 
 
 def test_solov2_serving_on_cuda_runs_the_matrix_decay_kernel(cuda):

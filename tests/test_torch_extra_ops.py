@@ -219,6 +219,25 @@ def test_masked_conv2d_rejects_wrong_shapes():
         masked_conv2d(x, torch.ones(1, 8, 8), torch.zeros(3, 5, 3, 3))
 
 
+@pytest.mark.parametrize('p,co,tile', [(16800, 256, 3), (8391, 256, 1),
+                                        (4272, 256, 2), (848, 256, 2),
+                                        (16800, 128, 1), (0, 256, 2),
+                                        (6300, 256, 2), (8300, 256, 1),
+                                        (8500, 256, 2), (12000, 256, 3),
+                                        (16700, 256, 3), (20000, 256, 1),
+                                        (33600, 256, 3)])
+def test_masked_conv_tile_is_the_largest_that_fills_the_card(p, co, tile):
+    """On 132 SMs, the tile whose launch MASKED_CONV_TILE_COST puts
+    shortest: at Co = 256 the tile an H100 ran fastest at each of these P
+    (erd_tpu_torch/tools/masked_conv_tiles.py), on both sides of every
+    change of choice (8448 | 8500: 128 x 128 past one block an SM loses to
+    64 x 64); 128 x 256 only for Co > 128; 64 x 64 at P = 0."""
+    from erd_tpu_torch.ops.sampling import (MASKED_CONV_TILES,
+                                            masked_conv_tile)
+    assert masked_conv_tile(p, co, 132) == tile
+    assert tile in MASKED_CONV_TILES
+
+
 # --------------------------------------------- routing and launch counts
 def test_wrappers_route_cpu_to_plain_and_never_fall_back():
     """CPU tensors take the plain versions and count no launch; any other

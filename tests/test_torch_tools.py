@@ -2,14 +2,17 @@
 (erd_tpu_torch/tools/bisect_fp32_conv.py) compares float32 conv routes on
 the card; here each route is held against F.conv2d in float64, where every
 route must give the same values up to the order of its sums (1e-12 of
-max|ref|)."""
+max|ref|). The smoke's phase timer (time_smoke_phases.py) on a script of
+two phases."""
 import importlib
+import json
 
 import pytest
 import torch
 import torch.nn.functional as F
 
 from erd_tpu_torch.tools import bisect_fp32_conv as bisect
+from erd_tpu_torch.tools import time_smoke_phases
 
 torch.set_num_threads(2)
 
@@ -61,3 +64,67 @@ def test_conv_chain_routes_agree_in_float64(route):
     finally:
         utils._IEEEConv2d = original
     assert all(_close(g, e) for g, e in zip(got, want))
+
+
+@pytest.mark.parametrize('group,convs', [(('b',), 2), (('b.1',), 1),
+                                         (('a',), 1), (('c',), 0)])
+def test_no_cudnn_scope_routes_only_the_switched_modules(group, convs):
+    """The per-module switch of the bisect's part 2: with the stand-in
+    route (here on the CPU), exactly the convs of the tagged modules named
+    by the group take it, forward and backward (one count a conv call),
+    and every value and gradient is the original route's."""
+    from collections import OrderedDict
+
+    from torch import nn
+
+    from erd_tpu_torch.models.layers import Conv2d
+    gen = torch.Generator().manual_seed(3)
+    torch.manual_seed(3)
+    net = bisect.tag_modules(nn.Sequential(OrderedDict(
+        a=Conv2d(4, 6, 3), b=nn.Sequential(Conv2d(6, 6, 3),
+                                           Conv2d(6, 2, 1)))))
+    x = torch.randn(2, 4, 7, 9, generator=gen)
+
+    def run():
+        a = x.clone().requires_grad_(True)
+        out = net(a)
+        return [out.detach()] + list(torch.autograd.grad(
+            out.square().sum(), [a] + list(net.parameters())))
+    want = run()
+    utils = importlib.import_module('erd_tpu_torch.utils')
+    original = utils._IEEEConv2d
+    utils._IEEEConv2d = bisect.no_cudnn_in_scope(original, on_cpu=True)
+    bisect.Scope.convs = 0
+    try:
+        with bisect.switched(group):
+            got = run()
+            assert bisect.Scope.depth == 0
+    finally:
+        utils._IEEEConv2d = original
+    assert bisect.Scope.convs == convs
+    assert all(torch.equal(g, e) for g, e in zip(got, want))
+
+
+def test_time_smoke_phases_times_every_phase_of_main(tmp_path, capsys):
+    """Each phase_* function that main calls gets its seconds (twice
+    called, twice counted), main's return code comes back, and the last
+    line is the JSON report."""
+    script = tmp_path / 'chip_smoke.py'
+    script.write_text(
+        'import time\n'
+        'def phase_a():\n'
+        '    time.sleep(0.05)\n'
+        'def phase_b(n):\n'
+        '    time.sleep(0.02 * n)\n'
+        'def main():\n'
+        '    phase_a()\n'
+        '    phase_b(1)\n'
+        '    phase_b(2)\n'
+        '    return 3\n')
+    assert time_smoke_phases.main([str(script)]) == 3
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report['rc'] == 3 and report['script'] == str(script)
+    assert set(report['phases']) == {'phase_a', 'phase_b'}
+    assert report['phases']['phase_a'] >= 0.05
+    assert report['phases']['phase_b'] >= 0.06
+    assert report['seconds'] >= sum(report['phases'].values())
