@@ -3753,6 +3753,7 @@ def phase_detr_train_kernels(np, torch):
     from erd_tpu_torch.engine import batch_to
     from erd_tpu_torch.ops import (ms_deform_attn_backward,
                                    ms_deform_attn_backward_plain)
+    from erd_tpu_torch.ops.ms_deform_attn import ms_deform_attn_backward_run
     ops_module = importlib.import_module('erd_tpu_torch.ops.ms_deform_attn')
     stats, timed_calls = {}, {}
     worst_abs, worst = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
@@ -3833,12 +3834,16 @@ def phase_detr_train_kernels(np, torch):
     # 5.2 ms for a 13 ms encoder call in one run (records dropped), so it
     # is logged beside, not used
     timed = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, args in timed_calls.items():
         prof_ms, call_ms, _, plain_ms = time_pair(
             torch, lambda: ms_deform_attn_backward(*args),
             lambda: ms_deform_attn_backward_plain(*args),
             ['ms_deform_attn_backward_kernel'], n=10)
         values, shapes, locs, weights, _ = args
+        run = ms_deform_attn_backward_run(locs.shape[0], locs.shape[1],
+                                          locs.shape[2], sms)
+        blocks = locs.shape[0] * locs.shape[2] * -(-locs.shape[1] // run)
         zero_ms = events_ms(torch, lambda: torch.zeros(
             values.shape, dtype=torch.float32, device=DEV), 10)
         ms = call_ms - zero_ms
@@ -3849,16 +3854,25 @@ def phase_detr_train_kernels(np, torch):
                            zero_ms=zero_ms, profiler_ms=prof_ms,
                            ms_from='events less zeroing', plain_ms=plain_ms,
                            bound_ms=bms, bound_by=by, bound_bytes=nbytes,
-                           ops=ops, ratio=ms / bms)
+                           ops=ops, ratio=ms / bms,
+                           plan=dict(run=run, blocks=blocks))
         log(f'detr train kernels: ms_deform_attn_backward {name} '
-            f'Q={locs.shape[1]} x {locs.shape[0]}: {ms:.4f} ms ({call_ms:.4f}'
-            f' ms per call by events, less {zero_ms:.4f} ms of the value '
+            f'Q={locs.shape[1]} x {locs.shape[0]}, blocks of {run} queries '
+            f'of one (image, head), {blocks} blocks: {ms:.4f} ms '
+            f'({call_ms:.4f} ms per call by events, less {zero_ms:.4f} ms of the value '
             f'gradient\'s zeroing; the profiler read {prof_ms:.4f}), plain '
             f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, '
             f'{ops / 1e9:.3f} GOP), {ms / bms:.1f}x the bound')
     log('detr train kernels: library_ms is null: no single PyTorch call '
         'forms these gradients (F.grid_sample\'s backward interpolates one '
         'level per call and neither weights nor sums the points)')
+    per_step, per_step_kernel = ({
+        kind: 6 * timed['encoder'][key] + 6 * timed[f'{kind} decoder'][key]
+        for kind in DETR_CONFIGS} for key in ('call_ms', 'ms'))
+    for kind, step_ms in per_step.items():
+        log(f'detr train kernels: {kind} sampling backward calls of one '
+            f'step (6 encoder, 6 decoder) {step_ms:.2f} ms (events, call '
+            f'time; {per_step_kernel[kind]:.2f} ms less the zeroing)')
     enc = timed.pop('encoder')
     row = dict(name='ms_deform_attn_backward', route='cuda',
                source='erd_tpu_torch/csrc/ms_deform_attn.cu',
@@ -3873,6 +3887,10 @@ def phase_detr_train_kernels(np, torch):
                plain_ms=enc['plain_ms'], bound_ms=enc['bound_ms'],
                bound_by=enc['bound_by'], library_ms=None,
                deterministic=False, decoder_calls=timed,
+               encoder_plan=enc['plan'], per_step_ms=per_step,
+               per_step_less_zeroing_ms=per_step_kernel, redesigned=True,
+               design='float4 lanes, 4 samples a warp, one reduce-scatter; '
+               'a block a run of one head\'s queries',
                sample_share={'fractional': total[1] / total[0],
                              'outside': total[2] / total[0]})
     del timed_calls
@@ -4078,6 +4096,7 @@ def phase_dcn_train_kernels(np, torch):
     from erd_tpu_torch.engine import batch_to
     from erd_tpu_torch.ops import (deform_im2col_backward,
                                    deform_im2col_backward_plain)
+    from erd_tpu_torch.ops.deform_conv import deform_backward_chunk
     dcn_module = importlib.import_module('erd_tpu_torch.ops.deform_conv')
     stats, shapes = {}, {}
     names = ('x', 'offset', 'mask')
@@ -4175,7 +4194,8 @@ def phase_dcn_train_kernels(np, torch):
 
     # the kernel's ms: CUDA events around the call less the zeroing of its
     # float32 map gradient, timed alone
-    timed, per_step = [], {}
+    timed, per_step, per_step_kernel = [], {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (kind, xshape, stride, has_mask), (args, count) in shapes.items():
         call_ms = events_ms(torch, lambda: deform_im2col_backward(*args), 5)
         zero_ms = events_ms(torch, lambda: torch.zeros(
@@ -4208,8 +4228,11 @@ def phase_dcn_train_kernels(np, torch):
         nbytes, ops = deform_backward_cost(args)
         bms, by = bound_of(nbytes, ops)
         out_hw = list(args[1].shape[2:])
+        chunk = deform_backward_chunk(xshape[0], xshape[1], args[8],
+                                      args[4], *out_hw, sms)
         timed.append(dict(config=kind, x=list(xshape), out_hw=out_hw,
-                          stride=stride, mask=has_mask, calls=count, ms=ms,
+                          stride=stride, mask=has_mask, calls=count,
+                          chunk=chunk, ms=ms,
                           call_ms=call_ms, zero_ms=zero_ms,
                           ms_from='events less zeroing', plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, bound_bytes=nbytes,
@@ -4217,9 +4240,11 @@ def phase_dcn_train_kernels(np, torch):
                           library_max_abs_err=library_errs,
                           library_offsets_skipped=float(near.float().mean())))
         per_step[kind] = per_step.get(kind, 0.0) + count * call_ms
+        per_step_kernel[kind] = per_step_kernel.get(kind, 0.0) + count * ms
         log(f'dcn train kernels: deform_im2col_backward {kind} x {xshape} '
             f'-> {tuple(out_hw)} stride {stride} mask {has_mask} (x{count} '
-            f'a step): {ms:.4f} ms ({call_ms:.4f} ms per call by events, '
+            f'a step), map-gradient chunks of {chunk} channels: '
+            f'{ms:.4f} ms ({call_ms:.4f} ms per call by events, '
             f'less {zero_ms:.4f} ms of the map gradient\'s zeroing), plain '
             f'{plain_ms:.2f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, '
             f'{ops / 1e9:.3f} GOP), {ms / bms:.1f}x the bound; grid_sample '
@@ -4229,7 +4254,8 @@ def phase_dcn_train_kernels(np, torch):
             f'{float(near.float().mean()):.4f})')
     for kind, total in per_step.items():
         log(f'dcn train kernels: {kind} backward calls of one step '
-            f'{total:.2f} ms (events, call time)')
+            f'{total:.2f} ms (events, call time; {per_step_kernel[kind]:.2f} '
+            f'ms less the zeroing)')
     log('dcn train kernels: library_ms is the autograd backward of '
         'F.grid_sample (bilinear, zeros padding, align_corners=False) on the '
         'float32 map and a grid prepared beforehand, times the mask for '
@@ -4250,6 +4276,9 @@ def phase_dcn_train_kernels(np, torch):
                plain_ms=big['plain_ms'], bound_ms=big['bound_ms'],
                bound_by=big['bound_by'], library_ms=big['library_ms'],
                deterministic=False, shapes=timed, per_step_ms=per_step,
+               per_step_less_zeroing_ms=per_step_kernel, redesigned=True,
+               design='the map gradient\'s atomics combined in each warp; '
+               'channel chunks planned from the shape',
                sample_share={'fractional': total[1] / total[0],
                              'outside': total[2] / total[0]})
     torch.cuda.empty_cache()

@@ -46,6 +46,13 @@ from .roi_align import acc_dtype
 
 # channels of one deform group that one forward kernel thread gathers
 CHANNELS_PER_THREAD = 16
+# the backward kernel's plan (``deform_backward_chunk``): its threads a
+# block; a call of ONE_CHUNK_BLOCKS blocks an SM or more keeps the group's
+# channels in one chunk, the others take chunks of SPLIT_CHUNK (measured
+# on an H100, erd_tpu_torch/tools/atomic_backward_probe.py)
+BACKWARD_THREADS = 256
+ONE_CHUNK_BLOCKS, SPLIT_CHUNK = 16, 64
+SM_COUNT = 132  # an H100 SXM
 # arrange_offsets: conv_offset kernel std times fan_in^-1/2, and bias std
 ARRANGE_WEIGHT_STD, ARRANGE_BIAS_STD = 0.02, 1.5
 
@@ -284,6 +291,52 @@ def deform_im2col_backward_plain(x, offset, mask, grad, kernel_size, stride,
             None if gmask is None else gmask.reshape(b, dg * kk, ho, wo))
 
 
+def deform_backward_chunk(batch, cin, deform_groups, kernel_size, ho, wo,
+                          sms=SM_COUNT) -> int:
+    """The channels of a deform group that one map-gradient thread of
+    ``erd_deform_im2col_backward`` takes, from the call's shape (pure
+    Python): all of them (one walk over the channels gives both
+    gradients) when the call's samples fill the card ONE_CHUNK_BLOCKS
+    times over; else SPLIT_CHUNK, and the offset and mask gradients take
+    blocks of their own, for the parallelism that small maps lack."""
+    cpg = cin // deform_groups
+    blocks = -(-batch * deform_groups * kernel_size * kernel_size * ho * wo
+               // BACKWARD_THREADS)
+    return cpg if blocks >= ONE_CHUNK_BLOCKS * sms else min(SPLIT_CHUNK,
+                                                             cpg)
+
+
+def _backward_launch(x, offset, mask, grad, kernel_size, stride, padding,
+                     dilation, deform_groups, need_x, need_offset, chunk):
+    """One launch of ``erd_deform_im2col_backward`` with map-gradient
+    threads of ``chunk`` channels (CUDA tensors, checked by the caller)."""
+    b, cin, h, w = x.shape
+    ho, wo = offset.shape[2:]
+    dev = x.device
+    gx = torch.zeros((b, cin, h, w), dtype=torch.float32, device=dev) \
+        if need_x else None
+    goff = torch.empty(offset.shape, dtype=torch.float32, device=dev) \
+        if need_offset else None
+    gmask = torch.empty(mask.shape, dtype=torch.float32, device=dev) \
+        if need_offset and mask is not None else None
+    lib = cuda_build.load('deform_conv')
+    fn = lib.erd_deform_im2col_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), offset.data_ptr(), ptr(mask), grad.data_ptr(),
+                 ptr(gx), ptr(goff), ptr(gmask), b, cin, h, w, ho, wo,
+                 kernel_size, stride, padding, dilation, deform_groups,
+                 int(x.dtype == torch.bfloat16), chunk, stream)
+    cuda_build.check(lib, err, 'deform_im2col_backward')
+    return gx, goff, gmask
+
+
 def deform_im2col_backward(x, offset, mask, grad, kernel_size: int = 3,
                            stride: int = 1, padding: int = 1,
                            dilation: int = 1, deform_groups: int = 1,
@@ -294,10 +347,12 @@ def deform_im2col_backward(x, offset, mask, grad, kernel_size: int = 3,
     the map's, or the offsets' and masks' gradients (None in their place).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``erd_deform_im2col_backward`` (one launch per call, counted in
-    ``deform_im2col_backward.launches``), whose map gradient is float32
-    atomics into a zeroed buffer rounded once to x's dtype (not
-    deterministic), or raise.
+    ``erd_deform_im2col_backward`` on ``deform_backward_chunk``'s plan (one
+    launch per call, counted in ``deform_im2col_backward.launches``), or
+    raise. Its map gradient is float32 atomics into a zeroed buffer, each
+    warp's adds to shared corners combined first, rounded once to x's
+    dtype: not deterministic. Its offset and mask gradients sum the
+    channels in order: deterministic.
     """
     _check(x, offset, mask, kernel_size, deform_groups)
     b, cin = x.shape[:2]
@@ -317,29 +372,12 @@ def deform_im2col_backward(x, offset, mask, grad, kernel_size: int = 3,
     _check_cuda('deform_im2col_backward', x, offset, mask, (grad,))
     if not (need_x or need_offset):
         return None, None, None
-    h, w = x.shape[2:]
-    dev = x.device
-    gx = torch.zeros((b, cin, h, w), dtype=torch.float32, device=dev) \
-        if need_x else None
-    goff = torch.empty(offset.shape, dtype=torch.float32, device=dev) \
-        if need_offset else None
-    gmask = torch.empty(mask.shape, dtype=torch.float32, device=dev) \
-        if need_offset and mask is not None else None
-    lib = cuda_build.load('deform_conv')
-    fn = lib.erd_deform_im2col_backward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), offset.data_ptr(), ptr(mask), grad.data_ptr(),
-                 ptr(gx), ptr(goff), ptr(gmask), b, cin, h, w, ho, wo,
-                 kernel_size, stride, padding, dilation, deform_groups,
-                 int(x.dtype == torch.bfloat16), stream)
-    cuda_build.check(lib, err, 'deform_im2col_backward')
+    chunk = deform_backward_chunk(
+        b, cin, deform_groups, kernel_size, ho, wo,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    gx, goff, gmask = _backward_launch(
+        x, offset, mask, grad, kernel_size, stride, padding, dilation,
+        deform_groups, need_x, need_offset, chunk)
     deform_im2col_backward.launches += 1
     return (None if gx is None else gx.to(x.dtype), goff, gmask)
 

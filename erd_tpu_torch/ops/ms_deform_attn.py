@@ -33,7 +33,12 @@ from . import cuda_build
 from .roi_align import acc_dtype
 
 MAX_LEVELS = 4
-KERNEL_HEAD_DIM = 32  # one lane of a warp per channel
+KERNEL_HEAD_DIM = 32  # 32 channels: a warp's 8 lanes of float4 per row
+# the backward kernel's blocks (``ms_deform_attn_backward_run``): 8 warps
+# take up to RUN consecutive queries of one (image, head), fewer on calls
+# that would give an SM fewer than RUN_ROUNDS rounds of 32 warps
+RUN, RUN_ROUNDS = 64, 16
+SM_COUNT = 132  # an H100 SXM
 
 
 def make_level_start_index(spatial_shapes):
@@ -279,6 +284,16 @@ def ms_deform_attn_backward_plain(values, spatial_shapes, locations, weights,
     return gv.view(b, n, heads, hd), gl, gw
 
 
+def ms_deform_attn_backward_run(batch, q, heads, sms=SM_COUNT) -> int:
+    """The queries of one (image, head) that a block of the backward kernel
+    takes, from the call's shape (pure Python): a multiple of 8 (the
+    block's warps take consecutive queries), RUN at most, and fewer on
+    small calls (the decoders') so that every SM holds RUN_ROUNDS rounds of
+    32 warps."""
+    return 8 * max(1, min(RUN // 8, batch * heads * q //
+                          (sms * 32 * RUN_ROUNDS)))
+
+
 def ms_deform_attn_backward(values, spatial_shapes, locations, weights,
                             grad):
     """Gradients of ``ms_deform_attn`` for the output gradient ``grad``
@@ -286,9 +301,11 @@ def ms_deform_attn_backward(values, spatial_shapes, locations, weights,
     weights in the weights' dtype).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``erd_ms_deform_attn_backward`` into a zeroed float32 value gradient
-    (float32 atomics: not deterministic; one launch per call, counted in
-    ``ms_deform_attn_backward.launches``), or raise.
+    ``erd_ms_deform_attn_backward`` on blocks of
+    ``ms_deform_attn_backward_run`` queries (one launch per call, counted in
+    ``ms_deform_attn_backward.launches``), or raise. Its value gradient is
+    float32 atomics into a zeroed buffer: not deterministic. The location
+    and weight gradients are deterministic.
     """
     b, n, heads, q, levels, points = _check(values, spatial_shapes,
                                             locations, weights)
@@ -306,20 +323,23 @@ def ms_deform_attn_backward(values, spatial_shapes, locations, weights,
     weights = _check_cuda('ms_deform_attn_backward', values, locations,
                           weights, (grad,))
     dev = values.device
+    run = ms_deform_attn_backward_run(
+        b, q, heads,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     gv = torch.zeros(values.shape, dtype=torch.float32, device=dev)
     gl = torch.empty(locations.shape, dtype=torch.float32, device=dev)
     gw = torch.empty(weights.shape, dtype=torch.float32, device=dev)
     lib = cuda_build.load('ms_deform_attn')
     fn = lib.erd_ms_deform_attn_backward
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 +
-                   [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(values.data_ptr(), locations.data_ptr(), weights.data_ptr(),
                  grad.data_ptr(), gv.data_ptr(), gl.data_ptr(), gw.data_ptr(),
                  *_level_args(spatial_shapes, levels), b, n, q, heads,
-                 levels, points, stream)
+                 levels, points, run, stream)
     cuda_build.check(lib, err, 'ms_deform_attn_backward')
     ms_deform_attn_backward.launches += 1
     return gv, gl, gw.to(wdtype)

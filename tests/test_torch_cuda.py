@@ -1091,6 +1091,189 @@ def test_deform_im2col_backward_never_reaches_plain_on_cuda(cuda,
         dcn_module.deform_im2col_backward(x, offset, mask, g.cpu())
 
 
+def check_deform_backward(got, want, dtype):
+    """The backward kernel's gradients against the plain ones: offsets and
+    masks within 1e-5 * max|plain|, the map within 1e-5 * max|plain| in
+    float32 and, rounded to a bf16 map, within one bf16 ulp beyond it."""
+    assert got[0].dtype == dtype and (got[2] is None) == (want[2] is None)
+    for name, a, w in zip(('offset', 'mask'), got[1:], want[1:]):
+        if w is not None:
+            assert float((a - w).abs().max()) <= \
+                1e-5 * float(w.abs().max()), name
+    far = (got[0].float() - want[0]).abs() > 1e-5 * float(
+        want[0].abs().max())
+    if dtype == torch.float32:
+        assert not bool(far.any())
+    else:
+        ulps = bf16_ulp_distance(got[0], want[0].bfloat16())
+        assert bool(((ulps <= 1) | ~far).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('reach', ['star', 'far', 'planes'])
+def test_deform_im2col_backward_kernel_combines_a_warps_adds(cuda, dtype,
+                                                             reach):
+    """The map gradient's adds combined in each warp, against the plain
+    version: star offsets (each kernel point 7 px out along its direction,
+    +- 0.6 px of jitter: lanes whose corners coincide, runs, gaps, rows
+    split); offsets of 30 px (corners far off the map); 47 x 45 maps (19035
+    samples a plane set: warps straddle plane sets), 4 of them."""
+    from erd_tpu_torch.ops.deform_conv import (deform_im2col_backward,
+                                               deform_im2col_backward_plain)
+    rs = np.random.RandomState(11)
+    b, cin, h, w = (4, 16, 47, 45) if reach == 'planes' else (2, 32, 100, 168)
+    x, offset, _ = dcn_case(rs, cuda, dtype, b, cin, h, w, 1, 1,
+                            30.0 if reach == 'far' else 2.5, False)
+    if reach == 'star':
+        ky, kx = np.divmod(np.arange(9), 3)
+        star = np.stack([ky - 1, kx - 1], -1).astype(np.float32) * 7.0
+        off = star[None, :, :, None, None] + rs.normal(
+            0, 0.6, (b, 9, 2, h, w))
+        offset = torch.from_numpy(off.reshape(b, 18, h, w).astype(
+            np.float32)).to(cuda)
+    g = torch.from_numpy(rs.randn(b, cin * 9, h * w).astype(
+        np.float32)).to(cuda)
+    args = (x, offset, None, g, 3, 1, 1, 1, 1)
+    before = deform_im2col_backward.launches
+    got = deform_im2col_backward(*args)
+    torch.cuda.synchronize()
+    assert deform_im2col_backward.launches == before + 1
+    check_deform_backward(got, deform_im2col_backward_plain(*args), dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('dg,stride', [(1, 2), (2, 1), (2, 2)])
+def test_deform_im2col_backward_kernel_stride_and_groups(cuda, dtype, dg,
+                                                         stride):
+    """Stride 2 and 2 deform groups on an R101 layer3-like map (Cin 64,
+    50 x 84; a layer2-like 100 x 168 at stride 2), DCNv2, offsets of a
+    per-point bias and a small per-pixel part (the path's arranged
+    conv_offset): the kernel against its plain version."""
+    from erd_tpu_torch.ops.deform_conv import (deform_im2col_backward,
+                                               deform_im2col_backward_plain)
+    h, w = (100, 168) if stride == 2 else (50, 84)
+    rs = np.random.RandomState(dg * 10 + stride)
+    x, _, mask = dcn_case(rs, cuda, dtype, 2, 64, h, w, dg, stride, 2.5,
+                          False)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    off = rs.normal(0, 1.5, (1, dg * 18, 1, 1)) + rs.normal(
+        0, 0.05, (2, dg * 18, ho, wo))
+    offset = torch.from_numpy(off.astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rs.randn(2, 64 * 9, ho * wo).astype(
+        np.float32)).to(cuda)
+    args = (x, offset, mask, g, 3, stride, 1, 1, dg)
+    check_deform_backward(deform_im2col_backward(*args),
+                          deform_im2col_backward_plain(*args), dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_deform_im2col_backward_kernel_every_chunk(cuda, dtype):
+    """The map-gradient threads on chunks of the group's channels: all of
+    them (one walk for both gradients), 64, 16 and 7 (a ragged last
+    chunk), with the offset and mask gradients then in blocks of their
+    own; each against the plain version, and the offset and mask
+    gradients bit-equal across the chunks (the same sums in the same
+    order)."""
+    from erd_tpu_torch.ops.deform_conv import (_backward_launch,
+                                               deform_im2col_backward_plain)
+    rs = np.random.RandomState(13)
+    x, offset, mask = dcn_case(rs, cuda, dtype, 2, 128, 25, 42, 1, 1, 3.0,
+                               False)
+    g = torch.from_numpy(rs.randn(2, 128 * 9, 25 * 42).astype(
+        np.float32)).to(cuda)
+    args = (x, offset, mask, g, 3, 1, 1, 1, 1)
+    want = deform_im2col_backward_plain(*args)
+    first = None
+    for chunk in (128, 64, 16, 7):
+        gx, goff, gmask = _backward_launch(*args, True, True, chunk)
+        torch.cuda.synchronize()
+        check_deform_backward((gx.to(dtype), goff, gmask), want, dtype)
+        if first is None:
+            first = (goff, gmask)
+        assert torch.equal(goff, first[0]) and torch.equal(gmask, first[1])
+        only = _backward_launch(*args, False, True, chunk)
+        assert only[0] is None and torch.equal(only[1], first[0])
+
+
+def test_deform_im2col_backward_offset_gradients_repeat_bit_for_bit(cuda):
+    """The offset and mask gradients sum the channels in order: two calls
+    give them bit for bit (the map gradient's atomics may reorder), as do
+    the calls that ask for the offsets' alone."""
+    from erd_tpu_torch.ops.deform_conv import deform_im2col_backward
+    rs = np.random.RandomState(5)
+    x, offset, mask = dcn_case(rs, cuda, torch.bfloat16, 2, 256, 50, 84, 1,
+                               1, 3.0, False)
+    g = torch.from_numpy(rs.randn(2, 256 * 9, 50 * 84).astype(
+        np.float32)).to(cuda)
+    args = (x, offset, mask, g, 3, 1, 1, 1, 1)
+    a, b = deform_im2col_backward(*args), deform_im2col_backward(*args)
+    only = deform_im2col_backward(*args, need_x=False)
+    assert only[0] is None
+    for i in (1, 2):
+        assert torch.equal(a[i], b[i]) and torch.equal(a[i], only[i])
+
+
+def encoder_case(rs, device, b, q=None, shapes=None):
+    """An encoder-shaped sampling call (8 heads, 4 levels x 4 points, head
+    width 32): values, locations in [-0.1, 1.1], softmaxed weights, an
+    output gradient."""
+    shapes = shapes or DETR_LEVELS['landscape']
+    n = sum(h * w for h, w in shapes)
+    q = n if q is None else q
+    levels = len(shapes)
+    values = rs.randn(b, n, 8, 32).astype(np.float32)
+    locs = rs.uniform(-0.1, 1.1, (b, q, 8, levels, 4, 2)).astype(np.float32)
+    w = rs.rand(b, q, 8, levels * 4).astype(np.float32)
+    w = np.exp(w) / np.exp(w).sum(-1, keepdims=True)
+    g = rs.randn(b, q, 8, 32).astype(np.float32)
+    return [torch.from_numpy(t).to(device) for t in (
+        values, locs, w.reshape(b, q, 8, levels, 4), g)]
+
+
+def check_attn_backward(got, want):
+    for name, a, w in zip(('values', 'locations', 'weights'), got, want):
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max()), \
+            name
+
+
+def test_ms_deform_attn_backward_kernel_on_the_coarsest_level(cuda):
+    """The encoder's call at batch 2 with every live sample on level 3
+    (13 x 21), most of them in one 3 x 3 corner of it (the worst
+    contention), the other levels' samples off their maps: the kernel
+    agrees with its plain version, in one launch."""
+    from erd_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_backward, ms_deform_attn_backward_plain)
+    rs = np.random.RandomState(3)
+    shapes = DETR_LEVELS['landscape']
+    values, locs, weights, g = encoder_case(rs, cuda, 2)
+    locs[:, :, :, :3] = -2.0
+    corner = torch.rand(locs[:, :, :, 3].shape, device=cuda) < 0.8
+    locs[:, :, :, 3] = torch.where(corner, locs[:, :, :, 3] * 0.15,
+                                   locs[:, :, :, 3])
+    args = (values, shapes, locs, weights, g)
+    want = ms_deform_attn_backward_plain(*args)
+    before = ms_deform_attn_backward.launches
+    check_attn_backward(ms_deform_attn_backward(*args), want)
+    assert ms_deform_attn_backward.launches == before + 1
+
+
+@pytest.mark.parametrize('q', [300, 996])
+def test_ms_deform_attn_backward_kernel_at_decoder_shapes(cuda, q):
+    """The decoders' calls (Q = 300, and DINO's 900 + 96 denoising
+    queries) at batch 16 on the 800 x 1344 levels, on blocks of 8 queries:
+    the kernel against its plain version."""
+    from erd_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_backward, ms_deform_attn_backward_plain,
+        ms_deform_attn_backward_run)
+    rs = np.random.RandomState(q)
+    shapes = DETR_LEVELS['landscape']
+    values, locs, weights, g = encoder_case(rs, cuda, 16, q)
+    assert ms_deform_attn_backward_run(16, q, 8) == 8
+    args = (values, shapes, locs, weights, g)
+    check_attn_backward(ms_deform_attn_backward(*args),
+                        ms_deform_attn_backward_plain(*args))
+
+
 def test_vfnet_training_on_cuda_uses_kernels(cuda):
     """Two fit steps of VFNet R50-mdconv (bf16, batch 2, 256x320,
     conv_offset arranged) on the card: 23 im2col and 23 im2col backward

@@ -268,6 +268,156 @@ def test_deform_im2col_computes_the_gradients_asked_for():
         deform_im2col_backward(x, off, m, g[:, 1:])
 
 
+def warp_combined_map_gradient(x, offset, mask, grad, k, stride, pad, dil,
+                               dg):
+    """The map gradient as the backward kernel adds it, in float64: the
+    samples in its thread order ((image, group, kernel point, pixel), the
+    pixel fastest) in warps of 32; a key per sample whose top-left corner
+    can touch the map ((plane set counted from the warp's first lane, row,
+    column) packed so that only a row's neighbours differ by 1), a distinct
+    one otherwise; runs of neighbouring lanes with one key, their first
+    lane (the head) adding the run's four sums; a head whose key is the
+    previous head's plus 1 takes that run's right-hand sums into its
+    left-hand adds, and the previous head leaves them out. Returns the map
+    gradient and the atomic adds issued a channel."""
+    from erd_tpu_torch.ops.deform_conv import _samples
+    b, cin, h, w = x.shape
+    ho, wo = offset.shape[2:]
+    kk, cpg = k * k, cin // dg
+    y0, x0, wy, wx = (t.reshape(-1) for t in _samples(
+        offset, k, stride, pad, dil, dg, torch.float64))
+    y0, x0 = y0.tolist(), x0.tolist()
+    m = torch.ones(len(y0), dtype=torch.float64) if mask is None else \
+        mask.double().reshape(-1)
+    total, n_set = len(y0), kk * ho * wo
+    g = grad.double().reshape(b * dg, cpg, kk * ho * wo).permute(
+        1, 0, 2).reshape(cpg, total)
+    a = g * m
+    corner = torch.stack([a * (1 - wx) * (1 - wy), a * wx * (1 - wy),
+                          a * (1 - wx) * wy, a * wx * wy])  # tl tr bl br
+    gx = torch.zeros(b * dg, cpg, h * w, dtype=torch.float64)
+    adds = 0
+    for w0 in range(0, total, 32):
+        lanes = range(w0, min(total, w0 + 32))
+        keys = []
+        for t in lanes:
+            touch = -1 <= y0[t] < h and -1 <= x0[t] < w
+            rel = t // n_set - w0 // n_set
+            keys.append(((rel * (h + 1) + y0[t] + 1) * (w + 2) + x0[t] + 1)
+                        if touch else -2 - (t - w0))
+        heads = [i for i in range(len(keys)) if i == 0 or
+                 keys[i] != keys[i - 1]]
+        for j, i in enumerate(heads):
+            end = heads[j + 1] if j + 1 < len(heads) else len(keys)
+            t = w0 + i
+            sums = corner[:, :, w0 + i:w0 + end].sum(2)  # (4, cpg)
+            merge = j > 0 and keys[i] >= 0 and keys[heads[j - 1]] == \
+                keys[i] - 1
+            consumed = j + 1 < len(heads) and keys[i] >= 0 and \
+                keys[heads[j + 1]] == keys[i] + 1
+            if merge:
+                prev = heads[j - 1]
+                psums = corner[:, :, w0 + prev:w0 + i].sum(2)
+                sums[0] += psums[1]
+                sums[2] += psums[3]
+            for c, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+                yy, xx = y0[t] + dy, x0[t] + dx
+                if dx == 1 and consumed:
+                    continue
+                if 0 <= yy < h and 0 <= xx < w and keys[i] >= 0:
+                    gx[t // n_set, :, yy * w + xx] += sums[c]
+                    adds += 1
+    return gx.reshape(b, cin, h, w), adds
+
+
+@pytest.mark.parametrize('case', ['smooth', 'star', 'far', 'tiny',
+                                  'stride2_groups'])
+def test_deform_backward_warp_combining_adds_up(case):
+    """The backward kernel's combining of a warp's map-gradient adds (runs
+    of lanes on one corner, heads taking their run's sums, a run's right
+    corners handed to the next run), emulated in plain float64: its map
+    gradient equals ``deform_im2col_backward_plain``'s, and it issues no
+    more adds than the samples' on-map corners, half of them where
+    neighbouring samples move alike (smooth: a per-point bias, the path's
+    arranged conv_offset). Star offsets (7 px out, +- 0.6 px of jitter:
+    coinciding corners, runs, gaps), offsets of 30 px, a 2 x 3 map (a warp
+    spans plane sets), stride 2 with 2 deform groups."""
+    rs = np.random.RandomState(7)
+    b, cin, h, w = 2, 4, 14, 30
+    stride, dg = (2, 2) if case == 'stride2_groups' else (1, 1)
+    if case == 'tiny':
+        h, w = 2, 3
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if case == 'star':
+        ky, kx = np.divmod(np.arange(9), 3)
+        star = np.stack([ky - 1, kx - 1], -1) * 7.0
+        off = star[None, None, :, :, None, None] + rs.normal(
+            0, 0.6, (b, dg, 9, 2, ho, wo))
+    elif case in ('smooth', 'stride2_groups'):
+        off = rs.normal(0, 1.5, (1, dg, 9, 2, 1, 1)) + rs.normal(
+            0, 0.05, (b, dg, 9, 2, ho, wo))
+    else:
+        off = rs.randn(b, dg, 9, 2, ho, wo) * (30.0 if case == 'far' else 3)
+    x = torch.from_numpy(rs.randn(b, cin, h, w))
+    offset = torch.from_numpy(off.reshape(b, dg * 18, ho, wo))
+    mask = torch.from_numpy(rs.rand(b, dg * 9, ho, wo))
+    g = torch.from_numpy(rs.randn(b, cin * 9, ho * wo))
+    geo = (3, stride, 1, 1, dg)
+    got, adds = warp_combined_map_gradient(x, offset, mask, g, *geo)
+    want = deform_im2col_backward_plain(x, offset, mask, g, *geo)[0]
+    assert torch.allclose(got, want, rtol=1e-12, atol=1e-12)
+    from erd_tpu_torch.ops.deform_conv import _corner, _samples
+    y0, x0, _, _ = _samples(offset, 3, stride, 1, 1, dg, torch.float64)
+    on = sum(int(_corner(torch.zeros(b, dg, 1, h * w), h, w, y0 + dy,
+                         x0 + dx)[2].sum())
+             for dy in (0, 1) for dx in (0, 1))
+    assert adds <= on
+    if case == 'smooth':
+        assert adds <= 0.6 * on
+
+
+# the deformable im2col backward calls of one bs-16, 800x1344 step of GFL
+# R101-DCN (DCNv1 in stages 2-4) and VFNet R50-mdconv (DCNv2 in stages 2-4,
+# the head's star convs on P3-P7): (Cin, H, W, stride, calls a step)
+DCN_STEP_CALLS = {
+    'gfl_r101_dcn': [(512, 25, 42, 1, 2), (512, 50, 84, 2, 1),
+                     (256, 50, 84, 1, 22), (256, 100, 168, 2, 1),
+                     (128, 100, 168, 1, 3), (128, 200, 336, 2, 1)],
+    'vfnet_r50_mdconv': [(256, 7, 11, 1, 2), (256, 13, 21, 1, 2),
+                         (256, 25, 42, 1, 2), (256, 50, 84, 1, 2),
+                         (256, 100, 168, 1, 2), (512, 25, 42, 1, 2),
+                         (512, 50, 84, 2, 1), (256, 50, 84, 1, 5),
+                         (256, 100, 168, 2, 1), (128, 100, 168, 1, 3),
+                         (128, 200, 336, 2, 1)]}
+
+
+@pytest.mark.parametrize('kind', sorted(DCN_STEP_CALLS))
+def test_deform_backward_chunk_fits_every_call_of_a_step(kind):
+    """The backward kernel's plan for each call shape of a bs-16 step:
+    the group's channels in one chunk where the samples fill the card
+    ONE_CHUNK_BLOCKS times over (the VFNet head's P3 and P4, stages 2 and
+    3), else chunks of SPLIT_CHUNK (stage 4 and its stride-2 entry, the
+    head's P5-P7); 132 blocks or more in all."""
+    from erd_tpu_torch.ops.deform_conv import (
+        BACKWARD_THREADS, ONE_CHUNK_BLOCKS, SPLIT_CHUNK,
+        deform_backward_chunk)
+    assert sum(n for *_, n in DCN_STEP_CALLS[kind]) == \
+        {'gfl_r101_dcn': 30, 'vfnet_r50_mdconv': 23}[kind]
+    for cin, h, w, stride, _ in DCN_STEP_CALLS[kind]:
+        ho, wo = -(-h // stride), -(-w // stride)
+        chunk = deform_backward_chunk(16, cin, 1, 3, ho, wo)
+        samples = -(-16 * 9 * ho * wo // BACKWARD_THREADS)
+        one = samples >= ONE_CHUNK_BLOCKS * 132
+        assert chunk == (cin if one else SPLIT_CHUNK), (cin, h, w, stride)
+        assert one == (ho * wo >= 50 * 84), (cin, h, w, stride)
+        blocks = samples * (1 if one else 1 + cin // chunk)
+        assert blocks >= 132
+    # two deform groups: a group's channels are what is split
+    assert deform_backward_chunk(16, 512, 2, 3, 25, 42) == 64
+    assert deform_backward_chunk(16, 512, 2, 3, 50, 84) == 256
+    assert deform_backward_chunk(16, 96, 2, 3, 25, 42) == 48
+
+
 def test_jax_rounds_a_bf16_maps_gradient_in_bf16():
     """Why a bf16 map's gradient is held against the plain version (on the
     card), not against erd_tpu: JAX transposes the gather of a bf16 map

@@ -426,6 +426,32 @@ def test_ms_deform_attn_function_passes_gradcheck():
         (v, lc.requires_grad_(), w.requires_grad_()))
 
 
+# the sampling backward calls of one bs-16, 800x1344 step of each DETR
+# config: the encoder's (Q = every token, 22323) and the decoder's (DINO's
+# 900 queries and 96 denoising queries, Deformable DETR's 300), 6 each
+DETR_LEVELS_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]
+DETR_STEP_QUERIES = {'dino': (22323, 996), 'deformable_detr': (22323, 300)}
+
+
+@pytest.mark.parametrize('kind', sorted(DETR_STEP_QUERIES))
+def test_ms_deform_attn_backward_run_fits_every_call_of_a_step(kind):
+    """The backward kernel's blocks for each call shape of a bs-16 step:
+    runs of a multiple of 8 queries, RUN at the encoder and 8 at the
+    decoders' small Q, 132 blocks or more, every query in one block."""
+    from erd_tpu_torch.ops.ms_deform_attn import (RUN,
+                                                  ms_deform_attn_backward_run)
+    assert sum(h * w for h, w in DETR_LEVELS_800) == 22323
+    encoder, decoder = DETR_STEP_QUERIES[kind]
+    assert ms_deform_attn_backward_run(16, encoder, 8) == RUN
+    assert ms_deform_attn_backward_run(16, decoder, 8) == 8
+    for q in DETR_STEP_QUERIES[kind]:
+        run = ms_deform_attn_backward_run(16, q, 8)
+        runs = -(-q // run)
+        assert run % 8 == 0 and 8 <= run <= RUN
+        assert 16 * 8 * runs >= 132
+        assert run * (runs - 1) < q <= run * runs
+
+
 # ---------------------------------------------------------------- matcher
 def test_hungarian_match_matches_jax():
     """Random costs with ties on the 1/64 grid, padded gt columns, an image

@@ -128,3 +128,42 @@ def test_time_smoke_phases_times_every_phase_of_main(tmp_path, capsys):
     assert report['phases']['phase_a'] >= 0.05
     assert report['phases']['phase_b'] >= 0.06
     assert report['seconds'] >= sum(report['phases'].values())
+
+
+def test_time_smoke_phases_runs_only_the_named_phases(tmp_path, capsys,
+                                                      monkeypatch):
+    """--only builds the kernels and runs the named phases alone, in the
+    order given, each with the card line where it takes one; main is not
+    run."""
+    from erd_tpu_torch.ops import cuda_build
+    built = []
+    monkeypatch.setattr(cuda_build, 'build', lambda: built.append(1))
+    monkeypatch.setenv('TRITON_CACHE_DIR', str(tmp_path))
+    monkeypatch.syspath_prepend(str(tmp_path))
+    ran = tmp_path / 'ran.txt'
+    script = tmp_path / 'chip_smoke.py'
+    script.write_text(
+        f'ROOT = {time_smoke_phases.ROOT!r}\n'
+        f'RAN = {str(ran)!r}\n'
+        'def log(*parts):\n'
+        '    with open(RAN, "a") as f:\n'
+        '        f.write(" ".join(parts) + "\\n")\n'
+        'def card_line():\n'
+        '    return "a card, 700.00 W"\n'
+        'def phase_a(np, torch):\n'
+        '    log("a", np.__name__, torch.__name__)\n'
+        'def phase_b(np, torch, card):\n'
+        '    log("b", card)\n'
+        'def phase_c(np, torch):\n'
+        '    log("c")\n'
+        'def main():\n'
+        '    raise AssertionError("main ran")\n')
+    assert time_smoke_phases.main(
+        [str(script), '--only', 'phase_b,phase_a']) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    report = json.loads(lines[-1])
+    assert lines[0] == 'a card, 700.00 W' and built == [1]
+    assert report['rc'] == 0 and set(report['phases']) == {'phase_a',
+                                                           'phase_b'}
+    assert ran.read_text().splitlines() == ['b a card, 700.00 W',
+                                            'a numpy torch']
