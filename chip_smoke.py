@@ -62,12 +62,12 @@ Phases, in order; any failed check exits non-zero before the last line:
                 arranged by arrange_sampling) with their 12 multi-scale
                 deformable-attention calls captured (6 encoder calls at Q =
                 22323 tokens; 6 decoder calls at Q = 900, or at Q = 300 with
-                decoder_0's bf16 attention weights): the kernel within
-                1e-6 * max|value| of its plain version on each; at least
-                50 % of the samples with a fractional bilinear weight and
-                1 % with a corner outside its map; then timed at the three
-                call shapes, each bound from the distinct value rows its
-                corners touch;
+                decoder_0's bf16 attention weights): the kernel bit-equal
+                to its plain version on each; at least 50 % of the
+                samples with a fractional bilinear weight and 1 % with a
+                corner outside its map; then timed by CUDA-graph
+                replays at the three call shapes, each bound from the
+                distinct value rows its corners touch;
  12. detr reference  both float32 DETR networks card vs CPU on a small
                 input: the encoder memory, then the decoder from the card's
                 query selection, within 1e-3 * max|out|;
@@ -125,9 +125,11 @@ Phases, in order; any failed check exits non-zero before the last line:
                 step's output gradient (512 RoIs an image, full-width
                 P2-P5, the last 15 slots of each image edge cases; RoIs on
                 all four levels, >= 1 % of the samples off their map),
-                float32 buffers within 1e-5 * max|plain| (atomics reorder
-                the sums), rounded to bf16 or float32 maps within one bf16
-                ulp; the NMS on the RPN call at K = 8819 exactly; the CARAFE
+                float32 gradients within 1e-5 * max|plain| (atomics
+                reorder the sums), rounded to bf16 within one bf16 ulp,
+                timed (the kernel a launch; the call: memset, kernel,
+                rounding pass); the NMS
+                on the RPN call at K = 8819 exactly; the CARAFE
                 backward kernel on the 3 calls of the FPN-CARAFE step (dx
                 and dlogits; float32 within 1e-5 * max|plain|, bf16 within
                 one ulp); each timed beside its bound (RoIAlign's bytes
@@ -161,7 +163,12 @@ Phases, in order; any failed check exits non-zero before the last line:
                 reorder the value sums), >= 50 % of the samples fractional
                 and >= 1 % off their map; the encoder call and both decoder
                 call shapes timed by CUDA events less the value gradient's
-                zeroing, beside their byte bounds;
+                zeroing, beside their byte bounds; the step's 12 sampling
+                forward calls captured too, each bit-equal to its plain
+                version (and within 1e-6 * max|value|), each call shape
+                (Q, the weights' dtype) timed by CUDA-graph replays beside
+                its plain version and bound, and summed over the step by
+                call time (row 9's shapes and per_step_ms);
  26. detr train reference  both DETR configs in float32 at full width on a
                 small input, card (kernels) vs CPU (plain), the card taking
                 the CPU's Hungarian matches and denoising draws (how many
@@ -276,6 +283,11 @@ Phases, in order; any failed check exits non-zero before the last line:
                 library call where one computes the function
                 (F.grid_sample with border padding for the targets,
                 F.grid_sample's backward for the point-sample backward);
+                the RoIAlign backward on both calls of the Mask R-CNN and
+                PointRend steps (out 7 on 512 RoIs an image, and the mask
+                branch's out 14, whose gradient is zero on the negative
+                RoIs), float32 within 1e-5 * max|plain|, bf16 within one
+                ulp, each call timed (row 7b's shapes and per_step_ms);
  37. mask/corner train reference  Mask R-CNN and PointRend R50 (2 images
                 128x192, gt crops, 64 sampled RoIs an image) and CornerNet
                 at HG-104's width and 5 levels, one stack of one block a
@@ -487,6 +499,27 @@ def kernel_ms(torch, fn, names, n):
             total_us += getattr(ev, 'device_time_total', None) or \
                 getattr(ev, 'cuda_time_total', 0.0)
     return total_us / n / 1e3 if total_us > 0 else None
+
+
+def launch_ms(torch, fn, name, n):
+    """(ms, records): the mean device time of one launch of the named
+    kernel over n calls of ``fn`` (torch.profiler: the time of the records
+    it kept over their count, which dropped records do not lower; None
+    when it shows none), and the count of those records."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total_us += getattr(ev, 'device_time_total', None) or \
+                getattr(ev, 'cuda_time_total', 0.0)
+            count += ev.count
+    return (total_us / count / 1e3 if total_us > 0 else None), count
 
 
 def profile_request(torch, fn, tag='profile'):
@@ -2055,8 +2088,8 @@ def phase_detr_kernels(np, torch):
             log(f'detr kernels: {kind} ms_deform_attn {part} call {i % 6} '
                 f'Q={qs[i]} levels {args[1]} weights {args[3].dtype}: '
                 f'max_abs_err={err:.3e} (limit 1e-6*max|v| = {limit:.3e})')
-            check(err <= limit, f'{kind}: sampling kernel disagrees with '
-                  f'plain on call {i}')
+            check(err <= limit and torch.equal(got, want), f'{kind}: '
+                  f'sampling kernel not bit-equal to plain on call {i}')
             worst = max(worst, err)
         if kind == 'dino':
             timed_calls['encoder'] = calls[0]
@@ -2074,10 +2107,11 @@ def phase_detr_kernels(np, torch):
 
     timed = {}
     for name, args in timed_calls.items():
-        ms, call_ms, src, plain_ms = time_pair(
+        # device ms by graph replays: the profiler drops this kernel's
+        # records (it read 0.127 ms for a 0.158 ms encoder call)
+        ms, call_ms, src, plain_ms = time_graph(
             torch, lambda: ms_deform_attn(*args),
-            lambda: ms_deform_attn_plain(*args), ['ms_deform_attn_kernel'],
-            n=20)
+            lambda: ms_deform_attn_plain(*args), n=20)
         values, shapes, locs, weights = args
         nbytes, ops = deform_attn_cost(torch, shapes, values, locs, weights)
         bms, by = bound_of(nbytes, ops)
@@ -3060,7 +3094,8 @@ def train_net(torch, kind, device=None, dtype=None, seed=31):
     return cfg, det, net
 
 
-def roi_sample_stats(torch, rois, levels, shapes, strides=ROI_STRIDES):
+def roi_sample_stats(torch, rois, levels, shapes, strides=ROI_STRIDES,
+                     out_size=7, ratio=2):
     """(samples, samples off their map) of RoIAlign's bins, over every RoI
     on its level."""
     from erd_tpu_torch.ops.roi_align import _sample_axis
@@ -3069,12 +3104,86 @@ def roi_sample_stats(torch, rois, levels, shapes, strides=ROI_STRIDES):
         r = rois[levels == lvl]
         lo = r * (1.0 / stride) - 0.5
         size = (lo[:, 2:] - lo[:, :2]).clamp(min=1e-6) / torch.full_like(
-            lo[:, :2], 7)
-        in_y = _sample_axis(lo[:, 1], size[:, 1], h, 7, 2)[0]
-        in_x = _sample_axis(lo[:, 0], size[:, 0], w, 7, 2)[0]
-        total += r.shape[0] * 196
+            lo[:, :2], out_size)
+        in_y = _sample_axis(lo[:, 1], size[:, 1], h, out_size, ratio)[0]
+        in_x = _sample_axis(lo[:, 0], size[:, 0], w, out_size, ratio)[0]
+        total += r.shape[0] * (out_size * ratio) ** 2
         inside += int((in_y[:, :, None] & in_x[:, None, :]).sum())
     return total, total - inside
+
+
+def roi_backward_call(torch, args, tag):
+    """Kernel 7b on one call ``args`` (grad, rois, levels, shapes, strides,
+    the maps' dtype, out_size, sampling_ratio) against its plain version:
+    float32 within 1e-5 * max|plain| on every level, rounded to bf16 within
+    one ulp of plain's rounding (or 1e-5 * max|plain|); then timed (the
+    kernel alone, a launch by the profiler, as ``ms``; the call, memset,
+    kernel and rounding pass, by CUDA events, as ``call_ms``) with its
+    bound: the output gradient, RoIs and levels read, the level gradients
+    written in the maps' dtype, 12 float32 operations a channel of each
+    in-range sample of a RoI that has a gradient. Returns a dict for the
+    row's ``shapes``."""
+    from erd_tpu_torch.ops import roi_align_backward, roi_align_backward_plain
+    grad, rois, levels, shapes, strides, dtype, out_size, ratio = args
+    b, r, c = grad.shape[:3]
+    want = roi_align_backward_plain(grad, rois, levels, shapes, strides,
+                                    out_size, ratio)
+    err, err_bf16 = 0.0, 0
+    for dt in (torch.float32, torch.bfloat16):
+        got = roi_align_backward(grad, rois, levels, shapes, strides, dt,
+                                 out_size, ratio)
+        torch.cuda.synchronize()
+        for lvl, (g, wt) in enumerate(zip(got, want)):
+            limit = 1e-5 * float(wt.abs().max())
+            diff = (g.float() - wt).abs()
+            if dt == torch.float32:
+                err = max(err, float(diff.max()))
+                check(float(diff.max()) <= limit, f'{tag}: RoIAlign '
+                      f'backward kernel disagrees with plain on level {lvl}')
+            else:
+                ulps = bf16_ulps(torch, g, wt.to(dt))
+                err_bf16 = max(err_bf16, int(ulps[diff > limit].max())
+                               if bool((diff > limit).any()) else 0)
+                check(bool(((ulps <= 1) | (diff <= limit)).all()),
+                      f'{tag}: RoIAlign backward kernel, bf16 maps, level '
+                      f'{lvl}: more than one bf16 ulp from plain')
+    del want, got
+    live = grad.flatten(2).abs().amax(2) > 0  # (B, R): RoIs with a gradient
+    n_samples, n_off = roi_sample_stats(torch, rois[live], levels[live],
+                                        shapes, out_size=out_size,
+                                        ratio=ratio)
+    call_ms = events_ms(torch, lambda: roi_align_backward(*args), 10)
+    # the kernel alone, a launch a call, by the mean of the profiler's
+    # records: over n calls its time read 0.33 ms for the mask call's
+    # kernel, which the call's events less memset and rounding put at 0.85
+    ms, records = launch_ms(torch, lambda: roi_align_backward(*args),
+                            'roi_align_backward_kernel', 10)
+    src = 'profiler, a launch' if ms else 'events'
+    ms = ms or call_ms
+    plain_ms = events_ms(
+        torch, lambda: roi_align_backward_plain(*args[:5], out_size, ratio),
+        3)
+    out_bytes = torch.empty((), dtype=dtype).element_size()
+    nbytes = grad.numel() * 4 + rois.numel() * 4 + levels.numel() * 4 + \
+        sum(b * c * hh * ww * out_bytes for hh, ww in shapes)
+    ops = (n_samples - n_off) * c * 12.0  # per in-range sample and
+    # channel: 4 weights, 4 products with g and 4 adds
+    bms, by = bound_of(nbytes, ops)
+    log(f'{tag}: roi_align_backward out {out_size} R={r} x {b} C={c} '
+        f'{dtype}, {int(live.sum())} RoIs with a gradient: float32 '
+        f'max_abs_err={err:.3e} (limit 1e-5*max|plain|; atomics reorder '
+        f'the float32 sums), bf16 maps within one ulp (worst beyond '
+        f'1e-5*max: {err_bf16} ulp); {ms:.4f} ms device ({src}, '
+        f'{records} records of 10 calls; the kernel alone), '
+        f'{call_ms:.4f} ms per call (events: memset, kernel, rounding '
+        f'pass), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; '
+        f'{nbytes} bytes, {ops / 1e9:.3f} GOP)')
+    return dict(out=out_size, grad=list(grad.shape), maps=str(dtype),
+                live_rois=int(live.sum()), ms=ms, call_ms=call_ms,
+                ms_from=src, profiler_records=records, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, bound_bytes=nbytes, ops=ops,
+                max_abs_err=err, max_bf16_ulps=err_bf16,
+                samples_off_map=n_off / max(n_samples, 1))
 
 
 def train_step_calls(np, torch, kind, names):
@@ -3112,8 +3221,7 @@ def phase_frcnn_train_kernels(np, torch):
     FPN-CARAFE step's, each against its plain version; then timed."""
     from erd_tpu_torch.ops import (carafe_backward, carafe_backward_plain,
                                    map_roi_levels, nms_sorted_keep,
-                                   nms_sorted_keep_plain, roi_align_backward,
-                                   roi_align_backward_plain)
+                                   nms_sorted_keep_plain)
     rows = []
     calls = train_step_calls(np, torch, 'frcnn', (
         'roi_align', 'roi_align_backward', 'nms_sorted_keep'))
@@ -3149,59 +3257,30 @@ def phase_frcnn_train_kernels(np, torch):
           'RoI levels differ between card and CPU')
     per_level = torch.bincount(levels.flatten().long(), minlength=4)
     n_samples, n_off = roi_sample_stats(torch, rois, levels, shapes)
-    want = roi_align_backward_plain(grad, rois, levels, shapes, strides)
-    err, err_bf16 = 0.0, 0
-    for dt in (torch.float32, torch.bfloat16):
-        got = roi_align_backward(grad, rois, levels, shapes, strides, dt)
-        torch.cuda.synchronize()
-        for lvl, (g, wt) in enumerate(zip(got, want)):
-            limit = 1e-5 * float(wt.abs().max())
-            diff = (g.float() - wt).abs()
-            if dt == torch.float32:
-                err = max(err, float(diff.max()))
-                check(float(diff.max()) <= limit, f'RoIAlign backward kernel '
-                      f'disagrees with plain on level {lvl}')
-            else:
-                ulps = bf16_ulps(torch, g, wt.to(dt))
-                err_bf16 = max(err_bf16, int(ulps[diff > limit].max())
-                               if bool((diff > limit).any()) else 0)
-                check(bool(((ulps <= 1) | (diff <= limit)).all()),
-                      f'RoIAlign backward kernel, bf16 maps, level {lvl}: '
-                      f'more than one bf16 ulp from plain')
     log(f'frcnn train kernels: roi_align_backward R={r} x {b} C={c} levels '
         f'{per_level.tolist()}, {n_off}/{n_samples} samples off their map '
-        f'({n_off / n_samples:.2%}): float32 max_abs_err={err:.3e} (limit '
-        f'1e-5*max|plain|; atomics reorder the float32 sums), bf16 maps '
-        f'within one ulp (worst beyond 1e-5*max: {err_bf16} ulp)')
+        f'({n_off / n_samples:.2%})')
     check(bool((per_level > 0).all()), 'RoIAlign backward missed a level')
     check(n_off >= 0.01 * n_samples, 'fewer than 1 % of the samples off '
           'their map')
-    args = (grad, rois, levels, shapes, strides, torch.bfloat16)
-    ms, call_ms, src, plain_ms = time_pair(
-        torch, lambda: roi_align_backward(*args),
-        lambda: roi_align_backward_plain(*args[:5]),
-        ['roi_align_backward_kernel'], n=10)
-    n_in = n_samples - n_off
-    # the float32 output gradient, RoIs and levels read; the level
-    # gradients written in the maps' dtype (the float32 buffers they are
-    # summed in are the kernel's scratch, not the function's output)
-    out_size = torch.empty((), dtype=args[5]).element_size()
-    nbytes = grad.numel() * 4 + rois.numel() * 4 + levels.numel() * 4 + \
-        sum(b * c * hh * ww * out_size for hh, ww in shapes)
-    ops = n_in * c * 12.0  # per in-range sample and channel: 4 weights,
-    # 4 products with g and 4 atomic adds
-    bms, by = bound_of(nbytes, ops)
-    log(f'frcnn train kernels: roi_align_backward {ms:.4f} ms device ({src})'
-        f', {call_ms:.4f} ms per call (zeroing, kernel, bf16 rounding), '
-        f'plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes,'
-        f' {ops / 1e9:.3f} GOP); library_ms null: no single PyTorch call '
-        f'computes it')
+    box = roi_backward_call(torch, (grad, rois, levels, shapes, strides,
+                                    dtype, 7, 2), 'frcnn train kernels')
+    box['config'] = 'frcnn'
+    log('frcnn train kernels: roi_align_backward library_ms null: no '
+        'single PyTorch call computes it')
     rows.append(dict(name='roi_align_backward', route='cuda',
                      source='erd_tpu_torch/csrc/roi_align.cu',
                      replaces='erd_tpu/ops/roi_align.py:92',
-                     max_abs_err=err, ms=ms, call_ms=call_ms, ms_from=src,
-                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                     library_ms=None, deterministic=False,
+                     max_abs_err=box['max_abs_err'], ms=box['ms'],
+                     call_ms=box['call_ms'], ms_from=box['ms_from'],
+                     ms_at=f'box call {box["grad"]}',
+                     plain_ms=box['plain_ms'], bound_ms=box['bound_ms'],
+                     bound_by=box['bound_by'], library_ms=None,
+                     deterministic=False, redesigned=True,
+                     design='a block an (image, RoI); the gradient staged '
+                     'a bin row at a time; sums along the bin row in '
+                     'registers; float4 atomics into a channels-last '
+                     'scratch; one rounding pass', shapes=[box],
                      samples_off_map=n_off / n_samples))
 
     # -- the NMS on the RPN call, K = 8819
@@ -3222,7 +3301,7 @@ def phase_frcnn_train_kernels(np, torch):
         f'{rpn_nms["valid"]} kept {rpn_nms["kept"]} mismatches={mism} '
         f'(exact); {rpn_nms["ms"]:.4f} ms device, {call_ms:.4f} ms per call')
     check(mism == 0, f'NMS kernel disagrees with plain at K={k}')
-    del calls, grad, rois, want, got, args
+    del calls, grad, rois
 
     # -- kernel B on the 3 backward calls of one FPN-CARAFE step
     calls = train_step_calls(np, torch, 'carafe',
@@ -3747,7 +3826,8 @@ def phase_detr_train_kernels(np, torch):
     """The sampling backward kernel on the 12 calls of one bs-16, 800x1344
     bf16 training step of each DETR config (sampling weights arranged),
     against its plain version; then timed at the encoder's and the
-    decoders' call shapes."""
+    decoders' call shapes. The step's 12 forward calls too
+    (``detr_train_forward``), returned apart for row 9."""
     import importlib
 
     from erd_tpu_torch.engine import batch_to
@@ -3755,24 +3835,32 @@ def phase_detr_train_kernels(np, torch):
                                    ms_deform_attn_backward_plain)
     from erd_tpu_torch.ops.ms_deform_attn import ms_deform_attn_backward_run
     ops_module = importlib.import_module('erd_tpu_torch.ops.ms_deform_attn')
+    head_module = importlib.import_module(
+        'erd_tpu_torch.models.heads.deformable_detr_head')
     stats, timed_calls = {}, {}
     worst_abs, worst = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    forward = dict(shapes=[], per_step_ms={}, max_abs_err=0.0)
     for kind in DETR_CONFIGS:
         _, det, net = detr_train_net(torch, kind)
         batch = batch_to(next(iter(SyntheticLoader(
             np, torch, 1, seed=41, num_labels=NUM_CLASSES).epoch(0))), DEV)
-        calls = []
+        calls, fcalls = [], []
         restore = capture(ops_module, 'ms_deform_attn_backward', calls)
+        restore_f = capture(head_module, 'ms_deform_attn', fcalls)
         try:
             losses = det.loss(net, batch)
             sum(losses.values()).backward()
         finally:
             restore()
+            restore_f()
         torch.cuda.synchronize()
         del net, losses
-        calls = [tuple(a.detach() if torch.is_tensor(a) else a for a in c)
-                 for c in calls]
+        calls, fcalls = ([tuple(a.detach() if torch.is_tensor(a) else a
+                                for a in c) for c in cs]
+                         for cs in (calls, fcalls))
         torch.cuda.empty_cache()
+        detr_train_forward(torch, kind, fcalls, forward)
+        del fcalls
         n_tok = calls[0][0].shape[1]
         t = min(det.num_queries, n_tok) if kind == 'dino' else \
             det.num_queries
@@ -3895,7 +3983,64 @@ def phase_detr_train_kernels(np, torch):
                              'outside': total[2] / total[0]})
     del timed_calls
     torch.cuda.empty_cache()
-    return row
+    return row, forward
+
+
+def detr_train_forward(torch, kind, calls, out):
+    """The sampling forward (row 9) on the 12 captured calls of one bs-16
+    training step of ``kind``: each bit-equal to its plain version (and
+    within 1e-6 * max|value|, the serving gate); then each distinct call
+    shape (Q, the weights' dtype) timed (CUDA-graph replays, and events
+    around the call) beside its plain version and its bound, and the
+    step's calls summed by call time into ``out``."""
+    from erd_tpu_torch.ops import ms_deform_attn, ms_deform_attn_plain
+    n_tok = calls[0][0].shape[1]
+    check(len(calls) == DETR_STEP_CALLS and
+          [c[2].shape[1] for c in calls[:6]] == [n_tok] * 6 and
+          all(c[0].shape[0] == TRAIN_BATCH for c in calls),
+          f'{kind}: sampling forward calls of one step at Q = '
+          f'{[c[2].shape[1] for c in calls]}')
+    shapes = {}
+    for i, args in enumerate(calls):
+        got = ms_deform_attn(*args)
+        torch.cuda.synchronize()
+        want = ms_deform_attn_plain(*args[:3], args[3].float())
+        err = float((got - want).abs().max())
+        limit = 1e-6 * float(args[0].abs().max())
+        check(err <= limit and torch.equal(got, want), f'{kind}: sampling '
+              f'kernel not bit-equal to plain on training call {i} '
+              f'(max_abs_err {err:.3e})')
+        out['max_abs_err'] = max(out['max_abs_err'], err)
+        key = (args[2].shape[1], str(args[3].dtype))
+        shapes.setdefault(key, [args, 0])[1] += 1
+        del got, want
+    log(f'detr train kernels: {kind} ms_deform_attn forward: all '
+        f'{len(calls)} calls of the step bit-equal to plain')
+    step = 0.0
+    for (q, wdtype), (args, count) in shapes.items():
+        # device ms by graph replays: the profiler dropped records of
+        # this kernel (0.73 ms read for a 2.45 ms encoder call)
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: ms_deform_attn(*args),
+            lambda: ms_deform_attn_plain(*args[:3], args[3].float()), n=10)
+        values, lvl_shapes, locs, weights = args
+        nbytes, ops = deform_attn_cost(torch, lvl_shapes, values, locs,
+                                       weights)
+        bms, by = bound_of(nbytes, ops)
+        part = 'encoder' if q == n_tok else 'decoder'
+        out['shapes'].append(dict(
+            config=kind, part=part, q=q, batch=values.shape[0],
+            weights=wdtype, calls=count, ms=ms, call_ms=call_ms,
+            ms_from=src, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            bound_bytes=nbytes))
+        step += count * call_ms
+        log(f'detr train kernels: ms_deform_attn {kind} {part} Q={q} x '
+            f'{values.shape[0]} weights {wdtype} (x{count} a step): '
+            f'{ms:.4f} ms device ({src}), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes)')
+    out['per_step_ms'][kind] = step
+    log(f'detr train kernels: {kind} sampling forward calls of one step '
+        f'{step:.2f} ms (events, call time)')
 
 
 def phase_detr_train_reference(np, torch):
@@ -5223,6 +5368,7 @@ def mask_train_step_calls(np, torch, kind, names):
     ...]}."""
     import importlib
     modules = {'crop_resize_mask': 'models.detectors.mask_rcnn',
+               'roi_align_backward': 'ops.roi_align',
                'point_sample': 'models.detectors.point_rend',
                'point_sample_backward': 'ops.sampling',
                'corner_pool_backward': 'ops.extra_nms',
@@ -5302,7 +5448,9 @@ def phase_mask_train_kernels(np, torch):
     then timed by CUDA-graph replays beside its byte bound, its plain
     version and, where one PyTorch call computes the function, that call;
     the corner_pool forward too, on that step's x of each direction (for
-    the corner_pool row)."""
+    the corner_pool row). And row 7b at both RoIAlign backward calls of
+    the Mask R-CNN and PointRend steps (the out-7 box call and the out-14
+    mask call; ``roi_backward_call``), returned apart for that row."""
     from erd_tpu_torch.data.masks import (crop_resize_mask,
                                           crop_resize_mask_plain)
     from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
@@ -5315,10 +5463,23 @@ def phase_mask_train_kernels(np, torch):
     rows = []
     # -- row 14: the mask targets of both mask models' steps
     shapes = []
+    roi_backward = []  # row 7b at both calls of each step
     for kind, out_size in (('mask_rcnn', 28), ('point_rend', 14)):
-        names = ('crop_resize_mask', 'point_sample', 'point_sample_backward'
-                 ) if kind == 'point_rend' else ('crop_resize_mask',)
+        names = ('crop_resize_mask', 'roi_align_backward') + ((
+            'point_sample', 'point_sample_backward')
+            if kind == 'point_rend' else ())
         calls = mask_train_step_calls(np, torch, kind, names)
+        check(sorted(a[6] for a in calls['roi_align_backward']) == [7, 14],
+              f'{kind}: RoIAlign backward calls at out_size '
+              f'{[a[6] for a in calls["roi_align_backward"]]}')
+        for args in sorted(calls.pop('roi_align_backward'),
+                           key=lambda a: a[6]):
+            check(tuple(args[0].shape[:3]) == (TRAIN_BATCH, 512, 256) and
+                  args[5] == torch.bfloat16, f'{kind}: RoIAlign backward '
+                  f'call at {tuple(args[0].shape)} {args[5]}')
+            roi_backward.append(dict(config=kind, **roi_backward_call(
+                torch, args, f'mask/corner train kernels: {kind}')))
+            del args
         check(len(calls['crop_resize_mask']) == 1,
               f'{kind}: {len(calls["crop_resize_mask"])} mask-target calls')
         args = calls['crop_resize_mask'][0]
@@ -5569,7 +5730,7 @@ def phase_mask_train_kernels(np, torch):
                      library_ms=None, deterministic=True, peaks=peaks))
     del calls
     torch.cuda.empty_cache()
-    return rows
+    return rows, roi_backward
 
 
 def picks_held(torch, module, recorded, moved):
@@ -6414,7 +6575,8 @@ def main() -> int:
         train2_rows, rpn_nms = phase_frcnn_train_kernels(np, torch)
         phase_frcnn_train_reference(np, torch)
         train2_launches = phase_frcnn_train(np, torch, card)
-        detr_train_row = phase_detr_train_kernels(np, torch)
+        detr_train_row, detr_train_fwd = phase_detr_train_kernels(np,
+                                                                  torch)
         phase_detr_train_reference(np, torch)
         detr_train_launches = phase_detr_train(np, torch, card)
         dcn_train_row = phase_dcn_train_kernels(np, torch)
@@ -6425,7 +6587,8 @@ def main() -> int:
         phase_mask_cornernet_reference(np, torch)
         mask_launches = phase_mask_serve(np, torch, card)
         cn_launches = phase_cornernet_serve(np, torch, card)
-        mask_train_rows = phase_mask_train_kernels(np, torch)
+        mask_train_rows, mask_roi_backward = phase_mask_train_kernels(
+            np, torch)
         phase_mask_train_reference(np, torch)
         mask_train_launches = phase_mask_train(np, torch, card)
         solo_rows = phase_solo_kernels(np, torch)
@@ -6489,6 +6652,19 @@ def main() -> int:
                 list(mask_train_launches.items())
                 if counts.get(row['name'])}
             row['launches'] = sum(row['launches_by_path'].values())
+        # rows 9 and 7b: every call shape of a training step, and the
+        # step's calls summed
+        detr_rows[0].update(
+            shapes=detr_train_fwd['shapes'],
+            per_step_ms=detr_train_fwd['per_step_ms'],
+            train_max_abs_err=detr_train_fwd['max_abs_err'])
+        roi_row = next(row for row in train2_rows
+                       if row['name'] == 'roi_align_backward')
+        roi_row['shapes'] += mask_roi_backward
+        roi_row['per_step_ms'] = {}
+        for shape in roi_row['shapes']:
+            roi_row['per_step_ms'][shape['config']] = roi_row[
+                'per_step_ms'].get(shape['config'], 0.0) + shape['call_ms']
         for row in detr_rows + [detr_train_row]:
             by_path = {path: counts[row['name']] for path, counts in
                        detr_train_launches.items()}

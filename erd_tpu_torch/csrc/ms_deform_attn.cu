@@ -8,14 +8,6 @@
 // corner reads of every (query, head, level, point) to dynamic gathers of
 // whole head rows, one level at a time.
 //
-// Thread layout: one warp per (batch, query, head), one lane per channel
-// (head_dim 32). Lane s < L * K first computes sample s's corner indices,
-// bilinear fractions and attention weight once (its 2 location floats and
-// 1 weight are neighbouring addresses across lanes, so the warp reads them
-// coalesced); the warp then walks the samples, each broadcast from its
-// lane by a shuffle, and the 32 lanes read each in-range corner as one
-// 128-byte row of the flat (B, N_tok, heads, 32) value tokens.
-//
 // Arithmetic: the plain version's order, every op rounded on its own (the
 // library is built with -fmad=false): xs = x * W - 0.5, floor, the four
 // corner terms v*(1-wy)*(1-wx), v*(1-wy)*wx, v*wy*(1-wx), v*wy*wx summed
@@ -24,11 +16,28 @@
 // padding_mode='zeros', erd_tpu's masked read). Kernel and plain version
 // agree to the bit.
 //
+// Design. The first design ran a warp per (batch, query, head) and a lane
+// per channel: lane s computed sample s's corners and weight, 5 shuffles
+// broadcast each sample to the warp (80 a warp), lanes 16-31 idled
+// through that, and every corner was a scalar 4-byte load a lane, a warp
+// instruction fetching one 128-byte value row. That layout is bound by
+// issue, not by memory (erd_tpu_torch/tools/atomic_backward_probe.py
+// found the same layout issue-bound in the backward). Now a lane holds 4
+// channels (a float4) and 8 lanes a head's 128-byte row, so a warp serves
+// 4 (batch, query, head) triples, one a lane group. Each group loads its
+// own triple's locations and weights (the 8 lanes read one address) and
+// walks its samples in the plain version's order; groups never combine,
+// so no shuffles, and a ragged last warp's idle groups just leave. A
+// corner is one float4 load a lane: 4 value rows a warp instruction.
+//
 // Bound on this card: bytes. At the encoder's Q = 22323 tokens (800x1344)
 // the call must read the 22.9 MB value tokens, 22.9 MB of locations and
-// 11.4 MB of weights and write 22.9 MB: ~80 MB, 0.024 ms at 3.35 TB/s. The
-// corner reads (16 samples x 4 corners x 128 B per warp, 1.46 GB in all)
-// hit mostly in the 50 MB L2, which holds the whole value tensor.
+// 11.4 MB of weights and write 22.9 MB: ~80 MB, 0.024 ms at 3.35 TB/s
+// (16 times that at the training step's batch of 16). The corner reads
+// (16 samples x 4 corners x 128 B per triple, 1.46 GB an image) hit
+// mostly in the 50 MB L2; the float32 arithmetic, 13 operations a
+// channel and sample rounded one by one, is ~0.6 ms of the card's
+// non-FMA issue rate at batch 16.
 //
 // The backward (`erd_ms_deform_attn_backward`) replaces erd_tpu's autodiff
 // of the same sampler (XLA's transpose of the gathers: scatter-adds into
@@ -95,78 +104,6 @@ struct Levels {
   int start[4];
 };
 
-__device__ __forceinline__ float corner(const float* v, int y, int x, int h,
-                                        int w, int row_stride) {
-  if (y < 0 || y >= h || x < 0 || x >= w) return 0.f;
-  return v[(static_cast<size_t>(y) * w + x) * row_stride];
-}
-
-__global__ void ms_deform_attn_kernel(const float* __restrict__ value,
-                                      const float* __restrict__ loc,
-                                      const float* __restrict__ attn,
-                                      Levels lv, int n_tok, int q, int heads,
-                                      int levels, int points,
-                                      long long warps,
-                                      float* __restrict__ out) {
-  const long long warp =
-      (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= warps) return;  // whole warps: blockDim is a multiple of 32
-  const int head = static_cast<int>(warp % heads);
-  const long long b = warp / heads / q;
-  const int samples = levels * points;
-
-  // sample `lane`: corner indices, fractions and weight
-  int sx = 0, sy = 0;
-  float fx = 0.f, fy = 0.f, aw = 0.f;
-  if (lane < samples) {
-    const int lvl = lane / points;
-    const float* l = loc + (warp * samples + lane) * 2;
-    const float xs = __fsub_rn(__fmul_rn(l[0], static_cast<float>(lv.w[lvl])),
-                               0.5f);
-    const float ys = __fsub_rn(__fmul_rn(l[1], static_cast<float>(lv.h[lvl])),
-                               0.5f);
-    const float x0 = floorf(xs);
-    const float y0 = floorf(ys);
-    fx = __fsub_rn(xs, x0);
-    fy = __fsub_rn(ys, y0);
-    sx = static_cast<int>(x0);
-    sy = static_cast<int>(y0);
-    aw = attn[warp * samples + lane];
-  }
-
-  const int row_stride = heads * 32;
-  const float* vb = value + (static_cast<size_t>(b) * n_tok * heads + head) *
-                                32 + lane;
-  float total = 0.f;
-  for (int lvl = 0; lvl < levels; ++lvl) {
-    const int h = lv.h[lvl], w = lv.w[lvl];
-    const float* v = vb + static_cast<size_t>(lv.start[lvl]) * row_stride;
-    float acc = 0.f;
-    for (int p = 0; p < points; ++p) {
-      const int s = lvl * points + p;
-      const int x0 = __shfl_sync(kFull, sx, s);
-      const int y0 = __shfl_sync(kFull, sy, s);
-      const float wx = __shfl_sync(kFull, fx, s);
-      const float wy = __shfl_sync(kFull, fy, s);
-      const float a = __shfl_sync(kFull, aw, s);
-      const float hx = __fsub_rn(1.f, wx);
-      const float hy = __fsub_rn(1.f, wy);
-      float samp = __fmul_rn(__fmul_rn(corner(v, y0, x0, h, w, row_stride),
-                                       hy), hx);
-      samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(
-          corner(v, y0, x0 + 1, h, w, row_stride), hy), wx));
-      samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(
-          corner(v, y0 + 1, x0, h, w, row_stride), wy), hx));
-      samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(
-          corner(v, y0 + 1, x0 + 1, h, w, row_stride), wy), wx));
-      acc = __fadd_rn(acc, __fmul_rn(samp, a));
-    }
-    total = __fadd_rn(total, acc);
-  }
-  out[warp * 32 + lane] = total;
-}
-
 __device__ __forceinline__ float4 zero4() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
@@ -175,6 +112,79 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+
+__device__ __forceinline__ float4 corner4(const float4* v, int y, int x,
+                                          int h, int w, size_t tok_stride) {
+  if (y < 0 || y >= h || x < 0 || x >= w) return zero4();
+  return v[(static_cast<size_t>(y) * w + x) * tok_stride];
+}
+
+// one channel's bilinear sample, the plain version's order
+__device__ __forceinline__ float bilinear(float v00, float v01, float v10,
+                                          float v11, float hy, float hx,
+                                          float wy, float wx) {
+  float samp = __fmul_rn(__fmul_rn(v00, hy), hx);
+  samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(v01, hy), wx));
+  samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(v10, wy), hx));
+  return __fadd_rn(samp, __fmul_rn(__fmul_rn(v11, wy), wx));
+}
+
+// Lane group j = lane >> 3 of a warp on (batch, query, head) triple 4 *
+// warp + j; lane m = lane & 7 holds channels 4m..4m+3.
+__global__ void __launch_bounds__(256)
+ms_deform_attn_kernel(const float* __restrict__ value,
+                      const float* __restrict__ loc,
+                      const float* __restrict__ attn, Levels lv, int n_tok,
+                      int q, int heads, int levels, int points,
+                      long long triples, float* __restrict__ out) {
+  const long long tri =
+      (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 3;
+  if (tri >= triples) return;  // no shuffles: idle groups may leave
+  const int m = threadIdx.x & 7;
+  const int head = static_cast<int>(tri % heads);
+  const long long b = tri / heads / q;
+  const int samples = levels * points;
+  const size_t tok_stride = static_cast<size_t>(heads) * 8;  // float4s
+  const float4* vb = reinterpret_cast<const float4*>(value) +
+                     (static_cast<size_t>(b) * n_tok * heads + head) * 8 + m;
+  const float2* l2 = reinterpret_cast<const float2*>(loc) + tri * samples;
+  const float* aw = attn + tri * samples;
+  float4 total = zero4();
+#pragma unroll
+  for (int lvl = 0; lvl < 4; ++lvl) {
+    if (lvl >= levels) break;
+    const int h = lv.h[lvl], w = lv.w[lvl];
+    const float fw = static_cast<float>(w), fh = static_cast<float>(h);
+    const float4* v = vb + static_cast<size_t>(lv.start[lvl]) * tok_stride;
+    float4 acc = zero4();
+    for (int p = 0; p < points; ++p) {
+      const int s = lvl * points + p;
+      const float2 l = l2[s];
+      const float a = aw[s];
+      const float xs = __fsub_rn(__fmul_rn(l.x, fw), 0.5f);
+      const float ys = __fsub_rn(__fmul_rn(l.y, fh), 0.5f);
+      const float x0f = floorf(xs), y0f = floorf(ys);
+      const float wx = __fsub_rn(xs, x0f), wy = __fsub_rn(ys, y0f);
+      const float hx = __fsub_rn(1.f, wx), hy = __fsub_rn(1.f, wy);
+      const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
+      const float4 c00 = corner4(v, y0, x0, h, w, tok_stride);
+      const float4 c01 = corner4(v, y0, x0 + 1, h, w, tok_stride);
+      const float4 c10 = corner4(v, y0 + 1, x0, h, w, tok_stride);
+      const float4 c11 = corner4(v, y0 + 1, x0 + 1, h, w, tok_stride);
+      acc.x = __fadd_rn(acc.x, __fmul_rn(bilinear(c00.x, c01.x, c10.x, c11.x,
+                                                  hy, hx, wy, wx), a));
+      acc.y = __fadd_rn(acc.y, __fmul_rn(bilinear(c00.y, c01.y, c10.y, c11.y,
+                                                  hy, hx, wy, wx), a));
+      acc.z = __fadd_rn(acc.z, __fmul_rn(bilinear(c00.z, c01.z, c10.z, c11.z,
+                                                  hy, hx, wy, wx), a));
+      acc.w = __fadd_rn(acc.w, __fmul_rn(bilinear(c00.w, c01.w, c10.w, c11.w,
+                                                  hy, hx, wy, wx), a));
+    }
+    total = make_float4(__fadd_rn(total.x, acc.x), __fadd_rn(total.y, acc.y),
+                        __fadd_rn(total.z, acc.z), __fadd_rn(total.w, acc.w));
+  }
+  reinterpret_cast<float4*>(out)[tri * 8 + m] = total;
+}
 
 // One round's three channel sums (weight, x, y) of the 4 samples of a warp
 // (lane group j = lane >> 3 on one sample; lane m = lane & 7 holds channels
@@ -291,10 +301,7 @@ ms_deform_attn_backward_kernel(
       for (int i = 0; i < 4; ++i) {
         const float v00 = comp(c00, i), v01 = comp(c01, i);
         const float v10 = comp(c10, i), v11 = comp(c11, i);
-        float samp = __fmul_rn(__fmul_rn(v00, hy), hx);
-        samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(v01, hy), wx));
-        samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(v10, wy), hx));
-        samp = __fadd_rn(samp, __fmul_rn(__fmul_rn(v11, wy), wx));
+        const float samp = bilinear(v00, v01, v10, v11, hy, hx, wy, wx);
         const float gx = __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), hy),
                                    __fmul_rn(__fsub_rn(v11, v10), wy));
         const float gy = __fadd_rn(__fmul_rn(__fsub_rn(v10, v00), hx),
@@ -341,20 +348,20 @@ extern "C" int erd_ms_deform_attn(const void* value, const void* loc,
                                   int w3, int s0, int s1, int s2, int s3,
                                   int batch, int n_tok, int q, int heads,
                                   int levels, int points, void* stream) {
-  const long long warps = static_cast<long long>(batch) * q * heads;
-  if (warps <= 0) return 0;
+  const long long triples = static_cast<long long>(batch) * q * heads;
+  if (triples <= 0) return 0;
   if (levels < 1 || levels > 4 || levels * points > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   Levels lv = {{h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3}};
   const int threads = 256;
-  const long long warps_per_block = threads / 32;
+  const long long per_block = threads / 8;  // lane groups of 8
   const unsigned blocks =
-      static_cast<unsigned>((warps + warps_per_block - 1) / warps_per_block);
+      static_cast<unsigned>((triples + per_block - 1) / per_block);
   ms_deform_attn_kernel<<<blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(value), static_cast<const float*>(loc),
       static_cast<const float*>(attn), lv, n_tok, q, heads, levels, points,
-      warps, static_cast<float*>(out));
+      triples, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

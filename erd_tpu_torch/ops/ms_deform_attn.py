@@ -140,6 +140,9 @@ def _check_cuda(what, values, locations, weights, extra=()):
         raise ValueError(f'{what}: all tensors must be on one device')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f'{what}: tensors must be contiguous')
+    if any(t.data_ptr() % 16 for t in (values,) + tuple(extra)):
+        raise ValueError(f'{what}: the value rows (and gradients) must '
+                         f'start on 16 bytes: the kernels read float4s')
     hd = values.shape[3]
     levels, points = locations.shape[3], locations.shape[4]
     if hd != KERNEL_HEAD_DIM or levels * points > 32:

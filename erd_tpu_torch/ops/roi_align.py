@@ -297,9 +297,12 @@ def roi_align_backward(grad, rois, levels, shapes, strides=(4, 8, 16, 32),
     each rounded once to ``dtype`` (the transpose of erd_tpu's
     ``astype(float32)`` of the maps).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``erd_roi_align_backward`` into zeroed float32 buffers (one launch for
-    the batch, counted in ``roi_align_backward.launches``).
+    CPU tensors take the plain version; CUDA tensors launch
+    ``erd_roi_align_backward`` (one call for the batch, counted in
+    ``roi_align_backward.launches``): a memset of a float32 channels-last
+    scratch, the kernel's float4 atomic adds into it, and a pass that
+    rounds it into the NCHW gradients; out_size at most 32 and
+    sampling_ratio 1 to 8, else it raises.
     """
     nl = len(shapes)
     if not 1 <= nl <= 4 or len(strides) < nl:
@@ -319,24 +322,57 @@ def roi_align_backward(grad, rois, levels, shapes, strides=(4, 8, 16, 32),
         raise TypeError('roi_align_backward: float32 grad, float32 or '
                         'bfloat16 maps expected')
     _check_cuda('roi_align_backward', [grad], rois, levels)
+    if not (1 <= out_size <= MAX_OUT and 1 <= sampling_ratio <= MAX_RATIO):
+        raise ValueError(f'roi_align_backward kernel: out_size at most '
+                         f'{MAX_OUT} and sampling_ratio 1 to {MAX_RATIO}, '
+                         f'got {out_size} and {sampling_ratio}')
     c = grad.shape[2]
-    bufs = [torch.zeros((b, c, h, w), dtype=torch.float32,
-                        device=rois.device) for h, w in shapes]
-    ptrs = [t.data_ptr() for t in bufs] + [None] * (4 - nl)
+    scratch = _backward_scratch(grad, shapes)
+    outs = [torch.empty((b, c, h, w), dtype=dtype, device=rois.device)
+            for h, w in shapes]
     hw, scales = _level_args(shapes, strides)
     lib = cuda_build.load('roi_align')
     fn = lib.erd_roi_align_backward
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
-                   [ctypes.c_float] * 4 + [ctypes.c_int] * 5 +
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 +
+                   [ctypes.c_float] * 4 + [ctypes.c_int] * 6 +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(grad.data_ptr(), rois.data_ptr(), levels.data_ptr(), *ptrs,
-                 *hw, *scales, b, r, c, out_size, sampling_ratio, stream)
+        err = fn(grad.data_ptr(), rois.data_ptr(), levels.data_ptr(),
+                 scratch.data_ptr(),
+                 *([o.data_ptr() for o in outs] + [None] * (4 - nl)),
+                 *hw, *scales, b, r, c, out_size, sampling_ratio,
+                 int(dtype == torch.bfloat16), stream)
     cuda_build.check(lib, err, 'roi_align_backward')
     roi_align_backward.launches += 1
-    return [t.to(dtype) for t in bufs]
+    return outs
+
+
+MAX_OUT, MAX_RATIO = 32, 8  # the backward kernel's shared tables
+
+
+def scratch_channels(c):
+    """The channel stride of the backward's channels-last scratch: C
+    rounded up to 4 (float4 rows)."""
+    return -(-c // 4) * 4
+
+
+def _scratch_layout(grad, shapes):
+    """(floats, flag bytes) of the backward kernel's scratch: the levels'
+    (B, H_l, W_l, C') channels-last maps one after another, then a byte a
+    32-pixel tile of each level's flat H_l * W_l (set where the kernel
+    adds)."""
+    b, c = grad.shape[0], grad.shape[2]
+    return (b * sum(h * w for h, w in shapes) * scratch_channels(c),
+            b * sum(-(-h * w // 32) for h, w in shapes))
+
+
+def _backward_scratch(grad, shapes):
+    """The backward kernel's scratch, flat float32 (``_scratch_layout``)."""
+    floats, flag_bytes = _scratch_layout(grad, shapes)
+    return torch.empty(floats + -(-flag_bytes // 4), dtype=torch.float32,
+                       device=grad.device)
 
 
 roi_align_backward.launches = 0

@@ -1,9 +1,11 @@
-"""Where the two atomic backward kernels spend their time, on one CUDA GPU:
-the deformable im2col backward (``erd_deform_im2col_backward``, kernel 8b)
-and the multi-scale deformable attention backward
-(``erd_ms_deform_attn_backward``, kernel 9b). Run from the repository root:
+"""Where the redesigned kernels and the atomic backward kernels spend
+their time, on one CUDA GPU: the deformable im2col backward
+(``erd_deform_im2col_backward``, kernel 8b), the multi-scale deformable
+attention backward and forward (kernels 9b and 9), the RoIAlign backward
+(7b), and the call times of the CARAFE (10b) and corner-pool (12a-b)
+backwards. Run from the repository root:
 
-    python3 -m erd_tpu_torch.tools.atomic_backward_probe
+    python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 9,7b]
 
 The calls are those of one bs-16, 800x1344 bf16 training step, captured as
 ``chip_smoke.py``'s train-kernel phases capture them (seeded networks,
@@ -31,6 +33,26 @@ conv_offset and sampling weights arranged):
    level slot, so that each row takes the adds a row of level l takes on
    the path, from four times as many samples); with the adds a row takes
    on each level.
+3. 9, the forward (``erd_ms_deform_attn``), at every call shape of one
+   DINO and one Deformable DETR step, each step's sum, and the encoder
+   call on the step's first image alone (the serving shape): by events
+   around the calls, and by CUDA-graph replays (device time without the
+   host's launch gaps, which events see at the small decoder calls).
+4. 7b, the RoIAlign backward (``erd_roi_align_backward``), at every call
+   of one Faster R-CNN, Mask R-CNN and PointRend step (the out-7 box call;
+   the out-14 mask call): the call by CUDA events; its three device
+   operations (the scratch's memset, the kernel, the rounding pass) by
+   ``torch.profiler``; the share of the maps' 32-pixel tiles whose
+   gradient is nonzero; and the kernel with its float4 atomic adds
+   replaced by plain stores (geometry, reads and the scratch's traffic
+   left), compiled from a copy of ``csrc/roi_align.cu`` edited in the
+   build directory, on no path.
+5. others: the call time of the CARAFE backward (10b) at the 3 calls of
+   one FPN-CARAFE step and of the corner-pool backward (12a-b) in the 4
+   directions of one CornerNet step.
+
+``--only 9,7b`` runs the named parts alone, in that order (the parts: 8b,
+9b, 9, 7b, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -40,6 +62,7 @@ import ctypes
 import importlib
 import json
 import os
+import subprocess
 import sys
 
 import torch
@@ -55,17 +78,21 @@ WINDOW_TILES, WINDOW_MARGIN, WINDOW_BLOCKS_PER_SM = ((8, 32), (4, 64)), 4, 6
 SHARED_BYTES_PER_SM = 233472
 
 
-def captured_calls(smoke, module, name, net_fn, kinds, key_fn):
+def captured_calls(smoke, module, name, net_fn, kinds, key_fn,
+                   batch_fn=None):
     """{kind: {key: [args, count]}}: the first call of each key of one
-    training step of each config, and how many calls share the key."""
+    training step of each config, and how many calls share the key.
+    ``batch_fn(kind)`` gives a config's batch on the card (default: the
+    bs-16, 800x1344 train batch of ``chip_smoke.SyntheticLoader``)."""
     import numpy as np
 
     from erd_tpu_torch.engine import batch_to
     out = {}
     for kind in kinds:
         _, det, net = net_fn(torch, kind)
-        batch = batch_to(next(iter(smoke.SyntheticLoader(
-            np, torch, 1, seed=41, num_labels=smoke.NUM_CLASSES).epoch(0))),
+        batch = batch_fn(kind) if batch_fn else batch_to(next(iter(
+            smoke.SyntheticLoader(np, torch, 1, seed=41,
+                                  num_labels=smoke.NUM_CLASSES).epoch(0))),
             smoke.DEV)
         calls = {}
         fn = getattr(module, name)
@@ -326,7 +353,226 @@ def probe_attention(smoke, report):
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def probe_attention_forward(smoke, report):
+    """Kernel 9 at every call shape of one bs-16 DINO and Deformable DETR
+    step, and at the bs-1 encoder call (the first image of the step's)."""
+    head = importlib.import_module(
+        'erd_tpu_torch.models.heads.deformable_detr_head')
+    calls = captured_calls(
+        smoke, head, 'ms_deform_attn', smoke.detr_train_net,
+        smoke.DETR_CONFIGS, lambda a: (a[2].shape[1], a[3].dtype))
+    fn = importlib.import_module('erd_tpu_torch.ops.ms_deform_attn'
+                                 ).ms_deform_attn
+    out = dict(calls=[], per_step_ms={})
+    for kind, by_key in calls.items():
+        for (q, wdtype), (args, count) in by_key.items():
+            part = 'encoder' if q == args[0].shape[1] else 'decoder'
+            ms = smoke.events_ms(torch, lambda: fn(*args), 10)
+            graph = smoke.graph_ms(torch, lambda: fn(*args), 10)
+            row = dict(config=kind, part=part, q=q, batch=args[0].shape[0],
+                       weights=str(wdtype), calls=count, ms=ms,
+                       graph_ms=graph)
+            if part == 'encoder':
+                one = tuple(a[:1] if torch.is_tensor(a) else a for a in args)
+                row['batch1_ms'] = smoke.events_ms(torch, lambda: fn(*one),
+                                                   20)
+                row['batch1_graph_ms'] = smoke.graph_ms(
+                    torch, lambda: fn(*one), 20)
+            out['calls'].append(row)
+            for key, t in (('per_step_ms', ms), ('per_step_graph_ms', graph)):
+                out.setdefault(key, {})
+                out[key][kind] = out[key].get(kind, 0.0) + count * t
+            print(f'probe 9: {kind} {part} Q={q} x {args[0].shape[0]} '
+                  f'weights {wdtype} (x{count} a step): {ms:.4f} ms, by '
+                  f'graph replays {graph:.4f}' + (
+                      f'; the first image alone {row["batch1_ms"]:.4f} ms, '
+                      f'by graph replays {row["batch1_graph_ms"]:.4f}'
+                      if 'batch1_ms' in row else ''), flush=True)
+    for kind, total in out['per_step_ms'].items():
+        print(f'probe 9: {kind} one step\'s calls {total:.3f} ms (by graph '
+              f'replays {out["per_step_graph_ms"][kind]:.3f})', flush=True)
+    report['ms_deform_attn'] = out
+    del calls
+    torch.cuda.empty_cache()
+
+
+def mask_batch(smoke, kind):
+    import numpy as np
+    return next(iter(smoke.mask_train_loader(np, torch, kind, 1,
+                                             61).epoch(0)))
+
+
+def stores_for_adds_lib():
+    """``csrc/roi_align.cu`` built with the backward kernel's float4 atomic
+    adds replaced by plain stores (its sums wrong): a measurement's
+    variant, compiled from an edited copy in the build directory."""
+    from erd_tpu_torch.ops import cuda_build
+    add = 'atomicAdd(dst, scale4(v, ws[k]));'
+    src = (cuda_build.CSRC / 'roi_align.cu').read_text()
+    if src.count(add) != 1:
+        raise RuntimeError(f'roi_align.cu: {add!r} not found once')
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    copy = cuda_build.BUILD_DIR / 'roi_align_stores_for_adds.cu'
+    copy.write_text(src.replace(add, '*dst = scale4(v, ws[k]);'))
+    path = copy.with_suffix('.so')
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, '-o',
+                    str(path), str(copy)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(path))
+    lib.erd_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.erd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# 7b's device operations, by the profiler's names
+ROI_BACKWARD_OPS = {'zero': 'Memset', 'kernel': 'roi_align_backward_kernel',
+                    'round': 'roi_align_backward_finish'}
+
+
+def device_ops_ms(fn, names, n=5):
+    """{key: device ms a call} of the operations whose profiler name holds
+    ``names[key]`` (None where the profiler shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key, name in names.items():
+        us = sum(getattr(ev, 'device_time_total', None) or
+                 getattr(ev, 'cuda_time_total', 0.0)
+                 for ev in prof.key_averages() if name in ev.key)
+        out[key] = us / n / 1e3 if us > 0 else None
+    return out
+
+
+def nonzero_tiles(grads):
+    """The share of the maps' 32-pixel tiles (of each flat H * W, over
+    the batch) where some channel's gradient is nonzero."""
+    hit = total = 0
+    for g in grads:
+        b, _, h, w = g.shape
+        flat = torch.nn.functional.pad((g != 0).any(1).reshape(b, h * w),
+                                       (0, -(-h * w // 32) * 32 - h * w))
+        tiles = flat.reshape(b, -1, 32).any(2)
+        hit += int(tiles.sum())
+        total += tiles.numel()
+    return hit / total
+
+
+def fmt(v):
+    return 'not measured' if v is None else f'{v:.4f}'
+
+
+def probe_roi_backward(smoke, report):
+    """Kernel 7b at every call of one bs-16 step of Faster R-CNN (the
+    box call), Mask R-CNN and PointRend (box and out-14 mask calls): the
+    call, its memset, kernel and rounding pass, the share of tiles with a
+    gradient, and the kernel with stores for its adds."""
+    from erd_tpu_torch.ops import cuda_build
+    ra = importlib.import_module('erd_tpu_torch.ops.roi_align')
+    calls = {}
+    for kind in ('frcnn',) + tuple(smoke.MASK_CONFIGS):
+        if kind == 'frcnn':
+            got = captured_calls(
+                smoke, ra, 'roi_align_backward', smoke.train_net, (kind,),
+                lambda a: a[0].shape[3])
+        else:
+            got = captured_calls(
+                smoke, ra, 'roi_align_backward', smoke.mask_train_net,
+                (kind,), lambda a: a[0].shape[3],
+                lambda k: mask_batch(smoke, k))
+        calls.update(got)
+    path_lib = cuda_build.load('roi_align')
+    stores_lib = stores_for_adds_lib()
+    out = dict(calls=[], per_step_ms={})
+    fn = ra.roi_align_backward
+    for kind, by_out in calls.items():
+        for out_size, (args, count) in sorted(by_out.items()):
+            grad = args[0]
+            live = int((grad.flatten(2).abs().amax(2) > 0).sum())  # RoIs
+            call = smoke.events_ms(torch, lambda: fn(*args), 5)
+            ms = device_ops_ms(lambda: fn(*args), ROI_BACKWARD_OPS)
+            reached = nonzero_tiles(fn(*args[:5], torch.float32,
+                                       *args[6:]))
+            cuda_build._LIBS['roi_align'] = stores_lib
+            try:
+                stores = device_ops_ms(lambda: fn(*args), dict(
+                    kernel=ROI_BACKWARD_OPS['kernel']))['kernel']
+            finally:
+                cuda_build._LIBS['roi_align'] = path_lib
+            row = dict(config=kind, out=out_size, grad=list(grad.shape),
+                       maps=str(args[5]), live_rois=live, calls=count,
+                       call_ms=call, kernel_ms=ms['kernel'],
+                       zero_ms=ms['zero'], round_ms=ms['round'],
+                       nonzero_tiles=reached, stores_for_adds_ms=stores)
+            out['calls'].append(row)
+            out['per_step_ms'][kind] = out['per_step_ms'].get(kind, 0.0) + \
+                count * call
+            print(f'probe 7b: {kind} out {out_size} grad '
+                  f'{tuple(grad.shape)} maps {args[5]} ({live} RoIs with a '
+                  f'gradient; x{count} a step): call {call:.4f} ms; device '
+                  f'(profiler): zeroing {fmt(ms["zero"])}, kernel '
+                  f'{fmt(ms["kernel"])}, rounding {fmt(ms["round"])}; '
+                  f'{reached:.1%} of the tiles with a gradient; the kernel '
+                  f'with stores for its adds {fmt(stores)}', flush=True)
+    for kind, total in out['per_step_ms'].items():
+        print(f'probe 7b: {kind} one step\'s calls {total:.3f} ms', flush=True)
+    report['roi_align_backward'] = out
+    del calls
+    torch.cuda.empty_cache()
+
+
+def probe_other_backwards(smoke, report):
+    """Call time (events) of 10b at the 3 calls of one FPN-CARAFE step and
+    of 12a-b in the 4 directions of one CornerNet step (bs 6)."""
+    cb = importlib.import_module('erd_tpu_torch.ops.carafe')
+    calls = captured_calls(smoke, cb, 'carafe_backward', smoke.train_net,
+                           ('carafe',), lambda a: tuple(a[0].shape))
+    rows = []
+    for shape, (args, count) in sorted(calls['carafe'].items()):
+        ms = smoke.events_ms(torch, lambda: cb.carafe_backward(*args), 5)
+        rows.append(dict(x=list(shape), calls=count, call_ms=ms))
+        print(f'probe 10b: carafe x {shape} (x{count} a step): {ms:.4f} ms',
+              flush=True)
+    report['carafe_backward'] = dict(calls=rows, per_step_ms=sum(
+        r['calls'] * r['call_ms'] for r in rows))
+    del calls
+    en = importlib.import_module('erd_tpu_torch.ops.extra_nms')
+    calls = captured_calls(
+        smoke, en, 'corner_pool_backward', smoke.mask_train_net,
+        ('cornernet',), lambda a: a[2], lambda k: mask_batch(smoke, k))
+    rows = []
+    for direction, (args, count) in calls['cornernet'].items():
+        ms = smoke.events_ms(torch, lambda: en.corner_pool_backward(*args),
+                             5)
+        rows.append(dict(direction=direction, x=list(args[0].shape),
+                         calls=count, call_ms=ms))
+        print(f'probe 12a-b: {direction} x {tuple(args[0].shape)} (x{count} '
+              f'a step): {ms:.4f} ms', flush=True)
+    report['corner_pool_backward'] = dict(calls=rows, per_step_ms=sum(
+        r['calls'] * r['call_ms'] for r in rows))
+    del calls
+    torch.cuda.empty_cache()
+
+
+# the probe's parts, by the kernel rows of PERF.md
+PARTS = {'8b': probe_deform, '9b': probe_attention,
+         '9': probe_attention_forward, '7b': probe_roi_backward,
+         'others': probe_other_backwards}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    parts = list(PARTS)
+    if '--only' in argv:
+        parts = argv[argv.index('--only') + 1].split(',')
+        unknown = [p for p in parts if p not in PARTS]
+        if unknown:
+            print(f'atomic_backward_probe: no part {unknown}; the parts are '
+                  f'{list(PARTS)}', file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print('atomic_backward_probe: CUDA is not available', file=sys.stderr)
         return 1
@@ -335,8 +581,8 @@ def main() -> int:
     card = smoke.card_line()
     print(card, flush=True)
     report = {'card': card}
-    probe_deform(smoke, report)
-    probe_attention(smoke, report)
+    for part in parts:
+        PARTS[part](smoke, report)
     print(json.dumps(report))
     return 0
 

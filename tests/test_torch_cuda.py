@@ -1961,3 +1961,103 @@ def test_solov2_serving_on_cuda_runs_the_matrix_decay_kernel(cuda):
     assert torch.equal(gpu.labels.cpu(), cpu.labels)
     np.testing.assert_allclose(gpu.scores.cpu().numpy(), cpu.scores.numpy(),
                                rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------- the redesigned sampling forward and 7b
+@pytest.mark.parametrize('heads,q,shapes', [
+    (8, 300, DETR_LEVELS['landscape']),
+    (1, 13, DETR_LEVELS['portrait']),
+    (3, 7, [(1, 1), (5, 3), (2, 9)]),
+    (8, 21, [(13, 21), (1, 1)])])
+@pytest.mark.parametrize('wdtype', [torch.float32, torch.bfloat16])
+def test_ms_deform_attn_kernel_is_bit_equal_to_plain(cuda, heads, q, shapes,
+                                                     wdtype):
+    """The float4-lane forward (4 (image, query, head) triples a warp)
+    against its plain version, bit for bit: batch 2, heads 8, 3 and 1 (Q x
+    heads not a multiple of 4: a ragged last warp), 1 x 1 levels, 1 to 4
+    levels, locations reaching 30 % past their maps (corners off the map
+    read 0), float32 and bf16 attention weights."""
+    rs = np.random.RandomState(heads * 1000 + q)
+    n = sum(h * w for h, w in shapes)
+    levels = len(shapes)
+    values = torch.from_numpy(rs.randn(2, n, heads, 32).astype(np.float32))
+    locs = torch.from_numpy(rs.uniform(-0.3, 1.3, (
+        2, q, heads, levels, 4, 2)).astype(np.float32))
+    w = torch.from_numpy(rs.rand(2, q, heads, levels * 4).astype(
+        np.float32)).softmax(-1).reshape(2, q, heads, levels, 4)
+    values, locs, w = (t.to(cuda) for t in (values, locs, w.to(wdtype)))
+    before = ms_deform_attn.launches
+    got = ms_deform_attn(values, shapes, locs, w)
+    torch.cuda.synchronize()
+    assert ms_deform_attn.launches == before + 1
+    want = ms_deform_attn_plain(values, shapes, locs, w.float())
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+# the last 15 RoI slots of chip_smoke.py's box call (800x1344 canvas): off
+# the image, on its edges or degenerate, one sized for each of levels 1-3
+EDGE_ROIS = [
+    [-60, -40, -2, -1], [1349, 0, 1434, 40], [-300, -200, -10, -5],
+    [1354, 810, 1744, 1100], [-900, -900, -100, -100], [1444, -50, 2244, 800],
+    [10, 10, 10, 10], [0, 0, 0, 0], [1336, 792, 1348, 804],
+    [1340, 0, 1344, 800], [0, 796, 1344, 800], [-9, -9, 600, 500],
+    [100, 100, 250, 260], [200, 100, 560, 500], [-100, -100, 900, 800]]
+
+
+@pytest.mark.parametrize('out_size', [7, 14])
+@pytest.mark.parametrize('c', [256, 20, 18])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_roi_align_backward_kernel_box_and_mask_calls(cuda, out_size, c,
+                                                      dtype):
+    """The channels-last backward at the box (out 7) and mask (out 14)
+    calls' geometry: 2 images of 96 RoIs on the 800x1344 P2-P5 (every
+    level reached), chip_smoke.py's 15 edge RoIs, a third of the RoIs
+    with an all-zero gradient (the mask call's negatives), C = 256 and
+    ragged C = 20 and 18 (18: the scratch's rows padded to 20). float32
+    within 1e-5 * max|plain|; rounded to the maps' dtype, within one bf16
+    ulp of plain's rounding or 1e-5 * max|plain|."""
+    from erd_tpu_torch.ops import roi_align_backward, roi_align_backward_plain
+    rs = np.random.RandomState(out_size * 100 + c)
+    b, r = 2, 96
+    xy = rs.uniform(-30, [1344, 800], (b, r, 2))
+    wh = np.exp(rs.uniform(np.log(4), np.log(900), (b, r, 2)))
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[:, :len(EDGE_ROIS)] = EDGE_ROIS
+    rois = torch.from_numpy(rois).to(cuda)
+    levels = map_roi_levels(rois, 4)
+    assert len(torch.unique(levels)) == 4
+    grad = torch.from_numpy(rs.randn(b, r, c, out_size, out_size).astype(
+        np.float32)).to(cuda)
+    grad[:, 2 * len(EDGE_ROIS)::3] = 0.0
+    before = roi_align_backward.launches
+    got = roi_align_backward(grad, rois, levels, ROI_LEVELS, dtype=dtype,
+                             out_size=out_size)
+    got32 = roi_align_backward(grad, rois, levels, ROI_LEVELS,
+                               out_size=out_size)
+    torch.cuda.synchronize()
+    assert roi_align_backward.launches == before + 2
+    want = roi_align_backward_plain(grad, rois, levels, ROI_LEVELS,
+                                    (4, 8, 16, 32), out_size)
+    for g32, g, w in zip(got32, got, want):
+        limit = 1e-5 * float(w.abs().max())
+        assert g.dtype == dtype and g.shape == w.shape
+        assert g.is_contiguous() and g32.dtype == torch.float32
+        assert float((g32 - w).abs().max()) <= limit
+        near = (g.float() - w).abs() <= limit
+        if dtype == torch.bfloat16:
+            assert bool(((bf16_ulps(g, w.to(dtype)) <= 1) | near).all())
+        else:
+            assert bool(near.all())
+
+
+def test_roi_align_backward_kernel_refuses_what_its_tables_do_not_hold(cuda):
+    """out_size above 32 or a sampling ratio outside 1-8 raises before a
+    launch (the kernel's shared tables are sized for those)."""
+    from erd_tpu_torch.ops import roi_align_backward
+    rois = torch.tensor([[[4.0, 4.0, 60.0, 50.0]]], device=cuda)
+    levels = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    for out_size, ratio in ((33, 2), (7, 9), (7, 0)):
+        grad = torch.zeros((1, 1, 8, out_size, out_size), device=cuda)
+        with pytest.raises(ValueError, match='out_size'):
+            roi_align_backward(grad, rois, levels, [(20, 24)], (4,),
+                               out_size=out_size, sampling_ratio=ratio)

@@ -688,6 +688,54 @@ def test_roi_align_backward_plain_matches_jax_vjp():
         assert np.abs(w).max() > 0
 
 
+def test_roi_align_backward_plain_matches_jax_vjp_at_out_14():
+    """The mask branch's call: out_size 14 on every level, a third of the
+    RoIs with a zero output gradient (the negatives that the mask loss
+    does not count)."""
+    rs = np.random.RandomState(16)
+    feats, rois = roi_case(rs)
+    levels = map_roi_levels(torch.from_numpy(rois), 4)
+    grad = rs.randn(2, rois.shape[1], 14, 14, 8).astype(np.float32)
+    grad[:, 1::3] = 0.0
+
+    def jfn(*fs):
+        return jax.vmap(lambda a, b, c, d, r: j_multilevel(
+            [a, b, c, d], r, out_size=14))(*fs, jnp.asarray(rois))
+    _, vjp = jax.vjp(jfn, *[jnp.asarray(f) for f in feats])
+    want = jax.jit(vjp)(jnp.asarray(grad))
+    got = roi_align_backward_plain(
+        torch.from_numpy(np.ascontiguousarray(grad.transpose(0, 1, 4, 2,
+                                                             3))),
+        torch.from_numpy(rois), levels.int(),
+        [f.shape[1:3] for f in feats], (4, 8, 16, 32), out_size=14)
+    for g, w in zip(got, want):
+        w = np.moveaxis(np.asarray(w), -1, 1)
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max())
+        assert np.abs(w).max() > 0
+
+
+def test_roi_align_backward_scratch_layout():
+    """The backward kernel's scratch, from the call's shape: channels-last
+    float32 levels with C rounded up to 4, then a flag byte a 32-pixel
+    tile of each level, in whole floats."""
+    from erd_tpu_torch.ops.roi_align import _backward_scratch, \
+        scratch_channels
+    assert [scratch_channels(c) for c in (1, 4, 18, 20, 256)] == \
+        [4, 4, 20, 20, 256]
+    shapes = [(200, 336), (100, 168), (50, 84), (25, 42)]
+    grad = torch.empty((16, 512, 256, 7, 7), device='meta')
+    pixels = sum(h * w for h, w in shapes)
+    flags = 16 * sum(-(-h * w // 32) for h, w in shapes)
+    scratch = _backward_scratch(grad, shapes)
+    assert scratch.dtype == torch.float32 and scratch.dim() == 1
+    assert scratch.numel() == 16 * pixels * 256 + -(-flags // 4)
+    grad = torch.empty((2, 3, 18, 14, 14), device='meta')
+    assert _backward_scratch(grad, [(5, 7)]).numel() == \
+        2 * 35 * 20 + 1  # two tiles of 32 pixels: 2 bytes, one float
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_roi_align_autograd_runs_its_backward(dtype):
     """``multilevel_roi_align`` carries the maps' gradient through
