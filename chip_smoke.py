@@ -3294,12 +3294,27 @@ def phase_frcnn_train_kernels(np, torch):
     call_ms = events_ms(torch, lambda: nms_sorted_keep(*nargs), 10)
     dev_ms = kernel_ms(torch, lambda: nms_sorted_keep(*nargs),
                        ['nms_mask_kernel', 'nms_reduce_kernel'], 10)
+    parts = {part: kernel_ms(torch, lambda: nms_sorted_keep(*nargs),
+                             [f'nms_{part}_kernel'], 10)
+             for part in ('mask', 'reduce')}
+    # the bound: per valid row the IoUs with every later box (14
+    # operations each), per box its area; each box, flag and index read
+    rows_valid = torch.nonzero(nargs[1])[:, 1].double()
+    ops = 14.0 * float((k - 1 - rows_valid).sum()) + 3.0 * b * k
+    bms, by = bound_of(b * k * (16 + 1 + 8) + b * k, ops)
     rpn_nms = dict(k=k, iou=thr, batch=b, ms=dev_ms or call_ms,
-                   call_ms=call_ms, valid=int(nargs[1].sum()),
-                   kept=int(got.sum()), mismatches=mism)
+                   call_ms=call_ms, bound_ms=bms, bound_by=by,
+                   graph_ms=graph_ms(torch, lambda: nms_sorted_keep(*nargs),
+                                     10),
+                   mask_ms=parts['mask'], reduce_ms=parts['reduce'],
+                   valid=int(nargs[1].sum()), kept=int(got.sum()),
+                   mismatches=mism)
     log(f'frcnn train kernels: nms K={k} x {b} iou={thr} valid '
         f'{rpn_nms["valid"]} kept {rpn_nms["kept"]} mismatches={mism} '
-        f'(exact); {rpn_nms["ms"]:.4f} ms device, {call_ms:.4f} ms per call')
+        f'(exact); {rpn_nms["ms"]:.4f} ms device (bitmask '
+        f'{parts["mask"] or 0:.4f}, reduce {parts["reduce"] or 0:.4f}; '
+        f'profiler), {rpn_nms["graph_ms"]:.4f} ms a call by graph replays, '
+        f'{call_ms:.4f} ms per call (events); bound {bms:.4f} ms ({by})')
     check(mism == 0, f'NMS kernel disagrees with plain at K={k}')
     del calls, grad, rois
 
@@ -5630,10 +5645,16 @@ def phase_mask_train_kernels(np, torch):
         check(tuple(x.shape) == (CORNERNET_TRAIN_BATCH, 128, 192, 256) and
               x.dtype == torch.float32, f'corner pool backward at '
               f'{tuple(x.shape)} {x.dtype}')
+        check(x.is_contiguous(memory_format=torch.channels_last),
+              f'corner pool backward ({direction}): x {x.stride()} is not '
+              f'the step\'s channels-last map')
         got = corner_pool_backward(x, g, direction)
         torch.cuda.synchronize()
         check(torch.equal(got, corner_pool_backward_plain(x, g, direction)),
               f'corner-pool backward kernel differs from plain ({direction})')
+        check(got.stride() == x.stride(), f'corner-pool backward '
+              f'({direction}): the result\'s strides {got.stride()} are not '
+              f'x\'s {x.stride()}')
         ties.append(float((x == 0).float().mean()))
         if direction in shapes:
             continue
@@ -5650,9 +5671,13 @@ def phase_mask_train_kernels(np, torch):
         bms, by = bound_of(nbytes, x.numel() * 8.0)
         shapes[direction] = dict(ms=ms, call_ms=call_ms, ms_from=src,
                                  plain_ms=plain_ms, bound_ms=bms,
-                                 bound_by=by, cummax_backward_ms=cummax_ms)
+                                 bound_by=by, cummax_backward_ms=cummax_ms,
+                                 x_stride=list(x.stride()),
+                                 grad_stride=list(g.stride()))
         log(f'mask/corner train kernels: corner_pool_backward {direction} '
-            f'{tuple(x.shape)}: equal to plain; {ms:.4f} ms device ({src}), '
+            f'{tuple(x.shape)} (x strides {x.stride()}, grad {g.stride()}, '
+            f'read where they lie): equal to plain, in x\'s layout; '
+            f'{ms:.4f} ms device ({src}), '
             f'{call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, bound '
             f'{bms:.4f} ms ({by}; {nbytes} bytes); torch.cummax\'s backward '
             f'{cummax_ms:.4f} ms (another function on ties: not the '

@@ -47,22 +47,30 @@
 // hands half the tangent to each of two tied operands (none to either
 // where its output is NaN). So a tied run of a ray (common: the pools'
 // inputs come out of a ReLU) shares the gradient by the scan's tree, not by
-// position. The kernel replays that tree: one block per ray, the ray in
-// scan order in shared memory, then
+// position. The kernel replays that tree, level l holding floor(n / 2^l)
+// nodes:
 //   up the levels:   e[l+1][i] = max(e[l][2i], e[l][2i+1]) (pairs);
 //   down the levels: the scan's outputs o[l] from o[l+1] (odd outputs are
 //                    o[l+1][i], even ones max(o[l+1][i-1], e[l][2i]));
-//   down again:      the output gradient g[l] split onto each combine's
+//   up again:        the output gradient g[l] split onto each combine's
 //                    operands with weight 1, 0.5 (a tie) or 0, giving
 //                    g[l+1] and the leaves' share ge[l];
-//   up again:        ge[l+1] split onto the pairs that formed e[l+1].
+//   down again:      ge[l+1] split onto the pairs that formed e[l+1].
 // Every max there carries NaN as the forward's does. Every gradient is the
 // sum of at most two such products, so the result equals the plain
-// version's (torch autograd through the same recursion) to the bit. Shared
-// memory: 4 floats per node of the tree, < 8 per element (8 KB for a
-// 256-long ray). Bound: bytes, x and the output gradient read once, the
-// input gradient written once (3 x 25.2 MB for a (1, 128, 192, 256) float32
-// call); the tree's passes stay in shared memory.
+// version's (torch autograd through the same recursion) to the bit.
+// Design: a block of 8 warps takes a tile of 32 rays (32 channels; or 8
+// channels x 4 columns, or 32 columns, where a tensor is NCHW and the rays
+// run along H) and stages x and the output gradient in shared memory, each
+// with loads along its own unit-stride axis: channels-last maps (the
+// hourglass's direction convs on the card) and NCHW ones are read where
+// they lie, and the result is written in x's layout. Then a warp a ray:
+// lane L holds leaves 8L .. 8L + 7 (16 for rays of 257-512), so the first
+// three (four) levels are pairs inside a lane's registers; the levels above
+// hold node i in lane i and pass values by shuffles. No block-wide barrier
+// inside the tree: two a tile, around it. Bound: bytes, x and the output
+// gradient read once, the input gradient written once (3 x 151 MB for a
+// (6, 128, 192, 256) float32 call of a bs-6 CornerNet step).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -410,114 +418,377 @@ __device__ __forceinline__ float share(float a, float b, float c) {
   return a == c ? (b == c ? 0.5f : 1.f) : 0.f;
 }
 
-constexpr int kMaxLevels = 32;
+// the backward's tile: 32 rays (rc channels x 32 / rc of the other spatial
+// axis, rc fastest) by the ray's n positions, each tensor in shared memory
+// at p * 32 + (r ^ swizzle(p)): a warp reading lane L's V consecutive
+// leaves of one ray, a warp filling 32 rays' element at one position, and
+// a warp filling 32 consecutive positions of one ray all hit 32 banks
+constexpr int kRays = 32;
+constexpr int kBackwardThreads = 256;
+constexpr int kWarps = kBackwardThreads / 32;
+constexpr int kMaxRay = 512;  // 32 lanes of 16 leaves
+constexpr int kBatch = 8;     // loads in flight a thread while staging
 
-template <typename T>
-__global__ void corner_pool_backward_kernel(const T* __restrict__ x,
-                                            const T* __restrict__ grad,
-                                            T* __restrict__ out, int h,
-                                            int w, int along_w,
-                                            int backward) {
-  extern __shared__ float smem[];
-  const int rays = along_w ? h : w;
-  const int n = along_w ? w : h;
-  const long long plane = blockIdx.x / rays;
-  const int ray = static_cast<int>(blockIdx.x % rays);
-  const long long origin =
-      plane * h * w + (along_w ? ray * static_cast<long long>(w) : ray);
-  const long long step = along_w ? 1 : w;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  // level l holds len[l] = floor(n / 2^l) nodes at off[l]; the last level
-  // has one node
-  int len[kMaxLevels], off[kMaxLevels];
-  int top = 0, total = 0;
-  for (int m = n;; m >>= 1, ++top) {
-    len[top] = m;
-    off[top] = total;
-    total += m;
-    if (m < 2) break;
-  }
-  float* e = smem;          // the combines' values, per level
-  float* o = e + total;     // the scan's outputs, per level
-  float* g = o + total;     // gradients of the scan's outputs
-  float* ge = g + total;    // gradients of the level's elements
-  for (int i = tid; i < n; i += nt) {
-    const long long at = origin + (backward ? n - 1 - i : i) * step;
-    e[i] = widen(x[at]);
-    g[i] = widen(grad[at]);
-  }
-  __syncthreads();
-  for (int l = 0; l < top; ++l) {
-    for (int i = tid; i < len[l + 1]; i += nt)
-      e[off[l + 1] + i] = later_max(e[off[l] + 2 * i],
-                                     e[off[l] + 2 * i + 1]);
-    __syncthreads();
-  }
-  if (tid == 0) o[off[top]] = e[off[top]];
-  __syncthreads();
-  for (int l = top - 1; l >= 0; --l) {
-    for (int k = tid; k < len[l]; k += nt) {
-      float v;
-      if (k == 0) {
-        v = e[off[l]];
-      } else if (k & 1) {
-        v = o[off[l + 1] + (k >> 1)];
-      } else {
-        v = later_max(o[off[l + 1] + (k >> 1) - 1], e[off[l] + k]);
-      }
-      o[off[l] + k] = v;
-    }
-    __syncthreads();
-  }
-  for (int l = 0; l < top; ++l) {
-    const float* el = e + off[l];
-    const float* ol = o + off[l];
-    const float* gl = g + off[l];
-    for (int i = tid; i < len[l + 1]; i += nt) {
-      // odd output 2i + 1 is o[l+1][i], which the even output 2i + 2 also
-      // combines with e[l][2i+2]
-      float sum = gl[2 * i + 1];
-      const int k = 2 * i + 2;
-      if (k < len[l])
-        sum = __fadd_rn(sum, __fmul_rn(gl[k], share(ol[k - 1], el[k],
-                                                     ol[k])));
-      g[off[l + 1] + i] = sum;
-    }
-    for (int k = tid; k < len[l]; k += nt) {
-      float v = 0.f;
-      if (k == 0) {
-        v = gl[0];
-      } else if (!(k & 1)) {
-        v = __fmul_rn(gl[k], share(el[k], ol[k - 1], ol[k]));
-      }
-      ge[off[l] + k] = v;
-    }
-    __syncthreads();
-  }
-  if (tid == 0) ge[off[top]] = g[off[top]];
-  __syncthreads();
-  for (int l = top - 1; l >= 0; --l) {
-    for (int i = tid; i < len[l + 1]; i += nt) {
-      const float gi = ge[off[l + 1] + i], c = e[off[l + 1] + i];
-      const float a = e[off[l] + 2 * i], b = e[off[l] + 2 * i + 1];
-      float* dst = ge + off[l] + 2 * i;
-      dst[0] = __fadd_rn(dst[0], __fmul_rn(gi, share(a, b, c)));
-      dst[1] = __fadd_rn(dst[1], __fmul_rn(gi, share(b, a, c)));
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < n; i += nt)
-    narrow(ge[i], out + origin + (backward ? n - 1 - i : i) * step);
+__device__ __forceinline__ int tile_at(int p, int r) {
+  return p * kRays + (r ^ (((p >> 3) ^ ((p & 7) << 2)) & 31));
 }
 
-// nodes of the scan tree over a ray of n elements
-long long tree_nodes(int n) {
-  long long total = 0;
-  for (int m = n;; m >>= 1) {
-    total += m;
-    if (m < 2) break;
+struct Strides {
+  long long n, c, p, o;  // image, channel, along the ray, the other axis
+};
+
+// A tile's geometry: rc_n = 2^rc_log2 channels from c0, 32 / rc_n places
+// of the other axis from o0; ray r = ro * rc_n + rc. `fast` is the axis
+// along which a tensor's elements are adjacent: 0 channels, 1 the ray, 2
+// the other axis.
+struct Tile {
+  long long image;
+  int c0, o0, ch, other, n, rc_log2;
+  __device__ __forceinline__ bool has(int r) const {
+    return c0 + (r & ((1 << rc_log2) - 1)) < ch && o0 + (r >> rc_log2) < other;
   }
-  return total;
+  __device__ __forceinline__ long long ray_offset(const Strides& s,
+                                                  int r) const {
+    return image * s.n + (c0 + (r & ((1 << rc_log2) - 1))) * s.c +
+           (o0 + (r >> rc_log2)) * s.o;
+  }
+  // the ray that lane takes where a warp covers 32 rays at one position
+  __device__ __forceinline__ int lane_ray(int lane, int fast) const {
+    if (fast == 0) return lane;  // rc fastest: the ray index itself
+    const int ro_log2 = 5 - rc_log2;  // ro fastest
+    return ((lane & ((1 << ro_log2) - 1)) << rc_log2) | (lane >> ro_log2);
+  }
+};
+
+// the tile of src (global, layout s) into dst (shared), kBatch loads in
+// flight a thread: along the ray, a warp a ray and its lanes along it;
+// else a warp a position and its lanes across the 32 rays
+template <typename T>
+__device__ __forceinline__ void stage_in(const T* __restrict__ src,
+                                         const Strides& s, int fast,
+                                         const Tile& t,
+                                         float* __restrict__ dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (fast == 1) {
+    for (int r = warp; r < kRays; r += kWarps) {
+      if (!t.has(r)) continue;
+      const T* base = src + t.ray_offset(s, r);
+      for (int p0 = lane; p0 < t.n; p0 += 32 * kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int p = p0 + 32 * q;
+          v[q] = p < t.n ? widen(base[p * s.p]) : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          if (p0 + 32 * q < t.n) dst[tile_at(p0 + 32 * q, r)] = v[q];
+      }
+    }
+    return;
+  }
+  const int r = t.lane_ray(lane, fast);
+  const bool ok = t.has(r);
+  const T* base = src + (ok ? t.ray_offset(s, r) : 0);
+  for (int p0 = warp; p0 < t.n; p0 += kWarps * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int p = p0 + kWarps * q;
+      v[q] = ok && p < t.n ? widen(base[p * s.p]) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      if (p0 + kWarps * q < t.n) dst[tile_at(p0 + kWarps * q, r)] = v[q];
+  }
+}
+
+// the tile in src (shared) out to dst (global, layout s), as stage_in
+template <typename T>
+__device__ __forceinline__ void stage_out(const float* __restrict__ src,
+                                          const Strides& s, int fast,
+                                          const Tile& t,
+                                          T* __restrict__ dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (fast == 1) {
+    for (int r = warp; r < kRays; r += kWarps) {
+      if (!t.has(r)) continue;
+      T* base = dst + t.ray_offset(s, r);
+      for (int p = lane; p < t.n; p += 32)
+        narrow(src[tile_at(p, r)], base + p * s.p);
+    }
+    return;
+  }
+  const int r = t.lane_ray(lane, fast);
+  if (!t.has(r)) return;
+  T* base = dst + t.ray_offset(s, r);
+  for (int p = warp; p < t.n; p += kWarps)
+    narrow(src[tile_at(p, r)], base + p * s.p);
+}
+
+// One level of the scan tree in a lane's registers: N nodes (N = V >> j at
+// level j, the lane's nodes lane N .. lane N + N - 1), and the levels above
+// it, down to one node a lane (level S). e: the combines' values; o: the
+// scan's outputs; g: the outputs' gradients, then in place the leaves'
+// shares ge.
+template <int N>
+struct Levels {
+  float e[N], o[N], g[N];
+  Levels<N / 2> up;
+};
+template <>
+struct Levels<1> {
+  float e[1], o[1], g[1];
+};
+
+__device__ __forceinline__ Levels<1>& lane_top(Levels<1>& l) { return l; }
+template <int N>
+__device__ __forceinline__ Levels<1>& lane_top(Levels<N>& l) {
+  return lane_top(l.up);
+}
+
+__device__ __forceinline__ void combine_up(Levels<1>&) {}
+template <int N>
+__device__ __forceinline__ void combine_up(Levels<N>& l) {
+#pragma unroll
+  for (int u = 0; u < N / 2; ++u)
+    l.up.e[u] = later_max(l.e[2 * u], l.e[2 * u + 1]);
+  combine_up(l.up);
+}
+
+// o of level j (and below it) from o of level j + 1; levels at or above
+// the top keep o = e (the top's own output; nothing above it)
+__device__ __forceinline__ void outputs_down(Levels<1>&, int, int, int) {}
+template <int N>
+__device__ __forceinline__ void outputs_down(Levels<N>& l, int j, int top,
+                                             int lane) {
+  outputs_down(l.up, j + 1, top, lane);
+  const float prev = __shfl_up_sync(kFull, l.up.o[N / 2 - 1], 1);
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    float v;
+    if (u & 1)
+      v = l.up.o[u >> 1];
+    else if (u == 0)
+      v = lane == 0 ? l.e[0] : later_max(prev, l.e[0]);
+    else
+      v = later_max(l.up.o[u == 0 ? 0 : (u >> 1) - 1], l.e[u]);
+    l.o[u] = j < top ? v : l.e[u];
+  }
+}
+
+// g of level j + 1 from g of level j, whose nodes then take their leaf
+// shares, and so on up to level S
+__device__ __forceinline__ void grads_up(Levels<1>&, int, int, int) {}
+template <int N>
+__device__ __forceinline__ void grads_up(Levels<N>& l, int j, int n,
+                                         int lane) {
+  const int len = n >> j;
+  const float prev = __shfl_up_sync(kFull, l.o[N - 1], 1);
+  float term[N], leaf[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const float before = u == 0 ? prev : l.o[u == 0 ? 0 : u - 1];
+    term[u] = __fmul_rn(l.g[u], share(before, l.e[u], l.o[u]));
+    leaf[u] = (u & 1) ? 0.f
+              : (u == 0 && lane == 0)
+                  ? l.g[0]
+                  : __fmul_rn(l.g[u], share(l.e[u], before, l.o[u]));
+  }
+  const float next = __shfl_down_sync(kFull, term[0], 1);
+#pragma unroll
+  for (int u = 0; u < N / 2; ++u) {
+    const int i = lane * (N / 2) + u;
+    const float t = 2 * u + 2 < N ? term[2 * u + 2 < N ? 2 * u + 2 : 0]
+                                  : next;
+    l.up.g[u] = 2 * i + 2 < len ? __fadd_rn(l.g[2 * u + 1], t)
+                                : l.g[2 * u + 1];
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) l.g[u] = leaf[u];
+  grads_up(l.up, j + 1, n, lane);
+}
+
+// each pair's share at level j + 1 split onto its two nodes at level j
+__device__ __forceinline__ void shares_down(Levels<1>&, int, int, int,
+                                            int) {}
+template <int N>
+__device__ __forceinline__ void shares_down(Levels<N>& l, int j, int n,
+                                            int top, int lane) {
+  shares_down(l.up, j + 1, n, top, lane);
+  const int paired = 2 * (n >> (j + 1));
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+    if (j < top && lane * N + u < paired)
+      l.g[u] = __fadd_rn(l.g[u], __fmul_rn(l.up.g[u >> 1], share(
+                                     l.e[u], l.e[u ^ 1], l.up.e[u >> 1])));
+}
+
+// One ray of n leaves in scan order (n <= 32 V), lane L holding leaves
+// V L .. V L + V - 1 in l.e (x) and l.g (the output gradient): l.g becomes
+// the gradient in x of sum(scan_max(x) * g). Levels 0..S (V = 2^S) are in
+// each lane's registers (a level-j node's two children are in its lane);
+// levels S..S+5 hold node i in lane i.
+template <int S>
+__device__ __forceinline__ void ray_backward(Levels<(1 << S)>& l, int n,
+                                             int lane) {
+  constexpr int kCross = 6;  // levels S .. S + 5: 32 V >> 5 ... 1 nodes
+  float ex[kCross], ox[kCross], gx[kCross];
+  const int top = 31 - __clz(n);  // len_j = n >> j, len_top = 1
+  Levels<1>& mid = lane_top(l);
+  combine_up(l);
+  ex[0] = mid.e[0];
+#pragma unroll
+  for (int x = 0; x < kCross - 1; ++x)
+    ex[x + 1] = later_max(__shfl_sync(kFull, ex[x], 2 * lane),
+                          __shfl_sync(kFull, ex[x], 2 * lane + 1));
+#pragma unroll
+  for (int x = 0; x < kCross; ++x) ox[x] = ex[x];  // the top's own value
+#pragma unroll
+  for (int x = kCross - 2; x >= 0; --x) {
+    const float odd = __shfl_sync(kFull, ox[x + 1], lane >> 1);
+    const float even =
+        __shfl_sync(kFull, ox[x + 1], max((lane >> 1) - 1, 0));
+    if (S + x < top)
+      ox[x] = lane == 0 ? ex[x] : (lane & 1) ? odd : later_max(even, ex[x]);
+  }
+  mid.o[0] = ox[0];
+  outputs_down(l, 0, top, lane);
+  grads_up(l, 0, n, lane);
+  gx[0] = mid.g[0];
+#pragma unroll
+  for (int x = 0; x < kCross; ++x) {
+    const int len = n >> (S + x);
+    const float before = __shfl_up_sync(kFull, ox[x], 1);
+    const float term = __fmul_rn(gx[x], share(before, ex[x], ox[x]));
+    const float leaf = lane == 0 ? gx[x]
+                       : (lane & 1) ? 0.f
+                                    : __fmul_rn(gx[x],
+                                                share(ex[x], before, ox[x]));
+    if (x + 1 < kCross) {
+      const float a = __shfl_sync(kFull, gx[x], 2 * lane + 1);
+      const float t = __shfl_sync(kFull, term, 2 * lane + 2);
+      if (S + x < top) gx[x + 1] = 2 * lane + 2 < len ? __fadd_rn(a, t) : a;
+    }
+    gx[x] = leaf;
+  }
+#pragma unroll
+  for (int x = kCross - 2; x >= 0; --x) {
+    const float gp = __shfl_sync(kFull, gx[x + 1], lane >> 1);
+    const float c = __shfl_sync(kFull, ex[x + 1], lane >> 1);
+    const float sib = __shfl_sync(kFull, ex[x], lane ^ 1);
+    if (S + x < top && lane < 2 * (n >> (S + x + 1)))
+      gx[x] = __fadd_rn(gx[x], __fmul_rn(gp, share(ex[x], sib, c)));
+  }
+  mid.g[0] = gx[0];
+  shares_down(l, 0, n, top, lane);
+}
+
+// One block a tile of 32 rays of one image: x and the output gradient
+// staged in shared memory along each tensor's unit-stride axis (x_fast,
+// g_fast), a warp a ray for the tree, the result written over x's tile and
+// stored in x's layout. `other` is the size of the axis across the rays
+// besides C. Rays up to 256 fit in 80 registers a thread, so three blocks
+// (64 KB of shared memory each) share an SM, faster than two on the
+// CornerNet step's calls.
+template <typename T, int S>
+__global__ void __launch_bounds__(kBackwardThreads, S == 3 ? 3 : 1)
+    corner_pool_backward_kernel(const T* __restrict__ x,
+                                const T* __restrict__ grad,
+                                T* __restrict__ out, Strides xs, Strides gs,
+                                int ch, int other, int n, int rc_log2,
+                                int x_fast, int g_fast, int backward) {
+  extern __shared__ float tile[];
+  float* tx = tile;
+  float* tg = tile + static_cast<size_t>(n) * kRays;
+  const int c_tiles = (ch + (1 << rc_log2) - 1) >> rc_log2;
+  const int ro_n = kRays >> rc_log2;
+  const int o_tiles = (other + ro_n - 1) / ro_n;
+  const long long per_image = static_cast<long long>(c_tiles) * o_tiles;
+  const int rest = static_cast<int>(blockIdx.x % per_image);
+  const Tile t{blockIdx.x / per_image, (rest / o_tiles) << rc_log2,
+               (rest % o_tiles) * ro_n, ch, other, n, rc_log2};
+  stage_in(x, xs, x_fast, t, tx);
+  stage_in(grad, gs, g_fast, t, tg);
+  __syncthreads();
+  constexpr int V = 1 << S;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kRays; r += kWarps) {
+    if (!t.has(r)) continue;  // the whole warp: a ray is a warp's
+    Levels<V> l;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int q = lane * V + v;
+      const int p = backward ? n - 1 - q : q;
+      l.e[v] = q < n ? tx[tile_at(p, r)] : -INFINITY;
+      l.g[v] = q < n ? tg[tile_at(p, r)] : 0.f;
+    }
+    ray_backward<S>(l, n, lane);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int q = lane * V + v;
+      if (q < n) tx[tile_at(backward ? n - 1 - q : q, r)] = l.g[v];
+    }
+  }
+  __syncthreads();
+  stage_out(tx, xs, x_fast, t, out);
+}
+
+template <typename T, int S>
+cudaError_t backward_launch(const T* x, const T* grad, T* out,
+                            const Strides& xs, const Strides& gs, int images,
+                            int ch, int other, int n, int rc_log2,
+                            int x_fast, int g_fast, int backward,
+                            cudaStream_t st) {
+  const size_t smem = 2 * sizeof(float) * kRays * static_cast<size_t>(n);
+  auto kernel = corner_pool_backward_kernel<T, S>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int ro_n = kRays >> rc_log2;
+  const long long blocks = static_cast<long long>(images) *
+                           ((ch + (1 << rc_log2) - 1) >> rc_log2) *
+                           ((other + ro_n - 1) / ro_n);
+  kernel<<<static_cast<unsigned>(blocks), kBackwardThreads, smem, st>>>(
+      x, grad, out, xs, gs, ch, other, n, rc_log2, x_fast, g_fast, backward);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t corner_pool_backward_launch(const T* x, const T* grad, T* out,
+                                        const long long* x_strides,
+                                        const long long* g_strides,
+                                        int images, int ch, int h, int w,
+                                        int along_w, int backward,
+                                        cudaStream_t st) {
+  const int n = along_w ? w : h, other = along_w ? h : w;
+  // strides (n, c, h, w) of each tensor, as ray (p) and other axis (o)
+  auto strides = [along_w](const long long* s) {
+    return Strides{s[0], s[1], along_w ? s[3] : s[2], along_w ? s[2] : s[3]};
+  };
+  const Strides xs = strides(x_strides), gs = strides(g_strides);
+  auto fast = [](const Strides& s) {
+    return s.c == 1 ? 0 : s.p == 1 ? 1 : 2;
+  };
+  const int x_fast = fast(xs), g_fast = fast(gs);
+  // channels a tile: 32 where every tensor reads whole lines along C or
+  // along the ray, 1 where both read along the other axis, 8 (32-byte
+  // pieces of both) where one reads along C and one along the other axis;
+  // never more than C rounds up to
+  int rc_log2 = 5;
+  if (x_fast == 2 && g_fast == 2)
+    rc_log2 = 0;
+  else if (x_fast == 2 || g_fast == 2)
+    rc_log2 = 3;
+  while (rc_log2 > 0 && (1 << (rc_log2 - 1)) >= ch) --rc_log2;
+  if (n <= 256)
+    return backward_launch<T, 3>(x, grad, out, xs, gs, images, ch, other, n,
+                                 rc_log2, x_fast, g_fast, backward, st);
+  return backward_launch<T, 4>(x, grad, out, xs, gs, images, ch, other, n,
+                               rc_log2, x_fast, g_fast, backward, st);
 }
 
 }  // namespace
@@ -566,45 +837,37 @@ extern "C" int erd_corner_pool_nhwc(const void* x, void* out, int n, int ch,
   return static_cast<int>(err);
 }
 
-// x, grad and out (planes, h, w), float32 or bf16 (is_bf16); along_w and
+// x, grad and out (images, ch, h, w), float32 or bf16 (is_bf16), each
+// NCHW or channels-last as its strides (x_strides, g_strides: 4 element
+// strides in n, c, h, w order) say; out has x's strides. along_w and
 // backward as erd_corner_pool's. out receives the gradient in x of
 // sum(corner_pool(x) * grad). Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for a ray whose tree exceeds shared memory.
+// or cudaErrorInvalidValue for a ray longer than 512.
 extern "C" int erd_corner_pool_backward(const void* x, const void* grad,
-                                        void* out, int planes, int h, int w,
+                                        void* out,
+                                        const long long* x_strides,
+                                        const long long* g_strides,
+                                        int images, int ch, int h, int w,
                                         int along_w, int backward,
                                         int is_bf16, void* stream) {
-  const long long rays =
-      static_cast<long long>(planes) * (along_w ? h : w);
-  if (rays <= 0 || h <= 0 || w <= 0) return 0;
-  const size_t smem = 4 * sizeof(float) * tree_nodes(along_w ? w : h);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
+  if (images <= 0 || ch <= 0 || h <= 0 || w <= 0) return 0;
+  if ((along_w ? w : h) > kMaxRay)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
+  cudaError_t err;
   if (is_bf16) {
-    auto kernel = corner_pool_backward_kernel<__nv_bfloat16>;
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(rays), threads, smem, st>>>(
+    err = corner_pool_backward_launch<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(grad),
-        static_cast<__nv_bfloat16*>(out), h, w, along_w, backward);
+        static_cast<__nv_bfloat16*>(out), x_strides, g_strides, images, ch,
+        h, w, along_w, backward, st);
   } else {
-    auto kernel = corner_pool_backward_kernel<float>;
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(rays), threads, smem, st>>>(
+    err = corner_pool_backward_launch<float>(
         static_cast<const float*>(x), static_cast<const float*>(grad),
-        static_cast<float*>(out), h, w, along_w, backward);
+        static_cast<float*>(out), x_strides, g_strides, images, ch, h, w,
+        along_w, backward, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" const char* erd_cuda_error_string(int err) {

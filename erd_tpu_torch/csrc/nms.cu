@@ -11,190 +11,352 @@
 //     alive[j] = valid[j] && !exists i < j: sup[i, j] && alive[i]
 // was solved as a Jacobi fixpoint of (K)x(K, K) 0/1 products on the MXU over
 // a dense bf16 suppression matrix. Here it is the bitmask form of the same
-// recursion, in two launches per batch:
-//   1. nms_mask_kernel, grid (ceil(K/64), ceil(K/64), B), 64 threads: each
-//      block stages 64 column boxes in shared memory; thread r writes the
-//      64-bit word of row i = 64 * blockIdx.y + r for that column block:
-//      bit j set <=> j > i && valid[i] && iou(i, j) > thr, and for set-NMS
-//      && group[i] != group[j] (the column block's groups are staged beside
-//      its boxes; a null `group` is plain NMS). Blocks below the diagonal
-//      are never read and exit at once.
-//   2. nms_reduce_kernel, one block per image: walks the sorted rows in
-//      tiles of 64. The block stages the tile's mask words right of the
-//      diagonal in shared memory; one thread resolves the tile's 64 rows
-//      serially against the diagonal word in a register (a row lives if it
-//      is valid and its `removed` bit is clear, and then removes the bits of
-//      its diagonal word); then every thread ORs the live rows' words into
-//      its share of the later `removed` words, and the tile's keep bits are
-//      scattered back to the caller's original order through `order`.
+// recursion, in two launches per batch (two C entry points, so that each
+// can be timed alone):
+//   1. nms_mask_kernel (`erd_nms_mask`), a block of 64 threads per pair of
+//      64-box tiles (row tile r, column tile c >= r) of the upper triangle
+//      and image: the block stages the column tile's boxes, areas, groups
+//      and their span (the least x1, y1 and the largest x2, y2) in shared
+//      memory; thread t owns row i = 64 r + t and its 64-bit word for the
+//      column tile: bit j set <=> j > i && valid[i] && iou(i, j) > thr,
+//      and for set-NMS && group[i] != group[j] (a null `group` is plain
+//      NMS). A row whose box misses the span skips the tile, and a pair
+//      whose overlap is zero skips the division. The word is stored only
+//      where it is nonzero, or on the diagonal; each warp's ballot of its
+//      rows' nonzero words goes to nz[image][r][c], the bitmap of the rows
+//      whose word for tile c is nonzero.
+//   2. nms_reduce_kernel (`erd_nms_reduce`), one block of 4 warps per
+//      image, walks the sorted rows a tile at a time. Warp 0 resolves the
+//      tile against its diagonal words, held in registers, loaded a tile
+//      ahead: it jumps from one live row with a nonzero diagonal word to
+//      the next (the rows between have none and live if not removed),
+//      taking the words by shuffles, and scatters the tile's keep bits to
+//      the caller's original order through `order`. Then the block ORs,
+//      into `removed`, the words of the live rows that nz marks nonzero,
+//      thread w % 128 owning word w; nz's row for the next tile is on its
+//      way into shared memory meanwhile (cp.async). Two barriers a tile.
 // The caller (erd_tpu_torch/ops/nms.py) does the stable descending sort, the
-// gather and the class offset (set-NMS is class-agnostic). K is a runtime
-// argument (2000 at predict and in CrowdDet's set-NMS, 4481 in the ERD
-// distillation NMS; up to about 28,000, where one tile of mask words fills
-// the 227 KB of shared memory).
+// gather and the class offset (set-NMS is class-agnostic). K and B are
+// runtime arguments, any K >= 1 (the callers pass 2000 at predict and in
+// CrowdDet's set-NMS, 4819 at the Faster R-CNN RPN's predict, 8819 at its
+// training call at bs 16, 1024 and 4481 in the ERD distillation NMS at bs
+// 16); the reduce's shared memory, 24 bytes a tile, takes K up to ~600,000.
 //
 // Exactness: the IoU is computed op for op as the reference does, every op
 // rounded on its own (__fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn, and
 // the library is built with -fmad=false): area = max(x2-x1,0)*max(y2-y1,0),
 // union = max((a_i + a_j) - ov, 1e-6), iou = ov / union, then a strict `>`.
 // An FMA contraction of (a_i + a_j) - iw*ih would flip keep bits at the
-// threshold.
+// threshold. The shortcuts give the division's answer exactly:
+//   - ov == 0: iou is +-0 (union >= 1e-6), so the bit is `0 > thr`;
+//   - a row box that misses the tile's span (row x2 <= least column x1,
+//     ...) has iw or ih 0 with every column, and the bit is 0 when
+//     thr >= 0; the span is NaN where a coordinate is NaN (no skip), and
+//     thr < 0 or NaN skips nothing;
+//   - for 1e-30 <= thr, p = thr * union rounded: ov < p * 0.99999 (rounded)
+//     implies ov / union < thr, so the rounded quotient is <= thr; ov >
+//     p * 1.00001 implies a quotient above thr by 5e-6 of it, 40 ulps;
+//     only the pairs between divide.
 //
-// Bound on this card: the work is K^2/2 IoUs (about 14 fp32 operations each,
-// 28 MFLOP per image at K = 2000) and tens of KB of traffic, a roofline of
-// well under a microsecond. What bounds the kernel in practice is the greedy
-// recursion, which is serial in the rows. A first version walked all K rows
-// with one warp and read each kept row's words from device memory: 0.80 ms
-// at K = 2000, latency of dependent loads. This version keeps the serial
-// part to one register and shared memory: per tile, 64 cheap serial steps
-// in one thread, then a parallel OR over the later words, with the tile's
-// words brought in by one coalesced load of the whole block.
+// Bound on this card: the work is K^2/2 IoUs (about 14 fp32 operations each)
+// and the boxes read once: 0.13 ms at the RPN's training call (16 images at
+// K = 8819), 0.0004 ms at K = 2000. The bitmask launch is bound by its
+// instructions: most pairs are disjoint (the RPN's levels and the classes
+// are offset apart), so most take the cheap path. The reduce is
+// latency-bound: one image is a serial chain of K / 64 tiles, each a
+// resolve and one round of dependent loads (the live rows' nonzero words),
+// which the design keeps short.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kTile = 64;
+constexpr int kReduceThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float box_area(float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f),
                    fmaxf(__fsub_rn(b.w, b.y), 0.f));
 }
 
-__global__ void nms_mask_kernel(const float4* __restrict__ boxes,
-                                const uint8_t* __restrict__ valid,
-                                const int64_t* __restrict__ group, int k,
-                                int words, float thr,
-                                unsigned long long* __restrict__ mask) {
-  const int row_block = blockIdx.y;
-  const int col_block = blockIdx.x;
-  if (col_block < row_block) return;  // lower triangle: never read
-  const size_t b = blockIdx.z;
-  const int row_start = row_block * kTile;
-  const int col_start = col_block * kTile;
+// min / max that give NaN when either operand is NaN
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? NAN : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? NAN : fmaxf(a, b);
+}
+
+// the (row tile, column tile) of upper-triangle entry p of a words x words
+// grid of tiles, rows in order: row r starts at r * words - r (r - 1) / 2
+__device__ __forceinline__ void tile_pair(long long p, int words, int& r,
+                                          int& c) {
+  const double w2 = 2.0 * words + 1.0;
+  int row = static_cast<int>((w2 - sqrt(w2 * w2 - 8.0 * p)) * 0.5);
+  auto start = [words](long long q) {
+    return q * words - q * (q - 1) / 2;
+  };
+  row = max(0, min(row, words - 1));
+  while (row > 0 && start(row) > p) --row;
+  while (row + 1 < words && start(row + 1) <= p) ++row;
+  r = row;
+  c = row + static_cast<int>(p - start(row));
+}
+
+__global__ void __launch_bounds__(kTile)
+    nms_mask_kernel(const float4* __restrict__ boxes,
+                    const uint8_t* __restrict__ valid,
+                    const int64_t* __restrict__ group, int k, int words,
+                    float thr, unsigned long long* __restrict__ mask,
+                    unsigned* __restrict__ nz) {
+  int row_tile, col_tile;
+  tile_pair(blockIdx.x, words, row_tile, col_tile);
+  const size_t b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int row_start = row_tile * kTile;
+  const int col_start = col_tile * kTile;
   const int rows = min(k - row_start, kTile);
   const int cols = min(k - col_start, kTile);
   const float4* bb = boxes + b * k;
+  const int64_t* gb = group == nullptr ? nullptr : group + b * k;
 
   __shared__ float4 col_box[kTile];
   __shared__ float col_area[kTile];
   __shared__ int64_t col_group[kTile];
-  const int64_t* gb = group == nullptr ? nullptr : group + b * k;
-  if (threadIdx.x < cols) {
-    const float4 c = bb[col_start + threadIdx.x];
-    col_box[threadIdx.x] = c;
-    col_area[threadIdx.x] = box_area(c);
-    if (gb != nullptr) col_group[threadIdx.x] = gb[col_start + threadIdx.x];
+  __shared__ float4 span_part[kTile / 32];
+  float4 lo_hi = make_float4(INFINITY, INFINITY, -INFINITY, -INFINITY);
+  if (tid < cols) {
+    const float4 c = bb[col_start + tid];
+    col_box[tid] = c;
+    col_area[tid] = box_area(c);
+    if (gb != nullptr) col_group[tid] = gb[col_start + tid];
+    lo_hi = c;
   }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    lo_hi.x = nan_min(lo_hi.x, __shfl_xor_sync(kFull, lo_hi.x, s));
+    lo_hi.y = nan_min(lo_hi.y, __shfl_xor_sync(kFull, lo_hi.y, s));
+    lo_hi.z = nan_max(lo_hi.z, __shfl_xor_sync(kFull, lo_hi.z, s));
+    lo_hi.w = nan_max(lo_hi.w, __shfl_xor_sync(kFull, lo_hi.w, s));
+  }
+  if ((tid & 31) == 0) span_part[tid >> 5] = lo_hi;
   __syncthreads();
-  if (threadIdx.x >= rows) return;
+  const float4 s0 = span_part[0], s1 = span_part[1];
+  const float4 span = make_float4(nan_min(s0.x, s1.x), nan_min(s0.y, s1.y),
+                                  nan_max(s0.z, s1.z), nan_max(s0.w, s1.w));
 
-  const int i = row_start + threadIdx.x;
+  const bool zero_gt = 0.f > thr;  // the bit of a pair with no overlap
+  const bool filter = thr >= 1e-30f;
+  const int i = row_start + tid;
   unsigned long long bits = 0ULL;
-  if (valid[b * k + i]) {
+  if (tid < rows && valid[b * k + i]) {
     const float4 r = bb[i];
-    const float ra = box_area(r);
-    const int64_t rg = gb != nullptr ? gb[i] : 0;
-    const int j0 = (row_block == col_block) ? threadIdx.x + 1 : 0;
-    for (int j = j0; j < cols; ++j) {
-      const float4 c = col_box[j];
-      const float iw =
-          fmaxf(__fsub_rn(fminf(r.z, c.z), fmaxf(r.x, c.x)), 0.f);
-      const float ih =
-          fmaxf(__fsub_rn(fminf(r.w, c.w), fmaxf(r.y, c.y)), 0.f);
-      const float ov = __fmul_rn(iw, ih);
-      const float uni = fmaxf(__fsub_rn(__fadd_rn(ra, col_area[j]), ov), 1e-6f);
-      if (__fdiv_rn(ov, uni) > thr && (gb == nullptr || col_group[j] != rg))
-        bits |= 1ULL << j;
+    const bool misses = r.z <= span.x || r.x >= span.z || r.w <= span.y ||
+                        r.y >= span.w;
+    if (zero_gt || !misses) {
+      const float ra = box_area(r);
+      const int64_t rg = gb != nullptr ? gb[i] : 0;
+      const int j0 = (row_tile == col_tile) ? tid + 1 : 0;
+      for (int j = j0; j < cols; ++j) {
+        const float4 c = col_box[j];
+        const float iw =
+            fmaxf(__fsub_rn(fminf(r.z, c.z), fmaxf(r.x, c.x)), 0.f);
+        const float ih =
+            fmaxf(__fsub_rn(fminf(r.w, c.w), fmaxf(r.y, c.y)), 0.f);
+        const float ov = __fmul_rn(iw, ih);
+        bool hit = zero_gt;
+        if (ov != 0.f) {
+          const float uni =
+              fmaxf(__fsub_rn(__fadd_rn(ra, col_area[j]), ov), 1e-6f);
+          const float p = __fmul_rn(thr, uni);
+          if (filter && ov < __fmul_rn(p, 0.99999f)) {
+            hit = false;
+          } else if (filter && ov > __fmul_rn(p, 1.00001f)) {
+            hit = true;
+          } else {
+            hit = __fdiv_rn(ov, uni) > thr;
+          }
+        }
+        if (hit && (gb == nullptr || col_group[j] != rg)) bits |= 1ULL << j;
+      }
     }
   }
-  mask[(b * k + i) * words + col_block] = bits;
+  if (tid < rows && (bits != 0ULL || row_tile == col_tile))
+    mask[(b * k + i) * words + col_tile] = bits;
+  const unsigned ballot = __ballot_sync(kFull, bits != 0ULL);
+  if ((tid & 31) == 0)
+    nz[((b * words + row_tile) * words + col_tile) * 2 + (tid >> 5)] = ballot;
 }
 
-__global__ void nms_reduce_kernel(const unsigned long long* __restrict__ mask,
-                                  const uint8_t* __restrict__ valid,
-                                  const int64_t* __restrict__ order, int k,
-                                  int words, uint8_t* __restrict__ keep) {
-  // shared: removed[words], then the tile's words tile[64][words - t]
+__global__ void __launch_bounds__(kReduceThreads)
+    nms_reduce_kernel(const unsigned long long* __restrict__ mask,
+                      const unsigned long long* __restrict__ nz,
+                      const uint8_t* __restrict__ valid,
+                      const int64_t* __restrict__ order, int k, int words,
+                      uint8_t* __restrict__ keep) {
+  // shared: removed[words], then nz's rows of two tiles, nz_row[2][words]
   extern __shared__ unsigned long long smem[];
   unsigned long long* removed = smem;
-  unsigned long long* tile = smem + words;
+  unsigned long long* nz_row = smem + words;
   __shared__ unsigned long long live_bits;
-  __shared__ uint8_t tile_valid[kTile];
   const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   const unsigned long long* mb = mask + b * k * words;
+  const unsigned long long* zb = nz + b * words * words;
   const uint8_t* vb = valid + b * k;
   const int64_t* ob = order + b * k;
   uint8_t* kb = keep + b * k;
-  for (int w = threadIdx.x; w < words; w += blockDim.x) removed[w] = 0ULL;
+  for (int w = tid; w < words; w += kReduceThreads) removed[w] = 0ULL;
+  // nz's row of tile t, words right of the diagonal, into buffer t & 1
+  auto fetch_row = [&](int t) {
+    if (t < words) {
+      unsigned long long* dst = nz_row + (t & 1) * words;
+      for (int w = t + 1 + tid; w < words; w += kReduceThreads)
+        __pipeline_memcpy_async(dst + w, zb + static_cast<size_t>(t) * words
+                                             + w, sizeof(unsigned long long));
+    }
+    __pipeline_commit();
+  };
+  // warp 0's registers for one tile: its rows' diagonal words, valid
+  // flags and original indices, lanes holding rows lane and lane + 32
+  unsigned long long d0 = 0, d1 = 0;
+  int v0 = 0, v1 = 0;
+  int64_t o0 = 0, o1 = 0;
+  auto load_tile = [&](int t, unsigned long long& a0, unsigned long long& a1,
+                       int& f0, int& f1, int64_t& p0, int64_t& p1) {
+    const int row0 = t * kTile;
+    const int rows = min(k - row0, kTile);
+    a0 = a1 = 0ULL;
+    f0 = f1 = 0;
+    if (lane < rows) {
+      a0 = mb[static_cast<size_t>(row0 + lane) * words + t];
+      f0 = vb[row0 + lane];
+      p0 = ob[row0 + lane];
+    }
+    if (lane + 32 < rows) {
+      a1 = mb[static_cast<size_t>(row0 + lane + 32) * words + t];
+      f1 = vb[row0 + lane + 32];
+      p1 = ob[row0 + lane + 32];
+    }
+  };
+  fetch_row(0);
+  if (tid < 32) load_tile(0, d0, d1, v0, v1, o0, o1);
+  __syncthreads();  // removed[] zeroed
 
   for (int t = 0; t < words; ++t) {
     const int row0 = t * kTile;
     const int rows = min(k - row0, kTile);
-    const int ncols = words - t;  // words t .. words-1 of each tile row
-    __syncthreads();  // removed[] of the previous tile is complete
-    for (int e = threadIdx.x; e < rows * ncols; e += blockDim.x) {
-      const int r = e / ncols;
-      const int c = e - r * ncols;
-      tile[e] = mb[(size_t)(row0 + r) * words + t + c];
-    }
-    if (threadIdx.x < rows) tile_valid[threadIdx.x] = vb[row0 + threadIdx.x];
-    __syncthreads();
-    if (threadIdx.x == 0) {
+    fetch_row(t + 1);
+    if (tid < 32) {
+      unsigned long long n0 = 0, n1 = 0;
+      int nv0 = 0, nv1 = 0;
+      int64_t no0 = 0, no1 = 0;
+      if (t + 1 < words) load_tile(t + 1, n0, n1, nv0, nv1, no0, no1);
+      const unsigned long long vbits =
+          static_cast<unsigned long long>(__ballot_sync(kFull, v0 != 0)) |
+          (static_cast<unsigned long long>(__ballot_sync(kFull, v1 != 0))
+           << 32);
+      const unsigned long long nzd =
+          static_cast<unsigned long long>(__ballot_sync(kFull, d0 != 0)) |
+          (static_cast<unsigned long long>(__ballot_sync(kFull, d1 != 0))
+           << 32);
       unsigned long long rem = removed[t];
+      unsigned long long cand = vbits & ~rem;
       unsigned long long live = 0ULL;
-      for (int r = 0; r < rows; ++r) {
-        if (tile_valid[r] && !((rem >> r) & 1ULL)) {
-          live |= 1ULL << r;
-          rem |= tile[r * ncols];
+      while (true) {
+        const unsigned long long next = cand & nzd;
+        if (next == 0ULL) {
+          live |= cand;
+          break;
         }
+        const int p = __ffsll(static_cast<long long>(next)) - 1;
+        const unsigned long long upto = p == 63 ? ~0ULL : (2ULL << p) - 1;
+        live |= cand & upto;  // rows before p have no diagonal word
+        rem |= __shfl_sync(kFull, p < 32 ? d0 : d1, p & 31);
+        cand = vbits & ~rem & ~upto;
       }
-      removed[t] = rem;
-      live_bits = live;
+      if (lane < rows) kb[o0] = (live >> lane) & 1ULL;
+      if (lane + 32 < rows) kb[o1] = (live >> (lane + 32)) & 1ULL;
+      if (lane == 0) live_bits = live;
+      d0 = n0, d1 = n1, v0 = nv0, v1 = nv1, o0 = no0, o1 = no1;
     }
+    __pipeline_wait_prior(1);  // this tile's nz row is in
     __syncthreads();
     const unsigned long long live = live_bits;
-    for (int c = 1 + threadIdx.x; c < ncols; c += blockDim.x) {
-      unsigned long long acc = removed[t + c];
-      for (int r = 0; r < rows; ++r)
-        if ((live >> r) & 1ULL) acc |= tile[r * ncols + c];
-      removed[t + c] = acc;
+    if (live != 0ULL) {
+      const unsigned long long* row_nz = nz_row + (t & 1) * words;
+      for (int w = t + 1 + tid; w < words; w += kReduceThreads) {
+        unsigned long long m = row_nz[w] & live;
+        if (m == 0ULL) continue;
+        unsigned long long acc = 0ULL;
+        while (m != 0ULL) {
+          unsigned long long v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            v[q] = 0ULL;
+            if (m != 0ULL) {
+              const int r = __ffsll(static_cast<long long>(m)) - 1;
+              m &= m - 1;
+              v[q] = mb[static_cast<size_t>(row0 + r) * words + w];
+            }
+          }
+          acc |= v[0] | v[1] | v[2] | v[3];
+        }
+        removed[w] |= acc;
+      }
     }
-    if (threadIdx.x < rows)
-      kb[ob[row0 + threadIdx.x]] = ((live >> threadIdx.x) & 1ULL) ? 1 : 0;
+    __syncthreads();  // removed[t + 1] complete; this tile's buffer free
   }
 }
 
 }  // namespace
 
-// boxes (B, K, 4) fp32 sorted and class-shifted; valid (B, K) uint8 sorted;
-// group null (NMS) or (B, K) int64 sorted group ids (set-NMS);
-// order (B, K) int64, order[b, i] = original index of sorted entry i;
-// mask (B, K, ceil(K/64)) uint64 scratch; keep (B, K) uint8 out, original
-// order. Returns cudaGetLastError() after the two launches.
-extern "C" int erd_nms_keep(const void* boxes, const void* valid,
-                            const void* group, const void* order, void* mask,
-                            void* keep, int batch, int k, float thr,
-                            void* stream) {
+// Launch 1. boxes (B, K, 4) fp32 sorted and class-shifted; valid (B, K)
+// uint8 sorted; group null (NMS) or (B, K) int64 sorted group ids
+// (set-NMS); mask (B, K, ceil(K/64)) uint64 scratch, written where nonzero
+// and on the diagonal; nz (B, ceil(K/64), ceil(K/64)) uint64 scratch, its
+// upper triangle written. Returns cudaGetLastError() after the launch.
+extern "C" int erd_nms_mask(const void* boxes, const void* valid,
+                            const void* group, void* mask, void* nz,
+                            int batch, int k, float thr, void* stream) {
   if (batch <= 0 || k <= 0) return 0;
   const int words = (k + kTile - 1) / kTile;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(words, words, batch);
-  nms_mask_kernel<<<grid, kTile, 0, s>>>(
+  const long long pairs = static_cast<long long>(words) * (words + 1) / 2;
+  if (pairs > 0x7fffffffLL || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  nms_mask_kernel<<<dim3(static_cast<unsigned>(pairs), batch), kTile, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
       static_cast<const int64_t*>(group), k, words, thr,
-      static_cast<unsigned long long*>(mask));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(unsigned long long) * (words + kTile * words);
+      static_cast<unsigned long long*>(mask), static_cast<unsigned*>(nz));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch 2, after erd_nms_mask on the same stream: mask and nz as it wrote
+// them; valid as there; order (B, K) int64, order[b, i] = original index of
+// sorted entry i; keep (B, K) uint8 out, original order. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue where K
+// needs more shared memory than a block has.
+extern "C" int erd_nms_reduce(const void* mask, const void* nz,
+                              const void* valid, const void* order,
+                              void* keep, int batch, int k, void* stream) {
+  if (batch <= 0 || k <= 0) return 0;
+  const int words = (k + kTile - 1) / kTile;
+  const size_t smem = 3 * sizeof(unsigned long long) * words;
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(nms_reduce_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  nms_reduce_kernel<<<batch, 128, smem, s>>>(
+  nms_reduce_kernel<<<batch, kReduceThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned long long*>(mask),
+      static_cast<const unsigned long long*>(nz),
       static_cast<const uint8_t*>(valid), static_cast<const int64_t*>(order),
       k, words, static_cast<uint8_t*>(keep));
   return static_cast<int>(cudaGetLastError());

@@ -218,6 +218,21 @@ def corner_pool_backward_plain(x, grad, direction):
     return g.to(x.dtype)
 
 
+def _element_strides(t):
+    """(t, its (n, c, h, w) element strides): an NCHW or channels-last map
+    as it lies, any other layout copied to NCHW."""
+    b, c, h, w = t.shape
+    if t.is_contiguous():
+        return t, (c * h * w, h * w, w, 1)
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return t, (h * w * c, 1, w * c, c)
+    return t.contiguous(), (c * h * w, h * w, w, 1)
+
+
+# the longest ray the backward kernel takes (32 lanes of 16 leaves)
+MAX_BACKWARD_RAY = 512
+
+
 def corner_pool_backward(x, grad, direction):
     """Gradient of ``corner_pool`` in x: x and grad (B, C, H, W) of one
     dtype (float32 or bfloat16) -> (B, C, H, W) in that dtype, summed in
@@ -225,7 +240,9 @@ def corner_pool_backward(x, grad, direction):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     ``erd_corner_pool_backward`` (one launch a call, counted in
-    ``corner_pool_backward.launches``).
+    ``corner_pool_backward.launches``), which reads NCHW and channels-last
+    x and grad where they lie and writes the result in x's layout; rays
+    longer than ``MAX_BACKWARD_RAY`` raise.
     """
     dim, backward = _check(x, direction)
     if grad.shape != x.shape:
@@ -233,17 +250,24 @@ def corner_pool_backward(x, grad, direction):
                          f'for x {tuple(x.shape)}')
     if x.device.type == 'cpu':
         return corner_pool_backward_plain(x, grad, direction)
-    x, grad = x.contiguous(), grad.to(x.dtype).contiguous()
+    if x.shape[dim] > MAX_BACKWARD_RAY:
+        raise ValueError(f'corner_pool_backward: rays of {x.shape[dim]} '
+                         f'elements; the kernel takes at most '
+                         f'{MAX_BACKWARD_RAY}')
+    x, x_strides = _element_strides(x)
+    grad, g_strides = _element_strides(grad.to(x.dtype))
     b, c, h, w = x.shape
     out = torch.empty_like(x)
     lib = cuda_build.load('corner_pool')
     fn = lib.erd_corner_pool_backward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
+    strides = ctypes.c_longlong * 4
+    fn.argtypes = [ctypes.c_void_p] * 3 + [strides] * 2 + \
+        [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), grad.data_ptr(), out.data_ptr(), b * c, h, w,
+        err = fn(x.data_ptr(), grad.data_ptr(), out.data_ptr(),
+                 strides(*x_strides), strides(*g_strides), b, c, h, w,
                  int(dim == 3), int(backward), int(x.dtype == torch.bfloat16),
                  stream)
     cuda_build.check(lib, err, 'corner_pool_backward')

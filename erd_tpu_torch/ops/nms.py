@@ -107,23 +107,31 @@ def _check_sorted(what, sboxes, svalid, order, sgroup=None):
 
 
 def _nms_kernel(what, sboxes, svalid, sgroup, order, iou_threshold):
-    """One launch of csrc/nms.cu (the bitmask and the reduce kernel); a
-    null group is plain NMS."""
+    """One call of csrc/nms.cu: the bitmask launch (``erd_nms_mask``), then
+    the reduce (``erd_nms_reduce``); a null group is plain NMS. The mask
+    words and their nonzero bitmap are scratch that the bitmask launch
+    writes where the reduce reads them, so neither is zeroed."""
     b, k = sboxes.shape[:2]
     words = (k + 63) // 64
     mask = torch.empty((b, k, words), dtype=torch.int64, device=sboxes.device)
+    nz = torch.empty((b, words, words), dtype=torch.int64,
+                     device=sboxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=sboxes.device)
     lib = cuda_build.load('nms')
-    fn = lib.erd_nms_keep
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.erd_nms_mask.argtypes = [vp] * 5 + [ci, ci, ctypes.c_float, vp]
+    lib.erd_nms_reduce.argtypes = [vp] * 5 + [ci, ci, vp]
+    lib.erd_nms_mask.restype = lib.erd_nms_reduce.restype = ci
     with torch.cuda.device(sboxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(sboxes.data_ptr(), svalid.data_ptr(),
-                 None if sgroup is None else sgroup.data_ptr(),
-                 order.data_ptr(), mask.data_ptr(), keep.data_ptr(), b, k,
-                 float(iou_threshold), stream)
+        err = lib.erd_nms_mask(
+            sboxes.data_ptr(), svalid.data_ptr(),
+            None if sgroup is None else sgroup.data_ptr(), mask.data_ptr(),
+            nz.data_ptr(), b, k, float(iou_threshold), stream)
+        cuda_build.check(lib, err, what)
+        err = lib.erd_nms_reduce(mask.data_ptr(), nz.data_ptr(),
+                                 svalid.data_ptr(), order.data_ptr(),
+                                 keep.data_ptr(), b, k, stream)
     cuda_build.check(lib, err, what)
     return keep
 

@@ -2,8 +2,9 @@
 their time, on one CUDA GPU: the deformable im2col backward
 (``erd_deform_im2col_backward``, kernel 8b), the multi-scale deformable
 attention backward and forward (kernels 9b and 9), the RoIAlign backward
-(7b), and the call times of the CARAFE (10b) and corner-pool (12a-b)
-backwards. Run from the repository root:
+(7b), the NMS keep kernel (row 1, with set-NMS, 11b), and the call times
+of the CARAFE (10b) and corner-pool (12a-b) backwards. Run from the
+repository root:
 
     python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 9,7b]
 
@@ -47,12 +48,34 @@ conv_offset and sampling weights arranged):
    replaced by plain stores (geometry, reads and the scratch's traffic
    left), compiled from a copy of ``csrc/roi_align.cu`` edited in the
    build directory, on no path.
-5. others: the call time of the CARAFE backward (10b) at the 3 calls of
+5. 1, the NMS keep kernel (``csrc/nms.cu``) at the calls that
+   ``chip_smoke.py`` makes: the RPN's call of one bs-16 Faster R-CNN step
+   (K = 8819, IoU 0.7), ERD's two distillation calls (bs 16, K = 1024 and
+   4481, IoU 0.005, on ``chip_smoke.py``'s train case), the GFL serving
+   call (``chip_smoke.py``'s K = 2000 case at bs 1), the RPN and R-CNN
+   calls of one Faster R-CNN request (K = 4819 and 2000) and the set-NMS
+   call of one CrowdDet request (K = 2000). At each: the call by CUDA-graph
+   replays and by events, the bitmask launch and the reduce launch apart
+   (graph replays; where the library has one entry point for both, the
+   bitmask launch alone comes from a copy of ``csrc/nms.cu`` edited in
+   the build directory so that it skips the reduce, and the reduce is the
+   difference), the share of upper-triangle pairs whose overlap is zero,
+   the share of the 64-bit mask words right of the diagonal that are
+   nonzero, the valid and the kept boxes, the bound (as ``chip_smoke.py``
+   counts it), and the keep mask against the plain version and its time
+   (events).
+6. others: the call time of the CARAFE backward (10b) at the 3 calls of
    one FPN-CARAFE step and of the corner-pool backward (12a-b) in the 4
-   directions of one CornerNet step.
+   directions of one CornerNet step: by events and graph replays on the
+   step's own tensors (their strides printed), and on NCHW copies of them
+   made before the timing (no copy in the call), and the copies alone;
+   where the kernel reads both layouts in place, also by graph replays of
+   the kernel with its tree skipped and with its global loads and stores
+   replaced (``POOL_BACKWARD_PARTS``, built from edited copies of
+   ``csrc/corner_pool.cu`` in the build directory, on no path).
 
 ``--only 9,7b`` runs the named parts alone, in that order (the parts: 8b,
-9b, 9, 7b, others).
+9b, 9, 7b, 1, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -402,18 +425,19 @@ def mask_batch(smoke, kind):
                                              61).epoch(0)))
 
 
-def stores_for_adds_lib():
-    """``csrc/roi_align.cu`` built with the backward kernel's float4 atomic
-    adds replaced by plain stores (its sums wrong): a measurement's
-    variant, compiled from an edited copy in the build directory."""
+def edited_lib(name, variant, edits):
+    """``csrc/<name>.cu`` with each text of ``edits`` replaced (each must
+    be found), built in the build directory as ``<name>_<variant>``: a
+    measurement's variant, on no path."""
     from erd_tpu_torch.ops import cuda_build
-    add = 'atomicAdd(dst, scale4(v, ws[k]));'
-    src = (cuda_build.CSRC / 'roi_align.cu').read_text()
-    if src.count(add) != 1:
-        raise RuntimeError(f'roi_align.cu: {add!r} not found once')
+    src = (cuda_build.CSRC / f'{name}.cu').read_text()
+    for old, new in edits.items():
+        if old not in src:
+            raise RuntimeError(f'{name}.cu: {old!r} not found')
+        src = src.replace(old, new)
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    copy = cuda_build.BUILD_DIR / 'roi_align_stores_for_adds.cu'
-    copy.write_text(src.replace(add, '*dst = scale4(v, ws[k]);'))
+    copy = cuda_build.BUILD_DIR / f'{name}_{variant}.cu'
+    copy.write_text(src)
     path = copy.with_suffix('.so')
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, '-o',
                     str(path), str(copy)], check=True, capture_output=True)
@@ -421,6 +445,14 @@ def stores_for_adds_lib():
     lib.erd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.erd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def stores_for_adds_lib():
+    """``csrc/roi_align.cu`` built with the backward kernel's float4 atomic
+    adds replaced by plain stores (its sums wrong): a measurement's
+    variant, on no path."""
+    return edited_lib('roi_align', 'stores_for_adds', {
+        'atomicAdd(dst, scale4(v, ws[k]));': '*dst = scale4(v, ws[k]);'})
 
 
 # 7b's device operations, by the profiler's names
@@ -524,6 +556,226 @@ def probe_roi_backward(smoke, report):
     torch.cuda.empty_cache()
 
 
+def nms_stats(sboxes, svalid, thr, sgroup=None, rows=512):
+    """Counts of one sorted NMS call, image by image in row chunks: the
+    upper-triangle pairs (j > i) and how many have a zero overlap (iw or
+    ih 0), the mask words right of the diagonal (row i, word w >= i // 64)
+    and how many are nonzero (the plain version's suppression bits:
+    iou > thr, row i valid, and for set-NMS the groups apart), and the
+    valid boxes."""
+    b, k = sboxes.shape[:2]
+    words = -(-k // 64)
+    pairs = zero = nonzero = 0
+    for img in range(b):
+        bx, valid = sboxes[img], svalid[img]
+        x1, y1, x2, y2 = bx.unbind(-1)
+        area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+        col = torch.arange(k, device=bx.device)
+        for a in range(0, k, rows):
+            r = slice(a, min(a + rows, k))
+            later = col[None, :] > col[r, None]
+            iw = (torch.minimum(x2[r, None], x2[None]) -
+                  torch.maximum(x1[r, None], x1[None])).clamp(min=0)
+            ih = (torch.minimum(y2[r, None], y2[None]) -
+                  torch.maximum(y1[r, None], y1[None])).clamp(min=0)
+            ov = iw * ih
+            iou = ov / (area[r, None] + area[None] - ov).clamp(min=1e-6)
+            sup = (iou > thr) & later & valid[r, None]
+            if sgroup is not None:
+                sup &= sgroup[img][r, None] != sgroup[img][None]
+            pairs += int(later.sum())
+            zero += int(((iw == 0) | (ih == 0))[later].sum())
+            hit = torch.nn.functional.pad(sup, (0, words * 64 - k)).reshape(
+                -1, words, 64).any(-1)
+            right = torch.arange(words, device=bx.device)[None] >= \
+                (col[r, None] // 64)
+            nonzero += int(hit[right].sum())
+    total_words = b * sum(words - i // 64 for i in range(k))
+    return dict(pairs=pairs, zero_overlap_share=zero / max(pairs, 1),
+                mask_words=total_words,
+                nonzero_word_share=nonzero / max(total_words, 1),
+                valid=int(svalid.sum()))
+
+
+def nms_calls(smoke):
+    """[(name, 'nms' or 'set', args)]: the sorted-NMS calls of part 1, as
+    ``chip_smoke.py`` makes them."""
+    import numpy as np
+
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.models.detectors.gfl_erd import _kept_dense
+    from erd_tpu_torch.models.heads.gfl_head import AnchorContext
+    from erd_tpu_torch.ops.ers_select import ers_select
+    nms = importlib.import_module('erd_tpu_torch.ops.nms')
+    out = []
+    got = smoke.train_step_calls(np, torch, 'frcnn', ('nms_sorted_keep',))
+    out.append(('frcnn_train_rpn', 'nms', got['nms_sorted_keep'][0]))
+    del got
+    rs = np.random.RandomState(5)
+    ctx = AnchorContext.build(smoke.TRAIN_CANVAS)
+    smoke.train_case(np, torch, rs, ctx, 2)
+    case = smoke.train_case(np, torch, rs, ctx, smoke.TRAIN_BATCH)
+    n = ctx.num_anchors
+    centers, _ = ctx.device_tensors(smoke.DEV)
+    unit = torch.ones(n, device=smoke.DEV)
+    _, ri, rm, _ = ers_select(case['t_cls'], case['t_reg'], n // 5 + 1)
+    for k in (1024, n // 5 + 1):
+        seen = []
+        restore = smoke.capture(nms, 'nms_sorted_keep', seen)
+        try:
+            _kept_dense(centers, unit, case['t_cls'], case['t_reg'],
+                        ri[:, :k].contiguous(), rm[:, :k].contiguous(),
+                        0.005, 16)
+        finally:
+            restore()
+        out.append((f'erd_train_k{k}', 'nms', seen[0]))
+    del case
+    rs = np.random.RandomState(0)
+    smoke.nms_case(np, torch, rs, 2, 2000)
+    smoke.nms_case(np, torch, rs, 2, 4481)
+    out.append(('gfl_serve', 'nms',
+                tuple(smoke.nms_case(np, torch, rs, 1, 2000)) + (0.6,)))
+    det, net, _ = init_detector(smoke.FRCNN_CONFIGS['nms'], device=smoke.DEV)
+    batch, _ = smoke.request_batch(np, torch, smoke.REQUESTS[-1])
+    smoke.arrange_fc_cls(torch, det, net, batch)
+    seen = []
+    restore = smoke.capture(nms, 'nms_sorted_keep', seen)
+    try:
+        det.predict(net, batch)
+    finally:
+        restore()
+    out += [('frcnn_serve_rpn', 'nms', seen[0]),
+            ('frcnn_serve_rcnn', 'nms', seen[1])]
+    det, net = smoke.carafe_net(np, torch, 'crowddet')
+    seen = []
+    restore = smoke.capture(nms, 'set_nms_sorted_keep', seen)
+    try:
+        det.predict(net, batch)
+    finally:
+        restore()
+    out.append(('crowddet_serve_set_nms', 'set', seen[0]))
+    del det, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def mask_only_lib():
+    """``csrc/nms.cu`` built so that its one entry point launches the
+    bitmask kernel and skips the reduce: a measurement's variant for a
+    library with one entry point for both (the parent's), on no path."""
+    return edited_lib('nms', 'mask_only', {
+        'nms_reduce_kernel<<<': 'if (false) nms_reduce_kernel<<<'})
+
+
+def nms_parts(smoke, kind, args):
+    """(bitmask ms, reduce ms, how): each launch by graph replays on
+    buffers made once; the library's two entry points where it has them,
+    else the bitmask alone from ``mask_only_lib`` and the reduce as the
+    call less it."""
+    from erd_tpu_torch.ops import cuda_build
+    sboxes, svalid = args[0], args[1]
+    sgroup, order, thr = (args[2], args[3], args[4]) if kind == 'set' else \
+        (None, args[2], args[3])
+    b, k = sboxes.shape[:2]
+    words = -(-k // 64)
+    dev = sboxes.device
+    mask = torch.empty((b, k, words), dtype=torch.int64, device=dev)
+    keep = torch.empty((b, k), dtype=torch.bool, device=dev)
+    group = None if sgroup is None else sgroup.data_ptr()
+    lib = cuda_build.load('nms')
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, 'erd_nms_reduce'):
+        nz = torch.empty((b, words, words), dtype=torch.int64, device=dev)
+        lib.erd_nms_mask.argtypes = [vp] * 5 + [ci, ci, ctypes.c_float, vp]
+        lib.erd_nms_reduce.argtypes = [vp] * 5 + [ci, ci, vp]
+
+        def mask_call():
+            lib.erd_nms_mask(sboxes.data_ptr(), svalid.data_ptr(), group,
+                             mask.data_ptr(), nz.data_ptr(), b, k,
+                             float(thr), stream())
+
+        def reduce_call():
+            lib.erd_nms_reduce(mask.data_ptr(), nz.data_ptr(),
+                               svalid.data_ptr(), order.data_ptr(),
+                               keep.data_ptr(), b, k, stream())
+        mask_call()
+        return (smoke.graph_ms(torch, mask_call),
+                smoke.graph_ms(torch, reduce_call), 'entry points')
+    only = mask_only_lib()
+    only.erd_nms_keep.argtypes = [vp] * 6 + [ci, ci, ctypes.c_float, vp]
+
+    def mask_call():
+        only.erd_nms_keep(sboxes.data_ptr(), svalid.data_ptr(), group,
+                          order.data_ptr(), mask.data_ptr(), keep.data_ptr(),
+                          b, k, float(thr), stream())
+    return smoke.graph_ms(torch, mask_call), None, 'mask-only copy'
+
+
+def probe_nms(smoke, report):
+    """Row 1 (and 11b) at every call of ``nms_calls``: the call, its two
+    launches, the counts of ``nms_stats``, the keep mask against plain."""
+    nms = importlib.import_module('erd_tpu_torch.ops.nms')
+    rows = []
+    for name, kind, args in nms_calls(smoke):
+        fn = nms.set_nms_sorted_keep if kind == 'set' else \
+            nms.nms_sorted_keep
+        plain = nms.set_nms_sorted_keep_plain if kind == 'set' else \
+            nms.nms_sorted_keep_plain
+        keep = fn(*args)
+        mism = int((keep != plain(*args)).sum())
+        graph = smoke.graph_ms(torch, lambda: fn(*args))
+        events = smoke.events_ms(torch, lambda: fn(*args), 10)
+        plain_ms = smoke.events_ms(torch, lambda: plain(*args), 2)
+        mask_ms, reduce_ms, how = nms_parts(smoke, kind, args)
+        if reduce_ms is None:
+            reduce_ms = graph - mask_ms
+        stats = nms_stats(args[0], args[1], args[-1],
+                          args[2] if kind == 'set' else None)
+        b, k = args[0].shape[:2]
+        # the bound as chip_smoke.py counts it: 14 operations an IoU of a
+        # valid row with each later box (15 with the group test), 3 a
+        # box's area; each box, flag, index (and group) read once, each
+        # keep flag written once
+        rows_valid = torch.nonzero(args[1])[:, 1].double()
+        ops = (15.0 if kind == 'set' else 14.0) * float(
+            (k - 1 - rows_valid).sum()) + 3.0 * b * k
+        bound, bound_by = smoke.bound_of(
+            b * k * (16 + 1 + 8 + (8 if kind == 'set' else 0)) + b * k, ops)
+        row = dict(call=name, kind=kind, batch=b, k=k, iou=float(args[-1]),
+                   call_graph_ms=graph, call_events_ms=events,
+                   mask_ms=mask_ms, reduce_ms=reduce_ms, split_by=how,
+                   bound_ms=bound, bound_by=bound_by, plain_ms=plain_ms,
+                   kept=int(keep.sum()), mismatches=mism, **stats)
+        rows.append(row)
+        print(f'probe 1: {name} ({kind}) B={b} K={k} iou={row["iou"]}: '
+              f'call {graph:.4f} ms (graph), {events:.4f} (events); '
+              f'bitmask {mask_ms:.4f}, reduce {reduce_ms:.4f} ({how}); '
+              f'bound {bound:.5f} ({bound_by}); plain {plain_ms:.3f}; '
+              f'valid {stats["valid"]}, kept {row["kept"]}, '
+              f'mismatches={mism}; zero-overlap pairs '
+              f'{stats["zero_overlap_share"]:.4f} of {stats["pairs"]}, '
+              f'nonzero mask words {stats["nonzero_word_share"]:.5f} of '
+              f'{stats["mask_words"]}', flush=True)
+    report['nms_keep'] = rows
+    torch.cuda.empty_cache()
+
+
+# edits of csrc/corner_pool.cu for part others: the backward kernel with
+# its tree skipped (staging, the leaves' shared-memory reads and writes,
+# the stores), and with its global loads and stores replaced (the tree and
+# shared memory alone)
+POOL_BACKWARD_PARTS = {
+    'no_tree': {'ray_backward<S>(l, n, lane);': ''},
+    'no_global': {
+        'widen(base[p * s.p])': 'static_cast<float>((p * 7) & 15)',
+        'narrow(src[tile_at(p, r)], base + p * s.p);':
+            'if (src[tile_at(p, r)] == 12345.f) narrow(0.f, base);'},
+}
+
+
 def probe_other_backwards(smoke, report):
     """Call time (events) of 10b at the 3 calls of one FPN-CARAFE step and
     of 12a-b in the 4 directions of one CornerNet step (bs 6)."""
@@ -539,18 +791,46 @@ def probe_other_backwards(smoke, report):
     report['carafe_backward'] = dict(calls=rows, per_step_ms=sum(
         r['calls'] * r['call_ms'] for r in rows))
     del calls
+    from erd_tpu_torch.ops import cuda_build
     en = importlib.import_module('erd_tpu_torch.ops.extra_nms')
     calls = captured_calls(
         smoke, en, 'corner_pool_backward', smoke.mask_train_net,
         ('cornernet',), lambda a: a[2], lambda k: mask_batch(smoke, k))
     rows = []
     for direction, (args, count) in calls['cornernet'].items():
+        x, g = args[0], args[1]
+        xc, gc = x.contiguous(), g.contiguous()
         ms = smoke.events_ms(torch, lambda: en.corner_pool_backward(*args),
                              5)
-        rows.append(dict(direction=direction, x=list(args[0].shape),
-                         calls=count, call_ms=ms))
-        print(f'probe 12a-b: {direction} x {tuple(args[0].shape)} (x{count} '
-              f'a step): {ms:.4f} ms', flush=True)
+        graph = smoke.graph_ms(torch, lambda: en.corner_pool_backward(*args),
+                               10)
+        nchw = smoke.graph_ms(torch, lambda: en.corner_pool_backward(
+            xc, gc, direction), 10)
+        copies = smoke.graph_ms(torch, lambda: (x.contiguous(),
+                                                g.contiguous()), 10)
+        out = en.corner_pool_backward(*args)
+        parts = {}
+        if hasattr(en, 'MAX_BACKWARD_RAY'):  # the design with the parts
+            path_lib = cuda_build.load('corner_pool')
+            for variant, edits in POOL_BACKWARD_PARTS.items():
+                cuda_build._LIBS['corner_pool'] = edited_lib(
+                    'corner_pool', variant, edits)
+                try:
+                    parts[variant] = smoke.graph_ms(
+                        torch, lambda: en.corner_pool_backward(*args), 10)
+                finally:
+                    cuda_build._LIBS['corner_pool'] = path_lib
+        rows.append(dict(direction=direction, x=list(x.shape),
+                         x_stride=list(x.stride()), g_stride=list(g.stride()),
+                         out_stride=list(out.stride()), calls=count,
+                         call_ms=ms, call_graph_ms=graph, nchw_graph_ms=nchw,
+                         copies_graph_ms=copies, **parts))
+        print(f'probe 12a-b: {direction} x {tuple(x.shape)} (x{count} a '
+              f'step), strides x {x.stride()} grad {g.stride()} out '
+              f'{out.stride()}: call {ms:.4f} ms (events), {graph:.4f} '
+              f'(graph); on NCHW copies made before {nchw:.4f} (graph); '
+              f'the two copies alone {copies:.4f} (graph)' + ''.join(
+                  f'; {k} {v:.4f}' for k, v in parts.items()), flush=True)
     report['corner_pool_backward'] = dict(calls=rows, per_step_ms=sum(
         r['calls'] * r['call_ms'] for r in rows))
     del calls
@@ -560,7 +840,7 @@ def probe_other_backwards(smoke, report):
 # the probe's parts, by the kernel rows of PERF.md
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
-         'others': probe_other_backwards}
+         '1': probe_nms, 'others': probe_other_backwards}
 
 
 def main(argv=None) -> int:

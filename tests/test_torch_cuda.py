@@ -80,9 +80,51 @@ def sorted_nms_case(rs, b, k, num_labels=80):
         np.stack(valid)), torch.from_numpy(np.stack(order)))
 
 
-@pytest.mark.parametrize('k,thr', [(2000, 0.6), (4481, 0.005), (70, 0.5)])
+def rpn_nms_case(rs, b, k, canvas=(800, 1344), kind='random'):
+    """Proposals as the RPN's training call hands them to the kernel: five
+    levels (2000 a level, the rest on the last), boxes of the level's scale
+    around 60 centres, clipped to the canvas, shifted apart by level as
+    ``batched_nms_mask`` does, tied scores, 10 % invalid, sorted. ``kind``
+    'invalid' makes every entry invalid; 'same' makes every box the first,
+    unshifted (every pair suppresses), and every entry valid."""
+    h, w = canvas
+    level = np.minimum(np.arange(k) // 2000, 4)
+    boxes, valid, order = [], [], []
+    for _ in range(b):
+        size = 32.0 * 2.0 ** level[:, None] * rs.uniform(0.5, 2.0, (k, 2))
+        c = rs.uniform(0, 1, (60, 2))[rs.randint(60, size=k)] * [w, h] + \
+            rs.normal(0, 1, (k, 2)) * size / 4
+        bx = np.concatenate([c - size / 2, c + size / 2], -1)
+        bx = np.clip(bx, 0, [w, h, w, h]).astype(np.float32)
+        v = rs.rand(k) > 0.1
+        if kind == 'same':
+            bx[:] = bx[0]
+            v[:] = True
+        else:
+            v &= kind != 'invalid'
+            bx = bx + (level * (bx.max() + 1)).astype(np.float32)[:, None]
+        s = np.where(v, rs.randint(0, 200, k) / 200, -np.inf)
+        o = np.argsort(-s, kind='stable')
+        boxes.append(bx[o])
+        valid.append(s[o] > -np.inf)
+        order.append(o)
+    return (torch.from_numpy(np.stack(boxes)), torch.from_numpy(
+        np.stack(valid)), torch.from_numpy(np.stack(order)))
+
+
+@pytest.mark.parametrize('k,thr', [(2000, 0.6), (4481, 0.005), (70, 0.5),
+                                   (8819, 0.7), (1, 0.5), (63, 0.5),
+                                   (64, 0.5), (65, 0.5)])
 def test_nms_kernel_matches_plain(cuda, k, thr):
-    sboxes, svalid, order = sorted_nms_case(np.random.RandomState(k), 2, k)
+    """K = 8819 is the RPN's training call (16 images, five levels, boxes
+    clipped to an 800x1344 canvas); K = 1 and 63-65 sit at and around one
+    64-box tile."""
+    if k == 8819:
+        sboxes, svalid, order = rpn_nms_case(np.random.RandomState(k), 16,
+                                             k)
+    else:
+        sboxes, svalid, order = sorted_nms_case(np.random.RandomState(k), 2,
+                                                k)
     args = [t.to(cuda) for t in (sboxes, svalid, order)]
     before = nms_sorted_keep.launches
     got = nms_sorted_keep(*args, thr)
@@ -92,6 +134,23 @@ def test_nms_kernel_matches_plain(cuda, k, thr):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), nms_sorted_keep(sboxes, svalid, order,
                                                   thr))
+
+
+@pytest.mark.parametrize('kind', ['invalid', 'same'])
+@pytest.mark.parametrize('b,k', [(2, 1), (2, 63), (2, 64), (2, 65),
+                                 (1, 2000), (16, 8819)])
+def test_nms_kernel_matches_plain_on_empty_and_dense_batches(cuda, kind, b,
+                                                             k):
+    """An all-invalid batch keeps nothing; a batch of one box repeated
+    (every pair suppresses, every mask word right of the diagonal set)
+    keeps one box an image: both equal to plain."""
+    sboxes, svalid, order = rpn_nms_case(np.random.RandomState(k), b, k,
+                                         kind=kind)
+    args = [t.to(cuda) for t in (sboxes, svalid, order)]
+    got = nms_sorted_keep(*args, 0.7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_sorted_keep_plain(*args, 0.7))
+    assert int(got.sum()) == (0 if kind == 'invalid' else b)
 
 
 def test_integral_decode_kernel_matches_plain(cuda):
@@ -653,6 +712,24 @@ def test_set_nms_kernel_matches_plain(cuda):
     assert torch.equal(got, set_nms_sorted_keep_plain(*args, 0.5))
     plain = nms_sorted_keep(args[0], args[1], args[3], 0.5)
     assert int(got.sum()) > int(plain.sum())
+
+
+@pytest.mark.parametrize('kind', ['random', 'invalid', 'same'])
+@pytest.mark.parametrize('b,k', [(2, 1), (2, 63), (2, 64), (2, 65),
+                                 (16, 8819)])
+def test_set_nms_kernel_matches_plain_at_tile_edges(cuda, kind, b, k):
+    """Set-NMS at K = 1, 63-65 and 16 x 8819, groups of two (CrowdDet's
+    pairs): random RPN-like boxes, an all-invalid batch, and one box
+    repeated (every pair of two groups suppresses): equal to plain."""
+    sboxes, svalid, order = rpn_nms_case(np.random.RandomState(k + 1), b, k,
+                                         kind=kind)
+    sgroup = torch.gather(torch.arange(k).expand(b, k) // 2, 1, order)
+    args = [t.to(cuda) for t in (sboxes, svalid, sgroup, order)]
+    got = set_nms_sorted_keep(*args, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, set_nms_sorted_keep_plain(*args, 0.5))
+    if kind == 'invalid':
+        assert int(got.sum()) == 0
 
 
 def test_tf32_is_off_for_the_ports_float32_conv_backward(cuda):
@@ -1555,6 +1632,49 @@ def test_corner_pool_backward_kernel_matches_plain_exactly(cuda, direction,
     assert corner_pool_backward.launches - before == 1
     assert got.dtype == dtype
     assert torch.equal(got, corner_pool_backward_plain(x, g, direction))
+
+
+@pytest.mark.parametrize('direction', ['top', 'bottom', 'left', 'right'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('layouts', [('channels_last', 'nchw'),
+                                     ('channels_last', 'channels_last'),
+                                     ('nchw', 'channels_last')])
+@pytest.mark.parametrize('shape', [(1, 128, 192, 256), (2, 3, 37, 19),
+                                   (1, 40, 9, 300), (1, 9, 512, 6)])
+def test_corner_pool_backward_kernel_reads_channels_last(cuda, direction,
+                                                         dtype, layouts,
+                                                         shape):
+    """x and the output gradient channels-last or NCHW, read where they lie
+    (the CornerNet step's x is channels-last, its gradient NCHW): one
+    launch, bit-equal to plain, the result in x's layout (x's strides);
+    rays of 300 and 512 take 16 leaves a lane."""
+    from erd_tpu_torch.ops.extra_nms import (corner_pool_backward,
+                                             corner_pool_backward_plain)
+    rs = np.random.RandomState(12)
+    x = np.maximum(rs.randn(*shape), -0.4) + 0.4
+    x[..., ::3] = np.round(x[..., ::3] * 2) / 2
+    x = torch.from_numpy(x.astype(np.float32)).to(device=cuda, dtype=dtype)
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        device=cuda, dtype=dtype)
+
+    def laid(t, layout):
+        return t.contiguous(memory_format=torch.channels_last) \
+            if layout == 'channels_last' else t.contiguous()
+    x, g = laid(x, layouts[0]), laid(g, layouts[1])
+    before = corner_pool_backward.launches
+    got = corner_pool_backward(x, g, direction)
+    torch.cuda.synchronize()
+    assert corner_pool_backward.launches - before == 1
+    assert got.dtype == dtype and got.stride() == x.stride()
+    assert torch.equal(got, corner_pool_backward_plain(x, g, direction))
+
+
+def test_corner_pool_backward_kernel_refuses_rays_above_512(cuda):
+    from erd_tpu_torch.ops.extra_nms import corner_pool_backward
+    x = torch.zeros((1, 2, 4, 513), device=cuda)
+    with pytest.raises(ValueError, match='at most 512'):
+        corner_pool_backward(x, x, 'left')
+    corner_pool_backward(x, x, 'top')  # rays of 4 along H
 
 
 @pytest.mark.parametrize('out_size', [28, 14])

@@ -167,3 +167,57 @@ def test_time_smoke_phases_runs_only_the_named_phases(tmp_path, capsys,
                                                            'phase_b'}
     assert ran.read_text().splitlines() == ['b a card, 700.00 W',
                                             'a numpy torch']
+
+
+def test_probe_parts_and_refusals(capsys, monkeypatch):
+    """The probe's parts by kernel row (part 1 the NMS keep kernel): an
+    unknown part name is refused with the list, and without a CUDA device
+    every known part exits 1 before it measures anything."""
+    from erd_tpu_torch.tools import atomic_backward_probe as probe
+    assert list(probe.PARTS) == ['8b', '9b', '9', '7b', '1', 'others']
+    assert probe.main(['--only', '1,nms']) == 2
+    assert "['8b', '9b', '9', '7b', '1', 'others']" in \
+        capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert probe.main(['--only', '1,others']) == 1
+
+
+@pytest.mark.parametrize('group', [False, True])
+def test_probe_nms_counts_match_a_direct_count(group):
+    """Part 1's counts (``nms_stats``, in row chunks) against a count over
+    the full pair matrix: the pairs right of the diagonal with a zero
+    overlap, and the 64-bit words right of the diagonal that hold a
+    suppression bit (the plain version's matrix, groups apart for
+    set-NMS), K = 150 across three tiles."""
+    import numpy as np
+
+    from erd_tpu_torch.ops.nms import _suppress_matrix
+    from erd_tpu_torch.tools.atomic_backward_probe import nms_stats
+    rs = np.random.RandomState(3)
+    b, k = 2, 150
+    xy = rs.uniform(0, 100, (b, k, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rs.uniform(1, 30, (b, k, 2))], -1).astype(np.float32))
+    valid = torch.from_numpy(rs.rand(b, k) > 0.2)
+    sgroup = torch.from_numpy(rs.randint(0, 40, (b, k))) if group else None
+    got = nms_stats(boxes, valid, 0.3, sgroup, rows=37)
+    sup = _suppress_matrix(boxes, valid, 0.3)
+    if group:
+        sup &= sgroup[:, :, None] != sgroup[:, None, :]
+    words = -(-k // 64)
+    hit = torch.nn.functional.pad(sup, (0, 64 * words - k)).reshape(
+        b, k, words, 64).any(-1)
+    right = torch.arange(words)[None] >= (torch.arange(k) // 64)[:, None]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    iw = (torch.minimum(x2[..., :, None], x2[..., None, :]) -
+          torch.maximum(x1[..., :, None], x1[..., None, :])).clamp(min=0)
+    ih = (torch.minimum(y2[..., :, None], y2[..., None, :]) -
+          torch.maximum(y1[..., :, None], y1[..., None, :])).clamp(min=0)
+    later = torch.ones(k, k, dtype=torch.bool).triu(1)
+    zero = ((iw == 0) | (ih == 0))[:, later]
+    assert got['pairs'] == zero.numel() and got['valid'] == int(valid.sum())
+    assert got['zero_overlap_share'] == int(zero.sum()) / zero.numel()
+    assert got['mask_words'] == b * int(right.sum())
+    assert got['nonzero_word_share'] == \
+        int(hit[:, right].sum()) / hit[:, right].numel()
+    assert 0 < got['nonzero_word_share'] < 1
