@@ -121,7 +121,11 @@ Phases, in order; any failed check exits non-zero before the last line:
                 card-vs-CPU post-processing;
  22. frcnn train kernels  one bs-16, 800x1344 bf16 training step each of
                 Faster R-CNN R50 and FPN-CARAFE Faster R-CNN with their
-                kernel calls captured: the RoIAlign backward kernel on the
+                kernel calls captured: the RoIAlign forward kernel on the
+                step's box call (the last 15 slots of each image edge
+                cases), bit-equal to plain, timed by graph replays beside
+                its bound over the batch (the row's train_shapes); the
+                RoIAlign backward kernel on the
                 step's output gradient (512 RoIs an image, full-width
                 P2-P5, the last 15 slots of each image edge cases; RoIs on
                 all four levels, >= 1 % of the samples off their map),
@@ -132,9 +136,10 @@ Phases, in order; any failed check exits non-zero before the last line:
                 on the RPN call at K = 8819 exactly; the CARAFE
                 backward kernel on the 3 calls of the FPN-CARAFE step (dx
                 and dlogits; float32 within 1e-5 * max|plain|, bf16 within
-                one ulp); each timed beside its bound (RoIAlign's bytes
-                count the gradients it writes in the maps' dtype, CARAFE's
-                dw products count at the bf16 tensor-core rate);
+                one ulp), its dlogits and dx launches apart; each timed
+                beside its bound (RoIAlign's bytes count the gradients it
+                writes in the maps' dtype, CARAFE's dw products count at
+                the bf16 tensor-core rate);
  23. frcnn train reference  for Faster R-CNN, FPN-CARAFE and CrowdDet,
                 full width in float32 on a small input, with the same
                 sampler draws and the CPU's proposals: the card's own
@@ -283,11 +288,13 @@ Phases, in order; any failed check exits non-zero before the last line:
                 library call where one computes the function
                 (F.grid_sample with border padding for the targets,
                 F.grid_sample's backward for the point-sample backward);
-                the RoIAlign backward on both calls of the Mask R-CNN and
-                PointRend steps (out 7 on 512 RoIs an image, and the mask
-                branch's out 14, whose gradient is zero on the negative
-                RoIs), float32 within 1e-5 * max|plain|, bf16 within one
-                ulp, each call timed (row 7b's shapes and per_step_ms);
+                the RoIAlign forward and backward on both calls of the
+                Mask R-CNN and PointRend steps (out 7 on 512 RoIs an image,
+                and the mask branch's out 14, whose gradient is zero on the
+                negative RoIs): the forward with the 15 edge RoIs planted,
+                bit-equal to plain (row 7's train_shapes); the backward
+                float32 within 1e-5 * max|plain|, bf16 within one ulp; each
+                call timed (row 7b's shapes and per_step_ms);
  37. mask/corner train reference  Mask R-CNN and PointRend R50 (2 images
                 128x192, gt crops, 64 sampled RoIs an image) and CornerNet
                 at HG-104's width and 5 levels, one stack of one block a
@@ -1716,27 +1723,55 @@ def capture(module, name, calls):
 
 
 def roi_align_bytes(torch, feats, rois, levels, out_size=7):
-    """Bytes RoIAlign must read from the maps for these RoIs: the distinct
-    pixels its in-range samples touch, times the channels and the element
-    size."""
+    """Bytes RoIAlign must read from the maps for these RoIs, over the
+    batch: the distinct pixels the in-range samples of an image's RoIs
+    touch, image by image, times the channels and the element size."""
     from erd_tpu_torch.ops.roi_align import _sample_axis
     total = 0
     c, esize = feats[0].shape[1], feats[0].element_size()
-    for lvl, (f, stride) in enumerate(zip(feats, ROI_STRIDES)):
-        r = rois[0][levels[0] == lvl]
-        h, w = f.shape[2:]
-        lo = r * (1.0 / stride) - 0.5
-        size = (lo[:, 2:] - lo[:, :2]).clamp(min=1e-6) / torch.full_like(
-            lo[:, :2], out_size)
-        in_y, y0, y1, _ = _sample_axis(lo[:, 1], size[:, 1], h, out_size, 2)
-        in_x, x0, x1, _ = _sample_axis(lo[:, 0], size[:, 0], w, out_size, 2)
-        hit = torch.zeros(h * w, dtype=torch.bool, device=f.device)
-        ok = in_y[:, :, None] & in_x[:, None, :]
-        for ya in (y0, y1):
-            for xa in (x0, x1):
-                hit[(ya[:, :, None] * w + xa[:, None, :])[ok]] = True
-        total += int(hit.sum()) * c * esize
+    for img in range(rois.shape[0]):
+        for lvl, (f, stride) in enumerate(zip(feats, ROI_STRIDES)):
+            r = rois[img][levels[img] == lvl]
+            h, w = f.shape[2:]
+            lo = r * (1.0 / stride) - 0.5
+            size = (lo[:, 2:] - lo[:, :2]).clamp(min=1e-6) / \
+                torch.full_like(lo[:, :2], out_size)
+            in_y, y0, y1, _ = _sample_axis(lo[:, 1], size[:, 1], h,
+                                           out_size, 2)
+            in_x, x0, x1, _ = _sample_axis(lo[:, 0], size[:, 0], w,
+                                           out_size, 2)
+            hit = torch.zeros(h * w, dtype=torch.bool, device=f.device)
+            ok = in_y[:, :, None] & in_x[:, None, :]
+            for ya in (y0, y1):
+                for xa in (x0, x1):
+                    hit[(ya[:, :, None] * w + xa[:, None, :])[ok]] = True
+            total += int(hit.sum()) * c * esize
     return total
+
+
+def roi_align_cost(torch, feats, rois, levels, out_size=7, ratio=2):
+    """(bytes, float32 operations) of one RoIAlign call: the map pixels
+    its samples touch (``roi_align_bytes``), the RoIs and levels read, the
+    float32 output written; per output ratio^2 samples of 8 multiplies and
+    3 adds, ratio^2 - 1 adds of them and one divide (the sample
+    coordinates are per RoI and bin)."""
+    b, r = levels.shape
+    outs = b * r * feats[0].shape[1] * out_size * out_size
+    nbytes = roi_align_bytes(torch, feats, rois, levels, out_size) + \
+        b * r * (16 + 4) + outs * 4
+    return nbytes, outs * 12.0 * ratio * ratio
+
+
+def serve_edge_rois(torch, w, h):
+    """The 10 edge-case boxes that replace the last RoI slots of a serving
+    call's check on a (h, w) canvas: off the image, degenerate, zero, on
+    the last row or column, and boxes sized for levels 2 and 3, which
+    random weights' proposals hardly reach."""
+    return torch.tensor([
+        [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [10, 10, 10, 10],
+        [0, 0, 0, 0], [30, 5, 29, 60], [w - 8, h - 8, w + 4, h + 4],
+        [w - 4, 0, w, h], [0, h - 4, w, h], [-9, -9, 600, 500],
+        [100, 100, 400, 400]], dtype=torch.float32, device=DEV)
 
 
 def phase_frcnn_kernels(np, torch):
@@ -1784,11 +1819,7 @@ def phase_frcnn_kernels(np, torch):
     feats, rois, _, strides = roi_calls[0][:4]
     rois = rois.clone()
     h, w = batch['images'].shape[1:3]
-    rois[0, -10:] = torch.tensor([
-        [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [10, 10, 10, 10],
-        [0, 0, 0, 0], [30, 5, 29, 60], [w - 8, h - 8, w + 4, h + 4],
-        [w - 4, 0, w, h], [0, h - 4, w, h], [-9, -9, 600, 500],
-        [100, 100, 400, 400]], device=DEV)
+    rois[0, -10:] = serve_edge_rois(torch, w, h)
     levels = map_roi_levels(rois, 4).contiguous()
     cpu_levels = map_roi_levels(rois.cpu(), 4)
     check(torch.equal(levels.cpu(), cpu_levels),
@@ -1806,15 +1837,9 @@ def phase_frcnn_kernels(np, torch):
     check(roi_err <= 1e-6 * feat_max, 'RoIAlign kernel disagrees with plain')
     check(bool((per_level > 0).all()), 'RoIAlign check missed a level')
     args = (feats, rois, levels, strides)
-    ms, call_ms, src, plain_ms = time_pair(
-        torch, lambda: roi_align(*args), lambda: roi_align_plain(*args),
-        ['roi_align_kernel'], n=20)
-    r, c = rois.shape[1], feats[0].shape[1]
-    nbytes = roi_align_bytes(torch, feats, rois, levels) + \
-        r * c * 49 * 4 + r * (16 + 4)
-    ops = r * c * 49 * 48.0  # per output: 4 samples x (8 mul, 3 add) + 3
-    # adds + 1 divide (the sample coordinates are per RoI and bin)
-    bms, by = bound_of(nbytes, ops)
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: roi_align(*args), lambda: roi_align_plain(*args))
+    bms, by = bound_of(*roi_align_cost(torch, feats, rois, levels))
     rows.append(dict(name='roi_align', route='cuda',
                      source='erd_tpu_torch/csrc/roi_align.cu',
                      replaces='erd_tpu/ops/roi_align.py:92',
@@ -2753,6 +2778,35 @@ def carafe_net(np, torch, kind):
     return det, net
 
 
+def carafe_cost(x, logits):
+    """(bytes, float32 operations) of one CARAFE call: x and the logits
+    read and the x2 output written in x's dtype; per output element 25
+    multiplies and 24 adds, per output pixel the softmax (25 each of max,
+    subtract, exp, add, divide)."""
+    b, c, h, w = x.shape
+    outs = b * c * 4 * h * w
+    nbytes = x.element_size() * (x.numel() + logits.numel() + outs)
+    return nbytes, outs * 49.0 + b * 4 * h * w * 125.0
+
+
+def carafe_backward_cost(x, logits, g):
+    """(bytes, float32 operations, bf16 tensor-core operations) of one
+    CARAFE backward call: x, the logits and the output gradient read, dx
+    and dlogits written, in x's dtype; dx: 100 multiply-adds per channel
+    and source pixel, float32 softmax weights times the gradient; per
+    output pixel the softmax (125) and its backward (100), float32; dw: 25
+    multiply-adds of x times the gradient per channel and output pixel,
+    summed in float32 (a bf16 tensor-core product where both are bf16)."""
+    b, c, h, w = x.shape
+    nbytes = x.element_size() * (2 * x.numel() + 2 * logits.numel() +
+                                 g.numel())
+    ops = b * c * h * w * 200.0 + b * 4 * h * w * 225.0
+    dw = b * c * 4 * h * w * 50.0
+    if x.dtype == g.dtype and x.element_size() == 2:
+        return nbytes, ops, dw
+    return nbytes, ops + dw, 0.0
+
+
 def phase_carafe_kernels(np, torch):
     """The CARAFE kernel on the 3 calls of one 800x1333 request of the
     FPN_CARAFE config (content encoders arranged), against its plain
@@ -2808,12 +2862,7 @@ def phase_carafe_kernels(np, torch):
         ms, call_ms, src, plain_ms = time_pair(
             torch, lambda: carafe(x, logits), lambda: carafe_plain(x, logits),
             ['carafe_kernel'], n=20)
-        b, c, h, w_ = x.shape
-        outs = b * c * 4 * h * w_
-        nbytes = 2 * (x.numel() + logits.numel() + outs)
-        ops = outs * 49.0 + b * 4 * h * w_ * 125.0  # per output element 25
-        # multiplies and 24 adds; per output pixel the softmax: 25 each of
-        # max, subtract, exp, add, divide
+        nbytes, ops = carafe_cost(x, logits)
         bms, by = bound_of(nbytes, ops)
         shapes.append(dict(x=list(x.shape), ms=ms, call_ms=call_ms,
                            ms_from=src, plain_ms=plain_ms, bound_ms=bms,
@@ -3112,6 +3161,72 @@ def roi_sample_stats(torch, rois, levels, shapes, strides=ROI_STRIDES,
     return total, total - inside
 
 
+def train_edge_rois(torch):
+    """The 15 edge-case boxes planted in the last RoI slots of every image
+    of a training call's check (800x1344 canvas): 6 off the image, 6 on
+    its edges or degenerate, one sized for each of levels 1-3."""
+    h, w = TRAIN_CANVAS
+    return torch.tensor([
+        [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [-300, -200, -10, -5],
+        [w + 10, h + 10, w + 400, h + 300], [-900, -900, -100, -100],
+        [w + 100, -50, w + 900, h], [10, 10, 10, 10], [0, 0, 0, 0],
+        [w - 8, h - 8, w + 4, h + 4], [w - 4, 0, w, h], [0, h - 4, w, h],
+        [-9, -9, 600, 500], [100, 100, 250, 260], [200, 100, 560, 500],
+        [-100, -100, 900, 800]], dtype=torch.float32, device=DEV)
+
+
+def roi_forward_call(torch, args, tag):
+    """Row 7 on one training call ``args`` (feats, rois, levels, strides,
+    out_size, sampling_ratio) with ``train_edge_rois`` planted in the last
+    slots of every image: bit-equal to plain (and so within the gate of
+    1e-6 * max|feat|) at every RoI level; then timed by CUDA-graph
+    replays (``ms``) and events (``call_ms``) beside its bound over the
+    batch and the plain version. Returns a dict for the row's
+    ``train_shapes``."""
+    from erd_tpu_torch.ops import map_roi_levels, roi_align, roi_align_plain
+    feats, rois, _, strides, out_size, ratio = args[:6]
+    feats = [f.detach() for f in feats]
+    rois = rois.clone()
+    rois[:, -15:] = train_edge_rois(torch)
+    levels = map_roi_levels(rois, 4).contiguous()
+    check(torch.equal(levels.cpu(), map_roi_levels(rois.cpu(), 4)),
+          f'{tag}: RoI levels differ between card and CPU')
+    args = (feats, rois, levels, strides, out_size, ratio)
+    b, r = levels.shape
+    got = roi_align(*args)
+    torch.cuda.synchronize()
+    want = roi_align_plain(*args)
+    feat_max = max(float(f.float().abs().max()) for f in feats)
+    err = float((got - want).abs().max())
+    differ = int((got != want).sum())
+    del got, want
+    per_level = torch.bincount(levels.flatten().long(), minlength=4)
+    n_samples, n_off = roi_sample_stats(
+        torch, rois, levels, [tuple(f.shape[2:]) for f in feats],
+        out_size=out_size, ratio=ratio)
+    check(bool((per_level > 0).all()), f'{tag}: RoIAlign missed a level')
+    check(err <= 1e-6 * feat_max and differ == 0, f'{tag}: RoIAlign kernel '
+          f'differs from plain at {differ} elements (max {err:.3e})')
+    ms = graph_ms(torch, lambda: roi_align(*args), 5)
+    call_ms = events_ms(torch, lambda: roi_align(*args), 5)
+    plain_ms = events_ms(torch, lambda: roi_align_plain(*args), 1)
+    nbytes, ops = roi_align_cost(torch, feats, rois, levels, out_size, ratio)
+    bms, by = bound_of(nbytes, ops)
+    log(f'{tag}: roi_align out {out_size} R={r} x {b} C={feats[0].shape[1]} '
+        f'{feats[0].dtype} levels {per_level.tolist()}, {n_off}/{n_samples} '
+        f'samples off their map: max_abs_err={err:.3e} (limit '
+        f'1e-6*max|feat| = {1e-6 * feat_max:.3e}), {differ} elements '
+        f'differ from plain; {ms:.4f} ms (graph replays), {call_ms:.4f} ms '
+        f'per call (events), plain {plain_ms:.2f} ms, bound {bms:.4f} ms '
+        f'({by}; {nbytes} bytes)')
+    return dict(out=out_size, rois=[b, r], maps=str(feats[0].dtype),
+                ms=ms, call_ms=call_ms, ms_from='graph', plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, bound_bytes=nbytes, ops=ops,
+                max_abs_err=err, mismatches=differ,
+                samples_off_map=n_off / max(n_samples, 1),
+                per_level=per_level.tolist())
+
+
 def roi_backward_call(torch, args, tag):
     """Kernel 7b on one call ``args`` (grad, rois, levels, shapes, strides,
     the maps' dtype, out_size, sampling_ratio) against its plain version:
@@ -3216,9 +3331,10 @@ def train_step_calls(np, torch, kind, names):
 
 
 def phase_frcnn_train_kernels(np, torch):
-    """RoIAlign's backward kernel (A) and the NMS on one bs-16, 800x1344
-    Faster R-CNN step's calls, CARAFE's backward kernel (B) on one
-    FPN-CARAFE step's, each against its plain version; then timed."""
+    """RoIAlign's forward and backward kernels and the NMS on one bs-16,
+    800x1344 Faster R-CNN step's calls, CARAFE's backward kernel on one
+    FPN-CARAFE step's, each against its plain version; then timed.
+    Returns (rows, the RPN NMS call, the RoIAlign forward's box call)."""
     from erd_tpu_torch.ops import (carafe_backward, carafe_backward_plain,
                                    map_roi_levels, nms_sorted_keep,
                                    nms_sorted_keep_plain)
@@ -3227,6 +3343,16 @@ def phase_frcnn_train_kernels(np, torch):
         'roi_align', 'roi_align_backward', 'nms_sorted_keep'))
     check([len(calls[n]) for n in calls] == [1, 1, 1],
           'unexpected kernel calls of one Faster R-CNN step')
+
+    # -- row 7, the forward, on the box call with the edge RoIs planted
+    feats, rois = calls['roi_align'][0][:2]
+    check(tuple(rois.shape[:2]) == (TRAIN_BATCH, 512) and
+          feats[0].shape[1] == 256 and feats[0].dtype == torch.bfloat16 and
+          calls['roi_align'][0][4] == 7,
+          f'RoIAlign box call at {tuple(rois.shape)}, {feats[0].dtype}')
+    roi_forward = dict(config='frcnn', **roi_forward_call(
+        torch, calls['roi_align'][0], 'frcnn train kernels'))
+    del feats, rois
 
     # -- kernel A on the captured output gradient, the last 15 RoI slots of
     # every image replaced by edge cases: 6 off the image, 6 on its edges
@@ -3238,14 +3364,7 @@ def phase_frcnn_train_kernels(np, torch):
           and [tuple(s) for s in shapes] == level_sizes(ROI_STRIDES),
           f'RoIAlign backward call at {tuple(grad.shape)}, {dtype}, '
           f'{shapes}')
-    h, w = TRAIN_CANVAS
-    edge = torch.tensor([
-        [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [-300, -200, -10, -5],
-        [w + 10, h + 10, w + 400, h + 300], [-900, -900, -100, -100],
-        [w + 100, -50, w + 900, h], [10, 10, 10, 10], [0, 0, 0, 0],
-        [w - 8, h - 8, w + 4, h + 4], [w - 4, 0, w, h], [0, h - 4, w, h],
-        [-9, -9, 600, 500], [100, 100, 250, 260], [200, 100, 560, 500],
-        [-100, -100, 900, 800]], dtype=torch.float32, device=DEV)
+    edge = train_edge_rois(torch)
     rois = rois.clone()
     rois[:, -len(edge):] = edge
     grad = grad.clone()
@@ -3356,27 +3475,25 @@ def phase_frcnn_train_kernels(np, torch):
                   f'plain ({part}, float32)')
             check(bool(((ulps <= 1) | ~far).all()), f'CARAFE backward '
                   f'kernel, bf16 {part}: more than one ulp from plain')
-        ms, call_ms, src, plain_ms = time_pair(
+        ms, call_ms, src, plain_ms = time_graph(
             torch, lambda: carafe_backward(x, logits, g),
-            lambda: carafe_backward_plain(x, logits, g),
-            ['carafe_backward_logits_kernel', 'carafe_backward_x_kernel'],
-            n=10)
-        bb, cc, hh, ww = x.shape
-        nbytes = 2 * (2 * x.numel() + 2 * logits.numel() + g.numel())
-        # dx: 100 multiply-adds per channel and source pixel, float32
-        # softmax weights times the gradient; per output pixel the softmax
-        # (125) and its backward (100), float32; dw: 25 multiply-adds of
-        # bf16 x bf16 per channel and output pixel, summed in float32 (a
-        # bf16 tensor-core product)
-        ops = bb * cc * hh * ww * 200.0 + bb * 4 * hh * ww * 225.0
-        bf16_ops = bb * cc * 4 * hh * ww * 50.0
+            lambda: carafe_backward_plain(x, logits, g), n=10)
+        # its two launches apart: a launch by the mean of the profiler's
+        # records
+        passes = {part: launch_ms(torch, lambda: carafe_backward(
+            x, logits, g), f'carafe_backward_{part}_kernel', 10)[0]
+            for part in ('logits', 'x')}
+        nbytes, ops, bf16_ops = carafe_backward_cost(x, logits, g)
         bms, by = bound_of(nbytes, ops, bf16_ops)
         shapes_out.append(dict(x=list(x.shape), ms=ms, call_ms=call_ms,
                                ms_from=src, plain_ms=plain_ms, bound_ms=bms,
                                bound_by=by, bound_bytes=nbytes, ops=ops,
-                               bf16_ops=bf16_ops))
+                               bf16_ops=bf16_ops, logits_pass_ms=passes[
+                                   'logits'], x_pass_ms=passes['x']))
         log(f'frcnn train kernels: carafe_backward {tuple(x.shape)}: '
-            f'{ms:.4f} ms device ({src}), {call_ms:.4f} ms per call, plain '
+            f'{ms:.4f} ms device ({src}; dlogits launch '
+            f'{passes["logits"] or 0:.4f}, dx launch {passes["x"] or 0:.4f}, '
+            f'profiler), {call_ms:.4f} ms per call, plain '
             f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, '
             f'{ops / 1e9:.3f} GOP float32, {bf16_ops / 1e9:.3f} GOP bf16)')
     log('frcnn train kernels: library_ms is null for both backward kernels: '
@@ -3390,11 +3507,15 @@ def phase_frcnn_train_kernels(np, torch):
                      ms_at=f'x {big["x"]}', plain_ms=big['plain_ms'],
                      bound_ms=big['bound_ms'], bound_by=big['bound_by'],
                      library_ms=None, deterministic=True,
-                     shapes=shapes_out,
+                     redesigned=True, design='tiles of source pixels, '
+                     'inputs staged by cp.async a channel chunk ahead; '
+                     'dlogits: 100 float32 dw sums a pixel in registers; '
+                     'dx: 100 gather weights a pixel in registers; no '
+                     'scratch', shapes=shapes_out,
                      per_step_ms=sum(t['ms'] for t in shapes_out)))
     del calls
     torch.cuda.empty_cache()
-    return rows, rpn_nms
+    return rows, rpn_nms, roi_forward
 
 
 @contextlib.contextmanager
@@ -4679,11 +4800,7 @@ def phase_mask_kernels(np, torch):
               f'mask RoIAlign call out {out_size}, R={rois.shape[1]}')
         rois = rois.clone()
         h, w = batch['images'].shape[1:3]
-        rois[0, -10:] = torch.tensor([
-            [-60, -40, -2, -1], [w + 5, 0, w + 90, 40], [10, 10, 10, 10],
-            [0, 0, 0, 0], [30, 5, 29, 60], [w - 8, h - 8, w + 4, h + 4],
-            [w - 4, 0, w, h], [0, h - 4, w, h], [-9, -9, 600, 500],
-            [100, 100, 400, 400]], device=DEV)
+        rois[0, -10:] = serve_edge_rois(torch, w, h)
         levels = map_roi_levels(rois, 4).contiguous()
         check(torch.equal(levels.cpu(), map_roi_levels(rois.cpu(), 4)),
               'RoI levels differ between card and CPU')
@@ -4702,9 +4819,8 @@ def phase_mask_kernels(np, torch):
               'with plain')
         ms, call_ms, src, plain_ms = time_graph(
             torch, lambda: roi_align(*args), lambda: roi_align_plain(*args))
-        r, c = rois.shape[1], feats[0].shape[1]
-        bms, by = bound_of(roi_align_bytes(torch, feats, rois, levels, 14) +
-                           r * c * 196 * 4 + r * 20, r * c * 196 * 48.0)
+        r = rois.shape[1]
+        bms, by = bound_of(*roi_align_cost(torch, feats, rois, levels, 14))
         roi14 = dict(r=r, out_size=14, max_abs_err=err, ms=ms,
                      call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=None)
@@ -5383,6 +5499,7 @@ def mask_train_step_calls(np, torch, kind, names):
     ...]}."""
     import importlib
     modules = {'crop_resize_mask': 'models.detectors.mask_rcnn',
+               'roi_align': 'ops.roi_align',
                'roi_align_backward': 'ops.roi_align',
                'point_sample': 'models.detectors.point_rend',
                'point_sample_backward': 'ops.sampling',
@@ -5479,11 +5596,22 @@ def phase_mask_train_kernels(np, torch):
     # -- row 14: the mask targets of both mask models' steps
     shapes = []
     roi_backward = []  # row 7b at both calls of each step
+    roi_forward = []  # row 7 at both calls of each step
     for kind, out_size in (('mask_rcnn', 28), ('point_rend', 14)):
-        names = ('crop_resize_mask', 'roi_align_backward') + ((
+        names = ('crop_resize_mask', 'roi_align', 'roi_align_backward') + ((
             'point_sample', 'point_sample_backward')
             if kind == 'point_rend' else ())
         calls = mask_train_step_calls(np, torch, kind, names)
+        check(sorted(a[4] for a in calls['roi_align']) == [7, 14],
+              f'{kind}: RoIAlign calls at out_size '
+              f'{[a[4] for a in calls["roi_align"]]}')
+        for args in sorted(calls.pop('roi_align'), key=lambda a: a[4]):
+            check(tuple(args[1].shape[:2]) == (TRAIN_BATCH, 512) and
+                  args[0][0].dtype == torch.bfloat16, f'{kind}: RoIAlign '
+                  f'call at {tuple(args[1].shape)} {args[0][0].dtype}')
+            roi_forward.append(dict(config=kind, **roi_forward_call(
+                torch, args, f'mask/corner train kernels: {kind}')))
+            del args
         check(sorted(a[6] for a in calls['roi_align_backward']) == [7, 14],
               f'{kind}: RoIAlign backward calls at out_size '
               f'{[a[6] for a in calls["roi_align_backward"]]}')
@@ -5755,7 +5883,7 @@ def phase_mask_train_kernels(np, torch):
                      library_ms=None, deterministic=True, peaks=peaks))
     del calls
     torch.cuda.empty_cache()
-    return rows, roi_backward
+    return rows, roi_backward, roi_forward
 
 
 def picks_held(torch, module, recorded, moved):
@@ -6597,7 +6725,8 @@ def main() -> int:
         set_nms_row = phase_set_nms_kernels(np, torch)
         soft_large_k = phase_soft_nms_large_k(np, torch)
         cc_launches = phase_carafe_crowddet_serve(np, torch, card)
-        train2_rows, rpn_nms = phase_frcnn_train_kernels(np, torch)
+        train2_rows, rpn_nms, roi_train = phase_frcnn_train_kernels(
+            np, torch)
         phase_frcnn_train_reference(np, torch)
         train2_launches = phase_frcnn_train(np, torch, card)
         detr_train_row, detr_train_fwd = phase_detr_train_kernels(np,
@@ -6612,8 +6741,8 @@ def main() -> int:
         phase_mask_cornernet_reference(np, torch)
         mask_launches = phase_mask_serve(np, torch, card)
         cn_launches = phase_cornernet_serve(np, torch, card)
-        mask_train_rows, mask_roi_backward = phase_mask_train_kernels(
-            np, torch)
+        mask_train_rows, mask_roi_backward, mask_roi_forward = \
+            phase_mask_train_kernels(np, torch)
         phase_mask_train_reference(np, torch)
         mask_train_launches = phase_mask_train(np, torch, card)
         solo_rows = phase_solo_kernels(np, torch)
@@ -6656,6 +6785,15 @@ def main() -> int:
                     if 'roi_align' in counts:
                         by_path[path] = counts['roi_align']
                 row['mask_out14'] = roi14
+                # every training call's shape: the step's box call of each
+                # config, the mask configs' out-14 calls
+                row['train_shapes'] = [roi_train] + mask_roi_forward
+                row['redesigned'] = True
+                row['design'] = ('a block an (image, RoI), image-major; '
+                                 'the sample tables once a RoI; a lane a '
+                                 'sample column, walking down the sample '
+                                 'rows of four channels and reading each '
+                                 'pixel row once; bit-equal')
             if row['name'] == 'soft_nms':
                 row['large_k'] = soft_large_k
                 row['cornernet_k10000'] = soft_k10000

@@ -9,27 +9,34 @@
 // The level map is an input, computed once by the caller, so the kernel and
 // the plain version see the same levels.
 //
-// Thread layout: one thread per output element (roi, channel, bin row, bin
-// column), the bin column fastest, so a warp covers 32 of one channel's 49
-// bins and neighbouring threads read neighbouring pixels of one plane.
-// A thread computes its bin's sampling_ratio^2 sample positions, reads 4
-// pixels per sample (bf16 maps are widened in registers; the values equal
-// erd_tpu's astype(float32)) and sums the weighted samples in the plain
-// version's order: sample rows outer, sample columns inner, each sample
-// v00*hy*hx + v01*hy*lx + v10*ly*hx + v11*ly*lx left to right, then one
-// divide by sampling_ratio^2. Every op is rounded on its own (the library is
-// built with -fmad=false), so kernel and plain version agree to the bit.
+// Forward design (the comment above `roi_align_kernel` has the details).
+// ran a thread per output element, each recomputing its RoI's geometry
+// (nine IEEE divides, six axis samples), which set its pace: without its
+// map reads it kept ~80 % of its time at a bs-16 training call
+// (erd_tpu_torch/tools/atomic_backward_probe.py, part 7). Now a block
+// takes one (image, RoI), image-major, computes the RoI's sample rows and
+// columns once into shared tables, and its warps walk down the sample
+// rows of four channels at a time, a lane a sample column, reading each
+// pixel row once where neighbouring sample rows share it (training RoIs
+// are ~6-16 pixels on their level, so they do). Each output still sums
+// its samples in the plain version's order: sample rows outer, sample
+// columns inner, each sample v00*hy*hx + v01*hy*lx + v10*ly*hx +
+// v11*ly*lx left to right (bf16 maps widened, the values of erd_tpu's
+// astype(float32)), then one divide by sampling_ratio^2. Every op is
+// rounded on its own (the library is built with -fmad=false), so kernel
+// and plain version agree to the bit.
 //
 // Boundary rules of _bilinear_gather: a sample outside [-1, H] x [-1, W]
 // is 0; inside, the coordinate clamps at 0; y_low = min(int(y), H - 1), and
 // where y_low >= H - 1 the sample takes row H - 1 with weight 0 on the next
 // one (likewise in x).
 //
-// Bound on this card: bytes. The output is R * C * 49 floats (50 MB at
-// R = 1000, C = 256) and must be written; the reads are the feature pixels
-// under the RoIs (bf16, at most the 46 MB of P2-P5 at 800x1344), mostly
-// served from L2 since neighbouring bins and channels share cache lines.
-// The arithmetic (~60 flops per output) is far below the fp32 peak.
+// Bound on this card: bytes. The output is B * R * C * out^2 floats (411
+// MB at a bs-16 box call, 1.64 GB at the out-14 mask call) and must be
+// written; the reads are the feature pixels under the RoIs. The exact
+// arithmetic (48 float32 operations an output) takes about as long as the
+// output's write at 67 TFLOP/s, and with the walk's tests and shuffles it
+// sets the pace.
 //
 // Backward (`erd_roi_align_backward`): the transpose of the same gathers,
 // which erd_tpu got by autodiff (a scatter-add of each sample's four
@@ -80,6 +87,8 @@
 // the first design's atomics already reordered them: kernel and plain
 // version agree to float32 rounding of reordered sums, and the order of
 // the float4 atomics changes from run to run (not deterministic).
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,6 +101,9 @@ struct Levels {
   int w[4];
   float scale[4];
 };
+
+// the largest sampling_ratio of both kernels' tables
+constexpr int kMaxRatio = 8;
 
 __device__ __forceinline__ float widen(const float* p, size_t i) {
   return p[i];
@@ -115,75 +127,200 @@ __device__ __forceinline__ bool axis_sample(float pos, int size, int* i0,
   return true;
 }
 
+// Forward: at most kMaxSamples sample rows (and columns) a side,
+// out_size * sampling_ratio, so that a bin row's samples fit in a warp.
+constexpr int kMaxSamples = 32;
+constexpr int kFwdThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The values of one pixel row at the lane's two sample pixels in each of
+// kLaneChannels channel planes, from a cache of the last two rows a walk
+// down the samples fetched (the rows only move down, and the lanes of a
+// warp share them, so the tests are uniform): the row offset y * w of
+// each, and the values at x0 and x1 in each plane.
+constexpr int kLaneChannels = 4;
+
 template <typename T>
-__global__ void roi_align_kernel(Levels lv, const float* __restrict__ rois,
-                                 const int* __restrict__ levels, int r, int c,
-                                 int out_size, int s, long long total,
-                                 float* __restrict__ out) {
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (t >= total) return;
-  const int bins = out_size * out_size;
-  const int pw = static_cast<int>(t % out_size);
-  const int ph = static_cast<int>((t / out_size) % out_size);
-  const long long nc = t / bins;  // roi * c + channel
-  const int ch = static_cast<int>(nc % c);
-  const long long n = nc / c;  // b * r + roi
+struct RowCache {
+  int ya = -2, yb = -2;
+  float a0[kLaneChannels] = {}, a1[kLaneChannels] = {};
+  float b0[kLaneChannels] = {}, b1[kLaneChannels] = {};
+
+  __device__ __forceinline__ void get(const T* const* f, int y, int x0,
+                                      int x1, float* v0, float* v1) {
+    if (y != yb && y != ya) {  // fetch the row, dropping the older one
+      ya = yb;
+      yb = y;
+#pragma unroll
+      for (int k = 0; k < kLaneChannels; ++k) {
+        a0[k] = b0[k];
+        a1[k] = b1[k];
+        b0[k] = x0 >= 0 ? widen(f[k], y + x0) : 0.f;
+        b1[k] = x0 >= 0 ? widen(f[k], y + x1) : 0.f;
+      }
+    }
+    const bool newer = y == yb;
+#pragma unroll
+    for (int k = 0; k < kLaneChannels; ++k) {
+      v0[k] = newer ? b0[k] : a0[k];
+      v1[k] = newer ? b1[k] : a1[k];
+    }
+  }
+};
+
+// Block: one (image, RoI) and one group of its channels, blockIdx.x =
+// (b * r + roi) * groups + group: image-major, so that the RoIs of one
+// image run together and its maps stay in L2. Threads [0, 2 * n_s)
+// compute the RoI's n_s = out_size * s sample rows and columns once, as
+// the plain version places them, into shared tables (the weights 1 -
+// frac and frac, the two pixels' offsets, -1 off the map). Then a warp
+// takes 32 / n_s channels at a time, four times over (interleaved, so that
+// four planes' loads are in flight together), a lane a sample column of one,
+// and walks down the channel's sample rows: it reads a pixel row (the lane's
+// two pixels of it) only where the rows it last read do not hold it, so
+// that the samples of neighbouring rows, which share pixel rows, read them
+// once, and the lanes of a channel read along one row of its plane. A lane
+// computes its sample of each row, v00*hy*hx + v01*hy*lx + v10*ly*hx +
+// v11*ly*lx left to right (0 off the map); after each bin row, the bin's
+// first lane sums the bin's samples in the plain version's order (rows
+// outer, columns inner; the other lanes' by shuffles) and divides by s^2
+// (a product where s^2 is a power of two: the same value). Every op rounds
+// alike, so kernel and plain agree to the bit.
+// S > 0: the kernel for sampling ratio S (the models' 2), its loops
+// unrolled; S = 0: any ratio up to kMaxRatio, read from `ratio`.
+template <typename T, int S>
+__global__ void __launch_bounds__(kFwdThreads)
+roi_align_kernel(Levels lv, const float* __restrict__ rois,
+                 const int* __restrict__ levels, int r, int c, int out_size,
+                 int ratio, int groups, int per_group,
+                 float* __restrict__ out) {
+  constexpr int kR = S > 0 ? S : kMaxRatio;
+  const int s = S > 0 ? S : ratio;
+  // per sample row (column): (1 - frac, frac, offset of pixel 0, of pixel
+  // 1): y * w for rows, x for columns, as int bits; -1 off the map
+  __shared__ float4 row_tab[kMaxSamples], col_tab[kMaxSamples];
+  const int t = threadIdx.x;
+  const long long n = blockIdx.x / groups;  // b * r + roi
+  const int group = static_cast<int>(blockIdx.x - n * groups);
   const long long b = n / r;
   const int lvl = levels[n];
   const int h = lv.h[lvl], w = lv.w[lvl];
   const float scale = lv.scale[lvl];
-  const T* f = static_cast<const T*>(lv.feat[lvl]) +
-               (static_cast<size_t>(b) * c + ch) * h * w;
+  const int n_s = out_size * s;
+  if (t < 2 * n_s) {
+    const bool is_row = t < n_s;
+    const int i = is_row ? t : t - n_s;
+    const float* roi = rois + n * 4;
+    const float lo = __fsub_rn(__fmul_rn(roi[is_row ? 1 : 0], scale), 0.5f);
+    const float hi = __fsub_rn(__fmul_rn(roi[is_row ? 3 : 2], scale), 0.5f);
+    const float bin = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1e-6f),
+                                static_cast<float>(out_size));
+    const float g = __fadd_rn(static_cast<float>(i / s),
+                              __fdiv_rn(__fadd_rn(static_cast<float>(i % s),
+                                                  0.5f),
+                                        static_cast<float>(s)));
+    int i0 = 0, i1 = 0;
+    float frac = 0.f;
+    const int size = is_row ? h : w, unit = is_row ? w : 1;
+    const bool in = axis_sample(__fadd_rn(lo, __fmul_rn(bin, g)), size, &i0,
+                                &i1, &frac);
+    const float4 e = make_float4(__fsub_rn(1.f, frac), frac,
+                                 __int_as_float(in ? i0 * unit : -1),
+                                 __int_as_float(i1 * unit));
+    if (is_row)
+      row_tab[i] = e;
+    else
+      col_tab[i] = e;
+  }
+  __syncthreads();
 
-  const float* roi = rois + n * 4;
-  const float x1 = __fsub_rn(__fmul_rn(roi[0], scale), 0.5f);
-  const float y1 = __fsub_rn(__fmul_rn(roi[1], scale), 0.5f);
-  const float x2 = __fsub_rn(__fmul_rn(roi[2], scale), 0.5f);
-  const float y2 = __fsub_rn(__fmul_rn(roi[3], scale), 0.5f);
-  const float fout = static_cast<float>(out_size);
-  const float bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, x1), 1e-6f), fout);
-  const float bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, y1), 1e-6f), fout);
-  const float fs = static_cast<float>(s);
+  const int lane = t & 31, warp = t >> 5;
+  const int per_warp = 32 / n_s;  // channels a warp takes at once
+  const int sub = lane / n_s;
+  const int j = lane - sub * n_s;  // the lane's sample column
+  const int pw = j / s, ix = j - pw * s;
+  const bool active = sub < per_warp;
+  const float4 cx = col_tab[active ? j : 0];
+  const int x0 = active ? __float_as_int(cx.z) : -1;
+  const int x1i = __float_as_int(cx.w);
+  const float hx = cx.x, lx = cx.y;
+  const int c_begin = group * per_group;
+  const int c_end = min(c, c_begin + per_group);
+  const bool pow2 = (s & (s - 1)) == 0;
+  const float per_bin = 1.f / static_cast<float>(s * s);  // exact if pow2
+  const float fss = static_cast<float>(s * s);
+  const size_t plane = static_cast<size_t>(h) * w;
+  const int bins = out_size * out_size;
+  const T* fb = static_cast<const T*>(lv.feat[lvl]) +
+                static_cast<size_t>(b) * c * plane;
+  float* ob = out + n * c * bins;
 
-  // sample offsets within a bin, (i + 0.5) / s, as the plain version's
-  const auto sub = [fs](int i) {
-    return __fdiv_rn(__fadd_rn(static_cast<float>(i), 0.5f), fs);
-  };
-  float acc = 0.f;
-  for (int iy = 0; iy < s; ++iy) {
-    const float gy = __fadd_rn(static_cast<float>(ph), sub(iy));
-    int y0 = 0, y1i = 0;
-    float ly = 0.f;
-    const bool in_y = axis_sample(__fadd_rn(y1, __fmul_rn(bin_h, gy)), h, &y0,
-                                  &y1i, &ly);
-    const float hy = __fsub_rn(1.f, ly);
-    for (int ix = 0; ix < s; ++ix) {
-      const float gx = __fadd_rn(static_cast<float>(pw), sub(ix));
-      int x0 = 0, x1i = 0;
-      float lx = 0.f;
-      const bool in_x = axis_sample(__fadd_rn(x1, __fmul_rn(bin_w, gx)), w,
-                                    &x0, &x1i, &lx);
-      float v = 0.f;
-      if (in_y && in_x) {
-        const float hx = __fsub_rn(1.f, lx);
-        const size_t r0 = static_cast<size_t>(y0) * w;
-        const size_t r1 = static_cast<size_t>(y1i) * w;
-        v = __fmul_rn(__fmul_rn(widen(f, r0 + x0), hy), hx);
-        v = __fadd_rn(v, __fmul_rn(__fmul_rn(widen(f, r0 + x1i), hy), lx));
-        v = __fadd_rn(v, __fmul_rn(__fmul_rn(widen(f, r1 + x0), ly), hx));
-        v = __fadd_rn(v, __fmul_rn(__fmul_rn(widen(f, r1 + x1i), ly), lx));
+  // a lane takes channel ch and ch + per_warp (kLaneChannels of them),
+  // their loads issued together
+  constexpr int kStep = kLaneChannels * (kFwdThreads / 32);
+  for (int c0 = c_begin + warp * kLaneChannels * per_warp; c0 < c_end;
+       c0 += kStep * per_warp) {
+    const T* f[kLaneChannels];
+    bool live[kLaneChannels];
+#pragma unroll
+    for (int k = 0; k < kLaneChannels; ++k) {
+      const int ch = c0 + k * per_warp + sub;
+      live[k] = active && ch < c_end;
+      f[k] = fb + static_cast<size_t>(live[k] ? ch : c_begin) * plane;
+    }
+    RowCache<T> cache;
+    for (int ph = 0; ph < out_size; ++ph) {
+      float v[kR][kLaneChannels];
+#pragma unroll
+      for (int iy = 0; iy < kR; ++iy) {
+        if (iy >= s) break;
+        const float4 ry = row_tab[ph * s + iy];
+        const int r0 = __float_as_int(ry.z), r1 = __float_as_int(ry.w);
+        const float hy = ry.x, ly = ry.y;
+#pragma unroll
+        for (int k = 0; k < kLaneChannels; ++k) v[iy][k] = 0.f;
+        if (r0 >= 0) {
+          float v00[kLaneChannels], v01[kLaneChannels];
+          float v10[kLaneChannels], v11[kLaneChannels];
+          cache.get(f, r0, x0, x1i, v00, v01);
+          cache.get(f, r1, x0, x1i, v10, v11);
+          if (x0 >= 0) {
+#pragma unroll
+            for (int k = 0; k < kLaneChannels; ++k) {
+              float val = __fmul_rn(__fmul_rn(v00[k], hy), hx);
+              val = __fadd_rn(val, __fmul_rn(__fmul_rn(v01[k], hy), lx));
+              val = __fadd_rn(val, __fmul_rn(__fmul_rn(v10[k], ly), hx));
+              val = __fadd_rn(val, __fmul_rn(__fmul_rn(v11[k], ly), lx));
+              v[iy][k] = val;
+            }
+          }
+        }
       }
-      acc = __fadd_rn(acc, v);
+      // the bin's samples in order, on its first lane
+#pragma unroll
+      for (int k = 0; k < kLaneChannels; ++k) {
+        float acc = 0.f;
+#pragma unroll
+        for (int iy = 0; iy < kR; ++iy) {
+          if (iy >= s) break;
+          acc = __fadd_rn(acc, v[iy][k]);
+#pragma unroll
+          for (int dx = 1; dx < kR; ++dx) {
+            if (dx >= s) break;
+            acc = __fadd_rn(acc, __shfl_down_sync(kFull, v[iy][k], dx));
+          }
+        }
+        if (live[k] && ix == 0)
+          ob[(static_cast<size_t>(c0 + k * per_warp + sub) * out_size + ph) *
+                 out_size + pw] =
+              pow2 ? __fmul_rn(acc, per_bin) : __fdiv_rn(acc, fss);
+      }
     }
   }
-  out[t] = __fdiv_rn(acc, static_cast<float>(s * s));
 }
 
-
-// the largest out_size and sampling_ratio of the backward's shared tables
+// the largest out_size of the backward's shared tables
 constexpr int kMaxOut = 32;
-constexpr int kMaxRatio = 8;
 constexpr int kTile = 32;  // pixels (of a level's flat H * W) a flag covers
 
 struct BackwardLevels {
@@ -496,6 +633,9 @@ roi_align_backward_finish(BackwardLevels lv, int c, int cp) {
 // f0..f3: per-level (B, C, H_l, W_l) maps, fp32 or bf16 (is_bf16), unused
 // levels null with h = w = 0; rois (B, R, 4) fp32; levels (B, R) int32;
 // out (B, R, C, out_size, out_size) fp32. scale_l = 1 / stride_l.
+// out_size * sampling_ratio <= 32 and sampling_ratio <= 8 (the tables),
+// else cudaErrorInvalidValue. The channels are split into groups where
+// the RoIs alone would leave the card's SMs (`sms`) short of blocks.
 // Returns cudaGetLastError() after the launch.
 extern "C" int erd_roi_align(const void* f0, const void* f1, const void* f2,
                              const void* f3, const void* rois,
@@ -503,25 +643,35 @@ extern "C" int erd_roi_align(const void* f0, const void* f1, const void* f2,
                              int h1, int w1, int h2, int w2, int h3, int w3,
                              float s0, float s1, float s2, float s3,
                              int batch, int r, int c, int out_size,
-                             int sampling_ratio, int is_bf16, void* stream) {
-  const long long total =
-      static_cast<long long>(batch) * r * c * out_size * out_size;
-  if (total <= 0) return 0;
+                             int sampling_ratio, int sms, int is_bf16,
+                             void* stream) {
+  if (out_size < 1 || sampling_ratio < 1 || sampling_ratio > kMaxRatio ||
+      out_size * sampling_ratio > kMaxSamples)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rois_n = static_cast<long long>(batch) * r;
+  if (rois_n <= 0 || c <= 0) return 0;
   Levels lv = {{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3},
                {s0, s1, s2, s3}};
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((total + threads - 1) / threads);
+  // about 8 blocks an SM, each group at least 8 channels
+  const long long want = (8LL * sms + rois_n - 1) / rois_n;
+  const int split = static_cast<int>(
+      std::min<long long>(want, std::max((c + 7) / 8, 1)));
+  const int per_group = (c + split - 1) / split;
+  const int groups = (c + per_group - 1) / per_group;
+  const unsigned blocks = static_cast<unsigned>(rois_n * groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    roi_align_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+  const auto launch = [&](auto kernel) {
+    kernel<<<blocks, kFwdThreads, 0, st>>>(
         lv, static_cast<const float*>(rois), static_cast<const int*>(levels),
-        r, c, out_size, sampling_ratio, total, static_cast<float*>(out));
-  } else {
-    roi_align_kernel<float><<<blocks, threads, 0, st>>>(
-        lv, static_cast<const float*>(rois), static_cast<const int*>(levels),
-        r, c, out_size, sampling_ratio, total, static_cast<float*>(out));
-  }
+        r, c, out_size, sampling_ratio, groups, per_group,
+        static_cast<float*>(out));
+  };
+  const bool two = sampling_ratio == 2;
+  if (is_bf16)
+    launch(two ? roi_align_kernel<__nv_bfloat16, 2>
+               : roi_align_kernel<__nv_bfloat16, 0>);
+  else
+    launch(two ? roi_align_kernel<float, 2> : roi_align_kernel<float, 0>);
   return static_cast<int>(cudaGetLastError());
 }
 

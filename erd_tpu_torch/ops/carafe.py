@@ -203,7 +203,7 @@ def carafe_backward(x, logits, grad, up: int = 2, k_up: int = 5):
     in the logits' dtype).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``erd_carafe_backward`` (its weight and gather passes, one call counted
+    ``erd_carafe_backward`` (its dlogits and dx launches, one call counted
     in ``carafe_backward.launches``), which takes up = 2 and k_up = 5.
     """
     _check(x, logits, up, k_up)
@@ -214,22 +214,23 @@ def carafe_backward(x, logits, grad, up: int = 2, k_up: int = 5):
     if x.device.type == 'cpu':
         return carafe_backward_plain(x, logits, grad, up, k_up)
     _check_cuda('carafe_backward', x, logits, up, k_up, grad)
+    if any(t.data_ptr() % 16 for t in (x, logits, grad)):
+        raise ValueError('carafe_backward: the kernel copies aligned element '
+                         'pairs; x, logits and grad must start 16-byte '
+                         'aligned')
     dx = torch.empty_like(x)
     dlogits = torch.empty_like(logits)
-    # the softmax weights of every output pixel, float32 scratch
-    wts = torch.empty((b, k_up * k_up, h * up, w * up), dtype=torch.float32,
-                      device=x.device)
     lib = cuda_build.load('carafe')
     fn = lib.erd_carafe_backward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), logits.data_ptr(), grad.data_ptr(),
-                 wts.data_ptr(), dx.data_ptr(), dlogits.data_ptr(), b, c, h,
-                 w, CHANNELS_PER_THREAD, int(x.dtype == torch.bfloat16),
-                 stream)
+                 dx.data_ptr(), dlogits.data_ptr(), b, c, h, w, sms,
+                 int(x.dtype == torch.bfloat16), stream)
     cuda_build.check(lib, err, 'carafe_backward')
     carafe_backward.launches += 1
     return dx, dlogits

@@ -167,6 +167,12 @@ def _roi_align_kernel(feats, rois, levels, strides, out_size,
             any(f.dtype != dtype for f in feats):
         raise TypeError('roi_align: feats must all be float32 or bfloat16')
     _check_cuda('roi_align', feats, rois, levels)
+    if not (out_size >= 1 and 1 <= sampling_ratio <= MAX_RATIO and
+            out_size * sampling_ratio <= MAX_SAMPLES):
+        raise ValueError(f'roi_align kernel: out_size * sampling_ratio at '
+                         f'most {MAX_SAMPLES} and sampling_ratio 1 to '
+                         f'{MAX_RATIO} (its sample tables), got {out_size} '
+                         f'and {sampling_ratio}')
     b, c = feats[0].shape[:2]
     r, nl = rois.shape[1], len(feats)
     out = torch.empty((b, r, c, out_size, out_size), dtype=torch.float32,
@@ -176,13 +182,14 @@ def _roi_align_kernel(feats, rois, levels, strides, out_size,
     lib = cuda_build.load('roi_align')
     fn = lib.erd_roi_align
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
-                   [ctypes.c_float] * 4 + [ctypes.c_int] * 6 +
+                   [ctypes.c_float] * 4 + [ctypes.c_int] * 7 +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(rois.device).multi_processor_count
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*ptrs, rois.data_ptr(), levels.data_ptr(), out.data_ptr(),
-                 *hw, *scales, b, r, c, out_size, sampling_ratio,
+                 *hw, *scales, b, r, c, out_size, sampling_ratio, sms,
                  int(dtype == torch.bfloat16), stream)
     cuda_build.check(lib, err, 'roi_align')
     roi_align.launches += 1
@@ -230,7 +237,9 @@ def roi_align(feats: Sequence[torch.Tensor], rois, levels,
     maps (``roi_align_backward``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    launch for the batch, counted in ``roi_align.launches``).
+    launch for the batch, counted in ``roi_align.launches``), which takes
+    out_size * sampling_ratio up to 32 and sampling_ratio up to 8, and
+    raises beyond.
     """
     _check(feats, rois, levels, strides)
     if rois.device.type not in ('cpu', 'cuda'):
@@ -350,6 +359,7 @@ def roi_align_backward(grad, rois, levels, shapes, strides=(4, 8, 16, 32),
 
 
 MAX_OUT, MAX_RATIO = 32, 8  # the backward kernel's shared tables
+MAX_SAMPLES = 32  # the forward kernel's: out_size * sampling_ratio a side
 
 
 def scratch_channels(c):

@@ -2,9 +2,9 @@
 their time, on one CUDA GPU: the deformable im2col backward
 (``erd_deform_im2col_backward``, kernel 8b), the multi-scale deformable
 attention backward and forward (kernels 9b and 9), the RoIAlign backward
-(7b), the NMS keep kernel (row 1, with set-NMS, 11b), and the call times
-of the CARAFE (10b) and corner-pool (12a-b) backwards. Run from the
-repository root:
+(7b) and forward (row 7), the NMS keep kernel (row 1, with set-NMS, 11b),
+the CARAFE backward (10b) with the forward (row 10), and the call times
+of the corner-pool backward (12a-b). Run from the repository root:
 
     python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 9,7b]
 
@@ -64,8 +64,26 @@ conv_offset and sampling weights arranged):
    nonzero, the valid and the kept boxes, the bound (as ``chip_smoke.py``
    counts it), and the keep mask against the plain version and its time
    (events).
-6. others: the call time of the CARAFE backward (10b) at the 3 calls of
-   one FPN-CARAFE step and of the corner-pool backward (12a-b) in the 4
+6. 7, the RoIAlign forward (``erd_roi_align``), at the box call (out 7)
+   of one Faster R-CNN, Mask R-CNN and PointRend step, the out-14 mask
+   call of the last two, and the two serving calls ``PERF.md`` quotes
+   (1000 proposals of a Faster R-CNN request, 100 detections of a Mask
+   R-CNN request at out 14, with ``chip_smoke.py``'s edge boxes): the call
+   by graph replays and events, the plain version's time, the bytes bound
+   over the batch, the share of samples off their map, the RoIs per level
+   and their extent in pixels of their level, the elements where kernel
+   and plain differ (beside the 1e-6 * max|feat| gate), and by graph
+   replays the kernel without its map reads, without its store and
+   without its shuffles (``ROI_FORWARD_PARTS``, edited copies of
+   ``csrc/roi_align.cu``, on no path).
+7. 10b, the CARAFE backward, at the 3 calls of one FPN-CARAFE step: the
+   call by graph replays and events, each launch alone and the parts of
+   ``CARAFE_BACKWARD_PARTS`` (edited copies of ``csrc/carafe.cu``: the
+   parent design's float32 weight scratch taken out, the redesign's sums,
+   softmax, copies or gather weights taken out), the scratch's bytes,
+   the bound, the error against plain; and row 10, the forward, at the
+   same step's 3 calls (graph replays, events, plain, bound).
+8. others: the call time of the corner-pool backward (12a-b) in the 4
    directions of one CornerNet step: by events and graph replays on the
    step's own tensors (their strides printed), and on NCHW copies of them
    made before the timing (no copy in the call), and the copies alone;
@@ -74,8 +92,9 @@ conv_offset and sampling weights arranged):
    replaced (``POOL_BACKWARD_PARTS``, built from edited copies of
    ``csrc/corner_pool.cu`` in the build directory, on no path).
 
-``--only 9,7b`` runs the named parts alone, in that order (the parts: 8b,
-9b, 9, 7b, 1, others).
+A variant whose edits do not fit the source (another design's) is "not
+measured". ``--only 9,7b`` runs the named parts alone, in that order (the
+parts: 8b, 9b, 9, 7b, 1, 7, 10b, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -777,20 +796,8 @@ POOL_BACKWARD_PARTS = {
 
 
 def probe_other_backwards(smoke, report):
-    """Call time (events) of 10b at the 3 calls of one FPN-CARAFE step and
-    of 12a-b in the 4 directions of one CornerNet step (bs 6)."""
-    cb = importlib.import_module('erd_tpu_torch.ops.carafe')
-    calls = captured_calls(smoke, cb, 'carafe_backward', smoke.train_net,
-                           ('carafe',), lambda a: tuple(a[0].shape))
-    rows = []
-    for shape, (args, count) in sorted(calls['carafe'].items()):
-        ms = smoke.events_ms(torch, lambda: cb.carafe_backward(*args), 5)
-        rows.append(dict(x=list(shape), calls=count, call_ms=ms))
-        print(f'probe 10b: carafe x {shape} (x{count} a step): {ms:.4f} ms',
-              flush=True)
-    report['carafe_backward'] = dict(calls=rows, per_step_ms=sum(
-        r['calls'] * r['call_ms'] for r in rows))
-    del calls
+    """Call time of 12a-b in the 4 directions of one CornerNet step (bs
+    6)."""
     from erd_tpu_torch.ops import cuda_build
     en = importlib.import_module('erd_tpu_torch.ops.extra_nms')
     calls = captured_calls(
@@ -837,10 +844,299 @@ def probe_other_backwards(smoke, report):
     torch.cuda.empty_cache()
 
 
+def fitting_edits(name, alternatives):
+    """The first edit set of ``alternatives`` whose texts are all in
+    ``csrc/<name>.cu`` (one set per design the probe has measured), or
+    None where none fits."""
+    from erd_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / f'{name}.cu').read_text()
+    return next((edits for edits in alternatives
+                 if all(old in src for old in edits)), None)
+
+
+def variant_lib(name, variant, alternatives):
+    """``edited_lib`` with ``fitting_edits``, or None where none fits."""
+    edits = fitting_edits(name, alternatives)
+    return None if edits is None else edited_lib(name, variant, edits)
+
+
+def with_lib(name, lib, fn):
+    """``fn()`` with ``cuda_build.load(name)`` returning ``lib``."""
+    from erd_tpu_torch.ops import cuda_build
+    path_lib = cuda_build.load(name)
+    cuda_build._LIBS[name] = lib
+    try:
+        return fn()
+    finally:
+        cuda_build._LIBS[name] = path_lib
+
+
+# edits of csrc/roi_align.cu for part 7: the forward kernel with its map
+# reads replaced by constants (geometry, tables and the store left), and
+# with its store replaced by a test that keeps the sums live (the reads
+# and sums left); one edit set for each design measured
+ROI_FORWARD_PARTS = {
+    'no_gathers': (
+        {'widen(f, r0 + x0)': '1.f', 'widen(f, r0 + x1i)': '2.f',
+         'widen(f, r1 + x0)': '3.f', 'widen(f, r1 + x1i)': '4.f'},
+        {'b0[k] = x0 >= 0 ? widen(f[k], y + x0) : 0.f;': 'b0[k] = 1.f;',
+         'b1[k] = x0 >= 0 ? widen(f[k], y + x1) : 0.f;': 'b1[k] = 2.f;'}),
+    'no_store': (
+        {'out[t] = __fdiv_rn(acc, static_cast<float>(s * s));':
+         'if (acc == 12345.f) out[t] = 0.f;'},
+        {'if (live[k] && ix == 0)\n':
+         'if (live[k] && ix == 0 && acc == 12345.f)\n'}),
+    'no_shuffles': (
+        {'acc = __fadd_rn(acc, __shfl_down_sync(kFull, v[iy][k], dx));':
+         'acc = __fadd_rn(acc, v[iy][k]);'},),
+}
+
+
+def roi_extent(rois, levels, strides=(4, 8, 16, 32)):
+    """Quantiles (10, 50, 90 %) of the RoIs' height and width in pixels
+    of their own level."""
+    scale = 1.0 / torch.tensor(strides, device=rois.device)[levels.long()]
+    hw = (rois[..., 2:] - rois[..., :2]).flip(-1) * scale[..., None]
+    q = torch.tensor([0.1, 0.5, 0.9], device=rois.device)
+    return {name: [round(float(v), 2)
+                   for v in hw[..., k].flatten().quantile(q)]
+            for k, name in enumerate(('height', 'width'))}
+
+
+def with_edge_rois(smoke, args, batch):
+    """A serving call's arguments with the last 10 RoI slots replaced by
+    ``chip_smoke.serve_edge_rois`` and the levels mapped anew, as
+    ``chip_smoke.py`` checks that call."""
+    from erd_tpu_torch.ops import map_roi_levels
+    rois = args[1].clone()
+    h, w = batch['images'].shape[1:3]
+    rois[0, -10:] = smoke.serve_edge_rois(torch, w, h)
+    return (args[0], rois, map_roi_levels(rois, 4).contiguous()) + \
+        tuple(args[3:])
+
+
+def roi_forward_calls(smoke):
+    """[(name, args)]: part 7's RoIAlign forward calls: the out-7 box call
+    of one bs-16 800x1344 step of Faster R-CNN, Mask R-CNN and PointRend,
+    the out-14 mask call of the last two, and the two serving calls that
+    ``PERF.md`` quotes (one 800x1333 Faster R-CNN request's 1000 proposals,
+    one Mask R-CNN request's 100 detections at out 14; each with the 10
+    edge boxes of ``chip_smoke.py``)."""
+    import numpy as np
+
+    from erd_tpu_torch.apis import init_detector
+    ra = importlib.import_module('erd_tpu_torch.ops.roi_align')
+
+    def detached(args):
+        return tuple([f.detach() for f in a] if isinstance(a, list) else
+                     a.detach() if torch.is_tensor(a) else a for a in args)
+    out = []
+    got = smoke.train_step_calls(np, torch, 'frcnn', ('roi_align',))
+    out.append(('frcnn train box', detached(got['roi_align'][0])))
+    for kind in smoke.MASK_CONFIGS:
+        got = smoke.mask_train_step_calls(np, torch, kind, ('roi_align',))
+        for args in sorted(got['roi_align'], key=lambda a: a[4]):
+            part = 'box' if args[4] == 7 else 'mask'
+            out.append((f'{kind} train {part}', detached(args)))
+    del got
+    torch.cuda.empty_cache()
+    for kind, call in (('frcnn', 0), ('mask_rcnn', 1)):
+        if kind == 'frcnn':
+            det, net, _ = init_detector(smoke.FRCNN_CONFIGS['nms'],
+                                        device=smoke.DEV)
+            batch, _ = smoke.request_batch(np, torch, smoke.REQUESTS[-1])
+            smoke.arrange_fc_cls(torch, det, net, batch)
+        else:
+            det, net, batch = smoke.mask_net(np, torch, kind)
+        seen = []
+        restore = smoke.capture(ra, 'roi_align', seen)
+        try:
+            det.predict(net, batch)
+        finally:
+            restore()
+        out.append((f'{kind} serve out {seen[call][4]}',
+                    with_edge_rois(smoke, detached(seen[call]), batch)))
+        del det, net, seen
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_roi_forward(smoke, report):
+    """Row 7 at every call of ``roi_forward_calls``: the call by graph
+    replays and events, the plain version's time, the bytes bound over
+    the batch, the share of samples off their map, the RoIs per level, the
+    elements where kernel and plain differ (beside the 1e-6 * max|feat|
+    gate), and the ``ROI_FORWARD_PARTS`` variants by graph replays."""
+    ra = importlib.import_module('erd_tpu_torch.ops.roi_align')
+    variants = {v: variant_lib('roi_align', f'forward_{v}', alts)
+                for v, alts in ROI_FORWARD_PARTS.items()}
+    rows = []
+    for name, args in roi_forward_calls(smoke):
+        feats, rois, levels, strides, out_size, ratio = args[:6]
+        b, r = levels.shape
+        n = 20 if b == 1 else 5
+
+        def call():
+            return ra.roi_align(*args)
+        got = call()
+        want = ra.roi_align_plain(*args)
+        feat_max = max(float(f.float().abs().max()) for f in feats)
+        err = float((got - want).abs().max())
+        differ = int((got != want).sum())
+        del got, want
+        shapes = [tuple(f.shape[2:]) for f in feats]
+        n_samples, n_off = smoke.roi_sample_stats(
+            torch, rois, levels, shapes, out_size=out_size, ratio=ratio)
+        nbytes, ops = smoke.roi_align_cost(torch, feats, rois, levels,
+                                           out_size, ratio)
+        bound, bound_by = smoke.bound_of(nbytes, ops)
+        graph = smoke.graph_ms(torch, call, n)
+        events = smoke.events_ms(torch, call, n)
+        plain = smoke.events_ms(torch, lambda: ra.roi_align_plain(*args), 1)
+        parts = {v: None if lib is None else with_lib(
+            'roi_align', lib, lambda: smoke.graph_ms(torch, call, n))
+            for v, lib in variants.items()}
+        row = dict(call=name, batch=b, rois=r, out=out_size,
+                   maps=str(feats[0].dtype),
+                   extent_px=roi_extent(rois, levels),
+                   per_level=torch.bincount(levels.flatten().long(),
+                                            minlength=4).tolist(),
+                   samples_off_map=n_off / max(n_samples, 1),
+                   graph_ms=graph, events_ms=events, plain_ms=plain,
+                   bound_ms=bound, bound_by=bound_by, bound_bytes=nbytes,
+                   ops=ops, max_abs_err=err, limit=1e-6 * feat_max,
+                   elements_differ=differ, **{f'{v}_ms': t for v, t in
+                                              parts.items()})
+        rows.append(row)
+        print(f'probe 7: {name} B={b} R={r} out {out_size} {feats[0].dtype} '
+              f'levels {row["per_level"]}, {row["samples_off_map"]:.2%} of '
+              f'the samples off their map: {graph:.4f} ms (graph), '
+              f'{events:.4f} (events); RoI extent on its level (10/50/90 %) '
+              f'{row["extent_px"]}; plain {plain:.2f}; bound '
+              f'{bound:.4f} ({bound_by}; {nbytes} bytes); max_abs_err '
+              f'{err:.3e} (limit {1e-6 * feat_max:.3e}), {differ} elements '
+              f'differ from plain; ' + ', '.join(
+                  f'{v} {fmt(t)}' for v, t in parts.items()), flush=True)
+        if err > 1e-6 * feat_max:
+            raise RuntimeError(f'probe 7: {name}: kernel and plain differ '
+                               f'beyond 1e-6 * max|feat|')
+        del args
+        torch.cuda.empty_cache()
+    report['roi_align'] = rows
+
+
+# edits of csrc/carafe.cu for part 10b: one pass of the backward skipped
+# (the call's time is then the other pass), and the parent's float32
+# weight scratch taken out of both passes (pass 1 stores no weights, pass
+# 2 reads a constant); one edit set for each design measured
+CARAFE_BACKWARD_PARTS = {
+    'logits_pass_only': ({'carafe_backward_x_kernel<':
+                          'if (false) carafe_backward_x_kernel<'},),
+    'x_pass_only': ({'carafe_backward_logits_kernel<':
+                     'if (false) carafe_backward_logits_kernel<'},),
+    'no_weight_scratch': (
+        {'wts[(n * kTaps + k) * hw2 + pix] = wt[k];': ';',
+         'wv[q] = wts[(n * kTaps + k) * hw2 + p[q]];': 'wv[q] = 0.04f;'},),
+    # the redesign's parts: the dlogits launch without its dw sums, and
+    # without its softmax epilogue; the dx launch with adds for its
+    # multiply-adds (no gather weights)
+    'logits_no_sums': (
+        {'dw[k][0] = __fmaf_rn(g0.x, v, dw[k][0]);': '',
+         'dw[k][1] = __fmaf_rn(g0.y, v, dw[k][1]);': '',
+         'dw[k][2] = __fmaf_rn(g1.x, v, dw[k][2]);': '',
+         'dw[k][3] = __fmaf_rn(g1.y, v, dw[k][3]);':
+         'dw[k][3] = __fadd_rn(dw[k][3], g1.y);'},),
+    'logits_no_softmax': (
+        {'softmax_weights(logits + base, hw, wt);':
+         'for (int k = 0; k < kTaps; ++k) wt[k] = 0.04f;'},),
+    'no_copies': (  # the copies' PTX made comments
+        {'cp.async.ca.shared.global [%0], [%1], 4, %2;':
+         '// [%0], [%1], 4, %2;',
+         'cp.async.ca.shared.global [%0], [%1], 8, %2;':
+         '// [%0], [%1], 8, %2;'},),
+    'x_no_weights': (
+        {'a[0] = __fmaf_rn(wq[k][0], g0.x, a[0]);': 'a[0] += g0.x;',
+         'a[1] = __fmaf_rn(wq[k][1], g0.y, a[1]);': 'a[1] += g0.y;',
+         'a[2] = __fmaf_rn(wq[k][2], g0.z, a[2]);': 'a[2] += g0.z;',
+         'a[3] = __fmaf_rn(wq[k][3], g0.w, a[3]);': 'a[3] += g0.w;',
+         'b[0] = __fmaf_rn(wq[k][0], g1.x, b[0]);': 'b[0] += g1.x;',
+         'b[1] = __fmaf_rn(wq[k][1], g1.y, b[1]);': 'b[1] += g1.y;',
+         'b[2] = __fmaf_rn(wq[k][2], g1.z, b[2]);': 'b[2] += g1.z;',
+         'b[3] = __fmaf_rn(wq[k][3], g1.w, b[3]);': 'b[3] += g1.w;'},),
+}
+
+
+def probe_carafe(smoke, report):
+    """Row 10b at the 3 calls of one bs-16 800x1344 FPN-CARAFE step (by
+    graph replays and events; its passes apart and without the weight
+    scratch by ``CARAFE_BACKWARD_PARTS``; the float32 scratch's bytes; the
+    bound), and row 10, the forward, at the same step's 3 calls."""
+    import numpy as np
+    cb = importlib.import_module('erd_tpu_torch.ops.carafe')
+    calls = smoke.train_step_calls(np, torch, 'carafe',
+                                   ('carafe', 'carafe_backward'))
+    variants = {v: variant_lib('carafe', f'backward_{v}', alts)
+                for v, alts in CARAFE_BACKWARD_PARTS.items()}
+    rows, fwd = [], []
+    for args in sorted(calls['carafe_backward'], key=lambda a: a[0].shape[2]):
+        x, logits, g = (a.detach() for a in args[:3])
+
+        def call():
+            return cb.carafe_backward(x, logits, g)
+        got = call()
+        want = cb.carafe_backward_plain(x, logits, g)
+        errs = [float((a.float() - w.float()).abs().max()) /
+                float(w.float().abs().max()) for a, w in zip(got, want)]
+        del got, want
+        nbytes, ops, bf16_ops = smoke.carafe_backward_cost(x, logits, g)
+        bound, bound_by = smoke.bound_of(nbytes, ops, bf16_ops)
+        b, _, h, w = x.shape
+        scratch = b * 25 * 4 * h * w * 4
+        graph = smoke.graph_ms(torch, call, 10)
+        events = smoke.events_ms(torch, call, 10)
+        parts = {v: None if lib is None else with_lib(
+            'carafe', lib, lambda: smoke.graph_ms(torch, call, 10))
+            for v, lib in variants.items()}
+        row = dict(x=list(x.shape), graph_ms=graph, events_ms=events,
+                   bound_ms=bound, bound_by=bound_by, bound_bytes=nbytes,
+                   ops=ops, bf16_ops=bf16_ops,
+                   err_over_max_plain=dict(zip(('dx', 'dlogits'), errs)),
+                   weight_scratch_bytes=scratch,
+                   **{f'{v}_ms': t for v, t in parts.items()})
+        rows.append(row)
+        print(f'probe 10b: x {tuple(x.shape)} {x.dtype}: {graph:.4f} ms '
+              f'(graph), {events:.4f} (events); ' + ', '.join(
+                  f'{v} {fmt(t)}' for v, t in parts.items()) +
+              f'; the float32 weight scratch {scratch / 1e6:.1f} MB written '
+              f'once and read back ({2 * scratch / nbytes:.1%} of the '
+              f'bound\'s {nbytes / 1e6:.1f} MB); bound {bound:.4f} '
+              f'({bound_by}); dx, dlogits within {errs[0]:.2e}, '
+              f'{errs[1]:.2e} of max|plain|', flush=True)
+    for args in sorted(calls['carafe'], key=lambda a: a[0].shape[2]):
+        x, logits = (a.detach() for a in args[:2])
+        nbytes, ops = smoke.carafe_cost(x, logits)
+        bound, bound_by = smoke.bound_of(nbytes, ops)
+        graph = smoke.graph_ms(torch, lambda: cb.carafe(x, logits), 10)
+        events = smoke.events_ms(torch, lambda: cb.carafe(x, logits), 10)
+        plain = smoke.events_ms(torch, lambda: cb.carafe_plain(x, logits), 2)
+        fwd.append(dict(x=list(x.shape), graph_ms=graph, events_ms=events,
+                        plain_ms=plain, bound_ms=bound, bound_by=bound_by))
+        print(f'probe 10: forward x {tuple(x.shape)} {x.dtype}: {graph:.4f} '
+              f'ms (graph), {events:.4f} (events); plain {plain:.3f}; '
+              f'bound {bound:.4f} ({bound_by})', flush=True)
+    report['carafe_backward'] = dict(calls=rows, per_step_graph_ms=sum(
+        r['graph_ms'] for r in rows))
+    report['carafe'] = dict(train_calls=fwd, per_step_graph_ms=sum(
+        r['graph_ms'] for r in fwd))
+    del calls
+    torch.cuda.empty_cache()
+
+
 # the probe's parts, by the kernel rows of PERF.md
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
-         '1': probe_nms, 'others': probe_other_backwards}
+         '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
+         'others': probe_other_backwards}
 
 
 def main(argv=None) -> int:

@@ -930,12 +930,16 @@ def roi_align_backward_launches():
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('shape', [(2, 256, 25, 42), (2, 40, 7, 9)])
+@pytest.mark.parametrize('shape', [(2, 256, 25, 42), (2, 40, 7, 9),
+                                   (1, 256, 100, 168), (2, 20, 37, 45),
+                                   (2, 13, 1, 1), (1, 9, 2, 3)])
 def test_carafe_backward_kernel_matches_plain(cuda, dtype, shape):
-    """The top FPN-CARAFE step of an 800x1344 canvas at batch 2, and odd
-    sizes with a partial channel chunk; peaked logits. dx and dlogits
-    within 1e-5 * max|plain| in float32 (sums over taps and channels in
-    another order); in bf16 within one bf16 ulp or 1e-5 * max|plain|."""
+    """The top FPN-CARAFE step of an 800x1344 canvas at batch 2 and its
+    largest at batch 1, odd sizes (37 x 45: ragged tiles), channel counts
+    that leave a partial chunk (13, 20, 9), and 1 x 1 and 2 x 3 maps where
+    every window is clipped; peaked logits. dx and dlogits within 1e-5 *
+    max|plain| in float32 (sums over taps and channels in another order);
+    in bf16 within one bf16 ulp or 1e-5 * max|plain|."""
     from erd_tpu_torch.ops import carafe_backward, carafe_backward_plain
     rs = np.random.RandomState(shape[1] + 1)
     b, c, h, w = shape
@@ -2181,3 +2185,96 @@ def test_roi_align_backward_kernel_refuses_what_its_tables_do_not_hold(cuda):
         with pytest.raises(ValueError, match='out_size'):
             roi_align_backward(grad, rois, levels, [(20, 24)], (4,),
                                out_size=out_size, sampling_ratio=ratio)
+
+
+@pytest.mark.parametrize('out_size', [7, 14])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_roi_align_kernel_at_the_training_calls(cuda, out_size, dtype):
+    """The box (out 7) and mask (out 14) calls of a training step at bs 2:
+    512 RoIs an image on the full-width 800x1344 P2-P5, chip_smoke.py's 15
+    edge RoIs in each image, RoIs on all four levels (and elongated ones,
+    whose samples spread over many pixel rows or columns). Bit-equal to
+    plain, as the kernel is at every call chip_smoke.py makes."""
+    rs = np.random.RandomState(out_size + 40)
+    b, r = 2, 512
+    feats = [torch.from_numpy(rs.randn(b, 256, h, w).astype(np.float32)).to(
+        cuda).to(dtype) for h, w in ROI_LEVELS]
+    xy = rs.uniform(-30, [1344, 800], (b, r, 2))
+    wh = np.exp(rs.uniform(np.log(2), np.log(900), (b, r, 2)))
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[:, :len(EDGE_ROIS)] = EDGE_ROIS
+    rois = torch.from_numpy(rois).to(cuda)
+    levels = map_roi_levels(rois, 4)
+    assert all(len(torch.unique(lv)) == 4 for lv in levels)
+    before = roi_align.launches
+    got = roi_align(feats, rois, levels, out_size=out_size)
+    torch.cuda.synchronize()
+    assert roi_align.launches == before + 1
+    want = roi_align_plain(feats, rois, levels, (4, 8, 16, 32), out_size)
+    assert got.shape == (b, r, 256, out_size, out_size)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('out_size,ratio', [(7, 1), (7, 3), (5, 4),
+                                            (4, 8), (32, 1), (16, 2),
+                                            (3, 5)])
+def test_roi_align_kernel_other_tables(cuda, out_size, ratio):
+    """Sampling ratios other than 2 (3 and 5: divides that are no power of
+    two), and the largest tables the kernel holds (out_size * ratio = 32,
+    a warp a bin row; ratio 8): bit-equal to plain on 96 RoIs of 2 images,
+    40 channels."""
+    rs = np.random.RandomState(out_size * 10 + ratio)
+    b, r = 2, 96
+    shapes = [(100, 168), (50, 84), (25, 42), (13, 21)]
+    feats = [torch.from_numpy(rs.randn(b, 40, h, w).astype(np.float32)).to(
+        cuda).to(torch.bfloat16) for h, w in shapes]
+    xy = rs.uniform(-30, [672, 400], (b, r, 2))
+    wh = np.exp(rs.uniform(np.log(1), np.log(600), (b, r, 2)))
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32)).to(cuda)
+    levels = map_roi_levels(rois, 4)
+    got = roi_align(feats, rois, levels, out_size=out_size,
+                    sampling_ratio=ratio)
+    torch.cuda.synchronize()
+    want = roi_align_plain(feats, rois, levels, (4, 8, 16, 32), out_size,
+                           ratio)
+    assert torch.equal(got, want)
+
+
+def test_roi_align_kernel_refuses_what_its_tables_do_not_hold(cuda):
+    """out_size * sampling_ratio above 32, sampling_ratio above 8, or
+    either below 1, raises before a launch (the kernel's tables hold 32
+    samples a side, a bin row's in one warp)."""
+    feats = [torch.zeros((1, 8, 20, 24), device=cuda)]
+    rois = torch.tensor([[[4.0, 4.0, 60.0, 50.0]]], device=cuda)
+    levels = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    before = roi_align.launches
+    for out_size, ratio in ((17, 2), (7, 5), (33, 1), (3, 9), (7, 0),
+                            (0, 2)):
+        with pytest.raises(ValueError, match='out_size'):
+            roi_align(feats, rois, levels, (4,), out_size, ratio)
+    assert roi_align.launches == before
+
+
+def test_carafe_backward_kernel_is_deterministic_and_needs_no_scratch(cuda):
+    """At the 100x168 call at batch 1 (bf16): two calls give the same bits
+    (no atomics, sums in a fixed order), and a call allocates its two
+    outputs and nothing else: the float32 weight scratch would add 6.7 MB,
+    beyond the allocator's rounding of two blocks."""
+    from erd_tpu_torch.ops import carafe_backward
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(1, 256, 100, 168, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    logits = (torch.randn(1, 100, 100, 168, device=cuda, generator=gen) *
+              2).to(torch.bfloat16)
+    g = torch.randn(1, 256, 200, 336, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    first = carafe_backward(x, logits, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    start = torch.cuda.memory_allocated(cuda)
+    second = carafe_backward(x, logits, g)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - start
+    assert grown < (x.numel() + logits.numel()) * 2 + 3 * 2 ** 20
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

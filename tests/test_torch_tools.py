@@ -174,12 +174,54 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     unknown part name is refused with the list, and without a CUDA device
     every known part exits 1 before it measures anything."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe
-    assert list(probe.PARTS) == ['8b', '9b', '9', '7b', '1', 'others']
+    parts = ['8b', '9b', '9', '7b', '1', '7', '10b', 'others']
+    assert list(probe.PARTS) == parts
     assert probe.main(['--only', '1,nms']) == 2
-    assert "['8b', '9b', '9', '7b', '1', 'others']" in \
-        capsys.readouterr().err
+    assert str(parts) in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert probe.main(['--only', '1,others']) == 1
+    assert probe.main(['--only', '7,10b']) == 1
+
+
+@pytest.mark.parametrize('name,parts,parent_only', [
+    ('roi_align', 'ROI_FORWARD_PARTS', ()),
+    ('carafe', 'CARAFE_BACKWARD_PARTS', ('no_weight_scratch',))])
+def test_probe_variants_fit_the_kernel_sources(name, parts, parent_only):
+    """Parts 7 and 10b build their variants from edited copies of
+    csrc/roi_align.cu and csrc/carafe.cu: every variant but the parent
+    design's weight-scratch one finds an edit set whose texts are all in
+    the present source, and each replacement changes the text."""
+    from erd_tpu_torch.tools import atomic_backward_probe as probe
+    for variant, alternatives in getattr(probe, parts).items():
+        edits = probe.fitting_edits(name, alternatives)
+        if variant in parent_only:
+            assert edits is None
+            continue
+        assert edits is not None, variant
+        assert all(old != new for old, new in edits.items())
+
+
+def test_roi_align_cost_counts_the_whole_batch():
+    """chip_smoke.py's RoIAlign bound counts the map pixels, RoIs and
+    output of every image of the batch: a 2-image call costs the sum of
+    its images' calls."""
+    import numpy as np
+    smoke = importlib.import_module('chip_smoke')
+    from erd_tpu_torch.ops import map_roi_levels
+    rs = np.random.RandomState(2)
+    feats = [torch.from_numpy(rs.randn(2, 3, h, w).astype(np.float32))
+             for h, w in ((40, 64), (20, 32), (10, 16), (5, 8))]
+    xy = rs.uniform(-20, [256, 160], (2, 30, 2))
+    rois = torch.from_numpy(np.concatenate(
+        [xy, xy + rs.uniform(2, 200, (2, 30, 2))], -1).astype(np.float32))
+    levels = map_roi_levels(rois, 4)
+    both = smoke.roi_align_cost(torch, feats, rois, levels, 14)
+    one = [smoke.roi_align_cost(torch, [f[i:i + 1] for f in feats],
+                                rois[i:i + 1], levels[i:i + 1], 14)
+           for i in range(2)]
+    assert both == tuple(map(sum, zip(*one)))
+    assert both[1] == 2 * 30 * 3 * 196 * 48.0
+    assert both[0] > 2 * 30 * 3 * 196 * 4
 
 
 @pytest.mark.parametrize('group', [False, True])
