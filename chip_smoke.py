@@ -133,7 +133,11 @@ Phases, in order; any failed check exits non-zero before the last line:
                 reorder the sums), rounded to bf16 within one bf16 ulp,
                 timed (the kernel a launch; the call: memset, kernel,
                 rounding pass); the NMS
-                on the RPN call at K = 8819 exactly; the CARAFE
+                on the RPN call at K = 8819 exactly; the CARAFE forward
+                kernel on the 3 calls of the FPN-CARAFE step, within one
+                bf16 ulp of plain and differing from it in no element (the
+                parent design's count there), timed by graph replays (the
+                carafe row's train_shapes); the CARAFE
                 backward kernel on the 3 calls of the FPN-CARAFE step (dx
                 and dlogits; float32 within 1e-5 * max|plain|, bf16 within
                 one ulp), its dlogits and dx launches apart; each timed
@@ -275,7 +279,8 @@ Phases, in order; any failed check exits non-zero before the last line:
                 to the plain version; the point-sample backward on the
                 PointRend step's two calls (the coarse float32 logits, the
                 bf16 channels-last P2; float32 sums within 1e-5 *
-                max|plain|, the bf16 map's gradient within one ulp); the
+                max|plain|, the bf16 map's gradient within one ulp; two
+                calls equal; its launches apart by the profiler); the
                 corner-pool backward on the 8 calls of a CornerNet HG-104
                 step (bs 6, 768x1024, float32), bit-equal to the plain
                 version (erd_tpu's scan-tree split of ties), and with NaNs
@@ -2882,7 +2887,12 @@ def phase_carafe_kernels(np, torch):
                 ms_from=big['ms_from'], ms_at=f'x {big["x"]}',
                 plain_ms=big['plain_ms'], bound_ms=big['bound_ms'],
                 bound_by=big['bound_by'], library_ms=None, shapes=shapes,
-                per_request_ms=sum(t['ms'] for t in shapes))
+                per_request_ms=sum(t['ms'] for t in shapes),
+                redesigned=True, design='a block a 5 x 42 tile of source '
+                'pixels (channel groups for small calls), a thread a source '
+                'pixel with its 100 softmax weights in registers; x and its '
+                'halo staged by cp.async rings; 25 shared reads a channel '
+                'serve 4 outputs; paired stores; bit-equal to plain')
 
 
 def phase_set_nms_kernels(np, torch):
@@ -3332,10 +3342,12 @@ def train_step_calls(np, torch, kind, names):
 
 def phase_frcnn_train_kernels(np, torch):
     """RoIAlign's forward and backward kernels and the NMS on one bs-16,
-    800x1344 Faster R-CNN step's calls, CARAFE's backward kernel on one
-    FPN-CARAFE step's, each against its plain version; then timed.
-    Returns (rows, the RPN NMS call, the RoIAlign forward's box call)."""
-    from erd_tpu_torch.ops import (carafe_backward, carafe_backward_plain,
+    800x1344 Faster R-CNN step's calls, CARAFE's forward and backward
+    kernels on one FPN-CARAFE step's, each against its plain version; then
+    timed. Returns (rows, the RPN NMS call, the RoIAlign forward's box
+    call, the CARAFE forward's calls)."""
+    from erd_tpu_torch.ops import (carafe, carafe_backward,
+                                   carafe_backward_plain, carafe_plain,
                                    map_roi_levels, nms_sorted_keep,
                                    nms_sorted_keep_plain)
     rows = []
@@ -3444,6 +3456,38 @@ def phase_frcnn_train_kernels(np, torch):
     check(sorted(sizes) == level_sizes((32, 16, 8)) and
           len(calls['carafe']) == 3,
           f'CARAFE backward calls of one step at {sizes}')
+    carafe_train = []
+    for x, logits in sorted((a[:2] for a in calls['carafe']),
+                            key=lambda a: a[0].shape[2]):
+        check(x.dtype == torch.bfloat16 and x.shape[0] == TRAIN_BATCH and
+              x.shape[1] == 256, f'CARAFE call {tuple(x.shape)}: not bs 16 '
+              f'bf16')
+        x, logits = x.detach(), logits.detach()
+        got = carafe(x, logits)
+        torch.cuda.synchronize()
+        want = carafe_plain(x, logits)
+        ulps = int(bf16_ulps(torch, got, want).max())
+        differ = int((got != want).sum())
+        del got, want
+        # the parent design differed from plain in no element at these
+        # calls (atomic_backward_probe.py part 10)
+        check(ulps <= 1 and differ == 0, f'CARAFE forward kernel at '
+              f'{tuple(x.shape)}: {differ} elements differ from plain, up '
+              f'to {ulps} bf16 ulp')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: carafe(x, logits), lambda: carafe_plain(x, logits),
+            n=10)
+        nbytes, ops = carafe_cost(x, logits)
+        bms, by = bound_of(nbytes, ops)
+        carafe_train.append(dict(x=list(x.shape), ms=ms, call_ms=call_ms,
+                                 ms_from=src, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by,
+                                 bound_bytes=nbytes, max_bf16_ulps=ulps,
+                                 elements_differ=differ))
+        log(f'frcnn train kernels: carafe {tuple(x.shape)}: {ulps} bf16 ulp '
+            f'at most, {differ} elements differ from plain; {ms:.4f} ms '
+            f'device ({src}), {call_ms:.4f} ms per call, plain '
+            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes)')
     shapes_out, worst, worst_ulps = [], 0.0, 0
     for x, logits, g in sorted((a[:3] for a in calls['carafe_backward']),
                                key=lambda a: a[0].shape[2]):
@@ -3515,7 +3559,7 @@ def phase_frcnn_train_kernels(np, torch):
                      per_step_ms=sum(t['ms'] for t in shapes_out)))
     del calls
     torch.cuda.empty_cache()
-    return rows, rpn_nms, roi_forward
+    return rows, rpn_nms, roi_forward, carafe_train
 
 
 @contextlib.contextmanager
@@ -5716,14 +5760,24 @@ def phase_mask_train_kernels(np, torch):
         xs, ys = pts[..., 0] * w - 0.5, pts[..., 1] * h - 0.5
         off = float(((xs < 0) | (xs > w - 1) | (ys < 0) |
                      (ys > h - 1)).float().mean())
+        again = torch.equal(point_sample_backward(*args), got)
         log(f'mask/corner train kernels: point_sample_backward {shape} '
             f'{dtype}, {n * k} points: max_abs_err={err:.3e} (limit '
-            f'{limit:.3e}, 1e-5*max|plain|; atomics reorder the sums), '
-            f'{off:.2%} of the points with a corner off the map, strides '
-            f'{tuple(got.stride())}')
+            f'{limit:.3e}, 1e-5*max|plain|; the kernel sums each pixel in '
+            f'its tile list\'s order), {off:.2%} of the points with a '
+            f'corner off the map, strides {tuple(got.stride())}; two calls '
+            f'equal {again}')
+        check(again, f'point-sample backward kernel at {shape}: two calls '
+              f'differ')
         ms, call_ms, src, plain_ms = time_graph(
             torch, lambda: point_sample_backward(*args),
             lambda: point_sample_backward_plain(grad, pts, shape), n=10)
+        # its device operations apart: a launch by the mean of the
+        # profiler's records (binning only where the map is cut into tiles)
+        ops_ms = {op: launch_ms(torch, lambda: point_sample_backward(*args),
+                                f'point_sample_{op}_kernel', 5)[0]
+                  for op in ('rank', 'scan', 'scan_sums', 'scatter',
+                             'gather')}
         maps = torch.zeros(shape, device=DEV, dtype=torch.float32)
         leaf = maps.requires_grad_()
         gs_out = grid_sample_points(torch, leaf, pts)
@@ -5738,15 +5792,18 @@ def phase_mask_train_kernels(np, torch):
             n * c * h * w * out_bytes
         bms, by = bound_of(nbytes, n * k * c * 12.0)
         log(f'mask/corner train kernels: point_sample_backward {shape}: '
-            f'{ms:.4f} ms device ({src}; the zeroed float32 buffer and the '
-            f'rounding included), {call_ms:.4f} ms per call, plain '
-            f'{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} bytes); '
-            f'F.grid_sample\'s backward on the widened float32 map '
+            f'{ms:.4f} ms device ({src}; every launch of the call), '
+            f'{call_ms:.4f} ms per call; launches (profiler): ' + ', '.join(
+                f'{op} {v:.4f}' if v else f'{op} no record'
+                for op, v in ops_ms.items()) +
+            f'; plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes} '
+            f'bytes); F.grid_sample\'s backward on the widened float32 map '
             f'{library_ms:.4f} ms (events; within {lib_err:.3e} of plain)')
         shapes.append(dict(maps=list(shape), dtype=str(dtype), points=n * k,
                            ms=ms, call_ms=call_ms, ms_from=src,
                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                           library_ms=library_ms, max_abs_err=err))
+                           library_ms=library_ms, max_abs_err=err,
+                           ops_ms=ops_ms, repeat_equal=again))
         del maps, leaf, gs_out
     fine = max(shapes, key=lambda t: t['maps'][2])
     rows.append(dict(name='point_sample_backward', route='cuda',
@@ -5756,8 +5813,13 @@ def phase_mask_train_kernels(np, torch):
                      call_ms=fine['call_ms'], ms_from=fine['ms_from'],
                      ms_at=f'maps {fine["maps"]}', plain_ms=fine['plain_ms'],
                      bound_ms=fine['bound_ms'], bound_by=fine['bound_by'],
-                     library_ms=fine['library_ms'], deterministic=False,
-                     shapes=shapes))
+                     library_ms=fine['library_ms'], deterministic=True,
+                     redesigned=True, design='a block a tile of pixels '
+                     '(a 14 x 14 map, or 8 x 8 of P2 after a stable '
+                     'counting sort of the points by tile), float32 sums in '
+                     'shared memory, a warp 32 channels; each point\'s '
+                     'gradient read once a tile; written once; no float '
+                     'atomics, no float32 buffer', shapes=shapes))
     del ps_calls
     torch.cuda.empty_cache()
 
@@ -6725,8 +6787,8 @@ def main() -> int:
         set_nms_row = phase_set_nms_kernels(np, torch)
         soft_large_k = phase_soft_nms_large_k(np, torch)
         cc_launches = phase_carafe_crowddet_serve(np, torch, card)
-        train2_rows, rpn_nms, roi_train = phase_frcnn_train_kernels(
-            np, torch)
+        train2_rows, rpn_nms, roi_train, carafe_train = \
+            phase_frcnn_train_kernels(np, torch)
         phase_frcnn_train_reference(np, torch)
         train2_launches = phase_frcnn_train(np, torch, card)
         detr_train_row, detr_train_fwd = phase_detr_train_kernels(np,
@@ -6801,6 +6863,9 @@ def main() -> int:
                     cn_launches['cornernet serve']['soft_nms']
             row['launches'] = sum(by_path.values())
             row['launches_by_path'] = by_path
+        # row 10 at an FPN-CARAFE step's 3 calls, and the step's sum
+        carafe_row['train_shapes'] = carafe_train
+        carafe_row['per_step_ms'] = sum(t['ms'] for t in carafe_train)
         for row, name in ((carafe_row, 'carafe'),
                           (set_nms_row, 'set_nms_keep')):
             row['launches_by_path'] = {

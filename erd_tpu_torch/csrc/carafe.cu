@@ -11,16 +11,19 @@
 // one batched einsum. FPN_CARAFE runs it in each of its three top-down
 // steps.
 //
-// Thread layout: one thread per (image, 16-channel chunk, output pixel), the
-// output pixel fastest, as in deform_conv.cu. A thread reads its sub-pixel's
-// 25 logits (erd_tpu's channel order (a*2 + b)*25 + k, not
-// F.pixel_shuffle's), computes the softmax weights once into registers,
-// exp(l - max) / sum with the sum taken in tap order, then for each of its
-// channels sums the 25 taps in order k = 0..24 in float32 (bf16 maps
-// widened in registers) and writes the output in the map's dtype.
-// Neighbouring threads take neighbouring output pixels: the writes are
-// coalesced, and the 2x2 output pixels of one source pixel read the same
-// map values, which L1 serves.
+// Layout: a block takes a tile of source pixels of one image (and a group
+// of its channels where the tiles alone would leave SMs idle), a thread a
+// source pixel (i, j). The thread reads its pixel's 4 x 25 logits
+// (erd_tpu's channel order (a*2 + b)*25 + k, not F.pixel_shuffle's) and
+// computes the 4 sub-pixels' softmax weights once into registers,
+// exp(l - max) / sum with the sum taken in tap order. x of the tile and its
+// 2-pixel halo (zero off the map) is staged in shared memory a chunk of
+// channels at a time, by asynchronous copies (cp.async) into a ring of
+// stages, the next chunks' copies in flight while a chunk is summed. For
+// each channel the thread reads its 25 taps from shared memory once, each
+// serving the 4 outputs (2i + a, 2j + b), sums each output's taps in order
+// k = 0..24 in float32 (bf16 maps widened in registers), and stores the
+// two outputs of a row together in the map's dtype.
 //
 // Arithmetic: every product and sum rounded on its own (-fmad=false), in the
 // plain version's order (the softmax's sum and the reassembly in tap order),
@@ -31,7 +34,9 @@
 // of an 800x1344 request (100x168 -> 200x336, C = 256, bf16) reads 8.6 MB of
 // map and 3.4 MB of logits and writes 34.4 MB of output: 0.014 ms at
 // 3.35 TB/s; its 25 float32 multiply-adds per output element (0.86 GFLOP)
-// take 0.013 ms at 67 TFLOP/s.
+// take 0.013 ms at 67 TFLOP/s. Rounded on their own, the multiplies and
+// adds are 49 instructions an output, not 25: at one a lane a clock the
+// floor of the batch-16 call at 100x168 (275 M outputs) is ~0.46 ms.
 //
 // Backward (`erd_carafe_backward`), which erd_tpu got by autodiff of the
 // shuffle, the float32 softmax and the einsum: two launches in one call,
@@ -132,55 +137,6 @@ __device__ __forceinline__ void softmax_weights(const T* lg, long long hw,
   for (int k = 0; k < kTaps; ++k) wt[k] = __fdiv_rn(wt[k], sum);
 }
 
-template <typename T>
-__global__ void carafe_kernel(const T* __restrict__ x,
-                              const T* __restrict__ logits, int c, int h,
-                              int w, int chunk, int n_chunks, long long total,
-                              T* __restrict__ out) {
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (t >= total) return;
-  const int h2 = h * kUp, w2 = w * kUp;
-  const long long hw2 = static_cast<long long>(h2) * w2;
-  const int pix = static_cast<int>(t % hw2);
-  const long long r = t / hw2;
-  const int part = static_cast<int>(r % n_chunks);
-  const long long n = r / n_chunks;
-  const int oy = pix / w2, ox = pix % w2;
-  const int i = oy / kUp, j = ox / kUp;
-  const int sub = (oy % kUp) * kUp + (ox % kUp);
-  const long long hw = static_cast<long long>(h) * w;
-
-  // the sub-pixel's 25 logits -> softmax weights, exp(l - max) / sum
-  const T* lg = logits + (n * (kUp * kUp * kTaps) + sub * kTaps) * hw +
-                static_cast<long long>(i) * w + j;
-  float wt[kTaps];
-  softmax_weights(lg, hw, wt);
-
-  // the taps' offsets in the plane and whether each lies on the map
-  int off[kTaps];
-  bool in[kTaps];
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    const int sy = i + k / kKUp - kPad, sx = j + k % kKUp - kPad;
-    in[k] = sy >= 0 && sy < h && sx >= 0 && sx < w;
-    off[k] = sy * w + sx;
-  }
-
-  const int c_begin = part * chunk;
-  const int c_end = min(c, c_begin + chunk);
-  for (int ch = c_begin; ch < c_end; ++ch) {
-    const T* plane = x + (n * c + ch) * hw;
-    float acc = __fmul_rn(wt[0], in[0] ? widen(plane, off[0]) : 0.f);
-#pragma unroll
-    for (int k = 1; k < kTaps; ++k)
-      acc = __fadd_rn(acc,
-                      __fmul_rn(wt[k], in[k] ? widen(plane, off[k]) : 0.f));
-    store(out, (n * c + ch) * hw2 + pix, acc);
-  }
-}
-
-
 // Asynchronous copies into shared memory (cp.async): 4 or 8 bytes from
 // src, aligned alike, or zeros where !valid (src is then not read).
 __device__ __forceinline__ void copy4(void* dst, const void* src,
@@ -223,6 +179,145 @@ __device__ __forceinline__ void copy_pair(T* dst, const T* src, bool valid) {
     copy4(dst, src, valid);
   else
     copy8(dst, src, valid);
+}
+
+// The forward's tiles: kFwdTileH x kFwdTileW source pixels of one image,
+// a thread each (the FPN levels of an 800x1344 canvas, 25 / 50 / 100 x
+// 42 / 84 / 168, take them with no idle row or column), their 2-pixel
+// halo, and the channels a stage holds.
+constexpr int kFwdTileH = 5;
+constexpr int kFwdTileW = 42;
+constexpr int kFwdThreads = kFwdTileH * kFwdTileW;
+constexpr int kFwdHaloH = kFwdTileH + 2 * kPad;
+constexpr int kFwdHaloW = kFwdTileW + 2 * kPad;
+constexpr int kFwdHalo = kFwdHaloH * kFwdHaloW;
+constexpr int kFwdChunk = 8;
+constexpr int kFwdStages = 3;
+
+// The forward's copies of one chunk into a stage: x of the tile and its
+// halo, zero off the map (element pairs where `pairs`: bf16 on an even
+// width from a 4-byte aligned map, so that pairs are aligned; float32
+// element by element; bf16 otherwise through registers).
+template <typename T>
+__device__ __forceinline__ void stage_forward_chunk(
+    T (*xs)[kFwdHaloH][kFwdHaloW], const T* __restrict__ x, long long n,
+    int c, int c0, int c_end, int h, int w, int i0, int j0, bool pairs,
+    int t) {
+  const int nch = min(kFwdChunk, c_end - c0);
+  const long long hw = static_cast<long long>(h) * w;
+  if (sizeof(T) == 2 && pairs) {
+    constexpr int kPairs = kFwdHalo / 2;
+    for (int e = t; e < kFwdChunk * kPairs; e += kFwdThreads) {
+      const int ch = e / kPairs, p = 2 * (e % kPairs);
+      const int sy = i0 - kPad + p / kFwdHaloW;
+      const int sx = j0 - kPad + p % kFwdHaloW;
+      const bool ok = ch < nch && sy >= 0 && sy < h && sx >= 0 && sx < w;
+      copy4(&xs[ch][p / kFwdHaloW][p % kFwdHaloW],
+            ok ? x + (n * c + c0 + ch) * hw + sy * w + sx : x, ok);
+    }
+  } else {
+    for (int e = t; e < kFwdChunk * kFwdHalo; e += kFwdThreads) {
+      const int ch = e / kFwdHalo, p = e % kFwdHalo;
+      const int sy = i0 - kPad + p / kFwdHaloW;
+      const int sx = j0 - kPad + p % kFwdHaloW;
+      const bool ok = ch < nch && sy >= 0 && sy < h && sx >= 0 && sx < w;
+      const T* src = ok ? x + (n * c + c0 + ch) * hw + sy * w + sx : x;
+      if constexpr (sizeof(T) == 4)
+        copy4(&xs[ch][p / kFwdHaloW][p % kFwdHaloW], src, ok);
+      else
+        xs[ch][p / kFwdHaloW][p % kFwdHaloW] = ok ? *src : T(0.f);
+    }
+  }
+}
+
+// two horizontally neighbouring outputs, stored together
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The forward. Block kFwdThreads threads, grid (tiles across, tiles down,
+// B * groups); a block takes `per_group` channels from per_group *
+// (blockIdx.z % groups). A thread's source pixel (i, j): its 4 x 25
+// softmax weights once into registers, then for each staged channel its
+// 25 taps read from shared memory once each, each serving the 4 outputs
+// (2i + a, 2j + b), a = sub / 2, b = sub % 2, summed in tap order, every
+// product and sum rounded on its own. The chunks' copies run
+// kFwdStages - 1 chunks ahead of the sums (cp.async).
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+carafe_kernel(const T* __restrict__ x, const T* __restrict__ logits, int c,
+              int h, int w, int groups, int per_group, bool pairs,
+              T* __restrict__ out) {
+  __shared__ __align__(16) T xs[kFwdStages][kFwdChunk][kFwdHaloH][kFwdHaloW];
+  const int t = threadIdx.x;
+  const int ty = t / kFwdTileW, tx = t % kFwdTileW;
+  const int i0 = blockIdx.y * kFwdTileH, j0 = blockIdx.x * kFwdTileW;
+  const int i = i0 + ty, j = j0 + tx;
+  const long long n = blockIdx.z / groups;
+  const int c_begin = per_group * (blockIdx.z % groups);
+  const int c_end = min(c, c_begin + per_group);
+  const bool mine = i < h && j < w;
+  const long long hw = static_cast<long long>(h) * w;
+  const int chunks = (c_end - c_begin + kFwdChunk - 1) / kFwdChunk;
+  for (int k = 0; k < kFwdStages - 1; ++k) {
+    if (k < chunks)
+      stage_forward_chunk(xs[k], x, n, c, c_begin + k * kFwdChunk, c_end, h,
+                          w, i0, j0, pairs, t);
+    copies_commit();
+  }
+
+  // the 4 sub-pixels' softmax weights, under the first chunks' copies
+  float wt[kUp * kUp][kTaps];
+  if (mine) {
+    const T* lg = logits + n * (kUp * kUp * kTaps) * hw +
+                  static_cast<long long>(i) * w + j;
+#pragma unroll
+    for (int q = 0; q < kUp * kUp; ++q)
+      softmax_weights(lg + q * kTaps * hw, hw, wt[q]);
+  }
+
+  const int w2 = kUp * w;
+  const long long hw2 = static_cast<long long>(kUp * h) * w2;
+  const long long row0 = static_cast<long long>(kUp * i) * w2 + kUp * j;
+  for (int it = 0; it < chunks; ++it) {
+    const int ahead = it + kFwdStages - 1;
+    if (ahead < chunks)
+      stage_forward_chunk(xs[ahead % kFwdStages], x, n, c,
+                          c_begin + ahead * kFwdChunk, c_end, h, w, i0, j0,
+                          pairs, t);
+    copies_commit();
+    copies_wait<kFwdStages - 1>();  // chunk it's copies have landed
+    __syncthreads();
+    const int c0 = c_begin + it * kFwdChunk;
+    const int nch = min(kFwdChunk, c_end - c0);
+    const T(*xc)[kFwdHaloH][kFwdHaloW] = xs[it % kFwdStages];
+    if (mine) {
+      for (int ch = 0; ch < nch; ++ch) {
+        float a[kUp * kUp];
+        {
+          const float v = widen(&xc[ch][ty][tx], 0);
+#pragma unroll
+          for (int q = 0; q < kUp * kUp; ++q) a[q] = __fmul_rn(wt[q][0], v);
+        }
+#pragma unroll
+        for (int k = 1; k < kTaps; ++k) {
+          const float v = widen(&xc[ch][ty + k / kKUp][tx + k % kKUp], 0);
+#pragma unroll
+          for (int q = 0; q < kUp * kUp; ++q)
+            a[q] = __fadd_rn(a[q], __fmul_rn(wt[q][k], v));
+        }
+        T* o = out + (n * c + c0 + ch) * hw2 + row0;
+        store_pair(o, a[0], a[1]);
+        store_pair(o + w2, a[2], a[3]);
+      }
+    }
+    __syncthreads();  // the stage is read before it is refilled
+  }
 }
 
 constexpr int kThreads = kTileH * kTileW;
@@ -541,29 +636,35 @@ cudaError_t launch_backward(const void* x, const void* logits,
 }  // namespace
 
 // x (B, c, h, w) and logits (B, 4*25, h, w), both float32 or both bf16
-// (is_bf16); out (B, c, 2h, 2w) of the same dtype. `chunk` channels per
-// thread. Returns cudaGetLastError() after the launch.
+// (is_bf16); out (B, c, 2h, 2w) of the same dtype. The channels are split
+// into groups where the image tiles alone would leave the card's SMs
+// (`sms`) short of blocks. Returns cudaGetLastError() after the launch.
 extern "C" int erd_carafe(const void* x, const void* logits, void* out,
-                          int batch, int c, int h, int w, int chunk,
+                          int batch, int c, int h, int w, int sms,
                           int is_bf16, void* stream) {
-  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = (c + chunk - 1) / chunk;
-  const long long total = static_cast<long long>(batch) * n_chunks * h * kUp *
-                          w * kUp;
-  if (total <= 0) return 0;
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((total + threads - 1) / threads);
+  if (static_cast<long long>(batch) * h * w <= 0 || c <= 0) return 0;
+  const unsigned across = (w + kFwdTileW - 1) / kFwdTileW;
+  const unsigned down = (h + kFwdTileH - 1) / kFwdTileH;
+  const long long tiles = static_cast<long long>(batch) * across * down;
+  const int chunks = (c + kFwdChunk - 1) / kFwdChunk;
+  // about 4 blocks an SM
+  const long long want = (4LL * sms + tiles - 1) / tiles;
+  const int split = static_cast<int>(
+      std::min<long long>(std::max(want, 1LL), chunks));
+  const int per_group = (chunks + split - 1) / split * kFwdChunk;
+  const int groups = (c + per_group - 1) / per_group;
+  const dim3 grid(across, down, batch * groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    carafe_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+    const bool pairs = w % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+    carafe_kernel<__nv_bfloat16><<<grid, kFwdThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(logits), c, h, w, chunk, n_chunks,
-        total, static_cast<__nv_bfloat16*>(out));
+        static_cast<const __nv_bfloat16*>(logits), c, h, w, groups,
+        per_group, pairs, static_cast<__nv_bfloat16*>(out));
   } else {
-    carafe_kernel<float><<<blocks, threads, 0, st>>>(
+    carafe_kernel<float><<<grid, kFwdThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(logits), c,
-        h, w, chunk, n_chunks, total, static_cast<float*>(out));
+        h, w, groups, per_group, false, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,6 @@ from torch import nn
 from . import cuda_build
 from .roi_align import acc_dtype
 
-# channels of one image that one kernel thread reassembles
-CHANNELS_PER_THREAD = 16
 # the kernel's fixed geometry: x2 upsampling, 5x5 reassembly kernels
 KERNEL_UP, KERNEL_K_UP = 2, 5
 # arrange_carafe: content_encoder kernel std times fan_in^-1/2, and bias std
@@ -112,10 +110,11 @@ def _carafe_kernel(x, logits, up, k_up):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), logits.data_ptr(), out.data_ptr(), b, c, h, w,
-                 CHANNELS_PER_THREAD, int(x.dtype == torch.bfloat16), stream)
+                 sms, int(x.dtype == torch.bfloat16), stream)
     cuda_build.check(lib, err, 'carafe')
     carafe.launches += 1
     return out

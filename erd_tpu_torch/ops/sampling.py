@@ -14,9 +14,9 @@ per image, the points of all of that image's RoIs).
 Maps are the port's NCHW tensors, read through their strides (NCHW or
 channels-last memory alike); the output is (N, K, C) float32, the samples of
 the widened map, as erd_tpu samples ``astype(float32)`` maps. The function
-is differentiable in the maps (``point_sample_backward``: the four corners'
-weighted gradients added into a float32 buffer with the map's strides,
-rounded once to the map's dtype); the points get no gradient (erd_tpu's
+is differentiable in the maps (``point_sample_backward``: each pixel's
+corners' weighted gradients summed in float32, rounded once to the map's
+dtype, in the map's strides); the points get no gradient (erd_tpu's
 points are uniform draws and top-k picks on detached RoIs), and points that
 require one raise while grad is on. CPU tensors take the plain versions;
 CUDA tensors launch the kernels of ``csrc/point_sample.cu`` (one launch per
@@ -198,10 +198,12 @@ def point_sample_backward(grad, points, shape, strides=None,
     each rounded once to ``dtype`` (the transpose of erd_tpu's
     ``astype(float32)``).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``erd_point_sample_backward`` into a zeroed float32 buffer (one launch a
-    call, counted in ``point_sample_backward.launches``); atomics add the
-    corners, so the sums' order varies from run to run.
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    of ``erd_point_sample_backward`` (one call, counted in
+    ``point_sample_backward.launches``): each tile of pixels gathers its
+    points' weighted gradients in a fixed order and is written once, so
+    the result is the same every run; no float atomics, no float32 buffer
+    (an int32 workspace where maps are binned by tile).
     """
     n, c, h, w = shape
     if grad.dim() != 3 or tuple(grad.shape) != (n, points.shape[1], c) or \
@@ -224,21 +226,34 @@ def point_sample_backward(grad, points, shape, strides=None,
             dtype not in (torch.float32, torch.bfloat16):
         raise TypeError('point_sample_backward: float32 grad and points, '
                         'float32 or bfloat16 maps expected')
+    k = points.shape[1]
+    if n * k >= 1 << 29:
+        raise ValueError(f'point_sample_backward: {n * k} points; the kernel '
+                         f'takes fewer than 2^29 (4 int32 list entries a '
+                         f'point)')
+    out = torch.empty_strided(shape, strides, dtype=dtype,
+                              device=grad.device)
+    if n * k == 0 or out.numel() == 0:
+        return out.zero_()
     grad, points = grad.contiguous(), points.contiguous()
-    buf = torch.empty_strided(shape, strides, dtype=torch.float32,
-                              device=grad.device).zero_()
     lib = cuda_build.load('point_sample')
+    size = lib.erd_point_sample_backward_workspace
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    work = torch.empty(size(n, c, h, w, k), dtype=torch.int32,
+                       device=grad.device)
     fn = lib.erd_point_sample_backward
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
-                   [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+                   [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(grad.data_ptr(), points.data_ptr(), buf.data_ptr(), n, c, h,
-                 w, points.shape[1], *buf.stride(), stream)
+        err = fn(grad.data_ptr(), points.data_ptr(), out.data_ptr(),
+                 work.data_ptr(), n, c, h, w, k, *out.stride(),
+                 int(dtype == torch.bfloat16), stream)
     cuda_build.check(lib, err, 'point_sample_backward')
     point_sample_backward.launches += 1
-    return buf if dtype == torch.float32 else buf.to(dtype)
+    return out
 
 
 point_sample_backward.launches = 0

@@ -3,8 +3,9 @@ their time, on one CUDA GPU: the deformable im2col backward
 (``erd_deform_im2col_backward``, kernel 8b), the multi-scale deformable
 attention backward and forward (kernels 9b and 9), the RoIAlign backward
 (7b) and forward (row 7), the NMS keep kernel (row 1, with set-NMS, 11b),
-the CARAFE backward (10b) with the forward (row 10), and the call times
-of the corner-pool backward (12a-b). Run from the repository root:
+the CARAFE backward (10b) and forward (row 10), the point-sample backward
+(13a-b), and the call times of the corner-pool backward (12a-b). Run
+from the repository root:
 
     python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 9,7b]
 
@@ -81,9 +82,24 @@ conv_offset and sampling weights arranged):
    ``CARAFE_BACKWARD_PARTS`` (edited copies of ``csrc/carafe.cu``: the
    parent design's float32 weight scratch taken out, the redesign's sums,
    softmax, copies or gather weights taken out), the scratch's bytes,
-   the bound, the error against plain; and row 10, the forward, at the
-   same step's 3 calls (graph replays, events, plain, bound).
-8. others: the call time of the corner-pool backward (12a-b) in the 4
+   the bound, the error against plain.
+8. 10, the CARAFE forward, at the 3 calls of the same step and the 3 calls
+   of one 800x1333 request: the call by graph replays and events, the
+   plain version's time, the bound (``chip_smoke.carafe_cost``), the
+   elements where kernel and plain differ and the largest bf16 ulp
+   distance, and by graph replays the kernel with its tap loads, its
+   store or its softmax replaced (``CARAFE_FORWARD_PARTS``, edited copies
+   of ``csrc/carafe.cu``, on no path).
+9. 13a-b, the point-sample backward, at the 2 calls of one PointRend step
+   (the bf16 P2 call, the float32 coarse call): the call by graph replays
+   and events, its device operations apart by the profiler
+   (``POINT_BACKWARD_OPS``), the strides of the maps, the gradient and the
+   result, the points an image, the share of corners off the map, the
+   corner adds a touched pixel, the share of 8 x 32-pixel tiles a corner
+   reaches (``corner_stats``), whether two calls are equal, and the
+   ``POINT_BACKWARD_PARTS`` variants (edited copies of
+   ``csrc/point_sample.cu``, on no path).
+10. others: the call time of the corner-pool backward (12a-b) in the 4
    directions of one CornerNet step: by events and graph replays on the
    step's own tensors (their strides printed), and on NCHW copies of them
    made before the timing (no copy in the call), and the copies alone;
@@ -94,7 +110,7 @@ conv_offset and sampling weights arranged):
 
 A variant whose edits do not fit the source (another design's) is "not
 measured". ``--only 9,7b`` runs the named parts alone, in that order (the
-parts: 8b, 9b, 9, 7b, 1, 7, 10b, others).
+parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -481,7 +497,8 @@ ROI_BACKWARD_OPS = {'zero': 'Memset', 'kernel': 'roi_align_backward_kernel',
 
 def device_ops_ms(fn, names, n=5):
     """{key: device ms a call} of the operations whose profiler name holds
-    ``names[key]`` (None where the profiler shows none)."""
+    ``names[key]``, a text or a tuple of texts (None where the profiler
+    shows none)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -491,9 +508,11 @@ def device_ops_ms(fn, names, n=5):
         torch.cuda.synchronize()
     out = {}
     for key, name in names.items():
+        texts = (name,) if isinstance(name, str) else name
         us = sum(getattr(ev, 'device_time_total', None) or
                  getattr(ev, 'cuda_time_total', 0.0)
-                 for ev in prof.key_averages() if name in ev.key)
+                 for ev in prof.key_averages()
+                 if any(t in ev.key for t in texts))
         out[key] = us / n / 1e3 if us > 0 else None
     return out
 
@@ -1070,14 +1089,13 @@ def probe_carafe(smoke, report):
     """Row 10b at the 3 calls of one bs-16 800x1344 FPN-CARAFE step (by
     graph replays and events; its passes apart and without the weight
     scratch by ``CARAFE_BACKWARD_PARTS``; the float32 scratch's bytes; the
-    bound), and row 10, the forward, at the same step's 3 calls."""
+    bound)."""
     import numpy as np
     cb = importlib.import_module('erd_tpu_torch.ops.carafe')
-    calls = smoke.train_step_calls(np, torch, 'carafe',
-                                   ('carafe', 'carafe_backward'))
+    calls = smoke.train_step_calls(np, torch, 'carafe', ('carafe_backward',))
     variants = {v: variant_lib('carafe', f'backward_{v}', alts)
                 for v, alts in CARAFE_BACKWARD_PARTS.items()}
-    rows, fwd = [], []
+    rows = []
     for args in sorted(calls['carafe_backward'], key=lambda a: a[0].shape[2]):
         x, logits, g = (a.detach() for a in args[:3])
 
@@ -1112,23 +1130,276 @@ def probe_carafe(smoke, report):
               f'bound\'s {nbytes / 1e6:.1f} MB); bound {bound:.4f} '
               f'({bound_by}); dx, dlogits within {errs[0]:.2e}, '
               f'{errs[1]:.2e} of max|plain|', flush=True)
-    for args in sorted(calls['carafe'], key=lambda a: a[0].shape[2]):
-        x, logits = (a.detach() for a in args[:2])
-        nbytes, ops = smoke.carafe_cost(x, logits)
-        bound, bound_by = smoke.bound_of(nbytes, ops)
-        graph = smoke.graph_ms(torch, lambda: cb.carafe(x, logits), 10)
-        events = smoke.events_ms(torch, lambda: cb.carafe(x, logits), 10)
-        plain = smoke.events_ms(torch, lambda: cb.carafe_plain(x, logits), 2)
-        fwd.append(dict(x=list(x.shape), graph_ms=graph, events_ms=events,
-                        plain_ms=plain, bound_ms=bound, bound_by=bound_by))
-        print(f'probe 10: forward x {tuple(x.shape)} {x.dtype}: {graph:.4f} '
-              f'ms (graph), {events:.4f} (events); plain {plain:.3f}; '
-              f'bound {bound:.4f} ({bound_by})', flush=True)
     report['carafe_backward'] = dict(calls=rows, per_step_graph_ms=sum(
         r['graph_ms'] for r in rows))
-    report['carafe'] = dict(train_calls=fwd, per_step_graph_ms=sum(
-        r['graph_ms'] for r in fwd))
     del calls
+    torch.cuda.empty_cache()
+
+
+# edits of csrc/carafe.cu for part 10: the forward with its tap loads
+# replaced by a value of the channel (the sums left; the redesign's staging
+# copies left too), with its stores replaced by a test that keeps the sums
+# live, and without its softmax's arithmetic (the parent: constant weights;
+# the redesign: the logits read as weights); one edit set for each design
+# measured
+CARAFE_FORWARD_PARTS = {
+    'no_tap_loads': (
+        {'in[0] ? widen(plane, off[0]) : 0.f':
+         'in[0] ? static_cast<float>(ch & 7) : 0.f',
+         'in[k] ? widen(plane, off[k]) : 0.f':
+         'in[k] ? static_cast<float>(ch & 3) : 0.f'},
+        {'const float v = widen(&xc[ch][ty][tx], 0);':
+         'const float v = static_cast<float>(ch & 7);',
+         'const float v = widen(&xc[ch][ty + k / kKUp][tx + k % kKUp], 0);':
+         'const float v = static_cast<float>((ch + k) & 7);'}),
+    'no_store': (
+        {'store(out, (n * c + ch) * hw2 + pix, acc);':
+         'if (acc == 12345.f) store(out, (n * c + ch) * hw2 + pix, acc);'},
+        {'store_pair(o, a[0], a[1]);':
+         'if ((a[0] == 12345.f) | (a[1] == 12345.f))\n'
+         '          store_pair(o, 0.f, 0.f);',
+         'store_pair(o + w2, a[2], a[3]);':
+         'if ((a[2] == 12345.f) | (a[3] == 12345.f))\n'
+         '          store_pair(o, 0.f, 0.f);'}),
+    'no_softmax': (
+        {'softmax_weights(lg, hw, wt);':
+         'for (int k = 0; k < kTaps; ++k) wt[k] = 0.04f;'},
+        {'softmax_weights(lg + q * kTaps * hw, hw, wt[q]);':
+         'for (int k = 0; k < kTaps; ++k)\n'
+         '        wt[q][k] = widen(lg + q * kTaps * hw, k * hw);'}),
+}
+
+
+def carafe_forward_calls(smoke):
+    """[(name, x, logits)]: part 10's CARAFE forward calls, the 3 of one
+    bs-16 800x1344 FPN-CARAFE step and the 3 of one 800x1333 request (the
+    content encoders arranged, as ``chip_smoke.py`` checks them)."""
+    import numpy as np
+    cb = importlib.import_module('erd_tpu_torch.ops.carafe')
+    out = []
+    got = smoke.train_step_calls(np, torch, 'carafe', ('carafe',))
+    for args in sorted(got['carafe'], key=lambda a: a[0].shape[2]):
+        x, logits = (a.detach() for a in args[:2])
+        out.append((f'train {x.shape[2]}x{x.shape[3]}', x, logits))
+    del got
+    det, net = smoke.carafe_net(np, torch, 'carafe')
+    batch, _ = smoke.request_batch(np, torch, smoke.REQUESTS[-1])
+    seen = []
+    restore = smoke.capture(cb, 'carafe', seen)
+    try:
+        det.predict(net, batch)
+    finally:
+        restore()
+    for args in sorted(seen, key=lambda a: a[0].shape[2]):
+        x, logits = (a.detach() for a in args[:2])
+        out.append((f'serve {x.shape[2]}x{x.shape[3]}', x, logits))
+    del det, net, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe_carafe_forward(smoke, report):
+    """Row 10 at every call of ``carafe_forward_calls``: the call by
+    graph replays and events, the plain version's time, the bound as
+    ``chip_smoke.carafe_cost`` counts it, the elements where kernel and
+    plain differ and the largest bf16 ulp distance, and the
+    ``CARAFE_FORWARD_PARTS`` variants by graph replays."""
+    cb = importlib.import_module('erd_tpu_torch.ops.carafe')
+    variants = {v: variant_lib('carafe', f'forward_{v}', alts)
+                for v, alts in CARAFE_FORWARD_PARTS.items()}
+    rows = []
+    for name, x, logits in carafe_forward_calls(smoke):
+        n = 10 if x.shape[0] > 1 else 20
+
+        def call():
+            return cb.carafe(x, logits)
+        got = call()
+        want = cb.carafe_plain(x, logits)
+        differ = int((got != want).sum())
+        ulps = int(smoke.bf16_ulps(torch, got, want).max()) \
+            if x.dtype == torch.bfloat16 else None
+        del got, want
+        nbytes, ops = smoke.carafe_cost(x, logits)
+        bound, bound_by = smoke.bound_of(nbytes, ops)
+        graph = smoke.graph_ms(torch, call, n)
+        events = smoke.events_ms(torch, call, n)
+        plain = smoke.events_ms(torch, lambda: cb.carafe_plain(x, logits), 2)
+        parts = {v: None if lib is None else with_lib(
+            'carafe', lib, lambda: smoke.graph_ms(torch, call, n))
+            for v, lib in variants.items()}
+        rows.append(dict(call=name, x=list(x.shape), dtype=str(x.dtype),
+                         graph_ms=graph, events_ms=events, plain_ms=plain,
+                         bound_ms=bound, bound_by=bound_by,
+                         bound_bytes=nbytes, ops=ops,
+                         elements_differ=differ, max_bf16_ulps=ulps,
+                         **{f'{v}_ms': t for v, t in parts.items()}))
+        print(f'probe 10: {name} x {tuple(x.shape)} {x.dtype}: {graph:.4f} '
+              f'ms (graph), {events:.4f} (events); plain {plain:.3f}; bound '
+              f'{bound:.4f} ({bound_by}; {nbytes} bytes, {ops / 1e9:.3f} '
+              f'GOP); {differ} elements differ from plain, at most {ulps} '
+              f'bf16 ulp; ' + ', '.join(f'{v} {fmt(t)}'
+                                       for v, t in parts.items()),
+              flush=True)
+    report['carafe'] = dict(calls=rows, per_step_graph_ms=sum(
+        r['graph_ms'] for r in rows if r['call'].startswith('train')))
+    torch.cuda.empty_cache()
+
+
+# edits of csrc/point_sample.cu for part 13a-b: the parent design's
+# backward with its float atomic adds replaced by plain stores (its sums
+# wrong); the tile design's ranks taken by integer atomics in any order
+# (the cost of the fixed order; its sums in another order), its gather
+# without its gradient loads, and without its shared-memory sums (each
+# result wrong); one edit set for each design measured
+POINT_BACKWARD_PARTS = {
+    'stores_for_adds': (
+        {'if (ok00) atomicAdd(m + o00, ': 'if (ok00) *(m + o00) = (',
+         'if (ok01) atomicAdd(m + o01, ': 'if (ok01) *(m + o01) = (',
+         'if (ok10) atomicAdd(m + o10, ': 'if (ok10) *(m + o10) = (',
+         'if (ok11) atomicAdd(m + o11, ': 'if (ok11) *(m + o11) = ('},),
+    'atomic_ranks': (
+        {'ranks[4 * p + d] = before + __popc(peers & below);':
+         'ranks[4 * p + d] = atomicAdd(at, 1);',
+         'if (t >= 0 && (peers & below) == 0) *at = before + __popc(peers);':
+         ';'},),
+    'gather_no_loads': (
+        {'      cur[i] = i < cnt ? __ldg(g + static_cast<long long>(rec_p[i]) '
+         '* c)\n                       : 0.f;':
+         '      cur[i] = static_cast<float>(i);',
+         '        nxt[i] = nx < cnt ? __ldg(g + static_cast<long long>('
+         'rec_p[nx]) * c)\n                          : 0.f;':
+         '        nxt[i] = static_cast<float>(nx & 7);'},),
+    'gather_no_sums': (
+        {'float s0 = mine[a0], s1 = mine[a1];': 'float s0 = 0.f, s1 = 0.f;',
+         'float s2 = mine[a2], s3 = mine[a3];': 'float s2 = 0.f, s3 = 0.f;',
+         'mine[a0] = s0;': 'if (s0 == 12345.f) mine[a0] = s0;',
+         'mine[a1] = s1;': 'if (s1 == 12345.f) mine[a1] = s1;',
+         'mine[a2] = s2;': 'if (s2 == 12345.f) mine[a2] = s2;',
+         'mine[a3] = s3;': 'if (s3 == 12345.f) mine[a3] = s3;'},),
+}
+# 13a-b's device operations, by the profiler's names (a key with no
+# record in a design reads "not measured"): the parent's memset, kernel
+# and rounding pass; the tile design's memset, rank, scan, scatter and
+# gather launches
+POINT_BACKWARD_OPS = {
+    'zero': ('Memset', 'FillFunctor'),
+    'kernel': ('point_sample_backward_kernel',),
+    'round': ('copy',),
+    'rank': ('point_sample_rank_kernel',),
+    'scan': ('point_sample_scan',),
+    'scatter': ('point_sample_scatter_kernel',),
+    'gather': ('point_sample_gather_kernel',),
+}
+
+
+def corner_stats(points, shape, tile=(8, 32)):
+    """The bilinear corners of ``points`` (N, K, 2) on maps of ``shape``
+    (align_corners=False): the points an image, the share of corners off
+    the map, the corner adds a touched pixel (mean and largest) and the
+    share of the maps' tile[0] x tile[1] pixel tiles that a corner
+    reaches."""
+    n, _, h, w = shape
+    k = points.shape[1]
+    xs = points[..., 0].double() * w - 0.5
+    ys = points[..., 1].double() * h - 0.5
+    x0 = torch.floor(xs.clamp(-2, w + 1)).long()
+    y0 = torch.floor(ys.clamp(-2, h + 1)).long()
+    img = torch.arange(n, device=points.device)[:, None].expand(n, k)
+    pix, tiles = [], []
+    ty, tx = -(-h // tile[0]), -(-w // tile[1])
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yy, xx = y0 + dy, x0 + dx
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        pix.append(((img * h + yy) * w + xx)[ok])
+        tiles.append(((img * ty + yy // tile[0]) * tx + xx // tile[1])[ok])
+    pix = torch.cat(pix)
+    counts = torch.bincount(pix, minlength=n * h * w)
+    touched = counts[counts > 0]
+    # corners a kernel tile of 8 x 8 pixels takes
+    t8 = ((pix // (h * w)) * -(-h // 8) + pix % (h * w) // w // 8) * \
+        -(-w // 8) + pix % w // 8
+    tile8 = torch.bincount(t8)
+    return dict(points_per_image=k,
+                corners_off_map=1.0 - pix.numel() / (4 * n * k),
+                adds_per_touched_pixel_mean=float(touched.double().mean())
+                if touched.numel() else 0.0,
+                adds_per_touched_pixel_max=int(counts.max()),
+                touched_pixels=touched.numel() / (n * h * w),
+                tiles_reached=torch.unique(torch.cat(tiles)).numel() /
+                (n * ty * tx),
+                corners_per_8x8_tile_mean=float(
+                    tile8[tile8 > 0].double().mean()) if pix.numel() else 0.0,
+                corners_per_8x8_tile_max=int(tile8.max())
+                if pix.numel() else 0)
+
+
+def probe_point_backward(smoke, report):
+    """Row 13a-b at the 2 calls of one bs-16 PointRend step: the call by
+    graph replays and events, its device operations apart
+    (``POINT_BACKWARD_OPS``, the profiler), the strides of the maps, the
+    gradient and the result, ``corner_stats``, and the
+    ``POINT_BACKWARD_PARTS`` variants by graph replays."""
+    import numpy as np
+    sp = importlib.import_module('erd_tpu_torch.ops.sampling')
+    got = smoke.mask_train_step_calls(np, torch, 'point_rend',
+                                      ('point_sample_backward',))
+    variants = {v: variant_lib('point_sample', f'backward_{v}', alts)
+                for v, alts in POINT_BACKWARD_PARTS.items()}
+    rows = []
+    for args in sorted(got['point_sample_backward'],
+                       key=lambda a: -a[2][2]):
+        args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+        grad, pts, shape, strides, dtype = args[:5]
+
+        def call():
+            return sp.point_sample_backward(*args)
+        out = call()
+        want = sp.point_sample_backward_plain(grad, pts, shape)
+        diff = (out.float() - want).abs()
+        limit = 1e-5 * float(want.abs().max())
+        err = float(diff.max())
+        ulps = int(smoke.bf16_ulps(torch, out, want.to(dtype))[
+            diff > limit].max()) if dtype == torch.bfloat16 and \
+            bool((diff > limit).any()) else 0
+        out_stride = list(out.stride())
+        again = call()
+        same = bool(torch.equal(again, out))
+        del out, want, diff, again
+        graph = smoke.graph_ms(torch, call, 10)
+        events = smoke.events_ms(torch, call, 10)
+        ops = device_ops_ms(call, POINT_BACKWARD_OPS)
+        stats = corner_stats(pts, shape)
+        parts = {v: None if lib is None else with_lib(
+            'point_sample', lib, lambda: smoke.graph_ms(torch, call, 10))
+            for v, lib in variants.items()}
+        row = dict(maps=list(shape), dtype=str(dtype),
+                   maps_stride=list(strides),
+                   grad_stride=list(grad.stride()), out_stride=out_stride,
+                   graph_ms=graph, events_ms=events,
+                   **{f'{k}_ms': v for k, v in ops.items()},
+                   max_abs_err=err, limit=limit, max_bf16_ulps=ulps,
+                   repeat_equal=same, **stats,
+                   **{f'{v}_ms': t for v, t in parts.items()})
+        rows.append(row)
+        print(f'probe 13a-b: maps {shape} {dtype} strides {strides}, grad '
+              f'{tuple(grad.shape)} strides {grad.stride()}, result strides '
+              f'{tuple(out_stride)}: {graph:.4f} ms (graph), {events:.4f} '
+              f'(events); device (profiler): ' + ', '.join(
+                  f'{k} {fmt(v)}' for k, v in ops.items()) +
+              f'; {stats["points_per_image"]} points an image, '
+              f'{stats["corners_off_map"]:.2%} of the corners off the map, '
+              f'{stats["adds_per_touched_pixel_mean"]:.2f} corner adds a '
+              f'touched pixel (largest {stats["adds_per_touched_pixel_max"]};'
+              f' {stats["touched_pixels"]:.1%} of the pixels touched), '
+              f'{stats["tiles_reached"]:.1%} of the 8x32 tiles reached, '
+              f'{stats["corners_per_8x8_tile_mean"]:.1f} corners an 8x8 tile '
+              f'reached (largest {stats["corners_per_8x8_tile_max"]}); '
+              f'max_abs_err {err:.3e} (limit {limit:.3e}; bf16 beyond it at '
+              f'most {ulps} ulp); two calls equal {same}; ' + ', '.join(
+                  f'{v} {fmt(t)}' for v, t in parts.items()), flush=True)
+    report['point_sample_backward'] = dict(calls=rows, per_step_graph_ms=sum(
+        r['graph_ms'] for r in rows))
+    del got
     torch.cuda.empty_cache()
 
 
@@ -1136,6 +1407,7 @@ def probe_carafe(smoke, report):
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
          '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
+         '10': probe_carafe_forward, '13a-b': probe_point_backward,
          'others': probe_other_backwards}
 
 

@@ -657,10 +657,14 @@ def bf16_ulps(a, b):
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('shape', [(1, 256, 25, 42), (2, 40, 7, 9)])
+@pytest.mark.parametrize('shape', [(1, 256, 25, 42), (2, 40, 7, 9),
+                                   (2, 256, 100, 168), (2, 13, 11, 50),
+                                   (1, 8, 1, 1), (2, 16, 2, 3)])
 def test_carafe_kernel_matches_plain(cuda, dtype, shape):
-    """The top FPN-CARAFE step of an 800x1344 canvas, and odd sizes with a
-    partial channel chunk; peaked logits. float32 within 1e-5 * max|x|
+    """The top FPN-CARAFE step of an 800x1344 canvas and its largest, odd
+    sizes with a partial channel chunk (13 channels), and 1x1 and 2x3 maps
+    where every window is clipped; peaked logits. float32 within 1e-5 *
+    max|x|
     (the card's expf and torch's exp may differ by an ulp); bf16 within one
     bf16 ulp (a float32 sum an ulp apart can round to the neighbouring bf16
     value) or, near zero where the taps cancel, within 1e-5 * max|x|."""
@@ -686,6 +690,23 @@ def test_carafe_kernel_matches_plain(cuda, dtype, shape):
     assert torch.equal(carafe(x.cpu(), logits.cpu()), carafe_plain(
         x.cpu(), logits.cpu()))
 
+
+
+@pytest.mark.parametrize('hw', [(25, 42), (50, 84), (100, 168)])
+def test_carafe_kernel_differs_from_plain_nowhere_at_the_step_calls(cuda,
+                                                                    hw):
+    """The three bs-16 bf16 calls of an FPN-CARAFE training step, peaked
+    seeded logits: the kernel differs from carafe_plain in no element, as
+    the parent design did at every call of the step and of a request (0
+    elements, its probe run); the same arithmetic in the same order."""
+    rs = np.random.RandomState(hw[0])
+    x = torch.from_numpy(rs.randn(16, 256, *hw).astype(np.float32)).to(
+        cuda).bfloat16()
+    logits = torch.from_numpy((rs.randn(16, 100, *hw) * 2 + rs.randn(
+        1, 100, 1, 1) * 2.5).astype(np.float32)).to(cuda).bfloat16()
+    got = carafe(x, logits)
+    torch.cuda.synchronize()
+    assert int((got != carafe_plain(x, logits)).sum()) == 0
 
 def test_set_nms_kernel_matches_plain(cuda):
     """K = 2000 candidates in pairs of near-equal boxes (CrowdDet's two
@@ -1585,7 +1606,8 @@ def test_point_sample_and_corner_pool_never_reach_plain_on_cuda(
 def test_point_sample_backward_kernel_matches_plain(cuda):
     """The backward kernel on both PointRend call forms with gradients:
     coarse float32 channels-last logits (float32 sums within 1e-5 *
-    max|plain|; atomics reorder them) and a bf16 P2 (rounded once, within
+    max|plain|; the plain version's CUDA atomics reorder its sums) and a
+    bf16 P2 (rounded once, within
     one bf16 ulp of the rounded plain sums); the buffer keeps the map's
     strides."""
     from erd_tpu_torch.ops.sampling import (point_sample_backward,
@@ -1611,6 +1633,101 @@ def test_point_sample_backward_kernel_matches_plain(cuda):
         else:
             assert bool(((bf16_ulps(got, want.to(dtype)) <= 1) |
                          (diff <= limit)).all())
+
+
+def point_backward_case(rs, device, form, layout):
+    """One PointRend call form with planted edge cases: points exactly on
+    0 and 1 (corners on the map's edge) and off the map, 500 points on one
+    pixel (its list of corners the longest), and a map whose points all lie
+    off it (its gradient all zeros); the gradient (N, K, C), the points and
+    the maps' shape and strides (channels-last or NCHW)."""
+    maps, pts = point_sample_case(rs, device, torch.float32, form)
+    pts = pts.clone()
+    pts[0, 4:8] = torch.tensor([[0., 0.5], [1., 0.5], [0.5, 0.], [0.5, 1.]])
+    pts[0, 8:12] = torch.tensor([[-0.3, 0.5], [1.3, 0.5], [0.5, -2.],
+                                 [5., 5.]])
+    pts[1, :] = torch.tensor([1.5, -0.5])
+    many = min(500, pts.shape[1] - 20)
+    pts[0, 20:20 + many] = torch.tensor([0.3, 0.6])
+    if layout == 'channels_last':
+        maps = maps.contiguous(memory_format=torch.channels_last)
+    else:
+        maps = maps.contiguous()
+    g = torch.from_numpy(rs.randn(*pts.shape[:2], maps.shape[1]).astype(
+        np.float32)).to(device)
+    return g, pts, tuple(maps.shape), maps.stride()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw'])
+@pytest.mark.parametrize('form', ['coarse', 'fine'])
+def test_point_sample_backward_kernel_edges_layouts_and_repeats(cuda, form,
+                                                                layout,
+                                                                dtype):
+    """Both call forms in channels-last and NCHW strides, with edge
+    points, 500 points on one pixel (176 on a coarse map) and a map with no
+    valid point: the result keeps the maps' strides, the map without points
+    is all zeros, float32 within 1e-5 * max|plain| and bf16 within one ulp
+    (or 1e-5 * max|plain|) of the plain version, on the card and on the
+    CPU; two calls are equal (the kernel sums in a fixed order)."""
+    from erd_tpu_torch.ops.sampling import (point_sample_backward,
+                                            point_sample_backward_plain)
+    g, pts, shape, strides = point_backward_case(
+        np.random.RandomState(7), cuda, form, layout)
+    before = point_sample_backward.launches
+    got = point_sample_backward(g, pts, shape, strides, dtype)
+    torch.cuda.synchronize()
+    assert point_sample_backward.launches - before == 1
+    assert got.dtype == dtype and got.stride() == strides
+    assert not bool(got[1].any())
+    for want in (point_sample_backward_plain(g, pts, shape),
+                 point_sample_backward_plain(g.cpu(), pts.cpu(),
+                                             shape).to(cuda)):
+        diff = (got.float() - want).abs()
+        limit = 1e-5 * float(want.abs().max())
+        if dtype == torch.float32:
+            assert float(diff.max()) <= limit
+        else:
+            assert bool(((bf16_ulps(got, want.to(dtype)) <= 1) |
+                         (diff <= limit)).all())
+    assert torch.equal(point_sample_backward(g, pts, shape, strides, dtype),
+                       got)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c,h,w', [(13, 720, 800), (300, 40, 60)])
+def test_point_sample_backward_kernel_large_maps_and_channel_groups(
+        cuda, dtype, c, h, w):
+    """Maps the gather bins by 8 x 8 tiles: 720 x 800 has 9000 tiles, more
+    than the binning keeps in shared memory (its counts in global memory),
+    with 13 channels (no four-channel stores); 300 channels take two
+    channel groups. Points clustered on a few spots and spread over the
+    map, some off it: float32 within 1e-5 * max|plain|, bf16 within one
+    ulp, two calls equal."""
+    from erd_tpu_torch.ops.sampling import (point_sample_backward,
+                                            point_sample_backward_plain)
+    rs = np.random.RandomState(c)
+    n, k = 2, 3000
+    pts = rs.uniform(-0.05, 1.05, (n, k, 2)).astype(np.float32)
+    pts[:, :1000] = rs.uniform(0.3, 0.31, (n, 1000, 2))
+    pts = torch.from_numpy(pts).to(cuda)
+    g = torch.from_numpy(rs.randn(n, k, c).astype(np.float32)).to(cuda)
+    shape = (n, c, h, w)
+    strides = torch.empty(shape, device='meta').contiguous(
+        memory_format=torch.channels_last).stride()
+    got = point_sample_backward(g, pts, shape, strides, dtype)
+    torch.cuda.synchronize()
+    assert got.stride() == strides and got.dtype == dtype
+    want = point_sample_backward_plain(g, pts, shape)
+    diff = (got.float() - want).abs()
+    limit = 1e-5 * float(want.abs().max())
+    if dtype == torch.float32:
+        assert float(diff.max()) <= limit
+    else:
+        assert bool(((bf16_ulps(got, want.to(dtype)) <= 1) |
+                     (diff <= limit)).all())
+    assert torch.equal(point_sample_backward(g, pts, shape, strides, dtype),
+                       got)
 
 
 @pytest.mark.parametrize('direction', ['top', 'bottom', 'left', 'right'])

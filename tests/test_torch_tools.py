@@ -174,23 +174,28 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     unknown part name is refused with the list, and without a CUDA device
     every known part exits 1 before it measures anything."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe
-    parts = ['8b', '9b', '9', '7b', '1', '7', '10b', 'others']
+    parts = ['8b', '9b', '9', '7b', '1', '7', '10b', '10', '13a-b',
+             'others']
     assert list(probe.PARTS) == parts
     assert probe.main(['--only', '1,nms']) == 2
     assert str(parts) in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert probe.main(['--only', '1,others']) == 1
     assert probe.main(['--only', '7,10b']) == 1
+    assert probe.main(['--only', '10,13a-b']) == 1
 
 
 @pytest.mark.parametrize('name,parts,parent_only', [
     ('roi_align', 'ROI_FORWARD_PARTS', ()),
-    ('carafe', 'CARAFE_BACKWARD_PARTS', ('no_weight_scratch',))])
+    ('carafe', 'CARAFE_BACKWARD_PARTS', ('no_weight_scratch',)),
+    ('carafe', 'CARAFE_FORWARD_PARTS', ()),
+    ('point_sample', 'POINT_BACKWARD_PARTS', ('stores_for_adds',))])
 def test_probe_variants_fit_the_kernel_sources(name, parts, parent_only):
-    """Parts 7 and 10b build their variants from edited copies of
-    csrc/roi_align.cu and csrc/carafe.cu: every variant but the parent
-    design's weight-scratch one finds an edit set whose texts are all in
-    the present source, and each replacement changes the text."""
+    """Parts 7, 10b, 10 and 13a-b build their variants from edited
+    copies of csrc/roi_align.cu, csrc/carafe.cu and csrc/point_sample.cu:
+    every variant but the parent designs' (marked parent-only) finds an
+    edit set whose texts are all in the present source, and each
+    replacement changes the text."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe
     for variant, alternatives in getattr(probe, parts).items():
         edits = probe.fitting_edits(name, alternatives)
@@ -263,3 +268,42 @@ def test_probe_nms_counts_match_a_direct_count(group):
     assert got['nonzero_word_share'] == \
         int(hit[:, right].sum()) / hit[:, right].numel()
     assert 0 < got['nonzero_word_share'] < 1
+
+
+def test_probe_corner_stats_match_a_direct_count():
+    """Part 13a-b's corner counts (``corner_stats``) against a loop over
+    every point's four bilinear corners: the share off the map, the adds a
+    touched pixel, the share of 8 x 32 tiles reached and the corners an
+    8 x 8 tile takes; points on the edges 0 and 1 and off the map."""
+    import numpy as np
+
+    from erd_tpu_torch.tools.atomic_backward_probe import corner_stats
+    rs = np.random.RandomState(4)
+    n, h, w, k = 2, 19, 45, 60
+    pts = rs.uniform(-0.1, 1.1, (n, k, 2)).astype(np.float32)
+    pts[0, :4] = [[0, 0], [1, 1], [0, 1], [1, 0]]
+    pts[1, :20] = pts[1, 0]
+    got = corner_stats(torch.from_numpy(pts), (n, 3, h, w))
+    pixels, tiles, tile8 = {}, set(), {}
+    for i in range(n):
+        for p in range(k):
+            x0 = int(np.floor(np.float64(pts[i, p, 0]) * w - 0.5))
+            y0 = int(np.floor(np.float64(pts[i, p, 1]) * h - 0.5))
+            for yy, xx in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0),
+                           (y0 + 1, x0 + 1)):
+                if 0 <= yy < h and 0 <= xx < w:
+                    pixels[i, yy, xx] = pixels.get((i, yy, xx), 0) + 1
+                    tiles.add((i, yy // 8, xx // 32))
+                    key = (i, yy // 8, xx // 8)
+                    tile8[key] = tile8.get(key, 0) + 1
+    on_map = sum(pixels.values())
+    assert got['points_per_image'] == k
+    assert got['corners_off_map'] == pytest.approx(1 - on_map / (4 * n * k))
+    assert got['adds_per_touched_pixel_mean'] == pytest.approx(
+        on_map / len(pixels))
+    assert got['adds_per_touched_pixel_max'] == max(pixels.values()) >= 20
+    assert got['touched_pixels'] == pytest.approx(len(pixels) / (n * h * w))
+    assert got['tiles_reached'] == pytest.approx(len(tiles) / (n * 3 * 2))
+    assert got['corners_per_8x8_tile_max'] == max(tile8.values())
+    assert got['corners_per_8x8_tile_mean'] == pytest.approx(
+        on_map / len(tile8))
