@@ -977,6 +977,170 @@ def synthetic_gt(np, torch, rs, b, img_hw, device=None,
                        mask=torch.from_numpy(mask).to(device))
 
 
+def atss_cost(n, b, g, n_gt):
+    """(bytes, float32 operations) of one ATSS call over N anchors, B
+    images and G gt slots of which ``n_gt`` are real: the anchors, the
+    padded gts and the valid flags read, the four (B, N) outputs and the
+    64-bit scratch word written once; per (real gt, anchor) the centre
+    distance (2 subtracts, 2 multiplies, an add, a sqrt) and the compare
+    of the per-level selection."""
+    nbytes = n * 16 + b * g * 25 + b * n * (1 + 1 + 8 + 4 + 8)
+    return nbytes, n_gt * n * 7.0
+
+
+def gfl_loss_cost(b, n, c, reg_width, positives):
+    """(bytes, float32 operations) of one fused GFL loss forward and
+    backward over B x N rows of C classes, ``positives`` of them positive:
+    the forward reads the class logits, label (int64), label weight and
+    positive flag of every row, and the distribution logits, box target
+    and anchor geometry (12 bytes) of positive rows only (a row that is not
+    positive has quality 0 and weight 0: its terms do not depend on them);
+    the backward reads the same again and writes both gradients of every
+    row. ~3300 operations a row (forward ~1300, backward ~2000: softmaxes,
+    sigmoids, logs, GIoU and its gradient)."""
+    m = b * n
+    row = c * 4 + 8 + 4 + 1
+    pos_row = reg_width * 4 + 16 + 12
+    return (m * (2 * row + c * 4 + reg_width * 4) + positives * 2 * pos_row,
+            m * 3300.0)
+
+
+def capture_kw(module, name, calls):
+    """``capture`` for wrappers called with keywords: records (args,
+    kwargs), tensors detached. Returns the restore function."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append((tuple(a.detach() if hasattr(a, 'detach') else a
+                            for a in args), dict(kwargs)))
+        return fn(*args, **kwargs)
+    wrapper.launches = 0
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, fn)
+
+
+# row 3's kernels, by the profiler's names
+GFL_LOSS_KERNELS = ['gfl_loss_rows_kernel', 'gfl_loss_reduce_kernel',
+                    'gfl_loss_backward_kernel']
+GFL_LOSS_DESIGN = ('CUDA: a warp 8 rows, a lane a (row, side); 16-byte '
+                   'class chunks s, s + 4, ... read in place through the '
+                   'map\'s row stride; '
+                   'distribution logits and targets read for positive rows '
+                   'only (a warp with one softmaxes each side in its lane, '
+                   'corners by quad shuffles); per-block partials reduced '
+                   'in a fixed order; deterministic')
+ATSS_DESIGN = ('one scan of each level: a block an (image, gt, 2048-anchor '
+               'chunk), per-thread sorted lists of 64-bit (distance, '
+               'anchor) keys, warp merges, ranks; a warp an (image, gt) '
+               'ranks the chunks\' lists into candidates, lane IoUs, the '
+               'serial statistics on one lane; bit-equal')
+
+
+def gfl_loss_call(torch, fn, leaves, lo, c, rest, kwargs):
+    """(losses, (gradient of the class map, of reg)) of one fused GFL loss
+    call on the columns lo:lo + c of the leaf class map, the gradients by
+    ``torch.autograd.grad`` of the losses' sum."""
+    cls, reg = leaves
+    losses = fn(cls[..., lo:lo + c], reg, *rest[1:], **kwargs)
+    return (torch.stack(losses).detach(),
+            torch.autograd.grad(sum(losses), (cls, reg)))
+
+
+def hold_loss_kernels(torch, tag, atss_call, gfl_call=None):
+    """Rows 6 and 3 at one training step's calls against their plain
+    versions, then graph-timed: ATSS's four outputs exactly equal; the GFL
+    losses within rtol 1e-4 (float32 sums in another order), the gradients
+    within 1e-4*|g| + 1e-5*max|g|, the class map's other columns' gradient
+    exactly 0 and two kernel calls bit-equal. ``atss_call`` is (args,
+    kwargs), ``gfl_call`` (wide class map, first column, C, the loss's
+    other arguments, kwargs) or None. Returns {'atss': ..., 'gfl_loss':
+    ...}, each a dict of the call's errors and times."""
+    from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss, gfl_loss_plain
+    from erd_tpu_torch.task import atss_assign, atss_assign_plain
+    args, kw = atss_call
+    got = atss_assign(*args, **kw)
+    want = atss_assign_plain(*args, **kw)
+    diff = sum(int((getattr(got, f) != getattr(want, f)).sum())
+               for f in ('pos_mask', 'gt_idx', 'labels', 'max_overlaps'))
+    n_pos = int(got.pos_mask.sum())
+    del got, want
+    b, g = args[4].shape
+    n_gt = int(args[4].sum())
+    check(diff == 0, f'{tag}: ATSS kernel disagrees with plain')
+    check(n_pos > 0, f'{tag}: ATSS check found no positive')
+    ms = graph_ms(torch, lambda: atss_assign(*args, **kw), 20)
+    call_ms = events_ms(torch, lambda: atss_assign(*args, **kw), 20)
+    plain_ms = events_ms(torch, lambda: atss_assign_plain(*args, **kw), 2)
+    bms, by = bound_of(*atss_cost(args[0].shape[0], b, g, n_gt))
+    out = {'atss': dict(config=tag, batch=b, anchors=args[0].shape[0],
+                        real_gts=n_gt, gt_slots=b * g, positives=n_pos,
+                        mismatches=diff, ms=ms, call_ms=call_ms,
+                        ms_from='graph', plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by)}
+    log(f'train kernels: {tag} atss B={b} N={args[0].shape[0]} G={g} '
+        f'({n_gt} real gts): positives={n_pos} mismatches={diff} (exact); '
+        f'{ms:.4f} ms (graph), {call_ms:.4f} (events), plain '
+        f'{plain_ms:.3f}, bound {bms:.4f} ({by})')
+    if gfl_call is None:
+        return out
+    wide, lo, c, rest, kw = gfl_call
+    leaves = (wide.detach().clone().requires_grad_(True),
+              rest[0].detach().clone().requires_grad_(True))
+
+    def run(fn):
+        return gfl_loss_call(torch, fn, leaves, lo, c, rest, kw)
+
+    def forward():
+        with torch.no_grad():
+            return fused_gfl_loss(leaves[0][..., lo:lo + c], leaves[1],
+                                  *rest[1:], **kw)
+    (l1, g1), (l2, g2), (lp, gp) = run(fused_gfl_loss), \
+        run(fused_gfl_loss), run(gfl_loss_plain)
+    err = float((l1 - lp).abs().max())
+    ratio = max(float(((a - w).abs() / (1e-4 * w.abs() + 1e-5 * float(
+        w.abs().max()))).max()) for a, w in zip(g1, gp))
+    other = torch.ones(wide.shape[-1], dtype=torch.bool, device=wide.device)
+    other[lo:lo + c] = False
+    other_max = float(g1[0][..., other].abs().max()) if bool(other.any()) \
+        else 0.0
+    same = bool(torch.equal(l1, l2)) and all(
+        torch.equal(a, a2) for a, a2 in zip(g1, g2))
+    log(f'train kernels: {tag} gfl_loss B={b} C={c} of a '
+        f'{wide.shape[-1]}-wide map: losses {l1.tolist()} vs plain '
+        f'{lp.tolist()}; max_abs_err={err:.3e} (tolerance rtol 1e-4); '
+        f'gradient error / tolerance (1e-4*|g|+1e-5*max|g|) = {ratio:.3f}; '
+        f'other columns\' gradient largest {other_max}; two calls '
+        f'bit-equal {same}')
+    check(bool(((l1 - lp).abs() <= 1e-4 * lp.abs()).all()),
+          f'{tag}: GFL loss kernel disagrees with plain')
+    check(ratio <= 1.0, f'{tag}: GFL loss backward disagrees with plain')
+    check(other_max == 0.0, f'{tag}: GFL loss gradient outside its columns')
+    check(same, f'{tag}: two GFL loss calls differ')
+    del l1, l2, lp, g1, g2, gp
+    call_ms = graph_ms(torch, lambda: run(fused_gfl_loss), 10)
+    fwd_ms = graph_ms(torch, forward, 10)
+    ms = kernel_ms(torch, lambda: run(fused_gfl_loss), GFL_LOSS_KERNELS, 10)
+    plain_ms = events_ms(torch, lambda: run(gfl_loss_plain), 2)
+    n_pos = int(rest[4].sum())
+    nbytes, ops = gfl_loss_cost(b, wide.shape[1], c, rest[0].shape[-1],
+                                n_pos)
+    bms, by = bound_of(nbytes, ops)
+    out['gfl_loss'] = dict(
+        config=tag, batch=b, classes=c, map_width=wide.shape[-1],
+        positives=n_pos, max_abs_err=err, grad_err_over_tolerance=ratio,
+        repeat_equal=same, ms=ms or call_ms,
+        ms_from='profiler' if ms else 'graph', call_ms=call_ms,
+        call_ms_from='graph, through autograd (its zero-fill and slice '
+        'copy of a class slice\'s gradient included)', forward_ms=fwd_ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, bound_bytes=nbytes)
+    log(f'train kernels: {tag} gfl_loss forward + backward kernels '
+        f'{ms or call_ms:.4f} ms ({"profiler" if ms else "graph"}); call '
+        f'through autograd {call_ms:.4f} (graph), forward {fwd_ms:.4f} '
+        f'(graph); plain {plain_ms:.3f}; bound {bms:.4f} ({by}; {nbytes} '
+        f'bytes, {n_pos} positive rows)')
+    return out
+
+
 def train_case(np, torch, rs, ctx, b):
     """Head outputs and targets of one batch, as the train step hands them
     to the kernels: teacher logits are bf16 values in float32, with a few
@@ -1013,8 +1177,7 @@ def phase_train_kernels(np, torch):
                                                fused_erd_distill)
     from erd_tpu_torch.ops.ers_select import (ers_select, ers_select_plain,
                                               ers_threshold)
-    from erd_tpu_torch.ops.gfl_loss import fused_gfl_loss, gfl_loss_plain
-    from erd_tpu_torch.task import atss_assign, atss_assign_plain, valid_flags
+    from erd_tpu_torch.task import valid_flags
 
     rs = np.random.RandomState(5)
     ctx = AnchorContext.build(TRAIN_CANVAS)
@@ -1037,11 +1200,6 @@ def phase_train_kernels(np, torch):
         t = case['targets']
         return (t.labels, t.label_weights, t.bbox_targets, t.pos_mask,
                 t.num_pos, centers, strides)
-
-    def gfl_step(fn, case, cls, reg):
-        losses = fn(cls[..., OLD_CLASSES:], reg, *gfl_args(case))
-        sum(losses).backward()
-        return losses
 
     def ers_nms(case, k):
         """The ERS masks, the first k reg candidates, the rows the NMS kept
@@ -1079,14 +1237,10 @@ def phase_train_kernels(np, torch):
         """Every training kernel against its plain version on one batch;
         returns the largest errors of the decode and the fused losses."""
         b = case['t_cls'].shape[0]
-        got = atss_assign(*atss_args(case))
-        want = atss_assign_plain(*atss_args(case))
-        diff = sum(int((getattr(got, f) != getattr(want, f)).sum())
-                   for f in ('pos_mask', 'gt_idx', 'labels', 'max_overlaps'))
-        log(f'train kernels: atss B={b} N={n} G={MAX_GT} positives='
-            f'{int(got.pos_mask.sum())} mismatches={diff} (exact)')
-        check(diff == 0, f'ATSS kernel disagrees with plain at B={b}')
-        check(int(got.pos_mask.sum()) > 0, 'ATSS check found no positive')
+        held = hold_loss_kernels(
+            torch, f'ERD B={b}', (atss_args(case), {}),
+            (case['s_cls'], OLD_CLASSES, NUM_CLASSES - OLD_CLASSES,
+             (case['s_reg'],) + gfl_args(case), {}))
 
         got = ers_select(case['t_cls'], case['t_reg'], cap)
         want = ers_select_plain(case['t_cls'], case['t_reg'], cap)
@@ -1132,24 +1286,6 @@ def phase_train_kernels(np, torch):
             check(mism == 0, f'NMS kernel disagrees with plain at B={b} '
                   f'K={k}')
 
-        outs, grads = [], []
-        for fn in (fused_gfl_loss, gfl_loss_plain):
-            cls, reg = with_grad(case)
-            outs.append(torch.stack(gfl_step(fn, case, cls, reg)).detach())
-            grads.append((cls.grad, reg.grad))
-        del cls, reg
-        gfl_err = float((outs[0] - outs[1]).abs().max())
-        gfl_gerr = grad_ratio(grads)
-        log(f'train kernels: gfl_loss B={b} losses {outs[0].tolist()} vs '
-            f'plain {outs[1].tolist()}; max_abs_err={gfl_err:.3e} '
-            f'(tolerance rtol 1e-4); gradient error / tolerance '
-            f'(1e-4*|g|+1e-5*max|g|) = {gfl_gerr:.3f}')
-        check(bool(((outs[0] - outs[1]).abs() <=
-                    1e-4 * outs[1].abs()).all()),
-              f'GFL loss kernel disagrees with plain at B={b}')
-        check(gfl_gerr <= 1.0, f'GFL loss backward disagrees with plain at '
-              f'B={b}')
-
         # the masks of the fast branch, which the path takes while every
         # image's reg count fits in fast_k (it does on this data)
         cm, _, kept, _, _ = ers_nms(case, fast_k)
@@ -1173,33 +1309,29 @@ def phase_train_kernels(np, torch):
         check(dis_gerr <= 1.0, f'distillation backward disagrees with plain '
               f'at B={b}')
         check(bool((outs[0] > 0).all()), 'distillation check is zero')
-        return dict(decode=dec_err, gfl=gfl_err, distill=dis_err)
+        return dict(decode=dec_err, distill=dis_err), held
 
     # ---- checks at B = 2 and at the train step's B = 16
     errs = {}
     for b in (2, TRAIN_BATCH):
         case = train_case(np, torch, rs, ctx, b)
-        for key, err in check_case(case).items():
+        got, held = check_case(case)
+        for key, err in got.items():
             errs[key] = max(errs.get(key, 0.0), err)
     big = case
 
-    # ---- timing at B = 16
+    # ---- timing at B = 16 (rows 6 and 3 timed by hold_loss_kernels; the
+    # DCN train phase adds its steps' calls)
     b = TRAIN_BATCH
-    a_args = atss_args(big)
-    ms, call_ms, src, plain_ms = time_pair(
-        torch, lambda: atss_assign(*a_args),
-        lambda: atss_assign_plain(*a_args),
-        ['atss_candidates_kernel', 'atss_resolve_kernel'])
-    n_gt = int(big['gt'].mask.sum())
-    nbytes = n * 16 + b * MAX_GT * 25 + b * n * (1 + 1 + 8 + 4 + 8)
-    ops = n_gt * n * 7.0  # per (gt, anchor): centre distance (2 sub, 2 mul,
-    # add, sqrt) and the compare of the per-level selection
-    bms, by = bound_of(nbytes, ops)
+    at = held['atss']
     rows.append(dict(name='atss', route='cuda',
                      source='erd_tpu_torch/csrc/atss.cu',
                      replaces='erd_tpu/task/atss.py:46', max_abs_err=0.0,
-                     ms=ms, call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
-                     bound_ms=bms, bound_by=by, library_ms=None))
+                     ms=at['ms'], call_ms=at['call_ms'], ms_from='graph',
+                     plain_ms=at['plain_ms'], bound_ms=at['bound_ms'],
+                     bound_by=at['bound_by'], library_ms=None,
+                     redesigned=True, design=ATSS_DESIGN,
+                     train_calls=[at], per_step_ms={'erd': at['ms']}))
 
     ms, call_ms, src, plain_ms = time_pair(
         torch, lambda: ers_select(big['t_cls'], big['t_reg'], cap),
@@ -1215,27 +1347,18 @@ def phase_train_kernels(np, torch):
                      plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                      library_ms=None))
 
-    cls, reg = with_grad(big)
-    ms, call_ms, src, plain_ms = time_pair(
-        torch, lambda: gfl_step(fused_gfl_loss, big, cls, reg),
-        lambda: gfl_step(gfl_loss_plain, big, cls, reg),
-        ['_gfl_loss_kernel', '_gfl_reduce_kernel'])
-    m = b * n
-    # forward reads 40 class + 68 distribution logits, targets and masks of
-    # every row; backward reads them again and writes both gradients
-    nbytes = m * (2 * (40 * 4 + 68 * 4 + 8 + 4 + 16 + 1) + 40 * 4 + 68 * 4) \
-        + n * 12
-    ops = m * 3300.0  # forward ~1300, backward ~2000 per row (softmaxes,
-    # sigmoids, logs, GIoU and its gradient)
-    bms, by = bound_of(nbytes, ops)
-    rows.append(dict(name='gfl_loss', route='triton',
-                     source='erd_tpu_torch/ops/gfl_loss.py',
+    gl = held['gfl_loss']
+    rows.append(dict(name='gfl_loss', route='cuda',
+                     source='erd_tpu_torch/csrc/gfl_loss.cu',
                      replaces='erd_tpu/models/heads/gfl_head.py:211',
-                     max_abs_err=errs['gfl'], ms=ms, call_ms=call_ms,
-                     ms_from=src, ms_per='forward + backward',
-                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                     library_ms=None))
-    del cls, reg
+                     max_abs_err=gl['max_abs_err'], ms=gl['ms'],
+                     call_ms=gl['call_ms'], ms_from=gl['ms_from'],
+                     ms_per='forward + backward', plain_ms=gl['plain_ms'],
+                     bound_ms=gl['bound_ms'], bound_by=gl['bound_by'],
+                     library_ms=None, deterministic=True, redesigned=True,
+                     design=GFL_LOSS_DESIGN, train_calls=[gl],
+                     per_step_ms={'erd': gl['ms']}))
+    m = b * n
 
     cm, _, kept, count, _ = ers_nms(big, fast_k)
     sc, sr = with_grad(big)
@@ -4419,11 +4542,12 @@ def phase_dcn_train_kernels(np, torch):
     import importlib
 
     from erd_tpu_torch.engine import batch_to
+    from erd_tpu_torch.models.heads import gfl_head, vfnet_head
     from erd_tpu_torch.ops import (deform_im2col_backward,
                                    deform_im2col_backward_plain)
     from erd_tpu_torch.ops.deform_conv import deform_backward_chunk
     dcn_module = importlib.import_module('erd_tpu_torch.ops.deform_conv')
-    stats, shapes = {}, {}
+    stats, shapes, loss_calls = {}, {}, {}
     names = ('x', 'offset', 'mask')
     worst_abs, worst_rel = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
     worst_ulps = 0
@@ -4431,14 +4555,28 @@ def phase_dcn_train_kernels(np, torch):
         _, det, net = dcn_train_net(torch, kind)
         batch = batch_to(next(iter(SyntheticLoader(
             np, torch, 1, seed=41, num_labels=NUM_CLASSES).epoch(0))), DEV)
-        calls = []
-        restore = capture(dcn_module, 'deform_im2col_backward', calls)
+        calls, atss_calls, gfl_calls = [], [], []
+        head = vfnet_head if kind.startswith('vfnet') else gfl_head
+        restore = [capture(dcn_module, 'deform_im2col_backward', calls),
+                   capture_kw(head, 'atss_assign', atss_calls),
+                   capture_kw(gfl_head, 'fused_gfl_loss', gfl_calls)]
         try:
             losses = det.loss(net, batch)
             sum(losses.values()).backward()
         finally:
-            restore()
+            for undo in restore:
+                undo()
         torch.cuda.synchronize()
+        check(len(atss_calls) == 1 and len(gfl_calls) == (
+            0 if head is vfnet_head else 1), f'{kind}: {len(atss_calls)} '
+            f'ATSS and {len(gfl_calls)} GFL loss calls in one step')
+        # rows 6 and 3 at the step's own calls (the full class map)
+        gfl = None
+        if gfl_calls:
+            args, kw = gfl_calls[0]
+            gfl = (args[0].contiguous(), 0, args[0].shape[-1], args[1:], kw)
+        loss_calls[kind] = hold_loss_kernels(torch, kind, atss_calls[0], gfl)
+        del atss_calls, gfl_calls, gfl
         log(f'dcn train kernels: one {kind} step captured: '
             f'{len(calls)} backward calls; losses ' + ' '.join(
                 f'{k} {float(v.detach()):.4f}' for k, v in losses.items()))
@@ -4607,7 +4745,7 @@ def phase_dcn_train_kernels(np, torch):
                sample_share={'fractional': total[1] / total[0],
                              'outside': total[2] / total[0]})
     torch.cuda.empty_cache()
-    return row
+    return row, loss_calls
 
 
 def phase_dcn_train_reference(np, torch):
@@ -6795,7 +6933,7 @@ def main() -> int:
                                                                   torch)
         phase_detr_train_reference(np, torch)
         detr_train_launches = phase_detr_train(np, torch, card)
-        dcn_train_row = phase_dcn_train_kernels(np, torch)
+        dcn_train_row, dcn_loss_calls = phase_dcn_train_kernels(np, torch)
         phase_dcn_train_reference(np, torch)
         dcn_train_launches = phase_dcn_train(np, torch, card)
         point_sample_row, roi14 = phase_mask_kernels(np, torch)
@@ -6831,6 +6969,10 @@ def main() -> int:
             if row['name'] == 'integral_decode':
                 row['train_no_clip_max_abs_err'] = no_clip_err
         for row in train_rows:  # ATSS and the GFL loss: the DCN steps too
+            for kind, held in dcn_loss_calls.items():
+                if held.get(row['name']):
+                    row['train_calls'].append(held[row['name']])
+                    row['per_step_ms'][kind] = held[row['name']]['ms']
             by_path = {'train': train_launches[row['name']]}
             for path, counts in dcn_train_launches.items():
                 if counts.get(row['name']):

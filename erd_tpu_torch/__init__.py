@@ -9,7 +9,7 @@ Entry points (``apis.init_detector``, ``apis.build_trainer``,
 ``cuda`` unless the caller passes ``device='cpu'``; without CUDA and
 without a device they raise. The hand-written kernels live in ``csrc/``
 (CUDA, built with ``nvcc`` at first use by ``ops/cuda_build.py``) and in
-``ops/gfl_loss.py`` and ``ops/erd_distill.py`` (Triton); each wrapper
+``ops/erd_distill.py`` (Triton); each wrapper
 launches its kernel for CUDA tensors and runs its plain PyTorch version
 only for CPU tensors.
 """

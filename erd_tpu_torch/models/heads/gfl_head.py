@@ -187,7 +187,7 @@ def gfl_loss(ctx: AnchorContext, cls_scores, bbox_preds, targets: GFLTargets,
 
     cls_scores (B, N, C) float32 logits (may be a class slice of a wider
     map); bbox_preds (B, N, 4*(reg_max+1)) float32. Returns dict(loss_cls,
-    loss_bbox, loss_dfl) through the fused loss (Triton kernel on the card,
+    loss_bbox, loss_dfl) through the fused loss (CUDA kernels on the card,
     the plain version on the CPU).
     """
     centers, strides = ctx.device_tensors(cls_scores.device)

@@ -15,11 +15,12 @@ every product and sum of its bilinear weights, the mask-target kernel
 every step from an RoI's cell to a crop's corners (a floor near an integer
 must land where erd_tpu's does), the corner-target kernel each
 gaussian's exponent, and the matrix-NMS, fast-NMS and nms_match kernels
-every IoU and decay term. (The masked-conv kernel chains explicit FMAs.)
+every IoU and decay term. (The masked-conv kernel chains explicit FMAs;
+the GFL-loss kernels call the fast exp, log and divide intrinsics.)
 
-The Triton kernels (``ops/gfl_loss.py``, ``ops/erd_distill.py``) import
-Triton through ``import_triton``, which points Triton's cache at
-``csrc/build/triton`` unless ``TRITON_CACHE_DIR`` names another place.
+The Triton kernels (``ops/erd_distill.py``) import Triton through
+``import_triton``, which points Triton's cache at ``csrc/build/triton``
+unless ``TRITON_CACHE_DIR`` names another place.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select', 'roi_align',
            'soft_nms', 'ms_deform_attn', 'deform_conv', 'carafe',
            'point_sample', 'corner_pool', 'mask_target', 'corner_targets',
-           'extra_nms', 'masked_conv')
+           'extra_nms', 'masked_conv', 'gfl_loss')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each build made by this process

@@ -167,12 +167,16 @@ def atss_assign(anchors, num_level_anchors: Sequence[int], gt_bboxes,
     gt_mask = gt_mask.contiguous()
     valid_flags = valid_flags.contiguous()
     starts = _level_starts(tuple(num_level_anchors), dev)
-    best =torch.empty((b, n), dtype=torch.int64, device=dev)
+    lib = cuda_build.load('atss')
+    words = lib.erd_atss_workspace_words
+    words.argtypes = [ctypes.c_int] * 5
+    words.restype = ctypes.c_longlong
+    best = torch.empty(words(b, n, g, len(num_level_anchors), topk),
+                       dtype=torch.int64, device=dev)
     pos = torch.empty((b, n), dtype=torch.bool, device=dev)
     gt_idx = torch.empty((b, n), dtype=torch.int64, device=dev)
     max_ov = torch.empty((b, n), dtype=torch.float32, device=dev)
     labels = torch.empty((b, n), dtype=torch.int64, device=dev)
-    lib = cuda_build.load('atss')
     fn = lib.erd_atss_assign
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p] * 5 + [ctypes.c_void_p]

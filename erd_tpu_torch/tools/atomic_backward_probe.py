@@ -117,6 +117,7 @@ Prints a line per measurement and, last, one JSON object of them all.
 from __future__ import annotations
 
 import ctypes
+import functools
 import importlib
 import json
 import os
@@ -865,10 +866,12 @@ def probe_other_backwards(smoke, report):
 
 def fitting_edits(name, alternatives):
     """The first edit set of ``alternatives`` whose texts are all in
-    ``csrc/<name>.cu`` (one set per design the probe has measured), or
-    None where none fits."""
-    from erd_tpu_torch.ops import cuda_build
-    src = (cuda_build.CSRC / f'{name}.cu').read_text()
+    ``package_source(name)`` (one set per design the probe has measured),
+    or None where none fits or the source is not there."""
+    path = package_source(name)
+    if not path.exists():
+        return None
+    src = path.read_text()
     return next((edits for edits in alternatives
                  if all(old in src for old in edits)), None)
 
@@ -1403,11 +1406,419 @@ def probe_point_backward(smoke, report):
     torch.cuda.empty_cache()
 
 
+@functools.lru_cache(maxsize=1)
+def loss_calls(smoke):
+    """{config: {'atss': (args, kwargs), 'gfl_loss': (wide, lo, args,
+    kwargs) or None}}: the ATSS and fused GFL-loss calls of one bs-16,
+    800x1344 step of ERD stage 2 (``chip_smoke.train_case`` after its
+    B = 2 case, as ``phase_train_kernels`` makes them: 1-12 gts an image,
+    the loss on the 40 new-class columns of the 80-wide student map), GFL
+    R101-DCN (C = 80) and VFNet R50-mdconv (ATSS only), each with its
+    phase's own gts. ``wide`` is the (B, N, W) class map whose columns
+    lo:lo + C the loss reads. Made once for parts 3 and 6."""
+    import numpy as np
+
+    from erd_tpu_torch.engine import batch_to
+    from erd_tpu_torch.models.heads import gfl_head, vfnet_head
+    from erd_tpu_torch.models.heads.gfl_head import AnchorContext
+    out = {}
+    rs = np.random.RandomState(5)
+    ctx = AnchorContext.build(smoke.TRAIN_CANVAS)
+    seen = []
+    restore = smoke.capture_kw(gfl_head, 'atss_assign', seen)
+    try:
+        smoke.train_case(np, torch, rs, ctx, 2)
+        case = smoke.train_case(np, torch, rs, ctx, smoke.TRAIN_BATCH)
+    finally:
+        restore()
+    t = case['targets']
+    centers, strides = ctx.device_tensors(smoke.DEV)
+    out['erd'] = dict(atss=seen[-1], gfl_loss=(
+        case['s_cls'], smoke.OLD_CLASSES,
+        (case['s_reg'], t.labels, t.label_weights, t.bbox_targets,
+         t.pos_mask, t.num_pos, centers, strides), {}))
+    del case
+    for kind in smoke.DCN_CONFIGS:
+        _, det, net = smoke.dcn_train_net(torch, kind)
+        batch = batch_to(next(iter(smoke.SyntheticLoader(
+            np, torch, 1, seed=41, num_labels=smoke.NUM_CLASSES).epoch(0))),
+            smoke.DEV)
+        atss, gfl = [], []
+        head = vfnet_head if kind.startswith('vfnet') else gfl_head
+        undo = [smoke.capture_kw(head, 'atss_assign', atss),
+                smoke.capture_kw(gfl_head, 'fused_gfl_loss', gfl)]
+        try:
+            losses = det.loss(net, batch)
+            sum(losses.values()).backward()
+        finally:
+            for u in undo:
+                u()
+        torch.cuda.synchronize()
+        row = dict(atss=atss[0], gfl_loss=None)
+        if gfl:
+            args, kwargs = gfl[0]
+            row['gfl_loss'] = (args[0].contiguous(), 0, args[1:], kwargs)
+        out[kind] = row
+        del net, losses, batch, atss, gfl
+        torch.cuda.empty_cache()
+    return out
+
+
+def package_source(name):
+    """The path of a kernel source: ``csrc/<name>.cu``, or a module of the
+    package where ``name`` ends in ``.py`` (``ops/gfl_loss.py``)."""
+    from erd_tpu_torch.ops import cuda_build
+    if name.endswith('.py'):
+        return cuda_build.CSRC.parent / name
+    return cuda_build.CSRC / f'{name}.cu'
+
+
+def module_variant(name, variant, edits):
+    """The module ``name`` (``ops/gfl_loss.py``) with each text of
+    ``edits`` replaced, imported from the build directory as a sibling of
+    the original (its relative imports resolve): a measurement's variant,
+    on no path."""
+    import importlib.util
+
+    from erd_tpu_torch.ops import cuda_build
+    src = package_source(name).read_text()
+    for old, new in edits.items():
+        if old not in src:
+            raise RuntimeError(f'{name}: {old!r} not found')
+        src = src.replace(old, new)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = name[:-3].replace('/', '_')
+    path = cuda_build.BUILD_DIR / f'{stem}_{variant}.py'
+    path.write_text(src)
+    parent = 'erd_tpu_torch.' + name[:-3].replace('/', '.').rpartition(
+        '.')[0]
+    spec = importlib.util.spec_from_file_location(
+        f'{parent}.{stem}_{variant}', path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# edits of ops/gfl_loss.py for part 3, the parent's Triton kernels: the
+# launch settings (rows a program, warps), the kernel without its class
+# part (no class loads, arithmetic or stores: constant logits) and without
+# its distribution part (constant distribution logits, no stores of their
+# gradient); the redesign has no Triton kernel, so these fit the parent
+# alone
+GFL_LOSS_TRITON_PARTS = {
+    **{f'rows_{r}': ({'ROWS = 32\n': f'ROWS = {r}\n'},) for r in (8, 16, 64)},
+    **{f'warps_{w}': ({'BLOCK_B=triton.next_power_of_2(nbins), num_warps=4)':
+                       'BLOCK_B=triton.next_power_of_2(nbins), '
+                       f'num_warps={w})'},) for w in (2, 8)},
+    'no_class': (
+        {'xc = tl.load(cls_ptr + rows64[:, None] * cls_stride + cc, mask=cm,\n'
+         '                     other=0.0)':
+         'xc = tl.zeros((ROWS, BLOCK_C), tl.float32) - 3.0',
+         'tl.store(gcls_ptr + rows64[:, None] * C + cc, gc, mask=cm)':
+         'pass'},),
+    'no_distribution': (
+        {'x = tl.load(reg_ptr + roff, mask=m3, other=0.0)':
+         'x = tl.zeros((ROWS, 4, BLOCK_B), tl.float32) + jj.to(tl.float32)',
+         'tl.store(greg_ptr + roff, g_int + g_dfl, mask=m3)': 'pass'},),
+}
+# edits of csrc/gfl_loss.cu for part 3, the redesign: the kernels without
+# their class part (constant logits, no gradient stores) and without their
+# distribution part (constant distribution logits, no stores of their
+# gradient, zeros included)
+GFL_LOSS_PARTS = {
+    'no_class': (
+        {'const float4 v = x4[j];':
+         'const float4 v = make_float4(-3.f, -3.f, -3.f, -3.f);',
+         'g4[j] = d;': '(void)d;',
+         'qfl_term<kBeta2>(xr[c], c == lab':
+         'qfl_term<kBeta2>(-3.f, c == lab',
+         'gr[c] = qfl_grad<kBeta2>(xr[c], c == lab, q, p.beta, smax) * kcl;':
+         'smax = fmaxf(smax, -3.f);'},),
+    'no_distribution': (
+        {'for (int j = 0; j < p.nb; ++j) mx = fmaxf(mx, x[j]);': 'mx = 0.f;',
+         'const float e = __expf(x[j] - mx);':
+         'const float e = __expf(-0.1f * j);',
+         'dfl = g.wl * (g.lse - x[g.dli]) + g.wr * (g.lse - x[g.dri]);':
+         'dfl = (g.wl + g.wr) * g.lse;',
+         'const float pj = __expf(x[j] - g.mx) * inv;':
+         'const float pj = __expf(-0.1f * j) * inv;',
+         'if (first + i < total4) g4[i]': 'if (first + i < 0) g4[i]',
+         'for (int j = 0; j < p.nb; ++j) out[j] = 0.f;': ';',
+         'out[j] = g_int + ((g.wl + g.wr) * pj - hit) * kdw;':
+         'if (g_int == 12345.f) out[j] = hit * kdw;'},),
+}
+# edits of csrc/atss.cu for part 6: the candidates without the per-gt
+# statistics (the parent: thread 0's serial IoUs, mean, std and atomics
+# skipped; the redesign: its select kernel's mean and std, the threshold
+# left at 0), and the redesign's scan on chunks of 1024 and 4096 anchors;
+# one edit set for each design measured
+ATSS_PARTS = {
+    'no_stats': (
+        {'if (threadIdx.x != 0) return;': 'return;'},
+        {'  if (lane == 0) {\n    float sum = 0.f, cnt = 0.f;':
+         '  if (lane == 32) {\n    float sum = 0.f, cnt = 0.f;'}),
+    **{f'chunk_{c}': ({'constexpr int kChunk = 2048;':
+                      f'constexpr int kChunk = {c};'},) for c in (1024, 4096)},
+}
+# row 3's and row 6's device operations by the profiler's names (a key
+# with no record in a design reads "not measured")
+GFL_LOSS_OPS = {
+    'rows': ('_gfl_loss_kernel', 'gfl_loss_rows_kernel'),
+    'reduce': ('_gfl_reduce_kernel', 'gfl_loss_reduce_kernel'),
+    'backward': ('gfl_loss_backward_kernel',),
+}
+ATSS_OPS = {
+    'zero': ('Memset',),
+    'candidates': ('atss_candidates_kernel',),
+    'scan': ('atss_scan_kernel',),
+    'select': ('atss_select_kernel',),
+    'resolve': ('atss_resolve_kernel',),
+}
+
+
+def fit_variants(name, tables, build):
+    """{variant: built or None} over each table of edit sets whose
+    ``fitting_edits`` fits ``name`` (None where none does)."""
+    out = {}
+    for table in tables:
+        for variant, alternatives in table.items():
+            edits = fitting_edits(name, alternatives)
+            out[variant] = None if edits is None else build(variant, edits)
+    return out
+
+
+def ptxas_resources(name):
+    """{kernel: {'regs', 'spills'}} from ptxas's report of this process's
+    build of ``csrc/<name>.cu`` (empty where it did not build it)."""
+    import re
+
+    from erd_tpu_torch.ops import cuda_build
+    out, current = {}, None
+    for line in cuda_build.BUILD_LOGS.get(name, '').splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r'Used (\d+) registers', line)
+        if m and current:
+            out.setdefault(current, {})['regs'] = int(m.group(1))
+        m = re.search(r'(\d+) bytes spill stores', line)
+        if m and current:
+            out.setdefault(current, {})['spills'] = int(m.group(1))
+    return out
+
+
+def kernel_resources(compiled):
+    """{kernel: {'regs', 'spills'}} of row 3's kernels: Triton's own
+    ``n_regs`` and ``n_spills`` of each specialisation launched (the
+    parent's ``compiled`` kernels), or ptxas's of ``csrc/gfl_loss.cu``."""
+    if compiled:
+        return {f'{k.name}[{i}]': dict(regs=k.n_regs, spills=k.n_spills)
+                for i, k in enumerate(compiled)}
+    return ptxas_resources('gfl_loss')
+
+
+def record_triton(gl, compiled):
+    """Wrap the parent's Triton kernel of ``gl`` (once built) so that each
+    launch's compiled kernel lands in ``compiled``; a no-op for a module
+    without one. Returns the restore function."""
+    kern = getattr(gl, '_gfl_loss_kernel', None)
+    if kern is None:
+        return lambda: None
+
+    class Recorder:
+        def __getitem__(self, grid):
+            def launch(*args, **kwargs):
+                k = kern[grid](*args, **kwargs)
+                if all(k is not c for c in compiled):
+                    compiled.append(k)
+                return k
+            return launch
+    gl._gfl_loss_kernel = Recorder()
+    return lambda: setattr(gl, '_gfl_loss_kernel', kern)
+
+
+def probe_gfl_loss(smoke, report):
+    """Row 3 at the fused GFL-loss calls of one ERD and one GFL R101-DCN
+    step (``loss_calls``): the forward alone and forward + backward
+    (``torch.autograd.grad`` of the losses' sum) by graph replays and
+    events, the copies autograd adds around a class slice (the zero-fill
+    of the wide map's gradient and the slice copy), the kernels by the
+    profiler (``GFL_LOSS_OPS``), the registers and spills of each kernel,
+    the plain version's forward + backward, the bound
+    (``chip_smoke.gfl_loss_cost``), the losses' and gradients' error
+    against plain, and the ``GFL_LOSS_TRITON_PARTS`` / ``GFL_LOSS_PARTS``
+    variants by graph replays."""
+    gl = importlib.import_module('erd_tpu_torch.ops.gfl_loss')
+    calls = loss_calls(smoke)
+    triton_variants = fit_variants(
+        'ops/gfl_loss.py', (GFL_LOSS_TRITON_PARTS,),
+        lambda v, e: module_variant('ops/gfl_loss.py', v, e))
+    cuda_variants = fit_variants(
+        'gfl_loss', (GFL_LOSS_PARTS,),
+        lambda v, e: edited_lib('gfl_loss', f'gfl_{v}', e))
+    compiled = []
+    rows = []
+    for kind, got in calls.items():
+        if got['gfl_loss'] is None:
+            continue
+        wide0, lo, rest, kwargs = got['gfl_loss']
+        b, n, w = wide0.shape
+        c = smoke.NUM_CLASSES - lo if lo else w
+        reg0 = rest[0]
+        wide = wide0.clone().requires_grad_(True)
+        reg = reg0.clone().requires_grad_(True)
+
+        def forward(fn=gl.fused_gfl_loss):
+            with torch.no_grad():
+                return fn(wide[..., lo:lo + c], reg, *rest[1:], **kwargs)
+
+        def both(fn=gl.fused_gfl_loss):
+            losses = fn(wide[..., lo:lo + c], reg, *rest[1:], **kwargs)
+            return losses, torch.autograd.grad(sum(losses), (wide, reg))
+
+        def copies():
+            z = torch.zeros_like(wide0)
+            z[..., lo:lo + c].copy_(wide0[..., lo:lo + c])
+            return z
+        forward()
+        restore = record_triton(gl, compiled)
+        try:
+            (l1, g1), (l2, g2) = both(), both()
+        finally:
+            restore()
+        (lp, gp) = both(gl.gfl_loss_plain)
+        l1, lp = torch.stack(l1).detach(), torch.stack(lp).detach()
+        loss_err = float(((l1 - lp).abs() / lp.abs().clamp(min=1e-30)).max())
+        grad_ratio = max(float(((g - p).abs() / (1e-4 * p.abs() + 1e-5 *
+                                                 float(p.abs().max()))).max())
+                         for g, p in zip(g1, gp))
+        other = float(g1[0][..., :lo].abs().max()) if lo else 0.0
+        same = bool(torch.equal(l1, torch.stack(l2)) and all(
+            torch.equal(x, y) for x, y in zip(g1, g2)))
+        del l1, l2, g1, g2, lp, gp
+        fwd = smoke.graph_ms(torch, forward, 10)
+        full = smoke.graph_ms(torch, both, 10)
+        cp = smoke.graph_ms(torch, copies, 10)
+        ev_fwd = smoke.events_ms(torch, forward, 10)
+        ev_full = smoke.events_ms(torch, both, 10)
+        ops_fwd = device_ops_ms(forward, GFL_LOSS_OPS)
+        ops_full = device_ops_ms(both, GFL_LOSS_OPS)
+        plain = smoke.events_ms(torch, lambda: both(gl.gfl_loss_plain), 2)
+        nbytes, ops = smoke.gfl_loss_cost(b, n, c, reg0.shape[2],
+                                          int(rest[4].sum()))
+        bound, bound_by = smoke.bound_of(nbytes, ops)
+        parts = {}
+        for v, mod in triton_variants.items():
+            parts[v] = None if mod is None else (
+                smoke.graph_ms(torch, lambda: forward(mod.fused_gfl_loss),
+                               10),
+                smoke.graph_ms(torch, lambda: both(mod.fused_gfl_loss), 10))
+        for v, lib in cuda_variants.items():
+            parts[v] = None if lib is None else with_lib(
+                'gfl_loss', lib, lambda: (smoke.graph_ms(torch, forward, 10),
+                                          smoke.graph_ms(torch, both, 10)))
+        kernels = sum(v for v in ops_full.values() if v)
+        rows.append(dict(
+            config=kind, batch=b, anchors=n, classes=c, map_width=w,
+            positives=int(rest[4].sum()), forward_graph_ms=fwd,
+            forward_backward_graph_ms=full, copies_graph_ms=cp,
+            backward_graph_ms=full - fwd - cp, forward_events_ms=ev_fwd,
+            forward_backward_events_ms=ev_full,
+            **{f'fwd_{k}_ms': v for k, v in ops_fwd.items()},
+            **{f'fwd_bwd_{k}_ms': v for k, v in ops_full.items()},
+            kernels_ms=kernels, plain_ms=plain, bound_ms=bound,
+            bound_by=bound_by, bound_bytes=nbytes, ops=ops,
+            loss_rel_err=loss_err, grad_err_over_tolerance=grad_ratio,
+            other_columns_max=other, repeat_equal=same,
+            **{f'{v}_ms': t for v, t in parts.items()}))
+        print(f'probe 3: {kind} B={b} N={n} C={c} of a {w}-wide map '
+              f'({rows[-1]["positives"]} positives): forward {fwd:.4f} ms, '
+              f'forward + backward {full:.4f} (graph; events {ev_fwd:.4f} / '
+              f'{ev_full:.4f}), autograd\'s zero-fill + slice copy '
+              f'{cp:.4f}; kernels (profiler) forward ' + ', '.join(
+                  f'{k} {fmt(v)}' for k, v in ops_fwd.items()) +
+              '; forward + backward ' + ', '.join(
+                  f'{k} {fmt(v)}' for k, v in ops_full.items()) +
+              f' (sum {kernels:.4f}); plain {plain:.3f}; bound {bound:.4f} '
+              f'({bound_by}); loss rel err {loss_err:.2e}, gradient error / '
+              f'tolerance {grad_ratio:.3f}, other columns {other}, two calls '
+              f'equal {same}; variants (forward, forward + backward): ' +
+              ', '.join(f'{v} ' + ('not measured' if t is None else
+                                   f'{t[0]:.4f} {t[1]:.4f}')
+                        for v, t in parts.items()), flush=True)
+        del wide, reg
+    res = kernel_resources(compiled)
+    print('probe 3: registers and spills ' + json.dumps(res), flush=True)
+    report['gfl_loss'] = dict(calls=rows, resources=res)
+    torch.cuda.empty_cache()
+
+
+def probe_atss(smoke, report):
+    """Row 6 at the ATSS calls of one ERD, GFL R101-DCN and VFNet step
+    (``loss_calls``): the real gts and padded slots, the call by graph
+    replays and events, its device operations by the profiler
+    (``ATSS_OPS``), the plain version's time, the bound
+    (``chip_smoke.atss_cost``), the elements that differ from plain, and
+    the ``ATSS_PARTS`` variants by graph replays."""
+    from erd_tpu_torch.task import atss as atss_module
+    calls = loss_calls(smoke)
+    variants = fit_variants('atss', (ATSS_PARTS,),
+                            lambda v, e: edited_lib('atss', f'atss_{v}', e))
+    rows = []
+    for kind, got in calls.items():
+        args, kwargs = got['atss']
+
+        def call():
+            return atss_module.atss_assign(*args, **kwargs)
+        res = call()
+        want = atss_module.atss_assign_plain(*args, **kwargs)
+        fields = ('pos_mask', 'gt_idx', 'labels', 'max_overlaps')
+        differ = sum(int((getattr(res, f) != getattr(want, f)).sum())
+                     for f in fields)
+        positives = int(res.pos_mask.sum())
+        del res, want
+        anchors, nla, gtb, _, gtm = args[:5]
+        b, g = gtm.shape
+        real = int(gtm.sum())
+        graph = smoke.graph_ms(torch, call, 20)
+        events = smoke.events_ms(torch, call, 20)
+        ops = device_ops_ms(call, ATSS_OPS, 10)
+        plain = smoke.events_ms(
+            torch, lambda: atss_module.atss_assign_plain(*args, **kwargs), 2)
+        nbytes, nops = smoke.atss_cost(anchors.shape[0], b, g, real)
+        bound, bound_by = smoke.bound_of(nbytes, nops)
+        parts = {v: None if lib is None else with_lib(
+            'atss', lib, lambda: smoke.graph_ms(torch, call, 20))
+            for v, lib in variants.items()}
+        rows.append(dict(config=kind, batch=b, anchors=anchors.shape[0],
+                         levels=list(nla), topk=kwargs.get('topk', 9),
+                         gt_slots=b * g, real_gts=real, positives=positives,
+                         graph_ms=graph, events_ms=events,
+                         **{f'{k}_ms': v for k, v in ops.items()},
+                         plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+                         elements_differ=differ,
+                         **{f'{v}_ms': t for v, t in parts.items()}))
+        print(f'probe 6: {kind} B={b} N={anchors.shape[0]} levels '
+              f'{list(nla)}: {real} real gts of {b * g} slots, {positives} '
+              f'positives: {graph:.4f} ms (graph), {events:.4f} (events); '
+              f'device (profiler): ' + ', '.join(
+                  f'{k} {fmt(v)}' for k, v in ops.items()) +
+              f'; plain {plain:.3f}; bound {bound:.4f} ({bound_by}); '
+              f'{differ} elements differ from plain; ' + ', '.join(
+                  f'{v} {fmt(t)}' for v, t in parts.items()), flush=True)
+    res = ptxas_resources('atss')
+    print('probe 6: registers and spills ' + json.dumps(res), flush=True)
+    report['atss'] = dict(calls=rows, resources=res)
+    torch.cuda.empty_cache()
+
+
 # the probe's parts, by the kernel rows of PERF.md
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
          '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
          '10': probe_carafe_forward, '13a-b': probe_point_backward,
+         '3': probe_gfl_loss, '6': probe_atss,
          'others': probe_other_backwards}
 
 

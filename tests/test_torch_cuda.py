@@ -231,21 +231,91 @@ def to(gt, device):
                        labels=gt.labels.to(device), mask=gt.mask.to(device))
 
 
-def test_atss_kernel_matches_plain(cuda):
-    ctx = AnchorContext.build(TRAIN_SHAPE)
-    gt = to(train_gt(np.random.RandomState(0), 2), cuda)
-    pad = torch.tensor([[800.0, 1344.0], [768.0, 1024.0]], device=cuda)
+def atss_case(name, cuda):
+    """(args, topk) of an ATSS call: the 800x1344 canvas (or a 128x128 one
+    whose P6 and P7 hold fewer anchors than topk) with 16 gt slots."""
+    rs = np.random.RandomState(0)
+    shape = (128, 128) if name == 'small_level' else TRAIN_SHAPE
+    ctx = AnchorContext.build(shape)
+    b = {'step': 16, 'many_gts': 1}.get(name, 2)
+    gt = train_gt(rs, b)
+    if name == 'many_gts':
+        gt = train_gt(rs, b, g_max=100)
+        gt.mask[:] = True
+        xy = rs.uniform(0, [1300, 780], (100, 2))
+        wh = rs.uniform(16, 400, (100, 2))
+        gt.bboxes[0] = torch.from_numpy(np.concatenate(
+            [xy, np.minimum(xy + wh, [1333, 800])], -1).astype(np.float32))
+    if name == 'ties':
+        # centres on anchor centres and on the midpoints between them: the
+        # level's distances tie in groups of 2, 4 and 8, across slot topk
+        for i in range(b):
+            for j in range(12):
+                step = (8, 16, 32)[j % 3]
+                cx = step * rs.randint(4, 40) + (step // 2) * (j % 2)
+                cy = step * rs.randint(4, 24) + (step // 2) * (j // 2 % 2)
+                half = rs.uniform(20, 100, 2)
+                gt.bboxes[i, j] = torch.tensor(
+                    [cx - half[0], cy - half[1], cx + half[0], cy + half[1]])
+            gt.mask[i, :12] = True
+    if name == 'small_level':
+        gt.bboxes = gt.bboxes * 0.1
+    if name == 'no_gt':
+        gt.mask[:] = False
+    gt = to(gt, cuda)
+    pad = torch.tensor([list(map(float, shape))] * b, device=cuda)
+    if name not in ('small_level', 'many_gts', 'step'):
+        pad[1] = torch.tensor([768.0, 1024.0])
     vf = valid_flags(ctx.featmap_sizes, ctx.strides, pad)
-    args = (ctx.device_anchors(cuda), ctx.num_level_anchors, gt.bboxes,
-            gt.labels, gt.mask, vf)
+    if name == 'invalid_level':
+        lo = ctx.num_level_anchors[0]
+        vf[0, lo:lo + ctx.num_level_anchors[1]] = False
+    topk = {'topk1': 1, 'topk32': 32}.get(name, 9)
+    return (ctx.device_anchors(cuda), ctx.num_level_anchors, gt.bboxes,
+            gt.labels, gt.mask, vf), topk
+
+
+def ties_across_slot(args, topk):
+    """Whether some (image, real gt, level) has equal distances at the
+    topk-th and the next slot (plain float32 arithmetic)."""
+    anchors, nla, gtb, _, gtm, vf = args
+    ac = (anchors[:, :2] + anchors[:, 2:]) / 2
+    gc = (gtb[..., :2] + gtb[..., 2:]) / 2
+    d = (ac[None, :, None] - gc[:, None]).square().sum(-1).sqrt()
+    d = torch.where(vf[..., None], d, torch.full_like(d, 1e8))
+    start = 0
+    for size in nla:
+        if size > topk:
+            lvl = d[:, start:start + size].sort(1).values
+            tie = (lvl[:, topk - 1] == lvl[:, topk]) & gtm
+            if bool(tie.any()):
+                return True
+        start += size
+    return False
+
+
+@pytest.mark.parametrize('name', [
+    'two', 'step', 'many_gts', 'ties', 'invalid_level', 'small_level',
+    'topk1', 'topk32', 'no_gt'])
+def test_atss_kernel_matches_plain(cuda, name):
+    """All four outputs exactly as plain: two images (the second padded
+    to 768x1024), a bs-16 step at N = 22400, 100 gts in an image, gt
+    centres on anchor centres and midpoints (equal distances across the
+    topk-th slot), a level wholly invalid, levels smaller than topk, topk
+    1 and 32, no real gt."""
+    args, topk = atss_case(name, cuda)
     before = atss_assign.launches
-    got = atss_assign(*args)
+    got = atss_assign(*args, topk=topk)
     torch.cuda.synchronize()
     assert atss_assign.launches == before + 1
-    want = atss_assign_plain(*args)
-    assert got.pos_mask.sum() > 0
-    for name in ('pos_mask', 'gt_idx', 'labels', 'max_overlaps'):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    want = atss_assign_plain(*args, topk=topk)
+    assert (got.pos_mask.sum() > 0) == (name != 'no_gt')
+    if name == 'ties':
+        assert ties_across_slot(args, topk)
+    if name == 'small_level':
+        assert min(args[1]) < topk
+    for field in ('pos_mask', 'gt_idx', 'labels', 'max_overlaps'):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
 
 
 @pytest.mark.parametrize('levels', [0, 8])
@@ -309,24 +379,84 @@ def gfl_case(rs, cuda, b=2):
             t.num_pos, centers, strides)
 
 
-def test_gfl_loss_kernel_matches_plain(cuda):
+def gfl_loss_case(name, cuda):
+    """(wide class map, first column, C, the loss's other arguments,
+    keywords): synthetic rows with ~2 % positives, their targets around
+    their anchor centres, strides of the five levels."""
+    rs = np.random.RandomState(5)
+    b, n, width, lo, c = 2, 22400, 80, 40, 40
+    if name == 'full80':
+        lo, c = 0, 80
+    if name == 'c1':
+        lo, c = 7, 1
+    if name == 'ragged':
+        b, n = 3, 1001  # 3003 rows: not a multiple of 8 or 64
+    stride = rs.choice([8.0, 16.0, 32.0, 64.0, 128.0], n).astype(np.float32)
+    ctr = rs.uniform(0, 1300, (n, 2)).astype(np.float32)
+    pos = rs.rand(b, n) < (0.0 if name == 'no_positive' else 0.02)
+    reg = (rs.randn(b, n, 68) * 2).astype(np.float32)
+    dist = rs.uniform(0.5, 18.0, (b, n, 4)).astype(np.float32)
+    if name == 'edges':
+        # side distances on exact bins and past the reg_max - 0.1 clamp
+        dist = rs.randint(0, 21, (b, n, 4)).astype(np.float32)
+    if name == 'ties':
+        # two-hot distributions at bins 2 and 4: each corner is exactly 3,
+        # and the targets' sides are exactly the predicted ones
+        reg = np.full((b, n, 4, 17), -200.0, np.float32)
+        reg[..., 2] = reg[..., 4] = 0.0
+        reg = reg.reshape(b, n, 68)
+        dist = np.full((b, n, 4), 3.0, np.float32)
+        dist[:, 1::2, 2:] = 5.0  # half the rows tie on two sides only
+    sides = dist * stride[None, :, None]
+    bt = np.concatenate([ctr[None] - sides[..., :2],
+                         ctr[None] + sides[..., 2:]], -1).astype(np.float32)
+    labels = np.where(pos, rs.randint(0, c, (b, n)), c)
+    lw = (rs.rand(b, n) > 0.05).astype(np.float32)
+    wide = (rs.randn(b, n, width) * 2 - 2).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    kw = {'qfl_beta': 1.5} if name == 'beta1.5' else {}
+    num_pos = torch.tensor(float(pos.sum()), device=cuda)
+    return (t(wide), lo, c, (t(reg), t(labels), t(lw), t(bt), t(pos),
+                             num_pos, t(ctr), t(stride)), kw)
+
+
+@pytest.mark.parametrize('name', [
+    'slice40', 'full80', 'c1', 'ragged', 'beta1.5', 'edges', 'ties',
+    'no_positive', 'step'])
+def test_gfl_loss_kernel_matches_plain(cuda, name):
     """Values rtol 1e-4, gradients within 1e-4 relative + 1e-5 * max|g|
-    (float32; partial sums in another order)."""
-    args = gfl_case(np.random.RandomState(3), cuda)
+    (float32; partial sums in another order), the class map's other
+    columns' gradient exactly 0, two kernel calls bit-equal: C = 40 as a
+    slice of 80, C = 80 and C = 1; 3003 rows; qfl_beta 1.5; DFL targets on
+    exact bins and past the clamp; predicted and target sides exactly
+    equal (max / min ties split 1/2 : 1/2); no positive; the ERD targets
+    of two 800x1344 images (``step``)."""
+    if name == 'step':
+        args = gfl_case(np.random.RandomState(3), cuda)
+        wide, lo, c, rest, kw = args[0], 40, 40, args[1:], {}
+    else:
+        wide, lo, c, rest, kw = gfl_loss_case(name, cuda)
     outs, grads = [], []
-    for fn in (fused_gfl_loss, gfl_loss_plain):
-        cls = args[0].clone().requires_grad_(True)
-        reg = args[1].clone().requires_grad_(True)
-        losses = fn(cls[..., 40:], reg, *args[2:])
+    for fn in (fused_gfl_loss, fused_gfl_loss, gfl_loss_plain):
+        cls = wide.clone().requires_grad_(True)
+        reg = rest[0].clone().requires_grad_(True)
+        losses = fn(cls[..., lo:lo + c], reg, *rest[1:], **kw)
         sum(losses).backward()
-        outs.append(torch.stack(losses))
+        outs.append(torch.stack(losses).detach())
         grads.append((cls.grad, reg.grad))
     torch.cuda.synchronize()
-    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=0)
-    for g, w in zip(*grads):
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+    torch.testing.assert_close(outs[0], outs[2], rtol=1e-4, atol=0)
+    for g, w in zip(grads[0], grads[2]):
         torch.testing.assert_close(g, w, rtol=1e-4,
                                    atol=1e-5 * float(w.abs().max()))
-    assert grads[0][0][..., :40].abs().max() == 0
+    other = torch.ones(wide.shape[-1], dtype=torch.bool, device=cuda)
+    other[lo:lo + c] = False
+    assert not grads[0][0][..., other].any()
+    if name == 'no_positive':
+        assert float(outs[0][1]) == float(outs[0][2]) == 0.0
+        assert grads[0][1].abs().max() == 0
 
 
 def test_erd_distill_kernel_matches_plain(cuda):

@@ -174,8 +174,8 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     unknown part name is refused with the list, and without a CUDA device
     every known part exits 1 before it measures anything."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe
-    parts = ['8b', '9b', '9', '7b', '1', '7', '10b', '10', '13a-b',
-             'others']
+    parts = ['8b', '9b', '9', '7b', '1', '7', '10b', '10', '13a-b', '3',
+             '6', 'others']
     assert list(probe.PARTS) == parts
     assert probe.main(['--only', '1,nms']) == 2
     assert str(parts) in capsys.readouterr().err
@@ -183,19 +183,26 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     assert probe.main(['--only', '1,others']) == 1
     assert probe.main(['--only', '7,10b']) == 1
     assert probe.main(['--only', '10,13a-b']) == 1
+    assert probe.main(['--only', '3,6']) == 1
 
 
 @pytest.mark.parametrize('name,parts,parent_only', [
     ('roi_align', 'ROI_FORWARD_PARTS', ()),
     ('carafe', 'CARAFE_BACKWARD_PARTS', ('no_weight_scratch',)),
     ('carafe', 'CARAFE_FORWARD_PARTS', ()),
-    ('point_sample', 'POINT_BACKWARD_PARTS', ('stores_for_adds',))])
+    ('point_sample', 'POINT_BACKWARD_PARTS', ('stores_for_adds',)),
+    ('ops/gfl_loss.py', 'GFL_LOSS_TRITON_PARTS',
+     ('rows_8', 'rows_16', 'rows_64', 'warps_2', 'warps_8', 'no_class',
+      'no_distribution')),
+    ('gfl_loss', 'GFL_LOSS_PARTS', ()),
+    ('atss', 'ATSS_PARTS', ())])
 def test_probe_variants_fit_the_kernel_sources(name, parts, parent_only):
-    """Parts 7, 10b, 10 and 13a-b build their variants from edited
-    copies of csrc/roi_align.cu, csrc/carafe.cu and csrc/point_sample.cu:
-    every variant but the parent designs' (marked parent-only) finds an
-    edit set whose texts are all in the present source, and each
-    replacement changes the text."""
+    """Parts 7, 10b, 10, 13a-b, 3 and 6 build their variants from edited
+    copies of csrc/roi_align.cu, csrc/carafe.cu, csrc/point_sample.cu,
+    csrc/gfl_loss.cu and csrc/atss.cu (part 3's parent: of its Triton
+    module ops/gfl_loss.py): every variant but the parent designs' (marked
+    parent-only) finds an edit set whose texts are all in the present
+    source, and each replacement changes the text."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe
     for variant, alternatives in getattr(probe, parts).items():
         edits = probe.fitting_edits(name, alternatives)

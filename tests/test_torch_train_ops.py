@@ -157,6 +157,49 @@ def test_atss_matches_jax_exactly(shape):
                                np.asarray(want.max_overlaps), rtol=1e-6)
 
 
+def test_atss_plain_matches_jax_on_ties_across_topk_and_cut_levels():
+    """The plain version the card holds the ATSS kernel to, pinned to
+    erd_tpu where the kernel's order matters most: gt centres on the
+    midpoints between P3 anchor centres (equal distances in groups of 2, 4
+    and 8, across the 9th slot) and valid flags of a pad shape that cuts
+    every level (one image's P3 wholly invalid)."""
+    from erd_tpu_torch.task import atss_assign_plain, valid_flags
+    shape = (96, 128)
+    ctx = AnchorContext.build(shape)
+    anchors, nla = ctx.anchors, ctx.num_level_anchors
+    ctr = (anchors[:nla[0], :2] + anchors[:nla[0], 2:]) / 2
+    xs, ys = np.unique(ctr[:, 0]), np.unique(ctr[:, 1])
+    gtb = np.zeros((2, 4, 4), np.float32)
+    for j, (i, k, half) in enumerate(((3, 2, 12.0), (6, 4, 20.0),
+                                      (9, 7, 9.0), (1, 1, 30.0))):
+        cx = (xs[i] + xs[i + 1]) / 2 if j % 2 == 0 else xs[i]
+        cy = (ys[k] + ys[k + 1]) / 2
+        gtb[:, j] = [cx - half, cy - half, cx + half, cy + half]
+    gtl = np.array([[0, 1, 2, 3], [3, 2, 1, 0]], np.int32)
+    gtm = np.ones((2, 4), bool)
+    vf = valid_flags(ctx.featmap_sizes, ctx.strides,
+                     torch.tensor([[72.0, 96.0], [96.0, 128.0]])).numpy()
+    vf[1, :nla[0]] = False
+    d = np.sqrt(((ctr[None, :, None] - ((gtb[..., :2] + gtb[..., 2:]) / 2)[
+        :, None]) ** 2).sum(-1))
+    d = np.sort(np.where(vf[:, :nla[0], None], d, 1e8), axis=1)
+    assert (d[:, 8] == d[:, 9]).any()
+    assert 0 < vf[0].sum() < len(anchors)
+    want = j_atss_assign_batch(jnp.asarray(anchors), nla, jnp.asarray(gtb),
+                               jnp.asarray(gtl), jnp.asarray(gtm),
+                               jnp.asarray(vf))
+    got = atss_assign_plain(torch.from_numpy(anchors), nla,
+                            torch.from_numpy(gtb), torch.from_numpy(gtl),
+                            torch.from_numpy(gtm), torch.from_numpy(vf))
+    assert got.pos_mask.sum() > 4
+    for name in ('pos_mask', 'gt_idx', 'labels'):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.max_overlaps.numpy(),
+                               np.asarray(want.max_overlaps), rtol=1e-6)
+
+
 # ------------------------------------------------------- GFL targets/loss
 def test_gfl_targets_match_jax():
     shape = (96, 128)
