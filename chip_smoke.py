@@ -1005,6 +1005,33 @@ def gfl_loss_cost(b, n, c, reg_width, positives):
             m * 3300.0)
 
 
+def erd_distill_cost(b, n, c, width, reg_width, n_cm, n_kp, n_s):
+    """(bytes, float32 operations) of one fused distillation forward and
+    backward over B x N rows, ``n_cm`` of them ERS-cls selected, ``n_kp``
+    NMS-kept and ``n_s`` either: each pass reads the two mask bytes of
+    every row, the C student class logits of selected rows, the teacher's
+    of ERS-cls rows and both distribution logits of kept rows; the
+    backward writes the class gradient ``width`` columns wide (the whole
+    student map: the columns past C are zeros; C where the gradient was
+    the slice's) and the distribution gradient of every row. Operations:
+    the two softmaxes and the KL of a kept row's 4 sides, the squared
+    differences and the sigmoids, each pass."""
+    m = b * n
+    reads = m * 2 + n_s * c * 4 + n_cm * c * 4 + n_kp * reg_width * 4 * 2
+    nbytes = 2 * reads + m * (width + reg_width) * 4 + b * 8
+    ops = 2 * (n_kp * reg_width * 16.0 + n_cm * c * 3.0 + n_s * c * 4.0)
+    return nbytes, ops
+
+
+def ers_cost(b, n, c_cls, c_reg, cap):
+    """(bytes, float32 operations) of one ERS selection: the teacher's
+    class and distribution logits of every row read once, the cls mask (a
+    byte a row) and the list's index (8 bytes) and mask (1 byte) a slot
+    and the count written; a sigmoid, a compare and the moments a row."""
+    nbytes = b * n * (c_cls + c_reg) * 4 + b * n + b * cap * 9 + b * 4
+    return nbytes, b * n * (c_cls * 4.0 + c_reg + 6)
+
+
 def capture_kw(module, name, calls):
     """``capture`` for wrappers called with keywords: records (args,
     kwargs), tensors detached. Returns the restore function."""
@@ -1029,6 +1056,24 @@ GFL_LOSS_DESIGN = ('CUDA: a warp 8 rows, a lane a (row, side); 16-byte '
                    'only (a warp with one softmaxes each side in its lane, '
                    'corners by quad shuffles); per-block partials reduced '
                    'in a fixed order; deterministic')
+# row 5's and row 4's kernels, by the profiler's names
+ERS_KERNELS = ['ers_criteria_kernel', 'ers_select_kernel', 'ers_rank_kernel']
+DISTILL_KERNELS = ['erd_distill_rows_kernel', 'erd_distill_reduce_kernel',
+                   'erd_distill_backward_kernel']
+ERS_DESIGN = ('three launches, no memset: a warp 32 rows read as 16-byte '
+              'loads (criteria, Chan partials, key range per block); a '
+              'block an image: statistics in a fixed order, radix select '
+              'on unique 64-bit (criterion, ~row) keys staged in shared '
+              'memory (the rows in play listed once they fit), exactly '
+              'cap rows, grouped by digit; ranks within a digit\'s bin; '
+              'lists exact')
+DISTILL_DESIGN = ('CUDA: a warp 8 rows, a lane a (row, side); warps with no '
+                  'selected row skip every load and write 16-byte zeros; '
+                  'classes read in place as 16-byte chunks; a kept row\'s '
+                  'distribution by the whole warp (8 lanes a side, '
+                  'shuffle reductions); per-block partials reduced in a '
+                  'fixed order; the backward writes the whole 80-wide '
+                  'class gradient (no autograd copies); deterministic')
 ATSS_DESIGN = ('one scan of each level: a block an (image, gt, 2048-anchor '
                'chunk), per-thread sorted lists of 64-bit (distance, '
                'anchor) keys, warp merges, ranks; a warp an (image, gt) '
@@ -1264,6 +1309,8 @@ def phase_train_kernels(np, torch):
             f'lists exact, mask flips within 1e-6*|thr| of the threshold: '
             f'{flips}')
         check(bool((got[3] > 0).all()), 'ERS check selected nothing')
+        check(torch.equal(got[3].long(), got[2].sum(-1)),
+              f'ERS count differs from its mask\'s sum at B={b}')
 
         dec_err = 0.0
         for k in (fast_k, cap):
@@ -1290,25 +1337,31 @@ def phase_train_kernels(np, torch):
         # image's reg count fits in fast_k (it does on this data)
         cm, _, kept, _, _ = ers_nms(case, fast_k)
         outs, grads = [], []
-        for fn in (fused_erd_distill, erd_distill_plain):
+        for fn in (fused_erd_distill, fused_erd_distill, erd_distill_plain):
             sc, sr = with_grad(case)
             outs.append(torch.stack(distill_step(fn, case, sc, sr, cm,
                                                  kept)).detach())
             grads.append((sc.grad, sr.grad))
         del sc, sr
-        dis_err = float((outs[0] - outs[1]).abs().max())
-        dis_gerr = grad_ratio(grads)
+        dis_err = float((outs[0] - outs[2]).abs().max())
+        dis_gerr = grad_ratio((grads[0], grads[2]))
+        same = bool(torch.equal(outs[0], outs[1])) and all(
+            torch.equal(x, y) for x, y in zip(grads[0], grads[1]))
+        past_c = float(grads[0][0][..., OLD_CLASSES:].abs().max())
         log(f'train kernels: erd_distill B={b} rows cls {int(cm.sum())} '
             f'kept {int(kept.sum())}; summed losses '
             f'{outs[0].sum(-1).tolist()}; max_abs_err={dis_err:.3e} '
             f'(tolerance rtol 1e-4); gradient error / tolerance = '
-            f'{dis_gerr:.3f}')
-        check(bool(((outs[0] - outs[1]).abs() <=
-                    1e-4 * outs[1].abs()).all()),
+            f'{dis_gerr:.3f}; gradient past column C largest {past_c}; two '
+            f'calls bit-equal {same}')
+        check(bool(((outs[0] - outs[2]).abs() <=
+                    1e-4 * outs[2].abs()).all()),
               f'distillation kernel disagrees with plain at B={b}')
         check(dis_gerr <= 1.0, f'distillation backward disagrees with plain '
               f'at B={b}')
         check(bool((outs[0] > 0).all()), 'distillation check is zero')
+        check(past_c == 0.0, f'distillation gradient past column C at B={b}')
+        check(same, f'two distillation calls differ at B={b}')
         return dict(decode=dec_err, distill=dis_err), held
 
     # ---- checks at B = 2 and at the train step's B = 16
@@ -1333,19 +1386,25 @@ def phase_train_kernels(np, torch):
                      redesigned=True, design=ATSS_DESIGN,
                      train_calls=[at], per_step_ms={'erd': at['ms']}))
 
-    ms, call_ms, src, plain_ms = time_pair(
-        torch, lambda: ers_select(big['t_cls'], big['t_reg'], cap),
-        lambda: ers_select_plain(big['t_cls'], big['t_reg'], cap),
-        ['ers_criteria_kernel', 'ers_stats_kernel', 'ers_rank_kernel'])
-    nbytes = b * n * (OLD_CLASSES + 68) * 4 + b * n + b * cap * 9 + b * 4
-    ops = b * n * (OLD_CLASSES * 4.0 + 68 + 6)  # sigmoids, maxima, moments
-    bms, by = bound_of(nbytes, ops)
+    def ers_call():
+        return ers_select(big['t_cls'], big['t_reg'], cap)
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, ers_call,
+        lambda: ers_select_plain(big['t_cls'], big['t_reg'], cap))
+    ers_kernels = kernel_ms(torch, ers_call, ERS_KERNELS, 10)
+    bms, by = bound_of(*ers_cost(b, n, OLD_CLASSES, 68, cap))
     rows.append(dict(name='ers_select', route='cuda',
                      source='erd_tpu_torch/csrc/ers_select.cu',
                      replaces='erd_tpu/models/detectors/gfl_erd.py:96',
                      max_abs_err=0.0, ms=ms, call_ms=call_ms, ms_from=src,
-                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                     library_ms=None))
+                     kernels_ms=ers_kernels, plain_ms=plain_ms, bound_ms=bms,
+                     bound_by=by, library_ms=None, redesigned=True,
+                     design=ERS_DESIGN, per_step_ms={'erd': ms}))
+    log(f'train kernels: B={b} ers_select {ms:.4f} ms (graph; its three '
+        f'launches ' + ('not measured' if ers_kernels is None else
+                        f'{ers_kernels:.4f}') + f' by the profiler), '
+        f'{call_ms:.4f} (events); plain {plain_ms:.3f}; bound {bms:.4f} '
+        f'({by})')
 
     gl = held['gfl_loss']
     rows.append(dict(name='gfl_loss', route='cuda',
@@ -1358,28 +1417,48 @@ def phase_train_kernels(np, torch):
                      library_ms=None, deterministic=True, redesigned=True,
                      design=GFL_LOSS_DESIGN, train_calls=[gl],
                      per_step_ms={'erd': gl['ms']}))
-    m = b * n
 
     cm, _, kept, count, _ = ers_nms(big, fast_k)
     sc, sr = with_grad(big)
-    ms, call_ms, src, plain_ms = time_pair(
-        torch, lambda: distill_step(fused_erd_distill, big, sc, sr, cm,
-                                    kept),
-        lambda: distill_step(erd_distill_plain, big, sc, sr, cm, kept),
-        ['_distill_kernel', '_distill_reduce_kernel'])
+
+    def distill_call(fn=fused_erd_distill):
+        losses = fn(sc, sr, big['t_cls'], big['t_reg'], cm, kept)
+        return losses, torch.autograd.grad(
+            losses[0].sum() + losses[1].sum(), (sc, sr))
+
+    def distill_forward():
+        with torch.no_grad():
+            return fused_erd_distill(sc, sr, big['t_cls'], big['t_reg'], cm,
+                                     kept)
+    call_ms = graph_ms(torch, distill_call, 10)
+    fwd_ms = graph_ms(torch, distill_forward, 10)
+    ms = kernel_ms(torch, distill_call, DISTILL_KERNELS, 10)
+    plain_ms = events_ms(torch, lambda: distill_call(erd_distill_plain), 2)
     n_cm, n_kp = int(cm.sum()), int(kept.sum())
     n_s = int((cm | kept).sum())
-    reads = m * 2 + n_s * 160 + n_cm * 160 + n_kp * 68 * 4 * 2
-    nbytes = 2 * reads + m * (40 + 68) * 4 + b * 8
-    ops = 2 * (n_kp * 4 * 17 * 16.0 + n_cm * 40 * 3.0 + n_s * 40 * 4.0)
-    bms, by = bound_of(nbytes, ops)
-    rows.append(dict(name='erd_distill', route='triton',
-                     source='erd_tpu_torch/ops/erd_distill.py',
+    counts = (n_cm, n_kp, n_s)
+    bms, by = bound_of(*erd_distill_cost(b, n, OLD_CLASSES, NUM_CLASSES, 68,
+                                         *counts))
+    slice_bms, _ = bound_of(*erd_distill_cost(b, n, OLD_CLASSES, OLD_CLASSES,
+                                              68, *counts))
+    rows.append(dict(name='erd_distill', route='cuda',
+                     source='erd_tpu_torch/csrc/erd_distill.cu',
                      replaces='erd_tpu/models/detectors/gfl_erd.py:178',
-                     max_abs_err=errs['distill'], ms=ms, call_ms=call_ms,
-                     ms_from=src, ms_per='forward + backward',
+                     max_abs_err=errs['distill'], ms=ms or call_ms,
+                     ms_from='profiler' if ms else 'graph',
+                     ms_per='forward + backward', call_ms=call_ms,
+                     call_ms_from='graph, through autograd (the gradient of '
+                     'the whole 80-wide map)', forward_ms=fwd_ms,
                      plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                     library_ms=None))
+                     bound_40_wide_ms=slice_bms, library_ms=None,
+                     deterministic=True, redesigned=True,
+                     design=DISTILL_DESIGN,
+                     per_step_ms={'erd': ms or call_ms}))
+    log(f'train kernels: B={b} erd_distill forward + backward kernels '
+        f'{ms or call_ms:.4f} ms ({"profiler" if ms else "graph"}); call '
+        f'through autograd {call_ms:.4f} (graph), forward {fwd_ms:.4f} '
+        f'(graph); plain {plain_ms:.3f}; bound {bms:.4f} ({by}; the '
+        f'80-wide class gradient; {slice_bms:.4f} for a 40-wide one)')
     log(f'train kernels: B={b} ERS rows cls {n_cm}, kept {n_kp}, largest '
         f'reg count {int(count.max())}')
     del sc, sr
@@ -6885,9 +6964,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    # Triton's cache inside the checkout's ignored build directory
-    os.environ.setdefault('TRITON_CACHE_DIR', os.path.join(
-        ROOT, 'erd_tpu_torch', 'csrc', 'build', 'triton'))
     try:
         from erd_tpu_torch.ops import cuda_build
         card = card_line()

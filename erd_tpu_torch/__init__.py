@@ -8,8 +8,7 @@ Entry points (``apis.init_detector``, ``apis.build_trainer``,
 ``GFLDetector.init``, ``ERDDetector.init_student_from_teacher``) run on
 ``cuda`` unless the caller passes ``device='cpu'``; without CUDA and
 without a device they raise. The hand-written kernels live in ``csrc/``
-(CUDA, built with ``nvcc`` at first use by ``ops/cuda_build.py``) and in
-``ops/erd_distill.py`` (Triton); each wrapper
-launches its kernel for CUDA tensors and runs its plain PyTorch version
-only for CPU tensors.
+(CUDA C++, built with ``nvcc`` at first use by ``ops/cuda_build.py``);
+each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version only for CPU tensors.
 """

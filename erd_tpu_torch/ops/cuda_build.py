@@ -16,11 +16,9 @@ every step from an RoI's cell to a crop's corners (a floor near an integer
 must land where erd_tpu's does), the corner-target kernel each
 gaussian's exponent, and the matrix-NMS, fast-NMS and nms_match kernels
 every IoU and decay term. (The masked-conv kernel chains explicit FMAs;
-the GFL-loss kernels call the fast exp, log and divide intrinsics.)
-
-The Triton kernels (``ops/erd_distill.py``) import Triton through
-``import_triton``, which points Triton's cache at ``csrc/build/triton``
-unless ``TRITON_CACHE_DIR`` names another place.
+the GFL-loss kernels call the fast exp, log and divide intrinsics; the
+distillation kernels the accurate ``expf`` and ``logf``.) Every kernel of
+the port is CUDA C++; none is Triton.
 """
 from __future__ import annotations
 
@@ -40,7 +38,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 SOURCES = ('nms', 'integral_decode', 'atss', 'ers_select', 'roi_align',
            'soft_nms', 'ms_deform_attn', 'deform_conv', 'carafe',
            'point_sample', 'corner_pool', 'mask_target', 'corner_targets',
-           'extra_nms', 'masked_conv', 'gfl_loss')
+           'extra_nms', 'masked_conv', 'gfl_loss', 'erd_distill')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each build made by this process
@@ -102,15 +100,6 @@ def load(name: str) -> ctypes.CDLL:
         lib.erd_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
-
-
-def import_triton():
-    """``(triton, triton.language)``, with Triton's cache under
-    ``csrc/build/triton`` unless ``TRITON_CACHE_DIR`` is set."""
-    os.environ.setdefault('TRITON_CACHE_DIR', str(BUILD_DIR / 'triton'))
-    import triton
-    import triton.language as tl
-    return triton, tl
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

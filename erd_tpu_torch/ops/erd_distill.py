@@ -15,35 +15,31 @@ image b, with C the teacher's classes:
     l_reg[b] = ld_weight * sum(w * kd) / (4 + eps)
 
 ``erd_distill_plain`` is that formulation in plain PyTorch (autograd);
-``fused_erd_distill`` takes it for CPU tensors and runs the Triton kernel
-below, forward and backward, for CUDA tensors.
+``fused_erd_distill`` takes it for CPU tensors and runs the CUDA kernels of
+``csrc/erd_distill.cu``, forward and backward, for CUDA tensors.
 
-Kernel design (Triton, sm_90a). Bound on this card: bytes. A call needs,
-per row, the 40 student and 40 teacher old-class logits where the row is
-selected (ERS-cls, ~2-5 % of rows) or kept (the NMS-kept ERS-reg rows), the
-68 student and 68 teacher distribution logits of kept rows, and the two
-masks of every row: at B = 16, N = 22400 about 1 MB of masks plus a few MB
-of logits, a few microseconds at 3.35 TB/s. The forward kernel runs one
-program per (32 rows, image), loads a row's logits only where a mask
-needs them (masked loads, no gather), keeps every intermediate in
-registers and writes three partial sums per program; a one-program-per-
-image second pass adds them in a fixed order (deterministic) and forms the
-two per-image losses. The backward kernel recomputes the softmaxes and
-writes the gradients of the old-class and distribution logits in one pass
-(zero on rows no mask selects). Teacher inputs get no gradient.
+Kernel design (CUDA, sm_90a; the source's header has the details). Bound
+on this card: bytes. A row matters only where one of its masks is set (a
+few per cent of the rows), so the forward reads every row's two mask bytes
+and the logits of selected rows only; the backward writes the gradient of
+the whole student class map and of the distribution logits for every row,
+~0.21 GB at B = 16, N = 22400 and an 80-wide map (~0.065 ms at 3.35 TB/s).
+A warp owns 8 rows and a lane a (row, side) pair; a warp with no selected
+row skips every load and transcendental and, in the backward, writes its
+rows' zeros as 16-byte stores. The forward's per-block partials are added
+in a fixed order by a second pass, a block an image (deterministic). The
+backward writes the class gradient the whole width of ``s_cls`` (zeros
+past the teacher's C columns), so that autograd adds no zero-fill and no
+slice copy around the call. Teacher inputs and the weight w get no
+gradient.
 """
+import ctypes
+
 import torch
 
 from ..losses import knowledge_distillation_kl_div_loss, l2_response_loss
 from ..losses.utils import EPS
 from . import cuda_build
-
-ROWS = 32
-
-# Bound when the Triton kernels are first built (_build); the module needs no
-# triton at import time.
-triton = tl = None
-_distill_kernel = _distill_reduce_kernel = None
 
 
 def erd_distill_plain(s_cls, s_reg, t_cls, t_reg, cls_mask, kept, T=10.0,
@@ -67,125 +63,32 @@ def erd_distill_plain(s_cls, s_reg, t_cls, t_reg, cls_mask, kept, T=10.0,
     return l_cls, l_reg
 
 
-def _build():
-    """Define the Triton kernels (once, at first use)."""
-    global triton, tl, _distill_kernel, _distill_reduce_kernel
-    if _distill_kernel is not None:
-        return
-    triton, tl = cuda_build.import_triton()
-
-    @triton.jit
-    def _distill_kernel(s_cls_ptr, s_row_stride, t_cls_ptr, s_reg_ptr,
-                        t_reg_ptr, cm_ptr, kept_ptr, part_ptr, gout_ptr,
-                        den_ptr, g_cls_ptr, g_reg_ptr, N, C, nblk, T,
-                        ld_weight, eps, BACKWARD: tl.constexpr,
-                        NBINS: tl.constexpr, ROWS: tl.constexpr,
-                        BLOCK_C: tl.constexpr, BLOCK_B: tl.constexpr):
-        pid = tl.program_id(0)
-        b = tl.program_id(1)
-        r = pid * ROWS + tl.arange(0, ROWS)
-        rmask = r < N
-        rows64 = b.to(tl.int64) * N + r.to(tl.int64)
-        cm = (tl.load(cm_ptr + rows64, mask=rmask, other=0) != 0) & rmask
-        kp = (tl.load(kept_ptr + rows64, mask=rmask, other=0) != 0) & rmask
-
-        # old-class logits, (ROWS, BLOCK_C): the student's where either mask
-        # needs them, the teacher's where the row is ERS-cls selected
-        cc = tl.arange(0, BLOCK_C)[None, :]
-        cval = cc < C
-        s_m = (cm | kp)[:, None] & cval
-        xs = tl.load(s_cls_ptr + rows64[:, None] * s_row_stride + cc,
-                     mask=s_m, other=0.0)
-        xt = tl.load(t_cls_ptr + rows64[:, None] * C + cc,
-                     mask=cm[:, None] & cval, other=0.0)
-        diff = tl.where(cm[:, None] & cval, xs - xt, 0.0)
-        sig = 1.0 / (1.0 + tl.exp(-xs))
-        w = tl.max(tl.where(cval, sig, float('-inf')), axis=1)
-        w = tl.where(kp, w, 0.0)
-
-        # distribution logits of kept rows, (ROWS, 4 corners, BLOCK_B bins)
-        side = tl.arange(0, 4)[None, :, None]
-        jj = tl.arange(0, BLOCK_B)[None, None, :]
-        jval = jj < NBINS
-        roff = rows64[:, None, None] * (4 * NBINS) + side * NBINS + jj
-        m3 = kp[:, None, None] & jval
-        ys = tl.load(s_reg_ptr + roff, mask=m3, other=0.0) / T
-        yt = tl.load(t_reg_ptr + roff, mask=m3, other=0.0) / T
-        ys = tl.where(jval, ys, float('-inf'))
-        yt = tl.where(jval, yt, float('-inf'))
-        ms = tl.max(ys, axis=2)
-        es = tl.exp(ys - ms[:, :, None])
-        ses = tl.sum(es, axis=2)
-        mt = tl.max(yt, axis=2)
-        et = tl.exp(yt - mt[:, :, None])
-        tgt = et / tl.sum(et, axis=2)[:, :, None]
-
-        if not BACKWARD:
-            log_p = ys - ms[:, :, None] - tl.log(ses)[:, :, None]
-            log_t = tl.log(tl.maximum(tgt, 1e-30))
-            elem = tl.where(tgt > 0, tgt * (log_t - log_p), -tgt * log_p)
-            elem = tl.where(jval, elem, 0.0)
-            kd = tl.sum(elem, axis=2) / NBINS * (T * T)  # (ROWS, 4)
-            kd_row = tl.sum(kd, axis=1) * w
-            out = part_ptr + (b * nblk + pid) * 3
-            tl.store(out, tl.sum(tl.sum(diff * diff, axis=1), axis=0))
-            tl.store(out + 1, tl.sum(cm.to(tl.float32), axis=0))
-            tl.store(out + 2, tl.sum(tl.where(kp, kd_row, 0.0), axis=0))
-        else:
-            g_cls = tl.load(gout_ptr + b * 2)
-            g_reg = tl.load(gout_ptr + b * 2 + 1)
-            den = tl.load(den_ptr + b)
-            gc = diff * (2.0 * g_cls / den)
-            tl.store(g_cls_ptr + rows64[:, None] * C + cc, gc,
-                     mask=rmask[:, None] & cval)
-            p = es / ses[:, :, None]
-            st = tl.sum(tl.where(jval, tgt, 0.0), axis=2)
-            k = g_reg * ld_weight / (4.0 + eps) * T / NBINS
-            gr = (p * st[:, :, None] - tgt) * (w * k)[:, None, None]
-            gr = tl.where(m3, gr, 0.0)
-            tl.store(g_reg_ptr + roff, gr, mask=rmask[:, None, None] & jval)
-
-    @triton.jit
-    def _distill_reduce_kernel(part_ptr, nblk, C, out_ptr, den_ptr,
-                               ld_weight, eps, BLOCK: tl.constexpr):
-        b = tl.program_id(0)
-        offs = tl.arange(0, BLOCK)
-        a0 = tl.zeros((BLOCK,), tl.float32)
-        a1 = tl.zeros((BLOCK,), tl.float32)
-        a2 = tl.zeros((BLOCK,), tl.float32)
-        for start in range(0, nblk, BLOCK):
-            i = start + offs
-            m = i < nblk
-            base = part_ptr + (b * nblk + i) * 3
-            a0 += tl.load(base, mask=m, other=0.0)
-            a1 += tl.load(base + 1, mask=m, other=0.0)
-            a2 += tl.load(base + 2, mask=m, other=0.0)
-        den = tl.maximum(tl.sum(a1, axis=0) * C, 1.0)
-        tl.store(out_ptr + b * 2, tl.sum(a0, axis=0) / den)
-        tl.store(out_ptr + b * 2 + 1,
-                 ld_weight * tl.sum(a2, axis=0) / (4.0 + eps))
-        tl.store(den_ptr + b, den)
-
-
-def _launch(args, backward, gout=None, den=None):
-    """One launch of the row kernel; returns (partials, g_cls, g_reg)."""
+def _launch(lib, fn, args, *extra):
+    """Call the C entry point ``fn`` on the forward's arguments, then
+    ``extra`` and the stream; raise on a CUDA error."""
     s_cls, s_reg, t_cls, t_reg, cm, kept, T, ld_weight, reg_max = args
     b, n, c = t_cls.shape
-    nbins = reg_max + 1
-    nblk = triton.cdiv(n, ROWS)
-    dev = t_cls.device
-    part = torch.empty((b, nblk, 3), dtype=torch.float32, device=dev)
-    g_cls = g_reg = part
-    if backward:
-        g_cls = torch.empty((b, n, c), dtype=torch.float32, device=dev)
-        g_reg = torch.empty_like(s_reg)
-    _distill_kernel[(nblk, b)](
-        s_cls, s_cls.stride(1), t_cls, s_reg, t_reg, cm, kept, part,
-        gout if backward else part, den if backward else part, g_cls, g_reg,
-        n, c, nblk, float(T), float(ld_weight), EPS, BACKWARD=backward,
-        NBINS=nbins, ROWS=ROWS, BLOCK_C=triton.next_power_of_2(c),
-        BLOCK_B=triton.next_power_of_2(nbins), num_warps=4)
-    return part, g_cls, g_reg
+    with torch.cuda.device(t_cls.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(s_cls.data_ptr(), s_cls.stride(1), s_cls.shape[2],
+                 s_reg.data_ptr(), t_cls.data_ptr(), t_reg.data_ptr(),
+                 cm.data_ptr(), kept.data_ptr(), b, n, c, reg_max + 1,
+                 float(T), float(ld_weight), EPS,
+                 *(t.data_ptr() for t in extra), stream)
+    cuda_build.check(lib, err, 'fused_erd_distill')
+
+
+def _library():
+    lib = cuda_build.load('erd_distill')
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    head = [vp, ctypes.c_longlong, ci] + [vp] * 5 + [ci] * 4 + [cf] * 3
+    lib.erd_distill_blocks.argtypes = [ci]
+    lib.erd_distill_blocks.restype = ci
+    lib.erd_distill_forward.argtypes = head + [vp] * 4
+    lib.erd_distill_forward.restype = ci
+    lib.erd_distill_backward.argtypes = head + [vp] * 5
+    lib.erd_distill_backward.restype = ci
+    return lib
 
 
 class _FusedERDDistill(torch.autograd.Function):
@@ -194,13 +97,14 @@ class _FusedERDDistill(torch.autograd.Function):
     def forward(ctx, s_cls, s_reg, t_cls, t_reg, cm, kept, T, ld_weight,
                 reg_max):
         args = (s_cls, s_reg, t_cls, t_reg, cm, kept, T, ld_weight, reg_max)
-        part, _, _ = _launch(args, backward=False)
-        b = t_cls.shape[0]
-        out = torch.empty((b, 2), dtype=torch.float32, device=t_cls.device)
-        den = torch.empty((b,), dtype=torch.float32, device=t_cls.device)
-        _distill_reduce_kernel[(b,)](part, part.shape[1], t_cls.shape[2],
-                                     out, den, float(ld_weight), EPS,
-                                     BLOCK=1024, num_warps=4)
+        lib = _library()
+        b, n = t_cls.shape[:2]
+        dev = t_cls.device
+        part = torch.empty((b, lib.erd_distill_blocks(n), 3),
+                           dtype=torch.float32, device=dev)
+        out = torch.empty((b, 2), dtype=torch.float32, device=dev)
+        den = torch.empty((b,), dtype=torch.float32, device=dev)
+        _launch(lib, lib.erd_distill_forward, args, part, out, den)
         fused_erd_distill.launches += 1
         ctx.args = args
         ctx.save_for_backward(den)
@@ -209,8 +113,13 @@ class _FusedERDDistill(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_cls, g_reg):
         (den,) = ctx.saved_tensors
+        s_cls, s_reg = ctx.args[:2]
         gout = torch.stack([g_cls, g_reg], dim=1).float().contiguous()
-        _, gc, gr = _launch(ctx.args, backward=True, gout=gout, den=den)
+        gc = torch.empty(s_cls.shape, dtype=torch.float32,
+                         device=s_cls.device)
+        gr = torch.empty_like(s_reg)
+        lib = _library()
+        _launch(lib, lib.erd_distill_backward, ctx.args, gout, den, gc, gr)
         fused_erd_distill.launches += 1
         return (gc, gr) + (None,) * 7
 
@@ -231,9 +140,10 @@ def fused_erd_distill(s_cls, s_reg, t_cls, t_reg, cls_mask, kept, T=10.0,
     Returns (l_cls (B,), l_reg (B,)), differentiable in ``s_cls`` and
     ``s_reg``.
 
-    CPU tensors take the plain version; CUDA tensors launch the Triton
-    kernel: one forward and one backward call, each counted in
-    ``fused_erd_distill.launches``.
+    CPU tensors take the plain version; CUDA tensors launch the kernels:
+    one forward and one backward call, each counted in
+    ``fused_erd_distill.launches``. The backward writes the gradient of
+    the whole ``s_cls`` (zeros past its first C columns).
     """
     b, n, c = t_cls.shape
     nbins = reg_max + 1
@@ -261,9 +171,8 @@ def fused_erd_distill(s_cls, s_reg, t_cls, t_reg, cls_mask, kept, T=10.0,
     if s_cls.stride(2) != 1 or s_cls.stride(0) != n * s_cls.stride(1):
         raise ValueError('fused_erd_distill: s_cls rows must be evenly '
                          'strided with a contiguous class dim')
-    _build()
     return _FusedERDDistill.apply(
-        s_cls[..., :c], s_reg.contiguous(), t_cls.detach().contiguous(),
+        s_cls, s_reg.contiguous(), t_cls.detach().contiguous(),
         t_reg.detach().contiguous(), cls_mask.contiguous().view(torch.uint8),
         kept.contiguous().view(torch.uint8), T, ld_weight, reg_max)
 

@@ -9,11 +9,15 @@ erd_tpu/ops/misc.py ``masked_mean_std`` and ``topk_mask_select``:
   * cls: c = max sigmoid of the teacher's class logits of a row; a row is
     selected when c > mean + 2 * std over the image's N rows (sample std);
   * reg: r = max of the row's distribution logits; the top-``cap`` rows by
-    r (descending, equal values lowest row first) and the mask of those
-    with r > mean + 2 * std; ``count`` masked slots per image.
+    r (descending, equal values lowest row first, +0 before -0 as
+    ``lax.top_k`` ranks them) and the mask of those with r > mean + 2 *
+    std; ``count`` masked slots per image.
 
 Teacher logits are bf16 values in float32, so equal criteria are common:
-the order is a stable descending sort, never ``torch.topk``.
+the order is a stable descending sort, never ``torch.topk``. The kernel
+selects on a unique 64-bit key (the criterion, then the complemented row
+index), so the ties fall in that order and the list holds exactly ``cap``
+rows; ``csrc/ers_select.cu`` has its design.
 """
 from __future__ import annotations
 
@@ -57,8 +61,8 @@ def ers_select(t_cls, t_reg, cap):
     Returns (cls_mask (B, N) bool, reg_idx (B, cap) int64, reg_mask
     (B, cap) bool, count (B,) integer number of masked slots).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    call, counted in ``ers_select.launches``).
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (one call of three launches, counted once in ``ers_select.launches``).
     """
     if t_cls.dim() != 3 or t_reg.dim() != 3 or \
             t_cls.shape[:2] != t_reg.shape[:2]:
@@ -76,17 +80,20 @@ def ers_select(t_cls, t_reg, cap):
         raise TypeError('ers_select: t_cls and t_reg must be float32')
     t_cls, t_reg = t_cls.contiguous(), t_reg.contiguous()
     dev = t_cls.device
-    crit = torch.empty((b, 2, n), dtype=torch.float32, device=dev)
+    lib = cuda_build.load('ers_select')
+    lib.erd_ers_blocks.argtypes = [ctypes.c_int]
+    lib.erd_ers_blocks.restype = ctypes.c_int
+    crit = torch.empty((b, n), dtype=torch.float32, device=dev)
     keys = torch.empty((b, n), dtype=torch.int32, device=dev)
-    cand = torch.empty((b, n), dtype=torch.int32, device=dev)
+    part = torch.empty((b, lib.erd_ers_blocks(n), 6), dtype=torch.float32,
+                       device=dev)
     thr = torch.empty((b, 2), dtype=torch.float32, device=dev)
-    kth = torch.empty((b,), dtype=torch.int32, device=dev)
-    n_cand = torch.empty((b,), dtype=torch.int32, device=dev)
+    grp = torch.empty((b, cap), dtype=torch.int64, device=dev)
+    seg = torch.empty((b, cap, 2), dtype=torch.int32, device=dev)
     cls_mask = torch.empty((b, n), dtype=torch.bool, device=dev)
     reg_idx = torch.empty((b, cap), dtype=torch.int64, device=dev)
     reg_mask = torch.empty((b, cap), dtype=torch.bool, device=dev)
     count = torch.empty((b,), dtype=torch.int32, device=dev)
-    lib = cuda_build.load('ers_select')
     fn = lib.erd_ers_select
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p] * 11
@@ -95,8 +102,8 @@ def ers_select(t_cls, t_reg, cap):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(t_cls.data_ptr(), t_reg.data_ptr(), b, n, t_cls.shape[2],
                  t_reg.shape[2], cap, crit.data_ptr(), keys.data_ptr(),
-                 cand.data_ptr(), thr.data_ptr(), kth.data_ptr(),
-                 n_cand.data_ptr(), cls_mask.data_ptr(), reg_idx.data_ptr(),
+                 part.data_ptr(), thr.data_ptr(), grp.data_ptr(),
+                 seg.data_ptr(), cls_mask.data_ptr(), reg_idx.data_ptr(),
                  reg_mask.data_ptr(), count.data_ptr(), stream)
     cuda_build.check(lib, err, 'ers_select')
     ers_select.launches += 1

@@ -62,13 +62,24 @@ def cap_candidates(scores, valid, k, *arrays):
     return tuple(out)
 
 
+def total_order_key(x):
+    """int64 keys of float32 / float64 ``x`` in IEEE totalOrder (-0 before
+    +0), the order in which ``lax.top_k`` ranks floats."""
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}[x.dtype]
+    i = x.contiguous().view(bits).to(torch.int64)
+    return torch.where(i < 0, -(i & torch.iinfo(bits).max) - 1, i)
+
+
 def topk_mask_select(criterion, cap, threshold):
     """Select entries with ``criterion > threshold``, capped at ``cap``:
-    the top-``cap`` entries along the last dim (ties lowest index first)
-    and a mask of those above ``threshold``, which broadcasts against the
-    leading dims. Returns (idx (..., cap) int64, mask (..., cap) bool)."""
-    top_vals, top_idx = topk_stable(criterion, min(cap, criterion.shape[-1]))
-    return top_idx, top_vals > threshold
+    the top-``cap`` entries along the last dim (lax.top_k's order: ties
+    lowest index first, +0 before -0) and a mask of those above
+    ``threshold``, which broadcasts against the leading dims. Returns (idx
+    (..., cap) int64, mask (..., cap) bool)."""
+    k = min(cap, criterion.shape[-1])
+    top_idx = torch.sort(total_order_key(criterion), dim=-1, descending=True,
+                         stable=True)[1][..., :k]
+    return top_idx, torch.gather(criterion, -1, top_idx) > threshold
 
 
 def masked_mean_std(x, mask, ddof=1, eps=1e-12):

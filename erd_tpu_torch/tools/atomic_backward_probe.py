@@ -4,8 +4,9 @@ their time, on one CUDA GPU: the deformable im2col backward
 attention backward and forward (kernels 9b and 9), the RoIAlign backward
 (7b) and forward (row 7), the NMS keep kernel (row 1, with set-NMS, 11b),
 the CARAFE backward (10b) and forward (row 10), the point-sample backward
-(13a-b), and the call times of the corner-pool backward (12a-b). Run
-from the repository root:
+(13a-b), the fused GFL loss (row 3), ATSS (row 6), the fused ERD
+distillation (row 4), the ERS selection (row 5), and the call times of
+the corner-pool backward (12a-b). Run from the repository root:
 
     python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 9,7b]
 
@@ -107,10 +108,23 @@ conv_offset and sampling weights arranged):
    the kernel with its tree skipped and with its global loads and stores
    replaced (``POOL_BACKWARD_PARTS``, built from edited copies of
    ``csrc/corner_pool.cu`` in the build directory, on no path).
+11. 3 and 6, the fused GFL loss and ATSS, at an ERD, a GFL R101-DCN and a
+   VFNet step's calls (``loss_calls``; ``probe_gfl_loss``,
+   ``probe_atss``).
+12. 4, the fused ERD distillation, at one ERD step's call
+   (``distill_calls``): the rows each mask selects, forward and forward +
+   backward by graph replays and events, a wide gradient's zero-fill and
+   slice copy, the kernels by the profiler, registers and spills, plain,
+   both bounds, the errors, and the ``DISTILL_TRITON_PARTS`` /
+   ``DISTILL_PARTS`` variants (``probe_distill``).
+13. 5, the ERS selection, at the same step's call: candidates and ties at
+   the cap-th criterion, every launch and memset by the profiler, plain,
+   the bound, the list and masks against plain, and the ``ERS_PARTS``
+   variants (``probe_ers``).
 
 A variant whose edits do not fit the source (another design's) is "not
 measured". ``--only 9,7b`` runs the named parts alone, in that order (the
-parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, others).
+parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, 3, 6, 4, 5, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -1608,21 +1622,22 @@ def ptxas_resources(name):
     return out
 
 
-def kernel_resources(compiled):
-    """{kernel: {'regs', 'spills'}} of row 3's kernels: Triton's own
-    ``n_regs`` and ``n_spills`` of each specialisation launched (the
-    parent's ``compiled`` kernels), or ptxas's of ``csrc/gfl_loss.cu``."""
+def kernel_resources(compiled, source='gfl_loss'):
+    """{kernel: {'regs', 'spills'}} of row 3's (or row 4's) kernels:
+    Triton's own ``n_regs`` and ``n_spills`` of each specialisation
+    launched (the parent's ``compiled`` kernels), or ptxas's of
+    ``csrc/<source>.cu``."""
     if compiled:
         return {f'{k.name}[{i}]': dict(regs=k.n_regs, spills=k.n_spills)
                 for i, k in enumerate(compiled)}
-    return ptxas_resources('gfl_loss')
+    return ptxas_resources(source)
 
 
-def record_triton(gl, compiled):
-    """Wrap the parent's Triton kernel of ``gl`` (once built) so that each
-    launch's compiled kernel lands in ``compiled``; a no-op for a module
-    without one. Returns the restore function."""
-    kern = getattr(gl, '_gfl_loss_kernel', None)
+def record_triton(gl, compiled, name='_gfl_loss_kernel'):
+    """Wrap the parent's Triton kernel ``name`` of module ``gl`` (once
+    built) so that each launch's compiled kernel lands in ``compiled``; a
+    no-op for a module without one. Returns the restore function."""
+    kern = getattr(gl, name, None)
     if kern is None:
         return lambda: None
 
@@ -1634,8 +1649,8 @@ def record_triton(gl, compiled):
                     compiled.append(k)
                 return k
             return launch
-    gl._gfl_loss_kernel = Recorder()
-    return lambda: setattr(gl, '_gfl_loss_kernel', kern)
+    setattr(gl, name, Recorder())
+    return lambda: setattr(gl, name, kern)
 
 
 def probe_gfl_loss(smoke, report):
@@ -1714,8 +1729,11 @@ def probe_gfl_loss(smoke, report):
                 smoke.graph_ms(torch, lambda: forward(mod.fused_gfl_loss),
                                10),
                 smoke.graph_ms(torch, lambda: both(mod.fused_gfl_loss), 10))
-        for v, lib in cuda_variants.items():
-            parts[v] = None if lib is None else with_lib(
+        for v, lib in cuda_variants.items():  # a parent's Triton figure stays
+            if lib is None:
+                parts.setdefault(v, None)
+                continue
+            parts[v] = with_lib(
                 'gfl_loss', lib, lambda: (smoke.graph_ms(torch, forward, 10),
                                           smoke.graph_ms(torch, both, 10)))
         kernels = sum(v for v in ops_full.values() if v)
@@ -1813,13 +1831,357 @@ def probe_atss(smoke, report):
     torch.cuda.empty_cache()
 
 
+
+@functools.lru_cache(maxsize=1)
+def distill_calls(smoke):
+    """The ERS and fused-distillation inputs of one bs-16, 800x1344 ERD
+    step: ``chip_smoke.train_case`` at B = 16 after its B = 2 case (as
+    ``phase_train_kernels`` makes them), the teacher's ERS at cap = N // 5
+    + 1 and the rows the distillation NMS keeps on the fast branch (the
+    first 1024 candidates, IoU 0.005), the masks from the plain versions so
+    that every design gets the same inputs. Made once for parts 4 and 5."""
+    import numpy as np
+
+    from erd_tpu_torch.models.detectors.gfl_erd import _kept_dense
+    from erd_tpu_torch.models.heads.gfl_head import AnchorContext
+    from erd_tpu_torch.ops.ers_select import ers_select_plain
+    rs = np.random.RandomState(5)
+    ctx = AnchorContext.build(smoke.TRAIN_CANVAS)
+    smoke.train_case(np, torch, rs, ctx, 2)
+    case = smoke.train_case(np, torch, rs, ctx, smoke.TRAIN_BATCH)
+    n = ctx.num_anchors
+    cap = n // 5 + 1
+    centers, _ = ctx.device_tensors(smoke.DEV)
+    unit = torch.ones((n,), device=smoke.DEV)
+    cm, ri, rm, _ = ers_select_plain(case['t_cls'], case['t_reg'], cap)
+    kept = _kept_dense(centers, unit, case['t_cls'], case['t_reg'],
+                       ri[:, :1024].contiguous(), rm[:, :1024].contiguous(),
+                       0.005, 16)
+    torch.cuda.synchronize()
+    return dict(s_cls=case['s_cls'], s_reg=case['s_reg'],
+                t_cls=case['t_cls'], t_reg=case['t_reg'], cap=cap,
+                cls_mask=cm, kept=kept)
+
+
+# edits of ops/erd_distill.py for part 4, the parent's Triton kernels: the
+# launch settings (rows a program, warps), the kernels without their class
+# part (constant logits, no class gradient stores) and without their
+# distribution part (constant distribution logits, no stores of their
+# gradient); the redesign has no Triton kernel, so these fit the parent
+# alone
+DISTILL_TRITON_PARTS = {
+    **{f'rows_{r}': ({'ROWS = 32\n': f'ROWS = {r}\n'},) for r in (8, 16)},
+    **{f'warps_{w}': ({'BLOCK_B=triton.next_power_of_2(nbins), num_warps=4)':
+                       'BLOCK_B=triton.next_power_of_2(nbins), '
+                       f'num_warps={w})'},) for w in (2, 8)},
+    'no_class': (
+        {'xs = tl.load(s_cls_ptr + rows64[:, None] * s_row_stride + cc,\n'
+         '                     mask=s_m, other=0.0)':
+         'xs = tl.zeros((ROWS, BLOCK_C), tl.float32) - 3.0',
+         'xt = tl.load(t_cls_ptr + rows64[:, None] * C + cc,\n'
+         '                     mask=cm[:, None] & cval, other=0.0)':
+         'xt = tl.zeros((ROWS, BLOCK_C), tl.float32) - 2.0',
+         'tl.store(g_cls_ptr + rows64[:, None] * C + cc, gc,\n'
+         '                     mask=rmask[:, None] & cval)': 'pass'},),
+    'no_distribution': (
+        {'ys = tl.load(s_reg_ptr + roff, mask=m3, other=0.0) / T':
+         'ys = tl.zeros((ROWS, 4, BLOCK_B), tl.float32) + '
+         'jj.to(tl.float32) / T',
+         'yt = tl.load(t_reg_ptr + roff, mask=m3, other=0.0) / T':
+         'yt = tl.zeros((ROWS, 4, BLOCK_B), tl.float32) - '
+         'jj.to(tl.float32) / T',
+         'tl.store(g_reg_ptr + roff, gr, mask=rmask[:, None, None] & jval)':
+         'pass'},),
+}
+# edits of csrc/erd_distill.cu for part 4, the redesign: the kernels
+# without their class part (constant logits, no class gradient stores of
+# selected rows), without their distribution part (the distribution logits
+# of row 0, no stores of their gradient, zeros included), and with the
+# backward's gradient stores marked streaming (evict first, __stcs)
+DISTILL_PARTS = {
+    'no_class': (
+        {'const float4 v = s4[j];':
+         'const float4 v = make_float4(-3.f, -3.f, -3.f, -3.f);',
+         'const float4 u = t4[j];':
+         'const float4 u = make_float4(-2.f, -2.f, -2.f, -2.f);',
+         'g4[j] = d;': '(void)d;'},),
+    'no_distribution': (
+        {'p.s_reg + (row * 4 + (lane >> 3)) * p.nb':
+         'p.s_reg + (lane >> 3) * p.nb',
+         'p.t_reg + (row * 4 + (lane >> 3)) * p.nb':
+         'p.t_reg + (lane >> 3) * p.nb',
+         'zero_span(greg + first * 4 * p.nb, rows * 4 * p.nb, lane);': ';',
+         'out[j] = (pj * st - tj) * k;':
+         'if (pj == 12345.f) out[j] = tj * k;'},),
+    'streaming_stores': (
+        {'b4[i] = make_float4(0.f, 0.f, 0.f, 0.f);':
+         '__stcs(b4 + i, make_float4(0.f, 0.f, 0.f, 0.f));',
+         'g4[j] = d;': '__stcs(g4 + j, d);',
+         'out[j] = (pj * st - tj) * k;':
+         '__stcs(out + j, (pj * st - tj) * k);'},),
+}
+# edits of csrc/ers_select.cu for part 5: the criteria launch alone (the
+# later launches skipped), and alone with its stores replaced by a test
+# that keeps the maxima live (its read time); one edit set for each design
+ERS_PARTS = {
+    'criteria_only': (
+        {'ers_stats_kernel<<<batch, kStatThreads, 0, s>>>(':
+         'if (false) ers_stats_kernel<<<batch, kStatThreads, 0, s>>>(',
+         'ers_compact_kernel<<<grid, kThreads, 0, s>>>(':
+         'if (false) ers_compact_kernel<<<grid, kThreads, 0, s>>>(',
+         'ers_rank_kernel<<<grid, kThreads, 0, s>>>(':
+         'if (false) ers_rank_kernel<<<grid, kThreads, 0, s>>>('},
+        {'ers_select_kernel<<<batch, kSelThreads, staged, s>>>(':
+         'if (false) ers_select_kernel<<<batch, kSelThreads, staged, s>>>(',
+         'ers_rank_kernel<<<rgrid, kThreads, 0, s>>>(':
+         'if (false) ers_rank_kernel<<<rgrid, kThreads, 0, s>>>('}),
+    'criteria_no_stores': (
+        {'ers_stats_kernel<<<batch, kStatThreads, 0, s>>>(':
+         'if (false) ers_stats_kernel<<<batch, kStatThreads, 0, s>>>(',
+         'ers_compact_kernel<<<grid, kThreads, 0, s>>>(':
+         'if (false) ers_compact_kernel<<<grid, kThreads, 0, s>>>(',
+         'ers_rank_kernel<<<grid, kThreads, 0, s>>>(':
+         'if (false) ers_rank_kernel<<<grid, kThreads, 0, s>>>(',
+         '  crit[(static_cast<size_t>(b) * 2) * n + i] = c;\n'
+         '  crit[(static_cast<size_t>(b) * 2 + 1) * n + i] = r;\n'
+         '  keys[row] = order_key(r);':
+         '  if (c == 12345.f && r == 12345.f) keys[row] = 0u;'},
+        {'ers_select_kernel<<<batch, kSelThreads, staged, s>>>(':
+         'if (false) ers_select_kernel<<<batch, kSelThreads, staged, s>>>(',
+         'ers_rank_kernel<<<rgrid, kThreads, 0, s>>>(':
+         'if (false) ers_rank_kernel<<<rgrid, kThreads, 0, s>>>(',
+         '    crit_c[g0 + lane] = c;\n    okeys[g0 + lane] = ok;':
+         '    if (c == 12345.f && ok == 7u) okeys[g0 + lane] = ok;'}),
+}
+# row 4's and row 5's device operations by the profiler's names (the
+# parent's Triton forward and backward share one name, so its ``rows`` in
+# a forward + backward profile holds both launches)
+DISTILL_OPS = {
+    'rows': ('_distill_kernel', 'erd_distill_rows_kernel'),
+    'reduce': ('_distill_reduce_kernel', 'erd_distill_reduce_kernel'),
+    'backward': ('erd_distill_backward_kernel',),
+}
+ERS_OPS = {
+    'memset': ('Memset',),
+    'criteria': ('ers_criteria_kernel',),
+    'stats': ('ers_stats_kernel',),
+    'compact': ('ers_compact_kernel',),
+    'select': ('ers_select_kernel',),
+    'rank': ('ers_rank_kernel',),
+}
+
+
+def probe_distill(smoke, report):
+    """Row 4 at the fused-distillation call of one ERD step
+    (``distill_calls``): the ERS-cls, NMS-kept and selected rows an image,
+    the forward alone and forward + backward (``torch.autograd.grad`` of
+    the losses' sum into the whole 80-wide student map and the
+    distribution logits) by graph replays and events, the copies autograd
+    adds around a 40-column slice (the zero-fill of the wide gradient and
+    the slice copy), the kernels by the profiler (``DISTILL_OPS``), the
+    registers and spills, the plain version's forward + backward, both
+    bounds (``chip_smoke.erd_distill_cost`` with the class gradient 40 and
+    80 columns wide), the errors against plain, the gradient's largest
+    entry past column C, two calls' equality, and the
+    ``DISTILL_TRITON_PARTS`` / ``DISTILL_PARTS`` variants by graph
+    replays."""
+    ed = importlib.import_module('erd_tpu_torch.ops.erd_distill')
+    got = distill_calls(smoke)
+    triton_variants = fit_variants(
+        'ops/erd_distill.py', (DISTILL_TRITON_PARTS,),
+        lambda v, e: module_variant('ops/erd_distill.py', v, e))
+    cuda_variants = fit_variants(
+        'erd_distill', (DISTILL_PARTS,),
+        lambda v, e: edited_lib('erd_distill', f'distill_{v}', e))
+    t_cls, t_reg = got['t_cls'], got['t_reg']
+    cm, kept = got['cls_mask'], got['kept']
+    s_cls = got['s_cls'].clone().requires_grad_(True)
+    s_reg = got['s_reg'].clone().requires_grad_(True)
+    b, n, w = s_cls.shape
+    c = t_cls.shape[2]
+
+    def forward(fn=ed.fused_erd_distill):
+        with torch.no_grad():
+            return fn(s_cls, s_reg, t_cls, t_reg, cm, kept)
+
+    def both(fn=ed.fused_erd_distill):
+        losses = fn(s_cls, s_reg, t_cls, t_reg, cm, kept)
+        return losses, torch.autograd.grad(
+            losses[0].sum() + losses[1].sum(), (s_cls, s_reg))
+
+    def copies():
+        z = torch.zeros_like(s_cls)
+        z[..., :c].copy_(s_cls[..., :c])
+        return z
+    forward()
+    compiled = []
+    restore = record_triton(ed, compiled, '_distill_kernel')
+    try:
+        (l1, g1), (l2, g2) = both(), both()
+    finally:
+        restore()
+    lp, gp = both(ed.erd_distill_plain)
+    l1, l2 = torch.stack(l1).detach(), torch.stack(l2).detach()
+    lp = torch.stack(lp).detach()
+    loss_err = float(((l1 - lp).abs() / lp.abs().clamp(min=1e-30)).max())
+    grad_ratio = max(float(((g - p).abs() / (1e-4 * p.abs() + 1e-5 *
+                                             float(p.abs().max()))).max())
+                     for g, p in zip(g1, gp))
+    other = float(g1[0][..., c:].abs().max()) if w > c else 0.0
+    same = bool(torch.equal(l1, l2) and all(
+        torch.equal(x, y) for x, y in zip(g1, g2)))
+    del l1, l2, lp, g1, g2, gp
+    rows_cm = cm.sum(1).tolist()
+    rows_kp = kept.sum(1).tolist()
+    rows_s = (cm | kept).sum(1).tolist()
+    fwd = smoke.graph_ms(torch, forward, 10)
+    full = smoke.graph_ms(torch, both, 10)
+    cp = smoke.graph_ms(torch, copies, 10)
+    ev_fwd = smoke.events_ms(torch, forward, 10)
+    ev_full = smoke.events_ms(torch, both, 10)
+    ops_fwd = device_ops_ms(forward, DISTILL_OPS)
+    ops_full = device_ops_ms(both, DISTILL_OPS)
+    plain = smoke.events_ms(torch, lambda: both(ed.erd_distill_plain), 2)
+    counts = (sum(rows_cm), sum(rows_kp), sum(rows_s))
+    bounds = {}
+    for width in (c, w):
+        nbytes, nops = smoke.erd_distill_cost(b, n, c, width,
+                                              t_reg.shape[2], *counts)
+        bms, by = smoke.bound_of(nbytes, nops)
+        bounds[f'bound_{width}_wide_ms'] = bms
+        bounds[f'bound_{width}_wide_by'] = by
+        bounds[f'bound_{width}_wide_bytes'] = nbytes
+    parts = {}
+    for v, mod in triton_variants.items():
+        parts[v] = None if mod is None else (
+            smoke.graph_ms(torch, lambda: forward(mod.fused_erd_distill), 10),
+            smoke.graph_ms(torch, lambda: both(mod.fused_erd_distill), 10))
+    for v, lib in cuda_variants.items():  # a parent's Triton figure stays
+        if lib is None:
+            parts.setdefault(v, None)
+            continue
+        parts[v] = with_lib(
+            'erd_distill', lib, lambda: (smoke.graph_ms(torch, forward, 10),
+                                         smoke.graph_ms(torch, both, 10)))
+    kernels = sum(v for v in ops_full.values() if v)
+    res = kernel_resources(compiled, 'erd_distill')
+    report['erd_distill'] = dict(
+        batch=b, anchors=n, classes=c, map_width=w, rows_cls=rows_cm,
+        rows_kept=rows_kp, rows_selected=rows_s, forward_graph_ms=fwd,
+        forward_backward_graph_ms=full, copies_graph_ms=cp,
+        forward_events_ms=ev_fwd, forward_backward_events_ms=ev_full,
+        **{f'fwd_{k}_ms': v for k, v in ops_fwd.items()},
+        **{f'fwd_bwd_{k}_ms': v for k, v in ops_full.items()},
+        kernels_ms=kernels, plain_ms=plain, **bounds,
+        loss_rel_err=loss_err, grad_err_over_tolerance=grad_ratio,
+        other_columns_max=other, repeat_equal=same, resources=res,
+        **{f'{v}_ms': t for v, t in parts.items()})
+    print(f'probe 4: B={b} N={n} C={c} of a {w}-wide map; rows an image: '
+          f'ERS-cls {rows_cm}, kept {rows_kp}, either {rows_s}; forward '
+          f'{fwd:.4f} ms, forward + backward {full:.4f} (graph; events '
+          f'{ev_fwd:.4f} / {ev_full:.4f}), a zero-fill + slice copy of the '
+          f'wide gradient {cp:.4f}; kernels (profiler) forward ' + ', '.join(
+              f'{k} {fmt(v)}' for k, v in ops_fwd.items()) +
+          '; forward + backward ' + ', '.join(
+              f'{k} {fmt(v)}' for k, v in ops_full.items()) +
+          f' (sum {kernels:.4f}); plain {plain:.3f}; bound ' + ', '.join(
+              f'{width} columns {bounds[f"bound_{width}_wide_ms"]:.4f} '
+              f'({bounds[f"bound_{width}_wide_by"]})'
+              for width in (c, w)) +
+          f'; loss rel err {loss_err:.2e}, gradient error / tolerance '
+          f'{grad_ratio:.3f}, columns >= C {other}, two calls equal {same}'
+          f'; registers and spills {json.dumps(res)}; variants (forward, '
+          f'forward + backward): ' + ', '.join(
+              f'{v} ' + ('not measured' if t is None else
+                         f'{t[0]:.4f} {t[1]:.4f}')
+              for v, t in parts.items()), flush=True)
+    del s_cls, s_reg
+    torch.cuda.empty_cache()
+
+
+def probe_ers(smoke, report):
+    """Row 5 at the ERS call of the same ERD step (``distill_calls``, cap =
+    N // 5 + 1): the candidates an image (rows whose criterion is at least
+    the cap-th largest) and the rows tied at the cap-th criterion, the call
+    by graph replays and events, its launches and memsets by the profiler
+    (``ERS_OPS``), the plain version's time, the bound
+    (``chip_smoke.ers_cost``), the list against plain and the masks' flips
+    within 1e-6 * |thr|, and the ``ERS_PARTS`` variants (the criteria
+    launch alone, and without its stores) by graph replays and the
+    profiler."""
+    from erd_tpu_torch.ops.ers_select import (ers_select, ers_select_plain,
+                                              ers_threshold)
+    got = distill_calls(smoke)
+    t_cls, t_reg, cap = got['t_cls'], got['t_reg'], got['cap']
+    b, n = t_cls.shape[:2]
+    variants = fit_variants('ers_select', (ERS_PARTS,),
+                            lambda v, e: edited_lib('ers_select',
+                                                    f'ers_{v}', e))
+
+    def call():
+        return ers_select(t_cls, t_reg, cap)
+    res, want = call(), ers_select_plain(t_cls, t_reg, cap)
+    list_equal = bool(torch.equal(res[1], want[1]))
+    count_ok = bool(torch.equal(res[3].long(), res[2].sum(-1)))
+    crit_cls = torch.sigmoid(t_cls).amax(-1)
+    crit_reg = t_reg.amax(-1) + 0.0  # -0 counted as +0
+    flips = []
+    for g, wnt, crit, full in ((res[0], want[0], crit_cls, crit_cls),
+                               (res[2], want[2], torch.gather(
+                                   crit_reg, 1, want[1]), crit_reg)):
+        thr = ers_threshold(full)[:, None]
+        near = (crit - thr).abs() <= 1e-6 * thr.abs()
+        flips.append((int((g != wnt).sum()), int(((g != wnt) & ~near).sum())))
+    kth = torch.sort(crit_reg, dim=1, descending=True)[0][:, cap - 1:cap]
+    cands = (crit_reg >= kth).sum(1).tolist()
+    tied = (crit_reg == kth).sum(1).tolist()
+    count = res[3].tolist()
+    del res, want
+    graph = smoke.graph_ms(torch, call, 20)
+    events = smoke.events_ms(torch, call, 20)
+    ops = device_ops_ms(call, ERS_OPS, 10)
+    plain = smoke.events_ms(
+        torch, lambda: ers_select_plain(t_cls, t_reg, cap), 5)
+    nbytes, nops = smoke.ers_cost(b, n, t_cls.shape[2], t_reg.shape[2], cap)
+    bound, bound_by = smoke.bound_of(nbytes, nops)
+    parts = {v: None if lib is None else with_lib(
+        'ers_select', lib, lambda: (smoke.graph_ms(torch, call, 20),
+                                    device_ops_ms(call, ERS_OPS, 10)))
+        for v, lib in variants.items()}
+    resources = ptxas_resources('ers_select')
+    report['ers_select'] = dict(
+        batch=b, anchors=n, cap=cap, candidates=cands, tied_at_cap=tied,
+        count=count, list_equal=list_equal, count_is_mask_sum=count_ok,
+        cls_flips=flips[0], reg_flips=flips[1], graph_ms=graph,
+        events_ms=events, **{f'{k}_ms': v for k, v in ops.items()},
+        plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+        bound_bytes=nbytes, resources=resources,
+        **{f'{v}_graph_ms': None if t is None else t[0]
+           for v, t in parts.items()},
+        **{f'{v}_{k}_ms': None if t is None else t[1][k]
+           for v, t in parts.items() for k in ERS_OPS})
+    print(f'probe 5: B={b} N={n} cap={cap}: candidates an image {cands}, '
+          f'rows tied at the cap-th criterion {tied}, count {count}; '
+          f'{graph:.4f} ms (graph), {events:.4f} (events); device '
+          f'(profiler): ' + ', '.join(f'{k} {fmt(v)}' for k, v in ops.items())
+          + f'; plain {plain:.3f}; bound {bound:.4f} ({bound_by}); list '
+          f'equal {list_equal}, count = mask sum {count_ok}, mask flips '
+          f'(all, outside the band): cls {flips[0]}, reg {flips[1]}; '
+          f'registers and spills {json.dumps(resources)}; variants: ' +
+          ', '.join(f'{v} ' + ('not measured' if t is None else
+                               f'{t[0]:.4f} (graph; ' + ', '.join(
+                                   f'{k} {fmt(x)}' for k, x in t[1].items()
+                                   if x is not None) + ')')
+                    for v, t in parts.items()), flush=True)
+    torch.cuda.empty_cache()
+
 # the probe's parts, by the kernel rows of PERF.md
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
          '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
          '10': probe_carafe_forward, '13a-b': probe_point_backward,
-         '3': probe_gfl_loss, '6': probe_atss,
-         'others': probe_other_backwards}
+         '3': probe_gfl_loss, '6': probe_atss, '4': probe_distill,
+         '5': probe_ers, 'others': probe_other_backwards}
 
 
 def main(argv=None) -> int:

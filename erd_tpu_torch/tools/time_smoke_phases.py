@@ -51,8 +51,6 @@ def run_phases(smoke, names) -> int:
     import numpy as np
     import torch
     sys.path.insert(0, smoke.ROOT)
-    os.environ.setdefault('TRITON_CACHE_DIR', os.path.join(
-        smoke.ROOT, 'erd_tpu_torch', 'csrc', 'build', 'triton'))
     from erd_tpu_torch.ops import cuda_build
     card = smoke.card_line()
     print(card, flush=True)

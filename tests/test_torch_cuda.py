@@ -318,23 +318,84 @@ def test_atss_kernel_matches_plain(cuda, name):
         assert torch.equal(getattr(got, field), getattr(want, field)), field
 
 
-@pytest.mark.parametrize('levels', [0, 8])
-def test_ers_select_kernel_matches_plain(cuda, levels):
-    """Lists exactly; a mask entry may differ only where its criterion lies
-    within 1e-6 * |thr| of the threshold (sums in another order). bf16
-    criteria, or (levels 8) criteria on a grid of 1/8 so that thousands
-    tie at the cap boundary."""
+def bf16_tensor(a, cuda):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        cuda).bfloat16().float()
+
+
+def ers_threshold_case(b):
+    """N = 513 rows whose criteria sit exactly on their thresholds: 64
+    rows at c = 1 (logit 30) and r = 2, as many at c = 0 (logit -inf) and
+    r = -2, the rest at c = 1/2 (logit 0) and r = 0, each +/- pair inside
+    one 256-row block. Every sum is exact in float32 whatever its order,
+    and mean + 2 * std is 1 (cls) and 2 (reg) exactly: N - 1 = 8 * 64."""
+    n, cls, reg = 513, np.zeros((513,), np.float32), np.zeros((513,))
+    for base in (0, 256):
+        for k in range(32):
+            cls[base + 2 * k], reg[base + 2 * k] = 30.0, 2.0
+            cls[base + 2 * k + 1], reg[base + 2 * k + 1] = -np.inf, -2.0
+    t_cls = np.broadcast_to(cls[None, :, None], (b, n, 40))
+    t_reg = np.broadcast_to(reg[None, :, None], (b, n, 68))
+    return t_cls, t_reg
+
+
+def ers_case(name, cuda):
+    """(t_cls, t_reg, cap) of one ERS kernel case: bf16-valued teacher
+    outputs at the train canvas (N = 22400), B = 2 unless named."""
     rs = np.random.RandomState(1)
-    n = AnchorContext.build(TRAIN_SHAPE).num_anchors
-    t_cls = torch.from_numpy((rs.randn(2, n, 40) * 2 - 4).astype(
-        np.float32)).to(cuda).bfloat16().float()
-    t_reg = torch.from_numpy((rs.randn(2, n, 68) * 2).astype(
-        np.float32)).to(cuda).bfloat16().float()
-    if levels:
-        t_reg = torch.round(t_reg * levels) / levels
-    cap = n // 5 + 1
+    b, n = 2, AnchorContext.build(TRAIN_SHAPE).num_anchors
+    b = {'step16': 16, 'b1': 1, 'ragged': 3}.get(name, b)
+    n = {'ragged': 1001, 'large_n': 45000}.get(name, n)
+    c_cls, c_reg = (5, 34) if name == 'odd_width' else (40, 68)
+    t_cls = rs.randn(b, n, c_cls) * 2 - 4
+    t_reg = rs.randn(b, n, c_reg) * 2
+    cap = {'cap1': 1, 'capN': n}.get(name, n // 5 + 1)
+    if name == 'step16':  # as chip_smoke.train_case makes them
+        t_cls = rs.randn(b, n, c_cls) * 1.5 - 4
+        hot = rs.rand(b, n) < 0.01
+        t_cls = np.where(hot[..., None], t_cls + 6, t_cls)
+        t_reg = np.where(hot[..., None], t_reg + 3, t_reg)
+    if name == 'grid8':  # thousands tie at the cap boundary
+        t_reg = np.round(t_reg * 8) / 8
+    if name == 'tie_run':  # a few levels: long runs across the cap-th slot
+        t_reg = np.round(t_reg * 2) / 2
+    if name == 'all_equal':
+        t_cls = np.full_like(t_cls, -2.0)
+        t_reg = np.full_like(t_reg, 1.5)
+    if name == 'at_threshold':
+        t_cls, t_reg = ers_threshold_case(b)
+        cap = t_cls.shape[1] // 5 + 1
+    if name == 'signed_zero':
+        # every bin <= -1 but one: -0 in 85 % of the rows, +0 in 5 %, a
+        # positive value in the rest; the cap-th slot falls among the -0s
+        t_reg = -np.abs(t_reg) - 1
+        pick = rs.rand(b, n)
+        col = rs.randint(0, c_reg, (b, n))
+        val = np.where(pick < 0.85, -0.0, np.where(pick < 0.9, 0.0,
+                                                     rs.rand(b, n) + 1))
+        np.put_along_axis(t_reg, col[..., None], val[..., None], -1)
+    return bf16_tensor(t_cls, cuda), bf16_tensor(t_reg, cuda), cap
+
+
+@pytest.mark.parametrize('name', [
+    'bf16', 'grid8', 'step16', 'all_equal', 'tie_run', 'cap1', 'cap4481',
+    'capN', 'ragged', 'large_n', 'odd_width', 'b1', 'at_threshold',
+    'signed_zero'])
+def test_ers_select_kernel_matches_plain(cuda, name):
+    """Lists exactly; a mask entry may differ only where its criterion lies
+    within 1e-6 * |thr| of the threshold (sums in another order); the
+    count is the mask's sum. bf16 criteria (B = 2 at the train canvas), on
+    a grid of 1/8 (thousands tie at the cap boundary), a bs-16 step's,
+    every criterion equal (the list is rows 0 ... cap - 1), a tie run
+    across the cap-th slot, cap 1, 4481 and N, N = 1001 (not a multiple
+    of 32), N = 45000 (more keys than the select stages in shared
+    memory), widths 5 and 34 (single loads), B = 1, criteria exactly on
+    the thresholds (strict >), -0 and +0 among the maxima (+0 first)."""
+    t_cls, t_reg, cap = ers_case(name, cuda)
+    before = ers_select.launches
     got = ers_select(t_cls, t_reg, cap)
     torch.cuda.synchronize()
+    assert ers_select.launches == before + 1
     want = ers_select_plain(t_cls, t_reg, cap)
     assert torch.equal(got[1], want[1])
     crits = (torch.sigmoid(t_cls).amax(-1), t_reg.amax(-1))
@@ -344,7 +405,33 @@ def test_ers_select_kernel_matches_plain(cuda, levels):
         c = crit if near_idx is None else torch.gather(crit, 1, near_idx)
         near = (c - thr).abs() <= 1e-6 * thr.abs()
         assert torch.equal(g & ~near, w & ~near)
-    assert 0 < int(got[3].max()) and (got[3] == got[2].sum(-1)).all()
+    assert (got[3].long() == got[2].sum(-1)).all()
+    b, n = t_cls.shape[:2]
+    if name == 'all_equal':
+        assert (got[1] == torch.arange(cap, device=cuda)).all()
+        assert not got[0].any() and not got[2].any()
+    elif name == 'at_threshold':
+        # exactly on the threshold is not above it, and both sides agree
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        assert (ers_threshold(crits[0]) == 1.0).all()
+        assert (ers_threshold(crits[1]) == 2.0).all()
+        assert (crits[1] == 2.0).any() and not got[0].any()
+        assert not got[2].any()
+    else:
+        assert 0 < int(got[3].max())
+    if name in ('tie_run', 'grid8'):
+        vals = torch.sort(crits[1], dim=1, descending=True)[0]
+        assert bool((vals[:, cap - 1] == vals[:, cap]).all())
+    if name == 'signed_zero':
+        picked = torch.gather(crits[1], 1, got[1])
+        zero = picked == 0
+        # +0 rows come before every -0 row of the list
+        neg = torch.signbit(picked) & zero
+        pos = ~torch.signbit(picked) & zero
+        assert bool(neg.any(1).all()) and bool(pos.any(1).all())
+        first_neg = torch.where(neg.any(1), neg.float().argmax(1), cap)
+        last_pos = cap - 1 - pos.flip(1).float().argmax(1)
+        assert bool((last_pos < first_neg).all())
 
 
 def test_decode_kernel_without_clip(cuda):
@@ -459,33 +546,84 @@ def test_gfl_loss_kernel_matches_plain(cuda, name):
         assert grads[0][1].abs().max() == 0
 
 
-def test_erd_distill_kernel_matches_plain(cuda):
-    """Per-image values rtol 1e-4, gradients within 1e-4 relative +
-    1e-5 * max|g|."""
+def distill_case(name, cuda):
+    """(leaf, s_cls view of it, s_reg, t_cls, t_reg, cls_mask, kept, C,
+    keywords) of one distillation kernel case: B = 2 at the train canvas,
+    C = 40 of an 80-wide map, ~3 % ERS-cls and ~2 % kept rows, T = 10,
+    unless named."""
     rs = np.random.RandomState(4)
-    n = AnchorContext.build(TRAIN_SHAPE).num_anchors
-    s_cls = torch.from_numpy(rs.randn(2, n, 80).astype(np.float32)).to(cuda)
-    s_reg = torch.from_numpy((rs.randn(2, n, 68) * 2).astype(
-        np.float32)).to(cuda)
-    t_cls = torch.from_numpy((rs.randn(2, n, 40) - 3).astype(
-        np.float32)).to(cuda)
-    t_reg = torch.from_numpy((rs.randn(2, n, 68) * 2).astype(
-        np.float32)).to(cuda)
-    cm = torch.from_numpy(rs.rand(2, n) < 0.03).to(cuda)
-    kept = torch.from_numpy(rs.rand(2, n) < 0.02).to(cuda)
+    b, n, w, c = 2, AnchorContext.build(TRAIN_SHAPE).num_anchors, 80, 40
+    b = {'step16': 16, 'ragged': 3}.get(name, b)
+    n = 1001 if name == 'ragged' else n
+    w, c = {'c80': (80, 80), 'c_odd': (7, 5), 'strided': (88, 40)}.get(
+        name, (w, c))
+    leaf = rs.randn(b, n, w).astype(np.float32)
+    s_reg = (rs.randn(b, n, 68) * 2).astype(np.float32)
+    t_cls = (rs.randn(b, n, c) - 3).astype(np.float32)
+    t_reg = (rs.randn(b, n, 68) * 2).astype(np.float32)
+    cm = rs.rand(b, n) < 0.03
+    kept = rs.rand(b, n) < 0.02
+    kw = {'T': 1.0} if name in ('t1', 'underflow') else {}
+    if name == 'no_selected':
+        cm[1] = kept[1] = False
+    if name == 'all_selected':
+        cm[:] = kept[:] = True
+    if name == 'disjoint':  # kept rows that are not ERS-cls and the reverse
+        kept = rs.rand(b, n) < 0.05
+        cm = ~kept & (rs.rand(b, n) < 0.05)
+    if name == 'underflow':
+        # each side one teacher bin at 0, the others at -200: at T = 1 their
+        # softmax underflows to exactly 0
+        t_reg = np.full((b, n, 4, 17), -200.0, np.float32)
+        np.put_along_axis(t_reg, rs.randint(0, 17, (b, n, 4, 1)), 0.0, -1)
+        t_reg = t_reg.reshape(b, n, 68)
+        kept = rs.rand(b, n) < 0.2
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    leaf = t(leaf)
+    width = 80 if name == 'strided' else w
+    return (leaf, width, t(s_reg), t(t_cls), t(t_reg), t(cm), t(kept), c,
+            kw)
+
+
+@pytest.mark.parametrize('name', [
+    'two', 'step16', 'no_selected', 'all_selected', 'disjoint', 'c80',
+    'c_odd', 'ragged', 't1', 'underflow', 'strided'])
+def test_erd_distill_kernel_matches_plain(cuda, name):
+    """Per-image values rtol 1e-4, gradients within 1e-4 relative +
+    1e-5 * max|g|, the gradient past column C exactly 0, two kernel calls
+    bit-equal, one forward and one backward launch a call: C = 40 of 80
+    (``two``), a bs-16 batch, an image with no selected row (its l_cls and
+    gradient 0), every row selected, kept rows that are not ERS-cls and the
+    reverse, C = 80 of 80, C = 5 of 7 (single loads), N = 1001 (not a
+    multiple of 8), T = 1 (and the default 10), teacher bins whose softmax
+    underflows to exactly 0 (0 * log 0), s_cls a row-strided view (the
+    first 80 columns of an 88-wide map)."""
+    leaf0, width, s_reg, t_cls, t_reg, cm, kept, c, kw = distill_case(
+        name, cuda)
     outs, grads = [], []
-    for fn in (fused_erd_distill, erd_distill_plain):
-        sc = s_cls.clone().requires_grad_(True)
+    for fn in (fused_erd_distill, fused_erd_distill, erd_distill_plain):
+        leaf = leaf0.clone().requires_grad_(True)
         sr = s_reg.clone().requires_grad_(True)
-        l_cls, l_reg = fn(sc, sr, t_cls, t_reg, cm, kept)
+        before = fused_erd_distill.launches
+        l_cls, l_reg = fn(leaf[..., :width], sr, t_cls, t_reg, cm, kept,
+                          **kw)
         (l_cls.sum() + 3 * l_reg.sum()).backward()
-        outs.append(torch.stack([l_cls, l_reg]))
-        grads.append((sc.grad, sr.grad))
+        if fn is fused_erd_distill:
+            assert fused_erd_distill.launches == before + 2
+        outs.append(torch.stack([l_cls, l_reg]).detach())
+        grads.append((leaf.grad, sr.grad))
     torch.cuda.synchronize()
-    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=0)
-    for g, w in zip(*grads):
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+    torch.testing.assert_close(outs[0], outs[2], rtol=1e-4, atol=0)
+    for g, w in zip(grads[0], grads[2]):
         torch.testing.assert_close(g, w, rtol=1e-4,
                                    atol=1e-5 * float(w.abs().max()))
+    assert not grads[0][0][..., c:].any()
+    assert bool((outs[0] > 0).any())
+    if name == 'no_selected':
+        assert float(outs[0][0, 1]) == float(outs[0][1, 1]) == 0.0
+        assert not grads[0][0][1].any() and not grads[0][1][1].any()
 
 
 FRCNN_SOFT_CFG = os.path.join(

@@ -138,7 +138,6 @@ def test_time_smoke_phases_runs_only_the_named_phases(tmp_path, capsys,
     from erd_tpu_torch.ops import cuda_build
     built = []
     monkeypatch.setattr(cuda_build, 'build', lambda: built.append(1))
-    monkeypatch.setenv('TRITON_CACHE_DIR', str(tmp_path))
     monkeypatch.syspath_prepend(str(tmp_path))
     ran = tmp_path / 'ran.txt'
     script = tmp_path / 'chip_smoke.py'
@@ -175,7 +174,7 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     every known part exits 1 before it measures anything."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe
     parts = ['8b', '9b', '9', '7b', '1', '7', '10b', '10', '13a-b', '3',
-             '6', 'others']
+             '6', '4', '5', 'others']
     assert list(probe.PARTS) == parts
     assert probe.main(['--only', '1,nms']) == 2
     assert str(parts) in capsys.readouterr().err
@@ -184,6 +183,7 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     assert probe.main(['--only', '7,10b']) == 1
     assert probe.main(['--only', '10,13a-b']) == 1
     assert probe.main(['--only', '3,6']) == 1
+    assert probe.main(['--only', '4,5']) == 1
 
 
 @pytest.mark.parametrize('name,parts,parent_only', [
@@ -195,12 +195,19 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
      ('rows_8', 'rows_16', 'rows_64', 'warps_2', 'warps_8', 'no_class',
       'no_distribution')),
     ('gfl_loss', 'GFL_LOSS_PARTS', ()),
-    ('atss', 'ATSS_PARTS', ())])
+    ('atss', 'ATSS_PARTS', ()),
+    ('ops/erd_distill.py', 'DISTILL_TRITON_PARTS',
+     ('rows_8', 'rows_16', 'warps_2', 'warps_8', 'no_class',
+      'no_distribution')),
+    ('erd_distill', 'DISTILL_PARTS', ()),
+    ('ers_select', 'ERS_PARTS', ())])
 def test_probe_variants_fit_the_kernel_sources(name, parts, parent_only):
-    """Parts 7, 10b, 10, 13a-b, 3 and 6 build their variants from edited
-    copies of csrc/roi_align.cu, csrc/carafe.cu, csrc/point_sample.cu,
-    csrc/gfl_loss.cu and csrc/atss.cu (part 3's parent: of its Triton
-    module ops/gfl_loss.py): every variant but the parent designs' (marked
+    """Parts 7, 10b, 10, 13a-b, 3, 6, 4 and 5 build their variants from
+    edited copies of csrc/roi_align.cu, csrc/carafe.cu,
+    csrc/point_sample.cu, csrc/gfl_loss.cu, csrc/atss.cu,
+    csrc/erd_distill.cu and csrc/ers_select.cu (the parents of parts 3 and
+    4: of their Triton modules ops/gfl_loss.py and ops/erd_distill.py):
+    every variant but the parent designs' (marked
     parent-only) finds an edit set whose texts are all in the present
     source, and each replacement changes the text."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe

@@ -32,7 +32,9 @@ from erd_tpu_torch.models.detectors.gfl_erd import (ERDConfig,
 from erd_tpu_torch.models.heads.gfl_head import (AnchorContext,
                                                  GFLTrainConfig, gfl_loss,
                                                  gfl_targets)
-from erd_tpu_torch.ops.erd_distill import erd_distill_plain
+from erd_tpu_torch.models.detectors import gfl_erd as gfl_erd_module
+from erd_tpu_torch.ops.erd_distill import (erd_distill_plain,
+                                           fused_erd_distill)
 from erd_tpu_torch.ops.ers_select import ers_select
 from erd_tpu_torch.structures import GTInstances
 from erd_tpu_torch.task import (AnchorGenerator, atss_assign,
@@ -270,19 +272,32 @@ def test_gfl_loss_and_grads_match_jax(seed):
 
 
 # ------------------------------------------------------------------ ERS
-@pytest.mark.parametrize('seed', [0, 1])
+@pytest.mark.parametrize('seed', [0, 1, 'ties', 'signed_zeros'])
 def test_ers_select_matches_jax_exactly(seed):
     """bf16-valued teacher outputs, so criteria tie often. The lists are
     held exactly; a mask entry may differ only where its criterion lies
     within 1e-6 * |thr| of the threshold (the mean and std are summed in
-    another order), and none does here."""
-    rs = np.random.RandomState(seed)
+    another order), and none does here. ``ties``: every criterion equal,
+    so the list is rows 0 ... cap - 1 and nothing is masked (the order the
+    card's kernel is held to); ``signed_zeros``: -0 and +0 among the reg
+    maxima, which lax.top_k ranks +0 first."""
+    rs = np.random.RandomState(seed if isinstance(seed, int) else 2)
     b, n, c = 2, 700, 5
     t_cls = rs.randn(b, n, c) * 2 - 4
     t_reg = rs.randn(b, n, 68) * 1.5
     hot = rs.choice(n, 40, replace=False)
     t_cls[:, hot, 0] += 6.0
     t_reg[:, hot] += 3.0
+    if seed == 'ties':
+        t_cls = np.full_like(t_cls, -2.0)
+        t_reg = np.full_like(t_reg, 1.5)
+    if seed == 'signed_zeros':
+        # every bin <= -1 but one in each row that is not hot: -0 in most
+        # rows, +0 in a few, so the cap-th slot falls among the -0s
+        cold = np.setdiff1d(np.arange(n), hot)
+        t_reg[:, cold] = -np.abs(t_reg[:, cold]) - 1
+        zero = np.where(rs.rand(b, cold.size) < 0.9, -0.0, 0.0)
+        t_reg[:, cold, 7] = zero
     t_cls, t_reg = bf16(t_cls), bf16(t_reg)
     cap = n // 5 + 1
     cls_mask, reg_idx, reg_mask, count = ers_select(
@@ -295,11 +310,20 @@ def test_ers_select_matches_jax_exactly(seed):
         np.testing.assert_array_equal(cls_mask[i].numpy(), want_cls)
         np.testing.assert_array_equal(reg_idx[i].numpy(), np.asarray(ji))
         np.testing.assert_array_equal(reg_mask[i].numpy(), np.asarray(jm))
-        assert count[i].item() == int(np.asarray(jm).sum()) > 0
+        assert count[i].item() == int(np.asarray(jm).sum())
+        vals = np.asarray(crit)[np.asarray(ji)]
+        if seed == 'ties':
+            np.testing.assert_array_equal(reg_idx[i].numpy(), np.arange(cap))
+            assert count[i].item() == 0 and want_cls.sum() == 0
+            continue
+        assert count[i].item() > 0
         assert 0 < want_cls.sum() < n
         # ties were present in the selected prefix and beyond it
-        vals = np.asarray(crit)[np.asarray(ji)]
         assert (np.diff(vals) == 0).any()
+        if seed == 'signed_zeros':
+            signs = np.signbit(vals[vals == 0])
+            assert signs.any() and not signs.all()
+            assert not (np.diff(signs.astype(int)) < 0).any()  # +0 first
 
 
 # ---------------------------------------------------------- distillation
@@ -377,9 +401,13 @@ def test_erd_distill_matches_oracle(seed):
         np.testing.assert_allclose(l_reg[i].item(), o_reg, rtol=1e-4)
 
 
-def test_erd_distill_grads_match_jax():
+@pytest.mark.parametrize('via', ['losses', 'wrapper'])
+def test_erd_distill_grads_match_jax(via, monkeypatch):
     """Gradients of the distillation terms into the student logits (the
-    teacher is detached); the masks come from the same selection."""
+    teacher is detached); the masks come from the same selection. ``via``
+    ``wrapper``: the CPU ``fused_erd_distill`` called on the masks that
+    ``erd_distill_losses`` hands it, its gradient of the whole 6-wide
+    ``s_cls`` (zeros past the teacher's 3 columns) against ``jax.grad``."""
     rs = np.random.RandomState(5)
     n = 300
     anchors = np.stack([rs.uniform(0, 50, n), rs.uniform(0, 50, n),
@@ -398,15 +426,26 @@ def test_erd_distill_grads_match_jax():
                                                    jnp.asarray(s_reg))
     sc = torch.from_numpy(s_cls).requires_grad_(True)
     sr = torch.from_numpy(s_reg).requires_grad_(True)
+    seen = []
+    wrapper = gfl_erd_module.fused_erd_distill
+    monkeypatch.setattr(gfl_erd_module, 'fused_erd_distill',
+                        lambda *a, **kw: seen.append((a, kw)) or
+                        wrapper(*a, **kw))
     l_cls, l_reg = erd_distill_losses(
         torch.from_numpy(anchors), sc, sr, torch.from_numpy(t_cls),
         torch.from_numpy(t_reg), ERDConfig(ori_num_classes=3))
+    if via == 'wrapper':
+        (args, kw), = seen
+        sc = torch.from_numpy(s_cls).requires_grad_(True)
+        sr = torch.from_numpy(s_reg).requires_grad_(True)
+        l_cls, l_reg = fused_erd_distill(sc, sr, *args[2:], **kw)
     (l_cls.sum() + l_reg.sum()).backward()
     for got, want in ((sc.grad, j_gc), (sr.grad, j_gr)):
         want = np.asarray(want)
         assert np.abs(want).max() > 0
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                    atol=1e-6 * np.abs(want).max())
+    assert sc.grad.shape == (2, n, 6)
     assert sc.grad[..., 3:].abs().max() == 0
 
 
