@@ -48,7 +48,11 @@ Phases, in order; any failed check exits non-zero before the last line:
                 the 1000 real proposals plus edge-case boxes, full-width
                 P2-P5 (within 1e-6 * max|feat|, levels equal on card and
                 CPU); soft-NMS at K = 2000, 100 steps (linear bit-exact,
-                gaussian within 1e-6 relative); the NMS on the RPN call
+                gaussian within 1e-6 relative; timed by graph replays,
+                and by the profiler under SOFT_NMS_KERNELS, which must
+                match; beside its latency floor: the steps emptied, from
+                an edited copy of csrc/soft_nms.cu built at the start);
+                the NMS on the RPN call
                 (K = 4819, IoU 0.7) and the R-CNN call (K = 2000, IoU 0.5),
                 masks exactly; then each timed;
  10. frcnn serve  for the hard-NMS and the soft-NMS config: init_detector /
@@ -108,8 +112,8 @@ Phases, in order; any failed check exits non-zero before the last line:
                 K = 2000, all valid): the keep mask exactly the plain
                 version's and not the row-1 NMS's on the same boxes; timed;
  19. soft-NMS large K  K = 12000 candidates, above one block's shared memory
-                (the device-memory variant), 100 steps: linear bit-exact,
-                gaussian within 1e-6 relative; timed;
+                (a cluster of 4 blocks an image), 100 steps: linear
+                bit-exact, gaussian within 1e-6 relative; timed;
  20. carafe/crowddet reference  both float32 networks card vs CPU on a small
                 input, within 1e-3 * max|out|;
  21. carafe serve, crowddet serve  init_detector / inference_detector on the
@@ -208,7 +212,9 @@ Phases, in order; any failed check exits non-zero before the last line:
                 bound and the autograd backward of F.grid_sample (with the
                 mask's product for DCNv2), whose gradients are held against
                 the plain ones first (1e-3 * max|plain|; the offsets' away
-                from integer positions);
+                from integer positions); the forward kernel (row 8) at
+                each call shape by graph replays beside its byte bound and
+                F.grid_sample on the same columns (row 8's train_shapes);
  29. dcn train reference  both DCN configs in float32 at full width on a
                 small input, card (kernels) vs CPU (plain): losses rtol
                 1e-3, ||diff|| / ||g|| <= 1e-3 overall and over the DCN
@@ -247,7 +253,7 @@ Phases, in order; any failed check exits non-zero before the last line:
                 where it lies) beside its byte bound and torch.cummax on
                 that map, the NCHW kernel on the map made NCHW equal to
                 plain and timed too; its
-                soft-NMS call at K = 10000 (the device-memory variant),
+                soft-NMS call at K = 10000 (a cluster of 4 blocks),
                 gaussian within 1e-6 relative, timed;
  33. mask/cornernet reference  Mask R-CNN's and PointRend's float32
                 networks (RPN outputs, the bbox head, the mask heads on
@@ -288,7 +294,8 @@ Phases, in order; any failed check exits non-zero before the last line:
                 (fault 3.11); the corner_pool forward timed on that step's
                 x of each direction (joins the corner_pool row); the corner
                 targets of that step (heat within 1e-6, the exact-1 peaks,
-                offsets and weights equal); each timed by CUDA-graph
+                offsets, weights and corner pixels equal); each timed by
+                CUDA-graph
                 replays beside its byte bound, its plain version and the
                 library call where one computes the function
                 (F.grid_sample with border padding for the targets,
@@ -951,6 +958,138 @@ def time_graph(torch, fn, plain_fn, n=20):
     call_ms = events_ms(torch, fn, n)
     plain_ms = events_ms(torch, plain_fn, max(2, n // 3))
     return graph_ms(torch, fn, n), call_ms, 'graph', plain_ms
+
+
+# the soft-NMS kernel by the profiler's name (its instantiations by the
+# candidates a thread holds: soft_nms_kernel<2>, ...)
+SOFT_NMS_KERNELS = ['soft_nms_kernel<']
+
+
+def profiled_ms(torch, fn, names, n, what):
+    """kernel_ms of the named kernels, failing the phase where the
+    profiler matches no record of them (a renamed kernel must not report
+    0 or fall back to another clock)."""
+    ms = kernel_ms(torch, fn, names, n)
+    check(ms is not None, f'{what}: the profiler shows no record of '
+          f'{names}')
+    return ms
+
+
+# the soft-NMS latency floor: csrc/soft_nms.cu with its pass's decay and
+# its early exit taken out, so that each step is its warp reduction, its
+# atomics, its barrier (in a cluster the exchange of the blocks' words) and
+# the winner's reads (built in the build directory, on no path)
+SOFT_NMS_FLOOR_EDITS = {
+    'if (step > 0 && c > -CUDART_INF_F) {': 'if (false) {',
+    'if (win == 0ull) {  // nothing live':
+    'if (false) {  // nothing live'}
+
+
+def start_soft_nms_floor_build(edits=None, variant='floor'):
+    """Start nvcc on a copy of csrc/soft_nms.cu with ``edits`` (default
+    SOFT_NMS_FLOOR_EDITS) applied, built in the build directory as
+    ``soft_nms_<variant>``; returns a handle for soft_nms_floor_lib, or
+    None where the edits do not fit the source (another design's)."""
+    from erd_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / 'soft_nms.cu').read_text()
+    edits = SOFT_NMS_FLOOR_EDITS if edits is None else edits
+    if not all(old in src for old in edits):
+        return None
+    for old, new in edits.items():
+        src = src.replace(old, new)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    copy = cuda_build.BUILD_DIR / f'soft_nms_{variant}.cu'
+    copy.write_text(src)
+    path = copy.with_suffix('.so')
+    proc = subprocess.Popen([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                             '-o', str(path), str(copy)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, path
+
+
+def soft_nms_floor_lib(handle):
+    """The loaded floor library of start_soft_nms_floor_build's handle."""
+    import ctypes
+    proc, path = handle
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f'soft-NMS floor build failed:\n{out}')
+    lib = ctypes.CDLL(str(path))
+    lib.erd_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.erd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def soft_nms_forced_plan(lib, args, cs):
+    """The soft-NMS plan of ``args`` in library ``lib`` with each image a
+    cluster of ``cs`` blocks (the wrapper's plan with that size alone), or
+    None where a block of that cluster cannot hold its slice."""
+    from erd_tpu_torch.ops.nms import soft_nms_limits, soft_nms_plan
+    k = args[1].shape[1]
+    threads, capacity = soft_nms_limits(lib, args[1].device)
+    if -(-k // cs) > capacity[cs]:
+        return None
+    return soft_nms_plan(k, capacity, threads, clusters=(cs,))
+
+
+def soft_nms_floor_ms(torch, lib, args, cs):
+    """Graph ms of ``args``' soft-NMS steps in library ``lib`` (the floor
+    library: the steps emptied), each image a cluster of ``cs`` blocks, or
+    None where a block of that cluster cannot hold its slice."""
+    from erd_tpu_torch.ops.nms import soft_nms_launch
+    plan = soft_nms_forced_plan(lib, args, cs)
+    if plan is None:
+        return None
+    return graph_ms(torch, lambda: soft_nms_launch(lib, *args, plan=plan),
+                    10)
+
+
+def soft_nms_stats(torch, args, sel_scores):
+    """(live candidates an image, the first step whose selection is -inf,
+    i.e. every candidate consumed or dropped, or None) of a soft-NMS call
+    and its selected scores."""
+    live = [int(v) for v in (args[1] > float('-inf')).sum(-1)]
+    dead = (sel_scores == float('-inf')).all(0)
+    return live, (int(dead.int().argmax()) if bool(dead.any()) else None)
+
+
+def soft_nms_cost(args, live, exhausted):
+    """(bytes, operations) that the soft-NMS call must do on this data: the
+    scores read, the live candidates' boxes, the selections written; ~21
+    operations a live candidate and step (argmax compare; IoU: 2 min, 2
+    max, 2 sub, 2 max0, mul, add, sub, max, div; decay compare, sub, mul;
+    min-score compare) over the steps taken before nothing is live."""
+    k, steps = args[1].shape[1], args[2]
+    run = steps if exhausted is None else exhausted
+    return (sum(4 * k + 16 * n for n in live) + steps * 12 * len(live),
+            sum(n for n in live) * run * 21.0)
+
+
+def soft_nms_large_k_case(np, torch):
+    """(sboxes, scores) of the large-K case: one image, K = 12000
+    class-shifted boxes in 40 clusters over 80 classes, 10 % -inf."""
+    rs = np.random.RandomState(21)
+    k = 12000
+    centres = rs.uniform(50, 1300, (40, 2))
+    c = centres[rs.randint(40, size=k)] + rs.normal(0, 15, (k, 2))
+    wh = rs.uniform(16, 120, (k, 2))
+    bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    bx = bx + (rs.randint(0, 80, k) * (bx.max() + 1)).astype(
+        np.float32)[:, None]
+    sc = rs.uniform(0.05, 1, k).astype(np.float32)
+    sc[rs.rand(k) < 0.1] = -np.inf
+    return (torch.from_numpy(bx)[None].to(DEV),
+            torch.from_numpy(sc)[None].to(DEV))
+
+
+SOFT_NMS_DESIGN = ('an image a block of 512 threads, or a thread-block '
+                   'cluster of 2-8 past 3072 candidates a block; live '
+                   'candidates compacted at load into shared-memory '
+                   'planes, their scores in registers; one pass and one '
+                   'barrier a step: a warp REDUX of an order key, its best '
+                   'folded by a shared 64-bit atomicMax; in a cluster the '
+                   'blocks\' words sent as step-tagged DSMEM stores and '
+                   'polled; early exit once nothing is live')
 
 
 def synthetic_gt(np, torch, rs, b, img_hw, device=None,
@@ -1981,10 +2120,12 @@ def serve_edge_rois(torch, w, h):
         [100, 100, 400, 400]], dtype=torch.float32, device=DEV)
 
 
-def phase_frcnn_kernels(np, torch):
+def phase_frcnn_kernels(np, torch, floor=None):
     """RoIAlign, soft-NMS and the NMS at Faster R-CNN's sizes, on the
     arguments one 800x1333 request hands them, against their plain
-    versions; then timed."""
+    versions; then timed (soft-NMS beside its latency floor, built from
+    ``floor``, a start_soft_nms_floor_build handle, started here if
+    None)."""
     import importlib
 
     from erd_tpu_torch.apis import build_detector, init_detector
@@ -2083,19 +2224,28 @@ def phase_frcnn_kernels(np, torch):
             check(rel <= 1e-6, 'gaussian soft-NMS scores differ > 1e-6 '
                   'relative, or selections differ without a tie')
     sargs = (sboxes, scores, steps, 0.5, 0.5, 1e-3, 'linear')
-    ms, call_ms, src, plain_ms = time_pair(
+    ms, call_ms, src, plain_ms = time_graph(
         torch, lambda: soft_nms(*sargs), lambda: soft_nms_plain(*sargs),
-        ['soft_nms_kernel'], n=20)
-    nbytes = k * (16 + 4) + steps * (8 + 4)
-    ops = steps * k * 21.0  # per step and candidate: argmax compare; IoU
-    # (2 min, 2 max, 2 sub, 2 max0, mul, add, sub, max, div); decay compare,
-    # sub, mul; min-score compare
-    bms, by = bound_of(nbytes, ops)
+        n=20)
+    prof_ms = profiled_ms(torch, lambda: soft_nms(*sargs),
+                          SOFT_NMS_KERNELS, 20, 'frcnn kernels: soft_nms')
+    live, exhausted = soft_nms_stats(torch, sargs, soft_nms(*sargs)[1])
+    bms, by = bound_of(*soft_nms_cost(sargs, live, exhausted))
+    floor_ms = soft_nms_floor_ms(torch, soft_nms_floor_lib(
+        floor or start_soft_nms_floor_build()), sargs, 1)
+    log(f'frcnn kernels: soft_nms K={k} ({live} live, nothing live from '
+        f'step {exhausted}): {ms:.4f} ms device ({src}; profiler '
+        f'{prof_ms:.4f}), {call_ms:.4f} ms per call, plain {plain_ms:.3f} '
+        f'ms, bound {bms:.6f} ms ({by}); latency floor ({steps} empty '
+        f'steps, one block) {floor_ms:.4f} ms')
     rows.append(dict(name='soft_nms', route='cuda',
                      source='erd_tpu_torch/csrc/soft_nms.cu',
                      replaces='erd_tpu/ops/nms.py:170', max_abs_err=0.0,
                      ms=ms, call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
-                     bound_ms=bms, bound_by=by, library_ms=None))
+                     profiler_ms=prof_ms, bound_ms=bms, bound_by=by,
+                     latency_floor_ms=floor_ms, live=live,
+                     library_ms=None, redesigned=True,
+                     design=SOFT_NMS_DESIGN))
 
     # -- the NMS kernel on the RPN call and the R-CNN call
     for nargs, want_k, want_thr in ((nms_calls[0], 4819, 0.7),
@@ -3155,22 +3305,19 @@ def phase_set_nms_kernels(np, torch):
 
 
 def phase_soft_nms_large_k(np, torch):
-    """Soft-NMS at K = 12000, above one block's shared memory (the
-    device-memory variant), 100 steps: linear bit-exact, gaussian within
-    1e-6 relative; then timed."""
-    from erd_tpu_torch.ops import soft_nms, soft_nms_plain
-    rs = np.random.RandomState(21)
-    k, steps = 12000, 100
-    centres = rs.uniform(50, 1300, (40, 2))
-    c = centres[rs.randint(40, size=k)] + rs.normal(0, 15, (k, 2))
-    wh = rs.uniform(16, 120, (k, 2))
-    bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
-    bx = bx + (rs.randint(0, 80, k) * (bx.max() + 1)).astype(
-        np.float32)[:, None]
-    sc = rs.uniform(0.05, 1, k).astype(np.float32)
-    sc[rs.rand(k) < 0.1] = -np.inf
-    sboxes = torch.from_numpy(bx)[None].to(DEV)
-    scores = torch.from_numpy(sc)[None].to(DEV)
+    """Soft-NMS at K = 12000 (soft_nms_large_k_case), above one block's
+    shared memory (a cluster of blocks an image), 100 steps: linear
+    bit-exact, gaussian within 1e-6 relative; then timed."""
+    from erd_tpu_torch.ops import cuda_build, soft_nms, soft_nms_plain
+    from erd_tpu_torch.ops.nms import soft_nms_limits, soft_nms_plan
+    steps = 100
+    sboxes, scores = soft_nms_large_k_case(np, torch)
+    k = scores.shape[1]
+    threads, capacity = soft_nms_limits(cuda_build.load('soft_nms'),
+                                        sboxes.device)
+    plan = soft_nms_plan(k, capacity, threads)
+    check(plan[0] > 1, f'soft-NMS large K: K={k} planned as {plan}, not a '
+          f'cluster')
     for method in ('linear', 'gaussian'):
         gi, gs = soft_nms(sboxes, scores, steps, 0.5, 0.5, 1e-3, method)
         torch.cuda.synchronize()
@@ -3188,13 +3335,18 @@ def phase_soft_nms_large_k(np, torch):
             check(torch.equal(gi, wi) and rel <= 1e-6,
                   'large-K gaussian soft-NMS differs from plain')
     args = (sboxes, scores, steps, 0.5, 0.5, 1e-3, 'linear')
-    ms, call_ms, src, plain_ms = time_pair(
-        torch, lambda: soft_nms(*args), lambda: soft_nms_plain(*args),
-        ['soft_nms_global_kernel'], n=10)
-    bms, by = bound_of(k * (16 + 4) + steps * 12, steps * k * 21.0)
-    log(f'soft-NMS large K: {ms:.4f} ms device ({src}), {call_ms:.4f} ms per '
-        f'call, plain {plain_ms:.3f} ms, bound {bms:.5f} ms ({by})')
-    return dict(k=k, steps=steps, ms=ms, call_ms=call_ms, ms_from=src,
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: soft_nms(*args), lambda: soft_nms_plain(*args), n=10)
+    prof_ms = profiled_ms(torch, lambda: soft_nms(*args), SOFT_NMS_KERNELS,
+                          10, 'soft-NMS large K')
+    live, exhausted = soft_nms_stats(torch, args, soft_nms(*args)[1])
+    bms, by = bound_of(*soft_nms_cost(args, live, exhausted))
+    log(f'soft-NMS large K: a cluster of {plan[0]} blocks of {plan[1]} '
+        f'slots ({plan[2]} a thread), {live} live: {ms:.4f} ms device '
+        f'({src}; profiler {prof_ms:.4f}), {call_ms:.4f} ms per call, plain '
+        f'{plain_ms:.3f} ms, bound {bms:.6f} ms ({by})')
+    return dict(k=k, steps=steps, live=live, cluster=plan[0], ms=ms,
+                call_ms=call_ms, ms_from=src, profiler_ms=prof_ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
@@ -4622,7 +4774,7 @@ def phase_dcn_train_kernels(np, torch):
 
     from erd_tpu_torch.engine import batch_to
     from erd_tpu_torch.models.heads import gfl_head, vfnet_head
-    from erd_tpu_torch.ops import (deform_im2col_backward,
+    from erd_tpu_torch.ops import (deform_im2col, deform_im2col_backward,
                                    deform_im2col_backward_plain)
     from erd_tpu_torch.ops.deform_conv import deform_backward_chunk
     dcn_module = importlib.import_module('erd_tpu_torch.ops.deform_conv')
@@ -4736,7 +4888,7 @@ def phase_dcn_train_kernels(np, torch):
 
     # the kernel's ms: CUDA events around the call less the zeroing of its
     # float32 map gradient, timed alone
-    timed, per_step, per_step_kernel = [], {}, {}
+    timed, per_step, per_step_kernel, forward = [], {}, {}, []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (kind, xshape, stride, has_mask), (args, count) in shapes.items():
         call_ms = events_ms(torch, lambda: deform_im2col_backward(*args), 5)
@@ -4794,6 +4946,23 @@ def phase_dcn_train_kernels(np, torch):
                 f'{k} {v:.3e}' for k, v in library_errs.items()) +
             f'; offsets within 1e-3 px of an integer left out: '
             f'{float(near.float().mean()):.4f})')
+        # row 8, the forward, at this training call: graph replays beside
+        # its bytes bound and F.grid_sample on the same columns
+        fargs = tuple(args[:3]) + tuple(args[4:9])
+        fwd_ms = graph_ms(torch, lambda: deform_im2col(*fargs), 10)
+        fbms, fby = bound_of(*dcn_cost(fargs))
+        fwd_library_ms = graph_ms(torch, grid_sample_im2col(torch, fargs), 5)
+        forward.append(dict(config=kind, x=list(xshape), out_hw=out_hw,
+                            stride=stride, mask=has_mask, calls=count,
+                            ms=fwd_ms, ms_from='graph', bound_ms=fbms,
+                            bound_by=fby, ratio=fwd_ms / fbms,
+                            library_ms=fwd_library_ms,
+                            library_ms_from='graph'))
+        log(f'dcn train kernels: deform_im2col (row 8) {kind} x {xshape} '
+            f'-> {tuple(out_hw)} stride {stride} mask {has_mask} (x{count} '
+            f'a step): {fwd_ms:.4f} ms (graph), bound {fbms:.4f} ms '
+            f'({fby}), {fwd_ms / fbms:.2f}x the bound; F.grid_sample '
+            f'{fwd_library_ms:.4f} ms (graph)')
     for kind, total in per_step.items():
         log(f'dcn train kernels: {kind} backward calls of one step '
             f'{total:.2f} ms (events, call time; {per_step_kernel[kind]:.2f} '
@@ -4821,6 +4990,7 @@ def phase_dcn_train_kernels(np, torch):
                per_step_less_zeroing_ms=per_step_kernel, redesigned=True,
                design='the map gradient\'s atomics combined in each warp; '
                'channel chunks planned from the shape',
+               forward_train_shapes=forward,
                sample_share={'fractional': total[1] / total[0],
                              'outside': total[2] / total[0]})
     torch.cuda.empty_cache()
@@ -5268,8 +5438,8 @@ def phase_cornernet_kernels(np, torch):
     and with NaNs planted (fault 3.11) equal NaN for NaN, each direction
     timed by time_corner_pool (the train step's calls are timed by
     phase_mask_train_kernels, which holds them, and join this row); the
-    soft-NMS call at K = 10000 (the device-memory variant),
-    gaussian within 1e-6 relative, timed."""
+    soft-NMS call at K = 10000 (a cluster of 4 blocks), gaussian within
+    1e-6 relative, timed."""
     import importlib
 
     from erd_tpu_torch.ops import (corner_pool, corner_pool_plain, soft_nms,
@@ -5316,7 +5486,7 @@ def phase_cornernet_kernels(np, torch):
                library_ms=worst['library_ms'], slowest=worst['direction'],
                by_direction=timed)
 
-    # -- soft-NMS at K = 10000 (the device-memory variant), gaussian
+    # -- soft-NMS at K = 10000 (a cluster of 4 blocks), gaussian
     sboxes, scores, steps, thr, sigma, min_score, method = soft_calls[0][:7]
     k = sboxes.shape[1]
     valid = int((scores > float('-inf')).sum())
@@ -5342,10 +5512,12 @@ def phase_cornernet_kernels(np, torch):
     ms, call_ms, src, plain_ms = time_graph(
         torch, lambda: soft_nms(*sargs), lambda: soft_nms_plain(*sargs),
         n=10)
-    bms, by = bound_of(k * 20 + steps * 12, steps * k * 21.0)
+    live, exhausted = soft_nms_stats(torch, sargs, gs)
+    bms, by = bound_of(*soft_nms_cost(sargs, live, exhausted))
     soft = dict(k=k, valid=valid, steps=steps, method=method, ms=ms,
                 call_ms=call_ms, ms_from=src, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, max_rel_err=rel)
+                bound_ms=bms, bound_by=by, max_rel_err=rel,
+                nothing_live_from=exhausted)
     log(f'corner kernels: soft_nms K={k} {ms:.4f} ms device ({src}), '
         f'{call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, bound '
         f'{bms:.5f} ms ({by}); {int(res.mask.sum())} detections')
@@ -5786,6 +5958,30 @@ def mask_train_step_calls(np, torch, kind, names):
     return calls
 
 
+CORNER_TARGETS_DESIGN = ('one launch, no zero-fill and no torch op before '
+                         'it: a block an (image, corner, band of 1024 '
+                         'pixels) computes the gts\' scalars in shared '
+                         'memory and lists those whose squares meet the '
+                         'band; a thread 4 pixels, one 16-byte store a '
+                         'class channel; every output byte written once')
+
+
+def corner_targets_cost(torch, args):
+    """(bytes, operations, gaussian cells) of a render_corner_targets call
+    on this data: the outputs written once (both heatmaps, offsets,
+    weights, corner pixels) and the gts read; ~20 operations a gaussian
+    cell of each valid gt's two squares."""
+    from erd_tpu_torch.ops.gaussian import corner_scalars
+    boxes, labels, mask, (fh, fw), num_classes = args[:5]
+    b, g = mask.shape
+    nbytes = 2 * b * (num_classes + 3) * fh * fw * 4 + 2 * b * g * 2 * 8 + \
+        boxes.numel() * 4 + labels.numel() * labels.element_size() + \
+        mask.numel()
+    sc = corner_scalars(*args)
+    inside = float(((2 * sc['radius'] + 1) ** 2 * sc['valid']).sum()) * 2
+    return nbytes, inside * 20.0, inside
+
+
 def crop_resize_library(torch, masks, boxes, idx, rois, out_size):
     """The targets as one F.grid_sample computes them (border padding),
     times the in-box mask: for row 14's library_ms. It is erd_tpu's
@@ -6120,8 +6316,8 @@ def phase_mask_train_kernels(np, torch):
     boxes, labels, mask, feat_hw, num_classes, ratio = args
     got = render_corner_targets(*args)
     torch.cuda.synchronize()
-    want = render_corner_targets_plain(corner_scalars(*args), feat_hw,
-                                       num_classes)
+    sc = corner_scalars(*args)
+    want = render_corner_targets_plain(sc, feat_hw, num_classes)
     err, peaks = 0.0, []
     for c in ('tl', 'br'):
         err = max(err, float((got[f'{c}_heat'] - want[f'{c}_heat']).abs()
@@ -6131,11 +6327,14 @@ def phase_mask_train_kernels(np, torch):
         for k in ('off', 'w'):
             check(torch.equal(got[f'{c}_{k}'], want[f'{c}_{k}']),
                   f'corner-target kernel: {c}_{k} differs from plain')
+        check(torch.equal(got[f'{c}_xy'], torch.stack(
+            [sc[f'{c}_x'], sc[f'{c}_y']], -1)),
+            f'corner-target kernel: {c}_xy differs from corner_scalars')
     log(f'mask/corner train kernels: render_corner_targets B={boxes.shape[0]}'
         f' G={boxes.shape[1]} ({int(mask.sum())} valid) {num_classes} '
         f'classes {tuple(feat_hw)}: heat max_abs_err={err:.3e} (limit '
-        f'1e-6), exact-1 peaks card/plain {peaks}, offsets and weights '
-        f'equal')
+        f'1e-6), exact-1 peaks card/plain {peaks}, offsets, weights and '
+        f'corner pixels equal')
     check(err <= 1e-6 and all(a == b > 0 for a, b in peaks),
           'corner-target kernel disagrees with plain')
     ms, call_ms, src, plain_ms = time_graph(
@@ -6143,11 +6342,8 @@ def phase_mask_train_kernels(np, torch):
         lambda: render_corner_targets_plain(corner_scalars(*args), feat_hw,
                                             num_classes), n=10)
     b, (fh, fw) = boxes.shape[0], feat_hw
-    nbytes = 2 * b * (num_classes + 3) * fh * fw * 4 + boxes.numel() * 4 + \
-        labels.numel() * 8 + mask.numel()
-    sc = corner_scalars(*args)
-    inside = float(((2 * sc['radius'] + 1) ** 2 * sc['valid']).sum()) * 2
-    bms, by = bound_of(nbytes, inside * 20.0)
+    nbytes, ops, inside = corner_targets_cost(torch, args)
+    bms, by = bound_of(nbytes, ops)
     log(f'mask/corner train kernels: render_corner_targets: {ms:.4f} ms '
         f'device ({src}), {call_ms:.4f} ms per call, plain {plain_ms:.3f} '
         f'ms, bound {bms:.4f} ms ({by}; {nbytes} bytes, {inside:.0f} '
@@ -6159,7 +6355,8 @@ def phase_mask_train_kernels(np, torch):
                      ms=ms, call_ms=call_ms, ms_from=src,
                      ms_at=f'B={b} {num_classes}x{fh}x{fw}',
                      plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                     library_ms=None, deterministic=True, peaks=peaks))
+                     library_ms=None, deterministic=True, peaks=peaks,
+                     redesigned=True, design=CORNER_TARGETS_DESIGN))
     del calls
     torch.cuda.empty_cache()
     return rows, roi_backward, roi_forward
@@ -6974,6 +7171,9 @@ def main() -> int:
             f'{tf32_settings(torch)}')
 
         t0 = time.perf_counter()
+        floor = start_soft_nms_floor_build()
+        check(floor is not None, 'SOFT_NMS_FLOOR_EDITS do not fit '
+              'csrc/soft_nms.cu')
         cuda_build.build()
         log(f'build: {len(cuda_build.SOURCES)} kernels in '
             f'{time.perf_counter() - t0:.1f}s')
@@ -6990,7 +7190,7 @@ def main() -> int:
                                                                    torch)
         phase_train_reference(np, torch)
         train_launches = phase_train(np, torch, card)
-        frcnn_rows, frcnn_nms = phase_frcnn_kernels(np, torch)
+        frcnn_rows, frcnn_nms = phase_frcnn_kernels(np, torch, floor)
         frcnn_launches = phase_frcnn_serve(np, torch, card)
         detr_rows = phase_detr_kernels(np, torch)
         phase_detr_reference(np, torch)
@@ -7126,6 +7326,9 @@ def main() -> int:
             for path, counts in dcn_train_launches.items():
                 row['launches_by_path'][path] = counts['deform_im2col']
             row['launches'] = sum(row['launches_by_path'].values())
+        # row 8 at every call shape of the DCN training steps
+        dcn_rows[0]['train_shapes'] = dcn_train_row.pop(
+            'forward_train_shapes')
         dcn_train_row['launches_by_path'] = {
             path: counts['deform_im2col_backward']
             for path, counts in dcn_train_launches.items()}

@@ -10,45 +10,92 @@
 //      (gaussian); -inf entries stay -inf;
 //   4. drops decayed scores below min_score to -inf;
 //   5. consumes i (cur[i] = -inf).
-// The scan is serial in its steps, so the kernel is one thread block per
-// image, and each step is a block-wide argmax (a strided scan per thread,
-// warp shuffles, one pass over the warps' winners) and one strided decay
-// pass. Two variants of one templated scan, picked by K:
-//   - shared (K <= erd_soft_nms_max_k(), about 9600 on an H100): the block
-//     holds the class-shifted boxes, their areas and the current scores of
-//     all K candidates in shared memory (6 floats each: 47 KB at K = 2000,
-//     dynamic shared memory, up to the 227 KB a block may use). Nothing but
-//     the outputs touches device memory after the first load.
-//   - global (larger K): the current scores and the areas live in a
-//     (B, 2, K) float32 scratch that the wrapper allocates, and the boxes
-//     are read from device memory at every step; at K = 12000 that is
-//     240 KB per image, which stays in L2. __syncthreads() orders the
-//     block's own device-memory writes as it orders shared memory.
+//
+// The scan is serial in its steps, so the design attacks the cost of a
+// step. An image is one thread block, or a thread-block cluster of 2, 4 or
+// 8 blocks where K exceeds 3072 slots a block or one block's shared memory
+// (the wrapper plans the cluster from K, `soft_nms_plan`); block r of the
+// cluster takes the slots [r * slice, (r + 1) * slice).
+//   - Compact at load: a block packs its live slots (score > -inf), in
+//     index order, into shared-memory planes: the box (float4), its area
+//     and its offset in the slice (uint16), 22 B a candidate. Thread t
+//     owns the packed slots t + i * threads, i < PER (a compile-time
+//     count), and keeps their current scores in registers (their boxes
+//     too where PER <= 8).
+//   - One pass and one barrier a step: the pass decays each owned score
+//     by the previous step's winner (a disjoint box keeps its score times
+//     w(0), so its IoU is not computed), drops it below min_score,
+//     consumes the winner and takes the thread's best of the new scores.
+//     A warp finds its best value by one integer max reduction (REDUX) of
+//     an order-preserving key; the lane holding it (or each tied lane)
+//     folds (value, lowest key, the sign of a zero) as one 64-bit word into
+//     the block's word for the step by a shared-memory atomicMax; then
+//     __syncthreads. In a cluster, lanes 0..cs-1 of warp 0 then store the
+//     block's word, tagged with the step in its free bits, into a slot of
+//     every block's shared memory (DSMEM), and every thread polls its own
+//     block's slots until each holds this step's word and takes the
+//     largest, in place of a cluster barrier (the tag is the flag: one
+//     one-way store a block and step). The word gives the winner's key and
+//     value; its box and area come from its owner's planes. The key,
+//     (block rank, packed slot), orders as the original index does, so
+//     ties go to the lowest index. Words are triple-buffered (reset two
+//     steps ahead), slots double-buffered.
+//   - Early exit: once the word is empty, nothing is live anywhere; the
+//     remaining steps get (0, -inf), as jnp.argmax of an all -inf vector
+//     gives, and the blocks stop.
 //
 // Exactness: the IoU repeats the reference op for op, each op rounded on
 // its own (__fsub_rn etc.; the library is built with -fmad=false):
 // area = max(x2-x1,0)*max(y2-y1,0), iw = max(min(x2_i,x2)-max(x1_i,x1),0),
 // iou = (iw*ih) / max((area_i + area) - iw*ih, 1e-6). The linear decay is
-// then bit-exact with the plain version in both variants; the gaussian one
-// goes through expf, which may differ from the host's exp by an ulp.
+// then bit-exact with the plain version; the gaussian one goes through
+// expf, which may differ from the host's exp by an ulp.
 //
 // Bound on this card: neither bytes nor operations. The inputs are 20 B per
-// candidate (40 KB at K = 2000) and the work is ~20 flops per candidate and
-// step (4 MFLOP at K = 2000, 100 steps), both microseconds at most; the
-// kernel is bound by the latency of its 2 * steps block-wide barriers, and
-// in the global variant also by the L2 latency of each step's two passes.
+// candidate and the work ~20 flops per candidate and step, microseconds at
+// most; the scan is bound by the latency of its steps: a pass over a
+// thread's candidates, a warp reduction, shared-memory atomics and one
+// barrier each.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kScale = 1024 / kThreads;  // the per-thread counts' scale
+constexpr int kMaxCluster = 8;
+constexpr int kMaxPer = 11 * kScale;  // candidates a thread, at most
+constexpr int kRegBoxesPer = 8;       // up to this many: boxes in registers
+constexpr int kBytesPer = 16 + 4 + 2;  // box, area, offset in the slice
+constexpr int kStaticReserve = 1024;   // the kernel's static shared memory
+constexpr int kNoKey = 0x7fffffff;     // no live candidate
+constexpr int kMaxKey = 0x7ffff;       // rank (3 bits), packed slot (16)
+// a block's word sent to a peer carries the step in its free bits 20-31
+constexpr unsigned long long kTagMask = 0xfffull;
+constexpr int kTagShift = 20;
 
-// (value, index) pair order of jnp.argmax: larger value, then lower index.
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
+// An unsigned key that orders as the floats do (-0 taken as +0, which
+// argmax ties with it).
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned i = __float_as_uint(v + 0.f);
+  return (i & 0x80000000u) ? ~i : (i | 0x80000000u);
+}
+
+__device__ __forceinline__ float order_value(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// A step's word: the value's key, then the key inverted (a lower key wins
+// a tie), then the value's sign (read back for a zero). 0: nothing live.
+__device__ __forceinline__ unsigned long long pack_best(float v, int key) {
+  return (static_cast<unsigned long long>(order_key(v)) << 32) |
+         (static_cast<unsigned>(kMaxKey - key) << 1) |
+         (__float_as_uint(v) >> 31);
 }
 
 __device__ __forceinline__ float box_area(float4 b) {
@@ -56,203 +103,264 @@ __device__ __forceinline__ float box_area(float4 b) {
                    fmaxf(__fsub_rn(b.w, b.y), 0.f));
 }
 
-// All K candidates of one image in shared memory, as planes.
-struct SharedStore {
-  float *x1, *y1, *x2, *y2, *area, *cur;
-  __device__ SharedStore(float* smem, int k)
-      : x1(smem), y1(smem + k), x2(smem + 2 * k), y2(smem + 3 * k),
-        area(smem + 4 * k), cur(smem + 5 * k) {}
-  __device__ void load(int j, float4 b, float score) {
-    x1[j] = b.x;
-    y1[j] = b.y;
-    x2[j] = b.z;
-    y2[j] = b.w;
-    area[j] = box_area(b);
-    cur[j] = score;
-  }
-  __device__ float4 box(int j) const {
-    return make_float4(x1[j], y1[j], x2[j], y2[j]);
-  }
-};
-
-// Boxes read from device memory; scores and areas in the (2, K) scratch.
-struct GlobalStore {
-  const float4* boxes;
-  float *cur, *area;
-  __device__ GlobalStore(const float4* b, float* scratch, int k)
-      : boxes(b), cur(scratch), area(scratch + k) {}
-  __device__ void load(int j, float4 b, float score) {
-    area[j] = box_area(b);
-    cur[j] = score;
-  }
-  __device__ float4 box(int j) const { return boxes[j]; }
-};
-
-template <typename Store>
-__device__ void soft_nms_scan(Store st, const float4* __restrict__ boxes,
-                              const float* __restrict__ scores, int k,
-                              int steps, float thr, float sigma,
-                              float min_score, int gaussian,
-                              int64_t* __restrict__ out_idx,
-                              float* __restrict__ out_score) {
-  __shared__ float warp_val[kWarps];
-  __shared__ int warp_idx[kWarps];
-  __shared__ int sel;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int j = tid; j < k; j += kThreads) st.load(j, boxes[j], scores[j]);
-  __syncthreads();
-
-  for (int step = 0; step < steps; ++step) {
-    // 1. block-wide argmax, lowest index on ties
-    float bv = -CUDART_INF_F;
-    int bi = k;  // loses every tie against a real index
-    for (int j = tid; j < k; j += kThreads) {
-      const float c = st.cur[j];
-      if (better(c, j, bv, bi)) {
-        bv = c;
-        bi = j;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      warp_val[warp] = bv;
-      warp_idx[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = warp_val[lane];
-      bi = warp_idx[lane];
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (lane == 0) {
-        sel = bi;
-        // 2. emit the selection with its current score
-        out_idx[step] = bi;
-        out_score[step] = st.cur[bi];
-      }
-    }
-    __syncthreads();
-
-    // 3-5. decay, drop below min_score, consume the selection
-    const int i = sel;
-    const float4 bi4 = st.box(i);
-    const float ia = st.area[i];
-    for (int j = tid; j < k; j += kThreads) {
-      float c = st.cur[j];
-      if (c > -CUDART_INF_F) {
-        const float4 bj = st.box(j);
-        const float iw =
-            fmaxf(__fsub_rn(fminf(bi4.z, bj.z), fmaxf(bi4.x, bj.x)), 0.f);
-        const float ih =
-            fmaxf(__fsub_rn(fminf(bi4.w, bj.w), fmaxf(bi4.y, bj.y)), 0.f);
-        const float ov = __fmul_rn(iw, ih);
-        const float uni =
-            fmaxf(__fsub_rn(__fadd_rn(ia, st.area[j]), ov), 1e-6f);
-        const float iou = __fdiv_rn(ov, uni);
-        float w;
-        if (gaussian)
-          w = expf(__fdiv_rn(-__fmul_rn(iou, iou), sigma));
-        else
-          w = iou > thr ? __fsub_rn(1.f, iou) : 1.f;
-        c = __fmul_rn(c, w);
-      }
-      if (c < min_score || j == i) c = -CUDART_INF_F;
-      st.cur[j] = c;
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ float decay_weight(float iou, float thr,
+                                              float sigma, int gaussian) {
+  if (gaussian) return expf(__fdiv_rn(-__fmul_rn(iou, iou), sigma));
+  return iou > thr ? __fsub_rn(1.f, iou) : 1.f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int PER>
+__global__ void __launch_bounds__(kThreads, 1)
 soft_nms_kernel(const float4* __restrict__ boxes,
-                const float* __restrict__ scores, int k, int steps, float thr,
-                float sigma, float min_score, int gaussian,
-                int64_t* __restrict__ out_idx,
+                const float* __restrict__ scores, int k, int slice, int cs,
+                int steps, float thr, float sigma, float min_score,
+                int gaussian, int64_t* __restrict__ out_idx,
                 float* __restrict__ out_score) {
-  extern __shared__ float smem[];
-  const size_t b = blockIdx.x;
-  soft_nms_scan(SharedStore(smem, k), boxes + b * k, scores + b * k, k,
-                steps, thr, sigma, min_score, gaussian, out_idx + b * steps,
-                out_score + b * steps);
+  extern __shared__ float4 smem[];
+  __shared__ int warp_count[kWarps];
+  __shared__ unsigned long long word[3];
+  __shared__ unsigned long long best_of[2 * kMaxCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cs > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const size_t img = blockIdx.x / cs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4* box = smem;
+  float* area = reinterpret_cast<float*>(box + slice);
+  uint16_t* off = reinterpret_cast<uint16_t*>(area + slice);
+  const float4* bx = boxes + img * k;
+  const float* sc = scores + img * k;
+  const int lo = rank * slice;
+  const int hi = min(k, lo + slice);
+  if (tid == 0) word[0] = word[1] = word[2] = 0ull;
+  if (tid < 2 * kMaxCluster) best_of[tid] = 0ull;
+
+  // compact the live slots of [lo, hi) in index order
+  int n = 0;
+  for (int base = lo; base < hi; base += kThreads) {
+    const int j = base + tid;
+    const bool live = j < hi && sc[j] > -CUDART_INF_F;
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) warp_count[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll 8
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = warp_count[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+    if (live)
+      off[n + before + __popc(m & ((1u << lane) - 1u))] =
+          static_cast<uint16_t>(j - lo);
+    n += total;
+    __syncthreads();
+  }
+  // a few candidates a thread keep their boxes in registers too
+  constexpr bool kRegs = PER <= kRegBoxesPer;
+  float cur[PER];
+  float4 rbox[kRegs ? PER : 1];
+  float rarea[kRegs ? PER : 1];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int p = tid + i * kThreads;
+    cur[i] = -CUDART_INF_F;
+    float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < n) {
+      const int j = lo + off[p];
+      b = bx[j];
+      box[p] = b;
+      area[p] = box_area(b);
+      cur[i] = sc[j];
+    }
+    if constexpr (kRegs) {
+      rbox[i] = b;
+      rarea[i] = box_area(b);
+    }
+  }
+  if (cs > 1)
+    cluster.sync();  // every block's planes, words and slots are set
+  else
+    __syncthreads();
+
+  const float w0 = decay_weight(0.f, thr, sigma, gaussian);
+  const int key0 = rank << 16;
+  int wkey = -1;  // the previous step's winner
+  float4 wbox = make_float4(0.f, 0.f, 0.f, 0.f);
+  float warea = 0.f;
+  for (int step = 0; step < steps; ++step) {
+    // decay by the previous winner, drop, consume; the thread's best
+    float bv = -CUDART_INF_F;
+    int bkey = kNoKey;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int p = tid + i * kThreads;
+      float c = cur[i];
+      if (step > 0 && c > -CUDART_INF_F) {
+        if (key0 + p == wkey) {
+          c = -CUDART_INF_F;
+        } else {
+          const float4 bj = kRegs ? rbox[kRegs ? i : 0] : box[p];
+          const float iw = fmaxf(
+              __fsub_rn(fminf(wbox.z, bj.z), fmaxf(wbox.x, bj.x)), 0.f);
+          const float ih = fmaxf(
+              __fsub_rn(fminf(wbox.w, bj.w), fmaxf(wbox.y, bj.y)), 0.f);
+          const float ov = __fmul_rn(iw, ih);
+          float w = w0;
+          if (ov != 0.f) {
+            const float aj = kRegs ? rarea[kRegs ? i : 0] : area[p];
+            const float uni = fmaxf(__fsub_rn(__fadd_rn(warea, aj), ov),
+                                    1e-6f);
+            w = decay_weight(__fdiv_rn(ov, uni), thr, sigma, gaussian);
+          }
+          c = __fmul_rn(c, w);
+          if (c < min_score) c = -CUDART_INF_F;
+        }
+        cur[i] = c;
+      }
+      if (c > bv) {  // slots in index order: the lowest one keeps a tie
+        bv = c;
+        bkey = key0 + p;
+      }
+    }
+    // the warp's best value: each tied lane folds it into the block's word
+    const unsigned o = order_key(bv);
+    const unsigned best = __reduce_max_sync(0xffffffffu, o);
+    unsigned long long* w = word + step % 3;
+    if (tid == 0) word[(step + 1) % 3] = 0ull;
+    if (o == best && bkey != kNoKey) atomicMax(w, pack_best(bv, bkey));
+    __syncthreads();
+    unsigned long long win = *w;
+    if (cs > 1) {
+      // lane r of warp 0 stores the block's word, tagged with the step, in
+      // block r's slot for this block (DSMEM); every thread polls its own
+      // slots until each holds this step's word, and takes the largest
+      unsigned long long* got = best_of + (step & 1) * kMaxCluster;
+      const unsigned long long tag =
+          static_cast<unsigned long long>((step + 1) & kTagMask) << kTagShift;
+      if (tid < cs) *cluster.map_shared_rank(got + rank, tid) = win | tag;
+      win = 0ull;
+      for (int r = 0; r < cs; ++r) {
+        unsigned long long v;
+        do {
+          v = *reinterpret_cast<volatile unsigned long long*>(got + r);
+        } while ((v & (kTagMask << kTagShift)) != tag);
+        win = max(win, v & ~(kTagMask << kTagShift));
+      }
+    }
+    if (win == 0ull) {  // nothing live: (0, -inf) from here on
+      if (rank == 0)
+        for (int s = step + tid; s < steps; s += kThreads) {
+          out_idx[img * steps + s] = 0;
+          out_score[img * steps + s] = -CUDART_INF_F;
+        }
+      break;
+    }
+    wkey = kMaxKey - static_cast<int>((win & 0xffffffffu) >> 1);
+    const int owner = wkey >> 16, p = wkey & 0xffff;
+    if (owner == rank) {
+      wbox = box[p];
+      warea = area[p];
+    } else {
+      wbox = cluster.map_shared_rank(box, owner)[p];
+      warea = cluster.map_shared_rank(area, owner)[p];
+    }
+    if (rank == 0 && tid == 0) {
+      float v = order_value(static_cast<unsigned>(win >> 32));
+      if (v == 0.f && (win & 1ull)) v = -0.f;
+      const int at =
+          owner == 0 ? off[p] : cluster.map_shared_rank(off, owner)[p];
+      out_idx[img * steps + step] = owner * slice + at;
+      out_score[img * steps + step] = v;
+    }
+  }
+  if (cs > 1) cluster.sync();  // no block leaves while a peer may read
 }
 
-__global__ void __launch_bounds__(kThreads)
-soft_nms_global_kernel(const float4* __restrict__ boxes,
-                       const float* __restrict__ scores, float* scratch,
-                       int k, int steps, float thr, float sigma,
-                       float min_score, int gaussian,
-                       int64_t* __restrict__ out_idx,
-                       float* __restrict__ out_score) {
-  const size_t b = blockIdx.x;
-  soft_nms_scan(GlobalStore(boxes + b * k, scratch + 2 * b * k, k),
-                boxes + b * k, scores + b * k, k, steps, thr, sigma,
-                min_score, gaussian, out_idx + b * steps,
-                out_score + b * steps);
+template <int PER>
+int launch(const float4* bx, const float* sc, int64_t* oi, float* os,
+           int batch, int k, int cs, int slice, int steps, float thr,
+           float sigma, float min_score, int gaussian, cudaStream_t s) {
+  const size_t smem = (static_cast<size_t>(slice) * kBytesPer + 15) & ~15;
+  cudaError_t err = cudaFuncSetAttribute(
+      soft_nms_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(batch * cs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, soft_nms_kernel<PER>, bx, sc, k, slice, cs,
+                           steps, thr, sigma, min_score, gaussian, oi, os);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// shared memory the kernels declare statically (warp winners, selection)
-constexpr int kStaticBytes = kWarps * 8 + 4;
-
-// The most candidates one block holds in shared memory; above it the
-// wrapper passes a scratch and the global variant runs.
-extern "C" int erd_soft_nms_max_k() {
+// The candidates one block holds when an image is a cluster of cs blocks
+// (1, 2, 4 or 8): its shared memory over 22 B, at most kMaxPer a thread.
+// 0 when the device cannot be queried.
+extern "C" int erd_soft_nms_capacity(int cs) {
   int dev = 0, optin = 0;
+  if (cs < 1 || cs > kMaxCluster) return 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return 0;
-  return (optin - kStaticBytes) / static_cast<int>(6 * sizeof(float));
+  return min((optin - kStaticReserve) / kBytesPer, kMaxPer * kThreads);
 }
 
+// The threads of a block; the per-thread counts the kernel is compiled for
+// are 1, 2, 3, 4, 6, 8 and 11 times 1024 / threads.
+extern "C" int erd_soft_nms_threads() { return kThreads; }
+
 // boxes (B, K, 4) fp32, class-shifted; scores (B, K) fp32, -inf for
-// invalid entries; scratch null (shared variant, K <= erd_soft_nms_max_k())
-// or (B, 2, K) fp32 (global variant, any K); out_idx (B, steps) int64 and
-// out_score (B, steps) fp32, steps = min(max_out, K). gaussian: 0 linear,
-// 1 gaussian. Returns cudaGetLastError() after the launch.
+// invalid entries; out_idx (B, steps) int64 and out_score (B, steps) fp32,
+// steps = min(max_out, K). An image is a cluster of cs blocks (1, 2, 4 or
+// 8), each taking `slice` slots (slice <= erd_soft_nms_capacity(cs)) with
+// `per` of them a thread (per * threads >= slice; per is one of the
+// compiled counts, erd_soft_nms_threads()). gaussian: 0 linear, 1
+// gaussian. Returns cudaGetLastError() after the launch.
 extern "C" int erd_soft_nms(const void* boxes, const void* scores,
-                            void* scratch, void* out_idx, void* out_score,
-                            int batch, int k, int steps, float thr,
+                            void* out_idx, void* out_score, int batch, int k,
+                            int cs, int slice, int per, int steps, float thr,
                             float sigma, float min_score, int gaussian,
                             void* stream) {
   if (batch <= 0 || k <= 0 || steps <= 0) return 0;
+  if (cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) != 0 ||
+      static_cast<long long>(slice) * cs < k ||
+      static_cast<long long>(per) * kThreads < slice ||
+      slice > erd_soft_nms_capacity(cs))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* bx = static_cast<const float4*>(boxes);
   const float* sc = static_cast<const float*>(scores);
   int64_t* oi = static_cast<int64_t*>(out_idx);
   float* os = static_cast<float*>(out_score);
-  if (scratch != nullptr) {
-    soft_nms_global_kernel<<<batch, kThreads, 0, s>>>(
-        bx, sc, static_cast<float*>(scratch), k, steps, thr, sigma,
-        min_score, gaussian, oi, os);
-    return static_cast<int>(cudaGetLastError());
+#define ERD_SOFT_NMS_CASE(P)                                                \
+  case P:                                                                   \
+    return launch<P>(bx, sc, oi, os, batch, k, cs, slice, steps, thr, sigma, \
+                     min_score, gaussian, s);
+  switch (per) {
+    ERD_SOFT_NMS_CASE(1 * kScale)
+    ERD_SOFT_NMS_CASE(2 * kScale)
+    ERD_SOFT_NMS_CASE(3 * kScale)
+    ERD_SOFT_NMS_CASE(4 * kScale)
+    ERD_SOFT_NMS_CASE(6 * kScale)
+    ERD_SOFT_NMS_CASE(8 * kScale)
+    ERD_SOFT_NMS_CASE(11 * kScale)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 6 * sizeof(float) * static_cast<size_t>(k);
-  if (smem + kStaticBytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        soft_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  soft_nms_kernel<<<batch, kThreads, smem, s>>>(bx, sc, k, steps, thr, sigma,
-                                                min_score, gaussian, oi, os);
-  return static_cast<int>(cudaGetLastError());
+#undef ERD_SOFT_NMS_CASE
 }
 
 extern "C" const char* erd_cuda_error_string(int err) {

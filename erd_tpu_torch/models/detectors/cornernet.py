@@ -11,8 +11,8 @@ as ``lax.top_k``), the dense K x K grid of (top-left i, bottom-right j)
 pairs scored by the mean of the two scores and kept where the classes
 match, the box is not inverted and |emb_i - emb_j| <= distance_threshold,
 ``score_thr``, the boxes scaled to the image, and gaussian soft-NMS
-(sigma 0.5) over the K^2 = 10000 pairs (the soft-NMS kernel's
-device-memory variant). ``predict`` computes the first stack's features
+(sigma 0.5) over the K^2 = 10000 pairs (the soft-NMS kernel, a
+cluster of 4 blocks). ``predict`` computes the first stack's features
 but not its pools and heads, which only training reads (erd_tpu's jitted
 predict drops them the same way); ``forward_raw`` returns both stacks.
 

@@ -10,17 +10,21 @@ corner pixel itself the sub-pixel offset and an offset weight of 1, the
 last valid gt at a pixel writing them (erd_tpu's ``fori_loop`` of
 ``jnp.where`` overwrites). The per-gt scalars (scaled corners, their
 integer pixels by truncation, the box size by ``ceil``, the radius in
-float32 in erd_tpu's order, sigma's denominator) come from the same torch
-code on either path (erd_tpu's values as its jitted loss computes them);
-the dense maps come from ``render_corner_targets_plain``
-(CPU tensors) or the kernel ``csrc/corner_targets.cu`` (CUDA tensors, one
-launch for the batch, counted in ``render_corner_targets.launches``).
+float32 in erd_tpu's order, sigma's denominator) are erd_tpu's values as
+its jitted loss computes them. CPU tensors take ``corner_scalars`` and
+``render_corner_targets_plain``; CUDA tensors take the kernel
+``csrc/corner_targets.cu``, which computes the same scalars in the same
+float32 order from ``radius_consts`` and writes every output once (one
+launch for the batch and nothing before it on the card, counted in
+``render_corner_targets.launches``).
 Layout: the port's NCHW, heatmaps (B, C, H, W), offsets (B, 2, H, W),
 weights (B, 1, H, W), and the corner pixels (B, G, 2) as (x, y).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -66,6 +70,31 @@ def gaussian_radius(h, w, min_overlap=0.3):
     c3 = (w * (min_overlap - 1)) * h
     r3 = (-b3 + sqrt0(b3 * b3 - c3 * (4 * (4 * min_overlap)))) * k3
     return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+def radius_consts(min_overlap=0.3):
+    """The float32 constants of ``gaussian_radius`` and of sigma's
+    denominator as the kernel takes them, each the float32 value of the
+    factor a float32 tensor is multiplied by (or the sum's term) in
+    ``gaussian_radius`` and ``corner_scalars``: k1, 1 - m, -2 m, m - 1,
+    4 (4 m), k3, 2 f32(1 / 6)^2, 1e-12."""
+    sixth = _f32(1 / 6)
+    return (_f32(_f32(1 - min_overlap) / _f32(1 + min_overlap)) * 4,
+            _f32(1 - min_overlap), _f32(-2 * min_overlap),
+            _f32(min_overlap - 1), _f32(4 * (4 * min_overlap)),
+            _f32(1 / _f32(2 * _f32(4 * min_overlap))),
+            _f32(2 * sixth * sixth), _f32(1e-12))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_consts(min_overlap):
+    """``radius_consts`` as the kernel takes them (a ctypes float array)."""
+    return (ctypes.c_float * 8)(*radius_consts(min_overlap))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_ratio(rx, ry):
+    return _f32(rx), _f32(ry)
 
 
 def corner_scalars(gt_bboxes, gt_labels, gt_mask, feat_hw, num_classes,
@@ -155,7 +184,9 @@ def render_corner_targets(gt_bboxes, gt_labels, gt_mask, feat_hw,
     Returns dict(tl_heat, br_heat (B, C, H, W), tl_off, br_off (B, 2, H, W),
     tl_w, br_w (B, 1, H, W) float32, tl_xy, br_xy (B, G, 2) int64 (x, y)).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the tensors as given (float32 boxes, int32 or int64 labels, a bool
+    mask; other dtypes are converted first) into ``torch.empty`` outputs.
     """
     if gt_bboxes.dim() != 3 or gt_bboxes.shape[-1] != 4 or \
             gt_labels.shape != gt_bboxes.shape[:2] or \
@@ -164,43 +195,57 @@ def render_corner_targets(gt_bboxes, gt_labels, gt_mask, feat_hw,
                          f'labels and mask (B, G) expected, got '
                          f'{tuple(gt_bboxes.shape)}, {tuple(gt_labels.shape)}'
                          f', {tuple(gt_mask.shape)}')
-    sc = corner_scalars(gt_bboxes, gt_labels, gt_mask, feat_hw, num_classes,
-                        ratio, min_overlap)
-    xy = {f'{c}_xy': torch.stack([sc[f'{c}_x'], sc[f'{c}_y']], -1)
-          for c in ('tl', 'br')}
     dev = gt_bboxes.device
     if dev.type == 'cpu':
+        sc = corner_scalars(gt_bboxes, gt_labels, gt_mask, feat_hw,
+                            num_classes, ratio, min_overlap)
         return dict(render_corner_targets_plain(sc, feat_hw, num_classes),
-                    **xy)
+                    **{f'{c}_xy': torch.stack([sc[f'{c}_x'], sc[f'{c}_y']],
+                                              -1) for c in ('tl', 'br')})
     if dev.type != 'cuda':
         raise RuntimeError(f'render_corner_targets: no kernel for {dev}')
+    if gt_labels.device != dev or gt_mask.device != dev:
+        raise ValueError('render_corner_targets: all tensors must be on one '
+                         'device')
+    # the kernel reads the path's float32 boxes, int32 / int64 labels and
+    # bool mask where they lie; anything else is converted first
+    boxes = gt_bboxes if gt_bboxes.dtype == torch.float32 else \
+        gt_bboxes.float()
+    labels = gt_labels if gt_labels.dtype in (torch.int32, torch.int64) \
+        else gt_labels.long()
+    mask = gt_mask if gt_mask.dtype == torch.bool else gt_mask.bool()
+    boxes, labels, mask = (t.contiguous() for t in (boxes, labels, mask))
     fh, fw = feat_hw
     b, g = gt_mask.shape
-    ints = torch.stack([sc[k].long() for k in (
-        'tl_x', 'tl_y', 'br_x', 'br_y', 'radius', 'label', 'valid')],
-        -1).to(torch.int32).contiguous()                       # (B, G, 7)
-    floats = torch.cat([sc['tl_off'], sc['br_off'], sc['denom'][..., None]],
-                       -1).contiguous()                        # (B, G, 5)
-    out = {f'{c}_heat': torch.zeros((b, num_classes, fh, fw), device=dev)
-           for c in ('tl', 'br')}
-    out.update({f'{c}_off': torch.zeros((b, 2, fh, fw), device=dev)
-                for c in ('tl', 'br')})
-    out.update({f'{c}_w': torch.zeros((b, 1, fh, fw), device=dev)
-                for c in ('tl', 'br')})
+    # one buffer for the float32 maps and one for the corner pixels, each
+    # output a view of them (fewer allocations: the call is host-bound)
+    names = ('tl_heat', 'br_heat', 'tl_off', 'br_off', 'tl_w', 'br_w')
+    shapes = [(b, num_classes, fh, fw)] * 2 + [(b, 2, fh, fw)] * 2 + \
+        [(b, 1, fh, fw)] * 2
+    maps = torch.empty(2 * b * (num_classes + 3) * fh * fw, device=dev)
+    out = {k: v.view(shape) for k, v, shape in zip(
+        names, maps.split([b * s[1] * fh * fw for s in shapes]), shapes)}
+    xy = torch.empty((2, b, g, 2), dtype=torch.int64, device=dev)
+    out.update(tl_xy=xy[0], br_xy=xy[1])
     lib = cuda_build.load('corner_targets')
     fn = lib.erd_render_corner_targets
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ints.data_ptr(), floats.data_ptr(),
-                 *[out[k].data_ptr() for k in ('tl_heat', 'br_heat', 'tl_off',
-                                               'br_off', 'tl_w', 'br_w')],
-                 b, g, num_classes, fh, fw, stream)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
+            + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
+            [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    ptrs = (ctypes.c_void_p * 8)(*[out[k].data_ptr() for k in names],
+                                 xy[0].data_ptr(), xy[1].data_ptr())
+    rx, ry = _kernel_ratio(*ratio)
+    with contextlib.ExitStack() as ctx:
+        if dev.index is not None and dev.index != torch.cuda.current_device():
+            ctx.enter_context(torch.cuda.device(dev))
+        err = fn(boxes.data_ptr(), labels.data_ptr(), mask.data_ptr(),
+                 labels.element_size(), ptrs, b, g, num_classes, fh, fw, rx,
+                 ry, _kernel_consts(min_overlap),
+                 torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, 'render_corner_targets')
     render_corner_targets.launches += 1
-    out.update(xy)
     return out
 
 

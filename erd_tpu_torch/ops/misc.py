@@ -1,11 +1,12 @@
 """Fixed-shape selection helpers for dense-head post-processing; the
 counterpart of erd_tpu/ops/misc.py.
 
-Top-k is a stable descending sort cut to k: ``lax.top_k`` returns equal
-values lowest index first, and ``torch.topk`` promises no order for ties.
-The order matters: when fewer than k entries pass the threshold, the -inf
-ties decide which rows fill the invalid slots, and those rows still feed the
-class offset of the batched NMS.
+Top-k is a stable descending sort cut to k, in ``lax.top_k``'s order:
+floats in IEEE totalOrder (NaN first, +0 before -0), equal values lowest
+index first; ``torch.topk`` promises no order for ties. The order matters:
+when fewer than k entries pass the threshold, the -inf ties decide which
+rows fill the invalid slots, and those rows still feed the class offset of
+the batched NMS.
 """
 from __future__ import annotations
 
@@ -15,9 +16,16 @@ NEG_INF = float('-inf')
 
 
 def topk_stable(values, k):
-    """Top-k along the last dim, ties lowest index first (lax.top_k)."""
-    top, idx = torch.sort(values, dim=-1, descending=True, stable=True)
-    return top[..., :k], idx[..., :k]
+    """Top-k along the last dim in ``lax.top_k``'s order: floats ranked in
+    IEEE totalOrder (NaN first, +0 before -0; bf16 and half keyed through
+    their exact float32 values), integers as they are, ties lowest index
+    first. Returns (values (..., k), idx (..., k) int64)."""
+    key = values
+    if values.is_floating_point():
+        key = total_order_key(values if values.dtype == torch.float64
+                              else values.float())
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(values, -1, idx), idx
 
 
 def take_rows(a, idx):
@@ -63,10 +71,11 @@ def cap_candidates(scores, valid, k, *arrays):
 
 
 def total_order_key(x):
-    """int64 keys of float32 / float64 ``x`` in IEEE totalOrder (-0 before
-    +0), the order in which ``lax.top_k`` ranks floats."""
+    """Integer keys of float32 / float64 ``x`` in IEEE totalOrder (-0 before
+    +0), the order in which ``lax.top_k`` ranks floats: int32 keys for
+    float32 (a 4-byte sort, as the values' own), int64 for float64."""
     bits = {torch.float32: torch.int32, torch.float64: torch.int64}[x.dtype]
-    i = x.contiguous().view(bits).to(torch.int64)
+    i = x.contiguous().view(bits)
     return torch.where(i < 0, -(i & torch.iinfo(bits).max) - 1, i)
 
 

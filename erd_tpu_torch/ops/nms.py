@@ -332,6 +332,81 @@ def soft_nms_plain(sboxes, scores, steps, iou_threshold, sigma, min_score,
     return torch.cat(idx, dim=-1), torch.cat(sel, dim=-1)
 
 
+# soft-NMS's launch plan: the candidates a thread holds (the kernel's
+# compiled counts, for 1024 threads a block; times 1024 / threads for
+# fewer), the cluster sizes an image may take (portable: at most 8), and
+# the slice a block takes at most where a larger cluster can take K: an
+# empty step of a cluster of 2 / 4 costs ~0.2 / ~0.35 us more than a
+# block's, which a block's pass over more than ~3000 candidates loses
+# (the probe's part 11a at K = 2000, 10000 and 12000)
+SOFT_NMS_PER_THREAD = (1, 2, 3, 4, 6, 8, 11)
+SOFT_NMS_CLUSTERS = (1, 2, 4, 8)
+SOFT_NMS_SLICE = 3072
+_SOFT_NMS_LIMITS = {}
+
+
+def soft_nms_plan(k, capacity, threads=1024, clusters=SOFT_NMS_CLUSTERS):
+    """(cluster size, slice, per-thread count) of the soft-NMS kernel for K
+    candidates an image: the smallest cluster of ``clusters`` whose blocks
+    each hold a slice of ceil(K / size) candidates, where
+    ``capacity[size]`` is what one block holds in a cluster of that size,
+    and whose slice is at most ``SOFT_NMS_SLICE`` (the largest cluster
+    takes any slice it holds); and the smallest compiled per-thread count
+    that covers the slice with ``threads`` threads a block. Raises above
+    the largest cluster's capacity."""
+    counts = [p * (1024 // threads) for p in SOFT_NMS_PER_THREAD]
+    for cs in clusters:
+        s = -(-k // cs)
+        if s <= capacity[cs] and (s <= SOFT_NMS_SLICE or
+                                  cs == clusters[-1]):
+            per = next((p for p in counts if p * threads >= s), None)
+            if per is not None:
+                return cs, s, per
+    most = clusters[-1]
+    raise ValueError(f'soft_nms: K={k} exceeds a cluster of {most} blocks '
+                     f'({most * capacity[most]} candidates)')
+
+
+def soft_nms_limits(lib, device):
+    """(threads a block, {cluster size: candidates a block holds}) of the
+    soft-NMS library ``lib`` on ``device`` (cached by library and
+    device)."""
+    key = (lib._name, str(device))
+    if key not in _SOFT_NMS_LIMITS:
+        lib.erd_soft_nms_capacity.argtypes = [ctypes.c_int]
+        lib.erd_soft_nms_capacity.restype = ctypes.c_int
+        lib.erd_soft_nms_threads.restype = ctypes.c_int
+        lib.erd_soft_nms.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + \
+            [ctypes.c_int, ctypes.c_void_p]
+        lib.erd_soft_nms.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            _SOFT_NMS_LIMITS[key] = (lib.erd_soft_nms_threads(), {
+                cs: lib.erd_soft_nms_capacity(cs) for cs in SOFT_NMS_CLUSTERS})
+    return _SOFT_NMS_LIMITS[key]
+
+
+def soft_nms_launch(lib, sboxes, scores, steps, iou_threshold, sigma,
+                    min_score, method, plan=None):
+    """One launch of ``lib``'s ``erd_soft_nms`` on checked CUDA tensors,
+    by ``plan`` (default: ``soft_nms_plan`` from the library's limits);
+    returns (idx, score)."""
+    b, k = scores.shape
+    threads, capacity = soft_nms_limits(lib, sboxes.device)
+    cs, slice_, per = plan or soft_nms_plan(max(k, 1), capacity, threads)
+    idx = torch.empty((b, steps), dtype=torch.int64, device=sboxes.device)
+    sel = torch.empty((b, steps), dtype=torch.float32, device=sboxes.device)
+    with torch.cuda.device(sboxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.erd_soft_nms(
+            sboxes.data_ptr(), scores.data_ptr(), idx.data_ptr(),
+            sel.data_ptr(), b, k, cs, slice_, per, steps,
+            float(iou_threshold), float(sigma), float(min_score),
+            int(method == 'gaussian'), stream)
+    cuda_build.check(lib, err, 'soft_nms')
+    return idx, sel
+
+
 def soft_nms(sboxes, scores, steps, iou_threshold=0.3, sigma=0.5,
              min_score=1e-3, method='linear'):
     """The first ``steps`` selections of the soft-NMS scan.
@@ -346,9 +421,10 @@ def soft_nms(sboxes, scores, steps, iou_threshold=0.3, sigma=0.5,
     entry of each step and its decayed score at selection.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    launch for the batch, counted in ``soft_nms.launches``), which holds
-    up to ``erd_soft_nms_max_k()`` candidates in shared memory and any
-    larger K in a device-memory scratch.
+    launch for the batch, counted in ``soft_nms.launches``): an image is a
+    block, or a thread-block cluster of up to 8 blocks where K exceeds 3072
+    candidates a block or one block's shared memory (``soft_nms_plan``);
+    past 8 blocks' shared memory it raises.
     """
     if method not in _SOFT_METHODS:
         raise ValueError(f'soft-NMS method must be one of {_SOFT_METHODS}')
@@ -371,27 +447,9 @@ def soft_nms(sboxes, scores, steps, iou_threshold=0.3, sigma=0.5,
         raise TypeError('soft_nms: sboxes and scores must be float32')
     if not (sboxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError('soft_nms: tensors must be contiguous')
-    lib = cuda_build.load('soft_nms')
-    lib.erd_soft_nms_max_k.restype = ctypes.c_int
-    with torch.cuda.device(sboxes.device):
-        # above one block's shared memory, the scores and areas go to a
-        # (B, 2, K) scratch in device memory
-        scratch = None if k <= lib.erd_soft_nms_max_k() else torch.empty(
-            (b, 2, k), dtype=torch.float32, device=sboxes.device)
-        idx = torch.empty((b, steps), dtype=torch.int64, device=sboxes.device)
-        sel = torch.empty((b, steps), dtype=torch.float32,
-                          device=sboxes.device)
-        fn = lib.erd_soft_nms
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-            [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(sboxes.data_ptr(), scores.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
-                 idx.data_ptr(), sel.data_ptr(), b, k, steps,
-                 float(iou_threshold), float(sigma), float(min_score),
-                 int(method == 'gaussian'), stream)
-    cuda_build.check(lib, err, 'soft_nms')
+    idx, sel = soft_nms_launch(cuda_build.load('soft_nms'), sboxes, scores,
+                               steps, iou_threshold, sigma, min_score,
+                               method)
     soft_nms.launches += 1
     return idx, sel
 

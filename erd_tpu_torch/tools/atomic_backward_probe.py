@@ -5,10 +5,11 @@ attention backward and forward (kernels 9b and 9), the RoIAlign backward
 (7b) and forward (row 7), the NMS keep kernel (row 1, with set-NMS, 11b),
 the CARAFE backward (10b) and forward (row 10), the point-sample backward
 (13a-b), the fused GFL loss (row 3), ATSS (row 6), the fused ERD
-distillation (row 4), the ERS selection (row 5), and the call times of
-the corner-pool backward (12a-b). Run from the repository root:
+distillation (row 4), the ERS selection (row 5), the soft-NMS scan (11a),
+the CornerNet corner targets (row 15), and the call times of the
+corner-pool backward (12a-b). Run from the repository root:
 
-    python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 9,7b]
+    python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 11a,15]
 
 The calls are those of one bs-16, 800x1344 bf16 training step, captured as
 ``chip_smoke.py``'s train-kernel phases capture them (seeded networks,
@@ -122,9 +123,27 @@ conv_offset and sampling weights arranged):
    the bound, the list and masks against plain, and the ``ERS_PARTS``
    variants (``probe_ers``).
 
+14. 11a, the soft-NMS scan, at the calls of ``soft_nms_calls`` (Faster
+   R-CNN soft's K = 2000 linear call of one 800x1333 request, CornerNet's
+   K = 10000 gaussian call of one 768x1024 request, ``chip_smoke.py``'s
+   large-K case): graph replays, events, the profiler, the live
+   candidates, the step from which nothing is live, the candidates a
+   step's winner overlaps, the plan, plain, the bound, the selections
+   against plain; the redesign with each cluster size forced and the
+   ``SOFT_NMS_PARTS`` variants (blocks of 1024, 256 and 128 threads); and
+   the latency floor (``probe_soft_nms_floor``, also part 11a-floor on
+   its own, model-free): the steps emptied, from edited copies
+   (``chip_smoke.SOFT_NMS_FLOOR_EDITS``, with each variant and each of
+   ``SOFT_NMS_FLOOR_PARTS``), on no path.
+15. 15, the corner targets at one bs-6 CornerNet step's call: graph
+   replays, the eager call by events, the device operations by the
+   profiler (the kernel, the zero-fills, the rest), plain, the bound, the
+   outputs against plain.
+
 A variant whose edits do not fit the source (another design's) is "not
 measured". ``--only 9,7b`` runs the named parts alone, in that order (the
-parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, 3, 6, 4, 5, others).
+parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, 3, 6, 4, 5, 11a, 11a-floor,
+15, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -2176,12 +2195,350 @@ def probe_ers(smoke, report):
     torch.cuda.empty_cache()
 
 # the probe's parts, by the kernel rows of PERF.md
+def soft_nms_calls(smoke):
+    """{name: the 7 arguments of ``soft_nms``} at the calls part 11a times:
+    Faster R-CNN soft's call of one 800x1333 request (K = 2000, linear;
+    ``chip_smoke.py``'s fc_cls arrangement), CornerNet's call of one
+    768x1024 request (K = 10000, gaussian; heads arranged) and
+    ``chip_smoke.soft_nms_large_k_case`` (K = 12000, linear)."""
+    import numpy as np
+
+    from erd_tpu_torch.apis import build_detector, init_detector
+    from erd_tpu_torch.config import Config
+    nms_module = importlib.import_module('erd_tpu_torch.ops.nms')
+    out = {}
+    det, net, _ = init_detector(smoke.FRCNN_CONFIGS['nms'], device=smoke.DEV)
+    batch, _ = smoke.request_batch(np, torch, smoke.REQUESTS[-1])
+    smoke.arrange_fc_cls(torch, det, net, batch)
+    det.test_cfg = build_detector(Config.fromfile(
+        smoke.FRCNN_CONFIGS['soft_nms']).model).test_cfg
+    for name in ('frcnn K=2000 linear', 'cornernet K=10000 gaussian'):
+        if name.startswith('cornernet'):  # its heads arranged first
+            det, net, batch = smoke.cornernet_net(np, torch)
+        calls = []
+        undo = smoke.capture(nms_module, 'soft_nms', calls)
+        try:
+            det.predict(net, batch)
+        finally:
+            undo()
+        out[name] = calls[0][:7]
+        del det, net, batch, calls
+        torch.cuda.empty_cache()
+    sboxes, scores = smoke.soft_nms_large_k_case(np, torch)
+    out['large K=12000 linear'] = (sboxes, scores, 100, 0.5, 0.5, 1e-3,
+                                   'linear')
+    return out
+
+
+# edits of csrc/soft_nms.cu for part 11a: blocks of 1024, 256 and 128
+# threads (the per-thread counts scale with them)
+SOFT_NMS_PARTS = {
+    f'threads_{t}': ({'constexpr int kThreads = 512;':
+                      f'constexpr int kThreads = {t};'},)
+    for t in (1024, 256, 128)}
+# edits of the floor's source (on top of chip_smoke.SOFT_NMS_FLOOR_EDITS)
+# that take out one more part of a step: the block's barrier (the words
+# race), the warp's reduction (every lane folds its best in), the atomics
+# (fixed words stored)
+SOFT_NMS_FLOOR_PARTS = {
+    'no_barrier': {'    __syncthreads();\n    unsigned long long win = *w;':
+                   '    unsigned long long win = *w;'},
+    'no_warp_reduce': {
+        'const unsigned best = __reduce_max_sync(0xffffffffu, o);':
+        'const unsigned best = o;'},
+    'no_atomics': {
+        '    if (o == best && bkey != kNoKey) atomicMax(w, pack_best(bv, '
+        'bkey));': '    if (tid == 0) *w = pack_best(1.f, 0);'},
+}
+
+
+def floor_calls(smoke):
+    """Part 11a-floor's inputs, standing in for ``soft_nms_calls`` without
+    a model: ``chip_smoke.soft_nms_large_k_case`` cut to each call's K,
+    with its steps and method (an empty step reads no score)."""
+    import numpy as np
+    sboxes, scores = smoke.soft_nms_large_k_case(np, torch)
+    return {name: (sboxes[:, :k].contiguous(), scores[:, :k].contiguous(),
+                   100, 0.5, 0.5, 1e-3, method)
+            for name, k, method in (
+                ('frcnn K=2000 linear', 2000, 'linear'),
+                ('cornernet K=10000 gaussian', 10000, 'gaussian'),
+                ('large K=12000 linear', 12000, 'linear'))}
+
+
+def probe_soft_nms_floor(smoke, report, calls=None):
+    """Part 11a's latency floor: ``steps`` empty steps (the pass's decay
+    and the early exit taken out: shuffle trees, record writes and the
+    barrier only) at each call's K (``calls``, by default
+    ``floor_calls``), an image a block and a cluster of 2, 4 and 8
+    blocks, by graph replays; from an edited copy of ``csrc/soft_nms.cu``
+    (``chip_smoke.SOFT_NMS_FLOOR_EDITS``), on no path. Not measured where
+    the edits do not fit the source."""
+    calls = calls or floor_calls(smoke)
+    out = report.setdefault('11a', {})
+    variants = {'': {}}
+    variants.update({f' {v}': e for v, alts in SOFT_NMS_PARTS.items()
+                     for e in [fitting_edits('soft_nms', alts)] if e})
+    for threads in ('', ' threads_1024'):
+        if threads and threads not in variants:
+            continue
+        variants.update({f'{threads} {part}': {**variants[threads], **e}
+                         for part, e in SOFT_NMS_FLOOR_PARTS.items()})
+    for variant, edits in variants.items():
+        handle = smoke.start_soft_nms_floor_build(
+            {**edits, **smoke.SOFT_NMS_FLOOR_EDITS},
+            'floor' + variant.replace(' ', '_'))
+        floor = out.setdefault('floor' + variant, {})
+        if handle is None:
+            print(f'probe 11a floor{variant}: not measured (the edits do not '
+                  f'fit this csrc/soft_nms.cu)', flush=True)
+            continue
+        lib = smoke.soft_nms_floor_lib(handle)
+        for name, args in calls.items():
+            steps = args[2]
+            row = {cs: smoke.soft_nms_floor_ms(torch, lib, args, cs)
+                   for cs in (1, 2, 4, 8)}
+            # one step: the launch, the compaction and the loads
+            one = (args[0], args[1], 1) + tuple(args[3:])
+            row['one step, one block'] = smoke.soft_nms_floor_ms(torch, lib,
+                                                                 one, 1)
+            floor[name] = row
+            print(f'probe 11a floor{variant} {name}: {steps} empty steps, '
+                  f'graph ms by cluster size ' + ', '.join(
+                      f'{cs}: {fmt(ms)}' + (f' ({1e3 * ms / steps:.3f} us a '
+                                            f'step)' if ms else '')
+                      for cs, ms in row.items()), flush=True)
+
+
+def winner_overlaps(args, idx):
+    """The mean, over the steps that select, of the candidates live at load
+    (less those selected before) whose boxes overlap the step's winner's:
+    the decays a step can make (drops by min_score not taken off)."""
+    sboxes, scores = args[0][0], args[1][0]
+    steps = int((idx[0] > 0).sum()) or 1
+    win = sboxes[idx[0, :steps]]
+    iw = (torch.minimum(win[:, None, 2], sboxes[None, :, 2]) -
+          torch.maximum(win[:, None, 0], sboxes[None, :, 0])).clamp(min=0)
+    ih = (torch.minimum(win[:, None, 3], sboxes[None, :, 3]) -
+          torch.maximum(win[:, None, 1], sboxes[None, :, 1])).clamp(min=0)
+    live = (scores > float('-inf'))[None].expand(steps, -1).clone()
+    for s in range(steps):
+        live[s:, idx[0, s]] = False
+    return float(((iw * ih > 0) & live).sum(1).float().mean())
+
+
+def probe_soft_nms(smoke, report):
+    """Part 11a, the soft-NMS scan, at ``soft_nms_calls``: the call by
+    graph replays and events, the kernel by the profiler, the live
+    candidates an image, the step from which nothing is live (every
+    candidate consumed or dropped), the plan (cluster size, slice, a
+    thread's candidates) where the wrapper has one, selections and scores
+    against plain (linear bit-exact, gaussian 1e-6 relative), the plain
+    version's time, the bound (``chip_smoke.soft_nms_cost``), and the
+    latency floor (``probe_soft_nms_floor``)."""
+    from erd_tpu_torch.ops import cuda_build, soft_nms, soft_nms_plain
+    nms_module = importlib.import_module('erd_tpu_torch.ops.nms')
+    calls = soft_nms_calls(smoke)
+    out = report.setdefault('11a', {})
+    # the variants of this design (a parent's wrapper has no launch plan)
+    redesign = hasattr(nms_module, 'soft_nms_launch')
+    variants = {v: (edited_lib('soft_nms', v, e) if e and redesign else None)
+                for v, alts in SOFT_NMS_PARTS.items()
+                for e in [fitting_edits('soft_nms', alts)]}
+    for name, args in calls.items():
+        steps, method = args[2], args[6]
+        gi, gs = soft_nms(*args)
+        torch.cuda.synchronize()
+        wi, ws = soft_nms_plain(*args)
+        live, exhausted = smoke.soft_nms_stats(torch, args, gs)
+        on = ws > float('-inf')
+        rel = float(((gs - ws).abs() / ws.abs())[on].max()) \
+            if bool(on.any()) else 0.0
+        plan = None
+        if hasattr(nms_module, 'soft_nms_plan'):
+            threads, capacity = nms_module.soft_nms_limits(
+                cuda_build.load('soft_nms'), args[1].device)
+            plan = nms_module.soft_nms_plan(args[1].shape[1], capacity,
+                                            threads) + (threads,)
+        graph = smoke.graph_ms(torch, lambda: soft_nms(*args), 20)
+        events = smoke.events_ms(torch, lambda: soft_nms(*args), 20)
+        prof = device_ops_ms(lambda: soft_nms(*args),
+                             {'kernel': 'soft_nms'}, 10)['kernel']
+        plain = smoke.events_ms(torch, lambda: soft_nms_plain(*args), 2)
+        bms, by = smoke.bound_of(*smoke.soft_nms_cost(args, live, exhausted))
+        overlaps = winner_overlaps(args, gi)
+        out[name] = dict(
+            k=args[1].shape[1], steps=steps, method=method, live=live,
+            overlapping_the_winner=overlaps,
+            nothing_live_from=exhausted, plan=plan, graph_ms=graph,
+            events_ms=events, kernel_ms=prof, plain_ms=plain, bound_ms=bms,
+            bound_by=by, selections_equal=bool(torch.equal(gi, wi)),
+            scores_equal=bool(torch.equal(gs, ws)), max_rel_err=rel,
+            kept=int((gs >= args[5]).sum()))
+        print(f'probe 11a {name}: live {live}, nothing live from step '
+              f'{exhausted}, {overlaps:.1f} candidates overlap a step\'s '
+              f'winner, plan {plan}: graph {graph:.4f} ms, events '
+              f'{events:.4f}, kernel {fmt(prof)} (profiler); plain '
+              f'{plain:.3f}; bound {bms:.6f} ({by}); selections equal '
+              f'{torch.equal(gi, wi)}, scores bit-equal {torch.equal(gs, ws)}'
+              f', max rel err {rel:.2e}', flush=True)
+        ok = torch.equal(gi, wi) and (torch.equal(gs, ws) if method ==
+                                      'linear' else rel <= 1e-6)
+        if not ok:
+            raise RuntimeError(f'probe 11a {name}: the kernel disagrees with '
+                               f'plain')
+        if redesign:  # the redesign with each cluster size forced
+            lib = cuda_build.load('soft_nms')
+            by_cluster = {}
+            for cs in (1, 2, 4, 8):
+                forced = smoke.soft_nms_forced_plan(lib, args, cs)
+                if forced is None:
+                    by_cluster[cs] = None
+                    continue
+                vi, vs = nms_module.soft_nms_launch(lib, *args, plan=forced)
+                if not (torch.equal(vi, gi) and torch.equal(vs, gs)):
+                    raise RuntimeError(f'probe 11a {name}: a cluster of {cs}'
+                                       f' differs')
+                by_cluster[cs] = smoke.graph_ms(
+                    torch, lambda: nms_module.soft_nms_launch(
+                        lib, *args, plan=forced), 20)
+            out[name]['by_cluster'] = by_cluster
+            print(f'probe 11a {name}: graph ms by cluster size (forced) ' +
+                  ', '.join(f'{cs}: {fmt(ms)}'
+                            for cs, ms in by_cluster.items()), flush=True)
+        for variant, lib in variants.items():
+            if lib is None:
+                out[name][variant] = None
+                continue
+            vi, vs = nms_module.soft_nms_launch(lib, *args)
+            same = bool(torch.equal(vi, gi) and torch.equal(vs, gs))
+            ms = smoke.graph_ms(torch, lambda: nms_module.soft_nms_launch(
+                lib, *args), 20)
+            out[name][variant] = dict(graph_ms=ms, equal=same)
+            print(f'probe 11a {name} {variant}: graph {ms:.4f} ms, equal to '
+                  f'the kernel {same}', flush=True)
+            if not same:
+                raise RuntimeError(f'probe 11a {name} {variant}: differs')
+        del gi, gs, wi, ws
+    probe_soft_nms_floor(smoke, report, calls)
+
+
+# part 15's device operations: the kernel, the zero-fills, and every other
+# operation (the scalars' torch ops, the stack and cat of their inputs)
+CORNER_TARGET_OPS = {'kernel': 'corner_targets_kernel', 'fill': 'fill'}
+
+
+def corner_targets_call(smoke):
+    """The arguments of ``render_corner_targets`` at one bs-6, 768x1024
+    CornerNet step: the detector's ``targets`` on the train cell's first
+    batch (``chip_smoke.mask_train_loader``), on the card."""
+    import numpy as np
+
+    from erd_tpu_torch.apis import build_detector
+    from erd_tpu_torch.config import Config
+    from erd_tpu_torch.engine import batch_to
+    cn = importlib.import_module('erd_tpu_torch.models.detectors.cornernet')
+    det = build_detector(Config.fromfile(smoke.CORNERNET_CONFIG).model)
+    batch = batch_to(next(iter(smoke.mask_train_loader(
+        np, torch, 'cornernet', 1, 61).epoch(0))), smoke.DEV)
+    h, w = batch['images'].shape[1:3]
+    calls = []
+    undo = smoke.capture(cn, 'render_corner_targets', calls)
+    try:
+        det.targets(batch['gt'], (h, w), (h // 4, w // 4))
+    finally:
+        undo()
+    return calls[0]
+
+
+def device_op_split(fn, names, n=10):
+    """{key: (device ms a call, launches a call)} of the operations whose
+    profiler name holds ``names[key]`` (case-insensitive), and 'other' for
+    the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {key: [0.0, 0] for key in list(names) + ['other']}
+    for ev in prof.key_averages():
+        us = getattr(ev, 'device_time_total', None) or \
+            getattr(ev, 'cuda_time_total', 0.0)
+        if not us:
+            continue
+        key = next((k for k, t in names.items()
+                    if t.lower() in ev.key.lower()), 'other')
+        out[key][0] += us / n / 1e3
+        out[key][1] += ev.count / n
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def probe_corner_targets(smoke, report):
+    """Part 15, CornerNet's corner targets, at one bs-6 step's call
+    (``corner_targets_call``): the call by graph replays and events (the
+    eager call), its device operations apart by the profiler
+    (``CORNER_TARGET_OPS``: the kernel, the zero-fills, the rest), the
+    valid gts and gaussian cells, the plain version's time, the bound
+    (``chip_smoke.corner_targets_cost``), and the outputs against plain
+    (heat within 1e-6, the exact-1 peaks, offsets, weights and corner
+    pixels equal)."""
+    from erd_tpu_torch.ops.gaussian import (corner_scalars,
+                                            render_corner_targets,
+                                            render_corner_targets_plain)
+    args = corner_targets_call(smoke)
+    boxes, labels, mask, feat_hw, num_classes = args[:5]
+    got = render_corner_targets(*args)
+    torch.cuda.synchronize()
+    sc = corner_scalars(*args)
+    want = render_corner_targets_plain(sc, feat_hw, num_classes)
+    err, peaks, equal = 0.0, [], True
+    for c in ('tl', 'br'):
+        err = max(err, float((got[f'{c}_heat'] - want[f'{c}_heat']).abs()
+                             .max()))
+        peaks.append((int((got[f'{c}_heat'] == 1).sum()),
+                      int((want[f'{c}_heat'] == 1).sum())))
+        equal &= all(torch.equal(got[f'{c}_{k}'], want[f'{c}_{k}'])
+                     for k in ('off', 'w'))
+        equal &= torch.equal(got[f'{c}_xy'], torch.stack(
+            [sc[f'{c}_x'], sc[f'{c}_y']], -1))
+    del got, want
+    nbytes, _, cells = smoke.corner_targets_cost(torch, args)
+    bms, by = smoke.bound_of(*smoke.corner_targets_cost(torch, args)[:2])
+    graph = smoke.graph_ms(torch, lambda: render_corner_targets(*args), 10)
+    events = smoke.events_ms(torch, lambda: render_corner_targets(*args), 10)
+    ops = device_op_split(lambda: render_corner_targets(*args),
+                          CORNER_TARGET_OPS)
+    plain = smoke.events_ms(torch, lambda: render_corner_targets_plain(
+        corner_scalars(*args), feat_hw, num_classes), 2)
+    report['15'] = dict(
+        b=int(mask.shape[0]), g=int(mask.shape[1]), valid=int(mask.sum()),
+        classes=num_classes, feat_hw=list(feat_hw), cells=cells,
+        graph_ms=graph, events_ms=events, ops=ops, plain_ms=plain,
+        bound_ms=bms, bound_by=by, bound_bytes=nbytes, heat_max_abs_err=err,
+        peaks=peaks, others_equal=bool(equal))
+    print(f'probe 15: B={mask.shape[0]} G={mask.shape[1]} '
+          f'({int(mask.sum())} valid), {num_classes} classes at '
+          f'{tuple(feat_hw)}, {cells:.0f} gaussian cells: graph {graph:.4f} '
+          f'ms, events (eager call) {events:.4f}; profiler (ms, launches a '
+          f'call) ' + ', '.join(f'{k} {v[0]:.4f} x{v[1]:.0f}'
+                                for k, v in ops.items()) +
+          f'; plain {plain:.3f}; bound {bms:.4f} ({by}, {nbytes} bytes); heat '
+          f'max_abs_err {err:.3e}, peaks {peaks}, offsets, weights and '
+          f'corner pixels equal {equal}', flush=True)
+    if not (err <= 1e-6 and equal and all(a == b > 0 for a, b in peaks)):
+        raise RuntimeError('probe 15: the kernel disagrees with plain')
+
+
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
          '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
          '10': probe_carafe_forward, '13a-b': probe_point_backward,
          '3': probe_gfl_loss, '6': probe_atss, '4': probe_distill,
-         '5': probe_ers, 'others': probe_other_backwards}
+         '5': probe_ers, '11a': probe_soft_nms,
+         '11a-floor': probe_soft_nms_floor, '15': probe_corner_targets,
+         'others': probe_other_backwards}
 
 
 def main(argv=None) -> int:

@@ -545,9 +545,10 @@ def test_build_detector_accepts_and_raises():
 
 # ----------------------------------------------- soft-NMS at a large K
 def test_soft_nms_plain_above_kernel_limit_matches_jax():
-    """K = 12000 candidates, above the ~9600 that the kernel's shared-memory
-    variant holds on an H100: the wrapper's CPU path (the plain scan)
-    against erd_tpu's, linear decay, 100 steps."""
+    """K = 12000 candidates, above the ~10400 that one block of the kernel
+    holds on an H100 (the card takes a cluster of blocks): the wrapper's
+    CPU path (the plain scan) against erd_tpu's, linear decay, 100
+    steps."""
     rs = np.random.RandomState(12)
     k = 12000
     xy = rs.uniform(0, 1200, (k, 2))

@@ -898,9 +898,9 @@ def test_dcn_serving_on_cuda_uses_kernel(cuda):
 
 
 def test_soft_nms_kernel_above_shared_memory(cuda):
-    """K = 12000, above the ~9600 candidates one block holds in shared
-    memory: the device-memory variant, 100 steps, linear bit-exact and
-    gaussian within 1e-6 relative (the card's expf in both)."""
+    """K = 12000, above the ~10500 candidates one block holds in shared
+    memory: a cluster of 4 blocks an image, 100 steps, linear bit-exact
+    and gaussian within 1e-6 relative (the card's expf in both)."""
     boxes, scores = soft_nms_case_cuda(np.random.RandomState(7), cuda, b=2,
                                        k=12000)
     for method in ('linear', 'gaussian'):
@@ -914,6 +914,174 @@ def test_soft_nms_kernel_above_shared_memory(cuda):
             assert torch.equal(got[1], want[1])
         else:
             torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+
+
+def soft_nms_one_block_capacity():
+    from erd_tpu_torch.ops import cuda_build
+    from erd_tpu_torch.ops.nms import soft_nms_limits
+    return soft_nms_limits(cuda_build.load('soft_nms'),
+                           torch.device('cuda', 0))[1][1]
+
+
+def soft_nms_edge_case(cuda, case):
+    """(boxes, scores) of a soft-NMS card case (see
+    test_soft_nms_kernel_edge_cases)."""
+    rs = np.random.RandomState(31)
+    cap = soft_nms_one_block_capacity()
+    if case == 'ties_across_blocks':
+        # disjoint boxes (no decay), a run of equal top scores across the
+        # two blocks' slices: selected in index order over the boundary
+        k = cap + 1
+        half = -(-k // 2)
+        x = torch.arange(k, dtype=torch.float32, device=cuda) * 200
+        boxes = torch.stack([x, x * 0, x + 100, x * 0 + 100], -1)[None]
+        scores = torch.full((1, k), 0.5, device=cuda)
+        scores[0, half - 60:half + 60] = 0.875
+        scores[0, half - 3] = float('-inf')
+    elif case == 'fewer_live_than_steps':
+        boxes, scores = soft_nms_case_cuda(rs, cuda, b=2, k=2000)
+        keep = torch.zeros_like(scores, dtype=torch.bool)
+        keep[0, ::250] = True
+        keep[1, 1000:1030] = True
+        scores = torch.where(keep, scores, torch.full_like(scores,
+                                                           float('-inf')))
+    elif case == 'all_inf':
+        boxes, scores = soft_nms_case_cuda(rs, cuda, b=2, k=500)
+        scores = torch.full_like(scores, float('-inf'))
+    elif case in ('at_capacity', 'above_capacity'):
+        k = cap if case == 'at_capacity' else cap + 1
+        boxes, scores = soft_nms_case_cuda(rs, cuda, b=1, k=k)
+    else:  # batch_of_3: live counts 2000, ~1000 and 40 of K = 3000
+        boxes, scores = soft_nms_case_cuda(rs, cuda, b=3, k=3000)
+        scores[0, 2000:] = float('-inf')
+        scores[1, ::2] = float('-inf')
+        scores[2, 40:] = float('-inf')
+    return boxes.contiguous(), scores.contiguous()
+
+
+@pytest.mark.parametrize('case', ['ties_across_blocks',
+                                  'fewer_live_than_steps', 'all_inf',
+                                  'at_capacity', 'above_capacity',
+                                  'batch_of_3'])
+@pytest.mark.parametrize('method', ['linear', 'gaussian'])
+def test_soft_nms_kernel_edge_cases(cuda, case, method):
+    """Equal scores across the blocks of a cluster (index order kept over
+    the slice boundaries), fewer live candidates than steps and none
+    (every later step (0, -inf), jnp.argmax's answer), K at one block's
+    capacity and one above, and a batch of 3 images with 2000, ~1000 and
+    40 live: selections equal to plain, linear bit-exact, gaussian within
+    1e-6 relative; one launch a call. At and above capacity also by the
+    plans that one block (at) and a cluster of 2 (above) take, where the
+    wrapper's plan takes 4 (more than 3072 slots a block)."""
+    from erd_tpu_torch.ops import cuda_build
+    from erd_tpu_torch.ops.nms import (soft_nms_launch, soft_nms_limits,
+                                       soft_nms_plan)
+    boxes, scores = soft_nms_edge_case(cuda, case)
+    steps, k = 100, scores.shape[1]
+    lib = cuda_build.load('soft_nms')
+    threads, capacity = soft_nms_limits(lib, boxes.device)
+    plan = soft_nms_plan(k, capacity, threads)
+    assert plan[0] == (8 if k > 4 * 3072 else 4 if k > 2 * 3072 else
+                       2 if k > 3072 else 1)
+    before = soft_nms.launches
+    got = soft_nms(boxes, scores, steps, 0.5, 0.5, 1e-3, method)
+    torch.cuda.synchronize()
+    assert soft_nms.launches == before + 1
+    want = soft_nms_plain(boxes, scores, steps, 0.5, 0.5, 1e-3, method)
+    if case in ('at_capacity', 'above_capacity'):
+        cs = 1 if case == 'at_capacity' else 2
+        forced = soft_nms_plan(k, capacity, threads, clusters=(cs,))
+        assert forced[0] == cs and forced[1] == -(-k // cs)
+        if case == 'at_capacity':
+            assert forced[1] == capacity[1]
+        alone = soft_nms_launch(lib, boxes, scores, steps, 0.5, 0.5, 1e-3,
+                                method, plan=forced)
+        assert torch.equal(alone[0], got[0])
+        assert torch.equal(alone[1], got[1])
+    assert torch.equal(got[0], want[0])
+    if method == 'linear':
+        assert torch.equal(got[1], want[1])
+    else:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    dead = want[1] == float('-inf')
+    assert bool((got[0][dead] == 0).all())
+    if case == 'ties_across_blocks':
+        half = -(-k // 2)
+        run = [i for i in range(half - 60, half + 60) if i != half - 3]
+        assert got[0][0].tolist() == run[:steps]
+    if case == 'fewer_live_than_steps':
+        assert int(dead[0].sum()) == steps - 8 and \
+            int(dead[1].sum()) >= steps - 30
+    if case == 'all_inf':
+        assert bool(dead.all())
+
+
+def corner_edge_case(cuda, case):
+    """(boxes, labels, mask, feat_hw, num_classes, ratio) of a corner-target
+    card case (see test_render_corner_targets_kernel_edge_cases)."""
+    rs = np.random.RandomState(9)
+    if case == 'odd_width':
+        fh, fw, b, g = 15, 23, 3, 9   # H * W odd: the scalar stores
+    else:
+        fh, fw, b, g = 48, 64, 2, 12
+    ih, iw = fh * 4, fw * 4
+    xy = rs.uniform(-30, max(ih, iw), (b, g, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(0, 120, (b, g, 2))], -1)
+    labels = rs.randint(-3, 12, (b, g))   # out of range both ways
+    valid = rs.rand(b, g) < 0.7
+    valid[:, 1] = False                   # invalid between valid ones
+    valid[:, 0] = valid[:, 2] = True
+    boxes[0, 0] = [0, 0, iw, ih]          # the whole canvas
+    boxes[0, 2] = [-40, -25, iw + 50, ih + 9]   # past every edge
+    boxes[0, 3] = [30, 20, 30, 20]        # zero size: radius 0
+    boxes[0, 4] = [31.5, 22, 90, 80]      # two gts on one tl pixel ...
+    boxes[0, 5] = [30.2, 20.9, 70, 50]
+    valid[0, 3:6] = True
+    labels[0, 4] = labels[0, 5] = 2       # ... of one class
+    boxes[1, 0] = [iw - 0.5, ih - 0.5, iw, ih]   # at the bottom-right
+    labels = labels.astype(np.int32 if case == 'int32_labels' else np.int64)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        boxes.astype(np.float32), labels, valid)]
+    return (*args, (fh, fw), 10, (fw / iw, fh / ih))
+
+
+@pytest.mark.parametrize('case', ['edges', 'odd_width', 'int32_labels'])
+def test_render_corner_targets_kernel_edge_cases(cuda, case):
+    """Boxes at and past the canvas edge, a zero-size box (radius 0), two
+    gts of one class on one corner pixel (the later one's offsets),
+    invalid gts between valid ones, labels out of range both ways, int32
+    and int64 labels, and H * W odd (scalar stores): heat within 1e-6 of
+    plain, the exact-1 peaks, offsets, weights and corner pixels equal;
+    one launch a call, every output written (NaN-filled memory beforehand
+    leaves no trace)."""
+    from erd_tpu_torch.ops.gaussian import (corner_scalars,
+                                            render_corner_targets,
+                                            render_corner_targets_plain)
+    args = corner_edge_case(cuda, case)
+    # fill the allocator's free blocks with NaN: an output element the
+    # kernel does not write would show
+    junk = torch.full((64 << 20,), float('nan'), device=cuda)
+    del junk
+    before = render_corner_targets.launches
+    got = render_corner_targets(*args)
+    torch.cuda.synchronize()
+    assert render_corner_targets.launches - before == 1
+    sc = corner_scalars(*args)
+    want = render_corner_targets_plain(sc, args[3], args[4])
+    for c in ('tl', 'br'):
+        assert float((got[f'{c}_heat'] - want[f'{c}_heat']).abs().max()) \
+            <= 1e-6
+        assert int((got[f'{c}_heat'] == 1).sum()) == \
+            int((want[f'{c}_heat'] == 1).sum()) > 0
+        for k in ('off', 'w'):
+            assert torch.equal(got[f'{c}_{k}'], want[f'{c}_{k}'])
+        assert torch.equal(got[f'{c}_xy'], torch.stack(
+            [sc[f'{c}_x'], sc[f'{c}_y']], -1))
+    if case == 'edges':
+        assert int(sc['radius'][0, 3]) == 0
+        assert int(sc['tl_x'][0, 4]) == int(sc['tl_x'][0, 5])
+        y, x = int(sc['tl_y'][0, 5]), int(sc['tl_x'][0, 5])
+        assert torch.equal(got['tl_off'][0, :, y, x], sc['tl_off'][0, 5])
 
 
 def bf16_ulps(a, b):
