@@ -239,11 +239,11 @@ Phases, in order; any failed check exits non-zero before the last line:
                 last 10 edge cases) within 1e-6 * max|feat| of its plain
                 version; every point_sample call (2 coarse calls on the
                 (100, 80, 14, 14) float32 logits, 2 fine calls on the bf16
-                P2 map at 19600 points) within 1e-6 * max|map|, >= 50 % of
-                the samples with a fractional weight and >= 1 % with a
-                corner off the map over the request; each call shape timed
-                beside its byte bound and F.grid_sample on the widened map
-                (held to plain within 1e-5 * max|map| first);
+                P2 map at 19600 points) equal to plain (torch.equal),
+                >= 50 % of the samples with a fractional weight and >= 1 %
+                with a corner off the map over the request; each call
+                shape timed beside its byte bound and F.grid_sample on the
+                widened map (held to plain within 1e-5 * max|map| first);
  32. corner kernels  one 768x1024 request of CornerNet HG-104 (80 classes,
                 float32, heads arranged by arrange_corner_heads) with its 4
                 corner_pool calls (the last stack's) captured, each
@@ -282,8 +282,12 @@ Phases, in order; any failed check exits non-zero before the last line:
                 calls of one step: the mask targets of a bs-16, 800x1344
                 bf16 Mask R-CNN step (28x28, 512 RoIs an image, 56x56
                 synthetic gt crops) and of a PointRend step (14x14), equal
-                to the plain version; the point-sample backward on the
-                PointRend step's two calls (the coarse float32 logits, the
+                to the plain version (torch.equal); the point-sample
+                forward on the PointRend step's four calls (uncertainty,
+                coarse, fine, targets), each equal to plain and timed as
+                the serving calls are (the point_sample row's shapes); the
+                point-sample backward on the PointRend step's two calls
+                (the coarse float32 logits, the
                 bf16 channels-last P2; float32 sums within 1e-5 *
                 max|plain|, the bf16 map's gradient within one ulp; two
                 calls equal; its launches apart by the profiler); the
@@ -5186,12 +5190,32 @@ def grid_sample_points(torch, maps, pts):
     return out[..., 0].transpose(1, 2)
 
 
+def point_layout(maps, pts):
+    """The forward kernel's layout for this call
+    (``point_sample_plan``)."""
+    from erd_tpu_torch.ops.sampling import point_sample_plan
+    return point_sample_plan(tuple(maps.shape), maps.stride(), maps.dtype,
+                             pts.shape[1], maps.data_ptr()).layout
+
+
+def point_sample_bound(maps, pts, touched):
+    """(bound ms, 'bytes' or 'operations', bytes) of a point_sample call:
+    the map pixels its in-range corners touch (``touched``, from
+    point_sample_stats) read once, the (N, K, C) float32 output written
+    once, the points read once; 11 float32 operations a sample (8
+    products, 3 sums)."""
+    n, k = pts.shape[:2]
+    c = maps.shape[1]
+    nbytes = touched * c * maps.element_size() + n * k * c * 4 + n * k * 8
+    return (*bound_of(nbytes, n * k * c * 11.0), nbytes)
+
+
 def phase_mask_kernels(np, torch):
     """One 800x1333 request each of Mask R-CNN and PointRend R50 (bf16,
     fc_cls seeded) with their kernel calls captured: RoIAlign at out 14 on
     the 100 detections (the last 10 replaced by edge cases) against its
     plain version (1e-6 * max|feat|); every point_sample call (2 coarse and
-    2 fine) within 1e-6 * max|map| of its plain version, >= 50 % of the
+    2 fine) equal to its plain version (torch.equal), >= 50 % of the
     samples with a fractional weight and >= 1 % with a corner off the map
     over the request's calls; then each call shape timed beside its bound
     and F.grid_sample (held to plain within 1e-5 * max|map| first)."""
@@ -5269,17 +5293,17 @@ def phase_mask_kernels(np, torch):
         got = point_sample(maps, pts)
         torch.cuda.synchronize()
         want = point_sample_plain(maps, pts)
-        map_max = float(maps.float().abs().max())
         err = float((got - want).abs().max())
         n, f, o, touched = point_sample_stats(torch, maps, pts)
         tot, frac, off = tot + n, frac + f, off + o
         form = 'coarse' if maps.dtype == torch.float32 else 'fine'
         log(f'mask kernels: point_sample call {i} ({form}) maps '
             f'{tuple(maps.shape)} {maps.dtype} strides {maps.stride()}, '
-            f'points {tuple(pts.shape)}: max_abs_err={err:.3e} (limit '
-            f'1e-6*max|map| = {1e-6 * map_max:.3e}); {f / n:.3f} '
-            f'fractional, {o / n:.4f} off the map')
-        check(err <= 1e-6 * map_max, f'point_sample kernel disagrees with '
+            f'points {tuple(pts.shape)}, layout {point_layout(maps, pts)}: '
+            f'max_abs_err={err:.3e} (every element equal to plain '
+            f'required: the plain version\'s arithmetic in its order); '
+            f'{f / n:.3f} fractional, {o / n:.4f} off the map')
+        check(torch.equal(got, want), f'point_sample kernel differs from '
               f'plain on call {i}')
         shapes.setdefault((form, tuple(maps.shape), tuple(pts.shape)),
                           (maps, pts, touched, err))
@@ -5303,14 +5327,14 @@ def phase_mask_kernels(np, torch):
             lambda: point_sample_plain(maps, pts))
         library_ms = graph_ms(torch, lambda: grid_sample_points(
             torch, maps32, pts))
-        nbytes = touched * c * maps.element_size() + n * k * c * 4 + \
-            n * k * 8
-        bms, by = bound_of(nbytes, n * k * c * 11.0)  # 8 mul, 3 add
-        timed.append(dict(form=form, maps=list(maps.shape),
-                          dtype=str(maps.dtype), points=list(pts.shape),
-                          ms=ms, call_ms=call_ms, ms_from=src,
-                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                          bytes=nbytes, library_ms=library_ms,
+        bms, by, nbytes = point_sample_bound(maps, pts, touched)
+        timed.append(dict(call=f'serve {form}', form=form,
+                          maps=list(maps.shape), dtype=str(maps.dtype),
+                          strides=list(maps.stride()),
+                          layout=point_layout(maps, pts),
+                          points=list(pts.shape), ms=ms, call_ms=call_ms,
+                          ms_from=src, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=by, bytes=nbytes, library_ms=library_ms,
                           library_err=lib_err, max_abs_err=err))
         log(f'mask kernels: point_sample {form} {tuple(maps.shape)} x '
             f'{tuple(pts.shape)}: {ms:.4f} ms device ({src}), {call_ms:.4f} '
@@ -5325,7 +5349,7 @@ def phase_mask_kernels(np, torch):
                ms=fine['ms'], call_ms=fine['call_ms'],
                ms_from=fine['ms_from'], plain_ms=fine['plain_ms'],
                bound_ms=fine['bound_ms'], bound_by=fine['bound_by'],
-               library_ms=fine['library_ms'], by_shape=timed,
+               library_ms=fine['library_ms'], shapes=timed,
                fractional_share=frac / tot, off_map_share=off / tot)
     del ps_calls, shapes
     torch.cuda.empty_cache()
@@ -6023,13 +6047,78 @@ def crop_resize_library(torch, masks, boxes, idx, rois, out_size):
     return call, band.reshape(b * s, out_size, out_size)
 
 
+# PointRend's four point-sample calls of a training step, in the order of
+# its loss (erd_tpu_torch/models/detectors/point_rend.py)
+POINT_TRAIN_CALLS = ('uncertainty', 'coarse', 'fine', 'targets')
+
+
+def point_train_calls(torch, calls):
+    """Row 13a at the four point-sample calls of one bs-16 PointRend step
+    (``POINT_TRAIN_CALLS``): each equal to plain (torch.equal), then timed
+    as the serving calls are (graph replays, the eager call by events,
+    plain, F.grid_sample on the widened float32 map, the bytes bound).
+    Returns the calls' rows."""
+    from erd_tpu_torch.ops.sampling import point_sample, point_sample_plain
+    check(len(calls) == len(POINT_TRAIN_CALLS), f'PointRend step: '
+          f'{len(calls)} point_sample calls')
+    rows = []
+    for name, (maps, pts) in zip(POINT_TRAIN_CALLS, calls):
+        got = point_sample(maps, pts)
+        torch.cuda.synchronize()
+        want = point_sample_plain(maps, pts)
+        err = float((got - want).abs().max())
+        same = bool(torch.equal(got, want))
+        del got, want
+        torch.cuda.empty_cache()
+        n, f, o, touched = point_sample_stats(torch, maps, pts)
+        layout = point_layout(maps, pts)
+        log(f'mask/corner train kernels: point_sample {name} maps '
+            f'{tuple(maps.shape)} {maps.dtype} strides {maps.stride()}, '
+            f'points {tuple(pts.shape)}, layout {layout}: max_abs_err='
+            f'{err:.3e} (every element equal to plain required); '
+            f'{f / n:.3f} fractional, {o / n:.4f} off the map')
+        check(same, f'point_sample kernel differs from plain at the '
+              f'{name} training call')
+        big = n * pts.shape[1] * maps.shape[1] * 4 > 256 << 20
+        reps = 3 if big else 20
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: point_sample(maps, pts),
+            lambda: point_sample_plain(maps, pts), n=reps)
+        torch.cuda.empty_cache()
+        maps32 = maps.float()
+        library_ms = graph_ms(torch, lambda: grid_sample_points(
+            torch, maps32, pts), reps)
+        del maps32
+        torch.cuda.empty_cache()
+        bms, by, nbytes = point_sample_bound(maps, pts, touched)
+        rows.append(dict(call=f'train {name}', form=name,
+                         maps=list(maps.shape), dtype=str(maps.dtype),
+                         strides=list(maps.stride()), layout=layout,
+                         points=list(pts.shape), ms=ms, call_ms=call_ms,
+                         ms_from=src, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, bytes=nbytes, library_ms=library_ms,
+                         max_abs_err=err))
+        log(f'mask/corner train kernels: point_sample {name} '
+            f'{tuple(maps.shape)} x {tuple(pts.shape)}: {ms:.4f} ms device '
+            f'({src}), {call_ms:.4f} ms per call, plain {plain_ms:.3f} ms, '
+            f'F.grid_sample (float32 map) {library_ms:.4f} ms, bound '
+            f'{bms:.5f} ms ({by}, {nbytes / 1e6:.1f} MB)')
+    log(f'mask/corner train kernels: point_sample over a step\'s 4 calls: '
+        f'{sum(r["ms"] for r in rows):.4f} ms device, bound '
+        f'{sum(r["bound_ms"] for r in rows):.4f}')
+    return rows
+
+
 def phase_mask_train_kernels(np, torch):
     """The new training kernels on the real calls of one step: the mask
     targets of a bs-16, 800x1344 Mask R-CNN step (28x28) and of a
-    PointRend step (14x14), equal to the plain version; the point-sample
-    backward on both of the PointRend step's calls (coarse float32 logits,
-    bf16 P2; float32 sums within 1e-5 * max|plain|, the bf16 map's
-    gradient within one ulp); the corner-pool backward on the 8 calls of a
+    PointRend step (14x14), equal to the plain version (torch.equal); the
+    point-sample backward on both of the PointRend step's calls (coarse
+    float32 logits, bf16 P2; float32 sums within 1e-5 * max|plain|, the
+    bf16 map's gradient within one ulp), and the point-sample forward on
+    the step's four calls (``point_train_calls``: equal to plain, timed;
+    returned on the backward's row as ``forward_train_shapes`` for the
+    point_sample row); the corner-pool backward on the 8 calls of a
     CornerNet HG-104 step (bs 6, 768x1024, float32) bit-equal to the plain
     version, and with NaNs planted (fault 3.11) the forward and backward
     kernels equal to their plain versions; the corner targets of that step
@@ -6096,7 +6185,8 @@ def phase_mask_train_kernels(np, torch):
         lib_err = float(lib_diff[~band].max())
         fg = float((want > 0).float().mean())
         log(f'mask/corner train kernels: crop_resize_mask {kind} '
-            f'{tuple(want.shape)}: max_abs_err={err:.3e} (limit 1e-6), '
+            f'{tuple(want.shape)}: max_abs_err={err:.3e} (every cell equal '
+            f'to plain required), '
             f'{fg:.1%} of the cells > 0; F.grid_sample (border) x in-box '
             f'mask within {lib_err:.3e} of plain outside the first half '
             f'cell of each axis ({float(band.float().mean()):.1%} of the '
@@ -6106,8 +6196,8 @@ def phase_mask_train_kernels(np, torch):
         # which moves a cell's weights by up to ~1e-4 (1.35e-4 measured)
         check(lib_err <= 1e-3, f'{kind}: F.grid_sample does not give the '
               f'targets outside the edge band')
-        check(err <= 1e-6, f'mask-target kernel disagrees with plain '
-              f'({kind})')
+        check(torch.equal(got, want), f'mask-target kernel differs from '
+              f'plain ({kind})')
         check(0.02 < fg < 0.98, f'{kind}: degenerate mask targets')
         ms, call_ms, src, plain_ms = time_graph(
             torch, lambda: crop_resize_mask(*args),
@@ -6232,7 +6322,9 @@ def phase_mask_train_kernels(np, torch):
                      'counting sort of the points by tile), float32 sums in '
                      'shared memory, a warp 32 channels; each point\'s '
                      'gradient read once a tile; written once; no float '
-                     'atomics, no float32 buffer', shapes=shapes))
+                     'atomics, no float32 buffer', shapes=shapes,
+                     forward_train_shapes=point_train_calls(
+                         torch, ps_calls['point_sample'])))
     del ps_calls
     torch.cuda.empty_cache()
 
@@ -7334,6 +7426,10 @@ def main() -> int:
             for path, counts in dcn_train_launches.items()}
         dcn_train_row['launches'] = sum(
             dcn_train_row['launches_by_path'].values())
+        point_sample_row['shapes'] += next(
+            row for row in mask_train_rows
+            if row['name'] == 'point_sample_backward').pop(
+                'forward_train_shapes')
         point_sample_row['launches_by_path'] = {
             'pointrend serve': mask_launches['pointrend serve'][
                 'point_sample'],

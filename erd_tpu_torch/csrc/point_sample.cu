@@ -2,28 +2,41 @@
 //
 // Replaces: erd_tpu/ops/sampling.py `point_sample` (align_corners=False)
 // with `_grid_sample_bilinear`, as erd_tpu/models/detectors/point_rend.py
-// calls it: the coarse call samples each RoI's (14, 14, C) logit map at its
+// calls it: the coarse calls sample each RoI's (14, 14, C) logit map at its
 // own points, the fine call one image's P2 map at the points of all its
 // RoIs. On the TPU both were gathers of four clipped corners times 0/1
 // validity masks; here each point reads only its four corners.
 //
-// Thread layout: one warp per point (n, k). Every lane forms the point's
-// coordinates and its four bilinear weights once, then loops over the
-// channels lane, lane + 32, ..., so a warp writes 32 neighbouring output
-// floats of the (N, K, C) row at a time. The map is read through its four
-// element strides (NCHW or channels-last memory alike); bf16 maps are
-// widened in registers, which gives erd_tpu's astype(float32) values.
-// A corner off the map reads 0 (zero padding per corner, as the reference's
-// validity mask). The sum is the plain version's: v00*(1-wy)*(1-wx) +
-// v01*(1-wy)*wx + v10*wy*(1-wx) + v11*wy*wx, left to right, each op rounded
-// on its own (the library is built with -fmad=false), so kernel and plain
-// version agree to the bit.
+// Every layout forms a point's coordinates and its four bilinear weights
+// as the plain version does, and sums v00*(1-wy)*(1-wx) + v01*(1-wy)*wx +
+// v10*wy*(1-wx) + v11*wy*wx left to right, each op rounded on its own (the
+// library is built with -fmad=false), so every layout agrees with the
+// plain version to the bit. bf16 maps are widened in registers, which
+// gives erd_tpu's astype(float32) values; a corner off the map reads 0
+// (zero padding per corner, as the reference's validity mask).
 //
-// Bound on this card: bytes. Each output float must be written (20.1 MB
-// for the fine call's 19600 points x 256 channels) and each map row under
-// the points read (at most the 34.4 MB of a bf16 800x1344 P2); the ~12
-// flops per sample are far below the float32 peak. Points of one RoI are
-// neighbours on the map, so their corners mostly come from L2.
+// Bound on this card: bytes. Each output float is written once and each
+// map pixel under the points read once; the ~11 flops a sample are far
+// below the float32 peak. The wrapper's plan (`point_sample_plan` in
+// ops/sampling.py) picks one of three layouts of the forward:
+// - Staged map (`point_sample_staged_kernel`): where a map's C x H x W
+//   elements fit in shared memory (PointRend's 14 x 14 logit maps: 80
+//   channels, 62.7 KB, or one channel). A block copies its maps into
+//   shared memory once (16-byte cp.async where a map is dense in (H, W, C)
+//   order and aligned, else element by element through the strides),
+//   forms each point's corners and weights once into shared memory (C >
+//   1), then its threads walk the maps' (K, C) outputs in memory order, 4
+//   channels a thread where C % 4 == 0 (one float4 store), a point a
+//   thread where C = 1. Corners come from shared memory.
+// - Unit-stride channels (`point_sample_unit_kernel`): where the channel
+//   stride is 1, C is a multiple of 16 bytes' elements and the map 16-byte
+//   aligned (the bf16 channels-last P2 of the fine calls). A lane takes 8
+//   bf16 (4 float32) channels with one 16-byte load a corner, so a warp
+//   covers 256 bf16 channels of a point in one pass, and stores them as
+//   float4s; a thread keeps 2 points in flight (4 or 8 were slower).
+// - General strides (`point_sample_kernel`): any other layout, a warp a
+//   point, a lane a channel (lane, lane + 32, ...).
+// Index math is 32-bit wherever the plan proves the sizes fit.
 //
 // Backward (`erd_point_sample_backward`), the transpose of the four corner
 // gathers: a gather by tile of pixels, with no float atomics and no
@@ -129,6 +142,279 @@ __global__ void point_sample_kernel(const T* __restrict__ maps,
     acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v10, wy), hx));
     acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v11, wy), wx));
     dst[ch] = acc;
+  }
+}
+
+// A point's bilinear corners: the weights in the plain version's
+// arithmetic, the upper-left corner (y0, x0) (0 on an axis where no corner
+// is on the map) and bit q for corner q = 2 * dy + dx on the map.
+struct Geo {
+  float wx, wy, hx, hy;
+  int y0, x0;
+  unsigned ok;
+};
+
+__device__ __forceinline__ Geo point_geo(float px, float py, int h, int w) {
+  const float xs = __fsub_rn(__fmul_rn(px, static_cast<float>(w)), 0.5f);
+  const float ys = __fsub_rn(__fmul_rn(py, static_cast<float>(h)), 0.5f);
+  const float x0f = floorf(xs), y0f = floorf(ys);
+  Geo g;
+  g.wx = __fsub_rn(xs, x0f);
+  g.wy = __fsub_rn(ys, y0f);
+  g.hx = __fsub_rn(1.f, g.wx);
+  g.hy = __fsub_rn(1.f, g.wy);
+  // validity in float, so a far-off point never converts out of int range
+  const bool oy0 = y0f >= 0.f && y0f < static_cast<float>(h);
+  const bool oy1 = y0f >= -1.f && y0f < static_cast<float>(h - 1);
+  const bool ox0 = x0f >= 0.f && x0f < static_cast<float>(w);
+  const bool ox1 = x0f >= -1.f && x0f < static_cast<float>(w - 1);
+  g.y0 = oy0 || oy1 ? static_cast<int>(y0f) : 0;
+  g.x0 = ox0 || ox1 ? static_cast<int>(x0f) : 0;
+  g.ok = (oy0 && ox0 ? 1u : 0u) | (oy0 && ox1 ? 2u : 0u) |
+         (oy1 && ox0 ? 4u : 0u) | (oy1 && ox1 ? 8u : 0u);
+  return g;
+}
+
+// the plain version's sum of one channel's four corners
+__device__ __forceinline__ float bilinear(const Geo& g, float v00, float v01,
+                                          float v10, float v11) {
+  float acc = __fmul_rn(__fmul_rn(v00, g.hy), g.hx);
+  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v01, g.hy), g.wx));
+  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v10, g.wy), g.hx));
+  return __fadd_rn(acc, __fmul_rn(__fmul_rn(v11, g.wy), g.wx));
+}
+
+// VEC consecutive elements widened to float32 (VEC = 1 or 4)
+template <int VEC>
+struct Vec {
+  float v[VEC];
+};
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_vec(const float* p) {
+  Vec<VEC> r;
+  if constexpr (VEC == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    r.v[0] = q.x;
+    r.v[1] = q.y;
+    r.v[2] = q.z;
+    r.v[3] = q.w;
+  } else {
+    r.v[0] = *p;
+  }
+  return r;
+}
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_vec(const __nv_bfloat16* p) {
+  Vec<VEC> r;
+  if constexpr (VEC == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    r.v[0] = __uint_as_float(q.x << 16);
+    r.v[1] = __uint_as_float(q.x & 0xffff0000u);
+    r.v[2] = __uint_as_float(q.y << 16);
+    r.v[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
+    r.v[0] = __bfloat162float(*p);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+constexpr int kStagedThreads = 256;
+
+// Staged map: a block takes maps m0 .. m0 + g - 1 (g = maps_per_block, the
+// last block fewer), copies each into shared memory in (H, W, C) order
+// (`vec_copy`: 16-byte cp.async of a dense (H, W, C) map; else element by
+// element through the strides sc, sy, sx), forms each point's Geo into
+// shared memory where C > 1, then walks the maps' (K, C) outputs, which
+// are contiguous in `out`, VEC channels a thread.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kStagedThreads) point_sample_staged_kernel(
+    const T* __restrict__ maps, const float* __restrict__ points, int n,
+    int c, int h, int w, int k, long long sn, int sc, int sy, int sx,
+    int maps_per_block, int vec_copy, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.x * maps_per_block;
+  const int g = min(maps_per_block, n - m0);
+  const int hw = h * w, hwc = hw * c;
+  T* staged = reinterpret_cast<T*>(smem);
+  // the Geo table after the maps, 16-byte aligned
+  const int map_bytes =
+      (maps_per_block * hwc * static_cast<int>(sizeof(T)) + 15) & ~15;
+  float4* weights = reinterpret_cast<float4*>(smem + map_bytes);
+  int2* meta = reinterpret_cast<int2*>(weights + maps_per_block * k);
+  if (vec_copy) {
+    constexpr int per16 = 16 / sizeof(T);
+    const int chunks = hwc / per16;
+    for (int j = 0; j < g; ++j) {
+      const T* src = maps + static_cast<long long>(m0 + j) * sn;
+      for (int i = threadIdx.x; i < chunks; i += kStagedThreads)
+        cp_async16(staged + j * hwc + i * per16, src + i * per16);
+    }
+  } else {
+    for (int j = 0; j < g; ++j) {
+      const T* src = maps + static_cast<long long>(m0 + j) * sn;
+      for (int i = threadIdx.x; i < hwc; i += kStagedThreads) {
+        const int ch = i % c, pix = i / c;
+        const int y = pix / w, x = pix - y * w;
+        staged[j * hwc + i] = src[ch * sc + y * sy + x * sx];
+      }
+    }
+  }
+  const float2* pts =
+      reinterpret_cast<const float2*>(points) + static_cast<long long>(m0) * k;
+  if (c > 1) {
+    for (int i = threadIdx.x; i < g * k; i += kStagedThreads) {
+      const float2 pt = pts[i];
+      const Geo q = point_geo(pt.x, pt.y, h, w);
+      weights[i] = make_float4(q.wx, q.wy, q.hx, q.hy);
+      meta[i] = make_int2(q.y0 * w + q.x0, static_cast<int>(q.ok));
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int cv = c / VEC;
+  const int per_map = k * cv;
+  float* dst = out + static_cast<long long>(m0) * k * c;
+  for (int i = threadIdx.x; i < g * per_map; i += kStagedThreads) {
+    const int j = i / per_map;
+    const int r = i - j * per_map;
+    const int p = r / cv;
+    const int ch = (r - p * cv) * VEC;
+    // the corners' pixel: base, base + 1, base + w, base + w + 1 (each
+    // >= 0 where its bit is set)
+    Geo q;
+    int base;
+    if (c == 1) {
+      const float2 pt = pts[i];
+      q = point_geo(pt.x, pt.y, h, w);
+      base = q.y0 * w + q.x0;
+    } else {
+      const float4 wt = weights[j * k + p];
+      const int2 mt = meta[j * k + p];
+      q.wx = wt.x;
+      q.wy = wt.y;
+      q.hx = wt.z;
+      q.hy = wt.w;
+      base = mt.x;
+      q.ok = static_cast<unsigned>(mt.y);
+    }
+    const T* m = staged + j * hwc + ch;
+    Vec<VEC> v00{}, v01{}, v10{}, v11{};
+    if (q.ok & 1u) v00 = load_vec<VEC>(m + base * c);
+    if (q.ok & 2u) v01 = load_vec<VEC>(m + (base + 1) * c);
+    if (q.ok & 4u) v10 = load_vec<VEC>(m + (base + w) * c);
+    if (q.ok & 8u) v11 = load_vec<VEC>(m + (base + w + 1) * c);
+    float res[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      res[e] = bilinear(q, v00.v[e], v01.v[e], v10.v[e], v11.v[e]);
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(dst + i * 4) =
+          make_float4(res[0], res[1], res[2], res[3]);
+    } else {
+      dst[i] = res[0];
+    }
+  }
+}
+
+// 16 bytes of a map: 8 bf16 or 4 float32 channels, widened
+template <typename T>
+struct Wide;
+
+template <>
+struct Wide<float> {
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ void get(const uint4& q, float* v) {
+    v[0] = __uint_as_float(q.x);
+    v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z);
+    v[3] = __uint_as_float(q.w);
+  }
+};
+
+template <>
+struct Wide<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ void get(const uint4& q, float* v) {
+    const unsigned u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] = __uint_as_float(u[e] << 16);
+      v[2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
+    }
+  }
+};
+
+constexpr int kUnitThreads = 256;
+constexpr int kUnitPoints = 2;  // items a thread keeps in flight
+
+// Unit-stride channels: item i is (point i / cv, channels (i % cv) * VEC
+// .. + VEC - 1), cv = c / VEC; a thread takes kUnitPoints items a block's
+// width apart, so a warp's lanes read and write neighbouring 16-byte
+// vectors. I is int where the plan proves every index fits.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kUnitThreads) point_sample_unit_kernel(
+    const T* __restrict__ maps, const float* __restrict__ points, int c,
+    int h, int w, int k, I n_items, I sn, I sy, I sx, int cv,
+    float* __restrict__ out) {
+  constexpr int VEC = Wide<T>::kVec;
+  const I first = static_cast<I>(blockIdx.x) * (kUnitThreads * kUnitPoints) +
+                  threadIdx.x;
+  uint4 v[kUnitPoints][4];
+  Geo q[kUnitPoints];
+  I dst[kUnitPoints];
+#pragma unroll
+  for (int u = 0; u < kUnitPoints; ++u) {
+    const I i = first + u * kUnitThreads;
+    dst[u] = -1;
+    q[u].ok = 0u;
+    if (i < n_items) {
+      const I p = i / cv;
+      const int chunk = static_cast<int>(i - p * cv);
+      const float2 pt = reinterpret_cast<const float2*>(points)[p];
+      q[u] = point_geo(pt.x, pt.y, h, w);
+      // the corners' element offsets: o00, o00 + sx, o00 + sy, o00 + sy +
+      // sx (each >= 0 where its bit is set)
+      const I o00 = (p / k) * sn + static_cast<I>(chunk) * VEC +
+                    static_cast<I>(q[u].y0) * sy +
+                    static_cast<I>(q[u].x0) * sx;
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      const uint4* src = reinterpret_cast<const uint4*>(maps);
+      // 16-byte units: every offset is a multiple of VEC elements
+      v[u][0] = q[u].ok & 1u ? __ldg(src + o00 / VEC) : z;
+      v[u][1] = q[u].ok & 2u ? __ldg(src + (o00 + sx) / VEC) : z;
+      v[u][2] = q[u].ok & 4u ? __ldg(src + (o00 + sy) / VEC) : z;
+      v[u][3] = q[u].ok & 8u ? __ldg(src + (o00 + sy + sx) / VEC) : z;
+      dst[u] = p * c + static_cast<I>(chunk) * VEC;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnitPoints; ++u) {
+    if (dst[u] < 0) continue;
+    float a[VEC], b[VEC], d[VEC], e[VEC], res[VEC];
+    Wide<T>::get(v[u][0], a);
+    Wide<T>::get(v[u][1], b);
+    Wide<T>::get(v[u][2], d);
+    Wide<T>::get(v[u][3], e);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      res[j] = bilinear(q[u], a[j], b[j], d[j], e[j]);
+    float4* o = reinterpret_cast<float4*>(out + dst[u]);
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j)
+      o[j] = make_float4(res[4 * j], res[4 * j + 1], res[4 * j + 2],
+                         res[4 * j + 3]);
   }
 }
 
@@ -493,24 +779,127 @@ point_sample_gather_kernel(const float* __restrict__ grad,
   }
 }
 
+// The forward's layouts (`point_sample_plan` in ops/sampling.py).
+enum PointLayout { kGeneral = 0, kStaged = 1, kUnit = 2 };
+
+template <typename T, int VEC>
+cudaError_t launch_staged(const void* maps, const float* pts, float* o, int n,
+                          int c, int h, int w, int k, long long sn,
+                          long long sc, long long sy, long long sx,
+                          int maps_per_block, int vec_copy, cudaStream_t st) {
+  const long long hwc = static_cast<long long>(h) * w * c;
+  const long long map_bytes =
+      (maps_per_block * hwc * static_cast<long long>(sizeof(T)) + 15) & ~15ll;
+  const long long smem =
+      map_bytes +
+      (c > 1 ? maps_per_block * static_cast<long long>(k) * 24 : 0);
+  // the kernel's within-map offsets and a block's outputs in 32 bits
+  const long long inner = (c - 1) * sc + (h - 1) * sy + (w - 1) * sx;
+  if (maps_per_block < 1 || smem > 227 * 1024 || sc < 0 || sy < 0 ||
+      sx < 0 || inner >= (1ll << 31) ||
+      static_cast<long long>(maps_per_block) * k * c >= (1ll << 31) ||
+      (vec_copy && (hwc * sizeof(T) % 16 != 0 || sn * sizeof(T) % 16 != 0 ||
+                    reinterpret_cast<uintptr_t>(maps) % 16 != 0)) ||
+      (VEC == 4 && c % 4 != 0))
+    return cudaErrorInvalidValue;
+  auto kernel = point_sample_staged_kernel<T, VEC>;
+  if (smem > 48 * 1024) {
+    // the shared memory granted so far on each device (set once a size)
+    static int granted[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64 || granted[dev] < smem) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      if (dev < 64) granted[dev] = static_cast<int>(smem);
+    }
+  }
+  const unsigned blocks = (n + maps_per_block - 1) / maps_per_block;
+  kernel<<<blocks, kStagedThreads, static_cast<size_t>(smem), st>>>(
+      static_cast<const T*>(maps), pts, n, c, h, w, k, sn,
+      static_cast<int>(sc), static_cast<int>(sy), static_cast<int>(sx),
+      maps_per_block, vec_copy, o);
+  return cudaGetLastError();
+}
+
+template <typename T, typename I>
+cudaError_t launch_unit(const void* maps, const float* pts, float* o, int n,
+                        int c, int h, int w, int k, long long sn, long long sc,
+                        long long sy, long long sx, cudaStream_t st) {
+  constexpr int VEC = Wide<T>::kVec;
+  if (sc != 1 || c % VEC != 0 || sn % VEC != 0 || sy % VEC != 0 ||
+      sx % VEC != 0 || sn < 0 || sy < 0 || sx < 0 ||
+      reinterpret_cast<uintptr_t>(maps) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long items = static_cast<long long>(n) * k * (c / VEC);
+  const long long per_block = kUnitThreads * kUnitPoints;
+  // 32-bit index math only where every index fits, a block's width of
+  // items past the last included
+  if (sizeof(I) == 4 &&
+      ((items + per_block) * VEC >= (1ll << 31) ||
+       (n - 1) * sn + (h - 1) * sy + (w - 1) * sx + c >= (1ll << 31)))
+    return cudaErrorInvalidValue;
+  point_sample_unit_kernel<T, I>
+      <<<static_cast<unsigned>((items + per_block - 1) / per_block),
+         kUnitThreads, 0, st>>>(static_cast<const T*>(maps), pts, c, h, w, k,
+                                static_cast<I>(items), static_cast<I>(sn),
+                                static_cast<I>(sy), static_cast<I>(sx),
+                                c / VEC, o);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // maps (n, c, h, w) float32 or bf16 (is_bf16) with element strides sn, sc,
 // sy, sx; points (n, k, 2) float32 (x, y) in [0, 1]; out (n, k, c) float32.
-// Returns cudaGetLastError() after the launch.
+// layout: kGeneral, kStaged (maps_per_block maps a block; vec_copy: each
+// map dense in (H, W, C) order and 16-byte aligned) or kUnit (wide: 64-bit
+// index math). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue where the layout does not take these arguments.
 extern "C" int erd_point_sample(const void* maps, const void* points,
                                 void* out, int n, int c, int h, int w, int k,
                                 long long sn, long long sc, long long sy,
-                                long long sx, int is_bf16, void* stream) {
+                                long long sx, int is_bf16, int layout,
+                                int maps_per_block, int vec_copy, int wide,
+                                void* stream) {
   const long long n_points = static_cast<long long>(n) * k;
   if (n_points <= 0 || c <= 0) return 0;
   if (h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;  // 8 points a block
-  const unsigned blocks =
-      static_cast<unsigned>((n_points * 32 + threads - 1) / threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pts = static_cast<const float*>(points);
   float* o = static_cast<float*>(out);
+  if (layout == kStaged) {
+    const bool v4 = c % 4 == 0;
+    cudaError_t err;
+    if (is_bf16)
+      err = (v4 ? launch_staged<__nv_bfloat16, 4>
+                : launch_staged<__nv_bfloat16, 1>)(
+          maps, pts, o, n, c, h, w, k, sn, sc, sy, sx, maps_per_block,
+          vec_copy, st);
+    else
+      err = (v4 ? launch_staged<float, 4> : launch_staged<float, 1>)(
+          maps, pts, o, n, c, h, w, k, sn, sc, sy, sx, maps_per_block,
+          vec_copy, st);
+    return static_cast<int>(err);
+  }
+  if (layout == kUnit) {
+    cudaError_t err;
+    if (is_bf16)
+      err = (wide ? launch_unit<__nv_bfloat16, long long>
+                  : launch_unit<__nv_bfloat16, int>)(
+          maps, pts, o, n, c, h, w, k, sn, sc, sy, sx, st);
+    else
+      err = (wide ? launch_unit<float, long long> : launch_unit<float, int>)(
+          maps, pts, o, n, c, h, w, k, sn, sc, sy, sx, st);
+    return static_cast<int>(err);
+  }
+  if (layout != kGeneral) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;  // 8 points a block
+  const unsigned blocks =
+      static_cast<unsigned>((n_points * 32 + threads - 1) / threads);
   if (is_bf16) {
     point_sample_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(maps), pts, c, h, w, k, n_points,

@@ -21,7 +21,9 @@ lands where erd_tpu's does and the targets equal erd_tpu's to the bit.
 ``crop_resize_mask`` takes a batch: every sampled RoI of every image with
 the index of its assigned gt. CPU tensors take ``crop_resize_mask_plain``;
 CUDA tensors launch the kernel ``csrc/mask_target.cu`` (one launch for the
-batch, counted in ``crop_resize_mask.launches``).
+batch, counted in ``crop_resize_mask.launches``: a warp a run of RoIs,
+each RoI's row and column axes computed once, 4 cells a lane stored as
+one float4).
 """
 from __future__ import annotations
 
@@ -104,6 +106,10 @@ def crop_resize_mask_plain(gt_masks, gt_boxes, gt_idx, rois, out_size=28):
     return out * (in_y[..., :, None] & in_x[..., None, :]).to(out.dtype)
 
 
+_KERNEL_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
 def crop_resize_mask(gt_masks, gt_boxes, gt_idx, rois, out_size=28):
     """Mask targets of the sampled RoIs.
 
@@ -125,35 +131,42 @@ def crop_resize_mask(gt_masks, gt_boxes, gt_idx, rois, out_size=28):
             f'gt_idx (B, S) and rois (B, S, 4) expected, got '
             f'{tuple(gt_masks.shape)}, {tuple(gt_boxes.shape)}, '
             f'{tuple(gt_idx.shape)}, {tuple(rois.shape)}')
-    if rois.device.type == 'cpu':
+    device = rois.device
+    if device.type == 'cpu':
         return crop_resize_mask_plain(gt_masks, gt_boxes, gt_idx, rois,
                                       out_size)
-    if rois.device.type != 'cuda':
-        raise RuntimeError(f'crop_resize_mask: no kernel for {rois.device}')
-    if gt_masks.dtype != torch.uint8 or gt_boxes.dtype != torch.float32 or \
-            rois.dtype != torch.float32:
+    if device.type != 'cuda':
+        raise RuntimeError(f'crop_resize_mask: no kernel for {device}')
+    if gt_masks.dtype is not torch.uint8 or \
+            gt_boxes.dtype is not torch.float32 or \
+            rois.dtype is not torch.float32:
         raise TypeError('crop_resize_mask: uint8 masks, float32 boxes and '
                         'rois expected')
-    if any(t.device != rois.device for t in (gt_masks, gt_boxes, gt_idx)):
+    if gt_masks.device != device or gt_boxes.device != device or \
+            gt_idx.device != device:
         raise ValueError('crop_resize_mask: all inputs on one device')
     g, r = gt_masks.shape[1], gt_masks.shape[-1]
+    if b * s * out_size * out_size >= 1 << 31:
+        raise ValueError(f'crop_resize_mask: {b * s} RoIs of {out_size}^2 '
+                         f'cells; the kernel takes fewer than 2^31 cells')
     masks = gt_masks.contiguous()
     boxes = gt_boxes.contiguous()
-    idx = gt_idx.to(torch.int32).contiguous()
+    # int32 and int64 indices are read as they are (no cast launch)
+    idx = (gt_idx if gt_idx.dtype in (torch.int32, torch.int64)
+           else gt_idx.to(torch.int32)).contiguous()
     rois = rois.contiguous()
     out = torch.empty((b, s, out_size, out_size), dtype=torch.float32,
-                      device=rois.device)
-    lib = cuda_build.load('mask_target')
-    fn = lib.erd_crop_resize_mask
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(rois.device):
-        stream = torch.cuda.current_stream().cuda_stream
+                      device=device)
+    fn = cuda_build.entry('mask_target', 'erd_crop_resize_mask',
+                          _KERNEL_ARGS)
+    with cuda_build.on_device(device):
         err = fn(masks.data_ptr(), boxes.data_ptr(), idx.data_ptr(),
-                 rois.data_ptr(), out.data_ptr(), b, s, g, r, out_size,
-                 stream)
-    cuda_build.check(lib, err, 'crop_resize_mask')
+                 int(idx.dtype is torch.int64), rois.data_ptr(),
+                 out.data_ptr(), b, s, g, r, out_size,
+                 cuda_build.stream_handle(device))
+    if err:
+        cuda_build.check(cuda_build.load('mask_target'), err,
+                         'crop_resize_mask')
     crop_resize_mask.launches += 1
     return out
 

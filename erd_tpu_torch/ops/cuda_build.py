@@ -22,6 +22,7 @@ the port is CUDA C++; none is Triton.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -100,6 +101,39 @@ def load(name: str) -> ctypes.CDLL:
         lib.erd_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def entry(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``'s library, its
+    argument and result types set on its first call (ctypes keeps one
+    function object a library and symbol), so that a wrapper's call sets
+    nothing."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(device):
+    """A context for a launch on ``device`` (a CUDA torch.device): none
+    where it is the current device already, else ``torch.cuda.device``."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
+def stream_handle(device) -> int:
+    """The handle of ``device``'s current CUDA stream, by torch's raw
+    getter (no ``torch.cuda.Stream`` object built a call)."""
+    import torch
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -21,8 +21,11 @@ points are uniform draws and top-k picks on detached RoIs), and points that
 require one raise while grad is on. CPU tensors take the plain versions;
 CUDA tensors launch the kernels of ``csrc/point_sample.cu`` (one launch per
 call each way, counted in ``point_sample.launches`` and
-``point_sample_backward.launches``). ``align_corners=True`` has no kernel:
-no model path uses it, and it raises on CUDA tensors.
+``point_sample_backward.launches``); the forward runs in the layout that
+``point_sample_plan`` picks from the maps' shape, strides and alignment
+(a staged map, unit-stride channels or general strides), each equal to the
+plain version to the bit. ``align_corners=True`` has no kernel: no model
+path uses it, and it raises on CUDA tensors.
 
 ``masked_conv2d`` is mmcv's MaskedConv2d as erd_tpu states it: a float32
 K x K convolution (symmetric padding (K - 1) // 2, any stride) plus bias,
@@ -37,6 +40,8 @@ trains through it.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -80,29 +85,114 @@ def point_sample_plain(maps, points, align_corners=False):
             corner(y0 + 1, x0 + 1) * wy * wx)
 
 
-def _point_sample_kernel(maps, points):
-    """Launch ``erd_point_sample`` (CUDA tensors); counted in
+# the staged layout: the shared memory a block may fill (its maps, and
+# for C > 1 a 24-byte record of each point's corners), and the maps a
+# block takes at most
+STAGE_BYTES = 96 * 1024
+STAGE_MAPS = 8
+POINT_RECORD_BYTES = 24
+# fewer staged blocks than this (two an SM of an H100) leave SMs idle
+# while each block stages its maps: such calls take the unit-stride layout
+# where it applies (at a request's 100 coarse maps, 0.0054 against 0.0073
+# ms on an H100; atomic_backward_probe.py part 13a)
+STAGE_MIN_BLOCKS = 264
+# the largest index the kernel computes in 32 bits (a block's width of
+# headroom below 2^31)
+INDEX_LIMIT = (1 << 31) - (1 << 20)
+POINT_LAYOUTS = {'general': 0, 'staged': 1, 'unit': 2}
+
+
+class PointSamplePlan(NamedTuple):
+    """The forward kernel's layout for one call: ``layout`` a key of
+    POINT_LAYOUTS; ``maps_per_block`` (staged); ``vec_copy``: the maps are
+    staged by 16-byte copies (each dense in (H, W, C) order and aligned);
+    ``wide``: 64-bit index math (unit); ``active_lanes``: the lanes of a
+    warp that produce outputs (the general layout's last channel pass
+    leaves lanes idle)."""
+    layout: str
+    maps_per_block: int = 1
+    vec_copy: bool = False
+    wide: bool = False
+    active_lanes: float = 32.0
+
+
+def point_sample_plan(shape, strides, dtype, k, address=0):
+    """The layout of ``csrc/point_sample.cu``'s forward for maps of
+    ``shape`` (N, C, H, W), element ``strides`` and ``dtype`` (float32 or
+    bfloat16) sampled at K points a map, the maps' data at ``address``
+    (its alignment decides the 16-byte loads):
+
+    - 'staged' where one map's C x H x W elements (with a record of each
+      point's corners where C > 1) fit in STAGE_BYTES of shared memory:
+      up to STAGE_MAPS maps a block, copied once; unless that makes fewer
+      than STAGE_MIN_BLOCKS blocks and the unit-stride layout applies;
+    - 'unit' where the channel stride is 1, C and every other stride are
+      multiples of a 16-byte vector's elements (8 bf16, 4 float32) and
+      the data is 16-byte aligned: a lane a vector of channels;
+    - 'general' otherwise: a warp a point, a lane a channel.
+
+    Never the plain version."""
+    n, c, h, w = (int(v) for v in shape)
+    sn, sc, sy, sx = (int(v) for v in strides)
+    size = 2 if dtype == torch.bfloat16 else 4
+    inner = (c - 1) * sc + (h - 1) * sy + (w - 1) * sx
+    map_bytes = -(-c * h * w * size // 16) * 16
+    per_map = map_bytes + (k * POINT_RECORD_BYTES if c > 1 else 0)
+    vec = 16 // size
+    unit = sc == 1 and c % vec == 0 and address % 16 == 0 and \
+        all(s % vec == 0 for s in (sn, sy, sx))
+    if per_map <= STAGE_BYTES and inner < INDEX_LIMIT and \
+            STAGE_MAPS * k * c < INDEX_LIMIT:
+        maps = max(1, min(STAGE_MAPS, STAGE_BYTES // max(per_map, 1)))
+        if not unit or -(-n // maps) >= STAGE_MIN_BLOCKS:
+            dense = sx == c and sy == w * c and (c == 1 or sc == 1)
+            vec_copy = dense and c * h * w * size % 16 == 0 and \
+                sn * size % 16 == 0 and address % 16 == 0
+            return PointSamplePlan('staged', maps, vec_copy)
+    if unit:
+        top = max(n * k * c, (n - 1) * sn + inner + 1)
+        return PointSamplePlan('unit', wide=top >= INDEX_LIMIT)
+    return PointSamplePlan('general', active_lanes=c / max(1, -(-c // 32)))
+
+
+_plan = functools.lru_cache(maxsize=256)(point_sample_plan)
+_FORWARD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
+                 [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 +
+                 [ctypes.c_void_p])
+
+
+def point_sample_launch(maps, points, plan=None):
+    """Launch ``erd_point_sample`` (CUDA tensors) in ``plan``'s layout
+    (default: ``point_sample_plan``'s; a forced plan must fit the maps, or
+    the kernel refuses it and this raises); counted in
     ``point_sample.launches``."""
-    if maps.dtype not in (torch.float32, torch.bfloat16):
+    device, dtype = maps.device, maps.dtype
+    if device.type != 'cuda':
+        raise RuntimeError(f'point_sample: no kernel for {device}')
+    if dtype is not torch.float32 and dtype is not torch.bfloat16:
         raise TypeError('point_sample: maps must be float32 or bfloat16')
-    if points.dtype != torch.float32 or points.device != maps.device:
+    if points.dtype is not torch.float32 or points.device != device:
         raise TypeError('point_sample: float32 points on the maps\' device '
                         'expected')
     points = points.contiguous()
-    n, c, h, w = maps.shape
+    shape, strides, address = maps.shape, maps.stride(), maps.data_ptr()
+    n, c, h, w = shape
     k = points.shape[1]
-    out = torch.empty((n, k, c), dtype=torch.float32, device=maps.device)
-    lib = cuda_build.load('point_sample')
-    fn = lib.erd_point_sample
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
-                   [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(maps.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(maps.data_ptr(), points.data_ptr(), out.data_ptr(), n, c, h,
-                 w, k, *maps.stride(), int(maps.dtype == torch.bfloat16),
-                 stream)
-    cuda_build.check(lib, err, 'point_sample')
+    out = torch.empty((n, k, c), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    if plan is None:
+        plan = _plan(tuple(shape), strides, dtype, k, address % 16)
+    fn = cuda_build.entry('point_sample', 'erd_point_sample', _FORWARD_ARGS)
+    with cuda_build.on_device(device):
+        err = fn(address, points.data_ptr(), out.data_ptr(), n, c, h, w, k,
+                 *strides, int(dtype is torch.bfloat16),
+                 POINT_LAYOUTS[plan.layout], plan.maps_per_block,
+                 int(plan.vec_copy), int(plan.wide),
+                 cuda_build.stream_handle(device))
+    if err:
+        cuda_build.check(cuda_build.load('point_sample'), err,
+                         f'point_sample ({plan.layout})')
     point_sample.launches += 1
     return out
 
@@ -119,7 +209,7 @@ class _PointSample(torch.autograd.Function):
                     align_corners)
         if maps.device.type == 'cpu':
             return point_sample_plain(maps, points, align_corners)
-        return _point_sample_kernel(maps, points)
+        return point_sample_launch(maps, points)
 
     @staticmethod
     def backward(ctx, grad):
@@ -145,15 +235,22 @@ def point_sample(maps, points, align_corners=False):
         raise ValueError(f'point_sample: maps (N, C, H, W) and points (N, K, '
                          f'2) expected, got {tuple(maps.shape)} and '
                          f'{tuple(points.shape)}')
-    if maps.device.type not in ('cpu', 'cuda'):
+    kind = maps.device.type
+    if kind not in ('cpu', 'cuda'):
         raise RuntimeError(f'point_sample: no kernel for {maps.device}')
-    if maps.device.type == 'cuda' and align_corners:
+    if kind == 'cuda' and align_corners:
         raise NotImplementedError('point_sample: align_corners=True has no '
                                   'kernel (no model path uses it)')
-    if torch.is_grad_enabled() and points.requires_grad:
+    grad = torch.is_grad_enabled()
+    if grad and points.requires_grad:
         raise ValueError('point_sample: the points take no gradient; detach '
                          'them')
-    return _PointSample.apply(points, align_corners, maps)
+    if grad and maps.requires_grad:
+        return _PointSample.apply(points, align_corners, maps)
+    # no gradient to carry: the same forward, without autograd's Function
+    if kind == 'cpu':
+        return point_sample_plain(maps, points, align_corners)
+    return point_sample_launch(maps, points)
 
 
 point_sample.launches = 0

@@ -6,8 +6,9 @@ attention backward and forward (kernels 9b and 9), the RoIAlign backward
 the CARAFE backward (10b) and forward (row 10), the point-sample backward
 (13a-b), the fused GFL loss (row 3), ATSS (row 6), the fused ERD
 distillation (row 4), the ERS selection (row 5), the soft-NMS scan (11a),
-the CornerNet corner targets (row 15), and the call times of the
-corner-pool backward (12a-b). Run from the repository root:
+the CornerNet corner targets (row 15), the point-sample forward (13a),
+the mask targets (row 14), and the call times of the corner-pool backward
+(12a-b). Run from the repository root:
 
     python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 11a,15]
 
@@ -140,10 +141,25 @@ conv_offset and sampling weights arranged):
    profiler (the kernel, the zero-fills, the rest), plain, the bound, the
    outputs against plain.
 
+16. 13a, the point-sample forward, at the four calls of one bs-16
+   PointRend step (uncertainty, coarse, fine, targets) and the two call
+   shapes of one request: graph replays, events (the eager call), plain,
+   F.grid_sample on the widened float32 map, the bytes bound, the maps'
+   strides, the layout (``point_sample_plan``) and its active lanes a
+   warp, the output against plain (torch.equal); every other layout that
+   takes the call, forced, and the ``POINT_FORWARD_PARTS`` variants; at
+   the serving calls the host's time a call by cProfile
+   (``host_profile``).
+17. 14, the mask targets at one bs-16 Mask R-CNN step's call (28 x 28)
+   and one PointRend step's (14 x 14): graph replays, events, plain, the
+   F.grid_sample formulation, the bound, the targets against plain
+   (torch.equal), the ``MASK_TARGET_PARTS`` variants, the host's time a
+   call.
+
 A variant whose edits do not fit the source (another design's) is "not
 measured". ``--only 9,7b`` runs the named parts alone, in that order (the
 parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, 3, 6, 4, 5, 11a, 11a-floor,
-15, others).
+15, 13a, 14, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -2531,6 +2547,355 @@ def probe_corner_targets(smoke, report):
         raise RuntimeError('probe 15: the kernel disagrees with plain')
 
 
+@functools.lru_cache(maxsize=None)
+def mask_step_calls(smoke, kind):
+    """The captured calls of one bs-16, 800x1344 training step of ``kind``
+    (``chip_smoke.mask_train_step_calls``): the mask targets, and for
+    PointRend the point-sample calls too. Made once for parts 13a and
+    14."""
+    import numpy as np
+    names = ('crop_resize_mask',) + (
+        ('point_sample',) if kind == 'point_rend' else ())
+    got = smoke.mask_train_step_calls(np, torch, kind, names)
+    return {n: [tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+                for args in calls] for n, calls in got.items()}
+
+
+# PointRend's four point-sample calls of a training step, in the order
+# of its loss (erd_tpu_torch/models/detectors/point_rend.py)
+POINT_TRAIN_CALLS = ('uncertainty', 'coarse', 'fine', 'targets')
+
+
+def point_forward_calls(smoke):
+    """[(name, maps, points)]: the four point-sample calls of one bs-16
+    PointRend training step (t1-t4, ``POINT_TRAIN_CALLS``), then the two
+    call shapes of one 800x1333 PointRend request (its first coarse and
+    first fine call), as ``chip_smoke.phase_mask_kernels`` takes them."""
+    import numpy as np
+    train = mask_step_calls(smoke, 'point_rend')['point_sample']
+    if len(train) != 4:
+        raise RuntimeError(f'probe 13a: {len(train)} point_sample calls in '
+                           f'a PointRend step, expected 4')
+    out = [(f'train {name}', args[0], args[1])
+           for name, args in zip(POINT_TRAIN_CALLS, train)]
+    pr_module = importlib.import_module(
+        'erd_tpu_torch.models.detectors.point_rend')
+    det, net, batch = smoke.mask_net(np, torch, 'point_rend')
+    calls = []
+    undo = smoke.capture(pr_module, 'point_sample', calls)
+    try:
+        with torch.no_grad():
+            det.predict(net, batch)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    for form, dtype in (('coarse', torch.float32), ('fine', torch.bfloat16)):
+        maps, pts = next(a[:2] for a in calls if a[0].dtype == dtype)
+        out.append((f'serve {form}', maps.detach(), pts.detach()))
+    del det, net, batch, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def point_lanes(sp, maps, k):
+    """(layout, active lanes a warp) of the kernel for ``maps`` sampled at
+    k points a map: the plan's where the wrapper has one
+    (``point_sample_plan``), else the parent design's warp a point, a lane
+    a channel (c / ceil(c / 32))."""
+    c = maps.shape[1]
+    plan = getattr(sp, 'point_sample_plan', None)
+    if plan is None:
+        return 'warp a point', c / -(-c // 32)
+    p = plan(tuple(maps.shape), maps.stride(), maps.dtype, k,
+             maps.data_ptr())
+    return p.layout, p.active_lanes
+
+
+def point_layouts(sp, maps, k):
+    """{name: plan} of the forward's layouts that take ``maps`` at k points
+    a map (the redesign's wrapper only): the plan's own, the staged layout
+    at 4, 8 and 16 maps a block where it is staged, the unit-stride layout
+    where the channels allow it, and the general layout."""
+    if not hasattr(sp, 'point_sample_plan'):
+        return {}
+    plan = sp.point_sample_plan(tuple(maps.shape), maps.stride(), maps.dtype,
+                                k, maps.data_ptr())
+    out = {f'plan ({plan.layout})': plan}
+    if plan.layout == 'staged':
+        for g in (4, 8, 16):
+            if g != plan.maps_per_block and \
+                    g * plan_bytes(sp, maps, k) <= sp.STAGE_BYTES:
+                out[f'staged {g} maps'] = plan._replace(maps_per_block=g)
+    c = maps.shape[1]
+    sn, sc, sy, sx = maps.stride()
+    vec = 16 // maps.element_size()
+    if plan.layout != 'unit' and sc == 1 and c % vec == 0 and \
+            maps.data_ptr() % 16 == 0 and \
+            all(v % vec == 0 for v in (sn, sy, sx)):
+        out['unit'] = sp.PointSamplePlan('unit')
+    if plan.layout != 'general':
+        out['general'] = sp.PointSamplePlan('general')
+    return out
+
+
+def plan_bytes(sp, maps, k):
+    """The staged layout's shared memory a map (the map, and its points'
+    records where C > 1)."""
+    _, c, h, w = maps.shape
+    return -(-c * h * w * maps.element_size() // 16) * 16 + (
+        k * sp.POINT_RECORD_BYTES if c > 1 else 0)
+
+
+def host_profile(fn, n=200, top=6):
+    """(host us a call, [(function, us a call)]): the host's time to issue
+    n calls back to back (no synchronisation between them), and the
+    functions that take the most of it by cProfile (its own time, the
+    profiler's overhead included)."""
+    import cProfile
+    import pstats
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return host, [(f'{f[2]} ({os.path.basename(f[0])}:{f[1]})',
+                   v[2] / n * 1e6) for f, v in rows]
+
+
+# edits of csrc/point_sample.cu for part 13a: the unit-stride layout with
+# 1 or 4 points in flight a thread instead of 2, and the staged layout at
+# 512 threads a block instead of 256 (on no path)
+POINT_FORWARD_PARTS = {
+    'unit_points_1': ({'constexpr int kUnitPoints = 2;':
+                       'constexpr int kUnitPoints = 1;'},),
+    'unit_points_4': ({'constexpr int kUnitPoints = 2;':
+                       'constexpr int kUnitPoints = 4;'},),
+    'staged_threads_512': ({'constexpr int kStagedThreads = 256;':
+                            'constexpr int kStagedThreads = 512;'},),
+}
+
+
+def probe_point_forward(smoke, report):
+    """Part 13a, the point-sample forward, at the four calls of one bs-16
+    PointRend step and the two call shapes of one request
+    (``point_forward_calls``): the call by graph replays and by events
+    (the eager call), the plain version's time, F.grid_sample on the
+    widened float32 map (``chip_smoke.grid_sample_points``), the bytes
+    bound as ``chip_smoke.phase_mask_kernels`` counts it, the maps'
+    strides, the layout and its active lanes a warp, the output against
+    plain (torch.equal); each layout that takes the call
+    (``point_layouts``) and the ``POINT_FORWARD_PARTS`` variants of its
+    own layout by graph replays; at the serving calls the host's time a
+    call and its largest parts (``host_profile``)."""
+    sp = importlib.import_module('erd_tpu_torch.ops.sampling')
+    variants = {v: variant_lib('point_sample', f'forward_{v}', alts)
+                for v, alts in POINT_FORWARD_PARTS.items()}
+    rows = []
+    for name, maps, pts in point_forward_calls(smoke):
+        n, k = pts.shape[:2]
+        c = maps.shape[1]
+
+        def call():
+            return sp.point_sample(maps, pts)
+        got = call()
+        torch.cuda.synchronize()
+        want = sp.point_sample_plain(maps, pts)
+        equal = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        del got, want
+        torch.cuda.empty_cache()
+        reps = 3 if n * k * c * 4 > 256 << 20 else 10
+        graph = smoke.graph_ms(torch, call, reps)
+        events = smoke.events_ms(torch, call, reps)
+        plain = smoke.events_ms(torch, lambda: sp.point_sample_plain(
+            maps, pts), 2)
+        torch.cuda.empty_cache()
+        maps32 = maps.float()
+        library = smoke.graph_ms(torch, lambda: smoke.grid_sample_points(
+            torch, maps32, pts), reps)
+        del maps32
+        torch.cuda.empty_cache()
+        _, _, _, touched = smoke.point_sample_stats(torch, maps, pts)
+        nbytes = touched * c * maps.element_size() + n * k * c * 4 + \
+            n * k * 8
+        bms, by = smoke.bound_of(nbytes, n * k * c * 11.0)
+        layout, lanes = point_lanes(sp, maps, k)
+        forced = {}
+        for lname, plan in point_layouts(sp, maps, k).items():
+            same = bool(torch.equal(sp.point_sample_launch(maps, pts, plan),
+                                    sp.point_sample_plain(maps, pts)))
+            torch.cuda.empty_cache()
+            forced[lname] = dict(graph_ms=smoke.graph_ms(
+                torch, lambda: sp.point_sample_launch(maps, pts, plan), reps),
+                equal=same)
+            if not same:
+                raise RuntimeError(f'probe 13a {name}: layout {lname} '
+                                   f'differs from plain')
+        for v, lib in variants.items():
+            if lib is None or v.split('_')[0] != layout:
+                continue
+            same = with_lib('point_sample', lib, lambda: bool(torch.equal(
+                call(), sp.point_sample_plain(maps, pts))))
+            torch.cuda.empty_cache()
+            forced[v] = dict(graph_ms=with_lib(
+                'point_sample', lib, lambda: smoke.graph_ms(torch, call,
+                                                             reps)),
+                equal=same)
+        host, top = host_profile(call) if name.startswith('serve') else \
+            (None, [])
+        rows.append(dict(call=name, maps=list(maps.shape),
+                         dtype=str(maps.dtype), strides=list(maps.stride()),
+                         points=list(pts.shape), graph_ms=graph,
+                         events_ms=events, plain_ms=plain, library_ms=library,
+                         bound_ms=bms, bound_by=by, bytes=nbytes,
+                         layout=layout, active_lanes=lanes, equal=equal,
+                         max_abs_err=err, layouts=forced, host_us=host,
+                         host_top=top))
+        print(f'probe 13a {name}: maps {tuple(maps.shape)} {maps.dtype} '
+              f'strides {maps.stride()}, points {tuple(pts.shape)}: graph '
+              f'{graph:.4f} ms, events (eager call) {events:.4f}, plain '
+              f'{plain:.3f}, F.grid_sample (float32 map) {library:.4f}, '
+              f'bound {bms:.5f} ({by}, {nbytes / 1e6:.1f} MB, '
+              f'{graph / bms:.2f}x); layout {layout}, {lanes:.1f} active '
+              f'lanes a warp; equal to plain {equal} (max_abs_err '
+              f'{err:.3e}); layouts (graph ms, equal): ' + ', '.join(
+                  f'{v} {fmt(t["graph_ms"])} {t["equal"]}'
+                  for v, t in forced.items()) +
+              ('' if host is None else f'; host {host:.1f} us a call, '
+               f'cProfile (us a call): ' + ', '.join(
+                   f'{f} {t:.1f}' for f, t in top)), flush=True)
+        if not equal:
+            raise RuntimeError(f'probe 13a {name}: the kernel differs from '
+                               f'plain')
+    report['13a'] = dict(calls=rows, train_step_graph_ms=sum(
+        r['graph_ms'] for r in rows if r['call'].startswith('train')))
+    torch.cuda.empty_cache()
+
+
+# edits of csrc/mask_target.cu for part 14: the redesign with a RoI a
+# warp, or about 320 items (4 cells each) a warp instead of 160, with the
+# out size read at run time at 28 and 14 too, without its crop reads (the
+# corners' indices summed instead), with the crop bytes converted through
+# their float bits (2^23 + v, less 2^23), and
+# without its store (the sums kept live by a test that never holds); on
+# no path
+MASK_TARGET_PARTS = {
+    'a_roi_a_warp': ({'constexpr int kItemsPerWarp = 160;':
+                      'constexpr int kItemsPerWarp = 1;'},),
+    'items_320': ({'constexpr int kItemsPerWarp = 160;':
+                   'constexpr int kItemsPerWarp = 320;'},),
+    'no_crop_loads': ({
+        'byte_to_float(__ldg(m + y0 + x0))': 'byte_to_float(y0 + x0)',
+        'byte_to_float(__ldg(m + y0 + x1))':
+        'byte_to_float(y0 + x1 + (m == nullptr))',
+        'byte_to_float(__ldg(m + y1 + x0))': 'byte_to_float(y1 + x0)',
+        'byte_to_float(__ldg(m + y1 + x1))': 'byte_to_float(y1 + x1)'},),
+    'runtime_size': ({
+        'size == 14   ? crop_resize_mask_kernel<4, 14>':
+        'size == -1   ? crop_resize_mask_kernel<4, 14>',
+        ': size == 28 ? crop_resize_mask_kernel<4, 28>':
+        ': size == -1 ? crop_resize_mask_kernel<4, 28>'},),
+    'unroll_1': ({'#pragma unroll 2\n  for (int t = lane; t < n_roi * per_roi':
+                  '#pragma unroll 1\n  for (int t = lane; t < n_roi * per_roi'},),
+    'unroll_4': ({'#pragma unroll 2\n  for (int t = lane; t < n_roi * per_roi':
+                  '#pragma unroll 4\n  for (int t = lane; t < n_roi * per_roi'},),
+    'occupancy_8_blocks': ({'__launch_bounds__(kWarps * 32)':
+                            '__launch_bounds__(kWarps * 32, 8)'},),
+    'bits_conversion': ({
+        'return static_cast<float>(v);':
+        'return __fsub_rn(__uint_as_float(0x4b000000u | v), 8388608.f);'},),
+    'no_store': ({
+        '      *reinterpret_cast<float4*>(dst + t * 4) =\n'
+        '          make_float4(res[0], res[1], res[2], res[3]);':
+        '      if (res[0] + res[1] + res[2] + res[3] == 12345.f)\n'
+        '        dst[t] = 1.f;'},),
+}
+
+
+def probe_mask_targets(smoke, report):
+    """Part 14, the mask targets, at the call of one bs-16 Mask R-CNN step
+    (28 x 28) and one PointRend step (14 x 14): the call by graph replays
+    and by events (the eager call), the plain version's time, the
+    F.grid_sample formulation (``chip_smoke.crop_resize_library``), the
+    bound as ``chip_smoke.phase_mask_train_kernels`` counts it, the
+    targets against plain (torch.equal), the ``MASK_TARGET_PARTS``
+    variants by graph replays, and the host's time a call and its largest
+    parts (``host_profile``)."""
+    masks_module = importlib.import_module('erd_tpu_torch.data.masks')
+    variants = {v: variant_lib('mask_target', f'mask_{v}', alts)
+                for v, alts in MASK_TARGET_PARTS.items()}
+    rows = []
+    for kind in ('mask_rcnn', 'point_rend'):
+        args = mask_step_calls(smoke, kind)['crop_resize_mask'][0]
+        masks, boxes, idx, rois, size = args
+
+        def call():
+            return masks_module.crop_resize_mask(*args)
+        got = call()
+        torch.cuda.synchronize()
+        want = masks_module.crop_resize_mask_plain(*args)
+        equal = bool(torch.equal(got, want))
+        del got
+        graph = smoke.graph_ms(torch, call, 20)
+        events = smoke.events_ms(torch, call, 20)
+        plain = smoke.events_ms(torch, lambda: masks_module.
+                                crop_resize_mask_plain(*args), 3)
+        lib, _ = smoke.crop_resize_library(torch, *args)
+        library = smoke.graph_ms(torch, lib, 20)
+        nbytes = masks.numel() + boxes.numel() * 4 + idx.numel() * 8 + \
+            rois.numel() * 4 + want.numel() * 4
+        bms, by = smoke.bound_of(nbytes, want.numel() * 30.0)
+        parts = {}
+        for v, lib in variants.items():
+            if lib is None:
+                parts[v] = None
+                continue
+            same = with_lib('mask_target', lib, lambda: bool(torch.equal(
+                call(), want)))
+            if v in ('a_roi_a_warp', 'items_320', 'runtime_size',
+                     'bits_conversion') and not same:
+                raise RuntimeError(f'probe 14 {kind} {v}: differs from '
+                                   f'plain')
+            parts[v] = dict(graph_ms=with_lib('mask_target', lib, lambda:
+                                              smoke.graph_ms(torch, call, 20)),
+                            equal=same)
+        host, top = host_profile(call)
+        rows.append(dict(config=kind, out=list(want.shape),
+                         gt_idx_dtype=str(idx.dtype), graph_ms=graph,
+                         events_ms=events, plain_ms=plain, library_ms=library,
+                         bound_ms=bms, bound_by=by, bytes=nbytes,
+                         equal=equal, parts=parts, host_us=host,
+                         host_top=top))
+        print(f'probe 14 {kind}: targets {tuple(want.shape)} (gt_idx '
+              f'{idx.dtype}, crops {tuple(masks.shape)}): graph {graph:.4f} '
+              f'ms, events (eager call) {events:.4f}, plain {plain:.3f}, '
+              f'F.grid_sample formulation {library:.4f}, bound {bms:.5f} '
+              f'({by}, {nbytes} bytes, {graph / bms:.2f}x); equal to plain '
+              f'{equal}; ' + ', '.join(
+                  f'{v} ' + ('not measured' if t is None else
+                             f'{t["graph_ms"]:.4f} (equal {t["equal"]})')
+                  for v, t in parts.items()) +
+              f'; host {host:.1f} us a call, cProfile (us a call): ' +
+              ', '.join(f'{f} {t:.1f}' for f, t in top), flush=True)
+        del want
+        if not equal:
+            raise RuntimeError(f'probe 14 {kind}: the kernel differs from '
+                               f'plain')
+    report['14'] = dict(calls=rows)
+    torch.cuda.empty_cache()
+
+
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
          '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
@@ -2538,6 +2903,7 @@ PARTS = {'8b': probe_deform, '9b': probe_attention,
          '3': probe_gfl_loss, '6': probe_atss, '4': probe_distill,
          '5': probe_ers, '11a': probe_soft_nms,
          '11a-floor': probe_soft_nms_floor, '15': probe_corner_targets,
+         '13a': probe_point_forward, '14': probe_mask_targets,
          'others': probe_other_backwards}
 
 

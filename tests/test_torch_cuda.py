@@ -1898,10 +1898,146 @@ def test_point_sample_kernel_matches_plain(cuda, form, dtype):
     assert point_sample.launches - before == 1
     want = point_sample_plain(maps, pts)
     assert got.dtype == torch.float32 and got.shape == want.shape
-    assert float((got - want).abs().max()) <= \
-        1e-6 * float(maps.float().abs().max())
+    assert torch.equal(got, want)
     # NCHW memory reads the same as channels-last
     assert torch.equal(point_sample(maps.contiguous(), pts), got)
+
+
+def point_train_case(rs, device, form):
+    """PointRend's four training call forms (maps, points) at reduced
+    counts but the path's widths and layouts: the uncertainty and target
+    calls on one-channel 14x14 maps (588 / 196 points, as the step's
+    ``coarse_at[:, None]`` / ``mt14[:, None]``), the coarse call on 80
+    channels-last float32 14x14 maps, the fine call on a channels-last bf16
+    P2 of 256 channels at the points of 12 RoIs an image; points uniform
+    over [-0.05, 1.05]^2 (some off the map) and the four corners."""
+    def pts(n, k):
+        p = rs.uniform(-0.05, 1.05, (n, k, 2)).astype(np.float32)
+        p[:, :4] = [[0, 0], [1, 1], [0, 1], [1, 0]]
+        return torch.from_numpy(p).to(device)
+    if form in ('uncertainty', 'targets'):
+        k = 588 if form == 'uncertainty' else 196
+        maps = torch.from_numpy(rs.randn(37, 14, 14).astype(np.float32))
+        return maps.to(device)[:, None], pts(37, k)
+    if form == 'coarse':  # enough maps for the staged layout's blocks
+        maps = torch.from_numpy(rs.randn(300, 14, 14, 80).astype(
+            np.float32))
+        return maps.to(device).permute(0, 3, 1, 2), pts(300, 196)
+    maps = torch.from_numpy(rs.randn(2, 50, 84, 256).astype(np.float32))
+    return maps.to(device=device, dtype=torch.bfloat16).permute(
+        0, 3, 1, 2), pts(2, 12 * 196)
+
+
+def point_forced_plans(maps, k):
+    """{name: plan}: the plan's layout, and every other layout that takes
+    these maps (staged at 1, 3 and 8 maps a block where they fit, by
+    16-byte copies where the maps are dense and aligned and element by
+    element, the unit-stride layout in 32- and 64-bit index math where the
+    channels allow it, the general one)."""
+    from erd_tpu_torch.ops.sampling import (STAGE_BYTES, PointSamplePlan,
+                                            point_sample_plan)
+    plan = point_sample_plan(tuple(maps.shape), maps.stride(), maps.dtype, k,
+                             maps.data_ptr())
+    out = {'plan': plan, 'general': PointSamplePlan('general')}
+    n, c, h, w = maps.shape
+    sn, sc, sy, sx = maps.stride()
+    per_map = -(-c * h * w * maps.element_size() // 16) * 16 + (
+        24 * k if c > 1 else 0)
+    dense = sx == c and sy == w * c and (c == 1 or sc == 1) and \
+        c * h * w * maps.element_size() % 16 == 0 and \
+        sn * maps.element_size() % 16 == 0 and maps.data_ptr() % 16 == 0
+    for g in (1, 3, 8):
+        if g * per_map <= STAGE_BYTES:
+            out[f'staged {g}'] = PointSamplePlan('staged', g, dense)
+            if dense:
+                out[f'staged {g} by elements'] = PointSamplePlan('staged', g)
+    vec = 16 // maps.element_size()
+    if sc == 1 and maps.shape[1] % vec == 0 and \
+            maps.data_ptr() % 16 == 0 and \
+            all(v % vec == 0 for v in (sn, sy, sx)):
+        out['unit'] = PointSamplePlan('unit')
+        out['unit wide'] = PointSamplePlan('unit', wide=True)
+    return out
+
+
+@pytest.mark.parametrize('form', ['uncertainty', 'coarse', 'fine',
+                                  'targets'])
+def test_point_sample_kernel_layouts_match_plain_exactly(cuda, form):
+    """Every layout of the forward at each PointRend training call form,
+    the plan's and each other one that takes the maps, one launch each,
+    equal to the plain version to the bit; the plan stages the one-channel
+    and (300 of them) the 80-channel 14x14 maps and takes the bf16 P2 by
+    unit-stride channels."""
+    from erd_tpu_torch.ops.sampling import (point_sample,
+                                            point_sample_launch,
+                                            point_sample_plain)
+    maps, pts = point_train_case(np.random.RandomState(11), cuda, form)
+    want = point_sample_plain(maps, pts)
+    plans = point_forced_plans(maps, pts.shape[1])
+    assert plans['plan'].layout == ('unit' if form == 'fine' else 'staged')
+    for name, plan in plans.items():
+        before = point_sample.launches
+        got = point_sample_launch(maps, pts, plan)
+        torch.cuda.synchronize()
+        assert point_sample.launches - before == 1, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize('case', ['nchw_bf16', 'offset', 'strided_pick',
+                                  'three_channels', 'bf16_coarse'])
+def test_point_sample_kernel_other_layouts_match_plain_exactly(cuda, case):
+    """Maps no model path gives, each in every layout that takes it: an
+    NCHW bf16 P2 and a map 4 bytes past a 16-byte boundary (the general
+    layout), one channel of channels-last logits (staged element by element
+    through its strides), 3 channels (staged a channel a thread), five
+    bf16 14x14 maps (too few blocks to stage: unit-stride channels; staged
+    too, 8-byte vectors)."""
+    from erd_tpu_torch.ops.sampling import (point_sample_launch,
+                                            point_sample_plain)
+    rs = np.random.RandomState(12)
+    pts = torch.from_numpy(rs.uniform(-0.05, 1.05, (5, 300, 2)).astype(
+        np.float32)).to(cuda)
+    if case == 'nchw_bf16':  # too large a map to stage (169 KB)
+        maps = torch.randn(5, 128, 20, 33, device=cuda).to(torch.bfloat16)
+    elif case == 'offset':
+        flat = torch.randn(5 * 64 * 20 * 33 + 1, device=cuda)
+        maps = flat[1:].view(5, 20, 33, 64).permute(0, 3, 1, 2)
+        assert maps.data_ptr() % 16 == 4
+    elif case == 'strided_pick':
+        logits = torch.randn(5, 14, 14, 80, device=cuda).permute(0, 3, 1, 2)
+        maps = logits[:, 7:8]  # strides (15680, 1, 1120, 80)
+    elif case == 'three_channels':
+        maps = torch.randn(5, 3, 14, 14, device=cuda)
+    else:
+        maps = torch.randn(5, 14, 14, 40, device=cuda).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+    want = point_sample_plain(maps, pts)
+    plans = point_forced_plans(maps, pts.shape[1])
+    layout = {'nchw_bf16': 'general', 'offset': 'general',
+              'bf16_coarse': 'unit'}.get(case, 'staged')
+    assert plans['plan'].layout == layout, plans['plan']
+    for name, plan in plans.items():
+        got = point_sample_launch(maps, pts, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+
+
+def test_point_sample_kernel_refuses_plans_that_do_not_fit(cuda):
+    """A forced layout the maps do not allow is refused by the kernel, and
+    the launch raises: the unit-stride layout on NCHW maps or on a map off
+    16 bytes, the staged layout past the shared memory of a block."""
+    from erd_tpu_torch.ops.sampling import PointSamplePlan, point_sample_launch
+    pts = torch.rand(2, 50, 2, device=cuda)
+    nchw = torch.randn(2, 64, 20, 33, device=cuda)
+    with pytest.raises(RuntimeError, match='unit'):
+        point_sample_launch(nchw, pts, PointSamplePlan('unit'))
+    flat = torch.randn(2 * 16 * 20 * 33 + 1, device=cuda)
+    off = flat[1:].view(2, 20, 33, 16).permute(0, 3, 1, 2)
+    with pytest.raises(RuntimeError, match='unit'):
+        point_sample_launch(off, pts, PointSamplePlan('unit'))
+    big = torch.randn(2, 256, 20, 33, device=cuda)
+    with pytest.raises(RuntimeError, match='staged'):
+        point_sample_launch(big, pts, PointSamplePlan('staged'))
 
 
 @pytest.mark.parametrize('direction', ['top', 'bottom', 'left', 'right'])
@@ -2024,6 +2160,10 @@ def test_point_sample_and_corner_pool_never_reach_plain_on_cuda(
                                   torch.float32, 'fine')
     sampling_module.point_sample(maps, pts)
     pool_module.corner_pool(maps, 'left')
+    for form in ('uncertainty', 'coarse', 'fine', 'targets'):
+        m, p = point_train_case(np.random.RandomState(3), cuda, form)
+        for plan in point_forced_plans(m, p.shape[1]).values():
+            sampling_module.point_sample_launch(m, p, plan)
     with pytest.raises(NotImplementedError, match='align_corners'):
         sampling_module.point_sample(maps, pts, align_corners=True)
     with pytest.raises(ValueError, match='no gradient'):
@@ -2260,6 +2400,60 @@ def test_crop_resize_mask_kernel_matches_plain_exactly(cuda, out_size):
     want = crop_resize_mask_plain(*args, out_size)
     assert torch.equal(got, want)
     assert 0.05 < float((want > 0).float().mean()) < 0.95
+
+
+def test_crop_resize_mask_never_reaches_plain_on_cuda(cuda, monkeypatch):
+    """CUDA tensors launch the mask-target kernel (one launch, whatever
+    the index type) and never the plain version."""
+    import erd_tpu_torch.data.masks as masks_module
+
+    def refuse(*args):
+        raise AssertionError('the plain version ran on a CUDA tensor')
+    monkeypatch.setattr(masks_module, 'crop_resize_mask_plain', refuse)
+    masks = torch.zeros((2, 3, 56, 56), dtype=torch.uint8, device=cuda)
+    boxes = torch.tensor([[0., 0., 10., 10.]] * 6, device=cuda).view(2, 3, 4)
+    rois = torch.tensor([[1., 1., 5., 5.]] * 10, device=cuda).view(2, 5, 4)
+    for index in (torch.int64, torch.int32, torch.int16):
+        idx = torch.zeros((2, 5), dtype=index, device=cuda)
+        before = masks_module.crop_resize_mask.launches
+        out = masks_module.crop_resize_mask(masks, boxes, idx, rois, 14)
+        torch.cuda.synchronize()
+        assert masks_module.crop_resize_mask.launches - before == 1
+        assert out.shape == (2, 5, 14, 14) and not bool(out.any())
+
+
+@pytest.mark.parametrize('out_size', [28, 14, 7])
+@pytest.mark.parametrize('s', [1, 13, 37])
+def test_crop_resize_mask_kernel_ragged_runs_and_index_types(cuda, out_size,
+                                                            s):
+    """Runs of RoIs that end inside a warp's run or a block's (a warp takes
+    1 RoI at 28 and 3 at 14 and 7, a block 8 warps), an out^2 that is not
+    a multiple of 4 (7: a cell a lane at a time, the size read at run
+    time), RoIs far off their gt and on it, degenerate gt boxes; int64 and
+    int32 gt indices read in place, both equal to plain."""
+    from erd_tpu_torch.data.masks import (crop_resize_mask,
+                                          crop_resize_mask_plain)
+    rs = np.random.RandomState(8)
+    b, g = 3, 4
+    xy = rs.uniform(0, 300, (b, g, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(0, 200, (b, g, 2))], -1)
+    boxes[0, 1] = [20, 20, 20, 20]
+    boxes[1, 2] = [10, 40, 80, 40.0005]
+    masks = (rs.rand(b, g, 56, 56) < 0.5).astype(np.uint8)
+    idx = rs.randint(0, g, (b, s))
+    gt_xy = boxes[np.arange(b)[:, None], idx, :2]
+    rois = np.concatenate([gt_xy - 30 + rs.uniform(0, 60, (b, s, 2))] * 2,
+                          -1)
+    rois[..., 2:] += rs.uniform(0, 250, (b, s, 2))
+    rois[0, 0] = [-1e5, -1e5, -9e4, -9e4]
+    rois[-1, -1] = [1e5, 1e5, 2e5, 2e5]
+    for index in (torch.int64, torch.int32):
+        args = [torch.from_numpy(a).to(cuda) for a in (
+            masks, boxes.astype(np.float32), idx, rois.astype(np.float32))]
+        args[2] = args[2].to(index)
+        got = crop_resize_mask(*args, out_size)
+        torch.cuda.synchronize()
+        assert torch.equal(got, crop_resize_mask_plain(*args, out_size))
 
 
 def test_render_corner_targets_kernel_matches_plain(cuda):

@@ -174,7 +174,7 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     every known part exits 1 before it measures anything."""
     from erd_tpu_torch.tools import atomic_backward_probe as probe
     parts = ['8b', '9b', '9', '7b', '1', '7', '10b', '10', '13a-b', '3',
-             '6', '4', '5', '11a', '11a-floor', '15', 'others']
+             '6', '4', '5', '11a', '11a-floor', '15', '13a', '14', 'others']
     assert list(probe.PARTS) == parts
     assert probe.main(['--only', '1,nms']) == 2
     assert str(parts) in capsys.readouterr().err
@@ -185,6 +185,7 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     assert probe.main(['--only', '3,6']) == 1
     assert probe.main(['--only', '4,5']) == 1
     assert probe.main(['--only', '11a,15']) == 1
+    assert probe.main(['--only', '13a,14']) == 1
 
 
 @pytest.mark.parametrize('name,parts,parent_only', [
@@ -202,12 +203,15 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
       'no_distribution')),
     ('erd_distill', 'DISTILL_PARTS', ()),
     ('ers_select', 'ERS_PARTS', ()),
-    ('soft_nms', 'SOFT_NMS_PARTS', ())])
+    ('soft_nms', 'SOFT_NMS_PARTS', ()),
+    ('point_sample', 'POINT_FORWARD_PARTS', ()),
+    ('mask_target', 'MASK_TARGET_PARTS', ())])
 def test_probe_variants_fit_the_kernel_sources(name, parts, parent_only):
-    """Parts 7, 10b, 10, 13a-b, 3, 6, 4, 5 and 11a build their variants
-    from edited copies of csrc/roi_align.cu, csrc/carafe.cu,
+    """Parts 7, 10b, 10, 13a-b, 3, 6, 4, 5, 11a, 13a and 14 build their
+    variants from edited copies of csrc/roi_align.cu, csrc/carafe.cu,
     csrc/point_sample.cu, csrc/gfl_loss.cu, csrc/atss.cu,
-    csrc/erd_distill.cu, csrc/ers_select.cu and csrc/soft_nms.cu (the
+    csrc/erd_distill.cu, csrc/ers_select.cu, csrc/soft_nms.cu and
+    csrc/mask_target.cu (the
     parents of parts 3 and
     4: of their Triton modules ops/gfl_loss.py and ops/erd_distill.py):
     every variant but the parent designs' (marked
