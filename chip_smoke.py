@@ -15,7 +15,9 @@ Phases, in order; any failed check exits non-zero before the last line:
                 1e-5 * max|out|; the same conv forced into TF32 must miss it;
   3. kernels    each serving kernel against its plain PyTorch version on the
                 card at serving shapes (NMS keep masks exactly equal; the
-                decode within 1e-4 * stride + 1e-5 * |box| px), then timed;
+                decode within 1e-4 * stride + 1e-5 * |box| px on the flat
+                float32 form and on five level maps: float32 and bf16 NHWC
+                views of NCHW maps, bf16 channels-last), then timed;
   4. reference  the full-width float32 network on the card against the same
                 network on the CPU, on a small input;
   5. serve      4 requests through init_detector / inference_detector of the
@@ -23,13 +25,16 @@ Phases, in order; any failed check exits non-zero before the last line:
                 random weights, gfl_cls bias 0) on both canvases; every
                 kernel of the path must have launched; the same head outputs
                 post-processed on the CPU must give the same detections;
+                the decode must get the head's five distribution maps
+                themselves (no cast or concatenation before it), and the
+                800x1333 request's call is held to plain and graph-timed;
   6. train kernels  the training kernels against their plain versions at
                 B = 2 and at the train step's B = 16, N = 22400 (ATSS and
                 the ERS lists exactly, ERS masks exactly away from the
                 threshold, the fused losses within stated tolerances,
                 forward and backward; the decode without clip and the NMS on
                 the ERS teacher rows at K = 1024 and 4481), then timed at
-                B = 16;
+                B = 16 (the decode's two calls by graph replays);
   7. train reference  the full-width float32 ERD loss dict and student
                 gradients on the card (kernels) and on the CPU (plain
                 versions), on a small input; the same gradients in float64
@@ -100,7 +105,8 @@ Phases, in order; any failed check exits non-zero before the last line:
                 the NMS (and GFL's decode) kernels; every detection finite
                 and inside its image; stage times (backbone, neck, head,
                 post-processing), peak memory, the idle share of one
-                request; card-vs-CPU post-processing;
+                request; card-vs-CPU post-processing; GFL R101-DCN's
+                800x1333 decode call as in 5;
  17. carafe kernels  one 800x1333 request of FPN-CARAFE Faster R-CNN R50 (80
                 classes, bf16, content encoders arranged by arrange_carafe)
                 with its 3 CARAFE calls captured (25x42, 50x84 and 100x168,
@@ -348,13 +354,14 @@ Phases, in order; any failed check exits non-zero before the last line:
                 every CornerNet BN running statistic moved; img/s, peak
                 memory, the stage times of one train_step and the idle
                 share of one profiled step;
- 39. solo kernels  rows 12b-d and 13b: the matrix-decay kernel on the
+ 39. solo kernels  rows 12b-d and 13b: the fused mask-IoU decay on the
                 real call of one 800x1333 SOLOv2 R50 request (bf16, heads
                 arranged by arrange_solo_heads: ~300 of 3872 cells over
                 score_thr, the other nms_pre slots scored 0; the (1, 500,
-                500) mask IoU) within 1e-6 relative of its plain version,
-                and its box form at K = 2000 (80 classes, tied scores and
-                IoUs), gaussian and linear; fast NMS and nms_match's
+                500) mask overlaps and areas) within 1e-6 relative of its
+                plain version, zeros equal; the two-launch decay on that
+                call's mask IoU, and its box form at K = 2000 (80
+                classes, tied scores and IoUs), gaussian and linear; fast NMS and nms_match's
                 leader at K = 2000, IoU 0.5, equal to plain; the masked
                 conv (3x3, 256 -> 256, float32, 100 x 168, 5 / 25 / 49.4
                 / 50 / 99.4 / 100 % of positions: each side of two tile
@@ -372,8 +379,8 @@ Phases, in order; any failed check exits non-zero before the last line:
                 their binarised crops at IoU >= 0.99, flips logged; a 1 %
                 error planted in the matrix decay must fail that gate;
  41. solo serve  init_detector / inference_detector of SOLOv2 R50 (bf16,
-                heads arranged) on the 4 requests: one matrix_decay call
-                (two launches) per request, detections finite and inside
+                heads arranged) on the 4 requests: one mask_matrix_decay
+                launch per request, detections finite and inside
                 the canvas in their image's frame, stage times (backbone +
                 neck, heads, dynamic conv, decode), peak memory, the idle
                 share of one request, each request's card decode against
@@ -389,6 +396,7 @@ The script imports neither JAX nor erd_tpu.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -753,6 +761,64 @@ def nms_case(np, torch, rs, b, k, num_labels=NUM_CLASSES):
             for a in (boxes, valid, order)]
 
 
+DECODE_DESIGN = (
+    'one launch a batch; the rows read where they lie (the head\'s five '
+    'level maps with their element strides, float32 or bf16 widened in '
+    'registers, or one flat map); a block 32 candidates staged in shared '
+    'memory by 16- or 8-byte loads where unit-stride and aligned, else '
+    'element by element; a thread a side, 17 exponentials in registers, '
+    'one division')
+
+
+def decode_call(np, torch, tag, args, levels=None):
+    """Row 2 at one call shape of a main path, ``args`` as the path handed
+    them to ``integral_decode``: held to plain within 1e-4 * stride +
+    1e-5 * |box| px; with ``levels``, the head's distribution maps, checked
+    to be the very tensors the decode got (no cast and no concatenation
+    before it); timed by graph replays and events beside plain and the
+    bound (each image's distinct rows' logits, centre and stride, the rows
+    and img_shape read once, the boxes written; 121 operations a side)."""
+    from erd_tpu_torch.ops import integral_decode, integral_decode_plain
+    reg, rows, centers, strides, img_shape = args[:5]
+    if levels is not None:
+        check(isinstance(reg, (list, tuple)) and len(reg) == len(levels) and
+              all(a is b for a, b in zip(reg, levels)),
+              f'{tag}: the decode did not get the head\'s maps themselves '
+              f'(a cast or concatenation ran before it)')
+    maps = reg if isinstance(reg, (list, tuple)) else [reg]
+
+    def call():
+        return integral_decode(*args)
+
+    def plain():
+        return integral_decode_plain(*args)
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    err = (got - want).abs()
+    stride = strides[rows].unsqueeze(-1)
+    ratio = float((err / (1e-4 * stride + 1e-5 * want.abs())).max())
+    check(ratio <= 1.0, f'{tag}: decode kernel disagrees with plain')
+    b, k = rows.shape
+    uniq = sum(int(torch.unique(rows[i]).numel()) for i in range(b))
+    nbytes = uniq * (68 * maps[0].element_size() + 8 + 4) + \
+        b * k * (8 + 16) + b * 8
+    bms, by = bound_of(nbytes, b * k * 4 * 121.0)
+    out = dict(call=tag, rows=[b, k], ms=graph_ms(torch, call, 20),
+               ms_from='graph', call_ms=events_ms(torch, call, 20),
+               plain_ms=events_ms(torch, plain, 3), bound_ms=bms,
+               bound_by=by, bytes=nbytes, max_abs_err=float(err.max()),
+               err_over_gate=ratio,
+               maps=[dict(shape=list(m.shape), dtype=str(m.dtype),
+                          strides=list(m.stride())) for m in maps])
+    log(f'{tag}: integral_decode {b}x{k} rows of ' + ', '.join(
+        f'{tuple(m.shape)} {m.dtype} {m.stride()}' for m in maps) +
+        f': {out["ms"]:.4f} ms (graph), {out["call_ms"]:.4f} eager (events), '
+        f'plain {out["plain_ms"]:.3f}, bound {bms:.5f} ({by}); max_abs_err '
+        f'{out["max_abs_err"]:.3e} px ({ratio:.3f} of the gate)')
+    return out
+
+
 def phase_kernels(np, torch):
     from erd_tpu_torch.models.heads.gfl_head import AnchorContext
     from erd_tpu_torch.ops import (integral_decode, integral_decode_plain,
@@ -800,7 +866,10 @@ def phase_kernels(np, torch):
         nms_bytes / PEAK_BYTES_PER_S else 'bytes',
         library_ms=None))
 
-    # -- B: decode, (2, 22400, 68) logits, 1000 candidate rows per level
+    # -- B: decode, (2, 22400, 68) logits, 1000 candidate rows per level:
+    # the flat float32 form, and the five level maps as a head leaves them
+    # (NHWC views of NCHW maps, float32 and bf16; vector loads on
+    # channels-last bf16)
     ctx = AnchorContext.build((800, 1344))
     centers, strides = ctx.device_tensors('cuda')
     n = ctx.num_anchors
@@ -815,39 +884,37 @@ def phase_kernels(np, torch):
         (rs.randn(2, n, 68) * 3).astype(np.float32)).cuda()
     rows = candidate_rows(2)
     img_shape = torch.tensor([[800.0, 1333.0], [800.0, 1200.0]]).cuda()
-    got = integral_decode(reg, rows, centers, strides, img_shape)
-    torch.cuda.synchronize()
-    want = integral_decode_plain(reg, rows, centers, strides, img_shape)
-    err = (got - want).abs()
-    tol = 1e-4 * strides[rows].unsqueeze(-1) + 1e-5 * want.abs()
-    dec_err = float(err.max())
-    log(f'kernels: integral_decode B=2 N={n} K={rows.shape[1]} '
-        f'max_abs_err={dec_err:.3e} px (tolerance 1e-4*stride+1e-5*|box|)')
-    check(bool((err <= tol).all()), 'decode kernel disagrees with plain')
-    reg1, rows1, shape1 = reg[:1].contiguous(), rows[:1].contiguous(), \
-        img_shape[:1].contiguous()
-    dec = (lambda: integral_decode(reg1, rows1, centers, strides, shape1))
-    dec_call_ms = events_ms(torch, dec, 50)
-    dec_ms = kernel_ms(torch, dec, ['integral_decode_kernel'], 50)
-    dec_plain_ms = events_ms(torch, lambda: integral_decode_plain(
-        reg1, rows1, centers, strides, shape1), 50)
-    kc = rows1.shape[1]
-    uniq = int(torch.unique(rows1).numel())
-    dec_bytes = uniq * (68 * 4 + 8 + 4) + kc * 8 + 8 + kc * 16
-    dec_ops = kc * 4 * 121.0  # per side: 16 max, 17 sub, 17 exp, 16 add,
-    # 17 div, 17 mul, 17 add, stride mul, centre add, 2 clips
+    dec_err = 0.0
+    nchw = [reg[:, a:b].reshape(2, h, w, 68).permute(0, 3, 1, 2).contiguous()
+            for (a, b), (h, w) in zip(zip(starts[:-1], starts[1:]),
+                                      ctx.featmap_sizes)]
+    forms = {'flat float32': reg,
+             'levels float32 (NHWC views of NCHW)': [
+                 m.permute(0, 2, 3, 1) for m in nchw],
+             'levels bf16 (NHWC views of NCHW)': [
+                 m.bfloat16().permute(0, 2, 3, 1) for m in nchw],
+             'levels bf16 channels-last': [
+                 m.bfloat16().contiguous(memory_format=torch.channels_last)
+                 .permute(0, 2, 3, 1) for m in nchw]}
+    for form, logits in forms.items():
+        got = integral_decode(logits, rows, centers, strides, img_shape)
+        torch.cuda.synchronize()
+        want = integral_decode_plain(logits, rows, centers, strides,
+                                     img_shape)
+        err = (got - want).abs()
+        tol = 1e-4 * strides[rows].unsqueeze(-1) + 1e-5 * want.abs()
+        dec_err = max(dec_err, float(err.max()))
+        log(f'kernels: integral_decode B=2 N={n} K={rows.shape[1]} {form}: '
+            f'max_abs_err={float(err.max()):.3e} px (tolerance '
+            f'1e-4*stride+1e-5*|box|)')
+        check(bool((err <= tol).all()),
+              f'decode kernel disagrees with plain ({form})')
+    del nchw, forms
     rows_out.append(dict(
         name='integral_decode', route='cuda',
         source='erd_tpu_torch/csrc/integral_decode.cu',
-        replaces='erd_tpu/ops/integral.py:14',
-        max_abs_err=dec_err, ms=dec_ms or dec_call_ms, call_ms=dec_call_ms,
-        ms_from='profiler' if dec_ms else 'events',
-        plain_ms=dec_plain_ms,
-        bound_ms=1e3 * max(dec_bytes / PEAK_BYTES_PER_S,
-                           dec_ops / PEAK_FP32_PER_S),
-        bound_by='bytes' if dec_bytes / PEAK_BYTES_PER_S >=
-        dec_ops / PEAK_FP32_PER_S else 'operations',
-        library_ms=None))
+        replaces='erd_tpu/ops/integral.py:14', max_abs_err=dec_err,
+        library_ms=None, redesigned=True, design=DECODE_DESIGN))
     log('kernels: library_ms is null for both: no single PyTorch call '
         'computes greedy NMS (no torchvision) or the fused decode')
     return rows_out
@@ -896,19 +963,29 @@ def phase_serve(np, torch, card):
         np, torch, det, net, images, counters,
         {k: len(images) for k in counters}, 'serve', card)
 
+    head_module = importlib.import_module(
+        'erd_tpu_torch.models.heads.gfl_head')
     pipe = DetPipeline()
     for i, (img, res) in enumerate(zip(images, results)):
         req = ServedRequest(np, torch, pipe, i, img)
         ctx = det.anchor_context(req.images.shape[1:3])
         cls, reg = det.forward_raw(net, req.images)
         req.mark()
-        gpu = det.postprocess(ctx, cls, reg, req.meta_dev)
+        calls = []
+        restore = capture(head_module, 'integral_decode', calls)
+        try:
+            gpu = det.postprocess(ctx, cls, reg, req.meta_dev)
+        finally:
+            restore()
         req.mark()
         req.log_stages('serve', ('network', 'post-processing'))
         cpu = det.postprocess(ctx, [c.cpu() for c in cls],
                               [r.cpu() for r in reg], req.meta_cpu)
         req.compare('serve', gpu, cpu, len(res.scores), min_candidates=1)
-    return launches
+        check(len(calls) == 1, f'serve request {i}: {len(calls)} decodes')
+        if i == len(images) - 1:  # the 800x1333 request's call shape
+            decode = decode_call(np, torch, 'serve', calls[0], reg)
+    return launches, decode
 
 
 def bound_of(nbytes, ops, bf16_ops=0.0):
@@ -1609,21 +1686,23 @@ def phase_train_kernels(np, torch):
     # the decode and NMS on the ERS teacher rows at both branches' sizes
     # (their rows of the JSON line come from the serving phase; these are
     # the same kernels on the train path)
-    extra = {}
+    extra, decode_shapes = {}, []
     for k in (fast_k, cap):
         _, ri, _, _, nargs = ers_nms(big, k)
-        dec_ms = events_ms(torch, lambda: integral_decode(
-            big['t_reg'], ri, centers, unit, None), 20)
+        shape = decode_call(np, torch, f'train kernels: B={b} K={k}',
+                            (big['t_reg'], ri, centers, unit, None))
+        decode_shapes.append(shape)
         nms_ms = events_ms(torch, lambda: nms_sorted_keep(*nargs), 5)
-        extra[k] = (dec_ms, nms_ms)
-        log(f'train kernels: B={b} K={k}: decode {dec_ms:.4f} ms, NMS '
-            f'{nms_ms:.4f} ms per call (events)')
+        extra[k] = (shape['ms'], nms_ms)
+        log(f'train kernels: B={b} K={k}: decode {shape["ms"]:.4f} ms '
+            f'(graph), NMS {nms_ms:.4f} ms per call (events)')
     del big, case
     torch.cuda.empty_cache()
     log('train kernels: library_ms is null for all four: no single PyTorch '
         'call computes ATSS, the ERS selection, the fused GFL loss or the '
         'fused distillation')
-    return rows, extra, errs['decode']
+    return rows, extra, dict(no_clip_err=errs['decode'],
+                             shapes=decode_shapes)
 
 
 def phase_train_reference(np, torch):
@@ -2975,6 +3054,9 @@ def phase_dcn_serve(np, torch, card):
                 'integral_decode': integral_decode}
     launches = {k: 0 for k in counters}
     by_config = {}
+    head_module = importlib.import_module(
+        'erd_tpu_torch.models.heads.gfl_head')
+    decode = None
     for kind, path in DCN_CONFIGS.items():
         tag = f'dcn serve {kind}'
         det, net = dcn_net(torch, path, kind)
@@ -3004,8 +3086,17 @@ def phase_dcn_serve(np, torch, card):
                 else:
                     ctx = det.context(req.images.shape[1:3])
                     heads = (outs[0], outs[2])  # classes, refined boxes
-                gpu = det.postprocess(ctx, *heads, req.meta_dev)
+                calls = []
+                restore = capture(head_module, 'integral_decode', calls)
+                try:
+                    gpu = det.postprocess(ctx, *heads, req.meta_dev)
+                finally:
+                    restore()
                 req.mark()
+                check(len(calls) == want['integral_decode'] // len(images),
+                      f'{tag} request {i}: {len(calls)} decodes')
+                if gfl and i == len(images) - 1:
+                    decode = decode_call(np, torch, tag, calls[0], outs[1])
             req.log_stages(tag, ('normalise + backbone', 'neck', 'head',
                                  'post-processing'))
             cpu = det.postprocess(ctx, *[[t.cpu() for t in lvl]
@@ -3015,7 +3106,7 @@ def phase_dcn_serve(np, torch, card):
         del det, net
         torch.cuda.empty_cache()
     launches['deform_im2col_by_config'] = by_config
-    return launches
+    return launches, decode
 
 
 def tf32_settings(torch):
@@ -6913,11 +7004,13 @@ def kernel_row(name, source, replaces, ms, call_ms, src, plain_ms, bms, by,
 
 
 def phase_solo_kernels(np, torch):
-    """Rows 12b-d and 13b: the matrix-decay kernel on the real call of one
+    """Rows 12b-d and 13b: the fused mask-IoU decay on the real call of one
     800x1333 SOLOv2 R50 request (bf16, heads arranged: (1, 500) scores, most
-    of them 0, and the (1, 500, 500) mask IoU) within 1e-6 relative of its
-    plain version; the box form at K = 2000 (80 classes, tied scores and
-    IoUs), gaussian and linear, within 1e-6 relative; fast NMS and
+    of them 0, the (1, 500, 500) mask overlaps and (1, 500) areas) within
+    1e-6 relative of its plain version, zeros equal with their signs; the
+    two-launch decay on that call's mask IoU, the same; the box form at K
+    = 2000 (80 classes, tied scores and IoUs), gaussian and linear, within
+    1e-6 relative; fast NMS and
     nms_match's leader at K = 2000, 80 classes, IoU 0.5, keep masks and
     leaders equal; the masked conv (3x3, 256 -> 256, float32, 1 x 100 x
     168, masks of 840, 4200, 8300, 8400, 16700 and 16800 positions) with
@@ -6930,7 +7023,8 @@ def phase_solo_kernels(np, torch):
 
     import torch.nn.functional as F
 
-    from erd_tpu_torch.ops import (fast_nms_keep, masked_conv2d,
+    from erd_tpu_torch.ops import (fast_nms_keep, mask_matrix_decay,
+                                   mask_matrix_decay_plain, masked_conv2d,
                                    masked_conv2d_plain, matrix_decay,
                                    matrix_decay_plain, matrix_nms,
                                    matrix_nms_plain, nms_mask,
@@ -6946,45 +7040,84 @@ def phase_solo_kernels(np, torch):
         'erd_tpu_torch.models.detectors.solov2')
     det, net, batch, passing = solo_net(np, torch)
     calls = []
-    restore = capture(solo_module, 'matrix_decay', calls)
+    restore = capture(solo_module, 'mask_matrix_decay', calls)
     try:
         res, crops = det.predict(net, batch)
     finally:
         restore()
     torch.cuda.synchronize()
-    check(len(calls) == 1, f'{len(calls)} matrix_decay calls in one SOLOv2 '
-          f'request, expected 1')
+    check(len(calls) == 1, f'{len(calls)} mask_matrix_decay calls in one '
+          f'SOLOv2 request, expected 1')
     args = calls[0]
-    scores, iou = args[0], args[1]
+    scores, inter, area, labels = args[:4]
     n = scores.shape[-1]
     zero = int((scores == 0).sum())
-    got = matrix_decay(*args)
+
+    def held(got, want):
+        """(max relative error, zeros equal with their signs)."""
+        live = want != 0
+        rel = float(((got - want).abs() / want.abs())[live].max()) \
+            if bool(live.any()) else 0.0
+        return rel, bool(torch.equal(got == 0, ~live) and torch.equal(
+            torch.signbit(got[~live]), torch.signbit(want[~live])))
+    got = mask_matrix_decay(*args)
     torch.cuda.synchronize()
-    want = matrix_decay_plain(*args)
-    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30))[
-        want != 0].max()) if bool((want != 0).any()) else 0.0
-    exact_zero = bool(torch.equal(got == 0, want == 0))
+    want = mask_matrix_decay_plain(*args)
+    rel, exact_zero = held(got, want)
     decayed = int((want < scores).sum())
-    log(f'solo kernels: matrix_decay on the request\'s call: N={n}, '
+    log(f'solo kernels: mask_matrix_decay on the request\'s call: N={n}, '
         f'{passing} cells over score_thr, {zero} slots scored 0, {decayed} '
         f'decayed; max rel err {rel:.2e} (limit 1e-6), zeros equal '
         f'{exact_zero}; {int(res.mask.sum())} detections')
     check(rel <= 1e-6 and exact_zero and decayed > 0,
-          'matrix_decay differs from plain on the SOLOv2 call')
+          'mask_matrix_decay differs from plain on the SOLOv2 call')
     ms, call_ms, src, plain_ms = time_graph(
-        torch, lambda: matrix_decay(*args), lambda: matrix_decay_plain(*args))
-    # a pair: the comp pass (2 compares, a max) and the decay (3 products,
-    # a difference, an exp, a min); the IoU read once
-    bms, by = bound_of(iou.numel() * 4 + n * 16, n * n * 9.0)
+        torch, lambda: mask_matrix_decay(*args),
+        lambda: mask_matrix_decay_plain(*args))
+    # the live rows' IoU inputs as the data needs them (a zero score's row
+    # is never read), the scores, areas, labels and output; a live pair:
+    # the mask IoU (an add, a difference, a max, a division), the comp
+    # pass (2 compares, a max) and the decay (3 products, a difference, an
+    # exp, a min)
+    live = n - zero
+    bms, by = bound_of(live * n * 4 + n * (4 + 4 + 8 + 4), live * n * 13.0)
+    fused_row = kernel_row(
+        'mask_matrix_decay', 'erd_tpu_torch/csrc/extra_nms.cu',
+        'erd_tpu/models/detectors/solov2.py:400', ms, call_ms, src, plain_ms,
+        bms, by, None, float((got - want).abs().max()), max_rel_err=rel,
+        inline_in='erd_tpu/models/detectors/solov2.py:400-410', n=n,
+        zero_slots=zero, redesigned=True, design=(
+            'one cooperative launch from inter and area, the mask IoU '
+            'computed where it is used; an image on ~N/8 blocks, a warp a '
+            'row; the comps across one grid-wide barrier, a row\'s '
+            'decay_iou held in registers over it; one exp a row; rows '
+            'scored 0 and terms whose condition fails skipped (exact)'))
+    log(f'solo kernels: mask_matrix_decay N={n} {ms:.4f} ms device ({src}), '
+        f'{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound '
+        f'{bms:.6f} ms ({by})')
+
+    # 12b's two-launch kernel on the same call's mask IoU (the op form)
+    union = area[:, :, None] + area[:, None, :] - inter
+    miou = inter / union.clamp(min=1.0)
+    dargs = (scores, miou) + tuple(args[3:])
+    got = matrix_decay(*dargs)
+    torch.cuda.synchronize()
+    want = matrix_decay_plain(*dargs)
+    rel, exact_zero = held(got, want)
+    check(rel <= 1e-6 and exact_zero,
+          'matrix_decay differs from plain on the SOLOv2 call\'s IoU')
+    ms, call_ms, src, plain_ms = time_graph(
+        torch, lambda: matrix_decay(*dargs),
+        lambda: matrix_decay_plain(*dargs))
+    bms, by = bound_of(miou.numel() * 4 + n * 16, n * n * 9.0)
     decay_row = kernel_row(
         'matrix_decay', 'erd_tpu_torch/csrc/extra_nms.cu',
         'erd_tpu/ops/extra_nms.py:17', ms, call_ms, src, plain_ms, bms, by,
-        None, float((got - want).abs().max()), max_rel_err=rel,
-        inline_in='erd_tpu/models/detectors/solov2.py:399-410', n=n,
+        None, float((got - want).abs().max()), max_rel_err=rel, n=n,
         zero_slots=zero)
-    log(f'solo kernels: matrix_decay N={n} {ms:.4f} ms device ({src}), '
-        f'{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound '
-        f'{bms:.6f} ms ({by})')
+    log(f'solo kernels: matrix_decay on the call\'s mask IoU N={n}: max rel '
+        f'err {rel:.2e}; {ms:.4f} ms device ({src}), {call_ms:.4f} ms per '
+        f'call, plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by})')
 
     rs = np.random.RandomState(31)
     k = 2000
@@ -7129,7 +7262,7 @@ def phase_solo_kernels(np, torch):
         by_density=by_density)
     del net, calls, args
     torch.cuda.empty_cache()
-    return [decay_row, fast_row, match_row, conv_row]
+    return [fused_row, decay_row, fast_row, match_row, conv_row]
 
 
 def phase_solo_reference(np, torch):
@@ -7166,7 +7299,7 @@ def phase_solo_reference(np, torch):
     res_cpu = det.decode(*out_cpu, h, meta_cpu)
     res_gpu = det.decode(*out_gpu, h, meta_gpu)
     stats, _ = solo_compare(torch, 'solo reference', res_gpu, res_cpu)
-    with patched(solo_module, 'matrix_decay',
+    with patched(solo_module, 'mask_matrix_decay',
                  lambda fn: lambda *a: fn(*a) * 1.01):
         res_bad = det.decode(*out_gpu, h, meta_gpu)
     _, passed = solo_compare(torch, 'solo reference control, decay x 1.01',
@@ -7180,9 +7313,10 @@ def phase_solo_reference(np, torch):
 
 def phase_solo_serve(np, torch, card):
     """init_detector / inference_detector of SOLOv2 R50 (bf16, heads
-    arranged) on the 4 requests: two matrix_decay launches per request (one
-    call, the decode's only kernel; the rest is cuDNN, cuBLAS and torch
-    ops); every
+    arranged) on the 4 requests: one mask_matrix_decay launch per request
+    (the decode's only kernel, the mask IoU made in it; the two-launch
+    matrix_decay not called; the rest is cuDNN, cuBLAS and torch ops);
+    every
     detection finite, its label in range and its box inside the canvas in
     the image's frame (erd_tpu takes boxes from the masks' extents over
     the whole canvas and does not clip); stage times (backbone + neck,
@@ -7190,13 +7324,15 @@ def phase_solo_serve(np, torch, card):
     request; the card's decode of each request's outputs against the
     CPU's (solo_compare)."""
     from erd_tpu_torch.data import DetPipeline
-    from erd_tpu_torch.ops import matrix_decay
+    from erd_tpu_torch.ops import mask_matrix_decay, matrix_decay
     images = request_images(np)
     det, net, _, passing = solo_net(np, torch)
     tag = 'solo serve'
     results, counts = serve_requests(
-        np, torch, det, net, images, {'matrix_decay': matrix_decay},
-        {'matrix_decay': 2 * len(images)}, tag, card, inside=False)
+        np, torch, det, net, images, {'mask_matrix_decay': mask_matrix_decay,
+                                      'matrix_decay': matrix_decay},
+        {'mask_matrix_decay': len(images), 'matrix_decay': 0}, tag, card,
+        inside=False)
     pipe = DetPipeline(scale=(1333, 800))
     for i, (img, res) in enumerate(zip(images, results)):
         with torch.no_grad():
@@ -7277,9 +7413,9 @@ def main() -> int:
         tf32 = phase_tf32(np, torch)
         kernels = phase_kernels(np, torch)
         phase_reference(np, torch)
-        serve_launches = phase_serve(np, torch, card)
-        train_rows, train_extra, no_clip_err = phase_train_kernels(np,
-                                                                   torch)
+        serve_launches, serve_decode = phase_serve(np, torch, card)
+        train_rows, train_extra, train_decode = phase_train_kernels(np,
+                                                                    torch)
         phase_train_reference(np, torch)
         train_launches = phase_train(np, torch, card)
         frcnn_rows, frcnn_nms = phase_frcnn_kernels(np, torch, floor)
@@ -7288,7 +7424,7 @@ def main() -> int:
         phase_detr_reference(np, torch)
         detr_launches = phase_detr_serve(np, torch, card)
         dcn_rows = phase_dcn_kernels(np, torch)
-        dcn_launches = phase_dcn_serve(np, torch, card)
+        dcn_launches, dcn_decode = phase_dcn_serve(np, torch, card)
         carafe_row = phase_carafe_kernels(np, torch)
         set_nms_row = phase_set_nms_kernels(np, torch)
         soft_large_k = phase_soft_nms_large_k(np, torch)
@@ -7335,7 +7471,17 @@ def main() -> int:
             idx = 1 if row['name'] == 'nms_keep' else 0
             row['train_ms_by_k'] = {k: v[idx] for k, v in train_extra.items()}
             if row['name'] == 'integral_decode':
-                row['train_no_clip_max_abs_err'] = no_clip_err
+                # every call shape of the paths, graph-timed; the row's
+                # own numbers are the GFL serving call's
+                shapes = [serve_decode, dcn_decode] + train_decode['shapes']
+                row['shapes'] = shapes
+                row.update({key: serve_decode[key] for key in (
+                    'ms', 'ms_from', 'call_ms', 'plain_ms', 'bound_ms',
+                    'bound_by')})
+                row['max_abs_err'] = max([row['max_abs_err']] + [
+                    t['max_abs_err'] for t in shapes])
+                row['train_no_clip_max_abs_err'] = train_decode[
+                    'no_clip_err']
         for row in train_rows:  # ATSS and the GFL loss: the DCN steps too
             for kind, held in dcn_loss_calls.items():
                 if held.get(row['name']):
@@ -7451,7 +7597,7 @@ def main() -> int:
             row['launches'] = sum(row['launches_by_path'].values())
         # 12b on SOLOv2's path; 12c, 12d and 13b have no model caller (ops)
         solo_rows[0]['launches_by_path'] = {
-            'solo serve': solo_launches['solo serve']['matrix_decay']}
+            'solo serve': solo_launches['solo serve']['mask_matrix_decay']}
         solo_rows[0]['reference'] = solo_reference
         for row in solo_rows[1:]:
             row['launches_by_path'] = {}

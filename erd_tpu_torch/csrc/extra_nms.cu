@@ -37,6 +37,42 @@
 //    shared memory in tiles of 128, walked in index order, so a tie keeps
 //    the lowest index as argmax does.
 //
+// 4. SOLOv2's mask-IoU decay fused with its IoU (`erd_mask_matrix_decay`,
+//    one launch): from inter (B, N, N), the binarised masks' pixel
+//    overlaps, and area (B, N), their pixel counts, as
+//    erd_tpu/models/detectors/solov2.py:400-410 has them,
+//      miou[i, j] = inter[i, j] / max((area_i + area_j) - inter[i, j], 1)
+//    op for op (the four elementwise launches that made miou before the
+//    decay are gone), then the decay of 1. A cooperative launch: an image
+//    takes `per` blocks on as many SMs, a warp a row, the lanes over j,
+//    the row of inter read coalesced (the GEMM that made it leaves it in
+//    L2), kChunk entries a lane in flight before any is used. Pass 1
+//    writes each row's comp to a (B, N) scratch; one grid-wide barrier;
+//    each block reads its image's comps into shared memory, and pass 2
+//    takes each row's decay. Where a warp has one row and the row fits
+//    one chunk (SOLOv2's N = 500), the row's decay_iou stays in registers
+//    over the barrier: pass 2 neither reloads nor divides. The gaussian's
+//    exp falls as x = d^2 - c^2 grows (sigma >= 0), so a row takes the
+//    largest x of its terms and one exp (the min of the terms' exps up
+//    to an ulp of expf); the linear decay takes each term's division.
+//    (A design with an image a cluster of 8 blocks, the comps exchanged
+//    through distributed shared memory, was bound by its 8 SMs'
+//    instruction rate: 0.018 ms at SOLOv2's call against 0.0085 for this
+//    one.)
+//    The skipped work is exact (pinned by tests against plain):
+//      - a term whose condition fails (another class, or s_j <= s_i) has
+//        decay_iou 0, f(0, c) >= 1 (c in [0, 1], sigma >= 0), and a slot
+//        of the largest score has comp 0, so its term is f(d, 0) <= 1:
+//        the min over j is min(1, min over the terms whose condition
+//        holds). Pass 2 starts at 1 and takes those terms only;
+//      - a zero score gives s_i * decay = s_i (decay in (0, 1] or 0: a
+//        signed zero either way), and such a row is no higher than any
+//        nonnegative row, so its comp is never read: rows with s_i == 0
+//        skip both passes.
+//    Where any score is negative or NaN, or sigma < 0, every row and term
+//    is computed as in 1. Masks give 0 <= inter[i, j] <= min(area_i,
+//    area_j), hence miou in [0, 1].
+//
 // IoU: op for op as erd_tpu's bbox_overlaps, each op rounded on its own:
 // area = max(x2 - x1, 0) * max(y2 - y1, 0), ov = max(min(x2) - max(x1), 0)
 // * max(min(y2) - max(y1), 0), iou = ov / max((a_1 + a_2) - ov, 1e-6).
@@ -49,9 +85,12 @@
 // (a 500 x 500 IoU). Every launch is far below a launch's own cost, so the
 // launches bound these kernels in practice; the design keeps them to two
 // (matrix decay) or one (the others) per call, whatever the batch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -162,6 +201,221 @@ __global__ void matrix_decay_kernel(const float* __restrict__ scores,
   if (threadIdx.x == 0) out[b * n + i] = __fmul_rn(si, low);
 }
 
+constexpr int kDecayThreads = 256;
+constexpr int kDecayWarps = kDecayThreads / 32;
+constexpr int kChunk = 16;  // row entries a lane has in flight
+
+// the mask IoU of (i, j): inter / max((area_i + area_j) - inter, 1)
+__device__ __forceinline__ float mask_iou(float inter, float area_i,
+                                          float area_j) {
+  return __fdiv_rn(inter,
+                   fmaxf(__fsub_rn(__fadd_rn(area_i, area_j), inter), 1.f));
+}
+
+// a lane's kChunk entries of a row, 32 apart from j0, loaded before any
+// is used (all in flight; 0 past the row's end)
+__device__ __forceinline__ void load_chunk(const float* __restrict__ row,
+                                           int j0, int n, float* v) {
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const int j = j0 + 32 * u;
+    v[u] = j < n ? __ldg(row + j) : 0.f;
+  }
+}
+
+// row i's comp: the max over its terms (j of i's class with a strictly
+// higher score) of the mask IoU, 0 where it has none; every lane gets it
+__device__ __forceinline__ float row_comp(const float* __restrict__ row,
+                                          const int64_t* lab, const float* s,
+                                          const float* ar, int n, int i,
+                                          int lane) {
+  const float si = s[i], ai = ar[i];
+  const int64_t li = lab[i];
+  float best = 0.f;
+  for (int j0 = lane; j0 < n; j0 += 32 * kChunk) {
+    float v[kChunk];
+    load_chunk(row, j0, n, v);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < n && lab[j] == li && s[j] > si)
+        best = fmaxf(best, mask_iou(v[u], ai, ar[j]));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+  return best;
+}
+
+// a warp's row decay from its lanes' partial min (linear) or extreme x
+// (gaussian): the gaussian's one exp, then the min over the lanes
+__device__ __forceinline__ float finish_low(float low, float x, bool grows,
+                                            float neg_sigma, int linear) {
+  if (!linear) {
+    for (int o = 16; o > 0; o >>= 1) {
+      const float t = __shfl_xor_sync(0xffffffffu, x, o);
+      x = grows ? fmaxf(x, t) : fminf(x, t);
+    }
+    if (x != (grows ? -INFINITY : INFINITY))  // a term was taken
+      low = fminf(low, expf(__fmul_rn(neg_sigma, x)));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    low = fminf(low, __shfl_xor_sync(0xffffffffu, low, o));
+  return low;
+}
+
+// row i's decay, the min over j of f(decay_iou[i, j], comp[j]); sparse:
+// min(1, the min over its terms). The gaussian's exp falls as x = d^2 -
+// c^2 grows (sigma >= 0), so a row takes the largest x of its terms and
+// one exp (the smallest where sigma < 0): the min of the terms' exps up
+// to an ulp of expf. The linear decay takes each term's division.
+__device__ __forceinline__ float row_decay(const float* __restrict__ row,
+                                           const int64_t* lab, const float* s,
+                                           const float* ar, const float* comp,
+                                           int n, int i, int lane, bool sparse,
+                                           float neg_sigma, int linear) {
+  const float si = s[i], ai = ar[i];
+  const int64_t li = lab[i];
+  const bool grows = neg_sigma <= 0.f;
+  float low = sparse ? 1.f : INFINITY;
+  float x = grows ? -INFINITY : INFINITY;  // the gaussian's extreme
+  for (int j0 = lane; j0 < n; j0 += 32 * kChunk) {
+    float v[kChunk];
+    load_chunk(row, j0, n, v);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int j = j0 + 32 * u;
+      if (j >= n) continue;
+      const bool on = lab[j] == li && s[j] > si;
+      if (!on && sparse) continue;
+      const float d = on ? mask_iou(v[u], ai, ar[j]) : 0.f;
+      const float c = comp[j];
+      if (linear) {
+        low = fminf(low, __fdiv_rn(__fsub_rn(1.f, d),
+                                   fmaxf(__fsub_rn(1.f, c), 1e-6f)));
+      } else {
+        const float t = __fsub_rn(__fmul_rn(d, d), __fmul_rn(c, c));
+        x = grows ? fmaxf(x, t) : fminf(x, t);
+      }
+    }
+  }
+  return finish_low(low, x, grows, neg_sigma, linear);
+}
+
+// one image's scores, labels and areas into shared memory; true where the
+// skipped work is exact (every score >= 0, sigma >= 0 or linear)
+__device__ __forceinline__ bool stage_image(const float* __restrict__ sc,
+                                            const int64_t* __restrict__ lb,
+                                            const float* __restrict__ ara,
+                                            int n, float neg_sigma,
+                                            int linear, int64_t* lab,
+                                            float* s, float* ar) {
+  bool odd = neg_sigma > 0.f && !linear;  // sigma < 0
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float v = sc[j];
+    s[j] = v;
+    lab[j] = lb[j];
+    ar[j] = ara[j];
+    odd |= !(v >= 0.f);
+  }
+  return !__syncthreads_or(odd);
+}
+
+__global__ void __launch_bounds__(kDecayThreads)
+mask_matrix_decay_kernel(const float* __restrict__ scores,
+                         const float* __restrict__ inter,
+                         const float* __restrict__ area,
+                         const int64_t* __restrict__ labels, int n, int per,
+                         float neg_sigma, int linear, float* comps,
+                         float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* lab = reinterpret_cast<int64_t*>(smem);
+  float* s = reinterpret_cast<float*>(lab + n);
+  float* ar = s + n;
+  float* comp = ar + n;
+  const size_t img = blockIdx.x / per;
+  const int part = static_cast<int>(blockIdx.x % per);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* m = inter + img * n * static_cast<size_t>(n);
+  const int first = part * kDecayWarps + warp, step = per * kDecayWarps;
+  // a warp one row and a row one chunk (SOLOv2's N = 500): the row is
+  // loaded before the image is staged (the two reads overlap), its
+  // decay_iou stays in registers over the barrier (-1 marks a term
+  // skipped), and pass 2 neither reloads nor divides
+  const bool held = step >= n && n <= 32 * kChunk;
+  float d[kChunk];
+  if (held && first < n)
+    load_chunk(m + static_cast<size_t>(first) * n, lane, n, d);
+  // sparse: rows scored 0 skipped, terms whose condition fails skipped
+  const bool sparse = stage_image(scores + img * n, labels + img * n,
+                                  area + img * n, n, neg_sigma, linear, lab,
+                                  s, ar);
+  if (held) {
+    const int i = first;
+    float best = 0.f;
+    if (i < n && (!sparse || s[i] != 0.f)) {
+      const float si = s[i], ai = ar[i];
+      const int64_t li = lab[i];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int j = lane + 32 * u;
+        const bool on = j < n && lab[j] == li && s[j] > si;
+        d[u] = on ? mask_iou(d[u], ai, ar[j]) : (sparse || j >= n ? -1.f
+                                                                   : 0.f);
+        best = fmaxf(best, d[u]);
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+    }
+    if (i < n && lane == 0) comps[img * n + i] = best;
+  } else {
+    for (int i = first; i < n; i += step) {
+      const bool live = !sparse || s[i] != 0.f;
+      const float best = live ? row_comp(m + static_cast<size_t>(i) * n, lab,
+                                         s, ar, n, i, lane) : 0.f;
+      if (lane == 0) comps[img * n + i] = best;
+    }
+  }
+  cg::this_grid().sync();  // every image's comps are written
+  for (int j = tid; j < n; j += kDecayThreads)
+    comp[j] = __ldcg(comps + img * n + j);
+  __syncthreads();
+  if (held) {
+    const int i = first;
+    if (i >= n) return;
+    float low = sparse ? 1.f : INFINITY;
+    if (!sparse || s[i] != 0.f) {
+      const bool grows = neg_sigma <= 0.f;
+      float x = grows ? -INFINITY : INFINITY;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {  // branch-free: a skipped term
+        const int j = lane + 32 * u;      // gives the extreme's identity
+        const bool skip = d[u] < 0.f;
+        const float c = comp[j < n ? j : 0];
+        if (linear) {
+          const float f = __fdiv_rn(__fsub_rn(1.f, d[u]),
+                                    fmaxf(__fsub_rn(1.f, c), 1e-6f));
+          low = fminf(low, skip ? INFINITY : f);
+        } else {
+          const float t = __fsub_rn(__fmul_rn(d[u], d[u]), __fmul_rn(c, c));
+          const float none = grows ? -INFINITY : INFINITY;
+          x = grows ? fmaxf(x, skip ? none : t) : fminf(x, skip ? none : t);
+        }
+      }
+      low = finish_low(low, x, grows, neg_sigma, linear);
+    }
+    if (lane == 0) out[img * n + i] = __fmul_rn(s[i], low);
+    return;
+  }
+  for (int i = first; i < n; i += step) {
+    const bool live = !sparse || s[i] != 0.f;
+    const float low = live ? row_decay(m + static_cast<size_t>(i) * n, lab,
+                                       s, ar, comp, n, i, lane, sparse,
+                                       neg_sigma, linear) : 1.f;
+    if (lane == 0) out[img * n + i] = __fmul_rn(s[i], low);
+  }
+}
+
 __global__ void fast_nms_kernel(const float4* __restrict__ sboxes,
                                 const int64_t* __restrict__ slabels,
                                 const uint8_t* __restrict__ svalid,
@@ -270,6 +524,67 @@ extern "C" int erd_matrix_decay(const void* scores, const void* iou,
       static_cast<const float4*>(boxes), static_cast<const int64_t*>(labels),
       n, static_cast<const float*>(comp), -sigma, linear,
       static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// SOLOv2's fused decay: scores (B, N) float32; inter (B, N, N) float32;
+// area (B, N) float32; labels (B, N) int64; comps (B, N) float32 scratch;
+// out (B, N) float32. One cooperative launch (an image `per` blocks, all
+// resident); returns cudaGetLastError() after it, or
+// cudaErrorCooperativeLaunchTooLarge where the batch's images cannot be
+// resident together.
+extern "C" int erd_mask_matrix_decay(const void* scores, const void* inter,
+                                     const void* area, const void* labels,
+                                     void* comps, void* out, int batch, int n,
+                                     float sigma, int linear, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  const long long smem = 20LL * n;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)  // above the default limit of dynamic memory
+    err = cudaFuncSetAttribute(mask_matrix_decay_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the blocks the card holds at once (the last query's answer kept: it
+  // depends on the device and the shared memory alone)
+  static int known_dev = -1, resident = 0;
+  static long long known_smem = -1;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != known_dev || smem != known_smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mask_matrix_decay_kernel, kDecayThreads,
+          static_cast<size_t>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    known_dev = dev;
+    known_smem = smem;
+    resident = per_sm * sms;
+  }
+  if (batch > resident)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  // a warp a row where the card holds that many blocks
+  const int per = max(1, min((n + kDecayWarps - 1) / kDecayWarps,
+                             resident / batch));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(batch * per));
+  cfg.blockDim = dim3(kDecayThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, mask_matrix_decay_kernel, static_cast<const float*>(scores),
+      static_cast<const float*>(inter), static_cast<const float*>(area),
+      static_cast<const int64_t*>(labels), n, per, -sigma, linear,
+      static_cast<float*>(comps), static_cast<float*>(out));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

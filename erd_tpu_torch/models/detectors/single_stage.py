@@ -160,8 +160,8 @@ class GFLDetector:
                                 rescale=rescale)
 
     def postprocess(self, ctx, cls_lvl, reg_lvl, meta, rescale=True):
-        """gfl_predict on head outputs, cast to float32 first."""
-        return gfl_predict(ctx, [c.float() for c in cls_lvl],
-                           [r.float() for r in reg_lvl], meta,
+        """gfl_predict on head outputs: the class maps cast to float32
+        first, the distribution maps read by the decode where they lie."""
+        return gfl_predict(ctx, [c.float() for c in cls_lvl], reg_lvl, meta,
                            self.test_cfg, reg_max=self.reg_max,
                            rescale=rescale)

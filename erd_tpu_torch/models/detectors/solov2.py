@@ -13,9 +13,10 @@ and ``SOLOV2Net`` holds the weights, under erd_tpu's scope names.
 ``predict``: sigmoid cell scores, the top ``nms_pre`` cells over
 ``score_thr``, their dynamic convs on the mask features as one IEEE float32
 product, maskness rescoring, the mask-IoU matrix of the binarised masks
-(a 0/1 product, exact in float32), the matrix-NMS decay (the kernel
-``csrc/extra_nms.cu`` through ``matrix_decay``: one call a batch, its two
-launches counted in ``matrix_decay.launches``), ``filter_thr``, the top ``max_per_img``, boxes
+(a 0/1 product, exact in float32), the matrix-NMS decay with the mask IoU
+computed inside it (the kernel ``csrc/extra_nms.cu`` through
+``mask_matrix_decay``: one launch a batch, counted in
+``mask_matrix_decay.launches``), ``filter_thr``, the top ``max_per_img``, boxes
 from the masks' extents and 28x28 box-normalised crops: (DetResults, crops
 (B, 100, 28, 28)), as erd_tpu's.
 
@@ -33,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops import matrix_decay
+from ...ops import mask_matrix_decay
 from ...ops.misc import take_rows, topk_stable
 from ...structures import DetResults, scale_boxes
 from ...utils import matmul_fp32_precision, resolve_device
@@ -303,7 +304,7 @@ class SOLOV2Detector:
 
     def select(self, score, labk, idx, mpred, feat_hw, stride, meta,
                rescale=True):
-        """Maskness, the mask-IoU matrix NMS (``matrix_decay``),
+        """Maskness, the mask-IoU matrix NMS (``mask_matrix_decay``),
         ``filter_thr``, the top ``max_per_img``, boxes from the masks'
         extents (image units, then the original frame unless not
         ``rescale``) and their crops: (DetResults, crops)."""
@@ -322,9 +323,8 @@ class SOLOV2Detector:
         mflat = binm.float()
         with matmul_fp32_precision('ieee'):
             inter = torch.matmul(mflat, mflat.transpose(1, 2))
-        union = area[:, :, None] + area[:, None, :] - inter
-        miou = inter / union.clamp(min=1.0)
-        score = matrix_decay(score, miou, labk, self.sigma, 'gaussian')
+        score = mask_matrix_decay(score, inter, area, labk, self.sigma,
+                                  'gaussian')
         keep = score > self.filter_thr
         fscore, sel = topk_stable(torch.where(keep, score,
                                               torch.zeros_like(score)),

@@ -206,8 +206,9 @@ def gfl_predict(ctx: AnchorContext, cls_scores_lvl, bbox_preds_lvl,
     """Batched inference post-processing.
 
     Per level: sigmoid, threshold and top-k over (anchor, class) pairs;
-    then one decode of every level's candidate rows (integral x stride,
-    centre +/- distance, clip to img_shape); concat, cap to
+    then one decode of every level's candidate rows, read in the level
+    maps where they lie (integral x stride, centre +/- distance, clip to
+    img_shape); concat, cap to
     ``pre_nms_total``, rescale, drop empty boxes, class-aware NMS, top
     ``max_per_img``. ``meta`` holds (B, 2) float32 tensors.
     """
@@ -227,9 +228,9 @@ def gfl_predict(ctx: AnchorContext, cls_scores_lvl, bbox_preds_lvl,
         scores.append(top_s)
         labels.append(top_lab)
         valid.append(mask)
-    rows = torch.cat(rows, dim=1).contiguous()
-    boxes = integral_decode(flatten_levels(bbox_preds_lvl), rows, centers,
-                            strides, meta.img_shape.contiguous(), reg_max)
+    boxes = integral_decode(list(bbox_preds_lvl), torch.cat(rows, dim=1),
+                            centers, strides, meta.img_shape.contiguous(),
+                            reg_max)
     scores, valid, boxes, labels = cap_candidates(
         torch.cat(scores, dim=1), torch.cat(valid, dim=1),
         cfg.pre_nms_total, boxes, torch.cat(labels, dim=1))

@@ -5,8 +5,10 @@ from .deform_conv import (DeformConv2d, ModulatedDeformConv,
                           deform_im2col_backward,
                           deform_im2col_backward_plain, deform_im2col_plain)
 from .extra_nms import (corner_pool, corner_pool_plain, fast_nms,
-                        fast_nms_keep, fast_nms_keep_plain, matrix_decay,
-                        matrix_decay_plain, matrix_nms, matrix_nms_plain,
+                        fast_nms_keep, fast_nms_keep_plain,
+                        mask_matrix_decay, mask_matrix_decay_plain,
+                        matrix_decay, matrix_decay_plain, matrix_nms,
+                        matrix_nms_plain,
                         nms_match, nms_match_leader, nms_match_leader_plain)
 from .gaussian import local_maximum
 from .integral import integral, integral_decode, integral_decode_plain
@@ -32,7 +34,8 @@ __all__ = ['CARAFEPack', 'arrange_carafe', 'carafe', 'carafe_backward',
            'arrange_offsets', 'deform_conv2d', 'deform_im2col',
            'deform_im2col_backward', 'deform_im2col_backward_plain',
            'deform_im2col_plain', 'corner_pool', 'corner_pool_plain',
-           'fast_nms', 'fast_nms_keep', 'fast_nms_keep_plain', 'matrix_decay',
+           'fast_nms', 'fast_nms_keep', 'fast_nms_keep_plain',
+           'mask_matrix_decay', 'mask_matrix_decay_plain', 'matrix_decay',
            'matrix_decay_plain', 'matrix_nms', 'matrix_nms_plain',
            'nms_match', 'nms_match_leader', 'nms_match_leader_plain',
            'local_maximum', 'integral', 'integral_decode',

@@ -30,8 +30,12 @@ vector-Jacobian product; the kernel walks the same tree. ``top`` and
 ``flip(cummax(flip(x)))`` does. A NaN is carried forward by both passes,
 as ``lax.cummax`` and ``torch.cummax`` carry it.
 
-``matrix_decay(scores, iou, labels)`` is SOLOv2's mask-IoU decay
-(erd_tpu/models/detectors/solov2.py:399-410) on a precomputed (N, N) IoU,
+``mask_matrix_decay(scores, inter, area, labels)`` is SOLOv2's mask-IoU
+decay (erd_tpu/models/detectors/solov2.py:400-410) with the mask IoU
+computed from the masks' overlaps and areas in the same launch (one
+launch, counted in ``mask_matrix_decay.launches``);
+``matrix_decay(scores, iou, labels)`` is that decay on a precomputed (N, N)
+IoU,
 and ``matrix_nms(boxes, scores, labels)`` erd_tpu's box form, whose IoU the
 kernel computes: each score times the min over j of f(decay_iou[i, j],
 comp[j]), decay_iou[i, j] the IoU of i with a higher-scoring (strict ``>``)
@@ -410,6 +414,106 @@ def matrix_nms(boxes, scores, labels, valid_mask=None, sigma=2.0,
 
 
 matrix_nms.launches = 0
+
+
+def mask_matrix_decay_plain(scores, inter, area, labels, sigma=2.0,
+                            kernel='gaussian'):
+    """Plain PyTorch version of the fused mask-IoU decay kernel: SOLOv2's
+    mask IoU from the masks' overlaps ``inter`` (..., N, N) and pixel
+    counts ``area`` (..., N), ``inter / max(area_i + area_j - inter, 1)``
+    (erd_tpu/models/detectors/solov2.py:400-402), then
+    ``matrix_decay_plain``."""
+    union = area[..., :, None] + area[..., None, :] - inter
+    miou = inter / union.clamp(min=1.0)
+    return matrix_decay_plain(scores, miou, labels, sigma, kernel)
+
+
+# the largest shared memory a block may take on an H100 (227 KB)
+MAX_BLOCK_SHARED = 232448
+
+
+def mask_matrix_decay_capacity() -> int:
+    """The most slots an image ``mask_matrix_decay``'s kernel takes: a
+    block holds its image's scores, labels, areas and comps (20 B a slot)
+    in shared memory, within a block's 227 KB."""
+    return MAX_BLOCK_SHARED // 20
+
+
+# erd_mask_matrix_decay's arguments: scores, inter, area, labels, comps,
+# out; batch, N; sigma, linear; the stream
+_MASK_DECAY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def mask_matrix_decay(scores, inter, area, labels, sigma=2.0,
+                      kernel='gaussian'):
+    """SOLOv2's matrix NMS with its mask IoU: the decayed scores of
+    ``matrix_decay(scores, miou, labels)`` where ``miou = inter / max(area_i
+    + area_j - inter, 1)``, in one launch that never writes miou.
+
+    Args:
+        scores: (N,) or (B, N) float32, scores >= 0 on SOLOv2's path.
+        inter: (N, N) or (B, N, N) float32 overlaps of binarised masks
+            (0 <= inter[i, j] <= min(area_i, area_j)).
+        area: (N,) or (B, N) float32 mask pixel counts.
+        labels: (N,) or (B, N) int64 classes.
+        sigma, kernel: the gaussian's sigma, ``'gaussian'`` or ``'linear'``.
+    Returns the decayed scores, shaped as ``scores``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    ``erd_mask_matrix_decay`` (one cooperative launch a call, counted in
+    ``mask_matrix_decay.launches``; its only scratch is the (B, N) comps
+    that cross its grid-wide barrier); more slots than
+    ``mask_matrix_decay_capacity()`` raise, and so does a batch of more
+    images than the card holds blocks at once.
+    """
+    n = scores.shape[-1]
+    if inter.shape[-2:] != (n, n) or area.shape != scores.shape or \
+            labels.shape != scores.shape or \
+            inter.shape[:-2] != scores.shape[:-1]:
+        raise ValueError(f'mask_matrix_decay: scores, area, labels (..., N) '
+                         f'and inter (..., N, N) expected, got '
+                         f'{tuple(scores.shape)}, {tuple(area.shape)}, '
+                         f'{tuple(labels.shape)}, {tuple(inter.shape)}')
+    if kernel not in KERNELS:
+        raise ValueError(f'mask_matrix_decay: kernel must be one of '
+                         f'{KERNELS}, got {kernel!r}')
+    if scores.device.type == 'cpu':
+        return mask_matrix_decay_plain(scores, inter, area, labels, sigma,
+                                       kernel)
+    device = scores.device
+    index = scores.get_device()
+    if device.type != 'cuda' or any(t.get_device() != index
+                                    for t in (inter, area, labels)):
+        raise RuntimeError(f'mask_matrix_decay: no kernel for {device}, or '
+                           f'tensors on more than one device')
+    if any(t.dtype != torch.float32 for t in (scores, inter, area)) or \
+            labels.dtype != torch.int64:
+        raise TypeError('mask_matrix_decay: float32 scores, inter and area, '
+                        'int64 labels expected')
+    if n > mask_matrix_decay_capacity():
+        raise ValueError(f'mask_matrix_decay: {n} slots an image; the kernel '
+                         f'takes at most {mask_matrix_decay_capacity()}')
+    b = scores.numel() // n if n else 0
+    scores, inter, area, labels = (t.contiguous() for t in
+                                   (scores, inter, area, labels))
+    out = torch.empty_like(scores)
+    comps = torch.empty_like(scores)  # pass 1's comps, read after the barrier
+    fn = cuda_build.entry('extra_nms', 'erd_mask_matrix_decay',
+                          _MASK_DECAY_ARGTYPES)
+    with cuda_build.on_device(device):
+        err = fn(scores.data_ptr(), inter.data_ptr(), area.data_ptr(),
+                 labels.data_ptr(), comps.data_ptr(), out.data_ptr(), b, n,
+                 float(sigma), int(kernel == 'linear'),
+                 cuda_build.stream_handle(device))
+    if err:
+        cuda_build.check(cuda_build.load('extra_nms'), err,
+                         'mask_matrix_decay')
+    mask_matrix_decay.launches += 1
+    return out
+
+
+mask_matrix_decay.launches = 0
 
 
 # -------------------------------------------------------------- fast NMS

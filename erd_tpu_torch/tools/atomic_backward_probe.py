@@ -155,11 +155,25 @@ conv_offset and sampling weights arranged):
    F.grid_sample formulation, the bound, the targets against plain
    (torch.equal), the ``MASK_TARGET_PARTS`` variants, the host's time a
    call.
+18. 2, the GFL integral decode (``probe_decode``), at one 800x1333
+   request of GFL R50 and of GFL R101-DCN (5000 candidate rows of the
+   five level maps) and ERD's two training calls (16 x 1024 and 16 x 4481
+   rows of the flat teacher map): graph replays, events (the eager call),
+   plain, the bound, the error against the gate; at the serving calls
+   the maps' dtypes and strides, the parent's feeding launches (five
+   ``.float()`` and ``flatten_levels``) timed apart and with the call,
+   the post-processing's launches, the host's time a call.
+19. 12b, the matrix decay (``probe_decay``), at one SOLOv2 request's call
+   (N = 500, its live slots): the four elementwise launches that make the
+   mask IoU, ``matrix_decay`` on it, the two together, and the fused
+   ``mask_matrix_decay`` on inter and area where the tree has it (graph,
+   events, launches, error against plain, host time); the box form
+   ``matrix_nms`` at K = 2000.
 
 A variant whose edits do not fit the source (another design's) is "not
 measured". ``--only 9,7b`` runs the named parts alone, in that order (the
 parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, 3, 6, 4, 5, 11a, 11a-floor,
-15, 13a, 14, others).
+15, 13a, 14, 2, 12b, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -2896,6 +2910,429 @@ def probe_mask_targets(smoke, report):
     torch.cuda.empty_cache()
 
 
+def eager_ms(smoke, fn, n=20, reps=5):
+    """The median of ``reps`` event timings of n eager calls (a call's
+    time on the card's timeline; where the host is slower than the
+    kernel, the host's time a call). The host is shared, so one timing
+    varies by tens of per cent."""
+    times = sorted(smoke.events_ms(torch, fn, n) for _ in range(reps))
+    return times[reps // 2]
+
+
+def graph_launches(fn):
+    """The kernel, memset and memcpy nodes of a CUDA graph of one call of
+    ``fn`` (cudaGraphDebugDotPrint's dump), or None where the dump names
+    none: the launches a call makes, none lost (the profiler drops short
+    kernels' records)."""
+    import re
+    import tempfile
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # dumped before exec
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'graph.dot')
+        graph.debug_dump(path)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            dot = f.read()
+    del graph
+    count = len(re.findall(r'label="\{?\s*(KERNEL|MEMSET|MEMCPY)', dot))
+    return count or None
+
+
+def decode_serving_calls(smoke):
+    """[(name, head reg maps, decode args)]: one 800x1333 request of GFL
+    R50 (the ERD config, ``chip_smoke.phase_serve``'s model, class bias
+    zeroed) and of GFL R101-DCN (``chip_smoke.dcn_net``): the head's five
+    distribution maps as ``forward_raw`` returns them, and the arguments
+    ``gfl_predict`` hands ``integral_decode`` (a flat (1, N, 68) float32
+    tensor or the level maps, as the tree's path has it)."""
+    import numpy as np
+
+    from erd_tpu_torch.apis import init_detector
+    from erd_tpu_torch.data import DetPipeline
+    head = importlib.import_module('erd_tpu_torch.models.heads.gfl_head')
+    img = smoke.request_images(np)[-1]
+    out = []
+    for name in ('gfl serve', 'gfl_r101_dcn serve'):
+        if name == 'gfl serve':
+            det, net, _ = init_detector(smoke.ERD_CONFIG, device=smoke.DEV)
+            with torch.no_grad():
+                net.bbox_head.gfl_cls.bias.zero_()
+        else:
+            det, net = smoke.dcn_net(torch, smoke.DCN_CONFIGS['gfl_r101_dcn'],
+                                     'gfl_r101_dcn')
+        req = smoke.ServedRequest(np, torch, DetPipeline(), 3, img)
+        with torch.no_grad():
+            ctx = det.anchor_context(req.images.shape[1:3])
+            cls, reg = det.forward_raw(net, req.images)
+            calls = []
+            undo = smoke.capture(head, 'integral_decode', calls)
+            try:
+                det.postprocess(ctx, cls, reg, req.meta_dev)
+            finally:
+                undo()
+        torch.cuda.synchronize()
+        if len(calls) != 1:
+            raise RuntimeError(f'probe 2 {name}: {len(calls)} decode calls')
+        out.append((name, reg, calls[0]))
+        del det, net, cls
+    return out
+
+
+def decode_cost(reg, rows, batch):
+    """(bytes, operations) of a decode as ``chip_smoke.phase_kernels``
+    counts them: each distinct row's logits, centre and stride read once
+    an image, the rows and img_shape read, the boxes written; 121
+    operations a side."""
+    k = rows.shape[1]
+    levels = reg if isinstance(reg, (list, tuple)) else [reg]
+    es = levels[0].element_size()
+    uniq = sum(int(torch.unique(rows[i]).numel()) for i in range(batch))
+    nbytes = uniq * (68 * es + 8 + 4) + batch * k * (8 + 16) + batch * 8
+    return nbytes, batch * k * 4 * 121.0
+
+
+# edits of csrc/integral_decode.cu for part 2: blocks of 16 or 64
+# candidates instead of 32 (on no path)
+DECODE_PARTS = {
+    'cand_16': ({'constexpr int kCand = 32;': 'constexpr int kCand = 16;'},),
+    'cand_64': ({'constexpr int kCand = 32;': 'constexpr int kCand = 64;'},),
+}
+
+
+def probe_decode(smoke, report):
+    """Part 2, the GFL integral decode (``integral_decode``), at its call
+    shapes on the main paths: one 800x1333 request of GFL R50 and of GFL
+    R101-DCN (1 x 5000 candidate rows of the five level maps) and ERD's
+    two training calls (``chip_smoke.train_case`` at bs 16: the first
+    1024 and 4481 ERS rows of the flat (16, 22400, 68) teacher map, unit
+    stride, no clip). At each: the call by graph replays and by events
+    (the eager call), the plain version's time, the bound as
+    ``chip_smoke.phase_kernels`` counts it, the largest error against
+    plain beside the gate (1e-4 * stride + 1e-5 * |box| px), the
+    ``DECODE_PARTS`` variants by graph replays; events are the median of
+    five timings (``eager_ms``); at the serving calls the level maps'
+    dtypes and strides, the launches that
+    feed the decode in the parent's path (``.float()`` of each map and
+    ``flatten_levels``) timed apart by graph replays, the call together
+    with them, the launches of each (``graph_launches``), and the host's
+    time a call (``host_profile``)."""
+    import numpy as np
+
+    from erd_tpu_torch.models.heads.gfl_head import (AnchorContext,
+                                                     flatten_levels)
+    from erd_tpu_torch.ops import integral_decode, integral_decode_plain
+    from erd_tpu_torch.ops.ers_select import ers_select
+    rows = []
+    variants = {v: variant_lib('integral_decode', f'decode_{v}', alts)
+                for v, alts in DECODE_PARTS.items()}
+
+    def measure(name, args, feed=None):
+        reg, rws, centers, strides, shape = args[:5]
+
+        def call():
+            return integral_decode(*args)
+
+        def plain():
+            flat = flatten_levels([r.float() for r in reg]) \
+                if isinstance(reg, (list, tuple)) else reg
+            return integral_decode_plain(flat, *args[1:])
+        got = call()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got - want).abs()
+        stride = strides[rws].unsqueeze(-1)
+        tol = 1e-4 * stride + 1e-5 * want.abs()
+        ratio = float((err / tol).max())
+        b = rws.shape[0]
+        nbytes, ops = decode_cost(reg, rws, b)
+        bms, by = smoke.bound_of(nbytes, ops)
+        row = dict(call=name, rows=list(rws.shape),
+                   graph_ms=smoke.graph_ms(torch, call, 20),
+                   events_ms=eager_ms(smoke, call),
+                   plain_ms=smoke.events_ms(torch, plain, 3), bound_ms=bms,
+                   bound_by=by, bytes=nbytes,
+                   max_abs_err=float(err.max()),
+                   err_over_tolerance=ratio, library_ms=None)
+        row['variants'] = {}
+        for v, lib in variants.items():
+            if lib is None:
+                row['variants'][v] = None
+                continue
+            err_v = with_lib('integral_decode', lib, lambda: float(
+                (call() - want).abs().max()))
+            row['variants'][v] = dict(graph_ms=with_lib(
+                'integral_decode', lib, lambda: smoke.graph_ms(
+                    torch, call, 20)), max_abs_err=err_v)
+        if isinstance(reg, (list, tuple)):
+            row['maps'] = [dict(shape=list(r.shape), dtype=str(r.dtype),
+                                strides=list(r.stride())) for r in reg]
+        else:
+            row['maps'] = [dict(shape=list(reg.shape), dtype=str(reg.dtype),
+                                strides=list(reg.stride()))]
+        if feed is not None:
+            parent_feed = lambda: flatten_levels(  # noqa: E731
+                [r.float() for r in feed])
+            row['feed_graph_ms'] = smoke.graph_ms(torch, parent_feed, 20)
+            row['feed_launches'] = graph_launches(parent_feed)
+            row['feed_maps'] = [dict(shape=list(r.shape), dtype=str(r.dtype),
+                                     strides=list(r.stride()))
+                                for r in feed]
+            path = call if isinstance(reg, (list, tuple)) else \
+                (lambda: integral_decode(parent_feed(), *args[1:]))
+            row['path'] = 'levels in place' if isinstance(
+                reg, (list, tuple)) else 'casts + cat + decode'
+            row['path_graph_ms'] = smoke.graph_ms(torch, path, 20)
+            row['path_events_ms'] = eager_ms(smoke, path)
+            row['call_launches'] = graph_launches(call)
+            flat = parent_feed()
+            row['flat_call_graph_ms'] = smoke.graph_ms(
+                torch, lambda: integral_decode(flat, *args[1:]), 20)
+            del flat
+            row['host_us'], row['host_top'] = host_profile(call)
+        rows.append(row)
+        print(f'probe 2 {name}: rows {tuple(rws.shape)}, maps ' + ', '.join(
+            f'{tuple(m["shape"])} {m["dtype"]} {tuple(m["strides"])}'
+            for m in row['maps']) + f': graph {row["graph_ms"]:.4f} ms, '
+            f'events (eager call) {row["events_ms"]:.4f}, plain '
+            f'{row["plain_ms"]:.3f}, bound {bms:.5f} ({by}, {nbytes} bytes, '
+            f'{row["graph_ms"] / bms:.1f}x); max_abs_err '
+            f'{row["max_abs_err"]:.3e} px ({ratio:.3f} of the gate); ' +
+            ', '.join(f'{v} ' + ('not measured' if t is None else
+                                 f'{t["graph_ms"]:.4f} (err '
+                                 f'{t["max_abs_err"]:.2e})')
+                      for v, t in row['variants'].items()) + (
+                '' if feed is None else
+                f'; path ({row["path"]}) graph {row["path_graph_ms"]:.4f} ms, '
+                f'events {row["path_events_ms"]:.4f}; the parent\'s feed '
+                f'(.float() x5 + flatten_levels) graph '
+                f'{row["feed_graph_ms"]:.4f} ms, {row["feed_launches"]} '
+                f'launches; the call {row["call_launches"]} launches; the '
+                f'call on the flat copy graph '
+                f'{row["flat_call_graph_ms"]:.4f} ms; host '
+                f'{row["host_us"]:.1f} us a call, cProfile (us a call): ' +
+                ', '.join(f'{f} {t:.1f}' for f, t in row['host_top'])),
+            flush=True)
+        if ratio > 1.0:
+            raise RuntimeError(f'probe 2 {name}: the decode is off its gate')
+
+    for name, reg, args in decode_serving_calls(smoke):
+        measure(name, args, feed=reg)
+        del reg, args
+        torch.cuda.empty_cache()
+
+    ctx = AnchorContext.build(smoke.TRAIN_CANVAS)
+    n = ctx.num_anchors
+    case = smoke.train_case(np, torch, np.random.RandomState(5), ctx,
+                            smoke.TRAIN_BATCH)
+    centers, _ = ctx.device_tensors(smoke.DEV)
+    unit = torch.ones(n, device=smoke.DEV)
+    cap = n // 5 + 1
+    _, ri, _, _ = ers_select(case['t_cls'], case['t_reg'], cap)
+    for k in (1024, cap):
+        rk = ri[:, :k].contiguous()
+        measure(f'erd train K={k}', (case['t_reg'], rk, centers, unit, None))
+    report['2'] = dict(calls=rows)
+    del case
+    torch.cuda.empty_cache()
+
+
+def solo_decay_call(smoke):
+    """The mask-IoU decay of one 800x1333 SOLOv2 R50 request
+    (``chip_smoke.solo_net``, heads arranged): (scores after maskness,
+    inter (1, 500, 500), area (1, 500), labels, sigma, kernel, the tree's
+    own decay call's arguments and function name). ``inter`` and ``area``
+    are computed from ``SOLOv2.select``'s captured inputs as it computes
+    them, and held equal to what the tree's path hands its decay."""
+    import numpy as np
+
+    from erd_tpu_torch.utils import matmul_fp32_precision
+    solo = importlib.import_module('erd_tpu_torch.models.detectors.solov2')
+    det, net, batch, passing = smoke.solo_net(np, torch)
+    fused = hasattr(solo, 'mask_matrix_decay')
+    fname = 'mask_matrix_decay' if fused else 'matrix_decay'
+    seen, decays = [], []
+    cls = type(det)
+    select = cls.select
+
+    def wrapper(self, *args, **kw):
+        seen.append(args)
+        return select(self, *args, **kw)
+    cls.select = wrapper
+    undo = smoke.capture(solo, fname, decays)
+    try:
+        with torch.no_grad():
+            det.predict(net, batch)
+    finally:
+        cls.select = select
+        undo()
+    torch.cuda.synchronize()
+    if len(seen) != 1 or len(decays) != 1:
+        raise RuntimeError(f'probe 12b: {len(seen)} select and '
+                           f'{len(decays)} {fname} calls in a request')
+    mpred = seen[0][3]
+    binm = mpred > det.mask_thr
+    area = binm.sum(-1).float()
+    mflat = binm.float()
+    with matmul_fp32_precision('ieee'):
+        inter = torch.matmul(mflat, mflat.transpose(1, 2))
+    got = decays[0]
+    if fused:
+        same = torch.equal(got[1], inter) and torch.equal(got[2], area)
+        scores, labels, rest = got[0], got[3], got[4:]
+    else:
+        union = area[:, :, None] + area[:, None, :] - inter
+        same = torch.equal(got[1], inter / union.clamp(min=1.0))
+        scores, labels, rest = got[0], got[2], got[3:]
+    if not same:
+        raise RuntimeError('probe 12b: the IoU inputs differ from the '
+                           'path\'s')
+    del net, batch
+    return dict(scores=scores, inter=inter, area=area, labels=labels,
+                sigma=rest[0] if rest else 2.0,
+                kernel=rest[1] if len(rest) > 1 else 'gaussian',
+                path=fname, passing=passing)
+
+
+# edits of csrc/extra_nms.cu for part 12b: the fused decay's kernel
+# returning at once (a cooperative launch's own cost), with its grid-wide
+# barrier replaced by a block barrier (the comps then wrong), with the row
+# not held in registers over the barrier (pass 2 reloads and divides),
+# with every term computed (no skipped work), with 8 row entries a lane in
+# flight instead of 16, and at 128 or 512 threads a block (on no path)
+MASK_DECAY_PARTS = {
+    'empty': ({'  const size_t img = blockIdx.x / per;':
+               '  if (n > 0) return;\n'
+               '  const size_t img = blockIdx.x / per;'},),
+    'no_grid_sync': ({'  cg::this_grid().sync();': '  __syncthreads();'},),
+    'not_held': ({'  const bool held = step >= n && n <= 32 * kChunk;':
+                  '  const bool held = false;'},),
+    'dense': ({'  return !__syncthreads_or(odd);':
+               '  return !__syncthreads_or(true);'},),
+    'chunk_8': ({'constexpr int kChunk = 16;': 'constexpr int kChunk = 8;'},),
+    'threads_128': ({'constexpr int kDecayThreads = 256;':
+                     'constexpr int kDecayThreads = 128;'},),
+    'threads_512': ({'constexpr int kDecayThreads = 256;':
+                     'constexpr int kDecayThreads = 512;'},),
+}
+
+
+def probe_decay(smoke, report):
+    """Part 12b, the matrix decay, at SOLOv2's request call (N = 500, its
+    live slots) and the box form ``matrix_nms`` at K = 2000
+    (``chip_smoke.random_nms_inputs``, RandomState(31), gaussian): by
+    graph replays and events, plain, the bound (the IoU's bytes of the
+    live rows, as the data needs them; ``chip_smoke.bound_of``), the
+    largest relative error against plain (gate 1e-6, zeros equal), the
+    launches; at SOLOv2's call the four elementwise launches that make the
+    mask IoU (``solov2.py``'s union, clamp and division) timed apart, the
+    parent's path (those and ``matrix_decay``) and, where the tree has
+    it, the fused call ``mask_matrix_decay`` on inter and area and its
+    ``MASK_DECAY_PARTS`` variants; the host's time an eager call; events
+    are the median of five timings (``eager_ms``)."""
+    import numpy as np
+
+    ops = importlib.import_module('erd_tpu_torch.ops.extra_nms')
+    c = solo_decay_call(smoke)
+    s, inter, area, lab = c['scores'], c['inter'], c['area'], c['labels']
+    sigma, kernel = c['sigma'], c['kernel']
+
+    def miou():
+        union = area[:, :, None] + area[:, None, :] - inter
+        return inter / union.clamp(min=1.0)
+    iou = miou()
+    want = ops.matrix_decay_plain(s, iou, lab, sigma, kernel)
+
+    def held(got):
+        live = want != 0
+        rel = float(((got - want).abs() / want.abs())[live].max()) \
+            if bool(live.any()) else 0.0
+        return rel, bool(torch.equal(got == 0, want == 0))
+    n = s.shape[-1]
+    live = int((s != 0).sum())
+    nbytes = live * n * 4 + n * (4 + 4 + 8) + n * 4
+    bms, by = smoke.bound_of(nbytes, live * n * 13.0)
+    calls = {'feed (4 elementwise launches)': miou,
+             'matrix_decay on the IoU': lambda: ops.matrix_decay(
+                 s, iou, lab, sigma, kernel),
+             'parent path (feed + matrix_decay)': lambda: ops.matrix_decay(
+                 s, miou(), lab, sigma, kernel)}
+    if hasattr(ops, 'mask_matrix_decay'):
+        def fused():
+            return ops.mask_matrix_decay(s, inter, area, lab, sigma, kernel)
+        calls['mask_matrix_decay (fused)'] = fused
+        for v, alts in MASK_DECAY_PARTS.items():
+            lib = variant_lib('extra_nms', f'decay_{v}', alts)
+            if lib is not None:
+                calls[f'fused, {v}'] = functools.partial(
+                    with_lib, 'extra_nms', lib, fused)
+    row = dict(call='solov2 serve', n=n, live=live,
+               cells_over_thr=c['passing'], path=c['path'], bound_ms=bms,
+               bound_by=by, bytes=nbytes, library_ms=None,
+               plain_ms=smoke.events_ms(torch, lambda: ops.matrix_decay_plain(
+                   s, miou(), lab, sigma, kernel), 3), calls={})
+    for name, fn in calls.items():
+        got = fn()
+        torch.cuda.synchronize()
+        entry = dict(graph_ms=smoke.graph_ms(torch, fn, 20),
+                     events_ms=eager_ms(smoke, fn),
+                     launches=graph_launches(fn))
+        if name.startswith('fused, '):  # variants: timed, not gated
+            entry['max_rel_err'], entry['zeros_equal'] = held(got)
+        elif name != 'feed (4 elementwise launches)':
+            entry['max_rel_err'], entry['zeros_equal'] = held(got)
+            entry['host_us'], entry['host_top'] = host_profile(fn)
+            if entry['max_rel_err'] > 1e-6 or not entry['zeros_equal']:
+                raise RuntimeError(f'probe 12b {name}: off plain')
+        row['calls'][name] = entry
+    print(f'probe 12b solov2 serve: N={n}, {live} live slots '
+          f'({c["passing"]} cells over score_thr), the path\'s decay '
+          f'{c["path"]}; plain {row["plain_ms"]:.3f} ms, bound {bms:.6f} '
+          f'({by}, {nbytes} bytes); ' + '; '.join(
+              f'{k}: graph {v["graph_ms"]:.4f} ms, events '
+              f'{v["events_ms"]:.4f}, {v["launches"]} launches' + (
+                  f', max rel err {v["max_rel_err"]:.2e}, zeros equal '
+                  f'{v["zeros_equal"]}, host {v["host_us"]:.1f} us a call'
+                  if 'host_us' in v else '')
+              for k, v in row['calls'].items()), flush=True)
+
+    rs = np.random.RandomState(31)
+    k = 2000
+    boxes, sc, labels, valid = smoke.random_nms_inputs(np, torch, rs, k,
+                                                       smoke.NUM_CLASSES)
+
+    def box_call():
+        return ops.matrix_nms(boxes, sc, labels, valid, kernel='gaussian')
+    want = ops.matrix_nms_plain(boxes, sc, labels, valid, kernel='gaussian')
+    rel, zeros = held(box_call())
+    bms_k, by_k = smoke.bound_of(k * 32, k * k * (2 * 14 + 9.0))
+    box = dict(call='matrix_nms K=2000 gaussian', k=k,
+               graph_ms=smoke.graph_ms(torch, box_call, 20),
+               events_ms=eager_ms(smoke, box_call),
+               plain_ms=smoke.events_ms(torch, lambda: ops.matrix_nms_plain(
+                   boxes, sc, labels, valid, kernel='gaussian'), 3),
+               launches=graph_launches(box_call), bound_ms=bms_k,
+               bound_by=by_k, max_rel_err=rel, zeros_equal=zeros,
+               library_ms=None)
+    print(f'probe 12b box form K={k}: graph {box["graph_ms"]:.4f} ms, events '
+          f'{box["events_ms"]:.4f}, plain {box["plain_ms"]:.3f}, '
+          f'{box["launches"]} launches, bound {bms_k:.6f} ({by_k}); max rel '
+          f'err {rel:.2e}, zeros equal {zeros}', flush=True)
+    if rel > 1e-6 or not zeros:
+        raise RuntimeError('probe 12b box form: off plain')
+    report['12b'] = dict(calls=[row, box])
+    torch.cuda.empty_cache()
+
+
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
          '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
@@ -2904,6 +3341,7 @@ PARTS = {'8b': probe_deform, '9b': probe_attention,
          '5': probe_ers, '11a': probe_soft_nms,
          '11a-floor': probe_soft_nms_floor, '15': probe_corner_targets,
          '13a': probe_point_forward, '14': probe_mask_targets,
+         '2': probe_decode, '12b': probe_decay,
          'others': probe_other_backwards}
 
 

@@ -2651,13 +2651,15 @@ def extra_nms_case(rs, n, num_labels):
 
 def test_extra_nms_kernels_match_plain(cuda):
     """Matrix NMS (box form at K = 2000 and SOLOv2's mask-IoU form at N =
-    500, both kernels) within 1e-6 relative of the plain versions; fast NMS
-    and nms_match at K = 2000, 80 classes, exactly; two counted launches
-    per matrix NMS call (comp, then the decay), one per fast NMS and
-    nms_match call."""
-    from erd_tpu_torch.ops import (fast_nms, fast_nms_keep, matrix_decay,
-                                   matrix_decay_plain, matrix_nms,
-                                   matrix_nms_plain, nms_match,
+    500: on the IoU, and fused with the IoU from inter and area) within
+    1e-6 relative of the plain versions, zeros equal; fast NMS and
+    nms_match at K = 2000, 80 classes, exactly; two counted launches per
+    matrix NMS call on boxes or an IoU (comp, then the decay), one per
+    fused call, fast NMS and nms_match call."""
+    from erd_tpu_torch.ops import (fast_nms, fast_nms_keep,
+                                   mask_matrix_decay, mask_matrix_decay_plain,
+                                   matrix_decay, matrix_decay_plain,
+                                   matrix_nms, matrix_nms_plain, nms_match,
                                    nms_match_leader)
     from erd_tpu_torch.ops.extra_nms import fast_nms_keep_plain
     rs = np.random.RandomState(21)
@@ -2687,6 +2689,15 @@ def test_extra_nms_kernels_match_plain(cuda):
         got.cpu().numpy(),
         matrix_decay_plain(s, miou, labels[:, :500]).numpy(), rtol=1e-6,
         atol=0)
+    before = mask_matrix_decay.launches
+    fused = mask_matrix_decay(s.to(cuda), inter.to(cuda), area.to(cuda),
+                              labels[:, :500].to(cuda))
+    torch.cuda.synchronize()
+    assert mask_matrix_decay.launches == before + 1
+    want = mask_matrix_decay_plain(s, inter, area, labels[:, :500])
+    assert torch.equal(fused.cpu() == 0, want == 0)
+    np.testing.assert_allclose(fused.cpu().numpy(), want.numpy(), rtol=1e-6,
+                               atol=0)
     before = fast_nms_keep.launches
     got = fast_nms(boxes.to(cuda), scores.to(cuda), labels.to(cuda), 0.5,
                    valid.to(cuda))
@@ -2794,10 +2805,11 @@ def test_masked_conv_tiles_match_plain(cuda, case, tile):
 def test_solov2_serving_on_cuda_runs_the_matrix_decay_kernel(cuda):
     """SOLOv2 (ResNet-18, float32, conv_cls bias -4.5 and weights x 4,
     conv_kernel x 3) through inference_detector on the card: one
-    matrix_decay call (two launches) a request; the card's decode of its own network
+    mask_matrix_decay launch a request (the mask IoU made inside it, the
+    two-launch matrix_decay not called); the card's decode of its own network
     outputs against the CPU's decode of the same outputs: labels and masks
     equal, scores within 1e-5 relative."""
-    from erd_tpu_torch.ops import matrix_decay
+    from erd_tpu_torch.ops import mask_matrix_decay, matrix_decay
     from erd_tpu_torch.structures import ImageMeta
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = Config.fromfile(os.path.join(root, 'configs', 'solov2',
@@ -2812,9 +2824,10 @@ def test_solov2_serving_on_cuda_runs_the_matrix_decay_kernel(cuda):
         head.conv_kernel.weight.mul_(3.0)
     rs = np.random.RandomState(6)
     imgs = [rs.randint(0, 256, (240, 320, 3), np.uint8) for _ in range(2)]
-    before = matrix_decay.launches
+    before = (mask_matrix_decay.launches, matrix_decay.launches)
     inference_detector(det, net, imgs, scale=(320, 256))
-    assert matrix_decay.launches == before + 4
+    assert (mask_matrix_decay.launches, matrix_decay.launches) == \
+        (before[0] + 2, before[1])
     canvas = torch.from_numpy(np.stack([np.pad(
         i, ((0, 16), (0, 0), (0, 0))) for i in imgs])).to(cuda)
     meta = stack_to([ImageMeta.make((240, 320), (240, 320), (1.0, 1.0))] * 2,
@@ -3025,3 +3038,212 @@ def test_carafe_backward_kernel_is_deterministic_and_needs_no_scratch(cuda):
     grown = torch.cuda.max_memory_allocated(cuda) - start
     assert grown < (x.numel() + logits.numel()) * 2 + 3 * 2 ** 20
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ----------------- the level-map decode (row 2) and the fused decay (12b)
+GFL_LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21), (7, 11))
+
+
+def head_reg_maps(rs, cuda, dtype, layout, b=2):
+    """The five (B, H, W, 68) distribution maps of an 800x1344 canvas as a
+    head may leave them: NHWC views of NCHW maps (the GFL head's), NHWC
+    contiguous (a channels-last network's), or NHWC at an odd element
+    offset (no vector loads), float32 or bf16."""
+    maps = []
+    for h, w in GFL_LEVELS:
+        x = torch.from_numpy((rs.randn(b, 68, h, w) * 3).astype(
+            np.float32)).to(cuda).to(dtype)
+        if layout == 'nchw_view':
+            maps.append(x.permute(0, 2, 3, 1))
+        elif layout == 'nhwc':
+            maps.append(x.contiguous(memory_format=torch.channels_last)
+                        .permute(0, 2, 3, 1))
+        else:
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+            m = buf[1:].view(b, h, w, 68)
+            m.copy_(x.permute(0, 2, 3, 1))
+            maps.append(m)
+    return maps
+
+
+def decode_within_gate(got, want, strides, rows):
+    stride = strides[rows].unsqueeze(-1)
+    return bool(((got - want).abs() <= 1e-4 * stride +
+                 1e-5 * want.abs()).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('layout', ['nchw_view', 'nhwc', 'odd_offset'])
+def test_integral_decode_reads_level_maps_in_place(cuda, dtype, layout):
+    """The decode of 5000 candidate rows an image read from the five level
+    maps where they lie (strided, vector and scalar loads; bf16 widened in
+    registers) within 1e-4 * stride + 1e-5 * |box| px of plain, one
+    counted launch."""
+    from erd_tpu_torch.ops.integral import level_plan
+    rs = np.random.RandomState(31)
+    ctx = AnchorContext.build((800, 1344))
+    centers, strides = ctx.device_tensors(cuda)
+    maps = head_reg_maps(rs, cuda, dtype, layout)
+    assert level_plan(maps).vec_strides == (layout != 'nchw_view')
+    assert (maps[0].data_ptr() % 16 == 0) == (layout != 'odd_offset')
+    rows = torch.from_numpy(rs.randint(0, ctx.num_anchors, (2, 5000))).to(
+        cuda)
+    shape = torch.tensor([[800.0, 1333.0], [750.0, 1000.0]], device=cuda)
+    before = integral_decode.launches
+    got = integral_decode(maps, rows, centers, strides, shape)
+    torch.cuda.synchronize()
+    assert integral_decode.launches == before + 1
+    want = integral_decode_plain(maps, rows, centers, strides, shape)
+    assert decode_within_gate(got, want, strides, rows)
+
+
+@pytest.mark.parametrize('k', [1, 33, 4481])
+def test_integral_decode_flat_forms_match_plain(cuda, k):
+    """The flat (B, N, 68) float32 form (ERD's teacher map: unit strides,
+    no clip) with vector loads, and a flat view of a
+    69-wide buffer (rows off 16-byte boundaries: scalar loads), at K = 1,
+    a ragged 33 and ERD's 4481 (B x K not a multiple of a block's 32)."""
+    rs = np.random.RandomState(32 + k)
+    ctx = AnchorContext.build(TRAIN_SHAPE)
+    centers, _ = ctx.device_tensors(cuda)
+    n = ctx.num_anchors
+    reg = torch.from_numpy((rs.randn(3, n, 68) * 3).astype(np.float32)).to(
+        cuda)
+    wide = torch.zeros(3, n, 69, device=cuda)
+    wide[..., :68] = reg
+    rows = torch.from_numpy(rs.randint(0, n, (3, k))).to(cuda)
+    unit = torch.ones(n, device=cuda)
+    want = integral_decode_plain(reg, rows, centers, unit, None)
+    for logits in (reg, wide[..., :68]):
+        got = integral_decode(logits, rows, centers, unit, None)
+        torch.cuda.synchronize()
+        assert decode_within_gate(got, want, unit, rows)
+
+
+def test_integral_decode_never_reaches_plain_on_cuda(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel or raises: the plain version is
+    never called; other reg_max values and float16 maps raise."""
+    import importlib
+    integral_module = importlib.import_module('erd_tpu_torch.ops.integral')
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('plain decode reached on CUDA')
+    monkeypatch.setattr(integral_module, 'integral_decode_plain', refuse)
+    rs = np.random.RandomState(33)
+    ctx = AnchorContext.build((800, 1344))
+    centers, strides = ctx.device_tensors(cuda)
+    maps = head_reg_maps(rs, cuda, torch.float32, 'nchw_view', b=1)
+    rows = torch.from_numpy(rs.randint(0, ctx.num_anchors, (1, 50))).to(cuda)
+    integral_decode(maps, rows, centers, strides, None)
+    with pytest.raises(ValueError, match='reg_max'):
+        integral_decode([m[..., :60] for m in maps], rows, centers, strides,
+                        None, reg_max=14)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        integral_decode([m.half() for m in maps], rows, centers, strides,
+                        None)
+    with pytest.raises(TypeError, match='int64'):
+        integral_decode(maps, rows.int(), centers, strides, None)
+
+
+def test_gfl_postprocess_decodes_the_head_maps_in_place(cuda, monkeypatch):
+    """GFL serving hands the decode the head's distribution maps
+    themselves: no cast and no concatenation runs before the launch."""
+    from erd_tpu_torch.models.heads import gfl_head
+    cfg = Config.fromfile(ERD_CFG)
+    cfg.model.depth = 18
+    det, net, _ = init_detector(cfg, device=cuda)
+    images = torch.from_numpy(np.random.RandomState(34).randint(
+        0, 256, (1, 128, 192, 3), np.uint8)).to(cuda)
+    meta = stack_to([ImageMeta_make((128, 192))], cuda)
+    seen = []
+
+    def spy(*args):
+        seen.append(args[0])
+        return integral_decode(*args)
+    monkeypatch.setattr(gfl_head, 'integral_decode', spy)
+    with torch.no_grad():
+        cls, reg = det.forward_raw(net, images)
+        det.postprocess(det.anchor_context((128, 192)), cls, reg, meta)
+    assert len(seen) == 1 and len(seen[0]) == len(reg)
+    assert all(a is b for a, b in zip(seen[0], reg))
+
+
+def ImageMeta_make(hw):
+    from erd_tpu_torch.structures import ImageMeta
+    return ImageMeta.make(hw, hw, (1.0, 1.0))
+
+
+def mask_decay_case(rs, b, n, case, hw=(40, 50), num_labels=80):
+    """SOLOv2-like decay inputs on the CPU: (B, N) scores, the binarised
+    masks' (B, N, N) overlaps and (B, N) areas, int64 labels. Cases: the
+    path's (the top half live, the rest 0), random scores on a 1/16 grid
+    with zeros, tied top scores, all zero, one class, a negative score and
+    sigma < 0 (the kernel computes every term there)."""
+    masks = torch.from_numpy(rs.rand(b, n, hw[0] * hw[1]) < 0.3).float()
+    masks[:, rs.rand(n) < 0.05] = 0.0
+    inter = masks @ masks.transpose(1, 2)
+    area = masks.sum(-1)
+    scores = torch.from_numpy((rs.randint(0, 16, (b, n)) / 16).astype(
+        np.float32))
+    labels = torch.from_numpy(rs.randint(0, num_labels, (b, n)))
+    if case == 'path':
+        scores = torch.sort(torch.rand(b, n, generator=torch.Generator()
+                                       .manual_seed(n)), -1,
+                            descending=True).values
+        scores[:, n // 2:] = 0.0
+    elif case == 'tied_top':
+        scores[:, :4] = 1.0
+    elif case == 'all_zero':
+        scores.zero_()
+    elif case == 'one_class':
+        labels.zero_()
+    elif case == 'negative':
+        scores[:, 0] = -0.5
+    return scores, inter, area, labels
+
+
+@pytest.mark.parametrize('n', [1, 7, 33, 500, 700])
+@pytest.mark.parametrize('case', ['path', 'random', 'tied_top', 'all_zero',
+                                  'one_class', 'negative', 'sigma_neg'])
+@pytest.mark.parametrize('kernel', ['gaussian', 'linear'])
+def test_mask_matrix_decay_kernel_matches_plain(cuda, n, case, kernel):
+    """The fused decay (one cooperative launch, the mask IoU made in it,
+    zero rows and failing terms skipped; N = 500 takes the row held in
+    registers over the barrier, N > 512 is not held) within 1e-6
+    relative of plain, zeros equal (and their signs), one counted launch
+    a call, on 2 images."""
+    from erd_tpu_torch.ops import mask_matrix_decay, mask_matrix_decay_plain
+    rs = np.random.RandomState(n)
+    scores, inter, area, labels = mask_decay_case(
+        rs, 2, n, case, num_labels=1 if case == 'one_class' else 5)
+    sigma = -0.5 if case == 'sigma_neg' else 2.0
+    before = mask_matrix_decay.launches
+    got = mask_matrix_decay(scores.to(cuda), inter.to(cuda), area.to(cuda),
+                            labels.to(cuda), sigma, kernel).cpu()
+    assert mask_matrix_decay.launches == before + 1
+    want = mask_matrix_decay_plain(scores, inter, area, labels, sigma, kernel)
+    zero = want == 0
+    assert torch.equal(got == 0, zero)
+    assert torch.equal(torch.signbit(got[zero]), torch.signbit(want[zero]))
+    rel = ((got - want).abs() / want.abs())[~zero]
+    assert rel.numel() == 0 or float(rel.max()) <= 1e-6
+
+
+def test_mask_matrix_decay_never_reaches_plain_on_cuda(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel or raises: neither plain version
+    is called; int32 labels and more slots than the kernel's capacity
+    raise."""
+    import erd_tpu_torch.ops.extra_nms as extra
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('plain decay reached on CUDA')
+    monkeypatch.setattr(extra, 'mask_matrix_decay_plain', refuse)
+    monkeypatch.setattr(extra, 'matrix_decay_plain', refuse)
+    rs = np.random.RandomState(35)
+    args = [t.to(cuda) for t in mask_decay_case(rs, 1, 20, 'random')]
+    extra.mask_matrix_decay(*args)
+    with pytest.raises(TypeError, match='int64'):
+        extra.mask_matrix_decay(*args[:3], args[3].int())
+    monkeypatch.setattr(extra, 'mask_matrix_decay_capacity', lambda: 19)
+    with pytest.raises(ValueError, match='at most 19'):
+        extra.mask_matrix_decay(*args)

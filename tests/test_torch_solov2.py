@@ -46,7 +46,7 @@ from erd_tpu_torch.models import SOLOV2Detector
 from erd_tpu_torch.models.detectors import solov2 as P
 from erd_tpu_torch.models.weight_import import (load_torch_checkpoint_file,
                                                  params_from_jax)
-from erd_tpu_torch.ops import matrix_decay
+from erd_tpu_torch.ops import mask_matrix_decay
 from erd_tpu_torch.structures import ImageMeta, stack_to
 
 torch.set_num_threads(2)
@@ -252,17 +252,19 @@ def test_predict_matches_erd_tpu_with_tie_flips_bounded(solo):
 
 
 def test_predict_runs_matrix_decay_once_a_batch(solo, monkeypatch):
-    """The decode's matrix NMS is ``matrix_decay`` on the (B, 500, 500)
-    mask IoU: one call a batch, with SOLOv2's sigma and kernel."""
+    """The decode's matrix NMS is ``mask_matrix_decay`` on the (B, 500,
+    500) mask overlaps and the (B, 500) mask areas (the mask IoU made in
+    the same call): one call a batch, with SOLOv2's sigma and kernel."""
     _, _, det, net, images = solo
     calls = []
 
-    def spy(scores, iou, labels, sigma, kernel):
-        calls.append((tuple(scores.shape), tuple(iou.shape), sigma, kernel))
-        return matrix_decay(scores, iou, labels, sigma, kernel)
-    monkeypatch.setattr(P, 'matrix_decay', spy)
+    def spy(scores, inter, area, labels, sigma, kernel):
+        calls.append((tuple(scores.shape), tuple(inter.shape),
+                      tuple(area.shape), sigma, kernel))
+        return mask_matrix_decay(scores, inter, area, labels, sigma, kernel)
+    monkeypatch.setattr(P, 'mask_matrix_decay', spy)
     det.predict(net, dict(images=torch.from_numpy(images), meta=metas()[1]))
-    assert calls == [((2, 500), (2, 500, 500), 2.0, 'gaussian')]
+    assert calls == [((2, 500), (2, 500, 500), (2, 500), 2.0, 'gaussian')]
 
 
 # ------------------------------------------- weights, build_detector
