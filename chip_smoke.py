@@ -361,8 +361,12 @@ Phases, in order; any failed check exits non-zero before the last line:
                 500) mask overlaps and areas) within 1e-6 relative of its
                 plain version, zeros equal; the two-launch decay on that
                 call's mask IoU, and its box form at K = 2000 (80
-                classes, tied scores and IoUs), gaussian and linear; fast NMS and nms_match's
-                leader at K = 2000, IoU 0.5, equal to plain; the masked
+                classes, tied scores and IoUs), gaussian and linear; fast
+                NMS and nms_match at IoU 0.5, K = 2000 over 80 classes
+                and K = 10000, fast NMS also at K = 2000 of one class
+                (nms_match reads no labels), equal to plain, fast NMS one
+                launch from its unsorted inputs, nms_match row 1's
+                launches + 1 (graph nodes and counters); the masked
                 conv (3x3, 256 -> 256, float32, 100 x 168, 5 / 25 / 49.4
                 / 50 / 99.4 / 100 % of positions: each side of two tile
                 choices) with its masked-out positions exactly 0, the rest
@@ -7003,6 +7007,129 @@ def kernel_row(name, source, replaces, ms, call_ms, src, plain_ms, bms, by,
                 library_ms=library_ms, **extra)
 
 
+def solo_nms_ops(np, torch, boxes, sc, labels, valid):
+    """Rows 12c and 12d (ops no model calls): fast NMS and nms_match at IoU
+    0.5 on ``random_nms_inputs`` at K = 2000 over 80 classes (boxes, sc,
+    labels, valid) and K = 10000 over 80 classes, fast NMS also on the
+    same K = 2000 boxes of one class (nms_match reads no labels: for it
+    that call is the first one): the whole op from the unsorted inputs,
+    keep masks and leaders equal to plain, fast NMS one launch (counted,
+    and the nodes of a CUDA graph of the call), nms_match row 1's launches
+    + 1; each kernel graph-timed beside its plain version and the
+    function's bound. Returns (fast NMS's row, the leader's row)."""
+    from erd_tpu_torch.ops import (fast_nms, fast_nms_plain, nms_mask,
+                                   nms_match, nms_match_leader_plain,
+                                   nms_sorted_keep)
+    from erd_tpu_torch.ops.extra_nms import _nms_match_leader
+    from erd_tpu_torch.ops.nms import nms_mask_words
+    from erd_tpu_torch.tools.atomic_backward_probe import graph_launches
+    thr = 0.5
+    nms_calls = [('K=2000 80 classes', boxes, sc, labels, valid),
+                 ('K=2000 one class', boxes, sc, torch.zeros_like(labels),
+                  valid),
+                 ('K=10000 80 classes', *random_nms_inputs(
+                     np, torch, np.random.RandomState(31), 10000,
+                     NUM_CLASSES))]
+    fast_calls, match_calls = [], []
+    for name, bx, s_, lab, val in nms_calls:
+        kk = bx.shape[1]
+        before = fast_nms.launches
+        got = fast_nms(bx, s_, lab, thr, val)
+        torch.cuda.synchronize()
+        count = fast_nms.launches - before
+        want = fast_nms_plain(bx, s_, lab, thr, val)
+        same = bool(torch.equal(got, want))
+        nodes = graph_launches(lambda: fast_nms(bx, s_, lab, thr, val))
+        log(f'solo kernels: fast_nms {name} IoU {thr}: keep masks equal '
+            f'{same} ({int(want.sum())} kept), {count} counted launch, '
+            f'{nodes} launches in a graph of the call')
+        check(same and 0 < int(want.sum()) < kk and count == 1 and
+              nodes == 1, f'fast NMS ({name}) differs from plain, or is not '
+              f'one launch from its unsorted inputs')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: fast_nms(bx, s_, lab, thr, val),
+            lambda: fast_nms_plain(bx, s_, lab, thr, val))
+        live = val[0] & (s_[0] == s_[0]) & (s_[0] > float('-inf'))
+        counts = torch.bincount(lab[0][live]).double()
+        pairs = float((counts * (counts - 1) / 2).sum())
+        # the unsorted boxes, scores, labels and valid flags read, the keep
+        # mask written; a same-class pair of live boxes ~15 operations
+        bms, by = bound_of(kk * (16 + 4 + 8 + 1 + 1), pairs * 15.0)
+        fast_calls.append(dict(call=name, k=kk, kept=int(want.sum()),
+                               same_class_pairs=pairs, ms=ms,
+                               call_ms=call_ms, ms_from=src,
+                               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                               graph_launches=nodes))
+        log(f'solo kernels: fast_nms {name}: {ms:.4f} ms device ({src}), '
+            f'{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound '
+            f'{bms:.6f} ms ({by})')
+
+        if name.endswith('one class'):
+            continue  # nms_match reads no labels: the first call again
+        # 12d: nms_match's leader from row 1's words (class-agnostic)
+        keep, *words = nms_mask_words(bx, s_, thr, val)
+        got = _nms_match_leader(bx, s_, val, thr, keep, *words)
+        torch.cuda.synchronize()
+        want = nms_match_leader_plain(bx, s_, keep, val, thr)
+        before = (nms_sorted_keep.launches, nms_match.launches)
+        mkeep, mleader = nms_match(bx, s_, thr, val)
+        torch.cuda.synchronize()
+        count = (nms_sorted_keep.launches - before[0],
+                 nms_match.launches - before[1])
+        same = bool(torch.equal(got, want) and torch.equal(mleader, want) and
+                    torch.equal(mkeep, keep))
+        nodes = graph_launches(lambda: nms_match(bx, s_, thr, val))
+        row1 = graph_launches(lambda: nms_mask(bx, s_, thr, valid_mask=val))
+        log(f'solo kernels: nms_match {name} IoU {thr}: leaders equal {same} '
+            f'({int(keep.sum())} kept, {int((want < 0).sum())} without a '
+            f'leader); counted: row 1 {count[0]}, leader {count[1]}; a '
+            f'graph of the call {nodes} launches, of nms_mask {row1}')
+        check(same and int((want >= 0).sum()) > 0 and count == (1, 1) and
+              nodes == row1 + 1, f'nms_match ({name}) leaders differ from '
+              f'plain, or it is not row 1\'s launches + 1')
+        ms, call_ms, src, plain_ms = time_graph(
+            torch, lambda: _nms_match_leader(bx, s_, val, thr, keep, *words),
+            lambda: nms_match_leader_plain(bx, s_, keep, val, thr))
+        kept = int(keep.sum())
+        bms, by = bound_of(kk * (16 + 4 + 1 + 1 + 8), kk * kept * 15.0)
+        match_calls.append(dict(
+            call=name, k=kk, kept=kept, ms=ms, call_ms=call_ms, ms_from=src,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            op_ms=graph_ms(torch, lambda: nms_match(bx, s_, thr, val)),
+            nms_mask_ms=graph_ms(torch, lambda: nms_mask(
+                bx, s_, thr, valid_mask=val)),
+            graph_launches=nodes, nms_mask_graph_launches=row1,
+            groups=int(torch.unique(want[want >= 0]).numel())))
+        log(f'solo kernels: nms_match {name}: leader {ms:.4f} ms device '
+            f'({src}), {call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, '
+            f'bound {bms:.6f} ms ({by}); nms_match '
+            f'{match_calls[-1]["op_ms"]:.4f} ms (graph), nms_mask '
+            f'{match_calls[-1]["nms_mask_ms"]:.4f}')
+    head = fast_calls[0]
+    fast_row = kernel_row(
+        'fast_nms', 'erd_tpu_torch/csrc/extra_nms.cu',
+        'erd_tpu/ops/extra_nms.py:44', head['ms'], head['call_ms'],
+        head['ms_from'], head['plain_ms'], head['bound_ms'],
+        head['bound_by'], None, 0.0, k=head['k'], kept=head['kept'],
+        same_class_pairs=head['same_class_pairs'], calls=fast_calls,
+        redesigned=True, design=(
+            'one launch from the unsorted inputs: an image on ~K/16 '
+            'blocks (at most two an SM), each bucketing the live boxes '
+            'by label in shared memory; a warp a column walks its bucket '
+            'to the first earlier box of its class that overlaps it'))
+    head = match_calls[0]
+    match_row = kernel_row(
+        'nms_match_leader', 'erd_tpu_torch/csrc/nms.cu',
+        'erd_tpu/ops/extra_nms.py:84', head['ms'], head['call_ms'],
+        head['ms_from'], head['plain_ms'], head['bound_ms'],
+        head['bound_by'], None, 0.0, k=head['k'], kept=head['kept'],
+        groups=head['groups'], calls=match_calls, redesigned=True, design=(
+            'one launch after row 1\'s two that reads their suppression '
+            'words: a removed box\'s leader is the first kept row whose '
+            'word has its bit; a block a column tile'))
+    return fast_row, match_row
+
+
 def phase_solo_kernels(np, torch):
     """Rows 12b-d and 13b: the fused mask-IoU decay on the real call of one
     800x1333 SOLOv2 R50 request (bf16, heads arranged: (1, 500) scores, most
@@ -7010,9 +7137,12 @@ def phase_solo_kernels(np, torch):
     1e-6 relative of its plain version, zeros equal with their signs; the
     two-launch decay on that call's mask IoU, the same; the box form at K
     = 2000 (80 classes, tied scores and IoUs), gaussian and linear, within
-    1e-6 relative; fast NMS and
-    nms_match's leader at K = 2000, 80 classes, IoU 0.5, keep masks and
-    leaders equal; the masked conv (3x3, 256 -> 256, float32, 1 x 100 x
+    1e-6 relative; fast NMS and nms_match at IoU 0.5 at K = 2000 over 80
+    classes and K = 10000 over 80 classes, fast NMS also on the same K =
+    2000 boxes of one class, keep masks and leaders equal to plain, fast
+    NMS one launch a call from its unsorted inputs (counted, and the nodes
+    of a CUDA graph of the call), nms_match row 1's launches + 1 (the
+    leader read from row 1's words); the masked conv (3x3, 256 -> 256, float32, 1 x 100 x
     168, masks of 840, 4200, 8300, 8400, 16700 and 16800 positions) with
     its masked-out positions exactly 0 and the rest within 1e-5 *
     max|plain|, a second call bit-equal; each timed by CUDA
@@ -7023,15 +7153,11 @@ def phase_solo_kernels(np, torch):
 
     import torch.nn.functional as F
 
-    from erd_tpu_torch.ops import (fast_nms_keep, mask_matrix_decay,
+    from erd_tpu_torch.ops import (mask_matrix_decay,
                                    mask_matrix_decay_plain, masked_conv2d,
                                    masked_conv2d_plain, matrix_decay,
                                    matrix_decay_plain, matrix_nms,
-                                   matrix_nms_plain, nms_mask,
-                                   nms_match_leader)
-    from erd_tpu_torch.ops.extra_nms import (fast_nms_keep_plain,
-                                             nms_match_leader_plain)
-    from erd_tpu_torch.ops.misc import take_rows
+                                   matrix_nms_plain)
     from erd_tpu_torch.ops.sampling import (MASKED_CONV_TILES,
                                             masked_conv_positions,
                                             masked_conv_tile)
@@ -7148,56 +7274,7 @@ def phase_solo_kernels(np, torch):
             f'{plain_ms:.4f} ms, bound {bms:.6f} ms ({by})')
     decay_row['box_form'] = box_form
 
-    # -- 12c fast NMS at K = 2000
-    thr = 0.5
-    s = torch.where(valid, sc, torch.full_like(sc, float('-inf')))
-    neg, order = torch.sort(-s, dim=-1, stable=True)
-    fargs = (take_rows(boxes, order).contiguous(),
-             torch.gather(labels, 1, order).contiguous(),
-             (neg < float('inf')).contiguous(), order.contiguous(), thr)
-    got = fast_nms_keep(*fargs)
-    torch.cuda.synchronize()
-    want = fast_nms_keep_plain(*fargs)
-    same = bool(torch.equal(got, want))
-    check(same and 0 < int(want.sum()) < k, 'fast NMS differs from plain')
-    ms, call_ms, src, plain_ms = time_graph(
-        torch, lambda: fast_nms_keep(*fargs),
-        lambda: fast_nms_keep_plain(*fargs))
-    counts = torch.bincount(labels[0], minlength=NUM_CLASSES).double()
-    pairs = float((counts * (counts - 1) / 2).sum())
-    bms, by = bound_of(k * (16 + 8 + 1 + 8 + 1), pairs * 15.0)
-    fast_row = kernel_row(
-        'fast_nms_keep', 'erd_tpu_torch/csrc/extra_nms.cu',
-        'erd_tpu/ops/extra_nms.py:44', ms, call_ms, src, plain_ms, bms, by,
-        None, 0.0, k=k, kept=int(want.sum()), same_class_pairs=pairs)
-    log(f'solo kernels: fast_nms K={k} IoU {thr}: keep masks equal {same} '
-        f'({int(want.sum())} kept); {ms:.4f} ms device ({src}), '
-        f'{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound '
-        f'{bms:.6f} ms ({by})')
-
-    # -- 12d nms_match's leader at K = 2000 (class-agnostic, as mmcv's)
-    keep = nms_mask(boxes, sc, thr, valid_mask=valid)
-    margs = (boxes, sc, keep, valid, thr)
-    got = nms_match_leader(*margs)
-    torch.cuda.synchronize()
-    want = nms_match_leader_plain(*margs)
-    same = bool(torch.equal(got, want))
-    check(same and int((want >= 0).sum()) > 0, 'nms_match leaders differ '
-          'from plain')
-    ms, call_ms, src, plain_ms = time_graph(
-        torch, lambda: nms_match_leader(*margs),
-        lambda: nms_match_leader_plain(*margs))
-    kept = int(keep.sum())
-    bms, by = bound_of(k * (16 + 4 + 1 + 1 + 8), k * kept * 15.0)
-    match_row = kernel_row(
-        'nms_match_leader', 'erd_tpu_torch/csrc/extra_nms.cu',
-        'erd_tpu/ops/extra_nms.py:84', ms, call_ms, src, plain_ms, bms, by,
-        None, 0.0, k=k, kept=kept,
-        groups=int(torch.unique(want[want >= 0]).numel()))
-    log(f'solo kernels: nms_match K={k} IoU {thr}: leaders equal {same} '
-        f'({kept} kept, {int((want < 0).sum())} without a leader); '
-        f'{ms:.4f} ms device ({src}), {call_ms:.4f} ms per call, plain '
-        f'{plain_ms:.4f} ms, bound {bms:.6f} ms ({by})')
+    fast_row, match_row = solo_nms_ops(np, torch, boxes, sc, labels, valid)
 
     # -- 13b masked conv, 3x3 256 -> 256 on a P3 map
     gen = torch.Generator().manual_seed(37)

@@ -1,13 +1,13 @@
-// Matrix NMS (score decay), fast NMS and nms_match's grouping, hand-written
-// for Hopper (sm_90a).
+// Matrix NMS (score decay) and fast NMS, hand-written for Hopper (sm_90a).
 //
-// Replaces: erd_tpu/ops/extra_nms.py `matrix_nms` (:17), `fast_nms` (:44)
-// and the leader pass of `nms_match` (:84), and the inline mask-IoU decay
-// of SOLOv2's decode (erd_tpu/models/detectors/solov2.py:399-410). On the
-// TPU each was one dense (N, N) matrix expression that XLA fused: where,
-// max / min over an axis, exp. Here each is a pass over the matrix whose
-// entries are computed where they are used, never stored, but for the
-// precomputed mask IoU of SOLOv2, which is read.
+// Replaces: erd_tpu/ops/extra_nms.py `matrix_nms` (:17) and `fast_nms`
+// (:44), and the inline mask-IoU decay of SOLOv2's decode
+// (erd_tpu/models/detectors/solov2.py:399-410). On the TPU each was one
+// dense (N, N) matrix expression that XLA fused: where, max / min over an
+// axis, exp. Here each is a pass over the pairs whose entries are
+// computed where they are used, never stored, but for the precomputed
+// mask IoU of SOLOv2, which is read; fast NMS visits only the pairs of a
+// class.
 //
 // 1. Matrix decay, two launches (`erd_matrix_decay`), one block per row i
 //    of one image, grid (N, B), the block's threads striding over j:
@@ -25,17 +25,27 @@
 //    device's expf and the host's exp differ (an ulp).
 //    Ties: s_j > s_i is strict, so equal scores never decay each other (in
 //    SOLOv2 most of the 500 slots carry score 0).
-// 2. Fast NMS (`erd_fast_nms_keep`): the caller sorts (stable, descending,
-//    invalid last) and gathers; one thread per sorted column j computes
-//    max over i < j of the same class of iou(i, j) and keeps j if that is
-//    <= thr and j is valid, written back to j's original slot through
-//    `order`. The rows i come through shared memory in tiles of 128.
-// 3. nms_match's leader (`erd_nms_match_leader`): given the greedy keep mask
-//    (row 1's kernel, csrc/nms.cu), one thread per box i takes the first
-//    argmax by score over kept j with iou(i, j) > thr, or -1 where no finite
-//    candidate exists or i is invalid; the candidates j come through
-//    shared memory in tiles of 128, walked in index order, so a tie keeps
-//    the lowest index as argmax does.
+// 2. Fast NMS (`erd_fast_nms`), one launch from the op's own inputs: no
+//    sort, no gather. Box j stays unless a live box i of its class that
+//    comes earlier in the stable descending score order overlaps it above
+//    the threshold. "Earlier" is computed in the kernel as torch.sort(-s,
+//    stable=True) and jnp.argsort(-s) order: a larger score first, equal
+//    scores (-0 and +0 included) by index. Live means valid, scored
+//    neither NaN nor -inf: the sort puts the others after every live box,
+//    so they precede no live box and are never kept. An image takes `per`
+//    blocks (from K, on the host); each block buckets the image's live
+//    boxes by a hash of their int64 (or int32) labels in shared memory (a
+//    counting sort: a warp whose live boxes share a bucket takes one
+//    integer atomic, any other warp one a lane), then owns a range of the
+//    columns by index, a warp a column: the lanes walk the column's
+//    bucket 64 members at a time (2 a lane, loads in flight together) and
+//    stop at the first member that suppresses it (a NaN IoU counts, as
+//    erd_tpu's max propagates NaN). Labels are compared exactly, so a
+//    bucket collision costs work, never correctness. The members' boxes,
+//    scores and labels are read in place (L1 / L2); keep is written in
+//    the input order.
+// 3. nms_match's leader: in csrc/nms.cu (`erd_nms_match_leader`), read
+//    from row 1's suppression words.
 //
 // 4. SOLOv2's mask-IoU decay fused with its IoU (`erd_mask_matrix_decay`,
 //    one launch): from inter (B, N, N), the binarised masks' pixel
@@ -78,13 +88,15 @@
 // * max(min(y2) - max(y1), 0), iou = ov / max((a_1 + a_2) - ov, 1e-6).
 // The sum a_1 + a_2 commutes exactly, so iou(i, j) == iou(j, i) bitwise.
 //
-// Bound on this card: operations. A call does N^2 pair terms (an IoU of
-// ~14 float32 operations where computed, plus an exp or a division): at
-// N = 500 (SOLOv2's nms_pre) about 10 MFLOP, at N = 2000 about 60 MFLOP,
-// 0.15-1 microsecond at 67 TFLOP/s; the bytes are a few KB (boxes) or 1 MB
-// (a 500 x 500 IoU). Every launch is far below a launch's own cost, so the
-// launches bound these kernels in practice; the design keeps them to two
-// (matrix decay) or one (the others) per call, whatever the batch.
+// Bound on this card: operations. A matrix-decay call does N^2 pair terms
+// (an IoU of ~14 float32 operations where computed, plus an exp or a
+// division): at N = 500 (SOLOv2's nms_pre) about 10 MFLOP, at N = 2000
+// about 60 MFLOP, 0.15-1 microsecond at 67 TFLOP/s; the bytes are a few KB
+// (boxes) or 1 MB (a 500 x 500 IoU). Fast NMS needs the same-class pairs
+// alone (~20,000 at K = 2000 over 80 classes: bytes-bound, 0.00002 ms).
+// Every launch is far below a launch's own cost, so the launches bound
+// these kernels in practice; the design keeps them to two (matrix decay)
+// or one (the others) per call, whatever the batch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,7 +107,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 128;
 
 __device__ __forceinline__ float box_area(float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f),
@@ -416,88 +427,201 @@ mask_matrix_decay_kernel(const float* __restrict__ scores,
   }
 }
 
-__global__ void fast_nms_kernel(const float4* __restrict__ sboxes,
-                                const int64_t* __restrict__ slabels,
-                                const uint8_t* __restrict__ svalid,
-                                const int64_t* __restrict__ order, int n,
-                                float thr, uint8_t* __restrict__ keep) {
-  __shared__ float4 tb[kTile];
-  __shared__ float ta[kTile];
-  __shared__ int64_t tl[kTile];
-  const size_t b = blockIdx.y;
-  const float4* bx = sboxes + b * n;
-  const int64_t* lab = slabels + b * n;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = j < n;
-  const float4 bj = live ? bx[j] : make_float4(0, 0, 0, 0);
-  const float area_j = box_area(bj);
-  const int64_t lj = live ? lab[j] : 0;
-  // rows i < j only: the block's last column bounds the tiles it needs
-  const int last = min(n, (blockIdx.x + 1) * blockDim.x);
-  float best = 0.f;
-  bool nan = false;
-  for (int t0 = 0; t0 < last - 1; t0 += kTile) {
-    __syncthreads();
-    for (int r = threadIdx.x; r < kTile && t0 + r < n; r += blockDim.x) {
-      const float4 bi = bx[t0 + r];
-      tb[r] = bi;
-      ta[r] = box_area(bi);
-      tl[r] = lab[t0 + r];
-    }
-    __syncthreads();
-    const int stop = min(kTile, j - t0);
-    for (int r = 0; r < stop; ++r) {
-      if (tl[r] != lj) continue;
-      const float v = pair_iou(tb[r], ta[r], bj, area_j);
-      nan |= isnan(v);
-      best = fmaxf(best, v);
-    }
-  }
-  if (live)
-    keep[b * n + order[b * n + j]] =
-        (!nan && best <= thr && svalid[b * n + j]) ? 1 : 0;
+// ---------------------------------------------------------------- fast NMS
+constexpr int kFastThreads = 512;
+constexpr int kFastWarps = kFastThreads / 32;
+constexpr int kBuckets = 1024;
+constexpr int kFastStage = 8;        // a lane's boxes in flight in pass 1
+constexpr int kFastWalk = 2;         // a lane's bucket members in flight
+constexpr int kFastColsPerWarp = 1;  // the plan's columns a warp
+constexpr unsigned kAll = 0xffffffffu;
+
+// a label's bucket: the identity on 0..1023 (class indices never collide),
+// the high bits folded in for any other int64
+__device__ __forceinline__ int label_bucket(int64_t label) {
+  uint64_t x = static_cast<uint64_t>(label);
+  x ^= x >> 32;
+  x ^= x >> 16;
+  return static_cast<int>((x ^ (x >> 10)) & (kBuckets - 1));
 }
 
-__global__ void nms_match_leader_kernel(const float4* __restrict__ boxes,
-                                        const float* __restrict__ scores,
-                                        const uint8_t* __restrict__ keep,
-                                        const uint8_t* __restrict__ valid,
-                                        int n, float thr,
-                                        int64_t* __restrict__ leader) {
-  __shared__ float4 tb[kTile];
-  __shared__ float ta[kTile];
-  __shared__ float ts[kTile];
-  __shared__ uint8_t tk[kTile];
-  const size_t b = blockIdx.y;
-  const float4* bx = boxes + b * n;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const bool vi = live && valid[b * n + i];
-  const float4 bi = live ? bx[i] : make_float4(0, 0, 0, 0);
-  const float area_i = box_area(bi);
-  float best = -INFINITY;
-  int64_t arg = 0;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();
-    for (int r = threadIdx.x; r < kTile && t0 + r < n; r += blockDim.x) {
-      const float4 bj = bx[t0 + r];
-      tb[r] = bj;
-      ta[r] = box_area(bj);
-      ts[r] = scores[b * n + t0 + r];
-      tk[r] = keep[b * n + t0 + r];
+// exclusive prefix sum of one value a thread over the block; every thread
+// gets the block's total
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sums,
+                                                   int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kAll, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kFastWarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kAll, w, o);
+      if (lane >= o) w += y;
     }
-    __syncthreads();
-    if (!vi) continue;
-    const int stop = min(kTile, n - t0);
-    for (int r = 0; r < stop; ++r) {
-      if (!tk[r] || !(pair_iou(bi, area_i, tb[r], ta[r]) > thr)) continue;
-      if (ts[r] > best) {  // strict: the first maximum stays
-        best = ts[r];
-        arg = t0 + r;
+    if (lane < kFastWarps) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  total = warp_sums[kFastWarps - 1];
+  return (warp == 0 ? 0 : warp_sums[warp - 1]) + x - v;
+}
+
+// shared memory, all of it dynamic (the kernel has no static shared
+// memory, so this is all a block takes): start[kBuckets + 1] (bucket h's
+// members at [start[h], start[h + 1])), cursor[kBuckets],
+// warp_sums[kFastWarps], members[n] (the live boxes, bucket by bucket),
+// bucket[n] (a box's bucket, kBuckets where it is not live); mirrored by
+// ops/extra_nms.py fast_nms_smem
+constexpr size_t fast_nms_smem(int n) {
+  return sizeof(int) * (2 * kBuckets + 1 + kFastWarps) + sizeof(int) * n +
+         sizeof(uint16_t) * n;
+}
+constexpr size_t kMaxBlockShared = 232448;  // an H100 block's opt-in
+
+template <typename L>
+__global__ void __launch_bounds__(kFastThreads)
+    fast_nms_kernel(const float4* __restrict__ boxes,
+                    const float* __restrict__ scores,
+                    const L* __restrict__ labels,
+                    const uint8_t* __restrict__ valid, int n, int per,
+                    float thr, uint8_t* __restrict__ keep) {
+  extern __shared__ __align__(16) int fsm[];
+  int* start = fsm;
+  int* cursor = start + kBuckets + 1;
+  int* warp_sums = cursor + kBuckets;
+  int* members = warp_sums + kFastWarps;
+  uint16_t* bucket = reinterpret_cast<uint16_t*>(members + n);
+  const size_t img = blockIdx.x / per;
+  const int part = static_cast<int>(blockIdx.x % per);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  boxes += img * n;
+  scores += img * n;
+  labels += img * n;
+  if (valid != nullptr) valid += img * n;
+  keep += img * n;
+  for (int h = tid; h < kBuckets; h += kFastThreads) cursor[h] = 0;
+  __syncthreads();
+  // pass 1: each box's bucket, counted
+  for (int base = warp * 32; base < n; base += kFastThreads * kFastStage) {
+    float s[kFastStage];
+    int64_t lab[kFastStage];
+    bool on[kFastStage];
+#pragma unroll
+    for (int u = 0; u < kFastStage; ++u) {
+      const int i = base + u * kFastThreads + lane;
+      on[u] = i < n && (valid == nullptr || valid[i] != 0);
+      s[u] = i < n ? scores[i] : 0.f;
+      lab[u] = i < n ? static_cast<int64_t>(labels[i]) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kFastStage; ++u) {
+      const int i = base + u * kFastThreads + lane;
+      const bool live = on[u] && s[u] == s[u] && s[u] != -INFINITY;
+      const int h = live ? label_bucket(lab[u]) : kBuckets;
+      if (i < n) bucket[i] = static_cast<uint16_t>(h);
+      const unsigned on_b = __ballot_sync(kAll, h < kBuckets);
+      if (on_b == 0u) continue;
+      const int first = __ffs(on_b) - 1;
+      const int hf = __shfl_sync(kAll, h, first);
+      if (__all_sync(kAll, h == hf || h == kBuckets)) {
+        if (lane == first) atomicAdd(&cursor[hf], __popc(on_b));
+      } else if (h < kBuckets) {
+        atomicAdd(&cursor[h], 1);
       }
     }
   }
-  if (live) leader[b * n + i] = (vi && isfinite(best)) ? arg : -1;
+  __syncthreads();
+  // the buckets' starts: an exclusive sum of their counts
+  constexpr int kPer = kBuckets / kFastThreads;
+  int counts[kPer], sum = 0;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    counts[u] = cursor[tid * kPer + u];
+    sum += counts[u];
+  }
+  int live_n;
+  int at = block_exclusive_sum(sum, warp_sums, live_n);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    start[tid * kPer + u] = at;
+    cursor[tid * kPer + u] = at;
+    at += counts[u];
+  }
+  if (tid == 0) start[kBuckets] = live_n;
+  __syncthreads();
+  // pass 2: the live boxes into their buckets (in an order that the
+  // atomics pick, another in each block: only a bucket's set is read)
+  for (int base = warp * 32; base < n; base += kFastThreads) {
+    const int i = base + lane;
+    const int h = i < n ? bucket[i] : kBuckets;
+    const unsigned on_b = __ballot_sync(kAll, h < kBuckets);
+    if (on_b == 0u) continue;
+    const int first = __ffs(on_b) - 1;
+    const int hf = __shfl_sync(kAll, h, first);
+    int pos = 0;
+    if (__all_sync(kAll, h == hf || h == kBuckets)) {
+      if (lane == first) pos = atomicAdd(&cursor[hf], __popc(on_b));
+      pos = __shfl_sync(kAll, pos, first) +
+            __popc(on_b & ((1u << lane) - 1u));
+    } else if (h < kBuckets) {
+      pos = atomicAdd(&cursor[h], 1);
+    }
+    if (h < kBuckets) members[pos] = i;
+  }
+  __syncthreads();
+  // the block's share of the columns, a range of indices, a warp a
+  // column: a live j stays unless an earlier live box of its class
+  // overlaps it above thr (keep iff max(0, those IoUs) <= thr: nothing is
+  // kept where 0 > thr); a box that is not live is never kept
+  const int j0 = static_cast<int>(static_cast<long long>(n) * part / per);
+  const int j1 = static_cast<int>(static_cast<long long>(n) * (part + 1) /
+                                  per);
+  const bool open = 0.f <= thr;
+  for (int j = j0 + warp; j < j1; j += kFastWarps) {
+    const int h = bucket[j];
+    if (h == kBuckets) {
+      if (lane == 0) keep[j] = 0;
+      continue;
+    }
+    const float4 bj = boxes[j];
+    const float area_j = box_area(bj);
+    const float sj = scores[j];
+    const int64_t lj = static_cast<int64_t>(labels[j]);
+    const int end = start[h + 1];
+    bool hit = !open;
+    for (int p0 = start[h]; p0 < end && !hit; p0 += 32 * kFastWalk) {
+      // kFastWalk members a lane, their loads all in flight together
+      int i[kFastWalk];
+      float si[kFastWalk];
+      int64_t li[kFastWalk];
+      float4 bi[kFastWalk];
+#pragma unroll
+      for (int u = 0; u < kFastWalk; ++u) {
+        const int p = p0 + 32 * u + lane;
+        i[u] = p < end ? members[p] : j;  // j itself never suppresses j
+      }
+#pragma unroll
+      for (int u = 0; u < kFastWalk; ++u) {
+        si[u] = scores[i[u]];
+        li[u] = static_cast<int64_t>(labels[i[u]]);
+        bi[u] = boxes[i[u]];
+      }
+      bool mine = false;
+#pragma unroll
+      for (int u = 0; u < kFastWalk; ++u) {
+        if ((si[u] > sj || (si[u] == sj && i[u] < j)) && li[u] == lj)
+          mine |= !(pair_iou(bi[u], box_area(bi[u]), bj, area_j) <= thr);
+      }
+      hit = __any_sync(kAll, mine);
+    }
+    if (lane == 0) keep[j] = hit ? 0 : 1;
+  }
 }
 
 }  // namespace
@@ -588,36 +712,72 @@ extern "C" int erd_mask_matrix_decay(const void* scores, const void* inter,
   return static_cast<int>(cudaGetLastError());
 }
 
-// sboxes (B, N, 4) float32, slabels (B, N) int64, svalid (B, N) uint8, all
-// sorted by descending score; order (B, N) int64 (original index of sorted
-// entry j); keep (B, N) uint8 out, original order.
-extern "C" int erd_fast_nms_keep(const void* sboxes, const void* slabels,
-                                 const void* svalid, const void* order,
-                                 void* keep, int batch, int n, float thr,
-                                 void* stream) {
-  if (batch <= 0 || n <= 0) return 0;
-  const dim3 grid((n + kTile - 1) / kTile, batch);
-  fast_nms_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(sboxes),
-      static_cast<const int64_t*>(slabels),
-      static_cast<const uint8_t*>(svalid),
-      static_cast<const int64_t*>(order), n, thr, static_cast<uint8_t*>(keep));
-  return static_cast<int>(cudaGetLastError());
+// the multiprocessors of the current device (the last answer kept: it
+// depends on the device alone)
+static int sm_count(int* sms) {
+  static int known_dev = -1, known_sms = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != known_dev) {
+    err = cudaDeviceGetAttribute(&known_sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    known_dev = dev;
+  }
+  *sms = known_sms;
+  return 0;
 }
 
-// boxes (B, N, 4) float32, scores (B, N) float32, keep and valid (B, N)
-// uint8, input order; leader (B, N) int64 out.
-extern "C" int erd_nms_match_leader(const void* boxes, const void* scores,
-                                    const void* keep, const void* valid,
-                                    void* leader, int batch, int n, float thr,
-                                    void* stream) {
+// boxes (B, N, 4) float32, scores (B, N) float32, labels (B, N) int64
+// (wide_labels 1) or int32 (0), valid null (all valid) or (B, N) uint8, all
+// in the input order; keep (B, N) uint8 out, input order. One launch (an
+// image `per` blocks); returns cudaGetLastError() after it, or
+// cudaErrorInvalidValue where an image's buckets, warp sums, members and
+// boxes' buckets exceed a block's 227 KB of shared memory (N > 37,364).
+extern "C" int erd_fast_nms(const void* boxes, const void* scores,
+                            const void* labels, int wide_labels,
+                            const void* valid, void* keep, int batch, int n,
+                            float thr, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
-  const dim3 grid((n + kTile - 1) / kTile, batch);
-  nms_match_leader_kernel<<<grid, kTile, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<const float*>(scores),
-      static_cast<const uint8_t*>(keep), static_cast<const uint8_t*>(valid),
-      n, thr, static_cast<int64_t*>(leader));
+  const size_t smem = fast_nms_smem(n);
+  if (smem > kMaxBlockShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {  // above the default limit of dynamic memory
+    err = cudaFuncSetAttribute(fast_nms_kernel<int64_t>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fast_nms_kernel<int32_t>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int sms = 0;
+  const int got = sm_count(&sms);
+  if (got != 0) return got;
+  // kFastColsPerWarp columns a warp, at most two blocks an SM in all
+  const int cols = kFastWarps * kFastColsPerWarp;
+  const int per = max(1, min((n + cols - 1) / cols, 2 * sms / batch));
+  const long long grid = static_cast<long long>(batch) * per;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide_labels) {
+    fast_nms_kernel<int64_t><<<static_cast<unsigned>(grid), kFastThreads,
+                               smem, s>>>(
+        static_cast<const float4*>(boxes), static_cast<const float*>(scores),
+        static_cast<const int64_t*>(labels),
+        static_cast<const uint8_t*>(valid), n, per, thr,
+        static_cast<uint8_t*>(keep));
+  } else {
+    fast_nms_kernel<int32_t><<<static_cast<unsigned>(grid), kFastThreads,
+                               smem, s>>>(
+        static_cast<const float4*>(boxes), static_cast<const float*>(scores),
+        static_cast<const int32_t*>(labels),
+        static_cast<const uint8_t*>(valid), n, per, thr,
+        static_cast<uint8_t*>(keep));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
-// Greedy class-aware NMS keep mask, and CrowdDet's set-NMS, hand-written
-// for Hopper (sm_90a).
+// Greedy class-aware NMS keep mask, CrowdDet's set-NMS and nms_match's
+// leader, hand-written for Hopper (sm_90a).
 //
 // Replaces: erd_tpu/ops/nms.py `_suppress_matrix` + `_greedy_fixpoint`
-// (reached through `nms_mask`, `batched_nms_mask`, `nms_select`), and
+// (reached through `nms_mask`, `batched_nms_mask`, `nms_select`), the
+// leader pass of erd_tpu/ops/extra_nms.py `nms_match` (:84), and
 // `set_nms_mask` (:107), the same recursion with
 // sup[i, j] &= group[i] != group[j]: two boxes of one group (the two
 // instances that one CrowdDet proposal predicts) never suppress each other.
@@ -12,7 +13,7 @@
 // was solved as a Jacobi fixpoint of (K)x(K, K) 0/1 products on the MXU over
 // a dense bf16 suppression matrix. Here it is the bitmask form of the same
 // recursion, in two launches per batch (two C entry points, so that each
-// can be timed alone):
+// can be timed alone), and for nms_match a third that reads their words:
 //   1. nms_mask_kernel (`erd_nms_mask`), a block of 64 threads per pair of
 //      64-box tiles (row tile r, column tile c >= r) of the upper triangle
 //      and image: the block stages the column tile's boxes, areas, groups
@@ -35,6 +36,30 @@
 //      into `removed`, the words of the live rows that nz marks nonzero,
 //      thread w % 128 owning word w; nz's row for the next tile is on its
 //      way into shared memory meanwhile (cp.async). Two barriers a tile.
+//   3. nms_leader_kernel (`erd_nms_match_leader`), nms_match's leader
+//      (erd_tpu/ops/extra_nms.py:84), after the two launches above, which
+//      it reads: a block of 256 threads per column tile and image. The
+//      greedy recursion makes the leader (the highest-scoring kept box j
+//      with iou > thr, lowest index on ties) the suppressor:
+//        - a valid box c that NMS removed takes the first kept row r < c
+//          in the sorted order whose word has bit c set. The sort is
+//          stable and descending, so a later candidate has a lower score,
+//          or the same score and a higher index. The same holds for a
+//          box the caller calls valid and scored -inf: it sorts after
+//          every kept box;
+//        - a kept box leads itself iff iou(i, i) > thr (zero area or thr
+//          >= 1: none): no other kept box overlaps it above thr;
+//        - a valid box scored NaN sorts first and has no bits: it takes
+//          the long way, the first kept row in sorted order whose IoU
+//          with it is above thr;
+//        - a leader scored +inf gives -1 (erd_tpu's `isfinite(max)`), and
+//          so does an invalid slot.
+//      The block takes rows in groups of 2048 (8 a thread): the tile's nz
+//      bits, the rows' original indices, their keep flags and, where nz
+//      marks a word, the word itself, all in flight together; then the
+//      first row of each column by prefix ORs across lanes, warps and
+//      the 8 rows a thread, and stops when every column that needs a
+//      leader has one. Leaders are written in the input order.
 // The caller (erd_tpu_torch/ops/nms.py) does the stable descending sort, the
 // gather and the class offset (set-NMS is class-agnostic). K and B are
 // runtime arguments, any K >= 1 (the callers pass 2000 at predict and in
@@ -65,7 +90,9 @@
 // are offset apart), so most take the cheap path. The reduce is
 // latency-bound: one image is a serial chain of K / 64 tiles, each a
 // resolve and one round of dependent loads (the live rows' nonzero words),
-// which the design keeps short.
+// which the design keeps short. The leader's function is K x kept IoUs
+// (0.00017 ms at K = 2000); its launch reads the words instead, a few
+// rounds of dependent loads a block: latency-bound.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -312,6 +339,194 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
+constexpr int kLeaderThreads = 256;
+constexpr int kLeaderWarps = kLeaderThreads / 32;
+constexpr int kLeaderRows = 8;  // rows a thread in flight
+constexpr int kSegments = kLeaderRows * kLeaderWarps;  // of 32 rows
+constexpr int kSegmentsPerLane = kSegments / 32;
+static_assert(kSegments % 32 == 0, "a warp scans the segments");
+// a column's case
+constexpr int kNone = 0, kSelf = 1, kWords = 2, kLongWay = 3;
+
+// bbox_overlaps of one pair, op for op as the bitmask launch rounds it
+__device__ __forceinline__ float pair_iou(float4 r, float4 c) {
+  const float iw = fmaxf(__fsub_rn(fminf(r.z, c.z), fmaxf(r.x, c.x)), 0.f);
+  const float ih = fmaxf(__fsub_rn(fminf(r.w, c.w), fmaxf(r.y, c.y)), 0.f);
+  const float ov = __fmul_rn(iw, ih);
+  return __fdiv_rn(
+      ov, fmaxf(__fsub_rn(__fadd_rn(box_area(r), box_area(c)), ov), 1e-6f));
+}
+
+__global__ void __launch_bounds__(kLeaderThreads)
+    nms_leader_kernel(const unsigned long long* __restrict__ mask,
+                      const unsigned long long* __restrict__ nz,
+                      const int64_t* __restrict__ order,
+                      const uint8_t* __restrict__ keep,
+                      const float4* __restrict__ boxes,
+                      const float* __restrict__ scores,
+                      const uint8_t* __restrict__ valid, int k, int words,
+                      float thr, int64_t* __restrict__ leader) {
+  __shared__ int lead[kTile];  // a column's leader row (sorted), or -1
+  __shared__ int kind[kTile];
+  __shared__ unsigned long long seg_or[kSegments], seg_before[kSegments];
+  __shared__ unsigned long long need_bits[2], assigned;
+  const int col_tile = blockIdx.x;
+  const size_t b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int col0 = col_tile * kTile;
+  mask += b * k * static_cast<size_t>(words);
+  nz += b * static_cast<size_t>(words) * words;
+  order += b * k;
+  keep += b * k;
+  boxes += b * k;
+  scores += b * k;
+  if (valid != nullptr) valid += b * k;
+  leader += b * k;
+  // each column's case; a kept box's leader now
+  if (tid < kTile) {
+    const int c = col0 + tid;
+    int what = kNone;
+    if (c < k) {
+      const int64_t o = order[c];
+      const float s = scores[o];
+      const bool v = valid == nullptr || valid[o] != 0;
+      if (v && keep[o]) {
+        what = kSelf;
+        const float4 bo = boxes[o];
+        leader[o] = (pair_iou(bo, bo) > thr && s != INFINITY) ? o : -1;
+      } else if (v) {
+        what = s != s ? kLongWay : kWords;
+      } else {
+        leader[o] = -1;
+      }
+    }
+    kind[tid] = what;
+    lead[tid] = -1;
+    const unsigned ballot = __ballot_sync(kFull, what == kWords);
+    if (lane == 0) need_bits[warp] = ballot;
+  }
+  if (tid == 0) assigned = 0ULL;
+  const bool any_long = __syncthreads_or(tid < kTile && kind[tid] == kLongWay);
+  const unsigned long long need = need_bits[0] | (need_bits[1] << 32);
+  // rows in sorted order, up to the column tile's last: a column's first
+  // kept row whose word has its bit
+  const int row_end = min(k, col0 + kTile);
+  for (int base = 0; base < row_end && (need & ~assigned) != 0ULL;
+       base += kLeaderThreads * kLeaderRows) {
+    int64_t o[kLeaderRows];
+    bool marked[kLeaderRows];
+    unsigned long long w[kLeaderRows];
+#pragma unroll
+    for (int u = 0; u < kLeaderRows; ++u) {
+      const int r = base + u * kLeaderThreads + tid;
+      marked[u] = false;
+      o[u] = 0;
+      if (r < row_end) {
+        o[u] = order[r];
+        marked[u] = (nz[static_cast<size_t>(r / kTile) * words + col_tile] >>
+                     (r % kTile)) & 1ULL;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLeaderRows; ++u) {
+      const int r = base + u * kLeaderThreads + tid;
+      // the word where nz marks it (written only there), with the keep
+      // flag in flight beside it
+      w[u] = marked[u] ? mask[static_cast<size_t>(r) * words + col_tile]
+                       : 0ULL;
+      marked[u] = marked[u] && keep[o[u]] != 0;
+    }
+    // a row's new columns: its word less the words of the rows before it
+    // in its 32-row segment (an OR scan across the lanes), then less those
+    // of the segments before (an OR scan of the segments' totals)
+    unsigned long long prior[kLeaderRows];
+#pragma unroll
+    for (int u = 0; u < kLeaderRows; ++u) {
+      if (!marked[u]) w[u] = 0ULL;
+      unsigned long long incl = w[u];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned long long y = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl |= y;
+      }
+      prior[u] = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) prior[u] = 0ULL;
+      if (lane == 31) seg_or[u * kLeaderWarps + warp] = incl;
+    }
+    __syncthreads();
+    if (warp == 0) {  // segments in row order (u, then warp), a lane's run
+      unsigned long long v[kSegmentsPerLane], incl = 0ULL;
+#pragma unroll
+      for (int e = 0; e < kSegmentsPerLane; ++e) {
+        v[e] = seg_or[lane * kSegmentsPerLane + e];
+        incl |= v[e];
+      }
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned long long y = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl |= y;
+      }
+      unsigned long long before = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) before = 0ULL;
+      before |= assigned;
+#pragma unroll
+      for (int e = 0; e < kSegmentsPerLane; ++e) {
+        seg_before[lane * kSegmentsPerLane + e] = before;
+        before |= v[e];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kLeaderRows; ++u) {
+      unsigned long long first =
+          w[u] & ~prior[u] & ~seg_before[u * kLeaderWarps + warp];
+      const int r = base + u * kLeaderThreads + tid;
+      while (first != 0ULL) {
+        lead[__ffsll(static_cast<long long>(first)) - 1] = r;
+        first &= first - 1;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) assigned = seg_before[kSegments - 1] | seg_or[kSegments - 1];
+    __syncthreads();
+  }
+  // a valid box scored NaN: the first kept row in sorted order whose IoU
+  // with it is above thr, a warp a column (rare: the long way)
+  if (any_long) {
+    for (int t = warp; t < kTile; t += kLeaderWarps) {
+      if (kind[t] != kLongWay) continue;
+      const float4 bc = boxes[order[col0 + t]];
+      for (int r0 = 0; r0 < k; r0 += 32) {
+        const int r = r0 + lane;
+        bool hit = false;
+        if (r < k) {
+          const int64_t o = order[r];
+          hit = keep[o] != 0 && pair_iou(bc, boxes[o]) > thr;
+        }
+        const unsigned ballot = __ballot_sync(kFull, hit);
+        if (ballot != 0u) {
+          if (lane == 0) lead[t] = r0 + __ffs(ballot) - 1;
+          break;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // the leaders of removed and NaN-scored boxes, in the input order
+  if (tid < kTile) {
+    const int c = col0 + tid;
+    if (c < k && (kind[tid] == kWords || kind[tid] == kLongWay)) {
+      const int r = lead[tid];
+      int64_t out = -1;
+      if (r >= 0) {
+        const int64_t o = order[r];
+        if (scores[o] != INFINITY) out = o;
+      }
+      leader[order[c]] = out;
+    }
+  }
+}
+
 }  // namespace
 
 // Launch 1. boxes (B, K, 4) fp32 sorted and class-shifted; valid (B, K)
@@ -359,6 +574,32 @@ extern "C" int erd_nms_reduce(const void* mask, const void* nz,
       static_cast<const unsigned long long*>(nz),
       static_cast<const uint8_t*>(valid), static_cast<const int64_t*>(order),
       k, words, static_cast<uint8_t*>(keep));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch 3 (nms_match), after erd_nms_mask and erd_nms_reduce on the same
+// stream: mask, nz and order as they read them; keep (B, K) uint8 as the
+// reduce wrote it (input order); boxes (B, K, 4) float32 and scores (B, K)
+// float32 in the input order (unshifted, unmasked); valid null (all
+// valid) or (B, K) uint8, input order; leader (B, K) int64 out, input
+// order. Returns cudaGetLastError() after the launch.
+extern "C" int erd_nms_match_leader(const void* mask, const void* nz,
+                                    const void* order, const void* keep,
+                                    const void* boxes, const void* scores,
+                                    const void* valid, void* leader,
+                                    int batch, int k, float thr,
+                                    void* stream) {
+  if (batch <= 0 || k <= 0) return 0;
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int words = (k + kTile - 1) / kTile;
+  nms_leader_kernel<<<dim3(words, batch), kLeaderThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(mask),
+      static_cast<const unsigned long long*>(nz),
+      static_cast<const int64_t*>(order), static_cast<const uint8_t*>(keep),
+      static_cast<const float4*>(boxes), static_cast<const float*>(scores),
+      static_cast<const uint8_t*>(valid), k, words, thr,
+      static_cast<int64_t*>(leader));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,11 +5,11 @@ from .deform_conv import (DeformConv2d, ModulatedDeformConv,
                           deform_im2col_backward,
                           deform_im2col_backward_plain, deform_im2col_plain)
 from .extra_nms import (corner_pool, corner_pool_plain, fast_nms,
-                        fast_nms_keep, fast_nms_keep_plain,
+                        fast_nms_plain,
                         mask_matrix_decay, mask_matrix_decay_plain,
                         matrix_decay, matrix_decay_plain, matrix_nms,
                         matrix_nms_plain,
-                        nms_match, nms_match_leader, nms_match_leader_plain)
+                        nms_match, nms_match_leader_plain)
 from .gaussian import local_maximum
 from .integral import integral, integral_decode, integral_decode_plain
 from .misc import (cap_candidates, filter_scores_and_topk, masked_mean_std,
@@ -34,10 +34,10 @@ __all__ = ['CARAFEPack', 'arrange_carafe', 'carafe', 'carafe_backward',
            'arrange_offsets', 'deform_conv2d', 'deform_im2col',
            'deform_im2col_backward', 'deform_im2col_backward_plain',
            'deform_im2col_plain', 'corner_pool', 'corner_pool_plain',
-           'fast_nms', 'fast_nms_keep', 'fast_nms_keep_plain',
+           'fast_nms', 'fast_nms_plain',
            'mask_matrix_decay', 'mask_matrix_decay_plain', 'matrix_decay',
            'matrix_decay_plain', 'matrix_nms', 'matrix_nms_plain',
-           'nms_match', 'nms_match_leader', 'nms_match_leader_plain',
+           'nms_match', 'nms_match_leader_plain',
            'local_maximum', 'integral', 'integral_decode',
            'integral_decode_plain', 'cap_candidates', 'filter_scores_and_topk',
            'masked_mean_std', 'topk_mask_select', 'batched_nms_mask',

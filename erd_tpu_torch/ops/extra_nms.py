@@ -44,12 +44,15 @@ j of its class, comp[j] j's own largest such IoU, f gaussian or linear.
 descending score order overlaps it above the threshold. ``nms_match`` takes
 row 1's greedy keep mask (``nms_mask``, csrc/nms.cu) and gives each valid
 box its leader, the first highest-scoring kept box that overlaps it above
-the threshold (-1 for none or an invalid slot). Their kernels are in
-``csrc/extra_nms.cu``: one call of ``matrix_decay`` or ``matrix_nms`` is two
-launches (comp, then the decay), both counted in ``matrix_decay.launches``
-or ``matrix_nms.launches``; ``fast_nms_keep`` and ``nms_match_leader`` one
-launch each. Every function takes one image ((N, ...) tensors) or a batch
-((B, N, ...)).
+the threshold (-1 for none or an invalid slot). The decay and fast-NMS
+kernels are in ``csrc/extra_nms.cu``: one call of ``matrix_decay`` or
+``matrix_nms`` is two launches (comp, then the decay), both counted in
+``matrix_decay.launches`` or ``matrix_nms.launches``; ``fast_nms`` one
+launch from its unsorted inputs, counted in ``fast_nms.launches``. The
+leader kernel is in ``csrc/nms.cu``: ``nms_match`` is row 1's launches and
+one leader launch that reads row 1's suppression words, counted in
+``nms_match.launches``. Every
+op takes one image ((N, ...) tensors) or a batch ((B, N, ...)).
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ import torch
 from ..structures.boxes import bbox_overlaps
 from . import cuda_build
 from .misc import NEG_INF, take_rows
-from .nms import _batched, nms_mask
+from .nms import _batched, nms_mask, nms_mask_words
 from .roi_align import acc_dtype
 
 # direction -> (the axis of the scan: 2 rows / 3 columns, scanned backward)
@@ -517,89 +520,110 @@ mask_matrix_decay.launches = 0
 
 
 # -------------------------------------------------------------- fast NMS
-def fast_nms_keep_plain(sboxes, slabels, svalid, order, iou_threshold):
-    """Plain PyTorch version of the fast-NMS kernel (the arguments of
-    ``fast_nms_keep``): erd_tpu's upper-triangle suppression."""
+def fast_nms_plain(boxes, scores, labels, iou_threshold=0.5,
+                   valid_mask=None):
+    """Plain PyTorch version of ``fast_nms``'s kernel (a batch): erd_tpu's
+    sort formulation, the upper-triangle suppression of the stably sorted
+    boxes."""
+    if valid_mask is not None:
+        scores = torch.where(valid_mask, scores,
+                             torch.full_like(scores, NEG_INF))
+    neg, order = torch.sort(-scores, dim=-1, stable=True)
+    sboxes = take_rows(boxes, order)
+    slabels = torch.gather(labels.to(torch.int64), -1, order)
     iou = bbox_overlaps(sboxes, sboxes)
-    n = sboxes.shape[-2]
+    n = boxes.shape[-2]
     earlier = torch.ones((n, n), dtype=torch.bool,
-                         device=sboxes.device).triu(diagonal=1)
+                         device=boxes.device).triu(diagonal=1)
     same = slabels[..., :, None] == slabels[..., None, :]
     sup = torch.where(earlier & same, iou, torch.zeros_like(iou))
-    keep_sorted = (sup.amax(-2) <= iou_threshold) & svalid
-    return torch.zeros_like(svalid).scatter(-1, order, keep_sorted)
+    keep_sorted = (sup.amax(-2) <= iou_threshold) & (neg < float('inf'))
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
 
 
-def fast_nms_keep(sboxes, slabels, svalid, order, iou_threshold):
-    """Fast-NMS keep mask of score-sorted boxes, in the original order.
-
-    Args:
-        sboxes: (B, N, 4) float32, sorted by descending score (stable,
-            invalid entries last).
-        slabels: (B, N) int64 sorted classes; svalid (B, N) bool.
-        order: (B, N) int64, the original index of sorted entry j.
-        iou_threshold: j goes when an earlier box of its class overlaps it
-            above this.
-    Returns keep (B, N) bool in the original order.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``erd_fast_nms_keep`` (counted in ``fast_nms_keep.launches``).
-    """
-    if sboxes.dim() != 3 or sboxes.shape[-1] != 4 or any(
-            tuple(t.shape) != tuple(sboxes.shape[:2])
-            for t in (slabels, svalid, order)):
-        raise ValueError('fast_nms_keep: sboxes (B, N, 4), slabels, svalid '
-                         'and order (B, N) expected')
-    if sboxes.device.type == 'cpu':
-        return fast_nms_keep_plain(sboxes, slabels, svalid, order,
-                                   iou_threshold)
-    if sboxes.device.type != 'cuda':
-        raise RuntimeError(f'fast_nms_keep: no kernel for {sboxes.device}')
-    if sboxes.dtype != torch.float32 or svalid.dtype != torch.bool or \
-            order.dtype != torch.int64:
-        raise TypeError('fast_nms_keep: float32 sboxes, bool svalid and '
-                        'int64 order expected')
-    b, n = svalid.shape
-    keep = torch.empty((b, n), dtype=torch.bool, device=sboxes.device)
-    sboxes, svalid, order = (t.contiguous() for t in (sboxes, svalid, order))
-    slabels = slabels.to(torch.int64).contiguous()
-    lib = cuda_build.load('extra_nms')
-    fn = lib.erd_fast_nms_keep
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(sboxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(sboxes.data_ptr(), slabels.data_ptr(), svalid.data_ptr(),
-                 order.data_ptr(), keep.data_ptr(), b, n,
-                 float(iou_threshold), stream)
-    cuda_build.check(lib, err, 'fast_nms_keep')
-    fast_nms_keep.launches += 1
-    return keep
+# the dynamic shared memory of fast_nms's kernel (csrc/extra_nms.cu
+# fast_nms_smem; the kernel has no static shared memory): its label
+# buckets' starts and cursors and the block's warp sums (8,260 bytes), then
+# each box's bucket member (4 bytes) and bucket (2 bytes)
+def fast_nms_smem(n: int) -> int:
+    return 4 * (2 * 1024 + 1 + 16) + 6 * n
 
 
-fast_nms_keep.launches = 0
+# the most boxes an image fast_nms's kernel takes within a block's 227 KB
+FAST_NMS_MAX_K = (MAX_BLOCK_SHARED - fast_nms_smem(0)) // 6
+
+# erd_fast_nms's arguments: boxes, scores, labels, wide labels, valid (or
+# null), keep; batch, N; the threshold; the stream
+_FAST_NMS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float,
+                                                   ctypes.c_void_p]
 
 
 @_batched
 def fast_nms(boxes, scores, labels, iou_threshold=0.5, valid_mask=None):
     """erd_tpu's ``fast_nms`` (YOLACT): keep mask (..., N) bool over the
-    input order. Scores sort stably descending (invalid ones, -inf or
+    input order. Scores sort stably descending (invalid ones, -inf, NaN or
     ``valid_mask`` False, last and never kept); a box goes when an earlier
-    box of its class overlaps it above ``iou_threshold``, kept or not."""
+    box of its class overlaps it above ``iou_threshold``, kept or not.
+
+    boxes (..., N, 4) float32 xyxy; scores (..., N) float32; labels (...,
+    N) int64 or int32 classes (any values); valid_mask (..., N) bool or
+    None for all valid. CPU tensors take the plain version; CUDA tensors
+    launch the kernel ``erd_fast_nms`` on the inputs as they are: one
+    launch a call and nothing before it, counted in ``fast_nms.launches``;
+    more than ``FAST_NMS_MAX_K`` boxes an image raise ValueError.
+    """
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or any(
+            tuple(t.shape) != tuple(boxes.shape[:2])
+            for t in (scores, labels) + (
+                () if valid_mask is None else (valid_mask,))):
+        raise ValueError('fast_nms: boxes (..., N, 4), scores, labels and '
+                         'valid_mask (..., N) expected')
+    if boxes.device.type == 'cpu':
+        return fast_nms_plain(boxes, scores, labels, iou_threshold,
+                              valid_mask)
+    device = boxes.device
+    if device.type != 'cuda' or any(
+            t.device != device for t in (scores, labels) + (
+                () if valid_mask is None else (valid_mask,))):
+        raise RuntimeError(f'fast_nms: no kernel for {device}, or tensors '
+                           f'on more than one device')
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32 or \
+            labels.dtype not in (torch.int64, torch.int32) or (
+                valid_mask is not None and valid_mask.dtype != torch.bool):
+        raise TypeError('fast_nms: float32 boxes and scores, int64 or int32 '
+                        'labels and bool valid_mask expected')
+    b, n = scores.shape
+    if n > FAST_NMS_MAX_K:
+        raise ValueError(f'fast_nms: {n} boxes an image; the kernel takes at '
+                         f'most {FAST_NMS_MAX_K}')
+    boxes, scores, labels = (t.contiguous() for t in (boxes, scores, labels))
     if valid_mask is not None:
-        scores = torch.where(valid_mask, scores,
-                             torch.full_like(scores, NEG_INF))
-    neg, order = torch.sort(-scores, dim=-1, stable=True)
-    return fast_nms_keep(take_rows(boxes, order).contiguous(),
-                         torch.gather(labels.to(torch.int64), -1, order),
-                         neg < float('inf'), order, iou_threshold)
+        valid_mask = valid_mask.contiguous()
+    keep = torch.empty((b, n), dtype=torch.bool, device=device)
+    fn = cuda_build.entry('extra_nms', 'erd_fast_nms', _FAST_NMS_ARGTYPES)
+    with cuda_build.on_device(device):
+        err = fn(boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
+                 int(labels.dtype == torch.int64),
+                 None if valid_mask is None else valid_mask.data_ptr(),
+                 keep.data_ptr(), b, n, float(iou_threshold),
+                 cuda_build.stream_handle(device))
+    if err:
+        cuda_build.check(cuda_build.load('extra_nms'), err, 'fast_nms')
+    fast_nms.launches += 1
+    return keep
+
+
+fast_nms.launches = 0
 
 
 # ------------------------------------------------------------- nms_match
 def nms_match_leader_plain(boxes, scores, keep, valid, iou_threshold):
-    """Plain PyTorch version of the leader kernel (the arguments of
-    ``nms_match_leader``): erd_tpu's candidate matrix and first argmax."""
+    """Plain PyTorch version of nms_match's leader kernel, from the boxes
+    and row 1's keep mask (``valid`` None is all valid): erd_tpu's
+    candidate matrix and first argmax."""
+    if valid is None:
+        valid = torch.ones_like(keep)
     iou = bbox_overlaps(boxes, boxes)
     cand = keep[..., None, :] & (iou > iou_threshold) & valid[..., :, None]
     s = torch.where(cand, scores[..., None, :].expand_as(iou),
@@ -609,53 +633,34 @@ def nms_match_leader_plain(boxes, scores, keep, valid, iou_threshold):
     return torch.where(has, leader, torch.full_like(leader, -1))
 
 
-def nms_match_leader(boxes, scores, keep, valid, iou_threshold):
-    """Each box's leader: the first highest-scoring kept box that overlaps
-    it above ``iou_threshold`` (itself, where it is kept), -1 where there is
-    none or the box is invalid.
+# erd_nms_match_leader's arguments: mask, nz, order, keep, boxes, scores,
+# valid (or null), leader; batch, K; the threshold; the stream
+_LEADER_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + \
+    [ctypes.c_float, ctypes.c_void_p]
 
-    Args:
-        boxes: (B, N, 4) float32 xyxy; scores (B, N) float32.
-        keep: (B, N) bool greedy keep mask; valid (B, N) bool.
-    Returns (B, N) int64.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``erd_nms_match_leader`` (counted in ``nms_match_leader.launches``).
-    """
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or any(
-            tuple(t.shape) != tuple(boxes.shape[:2])
-            for t in (scores, keep, valid)):
-        raise ValueError('nms_match_leader: boxes (B, N, 4), scores, keep and '
-                         'valid (B, N) expected')
-    if boxes.device.type == 'cpu':
-        return nms_match_leader_plain(boxes, scores, keep, valid,
-                                      iou_threshold)
-    if boxes.device.type != 'cuda':
-        raise RuntimeError(f'nms_match_leader: no kernel for {boxes.device}')
-    if boxes.dtype != torch.float32 or scores.dtype != torch.float32 or \
-            keep.dtype != torch.bool or valid.dtype != torch.bool:
-        raise TypeError('nms_match_leader: float32 boxes and scores, bool '
-                        'keep and valid expected')
+def _nms_match_leader(boxes, scores, valid, iou_threshold, keep, mask, nz,
+                      order):
+    """nms_match's leader on the card from row 1's call on the same boxes,
+    scores, valid flags and threshold (``nms_mask_words``: its keep mask,
+    suppression words and sort order): the kernel ``erd_nms_match_leader``
+    (csrc/nms.cu), one launch, counted in ``nms_match.launches``."""
     b, n = scores.shape
+    boxes, scores = boxes.contiguous(), scores.contiguous()
+    if valid is not None:
+        valid = valid.contiguous()
     leader = torch.empty((b, n), dtype=torch.int64, device=boxes.device)
-    boxes, scores, keep, valid = (t.contiguous()
-                                  for t in (boxes, scores, keep, valid))
-    lib = cuda_build.load('extra_nms')
-    fn = lib.erd_nms_match_leader
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
-                 valid.data_ptr(), leader.data_ptr(), b, n,
-                 float(iou_threshold), stream)
-    cuda_build.check(lib, err, 'nms_match_leader')
-    nms_match_leader.launches += 1
+    fn = cuda_build.entry('nms', 'erd_nms_match_leader', _LEADER_ARGTYPES)
+    with cuda_build.on_device(boxes.device):
+        err = fn(mask.data_ptr(), nz.data_ptr(), order.data_ptr(),
+                 keep.data_ptr(), boxes.data_ptr(), scores.data_ptr(),
+                 None if valid is None else valid.data_ptr(),
+                 leader.data_ptr(), b, n, float(iou_threshold),
+                 cuda_build.stream_handle(boxes.device))
+    if err:
+        cuda_build.check(cuda_build.load('nms'), err, 'nms_match')
+    nms_match.launches += 1
     return leader
-
-
-nms_match_leader.launches = 0
 
 
 @_batched
@@ -663,11 +668,28 @@ def nms_match(boxes, scores, iou_threshold, valid_mask=None):
     """erd_tpu's ``nms_match`` (mmcv's greedy NMS grouping): (keep (..., N)
     bool, leader (..., N) int64). ``keep`` is row 1's greedy keep mask
     (``nms_mask``); ``leader[i]`` the kept box whose group box i joined,
-    the first argmax by score over kept j with IoU(i, j) > threshold, -1
-    for invalid slots."""
-    if valid_mask is None:
-        valid_mask = torch.ones(scores.shape, dtype=torch.bool,
-                                device=scores.device)
-    keep = nms_mask(boxes, scores, iou_threshold, valid_mask=valid_mask)
-    return keep, nms_match_leader(boxes, scores, keep, valid_mask,
-                                  iou_threshold)
+    the first argmax by score over kept j with IoU(i, j) > threshold (i
+    itself where it is kept), -1 where there is none, for invalid slots and
+    where the leader is scored +inf.
+
+    CPU tensors take ``nms_match_leader_plain``. On the card: row 1's
+    launches (``nms_mask_words``, counted in ``nms_sorted_keep.launches``),
+    then one leader launch that reads row 1's suppression words (a removed
+    box's leader is the kept box that removed it), counted in
+    ``nms_match.launches``."""
+    if boxes.device.type == 'cpu':
+        keep = nms_mask(boxes, scores, iou_threshold, valid_mask=valid_mask)
+        return keep, nms_match_leader_plain(boxes, scores, keep, valid_mask,
+                                            iou_threshold)
+    if boxes.device.type == 'cuda' and (
+            scores.dtype != torch.float32 or (
+                valid_mask is not None and valid_mask.dtype != torch.bool)):
+        raise TypeError('nms_match: float32 scores and a bool valid_mask '
+                        'expected')
+    keep, mask, nz, order = nms_mask_words(boxes, scores, iou_threshold,
+                                           valid_mask)
+    return keep, _nms_match_leader(boxes, scores, valid_mask, iou_threshold,
+                                   keep, mask, nz, order)
+
+
+nms_match.launches = 0

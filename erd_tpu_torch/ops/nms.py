@@ -106,11 +106,13 @@ def _check_sorted(what, sboxes, svalid, order, sgroup=None):
         raise ValueError(f'{what}: tensors must be contiguous')
 
 
-def _nms_kernel(what, sboxes, svalid, sgroup, order, iou_threshold):
+def _nms_kernel(what, sboxes, svalid, sgroup, order, iou_threshold,
+                with_words=False):
     """One call of csrc/nms.cu: the bitmask launch (``erd_nms_mask``), then
     the reduce (``erd_nms_reduce``); a null group is plain NMS. The mask
     words and their nonzero bitmap are scratch that the bitmask launch
-    writes where the reduce reads them, so neither is zeroed."""
+    writes where the reduce reads them, so neither is zeroed. Returns keep,
+    or (keep, mask, nz) ``with_words``."""
     b, k = sboxes.shape[:2]
     words = (k + 63) // 64
     mask = torch.empty((b, k, words), dtype=torch.int64, device=sboxes.device)
@@ -133,7 +135,7 @@ def _nms_kernel(what, sboxes, svalid, sgroup, order, iou_threshold):
                                  svalid.data_ptr(), order.data_ptr(),
                                  keep.data_ptr(), b, k, stream)
     cuda_build.check(lib, err, what)
-    return keep
+    return (keep, mask, nz) if with_words else keep
 
 
 def nms_sorted_keep(sboxes, svalid, order, iou_threshold):
@@ -202,13 +204,9 @@ def _batched(fn):
     return wrapper
 
 
-@_batched
-def nms_mask(boxes, scores, iou_threshold, valid_mask=None):
-    """Greedy NMS keep mask over the input order.
-
-    boxes (..., K, 4) xyxy; scores (..., K); invalid entries (score -inf or
-    ``valid_mask`` False) are never kept and never suppress others.
-    """
+def _sorted_for_nms(boxes, scores, valid_mask):
+    """(sboxes, svalid, order) of greedy NMS: the stable descending sort,
+    invalid entries (score -inf or ``valid_mask`` False) marked."""
     if valid_mask is not None:
         scores = torch.where(valid_mask, scores,
                              torch.full_like(scores, NEG_INF))
@@ -216,8 +214,39 @@ def nms_mask(boxes, scores, iou_threshold, valid_mask=None):
                                       stable=True)
     sboxes = take_rows(boxes, order).contiguous()
     svalid = sorted_scores > NEG_INF
-    return nms_sorted_keep(sboxes, svalid.contiguous(), order.contiguous(),
+    return sboxes, svalid.contiguous(), order.contiguous()
+
+
+@_batched
+def nms_mask(boxes, scores, iou_threshold, valid_mask=None):
+    """Greedy NMS keep mask over the input order.
+
+    boxes (..., K, 4) xyxy; scores (..., K); invalid entries (score -inf or
+    ``valid_mask`` False) are never kept and never suppress others.
+    """
+    return nms_sorted_keep(*_sorted_for_nms(boxes, scores, valid_mask),
                            iou_threshold)
+
+
+def nms_mask_words(boxes, scores, iou_threshold, valid_mask=None):
+    """``nms_mask`` of a batch on the card, with the words of its bitmask
+    launch: (keep (B, K) bool, mask (B, K, ceil(K / 64)) int64, nz (B,
+    ceil(K / 64), ceil(K / 64)) int64, order (B, K) int64), mask and nz as
+    csrc/nms.cu's first launch leaves them (written only where nz marks a
+    word, and on the diagonal), order the sorted entries' input indices.
+    The same launches as ``nms_mask``, counted in
+    ``nms_sorted_keep.launches``; CUDA tensors only."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f'nms_mask_words: boxes must be (B, K, 4), got '
+                         f'{tuple(boxes.shape)}')
+    sboxes, svalid, order = _sorted_for_nms(boxes, scores, valid_mask)
+    _check_sorted('nms_mask_words', sboxes, svalid, order)
+    if sboxes.device.type != 'cuda':
+        raise RuntimeError(f'nms_mask_words: no kernel for {sboxes.device}')
+    out = _nms_kernel('nms_mask_words', sboxes, svalid, None, order,
+                      iou_threshold, with_words=True)
+    nms_sorted_keep.launches += 1
+    return out + (order,)
 
 
 @_batched

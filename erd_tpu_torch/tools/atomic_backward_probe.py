@@ -7,8 +7,9 @@ the CARAFE backward (10b) and forward (row 10), the point-sample backward
 (13a-b), the fused GFL loss (row 3), ATSS (row 6), the fused ERD
 distillation (row 4), the ERS selection (row 5), the soft-NMS scan (11a),
 the CornerNet corner targets (row 15), the point-sample forward (13a),
-the mask targets (row 14), and the call times of the corner-pool backward
-(12a-b). Run from the repository root:
+the mask targets (row 14), the GFL decode (row 2), the matrix decay
+(12b), fast NMS (12c), nms_match's leader (12d), and the call times of
+the corner-pool backward (12a-b). Run from the repository root:
 
     python3 -m erd_tpu_torch.tools.atomic_backward_probe [--only 11a,15]
 
@@ -169,11 +170,22 @@ conv_offset and sampling weights arranged):
    ``mask_matrix_decay`` on inter and area where the tree has it (graph,
    events, launches, error against plain, host time); the box form
    ``matrix_nms`` at K = 2000.
+20. 12c, fast NMS (``probe_fast_nms``), and 21. 12d, nms_match's leader
+   (``probe_nms_match``), at the calls of ``nms_op_calls``
+   (``chip_smoke.random_nms_inputs`` at K = 2000 over 80 classes, the same
+   boxes with every label 0 (fast NMS alone: nms_match reads no labels),
+   and K = 10000 over 80 classes): ``fast_nms`` as users call it, from
+   unsorted inputs (one launch); ``nms_match``, its leader kernel alone on
+   row 1's words, and row 1's ``nms_mask`` alone; by graph replays,
+   events (the eager call), a CUDA graph's launches, plain, the function's
+   bound, the keep masks and leaders against plain (exactly); the
+   ``FAST_NMS_PARTS`` / ``LEADER_PARTS`` variants where they fit the
+   source.
 
 A variant whose edits do not fit the source (another design's) is "not
 measured". ``--only 9,7b`` runs the named parts alone, in that order (the
 parts: 8b, 9b, 9, 7b, 1, 7, 10b, 10, 13a-b, 3, 6, 4, 5, 11a, 11a-floor,
-15, 13a, 14, 2, 12b, others).
+15, 13a, 14, 2, 12b, 12c, 12d, others).
 
 Prints a line per measurement and, last, one JSON object of them all.
 """
@@ -3333,6 +3345,214 @@ def probe_decay(smoke, report):
     torch.cuda.empty_cache()
 
 
+def nms_op_calls(smoke, one_class=True):
+    """[(name, boxes, scores, labels, valid)] of parts 12c and 12d, each
+    (1, K, ...) on the card from RandomState(31): ``random_nms_inputs`` at
+    K = 2000 over 80 classes (the kernel table's call), the same boxes
+    with every label 0 where ``one_class`` (a class-bucketed design's
+    worst case; nms_match reads no labels, so part 12d leaves it out),
+    and K = 10000 over 80 classes (near the largest K the repo's NMS
+    sees, 8819)."""
+    import numpy as np
+    calls = []
+    for name, k, one in (('K=2000 80 classes', 2000, False),
+                         ('K=2000 one class', 2000, True),
+                         ('K=10000 80 classes', 10000, False)):
+        if one and not one_class:
+            continue
+        boxes, sc, labels, valid = smoke.random_nms_inputs(
+            np, torch, np.random.RandomState(31), k, smoke.NUM_CLASSES)
+        if one:
+            labels = torch.zeros_like(labels)
+        calls.append((name, boxes, sc, labels, valid))
+    return calls
+
+
+def live_boxes(sc, valid):
+    """The boxes an NMS op can keep: valid, scored neither NaN nor -inf."""
+    return valid & (sc == sc) & (sc > float('-inf'))
+
+
+def timed_calls(smoke, fns, want, what):
+    """{name: graph ms, events ms (``eager_ms``), launches of a CUDA
+    graph's nodes, equal to ``want``} of each call of ``fns`` (a variant,
+    named ``variant ...``, is timed and not gated); raises where a gated
+    call differs from ``want``."""
+    out = {}
+    for name, fn in fns.items():
+        got = fn()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got.cpu(), want.cpu()))
+        if not same and not name.startswith('variant '):
+            raise RuntimeError(f'probe {what} {name}: differs from plain')
+        out[name] = dict(graph_ms=smoke.graph_ms(torch, fn, 20),
+                         events_ms=eager_ms(smoke, fn),
+                         launches=graph_launches(fn), equal=same)
+    return out
+
+
+def print_calls(part, call, row, head):
+    print(f'probe {part} {call}: {head}; ' + '; '.join(
+        f'{k}: graph {v["graph_ms"]:.4f} ms, events {v["events_ms"]:.4f}, '
+        f'{v["launches"]} launches, equal {v["equal"]}'
+        for k, v in row['calls'].items()), flush=True)
+
+
+# edits of csrc/extra_nms.cu for part 12c (on no path): the fast-NMS
+# kernel with 2 or 4 columns a warp (the plan's 1 on the path's calls), at
+# most 1 or 4 blocks an SM in all (the plan's 2);
+# returning at once (a launch's own cost); with no column walked (the
+# staging, both passes, and the keep flags written); with no column taken
+# (the staging alone); with pass 1 alone (the buckets counted); at 256
+# threads a block; with 4 boxes a lane in flight in pass 1 (the plan's 8);
+# with 1, 4 or 8 bucket members a lane in flight in the walk (the plan's 2)
+FAST_NMS_PARTS = {
+    **{f'cols_{c}': ({'constexpr int kFastColsPerWarp = 1;':
+                      f'constexpr int kFastColsPerWarp = {c};'},)
+       for c in (2, 4)},
+    **{f'blocks_{m}x': ({'2 * sms / batch': f'{m} * sms / batch'},)
+       for m in (1, 4)},
+    'empty': ({'  uint16_t* bucket = reinterpret_cast<uint16_t*>(members + '
+               'n);': '  uint16_t* bucket = reinterpret_cast<uint16_t*>('
+               'members + n);\n  if (n > 0) return;'},),
+    'no_walk': ({'p0 < end && !hit; p0 += 32 * kFastWalk) {':
+                 'p0 < end && !hit && n < 0; p0 += 32 * kFastWalk) {'},),
+    **{f'walk_{w}': ({'constexpr int kFastWalk = 2;':
+                      f'constexpr int kFastWalk = {w};'},)
+       for w in (1, 4, 8)},
+    'no_columns': ({'for (int j = j0 + warp; j < j1; j += kFastWarps) {':
+                    'for (int j = j0 + warp; j < j1 && n < 0; '
+                    'j += kFastWarps) {'},),
+    'pass1_only': ({'for (int j = j0 + warp; j < j1; j += kFastWarps) {':
+                    'for (int j = j0 + warp; j < j1 && n < 0; '
+                    'j += kFastWarps) {',
+                    'for (int base = warp * 32; base < n; base += '
+                    'kFastThreads) {':
+                    'for (int base = warp * 32; base < n && n < 0; '
+                    'base += kFastThreads) {'},),
+    'threads_256': ({'constexpr int kFastThreads = 512;':
+                     'constexpr int kFastThreads = 256;'},),
+    'stage_4': ({'constexpr int kFastStage = 8;':
+                 'constexpr int kFastStage = 4;'},),
+}
+
+
+def probe_fast_nms(smoke, report):
+    """Part 12c, fast NMS, at the calls of ``nms_op_calls``, IoU 0.5:
+    ``fast_nms`` as users call it, from the unsorted inputs (its kernel's
+    one launch; graph, events, launches), plain (events; the sort
+    formulation on the card), the function's bound
+    (``chip_smoke.bound_of``: the unsorted boxes, scores, labels and valid
+    flags read, the keep mask written; the live boxes' same-class pairs x
+    15 operations), the keep masks against plain; the ``FAST_NMS_PARTS``
+    variants."""
+    ops = importlib.import_module('erd_tpu_torch.ops.extra_nms')
+    thr = 0.5
+    rows = []
+    for name, boxes, sc, labels, valid in nms_op_calls(smoke):
+        k = boxes.shape[1]
+
+        def kernel():
+            return ops.fast_nms(boxes, sc, labels, thr, valid)
+
+        def plain():
+            return ops.fast_nms_plain(boxes, sc, labels, thr, valid)
+        want = plain()
+        fns = {'fast_nms (whole op, one launch)': kernel}
+        for v, alts in FAST_NMS_PARTS.items():
+            lib = variant_lib('extra_nms', f'fast_{v}', alts)
+            if lib is not None:
+                fns[f'variant {v}'] = functools.partial(
+                    with_lib, 'extra_nms', lib, kernel)
+        live = live_boxes(sc, valid)[0]
+        counts = torch.bincount(labels[0][live]).double()
+        pairs = float((counts * (counts - 1) / 2).sum())
+        bms, by = smoke.bound_of(k * (16 + 4 + 8 + 1 + 1), pairs * 15.0)
+        row = dict(call=name, k=k, live=int(live.sum()),
+                   kept=int(want.sum()), same_class_pairs=pairs,
+                   bound_ms=bms, bound_by=by,
+                   plain_ms=smoke.events_ms(torch, plain, 3),
+                   calls=timed_calls(smoke, fns, want, '12c'))
+        rows.append(row)
+        print_calls('12c', name, row,
+                    f'{row["live"]} live, {row["kept"]} kept, '
+                    f'{pairs:.0f} same-class pairs, plain '
+                    f'{row["plain_ms"]:.3f} ms, bound {bms:.6f} ({by})')
+    report['12c'] = dict(calls=rows)
+    torch.cuda.empty_cache()
+
+
+# edits of csrc/nms.cu for part 12d (on no path): the leader kernel
+# returning at once (its launch's own cost), with 4 or 16 rows a thread in
+# flight (the plan's 8)
+LEADER_PARTS = {
+    'empty': ({'  const int col_tile = blockIdx.x;':
+               '  if (k > 0) return;\n  const int col_tile = blockIdx.x;'},),
+    **{f'rows_{r}': ({'constexpr int kLeaderRows = 8;':
+                      f'constexpr int kLeaderRows = {r};'},)
+       for r in (4, 16)},
+}
+
+
+def probe_nms_match(smoke, report):
+    """Part 12d, nms_match's leader, at the calls of ``nms_op_calls`` but
+    the one-class one, IoU 0.5 (nms_match reads no labels): row 1's
+    ``nms_mask`` alone, ``nms_match`` as users call it (row 1 and the
+    leader), and the leader kernel alone (from row 1's words as
+    ``nms_mask_words`` gives them, made before the timing), each by graph,
+    events and launches; plain (events; ``nms_match_leader_plain`` from
+    the boxes); the function's bound (the boxes, scores, keep and valid
+    flags read, the leaders written; K x kept x 15 operations); keep
+    masks and leaders against plain; the ``LEADER_PARTS`` variants."""
+    ops = importlib.import_module('erd_tpu_torch.ops.extra_nms')
+    nms = importlib.import_module('erd_tpu_torch.ops.nms')
+    thr = 0.5
+    rows = []
+    for name, boxes, sc, _, valid in nms_op_calls(smoke, one_class=False):
+        k = boxes.shape[1]
+        keep = nms.nms_mask(boxes, sc, thr, valid_mask=valid)
+        want = ops.nms_match_leader_plain(boxes, sc, keep, valid, thr)
+        got_keep, *words = nms.nms_mask_words(boxes, sc, thr, valid)
+        if not torch.equal(got_keep, keep):
+            raise RuntimeError('probe 12d: nms_mask_words\' keep mask '
+                               'differs from nms_mask\'s')
+
+        def leader():
+            return ops._nms_match_leader(boxes, sc, valid, thr, keep,
+                                         *words)
+        fns = {'leader alone': leader,
+               'nms_match (whole op)': lambda: ops.nms_match(
+                   boxes, sc, thr, valid)[1]}
+        for v, alts in LEADER_PARTS.items():
+            lib = variant_lib('nms', f'leader_{v}', alts)
+            if lib is not None:
+                fns[f'variant {v}'] = functools.partial(
+                    with_lib, 'nms', lib, leader)
+        kept = int(keep.sum())
+        bms, by = smoke.bound_of(k * (16 + 4 + 1 + 1 + 8), k * kept * 15.0)
+        row = dict(call=name, k=k, live=int(live_boxes(sc, valid).sum()),
+                   kept=kept, leaders=int((want >= 0).sum()),
+                   groups=int(torch.unique(want[want >= 0]).numel()),
+                   bound_ms=bms, bound_by=by,
+                   plain_ms=smoke.events_ms(torch, lambda: (
+                       ops.nms_match_leader_plain(boxes, sc, keep, valid,
+                                                  thr)), 3),
+                   calls=timed_calls(smoke, fns, want, '12d'))
+        mask_fn = functools.partial(nms.nms_mask, boxes, sc, thr,
+                                    valid_mask=valid)
+        row['calls']['nms_mask alone (row 1)'] = dict(
+            graph_ms=smoke.graph_ms(torch, mask_fn, 20),
+            events_ms=eager_ms(smoke, mask_fn),
+            launches=graph_launches(mask_fn), equal=True)
+        rows.append(row)
+        print_calls('12d', name, row,
+                    f'{row["live"]} live, {kept} kept, {row["leaders"]} '
+                    f'with a leader in {row["groups"]} groups, plain '
+                    f'{row["plain_ms"]:.3f} ms, bound {bms:.6f} ({by})')
+    report['12d'] = dict(calls=rows)
+    torch.cuda.empty_cache()
+
+
 PARTS = {'8b': probe_deform, '9b': probe_attention,
          '9': probe_attention_forward, '7b': probe_roi_backward,
          '1': probe_nms, '7': probe_roi_forward, '10b': probe_carafe,
@@ -3341,8 +3561,8 @@ PARTS = {'8b': probe_deform, '9b': probe_attention,
          '5': probe_ers, '11a': probe_soft_nms,
          '11a-floor': probe_soft_nms_floor, '15': probe_corner_targets,
          '13a': probe_point_forward, '14': probe_mask_targets,
-         '2': probe_decode, '12b': probe_decay,
-         'others': probe_other_backwards}
+         '2': probe_decode, '12b': probe_decay, '12c': probe_fast_nms,
+         '12d': probe_nms_match, 'others': probe_other_backwards}
 
 
 def main(argv=None) -> int:

@@ -2655,13 +2655,12 @@ def test_extra_nms_kernels_match_plain(cuda):
     1e-6 relative of the plain versions, zeros equal; fast NMS and
     nms_match at K = 2000, 80 classes, exactly; two counted launches per
     matrix NMS call on boxes or an IoU (comp, then the decay), one per
-    fused call, fast NMS and nms_match call."""
-    from erd_tpu_torch.ops import (fast_nms, fast_nms_keep,
-                                   mask_matrix_decay, mask_matrix_decay_plain,
-                                   matrix_decay, matrix_decay_plain,
-                                   matrix_nms, matrix_nms_plain, nms_match,
-                                   nms_match_leader)
-    from erd_tpu_torch.ops.extra_nms import fast_nms_keep_plain
+    fused call and fast NMS call (from the unsorted inputs), row 1's call
+    and one leader launch per nms_match call."""
+    from erd_tpu_torch.ops import (fast_nms, mask_matrix_decay,
+                                   mask_matrix_decay_plain, matrix_decay,
+                                   matrix_decay_plain, matrix_nms,
+                                   matrix_nms_plain, nms_match)
     rs = np.random.RandomState(21)
     cases = [extra_nms_case(rs, 2000, 80) for _ in range(2)]
     boxes, scores, labels, valid = (torch.stack(t) for t in zip(*cases))
@@ -2698,21 +2697,135 @@ def test_extra_nms_kernels_match_plain(cuda):
     assert torch.equal(fused.cpu() == 0, want == 0)
     np.testing.assert_allclose(fused.cpu().numpy(), want.numpy(), rtol=1e-6,
                                atol=0)
-    before = fast_nms_keep.launches
+    before = fast_nms.launches
     got = fast_nms(boxes.to(cuda), scores.to(cuda), labels.to(cuda), 0.5,
                    valid.to(cuda))
-    assert fast_nms_keep.launches == before + 1
-    sc = torch.where(valid, scores, torch.full_like(scores, float('-inf')))
-    neg, order = torch.sort(-sc, dim=-1, stable=True)
-    want = fast_nms_keep_plain(take_rows(boxes, order),
-                               torch.gather(labels, 1, order),
-                               neg < float('inf'), order, 0.5)
+    assert fast_nms.launches == before + 1
+    want = fast_nms(boxes, scores, labels, 0.5, valid)
     assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < want.numel()
-    before = nms_match_leader.launches
+    before = (nms_sorted_keep.launches, nms_match.launches)
     keep, leader = nms_match(boxes.to(cuda), scores.to(cuda), 0.5,
                              valid.to(cuda))
-    assert nms_match_leader.launches == before + 1
+    assert (nms_sorted_keep.launches, nms_match.launches) == (
+        before[0] + 1, before[1] + 1)
     want_keep, want_leader = nms_match(boxes, scores, 0.5, valid)
+    assert torch.equal(keep.cpu(), want_keep)
+    assert torch.equal(leader.cpu(), want_leader)
+
+
+SPECIAL_SCORES = np.float32([np.nan, np.inf, -np.inf, -0.0, 0.0])
+WIDE_LABELS = np.int64([2 ** 40 + 3, -7, -2 ** 62, 5, 2 ** 40 + 1027])
+
+
+def nms_edge_case(seed, b, k, labels='few'):
+    """(boxes, scores, labels, valid), (B, K, ...) on the CPU, as
+    tests/test_torch_fastnms_match.py's edge cases: boxes around two
+    centres with duplicates and zero-area boxes, 1/8-grid scores of which
+    ~30 % are NaN, +inf, -inf, -0 or +0, ~15 % invalid; 3 classes, one
+    class, or large and negative int64 labels equal modulo 1024 in
+    pairs."""
+    rs = np.random.RandomState(seed)
+    c = rs.uniform(30, 60, (b, 2, 2))[np.arange(b)[:, None],
+                                      rs.randint(2, size=(b, k))] + \
+        rs.normal(0, 6, (b, k, 2))
+    wh = rs.uniform(4, 30, (b, k, 2))
+    boxes = np.round(np.concatenate([c - wh / 2, c + wh / 2], -1) * 4) / 4
+    dup = rs.rand(b, k) < 0.15
+    boxes[dup] = boxes.reshape(-1, 4)[rs.randint(b * k,
+                                                 size=int(dup.sum()))]
+    flat = rs.rand(b, k) < 0.08
+    boxes[flat, 2] = boxes[flat, 0]
+    scores = (rs.randint(0, 8, (b, k)) / 8).astype(np.float32)
+    odd = rs.rand(b, k) < 0.3
+    scores[odd] = SPECIAL_SCORES[rs.randint(5, size=int(odd.sum()))]
+    lab = {'few': rs.randint(0, 3, (b, k)),
+           'one': np.zeros((b, k), np.int64),
+           'wide': WIDE_LABELS[rs.randint(5, size=(b, k))]}[labels]
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(scores), torch.from_numpy(lab.astype(np.int64)),
+            torch.from_numpy(rs.rand(b, k) > 0.15))
+
+
+@pytest.mark.parametrize('seed,b,k,labels,thr', [
+    (0, 1, 37, 'few', 0.5), (1, 2, 37, 'one', 0.5), (2, 1, 37, 'wide', 0.5),
+    (3, 2, 100, 'few', 1.0), (4, 1, 100, 'one', 0.3), (5, 2, 130, 'few', 1.5),
+    (6, 1, 1, 'few', 0.5), (7, 2, 700, 'wide', 0.3), (8, 1, 3000, 'one', 0.5),
+    (9, 3, 2100, 'few', 0.0)])
+@pytest.mark.parametrize('masked', [False, True])
+def test_fast_nms_and_nms_match_kernels_on_edge_cases(cuda, seed, b, k,
+                                                      labels, thr, masked):
+    """fast NMS (int64 and int32 labels) and nms_match on the card against
+    their plain versions on the CPU, exactly, on the edge cases of the
+    kernels' rules (tests/test_torch_fastnms_match.py holds the plain
+    versions to erd_tpu on them): one fast-NMS launch a call; nms_match
+    row 1's call and one leader launch."""
+    from erd_tpu_torch.ops import fast_nms, nms_match
+    boxes, scores, lab, valid = nms_edge_case(seed, b, k, labels)
+    valid = valid if masked else None
+    dev = [t.to(cuda) for t in (boxes, scores, lab)]
+    dvalid = None if valid is None else valid.to(cuda)
+    want = fast_nms(boxes, scores, lab, thr, valid)
+    for wide in (True, False):
+        before = fast_nms.launches
+        got = fast_nms(dev[0], dev[1], dev[2] if wide else dev[2].int(), thr,
+                       dvalid)
+        assert fast_nms.launches == before + 1
+        assert torch.equal(got.cpu(), want), wide
+    before = (nms_sorted_keep.launches, nms_match.launches)
+    keep, leader = nms_match(dev[0], dev[1], thr, dvalid)
+    assert (nms_sorted_keep.launches, nms_match.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_keep, want_leader = nms_match(boxes, scores, thr, valid)
+    assert torch.equal(keep.cpu(), want_keep)
+    assert torch.equal(leader.cpu(), want_leader)
+
+
+def test_fast_nms_kernel_at_its_shared_memory_limit(cuda):
+    """At FAST_NMS_MAX_K boxes an image (its buckets, warp sums, members
+    and boxes' buckets fill all but a few bytes of a block's 227 KB) fast
+    NMS is one launch and equal to plain, class by class (a class's boxes
+    keep their order and see no other class; the whole (K, K) plain call
+    would take ~50 GB); one box more raises ValueError before any
+    launch."""
+    from erd_tpu_torch.ops import fast_nms, fast_nms_plain
+    from erd_tpu_torch.ops.extra_nms import (FAST_NMS_MAX_K,
+                                             MAX_BLOCK_SHARED, fast_nms_smem)
+    k = FAST_NMS_MAX_K
+    assert fast_nms_smem(k) <= MAX_BLOCK_SHARED < fast_nms_smem(k + 1)
+    boxes, scores, labels, valid = (
+        t[None].to(cuda) for t in extra_nms_case(np.random.RandomState(24),
+                                                 k + 1, 80))
+    before = fast_nms.launches
+    got = fast_nms(boxes[:, :k], scores[:, :k], labels[:, :k], 0.5,
+                   valid[:, :k])
+    torch.cuda.synchronize()
+    assert fast_nms.launches == before + 1
+    want = torch.zeros_like(got)
+    for c in labels[0, :k].unique():
+        idx = torch.nonzero(labels[0, :k] == c)[:, 0]
+        want[0, idx] = fast_nms_plain(boxes[:, idx], scores[:, idx],
+                                      labels[:, idx], 0.5, valid[:, idx])[0]
+    assert torch.equal(got, want) and 0 < int(want.sum()) < k
+    with pytest.raises(ValueError, match='at most'):
+        fast_nms(boxes, scores, labels, 0.5, valid)
+    assert fast_nms.launches == before + 1
+
+
+def test_nms_match_kernel_nan_scored_box_takes_a_later_leader(cuda):
+    """A valid box scored NaN has no suppression word (row 1's sort puts it
+    first): the kernel takes it the long way, to the first kept box that
+    overlaps it in row 1's order, which comes later; a +inf leader gives
+    -1."""
+    from erd_tpu_torch.ops import nms_match
+    boxes = torch.tensor([[0, 0, 10, 10], [1, 1, 11, 11], [0, 1, 10, 11],
+                          [50, 50, 60, 60], [51, 50, 61, 60],
+                          [100, 100, 110, 110], [101, 101, 111, 111]],
+                         dtype=torch.float32)
+    scores = torch.tensor([float('nan'), 0.5, 0.25, 0.75, float('nan'),
+                           float('inf'), 0.5])
+    keep, leader = nms_match(boxes.to(cuda), scores.to(cuda), 0.5)
+    want_keep, want_leader = nms_match(boxes, scores, 0.5)
+    assert want_leader.tolist() == [1, 1, 1, 3, 3, -1, -1]
     assert torch.equal(keep.cpu(), want_keep)
     assert torch.equal(leader.cpu(), want_leader)
 

@@ -18,10 +18,11 @@ import torch
 
 from erd_tpu.ops import extra_nms as j_extra
 from erd_tpu.ops.sampling import masked_conv2d as j_masked_conv2d
-from erd_tpu_torch.ops import (fast_nms, fast_nms_keep, masked_conv2d,
+from erd_tpu_torch.ops import (fast_nms, fast_nms_plain, masked_conv2d,
                                masked_conv2d_plain, matrix_decay,
-                               matrix_decay_plain, matrix_nms, nms_match,
-                               nms_match_leader, nms_sorted_keep)
+                               matrix_decay_plain, matrix_nms, nms_mask,
+                               nms_match, nms_match_leader_plain,
+                               nms_sorted_keep)
 
 torch.set_num_threads(2)
 
@@ -241,15 +242,23 @@ def test_masked_conv_tile_is_the_largest_that_fills_the_card(p, co, tile):
 # --------------------------------------------- routing and launch counts
 def test_wrappers_route_cpu_to_plain_and_never_fall_back():
     """CPU tensors take the plain versions and count no launch; any other
-    device launches the kernel or raises (here: no kernel for meta)."""
-    counters = (matrix_decay, matrix_nms, fast_nms_keep, nms_match_leader,
+    device launches the kernel or raises (here: no kernel for meta), fast
+    NMS from its unsorted inputs and nms_match's leader from row 1's
+    call."""
+    counters = (matrix_decay, matrix_nms, fast_nms, nms_match,
                 masked_conv2d, nms_sorted_keep)
     before = [c.launches for c in counters]
     boxes, scores, labels, valid = tied_case(5, 20)
     matrix_nms(t(boxes), t(scores), t(labels))
     matrix_decay(t(scores), torch.rand(20, 20), t(labels))
-    fast_nms(t(boxes), t(scores), t(labels), 0.5)
-    nms_match(t(boxes), t(scores), 0.5)
+    assert torch.equal(
+        fast_nms(t(boxes), t(scores), t(labels), 0.5, t(valid)),
+        fast_nms_plain(t(boxes)[None], t(scores)[None], t(labels)[None],
+                       0.5, t(valid)[None])[0])
+    keep, leader = nms_match(t(boxes), t(scores), 0.5)
+    assert torch.equal(keep, nms_mask(t(boxes), t(scores), 0.5))
+    assert torch.equal(leader, nms_match_leader_plain(
+        t(boxes), t(scores), keep, None, 0.5))
     x, w = torch.randn(1, 3, 6, 6), torch.randn(4, 3, 3, 3)
     mask = torch.rand(1, 6, 6) < 0.5
     assert torch.equal(masked_conv2d(x, mask, w),
@@ -265,9 +274,9 @@ def test_wrappers_route_cpu_to_plain_and_never_fall_back():
     with pytest.raises(RuntimeError, match='no kernel'):
         matrix_decay(m['s'], torch.zeros(1, 8, 8, device=meta), m['l'])
     with pytest.raises(RuntimeError, match='no kernel'):
-        fast_nms_keep(m['b'], m['l'], m['v'], m['l'], 0.5)
+        fast_nms(m['b'], m['s'], m['l'], 0.5)
     with pytest.raises(RuntimeError, match='no kernel'):
-        nms_match_leader(m['b'], m['s'], m['v'], m['v'], 0.5)
+        nms_match(m['b'], m['s'], 0.5, m['v'])
     with pytest.raises(RuntimeError, match='no kernel'):
         masked_conv2d(torch.zeros(1, 3, 6, 6, device=meta),
                       torch.ones(1, 6, 6, device=meta),

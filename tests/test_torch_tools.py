@@ -175,7 +175,7 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     from erd_tpu_torch.tools import atomic_backward_probe as probe
     parts = ['8b', '9b', '9', '7b', '1', '7', '10b', '10', '13a-b', '3',
              '6', '4', '5', '11a', '11a-floor', '15', '13a', '14', '2', '12b',
-             'others']
+             '12c', '12d', 'others']
     assert list(probe.PARTS) == parts
     assert probe.main(['--only', '1,nms']) == 2
     assert str(parts) in capsys.readouterr().err
@@ -188,6 +188,7 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     assert probe.main(['--only', '11a,15']) == 1
     assert probe.main(['--only', '13a,14']) == 1
     assert probe.main(['--only', '2,12b']) == 1
+    assert probe.main(['--only', '12c,12d']) == 1
 
 
 @pytest.mark.parametrize('name,parts,parent_only', [
@@ -209,13 +210,16 @@ def test_probe_parts_and_refusals(capsys, monkeypatch):
     ('point_sample', 'POINT_FORWARD_PARTS', ()),
     ('mask_target', 'MASK_TARGET_PARTS', ()),
     ('integral_decode', 'DECODE_PARTS', ()),
-    ('extra_nms', 'MASK_DECAY_PARTS', ())])
+    ('extra_nms', 'MASK_DECAY_PARTS', ()),
+    ('extra_nms', 'FAST_NMS_PARTS', ()),
+    ('nms', 'LEADER_PARTS', ())])
 def test_probe_variants_fit_the_kernel_sources(name, parts, parent_only):
-    """Parts 7, 10b, 10, 13a-b, 3, 6, 4, 5, 11a, 13a, 14, 2 and 12b build
-    their variants from edited copies of csrc/roi_align.cu,
+    """Parts 7, 10b, 10, 13a-b, 3, 6, 4, 5, 11a, 13a, 14, 2, 12b, 12c and
+    12d build their variants from edited copies of csrc/roi_align.cu,
     csrc/carafe.cu, csrc/point_sample.cu, csrc/gfl_loss.cu, csrc/atss.cu,
     csrc/erd_distill.cu, csrc/ers_select.cu, csrc/soft_nms.cu,
-    csrc/mask_target.cu, csrc/integral_decode.cu and csrc/extra_nms.cu (the
+    csrc/mask_target.cu, csrc/integral_decode.cu, csrc/extra_nms.cu and
+    csrc/nms.cu (the
     parents of parts 3 and
     4: of their Triton modules ops/gfl_loss.py and ops/erd_distill.py):
     every variant but the parent designs' (marked
